@@ -18,6 +18,9 @@ from rho_diffusion_tpu_torch.diffusion import schedule as _schedule  # noqa: F40
 from rho_diffusion_tpu_torch.models import conditioning as _conditioning  # noqa: F401
 from rho_diffusion_tpu_torch.models import unet as _unet  # noqa: F401
 from rho_diffusion_tpu_torch.data import synthetic as _synthetic  # noqa: F401
+from rho_diffusion_tpu_torch.metrics import losses as _losses  # noqa: F401
+from rho_diffusion_tpu_torch.training import loggers as _loggers  # noqa: F401
+from rho_diffusion_tpu_torch.training import optimizers as _optimizers  # noqa: F401
 
 from rho_diffusion_tpu_torch.config import ExperimentConfig  # noqa: F401
 from rho_diffusion_tpu_torch.diffusion.ddpm import DDPM, ddpm_reverse_step, q_sample  # noqa: F401

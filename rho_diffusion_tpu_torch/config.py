@@ -149,3 +149,19 @@ class ExperimentConfig:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+def apply_torch_checkpoint_schedule_fixup(config: ExperimentConfig, ckpt) -> bool:
+    """With a reference-trained ``.pth`` under a cosine schedule, switch the
+    schedule to the reference's exact coefficient table
+    (``exact_reference=True``), as the JAX package's CLIs do. Returns True
+    when it did."""
+    if (
+        ckpt
+        and str(ckpt).endswith((".pth", ".pt"))
+        and config.noise_schedule.name == "CosineBetaSchedule"
+        and "exact_reference" not in config.noise_schedule.kwargs
+    ):
+        config.noise_schedule.kwargs["exact_reference"] = True
+        return True
+    return False

@@ -3,12 +3,21 @@
 //
 // Replaces the TPU kernels `_fwd_kernel_onepass` (whole K/V in one block) and
 // `_fwd_kernel` (online softmax over K blocks) in
-// rho_diffusion_tpu/ops/pallas/flash_attention.py:59-175, forward-only as the
-// sampling path calls them (with_lse=False): per (batch, head)
+// rho_diffusion_tpu/ops/pallas/flash_attention.py:59-175: per (batch, head)
 //   O = softmax(Q K^T / sqrt(D)) V
 // with fp32 scores, P cast to the V dtype before P.V, fp32 accumulation, the
 // row sum divided out at the end as 1/max(l, 1e-30), and key columns past the
-// true length masked to -1e30. No log-sum-exp is written.
+// true length masked to -1e30.
+//
+// Log-sum-exp: when the call will be differentiated the caller passes an fp32
+// `lse` [B, H, Tq] and each row's log-sum-exp is written there IN BASE 2 of
+// the scaled scores, lse2 = m + log2(max(l, 1e-30)) with m and l the online
+// softmax's running max and sum (both in base-2 units, since the scores are
+// pre-multiplied by log2(e)/sqrt(D)). It is the natural-log LSE of the TPU
+// kernel (`with_lse`, :107-112) times log2(e), and the backward kernels
+// (flash_attention_bwd.cu) recompute P = exp2(s * log2(e)/sqrt(D) - lse2) in
+// the same base. The sampling path passes a null `lse` and writes nothing,
+// as the TPU's primal path skips it (with_lse=False, :374-380).
 //
 // What bounds it on the H100: at the UNet's shapes (T = 512 or 4096 tokens,
 // D = 128) attention does 4*T*D flops per query row against 4*D bytes of
@@ -83,8 +92,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 template <int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int H,
-                      int Tq, int Tk, long long q_sb, long long q_st, long long q_sh,
+                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ lse, int H, int Tq, int Tk, long long q_sb, long long q_st, long long q_sh,
                       long long k_sb, long long k_st, long long k_sh, long long v_sb,
                       long long v_st, long long v_sh, long long o_sb, long long o_st,
                       long long o_sh, float scale_log2) {
@@ -225,6 +234,11 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
   __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
   const int t0 = q0 + qrow;
+  if (lse != nullptr && (lane & 3) == 0) {  // the quad's 4 lanes hold the same row
+    float* lrow = lse + (long long)blockIdx.y * Tq;
+    if (t0 < Tq) lrow[t0] = m_i[0] + log2f(fmaxf(l0, 1e-30f));
+    if (t0 + 8 < Tq) lrow[t0 + 8] = m_i[1] + log2f(fmaxf(l1, 1e-30f));
+  }
 #pragma unroll
   for (int d = 0; d < ND; ++d) {
     const int col = d * 8 + (lane & 3) * 2;
@@ -238,8 +252,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Tq, int Tk,
-           const long long* st, float scale_log2, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Tq,
+           int Tk, const long long* st, float scale_log2, void* stream) {
   const int smem = (BQ + 2 * BKV) * (HD + 8) * 2;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -247,7 +261,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   dim3 grid((unsigned)((Tq + BQ - 1) / BQ), (unsigned)(B * H));
   flash_fwd_bf16_kernel<HD><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)o, H, Tq, Tk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      (__nv_bfloat16*)o, (float*)lse, H, Tq, Tk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
       st[8], st[9], st[10], st[11], scale_log2);
   return (int)cudaGetLastError();
 }
@@ -259,7 +273,8 @@ constexpr int F32_PLD = F32_BKV + 8;  // P row: a warp's 4 rows on distinct bank
 template <int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int H, int Tq, int Tk,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int H, int Tq, int Tk,
                      long long q_sb, long long q_st, long long q_sh, long long k_sb,
                      long long k_st, long long k_sh, long long v_sb, long long v_st,
                      long long v_sh, long long o_sb, long long o_st, long long o_sh,
@@ -364,6 +379,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int off = 1; off < 8; off <<= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
   const float inv = 1.f / fmaxf(l, 1e-30f);
   const int t = q0 + row;
+  if (lse != nullptr && sub == 0 && t < Tq)
+    lse[(long long)blockIdx.y * Tq + t] = m_i + log2f(fmaxf(l, 1e-30f));
   if (t < Tq) {
     float* orow = o + b * o_sb + h * o_sh + t * o_st + sub;
 #pragma unroll
@@ -372,15 +389,16 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int Tq,
-               int Tk, const long long* st, float scale_log2, void* stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
+               int Tq, int Tk, const long long* st, float scale_log2, void* stream) {
   const int smem = ((F32_BQ + 2 * F32_BKV) * (HD + 4) + F32_BQ * F32_PLD) * 4;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)((Tq + F32_BQ - 1) / F32_BQ), (unsigned)(B * H));
   flash_fwd_f32_kernel<HD><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, H, Tq, Tk, st[0], st[1],
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, (float*)lse, H, Tq, Tk,
+      st[0], st[1],
       st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale_log2);
   return (int)cudaGetLastError();
 }
@@ -390,28 +408,29 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
 extern "C" {
 
 // strides: 12 values, (batch, token, head) element strides of q, k, v, o in turn.
-int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
-                             int Tq, int Tk, int D, const long long* strides, float scale_log2,
-                             void* stream) {
+// lse: null, or fp32 [B, H, Tq] (contiguous) for the base-2 log-sum-exp.
+int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
+                             int B, int H, int Tq, int Tk, int D, const long long* strides,
+                             float scale_log2, void* stream) {
   switch (D) {
-    case 16: return launch<16>(q, k, v, o, B, H, Tq, Tk, strides, scale_log2, stream);
-    case 32: return launch<32>(q, k, v, o, B, H, Tq, Tk, strides, scale_log2, stream);
-    case 64: return launch<64>(q, k, v, o, B, H, Tq, Tk, strides, scale_log2, stream);
-    case 128: return launch<128>(q, k, v, o, B, H, Tq, Tk, strides, scale_log2, stream);
-    case 256: return launch<256>(q, k, v, o, B, H, Tq, Tk, strides, scale_log2, stream);
+    case 16: return launch<16>(q, k, v, o, lse, B, H, Tq, Tk, strides, scale_log2, stream);
+    case 32: return launch<32>(q, k, v, o, lse, B, H, Tq, Tk, strides, scale_log2, stream);
+    case 64: return launch<64>(q, k, v, o, lse, B, H, Tq, Tk, strides, scale_log2, stream);
+    case 128: return launch<128>(q, k, v, o, lse, B, H, Tq, Tk, strides, scale_log2, stream);
+    case 256: return launch<256>(q, k, v, o, lse, B, H, Tq, Tk, strides, scale_log2, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o, int B, int H,
-                            int Tq, int Tk, int D, const long long* strides, float scale_log2,
-                            void* stream) {
+int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse,
+                            int B, int H, int Tq, int Tk, int D, const long long* strides,
+                            float scale_log2, void* stream) {
   switch (D) {
-    case 16: return launch_f32<16>(q, k, v, o, B, H, Tq, Tk, strides, scale_log2, stream);
-    case 32: return launch_f32<32>(q, k, v, o, B, H, Tq, Tk, strides, scale_log2, stream);
-    case 64: return launch_f32<64>(q, k, v, o, B, H, Tq, Tk, strides, scale_log2, stream);
-    case 128: return launch_f32<128>(q, k, v, o, B, H, Tq, Tk, strides, scale_log2, stream);
-    case 256: return launch_f32<256>(q, k, v, o, B, H, Tq, Tk, strides, scale_log2, stream);
+    case 16: return launch_f32<16>(q, k, v, o, lse, B, H, Tq, Tk, strides, scale_log2, stream);
+    case 32: return launch_f32<32>(q, k, v, o, lse, B, H, Tq, Tk, strides, scale_log2, stream);
+    case 64: return launch_f32<64>(q, k, v, o, lse, B, H, Tq, Tk, strides, scale_log2, stream);
+    case 128: return launch_f32<128>(q, k, v, o, lse, B, H, Tq, Tk, strides, scale_log2, stream);
+    case 256: return launch_f32<256>(q, k, v, o, lse, B, H, Tq, Tk, strides, scale_log2, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

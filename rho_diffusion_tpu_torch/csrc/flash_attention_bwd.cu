@@ -1,0 +1,642 @@
+// Flash attention backward (non-causal) for Hopper (sm_90a), bf16 or fp32 in
+// and out (the gradients in the input dtype).
+//
+// Replaces the TPU kernels `_bwd_dkv_kernel` (K3) and `_bwd_dq_kernel` (K4) of
+// rho_diffusion_tpu/ops/pallas/flash_attention.py:209-301, launched by
+// `_flash_backward` (:304-359). As there, two kernels, and P is recomputed
+// from the forward's log-sum-exp instead of being stored:
+//   P   = exp(S - lse),  S = Q K^T / sqrt(D)   (keys past Tk masked out)
+//   dV  = P^T dO                                (dkv)
+//   dP  = dO V^T,  dS = P * (dP - delta),  delta = rowsum(dO * O)
+//   dK  = dS^T Q / sqrt(D)                      (dkv)
+//   dQ  = dS K / sqrt(D)                        (dq)
+// delta is computed by the caller (a PyTorch expression, as the TPU path
+// leaves it to XLA, :308-311). lse is the forward's base-2 log-sum-exp of the
+// scaled scores (flash_attention.cu), so P = exp2(S * log2(e) - lse2).
+//
+// * dkv: one block per (batch*head, 64-key tile). Each of the 4 warps owns 16
+//   keys; the K and V tile stays in shared memory while the block sweeps all
+//   query tiles (64 rows, 32 at head dims >= 128 to bound the registers), and
+//   dK, dV accumulate in fp32 registers.
+// * dq: one block per (batch*head, 64-query tile). Each warp owns 16 queries;
+//   Q and dO stay in shared memory while the block sweeps the 64-key K/V tiles,
+//   and dQ accumulates in fp32 registers.
+// Neither kernel uses atomics: every gradient element is summed by one thread
+// in a fixed order, so the gradients are bitwise the same from run to run.
+// Query rows past Tq get lse = +inf, so their P is exactly 0 and they add
+// nothing; key rows past Tk are masked to P = 0 as the TPU kernels mask them
+// to -inf (:233-234, :284-285).
+//
+// Numerics (bf16): S, P, dP and dS are fp32, as in the TPU kernels. The
+// products run on the tensor cores (mma.sync m16n8k16, fp32 accumulation), so
+// P and dS are rounded to bf16 before P^T dO, dS^T Q and dS K; the TPU kernels
+// keep those products in fp32 (:224, :238-254, :293-297). That is
+// FlashAttention-2's choice: each rounding is a relative error of at most 2^-9
+// per term, and the gradients are rounded to bf16 at the end as in JAX.
+// The fp32 instances (`*_f32_kernel`) do every product in fp32 FMAs on the CUDA
+// cores (no TF32), in the same order of operations.
+//
+// What bounds it on the H100: dkv does 4 products of 2*T*T*D flops per
+// batch*head (S^T, dP^T, dV, dK) and dq 3 (S, dP, dQ), against ~16*T*D bytes
+// of inputs and outputs, so at the UNet's shapes (T = 512, D = 128) both are
+// bound by tensor-core operations once the T x T matrices stay on chip, which
+// the design ensures. The split recomputes S and dP in both kernels: 7 products
+// where FlashAttention-2's fused backward (dQ accumulated with atomics, or a
+// separate reduction) does 5 -- work for a later PR, as are wgmma, TMA and
+// double-buffered tiles.
+//
+// Layout: q, k, v, dout, dq, dk, dv are [B, T, H, D] with D contiguous and any
+// B, T, H strides (multiples of 16 bytes), so the UNet's strided q/k/v views
+// are read in place. lse and delta are fp32 [B, H, Tq], contiguous. D is a
+// template parameter (16..256, multiple of 16); the wrapper pads other dims.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 128;
+constexpr int BKV = 64;  // keys per tile (dkv: per block; dq: per sweep step)
+constexpr int BQ = 64;   // query rows per block (dq)
+
+template <typename T>
+struct BwdArgs {
+  const T* q;
+  const T* k;
+  const T* v;
+  const T* dout;
+  const float* lse;
+  const float* delta;
+  T* dq;
+  T* dk;
+  T* dv;
+  int H, Tq, Tk;
+  float scale;       // 1/sqrt(D) of the true head dim
+  float scale_log2;  // scale * log2(e)
+  // (batch, token, head) element strides of q, k, v, dout, dq, dk, dv in turn
+  long long st[21];
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  int n = pred ? 16 : 0;  // src-size 0 -> the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
+__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// B fragment (16 x 8, k-major) of a row-major [k][n] tile in shared memory.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, const void* p) {
+  unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
+
+__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Copy `rows` rows of a [T, D] slice (row stride `ld_g` elements) starting at
+// token t0 into a padded shared tile; rows past `limit` are zero-filled.
+template <typename T, int HD, int LD>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, long long ld_g, int t0, int rows,
+                                          int limit) {
+  constexpr int PER = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr int CH = HD / PER;
+  for (int c = threadIdx.x; c < rows * CH; c += THREADS) {
+    const int r = c / CH, cc = c % CH;
+    const bool p = t0 + r < limit;
+    cp_async16(&dst[r * LD + cc * PER], p ? src + (t0 + r) * ld_g + cc * PER : src, p);
+  }
+}
+
+// A fragment (16 x 16) of rows r0 and r0 + 8 at column c of a padded bf16 tile.
+__device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* tile, int ld, int r0,
+                                       int c) {
+  a[0] = lds32(&tile[r0 * ld + c]);
+  a[1] = lds32(&tile[(r0 + 8) * ld + c]);
+  a[2] = lds32(&tile[r0 * ld + c + 8]);
+  a[3] = lds32(&tile[(r0 + 8) * ld + c + 8]);
+}
+
+// ---------------------------------------------------------------------------
+// bf16, tensor cores
+// ---------------------------------------------------------------------------
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_bf16_kernel(const BwdArgs<__nv_bfloat16> a) {
+  constexpr int LD = HD + 8;  // padded smem row: conflict-free fragment loads
+  constexpr int ND = HD / 8;  // n8 tiles of dK and dV
+  constexpr int BQB = HD >= 128 ? 32 : 64;  // query columns per sweep step
+  constexpr int NQ = BQB / 8;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + BKV * LD;
+  bf16* Qs = Vs + BKV * LD;
+  bf16* Os = Qs + BQB * LD;  // dO
+  float* lse_s = reinterpret_cast<float*>(Os + BQB * LD);
+  float* dlt_s = lse_s + BQB;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int bh = blockIdx.y;
+  const int b = bh / a.H, h = bh % a.H;
+  const int kv0 = blockIdx.x * BKV;
+  const long long* st = a.st;
+  const bf16* qb = a.q + b * st[0] + h * st[2];
+  const bf16* kb = a.k + b * st[3] + h * st[5];
+  const bf16* vb = a.v + b * st[6] + h * st[8];
+  const bf16* ob = a.dout + b * st[9] + h * st[11];
+  const float* lseb = a.lse + (long long)bh * a.Tq;
+  const float* dltb = a.delta + (long long)bh * a.Tq;
+
+  load_rows<bf16, HD, LD>(Ks, kb, st[4], kv0, BKV, a.Tk);
+  load_rows<bf16, HD, LD>(Vs, vb, st[7], kv0, BKV, a.Tk);
+  cp_async_commit();
+
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[d][e] = dv_acc[d][e] = 0.f;
+
+  const int krow = warp * 16 + (lane >> 2);  // this thread's key rows: krow, krow + 8
+  const bool kin0 = kv0 + krow < a.Tk;
+  const bool kin1 = kv0 + krow + 8 < a.Tk;
+
+  for (int q0 = 0; q0 < a.Tq; q0 += BQB) {
+    __syncthreads();  // the previous query tile is fully consumed
+    load_rows<bf16, HD, LD>(Qs, qb, st[1], q0, BQB, a.Tq);
+    load_rows<bf16, HD, LD>(Os, ob, st[10], q0, BQB, a.Tq);
+    cp_async_commit();
+    if (tid < BQB) {
+      const int t = q0 + tid;
+      lse_s[tid] = t < a.Tq ? lseb[t] : INFINITY;  // P = 0 for padded query rows
+      dlt_s[tid] = t < a.Tq ? dltb[t] : 0.f;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x BQB queries.
+    float s[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int ni = 0; ni < NQ; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[ni][e] = dp[ni][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks) {
+      const int c = ks * 16 + (lane & 3) * 2;
+      uint32_t ka[4], va[4];
+      load_a(ka, Ks, LD, krow, c);
+      load_a(va, Vs, LD, krow, c);
+#pragma unroll
+      for (int ni = 0; ni < NQ; ++ni) {
+        const int n = ni * 8 + (lane >> 2);
+        uint32_t qf[2] = {lds32(&Qs[n * LD + c]), lds32(&Qs[n * LD + c + 8])};
+        uint32_t of[2] = {lds32(&Os[n * LD + c]), lds32(&Os[n * LD + c + 8])};
+        mma_bf16_16816(s[ni], ka, qf);
+        mma_bf16_16816(dp[ni], va, of);
+      }
+    }
+
+    // P^T (into s) and dS^T (into dp), fp32.
+#pragma unroll
+    for (int ni = 0; ni < NQ; ++ni) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = ni * 8 + (lane & 3) * 2 + (e & 1);
+        const bool kin = e < 2 ? kin0 : kin1;
+        const float p = kin ? exp2f(s[ni][e] * a.scale_log2 - lse_s[col]) : 0.f;
+        s[ni][e] = p;
+        dp[ni][e] = p * (dp[ni][e] - dlt_s[col]);
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q: two adjacent n8 score tiles form one
+    // k16 A fragment; dO and Q are the k-major B operands.
+#pragma unroll
+    for (int kk = 0; kk < BQB / 16; ++kk) {
+      uint32_t pa[4], sa[4];
+      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      sa[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
+      sa[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
+      sa[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+      sa[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+      const bf16* orow = &Os[(kk * 16 + (lane & 15)) * LD];
+      const bf16* qrow = &Qs[(kk * 16 + (lane & 15)) * LD];
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        uint32_t f[2];
+        ldmatrix_x2_trans(f, orow + d * 8);
+        mma_bf16_16816(dv_acc[d], pa, f);
+        ldmatrix_x2_trans(f, qrow + d * 8);
+        mma_bf16_16816(dk_acc[d], sa, f);
+      }
+    }
+  }
+
+  bf16* dkb = a.dk + b * st[15] + h * st[17];
+  bf16* dvb = a.dv + b * st[18] + h * st[20];
+  const int t0 = kv0 + krow;
+#pragma unroll
+  for (int d = 0; d < ND; ++d) {
+    const int col = d * 8 + (lane & 3) * 2;
+    if (kin0) {
+      *reinterpret_cast<__nv_bfloat162*>(dkb + t0 * st[16] + col) =
+          __floats2bfloat162_rn(dk_acc[d][0] * a.scale, dk_acc[d][1] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + t0 * st[19] + col) =
+          __floats2bfloat162_rn(dv_acc[d][0], dv_acc[d][1]);
+    }
+    if (kin1) {
+      *reinterpret_cast<__nv_bfloat162*>(dkb + (t0 + 8) * st[16] + col) =
+          __floats2bfloat162_rn(dk_acc[d][2] * a.scale, dk_acc[d][3] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + (t0 + 8) * st[19] + col) =
+          __floats2bfloat162_rn(dv_acc[d][2], dv_acc[d][3]);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS) flash_bwd_dq_bf16_kernel(const BwdArgs<__nv_bfloat16> a) {
+  constexpr int LD = HD + 8;
+  constexpr int ND = HD / 8;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Os = Qs + BQ * LD;  // dO
+  bf16* Ks = Os + BQ * LD;
+  bf16* Vs = Ks + BKV * LD;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int bh = blockIdx.y;
+  const int b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.x * BQ;
+  const long long* st = a.st;
+  const bf16* qb = a.q + b * st[0] + h * st[2];
+  const bf16* kb = a.k + b * st[3] + h * st[5];
+  const bf16* vb = a.v + b * st[6] + h * st[8];
+  const bf16* ob = a.dout + b * st[9] + h * st[11];
+
+  load_rows<bf16, HD, LD>(Qs, qb, st[1], q0, BQ, a.Tq);
+  load_rows<bf16, HD, LD>(Os, ob, st[10], q0, BQ, a.Tq);
+  cp_async_commit();
+
+  const int qrow = warp * 16 + (lane >> 2);  // this thread's query rows: qrow, qrow + 8
+  const long long lrow = (long long)bh * a.Tq + q0 + qrow;
+  const bool qin0 = q0 + qrow < a.Tq, qin1 = q0 + qrow + 8 < a.Tq;
+  const float lse0 = qin0 ? a.lse[lrow] : INFINITY, lse1 = qin1 ? a.lse[lrow + 8] : INFINITY;
+  const float dl0 = qin0 ? a.delta[lrow] : 0.f, dl1 = qin1 ? a.delta[lrow + 8] : 0.f;
+
+  float dq_acc[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[d][e] = 0.f;
+
+  for (int kv0 = 0; kv0 < a.Tk; kv0 += BKV) {
+    __syncthreads();  // the previous K/V tile is fully consumed
+    load_rows<bf16, HD, LD>(Ks, kb, st[4], kv0, BKV, a.Tk);
+    load_rows<bf16, HD, LD>(Vs, vb, st[7], kv0, BKV, a.Tk);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T for this warp's 16 queries x 64 keys.
+    float s[BKV / 8][4], dp[BKV / 8][4];
+#pragma unroll
+    for (int ni = 0; ni < BKV / 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[ni][e] = dp[ni][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks) {
+      const int c = ks * 16 + (lane & 3) * 2;
+      uint32_t qa[4], oa[4];
+      load_a(qa, Qs, LD, qrow, c);
+      load_a(oa, Os, LD, qrow, c);
+#pragma unroll
+      for (int ni = 0; ni < BKV / 8; ++ni) {
+        const int n = ni * 8 + (lane >> 2);
+        uint32_t kf[2] = {lds32(&Ks[n * LD + c]), lds32(&Ks[n * LD + c + 8])};
+        uint32_t vf[2] = {lds32(&Vs[n * LD + c]), lds32(&Vs[n * LD + c + 8])};
+        mma_bf16_16816(s[ni], qa, kf);
+        mma_bf16_16816(dp[ni], oa, vf);
+      }
+    }
+
+    // dS = P * (dP - delta), fp32 (into s).
+#pragma unroll
+    for (int ni = 0; ni < BKV / 8; ++ni) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = kv0 + ni * 8 + (lane & 3) * 2 + (e & 1);
+        const float p = col < a.Tk ? exp2f(s[ni][e] * a.scale_log2 - (e < 2 ? lse0 : lse1)) : 0.f;
+        s[ni][e] = p * (dp[ni][e] - (e < 2 ? dl0 : dl1));
+      }
+    }
+
+    // dQ += dS K: K is the k-major B operand.
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      uint32_t sa[4];
+      sa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      sa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      sa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      sa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      const bf16* krow = &Ks[(kk * 16 + (lane & 15)) * LD];
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        uint32_t f[2];
+        ldmatrix_x2_trans(f, krow + d * 8);
+        mma_bf16_16816(dq_acc[d], sa, f);
+      }
+    }
+  }
+
+  bf16* dqb = a.dq + b * st[12] + h * st[14];
+  const int t0 = q0 + qrow;
+#pragma unroll
+  for (int d = 0; d < ND; ++d) {
+    const int col = d * 8 + (lane & 3) * 2;
+    if (qin0)
+      *reinterpret_cast<__nv_bfloat162*>(dqb + t0 * st[13] + col) =
+          __floats2bfloat162_rn(dq_acc[d][0] * a.scale, dq_acc[d][1] * a.scale);
+    if (qin1)
+      *reinterpret_cast<__nv_bfloat162*>(dqb + (t0 + 8) * st[13] + col) =
+          __floats2bfloat162_rn(dq_acc[d][2] * a.scale, dq_acc[d][3] * a.scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32, CUDA-core FMAs (no TF32). Eight adjacent lanes own one key (dkv) or
+// one query row (dq); lane `sub` of the eight owns columns sub + 8 i, so the
+// eight lanes of a row read eight consecutive words of a shared row, and the
+// row's dot products are finished by three shuffles within the eight.
+// ---------------------------------------------------------------------------
+
+constexpr int F32_ROWS = 16;  // keys (dkv) or query rows (dq) per block
+constexpr int F32_TILE = 64;  // rows of the swept operand staged per step
+
+__device__ __forceinline__ float sum8(float v) {
+#pragma unroll
+  for (int off = 1; off < 8; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_f32_kernel(const BwdArgs<float> a) {
+  constexpr int LD = HD + 4;  // 16-byte rows
+  constexpr int CPT = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* Os = Qs + F32_TILE * LD;  // dO
+  float* lse_s = Os + F32_TILE * LD;
+  float* dlt_s = lse_s + F32_TILE;
+
+  const int tid = threadIdx.x;
+  const int row = tid >> 3, sub = tid & 7;
+  const int bh = blockIdx.y;
+  const int b = bh / a.H, h = bh % a.H;
+  const int key = blockIdx.x * F32_ROWS + row;
+  const bool kin = key < a.Tk;
+  const long long* st = a.st;
+  const float* qb = a.q + b * st[0] + h * st[2];
+  const float* ob = a.dout + b * st[9] + h * st[11];
+  const float* lseb = a.lse + (long long)bh * a.Tq;
+  const float* dltb = a.delta + (long long)bh * a.Tq;
+
+  float kr[CPT], vr[CPT], dk[CPT], dv[CPT];
+  const float* krow = a.k + b * st[3] + h * st[5] + (kin ? key : 0) * st[4];
+  const float* vrow = a.v + b * st[6] + h * st[8] + (kin ? key : 0) * st[7];
+#pragma unroll
+  for (int i = 0; i < CPT; ++i) {
+    kr[i] = kin ? krow[sub + 8 * i] : 0.f;
+    vr[i] = kin ? vrow[sub + 8 * i] : 0.f;
+    dk[i] = dv[i] = 0.f;
+  }
+
+  for (int q0 = 0; q0 < a.Tq; q0 += F32_TILE) {
+    __syncthreads();
+    load_rows<float, HD, LD>(Qs, qb, st[1], q0, F32_TILE, a.Tq);
+    load_rows<float, HD, LD>(Os, ob, st[10], q0, F32_TILE, a.Tq);
+    cp_async_commit();
+    if (tid < F32_TILE) {
+      const int t = q0 + tid;
+      lse_s[tid] = t < a.Tq ? lseb[t] : INFINITY;
+      dlt_s[tid] = t < a.Tq ? dltb[t] : 0.f;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    const int nq = min(F32_TILE, a.Tq - q0);
+    for (int j = 0; j < nq; ++j) {
+      const float* qj = &Qs[j * LD + sub];
+      const float* oj = &Os[j * LD + sub];
+      float s = 0.f, dpv = 0.f;
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) {
+        s = fmaf(kr[i], qj[8 * i], s);
+        dpv = fmaf(vr[i], oj[8 * i], dpv);
+      }
+      s = sum8(s);
+      dpv = sum8(dpv);
+      const float p = kin ? exp2f(s * a.scale_log2 - lse_s[j]) : 0.f;
+      const float ds = p * (dpv - dlt_s[j]);
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) {
+        dv[i] = fmaf(p, oj[8 * i], dv[i]);
+        dk[i] = fmaf(ds, qj[8 * i], dk[i]);
+      }
+    }
+  }
+  if (kin) {
+    float* dkr = a.dk + b * st[15] + h * st[17] + key * st[16] + sub;
+    float* dvr = a.dv + b * st[18] + h * st[20] + key * st[19] + sub;
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      dkr[8 * i] = dk[i] * a.scale;
+      dvr[8 * i] = dv[i];
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS) flash_bwd_dq_f32_kernel(const BwdArgs<float> a) {
+  constexpr int LD = HD + 4;
+  constexpr int CPT = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);
+  float* Vs = Ks + F32_TILE * LD;
+
+  const int tid = threadIdx.x;
+  const int row = tid >> 3, sub = tid & 7;
+  const int bh = blockIdx.y;
+  const int b = bh / a.H, h = bh % a.H;
+  const int t = blockIdx.x * F32_ROWS + row;
+  const bool tin = t < a.Tq;
+  const long long* st = a.st;
+  const float* kb = a.k + b * st[3] + h * st[5];
+  const float* vb = a.v + b * st[6] + h * st[8];
+  const float* qrow = a.q + b * st[0] + h * st[2] + (tin ? t : 0) * st[1];
+  const float* orow = a.dout + b * st[9] + h * st[11] + (tin ? t : 0) * st[10];
+  const float lse = tin ? a.lse[(long long)bh * a.Tq + t] : INFINITY;
+  const float dl = tin ? a.delta[(long long)bh * a.Tq + t] : 0.f;
+
+  float qr[CPT], orr[CPT], dq[CPT];
+#pragma unroll
+  for (int i = 0; i < CPT; ++i) {
+    qr[i] = tin ? qrow[sub + 8 * i] : 0.f;
+    orr[i] = tin ? orow[sub + 8 * i] : 0.f;
+    dq[i] = 0.f;
+  }
+
+  for (int kv0 = 0; kv0 < a.Tk; kv0 += F32_TILE) {
+    __syncthreads();
+    load_rows<float, HD, LD>(Ks, kb, st[4], kv0, F32_TILE, a.Tk);
+    load_rows<float, HD, LD>(Vs, vb, st[7], kv0, F32_TILE, a.Tk);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    const int nk = min(F32_TILE, a.Tk - kv0);  // keys past Tk never enter
+    for (int j = 0; j < nk; ++j) {
+      const float* kj = &Ks[j * LD + sub];
+      const float* vj = &Vs[j * LD + sub];
+      float s = 0.f, dpv = 0.f;
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) {
+        s = fmaf(qr[i], kj[8 * i], s);
+        dpv = fmaf(orr[i], vj[8 * i], dpv);
+      }
+      s = sum8(s);
+      dpv = sum8(dpv);
+      const float ds = exp2f(s * a.scale_log2 - lse) * (dpv - dl);
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) dq[i] = fmaf(ds, kj[8 * i], dq[i]);
+    }
+  }
+  if (tin) {
+    float* dqr = a.dq + b * st[12] + h * st[14] + t * st[13] + sub;
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) dqr[8 * i] = dq[i] * a.scale;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launchers
+// ---------------------------------------------------------------------------
+
+template <typename T>
+BwdArgs<T> make_args(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse, const void* delta, void* dq, void* dk, void* dv, int H,
+                     int Tq, int Tk, const long long* strides, float scale, float scale_log2) {
+  BwdArgs<T> a;
+  a.q = (const T*)q;
+  a.k = (const T*)k;
+  a.v = (const T*)v;
+  a.dout = (const T*)dout;
+  a.lse = (const float*)lse;
+  a.delta = (const float*)delta;
+  a.dq = (T*)dq;
+  a.dk = (T*)dk;
+  a.dv = (T*)dv;
+  a.H = H;
+  a.Tq = Tq;
+  a.Tk = Tk;
+  a.scale = scale;
+  a.scale_log2 = scale_log2;
+  for (int i = 0; i < 21; ++i) a.st[i] = strides[i];
+  return a;
+}
+
+template <typename Kernel, typename Args>
+int run(Kernel kernel, const Args& a, int smem, dim3 grid, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int dkv_bf16(const BwdArgs<__nv_bfloat16>& a, int BH, void* stream) {
+  constexpr int BQB = HD >= 128 ? 32 : 64;
+  const int smem = (2 * BKV + 2 * BQB) * (HD + 8) * 2 + 2 * BQB * 4;
+  return run(flash_bwd_dkv_bf16_kernel<HD>, a, smem, dim3((a.Tk + BKV - 1) / BKV, BH), stream);
+}
+
+template <int HD>
+int dq_bf16(const BwdArgs<__nv_bfloat16>& a, int BH, void* stream) {
+  const int smem = (2 * BQ + 2 * BKV) * (HD + 8) * 2;
+  return run(flash_bwd_dq_bf16_kernel<HD>, a, smem, dim3((a.Tq + BQ - 1) / BQ, BH), stream);
+}
+
+template <int HD>
+int dkv_f32(const BwdArgs<float>& a, int BH, void* stream) {
+  const int smem = (2 * F32_TILE * (HD + 4) + 2 * F32_TILE) * 4;
+  return run(flash_bwd_dkv_f32_kernel<HD>, a, smem,
+             dim3((a.Tk + F32_ROWS - 1) / F32_ROWS, BH), stream);
+}
+
+template <int HD>
+int dq_f32(const BwdArgs<float>& a, int BH, void* stream) {
+  const int smem = 2 * F32_TILE * (HD + 4) * 4;
+  return run(flash_bwd_dq_f32_kernel<HD>, a, smem,
+             dim3((a.Tq + F32_ROWS - 1) / F32_ROWS, BH), stream);
+}
+
+#define DISPATCH_D(FN, ARGS)                                   \
+  switch (D) {                                                 \
+    case 16: return FN<16>(ARGS, B * H, stream);               \
+    case 32: return FN<32>(ARGS, B * H, stream);               \
+    case 64: return FN<64>(ARGS, B * H, stream);               \
+    case 128: return FN<128>(ARGS, B * H, stream);             \
+    case 256: return FN<256>(ARGS, B * H, stream);             \
+    default: return (int)cudaErrorInvalidValue;                \
+  }
+
+}  // namespace
+
+extern "C" {
+
+// All four entry points take the same arguments. strides: 21 values, the
+// (batch, token, head) element strides of q, k, v, dout, dq, dk, dv in turn.
+// lse (base 2) and delta: fp32 [B, H, Tq], contiguous. The dkv entries write
+// dk and dv, the dq entries dq; the other outputs may be null.
+#define BWD_PARAMS                                                                           \
+  const void *q, const void *k, const void *v, const void *dout, const void *lse,            \
+      const void *delta, void *dq, void *dk, void *dv, int B, int H, int Tq, int Tk, int D, \
+      const long long *strides, float scale, float scale_log2, void *stream
+#define BWD_ARGS(T) \
+  make_args<T>(q, k, v, dout, lse, delta, dq, dk, dv, H, Tq, Tk, strides, scale, scale_log2)
+
+int flash_attention_bwd_dkv_bf16(BWD_PARAMS) { DISPATCH_D(dkv_bf16, BWD_ARGS(__nv_bfloat16)) }
+int flash_attention_bwd_dq_bf16(BWD_PARAMS) { DISPATCH_D(dq_bf16, BWD_ARGS(__nv_bfloat16)) }
+int flash_attention_bwd_dkv_f32(BWD_PARAMS) { DISPATCH_D(dkv_f32, BWD_ARGS(float)) }
+int flash_attention_bwd_dq_f32(BWD_PARAMS) { DISPATCH_D(dq_f32, BWD_ARGS(float)) }
+
+const char* flash_attention_bwd_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

@@ -1,11 +1,22 @@
-"""Abstract diffusion pipeline, sampling half.
+"""Abstract diffusion pipeline: construction, the model call, sampling
+helpers and the training step.
 
-Port of the sampling side of ``rho_diffusion_tpu/diffusion/base.py``: the
-registry-driven construction (backbone, cond_fn and schedule named by
-strings), the model call, the sample shape and the conditions drawn from a
-parameter space. The train step is not ported yet; the constructor accepts
-(and ignores) the training arguments the configs pass, so one config builds
-both.
+Port of ``rho_diffusion_tpu/diffusion/base.py``: the registry-driven
+construction (backbone, cond_fn, schedule, loss and optimizer named by
+strings), the sample shape and the conditions drawn from a parameter space,
+and the training half (:167-433): ``create_state``, ``training_step`` (loss,
+gradients, optional gradient accumulation and clipping, the optimizer
+update, EMA, grad_norm) and ``validation_step``.
+
+The JAX step is one pure jitted function of a donated state; here the step
+updates the live ``TrainState`` in place (parameters, optimizer moments,
+EMA) and returns its metrics as device tensors, so a step costs no host
+synchronisation. Random draws (timesteps, noise, conditioning-dropout
+masks) come from the ``torch.Generator`` in the state, in the JAX order; a
+caller may inject them instead (the tests hand the port what JAX drew).
+
+Sampling goes through ``apply``, which is ``torch.no_grad`` and puts the
+backbone in ``eval()``; the train step puts it in ``train()``.
 
 The pipeline owns its device: the backbone and the schedule tables live
 there, and parameters are initialised from a seeded ``torch.Generator``.
@@ -18,7 +29,11 @@ import numpy as np
 import torch
 
 from rho_diffusion_tpu_torch.diffusion.schedule import NoiseSchedule
+from rho_diffusion_tpu_torch.metrics.losses import psnr, resolve_loss
 from rho_diffusion_tpu_torch.registry import registry
+from rho_diffusion_tpu_torch.training.ema import ema_update
+from rho_diffusion_tpu_torch.training.optimizers import Optimizer, build_optimizer
+from rho_diffusion_tpu_torch.training.state import TrainState
 from rho_diffusion_tpu_torch.utils import (
     parameter_space_to_embeddings,
     resolve_device,
@@ -89,6 +104,17 @@ class AbstractDiffusionPipeline:
             )
         self.schedule = schedule.to(self.device)
         self.timesteps = timesteps or len(schedule)
+        self.loss_func = resolve_loss(loss_func)
+        self.ema_decay = float(ema_decay or 0.0)
+        self.log_grad_norm = bool(log_grad_norm)
+        self.grad_accum = max(int(grad_accum), 1)
+        if isinstance(optimizer, Optimizer):
+            self.optimizer = optimizer
+        else:
+            self.optimizer = build_optimizer(optimizer, opt_kwargs,
+                                             learning_rate=learning_rate,
+                                             world_size=world_size,
+                                             clip_grad_norm=clip_grad_norm)
 
     # ------------------------------------------------------------------
     # Parameters and the model call
@@ -107,7 +133,130 @@ class AbstractDiffusionPipeline:
 
     @torch.no_grad()
     def apply(self, x, t, y=None) -> torch.Tensor:
+        """The sampling-time model call: no autograd, eval mode."""
+        self.backbone.eval()
         return self.backbone(x, t, y)
+
+    # ------------------------------------------------------------------
+    # Training
+    # ------------------------------------------------------------------
+    def create_state(self, seed: int = 0) -> TrainState:
+        """A fresh training state over the backbone: its optimizer, an EMA
+        copy of the parameters (when ``ema_decay`` > 0) and a generator on
+        the pipeline's device seeded with ``seed``."""
+        model = self.backbone
+        ema = None
+        if self.ema_decay > 0:
+            ema = {k: p.detach().clone() for k, p in model.named_parameters()}
+        return TrainState(
+            step=0, model=model, optimizer=self.optimizer.make(model.parameters()), ema=ema,
+            generator=torch.Generator(device=self.device).manual_seed(int(seed)),
+        )
+
+    def cond_dropout_mask(self, generator, batch_size: int, labels) -> Optional[torch.Tensor]:
+        """Per-row Bernoulli keep-mask (1 keeps the condition) for
+        classifier-free-guidance training, or None when it is off."""
+        p = getattr(self, "cond_dropout", 0.0)
+        if p <= 0.0 or labels is None:
+            return None
+        draw = torch.rand((batch_size,), generator=generator, device=self.device)
+        return (draw < 1.0 - p).float()
+
+    def random_timesteps(self, generator, batch_size: int) -> torch.Tensor:
+        """Uniform timesteps in [0, T)."""
+        return torch.randint(0, self.timesteps, (batch_size,), generator=generator,
+                             device=self.device)
+
+    def training_metrics(self, data, noised, loss) -> dict[str, torch.Tensor]:
+        """train_loss and PSNR(clean, noised), the reference's logged pair."""
+        return {"train_loss": loss, "psnr": psnr(noised, data)}
+
+    def loss_and_metrics(self, batch: dict, generator=None, t=None, noise=None,
+                         cond_mask=None):
+        """Subclass hook: (loss, metrics) of a normalised batch on the
+        device. ``t``, ``noise`` and ``cond_mask`` are drawn from
+        ``generator`` unless given."""
+        raise NotImplementedError
+
+    def batch_to_device(self, batch) -> dict:
+        """A batch as ``{'data', 'labels'}`` tensors on the pipeline's
+        device (numpy arrays are copied, device tensors pass through)."""
+        out = {}
+        for key, value in normalize_batch(batch).items():
+            if value is not None and not isinstance(value, torch.Tensor):
+                value = torch.as_tensor(np.asarray(value))
+            out[key] = None if value is None else value.to(self.device)
+        return out
+
+    def training_step(self, state: TrainState, batch, t=None, noise=None,
+                      cond_mask=None) -> dict[str, torch.Tensor]:
+        """One optimisation step on a batch (a dict, a (data, labels) pair
+        or a bare array), in place on ``state``; returns the step's
+        metrics (device scalars): the loss and PSNR (averaged over the
+        ``grad_accum`` microbatches) and ``grad_norm``, the global norm of
+        the gradients before clipping and the update.
+
+        With ``grad_accum`` > 1 the batch is cut into that many sequential
+        microbatches whose gradients are averaged before the one update, so
+        activation memory is that of one microbatch."""
+        batch = self.batch_to_device(batch)
+        model = state.model
+        model.train()
+        params = [p for p in model.parameters() if p.requires_grad]
+        for p in params:
+            p.grad = None
+        accum = self.grad_accum
+        n = batch["data"].shape[0]
+        if n % accum:
+            raise ValueError(f"batch size {n} is not divisible by grad_accum={accum}")
+        size = n // accum
+        totals: dict = {}
+        for i in range(accum):
+            rows = slice(i * size, (i + 1) * size)
+
+            def cut(v):
+                return None if v is None else v[rows]
+
+            loss, metrics = self.loss_and_metrics(
+                {k: cut(v) for k, v in batch.items()}, generator=state.generator,
+                t=cut(t), noise=cut(noise), cond_mask=cut(cond_mask))
+            (loss / accum if accum > 1 else loss).backward()
+            for k, v in metrics.items():
+                totals[k] = totals.get(k, 0.0) + v.detach()
+        metrics = {k: v / accum for k, v in totals.items()} if accum > 1 else totals
+        for p in params:
+            # a parameter the loss does not reach (the cond_fn under precomputed
+            # hash-embedding labels) has a zero gradient in JAX, and AdamW still
+            # applies its weight decay to it
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        clip = self.optimizer.clip_grad_norm
+        if self.log_grad_norm or clip:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            if clip:
+                # optax.clip_by_global_norm: g * clip / norm when norm >= clip
+                torch._foreach_mul_(grads, torch.where(norm < clip, 1.0, clip / norm))
+            if self.log_grad_norm:
+                metrics["grad_norm"] = norm
+        self.optimizer.set_lr(state.optimizer, state.step)
+        state.optimizer.step()
+        if state.ema is not None:
+            ema_update(state.ema, dict(model.named_parameters()), state.step, self.ema_decay)
+        state.step += 1
+        return metrics
+
+    @torch.no_grad()
+    def validation_step(self, state: TrainState, batch, generator=None) -> dict:
+        """The training loss and metrics without an update, in eval mode.
+        The draws come from ``generator``, by default one seeded from the
+        state's own seed plus one, so the training stream is untouched."""
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(
+                state.generator.initial_seed() + 1)
+        state.model.eval()
+        _, metrics = self.loss_and_metrics(self.batch_to_device(batch), generator=generator)
+        return metrics
 
     # ------------------------------------------------------------------
     # Sampling helpers
@@ -163,3 +312,14 @@ class AbstractDiffusionPipeline:
             return torch.randint(0, 10, (batch_size,), generator=generator, device=self.device)
         return torch.as_tensor(np.asarray(conditions) if isinstance(conditions, (list, tuple))
                                else conditions, device=self.device)
+
+
+def normalize_batch(batch) -> dict:
+    """Coerce the supported batch containers into {'data', 'labels'}."""
+    if isinstance(batch, dict):
+        return {"data": batch["data"], "labels": batch.get("labels")}
+    if isinstance(batch, (list, tuple)):
+        if len(batch) == 2:
+            return {"data": batch[0], "labels": batch[1]}
+        return {"data": batch[0], "labels": None}
+    return {"data": batch, "labels": None}

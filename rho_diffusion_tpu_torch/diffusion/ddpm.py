@@ -1,8 +1,11 @@
-"""DDPM pipeline — Ho et al. (2020) epsilon prediction, sampling side.
+"""DDPM pipeline — Ho et al. (2020) epsilon prediction.
 
 Port of ``rho_diffusion_tpu/diffusion/ddpm.py``:
 
 * ``q_sample``: x_t = sqrt(abar_t) x_0 + sqrt(1 - abar_t) eps;
+* ``DDPM.loss_and_metrics`` (:145-183): MSE between the predicted and the
+  drawn noise at uniform timesteps, optionally min-SNR weighted, with
+  per-sample conditioning dropout for classifier-free-guidance training;
 * ``ddpm_reverse_step``: x_{t-1} = (x_t - beta_t / sqrt(1-abar_t) eps_hat)
   / sqrt(alpha_t) + 0.8 sqrt(beta_t) z, clamped to [-1, 1];
 * ``DDPM.reverse_process``: the JAX package's ``lax.scan`` becomes a Python
@@ -11,7 +14,7 @@ Port of ``rho_diffusion_tpu/diffusion/ddpm.py``:
   ``t_checkpoints`` frame buffer, written every T//10 steps.
 
 Noise comes from an explicit ``torch.Generator`` on the pipeline's device.
-Classifier-free guidance and the training step are not ported yet.
+Classifier-free-guided sampling is not ported yet.
 """
 from __future__ import annotations
 
@@ -19,8 +22,18 @@ from typing import Any, Optional
 
 import torch
 
-from rho_diffusion_tpu_torch.diffusion.base import AbstractDiffusionPipeline, extract
+from rho_diffusion_tpu_torch.diffusion.base import (
+    AbstractDiffusionPipeline,
+    extract,
+    normalize_batch,
+)
+from rho_diffusion_tpu_torch.diffusion.gaussian import (
+    ModelMeanType,
+    min_snr_weight,
+    validate_loss_weighting,
+)
 from rho_diffusion_tpu_torch.diffusion.schedule import NoiseSchedule
+from rho_diffusion_tpu_torch.ops.convolution import mean_flat
 
 
 def q_sample(schedule: NoiseSchedule, x0: torch.Tensor, t: torch.Tensor,
@@ -83,8 +96,13 @@ class DDPM(AbstractDiffusionPipeline):
             )
         if not 0.0 <= cond_dropout < 1.0:
             raise ValueError(f"cond_dropout must be in [0, 1), got {cond_dropout}")
-        if loss_weighting not in (None, "min_snr"):
-            raise ValueError(f"loss_weighting must be None or 'min_snr', got {loss_weighting!r}")
+        self.loss_weighting = validate_loss_weighting(loss_weighting, ModelMeanType.EPSILON)
+        self.min_snr_gamma = float(min_snr_gamma)
+        # a callable loss_func is the caller's assertion that it is an MSE
+        if self.loss_weighting and isinstance(loss_func, str) and \
+                loss_func not in ("MSELoss", "mse", "mse_loss"):
+            raise ValueError(f"loss_weighting='min_snr' requires an MSE loss_func, got {loss_func!r}")
+        self.cond_dropout = float(cond_dropout)
         super().__init__(
             backbone=backbone,
             backbone_kwargs=backbone_kwargs,
@@ -102,6 +120,38 @@ class DDPM(AbstractDiffusionPipeline):
         self.sample_parameter_space = sample_parameter_space
         self.noise_factor = noise_factor
         self.clip_denoised = clip_denoised
+
+    # ------------------------------------------------------------------
+    # Training
+    # ------------------------------------------------------------------
+    def forward_process(self, data: torch.Tensor, generator=None, t=None, noise=None):
+        """Noise a clean batch; returns (x_t, noise, t). Draws t, then the
+        noise, from ``generator`` unless given."""
+        if t is None:
+            t = self.random_timesteps(generator, data.shape[0])
+        if noise is None:
+            noise = torch.randn(data.shape, generator=generator, device=self.device,
+                                dtype=data.dtype)
+        return q_sample(self.schedule, data, t, noise), noise, t
+
+    def loss_and_metrics(self, batch, generator=None, t=None, noise=None, cond_mask=None):
+        """MSE between the predicted and the true noise at random timesteps
+        (or the min-SNR-weighted per-sample MSE). With ``cond_dropout`` the
+        conditioning keep-mask is drawn first, as in the JAX package."""
+        batch = normalize_batch(batch)
+        data, labels = batch["data"], batch["labels"]
+        if cond_mask is None and self.cond_dropout > 0.0:
+            cond_mask = self.cond_dropout_mask(generator, data.shape[0], labels)
+        x_t, noise, t = self.forward_process(data, generator, t, noise)
+        eps_hat = self.backbone(x_t, t, labels, cond_mask=cond_mask)
+        target = noise.to(eps_hat.dtype)
+        if self.loss_weighting == "min_snr":
+            w = min_snr_weight(self.schedule.alpha_bar_t, t, ModelMeanType.EPSILON,
+                               self.min_snr_gamma)
+            loss = torch.mean(w * mean_flat((eps_hat - target) ** 2))
+        else:
+            loss = self.loss_func(eps_hat, target)
+        return loss, self.training_metrics(data, x_t, loss)
 
     @torch.no_grad()
     def reverse_process(

@@ -8,15 +8,18 @@ Mirrors ``scripts/inference.py`` and the JAX package's
 
 * if ``inference.cache_file`` exists and ``-f`` is not given, plot straight
   from the HDF5 cache;
-* otherwise build the pipeline from the config, load the weights (a JAX
-  ``.npz`` or a reference ``.pth``; otherwise untrained, seeded params with a
-  warning), draw conditions as the first N rows of
-  ``inference.parameter_space`` (sha512 embeddings for hash-labelled
-  datasets), run the reverse process on the device, and write the HDF5
+* otherwise build the pipeline from the config, load the weights (an
+  explicit JAX ``.npz`` or reference ``.pth``, an explicit checkpoint
+  directory of the port's trainer, else ``training.checkpoint_dir`` or
+  ``<work-dir>/checkpoints``, with the EMA weights per ``inference.use_ema``;
+  otherwise untrained, seeded params with a warning), draw conditions as
+  the first N rows of ``inference.parameter_space`` (sha512 embeddings for
+  hash-labelled datasets), run the reverse process on the device, and write the HDF5
   cache and the optional plot.
 
 It runs on CUDA unless ``-d cpu`` is given (a config's "tpu" means CUDA) and
-raises when CUDA is absent. Orbax checkpoint directories are not read yet.
+raises when CUDA is absent. The JAX package's orbax checkpoint directories
+are not readable; that case says so.
 """
 from __future__ import annotations
 
@@ -29,78 +32,11 @@ import numpy as np
 import torch
 
 import rho_diffusion_tpu_torch  # noqa: F401  (populates the registry)
-from rho_diffusion_tpu_torch.config import ExperimentConfig
-from rho_diffusion_tpu_torch.diffusion.ddpm import DDPM
-from rho_diffusion_tpu_torch.interop.jax_weights import load_state_dict_file
+from rho_diffusion_tpu_torch.config import ExperimentConfig, apply_torch_checkpoint_schedule_fixup
 from rho_diffusion_tpu_torch.registry import registry
+from rho_diffusion_tpu_torch.training.checkpoint import resolve_inference_params
+from rho_diffusion_tpu_torch.training.trainer import build_pipeline_from_config
 from rho_diffusion_tpu_torch.utils import resolve_device
-
-PIPELINES = {"DDPM": DDPM}
-
-
-def build_pipeline_from_config(config: ExperimentConfig, dataset=None, device=None,
-                               pipeline_name: Optional[str] = None):
-    """The pipeline a config names: schedule from the config, backbone by
-    name, MultiEmbeddings over the dataset's parameter space, compute dtype
-    from ``training.dtype``, params seeded from ``inference.seed``."""
-    name = pipeline_name or (config.pipeline.name if config.pipeline else "GaussianDiffusionPipeline")
-    if name not in PIPELINES:
-        raise NotImplementedError(
-            f"pipeline '{name}' is not ported yet; the port has {sorted(PIPELINES)}",
-        )
-    pipeline_kwargs = dict(config.pipeline.kwargs) if config.pipeline else {}
-    schedule = registry.get("schedules", config.noise_schedule.name)(**config.noise_schedule.kwargs)
-    model_kwargs = dict(config.model.kwargs)
-    cond_fn = cond_fn_kwargs = None
-    if (
-        dataset is not None
-        and getattr(dataset, "parameter_space", None) is not None
-        and isinstance(model_kwargs.get("cond_fn"), str)
-    ):
-        cond_fn = model_kwargs["cond_fn"]
-        cond_fn_kwargs = {
-            "parameter_space": dataset.parameter_space,
-            "embedding_dim": model_kwargs.get("model_channels", 64) * 4,
-        }
-    if "dtype" not in model_kwargs and config.training.dtype:
-        model_kwargs["dtype"] = config.training.dtype
-    return PIPELINES[name](
-        backbone=config.model.name,
-        backbone_kwargs=model_kwargs,
-        schedule=schedule,
-        loss_func=config.training.loss_fn,
-        cond_fn=cond_fn,
-        cond_fn_kwargs=cond_fn_kwargs,
-        optimizer=config.optimizer.name if config.optimizer else None,
-        opt_kwargs=dict(config.optimizer.kwargs) if config.optimizer else None,
-        ema_decay=config.training.ema_decay,
-        sample_every_n_epochs=config.training.sample_every_n_epochs,
-        save_checkpoint_every_n_epochs=config.training.save_checkpoint_every_n_epochs,
-        device=device,
-        seed=config.inference.seed,
-        **pipeline_kwargs,
-    )
-
-
-def resolve_inference_params(pipeline, config: ExperimentConfig, ckpt=None,
-                             work_dir: str | Path = ".") -> list[str]:
-    """Load the sampling weights into ``pipeline``: an explicit checkpoint
-    file (.npz or .pth) when there is one, else keep the untrained params
-    with a warning. Returns the messages to show."""
-    ckpt_dir = Path(config.training.checkpoint_dir or (Path(work_dir) / "checkpoints"))
-    if ckpt and os.path.isfile(ckpt):
-        sd = load_state_dict_file(ckpt, dict(config.model.kwargs))
-        pipeline.load_state_dict(sd, strict=True)
-        return [f"loaded weights from {ckpt}"]
-    if (ckpt and Path(ckpt).is_dir()) or (not ckpt and ckpt_dir.exists()):
-        where = ckpt if ckpt else ckpt_dir
-        return [
-            f"WARNING: {where} is a checkpoint directory, which the port does "
-            "not read yet; sampling untrained model",
-        ]
-    if ckpt:
-        return [f"WARNING: checkpoint '{ckpt}' not found; sampling untrained model"]
-    return ["WARNING: no checkpoint given and no checkpoint_dir; sampling untrained model"]
 
 
 def build_inference_session(config: ExperimentConfig, checkpoint=None, work_dir=".",
@@ -114,14 +50,11 @@ def build_inference_session(config: ExperimentConfig, checkpoint=None, work_dir=
         raise  # a dataset path the port does not have yet
     except Exception:
         dataset = None  # e.g. an HDF5 file not present at inference time
-    if (
-        checkpoint and str(checkpoint).endswith((".pth", ".pt"))
-        and config.noise_schedule.name == "CosineBetaSchedule"
-        and "exact_reference" not in config.noise_schedule.kwargs
-    ):
-        config.noise_schedule.kwargs["exact_reference"] = True
+    if apply_torch_checkpoint_schedule_fixup(config, checkpoint):
         messages.append("torch checkpoint + cosine schedule: using exact_reference table")
-    pipeline = build_pipeline_from_config(config, dataset=dataset, device=device)
+    pipeline = build_pipeline_from_config(
+        config, dataset=dataset, device=device,
+        pipeline_name=config.pipeline.name if config.pipeline else "GaussianDiffusionPipeline")
     messages += resolve_inference_params(pipeline, config, checkpoint, work_dir)
     return pipeline, dataset, messages
 

@@ -231,3 +231,56 @@ def load_state_dict_file(path: str | Path, model_kwargs: dict[str, Any]) -> dict
         sd = export_unet_state_dict(load_jax_npz(path), **arch_kwargs(model_kwargs))
         return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in sd.items()}
     raise ValueError(f"unsupported checkpoint file {path} (expected .pth, .pt or .npz)")
+
+
+def _find_adam_state(opt_state):
+    """The optax Adam state (the node with ``mu``, ``nu`` and ``count``)
+    inside a chain's nested tuples."""
+    if all(hasattr(opt_state, a) for a in ("mu", "nu", "count")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _find_adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def _tensors(sd: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def export_train_state(jax_state, model_kwargs: dict[str, Any]) -> dict:
+    """A JAX ``TrainState`` whose leaves are numpy arrays (``jax.device_get``
+    of one) as the port's pieces: the backbone weights, the EMA weights and
+    the Adam/AdamW first and second moments, each a reference-layout
+    ``state_dict`` through ``export_unet_state_dict`` (the moments have the
+    parameters' structure), the step, and the optimizer's update count."""
+    arch = arch_kwargs(model_kwargs)
+    adam = _find_adam_state(jax_state.opt_state)
+    if adam is None:
+        raise ValueError("the JAX optimizer state holds no Adam moments (mu, nu)")
+    ema = jax_state.ema_params
+    return {
+        "step": int(np.asarray(jax_state.step)),
+        "params": _tensors(export_unet_state_dict(jax_state.params, **arch)),
+        "ema_params": None if ema is None else _tensors(export_unet_state_dict(ema, **arch)),
+        "exp_avg": _tensors(export_unet_state_dict(adam.mu, **arch)),
+        "exp_avg_sq": _tensors(export_unet_state_dict(adam.nu, **arch)),
+        "count": int(np.asarray(adam.count)),
+    }
+
+
+def load_train_state(state, exported: dict) -> None:
+    """Put ``export_train_state``'s pieces into a port ``TrainState`` (an
+    Adam/AdamW optimizer), in place; its generator is left as it is, since
+    JAX's random stream cannot be carried over."""
+    state.model.load_state_dict(exported["params"], strict=True)
+    if state.ema is not None:
+        if exported["ema_params"] is None:
+            raise ValueError("the JAX state has no EMA weights but this state keeps an EMA")
+        with torch.no_grad():
+            for k, v in state.ema.items():
+                v.copy_(exported["ema_params"][k])
+    state.load_adam_moments(exported["exp_avg"], exported["exp_avg_sq"], exported["count"])
+    state.step = exported["step"]

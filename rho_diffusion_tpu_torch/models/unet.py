@@ -211,8 +211,8 @@ class UNet(nn.Module):
         super().__init__()
         if use_checkpoint:
             raise NotImplementedError(
-                "use_checkpoint (activation recomputation) matters only for "
-                "training, which the port does not carry yet",
+                "use_checkpoint (activation recomputation during training) is "
+                "not ported yet; the flagship trains without it",
             )
         self.data_shape = tuple(data_shape)
         self.dims = dims

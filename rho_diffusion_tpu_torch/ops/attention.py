@@ -6,15 +6,16 @@ Port of ``rho_diffusion_tpu/ops/attention.py``:
   einsum attention: q and k each scaled by 1/sqrt(sqrt(d)) in the compute
   dtype, the softmax in fp32 and cast back;
 * ``attention()`` — sends every call with head_dim <= 256 to the
-  hand-written flash kernel (``ops.kernels.flash_attention``: the CUDA
-  kernel, bf16 or fp32, on the card; ``xla_attention`` on the CPU), whatever
+  hand-written flash kernels (``ops.kernels.flash_attention``, a
+  differentiable autograd Function: the CUDA forward and backward kernels,
+  bf16 or fp32, on the card; the plain versions on the CPU), whatever
   the length or dtype, as the JAX dispatcher does. No
   sequence-length threshold is applied: the JAX package's
   ``FLASH_MIN_SEQ_LEN`` was measured on a TPU, and one for the H100 has not
   been measured yet.
 
 ``set_attention_backend("xla")`` sends every "auto" call to the plain path
-(a reference run on the card).
+(a reference run on the card, differentiated by autograd).
 """
 from __future__ import annotations
 

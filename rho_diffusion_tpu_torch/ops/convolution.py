@@ -5,11 +5,12 @@ Port of ``rho_diffusion_tpu/ops/convolution.py``. Activations stay
 them (``weight`` [O, I, *K], ``bias`` [O]) and cast to the compute dtype at
 use, so a reference ``state_dict`` loads unchanged.
 
-* Every stride-1 3x3x3 SAME conv goes to ``ops.kernels.conv3d``: the
-  hand-written CUDA kernel on the card (bf16 and fp32, any Cin and Cout, so
-  the UNet's input conv and fp32 output head too), its plain version on the
-  CPU. ``set_conv3d_backend("plain")`` sends them to the plain version on
-  every device instead (a reference run on the card).
+* Every stride-1 3x3x3 SAME conv goes to ``ops.kernels.conv3d``, a
+  differentiable autograd Function: the hand-written CUDA kernels on the
+  card (forward and dgrad, bf16 and fp32, any Cin and Cout, so the UNet's
+  input conv and fp32 output head too), its plain versions on the CPU.
+  ``set_conv3d_backend("plain")`` sends both directions to the plain
+  versions on every device instead (a reference run on the card).
 * Other convs (1-D, 2-D, and the strided 3-D Downsample) run on
   ``torch.nn.functional.conv{1,2,3}d``, as the JAX package leaves them to XLA.
   "SAME" stride-1 padding follows XLA (for odd kernels k//2 each side);
@@ -25,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rho_diffusion_tpu_torch.ops.kernels.conv3d import conv3d, conv3d_plain
+from rho_diffusion_tpu_torch.ops.kernels.conv3d import conv3d
 
 _CONV3D_BACKEND = "auto"
 
@@ -92,8 +93,7 @@ class ConvNd(nn.Module):
             self.dims == 3 and self.kernel_size == 3 and self.padding == "SAME"
             and self.stride == (1, 1, 1)
         ):
-            x = x.contiguous()
-            return conv3d_plain(x, w, b) if _CONV3D_BACKEND == "plain" else conv3d(x, w, b)
+            return conv3d(x.contiguous(), w, b, plain=_CONV3D_BACKEND == "plain")
         pads = self._pads()
         xc = x.movedim(-1, 1)
         if any(lo != hi for lo, hi in pads):
@@ -155,6 +155,11 @@ def reset_parameters(module: nn.Module, generator: Optional[torch.Generator] = N
         fan_in = math.prod(w.shape[1:])
         w.normal_(0.0, fan_in ** -0.5, generator=generator)
     module.bias.zero_()
+
+
+def mean_flat(x: torch.Tensor) -> torch.Tensor:
+    """Mean over all non-batch dimensions."""
+    return x.mean(dim=tuple(range(1, x.ndim)))
 
 
 def resample_factors(dims: int) -> tuple[int, ...]:

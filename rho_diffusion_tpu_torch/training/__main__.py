@@ -1,0 +1,66 @@
+"""Training entry point of the PyTorch port.
+
+    python -m rho_diffusion_tpu_torch.training CONFIG.json [-d cuda|cpu]
+        [-p weights.npz|weights.pth] [-e EPOCHS] [--work-dir DIR] [--no-resume]
+        [--pipeline DDPM]
+
+Mirrors ``scripts/training.py``: builds the ``Trainer`` from the config,
+initialises the state (backbone weights from ``-p``, else the latest
+checkpoint under the work dir unless ``--no-resume``, else fresh seeded
+weights) and trains. Full-state checkpoints land in
+``training.checkpoint_dir`` or ``<work-dir>/checkpoints``, the backbone
+weights in ``<work-dir>/model.pth``, the metrics in
+``<work-dir>/metrics.jsonl``.
+
+It runs on CUDA unless ``-d cpu`` is given (a config's "tpu" means CUDA) and
+raises when CUDA is absent. ``--profile`` raises: profiling a training run
+is not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+from typing import Optional, Sequence
+
+import rho_diffusion_tpu_torch  # noqa: F401  (populates the registry)
+from rho_diffusion_tpu_torch.config import (
+    ComponentConfig,
+    ExperimentConfig,
+    apply_torch_checkpoint_schedule_fixup,
+)
+from rho_diffusion_tpu_torch.training.state import TrainState
+from rho_diffusion_tpu_torch.training.trainer import Trainer
+from rho_diffusion_tpu_torch.utils import resolve_device
+
+
+def main(argv: Optional[Sequence[str]] = None) -> TrainState:
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("json_config", type=Path)
+    parser.add_argument("-d", "--device", default=None, help="cuda (default) or cpu")
+    parser.add_argument("-p", dest="model_checkpoint_path", default=None,
+                        help="backbone weights to start from: a .pth state_dict or a JAX .npz")
+    parser.add_argument("-e", "--epochs", type=int, default=None)
+    parser.add_argument("--pipeline", default=None, help="DDPM (the only ported pipeline)")
+    parser.add_argument("--work-dir", type=Path, default=Path("."))
+    parser.add_argument("--profile", default=None, help="not ported yet; raises")
+    parser.add_argument("--no-resume", action="store_true")
+    args = parser.parse_args(argv)
+
+    config = ExperimentConfig.from_json(args.json_config)
+    device = resolve_device(args.device or config.training.device)
+    if args.pipeline:
+        if args.pipeline != "DDPM":
+            raise NotImplementedError(f"pipeline '{args.pipeline}' is not ported; the port has DDPM")
+        config.pipeline = ComponentConfig(
+            "DDPM", dict(config.pipeline.kwargs) if config.pipeline else {})
+    if apply_torch_checkpoint_schedule_fixup(config, args.model_checkpoint_path):
+        print("torch checkpoint + cosine schedule: using exact_reference table")
+    print(f"device: {device}", flush=True)
+    trainer = Trainer(config, work_dir=args.work_dir, device=device, profile_dir=args.profile)
+    state = trainer.init_state(resume=not args.no_resume, weights_path=args.model_checkpoint_path)
+    return trainer.fit(state, max_epochs=args.epochs)
+
+
+if __name__ == "__main__":
+    main()

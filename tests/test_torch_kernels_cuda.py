@@ -19,8 +19,10 @@ import torch
 
 from rho_diffusion_tpu_torch.ops.attention import xla_attention
 from rho_diffusion_tpu_torch.ops.kernels import launch_counts
-from rho_diffusion_tpu_torch.ops.kernels.conv3d import conv3d, conv3d_plain
-from rho_diffusion_tpu_torch.ops.kernels.flash_attention import flash_attention
+from rho_diffusion_tpu_torch.ops.kernels.conv3d import (
+    conv3d, conv3d_dgrad, conv3d_dgrad_plain, conv3d_plain)
+from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
+    flash_attention, flash_attention_bwd_plain, flash_attention_plain, flash_lse_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -30,6 +32,9 @@ TOL_FP32 = 1e-4
 # outputs are softmax averages of rms ~1/sqrt(T), so a fixed atol would hide
 # a dropped key tile
 TOL_FLASH = {torch.bfloat16: 2.0 ** -7, torch.float32: 2e-5}
+# flash backward, the same two bounds (chip_smoke.py derives them): bf16 P
+# and dS before their products, the bf16 O in delta and the bf16 gradients
+TOL_FLASH_BWD = {torch.bfloat16: 2.0 ** -6, torch.float32: 5e-5}
 
 
 @pytest.fixture
@@ -117,3 +122,123 @@ def test_flash_kernel_rejects_float16(cuda):
     q = randn((1, 8, 1, 32), 0, cuda, torch.float16)
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         flash_attention(q, q, q)
+
+
+def flash_grads(q, kv, do, d):
+    """dq and d(kv) of flash_attention(q, *kv.split(d)) through autograd."""
+    out = flash_attention(q, *kv.split(d, dim=-1))
+    return torch.autograd.grad(out, (q, kv), do)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "b,tq,tk,h,d",
+    [
+        (2, 512, 512, 4, 128),   # the flagship's attention
+        (1, 300, 300, 2, 64),    # ragged last tile of both sweeps
+        (1, 70, 130, 3, 32),     # Tq != Tk
+        (2, 64, 64, 2, 100),     # head dim padded to 128
+        (1, 200, 136, 1, 256),
+        (1, 40, 90, 2, 16),
+    ],
+)
+def test_flash_backward_kernels_match_plain(cuda, b, tq, tk, h, d, dtype):
+    q = randn((b, tq, h, d), 5, cuda, dtype).requires_grad_()
+    kv = randn((b, tk, h, 2 * d), 6, cuda, dtype).requires_grad_()
+    do = randn((b, tq, h, d), 7, cuda, dtype)
+    launch_counts.clear()
+    dq, dkv = flash_grads(q, kv, do, d)
+    torch.cuda.synchronize()
+    assert launch_counts == {"flash_attention": 1, "flash_attention_bwd_dkv": 1,
+                             "flash_attention_bwd_dq": 1}
+    assert dq.dtype == dtype and dkv.dtype == dtype
+    qf, kf, vf = q.detach().float(), *(z.float() for z in kv.detach().split(d, dim=-1))
+    want = flash_attention_bwd_plain(qf, kf, vf, flash_attention_plain(qf, kf, vf),
+                                     flash_lse_plain(qf, kf), do.float())
+    tol = TOL_FLASH_BWD[dtype]
+    for got, ref in zip((dq, *dkv.split(d, dim=-1)), want):
+        err = got.float() - ref
+        assert float(err.abs().max()) <= tol * float(ref.abs().max())
+        assert float(err.pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_backward_is_bitwise_repeatable(cuda, dtype):
+    q = randn((2, 300, 4, 128), 8, cuda, dtype).requires_grad_()
+    kv = randn((2, 300, 4, 256), 9, cuda, dtype).requires_grad_()
+    do = randn((2, 300, 4, 128), 10, cuda, dtype)
+    first = flash_grads(q, kv, do, 128)
+    second = flash_grads(q, kv, do, 128)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize(
+    "gshape,cin,dtype,kernel",
+    [
+        ((2, 5, 6, 7, 64), 64, torch.bfloat16, "conv3d_dgrad_igemm"),
+        ((1, 3, 5, 4, 72), 8, torch.bfloat16, "conv3d_dgrad_igemm"),   # Cin off the 64 tile
+        ((2, 4, 4, 4, 24), 10, torch.bfloat16, "conv3d_dgrad_igemm"),  # odd Cin
+        ((2, 6, 6, 6, 12), 5, torch.bfloat16, "conv3d_dgrad_direct"),  # Cout % 8 != 0
+        ((2, 6, 6, 6, 1), 64, torch.float32, "conv3d_dgrad_direct"),   # the fp32 head's dgrad
+        ((2, 5, 6, 7, 16), 24, torch.float32, "conv3d_dgrad_direct"),
+    ],
+)
+def test_conv3d_dgrad_kernel_matches_plain(cuda, gshape, cin, dtype, kernel):
+    cout = gshape[-1]
+    g = randn(gshape, 11, cuda, dtype)
+    w = randn((cout, cin, 3, 3, 3), 12, cuda, dtype, 1 / math.sqrt(27 * cout))
+    launch_counts.clear()
+    got = conv3d_dgrad(g, w)
+    torch.cuda.synchronize()
+    assert launch_counts == {kernel: 1}
+    assert got.dtype == dtype and got.shape == (*gshape[:-1], cin)
+    tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_FP32
+    torch.testing.assert_close(got.float(), conv3d_dgrad_plain(g.float(), w.float()),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv3d_function_gradients_match_plain(cuda, dtype):
+    """dx (the dgrad kernel), dw (the library's wgrad) and db of the conv
+    Function against the plain route of the same Function."""
+    x = randn((2, 4, 6, 5, 16), 13, cuda, dtype)
+    w = randn((24, 16, 3, 3, 3), 14, cuda, dtype, 1 / math.sqrt(27 * 16))
+    b = randn((24,), 15, cuda, dtype, 0.1)
+    g = randn((2, 4, 6, 5, 24), 16, cuda, dtype)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    got = torch.autograd.grad(conv3d(*leaves), leaves, g)
+    ref = [t.float().requires_grad_() for t in (x, w, b)]
+    want = torch.autograd.grad(conv3d(*ref, plain=True), ref, g.float())
+    tol = TOL_BF16 * 4 if dtype == torch.bfloat16 else TOL_FP32
+    for a, e in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), e, atol=tol * float(e.abs().max()), rtol=tol)
+
+
+def test_unet_training_step_reaches_every_parameter(cuda):
+    """One bf16 loss.backward() of a small 3-D UNet on the card: every
+    parameter gets a finite gradient (no kernel cuts the graph), and the
+    step went through the forward and backward kernels."""
+    from rho_diffusion_tpu_torch.models.unet import UNet
+
+    torch.manual_seed(0)
+    unet = UNet(data_shape=(4, 8, 8), in_channels=1, model_channels=32, out_channels=1,
+                num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2),
+                dims=3, num_heads=2, use_scale_shift_norm=True, dtype="bfloat16").to(cuda)
+    with torch.no_grad():
+        for p in unet.parameters():  # no zero-initialised heads
+            p.copy_(torch.randn_like(p) / math.sqrt(p[0].numel() if p.dim() > 1 else 50))
+    x = randn((2, 4, 8, 8, 1), 17, cuda, torch.float32)
+    t = torch.tensor([3, 700], device=cuda)
+    launch_counts.clear()
+    unet.train()
+    loss = unet(x, t).square().mean()
+    loss.backward()
+    torch.cuda.synchronize()
+    for name, p in unet.named_parameters():
+        assert p.grad is not None, name
+        assert bool(torch.isfinite(p.grad).all()), name
+        assert float(p.grad.abs().max()) > 0, name
+    for kernel in ("conv3d_igemm", "conv3d_direct", "conv3d_dgrad_igemm", "conv3d_dgrad_direct",
+                   "flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        assert launch_counts[kernel] > 0, kernel

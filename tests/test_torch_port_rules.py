@@ -5,7 +5,10 @@
 * Its entry points run on CUDA unless asked for the CPU, and raise when CUDA
   is absent instead of falling back.
 * Its kernel wrappers take the plain version only for CPU tensors; for any
-  other device, or without a CUDA toolchain, they raise.
+  other device, or without a CUDA toolchain, they raise. Both kernel entry
+  points are autograd Functions, and a raw kernel launch reached under grad
+  mode with an input that requires grad raises instead of cutting the graph.
+* The training options that need more than one device raise.
 """
 import json
 import os
@@ -22,9 +25,17 @@ import rho_diffusion_tpu_torch
 from rho_diffusion_tpu_torch import inference
 from rho_diffusion_tpu_torch.diffusion.ddpm import DDPM
 from rho_diffusion_tpu_torch.diffusion.schedule import LinearSchedule
+from rho_diffusion_tpu_torch.config import ExperimentConfig
 from rho_diffusion_tpu_torch.ops.kernels import _build, launch_counts
-from rho_diffusion_tpu_torch.ops.kernels.conv3d import conv3d
-from rho_diffusion_tpu_torch.ops.kernels.flash_attention import flash_attention
+from rho_diffusion_tpu_torch.ops.kernels.conv3d import Conv3d, conv3d, conv3d_kernel
+from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
+    FlashAttention,
+    flash_attention,
+    flash_attention_bwd_kernel,
+    flash_attention_fwd_kernel,
+)
+from rho_diffusion_tpu_torch.training.__main__ import main as train_main
+from rho_diffusion_tpu_torch.training.trainer import Trainer
 from rho_diffusion_tpu_torch.utils import resolve_device
 
 torch.set_num_threads(1)
@@ -81,6 +92,9 @@ def test_entry_points_raise_without_cuda():
              LinearSchedule(50))
     with pytest.raises(RuntimeError, match="CUDA"):
         inference.main([str(ROOT / "examples" / "config_smoke.json")])
+    for argv in ([], ["-d", "cuda"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train_main([str(ROOT / "examples" / "config_smoke.json"), *argv])
 
 
 def test_kernel_wrappers_raise_off_the_cpu():
@@ -93,6 +107,50 @@ def test_kernel_wrappers_raise_off_the_cpu():
         flash_attention(q, q, q)
     with pytest.raises(TypeError):
         conv3d(torch.zeros(1, 4, 4, 4, 8), torch.zeros(8, 8, 3, 3, 3, dtype=torch.float64))
+
+
+def test_kernel_entry_points_are_autograd_functions():
+    """On the CPU too: the plain route runs the same Functions' backward."""
+    x = torch.randn(1, 3, 3, 3, 2, requires_grad=True)
+    w = torch.randn(2, 2, 3, 3, 3, requires_grad=True)
+    assert type(conv3d(x, w).grad_fn).__name__ == f"{Conv3d.__name__}Backward"
+    q = torch.randn(1, 5, 1, 8, requires_grad=True)
+    assert type(flash_attention(q, q, q).grad_fn).__name__ == f"{FlashAttention.__name__}Backward"
+
+
+def test_raw_kernel_launch_under_grad_mode_raises():
+    """A launcher reached under grad mode with an input that requires grad
+    (a kernel wired in without its autograd Function) raises before it
+    launches, on any device; under no_grad the device check comes next."""
+    x = torch.empty((1, 4, 4, 4, 8), device="meta", requires_grad=True)
+    w = torch.empty((8, 8, 3, 3, 3), device="meta")
+    q = torch.empty((1, 16, 2, 32), device="meta", requires_grad=True)
+    for launch in (lambda: conv3d_kernel(x, w), lambda: flash_attention_fwd_kernel(q, q, q),
+                   lambda: flash_attention_bwd_kernel(q, q, q, q, q[:, :, :, 0], q)):
+        with pytest.raises(RuntimeError, match="grad mode"):
+            launch()
+        with torch.no_grad(), pytest.raises(RuntimeError, match="no kernel"):
+            launch()
+
+
+@pytest.mark.parametrize("option", [
+    {"fsdp": True}, {"zero1": True}, {"tensor_parallel": True}, {"spatial_sharding": True},
+    {"device_cache": True}, {"mesh": {"data": 2, "context": 1}}, {"mesh": {"context": 2}},
+], ids=lambda o: next(iter(o)))
+def test_unsupported_trainer_options_raise(tmp_path, option):
+    cfg = json.loads((ROOT / "examples" / "config_smoke.json").read_text())
+    cfg["training"].update(option)
+    with pytest.raises(NotImplementedError):
+        Trainer(ExperimentConfig.from_dict(cfg), work_dir=tmp_path, device="cpu")
+
+
+def test_training_profile_and_other_pipelines_raise(tmp_path):
+    path = ROOT / "examples" / "config_smoke.json"
+    with pytest.raises(NotImplementedError, match="profil"):
+        train_main([str(path), "-d", "cpu", "--work-dir", str(tmp_path), "--profile", "trace"])
+    with pytest.raises(NotImplementedError, match="pipeline"):
+        train_main([str(path), "-d", "cpu", "--work-dir", str(tmp_path), "--pipeline",
+                    "GaussianDiffusionPipeline"])
 
 
 def test_kernel_build_raises_without_nvcc(tmp_path, monkeypatch):
