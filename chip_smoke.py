@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py [--phases env,build,kernels,main,train,hold,timings]
+    python3 chip_smoke.py [--phases env,build,kernels,main,train,hold,serve,timings]
                           [--steps 25] [--samples 4] [--timing-batch 8]
 
 Builds the port's CUDA kernels from ``rho_diffusion_tpu_torch/csrc``, holds
@@ -13,7 +13,15 @@ width, random seeded weights loaded from a reference-layout ``.pth``):
 * ``main``: sampling through ``rho_diffusion_tpu_torch.inference.main``;
 * ``train``: five DDPM training steps at batch 32 through
   ``rho_diffusion_tpu_torch.training``'s ``main``, the checkpoint read back
-  to the trainer's EMA weights, and one profiled step.
+  to the trainer's EMA weights, and one profiled step;
+* ``serve``: the sampling service through ``rho_diffusion_tpu_torch.serve``'s
+  ``build_server`` under a ("data", "context") mesh of 4 context ranks on
+  the card, with ``RHO_RING_ATTN_IMPL=rdma``, so every attention call runs
+  the ring with the kernel K6; buckets 1, 2, 4, 8 warmed up, three requests
+  over HTTP (n = 1, 3 and 11, the last split across launches), a request
+  alone against the same request co-batched, a sample held against the
+  fp32 plain model with the plain ring, and a single-rank service (the
+  flash kernel's route) against the ring service.
 
 Each path's launch counts are cleared just before it and read just after,
 and it fails if a kernel of the path never launched. ``hold`` holds one
@@ -48,13 +56,16 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "examples" / "config_spherical_harmonics.json"
-PHASES = ("env", "build", "kernels", "main", "train", "hold", "timings")
+PHASES = ("env", "build", "kernels", "main", "train", "hold", "serve", "timings")
 # the phases whose numbers the kernels line carries
-KERNELS_LINE_PHASES = ("kernels", "main", "train", "timings")
+KERNELS_LINE_PHASES = ("kernels", "main", "train", "serve", "timings")
 DEVICE = "cuda"
 # the train phase: the flagship's batch, and steps cut to five
 TRAIN_BATCH = 32
 TRAIN_STEPS = 5
+# the serve phase: context ranks of the ring, all on one card, and buckets
+SERVE_CONTEXT = 4
+SERVE_BUCKETS = (1, 2, 4, 8)
 # device time of the profiled training step, grouped by kernel name
 DEVICE_TIME_GROUPS = (
     ("conv3d_igemm (port, forward and dgrad)", ("conv3d_igemm",)),
@@ -116,6 +127,15 @@ TOL_FLASH_BWD = {"bfloat16": 2.0 ** -6, "float32": 5e-5}
 # missing backward kernel would give.
 HOLD_FACTOR = 3.0
 HOLD_CAP = {"forward": 1e-2, "sample": 0.5, "train_gradients": 0.1}
+# A served request alone against the same request co-batched, and the ring
+# service against a single-rank one (flash attention, no ring), on the card:
+# cuBLAS and cuDNN pick their algorithms by batch size, and the ring and flash
+# kernels round differently, so the two bf16 runs round differently and the
+# 25-step cut schedule amplifies it as it does bf16's own. Both are held by
+# the sample hold's rule: at most HOLD_FACTOR times the serve phase's own
+# measured bf16 spread (the bf16 plain sample against the fp32 plain one),
+# and never above HOLD_CAP["sample"]. A row that drew another row's noise
+# would be an independent sample, relative MSE about 2.
 
 
 def emit(phase: str, **fields) -> None:
@@ -344,7 +364,7 @@ def flash_error(got, want, tol: float) -> dict:
 CUDA_KERNEL = {"conv3d_igemm": "conv3d_igemm", "conv3d_direct": "conv3d_direct",
                "conv3d_dgrad_igemm": "conv3d_igemm", "conv3d_dgrad_direct": "conv3d_direct",
                "flash_attention": "flash_fwd", "flash_attention_bwd_dkv": "flash_bwd_dkv",
-               "flash_attention_bwd_dq": "flash_bwd_dq"}
+               "flash_attention_bwd_dq": "flash_bwd_dq", "ring_attention": "ring_step"}
 
 
 def kernel_times(fn, kernel: str, iters: int = 10) -> dict:
@@ -515,6 +535,42 @@ def check_flash_bwd(b, t, h, d, device, seed: int, dtype) -> dict:
             "grads": grads_, "ok": repeatable and all(g["ok"] for g in grads_)}
 
 
+def ring_mesh(n: int, device):
+    """A ("data", "context") mesh of ``n`` context ranks, all on ``device``."""
+    from rho_diffusion_tpu_torch.parallel import make_mesh
+
+    return make_mesh(data=1, context=n, devices=[device] * n)
+
+
+def ring_call(q, k, v, mesh, plain: bool = False):
+    """One context-parallel attention call with the "rdma" ring: K6, or
+    with ``plain`` the same ring with K6's plain step."""
+    from rho_diffusion_tpu_torch.parallel import context_sharded_attention
+
+    return context_sharded_attention(q, k, v, mesh, impl="rdma", plain=plain)
+
+
+def check_ring(b, t, h, d, n, device, seed: int, dtype) -> list:
+    """K6 in its ring of ``n`` ranks on one card (strided views of one qkv,
+    as the UNet makes them), held on fp32 copies of the inputs against the
+    same ring with the plain step, and against full attention without the
+    ring (``xla_attention``), which shares none of the ring's slots, streams
+    and events."""
+    from rho_diffusion_tpu_torch.ops.attention import xla_attention
+
+    q, k, v = flash_inputs(b, t, h, d, device, seed, dtype)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    mesh = ring_mesh(n, device)
+    got = ring_call(q, k, v, mesh)
+    tol = TOL_FLASH[dtype_name(dtype)]
+    row = {"kernel": "ring_attention", "b": b, "t": t, "n": n, "t_per_rank": t // n, "h": h,
+           "d": d, "dtype": dtype_name(dtype)}
+    return [{**row, "against": "the plain ring (fp32)",
+             **flash_error(got, ring_call(qf, kf, vf, mesh, plain=True), tol)},
+            {**row, "against": "xla_attention without the ring (fp32)",
+             **flash_error(got, xla_attention(qf, kf, vf), tol)}]
+
+
 def phase_kernels(state: dict) -> None:
     import torch
 
@@ -544,10 +600,14 @@ def phase_kernels(state: dict) -> None:
             check_flash_bwd(2, 300, h, d, device, seed=112, dtype=dt),
             check_flash_bwd(2, 300, 2, 64, device, seed=114, dtype=dt),
         ]
-    record_errors(state, conv + flash + [g for r in flash_bwd for g in r["grads"]])
-    emit("kernels", conv=conv, flash=flash, flash_bwd=flash_bwd,
+    # K6 at the serve shape (bucket 8 over 4 ranks: T/n = 128) and the 64^3
+    # config's (T = 4096: T/n = 1024)
+    ring = [row for dt in (torch.bfloat16, torch.float32) for i, tt in enumerate((t, 4096))
+            for row in check_ring(8, tt, h, d, SERVE_CONTEXT, device, seed=120 + i, dtype=dt)]
+    record_errors(state, conv + flash + ring + [g for r in flash_bwd for g in r["grads"]])
+    emit("kernels", conv=conv, flash=flash, flash_bwd=flash_bwd, ring=ring,
          attention_calls_per_forward=len(attn_calls), conv_calls_per_forward=len(conv_calls))
-    fail_bad("kernels", conv + flash + flash_bwd)
+    fail_bad("kernels", conv + flash + flash_bwd + ring)
 
 
 def phase_main(state: dict, steps: int, samples: int) -> None:
@@ -713,8 +773,8 @@ def phase_train(state: dict, batch: int) -> None:
         problems.append(f"{len(steps)} logged steps, losses {losses}, grad norms {norms}")
     if not changed:
         problems.append("no parameter changed")
-    # every kernel of the port runs on the training path
-    missing = [k for k in CUDA_KERNEL if not counts.get(k)]
+    # every kernel of the sampling and training paths runs on the training path
+    missing = [name for name, _, _, path in KERNELS if path != "serving" and not counts.get(name)]
     if missing:
         problems.append(f"the training path never launched {missing}; counts {counts}")
     if latest != TRAIN_STEPS or not ema_equal:
@@ -826,9 +886,6 @@ def phase_hold(state: dict) -> None:
         grads_fp32_plain = train_gradients(ref, *batch)
     torch.cuda.synchronize()
 
-    def rel_mse(a, b):
-        return float(((a.float() - b.float()) ** 2).mean() / (b.float() ** 2).mean())
-
     fields, bad = {}, []
     for what in ("forward", "sample"):
         k = rel_mse(got[what], plain_fp32[what])
@@ -859,6 +916,225 @@ def phase_hold(state: dict) -> None:
          train_batch=2)
     if bad:
         fail(f"the kernels move {bad} further from the fp32 plain model than bf16 does: {fields}")
+
+
+SERVE_CUTS = {
+    "noise_schedule.kwargs.num_steps": "1000 -> 25 (random weights; the sampler's loop is "
+                                       "the same at any length)",
+    "inference.cache_file, plot_output_file, checkpoint": "-> none (weights through -p)",
+}
+
+
+def rel_mse(a, b) -> float:
+    """Relative MSE of ``a`` against ``b`` (tensors, in fp32, or arrays)."""
+    if hasattr(a, "float"):
+        a, b = a.float(), b.float()
+    return float(((a - b) ** 2).mean() / (b ** 2).mean())
+
+
+def serve_conditions(cfg: dict, n: int, start: int):
+    """sha512 rows (width 256) of parameter-space rows [start, start + n),
+    cycled, as the inference entry conditions the flagship."""
+    import numpy as np
+
+    from rho_diffusion_tpu_torch.utils import parameter_space_to_embeddings
+
+    embs = parameter_space_to_embeddings(cfg["inference"]["parameter_space"], l=256)
+    return embs[np.arange(start, start + n) % len(embs)]
+
+
+def http_call(port: int, method: str, path: str, body=None) -> dict:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        reply = json.loads(resp.read())
+    finally:
+        conn.close()
+    if resp.status != 200:
+        fail(f"serve: {method} {path} answered {resp.status}: {reply}")
+    return reply
+
+
+def serve_argv(cfg_path: Path, pth: Path, work: Path, buckets, ring: bool) -> list:
+    argv = [str(cfg_path), "-p", str(pth), "-d", DEVICE, "--port", "0", "--cond-dim", "256",
+            "--buckets", ",".join(map(str, buckets)), "--work-dir", str(work)]
+    if ring:
+        argv += ["--warmup", "--context-parallel", str(SERVE_CONTEXT),
+                 "--mesh-devices", ",".join([f"{DEVICE}:0"] * SERVE_CONTEXT)]
+    return argv
+
+
+def phase_serve(state: dict, steps: int) -> None:
+    """The sampling service through ``serve.build_server`` on the full-width
+    flagship under a context mesh of SERVE_CONTEXT ranks on the card, K6's
+    ring in every attention call: warm-up, three HTTP requests, /stats, a
+    request alone against co-batched, a sample hold against the fp32 plain
+    model with the plain ring, and a single-rank service against the ring
+    service."""
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+
+    from rho_diffusion_tpu_torch import serve
+    from rho_diffusion_tpu_torch.diffusion.sampling_rng import per_sample_keys
+    from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+    from rho_diffusion_tpu_torch.parallel import active_mesh
+
+    device = torch.device(DEVICE)
+    cfg = flagship_config(steps)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    impl_before = os.environ.get("RHO_RING_ATTN_IMPL")
+    os.environ["RHO_RING_ATTN_IMPL"] = "rdma"
+    t0 = time.perf_counter()
+    messages: list = []
+    try:
+        cfg_path = tmp / "config.json"
+        cfg_path.write_text(json.dumps(cfg))
+        sd = random_state_dict(build_pipeline(cfg, "float32", "cpu").backbone, seed=0)
+        pth = tmp / "model.pth"
+        torch.save(sd, pth)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launch_counts.clear()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        server, service = serve.build_server(serve_argv(cfg_path, pth, tmp, SERVE_BUCKETS, True),
+                                             log=messages.append)
+        build_s = time.perf_counter() - t1
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        port = server.server_address[1]
+        try:
+            requests = []
+            for n, seed in ((1, 1), (3, 2), (11, 3)):
+                t2 = time.perf_counter()
+                reply = http_call(port, "POST", "/generate",
+                                  {"conditions": serve_conditions(cfg, n, seed).tolist(),
+                                   "seed": seed})
+                arr = np.asarray(reply["samples"], np.float32)
+                requests.append({
+                    "n": n, "seed": seed, "shape": reply["shape"], "bucket": reply["bucket"],
+                    "latency_s": reply["latency_s"], "http_s": time.perf_counter() - t2,
+                    "split_across_launches": n > SERVE_BUCKETS[-1],
+                    "finite": bool(np.isfinite(arr).all()), "mean": float(arr.mean()),
+                    "std": float(arr.std())})
+            stats = http_call(port, "GET", "/stats")
+            torch.cuda.synchronize()
+            counts = dict(launch_counts)
+            peak = torch.cuda.max_memory_allocated()
+
+            # one request alone, then the same request co-batched with
+            # another behind a full launch that keeps the worker busy
+            conds4 = serve_conditions(cfg, 4, 20)
+            before = dict(launch_counts)
+            alone = service.generate(conds4[:1], seed=5)
+            per_request = {k: v - before.get(k, 0) for k, v in launch_counts.items()
+                           if v > before.get(k, 0)}
+            busy = service.submit(serve_conditions(cfg, 8, 30), seed=6)
+            mine = service.submit(conds4[:1], seed=5)
+            other = service.submit(conds4[1:], seed=7)
+            busy.result()
+            other.result()
+            co = mine.result()
+            same = {"alone_bucket": alone.bucket, "cobatched_bucket": co.bucket,
+                    "max_abs_diff": float(np.abs(alone.samples - co.samples).max()),
+                    "rel_mse": rel_mse(co.samples, alone.samples),
+                    "check": "relative MSE of the co-batched rows against the alone ones"}
+
+            # a 25-step batch-2 sample of the ring service against the plain
+            # models (bf16 and fp32) with the plain ring, same rows' noise
+            conds2 = serve_conditions(cfg, 2, 40)
+            got = service.generate(conds2, seed=8).samples
+            ref = {}
+            with plain_backends(), active_mesh(service.mesh):
+                for dt in ("bfloat16", "float32"):
+                    pipe = build_pipeline(cfg, dt, device)
+                    pipe.load_state_dict(sd)
+                    ref[dt] = pipe.reverse_process(
+                        pipe.sample_shape(2), torch.from_numpy(conds2).to(device),
+                        row_keys=per_sample_keys(8, 2))["denoised"].float().cpu().numpy()
+                    del pipe
+            k, p = rel_mse(got, ref["float32"]), rel_mse(ref["bfloat16"], ref["float32"])
+            bar = min(HOLD_FACTOR * p, HOLD_CAP["sample"])  # every sample check of this phase
+            hold = {"kernels_vs_fp32_plain": k, "bf16_plain_vs_fp32_plain": p,
+                    "kernels_vs_bf16_plain": rel_mse(got, ref["bfloat16"]), "bar": bar,
+                    "batch": 2}
+            same["bar"] = bar
+
+            # one bucket-8 request: its host-clock time, then profiled
+            conds8 = serve_conditions(cfg, 8, 50)
+            t3 = time.perf_counter()
+            service.generate(conds8, seed=9)
+            bucket8_s = time.perf_counter() - t3
+            by_name = device_time_by_kernel(lambda: service.generate(conds8, seed=9))
+            bucket8 = {"request_s": bucket8_s, **NOT_PROFILED}
+            if by_name:
+                bucket8 = {"request_s": bucket8_s, **profile_summary(by_name)}
+                bucket8.update(
+                    device_busy_share=bucket8["busy_ms"] / 1e3 / bucket8_s,
+                    ring_attention_ms=sum(ms for name, (ms, _) in by_name.items()
+                                          if CUDA_KERNEL["ring_attention"] in name))
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+            thread.join(timeout=30)
+        ring_s = time.perf_counter() - t0
+
+        # the single-rank service: no mesh, so attention takes the flash kernel
+        before = dict(launch_counts)
+        server1, single = serve.build_server(serve_argv(cfg_path, pth, tmp, (2,), False),
+                                             log=messages.append)
+        server1.server_close()
+        try:
+            flat = single.generate(conds2, seed=8).samples
+        finally:
+            single.close()
+        single_launches = {k: v - before.get(k, 0) for k, v in launch_counts.items()
+                           if v > before.get(k, 0)}
+        single_vs_ring = {"rel_mse": rel_mse(got, flat),
+                          "max_abs_diff": float(np.abs(got - flat).max()),
+                          "bar": bar, "launches": single_launches}
+    finally:
+        if impl_before is None:
+            os.environ.pop("RHO_RING_ATTN_IMPL", None)
+        else:
+            os.environ["RHO_RING_ATTN_IMPL"] = impl_before
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    state["serve_launches"] = counts
+    state["serve_per_request"] = per_request
+    emit("serve", context_ranks=SERVE_CONTEXT, mesh=stats.get("mesh"), buckets=SERVE_BUCKETS,
+         steps=steps, cuts=SERVE_CUTS, build_and_warmup_s=build_s, requests=requests,
+         stats=stats, launches=counts, launches_per_bucket1_request=per_request,
+         max_memory_allocated=peak, alone_vs_cobatched=same, sample_hold=hold,
+         bucket8_request=bucket8,
+         single_rank_vs_ring=single_vs_ring, messages=messages, ring_service_s=ring_s,
+         seconds=time.perf_counter() - t0)
+    problems = []
+    for r in requests:
+        if r["shape"] != [r["n"], *cfg["model"]["kwargs"]["data_shape"], 1] or not r["finite"]:
+            problems.append(f"request {r}")
+    missing = [k for k in ("ring_attention", "conv3d_igemm", "conv3d_direct") if not counts.get(k)]
+    if missing:
+        problems.append(f"the serve path never launched {missing}; counts {counts}")
+    if counts.get("flash_attention"):
+        problems.append(f"attention left the ring under the context mesh: {counts}")
+    if co.bucket < 2 or not same["rel_mse"] <= bar:
+        problems.append(f"alone vs co-batched: {same}")
+    if not hold["kernels_vs_fp32_plain"] <= hold["bar"]:
+        problems.append(f"sample hold: {hold}")
+    if not single_launches.get("flash_attention") or single_launches.get("ring_attention") or \
+            not single_vs_ring["rel_mse"] <= bar:
+        problems.append(f"single-rank service: {single_vs_ring}")
+    if problems:
+        fail("serve: " + "; ".join(problems))
 
 
 def conv_cost(key) -> tuple[float, float, float]:
@@ -894,6 +1170,14 @@ def phase_timings(state: dict, batch: int) -> None:
                            variant="T=4096 (the 64^3 config's attention), one call"),
              flash_fwd_row(b, t, h, d, n, per, device, torch.float32, variant="fp32")]
     emit("timings_flash", rows=flash)
+    per_ring = f"one UNet forward at batch {batch} under a context={SERVE_CONTEXT} mesh"
+    ring = [ring_row(b, t, h, d, SERVE_CONTEXT, n, per_ring, device, torch.bfloat16),
+            ring_row(b, t, h, d, SERVE_CONTEXT, n, per_ring, device, torch.float32,
+                     variant="fp32"),
+            ring_row(b, 4096, h, d, SERVE_CONTEXT, 1, per_ring, device, torch.bfloat16,
+                     variant="T=4096 (the 64^3 config's attention, T/n = 1024), one call")]
+    emit("timings_ring", rows=ring,
+         launches_per_served_bucket1_request=state.get("serve_per_request"))
 
     x, t_, y = unet_inputs(unet, batch, device, seed=7)
     with torch.no_grad():
@@ -902,7 +1186,7 @@ def phase_timings(state: dict, batch: int) -> None:
          device_profile=profile_forward(unet, (x, t_, y), fwd_ms))
     emit("timings_sample", **time_sampling(pipe, cfg, samples=4))
 
-    rows = conv + flash + time_train_kernels(unet, TRAIN_BATCH, device)
+    rows = conv + flash + ring + time_train_kernels(unet, TRAIN_BATCH, device)
     record_errors(state, rows)
     state["timings"] = rows
     fail_bad("timings", rows)
@@ -932,6 +1216,48 @@ def flash_fwd_row(b, t, h, d, calls: int, per: str, device, dtype, variant=None)
            "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
                                       iters=10),
            "bound_ms": bnd, "bound_by": by}
+    row["tflops"] = flops / row["ms"] / 1e9
+    return row
+
+
+def ring_row(b, t, h, d, n, calls: int, per: str, device, dtype, variant=None) -> dict:
+    """K6 in its ring of ``n`` ranks on one card, [b, t, h, d] views of one
+    qkv: held against the ring with the plain step, timed beside it (``ms``:
+    the device time per call, the ring's n * n kernel durations summed;
+    ``step_ms``: one kernel's duration;
+    ``call_ms``: the whole call, copies and host work included), SDPA over
+    the unsharded inputs, the function's bound and the design's own byte
+    floor."""
+    import torch.nn.functional as F
+
+    q, k, v = flash_inputs(b, t, h, d, device, seed=700 + t, dtype=dtype)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+    mesh = ring_mesh(n, device)
+    item = q.element_size()
+    flops = 4.0 * b * h * t * t * d
+    bnd, by = bound_ms(flops, item * 4.0 * b * t * h * d, PEAK_BF16 if item == 2 else PEAK_FP32)
+    # what this design moves: q and the slot read at every rank-step, the
+    # fp32 state (acc, m, l) read and written between steps, o written once,
+    # and the n (n - 1) slot copies read and written by the copy engines
+    shard = b * h * (t // n) * d
+    state_bytes = 4 * shard + 8 * b * h * (t // n)
+    design_bytes = (n * n * 3 * item * shard + 2 * n * (n - 1) * state_bytes + n * item * shard
+                    + n * (n - 1) * 2 * 2 * item * shard)
+    times = kernel_times(lambda: ring_call(q, k, v, mesh), "ring_attention")
+    row = {"kernel": "ring_attention", "variant": variant, "b": b, "t": t, "h": h, "d": d, "n": n,
+           "t_per_rank": t // n, "dtype": dtype_name(dtype), "calls": calls, "per": per,
+           **flash_error(ring_call(q, k, v, mesh), ring_call(qf, kf, vf, mesh, plain=True),
+                         TOL_FLASH[dtype_name(dtype)]),
+           **times, "step_ms": times["ms"] / (n * n),
+           "launches_per_call": n * n,
+           "plain_ms": cuda_time_ms(lambda: ring_call(qf, kf, vf, mesh, plain=True), iters=3,
+                                    warmup=1),
+           "library": "scaled_dot_product_attention over the unsharded [B, H, T, D]",
+           "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                                      iters=10),
+           "bound_ms": bnd, "bound_by": by, "design_bytes": design_bytes,
+           "design_bytes_ms": design_bytes / MEM_RATE * 1e3}
     row["tflops"] = flops / row["ms"] / 1e9
     return row
 
@@ -1027,6 +1353,10 @@ KERNELS = (
      "rho_diffusion_tpu/ops/pallas/flash_attention.py:209", "training"),
     ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
      "rho_diffusion_tpu/ops/pallas/flash_attention.py:262", "training"),
+    # K6: the ring's fold of one K/V slot; the ring itself is copies on the
+    # ranks' comm streams (parallel/context_rdma.py)
+    ("ring_attention", "ring_attention.cu", "rho_diffusion_tpu/parallel/context_rdma.py:50",
+     "serving"),
 )
 TIME_FIELDS = ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms")
 
@@ -1044,12 +1374,13 @@ def summed_times(rows: list) -> dict:
 
 def kernels_line(state: dict) -> list:
     """The ``kernels`` line: per kernel, its launches on the path that runs
-    it (sampling for the forward kernels, training for the backward ones;
-    both paths listed), its worst error against its plain version over every
+    it (sampling for the forward kernels, training for the backward ones,
+    serving for K6; every path listed), its worst error against its plain version over every
     hold of this run and that error's ratio to the check's tolerance (at
     most 1), and its times summed over one UNet forward (timing batch) or
     one training step (TRAIN_BATCH); other dtypes and T as ``variants``."""
-    launches = {"sampling": state["launches"], "training": state["train_launches"]}
+    launches = {"sampling": state["launches"], "training": state["train_launches"],
+                "serving": state["serve_launches"]}
     out = []
     for name, source, replaces, path in KERNELS:
         rows = [r for r in state["timings"] if r["kernel"] == name and r.get("calls")]
@@ -1191,6 +1522,8 @@ def main(argv=None) -> int:
         phase_train(state, TRAIN_BATCH)
     if "hold" in phases:
         phase_hold(state)
+    if "serve" in phases:
+        phase_serve(state, args.steps)
     if "timings" in phases:
         phase_timings(state, args.timing_batch)
     emit("done", seconds=time.perf_counter() - t0)

@@ -132,10 +132,35 @@ class AbstractDiffusionPipeline:
         self.backbone.load_state_dict(state_dict, strict=strict)
 
     @torch.no_grad()
-    def apply(self, x, t, y=None) -> torch.Tensor:
+    def apply(self, x, t, y=None, cond_mask=None) -> torch.Tensor:
         """The sampling-time model call: no autograd, eval mode."""
         self.backbone.eval()
+        if cond_mask is not None:
+            return self.backbone(x, t, y, cond_mask=cond_mask)
         return self.backbone(x, t, y)
+
+    def guided_model_fn(self, conditions, guidance_scale):
+        """Classifier-free-guided ``fn(x, t)`` (JAX base.py:243-279): out =
+        uncond + s (cond - uncond), as one batched forward over [x; x] with a
+        per-row conditioning mask (mask-0 rows are the null condition). The
+        model should have been trained with ``cond_dropout`` > 0. Channels
+        past the data's (learned-variance heads) come from the conditional
+        half."""
+        s = float(guidance_scale)
+
+        def guided_fn(x, t):
+            b = x.shape[0]
+            mask = torch.cat([torch.ones(b, device=x.device), torch.zeros(b, device=x.device)])
+            out2 = self.apply(torch.cat([x, x]), torch.cat([t, t]),
+                              torch.cat([conditions, conditions]), cond_mask=mask).to(x.dtype)
+            cond_out, uncond_out = out2[:b], out2[b:]
+            ch = x.shape[-1]
+            guided = uncond_out[..., :ch] + s * (cond_out[..., :ch] - uncond_out[..., :ch])
+            if cond_out.shape[-1] > ch:
+                guided = torch.cat([guided, cond_out[..., ch:]], dim=-1)
+            return guided
+
+        return guided_fn
 
     # ------------------------------------------------------------------
     # Training

@@ -8,17 +8,21 @@ Port of ``rho_diffusion_tpu/diffusion/ddpm.py``:
   per-sample conditioning dropout for classifier-free-guidance training;
 * ``ddpm_reverse_step``: x_{t-1} = (x_t - beta_t / sqrt(1-abar_t) eps_hat)
   / sqrt(alpha_t) + 0.8 sqrt(beta_t) z, clamped to [-1, 1];
-* ``DDPM.reverse_process``: the JAX package's ``lax.scan`` becomes a Python
-  loop over t = T-1 .. 0 with the same gating (noise only for t > 1, an
-  update only for t > 0, so the model is not called at t = 0) and the same
-  ``t_checkpoints`` frame buffer, written every T//10 steps.
+* ``DDPM.reverse_process`` (:188-277): the JAX package's ``lax.scan``
+  becomes a Python loop over t = T-1 .. 0 with the same gating (noise only
+  for t > 1, an update only for t > 0, so the model is not called at
+  t = 0) and the same ``t_checkpoints`` frame buffer, written every T//10
+  steps; ``guidance_scale`` != 1 samples with classifier-free guidance
+  (``guided_model_fn``).
 
-Noise comes from an explicit ``torch.Generator`` on the pipeline's device.
-Classifier-free-guided sampling is not ported yet.
+Noise comes either from one ``torch.Generator`` on the pipeline's device
+(batch-wide), or, given ``row_keys``, from per-row streams
+(``diffusion.sampling_rng``: x_T at tag T, step t's noise at tag t), the
+serving determinism contract.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 import torch
 
@@ -32,6 +36,7 @@ from rho_diffusion_tpu_torch.diffusion.gaussian import (
     min_snr_weight,
     validate_loss_weighting,
 )
+from rho_diffusion_tpu_torch.diffusion.sampling_rng import keys_at_step, normal_like
 from rho_diffusion_tpu_torch.diffusion.schedule import NoiseSchedule
 from rho_diffusion_tpu_torch.ops.convolution import mean_flat
 
@@ -161,15 +166,31 @@ class DDPM(AbstractDiffusionPipeline):
         t_checkpoints=None,
         x_T: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        row_keys: Optional[Sequence[int]] = None,
+        guidance_scale: Optional[float] = None,
     ) -> dict:
-        """Full ancestral sampling. Returns {'denoised', 'buffer'}."""
+        """Full ancestral sampling. Returns {'denoised', 'buffer'}.
+
+        Noise comes from ``generator``, or, given ``row_keys`` (one 64-bit
+        key per row, ``sampling_rng``), from each row's own stream, so a
+        row's sample does not depend on its batch. ``guidance_scale`` != 1
+        with conditions applies classifier-free guidance."""
         T = len(self.schedule)
         batch_size = shape[0]
         dev = self.device
-        x = (
-            torch.randn(shape, generator=generator, device=dev)
-            if x_T is None else torch.as_tensor(x_T, device=dev, dtype=torch.float32)
-        )
+        per_row = row_keys is not None
+
+        def noise(tag: int) -> torch.Tensor:
+            if per_row:
+                return normal_like(keys_at_step(row_keys, tag), shape, dev)
+            return torch.randn(shape, generator=generator, device=dev)
+
+        x = noise(T) if x_T is None else torch.as_tensor(x_T, device=dev, dtype=torch.float32)
+        if guidance_scale is not None and float(guidance_scale) != 1.0 and conditions is not None:
+            model_fn = self.guided_model_fn(conditions, guidance_scale)
+        else:
+            def model_fn(x, tt):
+                return self.apply(x, tt, conditions)
         num_ckpt = len(t_checkpoints) if t_checkpoints is not None else 0
         steps_per_ckpt = max(T // 10, 1)
         buff = (
@@ -179,12 +200,9 @@ class DDPM(AbstractDiffusionPipeline):
         ckpt_idx = 0
         for t in range(T - 1, -1, -1):
             if t > 0:
-                z = (
-                    torch.randn(x.shape, generator=generator, device=dev, dtype=x.dtype)
-                    if t > 1 else torch.zeros_like(x)
-                )
+                z = noise(t).to(x.dtype) if t > 1 else torch.zeros_like(x)
                 tt = torch.full((batch_size,), t, dtype=torch.int64, device=dev)
-                eps_hat = self.apply(x, tt, conditions).to(x.dtype)
+                eps_hat = model_fn(x, tt).to(x.dtype)
                 x = ddpm_reverse_step(
                     self.schedule, x, eps_hat, tt, z,
                     noise_factor=self.noise_factor, clip=self.clip_denoised,

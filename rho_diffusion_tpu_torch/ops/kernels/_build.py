@@ -20,7 +20,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-KERNELS = ("conv3d", "flash_attention", "flash_attention_bwd")
+KERNELS = ("conv3d", "flash_attention", "flash_attention_bwd", "ring_attention")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -9,8 +9,11 @@ whose Python has no JAX, run it without the JAX-side conftest:
 Shapes cover the ragged edges the flagship does not reach: voxel counts and
 Cout off the 128 x 64 tiles, reduction depths off the 32-deep stage, Cin=1
 and Cout=1, fp32, strided q/k/v, padded head dims and Tq != Tk, for both
-dtypes of the flash kernel. The plain versions run in fp32 with TF32 off;
-tolerances are chip_smoke.py's.
+dtypes of the flash kernel; and the ring-attention kernel (K6) in its ring
+of 2 and 4 ranks on one card at T/n = 128 and 1024, ragged shards and a
+padded head dim, and with one rank per card where there are two or more.
+The plain versions run in fp32 with TF32 off; tolerances are
+chip_smoke.py's.
 """
 import math
 
@@ -23,6 +26,7 @@ from rho_diffusion_tpu_torch.ops.kernels.conv3d import (
     conv3d, conv3d_dgrad, conv3d_dgrad_plain, conv3d_plain)
 from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
     flash_attention, flash_attention_bwd_plain, flash_attention_plain, flash_lse_plain)
+from rho_diffusion_tpu_torch.parallel import context_sharded_attention, make_mesh
 
 pytestmark = pytest.mark.cuda
 
@@ -242,3 +246,62 @@ def test_unet_training_step_reaches_every_parameter(cuda):
     for kernel in ("conv3d_igemm", "conv3d_direct", "conv3d_dgrad_igemm", "conv3d_dgrad_direct",
                    "flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
         assert launch_counts[kernel] > 0, kernel
+
+
+def ring_inputs(b, t, h, d, dtype, device, seed):
+    """q, k, v as the UNet makes them: strided views of one fused qkv."""
+    return randn((b, t, h, 3 * d), seed, device, dtype).split(d, dim=-1)
+
+
+def assert_flash_close(got, want, dtype):
+    err = got.float() - want
+    tol = TOL_FLASH[dtype]
+    assert float(err.abs().max()) <= tol * float(want.abs().max())
+    assert float(err.pow(2).mean().sqrt() / want.pow(2).mean().sqrt()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "n,b,tl,h,d",
+    [
+        (4, 8, 128, 4, 128),   # the flagship's serve shape: bucket 8, 4 ranks
+        (2, 8, 128, 4, 128),   # n = 2: one send, no backpressure
+        (4, 2, 1024, 4, 128),  # the 64^3 config's T/n = 1024
+        (2, 1, 150, 3, 100),   # ragged key tiles, head dim padded to 128
+    ],
+)
+def test_ring_attention_kernel_matches_plain(cuda, n, b, tl, h, d, dtype):
+    """K6 in its ring of n ranks on one card against the same ring with the
+    plain step (fp32 inputs) and against full attention."""
+    q, k, v = ring_inputs(b, n * tl, h, d, dtype, cuda, seed=20)
+    mesh = make_mesh(data=1, context=n, devices=[cuda] * n)
+    launch_counts.clear()
+    got = context_sharded_attention(q, k, v, mesh, impl="rdma")
+    torch.cuda.synchronize()
+    assert launch_counts == {"ring_attention": n * n}
+    assert got.shape == q.shape and got.dtype == dtype
+    qf, kf, vf = q.float(), k.float(), v.float()
+    assert_flash_close(got, context_sharded_attention(qf, kf, vf, mesh, impl="rdma", plain=True),
+                       dtype)
+    assert_flash_close(got, xla_attention(qf, kf, vf), dtype)
+
+
+def test_ring_attention_kernel_one_rank_per_card(cuda):
+    """The ring over separate cards: peer copies between the ranks."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two or more CUDA devices")
+    n = min(count, 4)
+    devices = [torch.device("cuda", i) for i in range(n)]
+    q, k, v = ring_inputs(8, n * 128, 4, 128, torch.bfloat16, cuda, seed=21)
+    launch_counts.clear()
+    got = context_sharded_attention(q, k, v, make_mesh(context=n, devices=devices), impl="rdma")
+    torch.cuda.synchronize()
+    assert launch_counts == {"ring_attention": n * n}
+    assert_flash_close(got, xla_attention(q.float(), k.float(), v.float()), torch.bfloat16)
+
+
+def test_ring_attention_kernel_refuses_autograd(cuda):
+    q = randn((1, 64, 2, 64), 22, cuda, torch.bfloat16).requires_grad_()
+    with pytest.raises(RuntimeError, match="grad mode"):
+        context_sharded_attention(q, q, q, make_mesh(context=2, devices=[cuda] * 2), impl="rdma")

@@ -8,7 +8,8 @@
   other device, or without a CUDA toolchain, they raise. Both kernel entry
   points are autograd Functions, and a raw kernel launch reached under grad
   mode with an input that requires grad raises instead of cutting the graph.
-* The training options that need more than one device raise.
+* The training options that need more than one device raise, and so do
+  the serving options not ported yet (int8, a data axis > 1).
 """
 import json
 import os
@@ -34,6 +35,9 @@ from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_bwd_kernel,
     flash_attention_fwd_kernel,
 )
+from rho_diffusion_tpu_torch.ops.kernels.ring_attention import ring_attn_step
+from rho_diffusion_tpu_torch.parallel import context_sharded_attention, make_mesh
+from rho_diffusion_tpu_torch.serve import build_server
 from rho_diffusion_tpu_torch.training.__main__ import main as train_main
 from rho_diffusion_tpu_torch.training.trainer import Trainer
 from rho_diffusion_tpu_torch.utils import resolve_device
@@ -97,6 +101,30 @@ def test_entry_points_raise_without_cuda():
             train_main([str(ROOT / "examples" / "config_smoke.json"), *argv])
 
 
+def test_serve_and_mesh_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without CUDA")
+    config = str(ROOT / "examples" / "config_smoke.json")
+    for argv in ([], ["-d", "cuda"], ["--context-parallel", "2"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build_server([config, "--port", "0", *argv])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh(context=2)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--quant", "int8"],
+    ["--data-parallel", "2"],
+    ["--data-parallel", "2", "--context-parallel", "2"],
+], ids=["quant", "data2", "data2-context2"])
+def test_serve_options_not_ported_raise(argv):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_server([str(ROOT / "examples" / "config_smoke.json"), "-d", "cpu", "--port", "0",
+                      *argv])
+
+
 def test_kernel_wrappers_raise_off_the_cpu():
     x = torch.empty((1, 4, 4, 4, 8), device="meta")
     w = torch.empty((8, 8, 3, 3, 3), device="meta")
@@ -105,6 +133,9 @@ def test_kernel_wrappers_raise_off_the_cpu():
     q = torch.empty((1, 16, 2, 32), device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         flash_attention(q, q, q)
+    kv, state = torch.empty((2, 16, 32), device="meta"), torch.empty((2, 16), device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ring_attn_step(q, kv, kv, state, state, kv, q, 1.0, True, True)
     with pytest.raises(TypeError):
         conv3d(torch.zeros(1, 4, 4, 4, 8), torch.zeros(8, 8, 3, 3, 3, dtype=torch.float64))
 
@@ -125,8 +156,10 @@ def test_raw_kernel_launch_under_grad_mode_raises():
     x = torch.empty((1, 4, 4, 4, 8), device="meta", requires_grad=True)
     w = torch.empty((8, 8, 3, 3, 3), device="meta")
     q = torch.empty((1, 16, 2, 32), device="meta", requires_grad=True)
+    kv, state = torch.empty((2, 16, 32), device="meta"), torch.empty((2, 16), device="meta")
     for launch in (lambda: conv3d_kernel(x, w), lambda: flash_attention_fwd_kernel(q, q, q),
-                   lambda: flash_attention_bwd_kernel(q, q, q, q, q[:, :, :, 0], q)):
+                   lambda: flash_attention_bwd_kernel(q, q, q, q, q[:, :, :, 0], q),
+                   lambda: ring_attn_step(q, kv, kv, state, state, kv, q, 1.0, True, True)):
         with pytest.raises(RuntimeError, match="grad mode"):
             launch()
         with torch.no_grad(), pytest.raises(RuntimeError, match="no kernel"):
@@ -167,8 +200,9 @@ def test_kernel_build_raises_without_nvcc(tmp_path, monkeypatch):
 def test_cpu_calls_do_not_count_as_launches():
     launch_counts.clear()
     conv3d(torch.zeros(1, 3, 3, 3, 2), torch.zeros(2, 2, 3, 3, 3))
-    q = torch.zeros(1, 5, 1, 8)
+    q = torch.zeros(1, 8, 1, 8)
     flash_attention(q, q, q)
+    context_sharded_attention(q, q, q, make_mesh(context=2, devices=["cpu"] * 2), impl="rdma")
     assert sum(launch_counts.values()) == 0
 
 

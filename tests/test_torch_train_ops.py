@@ -217,11 +217,13 @@ def test_dataloader_batches_match_jax(seed, epoch, start, drop_last):
 def test_prefetch_stops_its_thread_and_propagates_errors():
     """A consumer that stops early (the trainer on SIGTERM) leaves no
     producer thread behind; an error in the producer reaches the consumer."""
-    before = threading.active_count()
+    # threads of earlier tests may end meanwhile: only a new thread counts
+    before = set(threading.enumerate())
     batches = prefetch(iter(range(100)), size=2)
     assert [next(batches) for _ in range(3)] == [0, 1, 2]
+    assert set(threading.enumerate()) - before  # the producer runs
     batches.close()
-    assert threading.active_count() == before
+    assert not set(threading.enumerate()) - before
 
     def failing():
         yield 1
