@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py [--phases env,build,kernels,main,train,hold,serve,timings]
+    python3 chip_smoke.py [--phases env,build,kernels,main,train,hold,serve,timings,bench]
                           [--steps 25] [--samples 4] [--timing-batch 8]
 
 Builds the port's CUDA kernels from ``rho_diffusion_tpu_torch/csrc``, holds
@@ -21,7 +21,14 @@ width, random seeded weights loaded from a reference-layout ``.pth``):
   over HTTP (n = 1, 3 and 11, the last split across launches), a request
   alone against the same request co-batched, a sample held against the
   fp32 plain model with the plain ring, and a single-rank service (the
-  flash kernel's route) against the ring service.
+  flash kernel's route) against the ring service;
+* ``bench``: the conv bottleneck-isolation entry
+  (``python -m rho_diffusion_tpu_torch.benchmarks.conv3d_variants``) with
+  every variant and bigdot at td 1, 2, 4 and 8 at the level-1 shape, so
+  K7-K9 launch; then each of their kernels held against its plain version
+  on the inputs the entry times it on, and timed there; then the entry's
+  two companions, K5 against cuDNN per shape (``conv3d_ab``) and per UNet
+  level beside the equal-FLOP matmul (``conv_profile``).
 
 Each path's launch counts are cleared just before it and read just after,
 and it fails if a kernel of the path never launched. ``hold`` holds one
@@ -35,8 +42,8 @@ a torch.profiler breakdown by kernel) and the whole reverse process. Every
 phase prints one JSON line; a failing phase exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``, after the
 ``kernels`` line and the card's ``nvidia-smi`` name and power limit. A run
-whose ``--phases`` leave out any of kernels, main, train and timings prints
-neither and exits 3.
+whose ``--phases`` leave out any of kernels, main, train, serve, timings
+and bench prints neither and exits 3.
 
 Exits non-zero without a result when CUDA is unavailable or the script runs
 outside a checkout of the repository. Imports nothing of JAX.
@@ -45,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import math
 import shutil
@@ -56,9 +64,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "examples" / "config_spherical_harmonics.json"
-PHASES = ("env", "build", "kernels", "main", "train", "hold", "serve", "timings")
+PHASES = ("env", "build", "kernels", "main", "train", "hold", "serve", "timings", "bench")
 # the phases whose numbers the kernels line carries
-KERNELS_LINE_PHASES = ("kernels", "main", "train", "serve", "timings")
+KERNELS_LINE_PHASES = ("kernels", "main", "train", "serve", "timings", "bench")
 DEVICE = "cuda"
 # the train phase: the flagship's batch, and steps cut to five
 TRAIN_BATCH = 32
@@ -66,6 +74,9 @@ TRAIN_STEPS = 5
 # the serve phase: context ranks of the ring, all on one card, and buckets
 SERVE_CONTEXT = 4
 SERVE_BUCKETS = (1, 2, 4, 8)
+# the bench phase: every variant of the bottleneck-isolation entry
+BENCH_VARIANTS = ("full", "nopatch", "nodma", "dotsonly", "bigdot1", "bigdot2", "bigdot4",
+                  "bigdot8")
 # device time of the profiled training step, grouped by kernel name
 DEVICE_TIME_GROUPS = (
     ("conv3d_igemm (port, forward and dgrad)", ("conv3d_igemm",)),
@@ -364,27 +375,36 @@ def flash_error(got, want, tol: float) -> dict:
 CUDA_KERNEL = {"conv3d_igemm": "conv3d_igemm", "conv3d_direct": "conv3d_direct",
                "conv3d_dgrad_igemm": "conv3d_igemm", "conv3d_dgrad_direct": "conv3d_direct",
                "flash_attention": "flash_fwd", "flash_attention_bwd_dkv": "flash_bwd_dkv",
-               "flash_attention_bwd_dq": "flash_bwd_dq", "ring_attention": "ring_step"}
+               "flash_attention_bwd_dq": "flash_bwd_dq", "ring_attention": "ring_step",
+               **{k: k for k in ("conv3d_variant_full", "conv3d_variant_nopatch",
+                                 "conv3d_variant_nodma", "conv3d_bigdot_im2col",
+                                 "conv3d_bigdot_gemm", "conv3d_dotsonly")}}
 
 
 def kernel_times(fn, kernel: str, iters: int = 10) -> dict:
     """``ms``: device time per call of ``fn`` in the CUDA kernel behind
-    ``kernel``, from torch.profiler; ``call_ms``: CUDA-event time per call
-    of the whole wrapper ``fn`` (its host work, weight repacks, pads and, for
-    the flash backward, delta included). Without profiler events ``ms`` is
-    ``call_ms``, and ``ms_of`` says so."""
+    ``kernel``, from torch.profiler: the mean duration of the launches it
+    recorded times the launches one call makes (the wrapper's own count),
+    since the profiler can miss launches (``profiled_launches`` against
+    ``launches_made``); ``call_ms``: CUDA-event time per call of the whole
+    wrapper ``fn`` (its host work, weight repacks, pads and, for the flash
+    backward, delta included). When the profiler recorded no launch ``ms``
+    is ``call_ms``, and ``ms_of`` says so."""
+    import torch
+
+    from rho_diffusion_tpu_torch.benchmarks._timing import kernel_events, per_call_ms
+    from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+
     call_ms = cuda_time_ms(fn, iters)
-
-    def repeat():
-        for _ in range(iters):
-            fn()
-
-    by_name = device_time_by_kernel(repeat)
-    hits = [ms for name, (ms, _) in by_name.items() if CUDA_KERNEL[kernel] in name]
-    if not hits:
-        return {"ms": call_ms, "ms_of": "the wrapper call (CUDA events)", "call_ms": call_ms}
-    return {"ms": sum(hits) / iters, "ms_of": "the kernel's device time (torch.profiler)",
-            "call_ms": call_ms}
+    before = launch_counts[kernel]
+    fn()
+    torch.cuda.synchronize()
+    per_call = launch_counts[kernel] - before
+    ms, recorded = per_call_ms(kernel_events(fn, iters), CUDA_KERNEL[kernel], per_call)
+    times = {"call_ms": call_ms, "profiled_launches": recorded, "launches_made": per_call * iters}
+    if ms is None:
+        return {"ms": call_ms, "ms_of": "the wrapper call (CUDA events)", **times}
+    return {"ms": ms, "ms_of": "the kernel's device time (torch.profiler)", **times}
 
 
 def conv_kernel_name(kind: str, key) -> str:
@@ -774,7 +794,8 @@ def phase_train(state: dict, batch: int) -> None:
     if not changed:
         problems.append("no parameter changed")
     # every kernel of the sampling and training paths runs on the training path
-    missing = [name for name, _, _, path in KERNELS if path != "serving" and not counts.get(name)]
+    missing = [name for name, _, _, path in KERNELS
+               if path in ("sampling", "training") and not counts.get(name)]
     if missing:
         problems.append(f"the training path never launched {missing}; counts {counts}")
     if latest != TRAIN_STEPS or not ema_equal:
@@ -1339,6 +1360,120 @@ def time_train_kernels(unet, batch: int, device) -> list:
     return forward + dgrad + flash
 
 
+def bench_rows(device) -> list:
+    """Each K7-K9 kernel at the level-1 shape, on the inputs the variant
+    entry times it on: held against its plain version (fp32, TF32 off),
+    timed beside it (``ms``: its device time per call, summed over
+    bigdot's passes; ``call_ms``: the wrapper call), beside one library call
+    and its bound. K7's library call is ``F.conv3d`` on x with km as the
+    conv's weights (nopatch and nodma compute other functions with the same
+    FLOPs); K8's GEMM and K9 are held beside cuBLAS on [B*D*H*W, 27*Cin]
+    x [27*Cin, Cout]: the whole patch matrix for K8, p tiled 9 times (the
+    same function) for K9. K8's im2col is data movement, bound by its
+    bytes, and has no library call; both of K8's rows carry the output hold
+    of the pair, and the conv's own bound and the design's byte floor (the
+    patch written and read back) beside their own bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from rho_diffusion_tpu_torch.benchmarks import conv3d_variants as cv
+    from rho_diffusion_tpu_torch.ops.kernels.conv3d_variants import (
+        VARIANTS, bigdot_plain, conv_variant_plain, dots_only_plain, im2col_plain)
+
+    ins = cv.inputs(device)
+    x, km, p, km_tc = ins["x"], ins["km"], ins["p"], ins["km_tc"]
+    xf, kmf, pf, km_tcf = x.float(), km.float(), p.float(), km_tc.float()
+    b, d, h, w, cin = x.shape
+    cout, k = km.shape[1], 27 * cin
+    vox = b * d * h * w
+    conv_flops = cv.conv_flops()
+    conv_bound, _ = bound_ms(conv_flops, 0, PEAK_BF16)
+    weight = km.view(3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2)
+    per = f"one call at the level-1 shape [{b},{d},{h},{w},{cin}] -> {cout}"
+    rows = []
+
+    def row(name, variant, run, want, plain, library, library_ms, flops, nbytes, **extra):
+        bnd, by = bound_ms(flops, nbytes, PEAK_BF16)
+        r = {"kernel": name, "variant": variant, "dtype": "bfloat16", "calls": 1, "per": per,
+             **conv_error(run().float(), want, TOL_CONV_BF16), **kernel_times(run, name),
+             "plain_ms": cuda_time_ms(plain, iters=2, warmup=1), "library": library,
+             "library_ms": library_ms, "bound_ms": bnd, "bound_by": by, **extra}
+        r["tflops"] = flops / r["ms"] / 1e9 if flops else None
+        rows.append(r)
+
+    lib_conv_ms = cuda_time_ms(lambda: F.conv3d(x.movedim(-1, 1), weight, padding=1), iters=10)
+    for v in VARIANTS:
+        plain = functools.partial(conv_variant_plain, xf, kmf, v)
+        x_bytes = 0 if v == "nodma" else x.numel()
+        row(f"conv3d_variant_{v}", None, cv.kernel_call(v, ins), plain(), plain,
+            "F.conv3d (cuDNN), the full conv", lib_conv_ms, conv_flops,
+            2.0 * (x_bytes + km.numel() + vox * cout))
+    patch = torch.cat([im2col_plain(x, d0, 1) for d0 in range(d)]).to(torch.bfloat16)
+    lib_gemm_ms = cuda_time_ms(lambda: patch @ km, iters=10)
+    del patch
+    patch_bytes = 2.0 * vox * k
+    for td in (4, 1, 2, 8):
+        variant = None if td == 4 else f"td={td}"
+        run = cv.kernel_call(f"bigdot{td}", ins)
+        want = bigdot_plain(xf, kmf, td)
+        floor = {"conv_bound_ms": conv_bound,
+                 "design_bytes_ms": (2 * patch_bytes + 2.0 * (x.numel() + km.numel()
+                                                              + vox * cout)) / MEM_RATE * 1e3,
+                 "td": td, "passes": d // td}
+        row("conv3d_bigdot_im2col", variant, run, want,
+            lambda td=td: [im2col_plain(xf, d0, td) for d0 in range(0, d, td)], None, None, 0,
+            2.0 * x.numel() + patch_bytes, **floor)
+        row("conv3d_bigdot_gemm", variant, run, want,
+            functools.partial(bigdot_plain, xf, kmf, td),
+            "torch.matmul (cuBLAS) [B*D*H*W, 27*Cin] x [27*Cin, Cout] on the whole patch",
+            lib_gemm_ms, conv_flops, patch_bytes + 2.0 * (km.numel() + vox * cout), **floor)
+    p9 = p.repeat(1, 9)
+    dots_flops = 2.0 * p.shape[0] * p.shape[1] * 9 * km_tc.shape[1]
+    row("conv3d_dotsonly", None, cv.kernel_call("dotsonly", ins),
+        dots_only_plain(pf, km_tcf), functools.partial(dots_only_plain, pf, km_tcf),
+        "torch.matmul (cuBLAS): p tiled 9 times [P, 9*CPAD] x km [9*CPAD, Cout]",
+        cuda_time_ms(lambda: p9 @ km_tc, iters=10), dots_flops,
+        2.0 * (p.numel() + km_tc.numel() + p.shape[0] * km_tc.shape[1]))
+    return rows
+
+
+def phase_bench(state: dict) -> None:
+    """The bottleneck-isolation path: the variant entry's ``main`` with
+    every variant (the counted run), then ``bench_rows``, then the
+    conv3d_ab and conv_profile entries."""
+    import torch
+
+    from rho_diffusion_tpu_torch.benchmarks import conv3d_ab, conv_profile
+    from rho_diffusion_tpu_torch.benchmarks import conv3d_variants as cv
+    from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+
+    device = torch.device(DEVICE)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launch_counts.clear()
+    torch.cuda.synchronize()
+    variants = cv.main(["-d", DEVICE, *BENCH_VARIANTS])
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    state["bench_launches"] = counts
+    emit("bench_variants", rows=variants, launches=counts)
+    rows = bench_rows(device)
+    emit("bench_kernels", rows=rows)
+    t1 = time.perf_counter()
+    emit("bench_conv3d_ab", rows=conv3d_ab.main(["-d", DEVICE]))
+    t2 = time.perf_counter()
+    emit("bench_conv_profile", **conv_profile.main(["-d", DEVICE]))
+    torch.cuda.empty_cache()
+    record_errors(state, rows)
+    state["bench"] = rows
+    emit("bench", seconds=time.perf_counter() - t0, variants_and_holds_s=t1 - t0,
+         conv3d_ab_s=t2 - t1, conv_profile_s=time.perf_counter() - t2)
+    missing = [name for name, _, _, path in KERNELS if path == "bench" and not counts.get(name)]
+    if missing:
+        fail(f"bench path never launched {missing}; counts {counts}")
+    fail_bad("bench", rows)
+
+
 # name, source in csrc/, the TPU kernel it replaces, and the path that runs it
 KERNELS = (
     ("conv3d_igemm", "conv3d.cu", "rho_diffusion_tpu/ops/pallas/conv3d.py:102", "sampling"),
@@ -1357,6 +1492,16 @@ KERNELS = (
     # ranks' comm streams (parallel/context_rdma.py)
     ("ring_attention", "ring_attention.cu", "rho_diffusion_tpu/parallel/context_rdma.py:50",
      "serving"),
+    # K7-K9: variants of K5's block, run by the bottleneck-isolation entry;
+    # K8 is two kernels, the patch matrix and its GEMM
+    ("conv3d_variant_full", "conv3d_variants.cu", "benchmarks/conv3d_variants.py:51", "bench"),
+    ("conv3d_variant_nopatch", "conv3d_variants.cu", "benchmarks/conv3d_variants.py:51",
+     "bench"),
+    ("conv3d_variant_nodma", "conv3d_variants.cu", "benchmarks/conv3d_variants.py:51", "bench"),
+    ("conv3d_bigdot_im2col", "conv3d_variants.cu", "benchmarks/conv3d_variants.py:104",
+     "bench"),
+    ("conv3d_bigdot_gemm", "conv3d_variants.cu", "benchmarks/conv3d_variants.py:104", "bench"),
+    ("conv3d_dotsonly", "conv3d_variants.cu", "benchmarks/conv3d_variants.py:154", "bench"),
 )
 TIME_FIELDS = ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms")
 
@@ -1375,15 +1520,18 @@ def summed_times(rows: list) -> dict:
 def kernels_line(state: dict) -> list:
     """The ``kernels`` line: per kernel, its launches on the path that runs
     it (sampling for the forward kernels, training for the backward ones,
-    serving for K6; every path listed), its worst error against its plain version over every
-    hold of this run and that error's ratio to the check's tolerance (at
-    most 1), and its times summed over one UNet forward (timing batch) or
-    one training step (TRAIN_BATCH); other dtypes and T as ``variants``."""
+    serving for K6, bench for K7-K9; every path listed), its worst error
+    against its plain version over every hold of this run and that error's
+    ratio to the check's tolerance (at most 1), and its times summed over
+    one UNet forward (timing batch) or one training step (TRAIN_BATCH), or
+    per call at the level-1 shape (K7-K9, bigdot at td 4); other dtypes, T
+    and td as ``variants``."""
     launches = {"sampling": state["launches"], "training": state["train_launches"],
-                "serving": state["serve_launches"]}
+                "serving": state["serve_launches"], "bench": state["bench_launches"]}
     out = []
     for name, source, replaces, path in KERNELS:
-        rows = [r for r in state["timings"] if r["kernel"] == name and r.get("calls")]
+        rows = [r for r in state["timings"] + state["bench"]
+                if r["kernel"] == name and r.get("calls")]
         main = [r for r in rows if not r["variant"]]
         accuracy = state["err"][name]
         out.append({
@@ -1401,21 +1549,13 @@ def kernels_line(state: dict) -> list:
 
 
 def device_time_by_kernel(fn) -> dict:
-    """{kernel name: (device ms, launches)} of one call of ``fn`` (in the
-    caller's grad mode), from torch.profiler's CUDA events; empty when the
-    profiler saw none."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """{kernel name: (device ms, launches recorded)} of one call of ``fn``
+    (in the caller's grad mode), from torch.profiler's CUDA events; empty
+    when the profiler saw none. Sums over what the profiler recorded, which
+    can miss launches: a lower bound of the device's busy time."""
+    from rho_diffusion_tpu_torch.benchmarks._timing import kernel_events
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    return by_name
+    return kernel_events(fn, 1)
 
 
 NOT_PROFILED = {"status": "not measured: the profiler recorded no device events"}
@@ -1526,6 +1666,8 @@ def main(argv=None) -> int:
         phase_serve(state, args.steps)
     if "timings" in phases:
         phase_timings(state, args.timing_batch)
+    if "bench" in phases:
+        phase_bench(state)
     emit("done", seconds=time.perf_counter() - t0)
     if not set(KERNELS_LINE_PHASES) <= set(phases):
         print(f"chip_smoke: a run without all of {KERNELS_LINE_PHASES} prints no kernels "

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with ``nvcc``
 into its own shared library for ``sm_90a`` at first use and loaded with
 ``ctypes``: no PyTorch headers are compiled, which keeps a cold build to
 seconds. Libraries land in ``build/kernels/`` at the repository root (listed
-in ``.gitignore``), named by a hash of their source so an edited source is never served by a stale build. Sources are
-compiled in parallel, one ``nvcc`` each. A failed build raises with the
-compiler's output.
+in ``.gitignore``), named by a hash of their source and of every header
+under ``csrc/``, so an edited source or header is never served by a stale
+build. Sources are compiled in parallel, one ``nvcc`` each. A failed build
+raises with the compiler's output.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-KERNELS = ("conv3d", "flash_attention", "flash_attention_bwd", "ring_attention")
+KERNELS = ("conv3d", "conv3d_variants", "flash_attention", "flash_attention_bwd",
+           "ring_attention")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,8 +51,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    text = b"".join(p.read_bytes() for p in sources) + " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha1(text).hexdigest()[:12]
     return build_dir() / f"lib{name}-{digest}.so"
 
 

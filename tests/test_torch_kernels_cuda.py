@@ -12,8 +12,9 @@ and Cout=1, fp32, strided q/k/v, padded head dims and Tq != Tk, for both
 dtypes of the flash kernel; and the ring-attention kernel (K6) in its ring
 of 2 and 4 ranks on one card at T/n = 128 and 1024, ragged shards and a
 padded head dim, and with one rank per card where there are two or more.
-The plain versions run in fp32 with TF32 off; tolerances are
-chip_smoke.py's.
+The conv's bottleneck-isolation kernels (K7-K9) at the level-1 widths and
+off their tiles, and what they refuse. The plain versions run in fp32 with
+TF32 off; tolerances are chip_smoke.py's.
 """
 import math
 
@@ -24,6 +25,8 @@ from rho_diffusion_tpu_torch.ops.attention import xla_attention
 from rho_diffusion_tpu_torch.ops.kernels import launch_counts
 from rho_diffusion_tpu_torch.ops.kernels.conv3d import (
     conv3d, conv3d_dgrad, conv3d_dgrad_plain, conv3d_plain)
+from rho_diffusion_tpu_torch.ops.kernels.conv3d_variants import (
+    bigdot, bigdot_plain, conv_variant, conv_variant_plain, dots_only, dots_only_plain)
 from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
     flash_attention, flash_attention_bwd_plain, flash_attention_plain, flash_lse_plain)
 from rho_diffusion_tpu_torch.parallel import context_sharded_attention, make_mesh
@@ -305,3 +308,89 @@ def test_ring_attention_kernel_refuses_autograd(cuda):
     q = randn((1, 64, 2, 64), 22, cuda, torch.bfloat16).requires_grad_()
     with pytest.raises(RuntimeError, match="grad mode"):
         context_sharded_attention(q, q, q, make_mesh(context=2, devices=[cuda] * 2), impl="rdma")
+
+
+@pytest.mark.parametrize("variant", ["full", "nopatch", "nodma"])
+@pytest.mark.parametrize(
+    "shape,cout",
+    [
+        ((2, 4, 16, 16, 128), 128),  # the level-1 widths
+        ((1, 3, 5, 7, 32), 72),      # voxels off the 128 tile, Cout off 64
+        ((2, 4, 4, 4, 24), 10),      # K = 648 off the 32-deep slice, odd Cout
+    ],
+)
+def test_conv_variant_kernels_match_plain(cuda, shape, cout, variant):
+    cin = shape[-1]
+    x = randn(shape, 30, cuda, torch.bfloat16)
+    km = randn((27 * cin, cout), 31, cuda, torch.bfloat16, 1 / math.sqrt(27 * cin))
+    launch_counts.clear()
+    got = conv_variant(x, km, variant)
+    torch.cuda.synchronize()
+    assert launch_counts == {f"conv3d_variant_{variant}": 1}
+    assert got.dtype == torch.bfloat16 and got.shape == (*shape[:-1], cout)
+    torch.testing.assert_close(got.float(), conv_variant_plain(x.float(), km.float(), variant),
+                               atol=TOL_BF16, rtol=TOL_BF16)
+
+
+def test_full_variant_is_k5_bitwise(cuda):
+    """``full`` runs K5's own block (csrc/conv3d_igemm.cuh): the same
+    products in the same order as the conv kernel without bias."""
+    x = randn((2, 4, 16, 16, 128), 32, cuda, torch.bfloat16)
+    km = randn((27 * 128, 128), 33, cuda, torch.bfloat16, 1 / math.sqrt(27 * 128))
+    weight = km.view(3, 3, 3, 128, 128).permute(4, 3, 0, 1, 2)
+    assert torch.equal(conv_variant(x, km, "full"), conv3d(x, weight))
+
+
+@pytest.mark.parametrize(
+    "shape,cout,td",
+    [((2, 8, 16, 16, 32), 64, td) for td in (1, 2, 4, 8)]
+    + [((1, 4, 8, 16, 128), 128, 1), ((3, 6, 8, 8, 64), 128, 2)],
+)
+def test_bigdot_kernels_match_plain(cuda, shape, cout, td):
+    cin = shape[-1]
+    x = randn(shape, 34, cuda, torch.bfloat16)
+    km = randn((27 * cin, cout), 35, cuda, torch.bfloat16, 1 / math.sqrt(27 * cin))
+    launch_counts.clear()
+    got = bigdot(x, km, td)
+    torch.cuda.synchronize()
+    passes = shape[1] // td
+    assert launch_counts == {"conv3d_bigdot_im2col": passes, "conv3d_bigdot_gemm": passes}
+    want = bigdot_plain(x.float(), km.float(), td)
+    torch.testing.assert_close(got.float(), want, atol=TOL_BF16, rtol=TOL_BF16)
+    torch.testing.assert_close(want, conv_variant_plain(x.float(), km.float(), "full"))
+
+
+@pytest.mark.parametrize("rows,cpad,cout", [(1024, 384, 128), (256, 32, 64), (384, 96, 192)])
+def test_dots_only_kernel_matches_plain(cuda, rows, cpad, cout):
+    p = randn((rows, cpad), 36, cuda, torch.bfloat16)
+    km = randn((9 * cpad, cout), 37, cuda, torch.bfloat16, 1 / math.sqrt(9 * cpad))
+    launch_counts.clear()
+    got = dots_only(p, km)
+    torch.cuda.synchronize()
+    assert launch_counts == {"conv3d_dotsonly": 1}
+    torch.testing.assert_close(got.float(), dots_only_plain(p.float(), km.float()),
+                               atol=TOL_BF16, rtol=TOL_BF16)
+
+
+def test_variant_kernels_reject_what_they_do_not_take(cuda):
+    x = randn((1, 4, 8, 16, 32), 38, cuda, torch.bfloat16)
+    km = randn((27 * 32, 64), 39, cuda, torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        conv_variant(x.float(), km.float(), "full")
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_variant(x.transpose(2, 3), km, "full")
+    unaligned = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(x.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        conv_variant(unaligned, km, "full")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        conv_variant(x[..., :12].contiguous(), km[:27 * 12], "full")
+    with pytest.raises(ValueError, match="3\\*Cin"):
+        conv_variant(x, km[:-1], "full")
+    with pytest.raises(ValueError, match="dense GEMM"):  # 8*16 rows per batch, Cout off 64
+        bigdot(x, km[:, :48].contiguous(), 1)
+    with pytest.raises(ValueError, match="dense GEMM"):
+        bigdot(x[:, :, :4].contiguous(), km, 1)         # 64 rows per batch
+    with pytest.raises(ValueError, match="dense GEMM"):
+        dots_only(randn((100, 32), 40, cuda, torch.bfloat16), km[:288])
+    with pytest.raises(RuntimeError, match="grad mode"):
+        conv_variant(x, km.clone().requires_grad_(), "full")

@@ -8,6 +8,8 @@
   other device, or without a CUDA toolchain, they raise. Both kernel entry
   points are autograd Functions, and a raw kernel launch reached under grad
   mode with an input that requires grad raises instead of cutting the graph.
+  The forward-only bottleneck-isolation kernels (K7-K9) raise the same way,
+  and their benchmark entries need CUDA unless given ``-d cpu``.
 * The training options that need more than one device raise, and so do
   the serving options not ported yet (int8, a data axis > 1).
 """
@@ -27,6 +29,7 @@ from rho_diffusion_tpu_torch import inference
 from rho_diffusion_tpu_torch.diffusion.ddpm import DDPM
 from rho_diffusion_tpu_torch.diffusion.schedule import LinearSchedule
 from rho_diffusion_tpu_torch.config import ExperimentConfig
+from rho_diffusion_tpu_torch.benchmarks import conv3d_ab, conv3d_variants, conv_profile
 from rho_diffusion_tpu_torch.ops.kernels import _build, launch_counts
 from rho_diffusion_tpu_torch.ops.kernels.conv3d import Conv3d, conv3d, conv3d_kernel
 from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
@@ -35,6 +38,7 @@ from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_bwd_kernel,
     flash_attention_fwd_kernel,
 )
+from rho_diffusion_tpu_torch.ops.kernels.conv3d_variants import bigdot, conv_variant, dots_only
 from rho_diffusion_tpu_torch.ops.kernels.ring_attention import ring_attn_step
 from rho_diffusion_tpu_torch.parallel import context_sharded_attention, make_mesh
 from rho_diffusion_tpu_torch.serve import build_server
@@ -164,6 +168,41 @@ def test_raw_kernel_launch_under_grad_mode_raises():
             launch()
         with torch.no_grad(), pytest.raises(RuntimeError, match="no kernel"):
             launch()
+
+
+@pytest.mark.parametrize("launch", [
+    lambda x, km, p: conv_variant(x, km, "full"),
+    lambda x, km, p: conv_variant(x, km, "nopatch"),
+    lambda x, km, p: conv_variant(x, km, "nodma"),
+    lambda x, km, p: bigdot(x, km, 2),
+    lambda x, km, p: dots_only(p, km),
+], ids=["full", "nopatch", "nodma", "bigdot", "dotsonly"])
+def test_variant_kernels_raise_off_the_cpu_and_under_grad_mode(launch):
+    """K7-K9 have no backward: under grad mode an input that requires grad
+    raises before any launch; under no_grad a tensor off the CPU and off
+    CUDA has no kernel."""
+    x = torch.empty((1, 4, 4, 4, 8), device="meta")
+    km = torch.empty((216, 8), device="meta")
+    p = torch.empty((64, 24), device="meta")
+    for grad_input in ("x", "km"):
+        args = {"x": x, "km": km, "p": p}
+        args[grad_input] = args[grad_input].clone().requires_grad_()
+        if grad_input == "x":
+            args["p"] = p.clone().requires_grad_()
+        with pytest.raises(RuntimeError, match="grad mode"):
+            launch(**args)
+    with torch.no_grad(), pytest.raises(RuntimeError, match="no kernel"):
+        launch(x, km, p)
+
+
+@pytest.mark.parametrize("entry", [conv3d_variants, conv3d_ab, conv_profile],
+                         ids=["conv3d_variants", "conv3d_ab", "conv_profile"])
+def test_benchmark_entries_need_cuda_unless_asked_for_the_cpu(entry):
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without CUDA")
+    for argv in ([], ["-d", "cuda"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry.main(argv)
 
 
 @pytest.mark.parametrize("option", [
