@@ -21,7 +21,8 @@ width, random seeded weights loaded from a reference-layout ``.pth``):
   over HTTP (n = 1, 3 and 11, the last split across launches), a request
   alone against the same request co-batched, a sample held against the
   fp32 plain model with the plain ring, and a single-rank service (the
-  flash kernel's route) against the ring service;
+  flash kernel's route) against the ring service, bucket-1 latencies of
+  both, and a profiled bucket-8 request (its device busy share);
 * ``bench``: the conv bottleneck-isolation entry
   (``python -m rho_diffusion_tpu_torch.benchmarks.conv3d_variants``) with
   every variant and bigdot at td 1, 2, 4 and 8 at the level-1 shape, so
@@ -251,7 +252,7 @@ class CallRecorder:
 
     def __enter__(self):
         def wrapped(*args, **kwargs):
-            self.calls.append(tuple((tuple(a.shape), a.dtype) if a is not None else None
+            self.calls.append(tuple((tuple(a.shape), a.dtype) if hasattr(a, "shape") else a
                                     for a in args))
             return self.orig(*args, **kwargs)
 
@@ -375,7 +376,7 @@ def flash_error(got, want, tol: float) -> dict:
 CUDA_KERNEL = {"conv3d_igemm": "conv3d_igemm", "conv3d_direct": "conv3d_direct",
                "conv3d_dgrad_igemm": "conv3d_igemm", "conv3d_dgrad_direct": "conv3d_direct",
                "flash_attention": "flash_fwd", "flash_attention_bwd_dkv": "flash_bwd_dkv",
-               "flash_attention_bwd_dq": "flash_bwd_dq", "ring_attention": "ring_step",
+               "flash_attention_bwd_dq": "flash_bwd_dq", "ring_attention": "ring_attention_",
                **{k: k for k in ("conv3d_variant_full", "conv3d_variant_nopatch",
                                  "conv3d_variant_nodma", "conv3d_bigdot_im2col",
                                  "conv3d_bigdot_gemm", "conv3d_dotsonly")}}
@@ -564,7 +565,7 @@ def ring_mesh(n: int, device):
 
 def ring_call(q, k, v, mesh, plain: bool = False):
     """One context-parallel attention call with the "rdma" ring: K6, or
-    with ``plain`` the same ring with K6's plain step."""
+    with ``plain`` the same ring folded by K6's plain version."""
     from rho_diffusion_tpu_torch.parallel import context_sharded_attention
 
     return context_sharded_attention(q, k, v, mesh, impl="rdma", plain=plain)
@@ -573,9 +574,8 @@ def ring_call(q, k, v, mesh, plain: bool = False):
 def check_ring(b, t, h, d, n, device, seed: int, dtype) -> list:
     """K6 in its ring of ``n`` ranks on one card (strided views of one qkv,
     as the UNet makes them), held on fp32 copies of the inputs against the
-    same ring with the plain step, and against full attention without the
-    ring (``xla_attention``), which shares none of the ring's slots, streams
-    and events."""
+    same ring with the plain version, and against full attention without
+    the ring (``xla_attention``), which shares none of the ring's code."""
     from rho_diffusion_tpu_torch.ops.attention import xla_attention
 
     q, k, v = flash_inputs(b, t, h, d, device, seed, dtype)
@@ -630,6 +630,34 @@ def phase_kernels(state: dict) -> None:
     fail_bad("kernels", conv + flash + flash_bwd + ring)
 
 
+def direct_conv_calls() -> CallRecorder:
+    """Records every conv kernel launch (forward and dgrad) by its problem."""
+    from rho_diffusion_tpu_torch.ops.kernels import conv3d as conv_kernels
+
+    return CallRecorder(conv_kernels, "conv3d_kernel")
+
+
+def conv_problem_name(kind: str, xs, cout: int, dtype: str) -> str:
+    """A conv problem at any batch: "forward [B, 32, 32, 32, 1] -> 64 bfloat16"."""
+    return f"{kind} [B, {', '.join(map(str, xs[1:]))}] -> {cout} {dtype}"
+
+
+def direct_launches(calls) -> dict:
+    """{problem: launches} of the direct conv among recorded conv3d_kernel
+    calls (x, weight, bias[, kind]): those the igemm route does not take."""
+    import torch
+
+    out: dict = {}
+    for call in calls:
+        (xs, dt), (ws, _) = call[0], call[1]
+        if dt == torch.bfloat16 and xs[-1] % 8 == 0:
+            continue
+        kind = "dgrad" if len(call) > 3 and call[3] == "conv3d_dgrad" else "forward"
+        name = conv_problem_name(kind, xs, ws[0], dtype_name(dt))
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
 def phase_main(state: dict, steps: int, samples: int) -> None:
     import numpy as np
     import torch
@@ -648,14 +676,16 @@ def phase_main(state: dict, steps: int, samples: int) -> None:
         launch_counts.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = inference.main([str(cfg_path), "-p", str(pth), "-n", str(samples), "-d", DEVICE,
-                              "-f", "--work-dir", str(tmp)])
+        with direct_conv_calls() as direct:
+            out = inference.main([str(cfg_path), "-p", str(pth), "-n", str(samples), "-d",
+                                  DEVICE, "-f", "--work-dir", str(tmp)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(launch_counts)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     state["launches"] = counts
+    state.setdefault("direct_launches", {})["sampling"] = direct_launches(direct.calls)
     want_shape = (samples, *cfg["model"]["kwargs"]["data_shape"],
                   cfg["model"]["kwargs"]["in_channels"])
     finite = bool(np.isfinite(out).all())
@@ -723,8 +753,9 @@ def phase_train(state: dict, batch: int) -> None:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
-            st = train_main([str(cfg_path), "-p", str(pth), "-d", DEVICE,
-                             "--work-dir", str(work), "--no-resume"])
+            with direct_conv_calls() as direct:
+                st = train_main([str(cfg_path), "-p", str(pth), "-d", DEVICE,
+                                 "--work-dir", str(work), "--no-resume"])
             torch.cuda.synchronize()
         except torch.cuda.OutOfMemoryError:
             fail(f"train: batch {batch} did not fit in one pass (peak "
@@ -781,6 +812,7 @@ def phase_train(state: dict, batch: int) -> None:
     after_first = step_s[1:]
     median = float(np.median(after_first)) if after_first else None
     state["train_launches"] = counts
+    state.setdefault("direct_launches", {})["training"] = direct_launches(direct.calls)
     emit("train", batch=batch, grad_accum=cfg["training"].get("grad_accum", 1),
          steps=len(steps), cuts=TRAIN_CUTS,
          losses=losses, grad_norms=norms, step_s=step_s, median_step_s_after_first=median,
@@ -1057,6 +1089,8 @@ def phase_serve(state: dict, steps: int) -> None:
             alone = service.generate(conds4[:1], seed=5)
             per_request = {k: v - before.get(k, 0) for k, v in launch_counts.items()
                            if v > before.get(k, 0)}
+            ring_b1 = [alone.latency_s] + [service.generate(conds4[:1], seed=5).latency_s
+                                           for _ in range(2)]
             busy = service.submit(serve_conditions(cfg, 8, 30), seed=6)
             mine = service.submit(conds4[:1], seed=5)
             other = service.submit(conds4[1:], seed=7)
@@ -1110,11 +1144,12 @@ def phase_serve(state: dict, steps: int) -> None:
 
         # the single-rank service: no mesh, so attention takes the flash kernel
         before = dict(launch_counts)
-        server1, single = serve.build_server(serve_argv(cfg_path, pth, tmp, (2,), False),
+        server1, single = serve.build_server(serve_argv(cfg_path, pth, tmp, (1, 2), False),
                                              log=messages.append)
         server1.server_close()
         try:
             flat = single.generate(conds2, seed=8).samples
+            single_b1 = [single.generate(conds4[:1], seed=5).latency_s for _ in range(3)][1:]
         finally:
             single.close()
         single_launches = {k: v - before.get(k, 0) for k, v in launch_counts.items()
@@ -1122,6 +1157,10 @@ def phase_serve(state: dict, steps: int) -> None:
         single_vs_ring = {"rel_mse": rel_mse(got, flat),
                           "max_abs_diff": float(np.abs(got - flat).max()),
                           "bar": bar, "launches": single_launches}
+        bucket1 = {"ring_latency_s": ring_b1, "single_rank_latency_s": single_b1,
+                   "ring_over_single_rank": min(ring_b1) / min(single_b1),
+                   "of": "one 25-step request of one row, enqueue to fulfilment; the "
+                         "single-rank service's first call is its warm-up and is left out"}
     finally:
         if impl_before is None:
             os.environ.pop("RHO_RING_ATTN_IMPL", None)
@@ -1136,7 +1175,9 @@ def phase_serve(state: dict, steps: int) -> None:
          stats=stats, launches=counts, launches_per_bucket1_request=per_request,
          max_memory_allocated=peak, alone_vs_cobatched=same, sample_hold=hold,
          bucket8_request=bucket8,
-         single_rank_vs_ring=single_vs_ring, messages=messages, ring_service_s=ring_s,
+         bucket8_device_busy_share=bucket8.get("device_busy_share", NOT_PROFILED["status"]),
+         bucket1_request=bucket1, single_rank_vs_ring=single_vs_ring, messages=messages,
+         ring_service_s=ring_s,
          seconds=time.perf_counter() - t0)
     problems = []
     for r in requests:
@@ -1241,15 +1282,43 @@ def flash_fwd_row(b, t, h, d, calls: int, per: str, device, dtype, variant=None)
     return row
 
 
+OPS_CALLS = 10  # ring calls whose operations ring_row lists
+COPY_OPS = ("aten::copy_", "aten::_to_copy", "aten::clone", "aten::cat")
+
+
+def ops_of(fn, iters: int) -> tuple[dict, dict]:
+    """({CUDA operation: count}, {host copy or cat op: count}) over
+    ``iters`` calls of ``fn`` under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    device, copies = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            device[e.name] = device.get(e.name, 0) + 1
+        elif e.name in COPY_OPS:
+            copies[e.name] = copies.get(e.name, 0) + 1
+    return device, copies
+
+
 def ring_row(b, t, h, d, n, calls: int, per: str, device, dtype, variant=None) -> dict:
     """K6 in its ring of ``n`` ranks on one card, [b, t, h, d] views of one
-    qkv: held against the ring with the plain step, timed beside it (``ms``:
-    the device time per call, the ring's n * n kernel durations summed;
-    ``step_ms``: one kernel's duration;
-    ``call_ms``: the whole call, copies and host work included), SDPA over
-    the unsharded inputs, the function's bound and the design's own byte
-    floor."""
+    qkv: held against the ring with the plain version, timed beside it
+    (``ms``: the device time per call; ``call_ms``: the whole call, host work
+    included), SDPA over the unsharded inputs, the function's bound and the
+    design's own byte floor. ``device_ops_in_calls`` and ``copy_ops_in_calls``
+    count the device operations and the host's copy or concatenation ops
+    that torch.profiler recorded over OPS_CALLS calls (it misses some device
+    operations at the start of its window): the ring kernel's launches and
+    nothing else, no copy between ranks."""
+    import torch
     import torch.nn.functional as F
+
+    from rho_diffusion_tpu_torch.ops.kernels import launch_counts
 
     q, k, v = flash_inputs(b, t, h, d, device, seed=700 + t, dtype=dtype)
     qf, kf, vf = q.float(), k.float(), v.float()
@@ -1258,20 +1327,22 @@ def ring_row(b, t, h, d, n, calls: int, per: str, device, dtype, variant=None) -
     item = q.element_size()
     flops = 4.0 * b * h * t * t * d
     bnd, by = bound_ms(flops, item * 4.0 * b * t * h * d, PEAK_BF16 if item == 2 else PEAK_FP32)
-    # what this design moves: q and the slot read at every rank-step, the
-    # fp32 state (acc, m, l) read and written between steps, o written once,
-    # and the n (n - 1) slot copies read and written by the copy engines
+    # what this design moves: q read once, every rank's K/V shard read by
+    # each of the n ranks, o written once
     shard = b * h * (t // n) * d
-    state_bytes = 4 * shard + 8 * b * h * (t // n)
-    design_bytes = (n * n * 3 * item * shard + 2 * n * (n - 1) * state_bytes + n * item * shard
-                    + n * (n - 1) * 2 * 2 * item * shard)
+    design_bytes = item * (n * shard + n * n * 2 * shard + n * shard)
+    before = launch_counts["ring_attention"]
+    ring_call(q, k, v, mesh)
+    torch.cuda.synchronize()
+    launches = launch_counts["ring_attention"] - before
+    ops, copies = ops_of(lambda: ring_call(q, k, v, mesh), OPS_CALLS)
     times = kernel_times(lambda: ring_call(q, k, v, mesh), "ring_attention")
     row = {"kernel": "ring_attention", "variant": variant, "b": b, "t": t, "h": h, "d": d, "n": n,
            "t_per_rank": t // n, "dtype": dtype_name(dtype), "calls": calls, "per": per,
            **flash_error(ring_call(q, k, v, mesh), ring_call(qf, kf, vf, mesh, plain=True),
                          TOL_FLASH[dtype_name(dtype)]),
-           **times, "step_ms": times["ms"] / (n * n),
-           "launches_per_call": n * n,
+           **times, "launches_per_call": launches, "device_ops_in_calls": ops,
+           "copy_ops_in_calls": copies, "ops_calls": OPS_CALLS,
            "plain_ms": cuda_time_ms(lambda: ring_call(qf, kf, vf, mesh, plain=True), iters=3,
                                     warmup=1),
            "library": "scaled_dot_product_attention over the unsharded [B, H, T, D]",
@@ -1280,6 +1351,12 @@ def ring_row(b, t, h, d, n, calls: int, per: str, device, dtype, variant=None) -
            "bound_ms": bnd, "bound_by": by, "design_bytes": design_bytes,
            "design_bytes_ms": design_bytes / MEM_RATE * 1e3}
     row["tflops"] = flops / row["ms"] / 1e9
+    others = [name for name in ops if CUDA_KERNEL["ring_attention"] not in name]
+    if launches != 1 or others or copies:
+        row["ok"] = False
+        row["fault"] = (f"a ring call on one card made {launches} K6 launches, the device "
+                        f"operations {ops} and the copies {copies}; expected one launch and "
+                        "nothing else")
     return row
 
 
@@ -1488,8 +1565,8 @@ KERNELS = (
      "rho_diffusion_tpu/ops/pallas/flash_attention.py:209", "training"),
     ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
      "rho_diffusion_tpu/ops/pallas/flash_attention.py:262", "training"),
-    # K6: the ring's fold of one K/V slot; the ring itself is copies on the
-    # ranks' comm streams (parallel/context_rdma.py)
+    # K6: one launch per device folds every rank's K/V shard in the ring's
+    # order (the ring's host side: parallel/context_rdma.py)
     ("ring_attention", "ring_attention.cu", "rho_diffusion_tpu/parallel/context_rdma.py:50",
      "serving"),
     # K7-K9: variants of K5's block, run by the bottleneck-isolation entry;
@@ -1544,8 +1621,21 @@ def kernels_line(state: dict) -> list:
             "per": f"{main[0]['per']}, {sum(r['calls'] for r in main)} calls",
             "variants": [{"variant": r["variant"], **summed_times([r])}
                          for r in rows if r["variant"]],
+            **({"by_problem": direct_by_problem(main, state["direct_launches"][path])}
+               if name.endswith("_direct") else {}),
         })
     return out
+
+
+def direct_by_problem(rows: list, launches: dict) -> list:
+    """The direct conv's timed problems one by one (the input conv, the
+    head, the head's dgrad), each with its times, bound, library time and
+    its launches on the path."""
+    return [{"problem": conv_problem_name(r["kind"], r["x"], r["cout"], r["dtype"]),
+             "calls": r["calls"], "per": r["per"], **summed_times([r]),
+             "launches": launches.get(conv_problem_name(r["kind"], r["x"], r["cout"], r["dtype"]),
+                                      0)}
+            for r in rows]
 
 
 def device_time_by_kernel(fn) -> dict:

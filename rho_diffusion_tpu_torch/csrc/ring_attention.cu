@@ -1,16 +1,30 @@
-// One step of ring attention (K6) for Hopper (sm_90a), bf16 or fp32 in and
-// out, fp32 softmax state.
+// Ring attention (K6) for Hopper (sm_90a): a whole ring call in one launch
+// per device, bf16 or fp32 in and out, fp32 softmax state in registers.
 //
-// Replaces the compute of the TPU kernel `_kernel` / `ring_attention_rdma`
-// in rho_diffusion_tpu/parallel/context_rdma.py:50-189. That kernel keeps a
+// Replaces the TPU kernel `_kernel` / `ring_attention_rdma` in
+// rho_diffusion_tpu/parallel/context_rdma.py:50-189. That kernel keeps a
 // rank's K/V shard in a 2-slot VMEM buffer, starts an async remote copy of
 // slot `cur` to the right neighbour's slot `nxt`, and folds slot `cur` into
-// the rank's running online-softmax state (m, l, acc) in f32 (:92-107);
-// after n steps it writes acc / l in the input dtype (:140-144). Here the
-// ring (the slots, the copies between ranks and their ordering) lives
-// outside the kernel, on each rank's streams with CUDA events for the
-// semaphores (parallel/context_rdma.py of the port). This kernel is one
-// rank's fold of one slot:
+// the rank's running online-softmax state (m, l, acc), kept in f32 VMEM for
+// all n steps (:92-107); after n steps it writes acc / l in the input dtype
+// (:140-144). At step s rank r holds the shard of rank (r - s) mod n.
+//
+// This kernel computes the same function without the slots. One launch
+// covers every rank that lives on one device: its grid is (query tiles of 64
+// rows) x B*H x (ranks on the device). Each block folds the K/V shards of all
+// n ranks in the ring's order r, r-1, ..., r-n+1 (mod n), reading each shard
+// where it lies: the shard table (passed by value, so it sits in the
+// kernel's constant parameter bank; no copy and no allocation per call)
+// holds every rank's K and V base pointers; on one card they are strided
+// views of the UNet's fused qkv, across cards each points into its own
+// card's memory and is read over NVLink (peer access, enabled by
+// `ring_attention_enable_peer`). The block keeps its rows' m, l and acc in
+// registers across all n shards and writes o once. K/V tiles of 64 keys are
+// double-buffered in shared memory with cp.async, so tile i+1 loads while
+// tile i is multiplied. The TPU's copies between ranks, its semaphores and
+// the state's round trip through memory between steps have no counterpart:
+// on the H100 every rank's block can read every shard, so rotating the
+// shards would only add traffic.
 //
 //   s      = (q k^T) * log2(e)/sqrt(D)         fp32 (K6's single 1/sqrt(D)
 //                                              scale, :93, :100; base 2)
@@ -18,48 +32,38 @@
 //   p      = exp2(s - m_new),  corr = exp2(m - m_new)
 //   l      = l * corr + rowsum(p)
 //   acc    = acc * corr + p v
+//   o      = acc / l                            after the last shard
 //
-// `first` starts from m = -inf (-1e30 here), l = 0, acc = 0 without reading
-// the state (:86-90); `last` writes o = acc / l in the input dtype and not
-// the state, so the ring's last step needs no extra launch. The state is
-// kept in base-2 units (m of the pre-scaled scores), the same function as
-// the TPU kernel's natural-log form; the plain version
+// The state is kept in base-2 units (m of the pre-scaled scores), the same
+// function as the TPU kernel's natural-log form; the plain version
 // (ops/kernels/ring_attention.py) does the same arithmetic.
 //
-// Layouts: q is [B, Tq, H, D] with D contiguous and any (batch, token, head)
-// strides in multiples of 16 bytes (the UNet's fused qkv is read in place);
-// the slot's k and v are contiguous [B*H, S, D]; m and l are fp32 [B*H, Tq],
-// acc fp32 [B*H, Tq, D]; o is [B, Tq, H, D] with its own strides. D is a
-// template parameter (16..256, a multiple of 16); the caller pads other head
-// dims with zeros.
+// Layouts: q and o of each launched rank, and k and v of each shard, are
+// [B, rows, H, D] with D contiguous and (batch, token, head) element strides
+// shared by all ranks (one stride set each for q, o, k, v), in multiples of
+// 16 bytes, at 16-byte aligned addresses. D is a template parameter (16..256,
+// a multiple of 16); the caller pads other head dims with zeros. Every shard
+// holds S keys; a 64-key tile that runs past S is masked per shard.
 //
-// bf16 (`ring_step_bf16_kernel`): one block of four warps owns 64 query rows
-// of one (b, h), 16 rows per warp, and sweeps the slot's keys in 64-key tiles
-// through shared memory: S = Q K^T and acc += P V on mma.sync m16n8k16 with
-// fp32 accumulation. q k^T is exact in fp32 (bf16 products), as in the TPU
-// kernel's f32 cast; P is rounded to bf16 for the P V product (the TPU
-// kernel keeps P in f32), one rounding of at most 2^-9 relative, the same as
-// the flash forward (K1). fp32 (`ring_step_f32_kernel`): fp32 FMAs on the
-// CUDA cores, eight threads to a query row, as the fp32 flash forward.
+// bf16 (`ring_attention_bf16_kernel`): four warps own 64 query rows, 16 each:
+// S = Q K^T and acc += P V on mma.sync m16n8k16 with fp32 accumulation. q k^T
+// is exact in fp32 (bf16 products), as in the TPU kernel's f32 cast; P is
+// rounded to bf16 for the P V product (the TPU kernel keeps P in f32), one
+// rounding of at most 2^-9 relative, as in the flash forward (K1). fp32
+// (`ring_attention_f32_kernel`): fp32 FMAs on the CUDA cores, eight threads to
+// a query row, 16 rows and 32-key tiles per block.
 //
 // What bounds it on the H100. At the flagship's serve shape (bucket 8, n = 4
-// ranks: B*H = 32, T = 512, T/n = S = 128, D = 128) a ring call runs n*n = 16
-// of these steps and does 4*B*H*T*T*D = 4.29 GFLOP: 4.3 us at the 989
-// TFLOP/s bf16 tensor-core peak, 64 us at the 67 TFLOP/s fp32 peak. The
-// function's own bytes (q, k, v read once, o written once: 16.8 MB in bf16)
-// take 5.0 us at 3.35 TB/s, so the ring as a function is bound by bytes,
-// at about 5 us. This design moves more: every rank-step reads q (1.05 MB)
-// and the slot (2.1 MB), every step but the first reads the fp32 state
-// (acc, m, l: 2.13 MB) and every step but the last writes it, and the last
-// writes o: 106 MB over the 16 rank-steps, 32 us at 3.35 TB/s, plus the 12
-// slot copies (25 MB, read and written by the copy engines). So the design
-// is bound by its fp32 state's round trip through device memory, about 6x
-// the function's bound; at these sizes a step's state for the four ranks
-// (8.5 MB) stays in the 50 MB L2, which the device-memory figure does not
-// credit. Keeping acc in registers across steps (a persistent kernel that
-// waits for each slot) removes that traffic; that is later work. At the
-// 64^3 config's attention (T = 4096, T/n = 1024) the call does 275 GFLOP,
-// 0.28 ms at the bf16 peak, and the operations bound it.
+// ranks: B*H = 32, T = 512, T/n = S = 128, D = 128) a ring call does
+// 4*B*H*T*T*D = 4.29 GFLOP: 4.3 us at the 989 TFLOP/s bf16 tensor-core peak,
+// 64 us at the 67 TFLOP/s fp32 peak. The function's own bytes (q, k, v read
+// once, o written once: 16.8 MB in bf16) take 5.0 us at 3.35 TB/s, so the
+// bf16 ring is bound by bytes, at about 5 us. This design reads q once
+// (4.2 MB), every shard once per rank (n times: 16.8 MB each for k and v at
+// n = 4, mostly from L2) and writes o once (4.2 MB): 41.9 MB, 12.5 us.
+// At the 64^3 config's attention (T = 4096, T/n = 1024) the call does 275
+// GFLOP, 0.28 ms at the bf16 peak: the operations bound it, and each block
+// walks 4096 keys as the flash forward's (K2) does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,19 +71,33 @@
 
 namespace {
 
-constexpr int BQ = 64;    // query rows per block (16 per warp)
-constexpr int BKV = 64;   // keys per K/V tile
+constexpr int MAX_RING = 16;  // ranks of one ring
+constexpr int BQ = 64;        // query rows per block (16 per warp)
+constexpr int BKV = 64;       // keys per K/V tile
 constexpr int THREADS = 128;
 constexpr float NEG_BIG = -1e30f;
 
+// Base pointers (as integers): k[j], v[j] of rank j's shard, in rank order;
+// q[z], o[z] and rank[z] of the z-th rank of this launch.
+struct RingTable {
+  long long k[MAX_RING], v[MAX_RING], q[MAX_RING], o[MAX_RING], rank[MAX_RING];
+};
+
+// Element strides (batch, token, head) of q, o, k, v.
+struct RingStrides {
+  long long q[3], o[3], k[3], v[3];
+};
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;
+  int n = pred ? 16 : 0;  // src-size 0: the 16 bytes are zero-filled
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
+// Every group but the newest has landed.
+__device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::); }
 
 __device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, const uint32_t* b) {
   asm volatile(
@@ -106,21 +124,41 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Issue the cp.async copies of K/V tile `it` of this block's fold (shard
+// (r - it / tiles) mod n, keys from (it % tiles) * KT) into `ks`, `vs`. Each
+// thread copies 16-byte chunks of EL elements; keys past S are zero-filled.
+template <typename T, int HD, int KT, int LD>
+__device__ __forceinline__ void load_kv_tile(T* ks, T* vs, const RingTable& tab,
+                                             const RingStrides& st, int it, int tiles, int r,
+                                             int n, int b, int h, int S) {
+  constexpr int EL = 16 / sizeof(T);
+  constexpr int CH = HD / EL;  // 16-byte chunks per row
+  const int s = it / tiles;
+  const int kv0 = (it - s * tiles) * KT;
+  int j = r - s;
+  if (j < 0) j += n;
+  const T* kb = reinterpret_cast<const T*>(tab.k[j]) + b * st.k[0] + h * st.k[2];
+  const T* vb = reinterpret_cast<const T*>(tab.v[j]) + b * st.v[0] + h * st.v[2];
+  for (int c = threadIdx.x; c < KT * CH; c += THREADS) {
+    const int row = c / CH, cc = c % CH;
+    const bool p = kv0 + row < S;
+    cp_async16(&ks[row * LD + cc * EL], p ? kb + (long long)(kv0 + row) * st.k[1] + cc * EL : kb, p);
+    cp_async16(&vs[row * LD + cc * EL], p ? vb + (long long)(kv0 + row) * st.v[1] + cc * EL : vb, p);
+  }
+}
+
 template <int HD>
 __global__ void __launch_bounds__(THREADS)
-ring_step_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, float* __restrict__ m_g,
-                      float* __restrict__ l_g, float* __restrict__ acc_g,
-                      __nv_bfloat16* __restrict__ o, int H, int Tq, int S, long long q_sb,
-                      long long q_st, long long q_sh, long long o_sb, long long o_st,
-                      long long o_sh, float scale_log2, int first, int last) {
+ring_attention_bf16_kernel(const __grid_constant__ RingTable tab,
+                           const __grid_constant__ RingStrides st, int n, int H, int Tq, int S,
+                           float scale_log2) {
   constexpr int LD = HD + 8;  // padded smem row: conflict-free fragment loads
   constexpr int CH = HD / 8;  // 16-byte chunks per row
   constexpr int ND = HD / 8;  // n8 tiles of the output
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BQ * LD;
-  __nv_bfloat16* Vs = Ks + BKV * LD;
+  __nv_bfloat16* Ks = Qs + BQ * LD;       // [2][BKV * LD]
+  __nv_bfloat16* Vs = Ks + 2 * BKV * LD;  // [2][BKV * LD]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -128,67 +166,45 @@ ring_step_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
+  const int z = blockIdx.z;
+  const int r = (int)tab.rank[z];
   const int q0 = blockIdx.x * BQ;
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + (long long)bh * S * HD;
-  const __nv_bfloat16* vb = v + (long long)bh * S * HD;
-  float* accb = acc_g + (long long)bh * Tq * HD;
-  float* mb = m_g + (long long)bh * Tq;
-  float* lb = l_g + (long long)bh * Tq;
+  const __nv_bfloat16* qb = reinterpret_cast<const __nv_bfloat16*>(tab.q[z]) + b * st.q[0] + h * st.q[2];
 
   for (int c = tid; c < BQ * CH; c += THREADS) {
-    const int r = c / CH, cc = c % CH;
-    const bool p = q0 + r < Tq;
-    cp_async16(&Qs[r * LD + cc * 8], p ? qb + (q0 + r) * q_st + cc * 8 : qb, p);
+    const int row = c / CH, cc = c % CH;
+    const bool p = q0 + row < Tq;
+    cp_async16(&Qs[row * LD + cc * 8], p ? qb + (long long)(q0 + row) * st.q[1] + cc * 8 : qb, p);
   }
-  cp_async_commit();
+  const int tiles = (S + BKV - 1) / BKV;
+  const int total = n * tiles;
+  load_kv_tile<__nv_bfloat16, HD, BKV, LD>(Ks, Vs, tab, st, 0, tiles, r, n, b, h, S);
+  cp_async_commit();  // group 0: Q and tile 0
 
   // This thread's rows of the state: t0 and t0 + 8; its columns of each n8
   // tile: (lane & 3) * 2 and + 1.
   const int qrow = warp * 16 + (lane >> 2);
   const int t0 = q0 + qrow;
-  const bool in0 = t0 < Tq, in1 = t0 + 8 < Tq;
   float acc[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
   float m_i[2] = {NEG_BIG, NEG_BIG};
   float l_i[2] = {0.f, 0.f};  // this thread's share of the row sums
-  if (first) {
-#pragma unroll
-    for (int d = 0; d < ND; ++d)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
-  } else {
-#pragma unroll
-    for (int d = 0; d < ND; ++d) {
-      const int col = d * 8 + (lane & 3) * 2;
-      const float2 a0 = in0 ? *reinterpret_cast<const float2*>(accb + (long long)t0 * HD + col)
-                            : make_float2(0.f, 0.f);
-      const float2 a1 = in1 ? *reinterpret_cast<const float2*>(accb + (long long)(t0 + 8) * HD + col)
-                            : make_float2(0.f, 0.f);
-      acc[d][0] = a0.x;
-      acc[d][1] = a0.y;
-      acc[d][2] = a1.x;
-      acc[d][3] = a1.y;
-    }
-    if (in0) m_i[0] = mb[t0];
-    if (in1) m_i[1] = mb[t0 + 8];
-    // the quad's four lanes share a row: one of them carries the stored sum
-    if ((lane & 3) == 0) {
-      if (in0) l_i[0] = lb[t0];
-      if (in1) l_i[1] = lb[t0 + 8];
-    }
-  }
 
-  for (int kv0 = 0; kv0 < S; kv0 += BKV) {
-    __syncthreads();  // the previous tile is fully consumed
-    for (int c = tid; c < BKV * CH; c += THREADS) {
-      const int r = c / CH, cc = c % CH;
-      const bool p = kv0 + r < S;
-      cp_async16(&Ks[r * LD + cc * 8], p ? kb + (long long)(kv0 + r) * HD + cc * 8 : kb, p);
-      cp_async16(&Vs[r * LD + cc * 8], p ? vb + (long long)(kv0 + r) * HD + cc * 8 : vb, p);
-    }
+  for (int it = 0; it < total; ++it) {
+    const int buf = it & 1;
+    __syncthreads();  // tile it - 1, in the other buffer, is fully consumed
+    if (it + 1 < total)
+      load_kv_tile<__nv_bfloat16, HD, BKV, LD>(Ks + (buf ^ 1) * BKV * LD, Vs + (buf ^ 1) * BKV * LD,
+                                               tab, st, it + 1, tiles, r, n, b, h, S);
     cp_async_commit();
-    cp_async_wait_all();
+    cp_async_wait_prev();  // Q and tile it have landed
     __syncthreads();
+    const __nv_bfloat16* Kt = Ks + buf * BKV * LD;
+    const __nv_bfloat16* Vt = Vs + buf * BKV * LD;
+    const int kv0 = (it % tiles) * BKV;
 
     // S = Q K^T for this warp's 16 rows x 64 keys, fp32.
     float s[BKV / 8][4];
@@ -206,13 +222,13 @@ ring_step_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
       a[3] = lds32(&Qs[(qrow + 8) * LD + c + 8]);
 #pragma unroll
       for (int ni = 0; ni < BKV / 8; ++ni) {
-        const int n = ni * 8 + (lane >> 2);
-        uint32_t bfr[2] = {lds32(&Ks[n * LD + c]), lds32(&Ks[n * LD + c + 8])};
+        const int nn = ni * 8 + (lane >> 2);
+        uint32_t bfr[2] = {lds32(&Kt[nn * LD + c]), lds32(&Kt[nn * LD + c + 8])};
         mma_bf16_16816(s[ni], a, bfr);
       }
     }
 
-    // Online softmax in base 2; keys past S are masked.
+    // Online softmax in base 2; keys past the shard's S are masked.
     float mx0 = m_i[0], mx1 = m_i[1];
 #pragma unroll
     for (int ni = 0; ni < BKV / 8; ++ni) {
@@ -261,7 +277,7 @@ ring_step_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
       pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
       pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* vrow = &Vs[(kk * 16 + (lane & 15)) * LD];
+      const __nv_bfloat16* vrow = &Vt[(kk * 16 + (lane & 15)) * LD];
 #pragma unroll
       for (int d = 0; d < ND; ++d) {
         uint32_t vfr[2];
@@ -277,80 +293,39 @@ ring_step_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
-  if (last) {
-    const float inv0 = 1.f / l0;
-    const float inv1 = 1.f / l1;
-    __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
-#pragma unroll
-    for (int d = 0; d < ND; ++d) {
-      const int col = d * 8 + (lane & 3) * 2;
-      if (in0)
-        *reinterpret_cast<__nv_bfloat162*>(ob + t0 * o_st + col) =
-            __floats2bfloat162_rn(acc[d][0] * inv0, acc[d][1] * inv0);
-      if (in1)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (t0 + 8) * o_st + col) =
-            __floats2bfloat162_rn(acc[d][2] * inv1, acc[d][3] * inv1);
-    }
-    return;
-  }
+  const float inv0 = 1.f / l0;
+  const float inv1 = 1.f / l1;
+  __nv_bfloat16* ob = reinterpret_cast<__nv_bfloat16*>(tab.o[z]) + b * st.o[0] + h * st.o[2];
 #pragma unroll
   for (int d = 0; d < ND; ++d) {
     const int col = d * 8 + (lane & 3) * 2;
-    if (in0)
-      *reinterpret_cast<float2*>(accb + (long long)t0 * HD + col) = make_float2(acc[d][0], acc[d][1]);
-    if (in1)
-      *reinterpret_cast<float2*>(accb + (long long)(t0 + 8) * HD + col) =
-          make_float2(acc[d][2], acc[d][3]);
-  }
-  if ((lane & 3) == 0) {
-    if (in0) {
-      mb[t0] = m_i[0];
-      lb[t0] = l0;
-    }
-    if (in1) {
-      mb[t0 + 8] = m_i[1];
-      lb[t0 + 8] = l1;
-    }
+    if (t0 < Tq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)t0 * st.o[1] + col) =
+          __floats2bfloat162_rn(acc[d][0] * inv0, acc[d][1] * inv0);
+    if (t0 + 8 < Tq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)(t0 + 8) * st.o[1] + col) =
+          __floats2bfloat162_rn(acc[d][2] * inv1, acc[d][3] * inv1);
   }
 }
 
-template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* m, void* l, void* acc, void* o,
-                int B, int H, int Tq, int S, const long long* st, float scale_log2, int first,
-                int last, void* stream) {
-  const int smem = (BQ + 2 * BKV) * (HD + 8) * 2;
-  cudaError_t err = cudaFuncSetAttribute(ring_step_bf16_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)((Tq + BQ - 1) / BQ), (unsigned)(B * H));
-  ring_step_bf16_kernel<HD><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (float*)m,
-      (float*)l, (float*)acc, (__nv_bfloat16*)o, H, Tq, S, st[0], st[1], st[2], st[3], st[4],
-      st[5], scale_log2, first, last);
-  return (int)cudaGetLastError();
-}
-
-constexpr int F32_BQ = 16;   // query rows per block, 8 threads each
-constexpr int F32_BKV = 64;  // keys per K/V tile, 8 per thread
+constexpr int F32_BQ = 16;            // query rows per block, 8 threads each
+constexpr int F32_BKV = 32;           // keys per K/V tile, 4 per thread
 constexpr int F32_PLD = F32_BKV + 8;  // P row: a warp's 4 rows on distinct banks
 
 template <int HD>
 __global__ void __launch_bounds__(THREADS)
-ring_step_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ m_g,
-                     float* __restrict__ l_g, float* __restrict__ acc_g, float* __restrict__ o,
-                     int H, int Tq, int S, long long q_sb, long long q_st, long long q_sh,
-                     long long o_sb, long long o_st, long long o_sh, float scale_log2, int first,
-                     int last) {
+ring_attention_f32_kernel(const __grid_constant__ RingTable tab,
+                          const __grid_constant__ RingStrides st, int n, int H, int Tq, int S,
+                          float scale_log2) {
   constexpr int LD = HD + 4;  // 16-byte rows; the 8 keys read together hit 8 bank groups
   constexpr int CH = HD / 4;  // 16-byte chunks per row
   constexpr int KPT = F32_BKV / 8;  // keys scored per thread per tile
   constexpr int DPT = HD / 8;       // state columns per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Ks = Qs + F32_BQ * LD;
-  float* Vs = Ks + F32_BKV * LD;
-  float* Ps = Vs + F32_BKV * LD;
+  float* Ks = Qs + F32_BQ * LD;       // [2][F32_BKV * LD]
+  float* Vs = Ks + 2 * F32_BKV * LD;  // [2][F32_BKV * LD]
+  float* Ps = Vs + 2 * F32_BKV * LD;
 
   const int tid = threadIdx.x;
   const int row = tid >> 3;  // this thread's query row in the tile
@@ -358,44 +333,41 @@ ring_step_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
+  const int z = blockIdx.z;
+  const int r = (int)tab.rank[z];
   const int q0 = blockIdx.x * F32_BQ;
   const int t = q0 + row;
-  const bool in = t < Tq;
-  const float* qb = q + b * q_sb + h * q_sh;
-  const float* kb = k + (long long)bh * S * HD;
-  const float* vb = v + (long long)bh * S * HD;
-  float* accr = acc_g + ((long long)bh * Tq + t) * HD + sub;  // columns sub + 8 d
-  float* mb = m_g + (long long)bh * Tq;
-  float* lb = l_g + (long long)bh * Tq;
+  const float* qb = reinterpret_cast<const float*>(tab.q[z]) + b * st.q[0] + h * st.q[2];
 
   for (int c = tid; c < F32_BQ * CH; c += THREADS) {
-    const int r = c / CH, cc = c % CH;
-    const bool p = q0 + r < Tq;
-    cp_async16(&Qs[r * LD + cc * 4], p ? qb + (q0 + r) * q_st + cc * 4 : qb, p);
+    const int rr = c / CH, cc = c % CH;
+    const bool p = q0 + rr < Tq;
+    cp_async16(&Qs[rr * LD + cc * 4], p ? qb + (long long)(q0 + rr) * st.q[1] + cc * 4 : qb, p);
   }
+  const int tiles = (S + F32_BKV - 1) / F32_BKV;
+  const int total = n * tiles;
+  load_kv_tile<float, HD, F32_BKV, LD>(Ks, Vs, tab, st, 0, tiles, r, n, b, h, S);
   cp_async_commit();
 
   float acc[DPT];
+#pragma unroll
+  for (int d = 0; d < DPT; ++d) acc[d] = 0.f;
   float m_i = NEG_BIG;  // the row's running max (the same in its 8 threads)
   float l_i = 0.f;      // this thread's share of the row sum
-#pragma unroll
-  for (int d = 0; d < DPT; ++d) acc[d] = (!first && in) ? accr[8 * d] : 0.f;
-  if (!first && in) {
-    m_i = mb[t];
-    if (sub == 0) l_i = lb[t];  // one of the row's threads carries the stored sum
-  }
 
-  for (int kv0 = 0; kv0 < S; kv0 += F32_BKV) {
-    __syncthreads();  // the previous tile is fully consumed
-    for (int c = tid; c < F32_BKV * CH; c += THREADS) {
-      const int r = c / CH, cc = c % CH;
-      const bool p = kv0 + r < S;
-      cp_async16(&Ks[r * LD + cc * 4], p ? kb + (long long)(kv0 + r) * HD + cc * 4 : kb, p);
-      cp_async16(&Vs[r * LD + cc * 4], p ? vb + (long long)(kv0 + r) * HD + cc * 4 : vb, p);
-    }
+  for (int it = 0; it < total; ++it) {
+    const int buf = it & 1;
+    __syncthreads();  // tile it - 1 is fully consumed
+    if (it + 1 < total)
+      load_kv_tile<float, HD, F32_BKV, LD>(Ks + (buf ^ 1) * F32_BKV * LD,
+                                           Vs + (buf ^ 1) * F32_BKV * LD, tab, st, it + 1, tiles,
+                                           r, n, b, h, S);
     cp_async_commit();
-    cp_async_wait_all();
+    cp_async_wait_prev();
     __syncthreads();
+    const float* Kt = Ks + buf * F32_BKV * LD;
+    const float* Vt = Vs + buf * F32_BKV * LD;
+    const int kv0 = (it % tiles) * F32_BKV;
 
     // Scores of keys sub, sub + 8, ... of this tile against this row.
     float s[KPT];
@@ -406,7 +378,7 @@ ring_step_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float4 qv = *reinterpret_cast<const float4*>(&Qs[row * LD + c]);
 #pragma unroll
       for (int i = 0; i < KPT; ++i) {
-        const float4 kv = *reinterpret_cast<const float4*>(&Ks[(sub + 8 * i) * LD + c]);
+        const float4 kv = *reinterpret_cast<const float4*>(&Kt[(sub + 8 * i) * LD + c]);
         s[i] = fmaf(qv.x, kv.x, s[i]);
         s[i] = fmaf(qv.y, kv.y, s[i]);
         s[i] = fmaf(qv.z, kv.z, s[i]);
@@ -439,76 +411,119 @@ ring_step_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll 4
     for (int j = 0; j < F32_BKV; ++j) {
       const float p = Ps[row * F32_PLD + j];
-      const float* vr = &Vs[j * LD + sub];
+      const float* vr = &Vt[j * LD + sub];
 #pragma unroll
       for (int d = 0; d < DPT; ++d) acc[d] = fmaf(p, vr[8 * d], acc[d]);
     }
+    __syncwarp();  // P is read before the next tile overwrites it
   }
 
   float l = l_i;
 #pragma unroll
   for (int off = 1; off < 8; off <<= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
-  if (!in) return;
-  if (last) {
-    const float inv = 1.f / l;
-    float* orow = o + b * o_sb + h * o_sh + t * o_st + sub;
+  if (t >= Tq) return;
+  const float inv = 1.f / l;
+  float* orow = reinterpret_cast<float*>(tab.o[z]) + b * st.o[0] + h * st.o[2] +
+                (long long)t * st.o[1] + sub;
 #pragma unroll
-    for (int d = 0; d < DPT; ++d) orow[8 * d] = acc[d] * inv;
-    return;
-  }
-#pragma unroll
-  for (int d = 0; d < DPT; ++d) accr[8 * d] = acc[d];
-  if (sub == 0) {
-    mb[t] = m_i;
-    lb[t] = l;
-  }
+  for (int d = 0; d < DPT; ++d) orow[8 * d] = acc[d] * inv;
 }
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* m, void* l, void* acc, void* o,
-               int B, int H, int Tq, int S, const long long* st, float scale_log2, int first,
-               int last, void* stream) {
-  const int smem = ((F32_BQ + 2 * F32_BKV) * (HD + 4) + F32_BQ * F32_PLD) * 4;
-  cudaError_t err = cudaFuncSetAttribute(ring_step_f32_kernel<HD>,
+int launch_bf16(const RingTable& tab, const RingStrides& st, int n, int R, int B, int H, int Tq,
+                int S, float scale_log2, void* stream) {
+  const int smem = (BQ + 4 * BKV) * (HD + 8) * 2;
+  cudaError_t err = cudaFuncSetAttribute(ring_attention_bf16_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)((Tq + F32_BQ - 1) / F32_BQ), (unsigned)(B * H));
-  ring_step_f32_kernel<HD><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)m, (float*)l, (float*)acc,
-      (float*)o, H, Tq, S, st[0], st[1], st[2], st[3], st[4], st[5], scale_log2, first, last);
+  dim3 grid((unsigned)((Tq + BQ - 1) / BQ), (unsigned)(B * H), (unsigned)R);
+  ring_attention_bf16_kernel<HD><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      tab, st, n, H, Tq, S, scale_log2);
   return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_f32(const RingTable& tab, const RingStrides& st, int n, int R, int B, int H, int Tq,
+               int S, float scale_log2, void* stream) {
+  const int smem = ((F32_BQ + 4 * F32_BKV) * (HD + 4) + F32_BQ * F32_PLD) * 4;
+  cudaError_t err = cudaFuncSetAttribute(ring_attention_f32_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)((Tq + F32_BQ - 1) / F32_BQ), (unsigned)(B * H), (unsigned)R);
+  ring_attention_f32_kernel<HD><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      tab, st, n, H, Tq, S, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+// table: 5 * MAX_RING values laid out as RingTable; strides: 12 values as RingStrides.
+bool unpack(const long long* table, const long long* strides, int n, int R, RingTable* tab,
+            RingStrides* st) {
+  if (n < 1 || n > MAX_RING || R < 1 || R > MAX_RING) return false;
+  const long long* src = table;
+  for (long long* dst : {tab->k, tab->v, tab->q, tab->o, tab->rank}) {
+    for (int i = 0; i < MAX_RING; ++i) dst[i] = src[i];
+    src += MAX_RING;
+  }
+  for (int i = 0; i < 3; ++i) {
+    st->q[i] = strides[i];
+    st->o[i] = strides[3 + i];
+    st->k[i] = strides[6 + i];
+    st->v[i] = strides[9 + i];
+  }
+  return true;
 }
 
 }  // namespace
 
 extern "C" {
 
-// strides: 6 values, the (batch, token, head) element strides of q, then o.
-// o may be null unless `last`.
-int ring_attn_step_bf16(const void* q, const void* k, const void* v, void* m, void* l, void* acc,
-                        void* o, int B, int H, int Tq, int S, int D, const long long* strides,
-                        float scale_log2, int first, int last, void* stream) {
+// One launch on `stream` over R ranks of a ring of n; see RingTable.
+int ring_attention_bf16(const long long* table, const long long* strides, int n, int R, int B,
+                        int H, int Tq, int S, int D, float scale_log2, void* stream) {
+  RingTable tab;
+  RingStrides st;
+  if (!unpack(table, strides, n, R, &tab, &st)) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 16: return launch_bf16<16>(q, k, v, m, l, acc, o, B, H, Tq, S, strides, scale_log2, first, last, stream);
-    case 32: return launch_bf16<32>(q, k, v, m, l, acc, o, B, H, Tq, S, strides, scale_log2, first, last, stream);
-    case 64: return launch_bf16<64>(q, k, v, m, l, acc, o, B, H, Tq, S, strides, scale_log2, first, last, stream);
-    case 128: return launch_bf16<128>(q, k, v, m, l, acc, o, B, H, Tq, S, strides, scale_log2, first, last, stream);
-    case 256: return launch_bf16<256>(q, k, v, m, l, acc, o, B, H, Tq, S, strides, scale_log2, first, last, stream);
+    case 16: return launch_bf16<16>(tab, st, n, R, B, H, Tq, S, scale_log2, stream);
+    case 32: return launch_bf16<32>(tab, st, n, R, B, H, Tq, S, scale_log2, stream);
+    case 64: return launch_bf16<64>(tab, st, n, R, B, H, Tq, S, scale_log2, stream);
+    case 128: return launch_bf16<128>(tab, st, n, R, B, H, Tq, S, scale_log2, stream);
+    case 256: return launch_bf16<256>(tab, st, n, R, B, H, Tq, S, scale_log2, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-int ring_attn_step_f32(const void* q, const void* k, const void* v, void* m, void* l, void* acc,
-                       void* o, int B, int H, int Tq, int S, int D, const long long* strides,
-                       float scale_log2, int first, int last, void* stream) {
+int ring_attention_f32(const long long* table, const long long* strides, int n, int R, int B,
+                       int H, int Tq, int S, int D, float scale_log2, void* stream) {
+  RingTable tab;
+  RingStrides st;
+  if (!unpack(table, strides, n, R, &tab, &st)) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 16: return launch_f32<16>(q, k, v, m, l, acc, o, B, H, Tq, S, strides, scale_log2, first, last, stream);
-    case 32: return launch_f32<32>(q, k, v, m, l, acc, o, B, H, Tq, S, strides, scale_log2, first, last, stream);
-    case 64: return launch_f32<64>(q, k, v, m, l, acc, o, B, H, Tq, S, strides, scale_log2, first, last, stream);
-    case 128: return launch_f32<128>(q, k, v, m, l, acc, o, B, H, Tq, S, strides, scale_log2, first, last, stream);
-    case 256: return launch_f32<256>(q, k, v, m, l, acc, o, B, H, Tq, S, strides, scale_log2, first, last, stream);
+    case 16: return launch_f32<16>(tab, st, n, R, B, H, Tq, S, scale_log2, stream);
+    case 32: return launch_f32<32>(tab, st, n, R, B, H, Tq, S, scale_log2, stream);
+    case 64: return launch_f32<64>(tab, st, n, R, B, H, Tq, S, scale_log2, stream);
+    case 128: return launch_f32<128>(tab, st, n, R, B, H, Tq, S, scale_log2, stream);
+    case 256: return launch_f32<256>(tab, st, n, R, B, H, Tq, S, scale_log2, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Let `device` read `peer`'s memory (once per pair; an already enabled pair
+// is not an error). Restores the calling thread's current device.
+int ring_attention_enable_peer(int device, int peer) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceEnablePeerAccess(peer, 0);
+    if (err == cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();  // clear it, or the next launch's check would report it
+      err = cudaSuccess;
+    }
+  }
+  cudaSetDevice(prev);
+  return (int)err;
 }
 
 const char* ring_attention_error_string(int code) {

@@ -18,7 +18,7 @@ Port of ``rho_diffusion_tpu/ops/attention.py``:
 
 ``set_attention_backend("xla")`` sends every call to the plain paths (a
 reference run on the card): "auto" to ``xla_attention`` without a context
-mesh, and the "rdma" ring to K6's plain step under one. "ulysses" (JAX
+mesh, and the "rdma" ring to K6's plain version under one. "ulysses" (JAX
 :102-114) raises until ROADMAP Queue 1 item 13.
 """
 from __future__ import annotations
@@ -34,7 +34,7 @@ _AUTO_BACKEND = "auto"
 
 def set_attention_backend(mode: str) -> None:
     """"auto" (the kernels where they apply) or "xla" (the plain paths
-    everywhere: ``xla_attention``, and K6's plain step in the ring)."""
+    everywhere: ``xla_attention``, and K6's plain version in the ring)."""
     global _AUTO_BACKEND
     if mode not in ("auto", "xla"):
         raise ValueError(f"attention backend must be 'auto' or 'xla', got {mode!r}")

@@ -30,8 +30,9 @@ On the card, bf16 with Cin % 8 == 0 (the dgrad's own input channels, i.e.
 the forward's Cout, for a dgrad) takes the tensor-core implicit GEMM
 (``conv3d_igemm``); every other bf16 or fp32 conv (the UNet's Cin=1 input
 conv, its fp32 output head and that head's dgrad) takes the direct kernel
-(``conv3d_direct``). The weights are repacked per call into the layout each
-kernel reads.
+(``conv3d_direct``: a shared-memory halo tile per 8 x 32 voxels and fp32
+FMAs, with its own tile shapes for Cin=1 and for Cout=1). The weights are
+repacked per call into the layout each kernel reads.
 """
 from __future__ import annotations
 

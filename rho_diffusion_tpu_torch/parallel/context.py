@@ -12,8 +12,9 @@ exact full attention. Two implementations, picked by ``impl`` or
   PyTorch (:31-81): each block's attention with the double-sqrt scaling in
   the input dtype and an fp32 softmax, merged in fp32. It is
   differentiable, as in JAX.
-* "rdma": the double-buffered ring with the hand-written kernel K6
-  (``parallel/context_rdma.py``). Forward only, as in JAX.
+* "rdma": K6's ring, one hand-written kernel launch per device that folds
+  every shard in the ring's order (``parallel/context_rdma.py``). Forward
+  only, as in JAX.
 
 The JAX package runs the ring inside ``shard_map``, one program per device.
 The port drives every rank from one process: the shards move to their
@@ -26,7 +27,6 @@ import os
 
 import torch
 
-from rho_diffusion_tpu_torch.ops.kernels.ring_attention import ring_attn_step_plain
 from rho_diffusion_tpu_torch.parallel.context_rdma import ring_attention_rdma
 from rho_diffusion_tpu_torch.parallel.mesh import CONTEXT_AXIS, DATA_AXIS, Mesh
 
@@ -88,7 +88,7 @@ def context_sharded_attention(
 
     ``impl``: "xla" or "rdma" (``RHO_RING_ATTN_IMPL`` when None; anything
     else raises, :105-107). ``plain`` runs the "rdma" ring with K6's plain
-    step on any device (the reference the kernel is held against)."""
+    version on any device (the reference the kernel is held against)."""
     impl = impl or os.environ.get("RHO_RING_ATTN_IMPL", "xla")
     if impl not in ("xla", "rdma"):
         raise ValueError(f"unknown ring-attention impl {impl!r}: 'xla' | 'rdma'")
@@ -104,8 +104,7 @@ def context_sharded_attention(
         devices = mesh.context_group(g)
         qg, kg, vg = (x[g * rows:(g + 1) * rows] for x in (q, k, v))
         if impl == "rdma":
-            outs.append(ring_attention_rdma(qg, kg, vg, devices,
-                                            step=ring_attn_step_plain if plain else None))
+            outs.append(ring_attention_rdma(qg, kg, vg, devices, plain=plain))
             continue
         tl = t // n
         shards = [[x[:, r * tl:(r + 1) * tl].to(dev) for r, dev in enumerate(devices)]

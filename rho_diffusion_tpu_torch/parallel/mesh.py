@@ -6,8 +6,9 @@ Port of ``rho_diffusion_tpu/parallel/mesh.py:25-91``: the axis names,
 ``torch.device``s; one process drives every rank of it (the JAX package's
 single-controller model). A mesh may name one device several times: each
 entry is a rank of its own, as the JAX package's tests run rings over the
-virtual CPU devices of one host. Ranks on one card exchange K/V by
-device-to-device copies; ranks on different cards by peer copies.
+virtual CPU devices of one host. K6's ring reads every rank's K/V shard
+where it lies: on one card straight from the inputs, across cards over
+NVLink.
 
 The active mesh is kept per thread, not per process as in JAX: the port
 runs its model eagerly, and a sampling service's worker thread entering a

@@ -1,14 +1,15 @@
 """The port's context-parallel attention against the JAX package's, on the CPU.
 
-Ring attention over CPU ranks: the "rdma" ring (K6's protocol with its
-plain step) against JAX's Pallas remote-DMA ring run in interpret mode on
-the virtual CPU mesh, exactly as tests/parallel/test_parallel.py:493-544
-runs it, at those tests' shapes and tolerances (fp32 atol 2e-5, bf16 atol
-3e-2); the "xla" ring against JAX's ppermute ring, a data=2 x context=4
-mesh included, and its gradients against full attention's (atol 5e-5); the
-attention dispatcher; the mesh; and the whole sampling slice of a cut-down
-flagship under a context=4 mesh with impl="rdma" against JAX's (relative
-MSE < 1e-9). Inputs are made with numpy and handed to both sides.
+Ring attention over CPU ranks: the "rdma" ring (K6's fold in the ring's
+order, in its plain version) against JAX's Pallas remote-DMA ring run in
+interpret mode on the virtual CPU mesh, exactly as
+tests/parallel/test_parallel.py:493-544 runs it, at those tests' shapes and
+tolerances (fp32 atol 2e-5, bf16 atol 3e-2); the "xla" ring against JAX's
+ppermute ring, a data=2 x context=4 mesh included, and its gradients
+against full attention's (atol 5e-5); the attention dispatcher; the mesh;
+and the whole sampling slice of a cut-down flagship under a context=4 mesh
+with impl="rdma" against JAX's (relative MSE < 1e-9). Inputs are made
+with numpy and handed to both sides.
 """
 import jax
 import jax.numpy as jnp
@@ -26,7 +27,8 @@ from rho_diffusion_tpu.parallel.context import (
 from rho_diffusion_tpu_torch.ops import attention as attn_mod
 from rho_diffusion_tpu_torch.ops.attention import attention, set_attention_backend, xla_attention
 from rho_diffusion_tpu_torch.ops.kernels import launch_counts
-from rho_diffusion_tpu_torch.ops.kernels.ring_attention import ring_attn_step
+from rho_diffusion_tpu_torch.ops.kernels.ring_attention import ring_attention_fold
+from rho_diffusion_tpu_torch.parallel import context_rdma
 from rho_diffusion_tpu_torch.parallel import (
     Mesh,
     active_mesh,
@@ -51,11 +53,14 @@ def cpu_mesh(data, context):
 # K6 ("rdma") and the xla ring against JAX
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("shape,n,dtype,atol", [
+RDMA_CASES = [
     ((2, 64, 2, 16), 8, "float32", 2e-5),   # test_ring_attention_rdma_parity
     ((2, 16, 2, 8), 2, "float32", 2e-5),    # test_ring_attention_rdma_two_ring_edge
     ((2, 32, 2, 8), 4, "bfloat16", 3e-2),   # test_ring_attention_rdma_bf16
-], ids=["n8", "n2-edge", "n4-bf16"])
+]
+
+
+@pytest.mark.parametrize("shape,n,dtype,atol", RDMA_CASES, ids=["n8", "n2-edge", "n4-bf16"])
 def test_rdma_ring_matches_jax(shape, n, dtype, atol):
     q, k, v = qkv(shape, seed=n)
     jmesh = JaxMesh(np.array(jax.devices()[:n]), ("context",))
@@ -116,16 +121,71 @@ def test_xla_ring_gradients_match_full_attention():
         np.testing.assert_allclose(got.numpy(), np.asarray(jax_want), atol=5e-5)
 
 
-def test_rdma_ring_step_protocol_matches_one_block():
-    """The plain K6 step folds slots in any number: folding the whole K/V in
-    one step (first and last) is full attention with K6's fp32 1/sqrt(d)."""
-    q, k, v = (torch.from_numpy(x) for x in qkv((2, 24, 3, 16), seed=7))
-    bh = 2 * 3
-    m, l, acc = torch.empty(bh, 24), torch.empty(bh, 24), torch.empty(bh, 24, 16)
-    o = torch.empty(2, 24, 3, 16)
-    to_bh = lambda x: x.permute(0, 2, 1, 3).reshape(bh, 24, 16).contiguous()  # noqa: E731
-    ring_attn_step(q, to_bh(k), to_bh(v), m, l, acc, o, 1.4426950408889634 / 4.0, True, True)
-    np.testing.assert_allclose(o.numpy(), xla_attention(q, k, v).numpy(), atol=2e-6)
+@pytest.mark.parametrize("shape,n,dtype,atol", RDMA_CASES, ids=["n8", "n2-edge", "n4-bf16"])
+def test_rdma_ring_step_protocol_matches_one_block(shape, n, dtype, atol):
+    """K6's plain fold, called as the kernel is: each rank's q and output and
+    every rank's K/V shard, folded in the ring's order r, r-1, ... (mod n),
+    against JAX's remote-DMA ring in interpret mode; and a ring of one rank
+    (the whole K/V as one shard) is full attention."""
+    q, k, v = qkv(shape, seed=30 + n)
+    jmesh = JaxMesh(np.array(jax.devices()[:n]), ("context",))
+    jdt = jnp.dtype(dtype)
+    want = jax_context_sharded_attention(*(jnp.asarray(x).astype(jdt) for x in (q, k, v)),
+                                         jmesh, impl="rdma")
+    tdt = getattr(torch, dtype)
+    qt, kt, vt = (torch.from_numpy(x).to(tdt) for x in (q, k, v))
+    tl = shape[1] // n
+    shards = [[x[:, r * tl:(r + 1) * tl].contiguous() for r in range(n)] for x in (qt, kt, vt)]
+    outs = [torch.empty_like(x) for x in shards[0]]
+    scale_log2 = 1.4426950408889634 / shape[-1] ** 0.5
+    launch_counts.clear()
+    ring_attention_fold(shards[0], outs, list(range(n)), shards[1], shards[2], scale_log2)
+    assert sum(launch_counts.values()) == 0  # the plain fold is no launch
+    got = torch.cat(outs, dim=1)
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=atol)
+    one = torch.empty_like(qt)
+    ring_attention_fold([qt], [one], [0], [kt], [vt], scale_log2)
+    np.testing.assert_allclose(one.float().numpy(),
+                               xla_attention(qt.float(), kt.float(), vt.float()).numpy(),
+                               atol=2e-6 if dtype == "float32" else atol)
+
+
+def test_rdma_ring_reads_strided_views_of_one_qkv(monkeypatch):
+    """As on the card: q, k, v are strided views of one fused qkv, and with
+    every rank on q's device the fold gets each rank's shards as views of
+    that qkv (nothing copied) and writes each rank's rows of one output."""
+    b, t, h, d, n = 2, 32, 2, 8, 4
+    fused = torch.from_numpy(np.random.default_rng(9).normal(size=(b, t, h, 3 * d))
+                             .astype(np.float32))
+    q, k, v = fused.split(d, dim=-1)
+    calls = []
+    real = context_rdma.ring_attention_fold_plain
+    monkeypatch.setattr(context_rdma, "ring_attention_fold_plain",
+                        lambda *a: calls.append(a) or real(*a))
+    got = context_sharded_attention(q, k, v, cpu_mesh(1, n), impl="rdma")
+    (qs, outs, ranks, ks, vs, _), = calls  # one fold for the four ranks
+    assert ranks == [0, 1, 2, 3]
+    base = fused.untyped_storage().data_ptr()
+    assert all(x.untyped_storage().data_ptr() == base for x in (*qs, *ks, *vs))
+    assert len({o.untyped_storage().data_ptr() for o in outs}) == 1
+    jmesh = JaxMesh(np.array(jax.devices()[:n]), ("context",))
+    want = jax_context_sharded_attention(
+        *(jnp.asarray(x.contiguous().numpy()) for x in (q, k, v)), jmesh, impl="rdma")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+def test_rdma_ring_refuses_cards_without_peer_access(monkeypatch):
+    """Ranks on two cards that cannot read each other's memory raise before
+    anything moves (the kernel reads every shard in place); a ring mixing
+    the CPU and a card raises too."""
+    q = torch.zeros(1, 8, 1, 16)
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer", lambda a, b: False)
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    with torch.no_grad(), pytest.raises(RuntimeError, match="peer access"):
+        context_rdma.ring_attention_rdma(q, q, q, cards)
+    with pytest.raises(ValueError, match="all on CUDA or all on the CPU"):
+        context_rdma.ring_attention_rdma(q, q, q, [torch.device("cpu"), cards[0]])
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,11 @@ whose Python has no JAX, run it without the JAX-side conftest:
 Shapes cover the ragged edges the flagship does not reach: voxel counts and
 Cout off the 128 x 64 tiles, reduction depths off the 32-deep stage, Cin=1
 and Cout=1, fp32, strided q/k/v, padded head dims and Tq != Tk, for both
-dtypes of the flash kernel; and the ring-attention kernel (K6) in its ring
-of 2 and 4 ranks on one card at T/n = 128 and 1024, ragged shards and a
-padded head dim, and with one rank per card where there are two or more.
+dtypes of the flash kernel; the direct conv's three flagship convs at full
+width and shapes off its 8 x 32 voxel tile; and the ring-attention kernel
+(K6, one launch per card) in its ring of 2 and 4 ranks on one card at T/n =
+128 and 1024, ragged shards and a padded head dim, and with one rank per
+card where there are two or more.
 The conv's bottleneck-isolation kernels (K7-K9) at the level-1 widths and
 off their tiles, and what they refuse. The plain versions run in fp32 with
 TF32 off; tolerances are chip_smoke.py's.
@@ -69,6 +71,14 @@ def randn(shape, seed, device, dtype, scale=1.0):
         ((2, 6, 6, 6, 12), 5, torch.bfloat16, "conv3d_direct"),    # Cin % 8 != 0
         ((2, 6, 6, 6, 1), 64, torch.float32, "conv3d_direct"),
         ((2, 6, 6, 6, 64), 1, torch.float32, "conv3d_direct"),     # the fp32 output head
+        # the flagship's direct convs at full width (32^3), batch 2
+        ((2, 32, 32, 32, 1), 64, torch.bfloat16, "conv3d_direct"),  # input conv
+        ((2, 32, 32, 32, 64), 1, torch.float32, "conv3d_direct"),   # output head
+        # voxels off the 8 x 32 tile, Cout off the 64-channel tile
+        ((2, 5, 9, 33, 1), 24, torch.float32, "conv3d_direct"),
+        ((1, 3, 10, 35, 20), 1, torch.float32, "conv3d_direct"),    # Cin off the 8-deep chunk
+        ((2, 4, 5, 6, 6), 1, torch.bfloat16, "conv3d_direct"),
+        ((1, 3, 17, 40, 5), 7, torch.bfloat16, "conv3d_direct"),    # odd Cout (scalar stores)
     ],
 )
 def test_conv3d_kernel_matches_plain(cuda, shape, cout, dtype, kernel):
@@ -87,6 +97,20 @@ def test_conv3d_kernel_matches_plain(cuda, shape, cout, dtype, kernel):
     no_bias = conv3d(x, w)
     torch.testing.assert_close(no_bias.float(), conv3d_plain(x.float(), w.float()),
                                atol=tol, rtol=tol)
+
+
+def test_conv3d_direct_reads_an_unaligned_x(cuda):
+    """An fp32 x that is contiguous but starts off a 16-byte boundary takes
+    the direct kernel's scalar staging instead of its 16-byte loads."""
+    shape, cout = (1, 4, 9, 33, 8), 3
+    x = randn((math.prod(shape) + 1,), 0, cuda, torch.float32)[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    w = randn((cout, shape[-1], 3, 3, 3), 1, cuda, torch.float32, 1 / math.sqrt(27 * 8))
+    launch_counts.clear()
+    got = conv3d(x, w)
+    torch.cuda.synchronize()
+    assert launch_counts == {"conv3d_direct": 1}
+    torch.testing.assert_close(got, conv3d_plain(x, w), atol=TOL_FP32, rtol=TOL_FP32)
 
 
 def test_conv3d_kernel_rejects_what_it_does_not_take(cuda):
@@ -188,6 +212,7 @@ def test_flash_backward_is_bitwise_repeatable(cuda, dtype):
         ((2, 6, 6, 6, 12), 5, torch.bfloat16, "conv3d_dgrad_direct"),  # Cout % 8 != 0
         ((2, 6, 6, 6, 1), 64, torch.float32, "conv3d_dgrad_direct"),   # the fp32 head's dgrad
         ((2, 5, 6, 7, 16), 24, torch.float32, "conv3d_dgrad_direct"),
+        ((2, 32, 32, 32, 1), 64, torch.float32, "conv3d_dgrad_direct"),  # the head's, at 32^3
     ],
 )
 def test_conv3d_dgrad_kernel_matches_plain(cuda, gshape, cin, dtype, kernel):
@@ -268,20 +293,20 @@ def assert_flash_close(got, want, dtype):
     "n,b,tl,h,d",
     [
         (4, 8, 128, 4, 128),   # the flagship's serve shape: bucket 8, 4 ranks
-        (2, 8, 128, 4, 128),   # n = 2: one send, no backpressure
+        (2, 8, 128, 4, 128),   # n = 2
         (4, 2, 1024, 4, 128),  # the 64^3 config's T/n = 1024
         (2, 1, 150, 3, 100),   # ragged key tiles, head dim padded to 128
     ],
 )
 def test_ring_attention_kernel_matches_plain(cuda, n, b, tl, h, d, dtype):
     """K6 in its ring of n ranks on one card against the same ring with the
-    plain step (fp32 inputs) and against full attention."""
+    plain version (fp32 inputs) and against full attention."""
     q, k, v = ring_inputs(b, n * tl, h, d, dtype, cuda, seed=20)
     mesh = make_mesh(data=1, context=n, devices=[cuda] * n)
     launch_counts.clear()
     got = context_sharded_attention(q, k, v, mesh, impl="rdma")
     torch.cuda.synchronize()
-    assert launch_counts == {"ring_attention": n * n}
+    assert launch_counts == {"ring_attention": 1}  # one launch for the card's n ranks
     assert got.shape == q.shape and got.dtype == dtype
     qf, kf, vf = q.float(), k.float(), v.float()
     assert_flash_close(got, context_sharded_attention(qf, kf, vf, mesh, impl="rdma", plain=True),
@@ -290,7 +315,8 @@ def test_ring_attention_kernel_matches_plain(cuda, n, b, tl, h, d, dtype):
 
 
 def test_ring_attention_kernel_one_rank_per_card(cuda):
-    """The ring over separate cards: peer copies between the ranks."""
+    """The ring over separate cards: each card's launch reads the other
+    ranks' shards over NVLink, one launch per card."""
     count = torch.cuda.device_count()
     if count < 2:
         pytest.skip("needs two or more CUDA devices")
@@ -300,8 +326,24 @@ def test_ring_attention_kernel_one_rank_per_card(cuda):
     launch_counts.clear()
     got = context_sharded_attention(q, k, v, make_mesh(context=n, devices=devices), impl="rdma")
     torch.cuda.synchronize()
-    assert launch_counts == {"ring_attention": n * n}
+    assert launch_counts == {"ring_attention": n}
     assert_flash_close(got, xla_attention(q.float(), k.float(), v.float()), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ring_attention_kernel_ranks_shared_across_cards(cuda, dtype):
+    """Four ranks over two cards, alternating: each card's one launch folds
+    its two ranks, reading the other card's shards over NVLink."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    devices = [torch.device("cuda", i % 2) for i in range(4)]
+    q, k, v = ring_inputs(2, 4 * 150, 3, 100, dtype, cuda, seed=22)
+    launch_counts.clear()
+    got = context_sharded_attention(q, k, v, make_mesh(context=4, devices=devices), impl="rdma")
+    torch.cuda.synchronize()
+    assert launch_counts == {"ring_attention": 2}
+    assert got.shape == q.shape and got.dtype == dtype
+    assert_flash_close(got, xla_attention(q.float(), k.float(), v.float()), dtype)
 
 
 def test_ring_attention_kernel_refuses_autograd(cuda):

@@ -39,7 +39,7 @@ from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_fwd_kernel,
 )
 from rho_diffusion_tpu_torch.ops.kernels.conv3d_variants import bigdot, conv_variant, dots_only
-from rho_diffusion_tpu_torch.ops.kernels.ring_attention import ring_attn_step
+from rho_diffusion_tpu_torch.ops.kernels.ring_attention import ring_attention_fold
 from rho_diffusion_tpu_torch.parallel import context_sharded_attention, make_mesh
 from rho_diffusion_tpu_torch.serve import build_server
 from rho_diffusion_tpu_torch.training.__main__ import main as train_main
@@ -137,9 +137,8 @@ def test_kernel_wrappers_raise_off_the_cpu():
     q = torch.empty((1, 16, 2, 32), device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         flash_attention(q, q, q)
-    kv, state = torch.empty((2, 16, 32), device="meta"), torch.empty((2, 16), device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
-        ring_attn_step(q, kv, kv, state, state, kv, q, 1.0, True, True)
+        ring_attention_fold([q], [q], [0], [q], [q], 1.0)
     with pytest.raises(TypeError):
         conv3d(torch.zeros(1, 4, 4, 4, 8), torch.zeros(8, 8, 3, 3, 3, dtype=torch.float64))
 
@@ -160,10 +159,9 @@ def test_raw_kernel_launch_under_grad_mode_raises():
     x = torch.empty((1, 4, 4, 4, 8), device="meta", requires_grad=True)
     w = torch.empty((8, 8, 3, 3, 3), device="meta")
     q = torch.empty((1, 16, 2, 32), device="meta", requires_grad=True)
-    kv, state = torch.empty((2, 16, 32), device="meta"), torch.empty((2, 16), device="meta")
     for launch in (lambda: conv3d_kernel(x, w), lambda: flash_attention_fwd_kernel(q, q, q),
                    lambda: flash_attention_bwd_kernel(q, q, q, q, q[:, :, :, 0], q),
-                   lambda: ring_attn_step(q, kv, kv, state, state, kv, q, 1.0, True, True)):
+                   lambda: ring_attention_fold([q], [q], [0], [q], [q], 1.0)):
         with pytest.raises(RuntimeError, match="grad mode"):
             launch()
         with torch.no_grad(), pytest.raises(RuntimeError, match="no kernel"):
