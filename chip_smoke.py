@@ -4,11 +4,13 @@
     python3 chip_smoke.py [--phases env,build,kernels,main,train,hold,serve,timings,bench]
                           [--steps 25] [--samples 4] [--timing-batch 8]
 
-Builds the port's CUDA kernels from ``rho_diffusion_tpu_torch/csrc``, holds
-each (forward and backward, bf16 and fp32) against its plain PyTorch version
-at the shapes the flagship UNet gives it, and drives the port's two paths on
-the flagship config (``examples/config_spherical_harmonics.json`` at full
-width, random seeded weights loaded from a reference-layout ``.pth``):
+Builds the port's CUDA kernels from ``rho_diffusion_tpu_torch/csrc`` (and
+prints K5's registers and spills from ptxas), holds each (forward and
+backward, bf16 and fp32) against its plain PyTorch version at the shapes
+the flagship UNet (and the 64^3 config's level 0) gives it, and drives the
+port's paths on the flagship config
+(``examples/config_spherical_harmonics.json`` at full width, random seeded
+weights loaded from a reference-layout ``.pth``):
 
 * ``main``: sampling through ``rho_diffusion_tpu_torch.inference.main``;
 * ``train``: five DDPM training steps at batch 32 through
@@ -27,9 +29,12 @@ width, random seeded weights loaded from a reference-layout ``.pth``):
   (``python -m rho_diffusion_tpu_torch.benchmarks.conv3d_variants``) with
   every variant and bigdot at td 1, 2, 4 and 8 at the level-1 shape, so
   K7-K9 launch; then each of their kernels held against its plain version
-  on the inputs the entry times it on, and timed there; then the entry's
-  two companions, K5 against cuDNN per shape (``conv3d_ab``) and per UNet
-  level beside the equal-FLOP matmul (``conv_profile``).
+  on the inputs the entry times it on, and timed there; K7 ``full`` (the
+  mma.sync block K5 ran until its TMA/wgmma redesign) against K5 at that
+  shape, and K5's plan against other N tiles and ring depths per level;
+  then the entry's two companions, K5 against cuDNN per shape
+  (``conv3d_ab``) and per UNet level beside the equal-FLOP matmul
+  (``conv_profile``).
 
 Each path's launch counts are cleared just before it and read just after,
 and it fails if a kernel of the path never launched. ``hold`` holds one
@@ -56,6 +61,7 @@ import contextlib
 import functools
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -75,6 +81,8 @@ TRAIN_STEPS = 5
 # the serve phase: context ranks of the ring, all on one card, and buckets
 SERVE_CONTEXT = 4
 SERVE_BUCKETS = (1, 2, 4, 8)
+# the 64^3 config's level-0 conv input at batch 1 (64 -> 64 channels)
+LEVEL0_64 = (1, 64, 64, 64, 64)
 # the bench phase: every variant of the bottleneck-isolation entry
 BENCH_VARIANTS = ("full", "nopatch", "nodma", "dotsonly", "bigdot1", "bigdot2", "bigdot4",
                   "bigdot8")
@@ -341,6 +349,27 @@ def phase_build(state: dict) -> None:
     }
     emit("build", seconds=round(total, 3), per_source={k: round(v, 3) for k, v in seconds.items()},
          ptxas=ptxas)
+    # K5's instances (N tile x ring depth): registers and spills from ptxas -v
+    k5 = [{"bn": int(m[1]), "stages": int(m[2]), **entry}
+          for name, entry in ptxas_entries(_build.build_log.get("conv3d", "")).items()
+          for m in [re.search(r"conv3d_igemm_wgmma_kernelILi(\d+)ELi(\d+)E", name)] if m]
+    emit("k5_ptxas", kernels=k5 or "not built in this run (a cached library has no ptxas log)")
+
+
+def ptxas_entries(log: str) -> dict:
+    """{kernel entry (mangled name): registers and spill bytes} from the
+    ``nvcc -Xptxas -v`` output of one source."""
+    entries: dict = {}
+    name = None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            entries[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            entries[name].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        elif name and (m := re.search(r"Used (\d+) registers", ln)):
+            entries[name]["registers"] = int(m[1])
+    return entries
 
 
 def dtype_name(dtype) -> str:
@@ -475,6 +504,12 @@ def hold_conv(kind: str, key, device, seed: int, calls: int = 0, per: str = "") 
                    library="F.conv3d (cuDNN)" if kind == "forward"
                    else "torch.nn.grad.conv3d_input (cuDNN)",
                    library_ms=cuda_time_ms(library, iters=10), bound_ms=bnd, bound_by=by)
+        if row["ms"] < bnd:
+            # faster than the card's peak: the profiler mistimed the launches
+            # it recorded (it can, on the H100), so the call's time stands
+            row.update(profiled_ms=row["ms"], ms=row["call_ms"],
+                       ms_of="the wrapper call (CUDA events): the profiler's time was below "
+                             "the bound")
         row["tflops"] = flops / row["ms"] / 1e9
     return row
 
@@ -598,9 +633,11 @@ def phase_kernels(state: dict) -> None:
     unet = build_unet(flagship_config(25), "bfloat16", device)
     conv_calls, attn_calls = forward_shapes(unet, 2, device)
     keys = sorted(set(conv_keys(conv_calls, "forward")), key=str)
-    # the fp32 head shapes at both ends of the flagship
+    # the fp32 head shapes at both ends of the flagship, and the 64^3
+    # config's level-0 conv (K5's box of 64 x 2 voxels)
     for cin, cout in ((1, 64), (64, 1)):
         keys.append(((2, 32, 32, 32, cin), cout, torch.float32))
+    keys.append((LEVEL0_64, 64, torch.bfloat16))
     conv = [hold_conv("forward", k, device, seed=i) for i, k in enumerate(keys)]
     conv += [hold_conv("dgrad", k, device, seed=50 + 2 * i)
              for i, k in enumerate(sorted(set(conv_keys(conv_calls, "dgrad")), key=str))]
@@ -1221,6 +1258,9 @@ def phase_timings(state: dict, batch: int) -> None:
     pipe.load_state_dict(random_state_dict(pipe.backbone, seed=0))
     unet = pipe.backbone
     conv = hold_convs(unet, batch, "forward", device, seed=200, timed=True)
+    conv.append({**hold_conv("forward", (LEVEL0_64, 64, torch.bfloat16), device, seed=290,
+                             calls=1, per="one call"),
+                 "variant": "the 64^3 config's level-0 conv, batch 1"})
     emit("timings_conv", batch=batch, rows=conv)
 
     attn_calls = forward_shapes(unet, batch, device)[1]
@@ -1514,6 +1554,63 @@ def bench_rows(device) -> list:
     return rows
 
 
+def k5_old_new(device) -> dict:
+    """K7 ``full`` (K5's earlier block: mma.sync, 128 x 64 tiles, 2-stage
+    cp.async) against K5 (TMA, wgmma) on the variant entry's level-1
+    inputs, timed in turns old, new, new, old (CUDA events, ms per call),
+    and held against each other."""
+    import torch
+
+    from rho_diffusion_tpu_torch.benchmarks import conv3d_variants as cv
+    from rho_diffusion_tpu_torch.ops.kernels.conv3d import conv3d_kernel
+
+    ins = cv.inputs(device)
+    x, km = ins["x"], ins["km"]
+    cin, cout = x.shape[-1], km.shape[1]
+    weight = km.view(3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2)
+    old, new = cv.kernel_call("full", ins), lambda: conv3d_kernel(x, weight)
+    times = {"old": [], "new": []}
+    for name in ("old", "new", "new", "old"):
+        times[name].append(cuda_time_ms(old if name == "old" else new, iters=10))
+    err = conv_error(new().float(), old().float(), TOL_CONV_BF16)
+    return {"shape": list(x.shape), "cout": cout, "old_k7_full_ms": times["old"],
+            "new_k5_ms": times["new"], "old_over_new": min(times["old"]) / min(times["new"]),
+            "new_against_old": err}
+
+
+def k5_tiles(device) -> list:
+    """K5's tile study at the conv_profile level shapes (batch 32): its
+    plan (4 stages), the same tile at 3 stages, and 128-channel N tiles at
+    4 and 3 stages (A delivered once per 128 output channels instead of
+    once per Cout up to 256). ms per call (CUDA events), each plan timed
+    twice, in the order given and then reversed."""
+    import torch
+
+    from rho_diffusion_tpu_torch.benchmarks.conv3d_ab import conv_flops, conv_inputs
+    from rho_diffusion_tpu_torch.benchmarks.conv_profile import LEVEL_SHAPES
+    from rho_diffusion_tpu_torch.ops.kernels.conv3d import conv3d_kernel, igemm_plan
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = []
+    for shape in LEVEL_SHAPES:
+        x, weight, _ = conv_inputs(shape, device)
+        cout = shape[-1]
+        base = igemm_plan(x.shape, cout, sms=sms)
+        plans = {"plan": base, "3 stages": base._replace(stages=3),
+                 "bn 128": igemm_plan(x.shape, cout, bn_max=128, sms=sms),
+                 "bn 128, 3 stages": igemm_plan(x.shape, cout, bn_max=128, stages=3, sms=sms)}
+        times: dict = {name: [] for name in plans}
+        for name in [*plans, *reversed(plans)]:
+            times[name].append(cuda_time_ms(
+                functools.partial(conv3d_kernel, x, weight, plan=plans[name]), iters=10))
+        rows.append({"shape": list(shape), "plans": {
+            name: {"plan": list(plans[name]), "ms": times[name],
+                   "tflops": conv_flops(shape) / min(times[name]) / 1e9}
+            for name in plans}})
+        del x, weight
+    return rows
+
+
 def phase_bench(state: dict) -> None:
     """The bottleneck-isolation path: the variant entry's ``main`` with
     every variant (the counted run), then ``bench_rows``, then the
@@ -1536,6 +1633,8 @@ def phase_bench(state: dict) -> None:
     emit("bench_variants", rows=variants, launches=counts)
     rows = bench_rows(device)
     emit("bench_kernels", rows=rows)
+    emit("bench_k5_old_new", **k5_old_new(device))
+    emit("bench_k5_tiles", rows=k5_tiles(device))
     t1 = time.perf_counter()
     emit("bench_conv3d_ab", rows=conv3d_ab.main(["-d", DEVICE]))
     t2 = time.perf_counter()
@@ -1553,13 +1652,16 @@ def phase_bench(state: dict) -> None:
 
 # name, source in csrc/, the TPU kernel it replaces, and the path that runs it
 KERNELS = (
-    ("conv3d_igemm", "conv3d.cu", "rho_diffusion_tpu/ops/pallas/conv3d.py:102", "sampling"),
+    # K5's implicit GEMM: the kernel in conv3d_wgmma.cuh, its launcher in conv3d.cu
+    ("conv3d_igemm", "conv3d_wgmma.cuh", "rho_diffusion_tpu/ops/pallas/conv3d.py:102",
+     "sampling"),
     ("conv3d_direct", "conv3d.cu", "rho_diffusion_tpu/ops/pallas/conv3d.py:102", "sampling"),
     # one CUDA kernel replaces both TPU forward kernels (K1 one-pass, K2
     # multi-block, :59): its K/V-tile loop runs 8 times at T=512, 64 at T=4096
     ("flash_attention", "flash_attention.cu",
      "rho_diffusion_tpu/ops/pallas/flash_attention.py:115", "sampling"),
-    ("conv3d_dgrad_igemm", "conv3d.cu", "rho_diffusion_tpu/ops/pallas/conv3d.py:247", "training"),
+    ("conv3d_dgrad_igemm", "conv3d_wgmma.cuh", "rho_diffusion_tpu/ops/pallas/conv3d.py:247",
+     "training"),
     ("conv3d_dgrad_direct", "conv3d.cu", "rho_diffusion_tpu/ops/pallas/conv3d.py:247", "training"),
     ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
      "rho_diffusion_tpu/ops/pallas/flash_attention.py:209", "training"),

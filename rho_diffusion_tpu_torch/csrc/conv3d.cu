@@ -1,51 +1,71 @@
 // 3x3x3 stride-1 SAME convolution on channels-last volumes, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_conv3d_kernel` / `conv3d_pallas`
-// (rho_diffusion_tpu/ops/pallas/conv3d.py:102-212), forward direction:
+// (rho_diffusion_tpu/ops/pallas/conv3d.py:102/140), forward direction; dgrad
+// (:242-250) runs the same entry points on flipped, IO-transposed weights:
 //   out[b,d,h,w,co] = bias[co] + sum_{dz,dy,dx,ci} x[b,d+dz-1,h+dy-1,w+dx-1,ci] * W[co,ci,dz,dy,dx]
 // with zero padding, fp32 accumulation, output in the input dtype.
 //
-// What bounds it on the H100: at the UNet's shapes the conv is an implicit GEMM
-// with M = output voxels, N = Cout, K = 27*Cin, and 27*Cin multiply-adds per
-// output element read from ~Cin input values -- well above the card's ~295 flop
-// per byte ridge, so it is bound by tensor-core operations, not by device
-// memory. The design keeps the arithmetic on the tensor cores and never
-// materialises the 27x im2col matrix or a padded copy of x: each block stages a
-// 128-voxel x 32-deep slice of the implicit im2col matrix straight from x into
-// shared memory (16-byte cp.async, halo taps outside the volume zero-filled by
-// the copy itself), plus a 64-Cout x 32-deep slice of the repacked weights,
-// double-buffered so the next slice's copies overlap the current slice's
-// mma.sync bf16 products. The TPU kernel's W-tap pre-fold, 128-lane padding
-// and tile plan exist for Mosaic and VMEM limits and are not carried over.
-// wgmma/TMA and a persistent schedule are later work.
-//
 // Two entry points:
-//   conv3d_igemm_bf16   bf16, Cin % 8 == 0: the tensor-core implicit GEMM.
+//   conv3d_igemm_bf16   bf16, Cin % 8 == 0: the implicit GEMM on TMA and
+//                       wgmma (conv3d_wgmma.cuh says what bounds it and what
+//                       its design does about that). The box plan comes from
+//                       the caller (ops/kernels/conv3d.py `igemm_plan`) and is
+//                       checked here; the tensor maps are encoded per call.
 //   conv3d_direct_*     any Cin, bf16 or fp32: the tiled direct conv below.
 //                       Carries the UNet's Cin=1 input conv, its fp32 output
 //                       head (Cout=1) and that head's dgrad (Cin'=1), which do
 //                       not fit the GEMM tiles.
-// Each launches on the caller's stream, allocates nothing, and returns
-// cudaGetLastError() so the Python wrapper can raise.
+// Each launches on the caller's stream, allocates nothing, and returns 0, a
+// CUDA error code, or a negative code of its own (conv3d_error_string names
+// both) so the Python wrapper can raise.
 
-#include "conv3d_igemm.cuh"
+#include "conv3d_wgmma.cuh"
 
 namespace {
 
-using igemm::BM;
-using igemm::BN;
-using igemm::THREADS;
+// cuTensorMapEncodeTiled lives in libcuda: fetched through the runtime's entry
+// point lookup, so the library needs no link against libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// x: [B, D, H, W, Cin] bf16; w: [Cout, 27*Cin] bf16 with k = ((dz*3+dy)*3+dx)*Cin + ci;
-// bias: [Cout] bf16 or null; out: [B, D, H, W, Cout] bf16. The block's body
-// (gather, mainloop, epilogue) is conv3d_igemm.cuh's.
-__global__ void __launch_bounds__(THREADS)
-conv3d_igemm_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                         const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-                         int B, int D, int H, int W, int Cin, int Cout) {
-  __shared__ __align__(16) igemm::ATile As[2];
-  __shared__ __align__(16) igemm::BTile Bs[2];
-  igemm::conv3d_igemm_block<igemm::kFull>(As, Bs, x, w, bias, out, B, D, H, W, Cin, Cout);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The launcher's own error codes.
+constexpr int ERR_PLAN = -1;      // a box plan or shape the kernel does not take
+constexpr int ERR_ENCODE_FN = -2; // cuTensorMapEncodeTiled not found
+constexpr int ERR_X_MAP = -3;     // cuTensorMapEncodeTiled refused x's map
+constexpr int ERR_W_MAP = -4;     // cuTensorMapEncodeTiled refused the weights' map
+
+template <int BN, int STAGES>
+int launch_wgmma(const CUtensorMap& x_map, const CUtensorMap& w_map, const void* bias, void* out,
+                 const wg::Problem& p, cudaStream_t stream) {
+  constexpr int smem = wg::smem_bytes(BN, STAGES);
+  static_assert(smem <= wg::SMEM_LIMIT, "the ring does not fit in shared memory");
+  auto kernel = wg::conv3d_igemm_wgmma_kernel<BN, STAGES>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)p.B * p.tiles_d * p.tiles_h * p.tiles_w * p.n_tiles;
+  kernel<<<(unsigned)blocks, wg::THREADS, smem, stream>>>(
+      x_map, w_map, (const __nv_bfloat16*)bias, (__nv_bfloat16*)out, p);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -302,14 +322,61 @@ int launch_direct(const void* x, const void* w, const void* bias, void* out, int
 
 extern "C" {
 
+// x: [B, D, H, W, Cin] bf16, 16-byte aligned, Cin % 8 == 0; w: [Cout, 27, Cin]
+// bf16 (tap = (dz*3+dy)*3+dx), contiguous; bias: [Cout] bf16 or null; out:
+// [B, D, H, W, Cout] bf16. The plan: a box of bw x bh x bd = 128 voxels, BN
+// output channels a block (64, 128, 192 or 256), a ring of 3 or 4 stages.
 int conv3d_igemm_bf16(const void* x, const void* w, const void* bias, void* out, int B, int D,
-                      int H, int W, int Cin, int Cout, void* stream) {
-  const long long M = (long long)B * D * H * W;
-  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((Cout + BN - 1) / BN));
-  conv3d_igemm_bf16_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (const __nv_bfloat16*)bias,
-      (__nv_bfloat16*)out, B, D, H, W, Cin, Cout);
-  return (int)cudaGetLastError();
+                      int H, int W, int Cin, int Cout, int bw, int bh, int bd, int bn, int stages,
+                      void* stream) {
+  const bool box_ok = bw >= 1 && bh >= 1 && bd >= 1 && bw <= 256 && bh <= 256 && bd <= 256 &&
+                      bw * bh * bd == wg::BM;
+  const bool bn_ok = bn == 64 || bn == 128 || bn == 192 || bn == 256;
+  if (!box_ok || !bn_ok || (stages != 3 && stages != 4) || Cin < 8 || Cin % 8 || Cout < 1 ||
+      B < 1 || D < 1 || H < 1 || W < 1 || (reinterpret_cast<uintptr_t>(x) & 15) ||
+      (reinterpret_cast<uintptr_t>(w) & 15))
+    return ERR_PLAN;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return ERR_ENCODE_FN;
+
+  CUtensorMap x_map, w_map;
+  const cuuint64_t c2 = (cuuint64_t)Cin * 2;  // bytes per voxel
+  const cuuint64_t x_dims[5] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)D,
+                                (cuuint64_t)B};
+  const cuuint64_t x_strides[4] = {c2, c2 * W, c2 * W * H, c2 * W * H * D};
+  const cuuint32_t x_box[5] = {(cuuint32_t)wg::BK, (cuuint32_t)bw, (cuuint32_t)bh, (cuuint32_t)bd, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  // OOB_FILL_NONE: elements outside the tensor read as zeros (SAME padding)
+  if (encode(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x), x_dims, x_strides,
+             x_box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return ERR_X_MAP;
+  const cuuint64_t w_dims[3] = {(cuuint64_t)Cin, 27, (cuuint64_t)Cout};
+  const cuuint64_t w_strides[2] = {c2, c2 * 27};
+  const cuuint32_t w_box[3] = {(cuuint32_t)wg::BK, 1, (cuuint32_t)bn};
+  if (encode(&w_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(w), w_dims, w_strides,
+             w_box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return ERR_W_MAP;
+
+  wg::Problem p;
+  p.B = B, p.D = D, p.H = H, p.W = W, p.Cout = Cout;
+  p.bw = bw, p.bh = bh, p.bd = bd;
+  p.tiles_w = (W + bw - 1) / bw, p.tiles_h = (H + bh - 1) / bh, p.tiles_d = (D + bd - 1) / bd;
+  p.n_tiles = (Cout + bn - 1) / bn;
+  p.cchunks = (Cin + wg::BK - 1) / wg::BK;
+  if ((long long)B * p.tiles_d * p.tiles_h * p.tiles_w * p.n_tiles > 2147483647LL) return ERR_PLAN;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (bn * 10 + stages) {
+    case 643: return launch_wgmma<64, 3>(x_map, w_map, bias, out, p, s);
+    case 644: return launch_wgmma<64, 4>(x_map, w_map, bias, out, p, s);
+    case 1283: return launch_wgmma<128, 3>(x_map, w_map, bias, out, p, s);
+    case 1284: return launch_wgmma<128, 4>(x_map, w_map, bias, out, p, s);
+    case 1923: return launch_wgmma<192, 3>(x_map, w_map, bias, out, p, s);
+    case 1924: return launch_wgmma<192, 4>(x_map, w_map, bias, out, p, s);
+    case 2563: return launch_wgmma<256, 3>(x_map, w_map, bias, out, p, s);
+    default: return launch_wgmma<256, 4>(x_map, w_map, bias, out, p, s);
+  }
 }
 
 int conv3d_direct_bf16(const void* x, const void* w, const void* bias, void* out, int B, int D,
@@ -322,6 +389,14 @@ int conv3d_direct_f32(const void* x, const void* w, const void* bias, void* out,
   return launch_direct<float>(x, w, bias, out, B, D, H, W, Cin, Cout, stream);
 }
 
-const char* conv3d_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+const char* conv3d_error_string(int code) {
+  switch (code) {
+    case ERR_PLAN: return "the igemm launcher refused the box plan or shape";
+    case ERR_ENCODE_FN: return "cuTensorMapEncodeTiled could not be found in libcuda";
+    case ERR_X_MAP: return "cuTensorMapEncodeTiled refused x's tensor map";
+    case ERR_W_MAP: return "cuTensorMapEncodeTiled refused the weights' tensor map";
+    default: return cudaGetErrorString((cudaError_t)code);
+  }
+}
 
 }  // extern "C"

@@ -220,9 +220,11 @@ class DDPM(AbstractDiffusionPipeline):
         parameter_space: Optional[dict] = None,
         random: bool = True,
         as_hash_embeddings: bool = False,
+        guidance_scale: Optional[float] = None,
     ) -> dict:
         """Draw samples, with the shape from the backbone kwargs and the
-        conditions from a parameter space."""
+        conditions from a parameter space; ``guidance_scale`` != 1 with
+        conditions samples with classifier-free guidance."""
         batch_size = batch_size or self.sampling_batch_size
         shape = self.sample_shape(batch_size)
         if conditions is None and parameter_space is not None:
@@ -235,6 +237,7 @@ class DDPM(AbstractDiffusionPipeline):
             conditions = self.coerce_conditions(conditions, batch_size, generator)
         return self.reverse_process(
             shape, conditions, t_checkpoints=self.t_checkpoints, generator=generator,
+            guidance_scale=guidance_scale,
         )
 
     def generate(
@@ -245,8 +248,9 @@ class DDPM(AbstractDiffusionPipeline):
         conditions=None,
         random: bool = True,
         as_hash_embeddings: bool = False,
+        guidance_scale: Optional[float] = None,
     ) -> torch.Tensor:
-        """Sample a batch of fields."""
+        """Sample a batch of fields (guided when ``guidance_scale`` != 1)."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         out = self.p_sample(
@@ -256,5 +260,6 @@ class DDPM(AbstractDiffusionPipeline):
             parameter_space=parameter_space or self.sample_parameter_space,
             random=random,
             as_hash_embeddings=as_hash_embeddings,
+            guidance_scale=guidance_scale,
         )
         return out["denoised"]

@@ -1,7 +1,8 @@
 """Sampling / inference entry point of the PyTorch port.
 
     python -m rho_diffusion_tpu_torch.inference CONFIG.json [-p weights.npz|.pth]
-        [-n N] [-d cuda|cpu] [-f] [--work-dir DIR]
+        [-n N] [-d cuda|cpu] [-f] [--work-dir DIR] [--guidance S]
+        [--sampler NAME] [--steps N] [--spacing GRID] [--quant int8]
 
 Mirrors ``scripts/inference.py`` and the JAX package's
 ``build_inference_session``/``resolve_inference_params``:
@@ -16,6 +17,13 @@ Mirrors ``scripts/inference.py`` and the JAX package's
   the first N rows of ``inference.parameter_space`` (sha512 embeddings for
   hash-labelled datasets), run the reverse process on the device, and write the HDF5
   cache and the optional plot.
+
+``--guidance`` (else ``inference.guidance_scale``) != 1 samples with
+classifier-free guidance. ``--sampler``, ``--steps`` and ``--spacing``
+belong to the GaussianDiffusion family, which is not ported yet (ROADMAP
+Queue 1 item 6): the DDPM pipeline ignores the first two and rejects a
+spacing, as the service does. ``--quant int8`` raises until int8 inference
+is ported (ROADMAP Queue 1 item 11).
 
 It runs on CUDA unless ``-d cpu`` is given (a config's "tpu" means CUDA) and
 raises when CUDA is absent. The JAX package's orbax checkpoint directories
@@ -69,11 +77,27 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[np.ndarray]:
     parser.add_argument("-f", dest="forced_overwrite", action="store_true", default=False,
                         help="overwrite an existing inference output cache file")
     parser.add_argument("--work-dir", type=Path, default=Path("."))
+    parser.add_argument("--sampler", default=None, choices=["ddpm", "ddim", "dpm++", "unipc"],
+                        help="GaussianDiffusion family only; the DDPM pipeline ignores it")
+    parser.add_argument("--steps", type=int, default=None,
+                        help="GaussianDiffusion family only; the DDPM pipeline ignores it")
+    parser.add_argument("--spacing", default=None,
+                        choices=["uniform-t", "uniform-lambda", "trailing", "karras"],
+                        help="GaussianDiffusion family only; the DDPM pipeline rejects it")
+    parser.add_argument("--guidance", type=float, default=None,
+                        help="classifier-free guidance scale (1.0 = off; needs a model "
+                             "trained with cond_dropout > 0); overrides inference.guidance_scale")
+    parser.add_argument("--quant", default=None, choices=["int8"],
+                        help="int8 W8A8 convs (not ported yet: raises)")
     args = parser.parse_args(argv)
+    if args.quant is not None:
+        raise NotImplementedError(
+            f"--quant {args.quant}: int8 W8A8 inference is not ported yet "
+            "(ROADMAP Queue 1 item 11)",
+        )
 
     config = ExperimentConfig.from_json(args.json_config)
-    if config.inference.guidance_scale != 1.0:
-        raise NotImplementedError("classifier-free guidance is not ported yet")
+    guidance = args.guidance if args.guidance is not None else config.inference.guidance_scale
     device = resolve_device(args.device or config.inference.device)
     cache_file = config.inference.cache_file
     if cache_file and os.path.isfile(cache_file) and not args.forced_overwrite:
@@ -94,6 +118,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[np.ndarray]:
     )
     for m in messages:
         print(m)
+    spacing = args.spacing or config.inference.spacing
+    if spacing is not None and not hasattr(pipeline, "coeffs"):
+        raise ValueError(
+            f"spacing={spacing!r} is a GaussianDiffusion-family respacing control; "
+            "the DDPM pipeline always samples its full schedule",
+        )
     use_hash = bool(getattr(dataset, "use_emb_as_labels", False)) if dataset else False
     generator = torch.Generator(device=device).manual_seed(config.inference.seed)
     samples = pipeline.generate(
@@ -102,6 +132,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[np.ndarray]:
         parameter_space=config.inference.parameter_space,
         random=False,
         as_hash_embeddings=use_hash,
+        guidance_scale=guidance,
     )
     samples = samples.float().cpu().numpy()
     print(f"generated {samples.shape}, finite={np.isfinite(samples).all()}")

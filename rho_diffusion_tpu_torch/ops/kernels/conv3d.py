@@ -28,16 +28,20 @@ input for each of its 27 taps.
 
 On the card, bf16 with Cin % 8 == 0 (the dgrad's own input channels, i.e.
 the forward's Cout, for a dgrad) takes the tensor-core implicit GEMM
-(``conv3d_igemm``); every other bf16 or fp32 conv (the UNet's Cin=1 input
-conv, its fp32 output head and that head's dgrad) takes the direct kernel
-(``conv3d_direct``: a shared-memory halo tile per 8 x 32 voxels and fp32
-FMAs, with its own tile shapes for Cin=1 and for Cout=1). The weights are
-repacked per call into the layout each kernel reads.
+(``conv3d_igemm``: TMA boxes of 128 voxels with the hardware's zero fill as
+the SAME padding, an mbarrier ring, ``wgmma`` over up to 256 output
+channels; ``igemm_plan`` chooses the box, the N tile and the ring's depth);
+every other bf16 or fp32 conv (the UNet's Cin=1 input conv, its fp32 output
+head and that head's dgrad) takes the direct kernel (``conv3d_direct``: a
+shared-memory halo tile per 8 x 32 voxels and fp32 FMAs, with its own tile
+shapes for Cin=1 and for Cout=1). The weights are repacked per call into
+the layout each kernel reads.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -46,6 +50,102 @@ from rho_diffusion_tpu_torch.ops.kernels import _build, check_no_autograd, launc
 
 _INT32_MAX = 2**31 - 1
 _TAPS = [(dz, dy, dx) for dz in range(3) for dy in range(3) for dx in range(3)]
+
+# The implicit GEMM's tiles (csrc/conv3d_wgmma.cuh): a block owns one TMA
+# box of IGEMM_BM voxels and reads IGEMM_BK channels (64 bf16 = the 128-byte
+# swizzle span) per k-step, over N tiles of one of IGEMM_BN output channels,
+# through a ring of one of IGEMM_STAGES stages in at most SMEM_LIMIT bytes.
+IGEMM_BM = 128
+IGEMM_BK = 64
+IGEMM_BN = (64, 128, 192, 256)
+IGEMM_STAGES = (3, 4)
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on the H100
+
+
+class IgemmPlan(NamedTuple):
+    """The box of voxels one block owns (bw x bh x bd = IGEMM_BM), its
+    output channels (bn) and the depth of its TMA ring (stages)."""
+
+    bw: int
+    bh: int
+    bd: int
+    bn: int
+    stages: int
+
+    def smem_bytes(self) -> int:
+        """The ring (A and B tiles per stage), its barriers and the 1024
+        bytes that align it to the swizzle: conv3d_wgmma.cuh's smem_bytes."""
+        return self.stages * 2 * IGEMM_BK * (IGEMM_BM + self.bn) + 16 * self.stages + 1024
+
+    def grid(self, x_shape, cout: int) -> tuple[int, int, int, int, int]:
+        """(batch, boxes along D, H and W, N tiles): the launch's blocks."""
+        b, d, h, w, _ = x_shape
+        return (b, -(-d // self.bd), -(-h // self.bh), -(-w // self.bw), -(-cout // self.bn))
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+@functools.lru_cache(maxsize=1024)
+def igemm_plan(x_shape, cout: int, bn_max: int = 256, stages: int = 4,
+               sms: int = 132) -> IgemmPlan:
+    """The implicit GEMM's plan for x [B, D, H, W, Cin] -> cout channels on
+    a card of ``sms`` multiprocessors (132: the H100 SXM).
+
+    The box spans W first (up to the next power of two of W), then H, then
+    D, so that its 128 voxels are as contiguous in x as the volume allows:
+    (32, 4, 1) at 32^2 planes, (8, 8, 2) at 8^2, (4, 4, 8) at 4^2. Ragged
+    volumes take the next power of two and the kernel drops the rows
+    outside. The N tiles split Cout into tiles of a multiple of 64 and at
+    most ``bn_max`` channels: as few as fill the card, since one block runs
+    per SM. Each split costs its waves of blocks times (bn + 128), the
+    bytes of B and A a k-step brings in, in rows of 128 bytes; the cheapest
+    wins, the fewest tiles on a tie. So one tile up to 256 channels, two of
+    192 for 384, four of 256 for 1024; but two of 128 for the 64 boxes of a
+    batch-8 level-3 conv, which one tile of 256 would leave on 64 SMs.
+    Four stages: on the H100 a deeper ring (8 at BN = 64, 6 at 128) was no
+    faster, and three lose 7-12 % at BN <= 128. Cached: the wrapper asks
+    for the same few plans on every step."""
+    b, d, h, w, _ = x_shape
+    bw = min(_pow2_at_least(w), IGEMM_BM)
+    bh = min(_pow2_at_least(h), IGEMM_BM // bw)
+    bd = IGEMM_BM // (bw * bh)
+    boxes = b * -(-d // bd) * -(-h // bh) * -(-w // bw)
+    best = None
+    for n_tiles in range(-(-cout // bn_max), -(-cout // 64) + 1):
+        bn = -(-cout // (n_tiles * 64)) * 64
+        if -(-cout // bn) != n_tiles:
+            continue  # the same tile as a split already costed
+        cost = -(-boxes * n_tiles // sms) * (bn + IGEMM_BM)
+        if best is None or cost < best[0]:
+            best = (cost, bn)
+    return IgemmPlan(bw, bh, bd, best[1], stages)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# ctypes signatures of the launchers in csrc/conv3d.cu, set once on load
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_LAUNCHERS = {
+    "conv3d_igemm_bf16": [_PTR] * 4 + [_INT] * 11 + [_PTR],
+    "conv3d_direct_bf16": [_PTR] * 4 + [_INT] * 6 + [_PTR],
+    "conv3d_direct_f32": [_PTR] * 4 + [_INT] * 6 + [_PTR],
+}
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """csrc/conv3d.cu's library with its launchers' signatures set."""
+    lib = _build.load("conv3d")
+    for fn, argtypes in _LAUNCHERS.items():
+        launcher = getattr(lib, fn)
+        launcher.restype = ctypes.c_int
+        launcher.argtypes = argtypes
+    return lib
 
 
 def conv3d_plain(
@@ -126,10 +226,11 @@ def _check(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) 
 
 def conv3d_kernel(
     x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
-    kind: str = "conv3d",
+    kind: str = "conv3d", plan: Optional[IgemmPlan] = None,
 ) -> torch.Tensor:
     """Launch the CUDA conv (igemm or direct, as the class docstring says)
-    and count it as ``<kind>_igemm`` or ``<kind>_direct``."""
+    and count it as ``<kind>_igemm`` or ``<kind>_direct``. ``plan``
+    overrides ``igemm_plan``'s for the implicit GEMM (tile studies)."""
     check_no_autograd(kind, x, weight, bias)
     _check(x, weight, bias)
     if x.device.type != "cuda":
@@ -143,11 +244,13 @@ def conv3d_kernel(
     if max(x.numel(), b * d * h * w * cout, 27 * cin * cout) > _INT32_MAX:
         raise ValueError(f"conv3d: shape {tuple(x.shape)} -> {cout} is out of the kernel's range")
     out = torch.empty((b, d, h, w, cout), dtype=x.dtype, device=x.device)
+    extra = ()
     if x.dtype == torch.bfloat16 and cin % 8 == 0:
         if x.data_ptr() % 16:
             raise ValueError("conv3d kernel needs a 16-byte aligned x")
-        # [Cout, Cin, dz, dy, dx] -> [Cout, 27*Cin], k = tap*Cin + ci
-        wk = weight.permute(0, 2, 3, 4, 1).reshape(cout, 27 * cin).contiguous()
+        # [Cout, Cin, dz, dy, dx] -> [Cout, 27, Cin], tap = (dz*3+dy)*3+dx
+        wk = weight.permute(0, 2, 3, 4, 1).reshape(cout, 27, cin).contiguous()
+        extra = tuple(plan or igemm_plan(x.shape, cout, sms=_sm_count(x.device.index)))
         fn, name = "conv3d_igemm_bf16", f"{kind}_igemm"
     else:
         # [Cout, Cin, dz, dy, dx] -> [27*Cin, Cout]
@@ -155,17 +258,15 @@ def conv3d_kernel(
         fn = "conv3d_direct_bf16" if x.dtype == torch.bfloat16 else "conv3d_direct_f32"
         name = f"{kind}_direct"
     bk = bias.contiguous() if bias is not None else None
-    lib = _build.load("conv3d")
-    launcher = getattr(lib, fn)
-    launcher.restype = ctypes.c_int
-    launcher.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        code = launcher(
+        code = getattr(lib, fn)(
             x.data_ptr(), wk.data_ptr(), bk.data_ptr() if bk is not None else None,
-            out.data_ptr(), b, d, h, w, cin, cout, stream,
+            out.data_ptr(), b, d, h, w, cin, cout, *extra, stream,
         )
-    _build.check(code, lib, "conv3d_error_string", f"{fn}({tuple(x.shape)} -> {cout})")
+    _build.check(code, lib, "conv3d_error_string",
+                 f"{fn}({tuple(x.shape)} -> {cout}{', plan ' + str(extra) if extra else ''})")
     launch_counts[name] += 1
     return out
 

@@ -6,8 +6,11 @@ whose Python has no JAX, run it without the JAX-side conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
 
-Shapes cover the ragged edges the flagship does not reach: voxel counts and
-Cout off the 128 x 64 tiles, reduction depths off the 32-deep stage, Cin=1
+Shapes cover the ragged edges the flagship does not reach: voxel counts off
+the implicit GEMM's 128-voxel boxes, volumes off their power-of-two sides,
+Cout off its N tiles, Cin off its 64-channel chunks (zero-filled by the
+hardware), every tile and ring depth it has, and the flagship's own boxes
+(W = 64, a box over 8 depth planes, Cin = 1024, four N tiles); Cin=1
 and Cout=1, fp32, strided q/k/v, padded head dims and Tq != Tk, for both
 dtypes of the flash kernel; the direct conv's three flagship convs at full
 width and shapes off its 8 x 32 voxel tile; and the ring-attention kernel
@@ -26,7 +29,8 @@ import torch
 from rho_diffusion_tpu_torch.ops.attention import xla_attention
 from rho_diffusion_tpu_torch.ops.kernels import launch_counts
 from rho_diffusion_tpu_torch.ops.kernels.conv3d import (
-    conv3d, conv3d_dgrad, conv3d_dgrad_plain, conv3d_plain)
+    IGEMM_BN, IGEMM_STAGES, IgemmPlan, conv3d, conv3d_dgrad, conv3d_dgrad_plain, conv3d_kernel,
+    conv3d_plain, igemm_plan)
 from rho_diffusion_tpu_torch.ops.kernels.conv3d_variants import (
     bigdot, bigdot_plain, conv_variant, conv_variant_plain, dots_only, dots_only_plain)
 from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
@@ -67,6 +71,12 @@ def randn(shape, seed, device, dtype, scale=1.0):
         ((1, 3, 5, 4, 8), 72, torch.bfloat16, "conv3d_igemm"),     # K=216 off 32, Cout off 64
         ((3, 4, 4, 4, 24), 10, torch.bfloat16, "conv3d_igemm"),    # odd Cout (scalar stores)
         ((2, 8, 8, 8, 192), 64, torch.bfloat16, "conv3d_igemm"),
+        ((3, 5, 6, 7, 128), 96, torch.bfloat16, "conv3d_igemm"),   # 630 voxels, Cout off BN
+        ((2, 6, 9, 10, 24), 64, torch.bfloat16, "conv3d_igemm"),   # Cin 24: 40 channels zero-filled
+        ((1, 7, 6, 5, 8), 16, torch.bfloat16, "conv3d_igemm"),     # Cin 8: 56 channels zero-filled
+        ((1, 64, 64, 64, 64), 64, torch.bfloat16, "conv3d_igemm"),  # 64^3 level 0: box (64, 2, 1)
+        ((2, 32, 4, 4, 512), 512, torch.bfloat16, "conv3d_igemm"),  # level 3: box over 8 planes
+        ((2, 32, 4, 4, 1024), 512, torch.bfloat16, "conv3d_igemm"),  # Cin 1024: 16 chunks a tap
         ((2, 6, 6, 6, 1), 64, torch.bfloat16, "conv3d_direct"),    # the UNet's input conv
         ((2, 6, 6, 6, 12), 5, torch.bfloat16, "conv3d_direct"),    # Cin % 8 != 0
         ((2, 6, 6, 6, 1), 64, torch.float32, "conv3d_direct"),
@@ -209,6 +219,7 @@ def test_flash_backward_is_bitwise_repeatable(cuda, dtype):
         ((2, 5, 6, 7, 64), 64, torch.bfloat16, "conv3d_dgrad_igemm"),
         ((1, 3, 5, 4, 72), 8, torch.bfloat16, "conv3d_dgrad_igemm"),   # Cin off the 64 tile
         ((2, 4, 4, 4, 24), 10, torch.bfloat16, "conv3d_dgrad_igemm"),  # odd Cin
+        ((32, 32, 4, 4, 512), 1024, torch.bfloat16, "conv3d_dgrad_igemm"),  # Cout' 1024: 4 N tiles
         ((2, 6, 6, 6, 12), 5, torch.bfloat16, "conv3d_dgrad_direct"),  # Cout % 8 != 0
         ((2, 6, 6, 6, 1), 64, torch.float32, "conv3d_dgrad_direct"),   # the fp32 head's dgrad
         ((2, 5, 6, 7, 16), 24, torch.float32, "conv3d_dgrad_direct"),
@@ -227,6 +238,41 @@ def test_conv3d_dgrad_kernel_matches_plain(cuda, gshape, cin, dtype, kernel):
     tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_FP32
     torch.testing.assert_close(got.float(), conv3d_dgrad_plain(g.float(), w.float()),
                                atol=tol, rtol=tol)
+
+
+def test_conv3d_dgrad_1024_runs_four_n_tiles(cuda):
+    """The bottleneck's dgrad at batch 32 (1024 output channels) takes four
+    N tiles of 256 over the same A boxes."""
+    plan = igemm_plan((32, 32, 4, 4, 512), 1024,
+                      sms=torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert plan.bn == 256 and plan.grid((32, 32, 4, 4, 512), 1024)[-1] == 4
+
+
+@pytest.mark.parametrize("stages", IGEMM_STAGES)
+@pytest.mark.parametrize("bn", IGEMM_BN)
+def test_conv3d_igemm_every_plan_matches_plain(cuda, bn, stages):
+    """Every N tile and ring depth the kernel has, on ragged voxels and a
+    Cout that leaves part of the last N tile empty."""
+    shape, cout = (2, 9, 5, 12, 72), 200
+    x = randn(shape, 20, cuda, torch.bfloat16)
+    w = randn((cout, 72, 3, 3, 3), 21, cuda, torch.bfloat16, 1 / math.sqrt(27 * 72))
+    b = randn((cout,), 22, cuda, torch.bfloat16, 0.1)
+    plan = igemm_plan(shape, cout, stages=stages)._replace(bn=bn)
+    launch_counts.clear()
+    got = conv3d_kernel(x, w, b, plan=plan)
+    torch.cuda.synchronize()
+    assert launch_counts == {"conv3d_igemm": 1}
+    torch.testing.assert_close(got.float(), conv3d_plain(x.float(), w.float(), b.float()),
+                               atol=TOL_BF16, rtol=TOL_BF16)
+
+
+def test_conv3d_igemm_refuses_a_bad_plan(cuda):
+    x = randn((1, 4, 4, 4, 16), 23, cuda, torch.bfloat16)
+    w = randn((16, 16, 3, 3, 3), 24, cuda, torch.bfloat16)
+    for plan in (IgemmPlan(4, 4, 4, 64, 4), IgemmPlan(4, 4, 8, 96, 4),
+                 IgemmPlan(4, 4, 8, 64, 5), IgemmPlan(4, 4, 8, 256, 6)):
+        with pytest.raises(RuntimeError, match="plan"):
+            conv3d_kernel(x, w, plan=plan)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -375,12 +421,15 @@ def test_conv_variant_kernels_match_plain(cuda, shape, cout, variant):
 
 
 def test_full_variant_is_k5_bitwise(cuda):
-    """``full`` runs K5's own block (csrc/conv3d_igemm.cuh): the same
-    products in the same order as the conv kernel without bias."""
+    """``full`` runs K5's earlier block (csrc/conv3d_igemm.cuh, mma.sync),
+    which K5 itself left for TMA and wgmma (csrc/conv3d_wgmma.cuh): the two
+    sum in other orders, so they are held against each other at the bf16
+    tolerance (each is held against the plain version above)."""
     x = randn((2, 4, 16, 16, 128), 32, cuda, torch.bfloat16)
     km = randn((27 * 128, 128), 33, cuda, torch.bfloat16, 1 / math.sqrt(27 * 128))
     weight = km.view(3, 3, 3, 128, 128).permute(4, 3, 0, 1, 2)
-    assert torch.equal(conv_variant(x, km, "full"), conv3d(x, weight))
+    torch.testing.assert_close(conv_variant(x, km, "full").float(), conv3d(x, weight).float(),
+                               atol=TOL_BF16, rtol=TOL_BF16)
 
 
 @pytest.mark.parametrize(
