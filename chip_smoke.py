@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py [--phases env,build,kernels,main,train,hold,serve,timings,bench]
+    python3 chip_smoke.py [--phases env,build,kernels,main,main64,train,hold,serve,timings,bench]
                           [--steps 25] [--samples 4] [--timing-batch 8]
 
 Builds the port's CUDA kernels from ``rho_diffusion_tpu_torch/csrc`` (and
@@ -13,6 +13,11 @@ port's paths on the flagship config
 weights loaded from a reference-layout ``.pth``):
 
 * ``main``: sampling through ``rho_diffusion_tpu_torch.inference.main``;
+* ``main64``: the same entry on ``examples/config_spherical_harmonics_64.json``
+  at full width (64^3 fields, MultiEmbeddings conditioning, 4 heads of 128
+  over 4096 tokens, batch 8 as configured, bf16), its schedule cut to 21
+  steps; a 64^3 forward held against the fp32 plain model at batch 1, and a
+  batch-8 forward timed with its device-busy share;
 * ``train``: five DDPM training steps at batch 32 through
   ``rho_diffusion_tpu_torch.training``'s ``main``, the checkpoint read back
   to the trainer's EMA weights, and one profiled step;
@@ -32,7 +37,9 @@ weights loaded from a reference-layout ``.pth``):
   on the inputs the entry times it on, and timed there; K7 ``full`` (the
   mma.sync block K5 ran until its TMA/wgmma redesign) against K5 at that
   shape, and K5's plan against other N tiles and ring depths per level;
-  then the entry's two companions, K5 against cuDNN per shape
+  every plan of the flash forward's wgmma route and its old mma.sync
+  kernel timed at K1's and K2's shapes (``bench_flash_plans``); then the
+  entry's two companions, K5 against cuDNN per shape
   (``conv3d_ab``) and per UNet level beside the equal-FLOP matmul
   (``conv_profile``).
 
@@ -44,12 +51,15 @@ kernel against its plain version again at the shapes of one UNet forward
 (batch 8) and of one training step (batch 32), and times it there (its
 device time from torch.profiler, and the wrapper call) beside the plain
 version, a PyTorch library call and its bound; then one UNet forward (with
-a torch.profiler breakdown by kernel) and the whole reverse process. Every
+a torch.profiler breakdown by kernel) and the whole reverse process. The
+``kernels`` phase also holds the flash forward at every plan of its wgmma
+route (and its mma.sync kernel), with and without the LSE, at T = 512
+(batch 4, 8, 32), 4096 (batch 8) and 300, D = 128 and 64. Every
 phase prints one JSON line; a failing phase exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``, after the
 ``kernels`` line and the card's ``nvidia-smi`` name and power limit. A run
-whose ``--phases`` leave out any of kernels, main, train, serve, timings
-and bench prints neither and exits 3.
+whose ``--phases`` leave out any of kernels, main, main64, train, serve,
+timings and bench prints neither and exits 3.
 
 Exits non-zero without a result when CUDA is unavailable or the script runs
 outside a checkout of the repository. Imports nothing of JAX.
@@ -71,9 +81,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "examples" / "config_spherical_harmonics.json"
-PHASES = ("env", "build", "kernels", "main", "train", "hold", "serve", "timings", "bench")
+CONFIG64 = ROOT / "examples" / "config_spherical_harmonics_64.json"
+PHASES = ("env", "build", "kernels", "main", "main64", "train", "hold", "serve", "timings",
+          "bench")
 # the phases whose numbers the kernels line carries
-KERNELS_LINE_PHASES = ("kernels", "main", "train", "serve", "timings", "bench")
+KERNELS_LINE_PHASES = ("kernels", "main", "main64", "train", "serve", "timings", "bench")
 DEVICE = "cuda"
 # the train phase: the flagship's batch, and steps cut to five
 TRAIN_BATCH = 32
@@ -83,6 +95,15 @@ SERVE_CONTEXT = 4
 SERVE_BUCKETS = (1, 2, 4, 8)
 # the 64^3 config's level-0 conv input at batch 1 (64 -> 64 channels)
 LEVEL0_64 = (1, 64, 64, 64, 64)
+# the main64 phase: the fewest steps at which the 64^3 config's linear betas
+# (1e-3 to 0.02, scaled by 1000/T) stay below 1, and its hold's batch
+MAIN64_STEPS = 21
+MAIN64_HOLD_BATCH = 1
+# the flash forward's holds at every plan: (batch, tokens, heads, head dim)
+# of K1 at sampling batch 4, timing batch 8 and the training step's 32, of
+# K2 at the 64^3 config's 4096 tokens, a ragged T and D = 64
+FLASH_PLAN_SHAPES = ((4, 512, 4, 128), (8, 512, 4, 128), (32, 512, 4, 128), (8, 4096, 4, 128),
+                     (2, 300, 4, 128), (2, 300, 2, 64))
 # the bench phase: every variant of the bottleneck-isolation entry
 BENCH_VARIANTS = ("full", "nopatch", "nodma", "dotsonly", "bigdot1", "bigdot2", "bigdot4",
                   "bigdot8")
@@ -189,6 +210,46 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in a CUDA
+    graph, the graph replayed ``replays`` times between CUDA events. The
+    host's work is not in it, and no launch is missed as the profiler can."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def host_ms(fn, calls: int = 50) -> float:
+    """Host time of one call of ``fn``: the calls are issued while the card
+    is kept busy (``torch.cuda._sleep``), so none waits for the device;
+    ``calls`` is kept small enough that the launch queue never fills."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of device time ahead of the calls
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e3
 
 
 def bound_ms(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
@@ -354,6 +415,15 @@ def phase_build(state: dict) -> None:
           for name, entry in ptxas_entries(_build.build_log.get("conv3d", "")).items()
           for m in [re.search(r"conv3d_igemm_wgmma_kernelILi(\d+)ELi(\d+)E", name)] if m]
     emit("k5_ptxas", kernels=k5 or "not built in this run (a cached library has no ptxas log)")
+    # the flash forward's wgmma instances (head dim, query rows, keys a
+    # tile), and any ptxas reports as serialising its wgmma
+    log = _build.build_log.get("flash_attention", "")
+    fa = [{"hd": int(m[1]), "bm": 64 * int(m[2]), "bn": int(m[3]), **entry}
+          for name, entry in ptxas_entries(log).items()
+          for m in [re.search(r"flash_fwd_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)] if m]
+    serialized = [ln.split("'")[1] for ln in log.splitlines() if "C7512" in ln and "'" in ln]
+    emit("flash_ptxas", kernels=fa or "not built in this run (a cached library has no ptxas log)",
+         wgmma_serialized=serialized)
 
 
 def ptxas_entries(log: str) -> dict:
@@ -591,6 +661,54 @@ def check_flash_bwd(b, t, h, d, device, seed: int, dtype) -> dict:
             "grads": grads_, "ok": repeatable and all(g["ok"] for g in grads_)}
 
 
+def plan_name(plan) -> str:
+    if plan.route != "wgmma":
+        return f"{plan.route} (the earlier kernel)" if plan.route == "mma_sync" else plan.route
+    return f"wgmma bm{plan.bm} bn{plan.bn}"
+
+
+# the LSE against flash_lse_plain: fp32 scores of the same bf16 inputs on
+# both sides, sums in another order and exp2f's last bits (~1e-6 relative
+# of an LSE near log2(T) + max)
+TOL_LSE = 1e-4
+
+
+def check_flash_plans(device) -> tuple[list, list]:
+    """The flash forward at every plan of its wgmma route and at its
+    mma.sync kernel, with and without the LSE, on strided views of one qkv
+    at FLASH_PLAN_SHAPES, each against the plain version on fp32 copies.
+    Returns (every hold, one summary row per shape: the worst ratio of
+    error to tolerance per plan)."""
+    import torch
+
+    from rho_diffusion_tpu_torch.ops.attention import xla_attention
+    from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
+        MMA_SYNC_PLAN, WGMMA_PLANS, flash_attention_fwd_kernel, flash_lse_plain)
+
+    rows, summary = [], []
+    for i, (b, t, h, d) in enumerate(FLASH_PLAN_SHAPES):
+        q, k, v = flash_inputs(b, t, h, d, device, seed=130 + i, dtype=torch.bfloat16)
+        want = xla_attention(q.float(), k.float(), v.float())
+        want_lse = flash_lse_plain(q, k)
+        worst = {}
+        for plan in [MMA_SYNC_PLAN, *WGMMA_PLANS]:
+            for with_lse in (False, True):
+                out, lse = flash_attention_fwd_kernel(q, k, v, with_lse=with_lse, plan=plan)
+                row = {"kernel": "flash_attention", "plan": plan_name(plan), "b": b, "t": t,
+                       "h": h, "d": d, "dtype": "bfloat16", "with_lse": with_lse,
+                       **flash_error(out, want, TOL_FLASH["bfloat16"])}
+                if with_lse:
+                    lse_err = float((lse - want_lse).abs().max())
+                    row.update(lse_max_abs_err=lse_err, lse_tol=TOL_LSE)
+                    row["ok"] = row["ok"] and lse_err <= TOL_LSE
+                rows.append(row)
+                name = plan_name(plan)
+                worst[name] = max(worst.get(name, 0.0), row["err_over_tol"])
+        summary.append({"b": b, "t": t, "h": h, "d": d, "err_over_tol_by_plan": worst})
+        del q, k, v, want, want_lse
+    return rows, summary
+
+
 def ring_mesh(n: int, device):
     """A ("data", "context") mesh of ``n`` context ranks, all on ``device``."""
     from rho_diffusion_tpu_torch.parallel import make_mesh
@@ -661,10 +779,14 @@ def phase_kernels(state: dict) -> None:
     # config's (T = 4096: T/n = 1024)
     ring = [row for dt in (torch.bfloat16, torch.float32) for i, tt in enumerate((t, 4096))
             for row in check_ring(8, tt, h, d, SERVE_CONTEXT, device, seed=120 + i, dtype=dt)]
-    record_errors(state, conv + flash + ring + [g for r in flash_bwd for g in r["grads"]])
+    plans, plans_summary = check_flash_plans(device)
+    record_errors(state, conv + flash + ring + plans
+                  + [g for r in flash_bwd for g in r["grads"]])
     emit("kernels", conv=conv, flash=flash, flash_bwd=flash_bwd, ring=ring,
+         flash_plans=plans_summary, flash_plan_holds=len(plans),
+         flash_plan_failures=[r for r in plans if not r["ok"]],
          attention_calls_per_forward=len(attn_calls), conv_calls_per_forward=len(conv_calls))
-    fail_bad("kernels", conv + flash + flash_bwd + ring)
+    fail_bad("kernels", conv + flash + flash_bwd + ring + plans)
 
 
 def direct_conv_calls() -> CallRecorder:
@@ -701,6 +823,7 @@ def phase_main(state: dict, steps: int, samples: int) -> None:
 
     from rho_diffusion_tpu_torch import inference
     from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+    from rho_diffusion_tpu_torch.ops.kernels.flash_attention import flash_routes
 
     cfg = flagship_config(steps)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
@@ -711,6 +834,7 @@ def phase_main(state: dict, steps: int, samples: int) -> None:
         pth = tmp / "model.pth"
         torch.save(random_state_dict(unet, seed=0), pth)
         launch_counts.clear()
+        flash_routes.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with direct_conv_calls() as direct:
@@ -719,21 +843,142 @@ def phase_main(state: dict, steps: int, samples: int) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(launch_counts)
+        routes = dict(flash_routes)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     state["launches"] = counts
+    state["flash_routes"] = {"sampling": routes}
     state.setdefault("direct_launches", {})["sampling"] = direct_launches(direct.calls)
     want_shape = (samples, *cfg["model"]["kwargs"]["data_shape"],
                   cfg["model"]["kwargs"]["in_channels"])
     finite = bool(np.isfinite(out).all())
     emit("main", shape=list(out.shape), finite=finite, wall_s=wall, steps=steps,
-         forwards=steps - 1, launches=counts, sample_mean=float(out.mean()),
+         forwards=steps - 1, launches=counts, flash_routes=routes, sample_mean=float(out.mean()),
          sample_std=float(out.std()))
     if tuple(out.shape) != want_shape or not finite:
         fail(f"main path gave {out.shape}, finite={finite}; expected {want_shape}, finite")
     missing = [k for k in ("conv3d_igemm", "conv3d_direct", "flash_attention") if not counts.get(k)]
     if missing:
         fail(f"main path never launched {missing}; counts {counts}")
+
+
+def config64(steps: int) -> dict:
+    """The 64^3 config at full width with the main64 phase's cuts."""
+    cfg = json.loads(CONFIG64.read_text())
+    cfg["noise_schedule"]["kwargs"]["num_steps"] = steps
+    cfg["inference"].update(cache_file=None, plot_output_file=None, checkpoint=None)
+    return cfg
+
+
+MAIN64_CUTS = {
+    "noise_schedule.kwargs.num_steps": f"1000 -> {MAIN64_STEPS} (the fewest steps whose "
+                                       "1000/T-scaled betas stay below 1; random weights, the "
+                                       "sampler's loop is the same at any length)",
+    "inference.cache_file, plot_output_file, checkpoint": "-> none (weights through -p)",
+}
+
+
+def unet64_inputs(pipe, cfg: dict, batch: int, device, seed: int):
+    """x_t in [-1, 1], timesteps in [0, 1000) and the MultiEmbeddings
+    labels: raw (l, m) rows of the config's parameter space."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(pipe.sample_shape(batch), generator=gen).clamp(-1, 1)
+    t = torch.randint(0, 1000, (batch,), generator=gen)
+    y = pipe.conditions_from_parameter_space(cfg["inference"]["parameter_space"], batch,
+                                             random=False).float()
+    return x.to(device), t.to(device), y.to(device)
+
+
+def phase_main64(state: dict) -> None:
+    """The 64^3 config's sampling path: ``inference.main`` on the config at
+    full width from seeded random weights (a ``.pth`` through -p), batch 8
+    (its ``num_samples``); then one 64^3 forward at batch 1 on the kernels
+    held against the fp32 plain model (the bf16 plain model's distance is
+    the bar's unit, as in ``hold``), and one batch-8 forward timed with its
+    device-busy share. The config's "ddim" sampler and ddim_steps do not
+    apply to its DDPM pipeline, which the CLI samples as it is."""
+    import numpy as np
+    import torch
+
+    from rho_diffusion_tpu_torch import inference
+    from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+    from rho_diffusion_tpu_torch.ops.kernels.flash_attention import flash_routes
+
+    device = torch.device(DEVICE)
+    steps = MAIN64_STEPS
+    cfg = config64(steps)
+    samples = cfg["inference"]["num_samples"]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_64_"))
+    try:
+        cfg_path = tmp / "config.json"
+        cfg_path.write_text(json.dumps(cfg))
+        sd = random_state_dict(build_pipeline(cfg, "float32", "cpu").backbone, seed=0)
+        pth = tmp / "model.pth"
+        torch.save(sd, pth)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launch_counts.clear()
+        flash_routes.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inference.main([str(cfg_path), "-p", str(pth), "-n", str(samples), "-d", DEVICE,
+                              "-f", "--work-dir", str(tmp)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, routes = dict(launch_counts), dict(flash_routes)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    state["main64_launches"] = counts
+    state.setdefault("flash_routes", {})["sampling64"] = routes
+    torch.cuda.empty_cache()
+
+    fast = build_pipeline(cfg, "bfloat16", device)
+    fast.load_state_dict(sd)
+    ref = build_pipeline(cfg, "float32", device)
+    ref.load_state_dict(sd)
+    x, t, y = unet64_inputs(fast, cfg, MAIN64_HOLD_BATCH, device, seed=5)
+    with torch.no_grad():
+        got = fast.apply(x, t, y)
+        with plain_backends():
+            plain_bf16 = fast.apply(x, t, y)
+            plain_fp32 = ref.apply(x, t, y)
+    k, p = rel_mse(got, plain_fp32), rel_mse(plain_bf16, plain_fp32)
+    hold = {"kernels_vs_fp32_plain": k, "bf16_plain_vs_fp32_plain": p,
+            "kernels_vs_bf16_plain": rel_mse(got, plain_bf16),
+            "bar": min(HOLD_FACTOR * p, HOLD_CAP["forward"]), "batch": MAIN64_HOLD_BATCH}
+    del ref, got, plain_bf16, plain_fp32
+    torch.cuda.empty_cache()
+    unet = fast.backbone
+    inputs = unet64_inputs(fast, cfg, samples, device, seed=7)
+    with torch.no_grad():
+        fwd_ms = cuda_time_ms(lambda: unet(*inputs), iters=3, warmup=1)
+    profile = profile_forward(unet, inputs, fwd_ms)
+    del fast, unet, inputs
+    torch.cuda.empty_cache()
+
+    want_shape = (samples, *cfg["model"]["kwargs"]["data_shape"],
+                  cfg["model"]["kwargs"]["in_channels"])
+    finite = bool(np.isfinite(out).all())
+    emit("main64", config=CONFIG64.name, shape=list(out.shape), finite=finite, wall_s=wall,
+         steps=steps, forwards=steps - 1, cuts=MAIN64_CUTS, launches=counts, flash_routes=routes,
+         max_memory_allocated=peak, sample_mean=float(out.mean()), sample_std=float(out.std()),
+         hold_forward=hold, unet_forward_batch=samples, unet_forward_ms=fwd_ms,
+         device_profile=profile)
+    problems = []
+    if tuple(out.shape) != want_shape or not finite:
+        problems.append(f"the sample is {out.shape}, finite={finite}; expected {want_shape}")
+    missing = [k for k in ("conv3d_igemm", "conv3d_direct", "flash_attention") if not counts.get(k)]
+    if missing:
+        problems.append(f"the path never launched {missing}; counts {counts}")
+    if not routes.get("wgmma Tk=4096"):
+        problems.append(f"attention at 4096 tokens never took the wgmma route: {routes}")
+    if not hold["kernels_vs_fp32_plain"] <= hold["bar"]:
+        problems.append(f"the 64^3 forward hold: {hold}")
+    if problems:
+        fail("main64: " + "; ".join(problems))
 
 
 def train_config(batch: int) -> dict:
@@ -1299,20 +1544,26 @@ def flash_fwd_row(b, t, h, d, calls: int, per: str, device, dtype, variant=None)
     plain version, timed beside it, SDPA and its bound."""
     import torch.nn.functional as F
 
+    import torch
+
     from rho_diffusion_tpu_torch.ops.attention import xla_attention
-    from rho_diffusion_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from rho_diffusion_tpu_torch.ops.kernels.flash_attention import flash_attention, flash_plan
 
     q, k, v = flash_inputs(b, t, h, d, device, seed=300 + t, dtype=dtype)
+    plan = flash_plan(b, h, t, t, d, dtype, torch.cuda.get_device_properties(device)
+                      .multi_processor_count)
     qf, kf, vf = q.float(), k.float(), v.float()
     qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
     flops = 4.0 * b * h * t * t * d
     item = q.element_size()
     bnd, by = bound_ms(flops, item * 4.0 * b * t * h * d, PEAK_BF16 if item == 2 else PEAK_FP32)
     row = {"kernel": "flash_attention", "variant": variant, "b": b, "t": t, "h": h, "d": d,
-           "dtype": dtype_name(dtype), "calls": calls, "per": per,
+           "dtype": dtype_name(dtype), "calls": calls, "per": per, "flash_route": plan.route,
+           "plan": plan_name(plan),
            **flash_error(flash_attention(q, k, v), xla_attention(qf, kf, vf),
                          TOL_FLASH[dtype_name(dtype)]),
            **kernel_times(lambda: flash_attention(q, k, v), "flash_attention"),
+           "host_ms": host_ms(lambda: flash_attention(q, k, v)),
            "plain_ms": cuda_time_ms(lambda: xla_attention(qf, kf, vf), iters=3, warmup=1),
            "library": "scaled_dot_product_attention",
            "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
@@ -1449,7 +1700,7 @@ def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None
         row = {"kernel": name, "variant": variant, "b": b, "t": t, "h": h, "d": d,
                "dtype": dtype_name(dtype), "calls": calls, "per": per,
                **max(errs, key=lambda e: (not e["ok"], e["err_over_tol"])),
-               **kernel_times(run, name),
+               **kernel_times(run, name), "host_ms": host_ms(run, calls=20),
                "plain_ms": cuda_time_ms(lambda: plain(qf, kf, vf, of, lse, dof), iters=3,
                                         warmup=1),
                "library": "scaled_dot_product_attention backward (dq, dk, dv together)",
@@ -1611,6 +1862,39 @@ def k5_tiles(device) -> list:
     return rows
 
 
+def flash_plan_study(device) -> list:
+    """The flash forward at K1's shape (T = 512, one of a batch-8 forward's
+    six calls) and K2's (T = 4096, batch 8): every plan of the wgmma route
+    and the earlier mma.sync kernel, on the same strided views of one qkv,
+    each timed twice (the plans in order, then reversed): the device time
+    per call (``graph_ms``: calls captured in a CUDA graph, so the host's
+    work is out of it) and the wrapper call's time (CUDA events), beside
+    the bound and the plan ``flash_plan`` picks."""
+    import torch
+
+    from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
+        MMA_SYNC_PLAN, WGMMA_PLANS, flash_attention_fwd_kernel, flash_plan)
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = []
+    for b, t, h, d in ((8, 512, 4, 128), (8, 4096, 4, 128)):
+        q, k, v = flash_inputs(b, t, h, d, device, seed=900 + t, dtype=torch.bfloat16)
+        plans = {plan_name(p): p for p in (MMA_SYNC_PLAN, *WGMMA_PLANS)}
+        times: dict = {name: {"ms": [], "call_ms": []} for name in plans}
+        for name in [*plans, *reversed(plans)]:
+            run = functools.partial(flash_attention_fwd_kernel, q, k, v, plan=plans[name])
+            times[name]["ms"].append(graph_ms(run))
+            times[name]["call_ms"].append(cuda_time_ms(run, iters=10))
+        flops = 4.0 * b * h * t * t * d
+        bnd, by = bound_ms(flops, 2 * 4.0 * b * t * h * d, PEAK_BF16)
+        rows.append({"b": b, "t": t, "h": h, "d": d, "bound_ms": bnd, "bound_by": by,
+                     "plan_chosen": plan_name(flash_plan(b, h, t, t, d, sms=sms)),
+                     "plans": {name: {**times[name], "tflops": flops / min(times[name]["ms"]) / 1e9}
+                               for name in plans}})
+        del q, k, v
+    return rows
+
+
 def phase_bench(state: dict) -> None:
     """The bottleneck-isolation path: the variant entry's ``main`` with
     every variant (the counted run), then ``bench_rows``, then the
@@ -1635,6 +1919,7 @@ def phase_bench(state: dict) -> None:
     emit("bench_kernels", rows=rows)
     emit("bench_k5_old_new", **k5_old_new(device))
     emit("bench_k5_tiles", rows=k5_tiles(device))
+    emit("bench_flash_plans", rows=flash_plan_study(device))
     t1 = time.perf_counter()
     emit("bench_conv3d_ab", rows=conv3d_ab.main(["-d", DEVICE]))
     t2 = time.perf_counter()
@@ -1657,8 +1942,9 @@ KERNELS = (
      "sampling"),
     ("conv3d_direct", "conv3d.cu", "rho_diffusion_tpu/ops/pallas/conv3d.py:102", "sampling"),
     # one CUDA kernel replaces both TPU forward kernels (K1 one-pass, K2
-    # multi-block, :59): its K/V-tile loop runs 8 times at T=512, 64 at T=4096
-    ("flash_attention", "flash_attention.cu",
+    # multi-block, :59): its K/V-tile loop runs 4 times at T=512, 32 at T=4096
+    # (128-key tiles); the launcher is in flash_attention.cu
+    ("flash_attention", "flash_attention_wgmma.cuh",
      "rho_diffusion_tpu/ops/pallas/flash_attention.py:115", "sampling"),
     ("conv3d_dgrad_igemm", "conv3d_wgmma.cuh", "rho_diffusion_tpu/ops/pallas/conv3d.py:247",
      "training"),
@@ -1705,8 +1991,9 @@ def kernels_line(state: dict) -> list:
     one UNet forward (timing batch) or one training step (TRAIN_BATCH), or
     per call at the level-1 shape (K7-K9, bigdot at td 4); other dtypes, T
     and td as ``variants``."""
-    launches = {"sampling": state["launches"], "training": state["train_launches"],
-                "serving": state["serve_launches"], "bench": state["bench_launches"]}
+    launches = {"sampling": state["launches"], "sampling64": state["main64_launches"],
+                "training": state["train_launches"], "serving": state["serve_launches"],
+                "bench": state["bench_launches"]}
     out = []
     for name, source, replaces, path in KERNELS:
         rows = [r for r in state["timings"] + state["bench"]
@@ -1721,8 +2008,15 @@ def kernels_line(state: dict) -> list:
             "err_over_tol": max(v["err_over_tol"] for v in accuracy.values()),
             "accuracy_by_dtype": accuracy, **summed_times(main), "library": main[0]["library"],
             "per": f"{main[0]['per']}, {sum(r['calls'] for r in main)} calls",
-            "variants": [{"variant": r["variant"], **summed_times([r])}
+            "variants": [{"variant": r["variant"], **summed_times([r]),
+                          **({"flash_route": r["flash_route"], "plan": r["plan"]}
+                             if "flash_route" in r else {})}
                          for r in rows if r["variant"]],
+            **({"flash_route": main[0]["flash_route"], "plan": main[0]["plan"],
+                "also_replaces": "rho_diffusion_tpu/ops/pallas/flash_attention.py:59",
+                "launcher": "rho_diffusion_tpu_torch/csrc/flash_attention.cu",
+                "launches_by_route": state["flash_routes"]}
+               if name == "flash_attention" else {}),
             **({"by_problem": direct_by_problem(main, state["direct_launches"][path])}
                if name.endswith("_direct") else {}),
         })
@@ -1850,6 +2144,8 @@ def main(argv=None) -> int:
         phase_kernels(state)
     if "main" in phases:
         phase_main(state, args.steps, args.samples)
+    if "main64" in phases:
+        phase_main64(state)
     if "train" in phases:
         phase_train(state, TRAIN_BATCH)
     if "hold" in phases:

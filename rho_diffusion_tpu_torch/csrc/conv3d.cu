@@ -24,30 +24,6 @@
 
 namespace {
 
-// cuTensorMapEncodeTiled lives in libcuda: fetched through the runtime's entry
-// point lookup, so the library needs no link against libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The launcher's own error codes.
 constexpr int ERR_PLAN = -1;      // a box plan or shape the kernel does not take
 constexpr int ERR_ENCODE_FN = -2; // cuTensorMapEncodeTiled not found
@@ -336,7 +312,7 @@ int conv3d_igemm_bf16(const void* x, const void* w, const void* bias, void* out,
       B < 1 || D < 1 || H < 1 || W < 1 || (reinterpret_cast<uintptr_t>(x) & 15) ||
       (reinterpret_cast<uintptr_t>(w) & 15))
     return ERR_PLAN;
-  EncodeTiled encode = encode_tiled();
+  wg::EncodeTiled encode = wg::encode_tiled();
   if (encode == nullptr) return ERR_ENCODE_FN;
 
   CUtensorMap x_map, w_map;

@@ -19,18 +19,28 @@
 // the same base. The sampling path passes a null `lse` and writes nothing,
 // as the TPU's primal path skips it (with_lse=False, :374-380).
 //
-// What bounds it on the H100: at the UNet's shapes (T = 512 or 4096 tokens,
-// D = 128) attention does 4*T*D flops per query row against 4*D bytes of
-// Q and O, so it is bound by operations on the tensor cores once the T x T
-// scores stay out of device memory. The design keeps them out: one block of
-// four warps owns 64 query rows (16 per warp); it streams 64-key tiles of K
-// and V through shared memory, computes S = Q K^T and O += P V with
-// mma.sync m16n8k16 bf16 products, and keeps the running max, row sum and the
-// output accumulator in registers (the online softmax). One K/V tile serves
-// all 64 rows; a ragged last tile is zero-filled by the copy and masked.
-// One kernel covers both TPU kernels: a sequence that fits one tile runs
-// the loop once. Double-buffered K/V, wgmma and TMA are later work.
+// Three routes, chosen by the caller (ops/kernels/flash_attention.py
+// `flash_plan`) by head dim and dtype, never by a failure:
 //
+//   flash_attention_fwd_wgmma  bf16, D = 64 or 128 (the UNet's 128): the
+//     Hopper kernel in flash_attention_wgmma.cuh (TMA ring, wgmma for
+//     Q K^T and P V, warp-specialised; its header says what bounds it and
+//     what its design does about that). The plan (query rows a block, keys
+//     a K/V tile) comes from the caller and is checked here; the tensor
+//     maps are encoded per call. One kernel covers both TPU kernels: a sequence
+//     that fits one K/V tile runs its loop once.
+//   flash_attention_fwd_bf16   bf16, D = 16, 32 or 256: the mma.sync kernel
+//     below (at 64 and 128 only when a plan asks for it: the old side of
+//     the old-against-new comparison). What bounds it on the H100: at the UNet's shapes attention does
+//     4*T*D flops per query row against 4*D bytes of Q and O, so it is bound
+//     by operations on the tensor cores once the T x T scores stay out of
+//     device memory. One block of four warps owns 64 query rows (16 per
+//     warp); it streams 64-key tiles of K and V through one shared-memory
+//     buffer (cp.async, each load waited for), computes S = Q K^T and
+//     O += P V with mma.sync m16n8k16 bf16 products, and keeps the running
+//     max, row sum and the output accumulator in registers. A ragged last
+//     tile is zero-filled by the copy and masked.
+//   flash_attention_fwd_f32    fp32, any of the head dims: below.
 //
 // fp32 (`flash_fwd_f32_kernel`, the UNet run in fp32): the same online
 // softmax in fp32 FMAs on the CUDA cores, since the tensor cores' fp32 input
@@ -47,6 +57,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_attention_wgmma.cuh"
 
 namespace {
 
@@ -255,8 +267,8 @@ template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Tq,
            int Tk, const long long* st, float scale_log2, void* stream) {
   const int smem = (BQ + 2 * BKV) * (HD + 8) * 2;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static unsigned long long ready = 0;
+  cudaError_t err = wg::smem_attribute_once(flash_fwd_bf16_kernel<HD>, smem, &ready);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)((Tq + BQ - 1) / BQ), (unsigned)(B * H));
   flash_fwd_bf16_kernel<HD><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
@@ -392,14 +404,80 @@ template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
                int Tq, int Tk, const long long* st, float scale_log2, void* stream) {
   const int smem = ((F32_BQ + 2 * F32_BKV) * (HD + 4) + F32_BQ * F32_PLD) * 4;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static unsigned long long ready = 0;
+  cudaError_t err = wg::smem_attribute_once(flash_fwd_f32_kernel<HD>, smem, &ready);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)((Tq + F32_BQ - 1) / F32_BQ), (unsigned)(B * H));
   flash_fwd_f32_kernel<HD><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, (float*)lse, H, Tq, Tk,
       st[0], st[1],
       st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale_log2);
+  return (int)cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// The wgmma route (flash_attention_wgmma.cuh)
+
+// The launcher's own error codes.
+constexpr int ERR_PLAN = -1;       // a plan or shape the wgmma kernel does not take
+constexpr int ERR_ENCODE_FN = -2;  // cuTensorMapEncodeTiled not found
+constexpr int ERR_MAP = -3;        // cuTensorMapEncodeTiled refused a tensor map
+
+// The 4-D tensor map (D, H, T, B) of a [B, T, H, D] bf16 operand with element
+// strides (sb, st, sh), read in boxes of 64 channels x `rows` tokens with the
+// 128-byte swizzle; what lies outside reads as zeros.
+bool encode_operand(wg::EncodeTiled encode, CUtensorMap* map, const void* base, int B, int T,
+                    int H, int D, const long long* st, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct WgmmaLaunch {
+  CUtensorMap q, k, v;
+  void* o;
+  void* lse;
+  fa::FwdProblem p;
+  int B;
+  cudaStream_t stream;
+};
+
+// The plans flash_plan returns: 64 x 64, 128 x 128, and 128 x 64 (keys <= 64).
+template <int HD, int CONSUMERS, int BN>
+int launch_wgmma(const WgmmaLaunch& a) {
+  constexpr int BM = 64 * CONSUMERS;
+  constexpr int smem = fa::smem_bytes(HD, BM, BN);
+  static_assert(smem <= wg::SMEM_LIMIT, "the ring does not fit in shared memory");
+  auto kernel = fa::flash_fwd_wgmma_kernel<HD, CONSUMERS, BN>;
+  static unsigned long long ready = 0;
+  cudaError_t err = wg::smem_attribute_once(kernel, smem, &ready);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)((a.p.Tq + BM - 1) / BM), (unsigned)(a.B * a.p.H));
+  kernel<<<grid, 128 * (CONSUMERS + 1), smem, a.stream>>>(
+      a.q, a.k, a.v, (__nv_bfloat16*)a.o, (float*)a.lse, a.p);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int by_plan(int bm, int bn, const WgmmaLaunch& a) {
+  if (bm == 64) return launch_wgmma<HD, 1, 64>(a);
+  return bn == 128 ? launch_wgmma<HD, 2, 128>(a) : launch_wgmma<HD, 2, 64>(a);
+}
+
+template <int HD, int BN>
+int launch_pv_probe(const CUtensorMap& v_map, const void* p, void* out, cudaStream_t stream) {
+  constexpr int smem = fa::kv_bytes(HD, BN) + 8 + 1024;
+  static unsigned long long ready = 0;
+  auto kernel = fa::wgmma_pv_probe_kernel<HD, BN>;
+  cudaError_t err = wg::smem_attribute_once(kernel, smem, &ready);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<1, 128, smem, stream>>>(v_map, (const __nv_bfloat16*)p, (float*)out);
   return (int)cudaGetLastError();
 }
 
@@ -422,6 +500,56 @@ int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* 
   }
 }
 
+// The wgmma route: q, k, v, o bf16 [B, T, H, D] with D = 64 or 128, D
+// contiguous, B/T/H element strides that are multiples of 8 (16 bytes) and
+// 16-byte aligned data; lse as above. The plan: bm query rows a block (64
+// or 128: one or two consumer warpgroups) and bn keys a K/V tile (bn = bm,
+// or 64 at bm = 128). Returns ERR_PLAN for a plan or shape it does not take.
+int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* lse,
+                              int B, int H, int Tq, int Tk, int D, const long long* strides,
+                              float scale_log2, int bm, int bn, void* stream) {
+  bool ok = (D == 64 || D == 128) && ((bm == 64 && bn == 64) || (bm == 128 && (bn == 64 ||
+            bn == 128))) && B >= 1 && H >= 1 && Tq >= 1 && Tk >= 1 && (long long)B * H <= 65535;
+  ok = ok && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+               reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+  for (int i = 0; i < 9; ++i) ok = ok && strides[i] % 8 == 0;
+  if (!ok) return ERR_PLAN;
+  wg::EncodeTiled encode = wg::encode_tiled();
+  if (encode == nullptr) return ERR_ENCODE_FN;
+  WgmmaLaunch a;
+  if (!encode_operand(encode, &a.q, q, B, Tq, H, D, strides, bm) ||
+      !encode_operand(encode, &a.k, k, B, Tk, H, D, strides + 3, bn) ||
+      !encode_operand(encode, &a.v, v, B, Tk, H, D, strides + 6, bn))
+    return ERR_MAP;
+  a.o = o;
+  a.lse = lse;
+  a.p.H = H, a.p.Tq = Tq, a.p.Tk = Tk, a.p.kv_tiles = (Tk + bn - 1) / bn;
+  a.p.o_sb = strides[9], a.p.o_st = strides[10], a.p.o_sh = strides[11];
+  a.p.scale_log2 = scale_log2;
+  a.B = B;
+  a.stream = (cudaStream_t)stream;
+  return D == 128 ? by_plan<128>(bm, bn, a) : by_plan<64>(bm, bn, a);
+}
+
+// The register-A, transposed-B product of the wgmma route alone:
+// out [64, hd] fp32 = p [64, bn] bf16 times v [bn, hd] bf16, all contiguous
+// (bn 64 or 128, hd 64 or 128). A test of the operand layouts.
+int flash_wgmma_pv_probe(const void* p, const void* v, void* out, int bn, int hd, void* stream) {
+  if ((bn != 64 && bn != 128) || (hd != 64 && hd != 128) ||
+      (reinterpret_cast<uintptr_t>(v) & 15) || (reinterpret_cast<uintptr_t>(p) & 3))
+    return ERR_PLAN;
+  wg::EncodeTiled encode = wg::encode_tiled();
+  if (encode == nullptr) return ERR_ENCODE_FN;
+  CUtensorMap v_map;
+  const long long st[3] = {(long long)bn * hd, hd, hd};  // one batch, bn tokens, one head
+  if (!encode_operand(encode, &v_map, v, 1, bn, 1, hd, st, bn)) return ERR_MAP;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (hd == 128) return bn == 128 ? launch_pv_probe<128, 128>(v_map, p, out, s)
+                                  : launch_pv_probe<128, 64>(v_map, p, out, s);
+  return bn == 128 ? launch_pv_probe<64, 128>(v_map, p, out, s)
+                   : launch_pv_probe<64, 64>(v_map, p, out, s);
+}
+
 int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse,
                             int B, int H, int Tq, int Tk, int D, const long long* strides,
                             float scale_log2, void* stream) {
@@ -436,7 +564,12 @@ int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o
 }
 
 const char* flash_attention_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
+  switch (code) {
+    case ERR_PLAN: return "the wgmma launcher refused the plan or shape";
+    case ERR_ENCODE_FN: return "cuTensorMapEncodeTiled could not be found in libcuda";
+    case ERR_MAP: return "cuTensorMapEncodeTiled refused a tensor map of q, k or v";
+    default: return cudaGetErrorString((cudaError_t)code);
+  }
 }
 
 }  // extern "C"

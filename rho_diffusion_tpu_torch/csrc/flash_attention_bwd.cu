@@ -55,6 +55,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;
@@ -570,9 +572,12 @@ BwdArgs<T> make_args(const void* q, const void* k, const void* v, const void* do
   return a;
 }
 
+// `ready`: the calling instance's own set of devices where the kernel's
+// shared-memory limit is already set (tma.cuh, smem_attribute_once).
 template <typename Kernel, typename Args>
-int run(Kernel kernel, const Args& a, int smem, dim3 grid, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+int run(Kernel kernel, const Args& a, int smem, dim3 grid, void* stream,
+        unsigned long long* ready) {
+  cudaError_t err = wg::smem_attribute_once(kernel, smem, ready);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
@@ -582,27 +587,31 @@ template <int HD>
 int dkv_bf16(const BwdArgs<__nv_bfloat16>& a, int BH, void* stream) {
   constexpr int BQB = HD >= 128 ? 32 : 64;
   const int smem = (2 * BKV + 2 * BQB) * (HD + 8) * 2 + 2 * BQB * 4;
-  return run(flash_bwd_dkv_bf16_kernel<HD>, a, smem, dim3((a.Tk + BKV - 1) / BKV, BH), stream);
+  static unsigned long long ready = 0;
+  return run(flash_bwd_dkv_bf16_kernel<HD>, a, smem, dim3((a.Tk + BKV - 1) / BKV, BH), stream, &ready);
 }
 
 template <int HD>
 int dq_bf16(const BwdArgs<__nv_bfloat16>& a, int BH, void* stream) {
   const int smem = (2 * BQ + 2 * BKV) * (HD + 8) * 2;
-  return run(flash_bwd_dq_bf16_kernel<HD>, a, smem, dim3((a.Tq + BQ - 1) / BQ, BH), stream);
+  static unsigned long long ready = 0;
+  return run(flash_bwd_dq_bf16_kernel<HD>, a, smem, dim3((a.Tq + BQ - 1) / BQ, BH), stream, &ready);
 }
 
 template <int HD>
 int dkv_f32(const BwdArgs<float>& a, int BH, void* stream) {
   const int smem = (2 * F32_TILE * (HD + 4) + 2 * F32_TILE) * 4;
+  static unsigned long long ready = 0;
   return run(flash_bwd_dkv_f32_kernel<HD>, a, smem,
-             dim3((a.Tk + F32_ROWS - 1) / F32_ROWS, BH), stream);
+             dim3((a.Tk + F32_ROWS - 1) / F32_ROWS, BH), stream, &ready);
 }
 
 template <int HD>
 int dq_f32(const BwdArgs<float>& a, int BH, void* stream) {
   const int smem = 2 * F32_TILE * (HD + 4) * 4;
+  static unsigned long long ready = 0;
   return run(flash_bwd_dq_f32_kernel<HD>, a, smem,
-             dim3((a.Tq + F32_ROWS - 1) / F32_ROWS, BH), stream);
+             dim3((a.Tq + F32_ROWS - 1) / F32_ROWS, BH), stream, &ready);
 }
 
 #define DISPATCH_D(FN, ARGS)                                   \

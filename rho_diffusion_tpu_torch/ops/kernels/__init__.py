@@ -15,11 +15,27 @@ backward) raises instead of silently cutting the graph.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from collections import Counter
 
 import torch
 
 launch_counts: Counter = Counter()
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Multiprocessors of CUDA device ``index`` (132 on the H100 SXM)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def on_device(device: torch.device):
+    """``torch.cuda.device(device)``, or nothing when it is already current:
+    entering it costs two device switches a launch."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check_no_autograd(name: str, *tensors) -> None:

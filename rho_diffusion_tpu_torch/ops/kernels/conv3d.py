@@ -46,7 +46,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from rho_diffusion_tpu_torch.ops.kernels import _build, check_no_autograd, launch_counts
+from rho_diffusion_tpu_torch.ops.kernels import (
+    _build, check_no_autograd, launch_counts, sm_count)
 
 _INT32_MAX = 2**31 - 1
 _TAPS = [(dz, dy, dx) for dz in range(3) for dy in range(3) for dx in range(3)]
@@ -121,11 +122,6 @@ def igemm_plan(x_shape, cout: int, bn_max: int = 256, stages: int = 4,
         if best is None or cost < best[0]:
             best = (cost, bn)
     return IgemmPlan(bw, bh, bd, best[1], stages)
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # ctypes signatures of the launchers in csrc/conv3d.cu, set once on load
@@ -250,7 +246,7 @@ def conv3d_kernel(
             raise ValueError("conv3d kernel needs a 16-byte aligned x")
         # [Cout, Cin, dz, dy, dx] -> [Cout, 27, Cin], tap = (dz*3+dy)*3+dx
         wk = weight.permute(0, 2, 3, 4, 1).reshape(cout, 27, cin).contiguous()
-        extra = tuple(plan or igemm_plan(x.shape, cout, sms=_sm_count(x.device.index)))
+        extra = tuple(plan or igemm_plan(x.shape, cout, sms=sm_count(x.device.index)))
         fn, name = "conv3d_igemm_bf16", f"{kind}_igemm"
     else:
         # [Cout, Cin, dz, dy, dx] -> [27*Cin, Cout]

@@ -12,7 +12,10 @@ Cout off its N tiles, Cin off its 64-channel chunks (zero-filled by the
 hardware), every tile and ring depth it has, and the flagship's own boxes
 (W = 64, a box over 8 depth planes, Cin = 1024, four N tiles); Cin=1
 and Cout=1, fp32, strided q/k/v, padded head dims and Tq != Tk, for both
-dtypes of the flash kernel; the direct conv's three flagship convs at full
+dtypes of the flash kernel; the flash forward's wgmma route at every plan
+(T = 512, 4096 and a ragged 300, D = 64 and 128, with and without the LSE),
+its P V product alone, against the mma.sync kernel, and the route each head
+dim and dtype takes; the direct conv's three flagship convs at full
 width and shapes off its 8 x 32 voxel tile; and the ring-attention kernel
 (K6, one launch per card) in its ring of 2 and 4 ranks on one card at T/n =
 128 and 1024, ragged shards and a padded head dim, and with one rank per
@@ -34,7 +37,9 @@ from rho_diffusion_tpu_torch.ops.kernels.conv3d import (
 from rho_diffusion_tpu_torch.ops.kernels.conv3d_variants import (
     bigdot, bigdot_plain, conv_variant, conv_variant_plain, dots_only, dots_only_plain)
 from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
-    flash_attention, flash_attention_bwd_plain, flash_attention_plain, flash_lse_plain)
+    MMA_SYNC_PLAN, WGMMA_PLANS, FlashPlan, flash_attention,
+    flash_attention_bwd_plain, flash_attention_fwd_kernel, flash_attention_plain,
+    flash_lse_plain, flash_plan, flash_routes, wgmma_pv_probe)
 from rho_diffusion_tpu_torch.parallel import context_sharded_attention, make_mesh
 
 pytestmark = pytest.mark.cuda
@@ -157,6 +162,109 @@ def test_flash_kernel_matches_plain(cuda, b, tq, tk, h, d, dtype):
     tol = TOL_FLASH[dtype]
     assert float(err.abs().max()) <= tol * float(want.abs().max())
     assert float(err.pow(2).mean().sqrt() / want.pow(2).mean().sqrt()) <= tol
+
+
+def assert_flash_close(got, want, dtype):
+    err = got.float() - want
+    tol = TOL_FLASH[dtype]
+    assert float(err.abs().max()) <= tol * float(want.abs().max())
+    assert float(err.pow(2).mean().sqrt() / want.pow(2).mean().sqrt()) <= tol
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("bn", [64, 128])
+def test_wgmma_pv_product_matches_matmul(cuda, bn, hd):
+    """The forward's O += P V alone on one 64 x bn x hd tile: A = P from
+    registers, B = V by TMA in the transposed (MN-major) form. bf16 products
+    are exact in fp32, so only the summation order differs."""
+    p = randn((64, bn), 30, cuda, torch.float32).abs().to(torch.bfloat16)
+    v = randn((bn, hd), 31, cuda, torch.bfloat16)
+    got = wgmma_pv_probe(p, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, p.float() @ v.float(), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,t,h,d", [
+    (4, 512, 4, 128),    # the flagship's attention at sampling batch 4
+    (1, 4096, 2, 128),   # the 64^3 config's 4096 tokens: 32 or 64 K/V tiles
+    (2, 300, 3, 64),     # ragged Tq and Tk, D = 64
+])
+@pytest.mark.parametrize("plan", WGMMA_PLANS, ids=lambda p: f"bm{p.bm}-bn{p.bn}")
+def test_flash_wgmma_every_plan_matches_plain(cuda, plan, b, t, h, d):
+    """Every plan the wgmma route has, on strided views of one qkv, with
+    and without the LSE the backward reads."""
+    qkv = randn((b, t, h, 3 * d), 32, cuda, torch.bfloat16)
+    q, k, v = qkv.split(d, dim=-1)
+    want = xla_attention(q.float(), k.float(), v.float())
+    flash_routes.clear()
+    for with_lse in (False, True):
+        out, lse = flash_attention_fwd_kernel(q, k, v, with_lse=with_lse, plan=plan)
+        torch.cuda.synchronize()
+        assert_flash_close(out, want, torch.bfloat16)
+    assert flash_routes == {f"wgmma Tk={t}": 2}
+    # fp32 scores of bf16 inputs on both sides; the sums differ in order and
+    # exp2f's last bits: ~1e-6 relative of an LSE near log2(T) + max
+    torch.testing.assert_close(lse, flash_lse_plain(q, k), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,t", [(4, 512), (8, 512), (32, 512), (8, 4096), (2, 300)])
+def test_flash_wgmma_matches_the_mma_sync_kernel(cuda, b, t):
+    """The new kernel against the old on the same inputs, at the plan the
+    UNet gets: both within the flash bound of the plain version, and of each
+    other."""
+    qkv = randn((b, t, 4, 384), 33, cuda, torch.bfloat16)
+    q, k, v = qkv.split(128, dim=-1)
+    plan = flash_plan(b, 4, t, t, 128)
+    assert plan.route == "wgmma"
+    new, new_lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+    old, old_lse = flash_attention_fwd_kernel(q, k, v, with_lse=True, plan=MMA_SYNC_PLAN)
+    torch.cuda.synchronize()
+    want = xla_attention(q.float(), k.float(), v.float())
+    assert_flash_close(new, want, torch.bfloat16)
+    assert_flash_close(old, want, torch.bfloat16)
+    assert_flash_close(new, old.float(), torch.bfloat16)
+    torch.testing.assert_close(new_lse, old_lse, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("d,dtype,route", [
+    (128, torch.bfloat16, "wgmma"), (64, torch.bfloat16, "wgmma"), (100, torch.bfloat16, "wgmma"),
+    (32, torch.bfloat16, "mma_sync"), (16, torch.bfloat16, "mma_sync"),
+    (256, torch.bfloat16, "mma_sync"), (128, torch.float32, "fp32"), (64, torch.float32, "fp32"),
+])
+def test_flash_route_follows_the_plan(cuda, d, dtype, route):
+    q = randn((1, 200, 2, d), 34, cuda, dtype)
+    kv = randn((1, 150, 2, 2 * d), 35, cuda, dtype)
+    k, v = kv.split(d, dim=-1)
+    assert flash_plan(1, 2, 200, 150, d, dtype).route == route
+    flash_routes.clear()
+    launch_counts.clear()
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_routes == {f"{route} Tk=150": 1} and launch_counts == {"flash_attention": 1}
+    assert_flash_close(got, xla_attention(q.float(), k.float(), v.float()), dtype)
+
+
+def test_flash_kernel_reads_head_major_views(cuda):
+    """q, k, v as [B, T, H, D] views of [B, H, T, D] tensors (the head
+    stride above the token stride)."""
+    q, k, v = (randn((2, 4, 256, 128), 36 + i, cuda, torch.bfloat16).transpose(1, 2)
+               for i in range(3))
+    assert_flash_close(flash_attention(q, k, v), xla_attention(q.float(), k.float(), v.float()),
+                       torch.bfloat16)
+
+
+def test_flash_wgmma_refuses_a_plan_it_does_not_take(cuda):
+    qkv = randn((1, 128, 2, 384), 37, cuda, torch.bfloat16)
+    q, k, v = qkv.split(128, dim=-1)
+    for plan in (FlashPlan("wgmma", 96, 128), FlashPlan("wgmma", 128, 256),
+                 FlashPlan("wgmma", 64, 128), FlashPlan("wgmma", 256, 128)):
+        with pytest.raises(RuntimeError, match="plan"):
+            flash_attention_fwd_kernel(q, k, v, plan=plan)
+    q32 = randn((1, 128, 2, 32), 38, cuda, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="plan"):
+        flash_attention_fwd_kernel(q32, q32, q32, plan=FlashPlan("wgmma", 64, 64))
+    with pytest.raises(ValueError, match="route"):
+        flash_attention_fwd_kernel(q.float(), k.float(), v.float(), plan=MMA_SYNC_PLAN)
 
 
 def test_flash_kernel_rejects_float16(cuda):
@@ -326,12 +434,6 @@ def ring_inputs(b, t, h, d, dtype, device, seed):
     """q, k, v as the UNet makes them: strided views of one fused qkv."""
     return randn((b, t, h, 3 * d), seed, device, dtype).split(d, dim=-1)
 
-
-def assert_flash_close(got, want, dtype):
-    err = got.float() - want
-    tol = TOL_FLASH[dtype]
-    assert float(err.abs().max()) <= tol * float(want.abs().max())
-    assert float(err.pow(2).mean().sqrt() / want.pow(2).mean().sqrt()) <= tol
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -184,8 +184,9 @@ def test_xla_attention_matches_jax(shape):
         ((2, 256, 2, 64), {}),                              # K1: one K/V block
         ((1, 300, 4, 32), {}),                              # K1, ragged T
         ((1, 384, 2, 32), {"block_q": 128, "block_k": 128}),  # K2: online softmax
+        ((1, 2304, 1, 16), {}),  # K2 by JAX's default blocks: K/V over 2048 tokens
     ],
-    ids=["k1", "k1-ragged", "k2"],
+    ids=["k1", "k1-ragged", "k2", "k2-default-blocks"],
 )
 def test_flash_plain_matches_pallas_kernel(shape, blocks):
     """The flash kernel's plain version (and the CPU side of the dispatcher)
