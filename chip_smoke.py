@@ -5,10 +5,11 @@
                           [--steps 25] [--samples 4] [--timing-batch 8]
 
 Builds the port's CUDA kernels from ``rho_diffusion_tpu_torch/csrc`` (and
-prints K5's registers and spills from ptxas), holds each (forward and
-backward, bf16 and fp32) against its plain PyTorch version at the shapes
-the flagship UNet (and the 64^3 config's level 0) gives it, and drives the
-port's paths on the flagship config
+prints the registers and spills of K5's, the flash forward's and the fused
+flash backward's instances from ptxas), holds each (forward and backward,
+bf16 and fp32) against its plain PyTorch version at the shapes the
+flagship UNet (and the 64^3 config's level 0 and attention) gives it, and
+drives the port's paths on the flagship config
 (``examples/config_spherical_harmonics.json`` at full width, random seeded
 weights loaded from a reference-layout ``.pth``):
 
@@ -38,7 +39,9 @@ weights loaded from a reference-layout ``.pth``):
   mma.sync block K5 ran until its TMA/wgmma redesign) against K5 at that
   shape, and K5's plan against other N tiles and ring depths per level;
   every plan of the flash forward's wgmma route and its old mma.sync
-  kernel timed at K1's and K2's shapes (``bench_flash_plans``); then the
+  kernel timed at K1's and K2's shapes (``bench_flash_plans``), and the
+  fused flash backward against the mma.sync pair at the training step's
+  and T = 4096 (``bench_flash_bwd_plans``); then the
   entry's two companions, K5 against cuDNN per shape
   (``conv3d_ab``) and per UNet level beside the equal-FLOP matmul
   (``conv_profile``).
@@ -54,7 +57,10 @@ version, a PyTorch library call and its bound; then one UNet forward (with
 a torch.profiler breakdown by kernel) and the whole reverse process. The
 ``kernels`` phase also holds the flash forward at every plan of its wgmma
 route (and its mma.sync kernel), with and without the LSE, at T = 512
-(batch 4, 8, 32), 4096 (batch 8) and 300, D = 128 and 64. Every
+(batch 4, 8, 32), 4096 (batch 8) and 300, D = 128 and 64, and the
+backward (the fused kernel for bf16 at D = 64 and 128, the dkv/dq pair
+elsewhere) at the training step's attention, T = 4096, T = 300 and D = 64,
+twice (bitwise) and against the mma.sync pair. Every
 phase prints one JSON line; a failing phase exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``, after the
 ``kernels`` line and the card's ``nvidia-smi`` name and power limit. A run
@@ -154,6 +160,11 @@ TOL_FLASH = {"bfloat16": 2.0 ** -7, "float32": 2e-5}
 # the JAX package's own flash-gradient tolerance 5e-5
 # (tests/ops/test_flash_attention.py), here relative.
 TOL_FLASH_BWD = {"bfloat16": 2.0 ** -6, "float32": 5e-5}
+# the fused backward's delta pre-pass against flash_delta, the same two
+# relative bounds: both sum the same exact fp32 products of bf16 inputs, in
+# another order (~D 2^-24 of the terms, below 1e-5 of max |delta| here); a
+# dropped channel or a wrong row would be off by O(1)
+TOL_DELTA = 1e-4
 # The kernels inside the model, against the fp32 plain model: one
 # full-width forward (batch 4) and a whole 25-step reverse process (batch 2,
 # one x_T, one noise seed). bf16 alone moves the result away from fp32: the
@@ -424,6 +435,15 @@ def phase_build(state: dict) -> None:
     serialized = [ln.split("'")[1] for ln in log.splitlines() if "C7512" in ln and "'" in ln]
     emit("flash_ptxas", kernels=fa or "not built in this run (a cached library has no ptxas log)",
          wgmma_serialized=serialized)
+    # the fused flash backward's instances (head dim, its keys a block)
+    log = _build.build_log.get("flash_attention_bwd", "")
+    fb = [{"hd": int(m[1]), "bn": int(m[1]), **entry}
+          for name, entry in ptxas_entries(log).items()
+          for m in [re.search(r"flash_bwd_wgmma_kernelILi(\d+)E", name)] if m]
+    serialized = [ln.split("'")[1] for ln in log.splitlines() if "C7512" in ln and "'" in ln]
+    emit("flash_bwd_ptxas",
+         kernels=fb or "not built in this run (a cached library has no ptxas log)",
+         wgmma_serialized=serialized)
 
 
 def ptxas_entries(log: str) -> dict:
@@ -474,8 +494,10 @@ def flash_error(got, want, tol: float) -> dict:
 # the CUDA kernel (a substring of its name in the profiler) behind each count
 CUDA_KERNEL = {"conv3d_igemm": "conv3d_igemm", "conv3d_direct": "conv3d_direct",
                "conv3d_dgrad_igemm": "conv3d_igemm", "conv3d_dgrad_direct": "conv3d_direct",
-               "flash_attention": "flash_fwd", "flash_attention_bwd_dkv": "flash_bwd_dkv",
-               "flash_attention_bwd_dq": "flash_bwd_dq", "ring_attention": "ring_attention_",
+               "flash_attention": "flash_fwd", "flash_attention_bwd": "flash_bwd_wgmma",
+               "flash_attention_bwd_delta": "flash_bwd_delta",
+               "flash_attention_bwd_dkv": "flash_bwd_dkv", "flash_attention_bwd_dq": "flash_bwd_dq",
+               "ring_attention": "ring_attention_",
                **{k: k for k in ("conv3d_variant_full", "conv3d_variant_nopatch",
                                  "conv3d_variant_nodma", "conv3d_bigdot_im2col",
                                  "conv3d_bigdot_gemm", "conv3d_dotsonly")}}
@@ -631,14 +653,31 @@ def check_flash(b, t, h, d, device, seed: int, dtype) -> dict:
             "dtype": dtype_name(dtype), **flash_error(got, want, TOL_FLASH[dtype_name(dtype)])}
 
 
+def bwd_kernel_names(d: int, dtype) -> dict:
+    """The count (and kernel) behind each gradient on the backward's route:
+    the fused kernel for bf16 at padded head dims 64 and 128, the dkv/dq
+    pair elsewhere."""
+    from rho_diffusion_tpu_torch.ops.kernels.flash_attention import flash_bwd_plan
+
+    if flash_bwd_plan(1, 1, 1, 1, d, dtype).route == "wgmma":
+        return dict.fromkeys(("dq", "dk", "dv"), "flash_attention_bwd")
+    return {"dq": "flash_attention_bwd_dq", "dk": "flash_attention_bwd_dkv",
+            "dv": "flash_attention_bwd_dkv"}
+
+
 def check_flash_bwd(b, t, h, d, device, seed: int, dtype) -> dict:
     """dq, dk, dv of the kernels (through the autograd Function, forward
     with LSE) against the fp32 plain backward on the same inputs; the kernels
-    run twice and must agree bitwise."""
+    run twice and must agree bitwise. On the fused route the mma.sync pair
+    runs on the same inputs too (``flash_attention_bwd_kernel(...,
+    plan=MMA_SYNC_BWD_PLAN)``), held against the plain backward and the fused
+    kernel against it."""
     import torch
 
     from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd_plain, flash_attention_plain, flash_lse_plain)
+        MMA_SYNC_BWD_PLAN, flash_attention, flash_attention_bwd_kernel, flash_attention_bwd_plain,
+        flash_attention_fwd_kernel, flash_attention_plain, flash_delta, flash_delta_kernel,
+        flash_lse_plain)
 
     qkv = randn((b, t, h, 3 * d), seed, device, dtype).requires_grad_()
     do = randn((b, t, h, d), seed + 1, device, dtype)
@@ -652,13 +691,33 @@ def check_flash_bwd(b, t, h, d, device, seed: int, dtype) -> dict:
     want = flash_attention_bwd_plain(qf, kf, vf, flash_attention_plain(qf, kf, vf),
                                      flash_lse_plain(qf, kf), do.float())
     name = dtype_name(dtype)
+    tol = TOL_FLASH_BWD[name]
+    kernels = bwd_kernel_names(d, dtype)
     grads_ = [{"grad": which, "dtype": name, "b": b, "t": t, "h": h, "d": d,
-               "kernel": "flash_attention_bwd_dq" if which == "dq" else "flash_attention_bwd_dkv",
-               **flash_error(g, w, TOL_FLASH_BWD[name])}
+               "kernel": kernels[which], **flash_error(g, w, tol)}
               for which, g, w in zip(("dq", "dk", "dv"), got, want)]
     repeatable = all(torch.equal(x, y) for x, y in zip(got, again))
-    return {"b": b, "t": t, "h": h, "d": d, "dtype": name, "bitwise_repeatable": repeatable,
-            "grads": grads_, "ok": repeatable and all(g["ok"] for g in grads_)}
+    row = {"b": b, "t": t, "h": h, "d": d, "dtype": name, "bitwise_repeatable": repeatable,
+           "route": "fused" if kernels["dq"] == "flash_attention_bwd" else "pair"}
+    if row["route"] == "fused":
+        with torch.no_grad():
+            q, k, v = (z.detach() for z in qkv.split(d, dim=-1))
+            o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+            new = flash_attention_bwd_kernel(q, k, v, o, lse, do)
+            old = flash_attention_bwd_kernel(q, k, v, o, lse, do, plan=MMA_SYNC_BWD_PLAN)
+            grads_.append({"grad": "delta", "dtype": name, "b": b, "t": t, "h": h, "d": d,
+                           "kernel": "flash_attention_bwd_delta",
+                           **flash_error(flash_delta_kernel(o, do), flash_delta(o, do),
+                                         TOL_DELTA)})
+        pair = bwd_kernel_names(16, dtype)
+        grads_ += [{"grad": which, "dtype": name, "b": b, "t": t, "h": h, "d": d,
+                    "kernel": pair[which], "plan": "mma_sync (the pair, on request)",
+                    **flash_error(g, w, tol)} for which, g, w in zip(("dq", "dk", "dv"), old, want)]
+        row["fused_against_pair"] = [{"grad": which, **flash_error(g, w.float(), tol)}
+                                     for which, g, w in zip(("dq", "dk", "dv"), new, old)]
+    row["grads"] = grads_
+    row["ok"] = repeatable and all(g["ok"] for g in grads_ + row.get("fused_against_pair", []))
+    return row
 
 
 def plan_name(plan) -> str:
@@ -747,7 +806,10 @@ def check_ring(b, t, h, d, n, device, seed: int, dtype) -> list:
 def phase_kernels(state: dict) -> None:
     import torch
 
+    from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+
     device = torch.device(DEVICE)
+    launch_counts.clear()
     unet = build_unet(flagship_config(25), "bfloat16", device)
     conv_calls, attn_calls = forward_shapes(unet, 2, device)
     keys = sorted(set(conv_keys(conv_calls, "forward")), key=str)
@@ -769,9 +831,12 @@ def phase_kernels(state: dict) -> None:
             check_flash(2, 300, h, d, device, seed=102, dtype=dt),
             check_flash(2, 300, 2, 64, device, seed=103, dtype=dt),
         ]
-        # the training step's attention (B*H = 32*4 = 128) and a ragged T
+        # the training step's attention (B*H = 32*4 = 128), the 64^3
+        # config's T = 4096 (bf16: the fused kernel), a ragged T and D = 64
         flash_bwd += [
             check_flash_bwd(32, t, h, d, device, seed=110, dtype=dt),
+            *([check_flash_bwd(2, 4096, h, d, device, seed=116, dtype=dt)]
+              if dt == torch.bfloat16 else []),
             check_flash_bwd(2, 300, h, d, device, seed=112, dtype=dt),
             check_flash_bwd(2, 300, 2, 64, device, seed=114, dtype=dt),
         ]
@@ -782,11 +847,18 @@ def phase_kernels(state: dict) -> None:
     plans, plans_summary = check_flash_plans(device)
     record_errors(state, conv + flash + ring + plans
                   + [g for r in flash_bwd for g in r["grads"]])
+    counts = dict(launch_counts)
+    state["kernels_launches"] = counts
     emit("kernels", conv=conv, flash=flash, flash_bwd=flash_bwd, ring=ring,
          flash_plans=plans_summary, flash_plan_holds=len(plans),
          flash_plan_failures=[r for r in plans if not r["ok"]],
-         attention_calls_per_forward=len(attn_calls), conv_calls_per_forward=len(conv_calls))
+         attention_calls_per_forward=len(attn_calls), conv_calls_per_forward=len(conv_calls),
+         launches=counts)
     fail_bad("kernels", conv + flash + flash_bwd + ring + plans)
+    # the mma.sync/fp32 pair runs on no main path now: its path is these holds
+    missing = [name for name, _, _, path in KERNELS if path == "kernels" and not counts.get(name)]
+    if missing:
+        fail(f"kernels: the holds never launched {missing}; counts {counts}")
 
 
 def direct_conv_calls() -> CallRecorder:
@@ -1080,6 +1152,8 @@ def phase_train(state: dict, batch: int) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
     profiled = {"host_s": one_step_s, **NOT_PROFILED}
+    flash_bwd_profiled = {name[:90]: {"ms": ms, "launches": n}
+                          for name, (ms, n) in by_name.items() if "flash_bwd" in name}
     if by_name:
         groups: dict = {}
         for name, (ms, n) in by_name.items():
@@ -1101,7 +1175,8 @@ def phase_train(state: dict, batch: int) -> None:
          samples_per_s=batch / median if median else None, wall_s=wall,
          max_memory_allocated=peak, launches=counts, params_changed=changed,
          params=len(sd0), checkpoint_step=latest, inference_messages=messages,
-         ema_read_back_bitwise=ema_equal, ema_params=ema_params, profiled_step=profiled)
+         ema_read_back_bitwise=ema_equal, ema_params=ema_params, profiled_step=profiled,
+         profiled_flash_bwd_kernels=flash_bwd_profiled)
     problems = []
     if len(steps) != TRAIN_STEPS or not all(np.isfinite(losses + norms)):
         problems.append(f"{len(steps)} logged steps, losses {losses}, grad norms {norms}")
@@ -1112,6 +1187,14 @@ def phase_train(state: dict, batch: int) -> None:
                if path in ("sampling", "training") and not counts.get(name)]
     if missing:
         problems.append(f"the training path never launched {missing}; counts {counts}")
+    # the flagship's bf16 attention (D = 128) takes the fused backward: one
+    # launch per forward with the LSE, and never the dkv/dq pair
+    pair = [name for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq") if counts.get(name)]
+    if pair or not (counts.get("flash_attention_bwd") == counts.get("flash_attention_bwd_delta")
+                    == counts.get("flash_attention")):
+        problems.append(f"the backward's launches {counts} are not one fused launch per forward")
+    if any("flash_bwd_dkv" in name or "flash_bwd_dq" in name for name in flash_bwd_profiled):
+        problems.append(f"the profiled step ran the dkv/dq pair: {flash_bwd_profiled}")
     if latest != TRAIN_STEPS or not ema_equal:
         problems.append(f"checkpoint step {latest}, EMA read back bitwise: {ema_equal}")
     if problems:
@@ -1651,62 +1734,138 @@ def ring_row(b, t, h, d, n, calls: int, per: str, device, dtype, variant=None) -
     return row
 
 
-def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None) -> list:
-    """The dkv and dq kernels on [b, t, h, d] (the wrapper computes delta on
-    each call, as in training): each held against its plain version on the
-    kernel forward's output and LSE, timed beside it and its bound; for bf16
-    also SDPA's backward (forward+backward less forward)."""
+def sdpa_backward_ms(q, k, v, do) -> dict:
+    """SDPA's backward (dq, dk, dv together) on [B, H, T, D] views of the
+    same inputs. ``library_ms``: its device time per call, a CUDA graph of
+    forward+backward less a graph of the same forward (``graph_ms``: no
+    host work, no launch missed), as the port's own rows take theirs when
+    the profiler misses launches. Beside it, torch.profiler's recorded
+    durations over ``autograd.grad`` calls on one forward's graph (each CUDA
+    operation's mean, once a call: an assumption, since the profiler misses
+    some launches) and the CUDA-event difference of forward+backward less
+    forward, host work included."""
     import torch
     import torch.nn.functional as F
 
+    from rho_diffusion_tpu_torch.benchmarks._timing import kernel_events
+
+    qt, kt, vt = (z.detach().transpose(1, 2).requires_grad_() for z in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qt, kt, vt)
+        torch.autograd.grad(out, (qt, kt, vt), dot)
+
+    def fwd():  # with grad, as in fwd_bwd: the forward that saves its LSE
+        F.scaled_dot_product_attention(qt, kt, vt)
+
+    graph_fwd_bwd_ms, graph_fwd_ms = graph_ms(fwd_bwd, calls=10), graph_ms(fwd, calls=10)
+    with torch.no_grad():
+        fwd_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 10)
+    event_ms = cuda_time_ms(fwd_bwd, iters=10) - fwd_ms
+    out = F.scaled_dot_product_attention(qt, kt, vt)
+    iters = 10
+    by_name = kernel_events(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True),
+                            iters)
+    return {"library_ms": graph_fwd_bwd_ms - graph_fwd_ms,
+            "library_ms_of": "device time: a CUDA graph of forward+backward less one of the "
+                             "forward",
+            "library_graph_ms": {"forward_backward": graph_fwd_bwd_ms, "forward": graph_fwd_ms},
+            "library_profiled_ms": (sum(ms / n for ms, n in by_name.values()) if by_name
+                                    else None),
+            "library_event_ms": event_ms,
+            "library_launches_recorded": {name[:60]: n for name, (_, n) in by_name.items()},
+            "library_calls_profiled": iters}
+
+
+def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None) -> list:
+    """The backward on [b, t, h, d] views of one qkv (the wrapper computes
+    delta on each call, as in training), each kernel held against its plain
+    version on the kernel forward's output and LSE, timed beside it, its
+    bound and SDPA's backward (bf16). For bf16 at D = 64 and 128: the fused
+    kernel at its plan, then the mma.sync pair on the same inputs (``plan=``
+    the pair's: the old route, launched on request only); fp32: the pair."""
+    import torch
+
     from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention_bwd_dkv_plain, flash_attention_bwd_dq_plain, flash_attention_bwd_kernel,
-        flash_attention_fwd_kernel)
+        FLASH_BWD_BM, MMA_SYNC_BWD_PLAN, flash_attention_bwd_dkv_plain,
+        flash_attention_bwd_dq_plain, flash_attention_bwd_kernel, flash_attention_bwd_plain,
+        flash_attention_fwd_kernel, flash_bwd_plan, flash_delta, flash_delta_kernel)
 
     q, k, v = flash_inputs(b, t, h, d, device, seed=500, dtype=dtype)
     do = randn((b, t, h, d), 501, device, dtype)
     o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
     qf, kf, vf, of, dof = (z.float() for z in (q, k, v, o, do))
-    lib_ms = None
-    if dtype == torch.bfloat16:
-        qt, kt, vt = (z.detach().transpose(1, 2).requires_grad_() for z in (q, k, v))
-        dot = do.transpose(1, 2)
-
-        def fwd_bwd():
-            out = F.scaled_dot_product_attention(qt, kt, vt)
-            torch.autograd.grad(out, (qt, kt, vt), dot)
-
-        with torch.no_grad():
-            fwd_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 10)
-        lib_ms = cuda_time_ms(fwd_bwd, iters=10) - fwd_ms
+    library = (sdpa_backward_ms(q, k, v, do) if dtype == torch.bfloat16
+               else {"library_ms": None})
     item = q.element_size()
     io = item * b * t * h * d  # one [B, T, H, D] tensor
+    stats = 2 * 4 * b * h * t  # lse and delta, fp32
     tol = TOL_FLASH_BWD[dtype_name(dtype)]
+    peak = PEAK_BF16 if item == 2 else PEAK_FP32
+    plan = flash_bwd_plan(b, h, t, t, d, dtype)
     rows = []
+
+    def row(name, run, want, flops, nbytes, row_tol=tol, row_library=None, **extra):
+        got = [g for g in run() if g is not None]
+        errs = [flash_error(g, w, row_tol) for g, w in zip(got, want)]
+        bnd, by = bound_ms(flops, nbytes, peak)
+        r = {"kernel": name, "variant": variant, "b": b, "t": t, "h": h, "d": d,
+             "dtype": dtype_name(dtype), "calls": calls, "per": per,
+             **max(errs, key=lambda e: (not e["ok"], e["err_over_tol"])),
+             **kernel_times(run, name), "host_ms": host_ms(run, calls=20),
+             "library": "scaled_dot_product_attention backward (dq, dk, dv together)",
+             **(row_library or library), "bound_ms": bnd, "bound_by": by, **extra}
+        if not r["profiled_launches"]:
+            r.update(ms=graph_ms(run, calls=10), ms_of="device time (a CUDA graph of the wrapper "
+                     "replayed; the profiler recorded no launch)")
+        r["tflops"] = flops / r["ms"] / 1e9
+        rows.append(r)
+
+    if plan.route == "wgmma":
+        # five products of 2*T*T*D; q, k, v, dO, lse, delta read once, dq,
+        # dk, dv written once; the design also moves dQ's fp32 share of
+        # every key tile to or from its accumulator
+        key_tiles = -(-t // plan.bn)
+        acc = ((key_tiles if key_tiles > 1 else 0) * 4 * b * h * -(-t // FLASH_BWD_BM)
+               * FLASH_BWD_BM * d)
+        want = flash_attention_bwd_plain(qf, kf, vf, of, lse, dof)
+        row("flash_attention_bwd", lambda: flash_attention_bwd_kernel(q, k, v, o, lse, do), want,
+            5 * 2.0 * b * h * t * t * d, 4 * io + stats + 3 * io,
+            plain_ms=cuda_time_ms(lambda: flash_attention_bwd_plain(qf, kf, vf, of, lse, dof),
+                                  iters=3, warmup=1),
+            plan=f"bn{plan.bn}", design_bytes=4 * io + stats + 3 * io + acc,
+            design_bytes_ms=(4 * io + stats + 3 * io + acc) / MEM_RATE * 1e3)
+        # its delta pre-pass: dO and O read once, delta written once; no one
+        # PyTorch call computes it (flash_delta is five kernels)
+        row("flash_attention_bwd_delta", lambda: (flash_delta_kernel(o, do),),
+            (flash_delta(of, dof),), 2.0 * b * h * t * d, 2 * io + 4 * b * h * t,
+            row_tol=TOL_DELTA,
+            row_library={"library": "none: flash_delta (the plain version) is five kernels",
+                         "library_ms": None},
+            plain_ms=cuda_time_ms(lambda: flash_delta(o, do), iters=10))
+        # like for like against SDPA's backward, which computes rowsum(dO O)
+        # itself: the fused kernel with its pre-pass, and the wrapper's whole
+        # device work a call (the counters' zeroing too) from a CUDA graph
+        fused, pre_pass = rows[-2:]
+        fused["ms_with_pre_pass"] = fused["ms"] + pre_pass["ms"]
+        fused["wrapper_device_ms"] = graph_ms(
+            lambda: flash_attention_bwd_kernel(q, k, v, o, lse, do), calls=10)
+        pair_plan, pair_note = MMA_SYNC_BWD_PLAN, "the mma.sync pair on request (plan=mma_sync)"
+    else:
+        pair_plan, pair_note = None, None
     for name, needs, products, plain, n_out in (
             ("flash_attention_bwd_dkv", (False, True, True), 4, flash_attention_bwd_dkv_plain, 2),
             ("flash_attention_bwd_dq", (True, False, False), 3, flash_attention_bwd_dq_plain, 1)):
-        def run(needs=needs):
-            return flash_attention_bwd_kernel(q, k, v, o, lse, do, needs)
-
         want = plain(qf, kf, vf, of, lse, dof)
-        errs = [flash_error(g, w, tol) for g, w in
-                zip([g for g in run() if g is not None], want if n_out == 2 else (want,))]
         # the kernel's own products of 2*T*T*D each; q, k, v, dO, lse,
         # delta read once, its gradients written once
-        flops = products * 2.0 * b * h * t * t * d
-        bnd, by = bound_ms(flops, 4 * io + 2 * 4 * b * h * t + n_out * io,
-                           PEAK_BF16 if item == 2 else PEAK_FP32)
-        row = {"kernel": name, "variant": variant, "b": b, "t": t, "h": h, "d": d,
-               "dtype": dtype_name(dtype), "calls": calls, "per": per,
-               **max(errs, key=lambda e: (not e["ok"], e["err_over_tol"])),
-               **kernel_times(run, name), "host_ms": host_ms(run, calls=20),
-               "plain_ms": cuda_time_ms(lambda: plain(qf, kf, vf, of, lse, dof), iters=3,
-                                        warmup=1),
-               "library": "scaled_dot_product_attention backward (dq, dk, dv together)",
-               "library_ms": lib_ms, "bound_ms": bnd, "bound_by": by}
-        row["tflops"] = flops / row["ms"] / 1e9
-        rows.append(row)
+        row(name, lambda needs=needs: flash_attention_bwd_kernel(q, k, v, o, lse, do, needs,
+                                                                 plan=pair_plan),
+            want if n_out == 2 else (want,), products * 2.0 * b * h * t * t * d,
+            4 * io + stats + n_out * io,
+            plain_ms=cuda_time_ms(lambda plain=plain: plain(qf, kf, vf, of, lse, dof), iters=3,
+                                  warmup=1), **({"route_note": pair_note} if pair_note else {}))
     return rows
 
 
@@ -1722,8 +1881,11 @@ def time_train_kernels(unet, batch: int, device) -> list:
     attn_calls = forward_shapes(unet, batch, device)[1]
     (qs, _), _, _ = attn_calls[0]
     n, per = len(attn_calls), f"one training step at batch {batch}"
+    _, t, h, d = qs
     flash = (flash_bwd_rows(*qs, n, per, device, torch.bfloat16)
-             + flash_bwd_rows(*qs, n, per, device, torch.float32, variant="fp32"))
+             + flash_bwd_rows(*qs, n, per, device, torch.float32, variant="fp32")
+             + flash_bwd_rows(8, 4096, h, d, 1, per, device, torch.bfloat16,
+                              variant="T=4096 (the 64^3 config's attention, batch 8), one call"))
     emit("timings_flash_bwd", rows=flash)
     return forward + dgrad + flash
 
@@ -1895,6 +2057,42 @@ def flash_plan_study(device) -> list:
     return rows
 
 
+def flash_bwd_plan_study(device) -> list:
+    """The backward at the training step's attention (batch 32, T = 512) and
+    the 64^3 config's (batch 8, T = 4096): the fused kernel at its plan (the
+    head dim's only one) and the mma.sync pair, on the same strided views of
+    one qkv and the kernel forward's output and LSE, each timed twice (in
+    order, then reversed): the device time per call (``graph_ms``) and the
+    wrapper call's time (CUDA events, delta included), beside the bound
+    (five products)."""
+    import torch
+
+    from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
+        MMA_SYNC_BWD_PLAN, flash_attention_bwd_kernel, flash_attention_fwd_kernel, flash_bwd_plan)
+
+    rows = []
+    for b, t, h, d in ((32, 512, 4, 128), (8, 4096, 4, 128)):
+        q, k, v = flash_inputs(b, t, h, d, device, seed=950 + t, dtype=torch.bfloat16)
+        do = randn((b, t, h, d), 951, device, torch.bfloat16)
+        o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+        chosen = flash_bwd_plan(b, h, t, t, d)
+        plans = {"mma_sync pair": MMA_SYNC_BWD_PLAN, f"fused bn{chosen.bn}": chosen}
+        times: dict = {name: {"ms": [], "call_ms": []} for name in plans}
+        for name in [*plans, *reversed(plans)]:
+            run = functools.partial(flash_attention_bwd_kernel, q, k, v, o, lse, do,
+                                    plan=plans[name])
+            times[name]["ms"].append(graph_ms(run, calls=5))
+            times[name]["call_ms"].append(cuda_time_ms(run, iters=10))
+        flops = 5 * 2.0 * b * h * t * t * d
+        bnd, by = bound_ms(flops, 2 * 7.0 * b * t * h * d + 8.0 * b * h * t, PEAK_BF16)
+        rows.append({"b": b, "t": t, "h": h, "d": d, "bound_ms": bnd, "bound_by": by,
+                     "plan_chosen": f"fused bn{chosen.bn}",
+                     "plans": {name: {**times[name], "tflops": flops / min(times[name]["ms"]) / 1e9}
+                               for name in plans}})
+        del q, k, v, do, o, lse
+    return rows
+
+
 def phase_bench(state: dict) -> None:
     """The bottleneck-isolation path: the variant entry's ``main`` with
     every variant (the counted run), then ``bench_rows``, then the
@@ -1920,6 +2118,7 @@ def phase_bench(state: dict) -> None:
     emit("bench_k5_old_new", **k5_old_new(device))
     emit("bench_k5_tiles", rows=k5_tiles(device))
     emit("bench_flash_plans", rows=flash_plan_study(device))
+    emit("bench_flash_bwd_plans", rows=flash_bwd_plan_study(device))
     t1 = time.perf_counter()
     emit("bench_conv3d_ab", rows=conv3d_ab.main(["-d", DEVICE]))
     t2 = time.perf_counter()
@@ -1949,10 +2148,20 @@ KERNELS = (
     ("conv3d_dgrad_igemm", "conv3d_wgmma.cuh", "rho_diffusion_tpu/ops/pallas/conv3d.py:247",
      "training"),
     ("conv3d_dgrad_direct", "conv3d.cu", "rho_diffusion_tpu/ops/pallas/conv3d.py:247", "training"),
-    ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+    # one fused CUDA kernel replaces both TPU backward kernels (K3 dK/dV,
+    # and K4 dQ, :262) for bf16 at D = 64 and 128; its launcher is in
+    # flash_attention_bwd.cu
+    ("flash_attention_bwd", "flash_attention_bwd_wgmma.cuh",
      "rho_diffusion_tpu/ops/pallas/flash_attention.py:209", "training"),
+    # its delta pre-pass, where the TPU path leaves rowsum(dO O) to XLA
+    ("flash_attention_bwd_delta", "flash_attention_bwd_wgmma.cuh",
+     "rho_diffusion_tpu/ops/pallas/flash_attention.py:308", "training"),
+    # the mma.sync pair (fp32, and bf16 at D = 16, 32, 256) runs on no main
+    # path: its launches are the kernels phase's holds
+    ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+     "rho_diffusion_tpu/ops/pallas/flash_attention.py:209", "kernels"),
     ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
-     "rho_diffusion_tpu/ops/pallas/flash_attention.py:262", "training"),
+     "rho_diffusion_tpu/ops/pallas/flash_attention.py:262", "kernels"),
     # K6: one launch per device folds every rank's K/V shard in the ring's
     # order (the ring's host side: parallel/context_rdma.py)
     ("ring_attention", "ring_attention.cu", "rho_diffusion_tpu/parallel/context_rdma.py:50",
@@ -1969,6 +2178,9 @@ KERNELS = (
     ("conv3d_dotsonly", "conv3d_variants.cu", "benchmarks/conv3d_variants.py:154", "bench"),
 )
 TIME_FIELDS = ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms")
+# the fused backward's device time with its delta pre-pass (profiler) and
+# its wrapper's whole device work (CUDA graph): what SDPA's library_ms does
+FUSED_BWD_FIELDS = ("ms_with_pre_pass", "wrapper_device_ms")
 
 
 def summed_times(rows: list) -> dict:
@@ -1984,8 +2196,9 @@ def summed_times(rows: list) -> dict:
 
 def kernels_line(state: dict) -> list:
     """The ``kernels`` line: per kernel, its launches on the path that runs
-    it (sampling for the forward kernels, training for the backward ones,
-    serving for K6, bench for K7-K9; every path listed), its worst error
+    it (sampling for the forward kernels, training for the fused backward,
+    the kernels phase's holds for the dkv/dq pair, serving for K6, bench for
+    K7-K9; every path listed), its worst error
     against its plain version over every hold of this run and that error's
     ratio to the check's tolerance (at most 1), and its times summed over
     one UNet forward (timing batch) or one training step (TRAIN_BATCH), or
@@ -1993,7 +2206,7 @@ def kernels_line(state: dict) -> list:
     and td as ``variants``."""
     launches = {"sampling": state["launches"], "sampling64": state["main64_launches"],
                 "training": state["train_launches"], "serving": state["serve_launches"],
-                "bench": state["bench_launches"]}
+                "bench": state["bench_launches"], "kernels": state["kernels_launches"]}
     out = []
     for name, source, replaces, path in KERNELS:
         rows = [r for r in state["timings"] + state["bench"]
@@ -2009,6 +2222,7 @@ def kernels_line(state: dict) -> list:
             "accuracy_by_dtype": accuracy, **summed_times(main), "library": main[0]["library"],
             "per": f"{main[0]['per']}, {sum(r['calls'] for r in main)} calls",
             "variants": [{"variant": r["variant"], **summed_times([r]),
+                          **{f: r[f] * r["calls"] for f in FUSED_BWD_FIELDS if f in r},
                           **({"flash_route": r["flash_route"], "plan": r["plan"]}
                              if "flash_route" in r else {})}
                          for r in rows if r["variant"]],
@@ -2019,6 +2233,15 @@ def kernels_line(state: dict) -> list:
                if name == "flash_attention" else {}),
             **({"by_problem": direct_by_problem(main, state["direct_launches"][path])}
                if name.endswith("_direct") else {}),
+            **({"plan": main[0]["plan"],
+                "also_replaces": "rho_diffusion_tpu/ops/pallas/flash_attention.py:262",
+                "launcher": "rho_diffusion_tpu_torch/csrc/flash_attention_bwd.cu",
+                "library_ms_of": main[0]["library_ms_of"],
+                **{f: sum(r[f] * r["calls"] for r in main) for f in FUSED_BWD_FIELDS},
+                "library_profiled_ms": (main[0]["library_profiled_ms"] * main[0]["calls"]
+                                        if main[0]["library_profiled_ms"] is not None else None),
+                "library_event_ms": main[0]["library_event_ms"] * main[0]["calls"]}
+               if name == "flash_attention_bwd" else {}),
         })
     return out
 

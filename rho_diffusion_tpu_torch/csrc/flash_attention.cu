@@ -424,21 +424,6 @@ constexpr int ERR_PLAN = -1;       // a plan or shape the wgmma kernel does not 
 constexpr int ERR_ENCODE_FN = -2;  // cuTensorMapEncodeTiled not found
 constexpr int ERR_MAP = -3;        // cuTensorMapEncodeTiled refused a tensor map
 
-// The 4-D tensor map (D, H, T, B) of a [B, T, H, D] bf16 operand with element
-// strides (sb, st, sh), read in boxes of 64 channels x `rows` tokens with the
-// 128-byte swizzle; what lies outside reads as zeros.
-bool encode_operand(wg::EncodeTiled encode, CUtensorMap* map, const void* base, int B, int T,
-                    int H, int D, const long long* st, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
-                                 (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 struct WgmmaLaunch {
   CUtensorMap q, k, v;
   void* o;
@@ -517,9 +502,9 @@ int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void*
   wg::EncodeTiled encode = wg::encode_tiled();
   if (encode == nullptr) return ERR_ENCODE_FN;
   WgmmaLaunch a;
-  if (!encode_operand(encode, &a.q, q, B, Tq, H, D, strides, bm) ||
-      !encode_operand(encode, &a.k, k, B, Tk, H, D, strides + 3, bn) ||
-      !encode_operand(encode, &a.v, v, B, Tk, H, D, strides + 6, bn))
+  if (!wg::encode_bthd(encode, &a.q, q, B, Tq, H, D, strides, bm) ||
+      !wg::encode_bthd(encode, &a.k, k, B, Tk, H, D, strides + 3, bn) ||
+      !wg::encode_bthd(encode, &a.v, v, B, Tk, H, D, strides + 6, bn))
     return ERR_MAP;
   a.o = o;
   a.lse = lse;
@@ -542,7 +527,7 @@ int flash_wgmma_pv_probe(const void* p, const void* v, void* out, int bn, int hd
   if (encode == nullptr) return ERR_ENCODE_FN;
   CUtensorMap v_map;
   const long long st[3] = {(long long)bn * hd, hd, hd};  // one batch, bn tokens, one head
-  if (!encode_operand(encode, &v_map, v, 1, bn, 1, hd, st, bn)) return ERR_MAP;
+  if (!wg::encode_bthd(encode, &v_map, v, 1, bn, 1, hd, st, bn)) return ERR_MAP;
   cudaStream_t s = (cudaStream_t)stream;
   if (hd == 128) return bn == 128 ? launch_pv_probe<128, 128>(v_map, p, out, s)
                                   : launch_pv_probe<128, 64>(v_map, p, out, s);

@@ -3,17 +3,37 @@
 //
 // Replaces the TPU kernels `_bwd_dkv_kernel` (K3) and `_bwd_dq_kernel` (K4) of
 // rho_diffusion_tpu/ops/pallas/flash_attention.py:209-301, launched by
-// `_flash_backward` (:304-359). As there, two kernels, and P is recomputed
-// from the forward's log-sum-exp instead of being stored:
+// `_flash_backward` (:304-359). P is recomputed from the forward's
+// log-sum-exp instead of being stored:
 //   P   = exp(S - lse),  S = Q K^T / sqrt(D)   (keys past Tk masked out)
-//   dV  = P^T dO                                (dkv)
+//   dV  = P^T dO
 //   dP  = dO V^T,  dS = P * (dP - delta),  delta = rowsum(dO * O)
-//   dK  = dS^T Q / sqrt(D)                      (dkv)
-//   dQ  = dS K / sqrt(D)                        (dq)
-// delta is computed by the caller (a PyTorch expression, as the TPU path
-// leaves it to XLA, :308-311). lse is the forward's base-2 log-sum-exp of the
+//   dK  = dS^T Q / sqrt(D)
+//   dQ  = dS K / sqrt(D)
+// The TPU path leaves delta to XLA (:308-311); here the fused route takes it
+// from a pre-pass kernel (flash_attention_bwd_delta) and the pair from a
+// PyTorch expression, both computed by the caller. lse is the forward's base-2 log-sum-exp of the
 // scaled scores (flash_attention.cu), so P = exp2(S * log2(e) - lse2).
 //
+// Three routes, chosen by the caller (ops/kernels/flash_attention.py
+// `flash_bwd_plan`) by head dim and dtype, never by a failure:
+//
+//   flash_attention_bwd_wgmma      bf16, D = 64 or 128 (the UNet's 128): ONE
+//     fused kernel for both TPU kernels, in flash_attention_bwd_wgmma.cuh
+//     (TMA ring, wgmma for all five products, dQ added across key tiles in a
+//     fixed order; its header says what bounds it and what its design does
+//     about that). The plan's keys a block come from the caller and are
+//     checked here (one instance per head dim: 64 keys at D = 64, 128 at
+//     D = 128); the tensor maps are encoded per call. The caller allocates the fp32 dQ accumulator and zeroes the
+//     counters that order its additions.
+//   flash_attention_bwd_delta      the fused route's pre-pass: delta in fp32
+//     (one warp a query row; the PyTorch expression is five kernels).
+//   flash_attention_bwd_{dkv,dq}_bf16   bf16, D = 16, 32 or 256 (at 64 and
+//     128 only when a plan asks for them: the old side of the old-against-
+//     new comparison): the mma.sync pair below.
+//   flash_attention_bwd_{dkv,dq}_f32    fp32, any of the head dims: below.
+//
+// The pair:
 // * dkv: one block per (batch*head, 64-key tile). Each of the 4 warps owns 16
 //   keys; the K and V tile stays in shared memory while the block sweeps all
 //   query tiles (64 rows, 32 at head dims >= 128 to bound the registers), and
@@ -21,29 +41,27 @@
 // * dq: one block per (batch*head, 64-query tile). Each warp owns 16 queries;
 //   Q and dO stay in shared memory while the block sweeps the 64-key K/V tiles,
 //   and dQ accumulates in fp32 registers.
-// Neither kernel uses atomics: every gradient element is summed by one thread
-// in a fixed order, so the gradients are bitwise the same from run to run.
-// Query rows past Tq get lse = +inf, so their P is exactly 0 and they add
-// nothing; key rows past Tk are masked to P = 0 as the TPU kernels mask them
-// to -inf (:233-234, :284-285).
+// No route adds in arrival order: every gradient element is summed in a
+// fixed order (the fused kernel's dQ through its counters), so the gradients
+// are bitwise the same from run to run. Query rows past Tq get lse = +inf, so
+// their P is exactly 0 and they add nothing; key rows past Tk are masked to
+// P = 0 as the TPU kernels mask them to -inf (:233-234, :284-285).
 //
 // Numerics (bf16): S, P, dP and dS are fp32, as in the TPU kernels. The
-// products run on the tensor cores (mma.sync m16n8k16, fp32 accumulation), so
-// P and dS are rounded to bf16 before P^T dO, dS^T Q and dS K; the TPU kernels
-// keep those products in fp32 (:224, :238-254, :293-297). That is
-// FlashAttention-2's choice: each rounding is a relative error of at most 2^-9
-// per term, and the gradients are rounded to bf16 at the end as in JAX.
-// The fp32 instances (`*_f32_kernel`) do every product in fp32 FMAs on the CUDA
-// cores (no TF32), in the same order of operations.
+// products run on the tensor cores (fp32 accumulation), so P and dS are
+// rounded to bf16 before P^T dO, dS^T Q and dS K; the TPU kernels keep those
+// products in fp32 (:224, :238-254, :293-297). That is FlashAttention-2's
+// choice: each rounding is a relative error of at most 2^-9 per term, and the
+// gradients are rounded to bf16 at the end as in JAX. The fp32 instances
+// (`*_f32_kernel`) do every product in fp32 FMAs on the CUDA cores (no TF32),
+// in the same order of operations.
 //
-// What bounds it on the H100: dkv does 4 products of 2*T*T*D flops per
+// What bounds the pair on the H100: dkv does 4 products of 2*T*T*D flops per
 // batch*head (S^T, dP^T, dV, dK) and dq 3 (S, dP, dQ), against ~16*T*D bytes
 // of inputs and outputs, so at the UNet's shapes (T = 512, D = 128) both are
-// bound by tensor-core operations once the T x T matrices stay on chip, which
-// the design ensures. The split recomputes S and dP in both kernels: 7 products
-// where FlashAttention-2's fused backward (dQ accumulated with atomics, or a
-// separate reduction) does 5 -- work for a later PR, as are wgmma, TMA and
-// double-buffered tiles.
+// bound by tensor-core operations once the T x T matrices stay on chip. The
+// split recomputes S and dP in both kernels: 7 products where the fused
+// kernel does 5.
 //
 // Layout: q, k, v, dout, dq, dk, dv are [B, T, H, D] with D contiguous and any
 // B, T, H strides (multiples of 16 bytes), so the UNet's strided q/k/v views
@@ -55,6 +73,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_attention_bwd_wgmma.cuh"
 #include "tma.cuh"
 
 namespace {
@@ -624,11 +643,36 @@ int dq_f32(const BwdArgs<float>& a, int BH, void* stream) {
     default: return (int)cudaErrorInvalidValue;                \
   }
 
+// ---------------------------------------------------------------------------
+// The wgmma route (flash_attention_bwd_wgmma.cuh)
+
+// The launcher's own error codes.
+constexpr int ERR_PLAN = -1;       // a plan or shape the fused kernel does not take
+constexpr int ERR_ENCODE_FN = -2;  // cuTensorMapEncodeTiled not found
+constexpr int ERR_MAP = -3;        // cuTensorMapEncodeTiled refused a tensor map
+
+// The plans flash_bwd_plan returns: HD keys a block, one consumer
+// warpgroup per 64 of them.
+template <int HD>
+int launch_wgmma(const CUtensorMap (&maps)[4], const fab::BwdProblem& p, int BH,
+                 cudaStream_t stream) {
+  constexpr int smem = fab::smem_bytes(HD);
+  static_assert(smem <= wg::SMEM_LIMIT, "the tiles do not fit in shared memory");
+  auto kernel = fab::flash_bwd_wgmma_kernel<HD>;
+  static unsigned long long ready = 0;
+  cudaError_t err = wg::smem_attribute_once(kernel, smem, &ready);
+  if (err != cudaSuccess) return (int)err;
+  // (batch*head) fastest: every head's key tile j launches before key tile j + 1
+  kernel<<<dim3((unsigned)BH, (unsigned)p.kv_tiles), 2 * HD, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// All four entry points take the same arguments. strides: 21 values, the
+// The pair's four entry points take the same arguments. strides: 21 values, the
 // (batch, token, head) element strides of q, k, v, dout, dq, dk, dv in turn.
 // lse (base 2) and delta: fp32 [B, H, Tq], contiguous. The dkv entries write
 // dk and dv, the dq entries dq; the other outputs may be null.
@@ -644,8 +688,92 @@ int flash_attention_bwd_dq_bf16(BWD_PARAMS) { DISPATCH_D(dq_bf16, BWD_ARGS(__nv_
 int flash_attention_bwd_dkv_f32(BWD_PARAMS) { DISPATCH_D(dkv_f32, BWD_ARGS(float)) }
 int flash_attention_bwd_dq_f32(BWD_PARAMS) { DISPATCH_D(dq_f32, BWD_ARGS(float)) }
 
+// The fused route: bf16, D = 64 or 128, the strides as above (multiples of 8
+// elements for q, k, v, dout), 16-byte aligned q, k, v, dout; delta from
+// flash_attention_bwd_delta. The plan: bn keys a block, equal to D (query
+// rows stream in ring stages of 64). With more than one key tile (Tk > bn),
+// dq_acc is fp32 scratch of B*H * ceil(Tq/64) * 64 * D elements (any
+// contents, 16-byte aligned) and dq_order int32 [B*H, ceil(Tq/64)], zeroed;
+// both may be null otherwise.
+// Writes dq, dk, dv. Returns ERR_PLAN for a plan or shape it does not take.
+int flash_attention_bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                              const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                              void* dq_acc, void* dq_order, int B, int H, int Tq, int Tk, int D,
+                              const long long* strides, float scale, float scale_log2, int bn,
+                              void* stream) {
+  bool ok = (D == 64 || D == 128) && bn == D && B >= 1 && H >= 1 && Tq >= 1 && Tk >= 1 &&
+            (long long)B * H <= 65535;
+  ok = ok && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+               reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) & 15) == 0;
+  for (int i = 0; i < 12; ++i) ok = ok && strides[i] % 8 == 0;
+  const int kv_tiles = (Tk + bn - 1) / bn;
+  ok = ok && kv_tiles <= 65535 &&
+       (kv_tiles == 1 || (dq_acc != nullptr && dq_order != nullptr &&
+                          (reinterpret_cast<uintptr_t>(dq_acc) & 15) == 0));
+  if (!ok) return ERR_PLAN;
+  wg::EncodeTiled encode = wg::encode_tiled();
+  if (encode == nullptr) return ERR_ENCODE_FN;
+  CUtensorMap maps[4];
+  if (!wg::encode_bthd(encode, &maps[0], q, B, Tq, H, D, strides, fab::BM) ||
+      !wg::encode_bthd(encode, &maps[1], k, B, Tk, H, D, strides + 3, bn) ||
+      !wg::encode_bthd(encode, &maps[2], v, B, Tk, H, D, strides + 6, bn) ||
+      !wg::encode_bthd(encode, &maps[3], dout, B, Tq, H, D, strides + 9, fab::BM))
+    return ERR_MAP;
+  fab::BwdProblem p;
+  p.H = H, p.Tq = Tq, p.Tk = Tk;
+  p.q_tiles = (Tq + fab::BM - 1) / fab::BM;
+  p.kv_tiles = kv_tiles;
+  p.lse = (const float*)lse;
+  p.delta = (const float*)delta;
+  p.dq_acc = (float*)dq_acc;
+  p.dq_order = (int*)dq_order;
+  p.dq = (__nv_bfloat16*)dq;
+  p.dk = (__nv_bfloat16*)dk;
+  p.dv = (__nv_bfloat16*)dv;
+  for (int i = 0; i < 3; ++i) {
+    p.dq_st[i] = strides[12 + i];
+    p.dk_st[i] = strides[15 + i];
+    p.dv_st[i] = strides[18 + i];
+  }
+  p.scale = scale;
+  p.scale_log2 = scale_log2;
+  cudaStream_t s = (cudaStream_t)stream;
+  return D == 64 ? launch_wgmma<64>(maps, p, B * H, s) : launch_wgmma<128>(maps, p, B * H, s);
+}
+
+// The fused route's pre-pass: delta = rowsum(dout o), fp32 [B, H, Tq]
+// contiguous, from bf16 o and dout [B, Tq, H, D] (D = 64 or 128, D
+// contiguous, 4-byte aligned rows) with strides: 6 values, the (batch,
+// token, head) element strides of o, then dout.
+int flash_attention_bwd_delta(const void* o, const void* dout, void* delta, int B, int H, int Tq,
+                              int D, const long long* strides, void* stream) {
+  bool ok = (D == 64 || D == 128) && B >= 1 && H >= 1 && Tq >= 1;
+  ok = ok && ((reinterpret_cast<uintptr_t>(o) | reinterpret_cast<uintptr_t>(dout)) & 3) == 0;
+  for (int i = 0; i < 6; ++i) ok = ok && strides[i] % 2 == 0;
+  if (!ok) return ERR_PLAN;
+  const long long rows = (long long)B * H * Tq;
+  const dim3 grid((unsigned)((rows + 7) / 8));
+  const auto* o16 = (const __nv_bfloat16*)o;
+  const auto* d16 = (const __nv_bfloat16*)dout;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (D == 64)
+    fab::flash_bwd_delta_kernel<64><<<grid, 256, 0, s>>>(o16, d16, (float*)delta, H, Tq, rows,
+                                                         strides[0], strides[1], strides[2],
+                                                         strides[3], strides[4], strides[5]);
+  else
+    fab::flash_bwd_delta_kernel<128><<<grid, 256, 0, s>>>(o16, d16, (float*)delta, H, Tq, rows,
+                                                          strides[0], strides[1], strides[2],
+                                                          strides[3], strides[4], strides[5]);
+  return (int)cudaGetLastError();
+}
+
 const char* flash_attention_bwd_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
+  switch (code) {
+    case ERR_PLAN: return "the wgmma launcher refused the plan or shape";
+    case ERR_ENCODE_FN: return "cuTensorMapEncodeTiled could not be found in libcuda";
+    case ERR_MAP: return "cuTensorMapEncodeTiled refused a tensor map of q, k, v or dout";
+    default: return cudaGetErrorString((cudaError_t)code);
+  }
 }
 
 }  // extern "C"

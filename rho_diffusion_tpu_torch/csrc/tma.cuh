@@ -1,13 +1,15 @@
 // The Tensor Memory Accelerator and mbarrier pieces shared by the Hopper
-// kernels (K5's implicit GEMM, conv3d_wgmma.cuh; the flash forward,
-// flash_attention_wgmma.cuh), and the launchers' host helpers.
+// kernels (K5's implicit GEMM, conv3d_wgmma.cuh; the flash forward and
+// backward, flash_attention_wgmma.cuh and flash_attention_bwd_wgmma.cuh), and
+// the launchers' host helpers.
 //
 // Host side:
 //   encode_tiled()        cuTensorMapEncodeTiled, which lives in libcuda,
 //                         fetched through the runtime's entry-point lookup so
 //                         the libraries link only the runtime;
 //   smem_attribute_once() a kernel's dynamic shared-memory limit, set once
-//                         per device instead of on every launch.
+//                         per device instead of on every launch;
+//   encode_bthd()         the tensor map of a [B, T, H, D] bf16 operand.
 // Device side: mbarrier init/arrive/expect-tx and a wait that traps after
 // ~5 s (a wrong phase or byte count fails the launch instead of hanging the
 // card), and TMA tile loads of 3, 4 and 5 dimensions completing on an
@@ -61,6 +63,22 @@ cudaError_t smem_attribute_once(Kernel kernel, int bytes, unsigned long long* re
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess) __atomic_fetch_or(ready, bit, __ATOMIC_RELEASE);
   return err;
+}
+
+// The 4-D tensor map (D, H, T, B) of a [B, T, H, D] bf16 tensor with element
+// strides st = (batch, token, head), read in boxes of 64 channels x `rows`
+// tokens with the 128-byte swizzle; what lies outside reads as zeros. The
+// flash kernels' q, k, v and dO maps.
+inline bool encode_bthd(EncodeTiled encode, CUtensorMap* map, const void* base, int B, int T, int H,
+                        int D, const long long* st, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

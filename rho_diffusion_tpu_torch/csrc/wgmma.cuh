@@ -1,6 +1,7 @@
 // Warpgroup matrix products (wgmma) and the pieces around them, shared by
 // the Hopper kernels (K5's implicit GEMM, conv3d_wgmma.cuh; the flash
-// forward, flash_attention_wgmma.cuh).
+// forward and backward, flash_attention_wgmma.cuh and
+// flash_attention_bwd_wgmma.cuh).
 //
 // Operands in shared memory are 128-byte swizzled tiles as TMA writes them:
 // rows of 64 bf16 (128 bytes), 8-row groups 1024 bytes apart, the tile
@@ -10,7 +11,9 @@
 //   * MN-major (`sw128_mn_desc`): the output dimension runs along the row
 //     and the reduction dimension down the rows, e.g. V [keys][channels] as
 //     the B operand of P V. A k16 step moves it 16 rows (2048 bytes); N past
-//     64 continues in the next 64-channel tile, `lbo` bytes further.
+//     64 continues in the next 64-channel tile, `lbo` bytes further. The same
+//     descriptor serves an MN-major A (`WgmmaT`): M = 64 runs along the row,
+//     e.g. dS^T [keys][queries] as the A operand of dQ = dS K.
 // Accumulator layout of m64nN (fp32, N/2 a thread): 4 floats per 8 columns
 // j: (row, 8j+2q), (row, 8j+2q+1), (row+8, 8j+2q), (row+8, 8j+2q+1) with
 // row = 16 * warp + lane / 4, q = lane % 4. The register A operand of a
@@ -226,6 +229,55 @@ struct WgmmaRS<128> {
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// d[64 x N] (+)= A[64 x 16] * B[16 x N], both MN-major SW128 in shared
+// memory (the descriptors' transposed forms, `sw128_mn_desc`): A's 64 rows
+// run along its 128-byte rows and a k16 step is 16 rows down; scale_d = 0
+// overwrites d.
+template <int N>
+struct WgmmaT;
+
+template <>
+struct WgmmaT<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b, int scale_d = 1) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaT<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b, int scale_d = 1) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 

@@ -6,9 +6,9 @@
 
 * on CUDA bf16 or fp32 tensors the forward is a hand-written kernel launched
   from ``csrc/flash_attention.cu`` (replacing the TPU kernels
-  ``_fwd_kernel_onepass`` and ``_fwd_kernel``) and the backward the two
-  kernels of ``csrc/flash_attention_bwd.cu`` (replacing ``_bwd_dkv_kernel``
-  and ``_bwd_dq_kernel``);
+  ``_fwd_kernel_onepass`` and ``_fwd_kernel``) and the backward a kernel
+  launched from ``csrc/flash_attention_bwd.cu`` (replacing
+  ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``);
 * on CPU tensors both directions are the plain versions below, through the
   same Function, so the CPU tests run its backward logic.
 
@@ -17,7 +17,10 @@ row log-sum-exp only when the call will be differentiated (grad mode on and
 an input that requires grad), as the TPU primal path skips it. The LSE is
 kept in base 2 of the scaled scores (see flash_attention.cu), and the
 backward exponentiates in that base. ``delta = rowsum(dO * O)`` is a PyTorch
-expression, as the JAX package leaves it to XLA.
+expression (``flash_delta``), as the JAX package leaves it to XLA, except on
+the fused backward's route, which takes it from a pre-pass kernel
+(``flash_delta_kernel``, counted as ``flash_attention_bwd_delta``; the
+PyTorch expression is five kernels).
 
 q, k, v may be strided views (the UNet's split of one qkv projection) as long
 as D is contiguous; head dims other than 16/32/64/128/256 are zero-padded up
@@ -32,6 +35,15 @@ plan's query rows a block and keys a tile; bf16 at 16,
 32 and 256 takes the ``mma.sync`` kernel; fp32 its CUDA-core kernel. A
 failed build, encode or launch raises; no route stands in for another.
 ``flash_routes`` counts the forward's launches by route and key length.
+
+The backward's route is ``flash_bwd_plan``'s, by head dim and dtype the
+same way: bf16 at head dims 64 and 128 takes ONE fused kernel
+(``csrc/flash_attention_bwd_wgmma.cuh``: K and V of a block resident, Q and
+dO tiles by TMA through an mbarrier ring, all five products on ``wgmma``,
+dQ added across the key tiles in a fixed order, so the gradients are
+bitwise repeatable), counted as ``flash_attention_bwd``; bf16 at 16, 32 and
+256 takes the ``mma.sync`` pair and fp32 the CUDA-core pair (dK/dV and dQ
+kernels, counted as ``flash_attention_bwd_dkv`` and ``_dq``).
 """
 from __future__ import annotations
 
@@ -86,6 +98,40 @@ MMA_SYNC_PLAN = FlashPlan("mma_sync", 64, 64)
 FP32_PLAN = FlashPlan("fp32", 16, 64)
 WGMMA_PLANS = tuple(FlashPlan("wgmma", bm, bn) for bm, bn in WGMMA_TILES)
 
+# The fused backward's fixed tiles (csrc/flash_attention_bwd_wgmma.cuh):
+# query rows a ring stage, a ring of FLASH_BWD_STAGES stages and
+# FLASH_BWD_DQ_BUFS dQ shares in flight. Its keys a block are the padded
+# head dim: one consumer warpgroup per 64 keys and per 64-channel chunk of
+# dQ.
+FLASH_BWD_BM = 64
+FLASH_BWD_STAGES = 2
+FLASH_BWD_DQ_BUFS = 2
+
+
+class FlashBwdPlan(NamedTuple):
+    """The backward's route ("wgmma": the fused kernel; "mma_sync" or
+    "fp32": the dkv/dq pair) and its keys a block (bn): the padded head dim
+    on the fused route; the pair's dkv kernel's fixed tile otherwise."""
+
+    route: str
+    bn: int
+
+    def smem_bytes(self) -> int:
+        """Shared memory of a fused block (head dim ``bn``): K and V, the Q
+        and dO rings, the bf16 dS^T tile, dQ's fp32 shares, the lse and
+        delta rows, the barriers and the 1024 bytes that align them to the
+        swizzle (flash_attention_bwd_wgmma.cuh's smem_bytes)."""
+        d, bm = self.bn, FLASH_BWD_BM
+        return (2 * 2 * d * self.bn + 2 * FLASH_BWD_STAGES * 2 * d * bm + 2 * self.bn * bm
+                + FLASH_BWD_DQ_BUFS * 4 * bm * d + 2 * FLASH_BWD_STAGES * 4 * bm
+                + 8 * (1 + FLASH_BWD_STAGES) + 1024)
+
+
+MMA_SYNC_BWD_PLAN = FlashBwdPlan("mma_sync", 64)
+FP32_BWD_PLAN = FlashBwdPlan("fp32", 16)
+# the fused kernel's one plan at each padded head dim
+WGMMA_BWD_PLANS = {d: FlashBwdPlan("wgmma", d) for d in WGMMA_HEAD_DIMS}
+
 
 def padded_head_dim(d: int) -> int:
     """The kernels' head dim for a true one: the next of HEAD_DIMS."""
@@ -120,6 +166,29 @@ def flash_plan(b: int, h: int, tq: int, tk: int, d: int, dtype=torch.bfloat16,
     return FlashPlan("wgmma", bm, bm if tk > 64 else 64)
 
 
+def flash_bwd_plan(b: int, h: int, tq: int, tk: int, d: int,
+                   dtype=torch.bfloat16) -> FlashBwdPlan:
+    """The backward's plan for q [b, tq, h, d] against tk keys.
+
+    The route goes by head dim and dtype as the forward's: bf16 whose padded
+    head dim is 64 or 128 takes the fused kernel, other bf16 the mma.sync
+    pair, fp32 its own pair; other dtypes have none. The shape takes no
+    part: the fused kernel's tile is a function of the head dim alone
+    (``WGMMA_BWD_PLANS``), D keys a block, as its consumer warpgroups split
+    dQ's 64-channel chunks; ragged or short key ranges are masked. At
+    D = 128 that is one block an SM of two warpgroups (dK and dV of 64 keys
+    fill half a warpgroup's registers, so a block of one warpgroup also ran
+    one an SM, and took 1.7-2x as long on the H100)."""
+    if dtype == torch.float32:
+        return FP32_BWD_PLAN
+    if dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention kernel takes bfloat16 or float32, got {dtype}")
+    dk = padded_head_dim(d)
+    if dk not in WGMMA_HEAD_DIMS:
+        return MMA_SYNC_BWD_PLAN
+    return WGMMA_BWD_PLANS[dk]
+
+
 def busiest_sm_rows(bm: int, b: int, h: int, tq: int, sms: int = 132) -> int:
     """Query rows the busiest SM works through when blocks of ``bm`` rows
     are dealt out to ``sms`` multiprocessors: ceil(blocks / sms) * bm."""
@@ -137,8 +206,13 @@ _LAUNCHERS = {
         "flash_attention_fwd_wgmma": _FWD + [_INT] * 2 + [_PTR],
         "flash_wgmma_pv_probe": [_PTR] * 3 + [_INT] * 2 + [_PTR],
     },
-    "flash_attention_bwd": {f"flash_attention_bwd_{which}_{suffix}": _BWD
-                            for which in ("dkv", "dq") for suffix in ("bf16", "f32")},
+    "flash_attention_bwd": {
+        **{f"flash_attention_bwd_{which}_{suffix}": _BWD
+           for which in ("dkv", "dq") for suffix in ("bf16", "f32")},
+        "flash_attention_bwd_wgmma": [_PTR] * 11 + [_INT] * 5 + [_PTR, _FLOAT, _FLOAT, _INT,
+                                                                 _PTR],
+        "flash_attention_bwd_delta": [_PTR] * 3 + [_INT] * 4 + [_PTR] * 2,
+    },
 }
 
 
@@ -318,13 +392,43 @@ def wgmma_pv_probe(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def flash_delta_kernel(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """The fused backward's pre-pass: delta = rowsum(dO * O) in fp32,
+    [B, H, Tq] contiguous, from bf16 o and do [B, Tq, H, D] (D contiguous;
+    the launcher takes D = 64 or 128, the fused route's, and refuses other
+    head dims). Its plain version is ``flash_delta``."""
+    check_no_autograd("flash_attention_bwd_delta", o, do)
+    if o.device.type != "cuda":
+        raise RuntimeError(f"flash_attention_bwd_delta has no kernel for device {o.device}")
+    b, tq, h, d = o.shape
+    if (do.shape != o.shape or o.dtype != torch.bfloat16 or do.dtype != torch.bfloat16
+            or o.stride(-1) != 1 or do.stride(-1) != 1):
+        raise ValueError(f"flash_attention_bwd_delta takes bf16 o and do [B, T, H, D] with D "
+                         f"contiguous, got {tuple(o.shape)} {o.dtype}, {tuple(do.shape)} "
+                         f"{do.dtype}")
+    delta = torch.empty((b, h, tq), dtype=torch.float32, device=o.device)
+    lib = _library("flash_attention_bwd")
+    strides = _strides(o, do)
+    with on_device(o.device):
+        code = lib.flash_attention_bwd_delta(
+            o.data_ptr(), do.data_ptr(), delta.data_ptr(), b, h, tq, d, ctypes.addressof(strides),
+            torch.cuda.current_stream(o.device).cuda_stream)
+    _build.check(code, lib, "flash_attention_bwd_error_string",
+                 f"flash_attention_bwd_delta({tuple(o.shape)})")
+    launch_counts["flash_attention_bwd_delta"] += 1
+    return delta
+
+
 def flash_attention_bwd_kernel(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
     do: torch.Tensor, needs: tuple[bool, bool, bool] = (True, True, True),
+    plan: Optional[FlashBwdPlan] = None,
 ) -> tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """Launch the backward kernels (dkv, then dq) on the forward's inputs,
-    its padded output ``o`` and base-2 ``lse``. ``needs`` says which of dq,
-    dk, dv to compute (dk and dv come from one launch)."""
+    """Launch the backward of ``plan``'s route (``flash_bwd_plan``'s when
+    not given: the old-against-new comparison passes the pair's) on the
+    forward's inputs, its padded output ``o`` and base-2 ``lse``. ``needs``
+    says which of dq, dk, dv to return: the fused kernel computes all three
+    in one launch, the pair launches dkv for dk or dv and dq for dq."""
     check_no_autograd("flash_attention_bwd", q, k, v, o, do)
     _check(q, k, v)
     dk_, d = _kernel_layout("flash_attention_bwd", q, k, v)
@@ -333,33 +437,56 @@ def flash_attention_bwd_kernel(
     _check_strides("flash_attention_bwd", (q, k, v, do))
     b, tq, h, _ = q.shape
     tk = k.shape[1]
-    delta = flash_delta(o, do)
+    if plan is None:
+        plan = flash_bwd_plan(b, h, tq, tk, dk_, q.dtype)
+    if (plan.route == "fp32") != (q.dtype == torch.float32):
+        raise ValueError(f"flash_attention_bwd: the {plan.route} route does not take {q.dtype}")
+    fused = plan.route == "wgmma"
     lse = lse.contiguous()
-    dq = torch.empty_like(q, memory_format=torch.contiguous_format) if needs[0] else None
-    want_kv = needs[1] or needs[2]
+    # the fused route's delta from its pre-pass kernel, the pair's from the
+    # PyTorch expression
+    delta = flash_delta_kernel(o, do) if fused else flash_delta(o, do)
+    want_kv = fused or needs[1] or needs[2]
+    dq = (torch.empty_like(q, memory_format=torch.contiguous_format)
+          if fused or needs[0] else None)
     dk = torch.empty((b, tk, h, dk_), dtype=q.dtype, device=q.device) if want_kv else None
     dv = torch.empty_like(dk) if want_kv else None
     lib = _library("flash_attention_bwd")
     strides = _strides(q, k, v, do, dq if dq is not None else q, dk if want_kv else k,
                        dv if want_kv else v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    launches = [("dkv", want_kv), ("dq", needs[0])]
-    for which, wanted in launches:
-        if not wanted:
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr() if dq is not None else None,
+            dk.data_ptr() if want_kv else None, dv.data_ptr() if want_kv else None)
+    shape = (b, h, tq, tk, dk_, ctypes.addressof(strides), 1.0 / math.sqrt(d),
+             LOG2E / math.sqrt(d))
+    if fused:
+        # dQ's fp32 accumulator across key tiles (the first tile stores, so
+        # it needs no zeroing) and the counters that order the additions
+        acc = order = None
+        q_tiles = -(-tq // FLASH_BWD_BM)
+        if tk > plan.bn:
+            acc = torch.empty(b * h * q_tiles * FLASH_BWD_BM * dk_, dtype=torch.float32,
+                              device=q.device)
+            order = torch.zeros(b * h * q_tiles, dtype=torch.int32, device=q.device)
+        with on_device(q.device):
+            code = lib.flash_attention_bwd_wgmma(
+                *ptrs, acc.data_ptr() if acc is not None else None,
+                order.data_ptr() if order is not None else None, *shape, plan.bn, stream)
+        _build.check(code, lib, "flash_attention_bwd_error_string",
+                     f"flash_attention_bwd({tuple(q.shape)}, Tk={tk}, plan {tuple(plan)})")
+        launch_counts["flash_attention_bwd"] += 1
+    for which, wanted in (("dkv", want_kv), ("dq", needs[0])):
+        if fused or not wanted:
             continue
         fn = getattr(lib, f"flash_attention_bwd_{which}_{_SUFFIX[q.dtype]}")
         with on_device(q.device):
-            code = fn(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dq.data_ptr() if dq is not None else None,
-                dk.data_ptr() if want_kv else None, dv.data_ptr() if want_kv else None,
-                b, h, tq, tk, dk_, ctypes.addressof(strides), 1.0 / math.sqrt(d),
-                LOG2E / math.sqrt(d), stream,
-            )
+            code = fn(*ptrs, *shape, stream)
         _build.check(code, lib, "flash_attention_bwd_error_string",
                      f"flash_attention_bwd_{which}({tuple(q.shape)})")
         launch_counts[f"flash_attention_bwd_{which}"] += 1
-    return tuple(t[..., :d] if t is not None and dk_ != d else t for t in (dq, dk, dv))
+    grads = (dq if needs[0] else None, dk if needs[1] else None, dv if needs[2] else None)
+    return tuple(t[..., :d] if t is not None and dk_ != d else t for t in grads)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -1,4 +1,5 @@
-"""The flash forward's plan (``flash_plan``), on the CPU.
+"""The flash forward's plan (``flash_plan``) and the backward's
+(``flash_bwd_plan``), on the CPU.
 
 The wgmma kernel (csrc/flash_attention_wgmma.cuh) runs only on the card;
 what it is given is decided here. The plan is held at every attention
@@ -10,7 +11,11 @@ TMA boxes of 64 channels (128 bytes, the swizzle span) by at most 256
 tokens, a block in 232,448 bytes of shared memory after the 1024-byte
 alignment, 64 or 128 query rows a block, the card filled as far as the
 problem allows (the busiest SM's query rows the least of the two tiles),
-and the route each head dim and dtype takes.
+and the route each head dim and dtype takes. The backward's plan
+(csrc/flash_attention_bwd_wgmma.cuh, the fused kernel) is held the same way:
+at every attention problem of both configs at batch 1, 2, 8 and 32, its
+route by head dim and dtype, every instance within shared memory with the
+byte count written out, and no route off the card.
 """
 import json
 from pathlib import Path
@@ -21,8 +26,9 @@ import torch
 from rho_diffusion_tpu_torch.models.unet import UNet
 from rho_diffusion_tpu_torch.ops import attention as attn_mod
 from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
-    FLASH_BM, HEAD_DIMS, SMEM_LIMIT, WGMMA_HEAD_DIMS, WGMMA_PLANS, WGMMA_TILES, FlashPlan,
-    busiest_sm_rows, flash_plan, padded_head_dim)
+    FLASH_BM, FLASH_BWD_BM, HEAD_DIMS, MMA_SYNC_BWD_PLAN, SMEM_LIMIT, WGMMA_BWD_PLANS,
+    WGMMA_HEAD_DIMS, WGMMA_PLANS, WGMMA_TILES, FlashBwdPlan, FlashPlan, busiest_sm_rows,
+    flash_bwd_plan, flash_plan, padded_head_dim)
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -163,3 +169,99 @@ def test_kernel_wrappers_have_no_cpu_route():
         flash_attention_fwd_kernel(q, q, q, plan=flash_plan(1, 1, 8, 8, 64))
     with pytest.raises(RuntimeError, match="no kernel for device cpu"):
         wgmma_pv_probe(torch.zeros(64, 64, dtype=torch.bfloat16), q[0, :, 0].repeat(8, 1))
+
+
+# ---------------------------------------------------------------------------
+# The backward's plan (the fused kernel's tiles)
+# ---------------------------------------------------------------------------
+
+def check_bwd_plan(plan: FlashBwdPlan, d: int) -> None:
+    dk = padded_head_dim(d)
+    assert plan.route == "wgmma" and plan == WGMMA_BWD_PLANS[dk]
+    # 64 keys a consumer warpgroup, each taking one 64-channel chunk of dQ:
+    # as many keys a block as channels, whatever the shape
+    assert plan.bn == dk
+    # TMA boxes of 64 channels by at most 256 rows
+    assert dk % BOX_CHANNELS == 0 and max(FLASH_BWD_BM, plan.bn) <= 256
+    assert plan.smem_bytes() <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("batch", [1, 2, 8, 32])
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_bwd_plan_at_every_config_problem(problems, config, batch):
+    """The flagship's T = 512 and the 64^3 config's T = 4096, 4 heads of
+    128: the fused kernel at 128 keys a block; fp32 takes its pair."""
+    for t, h, d in set(problems[config]):
+        plan = flash_bwd_plan(batch, h, t, t, d)
+        check_bwd_plan(plan, d)
+        assert plan == FlashBwdPlan("wgmma", 128)
+        assert flash_bwd_plan(batch, h, t, t, d, torch.float32).route == "fp32"
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d,bn", [
+    (2, 300, 300, 4, 128, 128), (2, 300, 300, 2, 64, 64), (1, 70, 130, 3, 64, 64),
+    (1, 130, 70, 3, 128, 128), (2, 64, 64, 2, 100, 128), (1, 200, 40, 2, 128, 128),
+])
+def test_bwd_plan_at_ragged_shapes(b, tq, tk, h, d, bn):
+    """Short and ragged key ranges keep the head dim's tile (the keys past
+    Tk are masked)."""
+    plan = flash_bwd_plan(b, h, tq, tk, d)
+    check_bwd_plan(plan, d)
+    assert plan.bn == bn
+
+
+@pytest.mark.parametrize("d", list(range(1, 257, 7)) + list(HEAD_DIMS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+def test_bwd_route_by_head_dim_and_dtype(d, dtype):
+    """As the forward's: the fused kernel for bf16 at padded head dims 64
+    and 128, the mma.sync pair for other bf16, the fp32 pair for fp32, and
+    no route at all (never one off the card) for other dtypes."""
+    if dtype == torch.float16:
+        with pytest.raises(TypeError, match="bfloat16 or float32"):
+            flash_bwd_plan(2, 4, 512, 512, d, dtype)
+        return
+    plan = flash_bwd_plan(2, 4, 512, 512, d, dtype)
+    assert plan.route in ("wgmma", "mma_sync", "fp32")
+    if dtype == torch.float32:
+        assert plan.route == "fp32"
+    elif padded_head_dim(d) in WGMMA_HEAD_DIMS:
+        assert plan.route == "wgmma"
+        assert flash_plan(2, 4, 512, 512, d, dtype, sms=SMS).route == "wgmma"
+    else:
+        assert plan == MMA_SYNC_BWD_PLAN
+
+
+@pytest.mark.parametrize("d", WGMMA_HEAD_DIMS)
+def test_every_bwd_instance_fits(d):
+    """The fused launcher's instance at D = 64 and at 128 fits in shared
+    memory, the byte count written out: K and V (2 x 2 d bn), the Q and dO
+    rings (2 stages x 2 x 2 d bm), the bf16 dS^T tile (2 bn bm), dQ's two
+    fp32 shares (2 x 4 bm d), the lse and delta rows (2 stages x 2 x 4 bm),
+    3 mbarriers of 8 bytes and 1024 bytes of alignment, with bn = d keys and
+    bm = 64 query rows. The flagship's block at D = 128 takes 215,064 bytes
+    (one block an SM); at D = 64 two blocks fit."""
+    plan, bm = WGMMA_BWD_PLANS[d], FLASH_BWD_BM
+    assert plan.bn == d and bm == 64
+    written_out = (2 * 2 * d * plan.bn + 2 * 2 * 2 * d * bm + 2 * plan.bn * bm
+                   + 2 * 4 * bm * d + 2 * 2 * 4 * bm + 8 * 3 + 1024)
+    assert plan.smem_bytes() == written_out <= SMEM_LIMIT
+    if d == 128:
+        assert plan.smem_bytes() == 215064
+    else:
+        assert 2 * plan.smem_bytes() <= SMEM_LIMIT
+
+
+def test_bwd_kernel_wrapper_has_no_cpu_route():
+    """On the CPU the backward's kernel wrapper raises, with or without a
+    plan, and so does its delta pre-pass; only the autograd Function takes
+    the plain versions there."""
+    from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd_kernel, flash_delta_kernel)
+
+    q = torch.zeros(1, 8, 1, 64, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 1, 8)
+    for plan in (None, *WGMMA_BWD_PLANS.values(), MMA_SYNC_BWD_PLAN):
+        with pytest.raises(RuntimeError, match="no kernel for device cpu"):
+            flash_attention_bwd_kernel(q, q, q, q, lse, q, plan=plan)
+    with pytest.raises(RuntimeError, match="no kernel for device cpu"):
+        flash_delta_kernel(q, q)

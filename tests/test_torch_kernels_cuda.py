@@ -15,7 +15,9 @@ and Cout=1, fp32, strided q/k/v, padded head dims and Tq != Tk, for both
 dtypes of the flash kernel; the flash forward's wgmma route at every plan
 (T = 512, 4096 and a ragged 300, D = 64 and 128, with and without the LSE),
 its P V product alone, against the mma.sync kernel, and the route each head
-dim and dtype takes; the direct conv's three flagship convs at full
+dim and dtype takes; the fused backward at every plan (T = 512, 4096, 300
+and Tq != Tk, D = 64 and 128, strided qkv and head-major views), against
+the mma.sync pair, bitwise repeatable, and the plans it refuses; the direct conv's three flagship convs at full
 width and shapes off its 8 x 32 voxel tile; and the ring-attention kernel
 (K6, one launch per card) in its ring of 2 and 4 ranks on one card at T/n =
 128 and 1024, ragged shards and a padded head dim, and with one rank per
@@ -37,9 +39,11 @@ from rho_diffusion_tpu_torch.ops.kernels.conv3d import (
 from rho_diffusion_tpu_torch.ops.kernels.conv3d_variants import (
     bigdot, bigdot_plain, conv_variant, conv_variant_plain, dots_only, dots_only_plain)
 from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
-    MMA_SYNC_PLAN, WGMMA_PLANS, FlashPlan, flash_attention,
-    flash_attention_bwd_plain, flash_attention_fwd_kernel, flash_attention_plain,
-    flash_lse_plain, flash_plan, flash_routes, wgmma_pv_probe)
+    MMA_SYNC_BWD_PLAN, MMA_SYNC_PLAN, WGMMA_BWD_PLANS, WGMMA_PLANS, FlashBwdPlan,
+    FlashPlan, flash_attention, flash_attention_bwd_kernel, flash_attention_bwd_plain,
+    flash_attention_fwd_kernel, flash_attention_plain, flash_bwd_plan, flash_delta,
+    flash_delta_kernel, flash_lse_plain, flash_plan, flash_routes, padded_head_dim,
+    wgmma_pv_probe)
 from rho_diffusion_tpu_torch.parallel import context_sharded_attention, make_mesh
 
 pytestmark = pytest.mark.cuda
@@ -273,6 +277,15 @@ def test_flash_kernel_rejects_float16(cuda):
         flash_attention(q, q, q)
 
 
+def bwd_launches(d, dtype) -> dict:
+    """The backward's launches by route: the fused kernel and its delta
+    pre-pass for bf16 at padded head dims 64 and 128, the dkv/dq pair
+    elsewhere."""
+    if dtype == torch.bfloat16 and padded_head_dim(d) in (64, 128):
+        return {"flash_attention_bwd": 1, "flash_attention_bwd_delta": 1}
+    return {"flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1}
+
+
 def flash_grads(q, kv, do, d):
     """dq and d(kv) of flash_attention(q, *kv.split(d)) through autograd."""
     out = flash_attention(q, *kv.split(d, dim=-1))
@@ -298,8 +311,7 @@ def test_flash_backward_kernels_match_plain(cuda, b, tq, tk, h, d, dtype):
     launch_counts.clear()
     dq, dkv = flash_grads(q, kv, do, d)
     torch.cuda.synchronize()
-    assert launch_counts == {"flash_attention": 1, "flash_attention_bwd_dkv": 1,
-                             "flash_attention_bwd_dq": 1}
+    assert launch_counts == {"flash_attention": 1, **bwd_launches(d, dtype)}
     assert dq.dtype == dtype and dkv.dtype == dtype
     qf, kf, vf = q.detach().float(), *(z.float() for z in kv.detach().split(d, dim=-1))
     want = flash_attention_bwd_plain(qf, kf, vf, flash_attention_plain(qf, kf, vf),
@@ -319,6 +331,141 @@ def test_flash_backward_is_bitwise_repeatable(cuda, dtype):
     first = flash_grads(q, kv, do, 128)
     second = flash_grads(q, kv, do, 128)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def bwd_inputs(b, tq, tk, h, d, layout, seed, device):
+    """q, k, v, dO in bf16: strided views of one qkv (the UNet's; q apart
+    and k, v views of one kv where Tq != Tk), or [B, T, H, D] views of
+    head-major [B, H, T, D] tensors."""
+    if layout == "qkv" and tq == tk:
+        q, k, v = randn((b, tq, h, 3 * d), seed, device, torch.bfloat16).split(d, dim=-1)
+    elif layout == "qkv":
+        q = randn((b, tq, h, d), seed, device, torch.bfloat16)
+        k, v = randn((b, tk, h, 2 * d), seed + 1, device, torch.bfloat16).split(d, dim=-1)
+    else:
+        q = randn((b, h, tq, d), seed, device, torch.bfloat16).transpose(1, 2)
+        k, v = (randn((b, h, tk, d), seed + i, device, torch.bfloat16).transpose(1, 2)
+                for i in (1, 2))
+    return q, k, v, randn((b, tq, h, d), seed + 3, device, torch.bfloat16)
+
+
+def assert_bwd_close(got, q, k, v, do):
+    """dq, dk, dv within TOL_FLASH_BWD of the fp32 plain backward."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = flash_attention_bwd_plain(qf, kf, vf, flash_attention_plain(qf, kf, vf),
+                                     flash_lse_plain(qf, kf), do.float())
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert_flash_close_bwd(g, w)
+
+
+def assert_flash_close_bwd(got, want):
+    err = got.float() - want
+    tol = TOL_FLASH_BWD[torch.bfloat16]
+    assert float(err.abs().max()) <= tol * float(want.abs().max())
+    assert float(err.pow(2).mean().sqrt() / want.pow(2).mean().sqrt()) <= tol
+
+
+BWD_SHAPES = [
+    (4, 512, 512, 4, 128),    # the flagship's attention: 4 or 8 key tiles add to each dQ tile
+    (1, 4096, 4096, 2, 128),  # the 64^3 config's 4096 tokens: 32 or 64 key tiles
+    (2, 300, 300, 2, 64),     # ragged Tq and Tk, D = 64
+    (2, 300, 300, 3, 128),
+    (1, 70, 130, 3, 64),      # Tq != Tk
+    (1, 130, 70, 2, 128),
+    (2, 64, 64, 2, 100),      # head dim padded to 128, one key tile (no accumulator)
+    (1, 200, 40, 2, 128),     # fewer keys than a block: one key tile, half of it masked
+]
+
+
+@pytest.mark.parametrize("layout", ["qkv", "head_major"])
+@pytest.mark.parametrize("plan,b,tq,tk,h,d", [
+    (WGMMA_BWD_PLANS[padded_head_dim(shape[-1])], *shape) for shape in BWD_SHAPES
+], ids=lambda x: f"bn{x.bn}" if isinstance(x, FlashBwdPlan) else None)
+def test_flash_bwd_fused_every_plan_matches_plain(cuda, plan, b, tq, tk, h, d, layout):
+    """The fused kernel at the plan of each head dim (the only plans it
+    takes), on strided-qkv and head-major views, against the fp32 plain
+    backward on the same inputs."""
+    q, k, v, do = bwd_inputs(b, tq, tk, h, d, layout, 40, cuda)
+    o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+    launch_counts.clear()
+    got = flash_attention_bwd_kernel(q, k, v, o, lse, do, plan=plan)
+    torch.cuda.synchronize()
+    assert launch_counts == {"flash_attention_bwd": 1, "flash_attention_bwd_delta": 1}
+    assert all(g.shape == t.shape for g, t in zip(got, (q, k, v)))
+    assert_bwd_close(got, q, k, v, do)
+
+
+@pytest.mark.parametrize("b,t,h,d", [(32, 512, 4, 128), (2, 4096, 4, 128), (2, 300, 2, 64)])
+def test_flash_bwd_fused_matches_the_pair(cuda, b, t, h, d):
+    """The fused kernel against the mma.sync pair on the same inputs, at the
+    plan the UNet gets: both within the backward's bound of the plain
+    version, and of each other."""
+    q, k, v, do = bwd_inputs(b, t, t, h, d, "qkv", 41, cuda)
+    assert flash_bwd_plan(b, h, t, t, d).route == "wgmma"
+    o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+    launch_counts.clear()
+    new = flash_attention_bwd_kernel(q, k, v, o, lse, do)
+    old = flash_attention_bwd_kernel(q, k, v, o, lse, do, plan=MMA_SYNC_BWD_PLAN)
+    torch.cuda.synchronize()
+    assert launch_counts == {"flash_attention_bwd": 1, "flash_attention_bwd_delta": 1,
+                             "flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1}
+    assert_bwd_close(new, q, k, v, do)
+    assert_bwd_close(old, q, k, v, do)
+    for a, e in zip(new, old):
+        assert_flash_close_bwd(a, e.float())
+
+
+@pytest.mark.parametrize("b,t", [(32, 512), (2, 4096)])
+def test_flash_bwd_fused_is_bitwise_repeatable(cuda, b, t):
+    """dQ is added across key tiles in a fixed order: two runs at the
+    flagship's training shape and at T = 4096 agree bit for bit."""
+    q, k, v, do = bwd_inputs(b, t, t, 4, 128, "qkv", 42, cuda)
+    o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+    first = flash_attention_bwd_kernel(q, k, v, o, lse, do)
+    second = flash_attention_bwd_kernel(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, e) for a, e in zip(first, second))
+
+
+@pytest.mark.parametrize("b,t,h,d", [(32, 512, 4, 128), (2, 300, 3, 64), (1, 70, 2, 128)])
+def test_flash_delta_kernel_matches_plain(cuda, b, t, h, d):
+    """The fused route's pre-pass against flash_delta on the forward's own
+    output and a strided dO view: fp32 sums of exact bf16 products, in
+    another order."""
+    q, k, v, _ = bwd_inputs(b, t, t, h, d, "qkv", 46, cuda)
+    o, _ = flash_attention_fwd_kernel(q, k, v)
+    do = randn((b, t, h, 2 * d), 47, cuda, torch.bfloat16)[..., :d]
+    launch_counts.clear()
+    got = flash_delta_kernel(o, do)
+    torch.cuda.synchronize()
+    assert launch_counts == {"flash_attention_bwd_delta": 1}
+    want = flash_delta(o, do)
+    assert got.shape == want.shape == (b, h, t) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
+def test_flash_bwd_fused_refuses_a_plan_it_does_not_take(cuda):
+    q, k, v, do = bwd_inputs(1, 256, 256, 2, 128, "qkv", 43, cuda)
+    o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+    # the block's keys are the head dim: one warpgroup per 64 keys and per
+    # 64-channel chunk of dQ
+    for plan in (FlashBwdPlan("wgmma", 256), FlashBwdPlan("wgmma", 64),
+                 FlashBwdPlan("wgmma", 96)):
+        with pytest.raises(RuntimeError, match="plan"):
+            flash_attention_bwd_kernel(q, k, v, o, lse, do, plan=plan)
+    q64, k64, v64, do64 = bwd_inputs(1, 256, 256, 2, 64, "qkv", 44, cuda)
+    o64, lse64 = flash_attention_fwd_kernel(q64, k64, v64, with_lse=True)
+    with pytest.raises(RuntimeError, match="plan"):
+        flash_attention_bwd_kernel(q64, k64, v64, o64, lse64, do64, plan=WGMMA_BWD_PLANS[128])
+    q32 = randn((1, 64, 2, 32), 45, cuda, torch.bfloat16)
+    o32, lse32 = flash_attention_fwd_kernel(q32, q32, q32, with_lse=True)
+    with pytest.raises(RuntimeError, match="plan"):  # no instance at D = 32
+        flash_attention_bwd_kernel(q32, q32, q32, o32, lse32, q32,
+                                   plan=FlashBwdPlan("wgmma", 32))
+    with pytest.raises(ValueError, match="route"):
+        flash_attention_bwd_kernel(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                                   plan=MMA_SYNC_BWD_PLAN)
 
 
 @pytest.mark.parametrize(
@@ -401,16 +548,20 @@ def test_conv3d_function_gradients_match_plain(cuda, dtype):
         torch.testing.assert_close(a.float(), e, atol=tol * float(e.abs().max()), rtol=tol)
 
 
-def test_unet_training_step_reaches_every_parameter(cuda):
+@pytest.mark.parametrize("num_heads,head_dim", [(2, 32), (1, 64)],
+                         ids=["d32-mma_sync-pair", "d64-fused"])
+def test_unet_training_step_reaches_every_parameter(cuda, num_heads, head_dim):
     """One bf16 loss.backward() of a small 3-D UNet on the card: every
     parameter gets a finite gradient (no kernel cuts the graph), and the
-    step went through the forward and backward kernels."""
+    step went through the forward and backward kernels: the mma.sync pair
+    at head dim 32, the fused backward at 64."""
     from rho_diffusion_tpu_torch.models.unet import UNet
 
     torch.manual_seed(0)
     unet = UNet(data_shape=(4, 8, 8), in_channels=1, model_channels=32, out_channels=1,
                 num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2),
-                dims=3, num_heads=2, use_scale_shift_norm=True, dtype="bfloat16").to(cuda)
+                dims=3, num_heads=num_heads, use_scale_shift_norm=True,
+                dtype="bfloat16").to(cuda)
     with torch.no_grad():
         for p in unet.parameters():  # no zero-initialised heads
             p.copy_(torch.randn_like(p) / math.sqrt(p[0].numel() if p.dim() > 1 else 50))
@@ -425,9 +576,13 @@ def test_unet_training_step_reaches_every_parameter(cuda):
         assert p.grad is not None, name
         assert bool(torch.isfinite(p.grad).all()), name
         assert float(p.grad.abs().max()) > 0, name
+    bwd = bwd_launches(head_dim, torch.bfloat16)
     for kernel in ("conv3d_igemm", "conv3d_direct", "conv3d_dgrad_igemm", "conv3d_dgrad_direct",
-                   "flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+                   "flash_attention", *bwd):
         assert launch_counts[kernel] > 0, kernel
+    others = {"flash_attention_bwd", "flash_attention_bwd_delta", "flash_attention_bwd_dkv",
+              "flash_attention_bwd_dq"} - set(bwd)
+    assert not any(launch_counts[kernel] for kernel in others)
 
 
 def ring_inputs(b, t, h, d, dtype, device, seed):

@@ -50,14 +50,20 @@ from rho_diffusion_tpu_torch.training.optimizers import build_lr_schedule
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("block_k", [128, None])
-def test_flash_backward_matches_jax_grad(block_k):
+@pytest.mark.parametrize("block_k,t,d", [
+    pytest.param(128, 200, 32, id="128"),
+    pytest.param(None, 200, 32, id="None"),
+    pytest.param(None, 512, 128, id="flagship-T512-D128"),
+])
+def test_flash_backward_matches_jax_grad(block_k, t, d):
     """T=200 pads to 256: with block_k=128 the JAX kernels sweep two K/V
-    blocks, the second ragged; None takes one whole block. atol 5e-5, the
-    JAX package's own flash-gradient tolerance (tests/ops/
-    test_flash_attention.py), fp32 on both sides."""
+    blocks, the second ragged; None takes one whole block. The flagship's
+    attention width (T = 512, D = 128, 2 heads) is the one the fused
+    backward kernel runs on the card. atol 5e-5, the JAX package's own
+    flash-gradient tolerance (tests/ops/test_flash_attention.py), fp32 on
+    both sides."""
     rng = np.random.default_rng(0)
-    q, k, v = (rng.normal(size=(1, 200, 2, 32)).astype(np.float32) for _ in range(3))
+    q, k, v = (rng.normal(size=(1, t, 2, d)).astype(np.float32) for _ in range(3))
 
     def loss(q, k, v):
         return jnp.sum(jnp.sin(jax_flash_attention(q, k, v, 128, block_k, True)))
