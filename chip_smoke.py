@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py [--phases env,build,kernels,main,main64,train,hold,serve,timings,bench]
+    python3 chip_smoke.py [--phases env,build,kernels,main,main64,gauss,train,hold,serve,timings,bench]
                           [--steps 25] [--samples 4] [--timing-batch 8]
 
 Builds the port's CUDA kernels from ``rho_diffusion_tpu_torch/csrc`` (and
@@ -19,6 +19,24 @@ weights loaded from a reference-layout ``.pth``):
   over 4096 tokens, batch 8 as configured, bf16), its schedule cut to 21
   steps; a 64^3 forward held against the fp32 plain model at batch 1, and a
   batch-8 forward timed with its device-busy share;
+* ``gauss``: GaussianDiffusion sampling at full width through three entry
+  points: the bench entry ``python -m rho_diffusion_tpu_torch.bench`` (run
+  through its ``main``: DDIM-50 and dpm++-10 samples of the flagship UNet at
+  batch 8, and its train mode at batch 32; its JSON lines inside the
+  phase's), the inference CLI on ``examples/config_learned_variance.json``
+  (16^3, learned_range variance, attention over 256 tokens at head dim 64,
+  its 'ddpm' sampler respaced to 50 steps, 16 samples) and the service
+  (``serve.build_server`` on that config, ``--sampler ddim --steps 50``,
+  buckets 1 and 8, a request of each over HTTP, a row alone against
+  co-batched); held against the fp32 plain model: a flagship DDIM-50
+  sample at batch 2 from one x_T, the learned-variance UNet's kernels at
+  the CLI's batch-16 shapes (every conv, the Cout=2 fp32 head among them,
+  and K1 at 256 tokens, D = 64), its forward per output channel (mean and
+  variance) and its 'ddpm' sample with per-row keys, and a served DDIM-50
+  sample; and per path the wall time, the UNet
+  forward's share of a step, the sampler arithmetic's own device time per
+  step (dynamic thresholding's torch.quantile included) and the device's
+  busy share of one sample;
 * ``train``: five DDPM training steps at batch 32 through
   ``rho_diffusion_tpu_torch.training``'s ``main``, the checkpoint read back
   to the trainer's EMA weights, and one profiled step;
@@ -64,8 +82,8 @@ twice (bitwise) and against the mma.sync pair. Every
 phase prints one JSON line; a failing phase exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``, after the
 ``kernels`` line and the card's ``nvidia-smi`` name and power limit. A run
-whose ``--phases`` leave out any of kernels, main, main64, train, serve,
-timings and bench prints neither and exits 3.
+whose ``--phases`` leave out any of kernels, main, main64, gauss, train,
+serve, timings and bench prints neither and exits 3.
 
 Exits non-zero without a result when CUDA is unavailable or the script runs
 outside a checkout of the repository. Imports nothing of JAX.
@@ -88,10 +106,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "examples" / "config_spherical_harmonics.json"
 CONFIG64 = ROOT / "examples" / "config_spherical_harmonics_64.json"
-PHASES = ("env", "build", "kernels", "main", "main64", "train", "hold", "serve", "timings",
-          "bench")
+GAUSS_CONFIG = ROOT / "examples" / "config_learned_variance.json"
+PHASES = ("env", "build", "kernels", "main", "main64", "gauss", "train", "hold", "serve",
+          "timings", "bench")
 # the phases whose numbers the kernels line carries
-KERNELS_LINE_PHASES = ("kernels", "main", "main64", "train", "serve", "timings", "bench")
+KERNELS_LINE_PHASES = ("kernels", "main", "main64", "gauss", "train", "serve", "timings",
+                       "bench")
 DEVICE = "cuda"
 # the train phase: the flagship's batch, and steps cut to five
 TRAIN_BATCH = 32
@@ -110,6 +130,20 @@ MAIN64_HOLD_BATCH = 1
 # K2 at the 64^3 config's 4096 tokens, a ragged T and D = 64
 FLASH_PLAN_SHAPES = ((4, 512, 4, 128), (8, 512, 4, 128), (32, 512, 4, 128), (8, 4096, 4, 128),
                      (2, 300, 4, 128), (2, 300, 2, 64))
+# the gauss phase: the bench entry's runs (environment over its defaults),
+# the respaced steps of the CLI and the service, the service's buckets, and
+# the batch of the sample holds (the flagship's DDIM-50, the CLI's ddpm)
+GAUSS_BENCH_RUNS = (
+    ("sample", {"BENCH_MODE": "sample"}),
+    ("sample_dpmpp10", {"BENCH_MODE": "sample", "BENCH_SAMPLER": "dpm++",
+                        "BENCH_DDIM_STEPS": "10"}),
+    ("train", {"BENCH_MODE": "train"}),
+)
+GAUSS_STEPS = 50
+GAUSS_BUCKETS = (1, 8)
+GAUSS_HOLD_BATCH = 2
+# the steps of a sampler loop whose device time is read as the arithmetic's
+GAUSS_ARITH_STEPS = 5
 # the bench phase: every variant of the bottleneck-isolation entry
 BENCH_VARIANTS = ("full", "nopatch", "nodma", "dotsonly", "bigdot1", "bigdot2", "bigdot4",
                   "bigdot8")
@@ -1053,6 +1087,412 @@ def phase_main64(state: dict) -> None:
         fail("main64: " + "; ".join(problems))
 
 
+def gauss_config() -> dict:
+    """``examples/config_learned_variance.json`` at full width with the
+    gauss phase's cuts."""
+    cfg = json.loads(GAUSS_CONFIG.read_text())
+    space = json.loads(CONFIG.read_text())["inference"]["parameter_space"]
+    cfg["inference"].update(cache_file=None, plot_output_file=None, checkpoint=None,
+                            parameter_space=space)
+    return cfg
+
+
+GAUSS_CUTS = {
+    "inference.parameter_space": "none -> the flagship's (l, m) grid: the config's UNet is "
+                                 "class-conditional (num_classes 20) and names no condition "
+                                 "rows, so its inference CLI (the JAX package's too) stops at "
+                                 "'class-conditional model requires y'",
+    "inference.cache_file, plot_output_file, checkpoint": "-> none (weights through -p)",
+}
+
+
+@contextlib.contextmanager
+def bench_env(env: dict):
+    """The bench entry's BENCH_* variables set to ``env`` (the others
+    cleared) for the body, then put back."""
+    import os
+
+    saved = {k: v for k, v in os.environ.items() if k.startswith("BENCH_")}
+    for k in saved:
+        del os.environ[k]
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+        os.environ.update(saved)
+
+
+def counted(fn):
+    """(fn's result, host seconds, launch counts, flash routes) of one
+    call, the counts cleared just before it."""
+    import torch
+
+    from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+    from rho_diffusion_tpu_torch.ops.kernels.flash_attention import flash_routes
+
+    launch_counts.clear()
+    flash_routes.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(launch_counts), dict(flash_routes)
+
+
+def sampling_breakdown(pipe, shape, conds, sampler: str, steps: int, sample=None,
+                       wall_s=None) -> dict:
+    """One sample's anatomy per step, on a path that has already run (and
+    so warmed) it: one sample's host-clock time (``wall_s`` where the path
+    timed it; and, when the caller's thread issues its launches, that
+    thread's CPU time); its device time (torch.profiler over one more
+    sample, a lower bound as the profiler can miss launches) and busy
+    share; a UNet forward's device time and its share of the step's device
+    time (its CUDA-event time too, which the host's launches set); and the
+    sampler arithmetic's own device time per step: ``GAUSS_ARITH_STEPS``
+    steps of the same loop with the model replaced by one stored output
+    (the tables, dynamic thresholding's torch.quantile, whose sort kernels
+    are listed, and the update). ``sample`` draws the sample timed and
+    profiled (by default ``pipe.reverse_process`` on ``shape`` and
+    ``conds``)."""
+    import torch
+
+    device = pipe.device
+
+    def direct(n: int = steps):
+        return pipe.reverse_process(shape, conds, sampler=sampler, num_steps=n,
+                                    generator=torch.Generator(device=device).manual_seed(0))
+
+    own = sample is None and wall_s is None
+    sample = sample or direct
+    t0 = time.perf_counter()
+    wall = wall_s
+    if wall is None:
+        torch.cuda.synchronize()
+        c0 = time.thread_time()
+        sample()
+        torch.cuda.synchronize()
+        wall, cpu = time.perf_counter() - t0, time.thread_time() - c0
+    t_prof = time.perf_counter()
+    by_name = device_time_by_kernel(sample)
+    profile_s = time.perf_counter() - t_prof
+    x = randn(shape, 3, device, torch.float32).clamp(-1, 1)
+    t = torch.full((shape[0],), 500, dtype=torch.int64, device=device)
+    with torch.no_grad():
+        fwd_ms = cuda_time_ms(lambda: pipe.apply(x, t, conds), iters=5, warmup=1)
+        fwd = device_time_by_kernel(lambda: pipe.apply(x, t, conds))
+        stored = pipe.apply(x, t, conds).float()
+    n = GAUSS_ARITH_STEPS
+    pipe._model_fn = lambda conditions, guidance_scale=None: (lambda x_, t_: stored)
+    try:
+        direct(n)  # its respaced tables built
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        direct(n)
+        torch.cuda.synchronize()
+        arith_host = time.perf_counter() - t1
+        arith = device_time_by_kernel(lambda: direct(n))
+    finally:
+        del pipe._model_fn
+    out = {"batch": shape[0], "sampler": sampler, "steps": steps, "sample_s": wall,
+           **({"sample_thread_cpu_s": cpu} if own else {}),
+           "step_ms": 1e3 * wall / steps, "unet_forward_event_ms": fwd_ms,
+           "arithmetic_steps": n, "arithmetic_host_ms_per_step": 1e3 * arith_host / n,
+           "profiled_sample_s": profile_s, "seconds": time.perf_counter() - t0}
+    if not (by_name and fwd and arith):
+        out["device"] = NOT_PROFILED["status"]
+        return out
+    step_dev = sum(ms for ms, _ in by_name.values()) / steps
+    fwd_dev = sum(ms for ms, _ in fwd.values())
+    arith_ms = sum(ms for ms, _ in arith.values()) / n
+    out.update(
+        step_device_ms=step_dev, device_busy_share=step_dev * steps / 1e3 / wall,
+        unet_forward_device_ms=fwd_dev, unet_forward_share_of_step=fwd_dev / step_dev,
+        arithmetic_device_ms_per_step=arith_ms, arithmetic_share_of_step=arith_ms / step_dev,
+        arithmetic_sort_device_ms_per_step=sum(
+            ms for name, (ms, _) in arith.items() if "sort" in name.lower()) / n,
+        arithmetic_launches_per_step=sum(c for _, c in arith.values()) / n,
+        arithmetic_top=profile_summary(arith)["top"][:6],
+        sample_launches=sum(c for _, c in by_name.values()))
+    return out
+
+
+def hold_rows(got: dict, plain_bf16: dict, plain_fp32: dict, caps: dict) -> dict:
+    """The hold rule for each output of ``got``: the kernels' relative MSE
+    against the fp32 plain model at most ``HOLD_FACTOR`` times the bf16
+    plain model's, and never above ``caps[output]``."""
+    import torch
+
+    rows = {}
+    for what, value in got.items():
+        k, p = rel_mse(value, plain_fp32[what]), rel_mse(plain_bf16[what], plain_fp32[what])
+        row = {"kernels_vs_fp32_plain": k, "bf16_plain_vs_fp32_plain": p,
+               "kernels_vs_bf16_plain": rel_mse(value, plain_bf16[what]),
+               "bar": min(HOLD_FACTOR * p, caps[what]),
+               "finite": bool(torch.isfinite(value).all())}
+        rows[what] = {**row, "ok": row["finite"] and k <= row["bar"]}
+    return rows
+
+
+def phase_gauss(state: dict) -> None:
+    """GaussianDiffusion sampling on the card at full width through three
+    entry points, each path's launch counts cleared just before it and read
+    just after: (a) the bench entry ``rho_diffusion_tpu_torch.bench`` (DDIM-50
+    and dpm++-10 samples of the flagship UNet at batch 8, and its default
+    train mode at batch 32); (b) the inference CLI on
+    ``examples/config_learned_variance.json`` (16^3, learned_range, its
+    'ddpm' sampler respaced to 50 steps, its 16 samples); (c) the service
+    through ``serve.build_server`` on the same config with ``--sampler ddim
+    --steps 50``, buckets 1 and 8, a request of each size over HTTP and a
+    row alone against co-batched. Holds against the fp32 plain model: a
+    flagship DDIM-50 sample at batch 2 from one x_T; the learned-variance
+    UNet's kernels at the shapes of the CLI's batch-16 forward (every conv,
+    the Cout=2 fp32 head among them, and K1 at its attention shapes); that
+    UNet's forward, each output channel (the mean and the learned_range
+    variance) on its own, and its 'ddpm' sample, which reads the variance
+    channel, drawn with per-row keys; and a served DDIM-50 sample. Each
+    path's per-step breakdown (``sampling_breakdown``)."""
+    import io
+    import re
+    import threading
+
+    import numpy as np
+    import torch
+
+    from rho_diffusion_tpu_torch import bench, inference, serve
+    from rho_diffusion_tpu_torch.diffusion.sampling_rng import per_sample_keys
+
+    device = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    launches, routes, problems = {}, {}, []
+
+    # (a) the bench entry, in-process; its one JSON line and its stderr
+    # diagnostics (each timed sample's wall clock and thread CPU) captured
+    runs, seconds = {}, {}
+    for name, env in GAUSS_BENCH_RUNS:
+        torch.cuda.empty_cache()
+        captured, err = io.StringIO(), io.StringIO()
+        with bench_env(env), contextlib.redirect_stdout(captured), \
+                contextlib.redirect_stderr(err):
+            result, wall, counts, fr = counted(lambda: bench.main(["-d", DEVICE]))
+        lines = captured.getvalue().splitlines()
+        diag = err.getvalue().strip()
+        runs[name] = {"line": json.loads(lines[-1]) if lines else None, "lines": len(lines),
+                      "entry_s": wall, "stderr": diag, "launches": counts, "flash_routes": fr}
+        for key in ("sample_s", "thread_cpu_s"):
+            found = re.search(rf"\b{key}=(\[[^\]]*\])", diag)
+            if found:
+                runs[name][key] = json.loads(found.group(1))
+        launches[f"gauss_bench_{name}"], routes[f"gauss_bench_{name}"] = counts, fr
+        want = ["flash_attention", "conv3d_igemm", "conv3d_direct"]
+        if name == "train":
+            want += ["flash_attention_bwd", "conv3d_dgrad_igemm"]
+        missing = [k for k in want if not counts.get(k)]
+        if missing or lines != [json.dumps(result)]:
+            problems.append(f"bench {name}: missing {missing}, lines {lines}")
+    with bench_env(dict(GAUSS_BENCH_RUNS[0][1])):
+        s = bench.settings()
+        pipe = bench.sampling_pipeline(s, device)
+    torch.cuda.empty_cache()
+    runs["sample"]["breakdown"] = sampling_breakdown(
+        pipe, pipe.sample_shape(8), torch.zeros((8, 4 * s["mc"]), device=device), "ddim",
+        GAUSS_STEPS, wall_s=runs["sample"]["line"]["value"])
+    del pipe
+    seconds["bench"] = time.perf_counter() - t0
+
+    # the flagship DDIM-50 hold: kernels (bf16) against the fp32 plain model
+    sd = random_state_dict(bench.sampling_pipeline(s, "cpu").backbone, seed=0)
+    cond2 = torch.from_numpy(serve_conditions(json.loads(CONFIG.read_text()),
+                                              GAUSS_HOLD_BATCH, 0)).to(device)
+    pipes = {}
+    for dt in ("bfloat16", "float32"):
+        s_dt = {**s, "backbone_kwargs": {**s["backbone_kwargs"], "dtype": dt}}
+        pipes[dt] = bench.sampling_pipeline(s_dt, device)
+        pipes[dt].load_state_dict(sd)
+    shape2 = pipes["bfloat16"].sample_shape(GAUSS_HOLD_BATCH)
+    x_T = randn(shape2, 9, device, torch.float32)
+
+    def ddim(p):
+        return {"sample": p.reverse_process(shape2, cond2, sampler="ddim",
+                                            num_steps=GAUSS_STEPS, x_T=x_T)}
+
+    got = ddim(pipes["bfloat16"])
+    with plain_backends():
+        plain_bf16, plain_fp32 = ddim(pipes["bfloat16"]), ddim(pipes["float32"])
+    hold = {**hold_rows(got, plain_bf16, plain_fp32, HOLD_CAP)["sample"],
+            "batch": GAUSS_HOLD_BATCH, "sampler": "ddim", "steps": GAUSS_STEPS}
+    if not hold["ok"]:
+        problems.append(f"flagship DDIM-50 hold: {hold}")
+    del pipes, got, plain_bf16, plain_fp32
+    torch.cuda.empty_cache()
+    seconds["hold"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    cfg = gauss_config()
+    space_cfg = {"inference": {"parameter_space": cfg["inference"]["parameter_space"]}}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_gauss_"))
+    messages: list = []
+    try:
+        cfg_path = tmp / "config.json"
+        cfg_path.write_text(json.dumps(cfg))
+        sd = random_state_dict(build_pipeline(cfg, "float32", "cpu").backbone, seed=0)
+        pth = tmp / "model.pth"
+        torch.save(sd, pth)
+
+        # (b) the inference CLI
+        out, cli_s, counts, fr = counted(lambda: inference.main(
+            [str(cfg_path), "-p", str(pth), "-d", DEVICE, "-f", "--steps", str(GAUSS_STEPS),
+             "--work-dir", str(tmp)]))
+        launches["gauss_cli"], routes["gauss_cli"] = counts, fr
+        mk = cfg["model"]["kwargs"]
+        n_cli = cfg["inference"].get("num_samples", 16)
+        want_shape = (n_cli, *mk["data_shape"], mk["in_channels"])
+        sampler = cfg["inference"]["sampler"]
+        cli = {"config": GAUSS_CONFIG.name, "cuts": GAUSS_CUTS, "shape": list(out.shape),
+               "finite": bool(np.isfinite(out).all()), "sampler": sampler,
+               "steps": GAUSS_STEPS, "wall_s": cli_s, "launches": counts, "flash_routes": fr,
+               "sample_mean": float(out.mean()), "sample_std": float(out.std())}
+        missing = [k for k in ("flash_attention", "conv3d_igemm", "conv3d_direct")
+                   if not counts.get(k)]
+        if missing or tuple(out.shape) != want_shape or not cli["finite"] or \
+                not any(r.startswith("wgmma") for r in fr):
+            problems.append(f"CLI: missing {missing}, {cli}")
+        lv, lv32 = (build_pipeline(cfg, dt, device) for dt in ("bfloat16", "float32"))
+        lv.load_state_dict(sd)
+        lv32.load_state_dict(sd)
+        # its kernels at the shapes of the CLI's batch-16 forward: every conv
+        # (the Cin=1 input conv, the implicit GEMMs, the Cout=2 fp32 head) and
+        # K1 at each attention shape (256 tokens, D = 64)
+        conv_rows = hold_convs(lv.backbone, n_cli, "forward", device, seed=200, timed=False)
+        attn = sorted({call[0] for call in forward_shapes(lv.backbone, n_cli, device)[1]},
+                      key=str)
+        flash_rows = [check_flash(*qs, device, seed=210 + i, dtype=dt)
+                      for i, (qs, dt) in enumerate(attn)]
+        record_errors(state, conv_rows + flash_rows)
+        cli["kernel_holds"] = {"conv": conv_rows, "flash": flash_rows}
+        bad = [r for r in conv_rows + flash_rows if not r["ok"]]
+        if bad:
+            problems.append(f"CLI kernels outside tolerance: {bad[:3]}")
+        # the forward per output channel, and the 'ddpm' sample drawn with
+        # per-row keys, on the kernels against the fp32 plain model
+        x, t, y = unet_inputs(lv.backbone, GAUSS_HOLD_BATCH, device, seed=5)
+        conds_h = torch.from_numpy(serve_conditions(space_cfg, GAUSS_HOLD_BATCH, 70)).to(device)
+
+        def lv_outputs(p):
+            with torch.no_grad():
+                f = p.apply(x, t, y).float()
+            return {"forward_mean_channel": f[..., 0], "forward_variance_channel": f[..., 1],
+                    "sample": p.reverse_process(
+                        p.sample_shape(GAUSS_HOLD_BATCH), conds_h, sampler=sampler,
+                        num_steps=GAUSS_STEPS, row_keys=per_sample_keys(7, GAUSS_HOLD_BATCH))}
+
+        got = lv_outputs(lv)
+        with plain_backends():
+            plain_bf16, plain_fp32 = lv_outputs(lv), lv_outputs(lv32)
+        caps = {"forward_mean_channel": HOLD_CAP["forward"],
+                "forward_variance_channel": HOLD_CAP["forward"], "sample": HOLD_CAP["sample"]}
+        cli["hold"] = {**hold_rows(got, plain_bf16, plain_fp32, caps),
+                       "batch": GAUSS_HOLD_BATCH, "sampler": sampler, "steps": GAUSS_STEPS}
+        bad = [k for k in caps if not cli["hold"][k]["ok"]]
+        if bad:
+            problems.append(f"CLI hold {bad}: {cli['hold']}")
+        del got, plain_bf16, plain_fp32
+        conds_cli = torch.from_numpy(serve_conditions(space_cfg, n_cli, 0)).to(device)
+        cli["breakdown"] = sampling_breakdown(lv, lv.sample_shape(n_cli), conds_cli, sampler,
+                                              GAUSS_STEPS)
+        seconds["cli"] = time.perf_counter() - t0 - sum(seconds.values())
+        t_svc = time.perf_counter()
+
+        # (c) the service over HTTP
+        argv = [str(cfg_path), "-p", str(pth), "-d", DEVICE, "--port", "0", "--buckets",
+                ",".join(map(str, GAUSS_BUCKETS)), "--sampler", "ddim", "--steps",
+                str(GAUSS_STEPS), "--warmup", "--work-dir", str(tmp)]
+        (server, service), build_s, warm_counts, _ = counted(
+            lambda: serve.build_server(argv, log=messages.append))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        port = server.server_address[1]
+        try:
+            def requests():
+                done = []
+                for n, seed in ((1, 1), (8, 2)):
+                    t2 = time.perf_counter()
+                    reply = http_call(port, "POST", "/generate", {
+                        "conditions": serve_conditions(space_cfg, n, seed).tolist(),
+                        "seed": seed})
+                    arr = np.asarray(reply["samples"], np.float32)
+                    done.append({"n": n, "shape": reply["shape"], "bucket": reply["bucket"],
+                                 "latency_s": reply["latency_s"],
+                                 "http_s": time.perf_counter() - t2,
+                                 "finite": bool(np.isfinite(arr).all())})
+                return done
+
+            reqs, _, counts, fr = counted(requests)
+            launches["gauss_service"], routes["gauss_service"] = counts, fr
+            latency = {f"bucket{b}_s": [service.generate(
+                serve_conditions(space_cfg, b, 60), seed=60).latency_s for _ in range(2)]
+                for b in GAUSS_BUCKETS}
+            conds4 = serve_conditions(space_cfg, 4, 20)
+            alone = service.generate(conds4[:1], seed=5)
+            busy = service.submit(serve_conditions(space_cfg, 8, 30), seed=6)
+            mine = service.submit(conds4[:1], seed=5)
+            other = service.submit(conds4[1:], seed=7)
+            busy.result()
+            other.result()
+            co = mine.result()
+            conds2 = serve_conditions(space_cfg, 2, 40)
+            served = service.generate(conds2, seed=8).samples
+            # a bucket-8 request's anatomy: timed and profiled through the service
+            conds8 = serve_conditions(space_cfg, 8, 50)
+            bucket8 = sampling_breakdown(
+                lv, lv.sample_shape(8), torch.from_numpy(conds8).to(device), "ddim",
+                GAUSS_STEPS, sample=lambda: service.generate(conds8, seed=9))
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+            thread.join(timeout=30)
+        with plain_backends():
+            plain_bf16, plain_fp32 = ({"sample": pl.reverse_process(
+                pl.sample_shape(2), torch.from_numpy(conds2).to(device), sampler="ddim",
+                num_steps=GAUSS_STEPS, row_keys=per_sample_keys(8, 2)).float().cpu()}
+                for pl in (lv, lv32))
+        sample_hold = {**hold_rows({"sample": torch.from_numpy(served)}, plain_bf16, plain_fp32,
+                                   HOLD_CAP)["sample"], "batch": 2}
+        bar = sample_hold["bar"]
+        same = {"alone_bucket": alone.bucket, "cobatched_bucket": co.bucket,
+                "max_abs_diff": float(np.abs(alone.samples - co.samples).max()),
+                "rel_mse": rel_mse(co.samples, alone.samples), "bar": bar,
+                "check": "relative MSE of the co-batched row against the alone one"}
+        svc = {"buckets": GAUSS_BUCKETS, "sampler": "ddim", "steps": GAUSS_STEPS,
+               "build_and_warmup_s": build_s, "warmup_launches": warm_counts,
+               "requests": reqs, "launches": counts, "flash_routes": fr,
+               "latency_s": latency, "alone_vs_cobatched": same, "sample_hold": sample_hold,
+               "breakdown": {**bucket8, "of": "one bucket-8 request through the service"},
+               "messages": messages, "seconds": time.perf_counter() - t_svc}
+        missing = [k for k in ("flash_attention", "conv3d_igemm", "conv3d_direct")
+                   if not counts.get(k)]
+        shapes_ok = all(r["shape"] == [r["n"], *mk["data_shape"], 1] and r["finite"]
+                        for r in reqs)
+        if missing or not shapes_ok:
+            problems.append(f"service: missing {missing}, requests {reqs}")
+        if co.bucket < 2 or not same["rel_mse"] <= bar:
+            problems.append(f"service alone vs co-batched: {same}")
+        if not sample_hold["ok"]:
+            problems.append(f"service sample hold: {sample_hold}")
+        del lv, lv32
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    state["gauss_launches"] = launches
+    state.setdefault("flash_routes", {}).update(routes)
+    seconds["service"] = svc["seconds"]
+    emit("gauss", bench=runs, hold_ddim50=hold, cli=cli, service=svc,
+         seconds_by_part=seconds, seconds=time.perf_counter() - t0)
+    if problems:
+        fail("gauss: " + "; ".join(problems))
+
+
 def train_config(batch: int) -> dict:
     """The flagship config at full width with the train phase's cuts."""
     cfg = json.loads(CONFIG.read_text())
@@ -1304,15 +1744,8 @@ def phase_hold(state: dict) -> None:
         grads_fp32_plain = train_gradients(ref, *batch)
     torch.cuda.synchronize()
 
-    fields, bad = {}, []
-    for what in ("forward", "sample"):
-        k = rel_mse(got[what], plain_fp32[what])
-        p = rel_mse(plain_bf16[what], plain_fp32[what])
-        fields[what] = {"kernels_vs_fp32_plain": k, "bf16_plain_vs_fp32_plain": p,
-                        "kernels_vs_bf16_plain": rel_mse(got[what], plain_bf16[what]),
-                        "bar": min(HOLD_FACTOR * p, HOLD_CAP[what])}
-        if not k <= fields[what]["bar"]:
-            bad.append(what)
+    fields = hold_rows(got, plain_bf16, plain_fp32, HOLD_CAP)
+    bad = [what for what, row in fields.items() if not row["ok"]]
     k, k_name, k_worst = grad_distance(grads, grads_fp32_plain)
     p, p_name, p_worst = grad_distance(grads_bf16_plain, grads_fp32_plain)
     fields["train_gradients"] = {
@@ -1664,18 +2097,15 @@ def ops_of(fn, iters: int) -> tuple[dict, dict]:
     """({CUDA operation: count}, {host copy or cat op: count}) over
     ``iters`` calls of ``fn`` under torch.profiler."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    from rho_diffusion_tpu_torch.benchmarks._timing import trace_events
+
     device, copies = {}, {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            device[e.name] = device.get(e.name, 0) + 1
-        elif e.name in COPY_OPS:
-            copies[e.name] = copies.get(e.name, 0) + 1
+    for e in trace_events(fn, iters):
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            device[e.name()] = device.get(e.name(), 0) + 1
+        elif e.name() in COPY_OPS:
+            copies[e.name()] = copies.get(e.name(), 0) + 1
     return device, copies
 
 
@@ -2206,7 +2636,8 @@ def kernels_line(state: dict) -> list:
     and td as ``variants``."""
     launches = {"sampling": state["launches"], "sampling64": state["main64_launches"],
                 "training": state["train_launches"], "serving": state["serve_launches"],
-                "bench": state["bench_launches"], "kernels": state["kernels_launches"]}
+                "bench": state["bench_launches"], "kernels": state["kernels_launches"],
+                **state["gauss_launches"]}
     out = []
     for name, source, replaces, path in KERNELS:
         rows = [r for r in state["timings"] + state["bench"]
@@ -2369,6 +2800,8 @@ def main(argv=None) -> int:
         phase_main(state, args.steps, args.samples)
     if "main64" in phases:
         phase_main64(state)
+    if "gauss" in phases:
+        phase_gauss(state)
     if "train" in phases:
         phase_train(state, TRAIN_BATCH)
     if "hold" in phases:

@@ -93,20 +93,40 @@ def per_call_ms(by_name: dict, substring: str, launches_per_call: int):
     return sum(ms for ms, _ in hits) / recorded * launches_per_call, recorded
 
 
-def kernel_events(fn, iters: int) -> dict:
-    """{CUDA kernel name: (device ms, launches recorded)} over ``iters``
-    calls of ``fn`` (in the caller's grad mode) under torch.profiler."""
+# spin kernels launched at the head of every profiled window: late in a
+# process that has traced a lot, torch.profiler drops a window's first
+# device events (on the H100, 8 of 20 after chip_smoke's gauss phase), and
+# these take the loss in place of the launches measured
+WINDOW_LEAD_LAUNCHES = 1024
+LEAD_KERNEL = "spin_kernel"
+
+
+def trace_events(fn, iters: int) -> list:
+    """The raw torch.profiler events (host ops and CUDA activity) of
+    ``iters`` calls of ``fn`` (in the caller's grad mode), the window's lead
+    of spin kernels left out. Raw: building the profiler's event tree from
+    a long trace (a whole sample's 70 k launches and their host ops) takes
+    longer than the sample."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(WINDOW_LEAD_LAUNCHES):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    return [e for e in prof.profiler.kineto_results.events() if LEAD_KERNEL not in e.name()]
+
+
+def kernel_events(fn, iters: int) -> dict:
+    """{CUDA kernel name: (device ms, launches recorded)} over ``iters``
+    calls of ``fn`` (in the caller's grad mode)."""
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    for e in trace_events(fn, iters):
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
     return by_name
 
 

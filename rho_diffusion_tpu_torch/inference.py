@@ -20,10 +20,11 @@ Mirrors ``scripts/inference.py`` and the JAX package's
 
 ``--guidance`` (else ``inference.guidance_scale``) != 1 samples with
 classifier-free guidance. ``--sampler``, ``--steps`` and ``--spacing``
-belong to the GaussianDiffusion family, which is not ported yet (ROADMAP
-Queue 1 item 6): the DDPM pipeline ignores the first two and rejects a
-spacing, as the service does. ``--quant int8`` raises until int8 inference
-is ported (ROADMAP Queue 1 item 11).
+belong to the GaussianDiffusion family; each flag wins over the config's
+``inference.sampler``, ``inference.ddim_steps`` and ``inference.spacing``,
+which win over the pipeline's defaults. The DDPM pipeline ignores the first
+two and rejects a spacing, as the service does. ``--quant int8`` raises
+until int8 inference is ported (ROADMAP Queue 1 item 11).
 
 It runs on CUDA unless ``-d cpu`` is given (a config's "tpu" means CUDA) and
 raises when CUDA is absent. The JAX package's orbax checkpoint directories
@@ -78,9 +79,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[np.ndarray]:
                         help="overwrite an existing inference output cache file")
     parser.add_argument("--work-dir", type=Path, default=Path("."))
     parser.add_argument("--sampler", default=None, choices=["ddpm", "ddim", "dpm++", "unipc"],
-                        help="GaussianDiffusion family only; the DDPM pipeline ignores it")
+                        help="GaussianDiffusion family only (over inference.sampler); the "
+                             "DDPM pipeline ignores it")
     parser.add_argument("--steps", type=int, default=None,
-                        help="GaussianDiffusion family only; the DDPM pipeline ignores it")
+                        help="respaced sampling steps, GaussianDiffusion family only (over "
+                             "inference.ddim_steps); the DDPM pipeline ignores it")
     parser.add_argument("--spacing", default=None,
                         choices=["uniform-t", "uniform-lambda", "trailing", "karras"],
                         help="GaussianDiffusion family only; the DDPM pipeline rejects it")
@@ -119,7 +122,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[np.ndarray]:
     for m in messages:
         print(m)
     spacing = args.spacing or config.inference.spacing
-    if spacing is not None and not hasattr(pipeline, "coeffs"):
+    kwargs = {"guidance_scale": guidance}
+    if hasattr(pipeline, "coeffs"):  # the GaussianDiffusion family
+        kwargs.update(sampler=args.sampler or config.inference.sampler,
+                      num_steps=args.steps or (config.inference.ddim_steps or None),
+                      spacing=spacing)
+    elif spacing is not None:
         raise ValueError(
             f"spacing={spacing!r} is a GaussianDiffusion-family respacing control; "
             "the DDPM pipeline always samples its full schedule",
@@ -132,7 +140,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[np.ndarray]:
         parameter_space=config.inference.parameter_space,
         random=False,
         as_hash_embeddings=use_hash,
-        guidance_scale=guidance,
+        **kwargs,
     )
     samples = samples.float().cpu().numpy()
     print(f"generated {samples.shape}, finite={np.isfinite(samples).all()}")

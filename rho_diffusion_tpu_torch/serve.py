@@ -2,6 +2,7 @@
 
     python -m rho_diffusion_tpu_torch.serve CONFIG.json [-p WEIGHTS] [-d cuda|cpu]
         [--port 8000] [--buckets 1,2,4,8] [--cond-dim W] [--warmup]
+        [--sampler ddim] [--steps 50] [--spacing GRID]
         [--transfer-dtype bfloat16|float16] [--guidance S]
         [--data-parallel N] [--context-parallel M] [--mesh-devices LIST]
 
@@ -19,8 +20,9 @@ ranks are every CUDA card, one each, unless ``--mesh-devices`` lists them
 (one device per rank, repeats allowed: ``cuda:0,cuda:0,cuda:0,cuda:0`` puts
 four ranks on one card); with ``-d cpu`` they are M ranks on the CPU. A
 data axis > 1 and ``--quant`` raise (ROADMAP Queue 1 items 13 and 11).
-``--sampler``, ``--steps`` and ``--spacing`` belong to the GaussianDiffusion
-family, whose configs raise until it is ported (ROADMAP Queue 1 item 6);
+``--sampler``, ``--steps`` and ``--spacing`` set the GaussianDiffusion
+family's sampler, respaced step count and grid (over the config's
+``inference.sampler``, ``inference.ddim_steps`` and ``inference.spacing``);
 the DDPM pipeline ignores the first two and rejects ``--spacing``, as in
 JAX.
 """
@@ -48,7 +50,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--sampler", default=None, choices=["ddpm", "ddim", "dpm++", "unipc"],
                         help="GaussianDiffusion family only; the DDPM pipeline ignores it")
     parser.add_argument("--steps", type=int, default=None,
-                        help="GaussianDiffusion family only; the DDPM pipeline ignores it")
+                        help="respaced sampling steps, GaussianDiffusion family only; the DDPM "
+                             "pipeline ignores it")
     parser.add_argument("--spacing", default=None,
                         choices=["uniform-t", "uniform-lambda", "trailing", "karras"])
     parser.add_argument("--guidance", type=float, default=None,
@@ -83,7 +86,8 @@ def build_server(argv: Optional[Sequence[str]] = None, log=print):
     args = parse_args(argv)
     kwargs: dict = {"batch_buckets": tuple(int(b) for b in args.buckets.split(",")),
                     "warmup": args.warmup}
-    for key, value in (("spacing", args.spacing), ("guidance_scale", args.guidance),
+    for key, value in (("sampler", args.sampler), ("num_steps", args.steps),
+                       ("spacing", args.spacing), ("guidance_scale", args.guidance),
                        ("cond_dim", args.cond_dim), ("transfer_dtype", args.transfer_dtype),
                        ("quantize", args.quant)):
         if value is not None:
@@ -104,9 +108,10 @@ def build_server(argv: Optional[Sequence[str]] = None, log=print):
     except Exception:
         service.close()
         raise
+    stats = service.stats()
     log(f"serving on http://{args.host}:{server.server_address[1]} "
-        f"(buckets={service.buckets}, steps={len(service.pipeline.schedule)}, "
-        f"device={service.device}, mesh={None if service.mesh is None else service.mesh.shape})")
+        f"(buckets={service.buckets}, sampler={stats['sampler']}, steps={stats['num_steps']}, "
+        f"device={service.device}, mesh={stats['mesh']})")
     return server, service
 
 

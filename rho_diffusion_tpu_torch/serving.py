@@ -132,12 +132,16 @@ class _WeightsOnly:
 class SamplingService:
     """Always-on generation service around one diffusion pipeline.
 
-    ``pipeline`` is a constructed port pipeline (``DDPM``) on its device;
-    ``params`` an optional state_dict to serve (else the pipeline's current
-    weights). The DDPM pipeline always samples ancestrally over its full
-    schedule, as in JAX; ``spacing``, a GaussianDiffusion-family control
-    (ROADMAP Queue 1 item 6), is rejected for it. ``cond_dim`` is the width
-    of the condition rows, None for an unconditional service. ``mesh`` is a
+    ``pipeline`` is a constructed port pipeline (``DDPM`` or
+    ``GaussianDiffusionPipeline``) on its device; ``params`` an optional
+    state_dict to serve (else the pipeline's current weights). A
+    GaussianDiffusion pipeline samples with ``sampler`` ('ddim' by default,
+    'ddpm' or a registered solver) over ``num_steps`` respaced steps on the
+    grid ``spacing`` (None: the pipeline's sampler-aware default), DDIM
+    with ``eta``. The DDPM pipeline always samples ancestrally over its full
+    schedule, as in JAX: it ignores ``sampler``, ``num_steps`` and ``eta``,
+    and rejects ``spacing``. ``cond_dim`` is the width of the condition
+    rows, None for an unconditional service. ``mesh`` is a
     ``parallel.mesh.Mesh`` whose first device is the pipeline's (see the
     module docstring). The other arguments are the JAX package's.
     """
@@ -147,7 +151,10 @@ class SamplingService:
         pipeline,
         params: Optional[dict] = None,
         *,
+        sampler: str = "ddim",
+        num_steps: Optional[int] = 50,
         spacing: Optional[str] = None,
+        eta: float = 0.0,
         guidance_scale: Optional[float] = None,
         cond_dim: Optional[int] = None,
         batch_buckets: Sequence[int] = (1, 2, 4, 8),
@@ -192,7 +199,10 @@ class SamplingService:
                 f"guidance_scale={guidance_scale} requires a conditional service (cond_dim is None)",
             )
         self.pipeline = pipeline
+        self.sampler = sampler
+        self.num_steps = num_steps
         self.spacing = spacing
+        self.eta = eta
         self.guidance_scale = guidance_scale
         self.cond_dim = cond_dim
         self.buckets = tuple(int(b) for b in batch_buckets)
@@ -268,6 +278,8 @@ class SamplingService:
                     service_kwargs["cond_dim"] = len(space)  # raw rows through MultiEmbeddings
                 else:
                     service_kwargs["cond_dim"] = 4 * mk.get("model_channels", 64)
+        service_kwargs.setdefault("sampler", config.inference.sampler)
+        service_kwargs.setdefault("num_steps", config.inference.ddim_steps or None)
         service_kwargs.setdefault("spacing", config.inference.spacing)
         service_kwargs.setdefault("guidance_scale", config.inference.guidance_scale)
         service = cls(pipeline, **service_kwargs)
@@ -365,6 +377,8 @@ class SamplingService:
                 "latency_p95_s": lat[int(len(lat) * 0.95)] if lat else 0.0,
                 "buckets": list(self.buckets),
                 "compiled_buckets": sorted(self._compiled),
+                "sampler": self.sampler,
+                "num_steps": self.num_steps,
                 "spacing": self.spacing,
                 "device": str(self.device),
                 "mesh": None if self.mesh is None else self.mesh.shape,
@@ -410,14 +424,25 @@ class SamplingService:
         # bitwise the same alone and co-batched, as JAX's contract holds.
         rows = [1] * bucket if self.device.type == "cpu" else [bucket]
 
+        if hasattr(pipeline, "coeffs"):  # the GaussianDiffusion family
+            opts = dict(sampler=self.sampler, eta=self.eta, num_steps=self.num_steps,
+                        spacing=self.spacing, t_checkpoints=())
+
+            def sample(shape, conds, keys):
+                return pipeline.reverse_process(shape, conds, row_keys=keys,
+                                                guidance_scale=guidance, **opts)
+        else:  # DDPM: ancestral over the full schedule
+            def sample(shape, conds, keys):
+                return pipeline.reverse_process(shape, conds, row_keys=keys,
+                                                guidance_scale=guidance)["denoised"]
+
         def fn(seeds, idxs, conds):
             keys = keys_from_seeds(seeds, idxs)
             outs, at = [], 0
             with active_mesh(mesh):
                 for m in rows:
-                    outs.append(pipeline.reverse_process(
-                        (m, *shape[1:]), None if conds is None else conds[at:at + m],
-                        row_keys=keys[at:at + m], guidance_scale=guidance)["denoised"])
+                    outs.append(sample((m, *shape[1:]), None if conds is None
+                                       else conds[at:at + m], keys[at:at + m]))
                     at += m
             out = torch.cat(outs) if len(outs) > 1 else outs[0]
             return out.to(narrow) if narrow is not None else out

@@ -51,7 +51,9 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
     device = resolve_device(args.device or config.training.device)
     if args.pipeline:
         if args.pipeline != "DDPM":
-            raise NotImplementedError(f"pipeline '{args.pipeline}' is not ported; the port has DDPM")
+            raise NotImplementedError(
+                f"training the pipeline '{args.pipeline}' is not ported; the port trains DDPM "
+                "(GaussianDiffusion training is ROADMAP Queue 1 item 8)")
         config.pipeline = ComponentConfig(
             "DDPM", dict(config.pipeline.kwargs) if config.pipeline else {})
     if apply_torch_checkpoint_schedule_fixup(config, args.model_checkpoint_path):

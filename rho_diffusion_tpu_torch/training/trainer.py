@@ -61,13 +61,17 @@ def build_pipeline_from_config(
     per update (``steps_per_epoch`` converts its epochs), and parameters
     seeded with ``seed`` (default ``inference.seed``)."""
     from rho_diffusion_tpu_torch.diffusion.ddpm import DDPM
+    from rho_diffusion_tpu_torch.diffusion.gaussian import GaussianDiffusionPipeline
 
-    pipelines = {"DDPM": DDPM}
+    pipelines = {"DDPM": DDPM, "GaussianDiffusionPipeline": GaussianDiffusionPipeline}
     name = pipeline_name or (config.pipeline.name if config.pipeline else "DDPM")
-    if name not in pipelines:
+    if name == "DiffusersDDPMPipeline":
         raise NotImplementedError(
-            f"pipeline '{name}' is not ported yet; the port has {sorted(pipelines)}",
+            f"pipeline '{name}' is not ported yet (ROADMAP Queue 1 item 9); the port has "
+            f"{sorted(pipelines)}",
         )
+    if name not in pipelines:
+        raise KeyError(f"unknown pipeline '{name}'; available: {sorted(pipelines)}")
     pipeline_kwargs = dict(config.pipeline.kwargs) if config.pipeline else {}
     schedule = registry.get("schedules", config.noise_schedule.name)(**config.noise_schedule.kwargs)
     opt_kwargs = dict(config.optimizer.kwargs) if config.optimizer else {}

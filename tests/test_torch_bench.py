@@ -1,0 +1,109 @@
+"""The port's bench entry, ``python -m rho_diffusion_tpu_torch.bench``, on the
+CPU.
+
+At the smoke sizes (``BENCH_SMOKE=1 ... -d cpu``) it prints exactly one
+JSON line under the root ``bench.py``'s metric names, in the train and the
+sample mode, with ``vs_baseline`` 1.0, and never opens or globs the TPU's
+``BENCH_r*.json`` records (an audit hook watches every open and glob of the
+run). Without ``-d cpu`` it needs CUDA; the knobs whose machinery is queued
+raise ``NotImplementedError``; the new modules are among those the import
+rule checks.
+"""
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import rho_diffusion_tpu_torch
+from rho_diffusion_tpu_torch import bench
+
+ROOT = Path(__file__).resolve().parents[1]
+
+AUDITED_RUN = """
+import runpy, sys
+def watch(event, args):
+    if event in ("open", "glob.glob", "pathlib.Path.glob") and args and "BENCH_r" in str(args[0]):
+        print("TOUCHED", event, args[0], file=sys.stderr)
+sys.addaudithook(watch)
+sys.argv = ["bench", "-d", "cpu"]
+runpy.run_module("rho_diffusion_tpu_torch.bench", run_name="__main__")
+"""
+
+
+def run_bench(**env_over) -> tuple[list, str]:
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1", BENCH_SMOKE="1", BENCH_STEPS="2",
+               BENCH_WARMUP="1", BENCH_WINDOWS="1", **env_over)
+    out = subprocess.run([sys.executable, "-c", AUDITED_RUN], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    return out.stdout.splitlines(), out.stderr
+
+
+@pytest.mark.parametrize("mode,metric,unit", [
+    ("train", "train_steps_per_sec_per_chip_smoke", "steps/sec/chip"),
+    ("sample", "ddim10_sample_wall_clock_8cubed_b8", "seconds"),
+])
+def test_smoke_prints_one_json_line_under_bench_py_names(mode, metric, unit):
+    assert list(ROOT.glob("BENCH_r*.json")), "the TPU records the entry must not read"
+    lines, err = run_bench(BENCH_MODE=mode)
+    assert len(lines) == 1, lines
+    result = json.loads(lines[0])
+    assert set(result) == {"metric", "value", "unit", "vs_baseline"}
+    assert (result["metric"], result["unit"], result["vs_baseline"]) == (metric, unit, 1.0)
+    assert result["value"] > 0
+    assert "TOUCHED" not in err, err
+    assert "device=cpu" in err
+    # the names are the root bench.py's own
+    source = (ROOT / "bench.py").read_text()
+    assert '"train_steps_per_sec_per_chip_smoke"' in source
+    assert 'f"{sampler}{steps}_sample_wall_clock_{gname}_b{n}"' in source
+
+
+def test_sample_mode_takes_the_sampler_and_steps():
+    lines, _ = run_bench(BENCH_MODE="sample", BENCH_SAMPLER="dpm++", BENCH_DDIM_STEPS="3")
+    assert json.loads(lines[0])["metric"] == "dpm++3_sample_wall_clock_8cubed_b8"
+
+
+def test_bench_needs_cuda_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without CUDA")
+    for argv in ([], ["-d", "cuda"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            bench.main(argv)
+
+
+@pytest.mark.parametrize("knob,match", [
+    ({"BENCH_MODEL": "vit"}, "item 9"),
+    ({"BENCH_REMAT": "1"}, "item 12"),
+    ({"BENCH_MODE": "realdata", "BENCH_DEVICE_CACHE": "1"}, "item 7"),
+    ({"BENCH_FLAT_OPT": "1"}, "no torch counterpart|torch.optim"),
+], ids=["vit", "remat", "device-cache", "flat-opt"])
+def test_queued_knobs_raise(monkeypatch, knob, match):
+    monkeypatch.setenv("BENCH_SMOKE", "1")
+    for k, v in knob.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(NotImplementedError, match=match):
+        bench.main(["-d", "cpu"])
+
+
+def test_unknown_mode_raises(monkeypatch):
+    monkeypatch.setenv("BENCH_SMOKE", "1")
+    monkeypatch.setenv("BENCH_MODE", "serve")
+    with pytest.raises(ValueError, match="BENCH_MODE"):
+        bench.main(["-d", "cpu"])
+
+
+def test_new_modules_are_under_the_import_rule():
+    """tests/test_torch_port_rules.py imports every module that
+    pkgutil.walk_packages finds with JAX blocked; this slice's are among
+    them."""
+    names = {m.name for m in pkgutil.walk_packages(rho_diffusion_tpu_torch.__path__,
+                                                   "rho_diffusion_tpu_torch.")}
+    assert {"rho_diffusion_tpu_torch.bench", "rho_diffusion_tpu_torch.diffusion.gaussian",
+            "rho_diffusion_tpu_torch.diffusion.solvers"} <= names

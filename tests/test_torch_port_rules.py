@@ -25,7 +25,7 @@ import pytest
 import torch
 
 import rho_diffusion_tpu_torch
-from rho_diffusion_tpu_torch import inference
+from rho_diffusion_tpu_torch import bench, inference
 from rho_diffusion_tpu_torch.diffusion.ddpm import DDPM
 from rho_diffusion_tpu_torch.diffusion.schedule import LinearSchedule
 from rho_diffusion_tpu_torch.config import ExperimentConfig
@@ -193,8 +193,8 @@ def test_variant_kernels_raise_off_the_cpu_and_under_grad_mode(launch):
         launch(x, km, p)
 
 
-@pytest.mark.parametrize("entry", [conv3d_variants, conv3d_ab, conv_profile],
-                         ids=["conv3d_variants", "conv3d_ab", "conv_profile"])
+@pytest.mark.parametrize("entry", [conv3d_variants, conv3d_ab, conv_profile, bench],
+                         ids=["conv3d_variants", "conv3d_ab", "conv_profile", "bench"])
 def test_benchmark_entries_need_cuda_unless_asked_for_the_cpu(entry):
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without CUDA")
