@@ -5,8 +5,8 @@
                           [--steps 25] [--samples 4] [--timing-batch 8]
 
 Builds the port's CUDA kernels from ``rho_diffusion_tpu_torch/csrc`` (and
-prints the registers and spills of K5's, the flash forward's and the fused
-flash backward's instances from ptxas), holds each (forward and backward,
+prints the registers and spills of K5's, K7-K9's, the flash forward's and
+the fused flash backward's instances from ptxas), holds each (forward and backward,
 bf16 and fp32) against its plain PyTorch version at the shapes the
 flagship UNet (and the 64^3 config's level 0 and attention) gives it, and
 drives the port's paths on the flagship config
@@ -52,10 +52,11 @@ weights loaded from a reference-layout ``.pth``):
 * ``bench``: the conv bottleneck-isolation entry
   (``python -m rho_diffusion_tpu_torch.benchmarks.conv3d_variants``) with
   every variant and bigdot at td 1, 2, 4 and 8 at the level-1 shape, so
-  K7-K9 launch; then each of their kernels held against its plain version
-  on the inputs the entry times it on, and timed there; K7 ``full`` (the
-  mma.sync block K5 ran until its TMA/wgmma redesign) against K5 at that
-  shape, and K5's plan against other N tiles and ring depths per level;
+  K7-K9 launch (all on K5's TMA/wgmma block); then each of their kernels
+  held against its plain version on the inputs the entry times it on, and
+  timed there; K7 ``full`` against K5 at that shape (the same code: equal
+  outputs, times taken in turns), and K5's plan against other N tiles and
+  ring depths per level;
   every plan of the flash forward's wgmma route and its old mma.sync
   kernel timed at K1's and K2's shapes (``bench_flash_plans``), and the
   fused flash backward against the mma.sync pair at the training step's
@@ -460,6 +461,14 @@ def phase_build(state: dict) -> None:
           for name, entry in ptxas_entries(_build.build_log.get("conv3d", "")).items()
           for m in [re.search(r"conv3d_igemm_wgmma_kernelILi(\d+)ELi(\d+)E", name)] if m]
     emit("k5_ptxas", kernels=k5 or "not built in this run (a cached library has no ptxas log)")
+    # K7's variants and K8/K9's dense GEMM on K5's block, by N tile
+    kv = [{"kernel": m[1], "bn": int(m[2]), **entry}
+          for name, entry in ptxas_entries(_build.build_log.get("conv3d_variants", "")).items()
+          for m in [re.search(r"(conv3d_(?:variant_\w+?|bigdot_gemm|dotsonly))_kernelILi(\d+)E",
+                              name)] if m]
+    emit("variants_ptxas",
+         kernels=kv or "not built in this run (a cached library has no ptxas log)",
+         spill_free=all(not e.get("spill_stores") and not e.get("spill_loads") for e in kv))
     # the flash forward's wgmma instances (head dim, query rows, keys a
     # tile), and any ptxas reports as serialising its wgmma
     log = _build.build_log.get("flash_attention", "")
@@ -2337,10 +2346,13 @@ def bench_rows(device) -> list:
     import torch.nn.functional as F
 
     from rho_diffusion_tpu_torch.benchmarks import conv3d_variants as cv
+    from rho_diffusion_tpu_torch.ops.kernels import sm_count
+    from rho_diffusion_tpu_torch.ops.kernels.conv3d import igemm_plan
     from rho_diffusion_tpu_torch.ops.kernels.conv3d_variants import (
-        VARIANTS, bigdot_plain, conv_variant_plain, dots_only_plain, im2col_plain)
+        VARIANTS, bigdot_plain, conv_variant_plain, dense_plan, dots_only_plain, im2col_plain)
 
     ins = cv.inputs(device)
+    sms = sm_count(device.index or 0)
     x, km, p, km_tc = ins["x"], ins["km"], ins["p"], ins["km_tc"]
     xf, kmf, pf, km_tcf = x.float(), km.float(), p.float(), km_tc.float()
     b, d, h, w, cin = x.shape
@@ -2367,7 +2379,8 @@ def bench_rows(device) -> list:
         x_bytes = 0 if v == "nodma" else x.numel()
         row(f"conv3d_variant_{v}", None, cv.kernel_call(v, ins), plain(), plain,
             "F.conv3d (cuDNN), the full conv", lib_conv_ms, conv_flops,
-            2.0 * (x_bytes + km.numel() + vox * cout))
+            2.0 * (x_bytes + km.numel() + vox * cout),
+            plan=igemm_plan(tuple(x.shape), cout, sms=sms)._asdict())
     patch = torch.cat([im2col_plain(x, d0, 1) for d0 in range(d)]).to(torch.bfloat16)
     lib_gemm_ms = cuda_time_ms(lambda: patch @ km, iters=10)
     del patch
@@ -2386,22 +2399,24 @@ def bench_rows(device) -> list:
         row("conv3d_bigdot_gemm", variant, run, want,
             functools.partial(bigdot_plain, xf, kmf, td),
             "torch.matmul (cuBLAS) [B*D*H*W, 27*Cin] x [27*Cin, Cout] on the whole patch",
-            lib_gemm_ms, conv_flops, patch_bytes + 2.0 * (km.numel() + vox * cout), **floor)
+            lib_gemm_ms, conv_flops, patch_bytes + 2.0 * (km.numel() + vox * cout), **floor,
+            plan=dense_plan(td * h * w, b, cout, sms)._asdict())
     p9 = p.repeat(1, 9)
     dots_flops = 2.0 * p.shape[0] * p.shape[1] * 9 * km_tc.shape[1]
     row("conv3d_dotsonly", None, cv.kernel_call("dotsonly", ins),
         dots_only_plain(pf, km_tcf), functools.partial(dots_only_plain, pf, km_tcf),
         "torch.matmul (cuBLAS): p tiled 9 times [P, 9*CPAD] x km [9*CPAD, Cout]",
         cuda_time_ms(lambda: p9 @ km_tc, iters=10), dots_flops,
-        2.0 * (p.numel() + km_tc.numel() + p.shape[0] * km_tc.shape[1]))
+        2.0 * (p.numel() + km_tc.numel() + p.shape[0] * km_tc.shape[1]),
+        plan=dense_plan(p.shape[0], 1, km_tc.shape[1], sms)._asdict())
     return rows
 
 
-def k5_old_new(device) -> dict:
-    """K7 ``full`` (K5's earlier block: mma.sync, 128 x 64 tiles, 2-stage
-    cp.async) against K5 (TMA, wgmma) on the variant entry's level-1
-    inputs, timed in turns old, new, new, old (CUDA events, ms per call),
-    and held against each other."""
+def k7_full_is_k5(device) -> dict:
+    """K7 ``full`` against K5 on the variant entry's level-1 inputs: one
+    block body under two kernel names on one plan, so the outputs must be
+    equal and the times agree within the host's noise. Timed in turns K7,
+    K5, K5, K7 (CUDA events, ms per call)."""
     import torch
 
     from rho_diffusion_tpu_torch.benchmarks import conv3d_variants as cv
@@ -2411,14 +2426,15 @@ def k5_old_new(device) -> dict:
     x, km = ins["x"], ins["km"]
     cin, cout = x.shape[-1], km.shape[1]
     weight = km.view(3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2)
-    old, new = cv.kernel_call("full", ins), lambda: conv3d_kernel(x, weight)
-    times = {"old": [], "new": []}
-    for name in ("old", "new", "new", "old"):
-        times[name].append(cuda_time_ms(old if name == "old" else new, iters=10))
-    err = conv_error(new().float(), old().float(), TOL_CONV_BF16)
-    return {"shape": list(x.shape), "cout": cout, "old_k7_full_ms": times["old"],
-            "new_k5_ms": times["new"], "old_over_new": min(times["old"]) / min(times["new"]),
-            "new_against_old": err}
+    k7, k5 = cv.kernel_call("full", ins), lambda: conv3d_kernel(x, weight)
+    times = {"k7": [], "k5": []}
+    for name in ("k7", "k5", "k5", "k7"):
+        times[name].append(cuda_time_ms(k7 if name == "k7" else k5, iters=10))
+    equal = bool(torch.equal(k7(), k5()))
+    if not equal:
+        fail("bench_k7_full_is_k5: K7 full and K5 differ on the same inputs")
+    return {"shape": list(x.shape), "cout": cout, "equal": equal, "k7_full_ms": times["k7"],
+            "k5_ms": times["k5"], "k7_over_k5": min(times["k7"]) / min(times["k5"])}
 
 
 def k5_tiles(device) -> list:
@@ -2545,7 +2561,7 @@ def phase_bench(state: dict) -> None:
     emit("bench_variants", rows=variants, launches=counts)
     rows = bench_rows(device)
     emit("bench_kernels", rows=rows)
-    emit("bench_k5_old_new", **k5_old_new(device))
+    emit("bench_k7_full_is_k5", **k7_full_is_k5(device))
     emit("bench_k5_tiles", rows=k5_tiles(device))
     emit("bench_flash_plans", rows=flash_plan_study(device))
     emit("bench_flash_bwd_plans", rows=flash_bwd_plan_study(device))
@@ -2596,8 +2612,9 @@ KERNELS = (
     # order (the ring's host side: parallel/context_rdma.py)
     ("ring_attention", "ring_attention.cu", "rho_diffusion_tpu/parallel/context_rdma.py:50",
      "serving"),
-    # K7-K9: variants of K5's block, run by the bottleneck-isolation entry;
-    # K8 is two kernels, the patch matrix and its GEMM
+    # K7-K9: K5's block (conv3d_wgmma.cuh) with one factor changed, launched
+    # from conv3d_variants.cu and run by the bottleneck-isolation entry; K8
+    # is two kernels, the patch matrix and its dense GEMM
     ("conv3d_variant_full", "conv3d_variants.cu", "benchmarks/conv3d_variants.py:51", "bench"),
     ("conv3d_variant_nopatch", "conv3d_variants.cu", "benchmarks/conv3d_variants.py:51",
      "bench"),

@@ -1,12 +1,14 @@
 """Bottleneck isolation of the port's conv GEMM (K5) at the level-1 shape.
 
 The counterpart of ``benchmarks/conv3d_variants.py`` on the card. Every
-variant is K5's own block (``csrc/conv3d_igemm.cuh``) with one factor
-changed (``ops/kernels/conv3d_variants.py``):
+variant is K5's own Hopper block (``csrc/conv3d_wgmma.cuh``: TMA into an
+mbarrier ring, wgmma) with one factor changed
+(``ops/kernels/conv3d_variants.py``):
 
-  full      K5's forward mainloop as it is (K7)
-  nopatch   every (dz, dy) tap reads the (0, 0) rows, keeping dx (K7)
-  nodma     A is never read from device memory, only B (K7)
+  full      K5's kernel as it is, on K5's plan (K7)
+  nopatch   every tap's box drops its (dz, dy) offset, keeping dx (K7)
+  nodma     A is never loaded: a fixed pattern in every ring stage, only B
+            arrives (K7)
   dotsonly  9 dots on one patch p [P, CPAD]: the mainloop without the gather (K9)
   bigdotN   the patch of N depth slices (default 4) in device memory, then one
             dense GEMM with K = 27*Cin per pass (K8)

@@ -24,12 +24,6 @@
 
 namespace {
 
-// The launcher's own error codes.
-constexpr int ERR_PLAN = -1;      // a box plan or shape the kernel does not take
-constexpr int ERR_ENCODE_FN = -2; // cuTensorMapEncodeTiled not found
-constexpr int ERR_X_MAP = -3;     // cuTensorMapEncodeTiled refused x's map
-constexpr int ERR_W_MAP = -4;     // cuTensorMapEncodeTiled refused the weights' map
-
 template <int BN, int STAGES>
 int launch_wgmma(const CUtensorMap& x_map, const CUtensorMap& w_map, const void* bias, void* out,
                  const wg::Problem& p, cudaStream_t stream) {
@@ -38,8 +32,7 @@ int launch_wgmma(const CUtensorMap& x_map, const CUtensorMap& w_map, const void*
   auto kernel = wg::conv3d_igemm_wgmma_kernel<BN, STAGES>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)p.B * p.tiles_d * p.tiles_h * p.tiles_w * p.n_tiles;
-  kernel<<<(unsigned)blocks, wg::THREADS, smem, stream>>>(
+  kernel<<<(unsigned)p.blocks(), wg::THREADS, smem, stream>>>(
       x_map, w_map, (const __nv_bfloat16*)bias, (__nv_bfloat16*)out, p);
   return (int)cudaGetLastError();
 }
@@ -298,50 +291,16 @@ int launch_direct(const void* x, const void* w, const void* bias, void* out, int
 
 extern "C" {
 
-// x: [B, D, H, W, Cin] bf16, 16-byte aligned, Cin % 8 == 0; w: [Cout, 27, Cin]
-// bf16 (tap = (dz*3+dy)*3+dx), contiguous; bias: [Cout] bf16 or null; out:
-// [B, D, H, W, Cout] bf16. The plan: a box of bw x bh x bd = 128 voxels, BN
-// output channels a block (64, 128, 192 or 256), a ring of 3 or 4 stages.
+// x, w and the plan as `wg::conv_setup` takes them; bias: [Cout] bf16 or
+// null; out: [B, D, H, W, Cout] bf16.
 int conv3d_igemm_bf16(const void* x, const void* w, const void* bias, void* out, int B, int D,
                       int H, int W, int Cin, int Cout, int bw, int bh, int bd, int bn, int stages,
                       void* stream) {
-  const bool box_ok = bw >= 1 && bh >= 1 && bd >= 1 && bw <= 256 && bh <= 256 && bd <= 256 &&
-                      bw * bh * bd == wg::BM;
-  const bool bn_ok = bn == 64 || bn == 128 || bn == 192 || bn == 256;
-  if (!box_ok || !bn_ok || (stages != 3 && stages != 4) || Cin < 8 || Cin % 8 || Cout < 1 ||
-      B < 1 || D < 1 || H < 1 || W < 1 || (reinterpret_cast<uintptr_t>(x) & 15) ||
-      (reinterpret_cast<uintptr_t>(w) & 15))
-    return ERR_PLAN;
-  wg::EncodeTiled encode = wg::encode_tiled();
-  if (encode == nullptr) return ERR_ENCODE_FN;
-
   CUtensorMap x_map, w_map;
-  const cuuint64_t c2 = (cuuint64_t)Cin * 2;  // bytes per voxel
-  const cuuint64_t x_dims[5] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)D,
-                                (cuuint64_t)B};
-  const cuuint64_t x_strides[4] = {c2, c2 * W, c2 * W * H, c2 * W * H * D};
-  const cuuint32_t x_box[5] = {(cuuint32_t)wg::BK, (cuuint32_t)bw, (cuuint32_t)bh, (cuuint32_t)bd, 1};
-  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  // OOB_FILL_NONE: elements outside the tensor read as zeros (SAME padding)
-  if (encode(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x), x_dims, x_strides,
-             x_box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return ERR_X_MAP;
-  const cuuint64_t w_dims[3] = {(cuuint64_t)Cin, 27, (cuuint64_t)Cout};
-  const cuuint64_t w_strides[2] = {c2, c2 * 27};
-  const cuuint32_t w_box[3] = {(cuuint32_t)wg::BK, 1, (cuuint32_t)bn};
-  if (encode(&w_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(w), w_dims, w_strides,
-             w_box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return ERR_W_MAP;
-
   wg::Problem p;
-  p.B = B, p.D = D, p.H = H, p.W = W, p.Cout = Cout;
-  p.bw = bw, p.bh = bh, p.bd = bd;
-  p.tiles_w = (W + bw - 1) / bw, p.tiles_h = (H + bh - 1) / bh, p.tiles_d = (D + bd - 1) / bd;
-  p.n_tiles = (Cout + bn - 1) / bn;
-  p.cchunks = (Cin + wg::BK - 1) / wg::BK;
-  if ((long long)B * p.tiles_d * p.tiles_h * p.tiles_w * p.n_tiles > 2147483647LL) return ERR_PLAN;
+  const int err = wg::conv_setup(x, w, B, D, H, W, Cin, Cout, bw, bh, bd, bn, stages, &x_map,
+                                 &w_map, &p);
+  if (err != 0) return err;
   cudaStream_t s = (cudaStream_t)stream;
   switch (bn * 10 + stages) {
     case 643: return launch_wgmma<64, 3>(x_map, w_map, bias, out, p, s);
@@ -365,14 +324,6 @@ int conv3d_direct_f32(const void* x, const void* w, const void* bias, void* out,
   return launch_direct<float>(x, w, bias, out, B, D, H, W, Cin, Cout, stream);
 }
 
-const char* conv3d_error_string(int code) {
-  switch (code) {
-    case ERR_PLAN: return "the igemm launcher refused the box plan or shape";
-    case ERR_ENCODE_FN: return "cuTensorMapEncodeTiled could not be found in libcuda";
-    case ERR_X_MAP: return "cuTensorMapEncodeTiled refused x's tensor map";
-    case ERR_W_MAP: return "cuTensorMapEncodeTiled refused the weights' tensor map";
-    default: return cudaGetErrorString((cudaError_t)code);
-  }
-}
+const char* conv3d_error_string(int code) { return wg::error_string(code); }
 
 }  // extern "C"

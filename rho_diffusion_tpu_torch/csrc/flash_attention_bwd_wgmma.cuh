@@ -116,23 +116,8 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-
-// generic-proxy writes to shared memory made visible to wgmma's and the
-// bulk copies' reads
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void named_barrier(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // 4 bytes to shared memory, zero-filled when !pred; tracked by an mbarrier
@@ -386,11 +371,11 @@ flash_bwd_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
       const float p2 = kin1 ? ex2(s_acc[4 * jj + 2] * p.scale_log2 - l2.x) : 0.f;
       const float p3 = kin1 ? ex2(s_acc[4 * jj + 3] * p.scale_log2 - l2.y) : 0.f;
       // accumulator (row r0 / r0 + 8, query 8jj + 2q4 + {0, 1}) -> A slice jj / 2
-      pf[jj / 2][(jj & 1) * 2] = pack_bf16(p0, p1);
-      pf[jj / 2][(jj & 1) * 2 + 1] = pack_bf16(p2, p3);
-      dsf[jj / 2][(jj & 1) * 2] = pack_bf16(p0 * (dp_acc[4 * jj] - d2.x),
+      pf[jj / 2][(jj & 1) * 2] = wg::pack_bf16(p0, p1);
+      pf[jj / 2][(jj & 1) * 2 + 1] = wg::pack_bf16(p2, p3);
+      dsf[jj / 2][(jj & 1) * 2] = wg::pack_bf16(p0 * (dp_acc[4 * jj] - d2.x),
                                             p1 * (dp_acc[4 * jj + 1] - d2.y));
-      dsf[jj / 2][(jj & 1) * 2 + 1] = pack_bf16(p2 * (dp_acc[4 * jj + 2] - d2.x),
+      dsf[jj / 2][(jj & 1) * 2 + 1] = wg::pack_bf16(p2 * (dp_acc[4 * jj + 2] - d2.x),
                                                 p3 * (dp_acc[4 * jj + 3] - d2.y));
     }
 
@@ -404,7 +389,7 @@ flash_bwd_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
         st_shared_u32(ds_base + (row + 8) * 128 + at, dsf[jj / 2][(jj & 1) * 2 + 1]);
       }
     }
-    fence_proxy_async();
+    wg::fence_proxy_async();
 
     // dV += P^T dO and dK += dS^T Q; P^T and dS^T leave the registers
     // before dQ's accumulator takes them
@@ -424,7 +409,7 @@ flash_bwd_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
 
     // every dS^T row is stored, and every consumer is done with stage s:
     // refill it with tile i + STAGES
-    named_barrier(1, THREADS);
+    wg::named_barrier(1, THREADS);
     if (i + STAGES < p.q_tiles)
       load_tile<HD>(i + STAGES, &q_map, &do_map, q_ring, do_ring, lse_s, dlt_s, full, lrow, drow,
                     p.Tq, h, b);
@@ -457,9 +442,9 @@ flash_bwd_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
       for (int jj = 0; jj < NJ; ++jj)
         share[jj * 32] = make_float4(dq_acc[4 * jj], dq_acc[4 * jj + 1], dq_acc[4 * jj + 2],
                                      dq_acc[4 * jj + 3]);
-      fence_proxy_async();
+      wg::fence_proxy_async();
       // (also: every consumer's dQ product is done with the dS^T tile)
-      named_barrier(2, THREADS);
+      wg::named_barrier(2, THREADS);
       if (tid == 0) {
         if (j > 0) wait_flag(p.dq_order + tile, j);
         bulk_to_global(p.dq_acc + tile * (BM * HD), wg::smem_u32(dq_s + (i % DQ_BUFS) * (BM * HD)),
@@ -471,7 +456,7 @@ flash_bwd_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
     } else {
       if (p.kv_tiles > 1 && tid == 0) wait_flag(p.dq_order + tile, j);
       // (also: every consumer's dQ product is done with the dS^T tile)
-      named_barrier(2, THREADS);
+      wg::named_barrier(2, THREADS);
       if (p.kv_tiles > 1) {
 #pragma unroll
         for (int jj = 0; jj < NJ; ++jj) {

@@ -77,11 +77,6 @@ __host__ __device__ constexpr int smem_bytes(int hd, int bm, int bn) {
   return q_bytes(hd, bm) + 2 * STAGES * kv_bytes(hd, bn) + 8 * (1 + 3 * STAGES) + 1024;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // S = Q K^T over the head dim: A = this warpgroup's 64 rows of Q, B = the
 // stage's BN keys, both [rows][64 channels] per 64-channel chunk.
 template <int HD, int BN>
@@ -168,10 +163,10 @@ template <int BN>
 __device__ __forceinline__ void to_bf16(const float (&s)[BN / 2], uint32_t (&p)[BN / 16][4]) {
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk) {
-    p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    p[kk][0] = wg::pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    p[kk][1] = wg::pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[kk][2] = wg::pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[kk][3] = wg::pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
   }
 }
 

@@ -1,5 +1,6 @@
 // The Tensor Memory Accelerator and mbarrier pieces shared by the Hopper
-// kernels (K5's implicit GEMM, conv3d_wgmma.cuh; the flash forward and
+// kernels (K5's implicit GEMM, conv3d_wgmma.cuh, and the conv study's
+// kernels on it, conv3d_variants.cu; the flash forward and
 // backward, flash_attention_wgmma.cuh and flash_attention_bwd_wgmma.cuh), and
 // the launchers' host helpers.
 //
@@ -12,7 +13,7 @@
 //   encode_bthd()         the tensor map of a [B, T, H, D] bf16 operand.
 // Device side: mbarrier init/arrive/expect-tx and a wait that traps after
 // ~5 s (a wrong phase or byte count fails the launch instead of hanging the
-// card), and TMA tile loads of 3, 4 and 5 dimensions completing on an
+// card), and TMA tile loads of 2 to 5 dimensions completing on an
 // mbarrier.
 
 #pragma once
@@ -145,6 +146,15 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
 

@@ -1,7 +1,7 @@
 // Warpgroup matrix products (wgmma) and the pieces around them, shared by
-// the Hopper kernels (K5's implicit GEMM, conv3d_wgmma.cuh; the flash
-// forward and backward, flash_attention_wgmma.cuh and
-// flash_attention_bwd_wgmma.cuh).
+// the Hopper kernels (K5's implicit GEMM, conv3d_wgmma.cuh, and the conv
+// study's kernels built on it, conv3d_variants.cu; the flash forward and
+// backward, flash_attention_wgmma.cuh and flash_attention_bwd_wgmma.cuh).
 //
 // Operands in shared memory are 128-byte swizzled tiles as TMA writes them:
 // rows of 64 bf16 (128 bytes), 8-row groups 1024 bytes apart, the tile
@@ -60,6 +60,28 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[R][4]) {
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(d[i][e])::"memory");
+}
+
+// generic-proxy writes to shared memory made visible to wgmma's and the
+// bulk copies' reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The byte offset of 16-byte chunk `chunk` (0-7) of row `row` in a 128-byte
+// swizzled tile: within each 1024-byte group of 8 rows the chunk index is
+// XORed with the row mod 8, as TMA lays a box out.
+__host__ __device__ constexpr uint32_t sw128_offset(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
 }
 
 template <int R>

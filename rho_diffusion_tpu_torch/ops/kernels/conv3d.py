@@ -113,15 +113,24 @@ def igemm_plan(x_shape, cout: int, bn_max: int = 256, stages: int = 4,
     bh = min(_pow2_at_least(h), IGEMM_BM // bw)
     bd = IGEMM_BM // (bw * bh)
     boxes = b * -(-d // bd) * -(-h // bh) * -(-w // bw)
+    return IgemmPlan(bw, bh, bd, n_tile(boxes, cout, bn_max, sms), stages)
+
+
+def n_tile(m_blocks: int, cout: int, bn_max: int = 256, sms: int = 132) -> int:
+    """The N tile (a multiple of 64, at most ``bn_max``) for ``m_blocks``
+    blocks of 128 rows: each split of Cout costs its waves of blocks on
+    ``sms`` multiprocessors times (bn + 128), the bytes of B and A a k-step
+    brings in, in rows of 128 bytes; the cheapest wins, the fewest tiles on
+    a tie (``igemm_plan`` says what it gives)."""
     best = None
     for n_tiles in range(-(-cout // bn_max), -(-cout // 64) + 1):
         bn = -(-cout // (n_tiles * 64)) * 64
         if -(-cout // bn) != n_tiles:
             continue  # the same tile as a split already costed
-        cost = -(-boxes * n_tiles // sms) * (bn + IGEMM_BM)
+        cost = -(-m_blocks * n_tiles // sms) * (bn + IGEMM_BM)
         if best is None or cost < best[0]:
             best = (cost, bn)
-    return IgemmPlan(bw, bh, bd, best[1], stages)
+    return best[1]
 
 
 # ctypes signatures of the launchers in csrc/conv3d.cu, set once on load

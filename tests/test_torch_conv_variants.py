@@ -6,8 +6,10 @@ interpret mode (the TPU kernels' DMA, scratch and dots then run on the CPU),
 and its module constants are shrunk. On the same numpy inputs, in fp32, the
 port's K7 ``full``/``nopatch``, K8 (td 1 and 2) and K9 (the wrappers take
 their plain versions for CPU tensors) match them at atol = rtol = 1e-4, the
-JAX conv test's fp32 tolerance (tests/ops/test_conv3d_pallas.py). The
-port's benchmark entries run here with ``-d cpu`` at shrunk shapes.
+JAX conv test's fp32 tolerance (tests/ops/test_conv3d_pallas.py). K7
+``nodma`` is held against its own definition, and the dense GEMM's plan
+(``dense_plan``) at the study's shapes. The port's benchmark entries run
+here with ``-d cpu`` at shrunk shapes.
 """
 import functools
 import importlib.util
@@ -24,9 +26,9 @@ from rho_diffusion_tpu_torch.benchmarks import conv3d_ab, conv_profile
 from rho_diffusion_tpu_torch.benchmarks import conv3d_variants as port_bench
 from rho_diffusion_tpu_torch.benchmarks._timing import per_call_ms
 from rho_diffusion_tpu_torch.ops.kernels import launch_counts
-from rho_diffusion_tpu_torch.ops.kernels.conv3d import conv3d_plain
+from rho_diffusion_tpu_torch.ops.kernels.conv3d import SMEM_LIMIT, conv3d_plain, igemm_plan
 from rho_diffusion_tpu_torch.ops.kernels.conv3d_variants import (
-    bigdot, conv_variant, dots_only, nodma_pattern)
+    bigdot, conv_variant, dense_plan, dots_only, nodma_pattern)
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -95,23 +97,67 @@ def test_full_variant_is_the_conv():
                                conv3d_plain(torch.from_numpy(x), weight), atol=TOL, rtol=TOL)
 
 
-def test_nodma_is_the_pattern_product():
+@pytest.mark.parametrize("shape,cout", [
+    ((1, 2, 4, 32, 128), 5),  # boxes of 128 consecutive voxels (32 x 4 x 1), Cin = 128
+    ((1, 3, 5, 7, 24), 10),   # boxes 8 x 8 x 2 over a ragged volume, Cin = 24
+], ids=["box-contiguous-cin128", "box-ragged-cin24"])
+def test_nodma_is_the_pattern_product(shape, cout):
     """Not held against JAX: its ``nodma`` kernel reads uninitialised VMEM
     scratch, so its output is undefined (in interpret mode not even finite).
-    The port defines A as the pattern f(m mod 128, k mod 32) and reads no x:
-    here M = 300 voxels (two full 128-row tiles and a ragged one) and
-    K = 216 (off the 32-deep slice)."""
+    The port's kernel (K5's block with A's loads dropped) holds
+    f(r, c) = ((7r + 3c) mod 17 - 8)/64 in every ring stage, r the row in
+    the block's box of 128 voxels (w fastest, then h, then d, sides from
+    ``igemm_plan``) and c the channel in the 64-channel k-step, for every
+    tap; the weights zero-fill channels past Cin. So out[v, n] =
+    sum_tap sum_ci f(r(v), ci mod 64) km[tap*Cin + ci, n], computed here in
+    numpy from the plan's box alone."""
     rng = np.random.default_rng(4)
-    x = torch.from_numpy(rng.standard_normal((1, 3, 10, 10, 8)).astype(np.float32))
-    km = torch.from_numpy(rng.standard_normal((216, 5)).astype(np.float32))
-    m, k = np.arange(300)[:, None] % 128, np.arange(216)[None, :] % 32
-    a = (((7 * m + 3 * k) % 17 - 8) / 64).astype(np.float64)
-    want = (a @ km.numpy().astype(np.float64)).reshape(1, 3, 10, 10, 5)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    cin = shape[-1]
+    km = torch.from_numpy(rng.standard_normal((27 * cin, cout)).astype(np.float32))
+    plan = igemm_plan(shape, cout)
+    assert plan.bw * plan.bh * plan.bd == 128
+    _, d, h, w, _ = shape
+    dd, hh, ww = np.meshgrid(np.arange(d), np.arange(h), np.arange(w), indexing="ij")
+    r = ((dd % plan.bd) * plan.bh + hh % plan.bh) * plan.bw + ww % plan.bw
+    c = np.arange(cin) % 64
+    f = ((7 * r.reshape(-1, 1) + 3 * c[None, :]) % 17 - 8) / 64.0
+    taps = km.numpy().astype(np.float64).reshape(27, cin, cout)
+    want = np.einsum("vc,tcn->vn", f, taps).reshape(*shape[:-1], cout)
     got = conv_variant(x, km, "nodma")
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
     assert torch.equal(conv_variant(2 * x, km, "nodma"), got)  # x is never read
-    pattern = nodma_pattern(300, 216)
+    pattern = nodma_pattern(shape, cout)
+    assert pattern.shape == (int(np.prod(shape[:-1])), cin)
     assert torch.equal(pattern.bfloat16().float(), pattern)  # exact in bf16
+
+
+@pytest.mark.parametrize("name,rows,batches,bn", [
+    ("bigdot1", 1 * 16 * 16, 32, 64),      # 64 row tiles: two N tiles of 64 fill 128 SMs
+    ("bigdot2", 2 * 16 * 16, 32, 128),
+    ("bigdot4", 4 * 16 * 16, 32, 128),
+    ("bigdot8", 8 * 16 * 16, 32, 128),
+    ("dotsonly", 32 * 32 * 16 * 16, 1, 128),
+])
+def test_dense_plan_at_the_level1_shape(name, rows, batches, bn):
+    """The dense GEMM's N tile at the study's shapes (Cout = 128) on the
+    H100's 132 SMs: K5's cost rule (waves of blocks x (bn + 128)) takes
+    one tile of 128 unless the row tiles leave most of the card idle
+    (bigdot1). The ring fits in shared memory; the tiles cover Cout."""
+    plan = dense_plan(rows, batches, 128, sms=132)
+    assert plan.bn == bn
+    assert plan.smem_bytes() <= SMEM_LIMIT and -(-128 // plan.bn) * plan.bn >= 128
+    # the cost rule, written out: waves of 132 blocks times the k-step's rows of 128 bytes
+    cost = {b: -(-batches * -(-rows // 128) * -(-128 // b) // 132) * (b + 128) for b in (64, 128)}
+    assert cost[bn] == min(cost.values())
+
+
+@pytest.mark.parametrize("cout,bn", [(10, 64), (72, 128), (192, 192), (384, 192), (1024, 256)])
+def test_dense_plan_covers_cout_with_the_fewest_tiles(cout, bn):
+    """With the card full of row tiles (4096 blocks), the fewest N tiles
+    of at most 256 channels win: one up to 256, two of 192 for 384."""
+    plan = dense_plan(4096 * 128, 1, cout, sms=132)
+    assert plan.bn == bn and plan.bn % 64 == 0 and plan.bn * -(-cout // plan.bn) >= cout
 
 
 @pytest.mark.parametrize("call,error", [

@@ -22,8 +22,9 @@ width and shapes off its 8 x 32 voxel tile; and the ring-attention kernel
 (K6, one launch per card) in its ring of 2 and 4 ranks on one card at T/n =
 128 and 1024, ragged shards and a padded head dim, and with one rank per
 card where there are two or more.
-The conv's bottleneck-isolation kernels (K7-K9) at the level-1 widths and
-off their tiles, and what they refuse. The plain versions run in fp32 with
+The conv's bottleneck-isolation kernels (K7-K9, on K5's block) at the
+level-1 widths and off their tiles (K7 ``full`` bitwise K5), and what they
+refuse. The plain versions run in fp32 with
 TF32 off; tolerances are chip_smoke.py's.
 """
 import math
@@ -678,21 +679,21 @@ def test_conv_variant_kernels_match_plain(cuda, shape, cout, variant):
 
 
 def test_full_variant_is_k5_bitwise(cuda):
-    """``full`` runs K5's earlier block (csrc/conv3d_igemm.cuh, mma.sync),
-    which K5 itself left for TMA and wgmma (csrc/conv3d_wgmma.cuh): the two
-    sum in other orders, so they are held against each other at the bf16
-    tolerance (each is held against the plain version above)."""
+    """``full`` is K5's block (csrc/conv3d_wgmma.cuh) under another kernel
+    name, on K5's plan and weight layout: its output is K5's bit for bit."""
     x = randn((2, 4, 16, 16, 128), 32, cuda, torch.bfloat16)
     km = randn((27 * 128, 128), 33, cuda, torch.bfloat16, 1 / math.sqrt(27 * 128))
     weight = km.view(3, 3, 3, 128, 128).permute(4, 3, 0, 1, 2)
-    torch.testing.assert_close(conv_variant(x, km, "full").float(), conv3d(x, weight).float(),
-                               atol=TOL_BF16, rtol=TOL_BF16)
+    assert torch.equal(conv_variant(x, km, "full"), conv3d(x, weight))
 
 
 @pytest.mark.parametrize(
     "shape,cout,td",
     [((2, 8, 16, 16, 32), 64, td) for td in (1, 2, 4, 8)]
-    + [((1, 4, 8, 16, 128), 128, 1), ((3, 6, 8, 8, 64), 128, 2)],
+    + [((1, 4, 8, 16, 128), 128, 1), ((3, 6, 8, 8, 64), 128, 2)]
+    # off the tiles: Cout 48 (one N tile of 64, odd columns past Cout), and
+    # 64 rows a batch (each 128-row tile reads the next batch's rows, unwritten)
+    + [((1, 4, 8, 16, 32), 48, 1), ((2, 4, 4, 4, 32), 64, 1), ((2, 4, 4, 4, 24), 10, 2)],
 )
 def test_bigdot_kernels_match_plain(cuda, shape, cout, td):
     cin = shape[-1]
@@ -708,7 +709,8 @@ def test_bigdot_kernels_match_plain(cuda, shape, cout, td):
     torch.testing.assert_close(want, conv_variant_plain(x.float(), km.float(), "full"))
 
 
-@pytest.mark.parametrize("rows,cpad,cout", [(1024, 384, 128), (256, 32, 64), (384, 96, 192)])
+@pytest.mark.parametrize("rows,cpad,cout", [(1024, 384, 128), (256, 32, 64), (384, 96, 192),
+                                            (100, 32, 40), (300, 24, 72)])
 def test_dots_only_kernel_matches_plain(cuda, rows, cpad, cout):
     p = randn((rows, cpad), 36, cuda, torch.bfloat16)
     km = randn((9 * cpad, cout), 37, cuda, torch.bfloat16, 1 / math.sqrt(9 * cpad))
@@ -734,11 +736,9 @@ def test_variant_kernels_reject_what_they_do_not_take(cuda):
         conv_variant(x[..., :12].contiguous(), km[:27 * 12], "full")
     with pytest.raises(ValueError, match="3\\*Cin"):
         conv_variant(x, km[:-1], "full")
-    with pytest.raises(ValueError, match="dense GEMM"):  # 8*16 rows per batch, Cout off 64
-        bigdot(x, km[:, :48].contiguous(), 1)
-    with pytest.raises(ValueError, match="dense GEMM"):
-        bigdot(x[:, :, :4].contiguous(), km, 1)         # 64 rows per batch
-    with pytest.raises(ValueError, match="dense GEMM"):
-        dots_only(randn((100, 32), 40, cuda, torch.bfloat16), km[:288])
+    with pytest.raises(ValueError, match="multiple of 8"):  # the patch's chunks cross taps
+        bigdot(x[..., :12].contiguous(), km[:27 * 12], 1)
+    with pytest.raises(ValueError, match="multiple of 8"):  # p's rows off 16 bytes
+        dots_only(randn((128, 36), 40, cuda, torch.bfloat16), km[:324])
     with pytest.raises(RuntimeError, match="grad mode"):
         conv_variant(x, km.clone().requires_grad_(), "full")
