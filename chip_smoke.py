@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py [--phases env,build,kernels,main,main64,gauss,train,hold,serve,timings,bench]
+    python3 chip_smoke.py [--phases env,build,kernels,main,main64,gauss,train,hold,serve,timings,fp32,bench]
                           [--steps 25] [--samples 4] [--timing-batch 8]
 
 Builds the port's CUDA kernels from ``rho_diffusion_tpu_torch/csrc`` (and
@@ -49,6 +49,20 @@ weights loaded from a reference-layout ``.pth``):
   fp32 plain model with the plain ring, and a single-rank service (the
   flash kernel's route) against the ring service, bucket-1 latencies of
   both, and a profiled bucket-8 request (its device busy share);
+* ``fp32``: the flagship in fp32 (a config whose ``training.dtype`` is
+  float32): every distinct conv problem of a batch-8 forward and of a
+  batch-32 step's dgrad (the 3xTF32 implicit GEMM where Cin % 4 == 0 and
+  Cout > 1, its weight pre-pass, the direct kernel elsewhere), the flash
+  forward and backward at batch 8 and 32 and K6 at the serve shape (its
+  3xTF32 fold and pre-pass), each held against its plain version and timed
+  beside cuDNN (TF32 off) or SDPA in fp32 (its kernels named) and its
+  bound (3xTF32: 3 flops at the TF32 peak; the FMA line beside it); the
+  whole fp32 model (a forward and one loss's gradients at batch 2) against
+  the fp32 plain model, beside the plain model with one TF32 product as
+  the control; then the counted path: the bench entry with
+  BENCH_DTYPE=float32 (train mode at batch 32, with the next batch down if
+  it does not fit, one step profiled by group; a DDIM-10 sample at batch 8)
+  and one request to the fp32 service under the context=4 ring;
 * ``bench``: the conv bottleneck-isolation entry
   (``python -m rho_diffusion_tpu_torch.benchmarks.conv3d_variants``) with
   every variant and bigdot at td 1, 2, 4 and 8 at the level-1 shape, so
@@ -79,12 +93,16 @@ route (and its mma.sync kernel), with and without the LSE, at T = 512
 (batch 4, 8, 32), 4096 (batch 8) and 300, D = 128 and 64, and the
 backward (the fused kernel for bf16 at D = 64 and 128, the dkv/dq pair
 elsewhere) at the training step's attention, T = 4096, T = 300 and D = 64,
-twice (bitwise) and against the mma.sync pair. Every
+twice (bitwise) and against the mma.sync pair, and the 3xTF32 pieces:
+the products alone in both operand layouts (``tf32_probe``), both
+pre-passes bitwise against their plain versions, every fp32 conv problem of
+the flagship at batch 2 and K6's fp32 fold at T = 512, 4096 and a ragged
+300 (the FMA fold at D = 32 and 256). Every
 phase prints one JSON line; a failing phase exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``, after the
 ``kernels`` line and the card's ``nvidia-smi`` name and power limit. A run
 whose ``--phases`` leave out any of kernels, main, main64, gauss, train,
-serve, timings and bench prints neither and exits 3.
+serve, timings, fp32 and bench prints neither and exits 3.
 
 Exits non-zero without a result when CUDA is unavailable or the script runs
 outside a checkout of the repository. Imports nothing of JAX.
@@ -109,10 +127,10 @@ CONFIG = ROOT / "examples" / "config_spherical_harmonics.json"
 CONFIG64 = ROOT / "examples" / "config_spherical_harmonics_64.json"
 GAUSS_CONFIG = ROOT / "examples" / "config_learned_variance.json"
 PHASES = ("env", "build", "kernels", "main", "main64", "gauss", "train", "hold", "serve",
-          "timings", "bench")
+          "timings", "fp32", "bench")
 # the phases whose numbers the kernels line carries
 KERNELS_LINE_PHASES = ("kernels", "main", "main64", "gauss", "train", "serve", "timings",
-                       "bench")
+                       "fp32", "bench")
 DEVICE = "cuda"
 # the train phase: the flagship's batch, and steps cut to five
 TRAIN_BATCH = 32
@@ -151,6 +169,8 @@ BENCH_VARIANTS = ("full", "nopatch", "nodma", "dotsonly", "bigdot1", "bigdot2", 
 # device time of the profiled training step, grouped by kernel name
 DEVICE_TIME_GROUPS = (
     ("conv3d_igemm (port, forward and dgrad)", ("conv3d_igemm",)),
+    ("conv3d_tf32 (port, fp32 forward and dgrad, with its weight split)",
+     ("conv3d_tf32", "tf32_split")),
     ("conv3d_direct (port, forward and dgrad)", ("conv3d_direct",)),
     ("flash attention (port, forward and backward)", ("flash_fwd", "flash_bwd")),
     ("conv weight gradients (cuDNN)", ("wgrad",)),
@@ -162,6 +182,7 @@ DEVICE_TIME_GROUPS = (
 
 # The card's published dense peaks (H100 SXM data sheet) and memory rate.
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_FP32 = 67e12
 MEM_RATE = 3.35e12
 
@@ -301,6 +322,20 @@ def host_ms(fn, calls: int = 50) -> float:
 def bound_ms(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
     t_ops, t_mem = flops / peak, nbytes / MEM_RATE
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
+
+
+def dtype_bound(flops: float, nbytes: float, item: int) -> dict:
+    """The least time of a function of ``flops`` and ``nbytes`` on this card
+    in a dtype of ``item`` bytes. bf16: the tensor cores' peak. fp32: three
+    TF32 products for each fp32 product (3xTF32, the split that keeps fp32's
+    accuracy on the tensor cores), so 3 flops at the TF32 peak: the least
+    time in which this card reaches fp32 accuracy; the CUDA cores' fp32 FMA
+    line beside it (``bound_fma_ms``)."""
+    if item == 2:
+        bnd, by = bound_ms(flops, nbytes, PEAK_BF16)
+        return {"bound_ms": bnd, "bound_by": by}
+    bnd, by = bound_ms(3 * flops, nbytes, PEAK_TF32)
+    return {"bound_ms": bnd, "bound_by": by, "bound_fma_ms": bound_ms(flops, nbytes, PEAK_FP32)[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -487,6 +522,20 @@ def phase_build(state: dict) -> None:
     emit("flash_bwd_ptxas",
          kernels=fb or "not built in this run (a cached library has no ptxas log)",
          wgmma_serialized=serialized)
+    # the 3xTF32 instances: K5's fp32 block by N tile and ring depth, K6's
+    # fp32 fold by head dim
+    tf = [{"kernel": "conv3d_tf32", "bn": int(m[1]), "stages": int(m[2]), **entry}
+          for name, entry in ptxas_entries(_build.build_log.get("conv3d", "")).items()
+          for m in [re.search(r"conv3d_tf32_kernelILi(\d+)ELi(\d+)E", name)] if m]
+    tf += [{"kernel": "ring_attention_tf32", "hd": int(m[1]), **entry}
+           for name, entry in ptxas_entries(_build.build_log.get("ring_attention", "")).items()
+           for m in [re.search(r"ring_attention_tf32_kernelILi(\d+)E", name)] if m]
+    serialized = [ln.split("'")[1] for src in ("conv3d", "ring_attention")
+                  for ln in _build.build_log.get(src, "").splitlines()
+                  if "C7512" in ln and "'" in ln]
+    emit("tf32_ptxas", kernels=tf or "not built in this run (a cached library has no ptxas log)",
+         spill_free=all(not e.get("spill_stores") and not e.get("spill_loads") for e in tf),
+         wgmma_serialized=serialized)
 
 
 def ptxas_entries(log: str) -> dict:
@@ -537,6 +586,10 @@ def flash_error(got, want, tol: float) -> dict:
 # the CUDA kernel (a substring of its name in the profiler) behind each count
 CUDA_KERNEL = {"conv3d_igemm": "conv3d_igemm", "conv3d_direct": "conv3d_direct",
                "conv3d_dgrad_igemm": "conv3d_igemm", "conv3d_dgrad_direct": "conv3d_direct",
+               "conv3d_tf32": "conv3d_tf32_kernel", "conv3d_dgrad_tf32": "conv3d_tf32_kernel",
+               "conv3d_weight_split": "tf32_split_kernel",
+               "ring_attention_tf32": "ring_attention_tf32_kernel",
+               "ring_attention_tf32_split": "kv_split_kernel",
                "flash_attention": "flash_fwd", "flash_attention_bwd": "flash_bwd_wgmma",
                "flash_attention_bwd_delta": "flash_bwd_delta",
                "flash_attention_bwd_dkv": "flash_bwd_dkv", "flash_attention_bwd_dq": "flash_bwd_dq",
@@ -573,12 +626,14 @@ def kernel_times(fn, kernel: str, iters: int = 10) -> dict:
 
 
 def conv_kernel_name(kind: str, key) -> str:
-    """The count a conv problem's launch goes to: the implicit GEMM for bf16
-    whose own input channels are a multiple of 8, else the direct kernel."""
-    import torch
+    """The count a conv problem's launch goes to (``conv_route``: the
+    implicit GEMM for bf16 whose own input channels are a multiple of 8, its
+    3xTF32 form for fp32 with Cin % 4 == 0 and Cout > 1, else the direct
+    kernel)."""
+    from rho_diffusion_tpu_torch.ops.kernels.conv3d import conv_route
 
-    xs, _, dt = key
-    route = "igemm" if dt == torch.bfloat16 and xs[-1] % 8 == 0 else "direct"
+    xs, cout, dt = key
+    route = conv_route(dt, xs[-1], cout)
     return f"conv3d_{route}" if kind == "forward" else f"conv3d_dgrad_{route}"
 
 
@@ -632,21 +687,64 @@ def hold_conv(kind: str, key, device, seed: int, calls: int = 0, per: str = "") 
            "kernel": conv_kernel_name(kind, key), "variant": None,
            **conv_error(run().float(), plain(), tol)}
     if calls:
-        flops, nbytes, peak = conv_cost(key)
-        bnd, by = bound_ms(flops, nbytes, peak)
+        flops, nbytes, item = conv_cost(key)
+        bound = dtype_bound(flops, nbytes, item)
         row.update(calls=calls, per=per, **kernel_times(run, row["kernel"]),
                    plain_ms=cuda_time_ms(plain, iters=2, warmup=1),
-                   library="F.conv3d (cuDNN)" if kind == "forward"
-                   else "torch.nn.grad.conv3d_input (cuDNN)",
-                   library_ms=cuda_time_ms(library, iters=10), bound_ms=bnd, bound_by=by)
-        if row["ms"] < bnd:
+                   library=("F.conv3d (cuDNN)" if kind == "forward"
+                            else "torch.nn.grad.conv3d_input (cuDNN)")
+                   + (", fp32 with TF32 off" if item == 4 else ""),
+                   library_ms=cuda_time_ms(library, iters=10), **bound)
+        if row["ms"] < bound["bound_ms"]:
             # faster than the card's peak: the profiler mistimed the launches
             # it recorded (it can, on the H100), so the call's time stands
             row.update(profiled_ms=row["ms"], ms=row["call_ms"],
                        ms_of="the wrapper call (CUDA events): the profiler's time was below "
                              "the bound")
         row["tflops"] = flops / row["ms"] / 1e9
+        if row["kernel"].endswith("_tf32"):
+            # the kernel's weights [Cout, 27, Cin] of the conv it runs (a
+            # dgrad's are the flipped, IO-transposed forward weights)
+            row["weight_split"] = weight_split_row(cout, xs[-1], seed)
     return row
+
+
+def exact_error(got, want) -> dict:
+    """A check that the kernel's output equals its plain version's bit for
+    bit (the tf32 splits: the same rounding of the same values)."""
+    import torch
+
+    equal = bool(torch.equal(got, want))
+    return {"max_abs_err": float((got - want).abs().max()), "max_abs_ref": float(want.abs().max()),
+            "tol": 0.0, "check": "bitwise equal", "err_over_tol": 0.0 if equal else math.inf,
+            "ok": equal}
+
+
+def weight_split_row(cout: int, cin: int, seed: int) -> dict:
+    """The tf32 conv route's weight pre-pass on a [Cout, 27, Cin] fp32
+    weight (the kernel's layout of the conv it precedes): held bitwise
+    against its plain version (``tf32_split``, lo rounded by
+    ``tf32_round``), timed beside it and its byte bound (the weights read
+    once, both terms written once)."""
+    import torch
+
+    from rho_diffusion_tpu_torch.ops.kernels.conv3d import weight_split_kernel
+    from rho_diffusion_tpu_torch.ops.kernels.tf32 import tf32_round, tf32_split
+
+    w = randn((cout, 27, cin), seed + 5, "cuda", torch.float32, 1 / math.sqrt(27 * cin))
+
+    def plain():
+        hi, lo = tf32_split(w)
+        return hi, tf32_round(lo)
+
+    got, want = weight_split_kernel(w), plain()
+    nbytes = 3 * 4.0 * w.numel()
+    return {"kernel": "conv3d_weight_split", "dtype": "float32",
+            **exact_error(torch.stack(got), torch.stack(want)),
+            **kernel_times(lambda: weight_split_kernel(w), "conv3d_weight_split"),
+            "plain_ms": cuda_time_ms(plain, iters=5), "library": "none: no one PyTorch call "
+            "rounds to TF32", "library_ms": None, "bound_ms": nbytes / MEM_RATE * 1e3,
+            "bound_by": "bytes"}
 
 
 def hold_convs(unet, batch: int, kind: str, device, seed: int, timed: bool) -> list:
@@ -811,6 +909,30 @@ def check_flash_plans(device) -> tuple[list, list]:
     return rows, summary
 
 
+def check_tf32_probe(device) -> list:
+    """The tf32 route's 3xTF32 products alone (``tf32_probe``: one
+    warpgroup, a [64, 32] by [n, 32]^T tile, in S = Q K^T's and in
+    O += P V's operand layouts) against the fp32 product, at the flash
+    tolerance, and the single TF32 product's distance beside it."""
+    import torch
+
+    from rho_diffusion_tpu_torch.ops.kernels.ring_attention import tf32_probe
+    from rho_diffusion_tpu_torch.ops.kernels.tf32 import tf32_matmul
+
+    rows = []
+    for i, n in enumerate((32, 128)):
+        a = randn((64, 32), 150 + i, device, torch.float32)
+        b = randn((n, 32), 160 + i, device, torch.float32)
+        want = a @ b.T
+        got = tf32_probe(a, b)
+        for form, name in enumerate(("S = Q K^T layouts", "O += P V layouts")):
+            rows.append({"kernel": "tf32_probe", "dtype": "float32", "n": n, "form": name,
+                         **flash_error(got[form], want, TOL_FLASH["float32"]),
+                         "one_tf32_product": flash_error(tf32_matmul(a, b.T, terms=1), want,
+                                                         TOL_FLASH["float32"])["rel_rms_err"]})
+    return rows
+
+
 def ring_mesh(n: int, device):
     """A ("data", "context") mesh of ``n`` context ranks, all on ``device``."""
     from rho_diffusion_tpu_torch.parallel import make_mesh
@@ -826,6 +948,15 @@ def ring_call(q, k, v, mesh, plain: bool = False):
     return context_sharded_attention(q, k, v, mesh, impl="rdma", plain=plain)
 
 
+def ring_kernel_name(dtype, d: int) -> str:
+    """The count a ring call's fold goes to: K6's 3xTF32 kernel for fp32 at
+    kernel head dims 64 and 128, else its mma.sync or FMA kernel."""
+    from rho_diffusion_tpu_torch.ops.kernels.ring_attention import kernel_head_dim, ring_route
+
+    return ("ring_attention_tf32" if ring_route(dtype, kernel_head_dim(d)) == "tf32"
+            else "ring_attention")
+
+
 def check_ring(b, t, h, d, n, device, seed: int, dtype) -> list:
     """K6 in its ring of ``n`` ranks on one card (strided views of one qkv,
     as the UNet makes them), held on fp32 copies of the inputs against the
@@ -838,8 +969,8 @@ def check_ring(b, t, h, d, n, device, seed: int, dtype) -> list:
     mesh = ring_mesh(n, device)
     got = ring_call(q, k, v, mesh)
     tol = TOL_FLASH[dtype_name(dtype)]
-    row = {"kernel": "ring_attention", "b": b, "t": t, "n": n, "t_per_rank": t // n, "h": h,
-           "d": d, "dtype": dtype_name(dtype)}
+    row = {"kernel": ring_kernel_name(dtype, d), "b": b, "t": t, "n": n, "t_per_rank": t // n,
+           "h": h, "d": d, "dtype": dtype_name(dtype)}
     return [{**row, "against": "the plain ring (fp32)",
              **flash_error(got, ring_call(qf, kf, vf, mesh, plain=True), tol)},
             {**row, "against": "xla_attention without the ring (fp32)",
@@ -860,10 +991,19 @@ def phase_kernels(state: dict) -> None:
     # config's level-0 conv (K5's box of 64 x 2 voxels)
     for cin, cout in ((1, 64), (64, 1)):
         keys.append(((2, 32, 32, 32, cin), cout, torch.float32))
+    # fp32 with Cin % 4 != 0 (the direct kernel), and a ragged tf32 conv
+    keys += [((2, 9, 10, 11, 6), 10, torch.float32), ((1, 5, 7, 9, 12), 70, torch.float32)]
     keys.append((LEVEL0_64, 64, torch.bfloat16))
+    # every conv problem of the fp32 flagship at batch 2, its interior
+    # (64..1024 channels) among them, forward and dgrad
+    unet32 = build_unet(flagship_config(25), "float32", device)
+    conv32_calls = forward_shapes(unet32, 2, device)[0]
+    del unet32
+    keys += [k for k in sorted(set(conv_keys(conv32_calls, "forward")), key=str) if k not in keys]
+    dgrad_keys = sorted(set(conv_keys(conv_calls, "dgrad")) | set(conv_keys(conv32_calls, "dgrad")),
+                        key=str)
     conv = [hold_conv("forward", k, device, seed=i) for i, k in enumerate(keys)]
-    conv += [hold_conv("dgrad", k, device, seed=50 + 2 * i)
-             for i, k in enumerate(sorted(set(conv_keys(conv_calls, "dgrad")), key=str))]
+    conv += [hold_conv("dgrad", k, device, seed=50 + 2 * i) for i, k in enumerate(dgrad_keys)]
     (qs, _), _, _ = attn_calls[0]
     _, t, h, d = qs  # the flagship's attention: T=512, 4 heads of 128
     flash, flash_bwd = [], []
@@ -884,20 +1024,30 @@ def phase_kernels(state: dict) -> None:
             check_flash_bwd(2, 300, 2, 64, device, seed=114, dtype=dt),
         ]
     # K6 at the serve shape (bucket 8 over 4 ranks: T/n = 128) and the 64^3
-    # config's (T = 4096: T/n = 1024)
+    # config's (T = 4096: T/n = 1024); fp32 at D = 128 takes the tf32 fold,
+    # at D = 32 and 256 the FMA one; a ragged shard (T/n = 75)
     ring = [row for dt in (torch.bfloat16, torch.float32) for i, tt in enumerate((t, 4096))
             for row in check_ring(8, tt, h, d, SERVE_CONTEXT, device, seed=120 + i, dtype=dt)]
+    ring += [row for dd in (32, 256, 64) for row in check_ring(2, 300, 2, dd, SERVE_CONTEXT,
+                                                               device, 124, torch.float32)]
+    # the tf32 products alone, in both operand layouts, and the pre-passes
+    probe = check_tf32_probe(device)
+    splits = [weight_split_row(cout, cin, 140 + i)
+              for i, (cout, cin) in enumerate(((64, 64), (512, 1024), (10, 12)))]
+    _, k8, v8 = flash_inputs(2, 300, 2, 64, device, 141, torch.float32)
+    splits.append(ring_split_row(k8, v8, SERVE_CONTEXT, 0, "", None))
     plans, plans_summary = check_flash_plans(device)
-    record_errors(state, conv + flash + ring + plans
+    record_errors(state, conv + flash + ring + plans + probe + splits
                   + [g for r in flash_bwd for g in r["grads"]])
     counts = dict(launch_counts)
     state["kernels_launches"] = counts
-    emit("kernels", conv=conv, flash=flash, flash_bwd=flash_bwd, ring=ring,
+    emit("kernels", conv=conv, flash=flash, flash_bwd=flash_bwd, ring=ring, tf32_probe=probe,
+         tf32_splits=splits,
          flash_plans=plans_summary, flash_plan_holds=len(plans),
          flash_plan_failures=[r for r in plans if not r["ok"]],
          attention_calls_per_forward=len(attn_calls), conv_calls_per_forward=len(conv_calls),
          launches=counts)
-    fail_bad("kernels", conv + flash + flash_bwd + ring + plans)
+    fail_bad("kernels", conv + flash + flash_bwd + ring + plans + probe + splits)
     # the mma.sync/fp32 pair runs on no main path now: its path is these holds
     missing = [name for name, _, _, path in KERNELS if path == "kernels" and not counts.get(name)]
     if missing:
@@ -919,12 +1069,12 @@ def conv_problem_name(kind: str, xs, cout: int, dtype: str) -> str:
 def direct_launches(calls) -> dict:
     """{problem: launches} of the direct conv among recorded conv3d_kernel
     calls (x, weight, bias[, kind]): those the igemm route does not take."""
-    import torch
+    from rho_diffusion_tpu_torch.ops.kernels.conv3d import conv_route
 
     out: dict = {}
     for call in calls:
         (xs, dt), (ws, _) = call[0], call[1]
-        if dt == torch.bfloat16 and xs[-1] % 8 == 0:
+        if conv_route(dt, xs[-1], ws[0]) != "direct":
             continue
         kind = "dgrad" if len(call) > 3 and call[3] == "conv3d_dgrad" else "forward"
         name = conv_problem_name(kind, xs, ws[0], dtype_name(dt))
@@ -1502,6 +1652,24 @@ def phase_gauss(state: dict) -> None:
         fail("gauss: " + "; ".join(problems))
 
 
+def profiled_step(by_name: dict, host_s: float) -> dict:
+    """One profiled training step: its host seconds, the device's busy
+    share, and the device time by DEVICE_TIME_GROUPS."""
+    if not by_name:
+        return {"host_s": host_s, **NOT_PROFILED}
+    groups: dict = {}
+    for name, (ms, n) in by_name.items():
+        group = next((g for g, keys in DEVICE_TIME_GROUPS if any(k in name for k in keys)),
+                     "other PyTorch ops (GroupNorm, SiLU, casts, copies, adds, reductions)")
+        total, count = groups.get(group, (0.0, 0))
+        groups[group] = (total + ms, count + n)
+    out = {"host_s": host_s, **profile_summary(by_name)}
+    out.update(device_busy_share=out["busy_ms"] / 1e3 / host_s,
+               by_group={g: {"ms": ms, "launches": n} for g, (ms, n)
+                         in sorted(groups.items(), key=lambda kv: -kv[1][0])})
+    return out
+
+
 def train_config(batch: int) -> dict:
     """The flagship config at full width with the train phase's cuts."""
     cfg = json.loads(CONFIG.read_text())
@@ -1600,20 +1768,9 @@ def phase_train(state: dict, batch: int) -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    profiled = {"host_s": one_step_s, **NOT_PROFILED}
+    profiled = profiled_step(by_name, one_step_s)
     flash_bwd_profiled = {name[:90]: {"ms": ms, "launches": n}
                           for name, (ms, n) in by_name.items() if "flash_bwd" in name}
-    if by_name:
-        groups: dict = {}
-        for name, (ms, n) in by_name.items():
-            group = next((g for g, keys in DEVICE_TIME_GROUPS if any(k in name for k in keys)),
-                         "other PyTorch ops (GroupNorm, SiLU, casts, copies, adds, reductions)")
-            total, count = groups.get(group, (0.0, 0))
-            groups[group] = (total + ms, count + n)
-        profiled = {"host_s": one_step_s, **profile_summary(by_name)}
-        profiled.update(device_busy_share=profiled["busy_ms"] / 1e3 / one_step_s,
-                        by_group={g: {"ms": ms, "launches": n} for g, (ms, n)
-                                  in sorted(groups.items(), key=lambda kv: -kv[1][0])})
     after_first = step_s[1:]
     median = float(np.median(after_first)) if after_first else None
     state["train_launches"] = counts
@@ -2006,14 +2163,16 @@ def phase_serve(state: dict, steps: int) -> None:
         fail("serve: " + "; ".join(problems))
 
 
-def conv_cost(key) -> tuple[float, float, float]:
+def conv_cost(key) -> tuple[float, float, int]:
+    """(flops, bytes, bytes an element) of one conv problem: x and the
+    weights read once, the output written once."""
     xs, cout, dt = key
     item = 2 if str(dt).endswith("bfloat16") else 4
     vox = math.prod(xs[:-1])
     cin = xs[-1]
     flops = 2.0 * vox * cout * 27 * cin
     nbytes = item * (vox * cin + 27 * cin * cout + vox * cout + cout)
-    return flops, nbytes, PEAK_BF16 if item == 2 else PEAK_FP32
+    return flops, nbytes, item
 
 
 def phase_timings(state: dict, batch: int) -> None:
@@ -2039,13 +2198,10 @@ def phase_timings(state: dict, batch: int) -> None:
     n, per = len(attn_calls), f"one UNet forward at batch {batch}"
     flash = [flash_fwd_row(b, t, h, d, n, per, device, torch.bfloat16),
              flash_fwd_row(b, 4096, h, d, 1, per, device, torch.bfloat16,
-                           variant="T=4096 (the 64^3 config's attention), one call"),
-             flash_fwd_row(b, t, h, d, n, per, device, torch.float32, variant="fp32")]
+                           variant="T=4096 (the 64^3 config's attention), one call")]
     emit("timings_flash", rows=flash)
     per_ring = f"one UNet forward at batch {batch} under a context={SERVE_CONTEXT} mesh"
     ring = [ring_row(b, t, h, d, SERVE_CONTEXT, n, per_ring, device, torch.bfloat16),
-            ring_row(b, t, h, d, SERVE_CONTEXT, n, per_ring, device, torch.float32,
-                     variant="fp32"),
             ring_row(b, 4096, h, d, SERVE_CONTEXT, 1, per_ring, device, torch.bfloat16,
                      variant="T=4096 (the 64^3 config's attention, T/n = 1024), one call")]
     emit("timings_ring", rows=ring,
@@ -2081,7 +2237,6 @@ def flash_fwd_row(b, t, h, d, calls: int, per: str, device, dtype, variant=None)
     qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
     flops = 4.0 * b * h * t * t * d
     item = q.element_size()
-    bnd, by = bound_ms(flops, item * 4.0 * b * t * h * d, PEAK_BF16 if item == 2 else PEAK_FP32)
     row = {"kernel": "flash_attention", "variant": variant, "b": b, "t": t, "h": h, "d": d,
            "dtype": dtype_name(dtype), "calls": calls, "per": per, "flash_route": plan.route,
            "plan": plan_name(plan),
@@ -2093,9 +2248,18 @@ def flash_fwd_row(b, t, h, d, calls: int, per: str, device, dtype, variant=None)
            "library": "scaled_dot_product_attention",
            "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
                                       iters=10),
-           "bound_ms": bnd, "bound_by": by}
+           "library_kernels": kernel_names(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+           **dtype_bound(flops, item * 4.0 * b * t * h * d, item)}
     row["tflops"] = flops / row["ms"] / 1e9
     return row
+
+
+def kernel_names(fn) -> dict:
+    """{CUDA kernel name: launches recorded} of two calls of ``fn``: which
+    kernels a library call runs."""
+    from rho_diffusion_tpu_torch.benchmarks._timing import kernel_events
+
+    return {name[:120]: n for name, (_, n) in kernel_events(fn, 2).items()}
 
 
 OPS_CALLS = 10  # ring calls whose operations ring_row lists
@@ -2139,38 +2303,67 @@ def ring_row(b, t, h, d, n, calls: int, per: str, device, dtype, variant=None) -
     mesh = ring_mesh(n, device)
     item = q.element_size()
     flops = 4.0 * b * h * t * t * d
-    bnd, by = bound_ms(flops, item * 4.0 * b * t * h * d, PEAK_BF16 if item == 2 else PEAK_FP32)
+    name = ring_kernel_name(dtype, d)
+    tf32 = name == "ring_attention_tf32"
     # what this design moves: q read once, every rank's K/V shard read by
-    # each of the n ranks, o written once
+    # each of the n ranks, o written once; the tf32 route's pre-pass reads
+    # k and v once and writes both terms of each, which the n ranks read
     shard = b * h * (t // n) * d
-    design_bytes = item * (n * shard + n * n * 2 * shard + n * shard)
-    before = launch_counts["ring_attention"]
+    design_bytes = item * (n * shard + n * n * (4 if tf32 else 2) * shard + n * shard)
+    expected = {name: 1, **({"ring_attention_tf32_split": 1} if tf32 else {})}
+    before = dict(launch_counts)
     ring_call(q, k, v, mesh)
     torch.cuda.synchronize()
-    launches = launch_counts["ring_attention"] - before
+    launches = {key: launch_counts[key] - before.get(key, 0) for key in expected}
     ops, copies = ops_of(lambda: ring_call(q, k, v, mesh), OPS_CALLS)
-    times = kernel_times(lambda: ring_call(q, k, v, mesh), "ring_attention")
-    row = {"kernel": "ring_attention", "variant": variant, "b": b, "t": t, "h": h, "d": d, "n": n,
+    times = kernel_times(lambda: ring_call(q, k, v, mesh), name)
+    row = {"kernel": name, "variant": variant, "b": b, "t": t, "h": h, "d": d, "n": n,
            "t_per_rank": t // n, "dtype": dtype_name(dtype), "calls": calls, "per": per,
            **flash_error(ring_call(q, k, v, mesh), ring_call(qf, kf, vf, mesh, plain=True),
                          TOL_FLASH[dtype_name(dtype)]),
-           **times, "launches_per_call": launches, "device_ops_in_calls": ops,
+           **times, "launches_per_call": launches[name], "device_ops_in_calls": ops,
            "copy_ops_in_calls": copies, "ops_calls": OPS_CALLS,
            "plain_ms": cuda_time_ms(lambda: ring_call(qf, kf, vf, mesh, plain=True), iters=3,
                                     warmup=1),
            "library": "scaled_dot_product_attention over the unsharded [B, H, T, D]",
            "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
                                       iters=10),
-           "bound_ms": bnd, "bound_by": by, "design_bytes": design_bytes,
+           "library_kernels": kernel_names(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+           **dtype_bound(flops, item * 4.0 * b * t * h * d, item), "design_bytes": design_bytes,
            "design_bytes_ms": design_bytes / MEM_RATE * 1e3}
     row["tflops"] = flops / row["ms"] / 1e9
-    others = [name for name in ops if CUDA_KERNEL["ring_attention"] not in name]
-    if launches != 1 or others or copies:
+    if tf32:
+        row["pre_pass"] = ring_split_row(k, v, n, calls, per, variant)
+    kernels = [CUDA_KERNEL[key] for key in expected]
+    others = [op for op in ops if not any(kn in op for kn in kernels)]
+    if launches != expected or others or copies:
         row["ok"] = False
-        row["fault"] = (f"a ring call on one card made {launches} K6 launches, the device "
-                        f"operations {ops} and the copies {copies}; expected one launch and "
+        row["fault"] = (f"a ring call on one card made the launches {launches}, the device "
+                        f"operations {ops} and the copies {copies}; expected {expected} and "
                         "nothing else")
     return row
+
+
+def ring_split_row(k, v, n: int, calls: int, per: str, variant) -> dict:
+    """K6's tf32 pre-pass on the n shards of k and v (the ring's split of
+    the tokens): held bitwise against its plain version, timed beside it
+    and its byte bound (k and v read once, both terms of each written
+    once)."""
+    import torch
+
+    from rho_diffusion_tpu_torch.ops.kernels.ring_attention import ring_split, ring_split_plain
+
+    ks, vs = k.split(k.shape[1] // n, dim=1), v.split(v.shape[1] // n, dim=1)
+    got, want = ring_split(ks, vs), ring_split_plain(ks, vs)
+    nbytes = 3 * 2 * 4.0 * k.numel()
+    return {"kernel": "ring_attention_tf32_split", "variant": variant, "dtype": "float32",
+            "b": k.shape[0], "t": k.shape[1], "n": n, "calls": calls, "per": per,
+            **exact_error(torch.cat([x.flatten() for x in got]),
+                          torch.cat([x.flatten() for x in want])),
+            **kernel_times(lambda: ring_split(ks, vs), "ring_attention_tf32_split"),
+            "plain_ms": cuda_time_ms(lambda: ring_split_plain(ks, vs), iters=5),
+            "library": "none: no one PyTorch call rounds to TF32", "library_ms": None,
+            "bound_ms": nbytes / MEM_RATE * 1e3, "bound_by": "bytes"}
 
 
 def sdpa_backward_ms(q, k, v, do) -> dict:
@@ -2235,26 +2428,23 @@ def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None
     do = randn((b, t, h, d), 501, device, dtype)
     o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
     qf, kf, vf, of, dof = (z.float() for z in (q, k, v, o, do))
-    library = (sdpa_backward_ms(q, k, v, do) if dtype == torch.bfloat16
-               else {"library_ms": None})
+    library = sdpa_backward_ms(q, k, v, do)
     item = q.element_size()
     io = item * b * t * h * d  # one [B, T, H, D] tensor
     stats = 2 * 4 * b * h * t  # lse and delta, fp32
     tol = TOL_FLASH_BWD[dtype_name(dtype)]
-    peak = PEAK_BF16 if item == 2 else PEAK_FP32
     plan = flash_bwd_plan(b, h, t, t, d, dtype)
     rows = []
 
     def row(name, run, want, flops, nbytes, row_tol=tol, row_library=None, **extra):
         got = [g for g in run() if g is not None]
         errs = [flash_error(g, w, row_tol) for g, w in zip(got, want)]
-        bnd, by = bound_ms(flops, nbytes, peak)
         r = {"kernel": name, "variant": variant, "b": b, "t": t, "h": h, "d": d,
              "dtype": dtype_name(dtype), "calls": calls, "per": per,
              **max(errs, key=lambda e: (not e["ok"], e["err_over_tol"])),
              **kernel_times(run, name), "host_ms": host_ms(run, calls=20),
              "library": "scaled_dot_product_attention backward (dq, dk, dv together)",
-             **(row_library or library), "bound_ms": bnd, "bound_by": by, **extra}
+             **(row_library or library), **dtype_bound(flops, nbytes, item), **extra}
         if not r["profiled_launches"]:
             r.update(ms=graph_ms(run, calls=10), ms_of="device time (a CUDA graph of the wrapper "
                      "replayed; the profiler recorded no launch)")
@@ -2322,7 +2512,6 @@ def time_train_kernels(unet, batch: int, device) -> list:
     n, per = len(attn_calls), f"one training step at batch {batch}"
     _, t, h, d = qs
     flash = (flash_bwd_rows(*qs, n, per, device, torch.bfloat16)
-             + flash_bwd_rows(*qs, n, per, device, torch.float32, variant="fp32")
              + flash_bwd_rows(8, 4096, h, d, 1, per, device, torch.bfloat16,
                               variant="T=4096 (the 64^3 config's attention, batch 8), one call"))
     emit("timings_flash_bwd", rows=flash)
@@ -2539,6 +2728,268 @@ def flash_bwd_plan_study(device) -> list:
     return rows
 
 
+FP32_BATCH = 8  # the fp32 forward's batch: a sampling forward's
+FP32_HOLD_BATCH = 2
+# the whole fp32 model against the fp32 plain model on the same weights,
+# inputs and noise: one forward (relative MSE) and the parameter gradients
+# of one loss (relative L2 over all of them). fp32 FMA and 3xTF32 products
+# differ from the plain fp32 sums by summation order and the split's dropped
+# a_lo b_lo term (~2^-22 relative): ~1e-12 relative MSE, ~1e-6 relative L2.
+# One TF32 product (10 mantissa bits, ~2^-11 relative a product) is ~1e-6
+# and ~1e-3: the bars sit between, so a route that multiplied in 1xTF32
+# fails them. The plain model with TF32 matmuls is printed beside as that
+# control, and the bars must sit below it.
+FP32_MODEL_BAR = {"forward": 1e-8, "train_gradients": 1e-4}
+# the bench entry in fp32, fewer steps and windows than the bf16 runs:
+# the train mode at TRAIN_BATCH (the next batch down if it does not fit in
+# the card's memory) and a DDIM sample at batch 8
+FP32_BENCH_RUNS = (
+    ("train", {"BENCH_MODE": "train", "BENCH_DTYPE": "float32", "BENCH_STEPS": "3",
+               "BENCH_WARMUP": "1", "BENCH_WINDOWS": "1"}),
+    ("sample", {"BENCH_MODE": "sample", "BENCH_DTYPE": "float32", "BENCH_DDIM_STEPS": "10"}),
+)
+
+
+@contextlib.contextmanager
+def tf32_matmuls():
+    """torch's matmuls in one TF32 product (10 mantissa bits) for the body."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def fp32_model_hold(device) -> dict:
+    """The whole fp32 flagship model on the kernels against the fp32 plain
+    model (every conv and attention call on its plain version) on the same
+    weights, inputs and noise: one forward at FP32_HOLD_BATCH and the
+    parameter gradients of one DDPM loss; beside it the plain model with
+    TF32 matmuls (the 1xTF32 control), and the kernels each launched."""
+    import torch
+
+    from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+
+    pipe = build_pipeline(flagship_config(25), "float32", device)
+    pipe.load_state_dict(random_state_dict(pipe.backbone, seed=0))
+    x, t, y = unet_inputs(pipe.backbone, FP32_HOLD_BATCH, device, seed=21)
+    batch = train_batch(FP32_HOLD_BATCH, len(pipe.schedule), device, seed=23)
+    before = dict(launch_counts)
+    with torch.no_grad():
+        got = pipe.apply(x, t, y)
+    grads = train_gradients(pipe, *batch)
+    launched = {k: v - before.get(k, 0) for k, v in launch_counts.items() if v > before.get(k, 0)}
+    with plain_backends():
+        with torch.no_grad():
+            want = pipe.apply(x, t, y)
+        grads_plain = train_gradients(pipe, *batch)
+        with tf32_matmuls():
+            with torch.no_grad():
+                control = pipe.apply(x, t, y)
+            grads_tf32 = train_gradients(pipe, *batch)
+    torch.cuda.synchronize()
+    rows = {"forward": {"metric": "relative MSE", "kernels_vs_plain": rel_mse(got, want),
+                        "tf32_plain_vs_plain": rel_mse(control, want)}}
+    k, k_name, k_worst = grad_distance(grads, grads_plain)
+    rows["train_gradients"] = {
+        "metric": "relative L2 over all parameter gradients", "kernels_vs_plain": k,
+        "tf32_plain_vs_plain": grad_distance(grads_tf32, grads_plain)[0],
+        "worst_parameter_kernels": {"name": k_name, "rel_l2": k_worst},
+        "finite": all(bool(torch.isfinite(g).all()) for g in grads.values())
+        and set(grads) == set(grads_plain)}
+    for what, row in rows.items():
+        bar = FP32_MODEL_BAR[what]
+        row.update(bar=bar, ok=row["kernels_vs_plain"] <= bar < row["tf32_plain_vs_plain"]
+                   and row.get("finite", True))
+    return {**rows, "batch": FP32_HOLD_BATCH, "kernel_launches": launched}
+
+
+def split_total(rows: list, variant, per: str) -> dict:
+    """The tf32 conv route's weight pre-pass summed over the convs of
+    ``rows`` (each problem's ``weight_split`` times its calls), as one row
+    of one call ``per``."""
+    splits = [(r["weight_split"], r["calls"]) for r in rows if "weight_split" in r]
+    total = {f: sum(w[f] * n for w, n in splits) for f in ("ms", "call_ms", "plain_ms", "bound_ms")}
+    worst = max((w for w, _ in splits), key=lambda w: w["err_over_tol"])
+    return {"kernel": "conv3d_weight_split", "variant": variant, "dtype": "float32", "calls": 1,
+            "per": per, "convs": sum(n for _, n in splits), **total, "bound_by": "bytes",
+            "ms_of": " / ".join(sorted({w["ms_of"] for w, _ in splits})),
+            "library": worst["library"], "library_ms": None,
+            **{f: worst[f] for f in ("max_abs_err", "max_abs_ref", "tol", "check",
+                                     "err_over_tol")},
+            "ok": all(w["ok"] for w, _ in splits)}
+
+
+def fp32_ring_request() -> tuple[dict, dict]:
+    """One request to the service on the fp32 flagship (``training.dtype``
+    float32) under a context mesh of SERVE_CONTEXT ranks on the card, with
+    ``RHO_RING_ATTN_IMPL=rdma``: its result and the launches of the build
+    (bucket 1 warmed up) and the request."""
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+
+    from rho_diffusion_tpu_torch import serve
+    from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+
+    cfg = flagship_config(25)
+    cfg["training"]["dtype"] = "float32"
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_fp32_serve_"))
+    impl_before = os.environ.get("RHO_RING_ATTN_IMPL")
+    os.environ["RHO_RING_ATTN_IMPL"] = "rdma"
+    try:
+        cfg_path = tmp / "config.json"
+        cfg_path.write_text(json.dumps(cfg))
+        pth = tmp / "model.pth"
+        torch.save(random_state_dict(build_pipeline(cfg, "float32", "cpu").backbone, seed=0), pth)
+        launch_counts.clear()
+        server, service = serve.build_server(serve_argv(cfg_path, pth, tmp, (1,), True),
+                                             log=lambda *_: None)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            reply = http_call(server.server_address[1], "POST", "/generate",
+                              {"conditions": serve_conditions(cfg, 1, 60).tolist(), "seed": 60})
+            torch.cuda.synchronize()
+            counts = dict(launch_counts)
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+            thread.join(timeout=30)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if impl_before is None:
+            os.environ.pop("RHO_RING_ATTN_IMPL", None)
+        else:
+            os.environ["RHO_RING_ATTN_IMPL"] = impl_before
+    arr = np.asarray(reply["samples"], np.float32)
+    return ({"shape": reply["shape"], "bucket": reply["bucket"], "latency_s": reply["latency_s"],
+             "finite": bool(np.isfinite(arr).all()), "std": float(arr.std())}, counts)
+
+
+def phase_fp32(state: dict) -> None:
+    """The flagship in fp32 (a model whose ``training.dtype`` is float32):
+    every fp32 kernel body at the model's shapes against its plain version,
+    timed beside its library call and bound; the whole fp32 model held
+    against the plain one; and the path whose launches are counted: the
+    bench entry with BENCH_DTYPE=float32 (the train mode, profiled by
+    group, and a DDIM sample) and one request to the fp32 service under a
+    context mesh (K6's fp32 route)."""
+    import io
+
+    import torch
+
+    from rho_diffusion_tpu_torch import bench
+
+    device = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    unet = build_unet(flagship_config(25), "float32", device)
+    conv = hold_convs(unet, FP32_BATCH, "forward", device, seed=1000, timed=True)
+    dgrad = hold_convs(unet, TRAIN_BATCH, "dgrad", device, seed=1100, timed=True)
+    attn_calls = forward_shapes(unet, FP32_BATCH, device)[1]
+    del unet
+    torch.cuda.empty_cache()
+    for r in conv + dgrad:  # the tf32 kernels run fp32 only: their rows are their main ones
+        r["variant"] = None if r["kernel"].endswith("_tf32") else "fp32"
+    split = [split_total(conv, None, f"one UNet forward at batch {FP32_BATCH}: the weights of "
+                                     "its tf32 convs"),
+             split_total(dgrad, "dgrad", f"one training step at batch {TRAIN_BATCH}: the "
+                                         "weights of its tf32 dgrad convs")]
+    emit("fp32_conv", forward_batch=FP32_BATCH, dgrad_batch=TRAIN_BATCH, rows=conv + dgrad,
+         weight_split=split)
+    (qs, _), _, _ = attn_calls[0]
+    _, t, h, d = qs
+    n = len(attn_calls)
+    per_fwd, per_step = (f"one UNet forward at batch {FP32_BATCH}",
+                         f"one training step at batch {TRAIN_BATCH}")
+    flash = [flash_fwd_row(FP32_BATCH, t, h, d, n, per_fwd, device, torch.float32,
+                           variant="fp32"),
+             flash_fwd_row(TRAIN_BATCH, t, h, d, n, per_step, device, torch.float32,
+                           variant=f"fp32, batch {TRAIN_BATCH}")]
+    flash_bwd = (flash_bwd_rows(TRAIN_BATCH, t, h, d, n, per_step, device, torch.float32,
+                                variant="fp32")
+                 + flash_bwd_rows(FP32_BATCH, t, h, d, n, per_fwd.replace("forward", "backward"),
+                                  device, torch.float32, variant=f"fp32, batch {FP32_BATCH}"))
+    ring = [ring_row(FP32_BATCH, t, h, d, SERVE_CONTEXT, n,
+                     f"one UNet forward at batch {FP32_BATCH} under a context={SERVE_CONTEXT} "
+                     "mesh", device, torch.float32)]
+    ring += [ring[0].pop("pre_pass")] if "pre_pass" in ring[0] else []
+    emit("fp32_attention", flash=flash, flash_bwd=flash_bwd, ring=ring)
+    hold = fp32_model_hold(device)
+    emit("fp32_hold", **hold)
+    torch.cuda.empty_cache()
+
+    # the bench entry in fp32 (the counted path), then one profiled step
+    runs, launches = {}, {}
+    for name, env in FP32_BENCH_RUNS:
+        for batch in ((TRAIN_BATCH, TRAIN_BATCH // 2) if name == "train" else (None,)):
+            env_b = {**env, **({"BENCH_BATCH": str(batch)} if batch else {})}
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            captured, err = io.StringIO(), io.StringIO()
+            try:
+                with bench_env(env_b), contextlib.redirect_stdout(captured), \
+                        contextlib.redirect_stderr(err):
+                    result, wall, counts, fr = counted(lambda: bench.main(["-d", DEVICE]))
+            except torch.cuda.OutOfMemoryError:
+                runs[f"{name}_b{batch}"] = "out of memory: the next batch down follows"
+                continue
+            runs[name] = {"line": result, "entry_s": wall, "stderr": err.getvalue().strip(),
+                          "env": env_b, "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                          "launches": counts, "flash_routes": fr}
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            break
+    if "train" in runs:
+        env_b = runs["train"]["env"]
+        with bench_env(env_b):
+            s = bench.settings()
+        torch.cuda.empty_cache()
+        pipe = bench.training_pipeline(s, device)
+        ts = pipe.create_state(777)
+        rng = torch.Generator().manual_seed(0)
+        data = {"data": torch.rand((s["batch"], *(s["grid"],) * 3, 1), generator=rng).to(device),
+                "labels": torch.rand((s["batch"], 4 * s["mc"]), generator=rng).to(device)}
+        pipe.training_step(ts, data)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pipe.training_step(ts, data)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t1
+        runs["train"]["profiled_step"] = profiled_step(
+            device_time_by_kernel(lambda: pipe.training_step(ts, data)), host_s)
+        del pipe, ts, data
+        torch.cuda.empty_cache()
+    # one served fp32 request under the context mesh: K6's fp32 route
+    served, counts = fp32_ring_request()
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    state["fp32_launches"] = launches
+    rows = conv + dgrad + split + flash + flash_bwd + ring
+    record_errors(state, rows)
+    state["fp32"] = rows
+    emit("fp32", bench=runs, served_ring_request=served, launches=launches,
+         seconds=time.perf_counter() - t0)
+    problems = [f"fp32 model hold {what}: {row}" for what, row in hold.items()
+                if isinstance(row, dict) and "ok" in row and not row["ok"]]
+    if "train" not in runs or "sample" not in runs:
+        problems.append(f"the fp32 bench runs did not all finish: {runs}")
+    if not served["finite"]:
+        problems.append(f"the served fp32 ring request: {served}")
+    missing = [name for name, _, _, path in KERNELS if path == "fp32" and not launches.get(name)]
+    if missing:
+        problems.append(f"the fp32 path never launched {missing}; counts {launches}")
+    if problems:
+        fail("fp32: " + "; ".join(problems))
+    fail_bad("fp32", rows)
+
+
 def phase_bench(state: dict) -> None:
     """The bottleneck-isolation path: the variant entry's ``main`` with
     every variant (the counted run), then ``bench_rows``, then the
@@ -2612,6 +3063,19 @@ KERNELS = (
     # order (the ring's host side: parallel/context_rdma.py)
     ("ring_attention", "ring_attention.cu", "rho_diffusion_tpu/parallel/context_rdma.py:50",
      "serving"),
+    # fp32 on the tensor cores (3xTF32), the fp32 flagship's path: K5's
+    # block with split operands (conv3d_tf32.cuh, launched from conv3d.cu)
+    # after its weight pre-pass; K6's fold (ring_attention_tf32.cuh, launched
+    # from ring_attention.cu) after its K/V pre-pass
+    ("conv3d_tf32", "conv3d_tf32.cuh", "rho_diffusion_tpu/ops/pallas/conv3d.py:102", "fp32"),
+    ("conv3d_dgrad_tf32", "conv3d_tf32.cuh", "rho_diffusion_tpu/ops/pallas/conv3d.py:247",
+     "fp32"),
+    ("conv3d_weight_split", "conv3d_tf32.cuh", "rho_diffusion_tpu/ops/pallas/conv3d.py:102",
+     "fp32"),
+    ("ring_attention_tf32", "ring_attention_tf32.cuh",
+     "rho_diffusion_tpu/parallel/context_rdma.py:50", "fp32"),
+    ("ring_attention_tf32_split", "ring_attention_tf32.cuh",
+     "rho_diffusion_tpu/parallel/context_rdma.py:50", "fp32"),
     # K7-K9: K5's block (conv3d_wgmma.cuh) with one factor changed, launched
     # from conv3d_variants.cu and run by the bottleneck-isolation entry; K8
     # is two kernels, the patch matrix and its dense GEMM
@@ -2654,10 +3118,10 @@ def kernels_line(state: dict) -> list:
     launches = {"sampling": state["launches"], "sampling64": state["main64_launches"],
                 "training": state["train_launches"], "serving": state["serve_launches"],
                 "bench": state["bench_launches"], "kernels": state["kernels_launches"],
-                **state["gauss_launches"]}
+                "fp32": state["fp32_launches"], **state["gauss_launches"]}
     out = []
     for name, source, replaces, path in KERNELS:
-        rows = [r for r in state["timings"] + state["bench"]
+        rows = [r for r in state["timings"] + state["bench"] + state["fp32"]
                 if r["kernel"] == name and r.get("calls")]
         main = [r for r in rows if not r["variant"]]
         accuracy = state["err"][name]
@@ -2827,6 +3291,8 @@ def main(argv=None) -> int:
         phase_serve(state, args.steps)
     if "timings" in phases:
         phase_timings(state, args.timing_batch)
+    if "fp32" in phases:
+        phase_fp32(state)
     if "bench" in phases:
         phase_bench(state)
     emit("done", seconds=time.perf_counter() - t0)

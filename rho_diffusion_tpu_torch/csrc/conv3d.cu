@@ -6,20 +6,25 @@
 //   out[b,d,h,w,co] = bias[co] + sum_{dz,dy,dx,ci} x[b,d+dz-1,h+dy-1,w+dx-1,ci] * W[co,ci,dz,dy,dx]
 // with zero padding, fp32 accumulation, output in the input dtype.
 //
-// Two entry points:
+// Three entry points:
 //   conv3d_igemm_bf16   bf16, Cin % 8 == 0: the implicit GEMM on TMA and
 //                       wgmma (conv3d_wgmma.cuh says what bounds it and what
 //                       its design does about that). The box plan comes from
 //                       the caller (ops/kernels/conv3d.py `igemm_plan`) and is
 //                       checked here; the tensor maps are encoded per call.
+//   conv3d_igemm_tf32   fp32, Cin % 4 == 0, Cout > 1: the same block in
+//                       3xTF32 (conv3d_tf32.cuh) on the weights' tf32 terms,
+//                       which `conv3d_weight_split` writes before it; its
+//                       plan from `tf32_plan`.
 //   conv3d_direct_*     any Cin, bf16 or fp32: the tiled direct conv below.
 //                       Carries the UNet's Cin=1 input conv, its fp32 output
 //                       head (Cout=1) and that head's dgrad (Cin'=1), which do
-//                       not fit the GEMM tiles.
+//                       not fit the GEMM tiles, and fp32 with Cin % 4 != 0.
 // Each launches on the caller's stream, allocates nothing, and returns 0, a
 // CUDA error code, or a negative code of its own (conv3d_error_string names
 // both) so the Python wrapper can raise.
 
+#include "conv3d_tf32.cuh"
 #include "conv3d_wgmma.cuh"
 
 namespace {
@@ -34,6 +39,20 @@ int launch_wgmma(const CUtensorMap& x_map, const CUtensorMap& w_map, const void*
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)p.blocks(), wg::THREADS, smem, stream>>>(
       x_map, w_map, (const __nv_bfloat16*)bias, (__nv_bfloat16*)out, p);
+  return (int)cudaGetLastError();
+}
+
+template <int BN, int STAGES>
+int launch_tf32(const CUtensorMap& x_map, const CUtensorMap& whi_map, const CUtensorMap& wlo_map,
+                const void* bias, void* out, const wg::Problem& p, cudaStream_t stream) {
+  constexpr int smem = ct::smem_bytes(BN, STAGES);
+  static_assert(smem <= wg::SMEM_LIMIT, "the ring does not fit in shared memory");
+  auto kernel = ct::conv3d_tf32_kernel<BN, STAGES>;
+  static unsigned long long ready = 0;
+  cudaError_t err = wg::smem_attribute_once(kernel, smem, &ready);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)p.blocks(), wg::THREADS, smem, stream>>>(x_map, whi_map, wlo_map,
+                                                              (const float*)bias, (float*)out, p);
   return (int)cudaGetLastError();
 }
 
@@ -312,6 +331,34 @@ int conv3d_igemm_bf16(const void* x, const void* w, const void* bias, void* out,
     case 2563: return launch_wgmma<256, 3>(x_map, w_map, bias, out, p, s);
     default: return launch_wgmma<256, 4>(x_map, w_map, bias, out, p, s);
   }
+}
+
+// fp32 x [B, D, H, W, Cin] (16-byte aligned, Cin % 4 == 0), w_hi and w_lo
+// [Cout, 27, Cin] fp32 contiguous and 16-byte aligned (conv3d_weight_split's
+// terms of the weights), bias [Cout] fp32 or null, out [B, D, H, W, Cout]
+// fp32. The plan: the box as for conv3d_igemm_bf16, bn 64 or 128 with 4
+// stages.
+int conv3d_igemm_tf32(const void* x, const void* w_hi, const void* w_lo, const void* bias,
+                      void* out, int B, int D, int H, int W, int Cin, int Cout, int bw, int bh,
+                      int bd, int bn, int stages, void* stream) {
+  CUtensorMap x_map, whi_map, wlo_map;
+  wg::Problem p;
+  const int err = ct::conv_setup(x, w_hi, w_lo, B, D, H, W, Cin, Cout, bw, bh, bd, bn, stages,
+                                 &x_map, &whi_map, &wlo_map, &p);
+  if (err != 0) return err;
+  cudaStream_t s = (cudaStream_t)stream;
+  return bn == 64 ? launch_tf32<64, 4>(x_map, whi_map, wlo_map, bias, out, p, s)
+                  : launch_tf32<128, 4>(x_map, whi_map, wlo_map, bias, out, p, s);
+}
+
+// The tf32 route's pre-pass: n fp32 values of w split into their tf32 terms
+// hi = tf32(w) and lo = tf32(w - hi), elementwise.
+int conv3d_weight_split(const void* w, void* hi, void* lo, long long n, void* stream) {
+  if (n < 1) return wg::ERR_PLAN;
+  const long long blocks = (n + 255) / 256;
+  ct::tf32_split_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
+                          (cudaStream_t)stream>>>((const float*)w, (float*)hi, (float*)lo, n);
+  return (int)cudaGetLastError();
 }
 
 int conv3d_direct_bf16(const void* x, const void* w, const void* bias, void* out, int B, int D,

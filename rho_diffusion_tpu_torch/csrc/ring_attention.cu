@@ -69,6 +69,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ring_attention_tf32.cuh"
+
 namespace {
 
 constexpr int MAX_RING = 16;  // ranks of one ring
@@ -455,6 +457,111 @@ int launch_f32(const RingTable& tab, const RingStrides& st, int n, int R, int B,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The tf32 route (ring_attention_tf32.cuh): 3xTF32 on wgmma for fp32
+
+// The launchers' own error codes (CUDA's are positive).
+constexpr int ERR_PLAN = -1;       // a shape the tf32 route does not take
+constexpr int ERR_ENCODE_FN = -2;  // cuTensorMapEncodeTiled not found
+constexpr int ERR_MAP = -3;        // cuTensorMapEncodeTiled refused a tensor map
+
+// The 3-D tensor map (dim0, dim1, dim2) of a contiguous fp32 tensor read in
+// boxes of 32 x box1 x 1 with the 128-byte swizzle; what lies outside reads
+// as zeros.
+bool encode_f32_3d(wg::EncodeTiled encode, CUtensorMap* map, const void* base,
+                   unsigned long long d0, unsigned long long d1, unsigned long long d2, int box1) {
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 4, d0 * d1 * 4};
+  const cuuint32_t box[3] = {32, (cuuint32_t)box1, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The problem of one tf32 launch (S8 = S rounded up to 8, as the pre-pass lays out shards).
+rt::Tf32Problem tf32_problem(const RingTable& tab, const RingStrides& st, int n, int R, int B,
+                             int H, int Tq, int S, float scale_log2) {
+  rt::Tf32Problem p;
+  p.H = H, p.Tq = Tq, p.BH = B * H, p.shards = n, p.S = S, p.S8 = (S + 7) / 8 * 8;
+  p.tiles_per_shard = (S + rt::BN - 1) / rt::BN;
+  for (int z = 0; z < R; ++z) {
+    p.q[z] = reinterpret_cast<const float*>(tab.q[z]);
+    p.o[z] = reinterpret_cast<float*>(tab.o[z]);
+    p.rank[z] = (int)tab.rank[z];
+  }
+  p.q_sb = st.q[0], p.q_st = st.q[1], p.q_sh = st.q[2];
+  p.o_sb = st.o[0], p.o_st = st.o[1], p.o_sh = st.o[2];
+  p.scale_log2 = scale_log2;
+  return p;
+}
+
+template <int HD>
+int launch_tf32_split(const RingTable& tab, const RingStrides& st, const rt::Tf32Problem& p,
+                      void* ks, void* vts, cudaStream_t stream) {
+  rt::Tf32Shards src;
+  for (int j = 0; j < p.shards; ++j) {
+    src.k[j] = reinterpret_cast<const float*>(tab.k[j]);
+    src.v[j] = reinterpret_cast<const float*>(tab.v[j]);
+  }
+  src.k_sb = st.k[0], src.k_st = st.k[1], src.k_sh = st.k[2];
+  src.v_sb = st.v[0], src.v_st = st.v[1], src.v_sh = st.v[2];
+  rt::kv_split_kernel<HD><<<dim3((p.S8 + rt::SPLIT_KEYS - 1) / rt::SPLIT_KEYS, p.BH, p.shards),
+                            256, 0, stream>>>(src, (float*)ks, (float*)vts, p.H, p.S, p.S8, p.BH,
+                                              p.shards);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_tf32(const rt::Tf32Problem& p, int R, const void* ks, const void* vts,
+                cudaStream_t stream) {
+  wg::EncodeTiled encode = wg::encode_tiled();
+  if (encode == nullptr) return ERR_ENCODE_FN;
+  const unsigned long long keys = (unsigned long long)p.shards * p.S8;
+  CUtensorMap k_map, v_map;
+  if (!encode_f32_3d(encode, &k_map, ks, HD, keys, 2ull * p.BH, rt::BN) ||
+      !encode_f32_3d(encode, &v_map, vts, keys, HD, 2ull * p.BH, HD))
+    return ERR_MAP;
+  constexpr int smem = rt::smem_bytes(HD);
+  static_assert(smem <= wg::SMEM_LIMIT, "the ring does not fit in shared memory");
+  auto kernel = rt::ring_attention_tf32_kernel<HD>;
+  static unsigned long long ready = 0;
+  cudaError_t err = wg::smem_attribute_once(kernel, smem, &ready);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((unsigned)((p.Tq + rt::BM - 1) / rt::BM), (unsigned)p.BH, (unsigned)R),
+           rt::THREADS, smem, stream>>>(k_map, v_map, p);
+  return (int)cudaGetLastError();
+}
+
+// The tf32 route's checks: fp32 at D = 64 or 128, 4-byte aligned shards
+// and 16-byte aligned scratch; the fold also 4-byte aligned q and 8-byte
+// aligned o with even strides.
+bool split_ok(const RingTable& tab, int n, int B, int H, int S, int D, const void* ks,
+              const void* vts) {
+  bool ok = (D == 64 || D == 128) && B >= 1 && H >= 1 && S >= 1 && (long long)B * H <= 65535 &&
+            ((reinterpret_cast<uintptr_t>(ks) | reinterpret_cast<uintptr_t>(vts)) & 15) == 0;
+  for (int j = 0; j < n; ++j) ok = ok && ((tab.k[j] | tab.v[j]) & 3) == 0;
+  return ok;
+}
+
+bool fold_ok(const RingTable& tab, const RingStrides& st, int R, int Tq) {
+  bool ok = Tq >= 1;
+  for (int i = 0; i < 3; ++i) ok = ok && st.o[i] % 2 == 0;
+  for (int z = 0; z < R; ++z) ok = ok && (tab.o[z] & 7) == 0 && (tab.q[z] & 3) == 0;
+  return ok;
+}
+
+template <int N>
+int launch_tf32_probe(const void* a, const void* b, void* out, cudaStream_t stream) {
+  constexpr int smem = 4 * N * 128 + 1024;
+  static unsigned long long ready = 0;
+  auto kernel = rt::tf32_probe_kernel<N>;
+  cudaError_t err = wg::smem_attribute_once(kernel, smem, &ready);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<1, 128, smem, stream>>>((const float*)a, (const float*)b, (float*)out);
+  return (int)cudaGetLastError();
+}
+
 // table: 5 * MAX_RING values laid out as RingTable; strides: 12 values as RingStrides.
 bool unpack(const long long* table, const long long* strides, int n, int R, RingTable* tab,
             RingStrides* st) {
@@ -508,6 +615,48 @@ int ring_attention_f32(const long long* table, const long long* strides, int n, 
   }
 }
 
+// The tf32 route, two launches on `stream`. ring_attention_tf32_split
+// writes every shard's K and V^T tf32 terms into ks and vts: fp32 scratch of
+// 2 * B*H * n*S8 * D elements each (S8 = S rounded up to 8) on the launch's
+// device, 16-byte aligned, any contents; ring_attention_tf32 then folds them
+// into the R ranks' rows (the split reads no q or o). Both take the table
+// and strides as above, fp32 at D = 64 or 128, and return ERR_PLAN for a
+// shape they do not take.
+int ring_attention_tf32_split(const long long* table, const long long* strides, int n, int R,
+                              int B, int H, int Tq, int S, int D, void* ks, void* vts,
+                              void* stream) {
+  RingTable tab;
+  RingStrides st;
+  if (!unpack(table, strides, n, R, &tab, &st)) return (int)cudaErrorInvalidValue;
+  if (!split_ok(tab, n, B, H, S, D, ks, vts)) return ERR_PLAN;
+  const rt::Tf32Problem p = tf32_problem(tab, st, n, R, B, H, Tq, S, 0.f);
+  cudaStream_t s = (cudaStream_t)stream;
+  return D == 128 ? launch_tf32_split<128>(tab, st, p, ks, vts, s)
+                  : launch_tf32_split<64>(tab, st, p, ks, vts, s);
+}
+
+int ring_attention_tf32(const long long* table, const long long* strides, int n, int R, int B,
+                        int H, int Tq, int S, int D, float scale_log2, const void* ks,
+                        const void* vts, void* stream) {
+  RingTable tab;
+  RingStrides st;
+  if (!unpack(table, strides, n, R, &tab, &st)) return (int)cudaErrorInvalidValue;
+  if (!split_ok(tab, n, B, H, S, D, ks, vts) || !fold_ok(tab, st, R, Tq)) return ERR_PLAN;
+  const rt::Tf32Problem p = tf32_problem(tab, st, n, R, B, H, Tq, S, scale_log2);
+  cudaStream_t s = (cudaStream_t)stream;
+  return D == 128 ? launch_tf32<128>(p, R, ks, vts, s) : launch_tf32<64>(p, R, ks, vts, s);
+}
+
+// The tf32 route's products alone (ring_attention_tf32.cuh's
+// tf32_probe_kernel): out [2, 64, n] fp32 = a [64, 32] times b [n, 32]^T,
+// all fp32 contiguous, n 32 or 128. A test of the operand layouts.
+int tf32_probe(const void* a, const void* b, void* out, int n, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n == 32) return launch_tf32_probe<32>(a, b, out, s);
+  if (n == 128) return launch_tf32_probe<128>(a, b, out, s);
+  return ERR_PLAN;
+}
+
 // Let `device` read `peer`'s memory (once per pair; an already enabled pair
 // is not an error). Restores the calling thread's current device.
 int ring_attention_enable_peer(int device, int peer) {
@@ -527,7 +676,12 @@ int ring_attention_enable_peer(int device, int peer) {
 }
 
 const char* ring_attention_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
+  switch (code) {
+    case ERR_PLAN: return "the tf32 launcher refused the shape";
+    case ERR_ENCODE_FN: return "cuTensorMapEncodeTiled could not be found in libcuda";
+    case ERR_MAP: return "cuTensorMapEncodeTiled refused a tensor map of the split K or V";
+    default: return cudaGetErrorString((cudaError_t)code);
+  }
 }
 
 }  // extern "C"

@@ -26,16 +26,21 @@ reference run on the card). The plain backward is written out rather than
 left to autograd: autograd through ``conv3d_plain`` would save a copy of the
 input for each of its 27 taps.
 
-On the card, bf16 with Cin % 8 == 0 (the dgrad's own input channels, i.e.
-the forward's Cout, for a dgrad) takes the tensor-core implicit GEMM
-(``conv3d_igemm``: TMA boxes of 128 voxels with the hardware's zero fill as
-the SAME padding, an mbarrier ring, ``wgmma`` over up to 256 output
-channels; ``igemm_plan`` chooses the box, the N tile and the ring's depth);
-every other bf16 or fp32 conv (the UNet's Cin=1 input conv, its fp32 output
-head and that head's dgrad) takes the direct kernel (``conv3d_direct``: a
-shared-memory halo tile per 8 x 32 voxels and fp32 FMAs, with its own tile
-shapes for Cin=1 and for Cout=1). The weights are repacked per call into
-the layout each kernel reads.
+On the card the route goes by dtype and channels (``conv_route``): bf16
+with Cin % 8 == 0 (the dgrad's own input channels, i.e. the forward's Cout,
+for a dgrad) takes the tensor-core implicit GEMM (``conv3d_igemm``: TMA
+boxes of 128 voxels with the hardware's zero fill as the SAME padding, an
+mbarrier ring, ``wgmma`` over up to 256 output channels; ``igemm_plan``
+chooses the box, the N tile and the ring's depth); fp32 with Cin % 4 == 0
+and Cout > 1 the same block in 3xTF32 (``conv3d_tf32``: each fp32 operand
+split into two TF32 terms, three ``wgmma`` products for each, so fp32
+accuracy on the tensor cores; ``tf32_plan``), after a pre-pass that splits
+the weights (counted as ``conv3d_weight_split``); every other conv (the
+UNet's Cin=1 input conv, its fp32 Cout=1 output head and that head's
+dgrad) takes the direct kernel (``conv3d_direct``: a shared-memory halo
+tile per 8 x 32 voxels and fp32 FMAs, with its own tile shapes for Cin=1
+and for Cout=1). The weights are repacked per call into the layout each
+kernel reads.
 """
 from __future__ import annotations
 
@@ -61,6 +66,16 @@ IGEMM_BK = 64
 IGEMM_BN = (64, 128, 192, 256)
 IGEMM_STAGES = (3, 4)
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on the H100
+
+
+# The 3xTF32 block (csrc/conv3d_tf32.cuh): TF32_BK fp32 channels (128 bytes)
+# a k-step, so A is 16 KB a stage as in bf16, and B two terms of BN x 128
+# bytes; N tiles of at most TF32_BN_MAX channels (a k-step's partial sum
+# beside the total takes BN registers a thread) and the ring's depth at
+# each, 4 stages in at most SMEM_LIMIT.
+TF32_BK = 32
+TF32_BN_MAX = 128
+TF32_STAGES = {64: 4, 128: 4}
 
 
 class IgemmPlan(NamedTuple):
@@ -133,10 +148,39 @@ def n_tile(m_blocks: int, cout: int, bn_max: int = 256, sms: int = 132) -> int:
     return best[1]
 
 
+def tf32_plan(x_shape, cout: int, sms: int = 132) -> IgemmPlan:
+    """The 3xTF32 implicit GEMM's plan: ``igemm_plan``'s box and N tile
+    (K5's cost rule) of at most TF32_BN_MAX channels, with the ring's depth
+    for that tile (``TF32_STAGES``)."""
+    plan = igemm_plan(tuple(x_shape), cout, bn_max=TF32_BN_MAX, sms=sms)
+    return plan._replace(stages=TF32_STAGES[plan.bn])
+
+
+def tf32_smem_bytes(plan: IgemmPlan) -> int:
+    """Shared memory of a 3xTF32 block: per stage the A box (128 voxels x
+    32 fp32) and both weight terms (BN x 32 fp32 each), the barriers and the
+    1024 bytes that align the ring to the swizzle (conv3d_tf32.cuh's
+    smem_bytes)."""
+    return plan.stages * 4 * TF32_BK * (IGEMM_BM + 2 * plan.bn) + 16 * plan.stages + 1024
+
+
+def conv_route(dtype, cin: int, cout: int) -> str:
+    """The kernel a conv of ``cin`` -> ``cout`` channels takes on the card:
+    "igemm" (bf16, Cin % 8 == 0), "tf32" (fp32, Cin % 4 == 0, Cout > 1) or
+    "direct" (the rest: Cin = 1, fp32 Cout = 1, ragged channels)."""
+    if dtype == torch.bfloat16 and cin % 8 == 0:
+        return "igemm"
+    if dtype == torch.float32 and cin % 4 == 0 and cout > 1:
+        return "tf32"
+    return "direct"
+
+
 # ctypes signatures of the launchers in csrc/conv3d.cu, set once on load
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _LAUNCHERS = {
     "conv3d_igemm_bf16": [_PTR] * 4 + [_INT] * 11 + [_PTR],
+    "conv3d_igemm_tf32": [_PTR] * 5 + [_INT] * 11 + [_PTR],
+    "conv3d_weight_split": [_PTR] * 3 + [ctypes.c_longlong, _PTR],
     "conv3d_direct_bf16": [_PTR] * 4 + [_INT] * 6 + [_PTR],
     "conv3d_direct_f32": [_PTR] * 4 + [_INT] * 6 + [_PTR],
 }
@@ -233,9 +277,10 @@ def conv3d_kernel(
     x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
     kind: str = "conv3d", plan: Optional[IgemmPlan] = None,
 ) -> torch.Tensor:
-    """Launch the CUDA conv (igemm or direct, as the class docstring says)
-    and count it as ``<kind>_igemm`` or ``<kind>_direct``. ``plan``
-    overrides ``igemm_plan``'s for the implicit GEMM (tile studies)."""
+    """Launch the CUDA conv of ``conv_route`` (igemm, tf32 or direct, as the
+    module docstring says) and count it as ``<kind>_<route>``. ``plan``
+    overrides the route's own (``igemm_plan``'s or ``tf32_plan``'s: tile
+    studies and tests)."""
     check_no_autograd(kind, x, weight, bias)
     _check(x, weight, bias)
     if x.device.type != "cuda":
@@ -250,30 +295,56 @@ def conv3d_kernel(
         raise ValueError(f"conv3d: shape {tuple(x.shape)} -> {cout} is out of the kernel's range")
     out = torch.empty((b, d, h, w, cout), dtype=x.dtype, device=x.device)
     extra = ()
-    if x.dtype == torch.bfloat16 and cin % 8 == 0:
+    route = conv_route(x.dtype, cin, cout)
+    if route in ("igemm", "tf32"):
         if x.data_ptr() % 16:
             raise ValueError("conv3d kernel needs a 16-byte aligned x")
         # [Cout, Cin, dz, dy, dx] -> [Cout, 27, Cin], tap = (dz*3+dy)*3+dx
         wk = weight.permute(0, 2, 3, 4, 1).reshape(cout, 27, cin).contiguous()
-        extra = tuple(plan or igemm_plan(x.shape, cout, sms=sm_count(x.device.index)))
-        fn, name = "conv3d_igemm_bf16", f"{kind}_igemm"
+        if route == "igemm":
+            extra = tuple(plan or igemm_plan(x.shape, cout, sms=sm_count(x.device.index)))
+            fn = "conv3d_igemm_bf16"
+        else:
+            extra = tuple(plan or tf32_plan(x.shape, cout, sm_count(x.device.index)))
+            fn = "conv3d_igemm_tf32"
+        name = f"{kind}_{route}"
     else:
         # [Cout, Cin, dz, dy, dx] -> [27*Cin, Cout]
         wk = weight.permute(2, 3, 4, 1, 0).reshape(27 * cin, cout).contiguous()
         fn = "conv3d_direct_bf16" if x.dtype == torch.bfloat16 else "conv3d_direct_f32"
         name = f"{kind}_direct"
     bk = bias.contiguous() if bias is not None else None
+    # the tf32 route reads the weights' two tf32 terms
+    weights = weight_split_kernel(wk) if route == "tf32" else (wk,)
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         code = getattr(lib, fn)(
-            x.data_ptr(), wk.data_ptr(), bk.data_ptr() if bk is not None else None,
+            x.data_ptr(), *(t.data_ptr() for t in weights),
+            bk.data_ptr() if bk is not None else None,
             out.data_ptr(), b, d, h, w, cin, cout, *extra, stream,
         )
     _build.check(code, lib, "conv3d_error_string",
                  f"{fn}({tuple(x.shape)} -> {cout}{', plan ' + str(extra) if extra else ''})")
     launch_counts[name] += 1
     return out
+
+
+def weight_split_kernel(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The tf32 route's pre-pass on the card: fp32 ``w`` split into its
+    tf32 terms (hi, lo), each shaped as ``w``, contiguous. Its plain
+    version: ``tf32_split(w)`` with lo rounded by ``tf32_round``."""
+    if w.device.type != "cuda" or w.dtype != torch.float32:
+        raise ValueError(f"conv3d_weight_split takes a CUDA fp32 tensor, got {w.device} {w.dtype}")
+    w = w.contiguous()
+    split = torch.empty((2, *w.shape), dtype=torch.float32, device=w.device)
+    lib = _library()
+    with torch.cuda.device(w.device):
+        code = lib.conv3d_weight_split(w.data_ptr(), split[0].data_ptr(), split[1].data_ptr(),
+                                       w.numel(), torch.cuda.current_stream(w.device).cuda_stream)
+    _build.check(code, lib, "conv3d_error_string", f"conv3d_weight_split({tuple(w.shape)})")
+    launch_counts["conv3d_weight_split"] += 1
+    return split[0], split[1]
 
 
 def conv3d_dgrad(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:

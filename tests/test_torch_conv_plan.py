@@ -1,4 +1,5 @@
-"""The implicit-GEMM conv's box plan (``igemm_plan``), on the CPU.
+"""The implicit-GEMM conv's box plan (``igemm_plan``), on the CPU, and the
+fp32 route's (``conv_route``, ``tf32_plan``).
 
 The kernel (csrc/conv3d_wgmma.cuh) runs only on the card; what it is given
 is decided here. The plan is held at every conv problem the flagship UNet
@@ -21,7 +22,8 @@ import torch
 from rho_diffusion_tpu_torch.models.unet import UNet
 from rho_diffusion_tpu_torch.ops import convolution as conv_mod
 from rho_diffusion_tpu_torch.ops.kernels.conv3d import (
-    IGEMM_BK, IGEMM_BM, IGEMM_BN, IGEMM_STAGES, SMEM_LIMIT, igemm_plan)
+    IGEMM_BK, IGEMM_BM, IGEMM_BN, IGEMM_STAGES, SMEM_LIMIT, TF32_BK, TF32_BN_MAX, TF32_STAGES,
+    conv_route, igemm_plan, tf32_plan, tf32_smem_bytes)
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -150,3 +152,95 @@ def test_igemm_plan_n_tiles_fill_the_card():
 def test_igemm_plan_holds_at_ragged_shapes(x_shape, cout):
     plan = check_plan(x_shape, cout)
     assert plan.bw == min(1 << (x_shape[3] - 1).bit_length(), 128)
+
+
+# ---- the fp32 route: 3xTF32 on K5's block (csrc/conv3d_tf32.cuh) ----
+
+
+def fp32_problems(problems, config: str, batch: int, kind: str) -> list:
+    """Every fp32 conv problem of the config's UNet run in fp32, as the
+    kernels see them (x shape, Cout): the input conv and the head too."""
+    out = set()
+    for d, h, w, cin, cout in problems[config]:
+        if kind == "dgrad":
+            if cin == 1:
+                continue  # x_t needs no gradient
+            cin, cout = cout, cin
+        out.add(((batch, d, h, w, cin), cout))
+    return sorted(out)
+
+
+def check_tf32_plan(x_shape, cout: int):
+    plan = tf32_plan(x_shape, cout)
+    assert plan[:4] == igemm_plan(x_shape, cout, bn_max=TF32_BN_MAX)[:4]  # K5's box and N tile
+    assert plan.stages == TF32_STAGES[plan.bn]
+    assert -(-cout // plan.bn) * plan.bn >= cout > (-(-cout // plan.bn) - 1) * plan.bn
+    assert TF32_BK * 4 == 128  # a k-step's fp32 channels span the 128-byte swizzle
+    # per stage: A's 16 KB box and both weight terms, BN rows of 128 bytes each
+    assert tf32_smem_bytes(plan) == plan.stages * (16384 + 2 * plan.bn * 128) + 16 * plan.stages + 1024
+    assert tf32_smem_bytes(plan) <= SMEM_LIMIT
+    return plan
+
+
+def test_tf32_tiles_and_stages_fit():
+    """N tiles of 64 or 128 channels (a k-step's partial sum beside the
+    total holds 2 x BN/2 fp32 a consumer thread), with 4 stages: 128 and
+    192 KB of the 227 KB."""
+    assert TF32_BN_MAX == 128 and TF32_STAGES == {64: 4, 128: 4}
+    for bn, stages in TF32_STAGES.items():
+        plan = tf32_plan((8, 32, 32, 32, 64), 64)._replace(bn=bn, stages=stages)
+        assert tf32_smem_bytes(plan) <= SMEM_LIMIT
+    assert tf32_smem_bytes(plan) == 4 * (16384 + 2 * 128 * 128) + 64 + 1024
+
+
+def test_tf32_plan_n_tiles():
+    """K5's cost rule with N tiles of at most 128 channels: Cout 64 one tile
+    of 64, Cout 256 two of 128, the bottleneck dgrad's 1024 eight; 70
+    channels over 5 boxes two of 64, which costs less than one of 128."""
+    assert tf32_plan((32, 32, 32, 32, 64), 64).bn == 64
+    assert tf32_plan((32, 32, 8, 8, 256), 256).bn == 128
+    assert tf32_plan((32, 32, 4, 4, 512), 1024).bn == 128
+    assert tf32_plan((8, 32, 16, 16, 384), 128).bn == 128
+    assert tf32_plan((1, 5, 7, 9, 12), 70).bn == 64
+
+
+@pytest.mark.parametrize("kind", ["forward", "dgrad"])
+@pytest.mark.parametrize("batch", [2, 8, 32])
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_fp32_route_at_every_flagship_problem(problems, config, batch, kind):
+    """In fp32 every conv of the UNet but the Cin=1 input conv and the
+    Cout=1 head (and the head's Cin'=1 dgrad) takes the 3xTF32 block, with
+    K5's box and a ring that fits; those take the direct kernel."""
+    routes = {}
+    for x_shape, cout in fp32_problems(problems, config, batch, kind):
+        route = conv_route(torch.float32, x_shape[-1], cout)
+        routes[(x_shape[-1], cout)] = route
+        if x_shape[-1] == 1 or cout == 1:
+            assert route == "direct"
+        else:
+            assert route == "tf32"
+            plan = check_tf32_plan(x_shape, cout)
+            assert (plan.bw, plan.bh, plan.bd) == BOXES[x_shape[3]]
+    assert "tf32" in routes.values() and "direct" in routes.values()
+
+
+@pytest.mark.parametrize("dtype,cin,cout,route", [
+    (torch.float32, 64, 64, "tf32"), (torch.float32, 4, 2, "tf32"),
+    (torch.float32, 12, 70, "tf32"), (torch.float32, 64, 2, "tf32"),  # the learned-variance head
+    (torch.float32, 6, 10, "direct"), (torch.float32, 1, 64, "direct"),
+    (torch.float32, 64, 1, "direct"), (torch.float32, 2, 64, "direct"),
+    (torch.bfloat16, 64, 1, "igemm"), (torch.bfloat16, 12, 64, "direct"),
+    (torch.bfloat16, 1, 64, "direct"),
+])
+def test_conv_route_goes_by_dtype_and_channels(dtype, cin, cout, route):
+    assert conv_route(dtype, cin, cout) == route
+
+
+@pytest.mark.parametrize("x_shape,cout", [
+    # tests/test_torch_kernels_cuda.py's 3xTF32 cases: ragged volumes and
+    # channels, Cin % 32 != 0 (zero-filled channels past Cin), Cout off 64
+    ((1, 5, 7, 9, 12), 70), ((2, 3, 5, 4, 4), 2), ((2, 9, 5, 12, 72), 200),
+    ((2, 32, 4, 4, 1024), 512), ((32, 32, 4, 4, 512), 1024), ((2, 32, 32, 32, 64), 64),
+])
+def test_tf32_plan_holds_at_ragged_shapes(x_shape, cout):
+    check_tf32_plan(x_shape, cout)

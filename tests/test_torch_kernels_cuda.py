@@ -35,8 +35,8 @@ import torch
 from rho_diffusion_tpu_torch.ops.attention import xla_attention
 from rho_diffusion_tpu_torch.ops.kernels import launch_counts
 from rho_diffusion_tpu_torch.ops.kernels.conv3d import (
-    IGEMM_BN, IGEMM_STAGES, IgemmPlan, conv3d, conv3d_dgrad, conv3d_dgrad_plain, conv3d_kernel,
-    conv3d_plain, igemm_plan)
+    IGEMM_BN, IGEMM_STAGES, TF32_STAGES, IgemmPlan, conv3d, conv3d_dgrad, conv3d_dgrad_plain,
+    conv3d_kernel, conv3d_plain, igemm_plan, tf32_plan, weight_split_kernel)
 from rho_diffusion_tpu_torch.ops.kernels.conv3d_variants import (
     bigdot, bigdot_plain, conv_variant, conv_variant_plain, dots_only, dots_only_plain)
 from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
@@ -45,6 +45,9 @@ from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_fwd_kernel, flash_attention_plain, flash_bwd_plan, flash_delta,
     flash_delta_kernel, flash_lse_plain, flash_plan, flash_routes, padded_head_dim,
     wgmma_pv_probe)
+from rho_diffusion_tpu_torch.ops.kernels.ring_attention import (
+    ring_attention_fold, ring_attention_fold_plain, ring_split, ring_split_plain, tf32_probe)
+from rho_diffusion_tpu_torch.ops.kernels.tf32 import tf32_matmul, tf32_round, tf32_split
 from rho_diffusion_tpu_torch.parallel import context_sharded_attention, make_mesh
 
 pytestmark = pytest.mark.cuda
@@ -121,11 +124,12 @@ def test_conv3d_kernel_matches_plain(cuda, shape, cout, dtype, kernel):
 
 def test_conv3d_direct_reads_an_unaligned_x(cuda):
     """An fp32 x that is contiguous but starts off a 16-byte boundary takes
-    the direct kernel's scalar staging instead of its 16-byte loads."""
-    shape, cout = (1, 4, 9, 33, 8), 3
+    the direct kernel's scalar staging instead of its 16-byte loads (Cin 6:
+    fp32 with Cin % 4 != 0 stays on the direct kernel)."""
+    shape, cout = (1, 4, 9, 33, 6), 3
     x = randn((math.prod(shape) + 1,), 0, cuda, torch.float32)[1:].view(shape)
     assert x.is_contiguous() and x.data_ptr() % 16
-    w = randn((cout, shape[-1], 3, 3, 3), 1, cuda, torch.float32, 1 / math.sqrt(27 * 8))
+    w = randn((cout, shape[-1], 3, 3, 3), 1, cuda, torch.float32, 1 / math.sqrt(27 * 6))
     launch_counts.clear()
     got = conv3d(x, w)
     torch.cuda.synchronize()
@@ -478,8 +482,12 @@ def test_flash_bwd_fused_refuses_a_plan_it_does_not_take(cuda):
         ((32, 32, 4, 4, 512), 1024, torch.bfloat16, "conv3d_dgrad_igemm"),  # Cout' 1024: 4 N tiles
         ((2, 6, 6, 6, 12), 5, torch.bfloat16, "conv3d_dgrad_direct"),  # Cout % 8 != 0
         ((2, 6, 6, 6, 1), 64, torch.float32, "conv3d_dgrad_direct"),   # the fp32 head's dgrad
-        ((2, 5, 6, 7, 16), 24, torch.float32, "conv3d_dgrad_direct"),
+        ((2, 5, 6, 7, 16), 24, torch.float32, "conv3d_dgrad_tf32"),    # 3xTF32 since Cout % 4 == 0
+        ((2, 5, 6, 7, 6), 24, torch.float32, "conv3d_dgrad_direct"),   # Cout % 4 != 0
         ((2, 32, 32, 32, 1), 64, torch.float32, "conv3d_dgrad_direct"),  # the head's, at 32^3
+        # the fp32 flagship's dgrad at its levels 0 and 3, batch 2
+        ((2, 32, 32, 32, 64), 64, torch.float32, "conv3d_dgrad_tf32"),
+        ((2, 32, 4, 4, 512), 1024, torch.float32, "conv3d_dgrad_tf32"),
     ],
 )
 def test_conv3d_dgrad_kernel_matches_plain(cuda, gshape, cin, dtype, kernel):
@@ -489,7 +497,8 @@ def test_conv3d_dgrad_kernel_matches_plain(cuda, gshape, cin, dtype, kernel):
     launch_counts.clear()
     got = conv3d_dgrad(g, w)
     torch.cuda.synchronize()
-    assert launch_counts == {kernel: 1}
+    assert launch_counts == {kernel: 1, **({"conv3d_weight_split": 1}
+                                           if kernel.endswith("_tf32") else {})}
     assert got.dtype == dtype and got.shape == (*gshape[:-1], cin)
     tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_FP32
     torch.testing.assert_close(got.float(), conv3d_dgrad_plain(g.float(), w.float()),
@@ -592,6 +601,15 @@ def ring_inputs(b, t, h, d, dtype, device, seed):
 
 
 
+def ring_launches(dtype, cards: int) -> dict:
+    """A ring call's launches, one fold per card: bf16's mma.sync kernel, or
+    at fp32 (head dims padded to 64 or 128 here) the 3xTF32 fold and its
+    pre-pass."""
+    if dtype == torch.bfloat16:
+        return {"ring_attention": cards}
+    return {"ring_attention_tf32": cards, "ring_attention_tf32_split": cards}
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize(
     "n,b,tl,h,d",
@@ -610,7 +628,9 @@ def test_ring_attention_kernel_matches_plain(cuda, n, b, tl, h, d, dtype):
     launch_counts.clear()
     got = context_sharded_attention(q, k, v, mesh, impl="rdma")
     torch.cuda.synchronize()
-    assert launch_counts == {"ring_attention": 1}  # one launch for the card's n ranks
+    # one fold for the card's n ranks (fp32 at these head dims: the 3xTF32
+    # fold, after its pre-pass)
+    assert launch_counts == ring_launches(dtype, 1)
     assert got.shape == q.shape and got.dtype == dtype
     qf, kf, vf = q.float(), k.float(), v.float()
     assert_flash_close(got, context_sharded_attention(qf, kf, vf, mesh, impl="rdma", plain=True),
@@ -645,7 +665,7 @@ def test_ring_attention_kernel_ranks_shared_across_cards(cuda, dtype):
     launch_counts.clear()
     got = context_sharded_attention(q, k, v, make_mesh(context=4, devices=devices), impl="rdma")
     torch.cuda.synchronize()
-    assert launch_counts == {"ring_attention": 2}
+    assert launch_counts == ring_launches(dtype, 2)
     assert got.shape == q.shape and got.dtype == dtype
     assert_flash_close(got, xla_attention(q.float(), k.float(), v.float()), dtype)
 
@@ -742,3 +762,104 @@ def test_variant_kernels_reject_what_they_do_not_take(cuda):
         dots_only(randn((128, 36), 40, cuda, torch.bfloat16), km[:324])
     with pytest.raises(RuntimeError, match="grad mode"):
         conv_variant(x, km.clone().requires_grad_(), "full")
+
+
+# ---- fp32 on the tensor cores: 3xTF32 (conv3d_tf32.cuh, ring_attention_tf32.cuh) ----
+
+
+@pytest.mark.parametrize("shape,cout", [
+    ((1, 5, 7, 9, 12), 70),       # ragged voxels, Cin 12 (20 channels zero-filled), Cout off 64
+    ((2, 3, 5, 4, 4), 2),         # Cin 4, Cout 2 (the learned-variance head's Cout)
+    ((2, 9, 5, 12, 72), 200),     # Cin off 32, two N tiles, the last partly empty
+    ((2, 32, 32, 32, 64), 64),    # the fp32 flagship's level 0, batch 2
+    ((2, 32, 4, 4, 1024), 512),   # its level 3 (Cin 1024: 32 chunks a tap), four N tiles
+    ((2, 32, 16, 16, 384), 128),  # a decoder conv of level 1
+])
+def test_conv3d_tf32_matches_plain(cuda, shape, cout):
+    """fp32 with Cin % 4 == 0 and Cout > 1 takes the 3xTF32 block, after
+    its weight pre-pass, and holds fp32's tolerance."""
+    cin = shape[-1]
+    x = randn(shape, 30, cuda, torch.float32)
+    w = randn((cout, cin, 3, 3, 3), 31, cuda, torch.float32, 1 / math.sqrt(27 * cin))
+    b = randn((cout,), 32, cuda, torch.float32, 0.1)
+    launch_counts.clear()
+    got = conv3d(x, w, b)
+    torch.cuda.synchronize()
+    assert launch_counts == {"conv3d_tf32": 1, "conv3d_weight_split": 1}
+    torch.testing.assert_close(got, conv3d_plain(x, w, b), atol=TOL_FP32, rtol=TOL_FP32)
+
+
+@pytest.mark.parametrize("bn", sorted(TF32_STAGES))
+def test_conv3d_tf32_every_plan_matches_plain(cuda, bn):
+    shape, cout = (2, 9, 5, 12, 72), 200
+    x = randn(shape, 33, cuda, torch.float32)
+    w = randn((cout, 72, 3, 3, 3), 34, cuda, torch.float32, 1 / math.sqrt(27 * 72))
+    plan = tf32_plan(shape, cout)._replace(bn=bn, stages=TF32_STAGES[bn])
+    got = conv3d_kernel(x, w, plan=plan)
+    torch.testing.assert_close(got, conv3d_plain(x, w), atol=TOL_FP32, rtol=TOL_FP32)
+
+
+def test_conv3d_tf32_refuses_what_it_does_not_take(cuda):
+    x = randn((1, 4, 4, 4, 16), 35, cuda, torch.float32)
+    w = randn((16, 16, 3, 3, 3), 36, cuda, torch.float32)
+    for plan in (IgemmPlan(4, 4, 8, 192, 3), IgemmPlan(4, 4, 8, 64, 3), IgemmPlan(4, 4, 4, 64, 4)):
+        with pytest.raises(RuntimeError, match="plan"):
+            conv3d_kernel(x, w, plan=plan)
+    shape = (1, 4, 4, 4, 16)
+    unaligned = randn((math.prod(shape) + 1,), 37, cuda, torch.float32)[1:].view(shape)
+    with pytest.raises(ValueError, match="aligned"):
+        conv3d(unaligned, w)
+
+
+@pytest.mark.parametrize("shape", [(64, 27, 64), (1024, 27, 512), (3, 5, 7)])
+def test_weight_split_kernel_is_the_plain_split(cuda, shape):
+    """hi = tf32(w), lo = tf32(w - hi), bit for bit."""
+    w = randn(shape, 38, cuda, torch.float32, 0.3)
+    hi, lo = weight_split_kernel(w)
+    want_hi, want_lo = tf32_split(w)
+    assert torch.equal(hi, want_hi) and torch.equal(lo, tf32_round(want_lo))
+
+
+@pytest.mark.parametrize("n,b,tl,h,d", [(4, 8, 128, 4, 128), (3, 2, 75, 3, 64), (1, 1, 300, 2, 128)])
+def test_ring_split_kernel_is_the_plain_split(cuda, n, b, tl, h, d):
+    """K6's tf32 pre-pass on strided shards (views of one qkv), ragged
+    shard lengths padded to 8, V^T's keys permuted: bit for bit its plain
+    version."""
+    _, k, v = ring_inputs(b, n * tl, h, d, torch.float32, cuda, seed=39)
+    ks, vs = k.split(tl, dim=1), v.split(tl, dim=1)
+    for got, want in zip(ring_split(ks, vs), ring_split_plain(ks, vs)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [32, 128])
+def test_tf32_probe_products_in_both_layouts(cuda, n):
+    """The 3xTF32 products alone in S = Q K^T's and O += P V's operand
+    layouts: at the flash tolerance of the fp32 product, where one TF32
+    product misses it."""
+    a = randn((64, 32), 40, cuda, torch.float32)
+    b = randn((n, 32), 41, cuda, torch.float32)
+    want = a @ b.T
+    got = tf32_probe(a, b)
+    assert_flash_close(got[0], want, torch.float32)
+    assert_flash_close(got[1], want, torch.float32)
+    with pytest.raises(AssertionError):
+        assert_flash_close(tf32_matmul(a, b.T, terms=1), want, torch.float32)
+
+
+@pytest.mark.parametrize("s", [128, 1024, 13])
+def test_ring_tf32_fold_matches_plain_over_long_shards(cuda, s):
+    """The 3xTF32 fold with one rank of a ring of 4 (the others' shards
+    read where they lie) at shard lengths 128, 1024 (T = 4096: the
+    accumulator's drift over many keys) and a ragged 13."""
+    n, b, h, d = 4, 2, 2, 128
+    q, k, v = ring_inputs(b, n * s, h, d, torch.float32, cuda, seed=42)
+    ks, vs = k.split(s, dim=1), v.split(s, dim=1)
+    qs = [q[:, :s].contiguous()]
+    scale_log2 = 1.4426950408889634 / math.sqrt(d)
+    got, want = [torch.empty_like(qs[0])], [torch.empty_like(qs[0])]
+    launch_counts.clear()
+    ring_attention_fold(qs, got, [2], ks, vs, scale_log2)
+    torch.cuda.synchronize()
+    assert launch_counts == ring_launches(torch.float32, 1)
+    ring_attention_fold_plain(qs, want, [2], ks, vs, scale_log2)
+    assert_flash_close(got[0], want[0], torch.float32)
