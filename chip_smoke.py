@@ -53,7 +53,9 @@ weights loaded from a reference-layout ``.pth``):
   float32): every distinct conv problem of a batch-8 forward and of a
   batch-32 step's dgrad (the 3xTF32 implicit GEMM where Cin % 4 == 0 and
   Cout > 1, its weight pre-pass, the direct kernel elsewhere), the flash
-  forward and backward at batch 8 and 32 and K6 at the serve shape (its
+  forward (K6's 3xTF32 fold with one shard, and its K/V pre-pass) and
+  backward (the 3xTF32 dkv/dq pair and its pre-pass) at batch 8 and 32,
+  each beside the FMA kernels it replaced, and K6 at the serve shape (its
   3xTF32 fold and pre-pass), each held against its plain version and timed
   beside cuDNN (TF32 off) or SDPA in fp32 (its kernels named) and its
   bound (3xTF32: 3 flops at the TF32 peak; the FMA line beside it); the
@@ -61,7 +63,8 @@ weights loaded from a reference-layout ``.pth``):
   the fp32 plain model, beside the plain model with one TF32 product as
   the control; then the counted path: the bench entry with
   BENCH_DTYPE=float32 (train mode at batch 32, with the next batch down if
-  it does not fit, one step profiled by group; a DDIM-10 sample at batch 8)
+  it does not fit, one step profiled by group; a DDIM-10 sample at batch 8;
+  each run fails if it never launched the fp32 flash routes' kernels)
   and one request to the fp32 service under the context=4 ring;
 * ``bench``: the conv bottleneck-isolation entry
   (``python -m rho_diffusion_tpu_torch.benchmarks.conv3d_variants``) with
@@ -91,10 +94,13 @@ a torch.profiler breakdown by kernel) and the whole reverse process. The
 ``kernels`` phase also holds the flash forward at every plan of its wgmma
 route (and its mma.sync kernel), with and without the LSE, at T = 512
 (batch 4, 8, 32), 4096 (batch 8) and 300, D = 128 and 64, and the
-backward (the fused kernel for bf16 at D = 64 and 128, the dkv/dq pair
-elsewhere) at the training step's attention, T = 4096, T = 300 and D = 64,
-twice (bitwise) and against the mma.sync pair, and the 3xTF32 pieces:
-the products alone in both operand layouts (``tf32_probe``), both
+backward (the fused kernel for bf16 and the 3xTF32 pair for fp32 at D =
+64 and 128, the dkv/dq pair elsewhere) at the training step's attention,
+T = 4096, T = 300 and D = 64, twice (bitwise) and against the pair each
+replaced (mma.sync, FMA), the fp32 forward's 3xTF32 route with and without
+the LSE at T = 512 (batch 8, 32), 4096, 300 and D = 64 beside the FMA
+kernel, and the 3xTF32 pieces:
+the products alone in both operand layouts (``tf32_probe``), all four
 pre-passes bitwise against their plain versions, every fp32 conv problem of
 the flagship at batch 2 and K6's fp32 fold at T = 512, 4096 and a ragged
 300 (the FMA fold at D = 32 and 256). Every
@@ -169,10 +175,11 @@ BENCH_VARIANTS = ("full", "nopatch", "nodma", "dotsonly", "bigdot1", "bigdot2", 
 # device time of the profiled training step, grouped by kernel name
 DEVICE_TIME_GROUPS = (
     ("conv3d_igemm (port, forward and dgrad)", ("conv3d_igemm",)),
+    # before the tf32 conv's group, whose "tf32_split" the flash pre-passes' names hold
+    ("flash attention (port, forward and backward)", ("flash_fwd", "flash_bwd")),
     ("conv3d_tf32 (port, fp32 forward and dgrad, with its weight split)",
      ("conv3d_tf32", "tf32_split")),
     ("conv3d_direct (port, forward and dgrad)", ("conv3d_direct",)),
-    ("flash attention (port, forward and backward)", ("flash_fwd", "flash_bwd")),
     ("conv weight gradients (cuDNN)", ("wgrad",)),
     ("strided Downsample conv (cuDNN)", ("xmma_fprop", "xmma_dgrad", "implicit_gemm",
                                          "conv2d", "conv3d_fprop")),
@@ -530,7 +537,14 @@ def phase_build(state: dict) -> None:
     tf += [{"kernel": "ring_attention_tf32", "hd": int(m[1]), **entry}
            for name, entry in ptxas_entries(_build.build_log.get("ring_attention", "")).items()
            for m in [re.search(r"ring_attention_tf32_kernelILi(\d+)E", name)] if m]
-    serialized = [ln.split("'")[1] for src in ("conv3d", "ring_attention")
+    # the flash forward's fold (K6's, one shard) and the backward pair, by head dim
+    tf += [{"kernel": m[1], "hd": int(m[2]), **entry}
+           for src in ("flash_attention", "flash_attention_bwd")
+           for name, entry in ptxas_entries(_build.build_log.get(src, "")).items()
+           for m in [re.search(r"(flash_fwd_tf32|flash_bwd_tf32_dkv|flash_bwd_tf32_dq)_kernelILi(\d+)E",
+                               name)] if m]
+    serialized = [ln.split("'")[1]
+                  for src in ("conv3d", "ring_attention", "flash_attention", "flash_attention_bwd")
                   for ln in _build.build_log.get(src, "").splitlines()
                   if "C7512" in ln and "'" in ln]
     emit("tf32_ptxas", kernels=tf or "not built in this run (a cached library has no ptxas log)",
@@ -593,6 +607,11 @@ CUDA_KERNEL = {"conv3d_igemm": "conv3d_igemm", "conv3d_direct": "conv3d_direct",
                "flash_attention": "flash_fwd", "flash_attention_bwd": "flash_bwd_wgmma",
                "flash_attention_bwd_delta": "flash_bwd_delta",
                "flash_attention_bwd_dkv": "flash_bwd_dkv", "flash_attention_bwd_dq": "flash_bwd_dq",
+               "flash_attention_tf32": "flash_fwd_tf32_kernel",
+               "flash_attention_tf32_split": "flash_fwd_tf32_split",
+               "flash_attention_bwd_tf32_dkv": "flash_bwd_tf32_dkv",
+               "flash_attention_bwd_tf32_dq": "flash_bwd_tf32_dq",
+               "flash_attention_bwd_tf32_split": "flash_bwd_tf32_split",
                "ring_attention": "ring_attention_",
                **{k: k for k in ("conv3d_variant_full", "conv3d_variant_nopatch",
                                  "conv3d_variant_nodma", "conv3d_bigdot_im2col",
@@ -790,35 +809,46 @@ def check_flash(b, t, h, d, device, seed: int, dtype) -> dict:
     q, k, v = flash_inputs(b, t, h, d, device, seed, dtype)
     got = flash_attention(q, k, v)
     want = xla_attention(q.float(), k.float(), v.float())
-    return {"kernel": "flash_attention", "b": b, "t": t, "h": h, "d": d,
+    return {"kernel": fwd_kernel_name(d, dtype), "b": b, "t": t, "h": h, "d": d,
             "dtype": dtype_name(dtype), **flash_error(got, want, TOL_FLASH[dtype_name(dtype)])}
 
 
-def bwd_kernel_names(d: int, dtype) -> dict:
-    """The count (and kernel) behind each gradient on the backward's route:
-    the fused kernel for bf16 at padded head dims 64 and 128, the dkv/dq
-    pair elsewhere."""
+def fwd_kernel_name(d: int, dtype) -> str:
+    """The count behind the forward's route: the 3xTF32 fold for fp32 at
+    padded head dims 64 and 128, else the flash forward kernels'."""
+    from rho_diffusion_tpu_torch.ops.kernels.flash_attention import flash_plan
+
+    return ("flash_attention_tf32" if flash_plan(1, 1, 1, 1, d, dtype).route == "tf32"
+            else "flash_attention")
+
+
+def bwd_kernel_names(d: int, dtype, plan=None) -> dict:
+    """The count (and kernel) behind each gradient on the backward's route
+    (``flash_bwd_plan``'s, or ``plan``): the fused kernel for bf16 at padded
+    head dims 64 and 128, the 3xTF32 pair for fp32 there, the dkv/dq pair
+    elsewhere."""
     from rho_diffusion_tpu_torch.ops.kernels.flash_attention import flash_bwd_plan
 
-    if flash_bwd_plan(1, 1, 1, 1, d, dtype).route == "wgmma":
+    route = (plan or flash_bwd_plan(1, 1, 1, 1, d, dtype)).route
+    if route == "wgmma":
         return dict.fromkeys(("dq", "dk", "dv"), "flash_attention_bwd")
-    return {"dq": "flash_attention_bwd_dq", "dk": "flash_attention_bwd_dkv",
-            "dv": "flash_attention_bwd_dkv"}
+    pair = "flash_attention_bwd_tf32" if route == "tf32" else "flash_attention_bwd"
+    return {"dq": f"{pair}_dq", "dk": f"{pair}_dkv", "dv": f"{pair}_dkv"}
 
 
 def check_flash_bwd(b, t, h, d, device, seed: int, dtype) -> dict:
     """dq, dk, dv of the kernels (through the autograd Function, forward
     with LSE) against the fp32 plain backward on the same inputs; the kernels
-    run twice and must agree bitwise. On the fused route the mma.sync pair
-    runs on the same inputs too (``flash_attention_bwd_kernel(...,
-    plan=MMA_SYNC_BWD_PLAN)``), held against the plain backward and the fused
-    kernel against it."""
+    run twice and must agree bitwise. On the fused route (bf16) the mma.sync
+    pair, and on the 3xTF32 pair's (fp32) the FMA pair, runs on the same
+    inputs too (``flash_attention_bwd_kernel(..., plan=...)``), held against
+    the plain backward and the new route against it."""
     import torch
 
     from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
-        MMA_SYNC_BWD_PLAN, flash_attention, flash_attention_bwd_kernel, flash_attention_bwd_plain,
-        flash_attention_fwd_kernel, flash_attention_plain, flash_delta, flash_delta_kernel,
-        flash_lse_plain)
+        FP32_BWD_PLAN, MMA_SYNC_BWD_PLAN, flash_attention, flash_attention_bwd_kernel,
+        flash_attention_bwd_plain, flash_attention_fwd_kernel, flash_attention_plain, flash_delta,
+        flash_delta_kernel, flash_lse_plain)
 
     qkv = randn((b, t, h, 3 * d), seed, device, dtype).requires_grad_()
     do = randn((b, t, h, d), seed + 1, device, dtype)
@@ -838,32 +868,37 @@ def check_flash_bwd(b, t, h, d, device, seed: int, dtype) -> dict:
                "kernel": kernels[which], **flash_error(g, w, tol)}
               for which, g, w in zip(("dq", "dk", "dv"), got, want)]
     repeatable = all(torch.equal(x, y) for x, y in zip(got, again))
+    route = {"flash_attention_bwd": "fused",
+             "flash_attention_bwd_tf32_dq": "tf32 pair"}.get(kernels["dq"], "pair")
     row = {"b": b, "t": t, "h": h, "d": d, "dtype": name, "bitwise_repeatable": repeatable,
-           "route": "fused" if kernels["dq"] == "flash_attention_bwd" else "pair"}
-    if row["route"] == "fused":
+           "route": route}
+    if route != "pair":
+        old_plan = MMA_SYNC_BWD_PLAN if route == "fused" else FP32_BWD_PLAN
         with torch.no_grad():
             q, k, v = (z.detach() for z in qkv.split(d, dim=-1))
             o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
             new = flash_attention_bwd_kernel(q, k, v, o, lse, do)
-            old = flash_attention_bwd_kernel(q, k, v, o, lse, do, plan=MMA_SYNC_BWD_PLAN)
-            grads_.append({"grad": "delta", "dtype": name, "b": b, "t": t, "h": h, "d": d,
-                           "kernel": "flash_attention_bwd_delta",
-                           **flash_error(flash_delta_kernel(o, do), flash_delta(o, do),
-                                         TOL_DELTA)})
-        pair = bwd_kernel_names(16, dtype)
+            old = flash_attention_bwd_kernel(q, k, v, o, lse, do, plan=old_plan)
+            if route == "fused":
+                grads_.append({"grad": "delta", "dtype": name, "b": b, "t": t, "h": h, "d": d,
+                               "kernel": "flash_attention_bwd_delta",
+                               **flash_error(flash_delta_kernel(o, do), flash_delta(o, do),
+                                             TOL_DELTA)})
+        pair = bwd_kernel_names(d, dtype, old_plan)
         grads_ += [{"grad": which, "dtype": name, "b": b, "t": t, "h": h, "d": d,
-                    "kernel": pair[which], "plan": "mma_sync (the pair, on request)",
+                    "kernel": pair[which], "plan": f"{old_plan.route} (the pair, on request)",
                     **flash_error(g, w, tol)} for which, g, w in zip(("dq", "dk", "dv"), old, want)]
-        row["fused_against_pair"] = [{"grad": which, **flash_error(g, w.float(), tol)}
-                                     for which, g, w in zip(("dq", "dk", "dv"), new, old)]
+        row["new_against_old_pair"] = [{"grad": which, **flash_error(g, w.float(), tol)}
+                                       for which, g, w in zip(("dq", "dk", "dv"), new, old)]
     row["grads"] = grads_
-    row["ok"] = repeatable and all(g["ok"] for g in grads_ + row.get("fused_against_pair", []))
+    row["ok"] = repeatable and all(g["ok"] for g in grads_ + row.get("new_against_old_pair", []))
     return row
 
 
 def plan_name(plan) -> str:
     if plan.route != "wgmma":
-        return f"{plan.route} (the earlier kernel)" if plan.route == "mma_sync" else plan.route
+        return (f"{plan.route} (the earlier kernel)" if plan.route in ("mma_sync", "fp32")
+                else plan.route)
     return f"wgmma bm{plan.bm} bn{plan.bn}"
 
 
@@ -907,6 +942,67 @@ def check_flash_plans(device) -> tuple[list, list]:
         summary.append({"b": b, "t": t, "h": h, "d": d, "err_over_tol_by_plan": worst})
         del q, k, v, want, want_lse
     return rows, summary
+
+
+# the fp32 forward's holds on its 3xTF32 route: (batch, tokens, heads, head
+# dim) of a batch-8 forward's and the training step's attention, the 64^3
+# config's 4096 tokens, a ragged T and D = 64
+FLASH_TF32_SHAPES = ((8, 512, 4, 128), (32, 512, 4, 128), (2, 4096, 4, 128), (2, 300, 4, 128),
+                     (2, 300, 2, 64))
+
+
+def check_flash_tf32(device) -> list:
+    """The fp32 forward on its 3xTF32 route (K6's fold, one shard), with
+    and without the LSE, at FLASH_TF32_SHAPES on strided views of one qkv,
+    against the plain version, its LSE against ``flash_lse_plain``; and the
+    FMA kernel it replaced (``plan=FP32_PLAN``) on the same inputs, held the
+    same way."""
+    import torch
+
+    from rho_diffusion_tpu_torch.ops.attention import xla_attention
+    from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
+        FP32_PLAN, TF32_PLAN, flash_attention_fwd_kernel, flash_lse_plain)
+
+    rows = []
+    for i, (b, t, h, d) in enumerate(FLASH_TF32_SHAPES):
+        q, k, v = flash_inputs(b, t, h, d, device, seed=170 + i, dtype=torch.float32)
+        want, want_lse = xla_attention(q, k, v), flash_lse_plain(q, k)
+        for plan, kernel in ((TF32_PLAN, "flash_attention_tf32"), (FP32_PLAN, "flash_attention")):
+            for with_lse in (False, True):
+                out, lse = flash_attention_fwd_kernel(q, k, v, with_lse=with_lse, plan=plan)
+                row = {"kernel": kernel, "plan": plan_name(plan), "b": b, "t": t, "h": h, "d": d,
+                       "dtype": "float32", "with_lse": with_lse,
+                       **flash_error(out[..., :d], want, TOL_FLASH["float32"])}
+                if with_lse:
+                    lse_err = float((lse - want_lse).abs().max())
+                    row.update(lse_max_abs_err=lse_err, lse_tol=TOL_LSE)
+                    row["ok"] = row["ok"] and lse_err <= TOL_LSE
+                rows.append(row)
+        del q, k, v, want, want_lse
+    return rows
+
+
+def flash_split_rows(device) -> list:
+    """Both fp32 flash pre-passes on strided views (a ragged T at D = 64,
+    Tq != Tk at D = 128), bitwise against their plain versions."""
+    import torch
+
+    from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
+        flash_bwd_split, flash_bwd_split_plain, flash_fwd_split, flash_split_plain)
+
+    rows = []
+    for i, (b, tq, tk, h, d) in enumerate(((2, 300, 300, 2, 64), (1, 70, 130, 3, 128))):
+        q, do = (randn((b, tq, h, 2 * d), 180 + 4 * i + j, device, torch.float32)[..., :d]
+                 for j in range(2))
+        k, v = randn((b, tk, h, 2 * d), 182 + 4 * i, device, torch.float32).split(d, dim=-1)
+        for kernel, got, want in (
+                ("flash_attention_tf32_split", flash_fwd_split(k, v), flash_split_plain(k, v)),
+                ("flash_attention_bwd_tf32_split", flash_bwd_split(q, do, k, v),
+                 flash_bwd_split_plain(q, do, k, v))):
+            rows.append({"kernel": kernel, "dtype": "float32", "b": b, "tq": tq, "tk": tk, "h": h,
+                         "d": d, **exact_error(torch.cat([x.flatten() for x in got]),
+                                               torch.cat([x.flatten() for x in want]))})
+    return rows
 
 
 def check_tf32_probe(device) -> list:
@@ -1015,14 +1111,18 @@ def phase_kernels(state: dict) -> None:
             check_flash(2, 300, 2, 64, device, seed=103, dtype=dt),
         ]
         # the training step's attention (B*H = 32*4 = 128), the 64^3
-        # config's T = 4096 (bf16: the fused kernel), a ragged T and D = 64
+        # config's T = 4096, a ragged T and D = 64: the fused kernel (bf16)
+        # or the 3xTF32 pair (fp32), each against the pair it replaced
         flash_bwd += [
             check_flash_bwd(32, t, h, d, device, seed=110, dtype=dt),
-            *([check_flash_bwd(2, 4096, h, d, device, seed=116, dtype=dt)]
-              if dt == torch.bfloat16 else []),
+            check_flash_bwd(2, 4096, h, d, device, seed=116, dtype=dt),
             check_flash_bwd(2, 300, h, d, device, seed=112, dtype=dt),
             check_flash_bwd(2, 300, 2, 64, device, seed=114, dtype=dt),
         ]
+    # the fp32 forward's 3xTF32 route with and without the LSE, against the
+    # FMA kernel too; both fp32 flash pre-passes bitwise
+    flash_tf32 = check_flash_tf32(device)
+    flash_splits = flash_split_rows(device)
     # K6 at the serve shape (bucket 8 over 4 ranks: T/n = 128) and the 64^3
     # config's (T = 4096: T/n = 1024); fp32 at D = 128 takes the tf32 fold,
     # at D = 32 and 256 the FMA one; a ragged shard (T/n = 75)
@@ -1037,18 +1137,19 @@ def phase_kernels(state: dict) -> None:
     _, k8, v8 = flash_inputs(2, 300, 2, 64, device, 141, torch.float32)
     splits.append(ring_split_row(k8, v8, SERVE_CONTEXT, 0, "", None))
     plans, plans_summary = check_flash_plans(device)
-    record_errors(state, conv + flash + ring + plans + probe + splits
+    record_errors(state, conv + flash + ring + plans + probe + splits + flash_tf32 + flash_splits
                   + [g for r in flash_bwd for g in r["grads"]])
     counts = dict(launch_counts)
     state["kernels_launches"] = counts
     emit("kernels", conv=conv, flash=flash, flash_bwd=flash_bwd, ring=ring, tf32_probe=probe,
-         tf32_splits=splits,
+         tf32_splits=splits + flash_splits, flash_tf32=flash_tf32,
          flash_plans=plans_summary, flash_plan_holds=len(plans),
          flash_plan_failures=[r for r in plans if not r["ok"]],
          attention_calls_per_forward=len(attn_calls), conv_calls_per_forward=len(conv_calls),
          launches=counts)
-    fail_bad("kernels", conv + flash + flash_bwd + ring + plans + probe + splits)
-    # the mma.sync/fp32 pair runs on no main path now: its path is these holds
+    fail_bad("kernels", conv + flash + flash_bwd + ring + plans + probe + splits + flash_tf32
+             + flash_splits)
+    # the mma.sync and FMA pairs run on no main path: their path is these holds
     missing = [name for name, _, _, path in KERNELS if path == "kernels" and not counts.get(name)]
     if missing:
         fail(f"kernels: the holds never launched {missing}; counts {counts}")
@@ -2220,30 +2321,39 @@ def phase_timings(state: dict, batch: int) -> None:
     fail_bad("timings", rows)
 
 
-def flash_fwd_row(b, t, h, d, calls: int, per: str, device, dtype, variant=None) -> dict:
-    """The forward kernel on [b, t, h, d] views of one qkv: held against the
-    plain version, timed beside it, SDPA and its bound."""
+def flash_fwd_row(b, t, h, d, calls: int, per: str, device, dtype, variant=None,
+                  plan=None) -> dict:
+    """The forward kernel on [b, t, h, d] views of one qkv (through the
+    autograd Function, or at ``plan`` through the launcher: the route a new
+    one replaced): held against the plain version, timed beside it, SDPA and
+    its bound. On the fp32 3xTF32 route the kernel is the fold, whose K/V
+    pre-pass has a row of its own (``flash_fwd_split_row``)."""
     import torch.nn.functional as F
 
     import torch
 
     from rho_diffusion_tpu_torch.ops.attention import xla_attention
-    from rho_diffusion_tpu_torch.ops.kernels.flash_attention import flash_attention, flash_plan
+    from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention, flash_attention_fwd_kernel, flash_plan)
 
     q, k, v = flash_inputs(b, t, h, d, device, seed=300 + t, dtype=dtype)
-    plan = flash_plan(b, h, t, t, d, dtype, torch.cuda.get_device_properties(device)
-                      .multi_processor_count)
+    if plan is None:
+        plan = flash_plan(b, h, t, t, d, dtype, torch.cuda.get_device_properties(device)
+                          .multi_processor_count)
+        run = functools.partial(flash_attention, q, k, v)
+    else:
+        def run():
+            return flash_attention_fwd_kernel(q, k, v, plan=plan)[0][..., :d]
+    name = "flash_attention_tf32" if plan.route == "tf32" else "flash_attention"
     qf, kf, vf = q.float(), k.float(), v.float()
     qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
     flops = 4.0 * b * h * t * t * d
     item = q.element_size()
-    row = {"kernel": "flash_attention", "variant": variant, "b": b, "t": t, "h": h, "d": d,
+    row = {"kernel": name, "variant": variant, "b": b, "t": t, "h": h, "d": d,
            "dtype": dtype_name(dtype), "calls": calls, "per": per, "flash_route": plan.route,
            "plan": plan_name(plan),
-           **flash_error(flash_attention(q, k, v), xla_attention(qf, kf, vf),
-                         TOL_FLASH[dtype_name(dtype)]),
-           **kernel_times(lambda: flash_attention(q, k, v), "flash_attention"),
-           "host_ms": host_ms(lambda: flash_attention(q, k, v)),
+           **flash_error(run(), xla_attention(qf, kf, vf), TOL_FLASH[dtype_name(dtype)]),
+           **kernel_times(run, name), "host_ms": host_ms(run),
            "plain_ms": cuda_time_ms(lambda: xla_attention(qf, kf, vf), iters=3, warmup=1),
            "library": "scaled_dot_product_attention",
            "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
@@ -2252,6 +2362,27 @@ def flash_fwd_row(b, t, h, d, calls: int, per: str, device, dtype, variant=None)
            **dtype_bound(flops, item * 4.0 * b * t * h * d, item)}
     row["tflops"] = flops / row["ms"] / 1e9
     return row
+
+
+def flash_fwd_split_row(b, t, h, d, calls: int, per: str, device, variant=None) -> dict:
+    """The fp32 forward's K/V pre-pass on the same views as its fold's row:
+    held bitwise against its plain version, timed beside it and its byte
+    bound (k and v read once, both terms of each written once)."""
+    import torch
+
+    from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
+        flash_fwd_split, flash_split_plain)
+
+    _, k, v = flash_inputs(b, t, h, d, device, seed=300 + t, dtype=torch.float32)
+    got, want = flash_fwd_split(k, v), flash_split_plain(k, v)
+    return {"kernel": "flash_attention_tf32_split", "variant": variant, "dtype": "float32",
+            "b": b, "t": t, "h": h, "d": d, "calls": calls, "per": per,
+            **exact_error(torch.cat([x.flatten() for x in got]),
+                          torch.cat([x.flatten() for x in want])),
+            **kernel_times(lambda: flash_fwd_split(k, v), "flash_attention_tf32_split"),
+            "plain_ms": cuda_time_ms(lambda: flash_split_plain(k, v), iters=5),
+            "library": "none: no one PyTorch call rounds to TF32", "library_ms": None,
+            "bound_ms": 3 * 2 * 4.0 * k.numel() / MEM_RATE * 1e3, "bound_by": "bytes"}
 
 
 def kernel_names(fn) -> dict:
@@ -2410,19 +2541,23 @@ def sdpa_backward_ms(q, k, v, do) -> dict:
             "library_calls_profiled": iters}
 
 
-def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None) -> list:
+def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None,
+                   old_variant=None) -> list:
     """The backward on [b, t, h, d] views of one qkv (the wrapper computes
     delta on each call, as in training), each kernel held against its plain
     version on the kernel forward's output and LSE, timed beside it, its
-    bound and SDPA's backward (bf16). For bf16 at D = 64 and 128: the fused
-    kernel at its plan, then the mma.sync pair on the same inputs (``plan=``
-    the pair's: the old route, launched on request only); fp32: the pair."""
+    bound and SDPA's backward. For bf16 at D = 64 and 128: the fused kernel
+    at its plan, then the mma.sync pair on the same inputs (``plan=`` the
+    pair's: the old route, launched on request only); for fp32 there: the
+    3xTF32 pair and its pre-pass, then the FMA pair on request (its rows
+    under ``old_variant``); elsewhere the pair of the dtype."""
     import torch
 
     from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
-        FLASH_BWD_BM, MMA_SYNC_BWD_PLAN, flash_attention_bwd_dkv_plain,
+        FLASH_BWD_BM, FP32_BWD_PLAN, MMA_SYNC_BWD_PLAN, flash_attention_bwd_dkv_plain,
         flash_attention_bwd_dq_plain, flash_attention_bwd_kernel, flash_attention_bwd_plain,
-        flash_attention_fwd_kernel, flash_bwd_plan, flash_delta, flash_delta_kernel)
+        flash_attention_fwd_kernel, flash_bwd_plan, flash_bwd_split, flash_bwd_split_plain,
+        flash_delta, flash_delta_kernel)
 
     q, k, v = flash_inputs(b, t, h, d, device, seed=500, dtype=dtype)
     do = randn((b, t, h, d), 501, device, dtype)
@@ -2436,10 +2571,11 @@ def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None
     plan = flash_bwd_plan(b, h, t, t, d, dtype)
     rows = []
 
-    def row(name, run, want, flops, nbytes, row_tol=tol, row_library=None, **extra):
+    def row(name, run, want, flops, nbytes, row_tol=tol, row_library=None, row_variant=variant,
+            **extra):
         got = [g for g in run() if g is not None]
         errs = [flash_error(g, w, row_tol) for g, w in zip(got, want)]
-        r = {"kernel": name, "variant": variant, "b": b, "t": t, "h": h, "d": d,
+        r = {"kernel": name, "variant": row_variant, "b": b, "t": t, "h": h, "d": d,
              "dtype": dtype_name(dtype), "calls": calls, "per": per,
              **max(errs, key=lambda e: (not e["ok"], e["err_over_tol"])),
              **kernel_times(run, name), "host_ms": host_ms(run, calls=20),
@@ -2450,6 +2586,24 @@ def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None
                      "replayed; the profiler recorded no launch)")
         r["tflops"] = flops / r["ms"] / 1e9
         rows.append(r)
+
+    def pair_rows(prefix: str, pair_plan, row_variant, note=None) -> None:
+        """The rows of a dkv/dq pair (``prefix``_dkv and _dq) at
+        ``pair_plan`` (None: the backward's own plan)."""
+        for which, needs, products, plain, n_out in (
+                ("dkv", (False, True, True), 4, flash_attention_bwd_dkv_plain, 2),
+                ("dq", (True, False, False), 3, flash_attention_bwd_dq_plain, 1)):
+            want = plain(qf, kf, vf, of, lse, dof)
+            # the kernel's own products of 2*T*T*D each; q, k, v, dO, lse,
+            # delta read once, its gradients written once
+            row(f"{prefix}_{which}",
+                lambda needs=needs: flash_attention_bwd_kernel(q, k, v, o, lse, do, needs,
+                                                               plan=pair_plan),
+                want if n_out == 2 else (want,), products * 2.0 * b * h * t * t * d,
+                4 * io + stats + n_out * io, row_variant=row_variant,
+                plain_ms=cuda_time_ms(lambda plain=plain: plain(qf, kf, vf, of, lse, dof),
+                                      iters=3, warmup=1),
+                **({"route_note": note} if note else {}))
 
     if plan.route == "wgmma":
         # five products of 2*T*T*D; q, k, v, dO, lse, delta read once, dq,
@@ -2481,20 +2635,38 @@ def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None
         fused["wrapper_device_ms"] = graph_ms(
             lambda: flash_attention_bwd_kernel(q, k, v, o, lse, do), calls=10)
         pair_plan, pair_note = MMA_SYNC_BWD_PLAN, "the mma.sync pair on request (plan=mma_sync)"
+    elif plan.route == "tf32":
+        # the 3xTF32 pair: each kernel's own products (dkv 4, dq 3) of
+        # 2*T*T*D, three TF32 products each, on the wrapper's call (its
+        # pre-pass and delta in call_ms)
+        pair_rows("flash_attention_bwd_tf32", None, variant)
+        # its pre-pass: q, dO, k, v read once, both terms of each written once
+        qs_kvs = flash_bwd_split(q, do, k, v)
+        want = flash_bwd_split_plain(q, do, k, v)
+        split = {"kernel": "flash_attention_bwd_tf32_split", "variant": variant,
+                 "dtype": "float32", "b": b, "t": t, "h": h, "d": d, "calls": calls, "per": per,
+                 **exact_error(torch.cat([x.flatten() for x in qs_kvs]),
+                               torch.cat([x.flatten() for x in want])),
+                 **kernel_times(lambda: flash_bwd_split(q, do, k, v),
+                                "flash_attention_bwd_tf32_split"),
+                 "plain_ms": cuda_time_ms(lambda: flash_bwd_split_plain(q, do, k, v), iters=3,
+                                          warmup=1),
+                 "library": "none: no one PyTorch call rounds to TF32", "library_ms": None,
+                 "bound_ms": 12 * io / MEM_RATE * 1e3, "bound_by": "bytes"}
+        del qs_kvs, want
+        rows.append(split)
+        # like for like against SDPA's backward: the pair with its pre-pass,
+        # and the wrapper's whole device work a call (delta too), from a
+        # CUDA graph
+        dkv, dq = rows[-3:-1]
+        dkv["ms_with_pre_pass"] = dkv["ms"] + dq["ms"] + split["ms"]
+        dkv["wrapper_device_ms"] = graph_ms(
+            lambda: flash_attention_bwd_kernel(q, k, v, o, lse, do), calls=10)
+        pair_plan, pair_note = FP32_BWD_PLAN, "the FMA pair on request (plan=fp32)"
+        variant = old_variant
     else:
         pair_plan, pair_note = None, None
-    for name, needs, products, plain, n_out in (
-            ("flash_attention_bwd_dkv", (False, True, True), 4, flash_attention_bwd_dkv_plain, 2),
-            ("flash_attention_bwd_dq", (True, False, False), 3, flash_attention_bwd_dq_plain, 1)):
-        want = plain(qf, kf, vf, of, lse, dof)
-        # the kernel's own products of 2*T*T*D each; q, k, v, dO, lse,
-        # delta read once, its gradients written once
-        row(name, lambda needs=needs: flash_attention_bwd_kernel(q, k, v, o, lse, do, needs,
-                                                                 plan=pair_plan),
-            want if n_out == 2 else (want,), products * 2.0 * b * h * t * t * d,
-            4 * io + stats + n_out * io,
-            plain_ms=cuda_time_ms(lambda plain=plain: plain(qf, kf, vf, of, lse, dof), iters=3,
-                                  warmup=1), **({"route_note": pair_note} if pair_note else {}))
+    pair_rows("flash_attention_bwd", pair_plan, variant, pair_note)
     return rows
 
 
@@ -2743,6 +2915,14 @@ FP32_MODEL_BAR = {"forward": 1e-8, "train_gradients": 1e-4}
 # the bench entry in fp32, fewer steps and windows than the bf16 runs:
 # the train mode at TRAIN_BATCH (the next batch down if it does not fit in
 # the card's memory) and a DDIM sample at batch 8
+# the launches each fp32 bench run must make: the flash forward's 3xTF32
+# fold and pre-pass (train and sample), the backward's pair and pre-pass
+# (train)
+FP32_FLASH_COUNTS = {
+    "train": ("flash_attention_tf32", "flash_attention_tf32_split", "flash_attention_bwd_tf32_dkv",
+              "flash_attention_bwd_tf32_dq", "flash_attention_bwd_tf32_split"),
+    "sample": ("flash_attention_tf32", "flash_attention_tf32_split"),
+}
 FP32_BENCH_RUNS = (
     ("train", {"BENCH_MODE": "train", "BENCH_DTYPE": "float32", "BENCH_STEPS": "3",
                "BENCH_WARMUP": "1", "BENCH_WINDOWS": "1"}),
@@ -2885,6 +3065,7 @@ def phase_fp32(state: dict) -> None:
     import torch
 
     from rho_diffusion_tpu_torch import bench
+    from rho_diffusion_tpu_torch.ops.kernels.flash_attention import FP32_PLAN
 
     device = torch.device(DEVICE)
     t0 = time.perf_counter()
@@ -2908,14 +3089,24 @@ def phase_fp32(state: dict) -> None:
     n = len(attn_calls)
     per_fwd, per_step = (f"one UNet forward at batch {FP32_BATCH}",
                          f"one training step at batch {TRAIN_BATCH}")
-    flash = [flash_fwd_row(FP32_BATCH, t, h, d, n, per_fwd, device, torch.float32,
-                           variant="fp32"),
-             flash_fwd_row(TRAIN_BATCH, t, h, d, n, per_step, device, torch.float32,
-                           variant=f"fp32, batch {TRAIN_BATCH}")]
+    # the forward's 3xTF32 fold (fp32 only: its batch-8 rows are its main
+    # ones), its K/V pre-pass, and the FMA kernel it replaced on request
+    flash = []
+    for batch, per, variant in ((FP32_BATCH, per_fwd, None),
+                                (TRAIN_BATCH, per_step, f"batch {TRAIN_BATCH}")):
+        flash += [flash_fwd_row(batch, t, h, d, n, per, device, torch.float32, variant=variant),
+                  flash_fwd_split_row(batch, t, h, d, n, per, device, variant=variant),
+                  flash_fwd_row(batch, t, h, d, n, per, device, torch.float32,
+                                variant=f"fp32 FMA kernel on request (plan=fp32), batch {batch}",
+                                plan=FP32_PLAN)]
+    # the backward's 3xTF32 pair and its pre-pass (main at the training
+    # step's batch), and the FMA pair it replaced on request
     flash_bwd = (flash_bwd_rows(TRAIN_BATCH, t, h, d, n, per_step, device, torch.float32,
-                                variant="fp32")
+                                old_variant="fp32 FMA pair on request (plan=fp32)")
                  + flash_bwd_rows(FP32_BATCH, t, h, d, n, per_fwd.replace("forward", "backward"),
-                                  device, torch.float32, variant=f"fp32, batch {FP32_BATCH}"))
+                                  device, torch.float32, variant=f"batch {FP32_BATCH}",
+                                  old_variant=f"fp32 FMA pair on request (plan=fp32), batch "
+                                              f"{FP32_BATCH}"))
     ring = [ring_row(FP32_BATCH, t, h, d, SERVE_CONTEXT, n,
                      f"one UNet forward at batch {FP32_BATCH} under a context={SERVE_CONTEXT} "
                      "mesh", device, torch.float32)]
@@ -2980,6 +3171,12 @@ def phase_fp32(state: dict) -> None:
                 if isinstance(row, dict) and "ok" in row and not row["ok"]]
     if "train" not in runs or "sample" not in runs:
         problems.append(f"the fp32 bench runs did not all finish: {runs}")
+    # each bench run on its own: the fp32 flash routes' counts (3xTF32)
+    for name, kernels in FP32_FLASH_COUNTS.items():
+        counts = runs.get(name, {}).get("launches", {}) if isinstance(runs.get(name), dict) else {}
+        never = [k for k in kernels if not counts.get(k)]
+        if never:
+            problems.append(f"the fp32 bench {name} run never launched {never}; counts {counts}")
     if not served["finite"]:
         problems.append(f"the served fp32 ring request: {served}")
     missing = [name for name, _, _, path in KERNELS if path == "fp32" and not launches.get(name)]
@@ -3053,8 +3250,8 @@ KERNELS = (
     # its delta pre-pass, where the TPU path leaves rowsum(dO O) to XLA
     ("flash_attention_bwd_delta", "flash_attention_bwd_wgmma.cuh",
      "rho_diffusion_tpu/ops/pallas/flash_attention.py:308", "training"),
-    # the mma.sync pair (fp32, and bf16 at D = 16, 32, 256) runs on no main
-    # path: its launches are the kernels phase's holds
+    # the mma.sync and FMA pairs (bf16 and fp32 at D = 16, 32, 256) run on
+    # no main path: their launches are the kernels phase's holds
     ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
      "rho_diffusion_tpu/ops/pallas/flash_attention.py:209", "kernels"),
     ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
@@ -3076,6 +3273,21 @@ KERNELS = (
      "rho_diffusion_tpu/parallel/context_rdma.py:50", "fp32"),
     ("ring_attention_tf32_split", "ring_attention_tf32.cuh",
      "rho_diffusion_tpu/parallel/context_rdma.py:50", "fp32"),
+    # the fp32 flash forward at head dims 64/128: K6's fold with one shard
+    # (launched from flash_attention.cu as flash_fwd_tf32_kernel) after its
+    # K/V pre-pass; the backward: a 3xTF32 dkv/dq pair after its q/dO/k/v
+    # pre-pass (flash_attention_bwd_tf32.cuh, launched from
+    # flash_attention_bwd.cu)
+    ("flash_attention_tf32", "ring_attention_tf32.cuh",
+     "rho_diffusion_tpu/ops/pallas/flash_attention.py:115", "fp32"),
+    ("flash_attention_tf32_split", "ring_attention_tf32.cuh",
+     "rho_diffusion_tpu/ops/pallas/flash_attention.py:115", "fp32"),
+    ("flash_attention_bwd_tf32_dkv", "flash_attention_bwd_tf32.cuh",
+     "rho_diffusion_tpu/ops/pallas/flash_attention.py:209", "fp32"),
+    ("flash_attention_bwd_tf32_dq", "flash_attention_bwd_tf32.cuh",
+     "rho_diffusion_tpu/ops/pallas/flash_attention.py:262", "fp32"),
+    ("flash_attention_bwd_tf32_split", "flash_attention_bwd_tf32.cuh",
+     "rho_diffusion_tpu/ops/pallas/flash_attention.py:209", "fp32"),
     # K7-K9: K5's block (conv3d_wgmma.cuh) with one factor changed, launched
     # from conv3d_variants.cu and run by the bottleneck-isolation entry; K8
     # is two kernels, the patch matrix and its dense GEMM
@@ -3089,8 +3301,9 @@ KERNELS = (
     ("conv3d_dotsonly", "conv3d_variants.cu", "benchmarks/conv3d_variants.py:154", "bench"),
 )
 TIME_FIELDS = ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms")
-# the fused backward's device time with its delta pre-pass (profiler) and
-# its wrapper's whole device work (CUDA graph): what SDPA's library_ms does
+# the fused backward's device time with its delta pre-pass (profiler; the
+# 3xTF32 pair's: both kernels and its split pre-pass) and the wrapper's
+# whole device work (CUDA graph): what SDPA's library_ms does
 FUSED_BWD_FIELDS = ("ms_with_pre_pass", "wrapper_device_ms")
 
 
@@ -3154,6 +3367,14 @@ def kernels_line(state: dict) -> list:
                                         if main[0]["library_profiled_ms"] is not None else None),
                 "library_event_ms": main[0]["library_event_ms"] * main[0]["calls"]}
                if name == "flash_attention_bwd" else {}),
+            **({"flash_route": main[0]["flash_route"], "plan": main[0]["plan"],
+                "also_replaces": "rho_diffusion_tpu/ops/pallas/flash_attention.py:59",
+                "launcher": "rho_diffusion_tpu_torch/csrc/flash_attention.cu"}
+               if name == "flash_attention_tf32" else {}),
+            **({"launcher": "rho_diffusion_tpu_torch/csrc/flash_attention_bwd.cu",
+                "library_ms_of": main[0]["library_ms_of"],
+                **{f: sum(r[f] * r["calls"] for r in main) for f in FUSED_BWD_FIELDS}}
+               if name == "flash_attention_bwd_tf32_dkv" else {}),
         })
     return out
 

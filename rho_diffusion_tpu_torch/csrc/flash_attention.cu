@@ -19,7 +19,7 @@
 // the same base. The sampling path passes a null `lse` and writes nothing,
 // as the TPU's primal path skips it (with_lse=False, :374-380).
 //
-// Three routes, chosen by the caller (ops/kernels/flash_attention.py
+// Four routes, chosen by the caller (ops/kernels/flash_attention.py
 // `flash_plan`) by head dim and dtype, never by a failure:
 //
 //   flash_attention_fwd_wgmma  bf16, D = 64 or 128 (the UNet's 128): the
@@ -40,14 +40,26 @@
 //     O += P V with mma.sync m16n8k16 bf16 products, and keeps the running
 //     max, row sum and the output accumulator in registers. A ragged last
 //     tile is zero-filled by the copy and masked.
-//   flash_attention_fwd_f32    fp32, any of the head dims: below.
+//   flash_attention_tf32_split + flash_attention_tf32   fp32, D = 64 or 128
+//     (the UNet's 128): K6's 3xTF32 fold (ring_attention_tf32.cuh) with one
+//     shard, as `flash_fwd_tf32_kernel`, after its pre-pass
+//     `flash_fwd_tf32_split_kernel` has written K's and V^T's tf32 terms
+//     into scratch the caller allocates. Every product is split into three
+//     TF32 products on wgmma, the small terms first, with at most 12
+//     products summed in the tensor cores' accumulator before a rounded
+//     fp32 add (the header says why); the softmax is fp32. The fold writes
+//     the base-2 LSE when `lse` is given, as above.
+//   flash_attention_fwd_f32    fp32, D = 16, 32 or 256 (at 64 and 128 only
+//     when a plan asks for it: the old side of the old-against-new
+//     comparison): below.
 //
-// fp32 (`flash_fwd_f32_kernel`, the UNet run in fp32): the same online
-// softmax in fp32 FMAs on the CUDA cores, since the tensor cores' fp32 input
-// (TF32) would round Q, K, V and P to 10 mantissa bits. Eight threads own one
-// query row: each scores 8 of a 64-key tile's keys, the row's probabilities
-// pass through shared memory, and each accumulates D/8 output columns. It is
-// bound by the fp32 peak, about 15x below the bf16 tensor-core rate.
+// fp32 (`flash_fwd_f32_kernel`): the same online softmax in fp32 FMAs on
+// the CUDA cores, which keep every product in fp32 (one TF32 product rounds
+// Q, K, V and P to 10 mantissa bits). Eight threads own one query row: each
+// scores 8 of a 64-key tile's keys, the row's probabilities pass through
+// shared memory, and each accumulates D/8 output columns. It is bound by
+// the fp32 peak, about 15x below the bf16 tensor-core rate (the tf32
+// route's three TF32 products run at 165 TFLOP/s of fp32 work).
 //
 // Layout: q, k, v and o are [B, T, H, D] with D contiguous; any strides on
 // B, T, H (multiples of 16 bytes), so the UNet's fused qkv projection is read
@@ -59,6 +71,7 @@
 #include <stdint.h>
 
 #include "flash_attention_wgmma.cuh"
+#include "ring_attention_tf32.cuh"
 
 namespace {
 
@@ -466,6 +479,51 @@ int launch_pv_probe(const CUtensorMap& v_map, const void* p, void* out, cudaStre
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The tf32 route: K6's 3xTF32 fold (ring_attention_tf32.cuh) over one shard
+
+template <int HD>
+__global__ void __launch_bounds__(256)
+flash_fwd_tf32_split_kernel(const __grid_constant__ rt::Tf32Shards src, float* __restrict__ ks,
+                            float* __restrict__ vts, int H, int S, int S8, int BH) {
+  rt::kv_split<HD>(src, ks, vts, H, S, S8, BH, 1);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(rt::THREADS, 1)
+flash_fwd_tf32_kernel(__grid_constant__ const CUtensorMap k_map,
+                      __grid_constant__ const CUtensorMap v_map, const rt::Tf32Problem p) {
+  rt::tf32_fold<HD>(k_map, v_map, p);
+}
+
+template <int HD>
+int launch_tf32_split(const rt::Tf32Shards& src, void* ks, void* vts, int BH, int H, int S,
+                      cudaStream_t stream) {
+  const int s8 = (S + 7) / 8 * 8;
+  flash_fwd_tf32_split_kernel<HD><<<dim3((s8 + rt::SPLIT_KEYS - 1) / rt::SPLIT_KEYS, BH), 256, 0,
+                                    stream>>>(src, (float*)ks, (float*)vts, H, S, s8, BH);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_tf32(const rt::Tf32Problem& p, const void* ks, const void* vts, cudaStream_t stream) {
+  wg::EncodeTiled encode = wg::encode_tiled();
+  if (encode == nullptr) return ERR_ENCODE_FN;
+  CUtensorMap k_map, v_map;
+  if (!wg::encode_f32_3d(encode, &k_map, ks, HD, p.S8, 2ull * p.BH, rt::BN) ||
+      !wg::encode_f32_3d(encode, &v_map, vts, p.S8, HD, 2ull * p.BH, HD))
+    return ERR_MAP;
+  constexpr int smem = rt::smem_bytes(HD);
+  static_assert(smem <= wg::SMEM_LIMIT, "the ring does not fit in shared memory");
+  auto kernel = flash_fwd_tf32_kernel<HD>;
+  static unsigned long long ready = 0;
+  cudaError_t err = wg::smem_attribute_once(kernel, smem, &ready);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((unsigned)((p.Tq + rt::BM - 1) / rt::BM), (unsigned)p.BH), rt::THREADS, smem,
+           stream>>>(k_map, v_map, p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -548,11 +606,60 @@ int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o
   }
 }
 
+// The tf32 route, two launches on `stream`. flash_attention_tf32_split
+// writes K's and V^T's tf32 terms into ks and vts: fp32 scratch of
+// 2 * B*H * Tk8 * D elements each (Tk8 = Tk rounded up to 8; the layouts of
+// ring_attention_tf32.cuh with one shard), 16-byte aligned, any contents;
+// strides: 6 values, the (batch, token, head) element strides of k, then v.
+// flash_attention_tf32 then folds them into q's rows and writes o, and the
+// base-2 LSE when lse is not null (as above); strides: q's, then o's. Both
+// take fp32 at D = 64 or 128, 4-byte aligned q, k, v and 8-byte aligned o
+// with even strides, and return ERR_PLAN for a shape they do not take.
+int flash_attention_tf32_split(const void* k, const void* v, void* ks, void* vts, int B, int H,
+                               int Tk, int D, const long long* strides, void* stream) {
+  const bool ok = (D == 64 || D == 128) && B >= 1 && H >= 1 && Tk >= 1 &&
+                  (long long)B * H <= 65535 &&
+                  ((reinterpret_cast<uintptr_t>(ks) | reinterpret_cast<uintptr_t>(vts)) & 15) == 0 &&
+                  ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) & 3) == 0;
+  if (!ok) return ERR_PLAN;
+  rt::Tf32Shards src;
+  src.k[0] = (const float*)k;
+  src.v[0] = (const float*)v;
+  src.k_sb = strides[0], src.k_st = strides[1], src.k_sh = strides[2];
+  src.v_sb = strides[3], src.v_st = strides[4], src.v_sh = strides[5];
+  cudaStream_t s = (cudaStream_t)stream;
+  return D == 128 ? launch_tf32_split<128>(src, ks, vts, B * H, H, Tk, s)
+                  : launch_tf32_split<64>(src, ks, vts, B * H, H, Tk, s);
+}
+
+int flash_attention_tf32(const void* q, void* o, void* lse, const void* ks, const void* vts, int B,
+                         int H, int Tq, int Tk, int D, const long long* strides, float scale_log2,
+                         void* stream) {
+  bool ok = (D == 64 || D == 128) && B >= 1 && H >= 1 && Tq >= 1 && Tk >= 1 &&
+            (long long)B * H <= 65535 &&
+            ((reinterpret_cast<uintptr_t>(ks) | reinterpret_cast<uintptr_t>(vts)) & 15) == 0 &&
+            (reinterpret_cast<uintptr_t>(q) & 3) == 0 && (reinterpret_cast<uintptr_t>(o) & 7) == 0;
+  for (int i = 3; i < 6; ++i) ok = ok && strides[i] % 2 == 0;
+  if (!ok) return ERR_PLAN;
+  rt::Tf32Problem p;
+  p.H = H, p.Tq = Tq, p.BH = B * H, p.shards = 1, p.S = Tk, p.S8 = (Tk + 7) / 8 * 8;
+  p.tiles_per_shard = (Tk + rt::BN - 1) / rt::BN;
+  p.q[0] = (const float*)q;
+  p.o[0] = (float*)o;
+  p.rank[0] = 0;
+  p.q_sb = strides[0], p.q_st = strides[1], p.q_sh = strides[2];
+  p.o_sb = strides[3], p.o_st = strides[4], p.o_sh = strides[5];
+  p.scale_log2 = scale_log2;
+  p.lse = (float*)lse;
+  cudaStream_t s = (cudaStream_t)stream;
+  return D == 128 ? launch_tf32<128>(p, ks, vts, s) : launch_tf32<64>(p, ks, vts, s);
+}
+
 const char* flash_attention_error_string(int code) {
   switch (code) {
-    case ERR_PLAN: return "the wgmma launcher refused the plan or shape";
+    case ERR_PLAN: return "the wgmma or tf32 launcher refused the plan or shape";
     case ERR_ENCODE_FN: return "cuTensorMapEncodeTiled could not be found in libcuda";
-    case ERR_MAP: return "cuTensorMapEncodeTiled refused a tensor map of q, k or v";
+    case ERR_MAP: return "cuTensorMapEncodeTiled refused a tensor map of q, k or v (or their split terms)";
     default: return cudaGetErrorString((cudaError_t)code);
   }
 }

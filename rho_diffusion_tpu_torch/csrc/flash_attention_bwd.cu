@@ -15,7 +15,7 @@
 // PyTorch expression, both computed by the caller. lse is the forward's base-2 log-sum-exp of the
 // scaled scores (flash_attention.cu), so P = exp2(S * log2(e) - lse2).
 //
-// Three routes, chosen by the caller (ops/kernels/flash_attention.py
+// Four routes, chosen by the caller (ops/kernels/flash_attention.py
 // `flash_bwd_plan`) by head dim and dtype, never by a failure:
 //
 //   flash_attention_bwd_wgmma      bf16, D = 64 or 128 (the UNet's 128): ONE
@@ -31,7 +31,14 @@
 //   flash_attention_bwd_{dkv,dq}_bf16   bf16, D = 16, 32 or 256 (at 64 and
 //     128 only when a plan asks for them: the old side of the old-against-
 //     new comparison): the mma.sync pair below.
-//   flash_attention_bwd_{dkv,dq}_f32    fp32, any of the head dims: below.
+//   flash_attention_bwd_tf32_{split,dkv,dq}   fp32, D = 64 or 128 (the
+//     UNet's 128): a pair of kernels whose every product is three TF32
+//     products on wgmma (3xTF32), after a pre-pass that writes the tf32
+//     terms of q, dout, k and v, in flash_attention_bwd_tf32.cuh (its
+//     header says what bounds it and what its design does about that).
+//     The caller allocates the split terms and computes delta.
+//   flash_attention_bwd_{dkv,dq}_f32    fp32, D = 16, 32 or 256 (at 64 and
+//     128 only when a plan asks for them, as the bf16 pair): below.
 //
 // The pair:
 // * dkv: one block per (batch*head, 64-key tile). Each of the 4 warps owns 16
@@ -73,6 +80,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_attention_bwd_tf32.cuh"
 #include "flash_attention_bwd_wgmma.cuh"
 #include "tma.cuh"
 
@@ -668,6 +676,78 @@ int launch_wgmma(const CUtensorMap (&maps)[4], const fab::BwdProblem& p, int BH,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The tf32 route (flash_attention_bwd_tf32.cuh): 3xTF32 on wgmma for fp32
+
+template <int HD>
+int launch_tf32_split(const fbt::SplitSrc& src, int BH, int H, int Tq, int Tk,
+                      cudaStream_t stream) {
+  const int rows = Tq > Tk ? Tq : Tk;
+  fbt::flash_bwd_tf32_split_kernel<HD>
+      <<<dim3((rows + fbt::SPLIT_ROWS - 1) / fbt::SPLIT_ROWS, BH, 4), 256, 0, stream>>>(
+          src, H, Tq, Tk, BH);
+  return (int)cudaGetLastError();
+}
+
+// One kernel of the pair: dkv reads the split Q and dO by TMA (a [2][B*H][Tq]
+// [D] each), dq the split K and V ([2][B*H][Tk][D] each).
+template <int HD, bool DKV>
+int launch_tf32(const fbt::BwdTf32Problem& p, const float* b0, const float* b1,
+                cudaStream_t stream) {
+  wg::EncodeTiled encode = wg::encode_tiled();
+  if (encode == nullptr) return ERR_ENCODE_FN;
+  CUtensorMap m0, m1;
+  if (!wg::encode_f32_3d(encode, &m0, b0, HD, p.cols, 2ull * p.BH, fbt::BN) ||
+      !wg::encode_f32_3d(encode, &m1, b1, HD, p.cols, 2ull * p.BH, fbt::BN))
+    return ERR_MAP;
+  constexpr int smem = fbt::smem_bytes(HD, DKV);
+  static_assert(smem <= wg::SMEM_LIMIT, "the tiles do not fit in shared memory");
+  auto kernel = DKV ? fbt::flash_bwd_tf32_dkv_kernel<HD> : fbt::flash_bwd_tf32_dq_kernel<HD>;
+  static unsigned long long ready = 0;
+  cudaError_t err = wg::smem_attribute_once(kernel, smem, &ready);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((unsigned)((p.rows + fbt::ROWS - 1) / fbt::ROWS), (unsigned)p.BH), fbt::THREADS,
+           smem, stream>>>(m0, m1, p);
+  return (int)cudaGetLastError();
+}
+
+template <bool DKV>
+int tf32_pair(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dq, void* dk, void* dv, const void* qs, const void* kvs,
+              int B, int H, int Tq, int Tk, int D, const long long* st, float scale,
+              float scale_log2, void* stream) {
+  bool ok = (D == 64 || D == 128) && B >= 1 && H >= 1 && Tq >= 1 && Tk >= 1 &&
+            (long long)B * H <= 65535 &&
+            ((reinterpret_cast<uintptr_t>(qs) | reinterpret_cast<uintptr_t>(kvs)) & 15) == 0;
+  const void* ptrs[6] = {q, k, v, dout, DKV ? dk : dq, DKV ? dv : dq};
+  for (const void* t : ptrs) ok = ok && t != nullptr && (reinterpret_cast<uintptr_t>(t) & 3) == 0;
+  if (!ok) return ERR_PLAN;
+  fbt::BwdTf32Problem p;
+  p.H = H, p.Tq = Tq, p.Tk = Tk, p.BH = B * H;
+  p.rows = DKV ? Tk : Tq;
+  p.cols = DKV ? Tq : Tk;
+  p.tiles = (p.cols + fbt::BN - 1) / fbt::BN;
+  // the scores' A operands (dkv: k, v; dq: q, dout) and the gradients
+  const int a0 = DKV ? 3 : 0, a1 = DKV ? 6 : 9, g0 = DKV ? 15 : 12, g1 = DKV ? 18 : 12;
+  p.a0 = (const float*)(DKV ? k : q);
+  p.a1 = (const float*)(DKV ? v : dout);
+  p.a0_sb = st[a0], p.a0_st = st[a0 + 1], p.a0_sh = st[a0 + 2];
+  p.a1_sb = st[a1], p.a1_st = st[a1 + 1], p.a1_sh = st[a1 + 2];
+  p.lse = (const float*)lse;
+  p.delta = (const float*)delta;
+  p.g0 = (float*)(DKV ? dk : dq);
+  p.g1 = (float*)(DKV ? dv : dq);
+  p.g0_sb = st[g0], p.g0_st = st[g0 + 1], p.g0_sh = st[g0 + 2];
+  p.g1_sb = st[g1], p.g1_st = st[g1 + 1], p.g1_sh = st[g1 + 2];
+  p.scale = scale;
+  p.scale_log2 = scale_log2;
+  // the streamed side's split terms: q and dout (dkv) or k and v (dq)
+  const float* b0 = (const float*)(DKV ? qs : kvs);
+  const float* b1 = b0 + 2ll * p.BH * p.cols * D;
+  cudaStream_t s = (cudaStream_t)stream;
+  return D == 128 ? launch_tf32<128, DKV>(p, b0, b1, s) : launch_tf32<64, DKV>(p, b0, b1, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -767,11 +847,59 @@ int flash_attention_bwd_delta(const void* o, const void* dout, void* delta, int 
   return (int)cudaGetLastError();
 }
 
+// The tf32 route, three launches on `stream`. flash_attention_bwd_tf32_split
+// writes the tf32 terms of q and dout into qs ([2 (q, dout)][2 (hi, lo)][B*H]
+// [Tq][D] fp32) and of k and v into kvs ([2 (k, v)][2][B*H][Tk][D]), both
+// 16-byte aligned, any contents; strides: 12 values, the (batch, token, head)
+// element strides of q, dout, k, v in turn, multiples of 4, with 16-byte
+// aligned data. The pair then reads them: flash_attention_bwd_tf32_dkv
+// writes dk and dv, flash_attention_bwd_tf32_dq writes dq; both take the
+// pair's arguments (strides: 21 values as above; lse, base 2, and delta
+// fp32 [B, H, Tq] contiguous) and the split terms. fp32 at D = 64 or 128;
+// each returns ERR_PLAN for a shape it does not take.
+int flash_attention_bwd_tf32_split(const void* q, const void* dout, const void* k, const void* v,
+                                   void* qs, void* kvs, int B, int H, int Tq, int Tk, int D,
+                                   const long long* strides, void* stream) {
+  bool ok = (D == 64 || D == 128) && B >= 1 && H >= 1 && Tq >= 1 && Tk >= 1 &&
+            (long long)B * H <= 65535 &&
+            ((reinterpret_cast<uintptr_t>(qs) | reinterpret_cast<uintptr_t>(kvs) |
+              reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(dout) |
+              reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+  for (int i = 0; i < 12; ++i) ok = ok && strides[i] % 4 == 0;
+  if (!ok) return ERR_PLAN;
+  fbt::SplitSrc src;
+  const void* xs[4] = {q, dout, k, v};
+  const long long bh = (long long)B * H;
+  for (int z = 0; z < 4; ++z) {
+    src.x[z] = (const float*)xs[z];
+    src.sb[z] = strides[3 * z], src.st[z] = strides[3 * z + 1], src.sh[z] = strides[3 * z + 2];
+  }
+  src.dst[0] = (float*)qs;
+  src.dst[1] = (float*)qs + 2 * bh * Tq * D;
+  src.dst[2] = (float*)kvs;
+  src.dst[3] = (float*)kvs + 2 * bh * Tk * D;
+  cudaStream_t s = (cudaStream_t)stream;
+  return D == 128 ? launch_tf32_split<128>(src, B * H, H, Tq, Tk, s)
+                  : launch_tf32_split<64>(src, B * H, H, Tq, Tk, s);
+}
+
+#define TF32_PARAMS                                                                          \
+  const void *q, const void *k, const void *v, const void *dout, const void *lse,            \
+      const void *delta, void *dq, void *dk, void *dv, int B, int H, int Tq, int Tk, int D, \
+      const long long *strides, float scale, float scale_log2, const void *qs,               \
+      const void *kvs, void *stream
+#define TF32_ARGS                                                                             \
+  q, k, v, dout, lse, delta, dq, dk, dv, qs, kvs, B, H, Tq, Tk, D, strides, scale, scale_log2, \
+      stream
+
+int flash_attention_bwd_tf32_dkv(TF32_PARAMS) { return tf32_pair<true>(TF32_ARGS); }
+int flash_attention_bwd_tf32_dq(TF32_PARAMS) { return tf32_pair<false>(TF32_ARGS); }
+
 const char* flash_attention_bwd_error_string(int code) {
   switch (code) {
-    case ERR_PLAN: return "the wgmma launcher refused the plan or shape";
+    case ERR_PLAN: return "the wgmma or tf32 launcher refused the plan or shape";
     case ERR_ENCODE_FN: return "cuTensorMapEncodeTiled could not be found in libcuda";
-    case ERR_MAP: return "cuTensorMapEncodeTiled refused a tensor map of q, k, v or dout";
+    case ERR_MAP: return "cuTensorMapEncodeTiled refused a tensor map of q, k, v or dout (or their split terms)";
     default: return cudaGetErrorString((cudaError_t)code);
   }
 }

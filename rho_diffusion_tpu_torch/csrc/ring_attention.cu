@@ -465,20 +465,6 @@ constexpr int ERR_PLAN = -1;       // a shape the tf32 route does not take
 constexpr int ERR_ENCODE_FN = -2;  // cuTensorMapEncodeTiled not found
 constexpr int ERR_MAP = -3;        // cuTensorMapEncodeTiled refused a tensor map
 
-// The 3-D tensor map (dim0, dim1, dim2) of a contiguous fp32 tensor read in
-// boxes of 32 x box1 x 1 with the 128-byte swizzle; what lies outside reads
-// as zeros.
-bool encode_f32_3d(wg::EncodeTiled encode, CUtensorMap* map, const void* base,
-                   unsigned long long d0, unsigned long long d1, unsigned long long d2, int box1) {
-  const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 4, d0 * d1 * 4};
-  const cuuint32_t box[3] = {32, (cuuint32_t)box1, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // The problem of one tf32 launch (S8 = S rounded up to 8, as the pre-pass lays out shards).
 rt::Tf32Problem tf32_problem(const RingTable& tab, const RingStrides& st, int n, int R, int B,
                              int H, int Tq, int S, float scale_log2) {
@@ -493,6 +479,7 @@ rt::Tf32Problem tf32_problem(const RingTable& tab, const RingStrides& st, int n,
   p.q_sb = st.q[0], p.q_st = st.q[1], p.q_sh = st.q[2];
   p.o_sb = st.o[0], p.o_st = st.o[1], p.o_sh = st.o[2];
   p.scale_log2 = scale_log2;
+  p.lse = nullptr;  // the ring writes no log-sum-exp
   return p;
 }
 
@@ -519,8 +506,8 @@ int launch_tf32(const rt::Tf32Problem& p, int R, const void* ks, const void* vts
   if (encode == nullptr) return ERR_ENCODE_FN;
   const unsigned long long keys = (unsigned long long)p.shards * p.S8;
   CUtensorMap k_map, v_map;
-  if (!encode_f32_3d(encode, &k_map, ks, HD, keys, 2ull * p.BH, rt::BN) ||
-      !encode_f32_3d(encode, &v_map, vts, keys, HD, 2ull * p.BH, HD))
+  if (!wg::encode_f32_3d(encode, &k_map, ks, HD, keys, 2ull * p.BH, rt::BN) ||
+      !wg::encode_f32_3d(encode, &v_map, vts, keys, HD, 2ull * p.BH, HD))
     return ERR_MAP;
   constexpr int smem = rt::smem_bytes(HD);
   static_assert(smem <= wg::SMEM_LIMIT, "the ring does not fit in shared memory");

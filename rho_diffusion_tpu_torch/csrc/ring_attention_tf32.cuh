@@ -7,7 +7,10 @@
 // pallas_call at :166): each rank r folds the K/V shards of all n ranks in
 // the ring's order r, r-1, ..., r-n+1 (mod n) into its rows' online-softmax
 // state (m, l, acc) in fp32, base 2, and writes o = acc / l (the function
-// ring_attention.cu states). A single shard (n = 1) is the flash forward.
+// ring_attention.cu states). A single shard (n = 1) is the flash forward:
+// flash_attention.cu launches this fold so (`flash_fwd_tf32_kernel`, after
+// its own launch of the pre-pass) for fp32 at head dims 64 and 128, with
+// each row's base-2 log-sum-exp written when the problem's `lse` is set.
 //
 // What bounds it on the H100: 4 T D flops a query row against 4 D fp32
 // values of q, k, v and o, so operations once the scores stay on chip. One
@@ -96,6 +99,9 @@ struct Tf32Problem {
   long long q_sb, q_st, q_sh;      // q's element strides (batch, token, head), every rank's
   long long o_sb, o_st, o_sh;
   float scale_log2;                // log2(e) / sqrt(true head dim)
+  // null (the ring), or fp32 [R][B*H][Tq] for each row's base-2 log-sum-exp
+  // m + log2(max(l, 1e-30)) (the flash forward's, flash_attention.cu)
+  float* lse;
 };
 
 // Every rank's K and V shard [B, S, H, D] (one stride set each), read by
@@ -109,10 +115,12 @@ struct Tf32Shards {
 // The pre-pass: K's and V^T's tf32 hi and lo terms (layouts above) for
 // SPLIT_KEYS keys of shard blockIdx.z and one (batch, head) a block; keys
 // in [S, S8) of a shard are zero in both.
+// (The body of `kv_split_kernel`, which the flash forward's pre-pass
+// shares; a block of 256 threads.)
 template <int HD>
-__global__ void __launch_bounds__(256)
-kv_split_kernel(const __grid_constant__ Tf32Shards src, float* __restrict__ ks,
-                float* __restrict__ vts, int H, int S, int S8, int BH, int shards) {
+__device__ __forceinline__ void kv_split(const Tf32Shards& src, float* __restrict__ ks,
+                                         float* __restrict__ vts, int H, int S, int S8, int BH,
+                                         int shards) {
   __shared__ float vtile[SPLIT_KEYS][HD + 1];
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H, j = blockIdx.z;
   const int key0 = blockIdx.x * SPLIT_KEYS;
@@ -140,6 +148,13 @@ kv_split_kernel(const __grid_constant__ Tf32Shards src, float* __restrict__ ks,
     reinterpret_cast<uint32_t*>(vts)[at] = hi;
     reinterpret_cast<uint32_t*>(vts)[at + (long long)BH * HD * keys] = lo;
   }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(256)
+kv_split_kernel(const __grid_constant__ Tf32Shards src, float* __restrict__ ks,
+                float* __restrict__ vts, int H, int S, int S8, int BH, int shards) {
+  kv_split<HD>(src, ks, vts, H, S, S8, BH, shards);
 }
 
 // The shard rank `rank` folds at its j-th tile: r, r-1, ..., r-n+1 (mod n).
@@ -254,11 +269,11 @@ __device__ __forceinline__ void load_tile(int j, int rank, int bh, const Tf32Pro
 
 // One block: BM query rows of one (batch, head) of rank p.rank[z] against
 // every shard's keys in the ring's order: two warpgroups of 64 rows, thread
-// 0 also issuing every load.
+// 0 also issuing every load. (The body of `ring_attention_tf32_kernel`,
+// which the flash forward's kernel shares: flash_attention.cu.)
 template <int HD>
-__global__ void __launch_bounds__(THREADS, 1)
-ring_attention_tf32_kernel(__grid_constant__ const CUtensorMap k_map,
-                           __grid_constant__ const CUtensorMap v_map, const Tf32Problem p) {
+__device__ __forceinline__ void tf32_fold(const CUtensorMap& k_map, const CUtensorMap& v_map,
+                                          const Tf32Problem& p) {
   constexpr int TERM = term_bytes(HD);
   constexpr int STAGE = stage_bytes(HD);
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -356,6 +371,11 @@ ring_attention_tf32_kernel(__grid_constant__ const CUtensorMap k_map,
   }
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   const int t0 = q0 + group * 64 + r0;
+  if (p.lse != nullptr && qd == 0) {  // the quad's 4 lanes hold the same rows
+    float* lrow = p.lse + ((long long)z * p.BH + bh) * p.Tq;
+    if (t0 < p.Tq) lrow[t0] = m_r[0] + log2f(fmaxf(l0, 1e-30f));
+    if (t0 + 8 < p.Tq) lrow[t0 + 8] = m_r[1] + log2f(fmaxf(l1, 1e-30f));
+  }
   float* ob = p.o[z] + b * p.o_sb + h * p.o_sh;
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) {
@@ -367,6 +387,13 @@ ring_attention_tf32_kernel(__grid_constant__ const CUtensorMap k_map,
       *reinterpret_cast<float2*>(ob + (t0 + 8) * p.o_st + col) =
           make_float2(o_acc[4 * j + 2] * inv1, o_acc[4 * j + 3] * inv1);
   }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+ring_attention_tf32_kernel(__grid_constant__ const CUtensorMap k_map,
+                           __grid_constant__ const CUtensorMap v_map, const Tf32Problem p) {
+  tf32_fold<HD>(k_map, v_map, p);
 }
 
 // The 3xTF32 products alone, one warpgroup on one tile, for testing their

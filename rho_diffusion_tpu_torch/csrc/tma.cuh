@@ -10,7 +10,8 @@
 //                         the libraries link only the runtime;
 //   smem_attribute_once() a kernel's dynamic shared-memory limit, set once
 //                         per device instead of on every launch;
-//   encode_bthd()         the tensor map of a [B, T, H, D] bf16 operand.
+//   encode_bthd()         the tensor map of a [B, T, H, D] bf16 operand;
+//   encode_f32_3d()       that of a contiguous fp32 tensor of split terms.
 // Device side: mbarrier init/arrive/expect-tx and a wait that traps after
 // ~5 s (a wrong phase or byte count fails the launch instead of hanging the
 // card), and TMA tile loads of 2 to 5 dimensions completing on an
@@ -78,6 +79,21 @@ inline bool encode_bthd(EncodeTiled encode, CUtensorMap* map, const void* base, 
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The 3-D tensor map (dim0, dim1, dim2) of a contiguous fp32 tensor read in
+// boxes of 32 x box1 x 1 with the 128-byte swizzle; what lies outside reads
+// as zeros. The 3xTF32 kernels' maps of their split terms.
+inline bool encode_f32_3d(EncodeTiled encode, CUtensorMap* map, const void* base,
+                          unsigned long long d0, unsigned long long d1, unsigned long long d2,
+                          int box1) {
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 4, d0 * d1 * 4};
+  const cuuint32_t box[3] = {32, (cuuint32_t)box1, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims, strides,
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -1,7 +1,9 @@
 // Warpgroup matrix products (wgmma) and the pieces around them, shared by
 // the Hopper kernels (K5's implicit GEMM, conv3d_wgmma.cuh, and the conv
 // study's kernels built on it, conv3d_variants.cu; the flash forward and
-// backward, flash_attention_wgmma.cuh and flash_attention_bwd_wgmma.cuh).
+// backward, flash_attention_wgmma.cuh and flash_attention_bwd_wgmma.cuh;
+// the 3xTF32 kernels, conv3d_tf32.cuh, ring_attention_tf32.cuh and
+// flash_attention_bwd_tf32.cuh).
 //
 // Operands in shared memory are 128-byte swizzled tiles as TMA writes them:
 // rows of 64 bf16 (128 bytes), 8-row groups 1024 bytes apart, the tile
@@ -70,6 +72,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Signals barrier `id` without waiting: the arriving threads' earlier
+// writes are visible to those that wait on it with named_barrier.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

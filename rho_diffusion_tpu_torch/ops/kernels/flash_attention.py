@@ -32,18 +32,27 @@ head dims 64 and 128 (the UNet's) takes the Hopper kernel
 (``csrc/flash_attention_wgmma.cuh``: Q and K/V tiles by TMA through an
 mbarrier ring, Q K^T and P V on ``wgmma``, warp-specialised), with the
 plan's query rows a block and keys a tile; bf16 at 16,
-32 and 256 takes the ``mma.sync`` kernel; fp32 its CUDA-core kernel. A
-failed build, encode or launch raises; no route stands in for another.
-``flash_routes`` counts the forward's launches by route and key length.
+32 and 256 takes the ``mma.sync`` kernel. fp32 at head dims 64 and 128
+takes K6's 3xTF32 fold with one shard (``csrc/ring_attention_tf32.cuh``:
+every product three TF32 products on ``wgmma``, after a pre-pass that
+splits K and V^T into their tf32 terms; counted as ``flash_attention_tf32``
+and ``flash_attention_tf32_split``); fp32 at 16, 32 and 256 its CUDA-core
+kernel. A failed build, encode or launch raises; no route stands in for
+another. ``flash_routes`` counts the forward's launches by route and key
+length.
 
 The backward's route is ``flash_bwd_plan``'s, by head dim and dtype the
 same way: bf16 at head dims 64 and 128 takes ONE fused kernel
 (``csrc/flash_attention_bwd_wgmma.cuh``: K and V of a block resident, Q and
 dO tiles by TMA through an mbarrier ring, all five products on ``wgmma``,
 dQ added across the key tiles in a fixed order, so the gradients are
-bitwise repeatable), counted as ``flash_attention_bwd``; bf16 at 16, 32 and
-256 takes the ``mma.sync`` pair and fp32 the CUDA-core pair (dK/dV and dQ
-kernels, counted as ``flash_attention_bwd_dkv`` and ``_dq``).
+bitwise repeatable), counted as ``flash_attention_bwd``; fp32 at 64 and 128
+a 3xTF32 pair on ``wgmma`` (``csrc/flash_attention_bwd_tf32.cuh``: dK/dV
+over key blocks and dQ over query blocks after a pre-pass that splits q,
+dO, k and v; counted as ``flash_attention_bwd_tf32_dkv``, ``_dq`` and
+``_split``); bf16 at 16, 32 and 256 takes the ``mma.sync`` pair and fp32
+there the CUDA-core pair (dK/dV and dQ kernels, counted as
+``flash_attention_bwd_dkv`` and ``_dq``).
 """
 from __future__ import annotations
 
@@ -58,6 +67,9 @@ import torch.nn.functional as F
 
 from rho_diffusion_tpu_torch.ops.kernels import (
     _build, check_no_autograd, launch_counts, on_device, sm_count)
+from rho_diffusion_tpu_torch.ops.kernels.ring_attention import (
+    TF32_HEAD_DIMS, ring_split_plain, tf32_split_shape)
+from rho_diffusion_tpu_torch.ops.kernels.tf32 import tf32_matmul, tf32_round, tf32_split
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -77,10 +89,10 @@ flash_routes: Counter = Counter()
 
 
 class FlashPlan(NamedTuple):
-    """The forward's route ("wgmma", "mma_sync" or "fp32") and its tiles:
-    query rows a block (bm) and keys a K/V tile (bn). The wgmma route takes
-    the tiles of WGMMA_TILES; the other two have fixed tiles, which the plan
-    records."""
+    """The forward's route ("wgmma", "mma_sync", "tf32" or "fp32") and its
+    tiles: query rows a block (bm) and keys a K/V tile (bn). The wgmma route
+    takes the tiles of WGMMA_TILES; the other three have fixed tiles, which
+    the plan records."""
 
     route: str
     bm: int
@@ -96,6 +108,9 @@ class FlashPlan(NamedTuple):
 
 MMA_SYNC_PLAN = FlashPlan("mma_sync", 64, 64)
 FP32_PLAN = FlashPlan("fp32", 16, 64)
+# K6's 3xTF32 fold (csrc/ring_attention_tf32.cuh): 128 query rows a block,
+# a ring of 32-key stages; its shared memory is ring_attention.tf32_smem_bytes
+TF32_PLAN = FlashPlan("tf32", 128, 32)
 WGMMA_PLANS = tuple(FlashPlan("wgmma", bm, bn) for bm, bn in WGMMA_TILES)
 
 # The fused backward's fixed tiles (csrc/flash_attention_bwd_wgmma.cuh):
@@ -109,8 +124,8 @@ FLASH_BWD_DQ_BUFS = 2
 
 
 class FlashBwdPlan(NamedTuple):
-    """The backward's route ("wgmma": the fused kernel; "mma_sync" or
-    "fp32": the dkv/dq pair) and its keys a block (bn): the padded head dim
+    """The backward's route ("wgmma": the fused kernel; "tf32", "mma_sync"
+    or "fp32": a dkv/dq pair) and its keys a block (bn): the padded head dim
     on the fused route; the pair's dkv kernel's fixed tile otherwise."""
 
     route: str
@@ -129,6 +144,23 @@ class FlashBwdPlan(NamedTuple):
 
 MMA_SYNC_BWD_PLAN = FlashBwdPlan("mma_sync", 64)
 FP32_BWD_PLAN = FlashBwdPlan("fp32", 16)
+# The 3xTF32 pair (csrc/flash_attention_bwd_tf32.cuh): blocks of 64 rows
+# (dkv: keys, dq: queries), two warpgroups, the other side streamed through
+# a ring of TF32_BWD_STAGES stages of TF32_BWD_BN rows
+TF32_BWD_PLAN = FlashBwdPlan("tf32", 64)
+TF32_BWD_BN = 32
+TF32_BWD_STAGES = 2
+
+
+def tf32_bwd_smem_bytes(d: int, dkv: bool) -> int:
+    """Shared memory of a tf32 backward block at head dim ``d``: the two
+    warpgroups' A lo terms (64 rows each), the ring's stages (two streamed
+    tensors, two terms each), the [64][32] fp32 tiles (dq: dS's two terms;
+    dkv: P^T's and dS^T's), the barriers and the 1024 bytes that align them
+    to the swizzle (flash_attention_bwd_tf32.cuh's smem_bytes)."""
+    rows = TF32_BWD_PLAN.bn
+    return (2 * rows * d * 4 + TF32_BWD_STAGES * 4 * TF32_BWD_BN * d * 4
+            + (4 if dkv else 2) * rows * 32 * 4 + 16 * TF32_BWD_STAGES + 1024)
 # the fused kernel's one plan at each padded head dim
 WGMMA_BWD_PLANS = {d: FlashBwdPlan("wgmma", d) for d in WGMMA_HEAD_DIMS}
 
@@ -145,8 +177,9 @@ def flash_plan(b: int, h: int, tq: int, tk: int, d: int, dtype=torch.bfloat16,
     ``sms`` multiprocessors (132: the H100 SXM).
 
     The route goes by head dim and dtype: bf16 whose padded head dim is 64
-    or 128 takes the wgmma kernel, other bf16 the mma.sync kernel, fp32 its
-    own; other dtypes have none. For the wgmma route, each SM runs two
+    or 128 takes the wgmma kernel, other bf16 the mma.sync kernel; fp32 at
+    64 and 128 the 3xTF32 fold (``TF32_PLAN``), other fp32 the CUDA-core
+    kernel (``FP32_PLAN``); other dtypes have none. For the wgmma route, each SM runs two
     consumer warpgroups: one block of 128 query rows, or two blocks of 64
     rows (with 64-key tiles a block holds 80 KB of shared memory, so two
     fit). The busiest SM then works through ceil(blocks / sms) blocks of bm
@@ -157,7 +190,7 @@ def flash_plan(b: int, h: int, tq: int, tk: int, d: int, dtype=torch.bfloat16,
     tile (64 where there are no more keys): on the H100 these beat the other
     tile. Cached: the UNet asks for the same few plans on every step."""
     if dtype == torch.float32:
-        return FP32_PLAN
+        return TF32_PLAN if padded_head_dim(d) in TF32_HEAD_DIMS else FP32_PLAN
     if dtype != torch.bfloat16:
         raise TypeError(f"flash_attention kernel takes bfloat16 or float32, got {dtype}")
     if padded_head_dim(d) not in WGMMA_HEAD_DIMS:
@@ -172,7 +205,8 @@ def flash_bwd_plan(b: int, h: int, tq: int, tk: int, d: int,
 
     The route goes by head dim and dtype as the forward's: bf16 whose padded
     head dim is 64 or 128 takes the fused kernel, other bf16 the mma.sync
-    pair, fp32 its own pair; other dtypes have none. The shape takes no
+    pair; fp32 at 64 and 128 the 3xTF32 pair (``TF32_BWD_PLAN``), other
+    fp32 the CUDA-core pair; other dtypes have none. The shape takes no
     part: the fused kernel's tile is a function of the head dim alone
     (``WGMMA_BWD_PLANS``), D keys a block, as its consumer warpgroups split
     dQ's 64-channel chunks; ragged or short key ranges are masked. At
@@ -180,7 +214,7 @@ def flash_bwd_plan(b: int, h: int, tq: int, tk: int, d: int,
     fill half a warpgroup's registers, so a block of one warpgroup also ran
     one an SM, and took 1.7-2x as long on the H100)."""
     if dtype == torch.float32:
-        return FP32_BWD_PLAN
+        return TF32_BWD_PLAN if padded_head_dim(d) in TF32_HEAD_DIMS else FP32_BWD_PLAN
     if dtype != torch.bfloat16:
         raise TypeError(f"flash_attention kernel takes bfloat16 or float32, got {dtype}")
     dk = padded_head_dim(d)
@@ -205,6 +239,8 @@ _LAUNCHERS = {
         "flash_attention_fwd_f32": _FWD + [_PTR],
         "flash_attention_fwd_wgmma": _FWD + [_INT] * 2 + [_PTR],
         "flash_wgmma_pv_probe": [_PTR] * 3 + [_INT] * 2 + [_PTR],
+        "flash_attention_tf32_split": [_PTR] * 4 + [_INT] * 4 + [_PTR] * 2,
+        "flash_attention_tf32": [_PTR] * 5 + [_INT] * 5 + [_PTR, _FLOAT, _PTR],
     },
     "flash_attention_bwd": {
         **{f"flash_attention_bwd_{which}_{suffix}": _BWD
@@ -212,6 +248,8 @@ _LAUNCHERS = {
         "flash_attention_bwd_wgmma": [_PTR] * 11 + [_INT] * 5 + [_PTR, _FLOAT, _FLOAT, _INT,
                                                                  _PTR],
         "flash_attention_bwd_delta": [_PTR] * 3 + [_INT] * 4 + [_PTR] * 2,
+        "flash_attention_bwd_tf32_split": [_PTR] * 6 + [_INT] * 5 + [_PTR] * 2,
+        **{f"flash_attention_bwd_tf32_{which}": _BWD[:-1] + [_PTR] * 3 for which in ("dkv", "dq")},
     },
 }
 
@@ -324,6 +362,16 @@ def _check_strides(name: str, tensors) -> None:
             )
 
 
+def _check_fp32(name: str, tensors, shapes) -> None:
+    """A tf32 pre-pass's inputs: fp32 of the given shapes on one device,
+    laid out as ``_check_strides`` asks."""
+    if any(t.dtype != torch.float32 or t.shape != shape or t.device != tensors[0].device
+           for t, shape in zip(tensors, shapes)):
+        raise ValueError(f"{name} takes fp32 tensors of shapes {[tuple(x) for x in shapes]} on "
+                         f"one device, got {[(tuple(t.shape), t.dtype) for t in tensors]}")
+    _check_strides(name, tensors)
+
+
 def _strides(*tensors: torch.Tensor):
     return (ctypes.c_longlong * (3 * len(tensors)))(*(s for t in tensors for s in t.stride()[:3]))
 
@@ -346,28 +394,85 @@ def flash_attention_fwd_kernel(
     device = q.device
     if plan is None:
         plan = flash_plan(b, h, tq, tk, dk, q.dtype, sm_count(device.index))
-    if (plan.route == "fp32") != (q.dtype == torch.float32):
+    if (plan.route in ("fp32", "tf32")) != (q.dtype == torch.float32):
         raise ValueError(f"flash_attention: the {plan.route} route does not take {q.dtype}")
     out = torch.empty((b, tq, h, dk), dtype=q.dtype, device=device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=device) if with_lse else None
     lib = _library("flash_attention")
-    strides = _strides(q, k, v, out)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if lse is not None else None,
-            b, h, tq, tk, dk, ctypes.addressof(strides), LOG2E / math.sqrt(d))
+    lse_ptr = lse.data_ptr() if lse is not None else None
+    scale_log2 = LOG2E / math.sqrt(d)
     stream = torch.cuda.current_stream(device).cuda_stream
-    with on_device(device):
-        if plan.route == "wgmma":
-            code = lib.flash_attention_fwd_wgmma(*args, plan.bm, plan.bn, stream)
-        elif plan.route == "mma_sync":
-            code = lib.flash_attention_fwd_bf16(*args, stream)
-        else:
-            code = lib.flash_attention_fwd_f32(*args, stream)
-    _build.check(code, lib, "flash_attention_error_string",
-                 f"flash_attention({tuple(q.shape)}, Tk={tk}, plan {tuple(plan)})")
-    launch_counts["flash_attention"] += 1
+    what = f"flash_attention({tuple(q.shape)}, Tk={tk}, plan {tuple(plan)})"
+    if plan.route == "tf32":
+        ks, vts = flash_fwd_split(k, v)
+        strides = _strides(q, out)
+        with on_device(device):
+            code = lib.flash_attention_tf32(q.data_ptr(), out.data_ptr(), lse_ptr, ks.data_ptr(),
+                                            vts.data_ptr(), b, h, tq, tk, dk,
+                                            ctypes.addressof(strides), scale_log2, stream)
+        _build.check(code, lib, "flash_attention_error_string", what)
+        launch_counts["flash_attention_tf32"] += 1
+    else:
+        strides = _strides(q, k, v, out)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr,
+                b, h, tq, tk, dk, ctypes.addressof(strides), scale_log2)
+        with on_device(device):
+            if plan.route == "wgmma":
+                code = lib.flash_attention_fwd_wgmma(*args, plan.bm, plan.bn, stream)
+            elif plan.route == "mma_sync":
+                code = lib.flash_attention_fwd_bf16(*args, stream)
+            else:
+                code = lib.flash_attention_fwd_f32(*args, stream)
+        _build.check(code, lib, "flash_attention_error_string", what)
+        launch_counts["flash_attention"] += 1
     flash_routes[f"{plan.route} Tk={tk}"] += 1
     return out, lse
+
+
+def flash_fwd_split(k: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The tf32 forward's pre-pass on fp32 k, v [B, Tk, H, D] (D = 64 or
+    128, D contiguous, on the card): K's terms [2, B*H, Tk8, D] and V^T's
+    [2, B*H, D, Tk8] (Tk8 = Tk rounded up to 8), the layouts of K6's split
+    with one shard. Its plain version is ``flash_split_plain``; the forward
+    launches it itself."""
+    if k.device.type != "cuda":
+        raise RuntimeError(f"flash_attention_tf32_split has no kernel for device {k.device}")
+    _check_fp32("flash_attention_tf32_split", (k, v), (k.shape, k.shape))
+    b, tk, h, d = k.shape
+    k_shape, v_shape = tf32_split_shape(1, b, h, tk, d)
+    ks = torch.empty(k_shape, dtype=torch.float32, device=k.device)
+    vts = torch.empty(v_shape, dtype=torch.float32, device=k.device)
+    lib = _library("flash_attention")
+    strides = _strides(k, v)
+    with on_device(k.device):
+        code = lib.flash_attention_tf32_split(
+            k.data_ptr(), v.data_ptr(), ks.data_ptr(), vts.data_ptr(), b, h, tk, d,
+            ctypes.addressof(strides), torch.cuda.current_stream(k.device).cuda_stream)
+    _build.check(code, lib, "flash_attention_error_string",
+                 f"flash_attention_tf32_split({tuple(k.shape)})")
+    launch_counts["flash_attention_tf32_split"] += 1
+    return ks, vts
+
+
+def flash_split_plain(k: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the tf32 forward's pre-pass: K6's split
+    (``ring_split_plain``) of one shard, k and v [B, Tk, H, D]."""
+    return ring_split_plain([k], [v])
+
+
+def flash_tf32_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     terms: int = 3) -> tuple[torch.Tensor, torch.Tensor]:
+    """The tf32 forward's arithmetic in plain PyTorch, fp32 [B, T, H, D]
+    in, (o, base-2 lse [B, H, Tq]) out: S = Q K^T as 3xTF32 products summed
+    per 32-channel chunk (``terms`` 1: one TF32 product, the control), the
+    softmax in fp32, P V as 3xTF32 products summed per 32 keys. The kernel
+    keeps the softmax online over 32-key tiles, which changes only the
+    order of fp32 sums."""
+    qb, kb, vb = (t.float().transpose(1, 2) for t in (q, k, v))
+    s = _tf32_chunked(qb, kb.transpose(-1, -2), terms) * (LOG2E / math.sqrt(q.shape[-1]))
+    lse = torch.logsumexp(s * math.log(2), dim=-1) * LOG2E
+    o = _tf32_chunked(torch.exp2(s - lse[..., None]), vb, terms)
+    return o.transpose(1, 2), lse
 
 
 def wgmma_pv_probe(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -439,8 +544,11 @@ def flash_attention_bwd_kernel(
     tk = k.shape[1]
     if plan is None:
         plan = flash_bwd_plan(b, h, tq, tk, dk_, q.dtype)
-    if (plan.route == "fp32") != (q.dtype == torch.float32):
+    if (plan.route in ("fp32", "tf32")) != (q.dtype == torch.float32):
         raise ValueError(f"flash_attention_bwd: the {plan.route} route does not take {q.dtype}")
+    if plan.route == "tf32":
+        grads = _bwd_tf32(q, k, v, o, lse.contiguous(), do, needs, d)
+        return tuple(t[..., :d] if t is not None and dk_ != d else t for t in grads)
     fused = plan.route == "wgmma"
     lse = lse.contiguous()
     # the fused route's delta from its pre-pass kernel, the pair's from the
@@ -487,6 +595,116 @@ def flash_attention_bwd_kernel(
         launch_counts[f"flash_attention_bwd_{which}"] += 1
     grads = (dq if needs[0] else None, dk if needs[1] else None, dv if needs[2] else None)
     return tuple(t[..., :d] if t is not None and dk_ != d else t for t in grads)
+
+
+def _bwd_tf32(q, k, v, o, lse, do, needs, d):
+    """The 3xTF32 pair on padded fp32 inputs: the pre-pass, then dkv (for
+    dk or dv) and dq (for dq); delta from the PyTorch expression, as the
+    FMA pair's."""
+    b, tq, h, dk_ = q.shape
+    tk = k.shape[1]
+    qs, kvs = flash_bwd_split(q, do, k, v)
+    delta = flash_delta(o, do)
+    want_kv = needs[1] or needs[2]
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format) if needs[0] else None
+    dk = torch.empty((b, tk, h, dk_), dtype=q.dtype, device=q.device) if want_kv else None
+    dv = torch.empty_like(dk) if want_kv else None
+    lib = _library("flash_attention_bwd")
+    strides = _strides(q, k, v, do, dq if dq is not None else q, dk if want_kv else k,
+                       dv if want_kv else v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr() if dq is not None else None,
+            dk.data_ptr() if want_kv else None, dv.data_ptr() if want_kv else None)
+    shape = (b, h, tq, tk, dk_, ctypes.addressof(strides), 1.0 / math.sqrt(d),
+             LOG2E / math.sqrt(d), qs.data_ptr(), kvs.data_ptr(), stream)
+    for which, wanted in (("dkv", want_kv), ("dq", needs[0])):
+        if not wanted:
+            continue
+        with on_device(q.device):
+            code = getattr(lib, f"flash_attention_bwd_tf32_{which}")(*ptrs, *shape)
+        _build.check(code, lib, "flash_attention_bwd_error_string",
+                     f"flash_attention_bwd_tf32_{which}({tuple(q.shape)}, Tk={tk})")
+        launch_counts[f"flash_attention_bwd_tf32_{which}"] += 1
+    return (dq if needs[0] else None, dk if needs[1] else None, dv if needs[2] else None)
+
+
+def flash_bwd_split(q: torch.Tensor, do: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The tf32 backward's pre-pass on fp32 [B, T, H, D] tensors (D = 64
+    or 128; D contiguous, strides and data 16-byte aligned; on the card):
+    the tf32 terms of q and dO, [2 (q, dO), 2 (hi, lo), B*H, Tq, D], and of
+    k and v, [2 (k, v), 2, B*H, Tk, D]. Its plain version is
+    ``flash_bwd_split_plain``; the backward launches it itself."""
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attention_bwd_tf32_split has no kernel for device {q.device}")
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    _check_fp32("flash_attention_bwd_tf32_split", (q, do, k, v),
+                (q.shape, q.shape, (b, tk, h, d), (b, tk, h, d)))
+    qs = torch.empty((2, 2, b * h, tq, d), dtype=torch.float32, device=q.device)
+    kvs = torch.empty((2, 2, b * h, tk, d), dtype=torch.float32, device=q.device)
+    lib = _library("flash_attention_bwd")
+    strides = _strides(q, do, k, v)
+    with on_device(q.device):
+        code = lib.flash_attention_bwd_tf32_split(
+            q.data_ptr(), do.data_ptr(), k.data_ptr(), v.data_ptr(), qs.data_ptr(),
+            kvs.data_ptr(), b, h, tq, tk, d, ctypes.addressof(strides),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(code, lib, "flash_attention_bwd_error_string",
+                 f"flash_attention_bwd_tf32_split({tuple(q.shape)}, Tk={tk})")
+    launch_counts["flash_attention_bwd_tf32_split"] += 1
+    return qs, kvs
+
+
+def flash_bwd_split_plain(q: torch.Tensor, do: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the tf32 backward's pre-pass: each of q, dO
+    (and k, v) [B, T, H, D] as [B*H, T, D] rows, its hi = tf32(x) and lo =
+    tf32(x - hi) terms, fp32: [2 (q, dO), 2 (hi, lo), B*H, Tq, D] and [2 (k,
+    v), 2, B*H, Tk, D]. No padding and no transposed copy: the kernels read
+    the transposed operands from these at transposed positions."""
+    def terms(x):
+        hi, lo = tf32_split(x.float().transpose(1, 2).reshape(-1, x.shape[1], x.shape[3])
+                            .contiguous())
+        return torch.stack([hi, tf32_round(lo)])
+
+    return torch.stack([terms(q), terms(do)]), torch.stack([terms(k), terms(v)])
+
+
+def _tf32_chunked(a: torch.Tensor, b: torch.Tensor, terms: int = 3,
+                  chunk: int = 32) -> torch.Tensor:
+    """a @ b (batched, fp32) as the tf32 kernels sum it: per ``chunk`` of
+    the reduced dimension, the TF32 terms' products (``tf32_matmul``; at
+    most 12 TF32 products in the tensor cores' accumulator), the chunks'
+    sums added in fp32 in order."""
+    out = None
+    for c in range(0, a.shape[-1], chunk):
+        part = tf32_matmul(a[..., c:c + chunk].contiguous(), b[..., c:c + chunk, :].contiguous(),
+                           terms)
+        out = part if out is None else out + part
+    return out
+
+
+def flash_bwd_tf32_plain(q, k, v, o, lse, do, terms: int = 3):
+    """The tf32 backward pair's arithmetic in plain PyTorch, fp32 [B, T,
+    H, D] in, (dq, dk, dv) out, product by product in the kernels' order:
+    S and dP over the head dim in 32-channel chunks; P from the base-2
+    ``lse``; dS = P' (dP - delta) with P' = hi + tf32(lo), P as it is read
+    back from its two tf32 terms; dV = P^T dO and dK = dS^T Q / sqrt(D) over
+    32-query stages, dQ = dS K / sqrt(D) over 32-key stages, each product
+    3xTF32 (``terms`` 1: one TF32 product, the control)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qb, kb, vb, dob = (t.float().transpose(1, 2) for t in (q, k, v, do))
+    s = _tf32_chunked(qb, kb.transpose(-1, -2), terms)
+    p = torch.exp2(s * (scale * LOG2E) - lse[..., None])
+    dp = _tf32_chunked(dob, vb.transpose(-1, -2), terms)
+    p_hi, p_lo = tf32_split(p.contiguous())
+    ds = (p_hi + tf32_round(p_lo)) * (dp - flash_delta(o, do)[..., None])
+    dv = _tf32_chunked(p.transpose(-1, -2), dob, terms)
+    dk = _tf32_chunked(ds.transpose(-1, -2), qb, terms) * scale
+    dq = _tf32_chunked(ds, kb, terms) * scale
+    return tuple(t.transpose(1, 2) for t in (dq, dk, dv))
 
 
 class FlashAttention(torch.autograd.Function):

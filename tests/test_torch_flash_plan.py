@@ -11,7 +11,8 @@ TMA boxes of 64 channels (128 bytes, the swizzle span) by at most 256
 tokens, a block in 232,448 bytes of shared memory after the 1024-byte
 alignment, 64 or 128 query rows a block, the card filled as far as the
 problem allows (the busiest SM's query rows the least of the two tiles),
-and the route each head dim and dtype takes. The backward's plan
+and the route each head dim and dtype takes (fp32: the 3xTF32 routes at
+padded head dims 64 and 128, the FMA kernels elsewhere). The backward's plan
 (csrc/flash_attention_bwd_wgmma.cuh, the fused kernel) is held the same way:
 at every attention problem of both configs at batch 1, 2, 8 and 32, its
 route by head dim and dtype, every instance within shared memory with the
@@ -26,9 +27,9 @@ import torch
 from rho_diffusion_tpu_torch.models.unet import UNet
 from rho_diffusion_tpu_torch.ops import attention as attn_mod
 from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
-    FLASH_BM, FLASH_BWD_BM, HEAD_DIMS, MMA_SYNC_BWD_PLAN, SMEM_LIMIT, WGMMA_BWD_PLANS,
-    WGMMA_HEAD_DIMS, WGMMA_PLANS, WGMMA_TILES, FlashBwdPlan, FlashPlan, busiest_sm_rows,
-    flash_bwd_plan, flash_plan, padded_head_dim)
+    FLASH_BM, FLASH_BWD_BM, FP32_BWD_PLAN, FP32_PLAN, HEAD_DIMS, MMA_SYNC_BWD_PLAN, SMEM_LIMIT,
+    TF32_BWD_PLAN, TF32_PLAN, WGMMA_BWD_PLANS, WGMMA_HEAD_DIMS, WGMMA_PLANS, WGMMA_TILES,
+    FlashBwdPlan, FlashPlan, busiest_sm_rows, flash_bwd_plan, flash_plan, padded_head_dim)
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -103,7 +104,8 @@ def test_plan_at_every_config_problem(problems, config, batch):
     for t, h, d in set(problems[config]):
         plan = flash_plan(batch, h, t, t, d, sms=SMS)
         check_wgmma_plan(plan, batch, h, t, d)
-        assert flash_plan(batch, h, t, t, d, torch.float32, sms=SMS).route == "fp32"
+        # fp32 at the configs' head dim 128: the 3xTF32 fold (one shard)
+        assert flash_plan(batch, h, t, t, d, torch.float32, sms=SMS) == TF32_PLAN
 
 
 @pytest.mark.parametrize("b,t,h,d,bm", [
@@ -139,7 +141,8 @@ def test_route_by_head_dim_and_dtype(d, dtype):
         return
     plan = flash_plan(2, 4, 512, 512, d, dtype, sms=SMS)
     if dtype == torch.float32:
-        assert plan.route == "fp32"
+        # 3xTF32 at padded head dims 64 and 128, the FMA kernel elsewhere
+        assert plan == (TF32_PLAN if padded_head_dim(d) in (64, 128) else FP32_PLAN)
     elif padded_head_dim(d) in WGMMA_HEAD_DIMS:
         assert plan.route == "wgmma"
     else:
@@ -190,12 +193,12 @@ def check_bwd_plan(plan: FlashBwdPlan, d: int) -> None:
 @pytest.mark.parametrize("config", sorted(CONFIGS))
 def test_bwd_plan_at_every_config_problem(problems, config, batch):
     """The flagship's T = 512 and the 64^3 config's T = 4096, 4 heads of
-    128: the fused kernel at 128 keys a block; fp32 takes its pair."""
+    128: the fused kernel at 128 keys a block; fp32 takes the 3xTF32 pair."""
     for t, h, d in set(problems[config]):
         plan = flash_bwd_plan(batch, h, t, t, d)
         check_bwd_plan(plan, d)
         assert plan == FlashBwdPlan("wgmma", 128)
-        assert flash_bwd_plan(batch, h, t, t, d, torch.float32).route == "fp32"
+        assert flash_bwd_plan(batch, h, t, t, d, torch.float32) == TF32_BWD_PLAN
 
 
 @pytest.mark.parametrize("b,tq,tk,h,d,bn", [
@@ -214,16 +217,19 @@ def test_bwd_plan_at_ragged_shapes(b, tq, tk, h, d, bn):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
 def test_bwd_route_by_head_dim_and_dtype(d, dtype):
     """As the forward's: the fused kernel for bf16 at padded head dims 64
-    and 128, the mma.sync pair for other bf16, the fp32 pair for fp32, and
-    no route at all (never one off the card) for other dtypes."""
+    and 128, the mma.sync pair for other bf16; for fp32 the 3xTF32 pair at
+    padded head dims 64 and 128 and the FMA pair elsewhere; and no route
+    at all (never one off the card) for other dtypes."""
     if dtype == torch.float16:
         with pytest.raises(TypeError, match="bfloat16 or float32"):
             flash_bwd_plan(2, 4, 512, 512, d, dtype)
         return
     plan = flash_bwd_plan(2, 4, 512, 512, d, dtype)
-    assert plan.route in ("wgmma", "mma_sync", "fp32")
+    assert plan.route in ("wgmma", "mma_sync", "tf32", "fp32")
     if dtype == torch.float32:
-        assert plan.route == "fp32"
+        tf32 = padded_head_dim(d) in (64, 128)
+        assert plan == (TF32_BWD_PLAN if tf32 else FP32_BWD_PLAN)
+        assert flash_plan(2, 4, 512, 512, d, dtype, sms=SMS).route == ("tf32" if tf32 else "fp32")
     elif padded_head_dim(d) in WGMMA_HEAD_DIMS:
         assert plan.route == "wgmma"
         assert flash_plan(2, 4, 512, 512, d, dtype, sms=SMS).route == "wgmma"

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from rho_diffusion_tpu_torch.ops.kernels.conv3d import SMEM_LIMIT
-from rho_diffusion_tpu_torch.ops.kernels.flash_attention import FP32_PLAN, flash_plan
+from rho_diffusion_tpu_torch.ops.kernels.flash_attention import FP32_PLAN, TF32_PLAN, flash_plan
 from rho_diffusion_tpu_torch.ops.kernels.ring_attention import (
     HEAD_DIMS, TF32_HEAD_DIMS, kernel_head_dim, ring_attention_fold_plain, ring_route,
     ring_split_plain, tf32_smem_bytes, tf32_split_shape)
@@ -215,6 +215,9 @@ def test_ring_fold_from_split_terms_matches_the_plain_fold():
 
 @pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 def test_flash_forward_fp32_stays_on_its_fma_route(d):
-    """The flash forward's fp32 body is not rebuilt in this design: every
-    fp32 head dim takes the CUDA-core kernel's plan."""
-    assert flash_plan(8, 4, 512, 512, d, torch.float32) == FP32_PLAN
+    """The flash forward's fp32 route follows K6's: head dims 64 and 128
+    (the flagship's) take the 3xTF32 fold with one shard, the other head
+    dims stay on the CUDA-core kernel's plan."""
+    want = TF32_PLAN if d in TF32_HEAD_DIMS else FP32_PLAN
+    assert flash_plan(8, 4, 512, 512, d, torch.float32) == want
+    assert (want.route == "tf32") == (ring_route(torch.float32, d) == "tf32")

@@ -15,7 +15,10 @@ and Cout=1, fp32, strided q/k/v, padded head dims and Tq != Tk, for both
 dtypes of the flash kernel; the flash forward's wgmma route at every plan
 (T = 512, 4096 and a ragged 300, D = 64 and 128, with and without the LSE),
 its P V product alone, against the mma.sync kernel, and the route each head
-dim and dtype takes; the fused backward at every plan (T = 512, 4096, 300
+dim and dtype takes; the fp32 forward's and backward's 3xTF32 routes
+(T = 512 at batch 8 and 32, 4096, a ragged 300, D = 64, Tq != Tk), their
+pre-passes bitwise, the backward twice bitwise and beside the FMA pair; the
+fused backward at every plan (T = 512, 4096, 300
 and Tq != Tk, D = 64 and 128, strided qkv and head-major views), against
 the mma.sync pair, bitwise repeatable, and the plans it refuses; the direct conv's three flagship convs at full
 width and shapes off its 8 x 32 voxel tile; and the ring-attention kernel
@@ -40,11 +43,12 @@ from rho_diffusion_tpu_torch.ops.kernels.conv3d import (
 from rho_diffusion_tpu_torch.ops.kernels.conv3d_variants import (
     bigdot, bigdot_plain, conv_variant, conv_variant_plain, dots_only, dots_only_plain)
 from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
-    MMA_SYNC_BWD_PLAN, MMA_SYNC_PLAN, WGMMA_BWD_PLANS, WGMMA_PLANS, FlashBwdPlan,
-    FlashPlan, flash_attention, flash_attention_bwd_kernel, flash_attention_bwd_plain,
-    flash_attention_fwd_kernel, flash_attention_plain, flash_bwd_plan, flash_delta,
-    flash_delta_kernel, flash_lse_plain, flash_plan, flash_routes, padded_head_dim,
-    wgmma_pv_probe)
+    FP32_BWD_PLAN, FP32_PLAN, MMA_SYNC_BWD_PLAN, MMA_SYNC_PLAN, TF32_BWD_PLAN, TF32_PLAN,
+    WGMMA_BWD_PLANS, WGMMA_PLANS, FlashBwdPlan, FlashPlan, flash_attention,
+    flash_attention_bwd_kernel, flash_attention_bwd_plain, flash_attention_fwd_kernel,
+    flash_attention_plain, flash_bwd_plan, flash_bwd_split, flash_bwd_split_plain, flash_delta,
+    flash_delta_kernel, flash_fwd_split, flash_lse_plain, flash_plan, flash_routes,
+    flash_split_plain, padded_head_dim, wgmma_pv_probe)
 from rho_diffusion_tpu_torch.ops.kernels.ring_attention import (
     ring_attention_fold, ring_attention_fold_plain, ring_split, ring_split_plain, tf32_probe)
 from rho_diffusion_tpu_torch.ops.kernels.tf32 import tf32_matmul, tf32_round, tf32_split
@@ -164,7 +168,7 @@ def test_flash_kernel_matches_plain(cuda, b, tq, tk, h, d, dtype):
     launch_counts.clear()
     got = flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert launch_counts == {"flash_attention": 1}
+    assert launch_counts == fwd_launches(d, dtype)
     assert got.shape == (b, tq, h, d) and got.dtype == dtype
     want = xla_attention(q.float(), k.float(), v.float())
     err = got.float() - want
@@ -238,7 +242,8 @@ def test_flash_wgmma_matches_the_mma_sync_kernel(cuda, b, t):
 @pytest.mark.parametrize("d,dtype,route", [
     (128, torch.bfloat16, "wgmma"), (64, torch.bfloat16, "wgmma"), (100, torch.bfloat16, "wgmma"),
     (32, torch.bfloat16, "mma_sync"), (16, torch.bfloat16, "mma_sync"),
-    (256, torch.bfloat16, "mma_sync"), (128, torch.float32, "fp32"), (64, torch.float32, "fp32"),
+    (256, torch.bfloat16, "mma_sync"), (128, torch.float32, "tf32"), (64, torch.float32, "tf32"),
+    (32, torch.float32, "fp32"),
 ])
 def test_flash_route_follows_the_plan(cuda, d, dtype, route):
     q = randn((1, 200, 2, d), 34, cuda, dtype)
@@ -249,7 +254,7 @@ def test_flash_route_follows_the_plan(cuda, d, dtype, route):
     launch_counts.clear()
     got = flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert flash_routes == {f"{route} Tk=150": 1} and launch_counts == {"flash_attention": 1}
+    assert flash_routes == {f"{route} Tk=150": 1} and launch_counts == fwd_launches(d, dtype)
     assert_flash_close(got, xla_attention(q.float(), k.float(), v.float()), dtype)
 
 
@@ -282,12 +287,23 @@ def test_flash_kernel_rejects_float16(cuda):
         flash_attention(q, q, q)
 
 
+def fwd_launches(d, dtype) -> dict:
+    """The forward's launches by route: fp32 at padded head dims 64 and 128
+    the 3xTF32 fold and its K/V pre-pass, one kernel elsewhere."""
+    if dtype == torch.float32 and padded_head_dim(d) in (64, 128):
+        return {"flash_attention_tf32": 1, "flash_attention_tf32_split": 1}
+    return {"flash_attention": 1}
+
+
 def bwd_launches(d, dtype) -> dict:
-    """The backward's launches by route: the fused kernel and its delta
-    pre-pass for bf16 at padded head dims 64 and 128, the dkv/dq pair
-    elsewhere."""
-    if dtype == torch.bfloat16 and padded_head_dim(d) in (64, 128):
-        return {"flash_attention_bwd": 1, "flash_attention_bwd_delta": 1}
+    """The backward's launches by route: at padded head dims 64 and 128 the
+    fused kernel and its delta pre-pass for bf16, the 3xTF32 pair and its
+    pre-pass for fp32; the dkv/dq pair elsewhere."""
+    if padded_head_dim(d) in (64, 128):
+        if dtype == torch.bfloat16:
+            return {"flash_attention_bwd": 1, "flash_attention_bwd_delta": 1}
+        return {"flash_attention_bwd_tf32_split": 1, "flash_attention_bwd_tf32_dkv": 1,
+                "flash_attention_bwd_tf32_dq": 1}
     return {"flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1}
 
 
@@ -316,7 +332,7 @@ def test_flash_backward_kernels_match_plain(cuda, b, tq, tk, h, d, dtype):
     launch_counts.clear()
     dq, dkv = flash_grads(q, kv, do, d)
     torch.cuda.synchronize()
-    assert launch_counts == {"flash_attention": 1, **bwd_launches(d, dtype)}
+    assert launch_counts == {**fwd_launches(d, dtype), **bwd_launches(d, dtype)}
     assert dq.dtype == dtype and dkv.dtype == dtype
     qf, kf, vf = q.detach().float(), *(z.float() for z in kv.detach().split(d, dim=-1))
     want = flash_attention_bwd_plain(qf, kf, vf, flash_attention_plain(qf, kf, vf),
@@ -863,3 +879,93 @@ def test_ring_tf32_fold_matches_plain_over_long_shards(cuda, s):
     assert launch_counts == ring_launches(torch.float32, 1)
     ring_attention_fold_plain(qs, want, [2], ks, vs, scale_log2)
     assert_flash_close(got[0], want[0], torch.float32)
+
+
+# ---- the fp32 flash routes on 3xTF32 (ring_attention_tf32.cuh's fold, flash_attention_bwd_tf32.cuh) ----
+
+@pytest.mark.parametrize("b,tq,tk,h,d", [
+    (8, 512, 512, 4, 128), (32, 512, 512, 4, 128),  # a batch-8 forward's and the training step's
+    (2, 4096, 4096, 4, 128),                        # the 64^3 config's tokens
+    (2, 300, 300, 4, 128), (2, 300, 300, 2, 64),    # ragged, and D = 64
+    (1, 70, 130, 3, 64),                            # Tq != Tk
+])
+def test_flash_tf32_forward_matches_plain(cuda, b, tq, tk, h, d):
+    """The 3xTF32 forward with and without the LSE, on strided views, within
+    fp32's flash tolerance of the plain version, the same output either way,
+    its LSE within 1e-4 of the plain one's, and beside the FMA kernel (the
+    plan it replaced, on request)."""
+    q = randn((b, tq, h, d), 60, cuda, torch.float32)
+    k, v = randn((b, tk, h, 2 * d), 61, cuda, torch.float32).split(d, dim=-1)
+    assert flash_plan(b, h, tq, tk, d, torch.float32) == TF32_PLAN
+    launch_counts.clear()
+    out, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+    bare, none = flash_attention_fwd_kernel(q, k, v)
+    old, old_lse = flash_attention_fwd_kernel(q, k, v, with_lse=True, plan=FP32_PLAN)
+    torch.cuda.synchronize()
+    assert launch_counts == {"flash_attention_tf32": 2, "flash_attention_tf32_split": 2,
+                             "flash_attention": 1}
+    assert none is None and torch.equal(out, bare)
+    want = xla_attention(q, k, v)
+    assert_flash_close(out, want, torch.float32)
+    assert_flash_close(old, want, torch.float32)
+    torch.testing.assert_close(lse, flash_lse_plain(q, k), rtol=0, atol=1e-4)
+    torch.testing.assert_close(lse, old_lse, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d", [(2, 300, 300, 2, 64), (1, 70, 130, 3, 128)])
+def test_flash_tf32_pre_passes_are_the_plain_split(cuda, b, tq, tk, h, d):
+    """The forward's K/V pre-pass and the backward's q/dO/k/v pre-pass,
+    on strided views, bitwise their plain versions."""
+    q, do = (randn((b, tq, h, 2 * d), 62 + i, cuda, torch.float32)[..., :d] for i in range(2))
+    k, v = randn((b, tk, h, 2 * d), 64, cuda, torch.float32).split(d, dim=-1)
+    launch_counts.clear()
+    got = (*flash_fwd_split(k, v), *flash_bwd_split(q, do, k, v))
+    torch.cuda.synchronize()
+    assert launch_counts == {"flash_attention_tf32_split": 1, "flash_attention_bwd_tf32_split": 1}
+    want = (*flash_split_plain(k, v), *flash_bwd_split_plain(q, do, k, v))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("b,t,h,d", [(32, 512, 4, 128), (2, 4096, 4, 128), (2, 300, 2, 64),
+                                     (1, 130, 2, 128)])
+def test_flash_bwd_tf32_matches_plain_and_the_fma_pair(cuda, b, t, h, d):
+    """The 3xTF32 pair at the training step's attention, T = 4096, a ragged
+    T at D = 64: within fp32's backward tolerance of the plain backward,
+    bitwise the same on a second run, and beside the FMA pair on request."""
+    q, k, v = randn((b, t, h, 3 * d), 65, cuda, torch.float32).split(d, dim=-1)
+    do = randn((b, t, h, d), 66, cuda, torch.float32)
+    assert flash_bwd_plan(b, h, t, t, d, torch.float32) == TF32_BWD_PLAN
+    o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+    launch_counts.clear()
+    new = flash_attention_bwd_kernel(q, k, v, o, lse, do)
+    again = flash_attention_bwd_kernel(q, k, v, o, lse, do)
+    old = flash_attention_bwd_kernel(q, k, v, o, lse, do, plan=FP32_BWD_PLAN)
+    torch.cuda.synchronize()
+    assert launch_counts == {"flash_attention_bwd_tf32_split": 2, "flash_attention_bwd_tf32_dkv": 2,
+                             "flash_attention_bwd_tf32_dq": 2, "flash_attention_bwd_dkv": 1,
+                             "flash_attention_bwd_dq": 1}
+    assert all(torch.equal(a, e) for a, e in zip(new, again))
+    want = flash_attention_bwd_plain(q, k, v, flash_attention_plain(q, k, v), flash_lse_plain(q, k),
+                                     do)
+    for got in (new, old):
+        for g, w in zip(got, want):
+            err = g - w
+            assert float(err.abs().max()) <= 5e-5 * float(w.abs().max())
+            assert float(err.pow(2).mean().sqrt() / w.pow(2).mean().sqrt()) <= 5e-5
+
+
+def test_flash_tf32_routes_refuse_what_they_do_not_take(cuda):
+    """The pre-passes take fp32 of matching shapes only, and the tf32
+    launchers only head dims 64 and 128: a bf16 input, a mismatched k, or
+    the tf32 plan at D = 32 raises instead of launching."""
+    q = randn((1, 64, 2, 64), 67, cuda, torch.float32)
+    with pytest.raises(ValueError, match="fp32"):
+        flash_fwd_split(q.to(torch.bfloat16), q.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="fp32"):
+        flash_bwd_split(q, q, q, q[:, :, :1])
+    q32 = randn((1, 64, 2, 32), 68, cuda, torch.float32)
+    with pytest.raises(RuntimeError, match="plan"):
+        flash_attention_fwd_kernel(q32, q32, q32, plan=TF32_PLAN)
+    o, lse = flash_attention_fwd_kernel(q32, q32, q32, with_lse=True)
+    with pytest.raises(RuntimeError, match="plan"):
+        flash_attention_bwd_kernel(q32, q32, q32, o, lse, q32, plan=TF32_BWD_PLAN)
