@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py [--phases env,build,kernels,main,main64,gauss,train,hold,serve,timings,fp32,bench]
+    python3 chip_smoke.py [--phases env,build,kernels,main,main64,gauss,train,data,hold,serve,timings,fp32,bench]
                           [--steps 25] [--samples 4] [--timing-batch 8]
 
 Builds the port's CUDA kernels from ``rho_diffusion_tpu_torch/csrc`` (and
@@ -40,6 +40,24 @@ weights loaded from a reference-layout ``.pth``):
 * ``train``: five DDPM training steps at batch 32 through
   ``rho_diffusion_tpu_torch.training``'s ``main``, the checkpoint read back
   to the trainer's EMA weights, and one profiled step;
+* ``data``: the data layer at full width. ``config_deep_galaxy.json``
+  (2-D 128^2, MultiEmbeddings over (s, m, t, c), batch 64, bf16) and
+  ``config_spectroscopy.json`` (1-D, 4096 points, batch 32) each trained
+  through ``Trainer`` for whole epochs to at least DATA_TRAIN_STEPS steps
+  from seeded random weights, on the port's DeepGalaxyDataset and
+  SpectroscopyDataset over files its writers (galaxy_synth, spectro_synth)
+  write where the host has h5py, else on the same items built in memory
+  (``GalaxyFrames``, ``RotorSpectra``; the ``data_route`` line says which,
+  and whether the native Ylm library built); each then sampled through the
+  inference CLI from the trained weights (DDPM, the schedule cut to 21
+  steps; DeepGalaxy's 63 rows of its ``inference.parameter_space``), its
+  forward held against the fp32 plain model, its host's batch build timed
+  and one step profiled; ``config_spherical_harmonics_quality.json``
+  trained one epoch (31 steps) under its ``training.device_cache: true``;
+  the bench entry's realdata mode without and with BENCH_DEVICE_CACHE=1,
+  in turns, each mode's device time per step from two profiled runs; and K1
+  and the fused K3/K4 held and timed at the 2-D and 1-D attention (D = 64,
+  T = 256 and 512);
 * ``serve``: the sampling service through ``rho_diffusion_tpu_torch.serve``'s
   ``build_server`` under a ("data", "context") mesh of 4 context ranks on
   the card, with ``RHO_RING_ATTN_IMPL=rdma``, so every attention call runs
@@ -97,9 +115,10 @@ route (and its mma.sync kernel), with and without the LSE, at T = 512
 backward (the fused kernel for bf16 and the 3xTF32 pair for fp32 at D =
 64 and 128, the dkv/dq pair elsewhere) at the training step's attention,
 T = 4096, T = 300 and D = 64, twice (bitwise) and against the pair each
-replaced (mma.sync, FMA), the fp32 forward's 3xTF32 route with and without
-the LSE at T = 512 (batch 8, 32), 4096, 300 and D = 64 beside the FMA
-kernel, and the 3xTF32 pieces:
+replaced (mma.sync, FMA), K1 and the fused backward in bf16 at the data
+phase's attention (D = 64: B*H 256 at T = 256, 128 at T = 512), the fp32
+forward's 3xTF32 route with and without the LSE at T = 512 (batch 8, 32),
+4096, 300 and D = 64 beside the FMA kernel, and the 3xTF32 pieces:
 the products alone in both operand layouts (``tf32_probe``), all four
 pre-passes bitwise against their plain versions, every fp32 conv problem of
 the flagship at batch 2 and K6's fp32 fold at T = 512, 4096 and a ragged
@@ -108,7 +127,7 @@ phase prints one JSON line; a failing phase exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``, after the
 ``kernels`` line and the card's ``nvidia-smi`` name and power limit. A run
 whose ``--phases`` leave out any of kernels, main, main64, gauss, train,
-serve, timings, fp32 and bench prints neither and exits 3.
+data, serve, timings, fp32 and bench prints neither and exits 3.
 
 Exits non-zero without a result when CUDA is unavailable or the script runs
 outside a checkout of the repository. Imports nothing of JAX.
@@ -132,10 +151,13 @@ ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "examples" / "config_spherical_harmonics.json"
 CONFIG64 = ROOT / "examples" / "config_spherical_harmonics_64.json"
 GAUSS_CONFIG = ROOT / "examples" / "config_learned_variance.json"
-PHASES = ("env", "build", "kernels", "main", "main64", "gauss", "train", "hold", "serve",
+DEEP_GALAXY_CONFIG = ROOT / "examples" / "config_deep_galaxy.json"
+SPECTRO_CONFIG = ROOT / "examples" / "config_spectroscopy.json"
+QUALITY_CONFIG = ROOT / "examples" / "config_spherical_harmonics_quality.json"
+PHASES = ("env", "build", "kernels", "main", "main64", "gauss", "train", "data", "hold", "serve",
           "timings", "fp32", "bench")
 # the phases whose numbers the kernels line carries
-KERNELS_LINE_PHASES = ("kernels", "main", "main64", "gauss", "train", "serve", "timings",
+KERNELS_LINE_PHASES = ("kernels", "main", "main64", "gauss", "train", "data", "serve", "timings",
                        "fp32", "bench")
 DEVICE = "cuda"
 # the train phase: the flagship's batch, and steps cut to five
@@ -155,6 +177,9 @@ MAIN64_HOLD_BATCH = 1
 # K2 at the 64^3 config's 4096 tokens, a ragged T and D = 64
 FLASH_PLAN_SHAPES = ((4, 512, 4, 128), (8, 512, 4, 128), (32, 512, 4, 128), (8, 4096, 4, 128),
                      (2, 300, 4, 128), (2, 300, 2, 64))
+# the kernels phase's holds at the data phase's attention (batch, tokens):
+# DeepGalaxy's 16^2 tokens at batch 64, Spectroscopy's 512 at batch 32
+DATA_ATTENTION = ((64, 256), (32, 512))
 # the gauss phase: the bench entry's runs (environment over its defaults),
 # the respaced steps of the CLI and the service, the service's buckets, and
 # the batch of the sample holds (the flagship's DDIM-50, the CLI's ddpm)
@@ -1119,6 +1144,12 @@ def phase_kernels(state: dict) -> None:
             check_flash_bwd(2, 300, h, d, device, seed=112, dtype=dt),
             check_flash_bwd(2, 300, 2, 64, device, seed=114, dtype=dt),
         ]
+    # the 2-D and 1-D configs' attention (D = 64): DeepGalaxy's training
+    # step (B*H = 64*4, T = 256 at 16^2) and Spectroscopy's (32*4, T = 512)
+    for i, (b, tt) in enumerate(DATA_ATTENTION):
+        flash.append(check_flash(b, tt, 4, 64, device, seed=150 + i, dtype=torch.bfloat16))
+        flash_bwd.append(check_flash_bwd(b, tt, 4, 64, device, seed=152 + 2 * i,
+                                         dtype=torch.bfloat16))
     # the fp32 forward's 3xTF32 route with and without the LSE, against the
     # FMA kernel too; both fp32 flash pre-passes bitwise
     flash_tf32 = check_flash_tf32(device)
@@ -3228,6 +3259,583 @@ def phase_bench(state: dict) -> None:
     fail_bad("bench", rows)
 
 
+# ---------------------------------------------------------------------------
+# The data phase: the 2-D and 1-D configs, and the device-resident cache
+# ---------------------------------------------------------------------------
+
+# the synthetic stand-in corpora the data phase trains on: the writers'
+# defaults (python -m rho_diffusion_tpu_torch.data.galaxy_synth / spectro_synth)
+GALAXY_CORPUS = {"s_values": (0.25, 0.5, 1.0), "m_values": (1.0,), "cameras": (0,), "size": 512}
+SPECTRA_CORPUS = {"n_molecules": 64, "seed": 0}
+# the data phase: at least DATA_TRAIN_STEPS training steps (whole epochs) of
+# each config, its samples on DATA_SAMPLE_STEPS steps (the fewest whose
+# 1000/T-scaled linear betas stay below 1), the forward hold's batch, and
+# the quality config's epochs (one: 31 steps of its 1000 fields at batch 32)
+DATA_TRAIN_STEPS = 6
+DATA_SAMPLE_STEPS = 21
+DATA_HOLD_BATCH = 2
+QUALITY_EPOCHS = 1
+# the bench entry's realdata mode without and with the device cache, in turns
+REALDATA_RUNS = (("host", {"BENCH_MODE": "realdata"}),
+                 ("device_cache", {"BENCH_MODE": "realdata", "BENCH_DEVICE_CACHE": "1"}))
+# the timed steps of the two profiled runs of each realdata mode
+REALDATA_PROFILE_STEPS = (5, 15)
+DATA_CUTS = {
+    "training.max_epochs": f"-> whole epochs to at least {DATA_TRAIN_STEPS} steps "
+                           "(Trainer.fit(max_epochs=N))",
+    "training.log_every_n_steps, benchmark_mode, loggers": "-> 1, true, jsonl (every "
+                                                            "step's host time logged)",
+    "noise_schedule.kwargs.num_steps (sampling only)": f"-> {DATA_SAMPLE_STEPS} (the fewest "
+                                                        "steps whose 1000/T-scaled betas stay "
+                                                        "below 1; random weights)",
+    "inference.cache_file, plot_output_file, checkpoint": "-> none (weights through -p)",
+}
+DATA_CORPUS_NOTE = {
+    "deep_galaxy": "the DeepGalaxy corpus is not redistributable: the galaxy_synth stand-in "
+                   "with its defaults (s 0.25, 0.5, 1; m 1; camera 0; t 300..650 by 5; "
+                   "512^2 frames), 75 frames inside the config's t_lim",
+    "spectroscopy": "the molecular corpus is not redistributable: the spectro_synth stand-in "
+                    "with its defaults (64 rigid rotors, seed 0)",
+}
+
+
+class GalaxyFrames:
+    """DeepGalaxyDataset's items, built in memory for a host without h5py:
+    the frames ``write_deep_galaxy_h5(path, **corpus)`` would write (each
+    (s, m, camera) stack from ``render_merger``, scaled to uint16 as the file
+    stores it), divided by the stack's max as the dataset loads them,
+    selected by the dataset kwargs' pattern, cameras (a list) and t_lim,
+    then ``default_transform``; labels the raw (s, m, t, c) rows. A CPU test
+    holds its items bitwise against DeepGalaxyDataset's on the written
+    file. Raw label rows only (the config's use_emb_as_labels false)."""
+
+    def __init__(self, kwargs: dict, s_values, m_values, cameras, size: int) -> None:
+        from concurrent.futures import ThreadPoolExecutor
+
+        import numpy as np
+
+        from rho_diffusion_tpu_torch.data.deep_galaxy import DeepGalaxyDataset, default_transform
+        from rho_diffusion_tpu_torch.data.galaxy_synth import T_MAX, T_MIN, render_merger
+
+        if kwargs.get("use_emb_as_labels", True):
+            raise ValueError("GalaxyFrames gives raw label rows: use_emb_as_labels false")
+        self.parameter_space = DeepGalaxyDataset.parameter_space
+        self.use_emb_as_labels = False
+        self.transform = default_transform
+        t_values = np.arange(T_MIN, T_MAX + 1, 5.0)
+        pattern = re.compile(kwargs.get("dset_name_pattern", "s_*"))
+        wanted = kwargs.get("camera_pos", (0,))
+        wanted = [wanted] if isinstance(wanted, int) else list(wanted)
+        t_lim = kwargs.get("t_lim")
+        keep = np.ones(t_values.shape, bool)
+        if t_lim is not None:
+            keep = (t_values >= np.min(t_lim)) & (t_values <= np.max(t_lim))
+        groups = sorted((f"s_{s:g}_m_{m:g}", s, m) for s in s_values for m in m_values)
+        images, labels = [], []
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            for name, s, m in groups:
+                if not pattern.match(name):
+                    continue
+                for c in wanted:
+                    if c not in cameras:
+                        raise KeyError(f"camera {c} is not in the corpus {cameras}")
+                    stack = np.stack(list(pool.map(
+                        lambda t, s=s, m=m, c=c: render_merger(s, m, t, c, size=size),
+                        t_values)))
+                    stack = stack / stack.max() * 65535.0
+                    stack = stack.astype(np.uint16)
+                    stack = stack / np.max(stack)
+                    t_kept = t_values[keep]
+                    images.append(stack[keep])
+                    labels.append(np.stack([np.full(t_kept.shape, float(name.split("_")[1])),
+                                            np.full(t_kept.shape, float(name.split("_")[3])),
+                                            t_kept, np.full(t_kept.shape, c, dtype=np.int32)],
+                                           axis=1))
+        self.data = np.concatenate(images, axis=0)
+        self.labels = np.concatenate(labels, axis=0).astype(np.float32)
+
+    def __len__(self) -> int:
+        return self.data.shape[0]
+
+    def __getitem__(self, idx: int):
+        return self.transform(self.data[idx]), self.labels[idx]
+
+
+class RotorSpectra:
+    """SpectroscopyDataset's items, built in memory for a host without
+    h5py: the rotors ``write_rotor_spectra_h5(path, **corpus)`` would write
+    (their transitions as the dataset reads them, in float32), each item's
+    profile simulated with the dataset's own line shape and linewidth draw
+    (``SpectroscopyDataset.sample_linewidth``, a locked generator seeded
+    with the kwargs' seed). A CPU test holds its items bitwise against
+    SpectroscopyDataset's on the written file. The config is unconditional,
+    so it declares no parameter space."""
+
+    parameter_space = None
+
+    def __init__(self, kwargs: dict, n_molecules: int, seed: int) -> None:
+        import threading
+
+        import numpy as np
+
+        from rho_diffusion_tpu_torch.data.spectro_synth import rotor_transitions
+
+        self.frequency_grid = np.linspace(kwargs.get("min_freq") or 1000.0,
+                                          kwargs.get("max_freq") or 32000.0,
+                                          kwargs.get("grid_size", 50_000), dtype=np.float32)
+        rng = np.random.default_rng(seed)
+        self.transitions, self.params = [], []
+        for _ in range(n_molecules):
+            B = float(rng.uniform(250.0, 1500.0))
+            T = float(rng.uniform(2e5, 4e6))
+            D = float(rng.uniform(0.0, 1e-3) * B)
+            centers, log_int = rotor_transitions(B, T, D)
+            self.transitions.append(np.stack([centers, log_int]).astype(np.float32))
+            self.params.append(np.asarray([B, T, D, float(len(centers))], np.float32))
+        self._linewidth = kwargs.get("linewidth")
+        self._rng = np.random.default_rng(kwargs.get("seed", 0))
+        self._rng_lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self.transitions)
+
+    def sample_linewidth(self) -> float:
+        from rho_diffusion_tpu_torch.data.spectroscopy import SpectroscopyDataset
+
+        return SpectroscopyDataset.sample_linewidth(self)
+
+    def __getitem__(self, index: int) -> dict:
+        import numpy as np
+
+        from rho_diffusion_tpu_torch.data.spectroscopy import SpectroscopyDataset
+
+        centers, intensities = self.transitions[index]
+        intensities = np.clip(intensities, -10.0, -2.0)
+        profile = SpectroscopyDataset.simulate_lineprofile(
+            self.frequency_grid, centers, 10.0**intensities, self.sample_linewidth())
+        item = {"params": self.params[index],
+                "max_int": np.asarray([10.0 ** intensities.max()], np.float32)}
+        peak = profile.max()
+        if peak > 0:
+            profile = profile / peak
+        item["spectrum"] = profile.astype(np.float32)[:, None]
+        return item
+
+
+def data_dataset(key: str, cfg: dict, route: str, work: Path):
+    """The config's dataset on this host's route: the class the config
+    names on a file the port's writer wrote (``hdf5``, its path put into
+    ``cfg``), or the in-memory items (``memory``)."""
+    from rho_diffusion_tpu_torch.data.galaxy_synth import write_deep_galaxy_h5
+    from rho_diffusion_tpu_torch.data.spectro_synth import write_rotor_spectra_h5
+    from rho_diffusion_tpu_torch.registry import registry
+
+    kwargs = cfg["dataset"]["kwargs"]
+    if route == "memory":
+        return (GalaxyFrames(kwargs, **GALAXY_CORPUS) if key == "deep_galaxy"
+                else RotorSpectra(kwargs, **SPECTRA_CORPUS))
+    work.mkdir(parents=True, exist_ok=True)
+    if key == "deep_galaxy":
+        kwargs["path"] = write_deep_galaxy_h5(str(work / "galaxies.h5"), **GALAXY_CORPUS)
+    else:
+        kwargs["h5_path"] = write_rotor_spectra_h5(str(work / "spectra.h5"), **SPECTRA_CORPUS)
+    return registry.get("datasets", cfg["dataset"]["name"])(**kwargs)
+
+
+def data_pipeline(cfg: dict, dataset, dtype: str, device):
+    """A config's pipeline as its trainer builds it, in ``dtype``."""
+    from rho_diffusion_tpu_torch.config import ExperimentConfig
+    from rho_diffusion_tpu_torch.training.trainer import build_pipeline_from_config
+
+    config = ExperimentConfig.from_dict(json.loads(json.dumps(cfg)))
+    config.model.kwargs["dtype"] = dtype
+    return build_pipeline_from_config(config, dataset=dataset, device=device)
+
+
+def trained_records(work: Path) -> dict:
+    """Losses, gradient norms and host step times the trainer logged."""
+    import numpy as np
+
+    records = [json.loads(x) for x in (work / "metrics.jsonl").read_text().splitlines()]
+    steps = [r for r in records if "train_loss" in r]
+    step_s = [r["step_s"] for r in steps]
+    after_first = step_s[1:]
+    return {"steps": len(steps), "losses": [r["train_loss"] for r in steps],
+            "grad_norms": [r.get("grad_norm") for r in steps], "step_s": step_s,
+            "median_step_s_after_first": float(np.median(after_first)) if after_first else None}
+
+
+def flash_counts_ok(counts: dict, per_step: int, steps: int, training: bool) -> bool:
+    """K1 launched ``per_step`` times a step (a forward), and in training
+    the fused backward and its pre-pass once per forward launch, never the
+    dkv/dq pair."""
+    fwd = counts.get("flash_attention", 0)
+    if fwd != per_step * steps:
+        return False
+    if not training:
+        return not counts.get("flash_attention_bwd")
+    return (counts.get("flash_attention_bwd") == counts.get("flash_attention_bwd_delta") == fwd
+            and not counts.get("flash_attention_bwd_dkv") and not counts.get("flash_attention_bwd_dq"))
+
+
+def run_data_config(key: str, cfg_file: Path, route: str, work: Path, device) -> dict:
+    """One shipped config at full width: a training run through Trainer
+    (seeded random weights through ``init_state(weights_path=...)``), its
+    host's batch build, one profiled step; a DDPM sample through the
+    inference CLI from the trained weights, timed and profiled once more;
+    the forward held against the fp32 plain model; the attention shapes of
+    a training forward."""
+    import numpy as np
+    import torch
+
+    from rho_diffusion_tpu_torch import inference
+    from rho_diffusion_tpu_torch.config import ExperimentConfig
+    from rho_diffusion_tpu_torch.data.loader import to_device
+    from rho_diffusion_tpu_torch.ops import attention as attn_mod
+    from rho_diffusion_tpu_torch.training.trainer import Trainer
+
+    cfg = json.loads(cfg_file.read_text())
+    dataset = data_dataset(key, cfg, route, work)
+    cfg["training"].update(log_every_n_steps=1, benchmark_mode=True, loggers=["jsonl"])
+    cfg["inference"].update(cache_file=None, plot_output_file=None, checkpoint=None)
+    config = ExperimentConfig.from_dict(json.loads(json.dumps(cfg)))
+    sd = random_state_dict(data_pipeline(cfg, dataset, "float32", "cpu").backbone, seed=0)
+    pth = work / "random.pth"
+    work.mkdir(parents=True, exist_ok=True)
+    torch.save(sd, pth)
+    run_dir = work / "run"
+    trainer = Trainer(config, dataset=dataset, work_dir=run_dir, device=DEVICE)
+    steps_per_epoch = len(trainer.loader)
+    epochs = -(-DATA_TRAIN_STEPS // steps_per_epoch)
+    state0 = trainer.init_state(resume=False, weights_path=str(pth))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    st, train_wall, train_counts, train_routes = counted(
+        lambda: trainer.fit(state0, max_epochs=epochs))
+    train_peak = torch.cuda.max_memory_allocated()
+    logged = trained_records(run_dir)
+    changed = sum(not torch.equal(v.detach().cpu(), sd[k]) for k, v in st.model.state_dict().items())
+
+    # the host's work for one batch (the loader's threads and collate), and
+    # one step on a batch already on the card: its host time and profile
+    t0 = time.perf_counter()
+    host_batch = next(iter(trainer.loader.iter_batches()))
+    host_batch_s = time.perf_counter() - t0
+    batch = to_device(host_batch, device)
+    pipe = trainer.pipeline
+    with CallRecorder(attn_mod, "flash_attention") as attn_rec:
+        pipe.training_step(st, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pipe.training_step(st, batch)
+    torch.cuda.synchronize()
+    one_step_s = time.perf_counter() - t1
+    profiled = profiled_step(device_time_by_kernel(lambda: pipe.training_step(st, batch)),
+                             one_step_s)
+    median = logged["median_step_s_after_first"]
+    loop_busy = (profiled["busy_ms"] / 1e3 / median
+                 if median and "busy_ms" in profiled else NOT_PROFILED["status"])
+    attn_shapes = sorted({c[0][0] for c in attn_rec.calls})
+    per_step = len(attn_rec.calls)
+    del trainer, pipe, st, state0, batch
+    torch.cuda.empty_cache()
+
+    # sampling through the inference CLI, from the trained raw weights
+    s_cfg = json.loads(json.dumps(cfg))
+    s_cfg["noise_schedule"]["kwargs"]["num_steps"] = DATA_SAMPLE_STEPS
+    s_path = work / "sample_config.json"
+    s_path.write_text(json.dumps(s_cfg))
+    space = s_cfg["inference"].get("parameter_space")
+    n = math.prod(len(v) for v in space.values()) if space else s_cfg["inference"].get(
+        "num_samples", 16)
+    trained = run_dir / "model.pth"
+    torch.cuda.reset_peak_memory_stats()
+    out, sample_wall, sample_counts, sample_routes = counted(lambda: inference.main(
+        [str(s_path), "-p", str(trained), "-n", str(n), "-d", DEVICE, "-f",
+         "--work-dir", str(work)]))
+    sample_peak = torch.cuda.max_memory_allocated()
+    s_config = ExperimentConfig.from_json(s_path)
+    pipe, _, messages = inference.build_inference_session(s_config, checkpoint=trained,
+                                                          device=device)
+
+    def sample():
+        return pipe.generate(torch.Generator(device=device).manual_seed(0), batch_size=n,
+                             parameter_space=space, random=False)
+
+    sample()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    sample()
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t2
+    by_name = device_time_by_kernel(sample)
+    sample_busy_s = sum(ms for ms, _ in by_name.values()) / 1e3
+    del pipe
+    torch.cuda.empty_cache()
+
+    # the forward on the kernels against the fp32 plain model
+    fast = data_pipeline(cfg, dataset, "bfloat16", device)
+    fast.load_state_dict(sd)
+    ref = data_pipeline(cfg, dataset, "float32", device)
+    ref.load_state_dict(sd)
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(fast.sample_shape(DATA_HOLD_BATCH), generator=gen).clamp(-1, 1).to(device)
+    t = torch.randint(0, len(fast.schedule), (DATA_HOLD_BATCH,), generator=gen).to(device)
+    y = fast.conditions_from_parameter_space(space, DATA_HOLD_BATCH, random=False)
+    y = y.float() if y is not None else None
+    with torch.no_grad():
+        got = fast.apply(x, t, y)
+        with plain_backends():
+            plain_bf16, plain_fp32 = fast.apply(x, t, y), ref.apply(x, t, y)
+    hold = {**hold_rows({"forward": got}, {"forward": plain_bf16}, {"forward": plain_fp32},
+                        HOLD_CAP)["forward"], "batch": DATA_HOLD_BATCH}
+    del fast, ref, got, plain_bf16, plain_fp32
+    torch.cuda.empty_cache()
+
+    want_shape = (n, *cfg["model"]["kwargs"]["data_shape"], cfg["model"]["kwargs"]["in_channels"])
+    finite = bool(np.isfinite(out).all())
+    problems = []
+    if logged["steps"] != epochs * steps_per_epoch or not all(
+            np.isfinite(logged["losses"] + logged["grad_norms"])):
+        problems.append(f"training logged {logged}")
+    if not changed:
+        problems.append("no parameter changed")
+    if not flash_counts_ok(train_counts, per_step, logged["steps"], training=True):
+        problems.append(f"training launches {train_counts}, {per_step} attention calls a step")
+    if not flash_counts_ok(sample_counts, per_step, DATA_SAMPLE_STEPS - 1, training=False):
+        problems.append(f"sampling launches {sample_counts}, {per_step} attention calls a "
+                        "forward")
+    if tuple(out.shape) != want_shape or not finite:
+        problems.append(f"the sample is {out.shape}, finite={finite}; expected {want_shape}")
+    if not hold["ok"]:
+        problems.append(f"forward hold {hold}")
+    return {
+        "config": cfg_file.name, "route": route, "corpus": DATA_CORPUS_NOTE[key],
+        "items": len(dataset), "batch": cfg["training"]["batch_size"],
+        "steps_per_epoch": steps_per_epoch, "epochs": epochs,
+        "attention_shapes_b_t_h_d": attn_shapes, "attention_calls_per_forward": per_step,
+        "train": {**logged, "wall_s": train_wall,
+                  "steps_per_s": 1 / logged["median_step_s_after_first"]
+                  if logged["median_step_s_after_first"] else None,
+                  "max_memory_allocated": train_peak, "params_changed": changed,
+                  "launches": train_counts, "flash_routes": train_routes,
+                  "host_batch_build_s": host_batch_s, "profiled_step": profiled,
+                  "device_busy_share_of_logged_step": loop_busy},
+        "sample": {"n": n, "steps": DATA_SAMPLE_STEPS, "forwards": DATA_SAMPLE_STEPS - 1,
+                   "cli_wall_s": sample_wall, "sample_s": sample_s,
+                   "device_busy_s": sample_busy_s if by_name else None,
+                   "device_busy_share": sample_busy_s / sample_s if by_name
+                   else NOT_PROFILED["status"],
+                   "max_memory_allocated": sample_peak, "launches": sample_counts,
+                   "flash_routes": sample_routes, "messages": messages,
+                   "shape": list(out.shape), "finite": finite,
+                   "mean": float(out.mean()), "std": float(out.std())},
+        "hold_forward": hold, "problems": problems,
+    }
+
+
+def run_quality_cache(work: Path, device) -> dict:
+    """``config_spherical_harmonics_quality.json`` (the flagship model with
+    cond_dropout 0.1 and min-SNR weighting) trained through Trainer with its
+    ``training.device_cache: true``: the dataset uploaded once, every batch
+    a gather on the card; one more step profiled on a cached batch."""
+    import numpy as np
+    import torch
+
+    from rho_diffusion_tpu_torch.config import ExperimentConfig
+    from rho_diffusion_tpu_torch.training.trainer import Trainer
+
+    cfg = json.loads(QUALITY_CONFIG.read_text())
+    cfg["training"].update(log_every_n_steps=1, benchmark_mode=True, loggers=["jsonl"])
+    cfg["inference"].update(cache_file=None, plot_output_file=None, checkpoint=None)
+    config = ExperimentConfig.from_dict(json.loads(json.dumps(cfg)))
+    work.mkdir(parents=True, exist_ok=True)
+    sd = random_state_dict(build_pipeline(cfg, "float32", "cpu").backbone, seed=0)
+    pth = work / "random.pth"
+    torch.save(sd, pth)
+    trainer = Trainer(config, work_dir=work / "run", device=DEVICE)
+    steps_per_epoch = len(trainer.loader)
+    state0 = trainer.init_state(resume=False, weights_path=str(pth))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    st, wall, counts, routes = counted(lambda: trainer.fit(state0, max_epochs=QUALITY_EPOCHS))
+    peak = torch.cuda.max_memory_allocated()
+    logged = trained_records(work / "run")
+    cache = trainer.device_cache
+    batch = cache.batch(np.arange(config.training.batch_size))
+    pipe = trainer.pipeline
+    pipe.training_step(st, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.training_step(st, batch)
+    torch.cuda.synchronize()
+    one_step_s = time.perf_counter() - t0
+    profiled = profiled_step(device_time_by_kernel(lambda: pipe.training_step(st, batch)),
+                             one_step_s)
+    median = logged["median_step_s_after_first"]
+    out = {"config": QUALITY_CONFIG.name, "items": len(trainer.dataset),
+           "batch": config.training.batch_size, "epochs": QUALITY_EPOCHS,
+           "steps_per_epoch": steps_per_epoch,
+           "cache_nbytes": cache.nbytes,
+           "cache_tables": {k: [list(t.shape), str(t.dtype), str(t.device)]
+                            for k, t in cache._tables.items()},
+           **logged, "wall_s": wall, "steps_per_s": 1 / median if median else None,
+           "max_memory_allocated": peak, "launches": counts, "flash_routes": routes,
+           "profiled_step": profiled,
+           "device_busy_share_of_logged_step": (profiled["busy_ms"] / 1e3 / median
+                                                if median and "busy_ms" in profiled
+                                                else NOT_PROFILED["status"])}
+    del trainer, pipe, st, state0, batch, cache
+    torch.cuda.empty_cache()
+    problems = []
+    if logged["steps"] != QUALITY_EPOCHS * steps_per_epoch or not all(
+            np.isfinite(logged["losses"])):
+        problems.append(f"training logged {logged}")
+    missing = [k for k in ("conv3d_igemm", "conv3d_dgrad_igemm", "flash_attention",
+                           "flash_attention_bwd") if not counts.get(k)]
+    per_step = counts.get("flash_attention", 0) // max(logged["steps"], 1)
+    if missing or not flash_counts_ok(counts, per_step, logged["steps"], training=True):
+        problems.append(f"the cached training path's launches {counts}")
+    out["problems"] = problems
+    return out
+
+
+def realdata_bench(device) -> dict:
+    """The bench entry in realdata mode without and with
+    BENCH_DEVICE_CACHE=1, in turns (host, cache, cache, host), each run's
+    steps/s and launches; then each mode profiled at REALDATA_PROFILE_STEPS
+    timed steps: the difference of two runs' device time over the
+    difference of their steps is the device time of a steady step (the
+    warm-up, the pipeline's build and the dataset's materialisation cancel),
+    whose product with the unprofiled steps/s is the device's busy share of
+    a timed step."""
+    import io
+    import re
+
+    import torch
+
+    from rho_diffusion_tpu_torch import bench
+
+    def run_bench(env: dict, profile: bool):
+        captured, err = io.StringIO(), io.StringIO()
+        torch.cuda.empty_cache()
+        with bench_env(env), contextlib.redirect_stdout(captured), \
+                contextlib.redirect_stderr(err):
+            if profile:
+                return device_time_by_kernel(lambda: bench.main(["-d", DEVICE]))
+            result, wall, counts, _ = counted(lambda: bench.main(["-d", DEVICE]))
+        lines = captured.getvalue().splitlines()
+        if lines != [json.dumps(result)]:
+            fail(f"data: the bench entry printed {lines}")
+        return {"line": result, "entry_s": wall, "launches": counts,
+                "stderr": err.getvalue().strip()}
+
+    runs = {name: [] for name, _ in REALDATA_RUNS}
+    for name, env in REALDATA_RUNS + REALDATA_RUNS[::-1]:
+        runs[name].append(run_bench(env, False))
+    out = {}
+    for name, env in REALDATA_RUNS:
+        device_ms = [sum(ms for ms, _ in run_bench({**env, "BENCH_STEPS": str(n)}, True).values())
+                     for n in REALDATA_PROFILE_STEPS]
+        lo, hi = REALDATA_PROFILE_STEPS
+        per_step_ms = (device_ms[1] - device_ms[0]) / (hi - lo) if all(device_ms) else None
+        values = [r["line"]["value"] for r in runs[name]]
+        found = re.search(r"device_cache_bytes=(\d+)", runs[name][0]["stderr"])
+        out[name] = {"steps_per_s": values, "metric": runs[name][0]["line"]["metric"],
+                     "device_cache_bytes": int(found.group(1)) if found else None,
+                     "profiled_device_ms": dict(zip(map(str, REALDATA_PROFILE_STEPS), device_ms)),
+                     "device_ms_per_step": per_step_ms,
+                     "device_busy_share": ([per_step_ms * v / 1e3 for v in values]
+                                           if per_step_ms else NOT_PROFILED["status"]),
+                     "launches": runs[name][0]["launches"],
+                     "stderr": [r["stderr"] for r in runs[name]]}
+    return out
+
+
+def data_kernel_rows(shapes: dict, device) -> list:
+    """K1 and the fused K3/K4 (with its delta pre-pass, and the mma.sync
+    pair it replaced on request) at each config's attention shape, held
+    against the plain versions and timed beside SDPA and the bound, per
+    training step."""
+    import torch
+
+    rows = []
+    for key, ((b, t, h, d), calls, batch) in shapes.items():
+        per = f"one training step of {key} at batch {batch} ({calls} attention calls)"
+        variant = f"{key}: T={t}, D={d}, B*H={b * h}, one training step"
+        rows.append(flash_fwd_row(b, t, h, d, calls, per, device, torch.bfloat16,
+                                  variant=variant))
+        rows += flash_bwd_rows(b, t, h, d, calls, per, device, torch.bfloat16, variant=variant)
+    return rows
+
+
+def phase_data(state: dict) -> None:
+    """The data layer's paths on the card at full width: DeepGalaxy (2-D)
+    and Spectroscopy (1-D) trained and sampled (``run_data_config``) on
+    the port's datasets over files its writers wrote where the host has
+    h5py, else on the same items built in memory (``GalaxyFrames``,
+    ``RotorSpectra``); the quality config trained under the device cache;
+    the bench entry's realdata mode without and with the cache; K1 and the
+    fused K3/K4 held and timed at the 2-D and 1-D attention shapes. Each
+    path's launch counts are cleared just before it and read just after."""
+    import importlib.util
+
+    import torch
+
+    from rho_diffusion_tpu_torch.native import get_ylm_lib, library_path
+
+    device = torch.device(DEVICE)
+    route = "hdf5" if importlib.util.find_spec("h5py") is not None else "memory"
+    t0 = time.perf_counter()
+    native = get_ylm_lib() is not None
+    emit("data_route", route=route, h5py=route == "hdf5",
+         native_ylm={"built": native, "seconds": time.perf_counter() - t0,
+                     "library": str(library_path().relative_to(ROOT)) if native else None})
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_data_"))
+    launches, problems, seconds, shapes = {}, [], {}, {}
+    try:
+        for key, cfg_file in (("deep_galaxy", DEEP_GALAXY_CONFIG),
+                              ("spectroscopy", SPECTRO_CONFIG)):
+            t1 = time.perf_counter()
+            run = run_data_config(key, cfg_file, route, tmp / key, device)
+            seconds[key] = time.perf_counter() - t1
+            emit(f"data_{key}", **run, cuts=DATA_CUTS, seconds=seconds[key])
+            launches[f"{key}_training"] = run["train"]["launches"]
+            launches[f"{key}_sampling"] = run["sample"]["launches"]
+            problems += [f"{key}: {p}" for p in run["problems"]]
+            (shape,) = run["attention_shapes_b_t_h_d"]
+            shapes[key] = (shape, run["attention_calls_per_forward"], run["batch"])
+        t1 = time.perf_counter()
+        quality = run_quality_cache(tmp / "quality", device)
+        seconds["quality"] = time.perf_counter() - t1
+        emit("data_quality_device_cache", **quality, cuts={
+            "training.max_epochs": f"1000 -> {QUALITY_EPOCHS}",
+            **{k: v for k, v in DATA_CUTS.items() if k.startswith("training.log")}},
+            seconds=seconds["quality"])
+        launches["quality_training_device_cache"] = quality["launches"]
+        problems += [f"quality: {p}" for p in quality["problems"]]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t1 = time.perf_counter()
+    realdata = realdata_bench(device)
+    seconds["realdata_bench"] = time.perf_counter() - t1
+    emit("data_realdata_bench", **realdata, seconds=seconds["realdata_bench"])
+    for name, run in realdata.items():
+        launches[f"bench_realdata_{name}"] = run["launches"]
+    t1 = time.perf_counter()
+    rows = data_kernel_rows(shapes, device)
+    seconds["kernel_rows"] = time.perf_counter() - t1
+    emit("data_kernels", rows=rows)
+    record_errors(state, rows)
+    state["data"] = rows
+    state["data_launches"] = launches
+    emit("data", seconds=seconds, launches=launches)
+    if problems:
+        fail("data: " + "; ".join(problems))
+    fail_bad("data", rows)
+
+
+
 # name, source in csrc/, the TPU kernel it replaces, and the path that runs it
 KERNELS = (
     # K5's implicit GEMM: the kernel in conv3d_wgmma.cuh, its launcher in conv3d.cu
@@ -3331,10 +3939,11 @@ def kernels_line(state: dict) -> list:
     launches = {"sampling": state["launches"], "sampling64": state["main64_launches"],
                 "training": state["train_launches"], "serving": state["serve_launches"],
                 "bench": state["bench_launches"], "kernels": state["kernels_launches"],
-                "fp32": state["fp32_launches"], **state["gauss_launches"]}
+                "fp32": state["fp32_launches"], **state["gauss_launches"],
+                **state["data_launches"]}
     out = []
     for name, source, replaces, path in KERNELS:
-        rows = [r for r in state["timings"] + state["bench"] + state["fp32"]
+        rows = [r for r in state["timings"] + state["bench"] + state["fp32"] + state["data"]
                 if r["kernel"] == name and r.get("calls")]
         main = [r for r in rows if not r["variant"]]
         accuracy = state["err"][name]
@@ -3506,6 +4115,8 @@ def main(argv=None) -> int:
         phase_gauss(state)
     if "train" in phases:
         phase_train(state, TRAIN_BATCH)
+    if "data" in phases:
+        phase_data(state)
     if "hold" in phases:
         phase_hold(state)
     if "serve" in phases:

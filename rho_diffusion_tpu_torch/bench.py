@@ -29,14 +29,17 @@ Modes (``BENCH_MODE``):
   after one warm-up, each closed by ``torch.cuda.synchronize`` (stderr
   lists each run's wall clock and its thread's CPU time);
 * ``realdata``: the training step on ``SphericalHarmonicDataset`` batches
-  through the port's DataLoader threads and device prefetch.
+  through the port's DataLoader threads and device prefetch, or, with
+  ``BENCH_DEVICE_CACHE=1``, from the dataset uploaded once to the device,
+  each batch a gather there (``DeviceDatasetCache``; stderr gives the
+  table's bytes).
 
 Other knobs: ``BENCH_BATCH``, ``BENCH_GRID``, ``BENCH_DTYPE``
 (bfloat16|float32), ``BENCH_DIMS`` (3, 2 or 1), ``BENCH_ACCUM``,
 ``BENCH_NO_EMA``, ``BENCH_NO_GRADNORM``. ``BENCH_MODEL=vit`` (ROADMAP
-Queue 1 item 9), ``BENCH_REMAT`` (item 12) and ``BENCH_DEVICE_CACHE``
-(item 7) raise until their machinery is ported; ``BENCH_FLAT_OPT`` flattens
-optax's state tree, which has no torch counterpart, and raises.
+Queue 1 item 9) and ``BENCH_REMAT`` (item 12) raise until their machinery is
+ported; ``BENCH_FLAT_OPT`` flattens optax's state tree, which has no torch
+counterpart, and raises.
 
 It runs on CUDA unless ``-d cpu`` is given (for the smoke sizes), and
 raises when CUDA is absent.
@@ -80,6 +83,10 @@ def settings() -> dict:
         "dtype": os.environ.get("BENCH_DTYPE", "bfloat16"), "mc": 16 if smoke else 64,
         "dims": _env("BENCH_DIMS", 3), "num_classes": 20,
     }
+    if smoke and s["mode"] == "realdata":
+        # the dataset's sha512 labels are 256 wide and condition the model
+        # directly, so its embedding (4 * model_channels) must match
+        s["mc"] = 64
     if os.environ.get("BENCH_MODEL", "unet") != "unet":
         raise NotImplementedError(
             f"BENCH_MODEL={os.environ['BENCH_MODEL']}: the port has the UNetv2 backbone only "
@@ -92,10 +99,6 @@ def settings() -> dict:
         raise NotImplementedError(
             "BENCH_FLAT_OPT=1 flattens optax's optimizer-state tree; the port's optimizers "
             "are torch.optim's, whose state has no tree to flatten")
-    if os.environ.get("BENCH_DEVICE_CACHE") == "1":
-        raise NotImplementedError(
-            "BENCH_DEVICE_CACHE=1: the device-resident dataset cache is not ported yet "
-            "(ROADMAP Queue 1 item 7)")
     if s["dims"] == 2:  # examples/config_deep_galaxy.json: 128^2, mc 32, T 500, batch 64
         s.update(grid=_env("BENCH_GRID", 16 if smoke else 128),
                  batch=_env("BENCH_BATCH", 8 if smoke else 64), mc=16 if smoke else 32,
@@ -177,10 +180,17 @@ def bench_realdata(s: dict, pipe, state, device) -> dict:
     dset = SphericalHarmonicDataset(max_l=5, grid_el=s["grid"],
                                     length=max(batch * (steps + warmup + 2), 256))
     loader = DataLoader(dset, batch_size=batch, num_workers=4)
+    cache = None
+    if os.environ.get("BENCH_DEVICE_CACHE") == "1":
+        from rho_diffusion_tpu_torch.data.device_cache import DeviceDatasetCache
+
+        cache = DeviceDatasetCache(dset, device=device)
 
     def run(n):
         metrics = None
-        for i, b in enumerate(prefetch_to_device(iter(loader), device)):
+        it = cache.batches(loader) if cache is not None else prefetch_to_device(iter(loader),
+                                                                                 device)
+        for i, b in enumerate(it):
             if i >= n:
                 break
             metrics = pipe.training_step(state, b)
@@ -194,6 +204,7 @@ def bench_realdata(s: dict, pipe, state, device) -> dict:
     metrics = run(steps)
     elapsed = time.perf_counter() - t0
     print(f"{device_line(device)} mode=realdata batch={batch} grid={s['grid']} "
+          f"device_cache_bytes={cache.nbytes if cache is not None else 0} "
           f"warmup={compile_s:.1f}s elapsed={elapsed:.2f}s "
           f"loss={float(metrics['train_loss']):.4f}", file=sys.stderr)
     return {"metric": "train_steps_per_sec_per_chip_3d_unet_realdata",

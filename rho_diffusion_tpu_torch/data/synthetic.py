@@ -9,12 +9,15 @@ path:
 * random (l, m) per sample: l ~ [0, max_l), m ~ [-l, l], numpy-seeded;
 * labels: sha512 hash embedding of {'l': l, 'm': m} with length 256.
 
-Fields are channels-last [grid_el, grid_el, grid_el, 1]. Not ported yet,
-and raising: the C++ generator (``use_native=True``) and HDF5-backed
-datasets (``h5_path``).
+Fields are channels-last [grid_el, grid_el, grid_el, 1]. ``use_native=True``
+computes fields with the C++ generator (``rho_diffusion_tpu_torch.native``,
+the scipy path where no toolchain builds it); ``h5_path`` reads fields and
+(l, m) from an HDF5 file that ``to_hdf5`` writes. h5py is imported only by
+the HDF5 paths.
 """
 from __future__ import annotations
 
+import json
 import os
 import threading
 from pathlib import Path
@@ -73,7 +76,7 @@ def compute_spherical_harmonic(
 
 @registry.register_dataset("SphericalHarmonicDataset")
 class SphericalHarmonicDataset(MultiVariateDataset):
-    """On-the-fly spherical-harmonics density dataset."""
+    """On-the-fly (or HDF5-cached) spherical-harmonics density dataset."""
 
     def __init__(
         self,
@@ -88,13 +91,6 @@ class SphericalHarmonicDataset(MultiVariateDataset):
         **grid_kwargs,
     ) -> None:
         assert max_l and max_l > 0, f"invalid max_l: {max_l}"
-        if use_native:
-            raise NotImplementedError(
-                "use_native=True needs the C++ Ylm generator, which the port "
-                "does not carry yet; use the numpy/scipy path (use_native=False)",
-            )
-        if h5_path:
-            raise NotImplementedError("HDF5-backed datasets (h5_path) are not ported yet")
         self.max_l = max_l
         self.parameter_space = DiscreteParameterSpace(
             param_dict={
@@ -102,17 +98,29 @@ class SphericalHarmonicDataset(MultiVariateDataset):
                 "m": list(range(-max_l, max_l)),
             },
         )
+        self.loaded_parameter_space = DiscreteParameterSpace()
         grid_kwargs.setdefault("grid_el", 32)
         for key in ("x", "y", "z"):
             grid_kwargs.setdefault(key, np.linspace(-2.0, 2.0, grid_kwargs["grid_el"]))
         self.grid_kwargs = grid_kwargs
         self.length = length
         self.use_emb_as_labels = use_emb_as_labels
+        # the C++ generator: its min-max normalisation is tie-sensitive, so
+        # its fields can differ from scipy's for symmetric (l, m) (both are
+        # valid normalisations; see rho_diffusion_tpu_torch/native)
+        self.use_native = use_native
         if random_seed is None:
             random_seed = int(os.getenv("RHO_GLOBAL_SEED", os.getenv("PL_GLOBAL_SEED", 1616)))
         self.random_seed = random_seed
         self._rng = np.random.default_rng(random_seed)
+        # worker threads call __getitem__; numpy Generators are not
+        # thread-safe, so draws are serialised
         self._rng_lock = threading.Lock()
+        self.h5_path = Path(h5_path) if h5_path else None
+        if self.h5_path and not self.h5_path.exists():
+            raise FileNotFoundError(f"{self.h5_path} not found")
+        self.labels_emb_map: dict[bytes, dict] = {}
+        # a field is a deterministic function of (l, m) on the fixed grid
         self.cache_fields = cache_fields
         self._field_cache: dict[tuple[int, int], np.ndarray] = {}
         self._label_cache: dict[tuple[int, int], np.ndarray] = {}
@@ -128,25 +136,76 @@ class SphericalHarmonicDataset(MultiVariateDataset):
                     return l, m
 
     def __len__(self) -> int:
+        if self.h5_path:
+            import h5py
+
+            with h5py.File(self.h5_path, "r") as f:
+                return len(f["density"])
         return self.length
 
     def _label(self, l: int, m: int) -> np.ndarray:  # noqa: E741
+        c = {"l": int(l), "m": int(m)}
         if not self.use_emb_as_labels:
             return np.asarray([l, m], dtype=np.float32)
         cached = self._label_cache.get((l, m))
         if cached is not None:
             return cached
-        emb = calculate_sha512_embedding({"l": int(l), "m": int(m)}, l=256)
+        emb = calculate_sha512_embedding(c, l=256)
+        self.labels_emb_map[emb.tobytes()] = c
         self._label_cache[(l, m)] = emb
         return emb
 
     def __getitem__(self, index: int):
-        l, m = self.random_set()  # noqa: E741
-        density = self._field_cache.get((l, m)) if self.cache_fields else None
-        if density is None:
-            grid = {k: self.grid_kwargs[k] for k in ("x", "y", "z")}
-            _, density, _ = compute_spherical_harmonic(**grid, m=m, l=l)
-            if self.cache_fields:
-                self._field_cache[(l, m)] = density
+        if self.h5_path:
+            import h5py
+
+            with h5py.File(self.h5_path, "r") as f:
+                density = np.asarray(f["density"][index])
+                l = int(f["l"][index])  # noqa: E741
+                m = int(f["m"][index])
+        else:
+            l, m = self.random_set()  # noqa: E741
+            density = self._field_cache.get((l, m)) if self.cache_fields else None
+            if density is None:
+                grid = {k: self.grid_kwargs[k] for k in ("x", "y", "z")}
+                if self.use_native:
+                    from rho_diffusion_tpu_torch.native import ylm_field_native
+
+                    density = ylm_field_native(grid["x"], grid["y"], grid["z"], m=m, l=l)
+                if density is None:  # scipy, or no toolchain for the native path
+                    _, density, _ = compute_spherical_harmonic(**grid, m=m, l=l)
+                if self.cache_fields:
+                    self._field_cache[(l, m)] = density
         field = Density(density.astype(np.float32)[..., None])  # channels-last
         return field, self._label(l, m)
+
+    # -- HDF5 round trip ----------------------------------------------------
+    def to_hdf5(self, h5_path: str | Path, num_samples: Optional[int] = None) -> None:
+        """Write ``num_samples`` (default ``length``) random fields with
+        their (l, m) to ``h5_path`` (scipy fields, as the JAX package's)."""
+        import h5py
+
+        n = num_samples or self.length
+        grid = {k: self.grid_kwargs[k] for k in ("x", "y", "z")}
+        el = len(grid["x"])
+        with h5py.File(h5_path, "w") as f:
+            dset = f.create_dataset("density", (n, el, el, el), dtype=np.float32)
+            ls = f.create_dataset("l", (n,), dtype=np.int32)
+            ms = f.create_dataset("m", (n,), dtype=np.int32)
+            for i in range(n):
+                l, m = self.random_set()  # noqa: E741
+                _, density, _ = compute_spherical_harmonic(**grid, m=m, l=l)
+                dset[i] = density.astype(np.float32)
+                ls[i] = l
+                ms[i] = m
+            f.attrs["max_l"] = self.max_l
+            f.attrs["grid"] = json.dumps({"el": el})
+
+    @classmethod
+    def from_hdf5(cls, h5_path: str | Path, **kwargs) -> "SphericalHarmonicDataset":
+        """The dataset over a file ``to_hdf5`` wrote (its max_l attribute)."""
+        import h5py
+
+        with h5py.File(h5_path, "r") as f:
+            max_l = int(f.attrs.get("max_l", 5))
+        return cls(max_l=max_l, h5_path=h5_path, **kwargs)

@@ -9,7 +9,9 @@ Mirrors ``scripts/inference.py`` and the JAX package's
 
 * if ``inference.cache_file`` exists and ``-f`` is not given, plot straight
   from the HDF5 cache;
-* otherwise build the pipeline from the config, load the weights (an
+* otherwise build the pipeline from the config (a dataset whose file, or
+  h5py, is absent gives the conditioning the parameter space its class
+  declares, where it declares one: DeepGalaxyDataset's), load the weights (an
   explicit JAX ``.npz`` or reference ``.pth``, an explicit checkpoint
   directory of the port's trainer, else ``training.checkpoint_dir`` or
   ``<work-dir>/checkpoints``, with the EMA weights per ``inference.use_ema``;
@@ -33,8 +35,10 @@ are not readable; that case says so.
 from __future__ import annotations
 
 import argparse
+import inspect
 import os
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Optional, Sequence
 
 import numpy as np
@@ -42,23 +46,42 @@ import torch
 
 import rho_diffusion_tpu_torch  # noqa: F401  (populates the registry)
 from rho_diffusion_tpu_torch.config import ExperimentConfig, apply_torch_checkpoint_schedule_fixup
+from rho_diffusion_tpu_torch.data.parameter_space import DiscreteParameterSpace
 from rho_diffusion_tpu_torch.registry import registry
 from rho_diffusion_tpu_torch.training.checkpoint import resolve_inference_params
 from rho_diffusion_tpu_torch.training.trainer import build_pipeline_from_config
 from rho_diffusion_tpu_torch.utils import resolve_device
 
 
+def declared_dataset(ds_cls, kwargs: dict):
+    """What sampling needs of a dataset that cannot be built (its data file,
+    or h5py, absent where the model samples): the parameter space its class
+    declares (DeepGalaxyDataset's, over which training built the
+    conditioning) and its ``use_emb_as_labels``; None when the class
+    declares no space."""
+    space = getattr(ds_cls, "parameter_space", None)
+    if not isinstance(space, DiscreteParameterSpace):
+        return None
+    param = inspect.signature(ds_cls).parameters.get("use_emb_as_labels")
+    default = param.default if param is not None else False
+    return SimpleNamespace(parameter_space=space,
+                           use_emb_as_labels=bool(kwargs.get("use_emb_as_labels", default)))
+
+
 def build_inference_session(config: ExperimentConfig, checkpoint=None, work_dir=".",
                             device=None):
-    """Pipeline + dataset + weights. Returns ``(pipeline, dataset, messages)``."""
+    """Pipeline + dataset + weights. Returns ``(pipeline, dataset, messages)``.
+    A dataset that cannot be built stands in as ``declared_dataset``'s
+    parameter space, or None."""
     messages: list[str] = []
     ds_cls = registry.get("datasets", config.dataset.name)
     try:
         dataset = ds_cls(**config.dataset.kwargs)
-    except NotImplementedError:
-        raise  # a dataset path the port does not have yet
-    except Exception:
-        dataset = None  # e.g. an HDF5 file not present at inference time
+    except Exception as e:  # e.g. an HDF5 file not present at inference time
+        dataset = declared_dataset(ds_cls, config.dataset.kwargs)
+        messages.append(f"dataset {config.dataset.name} not built ({type(e).__name__}: {e}); "
+                        + ("conditioning on its class's parameter space" if dataset is not None
+                           else "sampling without it"))
     if apply_torch_checkpoint_schedule_fixup(config, checkpoint):
         messages.append("torch checkpoint + cosine schedule: using exact_reference table")
     pipeline = build_pipeline_from_config(

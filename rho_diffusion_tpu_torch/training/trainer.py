@@ -4,7 +4,9 @@ Port of ``rho_diffusion_tpu/training/trainer.py``: ``build_pipeline_from_config`
 (:49-126) and ``Trainer`` (:168-581), kept:
 
 * the loop feeds batches, built in a background thread and copied to the
-  device ahead of use, into ``pipeline.training_step``;
+  device ahead of use, into ``pipeline.training_step``; with
+  ``training.device_cache`` the dataset is uploaded once and each batch is
+  a gather on the device in the host loader's order (``DeviceDatasetCache``);
 * exact mid-epoch resume: the data cursor is (step // steps_per_epoch,
   step % steps_per_epoch) and each epoch's permutation is a function of
   (seed, epoch), so a resumed run replays the uninterrupted batch sequence;
@@ -18,13 +20,14 @@ Port of ``rho_diffusion_tpu/training/trainer.py``: ``build_pipeline_from_config`
 
 The JAX package's mesh options have no single-device meaning and raise
 ``NotImplementedError`` instead of being ignored: a ``mesh`` over more than
-one device, ``tensor_parallel``, ``fsdp``, ``zero1``, ``spatial_sharding``
-and ``device_cache``. So does a profile directory (ROADMAP Queue 1, interop
-and training utilities).
+one device (so also ``device_cache_shard``'s table over a data mesh),
+``tensor_parallel``, ``fsdp``, ``zero1`` and ``spatial_sharding``. So does a
+profile directory (ROADMAP Queue 1, interop and training utilities).
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import signal
 import time
 from pathlib import Path
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from rho_diffusion_tpu_torch.config import ExperimentConfig
+from rho_diffusion_tpu_torch.data.device_cache import DeviceDatasetCache
 from rho_diffusion_tpu_torch.data.loader import DataLoader, Subset, prefetch, prefetch_to_device
 from rho_diffusion_tpu_torch.interop.jax_weights import load_state_dict_file
 from rho_diffusion_tpu_torch.registry import registry
@@ -43,7 +47,7 @@ from rho_diffusion_tpu_torch.training.optimizers import build_lr_schedule
 from rho_diffusion_tpu_torch.training.state import TrainState
 from rho_diffusion_tpu_torch.utils import resolve_device
 
-_UNSUPPORTED = ("tensor_parallel", "fsdp", "zero1", "spatial_sharding", "device_cache")
+_UNSUPPORTED = ("tensor_parallel", "fsdp", "zero1", "spatial_sharding")
 
 
 def build_pipeline_from_config(
@@ -200,6 +204,13 @@ class Trainer:
         for lg in self.loggers:
             lg.log(record)
 
+    @functools.cached_property
+    def device_cache(self) -> DeviceDatasetCache:
+        """The training split on the device, built on first use
+        (``training.device_cache``)."""
+        return DeviceDatasetCache(self.loader.dataset, collate_fn=self.loader.collate_fn,
+                                  device=self.device)
+
     # -- state ----------------------------------------------------------
     def init_state(self, resume: bool = True, weights_path: Optional[str] = None) -> TrainState:
         """A fresh state seeded with ``training.seed``; then the backbone
@@ -305,8 +316,11 @@ class Trainer:
                     break
                 self.loader.set_epoch(epoch)
                 skip = skip_batches if epoch == start_epoch else 0
-                batches = prefetch_to_device(prefetch(self.loader.iter_batches(skip)),
-                                             self.device)
+                if cfg.device_cache:
+                    batches = self.device_cache.batches(self.loader, skip)
+                else:
+                    batches = prefetch_to_device(prefetch(self.loader.iter_batches(skip)),
+                                                 self.device)
                 n_steps = 0
                 t_step = time.perf_counter()
                 for batch in batches:

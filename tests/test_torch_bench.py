@@ -6,8 +6,8 @@ JSON line under the root ``bench.py``'s metric names, in the train and the
 sample mode, with ``vs_baseline`` 1.0, and never opens or globs the TPU's
 ``BENCH_r*.json`` records (an audit hook watches every open and glob of the
 run). Without ``-d cpu`` it needs CUDA; the knobs whose machinery is queued
-raise ``NotImplementedError``; the new modules are among those the import
-rule checks.
+raise ``NotImplementedError``; realdata runs with and without the device
+cache; the new modules are among those the import rule checks.
 """
 import json
 import os
@@ -81,15 +81,35 @@ def test_bench_needs_cuda_unless_asked_for_the_cpu():
 @pytest.mark.parametrize("knob,match", [
     ({"BENCH_MODEL": "vit"}, "item 9"),
     ({"BENCH_REMAT": "1"}, "item 12"),
-    ({"BENCH_MODE": "realdata", "BENCH_DEVICE_CACHE": "1"}, "item 7"),
+    ({"BENCH_MODE": "realdata", "BENCH_DEVICE_CACHE": "1"}, None),
     ({"BENCH_FLAT_OPT": "1"}, "no torch counterpart|torch.optim"),
 ], ids=["vit", "remat", "device-cache", "flat-opt"])
 def test_queued_knobs_raise(monkeypatch, knob, match):
+    """The knobs whose machinery is queued raise. BENCH_DEVICE_CACHE=1 (the
+    device-resident cache, ported) runs: realdata's batches are gathers from
+    the uploaded table, and the run prints its one line."""
+    if match is None:
+        lines, err = run_bench(**knob)
+        assert len(lines) == 1, lines
+        assert json.loads(lines[0])["metric"] == "train_steps_per_sec_per_chip_3d_unet_realdata"
+        # the smoke's 256 fields of 8^3 and their 256-wide labels, fp32
+        assert "device_cache_bytes=786432 " in err, err
+        return
     monkeypatch.setenv("BENCH_SMOKE", "1")
     for k, v in knob.items():
         monkeypatch.setenv(k, v)
     with pytest.raises(NotImplementedError, match=match):
         bench.main(["-d", "cpu"])
+
+
+def test_realdata_smoke_streams_from_the_host():
+    """realdata without the cache at the smoke sizes: batches through the
+    host loader (the smoke's width is 64, so the model's embedding matches
+    the dataset's 256-wide sha512 labels)."""
+    lines, err = run_bench(BENCH_MODE="realdata")
+    assert len(lines) == 1, lines
+    assert json.loads(lines[0])["metric"] == "train_steps_per_sec_per_chip_3d_unet_realdata"
+    assert "device_cache_bytes=0 " in err, err
 
 
 def test_unknown_mode_raises(monkeypatch):

@@ -29,6 +29,7 @@ from rho_diffusion_tpu_torch import bench, inference
 from rho_diffusion_tpu_torch.diffusion.ddpm import DDPM
 from rho_diffusion_tpu_torch.diffusion.schedule import LinearSchedule
 from rho_diffusion_tpu_torch.config import ExperimentConfig
+from rho_diffusion_tpu_torch.data.synthetic import SphericalHarmonicDataset
 from rho_diffusion_tpu_torch.benchmarks import conv3d_ab, conv3d_variants, conv_profile
 from rho_diffusion_tpu_torch.ops.kernels import _build, launch_counts
 from rho_diffusion_tpu_torch.ops.kernels.conv3d import Conv3d, conv3d, conv3d_kernel
@@ -208,9 +209,28 @@ def test_benchmark_entries_need_cuda_unless_asked_for_the_cpu(entry):
     {"device_cache": True}, {"mesh": {"data": 2, "context": 1}}, {"mesh": {"context": 2}},
 ], ids=lambda o: next(iter(o)))
 def test_unsupported_trainer_options_raise(tmp_path, option):
+    """The options that need more than one device raise. ``device_cache``
+    (ported, the table on the one device) builds a Trainer, whose cache
+    comes up at its first use on the device asked for."""
     cfg = json.loads((ROOT / "examples" / "config_smoke.json").read_text())
     cfg["training"].update(option)
+    if option == {"device_cache": True}:
+        trainer = Trainer(ExperimentConfig.from_dict(cfg), work_dir=tmp_path, device="cpu")
+        assert trainer.config.training.device_cache
+        cache = trainer.device_cache
+        assert cache.device.type == "cpu" and cache.nbytes == 16 * (8 ** 3 + 256) * 4
+        return
     with pytest.raises(NotImplementedError):
+        Trainer(ExperimentConfig.from_dict(cfg), work_dir=tmp_path, device="cpu")
+
+
+def test_device_cache_over_a_data_mesh_raises(tmp_path):
+    """``device_cache_shard`` splits the table over a data mesh of several
+    cards: the mesh itself raises."""
+    cfg = json.loads((ROOT / "examples" / "config_smoke.json").read_text())
+    cfg["training"].update(device_cache=True, device_cache_shard=True,
+                           mesh={"data": 2, "context": 1})
+    with pytest.raises(NotImplementedError, match="more than one device"):
         Trainer(ExperimentConfig.from_dict(cfg), work_dir=tmp_path, device="cpu")
 
 
@@ -262,11 +282,20 @@ def test_inference_entry_runs_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("kwargs", [{"use_native": True}, {"h5_path": "fields.h5"}])
 def test_inference_raises_for_unported_dataset_paths(tmp_path, kwargs):
-    """A dataset path the port lacks stops the CLI instead of sampling
-    without the config's conditioning."""
+    """The dataset paths that raised until the data layer was ported (the
+    C++ generator, an HDF5 file that ``to_hdf5`` wrote) now build the
+    dataset, and the CLI samples with the config's conditioning."""
     cfg = json.loads((ROOT / "examples" / "config_smoke.json").read_text())
+    if "h5_path" in kwargs:
+        kwargs = {"h5_path": str(tmp_path / kwargs["h5_path"])}
+        SphericalHarmonicDataset(**cfg["dataset"]["kwargs"]).to_hdf5(kwargs["h5_path"],
+                                                                   num_samples=4)
     cfg["dataset"]["kwargs"].update(kwargs)
+    cfg["inference"].update(cache_file=None, plot_output_file=None)
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(cfg))
-    with pytest.raises(NotImplementedError):
-        inference.main([str(path), "-d", "cpu", "-n", "1", "--work-dir", str(tmp_path)])
+    config = ExperimentConfig.from_json(path)
+    pipe, dataset, _ = inference.build_inference_session(config, device="cpu")
+    assert isinstance(dataset, SphericalHarmonicDataset) and pipe.cond_fn is not None
+    samples = inference.main([str(path), "-d", "cpu", "-n", "1", "--work-dir", str(tmp_path)])
+    assert samples.shape == (1, 8, 8, 8, 1) and np.isfinite(samples).all()
