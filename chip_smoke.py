@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py [--phases env,build,kernels,main,main64,gauss,train,data,hold,serve,timings,fp32,bench]
+    python3 chip_smoke.py [--phases env,build,kernels,main,main64,gauss,vlb,train,data,hold,serve,timings,fp32,bench]
                           [--steps 25] [--samples 4] [--timing-batch 8]
 
 Builds the port's CUDA kernels from ``rho_diffusion_tpu_torch/csrc`` (and
@@ -37,6 +37,23 @@ weights loaded from a reference-layout ``.pth``):
   forward's share of a step, the sampler arithmetic's own device time per
   step (dynamic thresholding's torch.quantile included) and the device's
   busy share of one sample;
+* ``vlb``: GaussianDiffusion's training half on
+  ``examples/config_learned_variance.json`` at full width (16^3, width 64,
+  channel_mult (1, 2, 4), attention over 256 tokens at head dim 64,
+  learned_range variance, rescaled_mse, out_channels 2, bf16, batch 32):
+  one epoch through ``rho_diffusion_tpu_torch.training``'s ``main`` with
+  the dataset cut to 256 items (8 steps), its steps/s, peak memory and one
+  profiled step's device busy share; ``rho_diffusion_tpu_torch.evaluate``
+  with ``--bpd --num-batches 2`` on the trained EMA weights (validation,
+  a DDIM-50 generate at batch 8, the 1000-step VLB loop at batch 4, each
+  part timed); RePaint inpainting of 8 rows (ddpm respaced to 50, 2
+  rounds a step, half the volume kept, that half checked exact) and DDIM-50
+  encoding and decoding of 4 rows; held against the fp32 plain model: the
+  hybrid loss and its parameter gradients at batch 2 and ``vb_terms_bpd``
+  at t = 0, 1, 500 and 999; the head's Cin = 2 fp32 dgrad (the direct
+  kernel's general configuration) against its plain version, timed beside
+  conv3d_input; the fused K3/K4 at (B 32, T 256, H 4, D 64) twice
+  (bitwise), and K1 and K3/K4 timed there beside SDPA;
 * ``train``: five DDPM training steps at batch 32 through
   ``rho_diffusion_tpu_torch.training``'s ``main``, the checkpoint read back
   to the trainer's EMA weights, and one profiled step;
@@ -126,8 +143,8 @@ the flagship at batch 2 and K6's fp32 fold at T = 512, 4096 and a ragged
 phase prints one JSON line; a failing phase exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``, after the
 ``kernels`` line and the card's ``nvidia-smi`` name and power limit. A run
-whose ``--phases`` leave out any of kernels, main, main64, gauss, train,
-data, serve, timings, fp32 and bench prints neither and exits 3.
+whose ``--phases`` leave out any of kernels, main, main64, gauss, vlb,
+train, data, serve, timings, fp32 and bench prints neither and exits 3.
 
 Exits non-zero without a result when CUDA is unavailable or the script runs
 outside a checkout of the repository. Imports nothing of JAX.
@@ -154,11 +171,11 @@ GAUSS_CONFIG = ROOT / "examples" / "config_learned_variance.json"
 DEEP_GALAXY_CONFIG = ROOT / "examples" / "config_deep_galaxy.json"
 SPECTRO_CONFIG = ROOT / "examples" / "config_spectroscopy.json"
 QUALITY_CONFIG = ROOT / "examples" / "config_spherical_harmonics_quality.json"
-PHASES = ("env", "build", "kernels", "main", "main64", "gauss", "train", "data", "hold", "serve",
-          "timings", "fp32", "bench")
+PHASES = ("env", "build", "kernels", "main", "main64", "gauss", "vlb", "train", "data", "hold",
+          "serve", "timings", "fp32", "bench")
 # the phases whose numbers the kernels line carries
-KERNELS_LINE_PHASES = ("kernels", "main", "main64", "gauss", "train", "data", "serve", "timings",
-                       "fp32", "bench")
+KERNELS_LINE_PHASES = ("kernels", "main", "main64", "gauss", "vlb", "train", "data", "serve",
+                       "timings", "fp32", "bench")
 DEVICE = "cuda"
 # the train phase: the flagship's batch, and steps cut to five
 TRAIN_BATCH = 32
@@ -1782,6 +1799,405 @@ def phase_gauss(state: dict) -> None:
          seconds_by_part=seconds, seconds=time.perf_counter() - t0)
     if problems:
         fail("gauss: " + "; ".join(problems))
+
+
+# the vlb phase: config_learned_variance.json at full width, its dataset cut
+# to VLB_LENGTH items (VLB_LENGTH / 32 steps of one epoch at the config's
+# batch 32), evaluated with --bpd on VLB_EVAL_BATCHES batches; inpainting
+# (ddpm respaced to VLB_STEPS, VLB_RESAMPLE rounds a step) of
+# VLB_INPAINT_ROWS rows, DDIM-VLB_STEPS encoding and decoding of
+# VLB_ENCODE_ROWS rows; the holds at VLB_HOLD_BATCH and at the timesteps
+# VLB_HOLD_T; the attention of the config's training step (B, T, H, D)
+VLB_LENGTH = 256
+VLB_EVAL_BATCHES = 2
+VLB_STEPS = 50
+VLB_RESAMPLE = 2
+VLB_INPAINT_ROWS = 8
+VLB_ENCODE_ROWS = 4
+VLB_HOLD_BATCH = 2
+VLB_HOLD_T = (0, 1, 500, 999)
+VLB_ATTENTION = (32, 256, 4, 64)
+# the kernel instances the vlb phase must see in its profiled training step
+VLB_INSTANCES = {"flash forward (K1) at D = 64": r"flash_fwd_wgmma_kernel<64\b",
+                 "fused flash backward (K3/K4) at D = 64": r"flash_bwd_wgmma_kernel<64>",
+                 "direct conv, general configuration (the Cin = 2 head dgrad)":
+                     r"conv3d_direct_kernel<float, ?8, ?16, ?4>"}
+# the counts the vlb phase's training must launch
+VLB_TRAIN_KERNELS = ("conv3d_igemm", "conv3d_dgrad_igemm", "conv3d_tf32", "conv3d_weight_split",
+                     "conv3d_direct", "conv3d_dgrad_direct", "flash_attention",
+                     "flash_attention_bwd", "flash_attention_bwd_delta")
+VLB_CUTS = {
+    "dataset.kwargs.length": f"2048 -> {VLB_LENGTH} (one epoch of {VLB_LENGTH // 32} steps)",
+    "training.max_epochs": "40 -> 1",
+    "training.save_checkpoint_every_n_epochs": "20 -> 1",
+    "training.log_every_n_steps, benchmark_mode, loggers": "50, false, default -> 1, true, "
+                                                           "jsonl",
+    **GAUSS_CUTS,
+}
+
+
+def vlb_config() -> dict:
+    """``examples/config_learned_variance.json`` at full width with the vlb
+    phase's cuts."""
+    cfg = gauss_config()
+    cfg["dataset"]["kwargs"]["length"] = VLB_LENGTH
+    cfg["training"].update(max_epochs=1, save_checkpoint_every_n_epochs=1, log_every_n_steps=1,
+                           benchmark_mode=True, loggers=["jsonl"])
+    return cfg
+
+
+@contextlib.contextmanager
+def timed_methods(cls, names):
+    """Host seconds and calls of each method ``names`` of ``cls`` for the
+    body (the card synchronised around each call)."""
+    import torch
+
+    times = {n: {"s": 0.0, "calls": 0} for n in names}
+    saved = {n: getattr(cls, n) for n in names}
+    own = {n for n in names if n in vars(cls)}
+
+    def wrap(name, fn):
+        @functools.wraps(fn)
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[name]["s"] += time.perf_counter() - t0
+            times[name]["calls"] += 1
+            return out
+        return timed
+
+    for n in names:
+        setattr(cls, n, wrap(n, saved[n]))
+    try:
+        yield times
+    finally:
+        for n in names:
+            if n in own:
+                setattr(cls, n, saved[n])
+            else:
+                delattr(cls, n)
+
+
+def instances_seen(by_name: dict) -> dict:
+    """Which of VLB_INSTANCES the profiled kernel names hold."""
+    return {what: sorted({name[:120] for name in by_name if re.search(pattern, name)})
+            for what, pattern in VLB_INSTANCES.items()}
+
+
+def vb_elements(pipe, model_fn, x0, x_t, t):
+    """``vb_terms_bpd`` before its mean over each sample: per element, the
+    KL in bits, at t = 0 the discretised decoder's NLL in bits."""
+    import torch
+
+    from rho_diffusion_tpu_torch.diffusion.gaussian import (
+        p_mean_variance, q_posterior_mean_variance)
+    from rho_diffusion_tpu_torch.metrics.losses import (
+        discretized_gaussian_log_likelihood, normal_kl)
+
+    true_mean, _, true_log_var = q_posterior_mean_variance(pipe.coeffs, x0, x_t, t)
+    out = p_mean_variance(pipe.coeffs, model_fn, x_t, t, pipe.model_mean_type,
+                          pipe.model_var_type, clip_denoised=False)
+    kl = normal_kl(true_mean, true_log_var, out["mean"], out["log_variance"])
+    nll = -discretized_gaussian_log_likelihood(x0, out["mean"], 0.5 * out["log_variance"])
+    first = (t == 0).reshape(-1, *(1,) * (x0.ndim - 1))
+    return torch.where(first, nll, kl) / math.log(2.0)
+
+
+def vlb_holds(cfg: dict, data: dict, device) -> dict:
+    """The kernels against the fp32 plain model on the learned-variance UNet
+    (random seeded weights), by the hold rule on element-wise terms (a mean
+    over a few samples is one number, whose bf16 distance from fp32 can
+    cancel to nothing by chance; the terms it averages cannot):
+
+    * the hybrid loss at VLB_HOLD_BATCH with injected t and noise: its two
+      integrands, the squared error of the mean half (the config's epsilon
+      target) and the ``vb`` term's per-element bits (times T/1000 under
+      rescaled_mse), the loss being their means summed; and the parameter
+      gradients of the loss (``loss_and_metrics``, backward);
+    * ``vb_terms_bpd``'s per-element bits of a real row at each of
+      VLB_HOLD_T.
+
+    The scalar losses and each row's ``vb_terms_bpd`` are printed beside."""
+    import torch
+
+    from rho_diffusion_tpu_torch.diffusion.gaussian import LossType, q_sample, vb_terms_bpd
+    from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+
+    pipes = {dt: build_pipeline(cfg, dt, device) for dt in ("bfloat16", "float32")}
+    sd = random_state_dict(pipes["float32"].backbone, seed=0)
+    for p in pipes.values():
+        p.load_state_dict(sd)
+    fast, ref = pipes["bfloat16"], pipes["float32"]
+    b = VLB_HOLD_BATCH
+    gen = torch.Generator().manual_seed(21)
+    x0, y = data["data"][:b], data["labels"][:b]
+    t = torch.tensor([1, fast.coeffs.num_timesteps - 1])[:b].to(device)
+    noise = torch.randn(x0.shape, generator=gen).to(device)
+    batch = {"data": x0, "labels": y}
+    n_t = len(VLB_HOLD_T)
+    xs, ys = data["data"][:n_t], data["labels"][:n_t]
+    tt = torch.tensor(VLB_HOLD_T, device=device)
+    nz = torch.randn(xs.shape, generator=gen).to(device)
+    scale = fast.coeffs.num_timesteps / 1000.0 if fast.loss_type == LossType.RESCALED_MSE \
+        else 1.0
+
+    def terms(p):
+        with torch.no_grad():
+            x_t = q_sample(p.coeffs, x0, t, noise)
+            out = p._train_model_fn(y)(x_t, p.coeffs.timestep_map[t])
+            ch = x0.shape[-1]
+            got = {"loss_mse_elements": (noise - out[..., :ch]) ** 2,
+                   "loss_vb_elements": scale * vb_elements(p, lambda *_: out, x0, x_t, t)}
+            xs_t = q_sample(p.coeffs, xs, tt, nz)
+            vb_el = vb_elements(p, p._model_fn(ys), xs, xs_t, tt)
+            got.update({f"vb_terms_bpd_t{t_}_elements": vb_el[i]
+                        for i, t_ in enumerate(VLB_HOLD_T)})
+            _, m = p.loss_and_metrics(batch, t=t, noise=noise)
+            values = {k: float(m[k]) for k in ("train_loss", "vb", "mse")}
+            values["vb_terms_bpd"] = vb_terms_bpd(p.coeffs, p._model_fn(ys), xs, xs_t, tt,
+                                                  p.model_mean_type, p.model_var_type)[
+                "output"].tolist()
+        return got, values
+
+    before = dict(launch_counts)
+    got, values = terms(fast)
+    grads = train_gradients(fast, batch, t, noise)
+    launched = {k: v - before.get(k, 0) for k, v in launch_counts.items() if v > before.get(k, 0)}
+    with plain_backends():
+        plain_bf16, _ = terms(fast)
+        plain_fp32, values_fp32 = terms(ref)
+        grads_bf16_plain = train_gradients(fast, batch, t, noise)
+        grads_fp32_plain = train_gradients(ref, batch, t, noise)
+    torch.cuda.synchronize()
+    rows = hold_rows(got, plain_bf16, plain_fp32, dict.fromkeys(got, HOLD_CAP["forward"]))
+    k_, k_name, k_worst = grad_distance(grads, grads_fp32_plain)
+    p_, p_name, p_worst = grad_distance(grads_bf16_plain, grads_fp32_plain)
+    rows["hybrid_loss_gradients"] = {
+        "metric": "relative L2 over all parameter gradients",
+        "kernels_vs_fp32_plain": k_, "bf16_plain_vs_fp32_plain": p_,
+        "kernels_vs_bf16_plain": grad_distance(grads, grads_bf16_plain)[0],
+        "worst_parameter_kernels": {"name": k_name, "rel_l2": k_worst},
+        "worst_parameter_bf16_plain": {"name": p_name, "rel_l2": p_worst},
+        "parameters": len(grads_fp32_plain),
+        "bar": min(HOLD_FACTOR * p_, HOLD_CAP["train_gradients"]),
+        "kernel_launches": launched,
+        "finite": set(grads) == set(grads_fp32_plain) and all(
+            bool(torch.isfinite(g).all()) for g in grads.values())}
+    g = rows["hybrid_loss_gradients"]
+    g["ok"] = g["finite"] and k_ <= g["bar"]
+    del pipes, fast, ref, grads, grads_bf16_plain, grads_fp32_plain
+    torch.cuda.empty_cache()
+    return {**rows, "values_kernels": values, "values_fp32_plain": values_fp32,
+            "loss_batch": b, "loss_t": t.tolist(), "vb_terms_t": list(VLB_HOLD_T)}
+
+
+def phase_vlb(state: dict) -> None:
+    """GaussianDiffusion's training half on the card at full width, on
+    ``examples/config_learned_variance.json`` (learned_range variance,
+    rescaled_mse, out_channels 2, batch 32, bf16), each path's launch counts
+    cleared just before it and read just after: (a) one epoch through
+    ``python -m rho_diffusion_tpu_torch.training``'s main (the dataset cut
+    to VLB_LENGTH items), from seeded random weights, and one profiled step
+    on the trained EMA weights; (b) ``python -m
+    rho_diffusion_tpu_torch.evaluate --bpd`` on those weights (validation,
+    a DDIM-VLB_STEPS generate at batch 8, the 1000-step VLB loop at batch
+    4), each part timed; (c) RePaint inpainting of VLB_INPAINT_ROWS real
+    rows (ddpm respaced to VLB_STEPS, VLB_RESAMPLE rounds, the first half
+    of the volume kept), the kept half checked exact, and DDIM encoding and
+    decoding of VLB_ENCODE_ROWS rows. Holds against the fp32 plain model
+    (``vlb_holds``); the head's Cin = 2 fp32 dgrad against its plain
+    version, timed beside conv3d_input and its bound; the fused K3/K4 at
+    VLB_ATTENTION twice (bitwise) and K1 and K3/K4 timed there beside SDPA
+    and their bounds."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from rho_diffusion_tpu_torch import evaluate
+    from rho_diffusion_tpu_torch.config import ExperimentConfig
+    from rho_diffusion_tpu_torch.data.loader import DataLoader, to_device
+    from rho_diffusion_tpu_torch.data.synthetic import SphericalHarmonicDataset
+    from rho_diffusion_tpu_torch.diffusion.gaussian import GaussianDiffusionPipeline
+    from rho_diffusion_tpu_torch.ops import attention as attn_mod
+    from rho_diffusion_tpu_torch.training.__main__ import main as train_main
+    from rho_diffusion_tpu_torch.training.checkpoint import resolve_inference_params
+
+    device = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    launches, problems, seconds = {}, [], {}
+    cfg = vlb_config()
+    batch_size = cfg["training"]["batch_size"]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_vlb_"))
+    try:
+        cfg_path = tmp / "config.json"
+        cfg_path.write_text(json.dumps(cfg))
+        sd0 = random_state_dict(build_pipeline(cfg, "float32", "cpu").backbone, seed=0)
+        pth = tmp / "random.pth"
+        torch.save(sd0, pth)
+        work = tmp / "run"
+
+        # (a) one epoch through the training CLI
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with direct_conv_calls() as direct, \
+                CallRecorder(attn_mod, "flash_attention") as attn_rec:
+            st, train_wall, counts, fr = counted(lambda: train_main(
+                [str(cfg_path), "-p", str(pth), "-d", DEVICE, "--work-dir", str(work),
+                 "--no-resume"]))
+        train_peak = torch.cuda.max_memory_allocated()
+        launches["vlb_training"], state.setdefault("flash_routes", {})["vlb_training"] = \
+            counts, fr
+        logged = trained_records(work)
+        changed = sum(not torch.equal(v.detach().cpu(), sd0[k])
+                      for k, v in st.model.state_dict().items())
+        per_step = len(attn_rec.calls) // max(logged["steps"], 1)
+        attn_shapes = sorted({c[0][0] for c in attn_rec.calls})
+        direct_problems = direct_launches(direct.calls)
+        del st
+        torch.cuda.empty_cache()
+        config = ExperimentConfig.from_dict(cfg)
+        dataset = SphericalHarmonicDataset(**config.dataset.kwargs)
+        data = to_device(next(iter(DataLoader(dataset, batch_size, shuffle=False))), device)
+        pipe = build_pipeline(cfg, "bfloat16", device)
+        messages = resolve_inference_params(pipe, config, str(work / "checkpoints"), work)
+        ts = pipe.create_state(seed=0)
+        pipe.training_step(ts, data)  # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pipe.training_step(ts, data)
+        torch.cuda.synchronize()
+        one_step_s = time.perf_counter() - t1
+        by_name = device_time_by_kernel(lambda: pipe.training_step(ts, data))
+        profiled = profiled_step(by_name, one_step_s)
+        seen = instances_seen(by_name) if by_name else NOT_PROFILED["status"]
+        del ts
+        resolve_inference_params(pipe, config, str(work / "checkpoints"), work)  # EMA again
+        median = logged["median_step_s_after_first"]
+        train = {**logged, "wall_s": train_wall, "batch": batch_size,
+                 "steps_per_s": 1 / median if median else None,
+                 "samples_per_s": batch_size / median if median else None,
+                 "max_memory_allocated": train_peak, "params_changed": changed,
+                 "params": len(sd0), "launches": counts, "flash_routes": fr,
+                 "direct_conv_problems": direct_problems,
+                 "attention_shapes_b_t_h_d": attn_shapes, "attention_calls_per_step": per_step,
+                 "read_back": messages, "profiled_step": profiled,
+                 "profiled_instances": seen}
+        head_dgrad = conv_problem_name("dgrad", (batch_size, 16, 16, 16, 2), 64, "float32")
+        missing = [k for k in VLB_TRAIN_KERNELS if not counts.get(k)]
+        if logged["steps"] != VLB_LENGTH // batch_size or not all(
+                np.isfinite(logged["losses"] + logged["grad_norms"])):
+            problems.append(f"training logged {logged}")
+        if missing or not changed:
+            problems.append(f"training never launched {missing} (changed {changed}): {counts}")
+        if not flash_counts_ok(counts, per_step, logged["steps"], training=True):
+            problems.append(f"training flash launches {counts}, {per_step} attention calls a "
+                            "step")
+        if not direct_problems.get(head_dgrad):
+            problems.append(f"the head's Cin = 2 dgrad never ran direct: {direct_problems}")
+        if attn_shapes != [VLB_ATTENTION]:
+            problems.append(f"attention shapes {attn_shapes}, expected [{VLB_ATTENTION}]")
+        if isinstance(seen, dict) and not all(seen.values()):
+            problems.append(f"the profiled step shows no launch of {seen}")
+        seconds["train"] = time.perf_counter() - t0
+
+        # (b) the evaluate CLI with --bpd on the trained EMA weights
+        captured = io.StringIO()
+        with timed_methods(GaussianDiffusionPipeline,
+                           ("validation_step", "generate", "calc_bpd")) as parts, \
+                contextlib.redirect_stdout(captured):
+            report, eval_wall, counts, fr = counted(lambda: evaluate.main(
+                [str(cfg_path), "-p", str(work / "checkpoints"), "-d", DEVICE, "--bpd",
+                 "--num-batches", str(VLB_EVAL_BATCHES)]))
+        launches["vlb_evaluate"], state["flash_routes"]["vlb_evaluate"] = counts, fr
+        keys = ("val_loss", "val_psnr", "wasserstein_gen_vs_real", "total_bpd", "prior_bpd")
+        evaluation = {"report": report, "wall_s": eval_wall, "parts_s": parts,
+                      "launches": counts, "flash_routes": fr,
+                      "printed": captured.getvalue().splitlines()[:3]}
+        if not all(np.isfinite(report.get(k, np.nan)) for k in keys) or \
+                not report.get("generated_finite"):
+            problems.append(f"evaluate report {report}")
+        missing = [k for k in ("conv3d_igemm", "conv3d_direct", "conv3d_tf32", "flash_attention")
+                   if not counts.get(k)]
+        if missing or counts.get("flash_attention_bwd"):
+            problems.append(f"evaluate launches {counts}")
+        seconds["evaluate"] = time.perf_counter() - t0 - sum(seconds.values())
+
+        # (c) inpainting and encoding on the trained EMA weights
+        n = VLB_INPAINT_ROWS
+        known, conds = data["data"][:n], data["labels"][:n]
+        depth = known.shape[1]
+        mask = torch.zeros((1, depth, 1, 1, 1), device=device)
+        mask[:, :depth // 2] = 1.0
+        out, inpaint_s, counts, fr = counted(lambda: pipe.inpaint(
+            known, mask, conds, sampler="ddpm", num_steps=VLB_STEPS,
+            resample_steps=VLB_RESAMPLE, generator=torch.Generator(device=device).manual_seed(3)))
+        launches["vlb_inpaint"] = counts
+        keep = mask.expand_as(known).bool()
+        inpaint = {"rows": n, "sampler": "ddpm", "steps": VLB_STEPS,
+                   "resample_steps": VLB_RESAMPLE, "model_calls": VLB_STEPS * VLB_RESAMPLE,
+                   "mask": f"depth planes [0, {depth // 2}) of {depth} kept",
+                   "wall_s": inpaint_s, "launches": counts,
+                   "known_region_exact": bool(torch.equal(out[keep], known[keep])),
+                   "finite": bool(torch.isfinite(out).all()),
+                   "generated_region_rel_mse_vs_known": rel_mse(out[~keep], known[~keep])}
+        m = VLB_ENCODE_ROWS
+        lat, enc_s, enc_counts, _ = counted(
+            lambda: pipe.encode(known[:m], conds[:m], num_steps=VLB_STEPS))
+        back, dec_s, dec_counts, _ = counted(lambda: pipe.reverse_process(
+            (m, *known.shape[1:]), conds[:m], sampler="ddim", num_steps=VLB_STEPS, x_T=lat))
+        launches["vlb_encode"], launches["vlb_decode"] = enc_counts, dec_counts
+        encode = {"rows": m, "steps": VLB_STEPS, "encode_s": enc_s, "decode_s": dec_s,
+                  "latent_std": float(lat.std()), "finite": bool(torch.isfinite(back).all()),
+                  "round_trip_rel_mse": rel_mse(back, known[:m]),
+                  "launches": {"encode": enc_counts, "decode": dec_counts}}
+        if not (inpaint["known_region_exact"] and inpaint["finite"] and encode["finite"]):
+            problems.append(f"inpaint {inpaint}, encode {encode}")
+        for name, c in (("inpaint", counts), ("encode", enc_counts), ("decode", dec_counts)):
+            if not c.get("flash_attention") or not c.get("conv3d_igemm"):
+                problems.append(f"{name} launches {c}")
+        del pipe, out, lat, back
+        torch.cuda.empty_cache()
+        seconds["inpaint_encode"] = time.perf_counter() - t0 - sum(seconds.values())
+
+        # the holds on the kernels against the fp32 plain model
+        holds = vlb_holds(cfg, data, device)
+        bad = [k for k, v in holds.items() if isinstance(v, dict) and v.get("ok") is False]
+        if bad:
+            problems.append(f"holds {bad}: {holds}")
+        seconds["holds"] = time.perf_counter() - t0 - sum(seconds.values())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    # the head's Cin = 2 fp32 dgrad, and K1 and K3/K4 at the training
+    # step's attention: held against their plain versions and timed
+    per = f"one training step at batch {batch_size}"
+    conv_rows = [hold_conv("dgrad", ((batch_size, 16, 16, 16, 2), 64, torch.float32), device,
+                           seed=700, calls=1, per=per)]
+    conv_rows[0]["variant"] = f"vlb: the learned-variance head's dgrad (Cin = 2), {per}"
+    b_, t_, h_, d_ = VLB_ATTENTION
+    variant = f"vlb: T={t_}, D={d_}, B*H={b_ * h_}, {per}"
+    bwd_hold = check_flash_bwd(b_, t_, h_, d_, device, seed=710, dtype=torch.bfloat16)
+    flash_rows = ([flash_fwd_row(b_, t_, h_, d_, per_step, per, device, torch.bfloat16,
+                                 variant=variant)]
+                  + flash_bwd_rows(b_, t_, h_, d_, per_step, per, device, torch.bfloat16,
+                                   variant=variant))
+    rows = conv_rows + flash_rows
+    record_errors(state, rows + bwd_hold["grads"])
+    if not bwd_hold["ok"]:
+        problems.append(f"fused backward hold {bwd_hold}")
+    seconds["kernel_rows"] = time.perf_counter() - t0 - sum(seconds.values())
+    state["vlb"] = rows
+    state["vlb_launches"] = launches
+    emit("vlb", config=GAUSS_CONFIG.name, cuts=VLB_CUTS, train=train, evaluate=evaluation,
+         inpaint=inpaint, encode=encode, holds=holds, flash_bwd_hold=bwd_hold, rows=rows,
+         seconds_by_part=seconds, seconds=time.perf_counter() - t0)
+    if problems:
+        fail("vlb: " + "; ".join(problems))
+    fail_bad("vlb", rows)
 
 
 def profiled_step(by_name: dict, host_s: float) -> dict:
@@ -3940,11 +4356,11 @@ def kernels_line(state: dict) -> list:
                 "training": state["train_launches"], "serving": state["serve_launches"],
                 "bench": state["bench_launches"], "kernels": state["kernels_launches"],
                 "fp32": state["fp32_launches"], **state["gauss_launches"],
-                **state["data_launches"]}
+                **state["vlb_launches"], **state["data_launches"]}
     out = []
     for name, source, replaces, path in KERNELS:
         rows = [r for r in state["timings"] + state["bench"] + state["fp32"] + state["data"]
-                if r["kernel"] == name and r.get("calls")]
+                + state["vlb"] if r["kernel"] == name and r.get("calls")]
         main = [r for r in rows if not r["variant"]]
         accuracy = state["err"][name]
         out.append({
@@ -4113,6 +4529,8 @@ def main(argv=None) -> int:
         phase_main64(state)
     if "gauss" in phases:
         phase_gauss(state)
+    if "vlb" in phases:
+        phase_vlb(state)
     if "train" in phases:
         phase_train(state, TRAIN_BATCH)
     if "data" in phases:

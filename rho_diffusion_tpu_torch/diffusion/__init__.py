@@ -1,5 +1,6 @@
-"""Diffusion pipelines of the port (DDPM; GaussianDiffusion sampling with
-DDIM, respacing and the registered solvers) and noise schedules."""
+"""Diffusion pipelines of the port (DDPM; GaussianDiffusion with its
+training losses, sampling with DDIM, respacing and the registered solvers,
+inpainting, encoding and bits-per-dim) and noise schedules."""
 from rho_diffusion_tpu_torch.diffusion.base import AbstractDiffusionPipeline, extract  # noqa: F401
 from rho_diffusion_tpu_torch.diffusion.ddpm import DDPM, ddpm_reverse_step, q_sample  # noqa: F401
 from rho_diffusion_tpu_torch.diffusion.gaussian import (  # noqa: F401
@@ -8,11 +9,14 @@ from rho_diffusion_tpu_torch.diffusion.gaussian import (  # noqa: F401
     LossType,
     ModelMeanType,
     ModelVarType,
+    calc_bpd_loop,
     coefficients_from_schedule,
     dynamic_threshold,
+    encode_loop,
     respace,
     respace_subset,
     sample_loop,
+    training_losses,
 )
 from rho_diffusion_tpu_torch.diffusion.schedule import (  # noqa: F401
     CosineBetaSchedule,

@@ -1,5 +1,6 @@
 """Gaussian diffusion: coefficients, respacing, the sampling math, DDIM and
-the solvers' loop, and ``GaussianDiffusionPipeline``'s sampling half.
+the solvers' loop, the VLB and training losses, bits-per-dim, DDIM encoding,
+RePaint inpainting, and ``GaussianDiffusionPipeline``.
 
 Port of ``rho_diffusion_tpu/diffusion/gaussian.py``:
 
@@ -12,14 +13,17 @@ Port of ``rho_diffusion_tpu/diffusion/gaussian.py``:
   ``alphas_cumprod`` back into float64, as JAX does, so the respaced betas
   agree to the last bit; ``timestep_map`` composes with an earlier
   respacing;
-* the q/posterior/predict math, ``dynamic_threshold``, ``p_mean_variance``
-  for every mean and variance type, ``condition_mean``/``condition_score``,
-  ``p_sample_step`` and ``ddim_sample_step`` (:329-537);
-* ``sample_loop`` (:578-727): JAX's ``lax.scan`` becomes a Python loop over
-  the respaced steps M-1 .. 0, for 'ddpm', 'ddim' and every solver of
-  ``diffusion.solvers``;
-* ``GaussianDiffusionPipeline``'s construction, model call,
-  ``reverse_process`` and ``generate`` (:1042-1385).
+* the q/posterior/predict math, ``velocity_target``, ``dynamic_threshold``,
+  ``p_mean_variance`` for every mean and variance type,
+  ``condition_mean``/``condition_score``, ``p_sample_step``,
+  ``ddim_sample_step`` and ``ddim_reverse_step`` (:329-552);
+* ``encode_loop``, ``sample_loop`` and ``inpaint_loop`` (:555-828): JAX's
+  ``lax.scan`` becomes a Python loop over the (respaced) steps;
+* ``vb_terms_bpd``, ``training_losses``, ``min_snr_weight``, ``prior_bpd``
+  and ``calc_bpd_loop`` (:835-1031);
+* ``GaussianDiffusionPipeline`` (:1038-1411): construction, the model
+  calls, ``loss_and_metrics``, ``reverse_process``, ``generate``,
+  ``inpaint``, ``encode`` and ``calc_bpd``.
 
 The model always sees original timesteps (``timestep_map[t]``) while the
 tables are indexed with the respaced ``t``. Noise comes from one
@@ -28,26 +32,35 @@ or, given ``row_keys``, from per-row streams (``diffusion.sampling_rng``):
 x_T at tag M (the respaced count), a DDPM or DDIM step at its respaced t,
 a stochastic solver's step at its original timestep ``timestep_map[i]``,
 the tags JAX uses. A DDIM step with eta = 0 multiplies its noise by zero,
-so it draws none.
+so it draws none. Inpainting's draws are set out in ``inpaint_loop``.
 
-The training half (VLB terms, ``training_losses``, bpd, inpainting and DDIM
-encoding) is ROADMAP Queue 1 item 8; those entry points raise.
+Training calls the backbone directly (with autograd, in the mode the
+caller set), not ``apply``, which is for sampling; the learned-variance
+``vb`` term sees the mean half of the output detached, JAX's
+``stop_gradient``.
 """
 from __future__ import annotations
 
 import enum
+import math
 from dataclasses import dataclass, fields
 from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
-from rho_diffusion_tpu_torch.diffusion.base import AbstractDiffusionPipeline, extract
+from rho_diffusion_tpu_torch.diffusion.base import (
+    AbstractDiffusionPipeline,
+    extract,
+    normalize_batch,
+)
 from rho_diffusion_tpu_torch.diffusion.sampling_rng import keys_at_step, normal_like
 from rho_diffusion_tpu_torch.diffusion.schedule import NoiseSchedule, named_beta_schedule
 from rho_diffusion_tpu_torch.diffusion.solvers import build_solver, is_solver, solver_names
+from rho_diffusion_tpu_torch.metrics.losses import discretized_gaussian_log_likelihood, normal_kl
+from rho_diffusion_tpu_torch.ops.convolution import mean_flat
 
-_ITEM8 = "ROADMAP Queue 1 item 8"
+_LN2 = math.log(2.0)
 
 
 class ModelMeanType(enum.Enum):
@@ -319,6 +332,12 @@ def predict_xstart_from_v(c: GaussianCoefficients, x_t, t, v):
             - extract(c.sqrt_one_minus_alphas_cumprod, t, x_t.ndim) * v)
 
 
+def velocity_target(c: GaussianCoefficients, x_start, t, noise):
+    """The v-prediction target v = sqrt(abar) eps - sqrt(1-abar) x0."""
+    return (extract(c.sqrt_alphas_cumprod, t, x_start.ndim) * noise
+            - extract(c.sqrt_one_minus_alphas_cumprod, t, x_start.ndim) * x_start)
+
+
 def predict_eps_from_xstart(c: GaussianCoefficients, x_t, t, pred_xstart):
     """eps = (x_t - sqrt(abar) x0) / sqrt(1-abar): finite at abar = 0."""
     return ((x_t - extract(c.sqrt_alphas_cumprod, t, x_t.ndim) * pred_xstart)
@@ -443,9 +462,34 @@ def ddim_sample_step(c, model_fn, x, t, noise, mean_type, var_type, clip_denoise
     return mean_pred + _nonzero(t, x) * sigma * noise, out["pred_xstart"]
 
 
+def ddim_reverse_step(c, model_fn, x, t, mean_type, var_type, clip_denoised=True, **kw):
+    """One deterministic DDIM reverse-ODE step x_t -> x_{t+1} (encoding)."""
+    out = p_mean_variance(c, model_fn, x, t, mean_type, var_type,
+                          clip_denoised=clip_denoised, **kw)
+    eps = predict_eps_from_xstart(c, x, t, out["pred_xstart"])
+    alpha_bar_next = extract(c.alphas_cumprod_next, t, x.ndim)
+    sample = (out["pred_xstart"] * torch.sqrt(alpha_bar_next)
+              + torch.sqrt(1.0 - alpha_bar_next) * eps)
+    return sample, out["pred_xstart"]
+
+
+@torch.no_grad()
+def encode_loop(c: GaussianCoefficients, model_fn: Callable, x0: torch.Tensor,
+                mean_type: ModelMeanType, var_type: ModelVarType,
+                clip_denoised: bool = False) -> torch.Tensor:
+    """Deterministic DDIM encoding x_0 -> x_T over the steps 0 .. M-1."""
+    x = torch.as_tensor(x0, device=c.device)
+    for t in range(c.num_timesteps):
+        tt = torch.full((x.shape[0],), t, dtype=torch.int64, device=c.device)
+        x, _ = ddim_reverse_step(c, model_fn, x, tt, mean_type, var_type,
+                                 clip_denoised=clip_denoised)
+    return x
+
+
 class _Noise:
-    """Standard-normal draws of one sample loop: batch-wide from a
-    generator, or per row at a step tag."""
+    """Standard-normal draws of one loop: batch-wide from a generator (the
+    tags are ignored; the draws come in call order), or per row at nested
+    tags (each folded into the row keys in turn)."""
 
     def __init__(self, shape, device, generator=None, row_keys=None):
         self.shape, self.device = tuple(shape), device
@@ -454,9 +498,12 @@ class _Noise:
             generator = torch.Generator(device=device).manual_seed(0)
         self.generator = generator
 
-    def draw(self, tag: int) -> torch.Tensor:
+    def draw(self, *tags: int) -> torch.Tensor:
         if self.row_keys is not None:
-            return normal_like(keys_at_step(self.row_keys, tag), self.shape, self.device)
+            keys = self.row_keys
+            for tag in tags:
+                keys = keys_at_step(keys, tag)
+            return normal_like(keys, self.shape, self.device)
         return torch.randn(self.shape, generator=self.generator, device=self.device)
 
 
@@ -556,14 +603,205 @@ def sample_loop(
     return (x, torch.stack(frames)) if progressive else x
 
 
+@torch.no_grad()
+def inpaint_loop(
+    c: GaussianCoefficients,
+    model_fn: Callable,
+    known: torch.Tensor,
+    mask: torch.Tensor,
+    generator: Optional[torch.Generator],
+    mean_type: ModelMeanType,
+    var_type: ModelVarType,
+    sampler: str = "ddpm",
+    eta: float = 0.0,
+    clip_denoised: bool = True,
+    resample_steps: int = 1,
+    cond_grad_fn: Optional[Callable] = None,
+    thresholding_percentile: float = 0.9,
+    row_keys: Optional[Sequence[int]] = None,
+) -> torch.Tensor:
+    """RePaint inpainting (Lugmayr et al., arXiv:2201.09865, Alg. 1) over
+    the (respaced) steps M-1 .. 0. ``mask`` is 1 where ``known`` is kept and
+    0 where content is generated; it broadcasts to ``known``'s shape. Each
+    step denoises the whole field with the model ('ddpm' or 'ddim'), then
+    puts back the known region noised to the step's level,
+    ``q_sample(known, t-1)``; ``alphas_cumprod_prev[0] == 1`` makes the
+    known region of the output equal ``known`` exactly. ``resample_steps``
+    U > 1 re-noises the composite one step forward and denoises it again, U
+    rounds a step (jump length 1); at t = 0 the re-noise is multiplied by
+    zero.
+
+    The draws, batch-wide from ``generator``: x_T, then for each step t
+    and round u in order: the step's noise (not for DDIM at eta = 0), the
+    known region's, and, for u < U - 1, the re-noise. Per row, from
+    ``row_keys``: x_T at tag M, and for (t, u) the tags (t, u, d) folded in
+    turn, d = 0 for the known region, 1 for the step and 2 for the re-noise,
+    JAX's three nested tags."""
+    if sampler not in ("ddpm", "ddim"):
+        raise ValueError(
+            f"inpainting supports 'ddpm' or 'ddim', got {sampler!r} "
+            "(multistep dpm++ has no per-step noise level to project onto)",
+        )
+    if int(resample_steps) < 1:
+        raise ValueError(f"resample_steps must be >= 1, got {resample_steps}")
+    device = c.device
+    known = torch.as_tensor(known, device=device)
+    shape = tuple(known.shape)
+    mask = torch.broadcast_to(torch.as_tensor(mask, device=device).to(known.dtype), shape)
+    noise = _Noise(shape, device, generator, row_keys)
+    M = c.num_timesteps
+    x = noise.draw(M).to(known.dtype)
+    step = p_sample_step if sampler == "ddpm" else ddim_sample_step
+    kw = {"eta": eta} if sampler == "ddim" else {}
+    stochastic = sampler == "ddpm" or float(eta) != 0.0
+    U = int(resample_steps)
+    for t in range(M - 1, -1, -1):
+        tt = torch.full((shape[0],), t, dtype=torch.int64, device=device)
+        abar_prev = extract(c.alphas_cumprod_prev, tt, x.ndim)
+        alpha_t = extract(c.alphas_cumprod, tt, x.ndim) / abar_prev
+        live = float(t > 0)
+        for u in range(U):
+            z = noise.draw(t, u, 1).to(known.dtype) if stochastic else None
+            x_unknown, _ = step(c, model_fn, x, tt, z, mean_type, var_type,
+                                clip_denoised=clip_denoised, cond_grad_fn=cond_grad_fn,
+                                thresholding_percentile=thresholding_percentile, **kw)
+            x_known = (torch.sqrt(abar_prev) * known
+                       + torch.sqrt(1.0 - abar_prev) * noise.draw(t, u, 0).to(known.dtype))
+            x = mask * x_known + (1.0 - mask) * x_unknown
+            if u < U - 1:
+                renoised = (torch.sqrt(alpha_t) * x
+                            + torch.sqrt(1.0 - alpha_t) * noise.draw(t, u, 2).to(known.dtype))
+                x = live * renoised + (1.0 - live) * x
+    return x
+
+
+# ---------------------------------------------------------------------------
+# The VLB and the training losses
+# ---------------------------------------------------------------------------
+
+def vb_terms_bpd(c, model_fn, x_start, x_t, t, mean_type, var_type, clip_denoised=False,
+                 thresholding_percentile=0.9) -> dict:
+    """KL(q(x_{t-1} | x_t, x_0) || p(x_{t-1} | x_t)) per sample in bits per
+    dimension; at t = 0 the discretised decoder's negative log-likelihood."""
+    true_mean, _, true_log_var = q_posterior_mean_variance(c, x_start, x_t, t)
+    out = p_mean_variance(c, model_fn, x_t, t, mean_type, var_type,
+                          clip_denoised=clip_denoised,
+                          thresholding_percentile=thresholding_percentile)
+    kl = normal_kl(true_mean, true_log_var, out["mean"], out["log_variance"])
+    kl = mean_flat(kl) / _LN2
+    decoder_nll = -discretized_gaussian_log_likelihood(x_start, out["mean"],
+                                                       0.5 * out["log_variance"])
+    decoder_nll = mean_flat(decoder_nll) / _LN2
+    return {"output": torch.where(t == 0, decoder_nll, kl), "pred_xstart": out["pred_xstart"]}
+
+
+def training_losses(
+    c: GaussianCoefficients,
+    model_fn: Callable,
+    x_start: torch.Tensor,
+    t: torch.Tensor,
+    noise: torch.Tensor,
+    mean_type: ModelMeanType,
+    var_type: ModelVarType,
+    loss_type: LossType,
+    mse_weight: Optional[torch.Tensor] = None,
+) -> dict:
+    """Per-sample training losses from the caller's ``noise`` (x_0 is noised
+    once). KL losses are ``vb_terms_bpd`` (times T when rescaled). MSE
+    losses of a learned variance add the ``vb`` term, computed on the model
+    output with its mean half detached, so the VLB trains the variance
+    only, times T/1000 when rescaled. ``mse_weight`` [B] scales the MSE term
+    in the loss; ``terms['mse']`` stays unweighted."""
+    x_t = q_sample(c, x_start, t, noise)
+    terms: dict[str, torch.Tensor] = {}
+    if loss_type.is_vb():
+        terms["loss"] = vb_terms_bpd(c, model_fn, x_start, x_t, t, mean_type, var_type)["output"]
+        if loss_type == LossType.RESCALED_KL:
+            terms["loss"] = terms["loss"] * c.num_timesteps
+        return terms
+
+    model_output = model_fn(x_t, c.timestep_map[t])
+    if var_type in (ModelVarType.LEARNED, ModelVarType.LEARNED_RANGE):
+        C = x_t.shape[-1]
+        assert model_output.shape[-1] == 2 * C
+        mean_out, var_values = torch.split(model_output, C, dim=-1)
+        frozen = torch.cat([mean_out.detach(), var_values], dim=-1)
+        terms["vb"] = vb_terms_bpd(c, lambda *_args: frozen, x_start, x_t, t, mean_type,
+                                   var_type)["output"]
+        if loss_type == LossType.RESCALED_MSE:
+            terms["vb"] = terms["vb"] * (c.num_timesteps / 1000.0)
+        model_output = mean_out
+
+    if mean_type == ModelMeanType.PREVIOUS_X:
+        target = q_posterior_mean_variance(c, x_start, x_t, t)[0]
+    elif mean_type == ModelMeanType.START_X:
+        target = x_start
+    elif mean_type == ModelMeanType.VELOCITY:
+        target = velocity_target(c, x_start, t, noise)
+    else:
+        target = noise
+    terms["mse"] = mean_flat((target - model_output) ** 2)
+    weighted = terms["mse"] if mse_weight is None else terms["mse"] * mse_weight
+    terms["loss"] = weighted + terms["vb"] if "vb" in terms else weighted
+    terms["x_t"] = x_t
+    return terms
+
+
+def prior_bpd(c: GaussianCoefficients, x_start: torch.Tensor) -> torch.Tensor:
+    """KL(q(x_T | x_0) || N(0, I)) per sample in bits per dimension."""
+    t = torch.full((x_start.shape[0],), c.num_timesteps - 1, dtype=torch.int64,
+                   device=x_start.device)
+    qt_mean, _, qt_log_var = q_mean_variance(c, x_start, t)
+    return mean_flat(normal_kl(qt_mean, qt_log_var, 0.0, 0.0)) / _LN2
+
+
+@torch.no_grad()
+def calc_bpd_loop(
+    c: GaussianCoefficients,
+    model_fn: Callable,
+    x_start: torch.Tensor,
+    generator: Optional[torch.Generator],
+    mean_type: ModelMeanType,
+    var_type: ModelVarType,
+    clip_denoised: bool = True,
+    thresholding_percentile: float = 0.9,
+) -> dict:
+    """The whole VLB in bits per dimension, over t = T-1 .. 0 with one noise
+    draw a step from ``generator`` (by default one seeded with 0). Returns
+    ``total_bpd`` and ``prior_bpd`` [N], and ``vb``, ``xstart_mse`` and
+    ``mse`` [N, T], whose columns run from t = T-1 down to 0."""
+    x_start = torch.as_tensor(x_start, device=c.device)
+    if generator is None:
+        generator = torch.Generator(device=c.device).manual_seed(0)
+    B = x_start.shape[0]
+    vb, xstart_mse, mse = [], [], []
+    for t in range(c.num_timesteps - 1, -1, -1):
+        tt = torch.full((B,), t, dtype=torch.int64, device=c.device)
+        noise = torch.randn(x_start.shape, generator=generator,
+                            device=c.device).to(x_start.dtype)
+        x_t = q_sample(c, x_start, tt, noise)
+        out = vb_terms_bpd(c, model_fn, x_start, x_t, tt, mean_type, var_type,
+                           clip_denoised=clip_denoised,
+                           thresholding_percentile=thresholding_percentile)
+        eps = predict_eps_from_xstart(c, x_t, tt, out["pred_xstart"])
+        vb.append(out["output"])
+        xstart_mse.append(mean_flat((out["pred_xstart"] - x_start) ** 2))
+        mse.append(mean_flat((eps - noise) ** 2))
+    vb = torch.stack(vb, dim=1)
+    pb = prior_bpd(c, x_start)
+    return {"total_bpd": vb.sum(dim=1) + pb, "prior_bpd": pb, "vb": vb,
+            "xstart_mse": torch.stack(xstart_mse, dim=1), "mse": torch.stack(mse, dim=1)}
+
+
 # ---------------------------------------------------------------------------
 # The pipeline
 # ---------------------------------------------------------------------------
 
 class GaussianDiffusionPipeline(AbstractDiffusionPipeline):
-    """Config-driven Gaussian diffusion: construction and sampling (DDPM,
-    DDIM and the solvers, respaced, guided). Training, VLB/bpd, inpainting
-    and encoding are not ported yet and raise (ROADMAP Queue 1 item 8)."""
+    """Config-driven Gaussian diffusion: training (every mean, variance and
+    loss type, min-SNR weighting, conditioning dropout), sampling (DDPM,
+    DDIM and the solvers, respaced, guided), inpainting, DDIM encoding and
+    bits-per-dim."""
 
     def __init__(
         self,
@@ -660,11 +898,53 @@ class GaussianDiffusionPipeline(AbstractDiffusionPipeline):
             self._respaced[key] = respace(self.coeffs, num_steps, spacing=spacing)
         return self._respaced[key]
 
+    def _train_model_fn(self, conditions, cond_mask=None) -> Callable:
+        """The training model call: the backbone itself (autograd on, in
+        the mode the caller set), its output cast to x's dtype."""
+        def fn(x, t):
+            return self.backbone(x, t, conditions, cond_mask=cond_mask).to(x.dtype)
+
+        return fn
+
+    def forward_process(self, data: torch.Tensor, generator=None, t=None, noise=None):
+        """Noise a clean batch; returns (x_t, noise, t). Draws t, then the
+        noise, from ``generator`` unless given."""
+        if t is None:
+            t = self.random_timesteps(generator, data.shape[0])
+        if noise is None:
+            noise = torch.randn(data.shape, generator=generator, device=self.device,
+                                dtype=data.dtype)
+        return q_sample(self.coeffs, data, t, noise), noise, t
+
     def loss_and_metrics(self, batch, generator=None, t=None, noise=None, cond_mask=None):
-        raise NotImplementedError(
-            "training the GaussianDiffusion pipeline (training_losses, the VLB terms) is "
-            f"not ported yet ({_ITEM8})",
-        )
+        """The mean of ``training_losses`` over the batch, and the metrics
+        train_loss, psnr (clean against noised) and, where the loss has
+        them, ``vb`` and ``mse``. The timesteps, the noise and (with
+        ``cond_dropout``) the conditioning keep-mask are drawn from
+        ``generator`` in that order unless given."""
+        batch = normalize_batch(batch)
+        data, labels = batch["data"], batch["labels"]
+        if t is None:
+            t = self.random_timesteps(generator, data.shape[0])
+        if noise is None:
+            noise = torch.randn(data.shape, generator=generator, device=self.device,
+                                dtype=data.dtype)
+        if cond_mask is None:
+            cond_mask = self.cond_dropout_mask(generator, data.shape[0], labels)
+        mse_weight = None
+        if self.loss_weighting == "min_snr":
+            mse_weight = min_snr_weight(self.coeffs.alphas_cumprod, t, self.model_mean_type,
+                                        self.min_snr_gamma)
+        terms = training_losses(self.coeffs, self._train_model_fn(labels, cond_mask), data, t,
+                                noise, self.model_mean_type, self.model_var_type,
+                                self.loss_type, mse_weight=mse_weight)
+        loss = torch.mean(terms["loss"])
+        metrics = self.training_metrics(data, terms.get("x_t", data), loss)
+        if "vb" in terms:
+            metrics["vb"] = torch.mean(terms["vb"])
+        if "mse" in terms:
+            metrics["mse"] = torch.mean(terms["mse"])
+        return loss, metrics
 
     @torch.no_grad()
     def reverse_process(
@@ -751,14 +1031,51 @@ class GaussianDiffusionPipeline(AbstractDiffusionPipeline):
             guidance_scale=guidance_scale, spacing=spacing, t_checkpoints=(),
             generator=generator)
 
-    def inpaint(self, *args, **kwargs):
-        raise NotImplementedError(f"inpainting (inpaint_loop) is not ported yet ({_ITEM8})")
+    def inpaint(
+        self,
+        known,
+        mask,
+        conditions=None,
+        sampler: str = "ddpm",
+        eta: float = 0.0,
+        num_steps: Optional[int] = None,
+        resample_steps: int = 1,
+        guidance_scale: Optional[float] = None,
+        generator: Optional[torch.Generator] = None,
+        row_keys: Optional[Sequence[int]] = None,
+    ) -> torch.Tensor:
+        """Regenerate the ``mask == 0`` region of ``known`` (RePaint) with
+        the pipeline's conditioning, guidance and respacing ('trailing' on a
+        zero-terminal-SNR schedule, 'uniform-t' otherwise). Noise as in
+        ``inpaint_loop``."""
+        coeffs = self.coeffs
+        if num_steps and num_steps < coeffs.num_timesteps:
+            coeffs = self.respaced(num_steps,
+                                   "trailing" if self._zero_terminal_snr else "uniform-t")
+        return inpaint_loop(
+            coeffs, self._model_fn(conditions, guidance_scale=guidance_scale), known, mask,
+            generator, self.model_mean_type, self.model_var_type, sampler=sampler, eta=eta,
+            clip_denoised=self.clip_denoised, resample_steps=resample_steps,
+            thresholding_percentile=self.thresholding_percentile, row_keys=row_keys,
+        )
 
-    def encode(self, *args, **kwargs):
-        raise NotImplementedError(f"DDIM encoding (encode_loop) is not ported yet ({_ITEM8})")
+    def encode(self, data, conditions=None, num_steps: Optional[int] = None) -> torch.Tensor:
+        """DDIM latents of ``data`` (the deterministic reverse ODE), respaced
+        on 'uniform-t' to ``num_steps``."""
+        coeffs = self.coeffs
+        if num_steps and num_steps < coeffs.num_timesteps:
+            coeffs = self.respaced(num_steps, "uniform-t")
+        return encode_loop(coeffs, self._model_fn(conditions), data, self.model_mean_type,
+                           self.model_var_type)
 
-    def calc_bpd(self, *args, **kwargs):
-        raise NotImplementedError(f"bits-per-dim (calc_bpd_loop) is not ported yet ({_ITEM8})")
+    def calc_bpd(self, data, generator: Optional[torch.Generator] = None, conditions=None,
+                 clip_denoised: bool = True) -> dict:
+        """Bits per dimension of ``data`` through the whole VLB
+        (``calc_bpd_loop``) on the full schedule."""
+        return calc_bpd_loop(self.coeffs, self._model_fn(conditions), data, generator,
+                             self.model_mean_type, self.model_var_type,
+                             clip_denoised=clip_denoised,
+                             thresholding_percentile=self.thresholding_percentile)
 
 
 def min_snr_weight(

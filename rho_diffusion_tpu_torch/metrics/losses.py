@@ -1,14 +1,16 @@
-"""Training losses and the PSNR metric.
+"""Training losses, the PSNR metric and the variational-lower-bound pieces.
 
-Port of the elementwise half of ``rho_diffusion_tpu/metrics/losses.py``
-(:22-123): the nine losses the reference resolved through its "nn" registry
-(torch.nn class names, mean reduction), ``resolve_loss`` and ``psnr``. The
-variational-lower-bound pieces belong to GaussianDiffusion's learned
-variance and are not ported yet (ROADMAP Queue 1, "the rest of
-GaussianDiffusion").
+Port of ``rho_diffusion_tpu/metrics/losses.py``: the nine losses the
+reference resolved through its "nn" registry (torch.nn class names, mean
+reduction), ``resolve_loss`` and ``psnr`` (:22-123); and the pieces of the
+VLB that learned-variance training and bits-per-dim read (:130-172):
+``normal_kl``, ``approx_standard_normal_cdf`` and
+``discretized_gaussian_log_likelihood``, with the same 1e-12 clamps and
++/-0.999 edge bins.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -100,3 +102,34 @@ def psnr(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     data_range = torch.amax(target) - torch.amin(target)
     mse = torch.mean(torch.square(pred - target))
     return 10.0 * torch.log10(torch.square(data_range) / torch.clamp(mse, min=1e-20))
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2) -> torch.Tensor:
+    """KL(N(mean1, exp(logvar1)) || N(mean2, exp(logvar2))), elementwise,
+    in nats. Any argument may be a Python float."""
+    mean1, logvar1, mean2, logvar2 = (
+        a if isinstance(a, torch.Tensor) else torch.tensor(float(a))
+        for a in (mean1, logvar1, mean2, logvar2))
+    return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                  + torch.square(mean1 - mean2) * torch.exp(-logvar2))
+
+
+def approx_standard_normal_cdf(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation of the standard normal CDF (Page 1977)."""
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * torch.pow(x, 3))))
+
+
+def discretized_gaussian_log_likelihood(x: torch.Tensor, means: torch.Tensor,
+                                        log_scales: torch.Tensor) -> torch.Tensor:
+    """Log-likelihood, elementwise in nats, of a Gaussian discretised to
+    bins of width 2/255 over [-1, 1]; the edge bins (|x| > 0.999) take the
+    whole tail."""
+    centered = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = approx_standard_normal_cdf(inv_stdv * (centered + 1.0 / 255.0))
+    cdf_min = approx_standard_normal_cdf(inv_stdv * (centered - 1.0 / 255.0))
+    log_cdf_plus = torch.log(torch.clamp(cdf_plus, min=1e-12))
+    log_one_minus_cdf_min = torch.log(torch.clamp(1.0 - cdf_min, min=1e-12))
+    log_cdf_delta = torch.log(torch.clamp(cdf_plus - cdf_min, min=1e-12))
+    return torch.where(x < -0.999, log_cdf_plus,
+                       torch.where(x > 0.999, log_one_minus_cdf_min, log_cdf_delta))

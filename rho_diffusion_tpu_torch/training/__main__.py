@@ -2,7 +2,7 @@
 
     python -m rho_diffusion_tpu_torch.training CONFIG.json [-d cuda|cpu]
         [-p weights.npz|weights.pth] [-e EPOCHS] [--work-dir DIR] [--no-resume]
-        [--pipeline DDPM]
+        [--pipeline DDPM|GaussianDiffusionPipeline]
 
 Mirrors ``scripts/training.py``: builds the ``Trainer`` from the config,
 initialises the state (backbone weights from ``-p``, else the latest
@@ -10,7 +10,11 @@ checkpoint under the work dir unless ``--no-resume``, else fresh seeded
 weights) and trains. Full-state checkpoints land in
 ``training.checkpoint_dir`` or ``<work-dir>/checkpoints``, the backbone
 weights in ``<work-dir>/model.pth``, the metrics in
-``<work-dir>/metrics.jsonl``.
+``<work-dir>/metrics.jsonl``. ``--pipeline`` names the pipeline over the
+config's (DDPM or GaussianDiffusionPipeline, with the config's pipeline
+kwargs); a config that names GaussianDiffusionPipeline (e.g.
+``examples/config_learned_variance.json``) trains it as it trains DDPM,
+validation included.
 
 It runs on CUDA unless ``-d cpu`` is given (a config's "tpu" means CUDA) and
 raises when CUDA is absent. ``--profile`` raises: profiling a training run
@@ -41,7 +45,8 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
     parser.add_argument("-p", dest="model_checkpoint_path", default=None,
                         help="backbone weights to start from: a .pth state_dict or a JAX .npz")
     parser.add_argument("-e", "--epochs", type=int, default=None)
-    parser.add_argument("--pipeline", default=None, help="DDPM (the only ported pipeline)")
+    parser.add_argument("--pipeline", default=None,
+                        help="DDPM | GaussianDiffusionPipeline (over the config's pipeline)")
     parser.add_argument("--work-dir", type=Path, default=Path("."))
     parser.add_argument("--profile", default=None, help="not ported yet; raises")
     parser.add_argument("--no-resume", action="store_true")
@@ -50,12 +55,8 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
     config = ExperimentConfig.from_json(args.json_config)
     device = resolve_device(args.device or config.training.device)
     if args.pipeline:
-        if args.pipeline != "DDPM":
-            raise NotImplementedError(
-                f"training the pipeline '{args.pipeline}' is not ported; the port trains DDPM "
-                "(GaussianDiffusion training is ROADMAP Queue 1 item 8)")
         config.pipeline = ComponentConfig(
-            "DDPM", dict(config.pipeline.kwargs) if config.pipeline else {})
+            args.pipeline, dict(config.pipeline.kwargs) if config.pipeline else {})
     if apply_torch_checkpoint_schedule_fixup(config, args.model_checkpoint_path):
         print("torch checkpoint + cosine schedule: using exact_reference table")
     print(f"device: {device}", flush=True)

@@ -310,11 +310,22 @@ def test_zero_snr_sampling_checks_and_spacing_defaults(monkeypatch):
 
 
 def test_training_half_raises():
-    pipe = both(PLAIN)[0]
-    for call in (lambda: pipe.loss_and_metrics({"data": torch.zeros(1, 8, 1)}),
-                 pipe.inpaint, pipe.encode, pipe.calc_bpd):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            call()
+    """The training half is ported (held against JAX in
+    tests/test_torch_gaussian_training.py and tests/test_torch_inpaint_encode.py);
+    what still raises is what JAX refuses: inpainting with a multistep
+    solver or fewer than one resampling round."""
+    pipe, jpipe = both(PLAIN)
+    loss, metrics = pipe.loss_and_metrics({"data": torch.zeros(1, 8, 1)},
+                                          generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(loss) and set(metrics) == {"train_loss", "psnr", "mse"}
+    known = np.zeros((1, 8, 1), np.float32)
+    for kw in (dict(sampler="dpm++"), dict(sampler="unipc"), dict(resample_steps=0)):
+        with pytest.raises(ValueError) as got:
+            pipe.inpaint(torch.from_numpy(known), torch.ones(1), num_steps=3, **kw)
+        with pytest.raises(ValueError) as want:
+            jpipe.inpaint(None, jax.random.PRNGKey(0), jnp.asarray(known), jnp.ones(1),
+                          num_steps=3, **kw)
+        assert str(got.value) == str(want.value)
 
 
 # ---------------------------------------------------------------------------
