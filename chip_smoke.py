@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py [--phases env,build,kernels,main,main64,gauss,vlb,train,data,hold,serve,timings,fp32,bench]
+    python3 chip_smoke.py [--phases env,build,kernels,main,main64,gauss,vlb,train,data,hold,serve,load,utils,timings,fp32,bench]
                           [--steps 25] [--samples 4] [--timing-batch 8]
 
 Builds the port's CUDA kernels from ``rho_diffusion_tpu_torch/csrc`` (and
@@ -84,6 +84,23 @@ weights loaded from a reference-layout ``.pth``):
   fp32 plain model with the plain ring, and a single-rank service (the
   flash kernel's route) against the ring service, bucket-1 latencies of
   both, and a profiled bucket-8 request (its device busy share);
+* ``load``: the serving load harness
+  (``rho_diffusion_tpu_torch.benchmarks.serve_bench``) at its defaults: its
+  service (32^3 UNetv2 at full width, bf16, DDIM-50, buckets 1 and 8) over
+  seeded random weights, 8 requests one at a time (p50 latency) and 32
+  concurrent one-sample requests (volumes/s, mean occupancy, launches, the
+  device's busy share), and one served row held against the fp32 plain
+  model;
+* ``utils``: the training utilities: the op table
+  (``rho_diffusion_tpu_torch.benchmarks.op_table``) of the flagship's
+  training step at batch 32 (device time by kernel group, by operator and
+  GroupNorm32's share); 64^3 training through the bench entry's train mode
+  with BENCH_REMAT=1 at batch 8, and at batch 4 with and without it
+  (steps/s, peak bytes; K2 and the fused backward at T = 4096); one loss's
+  gradients at 64^3 with recomputation against without (and peak bytes);
+  the ten optax optimizers, three steps each on the flagship's distinct
+  parameter shapes, on the card against the CPU; and the training CLI with
+  ``--profile`` for two steps, its trace read back;
 * ``fp32``: the flagship in fp32 (a config whose ``training.dtype`` is
   float32): every distinct conv problem of a batch-8 forward and of a
   batch-32 step's dgrad (the 3xTF32 implicit GEMM where Cin % 4 == 0 and
@@ -144,7 +161,8 @@ phase prints one JSON line; a failing phase exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``, after the
 ``kernels`` line and the card's ``nvidia-smi`` name and power limit. A run
 whose ``--phases`` leave out any of kernels, main, main64, gauss, vlb,
-train, data, serve, timings, fp32 and bench prints neither and exits 3.
+train, data, serve, load, utils, timings, fp32 and bench prints neither and
+exits 3.
 
 Exits non-zero without a result when CUDA is unavailable or the script runs
 outside a checkout of the repository. Imports nothing of JAX.
@@ -172,10 +190,10 @@ DEEP_GALAXY_CONFIG = ROOT / "examples" / "config_deep_galaxy.json"
 SPECTRO_CONFIG = ROOT / "examples" / "config_spectroscopy.json"
 QUALITY_CONFIG = ROOT / "examples" / "config_spherical_harmonics_quality.json"
 PHASES = ("env", "build", "kernels", "main", "main64", "gauss", "vlb", "train", "data", "hold",
-          "serve", "timings", "fp32", "bench")
+          "serve", "load", "utils", "timings", "fp32", "bench")
 # the phases whose numbers the kernels line carries
 KERNELS_LINE_PHASES = ("kernels", "main", "main64", "gauss", "vlb", "train", "data", "serve",
-                       "timings", "fp32", "bench")
+                       "load", "utils", "timings", "fp32", "bench")
 DEVICE = "cuda"
 # the train phase: the flagship's batch, and steps cut to five
 TRAIN_BATCH = 32
@@ -1415,12 +1433,12 @@ GAUSS_CUTS = {
 
 
 @contextlib.contextmanager
-def bench_env(env: dict):
-    """The bench entry's BENCH_* variables set to ``env`` (the others
-    cleared) for the body, then put back."""
+def bench_env(env: dict, prefix: str = "BENCH_"):
+    """An entry's ``prefix`` variables (the bench entry's BENCH_*) set to
+    ``env`` (the others cleared) for the body, then put back."""
     import os
 
-    saved = {k: v for k, v in os.environ.items() if k.startswith("BENCH_")}
+    saved = {k: v for k, v in os.environ.items() if k.startswith(prefix)}
     for k in saved:
         del os.environ[k]
     os.environ.update(env)
@@ -2849,13 +2867,14 @@ def ops_of(fn, iters: int) -> tuple[dict, dict]:
     ``iters`` calls of ``fn`` under torch.profiler."""
     import torch
 
-    from rho_diffusion_tpu_torch.benchmarks._timing import trace_events
+    from rho_diffusion_tpu_torch.benchmarks._timing import device_events, trace_events
 
+    events = trace_events(fn, iters)
     device, copies = {}, {}
-    for e in trace_events(fn, iters):
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            device[e.name()] = device.get(e.name(), 0) + 1
-        elif e.name() in COPY_OPS:
+    for e in device_events(events):
+        device[e.name()] = device.get(e.name(), 0) + 1
+    for e in events:
+        if e.device_type() == torch.autograd.DeviceType.CPU and e.name() in COPY_OPS:
             copies[e.name()] = copies.get(e.name(), 0) + 1
     return device, copies
 
@@ -4253,6 +4272,318 @@ def phase_data(state: dict) -> None:
 
 
 # name, source in csrc/, the TPU kernel it replaces, and the path that runs it
+# the load phase: the serving load harness (benchmarks/serve_bench.py) at its
+# defaults, serving seeded random weights (the harness's own seeded init
+# zeroes the heads, so the UNet would output zeros and a hold of the served
+# row would hold nothing), and the seed of the held request
+LOAD_HOLD_SEED = 3
+# the kernels of the sampling path, and of the training path besides
+SAMPLING_KERNELS = ("conv3d_igemm", "conv3d_direct", "flash_attention")
+TRAINING_KERNELS = SAMPLING_KERNELS + ("conv3d_dgrad_igemm", "conv3d_dgrad_direct",
+                                       "flash_attention_bwd", "flash_attention_bwd_delta")
+
+
+def phase_load(state: dict) -> None:
+    """The serving load harness: ``benchmarks.serve_bench``'s service (32^3
+    UNetv2 at full width, bf16, DDIM-50, buckets (1, 8)) over seeded random
+    weights, its latency phase (8 requests, one at a time) and its load
+    phase (32 concurrent one-sample requests) with the device's busy share;
+    then one served row held against the fp32 plain model (the same row
+    keys) by ``hold_rows``."""
+    import numpy as np
+    import torch
+
+    from rho_diffusion_tpu_torch.benchmarks import serve_bench
+    from rho_diffusion_tpu_torch.diffusion.sampling_rng import per_sample_keys
+    from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+    from rho_diffusion_tpu_torch.ops.kernels.flash_attention import flash_routes
+
+    device = torch.device(DEVICE)
+    with bench_env({}, prefix="SERVE_"):
+        s = serve_bench.settings()
+    sd = random_state_dict(serve_bench.pipeline(s, "cpu").backbone, seed=0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    service = serve_bench.build_service(s, device, params=sd)
+    build_s = time.perf_counter() - t0
+    conds1 = np.zeros((1, 4 * s["mc"]), np.float32)
+    try:
+        launch_counts.clear()
+        flash_routes.clear()
+        measured, busy = serve_bench.measure(service, s, device)
+        counts, routes = dict(launch_counts), dict(flash_routes)
+        served = service.generate(conds1, seed=LOAD_HOLD_SEED)
+    finally:
+        service.close()
+    del service
+    torch.cuda.empty_cache()
+    plain = {}
+    with plain_backends():
+        for dt in ("bfloat16", "float32"):
+            pipe = serve_bench.pipeline(s, device, dtype=dt)
+            pipe.load_state_dict(sd)
+            plain[dt] = {"sample": pipe.reverse_process(
+                pipe.sample_shape(1), torch.from_numpy(conds1).to(device), sampler=s["sampler"],
+                num_steps=s["steps"], row_keys=per_sample_keys(LOAD_HOLD_SEED, 1)).float().cpu()}
+            del pipe
+    hold = {**hold_rows({"sample": torch.from_numpy(served.samples)}, plain["bfloat16"],
+                        plain["float32"], HOLD_CAP)["sample"],
+            "request": {"n": 1, "seed": LOAD_HOLD_SEED, "bucket": served.bucket}}
+    state["load_launches"] = counts
+    emit("load", workload=measured["workload"], buckets=s["buckets"], steps=s["steps"],
+         build_and_warmup_s=build_s, result=measured, device_busy_share_of_load_phase=busy,
+         p50_latency_s=measured["single_request_latency_p50_s"],
+         volumes_per_s=measured["throughput_volumes_per_s"],
+         mean_occupancy=measured["mean_batch_occupancy"],
+         load_phase_launches=measured["load_phase_launches"], launches=counts,
+         flash_routes=routes, hold=hold)
+    problems = []
+    if not measured["all_finite"] or not 0 < measured["mean_batch_occupancy"] <= 1:
+        problems.append(f"served samples or occupancy: {measured}")
+    if measured["load_phase_launches"] < math.ceil(s["n_load"] / max(s["buckets"])):
+        problems.append(f"{measured['load_phase_launches']} launches for {s['n_load']} requests")
+    missing = [k for k in SAMPLING_KERNELS if not counts.get(k)]
+    if missing:
+        problems.append(f"the served path never launched {missing}; counts {counts}")
+    if not hold["ok"]:
+        problems.append(f"served row hold: {hold}")
+    if problems:
+        fail("load: " + "; ".join(problems))
+
+
+# the utils phase: 64^3 training through the bench entry (recomputed at batch
+# 8, and at batch 4 both ways), the remat hold's batch, and the optimizers'
+# base learning rates (each moves the parameters visibly in three steps: LARS's
+# trust ratio scales its step by 1e-3) and bar: the relative L2 distance of the
+# card's parameter displacement from the CPU's
+TRAIN64_RUNS = (
+    ("remat_b8", {"BENCH_GRID": "64", "BENCH_BATCH": "8", "BENCH_REMAT": "1"}),
+    ("remat_b4", {"BENCH_GRID": "64", "BENCH_BATCH": "4", "BENCH_REMAT": "1"}),
+    ("plain_b4", {"BENCH_GRID": "64", "BENCH_BATCH": "4"}),
+)
+TRAIN64_TIMING = {"BENCH_STEPS": "5", "BENCH_WINDOWS": "2", "BENCH_WARMUP": "2"}
+REMAT_HOLD_BATCH = 2
+REMAT_HOLD_GRID = 64
+OPTIMIZER_LR = {"Adamax": 1e-3, "NAdam": 1e-3, "RAdam": 1e-3, "RMSprop": 1e-3, "Adagrad": 1e-2,
+                "Adadelta": 1.0, "Adafactor": 1e-2, "Lion": 1e-3, "LAMB": 1e-3, "LARS": 1.0}
+OPTIMIZER_STEPS = 3
+OPTIMIZER_BAR = 1e-3
+PROFILE_STEPS = 2
+
+
+def remat_hold(device) -> dict:
+    """One DDPM loss's parameter gradients at 64^3 (the bench's model,
+    batch REMAT_HOLD_BATCH) with recomputation against without, on the same
+    seeded weights and inputs; the bar is HOLD_FACTOR times the distance of
+    two runs without it (the step's own repeatability), or bitwise where
+    that is 0. Peak bytes allocated during each gradient."""
+    import numpy as np
+    import torch
+
+    from rho_diffusion_tpu_torch import bench
+
+    pipes = {}
+    for name, remat in (("plain", "0"), ("remat", "1")):
+        with bench_env({"BENCH_GRID": str(REMAT_HOLD_GRID),
+                        "BENCH_BATCH": str(REMAT_HOLD_BATCH), "BENCH_REMAT": remat}):
+            pipes[name] = bench.training_pipeline(bench.settings(), device)
+    sd = random_state_dict(pipes["plain"].backbone, seed=4)
+    for pipe in pipes.values():
+        pipe.load_state_dict(sd)
+    rng = np.random.default_rng(5)
+    unet = pipes["plain"].backbone
+    shape = (REMAT_HOLD_BATCH, *unet.data_shape, 1)
+    data = {"data": torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32)).to(device),
+            "labels": torch.from_numpy(rng.uniform(
+                0, 1, (REMAT_HOLD_BATCH, 4 * unet.model_channels)).astype(np.float32)).to(device)}
+    t = torch.tensor([17, 803], device=device)[:REMAT_HOLD_BATCH]
+    noise = randn(shape, 6, device, torch.float32)
+    grads, peaks = {}, {}
+    for key, name in (("plain", "plain"), ("plain_again", "plain"), ("remat", "remat")):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads[key] = train_gradients(pipes[name], data, t, noise)
+        torch.cuda.synchronize()
+        peaks[key] = {"peak_bytes": torch.cuda.max_memory_allocated(),
+                      "peak_over_start_bytes": torch.cuda.max_memory_allocated() - base}
+    floor = grad_distance(grads["plain_again"], grads["plain"])
+    got = grad_distance(grads["remat"], grads["plain"])
+    bitwise = all(torch.equal(grads["remat"][k], v) for k, v in grads["plain"].items())
+    ok = (bitwise if floor[0] == 0.0 else got[0] <= HOLD_FACTOR * floor[0]) \
+        and all(bool(torch.isfinite(v).all()) for v in grads["remat"].values())
+    return {"batch": REMAT_HOLD_BATCH, "grid": REMAT_HOLD_GRID, "remat_vs_plain_rel_l2": got[0],
+            "worst_param": got[1], "worst_param_rel_l2": got[2],
+            "plain_vs_plain_rel_l2": floor[0], "bitwise": bitwise,
+            "bar": HOLD_FACTOR * floor[0], "peaks": peaks, "ok": ok}
+
+
+def optimizer_holds(device) -> list:
+    """Each of the ten optax optimizers: OPTIMIZER_STEPS steps on the
+    flagship's distinct parameter shapes (one parameter per shape, seeded
+    values and gradients) on the card and on the CPU; the card's
+    displacement held against the CPU's."""
+    import torch
+
+    from rho_diffusion_tpu_torch.training.optimizers import build_optimizer
+
+    model = build_pipeline(flagship_config(25), "bfloat16", "cpu").backbone
+    shapes = sorted({tuple(p.shape) for p in model.parameters()})
+    gen = torch.Generator().manual_seed(11)
+    start = [0.05 * torch.randn(shape, generator=gen) for shape in shapes]
+    grads = [[torch.randn(shape, generator=gen) for shape in shapes]
+             for _ in range(OPTIMIZER_STEPS)]
+    rows = []
+    for name, lr in sorted(OPTIMIZER_LR.items()):
+        opt = build_optimizer(name, {"lr": lr})
+        moved = {}
+        for key, where in (("card", device), ("cpu", "cpu")):
+            params = [torch.nn.Parameter(p.to(where, copy=True)) for p in start]
+            torch_opt = opt.make(params)
+            t0 = time.perf_counter()
+            for i in range(OPTIMIZER_STEPS):
+                for p, g in zip(params, grads[i]):
+                    p.grad = g.to(where)
+                opt.set_lr(torch_opt, i)
+                torch_opt.step()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            moved[key] = (torch.cat([(p.detach().cpu() - s0).flatten()
+                                     for p, s0 in zip(params, start)]), seconds)
+            del params, torch_opt
+        diff = float(torch.linalg.vector_norm(moved["card"][0] - moved["cpu"][0]))
+        size = float(torch.linalg.vector_norm(moved["cpu"][0]))
+        rel_moved = size / float(torch.linalg.vector_norm(torch.cat([s.flatten() for s in start])))
+        rows.append({"optimizer": name, "lr": lr, "rel_l2_of_displacement": diff / size,
+                     "displacement_rel_to_params": rel_moved, "bar": OPTIMIZER_BAR,
+                     "card_s": moved["card"][1], "cpu_s": moved["cpu"][1],
+                     "ok": diff / size <= OPTIMIZER_BAR and rel_moved > 0})
+    return rows
+
+
+def profiled_training(device) -> dict:
+    """``python -m rho_diffusion_tpu_torch.training`` with ``--profile`` on
+    the flagship config at full width for PROFILE_STEPS steps; the chrome
+    trace it writes, read back: its device (kernel) events."""
+    import torch
+
+    from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+    from rho_diffusion_tpu_torch.training.__main__ import main as train_main
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_profile_"))
+    try:
+        cfg = train_config(TRAIN_BATCH)
+        cfg["dataset"]["kwargs"]["length"] = PROFILE_STEPS * TRAIN_BATCH
+        cfg_path = tmp / "config.json"
+        cfg_path.write_text(json.dumps(cfg))
+        torch.cuda.empty_cache()
+        launch_counts.clear()
+        t0 = time.perf_counter()
+        st = train_main([str(cfg_path), "-d", DEVICE, "--work-dir", str(tmp / "run"),
+                         "--no-resume", "--profile", str(tmp / "trace")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(launch_counts)
+        steps = int(st.step)
+        del st
+        traces = sorted((tmp / "trace").glob("*.pt.trace.json"))
+        events = json.loads(traces[0].read_text())["traceEvents"] if traces else []
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        return {"steps": steps, "wall_s": wall, "trace_files": [t.name for t in traces],
+                "trace_bytes": sum(t.stat().st_size for t in traces), "events": len(events),
+                "kernel_events": len(kernels),
+                "kernel_ms": sum(e.get("dur", 0) for e in kernels) / 1e3,
+                "port_kernel_events": sum(1 for e in kernels if any(
+                    k in e.get("name", "") for k in ("conv3d_", "flash_"))),
+                "launches": counts}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def phase_utils(state: dict) -> None:
+    """The training utilities on the card: (a) the op table of the
+    flagship's training step at batch 32 (``benchmarks.op_table`` at its
+    defaults); (b) 64^3 training through the bench entry's train mode with
+    BENCH_REMAT=1 at batch 8, and at batch 4 with and without it (steps/s,
+    peak bytes); (c) the recomputed gradients held against plain ones; (d)
+    the ten optax optimizers on the card against the CPU; (e) the training
+    CLI with ``--profile``."""
+    import torch
+
+    from rho_diffusion_tpu_torch import bench
+    from rho_diffusion_tpu_torch.benchmarks import op_table
+    from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+    from rho_diffusion_tpu_torch.ops.kernels.flash_attention import flash_routes
+
+    device = torch.device(DEVICE)
+    problems = []
+    launches: dict = {}
+    seconds: dict = {}
+    t0 = time.perf_counter()
+
+    torch.cuda.empty_cache()
+    launch_counts.clear()
+    with bench_env({}, prefix="XPROF_"):
+        table = op_table.main([])
+    launches["utils_op_table"] = dict(launch_counts)
+    torch.cuda.empty_cache()
+    group_sum = sum(g["ms"] for g in table["groups"])
+    seconds["op_table"] = time.perf_counter() - t0
+    window = table["window_ms"]
+    if not window > 0 or abs(group_sum - window) > 0.01 * window:
+        problems.append(f"op table: groups {group_sum} ms of a {table['window_ms']} ms window")
+
+    train64 = {}
+    for name, env in TRAIN64_RUNS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launch_counts.clear()
+        flash_routes.clear()
+        t1 = time.perf_counter()
+        with bench_env({**env, **TRAIN64_TIMING}):
+            line = bench.main([])
+        train64[name] = {"env": env, "line": line, "peak_bytes": torch.cuda.max_memory_allocated(),
+                         "wall_s": time.perf_counter() - t1, "launches": dict(launch_counts),
+                         "flash_routes": dict(flash_routes)}
+        launches[f"utils_train64_{name}"] = dict(launch_counts)
+    seconds["train64"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    torch.cuda.empty_cache()
+    hold = remat_hold(device)
+    torch.cuda.empty_cache()
+    seconds["remat_hold"] = time.perf_counter() - t0 - sum(seconds.values())
+    optimizers = optimizer_holds(device)
+    seconds["optimizers"] = time.perf_counter() - t0 - sum(seconds.values())
+    profiled = profiled_training(device)
+    launches["utils_profile"] = profiled["launches"]
+    seconds["profile"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    state["utils_launches"] = launches
+    emit("utils", op_table={k: table[k] for k in ("workload", "device", "steps", "window_ms",
+                                                  "per_step_ms", "launches", "groups",
+                                                  "scopes", "annotations_left_out_ms")},
+         op_table_group_sum_ms=group_sum, train64=train64, remat_hold=hold,
+         optimizers=optimizers, profiled_training=profiled, launches=launches, seconds=seconds)
+    for name in ("utils_op_table", *(f"utils_train64_{n}" for n, _ in TRAIN64_RUNS),
+                 "utils_profile"):
+        missing = [k for k in TRAINING_KERNELS if not launches[name].get(k)]
+        if missing:
+            problems.append(f"{name} never launched {missing}")
+    for name, run in train64.items():
+        if not run["flash_routes"] or not all("Tk=4096" in r for r in run["flash_routes"]):
+            problems.append(f"train64 {name}: flash routes {run['flash_routes']}")
+    if not hold["ok"]:
+        problems.append(f"remat hold: {hold}")
+    bad = [r for r in optimizers if not r["ok"]]
+    if bad:
+        problems.append(f"optimizers card vs CPU: {bad}")
+    if profiled["steps"] != PROFILE_STEPS or not profiled["port_kernel_events"]:
+        problems.append(f"profiled training: {profiled}")
+    if problems:
+        fail("utils: " + "; ".join(problems))
+
+
 KERNELS = (
     # K5's implicit GEMM: the kernel in conv3d_wgmma.cuh, its launcher in conv3d.cu
     ("conv3d_igemm", "conv3d_wgmma.cuh", "rho_diffusion_tpu/ops/pallas/conv3d.py:102",
@@ -4355,8 +4686,9 @@ def kernels_line(state: dict) -> list:
     launches = {"sampling": state["launches"], "sampling64": state["main64_launches"],
                 "training": state["train_launches"], "serving": state["serve_launches"],
                 "bench": state["bench_launches"], "kernels": state["kernels_launches"],
-                "fp32": state["fp32_launches"], **state["gauss_launches"],
-                **state["vlb_launches"], **state["data_launches"]}
+                "fp32": state["fp32_launches"], "load": state["load_launches"],
+                **state["gauss_launches"], **state["vlb_launches"], **state["data_launches"],
+                **state["utils_launches"]}
     out = []
     for name, source, replaces, path in KERNELS:
         rows = [r for r in state["timings"] + state["bench"] + state["fp32"] + state["data"]
@@ -4539,6 +4871,10 @@ def main(argv=None) -> int:
         phase_hold(state)
     if "serve" in phases:
         phase_serve(state, args.steps)
+    if "load" in phases:
+        phase_load(state)
+    if "utils" in phases:
+        phase_utils(state)
     if "timings" in phases:
         phase_timings(state, args.timing_batch)
     if "fp32" in phases:

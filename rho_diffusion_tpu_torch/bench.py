@@ -36,10 +36,11 @@ Modes (``BENCH_MODE``):
 
 Other knobs: ``BENCH_BATCH``, ``BENCH_GRID``, ``BENCH_DTYPE``
 (bfloat16|float32), ``BENCH_DIMS`` (3, 2 or 1), ``BENCH_ACCUM``,
-``BENCH_NO_EMA``, ``BENCH_NO_GRADNORM``. ``BENCH_MODEL=vit`` (ROADMAP
-Queue 1 item 9) and ``BENCH_REMAT`` (item 12) raise until their machinery is
-ported; ``BENCH_FLAT_OPT`` flattens optax's state tree, which has no torch
-counterpart, and raises.
+``BENCH_NO_EMA``, ``BENCH_NO_GRADNORM``, ``BENCH_REMAT=1`` (the UNet's
+``use_checkpoint``: ResBlocks and AttentionBlocks recomputed in the
+backward, the 64^3 memory recipe). ``BENCH_MODEL=vit`` (ROADMAP Queue 1
+item 9) raises until its backbone is ported; ``BENCH_FLAT_OPT`` flattens
+optax's state tree, which has no torch counterpart, and raises.
 
 It runs on CUDA unless ``-d cpu`` is given (for the smoke sizes), and
 raises when CUDA is absent.
@@ -82,6 +83,7 @@ def settings() -> dict:
         "grid": _env("BENCH_GRID", 8 if smoke else 32),
         "dtype": os.environ.get("BENCH_DTYPE", "bfloat16"), "mc": 16 if smoke else 64,
         "dims": _env("BENCH_DIMS", 3), "num_classes": 20,
+        "remat": os.environ.get("BENCH_REMAT") == "1",
     }
     if smoke and s["mode"] == "realdata":
         # the dataset's sha512 labels are 256 wide and condition the model
@@ -91,10 +93,6 @@ def settings() -> dict:
         raise NotImplementedError(
             f"BENCH_MODEL={os.environ['BENCH_MODEL']}: the port has the UNetv2 backbone only "
             "(VisionTransformer is ROADMAP Queue 1 item 9)")
-    if os.environ.get("BENCH_REMAT") == "1":
-        raise NotImplementedError(
-            "BENCH_REMAT=1: activation recomputation (use_checkpoint) is not ported yet "
-            "(ROADMAP Queue 1 item 12)")
     if os.environ.get("BENCH_FLAT_OPT") == "1":
         raise NotImplementedError(
             "BENCH_FLAT_OPT=1 flattens optax's optimizer-state tree; the port's optimizers "
@@ -110,7 +108,8 @@ def settings() -> dict:
         data_shape=(s["grid"],) * s["dims"], dims=s["dims"], in_channels=1, out_channels=1,
         model_channels=s["mc"], num_res_blocks=2,
         channel_mult=(1, 2) if smoke else (1, 2, 4, 8), attention_resolutions=[16, 8],
-        num_heads=4, num_classes=s["num_classes"], use_scale_shift_norm=True, dtype=s["dtype"])
+        num_heads=4, num_classes=s["num_classes"], use_scale_shift_norm=True,
+        use_checkpoint=s["remat"], dtype=s["dtype"])
     return s
 
 
@@ -239,9 +238,10 @@ def bench_training(s: dict, device) -> dict:
     loss = float(metrics["train_loss"])
     metric = (f"train_steps_per_sec_per_chip_{dims}d_unet_{_grid_name(grid, dims)}_b{batch}"
               if not s["smoke"] else "train_steps_per_sec_per_chip_smoke")
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
     print(f"{device_line(device)} chips=1 dtype={s['dtype']} batch={batch} grid={grid} "
-          f"warmup={warmup_s:.1f}s elapsed={elapsed:.2f}s loss={loss:.4f} "
-          f"finite={np.isfinite(loss)}", file=sys.stderr)
+          f"remat={s['remat']} warmup={warmup_s:.1f}s elapsed={elapsed:.2f}s loss={loss:.4f} "
+          f"finite={np.isfinite(loss)} peak_bytes={peak}", file=sys.stderr)
     return {"metric": metric, "value": round(value, 4), "unit": "steps/sec/chip",
             "vs_baseline": 1.0}
 

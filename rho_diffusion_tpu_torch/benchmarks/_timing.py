@@ -119,14 +119,22 @@ def trace_events(fn, iters: int) -> list:
     return [e for e in prof.profiler.kineto_results.events() if LEAD_KERNEL not in e.name()]
 
 
+def device_events(events) -> list:
+    """The device's own work among raw profiler events: kernels, copies
+    and memsets. A record_function range (the optimizer's step, a scope)
+    also has a span on the device's timeline, over kernels already
+    counted; it is left out."""
+    return [e for e in events
+            if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation()]
+
+
 def kernel_events(fn, iters: int) -> dict:
     """{CUDA kernel name: (device ms, launches recorded)} over ``iters``
     calls of ``fn`` (in the caller's grad mode)."""
     by_name: dict = {}
-    for e in trace_events(fn, iters):
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            ms, n = by_name.get(e.name(), (0.0, 0))
-            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    for e in device_events(trace_events(fn, iters)):
+        ms, n = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
     return by_name
 
 

@@ -30,7 +30,8 @@ until int8 inference is ported (ROADMAP Queue 1 item 11).
 
 It runs on CUDA unless ``-d cpu`` is given (a config's "tpu" means CUDA) and
 raises when CUDA is absent. The JAX package's orbax checkpoint directories
-are not readable; that case says so.
+are not readable (OCDBT with zstd chunks); that case says so and names the
+``model.npz`` the JAX trainer writes beside them, which ``-p`` reads.
 """
 from __future__ import annotations
 

@@ -223,8 +223,9 @@ def load_state_dict_file(path: str | Path, model_kwargs: dict[str, Any]) -> dict
         sd = torch.load(path, map_location="cpu", weights_only=True)
         if any("down_blocks." in k for k in sd):
             raise NotImplementedError(
-                f"{path} is a diffusers UNet2DModel checkpoint; the port reads "
-                "reference UNetv2 state_dicts only",
+                f"{path} is a diffusers UNet2DModel checkpoint; the port reads reference "
+                "UNetv2 state_dicts only: the mapping's target, the UNet_Diffuser backbone, "
+                "is not ported yet (ROADMAP Queue 1 item 9)",
             )
         return {k: v.float() for k, v in sd.items()}
     if path.suffix == ".npz":

@@ -11,6 +11,14 @@ Activations are channels-last [B, *spatial, C]. Parameters stay fp32 and are
 cast to the compute dtype at use (bf16 on the flagship); GroupNorm statistics
 and the attention softmax stay fp32; the time MLP runs in fp32; the output
 head runs in fp32.
+
+``use_checkpoint`` recomputes each ResBlock's and AttentionBlock's forward
+in the backward (``torch.utils.checkpoint``, non-reentrant) while the model
+trains under grad, where the JAX package wraps the same two blocks in
+``nn.remat``: their activations are not kept between the forward and the
+backward. The state_dict does not depend on it, and the recompute draws the
+same dropout masks (checkpoint restores the global CPU and CUDA random
+state, which ``nn.Dropout`` draws from).
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ from typing import Any, Callable, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from rho_diffusion_tpu_torch.models.conditioning import MultiEmbeddings
 from rho_diffusion_tpu_torch.ops.activations import resolve_activation
@@ -59,7 +68,19 @@ class Activation(nn.Module):
         return self.fn(x)
 
 
-class ResBlock(nn.Module):
+class Recomputable(nn.Module):
+    """A block whose ``block`` forward is recomputed in the backward when
+    ``use_checkpoint`` is set and the model trains under grad."""
+
+    use_checkpoint = False
+
+    def forward(self, *args: torch.Tensor) -> torch.Tensor:
+        if self.use_checkpoint and self.training and torch.is_grad_enabled():
+            return checkpoint(self.block, *args, use_reentrant=False)
+        return self.block(*args)
+
+
+class ResBlock(Recomputable):
     """Residual block with timestep-embedding conditioning."""
 
     def __init__(
@@ -108,7 +129,7 @@ class ResBlock(nn.Module):
             return avg_pool_nd(x, self.dims, resample_factors(self.dims))
         return x
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def block(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         norm_in, _, conv_in = self.in_layers
         h = self.act(norm_in(x))
         h, x = self._resample(h), self._resample(x)
@@ -125,7 +146,7 @@ class ResBlock(nn.Module):
         return self.skip_connection(x) + h
 
 
-class AttentionBlock(nn.Module):
+class AttentionBlock(Recomputable):
     """Self-attention over all flattened spatial positions. The qkv channel
     order is the reference's legacy per-head [q|k|v] blocks, or [q|k|v]
     thirds with ``use_new_attention_order``."""
@@ -154,7 +175,7 @@ class AttentionBlock(nn.Module):
         self.qkv = Conv1x1(channels, 3 * channels, 1, dtype=dtype)
         self.proj_out = Conv1x1(channels, channels, 1, dtype=dtype, zero_init=True)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def block(self, x: torch.Tensor) -> torch.Tensor:
         b, *spatial, c = x.shape
         tokens = x.shape[1:-1].numel()
         hd = c // self.heads
@@ -209,11 +230,6 @@ class UNet(nn.Module):
         dtype: Any = torch.float32,
     ) -> None:
         super().__init__()
-        if use_checkpoint:
-            raise NotImplementedError(
-                "use_checkpoint (activation recomputation during training) is "
-                "not ported yet; the flagship trains without it",
-            )
         self.data_shape = tuple(data_shape)
         self.dims = dims
         self.model_channels = model_channels
@@ -295,6 +311,10 @@ class UNet(nn.Module):
             GroupNorm32(ch), Activation(act),
             ConvNd(dims, ch, out_channels, 3, zero_init=True),
         )
+        self.use_checkpoint = use_checkpoint
+        for m in self.modules():
+            if isinstance(m, Recomputable):
+                m.use_checkpoint = use_checkpoint
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> "UNet":

@@ -726,10 +726,11 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        if not ctx.saved_tensors:
+        saved = ctx.saved_tensors  # read once: a recomputed block unpacks each tensor once
+        if not saved:
             raise RuntimeError("flash_attention was run without its log-sum-exp; "
                                "it cannot be differentiated")
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse = saved
         needs = ctx.needs_input_grad[:3]
         if q.device.type == "cpu":
             dq = flash_attention_bwd_dq_plain(q, k, v, o, lse, do) if needs[0] else None

@@ -121,9 +121,13 @@ class _Assembly:
 
 
 class _WeightsOnly:
-    """Catches the state_dict that ``resolve_inference_params`` loads."""
+    """Catches the state_dict that ``resolve_inference_params`` loads; the
+    served backbone is the template it checks the weights against."""
 
     state_dict = None
+
+    def __init__(self, backbone) -> None:
+        self.backbone = backbone
 
     def load_state_dict(self, state_dict: dict, strict: bool = True) -> None:
         self.state_dict = state_dict
@@ -355,7 +359,7 @@ class SamplingService:
                                "call update_params(params) directly instead")
         from rho_diffusion_tpu_torch.training.checkpoint import resolve_inference_params
 
-        caught = _WeightsOnly()
+        caught = _WeightsOnly(self.pipeline.backbone)
         messages = resolve_inference_params(caught, config, checkpoint or config.inference.checkpoint,
                                             self._work_dir)
         if caught.state_dict is not None:

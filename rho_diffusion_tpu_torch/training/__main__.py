@@ -2,7 +2,7 @@
 
     python -m rho_diffusion_tpu_torch.training CONFIG.json [-d cuda|cpu]
         [-p weights.npz|weights.pth] [-e EPOCHS] [--work-dir DIR] [--no-resume]
-        [--pipeline DDPM|GaussianDiffusionPipeline]
+        [--pipeline DDPM|GaussianDiffusionPipeline] [--profile DIR]
 
 Mirrors ``scripts/training.py``: builds the ``Trainer`` from the config,
 initialises the state (backbone weights from ``-p``, else the latest
@@ -16,9 +16,12 @@ kwargs); a config that names GaussianDiffusionPipeline (e.g.
 ``examples/config_learned_variance.json``) trains it as it trains DDPM,
 validation included.
 
+``--profile DIR`` traces the whole run with ``torch.profiler`` (CPU and,
+on the card, CUDA activity) and writes the chrome trace into DIR when it
+ends.
+
 It runs on CUDA unless ``-d cpu`` is given (a config's "tpu" means CUDA) and
-raises when CUDA is absent. ``--profile`` raises: profiling a training run
-is not ported yet.
+raises when CUDA is absent.
 """
 from __future__ import annotations
 
@@ -48,7 +51,8 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
     parser.add_argument("--pipeline", default=None,
                         help="DDPM | GaussianDiffusionPipeline (over the config's pipeline)")
     parser.add_argument("--work-dir", type=Path, default=Path("."))
-    parser.add_argument("--profile", default=None, help="not ported yet; raises")
+    parser.add_argument("--profile", default=None,
+                        help="write a torch.profiler trace of the run into this directory")
     parser.add_argument("--no-resume", action="store_true")
     args = parser.parse_args(argv)
 

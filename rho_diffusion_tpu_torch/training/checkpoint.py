@@ -4,8 +4,15 @@ Port of ``rho_diffusion_tpu/training/checkpoint.py``. The JAX package writes
 orbax directories; the port writes one ``torch.save`` file per step,
 ``<directory>/step_<N>.pt``, holding ``TrainState.state_dict()``: the
 backbone weights in the reference layout, the optimizer state, the EMA
-weights, the step and the generator state. The JAX package's orbax
-directories are not readable here.
+weights, the step and the generator state.
+
+The JAX package's orbax directories are not readable here: orbax 0.11
+writes OCDBT (tensorstore's B-tree key-value store) whose array chunks are
+zstd frames, and neither numpy nor the standard library decodes zstd (the
+port may not import orbax or tensorstore). The way across is the
+``model.npz`` the JAX trainer writes beside its checkpoints (at every
+checkpoint epoch and at the end), which ``load_weights_auto`` reads; an
+orbax directory given for sampling says so.
 
 * ``CheckpointManager`` keeps the ``max_to_keep`` newest steps. A save over
   an existing step overwrites it (written to a temporary file, then renamed),
@@ -13,6 +20,10 @@ directories are not readable here.
 * ``save_model_weights`` writes the backbone ``state_dict`` as a ``.pth``
   in the reference layout (which the JAX package's ``load_torch_checkpoint``
   reads).
+* ``load_weights_auto`` reads backbone weights from a JAX ``.npz`` (through
+  ``export_unet_state_dict``) or a reference ``.pth`` (as it is), checked
+  against the model's ``state_dict`` both ways with the JAX package's
+  messages; ``load_model_weights`` the ``.npz`` alone.
 * ``resolve_inference_params`` picks the sampling weights in the JAX order:
   an explicit weight file, an explicit checkpoint directory, the config's
   ``training.checkpoint_dir`` (or ``<work_dir>/checkpoints``), else the
@@ -25,7 +36,7 @@ import os
 import re
 import tempfile
 from pathlib import Path
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -92,18 +103,83 @@ def save_model_weights(model: torch.nn.Module, path: str | Path) -> None:
     torch.save({k: v.detach().float().cpu() for k, v in model.state_dict().items()}, path)
 
 
+_TRANSPLANT_KEYS = ("model_channels", "num_res_blocks")
+
+
+def _place(template: torch.nn.Module | dict, got: dict, missing: str,
+           source: str) -> dict[str, torch.Tensor]:
+    """``got``'s weights under the keys of ``template`` (a model or its
+    state_dict), in its dtypes; a missing key raises KeyError(``missing``
+    with the key), a shape that differs ValueError."""
+    if isinstance(template, torch.nn.Module):
+        template = template.state_dict()
+    out = {}
+    for key, want in template.items():
+        if key not in got:
+            raise KeyError(missing.format(key=key))
+        if tuple(got[key].shape) != tuple(want.shape):
+            raise ValueError(f"shape mismatch for '{key}': {source} {tuple(got[key].shape)} "
+                             f"vs model {tuple(want.shape)}")
+        out[key] = got[key].to(want.dtype)
+    return out
+
+
+def load_weights_auto(template: torch.nn.Module | dict, path: str | Path,
+                      model_kwargs: Optional[dict[str, Any]] = None) -> dict[str, torch.Tensor]:
+    """Backbone weights from a reference ``.pth``/``.pt``/``.bin`` or a JAX
+    ``.npz``, dispatched on the suffix, as a ``state_dict`` with the keys,
+    shapes and dtypes of ``template`` (a model or its ``state_dict``).
+
+    ``model_kwargs`` is the model section of the JSON config. A ``.pth``
+    needs at least its ``model_channels`` and ``num_res_blocks``, as the
+    JAX package's transplant does, and is checked both ways: a weight the
+    model lacks or one it cannot place raises. A diffusers ``UNet2DModel``
+    layout raises (ROADMAP Queue 1 item 9)."""
+    from rho_diffusion_tpu_torch.interop.jax_weights import load_state_dict_file
+
+    path = Path(path)
+    if path.suffix not in (".pth", ".pt", ".bin"):
+        return load_model_weights(template, path, model_kwargs)
+    got = load_state_dict_file(path, dict(model_kwargs or {}))
+    if any(k not in (model_kwargs or {}) for k in _TRANSPLANT_KEYS):
+        raise ValueError(
+            "transplanting a torch .pth checkpoint requires the model config to specify at "
+            f"least model_channels and num_res_blocks (got keys {sorted(model_kwargs or {})})",
+        )
+    out = _place(template, got, "transplant missing weight '{key}'", "torch checkpoint")
+    extra = sorted(set(got) - set(out))
+    if extra:
+        raise KeyError(
+            f"checkpoint has {len(extra)} weight(s) the model config cannot place (first few: "
+            f"{extra[:4]}) — does the config omit a cond_fn/conditioning block the checkpoint "
+            "was trained with?",
+        )
+    return out
+
+
+def load_model_weights(template: torch.nn.Module | dict, path: str | Path,
+                       model_kwargs: Optional[dict[str, Any]] = None) -> dict[str, torch.Tensor]:
+    """The weights of a JAX ``save_model_weights`` ``.npz`` as a
+    ``state_dict`` with the keys, shapes and dtypes of ``template``; the
+    config's architecture (``model_kwargs``) maps the JAX tree onto the
+    reference layout."""
+    from rho_diffusion_tpu_torch.interop.jax_weights import load_state_dict_file
+
+    got = load_state_dict_file(Path(path), dict(model_kwargs or {}))
+    return _place(template, got, f"weight '{{key}}' missing from {path}", "checkpoint")
+
+
 def resolve_inference_params(pipeline, config, ckpt=None, work_dir: str | Path = ".") -> list[str]:
     """Load the sampling weights into ``pipeline.backbone`` and return the
     messages to show (which weights, or a warning)."""
-    from rho_diffusion_tpu_torch.interop.jax_weights import load_state_dict_file
-
     messages: list[str] = []
 
     def from_directory(directory: Path) -> None:
         if any(p.is_dir() and p.name.isdigit() for p in directory.iterdir()):
             messages.append(
                 f"WARNING: {directory} holds orbax checkpoints of the JAX package, which "
-                "the port cannot read; sampling untrained model",
+                "the port cannot read (OCDBT with zstd-compressed chunks); sampling untrained "
+                "model. Pass the model.npz the JAX trainer writes beside them (-p model.npz)",
             )
             return
         manager = CheckpointManager(directory)
@@ -121,7 +197,8 @@ def resolve_inference_params(pipeline, config, ckpt=None, work_dir: str | Path =
 
     ckpt_dir = Path(config.training.checkpoint_dir or (Path(work_dir) / "checkpoints"))
     if ckpt and os.path.isfile(ckpt):
-        pipeline.load_state_dict(load_state_dict_file(ckpt, dict(config.model.kwargs)))
+        pipeline.load_state_dict(
+            load_weights_auto(pipeline.backbone, ckpt, dict(config.model.kwargs)))
         messages.append(f"loaded weights from {ckpt}")
     elif ckpt and Path(ckpt).is_dir():
         from_directory(Path(ckpt))

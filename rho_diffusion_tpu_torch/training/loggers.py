@@ -2,9 +2,11 @@
 
 Port of ``rho_diffusion_tpu/training/loggers.py``: each logger receives every
 metrics record (a flat JSON-able dict). stdout (one line per record), jsonl
-(appended to ``metrics.jsonl``, the machine-readable record) and csv (the
+(appended to ``metrics.jsonl``, the machine-readable record), csv (the
 header is the union of the keys seen; a new key rewrites the file once,
-streaming it). mlflow is not ported and raises.
+streaming it) and mlflow (numeric values as metrics, stepped by the
+record's "step", strings as tags; it needs the ``mlflow`` package and
+raises ImportError naming it where the package is absent).
 """
 from __future__ import annotations
 
@@ -96,9 +98,32 @@ class CSVLogger:
 
 @registry.register_logger("mlflow")
 class MLflowLogger:
-    def __init__(self, *args, **kwargs) -> None:
-        raise NotImplementedError("the mlflow logger is not ported (ROADMAP Queue 1, interop "
-                                  "and training utilities)")
+    """MLflow tracker: numeric values become metrics, strings tags."""
+
+    def __init__(self, experiment: str = "rho_diffusion_tpu", **kwargs) -> None:
+        try:
+            import mlflow
+        except ImportError as e:
+            raise ImportError(
+                "MLflowLogger requires the 'mlflow' package (pip install mlflow), which is "
+                "not installed.",
+            ) from e
+        self._mlflow = mlflow
+        mlflow.set_experiment(experiment)
+        self._run = mlflow.start_run(**kwargs)
+
+    def log(self, record: dict[str, Any]) -> None:
+        step = record.get("step")
+        metrics = {k: float(v) for k, v in record.items()
+                   if isinstance(v, (int, float)) and k != "step"}
+        if metrics:
+            self._mlflow.log_metrics(metrics, step=step)
+        for k, v in record.items():
+            if isinstance(v, str):
+                self._mlflow.set_tag(k, v)
+
+    def close(self) -> None:
+        self._mlflow.end_run()
 
 
 def build_loggers(specs, work_dir: str | Path) -> list:

@@ -9,10 +9,22 @@ the same arithmetic:
   ``torch.optim.AdamW``; Adam is ``torch.optim.Adam``; SGD with optional
   (Nesterov) momentum is ``torch.optim.SGD`` (optax's trace starts at zero,
   torch's buffer at the first gradient: the same first step).
-* The other names the JAX package registers (Adamax, NAdam, RAdam, RMSprop,
-  Adagrad, Adadelta, Adafactor, Lion, LAMB, LARS) have torch counterparts
-  whose arithmetic differs from optax's or none at all, and raise
-  ``NotImplementedError``.
+* Adamax, NAdam, RAdam, RMSprop, Adagrad, Adadelta, Adafactor, Lion, LAMB
+  and LARS have torch counterparts whose arithmetic differs from optax's
+  (RMSprop's eps outside the sqrt, Adagrad's accumulator starting at 0,
+  NAdam's momentum decay, ...) or none at all. Each is a ``torch.optim``
+  subclass here (``OptaxRule``) that computes optax 0.2.6's chain for the
+  kwargs the JAX factory passes, with JAX's defaults (Lion's b2 0.999 and
+  weight decay 0, LAMB's eps 1e-8, Adagrad's eps 1e-10, Adafactor's
+  learning rate None). Its scalar coefficients (bias corrections, RAdam's
+  rectification, Adafactor's decay rate) are float32, as in JAX.
+
+Adafactor factors the second moment of a parameter whose second-largest
+dimension is at least 128 over its two largest dimensions (optax's
+``_factored_dims`` on the parameter's own shape). A torch conv or linear
+weight is laid out [out, in, ...] where the JAX one is [..., in, out]; where
+the two dimensions tie, the port's rows are JAX's columns, which gives the
+same update up to rounding (each is g / sqrt(row * col / mean)).
 
 LR schedules are plain functions of the update count, parameterised in
 epochs like torch and converted with ``steps_per_epoch``, each the formula of
@@ -28,13 +40,12 @@ import math
 from collections import Counter
 from typing import Any, Callable, Iterable, Optional, Union
 
+import numpy as np
 import torch
 
 from rho_diffusion_tpu_torch.registry import registry
 
 Schedule = Callable[[int], float]
-_UNPORTED = ("is not ported: its torch counterpart does not compute optax's update "
-             "(ROADMAP Queue 1, interop and training utilities)")
 
 
 def _adam_args(kwargs: dict) -> dict:
@@ -55,8 +66,12 @@ class Optimizer:
         self.kwargs = kwargs
         self.clip_grad_norm: Optional[float] = None
 
-    def lr(self, count: int) -> float:
+    def lr(self, count: int) -> Optional[float]:
+        """The learning rate of update ``count``; None for Adafactor
+        without one (its updates are not scaled)."""
         lr = self.learning_rate
+        if lr is None:
+            return None
         return float(lr(count) if callable(lr) else lr)
 
     def make(self, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
@@ -87,17 +102,356 @@ def SGD(**kwargs) -> Optimizer:
                      nesterov=bool(kwargs.get("nesterov", False)) and momentum > 0)
 
 
-def _unported(name: str) -> Callable[..., Optimizer]:
-    def factory(**_kwargs) -> Optimizer:
-        raise NotImplementedError(f"optimizer '{name}' {_UNPORTED}")
-
-    factory.__name__ = name
-    return factory
+def _f32(x) -> torch.Tensor:
+    """A float32 scalar on the CPU: the dtype optax's scalar arithmetic runs in."""
+    return torch.tensor(x, dtype=torch.float32)
 
 
-for _name in ("Adamax", "NAdam", "RAdam", "RMSprop", "Adagrad", "Adadelta", "Adafactor", "Lion",
-              "LAMB", "LARS"):
-    registry.add("optimizers", _name, _unported(_name))
+def _bias_correction(decay: float, count: int) -> float:
+    """1 - decay**count in float32 (optax.tree.bias_correction's divisor)."""
+    return float(1 - _f32(decay) ** count)
+
+
+def _trust_ratio(u: torch.Tensor, p: torch.Tensor, coefficient: float = 1.0) -> torch.Tensor:
+    """optax.scale_by_trust_ratio (min_norm 0, eps 0): u scaled by
+    coefficient * |p| / |u|, or left as it is where either norm is 0."""
+    p_norm, u_norm = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+    ratio = coefficient * p_norm / u_norm
+    return u * torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(ratio), ratio)
+
+
+class OptaxRule(torch.optim.Optimizer):
+    """A ``torch.optim`` optimizer computing an optax chain parameter by
+    parameter: ``init`` fills a parameter's state on its first step,
+    ``update`` returns what optax's update adds to it (the sign included),
+    given the update count (1 for the first step) and the group's
+    hyper-parameters. The state holds the count under "count", as optax's
+    does."""
+
+    def __init__(self, params, lr: Optional[float], **defaults: Any) -> None:
+        super().__init__(params, {"lr": lr, **defaults})
+
+    def init(self, p: torch.Tensor, state: dict, group: dict) -> None:
+        raise NotImplementedError
+
+    def update(self, g: torch.Tensor, p: torch.Tensor, state: dict, group: dict,
+               count: int) -> torch.Tensor:
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["count"] = 0
+                    self.init(p, state, group)
+                state["count"] += 1
+                p.add_(self.update(p.grad, p, state, group, state["count"]))
+        return loss
+
+
+def _zeros(p: torch.Tensor, state: dict, *names: str) -> None:
+    for name in names:
+        state[name] = torch.zeros_like(p, memory_format=torch.preserve_format)
+
+
+class OptaxAdamax(OptaxRule):
+    """optax.adamax: mu / (1 - b1^t) over the infinity norm max(|g| + eps,
+    b2 nu)."""
+
+    def __init__(self, params, lr=2e-3, betas=(0.9, 0.999), eps=1e-8) -> None:
+        super().__init__(params, lr, betas=tuple(betas), eps=eps)
+
+    def init(self, p, state, group):
+        _zeros(p, state, "mu", "nu")
+
+    def update(self, g, p, state, group, count):
+        b1, b2 = group["betas"]
+        mu = state["mu"].mul_(b1).add_(g, alpha=1 - b1)
+        nu = torch.maximum(g.abs() + group["eps"], b2 * state["nu"])
+        state["nu"] = nu
+        return -group["lr"] * (mu / _bias_correction(b1, count)) / nu
+
+
+class OptaxAdam(OptaxRule):
+    """optax.scale_by_adam, as NAdam (``nesterov``) and LAMB use it: the
+    bias-corrected moments' ratio mu_hat / (sqrt(nu_hat) + eps)."""
+
+    nesterov = False
+
+    def __init__(self, params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8, **defaults) -> None:
+        super().__init__(params, lr, betas=tuple(betas), eps=eps, **defaults)
+
+    def init(self, p, state, group):
+        _zeros(p, state, "mu", "nu")
+
+    def moments(self, g, state, group, count):
+        b1, b2 = group["betas"]
+        mu = state["mu"].mul_(b1).add_(g, alpha=1 - b1)
+        nu = state["nu"].mul_(b2).addcmul_(g, g, value=1 - b2)
+        if self.nesterov:
+            mu_hat = (b1 * (mu / _bias_correction(b1, count + 1))
+                      + (1 - b1) * (g / _bias_correction(b1, count)))
+        else:
+            mu_hat = mu / _bias_correction(b1, count)
+        return mu_hat, nu / _bias_correction(b2, count)
+
+    def update(self, g, p, state, group, count):
+        mu_hat, nu_hat = self.moments(g, state, group, count)
+        return -group["lr"] * (mu_hat / (nu_hat.sqrt() + group["eps"]))
+
+
+class OptaxNAdam(OptaxAdam):
+    """optax.nadam: Adam with Nesterov momentum,
+    b1 mu / (1 - b1^(t+1)) + (1 - b1) g / (1 - b1^t)."""
+
+    nesterov = True
+
+    def __init__(self, params, lr=2e-3, betas=(0.9, 0.999), eps=1e-8) -> None:
+        super().__init__(params, lr, betas, eps)
+
+
+class OptaxRAdam(OptaxAdam):
+    """optax.radam: the rectified Adam step where rho_t >= ``threshold``,
+    the bias-corrected first moment alone before."""
+
+    def __init__(self, params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8, threshold=5.0) -> None:
+        super().__init__(params, lr, betas, eps, threshold=threshold)
+
+    def update(self, g, p, state, group, count):
+        b2 = group["betas"][1]
+        mu_hat, nu_hat = self.moments(g, state, group, count)
+        ro_inf = 2.0 / (1.0 - b2) - 1.0
+        b2t = _f32(b2) ** count
+        ro = ro_inf - 2 * count * b2t / (1 - b2t)
+        if float(ro) < group["threshold"]:
+            return -group["lr"] * mu_hat
+        r = float(torch.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf
+                             / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro)))
+        return -group["lr"] * (r * mu_hat / (nu_hat.sqrt() + group["eps"]))
+
+
+class OptaxLAMB(OptaxAdam):
+    """optax.lamb: the Adam ratio plus weight decay, scaled by the trust
+    ratio |p| / |update|."""
+
+    def __init__(self, params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0) -> None:
+        super().__init__(params, lr, betas, eps, weight_decay=weight_decay)
+
+    def update(self, g, p, state, group, count):
+        mu_hat, nu_hat = self.moments(g, state, group, count)
+        u = mu_hat / (nu_hat.sqrt() + group["eps"]) + group["weight_decay"] * p
+        return -group["lr"] * _trust_ratio(u, p)
+
+
+class OptaxRMSprop(OptaxRule):
+    """optax.rmsprop (not centered): g / sqrt(nu + eps), then an optional
+    momentum trace of the lr-scaled step."""
+
+    def __init__(self, params, lr=1e-2, decay=0.99, eps=1e-8, momentum=None) -> None:
+        super().__init__(params, lr, decay=decay, eps=eps, momentum=momentum)
+
+    def init(self, p, state, group):
+        _zeros(p, state, "nu", *(("trace",) if group["momentum"] is not None else ()))
+
+    def update(self, g, p, state, group, count):
+        d = group["decay"]
+        nu = state["nu"].mul_(d).addcmul_(g, g, value=1 - d)
+        u = -group["lr"] * (g * torch.rsqrt(nu + group["eps"]))
+        if group["momentum"] is None:
+            return u
+        return state["trace"].mul_(group["momentum"]).add_(u).clone()
+
+
+class OptaxAdagrad(OptaxRule):
+    """optax.adagrad: the running sum of squares starts at 0.1; the step is
+    g / sqrt(sum + eps)."""
+
+    def __init__(self, params, lr=1e-2, eps=1e-7, initial_accumulator_value=0.1) -> None:
+        super().__init__(params, lr, eps=eps, initial_accumulator_value=initial_accumulator_value)
+
+    def init(self, p, state, group):
+        state["sum_of_squares"] = torch.full_like(p, group["initial_accumulator_value"])
+
+    def update(self, g, p, state, group, count):
+        acc = state["sum_of_squares"].addcmul_(g, g)
+        inv = torch.where(acc > 0, torch.rsqrt(acc + group["eps"]), torch.zeros_like(acc))
+        return -group["lr"] * (inv * g)
+
+
+class OptaxAdadelta(OptaxRule):
+    """optax.adadelta: sqrt(e_x + eps) / sqrt(e_g + eps) g, e_x the running
+    mean of the squared steps."""
+
+    def __init__(self, params, lr=1.0, rho=0.9, eps=1e-6) -> None:
+        super().__init__(params, lr, rho=rho, eps=eps)
+
+    def init(self, p, state, group):
+        _zeros(p, state, "e_g", "e_x")
+
+    def update(self, g, p, state, group, count):
+        rho, eps = group["rho"], group["eps"]
+        e_g = state["e_g"].mul_(rho).addcmul_(g, g, value=1 - rho)
+        u = torch.sqrt(state["e_x"] + eps) / torch.sqrt(e_g + eps) * g
+        state["e_x"].mul_(rho).addcmul_(u, u, value=1 - rho)
+        return -group["lr"] * u
+
+
+class OptaxLion(OptaxRule):
+    """optax.lion: sign((1 - b1) g + b1 mu) plus weight decay; mu tracks g
+    with b2."""
+
+    def __init__(self, params, lr=1e-4, betas=(0.9, 0.99), weight_decay=1e-3) -> None:
+        super().__init__(params, lr, betas=tuple(betas), weight_decay=weight_decay)
+
+    def init(self, p, state, group):
+        _zeros(p, state, "mu")
+
+    def update(self, g, p, state, group, count):
+        b1, b2 = group["betas"]
+        u = torch.sign((1.0 - b1) * g + b1 * state["mu"])
+        state["mu"].mul_(b2).add_(g, alpha=1 - b2)
+        return -group["lr"] * (u + group["weight_decay"] * p)
+
+
+class OptaxLARS(OptaxRule):
+    """optax.lars: (g + weight decay) scaled by trust_coefficient |p| / |u|,
+    the lr step fed to a momentum trace."""
+
+    def __init__(self, params, lr=1e-3, weight_decay=0.0, momentum=0.9, trust_coefficient=0.001,
+                 nesterov=False) -> None:
+        super().__init__(params, lr, weight_decay=weight_decay, momentum=momentum,
+                         trust_coefficient=trust_coefficient, nesterov=nesterov)
+
+    def init(self, p, state, group):
+        _zeros(p, state, "trace")
+
+    def update(self, g, p, state, group, count):
+        u = _trust_ratio(g + group["weight_decay"] * p, p, group["trust_coefficient"])
+        u = -group["lr"] * u
+        trace = state["trace"].mul_(group["momentum"]).add_(u)
+        return u + group["momentum"] * trace if group["nesterov"] else trace.clone()
+
+
+def _factored_dims(shape, min_dim_size_to_factor: int) -> Optional[tuple[int, int]]:
+    """optax's: the two largest dimensions (second-largest first), when the
+    second-largest has at least ``min_dim_size_to_factor`` entries."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class OptaxAdafactor(OptaxRule):
+    """optax.adafactor: factored (or full) second moments decayed at
+    1 - (t)^-decay_rate, the update clipped to block RMS ``clipping_threshold``,
+    scaled by the lr when there is one, and by the parameter's RMS (at
+    least 1e-3)."""
+
+    def __init__(self, params, lr=None, min_dim_size_to_factor=128, decay_rate=0.8,
+                 decay_offset=0, clipping_threshold=1.0, multiply_by_parameter_scale=True,
+                 eps=1e-30) -> None:
+        super().__init__(params, lr, min_dim_size_to_factor=min_dim_size_to_factor,
+                         decay_rate=decay_rate, decay_offset=decay_offset,
+                         clipping_threshold=clipping_threshold,
+                         multiply_by_parameter_scale=multiply_by_parameter_scale, eps=eps)
+
+    def init(self, p, state, group):
+        dims = _factored_dims(tuple(p.shape), group["min_dim_size_to_factor"])
+        if dims is None:
+            _zeros(p, state, "v")
+        else:
+            d1, d0 = dims
+            state["v_row"] = torch.zeros_like(p.select(d0, 0))
+            state["v_col"] = torch.zeros_like(p.select(d1, 0))
+
+    def update(self, g, p, state, group, count):
+        decay = float(1.0 - _f32(count - group["decay_offset"]) ** -group["decay_rate"])
+        g_sq = g * g + group["eps"]
+        dims = _factored_dims(tuple(p.shape), group["min_dim_size_to_factor"])
+        if dims is None:
+            v = state["v"].mul_(decay).add_(g_sq, alpha=1.0 - decay)
+            u = g * v ** -0.5
+        else:
+            d1, d0 = dims
+            v_row = state["v_row"].mul_(decay).add_(g_sq.mean(dim=d0), alpha=1.0 - decay)
+            v_col = state["v_col"].mul_(decay).add_(g_sq.mean(dim=d1), alpha=1.0 - decay)
+            row_mean = v_row.mean(dim=d1 - 1 if d1 > d0 else d1, keepdim=True)
+            u = (g * ((v_row / row_mean) ** -0.5).unsqueeze(d0)
+                 * (v_col ** -0.5).unsqueeze(d1))
+        if group["clipping_threshold"] is not None:
+            rms = torch.sqrt(torch.mean(u * u))
+            u = u / torch.clamp(rms / group["clipping_threshold"], min=1.0)
+        if group["lr"] is not None:
+            u = u * group["lr"]
+        if group["multiply_by_parameter_scale"]:
+            rms = torch.sqrt(torch.mean(p * p))
+            u = u * torch.clamp(rms, min=1e-3)
+        return -u
+
+
+@registry.register_optimizer("Adamax")
+def Adamax(**kwargs) -> Optimizer:
+    return Optimizer(OptaxAdamax, _lr(kwargs, 2e-3), **_adam_args(kwargs))
+
+
+@registry.register_optimizer("NAdam")
+def NAdam(**kwargs) -> Optimizer:
+    return Optimizer(OptaxNAdam, _lr(kwargs, 2e-3), **_adam_args(kwargs))
+
+
+@registry.register_optimizer("RAdam")
+def RAdam(**kwargs) -> Optimizer:
+    return Optimizer(OptaxRAdam, _lr(kwargs), **_adam_args(kwargs))
+
+
+@registry.register_optimizer("RMSprop")
+def RMSprop(**kwargs) -> Optimizer:
+    return Optimizer(OptaxRMSprop, _lr(kwargs, 1e-2), decay=kwargs.get("alpha", 0.99),
+                     eps=kwargs.get("eps", 1e-8), momentum=kwargs.get("momentum", 0.0) or None)
+
+
+@registry.register_optimizer("Adagrad")
+def Adagrad(**kwargs) -> Optimizer:
+    return Optimizer(OptaxAdagrad, _lr(kwargs, 1e-2), eps=kwargs.get("eps", 1e-10))
+
+
+@registry.register_optimizer("Adadelta")
+def Adadelta(**kwargs) -> Optimizer:
+    return Optimizer(OptaxAdadelta, _lr(kwargs, 1.0), rho=kwargs.get("rho", 0.9),
+                     eps=kwargs.get("eps", 1e-6))
+
+
+@registry.register_optimizer("Adafactor")
+def Adafactor(**kwargs) -> Optimizer:
+    return Optimizer(OptaxAdafactor, _lr(kwargs, None))
+
+
+@registry.register_optimizer("Lion")
+def Lion(**kwargs) -> Optimizer:
+    return Optimizer(OptaxLion, _lr(kwargs, 1e-4), weight_decay=kwargs.get("weight_decay", 0.0),
+                     betas=_adam_args(kwargs)["betas"])
+
+
+@registry.register_optimizer("LAMB")
+def LAMB(**kwargs) -> Optimizer:
+    return Optimizer(OptaxLAMB, _lr(kwargs), weight_decay=kwargs.get("weight_decay", 0.0),
+                     **_adam_args(kwargs))
+
+
+@registry.register_optimizer("LARS")
+def LARS(**kwargs) -> Optimizer:
+    return Optimizer(OptaxLARS, _lr(kwargs), weight_decay=kwargs.get("weight_decay", 0.0),
+                     momentum=kwargs.get("momentum", 0.9))
 
 
 # ---------------------------------------------------------------------------

@@ -16,13 +16,15 @@ Port of ``rho_diffusion_tpu/training/trainer.py``: ``build_pipeline_from_config`
 * SIGTERM/SIGINT checkpoint the full state and stop (a second SIGINT
   raises);
 * a non-finite loss raises ``RuntimeError``;
-* ``benchmark_mode`` logs steps/s and the median step time.
+* ``benchmark_mode`` logs steps/s and the median step time;
+* ``profile_dir`` traces the whole ``fit`` with ``torch.profiler``
+  (``training.profiling.trace``) and writes the chrome trace there when it
+  ends, as the JAX trainer traces it with ``jax.profiler``.
 
 The JAX package's mesh options have no single-device meaning and raise
 ``NotImplementedError`` instead of being ignored: a ``mesh`` over more than
 one device (so also ``device_cache_shard``'s table over a data mesh),
-``tensor_parallel``, ``fsdp``, ``zero1`` and ``spatial_sharding``. So does a
-profile directory (ROADMAP Queue 1, interop and training utilities).
+``tensor_parallel``, ``fsdp``, ``zero1`` and ``spatial_sharding``.
 """
 from __future__ import annotations
 
@@ -39,11 +41,15 @@ import torch
 from rho_diffusion_tpu_torch.config import ExperimentConfig
 from rho_diffusion_tpu_torch.data.device_cache import DeviceDatasetCache
 from rho_diffusion_tpu_torch.data.loader import DataLoader, Subset, prefetch, prefetch_to_device
-from rho_diffusion_tpu_torch.interop.jax_weights import load_state_dict_file
 from rho_diffusion_tpu_torch.registry import registry
-from rho_diffusion_tpu_torch.training.checkpoint import CheckpointManager, save_model_weights
+from rho_diffusion_tpu_torch.training.checkpoint import (
+    CheckpointManager,
+    load_weights_auto,
+    save_model_weights,
+)
 from rho_diffusion_tpu_torch.training.loggers import build_loggers
 from rho_diffusion_tpu_torch.training.optimizers import build_lr_schedule
+from rho_diffusion_tpu_torch.training.profiling import trace
 from rho_diffusion_tpu_torch.training.state import TrainState
 from rho_diffusion_tpu_torch.utils import resolve_device
 
@@ -164,10 +170,8 @@ class Trainer:
         loggers=None,
         profile_dir: Optional[str] = None,
     ) -> None:
-        if profile_dir:
-            raise NotImplementedError("profiling a training run is not ported (ROADMAP "
-                                      "Queue 1, interop and training utilities)")
         check_single_device(config)
+        self.profile_dir = profile_dir
         self.config = config
         self.device = resolve_device(device or config.training.device)
         self.work_dir = Path(work_dir)
@@ -220,8 +224,8 @@ class Trainer:
         state = self.pipeline.create_state(seed=self.config.training.seed)
         latest = self.checkpoints.latest_step()
         if weights_path:
-            self.pipeline.load_state_dict(
-                load_state_dict_file(weights_path, dict(self.config.model.kwargs)))
+            self.pipeline.load_state_dict(load_weights_auto(
+                state.model, weights_path, dict(self.config.model.kwargs)))
         elif resume and latest is not None:
             self.checkpoints.restore(state)
             self.log({"event": "resumed", "step": int(state.step)})
@@ -310,7 +314,10 @@ class Trainer:
         start_epoch, skip_batches = divmod(int(state.step), spe)
         end_epoch = start_epoch + max_epochs if max_epochs is not None \
             else max(cfg.max_epochs, start_epoch)
+        profiling = contextlib.ExitStack()
         try:
+            if self.profile_dir:
+                profiling.enter_context(trace(self.profile_dir))
             for epoch in range(start_epoch, end_epoch):
                 if preempted:
                     break
@@ -363,6 +370,7 @@ class Trainer:
                 self.log({"event": "benchmark", "median_step_s": median,
                           "steps_per_sec": 1.0 / median})
         finally:
+            profiling.close()
             for sig, handler in prev_handlers.items():
                 signal.signal(sig, handler)
         self.checkpoints.save(state)

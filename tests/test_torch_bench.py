@@ -7,7 +7,8 @@ sample mode, with ``vs_baseline`` 1.0, and never opens or globs the TPU's
 ``BENCH_r*.json`` records (an audit hook watches every open and glob of the
 run). Without ``-d cpu`` it needs CUDA; the knobs whose machinery is queued
 raise ``NotImplementedError``; realdata runs with and without the device
-cache; the new modules are among those the import rule checks.
+cache, and the train mode with recomputation (``BENCH_REMAT=1``); the new
+modules are among those the import rule checks.
 """
 import json
 import os
@@ -80,14 +81,23 @@ def test_bench_needs_cuda_unless_asked_for_the_cpu():
 
 @pytest.mark.parametrize("knob,match", [
     ({"BENCH_MODEL": "vit"}, "item 9"),
-    ({"BENCH_REMAT": "1"}, "item 12"),
+    ({"BENCH_REMAT": "1"}, None),
     ({"BENCH_MODE": "realdata", "BENCH_DEVICE_CACHE": "1"}, None),
     ({"BENCH_FLAT_OPT": "1"}, "no torch counterpart|torch.optim"),
 ], ids=["vit", "remat", "device-cache", "flat-opt"])
 def test_queued_knobs_raise(monkeypatch, knob, match):
     """The knobs whose machinery is queued raise. BENCH_DEVICE_CACHE=1 (the
     device-resident cache, ported) runs: realdata's batches are gathers from
-    the uploaded table, and the run prints its one line."""
+    the uploaded table, and the run prints its one line. BENCH_REMAT=1 (the
+    UNet's use_checkpoint, ported) runs the train mode with every ResBlock
+    and AttentionBlock recomputed in the backward, and prints its one line."""
+    if knob == {"BENCH_REMAT": "1"}:
+        lines, err = run_bench(**knob)
+        assert len(lines) == 1, lines
+        result = json.loads(lines[0])
+        assert result["metric"] == "train_steps_per_sec_per_chip_smoke" and result["value"] > 0
+        assert "remat=True " in err and "finite=True " in err, err
+        return
     if match is None:
         lines, err = run_bench(**knob)
         assert len(lines) == 1, lines

@@ -235,9 +235,17 @@ def test_device_cache_over_a_data_mesh_raises(tmp_path):
 
 
 def test_training_profile_and_other_pipelines_raise(tmp_path):
+    """``--profile DIR`` (ported) traces the run into DIR: a chrome trace
+    holding the training step's ops. The diffusers pipeline raises."""
     path = ROOT / "examples" / "config_smoke.json"
-    with pytest.raises(NotImplementedError, match="profil"):
-        train_main([str(path), "-d", "cpu", "--work-dir", str(tmp_path), "--profile", "trace"])
+    state = train_main([str(path), "-d", "cpu", "--work-dir", str(tmp_path / "run"),
+                        "--profile", str(tmp_path / "trace")])
+    assert state.step == 4
+    traces = list((tmp_path / "trace").glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    names = {e.get("name") for e in json.loads(traces[0].read_text())["traceEvents"]}
+    # the optimizer's step and the port's conv and attention Functions
+    assert {"Optimizer.step#AdamW.step", "Conv3d", "FlashAttention"} <= names
     # GaussianDiffusionPipeline trains (tests/test_torch_evaluate.py); the
     # diffusers pipeline is not ported
     with pytest.raises(NotImplementedError, match="pipeline"):
