@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py [--phases env,build,kernels,main,main64,gauss,vlb,train,data,hold,serve,load,utils,timings,fp32,bench]
+    python3 chip_smoke.py [--phases env,build,kernels,main,main64,gauss,vlb,train,data,hold,serve,load,utils,int8,timings,fp32,bench]
                           [--steps 25] [--samples 4] [--timing-batch 8]
 
 Builds the port's CUDA kernels from ``rho_diffusion_tpu_torch/csrc`` (and
@@ -101,6 +101,23 @@ weights loaded from a reference-layout ``.pth``):
   the ten optax optimizers, three steps each on the flagship's distinct
   parameter shapes, on the card against the CPU; and the training CLI with
   ``--profile`` for two steps, its trace read back;
+* ``int8``: W8A8 inference on the flagship at full width (bf16 model, int8
+  convs and Dense sites): every int8 conv problem of a batch-8 forward on
+  its kernel (S1, the s8 implicit GEMM on K5's block, for the stride-1
+  convs; S2, the general int8 conv, for the strided Downsample), S2 at a
+  2-D, a 1-D and a Cin = 24 problem, and S3 (the quantiser's two launches)
+  at every activation shape and at fp32 weights, each held bitwise (int32
+  sums and dequantised output) against its plain version and timed beside
+  its bound (int8 at 1,979 TOPS, or bytes), its plain version and, for S1,
+  K5's bf16 conv of the same shape; the bf16 Cout = 1 head problem on K5's
+  igemm; the Dense sites' ``torch._int_mm``; then the counted path: the
+  inference CLI with ``--quant int8`` (the schedule cut as ``main``'s), its
+  int8 sites per forward against the recorded forward's; a batch-4 int8
+  forward on the kernels against the int8 plain model (the ``hold`` rule)
+  and its distance to the fp32 float model; the batch-8 forward's time in
+  bf16 and int8 (in turns) with device profiles; and the serving load
+  harness at its defaults in bf16 and with SERVE_QUANT=int8, one after the
+  other;
 * ``fp32``: the flagship in fp32 (a config whose ``training.dtype`` is
   float32): every distinct conv problem of a batch-8 forward and of a
   batch-32 step's dgrad (the 3xTF32 implicit GEMM where Cin % 4 == 0 and
@@ -161,8 +178,8 @@ phase prints one JSON line; a failing phase exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``, after the
 ``kernels`` line and the card's ``nvidia-smi`` name and power limit. A run
 whose ``--phases`` leave out any of kernels, main, main64, gauss, vlb,
-train, data, serve, load, utils, timings, fp32 and bench prints neither and
-exits 3.
+train, data, serve, load, utils, int8, timings, fp32 and bench prints
+neither and exits 3.
 
 Exits non-zero without a result when CUDA is unavailable or the script runs
 outside a checkout of the repository. Imports nothing of JAX.
@@ -190,10 +207,10 @@ DEEP_GALAXY_CONFIG = ROOT / "examples" / "config_deep_galaxy.json"
 SPECTRO_CONFIG = ROOT / "examples" / "config_spectroscopy.json"
 QUALITY_CONFIG = ROOT / "examples" / "config_spherical_harmonics_quality.json"
 PHASES = ("env", "build", "kernels", "main", "main64", "gauss", "vlb", "train", "data", "hold",
-          "serve", "load", "utils", "timings", "fp32", "bench")
+          "serve", "load", "utils", "int8", "timings", "fp32", "bench")
 # the phases whose numbers the kernels line carries
 KERNELS_LINE_PHASES = ("kernels", "main", "main64", "gauss", "vlb", "train", "data", "serve",
-                       "load", "utils", "timings", "fp32", "bench")
+                       "load", "utils", "int8", "timings", "fp32", "bench")
 DEVICE = "cuda"
 # the train phase: the flagship's batch, and steps cut to five
 TRAIN_BATCH = 32
@@ -607,6 +624,15 @@ def phase_build(state: dict) -> None:
                   for src in ("conv3d", "ring_attention", "flash_attention", "flash_attention_bwd")
                   for ln in _build.build_log.get(src, "").splitlines()
                   if "C7512" in ln and "'" in ln]
+    # the int8 kernels: S1's instances (N tile, output kind), S2, S3
+    log = _build.build_log.get("conv_int8", "")
+    s8 = [{"kernel": m[1], **entry} for name, entry in ptxas_entries(log).items()
+          for m in [re.search(r"(conv3d_s8_wgmma_kernelILi\d+ELi\d+ELi\d+ELi\d+E|conv_s8_general"
+                              r"_kernel|quant_amax_kernel|quant_int8_kernel)", name)] if m]
+    emit("int8_ptxas", kernels=s8 or "not built in this run (a cached library has no ptxas log)",
+         spill_free=all(not e.get("spill_stores") and not e.get("spill_loads") for e in s8),
+         wgmma_serialized=[ln.split("'")[1] for ln in log.splitlines()
+                           if "C7512" in ln and "'" in ln])
     emit("tf32_ptxas", kernels=tf or "not built in this run (a cached library has no ptxas log)",
          spill_free=all(not e.get("spill_stores") and not e.get("spill_loads") for e in tf),
          wgmma_serialized=serialized)
@@ -673,6 +699,8 @@ CUDA_KERNEL = {"conv3d_igemm": "conv3d_igemm", "conv3d_direct": "conv3d_direct",
                "flash_attention_bwd_tf32_dq": "flash_bwd_tf32_dq",
                "flash_attention_bwd_tf32_split": "flash_bwd_tf32_split",
                "ring_attention": "ring_attention_",
+               "conv3d_s8": "conv3d_s8_wgmma_kernel", "conv_s8_general": "conv_s8_general_kernel",
+               "quantize_int8_amax": "quant_amax_kernel", "quantize_int8": "quant_int8_kernel",
                **{k: k for k in ("conv3d_variant_full", "conv3d_variant_nopatch",
                                  "conv3d_variant_nodma", "conv3d_bigdot_im2col",
                                  "conv3d_bigdot_gemm", "conv3d_dotsonly")}}
@@ -2374,18 +2402,23 @@ def phase_train(state: dict, batch: int) -> None:
 
 
 @contextlib.contextmanager
-def plain_backends():
-    """Send every conv and attention call to its plain version."""
+def plain_backends(int8: bool = True):
+    """Send every conv and attention call, and (unless ``int8`` is False)
+    every int8 piece, to its plain version."""
     from rho_diffusion_tpu_torch.ops.attention import set_attention_backend
     from rho_diffusion_tpu_torch.ops.convolution import set_conv3d_backend
 
+    from rho_diffusion_tpu_torch.ops.quant import set_int8_backend
+
     set_conv3d_backend("plain")
     set_attention_backend("xla")
+    set_int8_backend("plain" if int8 else "auto")
     try:
         yield
     finally:
         set_conv3d_backend("auto")
         set_attention_backend("auto")
+        set_int8_backend("auto")
 
 
 def train_batch(batch: int, timesteps: int, device, seed: int):
@@ -4584,6 +4617,471 @@ def phase_utils(state: dict) -> None:
         fail("utils: " + "; ".join(problems))
 
 
+# ---------------------------------------------------------------------------
+# int8 (W8A8) inference
+
+# the int8 phase: the timing and hold batches, the extra S2 problems (a 2-D,
+# a 1-D and a ragged Cin = 24 conv: (x, Cout, kernel, stride, pads)), the
+# fp32 weight shape S3 is held at, and the int8 kernels a path must launch
+INT8_TIMING_BATCH = 8
+INT8_HOLD_BATCH = 4
+INT8_S2_EXTRA = (
+    ((8, 64, 64, 64), 64, (3, 3), (2, 2), ((1, 1),) * 2, "2-D stride 2 (DeepGalaxy-like)"),
+    ((8, 4096, 64), 64, (3,), (1,), ((1, 1),), "1-D (Spectroscopy-like)"),
+    ((8, 32, 16, 16, 24), 48, (3, 3, 3), (1, 1, 1), ((1, 1),) * 3, "ragged Cin = 24"),
+)
+INT8_WEIGHT_SHAPE = (512, 1024 * 27)
+INT8_KERNELS = ("conv3d_s8", "conv_s8_general", "quantize_int8_amax", "quantize_int8")
+PEAK_INT8 = 1979e12
+
+
+class Int8Sites:
+    """Records the int8 mode's conv and Dense sites of the forwards run in
+    its body (``ops.quant.conv_int8``/``dense_int8``): per call the input
+    shape and dtype, the layer's channels, kernel, stride and pads, the
+    output dtype and the route ("s1", "s2", "int_mm" or "float"). The CPU
+    tests count sites with it too."""
+
+    def __init__(self):
+        self.calls: list[dict] = []
+
+    def kinds(self) -> dict:
+        """Calls by site and kind: conv_int8, conv_float, dense_int8,
+        dense_float."""
+        out: dict = {}
+        for c in self.calls:
+            key = f"{c['site']}_{'float' if c['route'] == 'float' else 'int8'}"
+            out[key] = out.get(key, 0) + 1
+        return out
+
+    def __enter__(self):
+        from rho_diffusion_tpu_torch.ops import quant
+        from rho_diffusion_tpu_torch.ops.kernels.conv_int8 import int8_conv_route
+
+        self.quant = quant
+        self.orig = quant.conv_int8, quant.dense_int8
+
+        def conv(module, x):
+            cout = module.weight.shape[0]
+            ks = (module.kernel_size,) * module.dims
+            pads = tuple(tuple(p) for p in module._pads())
+            small = quant.is_small(x.shape[-1], cout)
+            self.calls.append({
+                "site": "conv", "x": tuple(x.shape), "x_dtype": x.dtype, "cout": cout,
+                "kernel": ks, "stride": tuple(module.stride), "pads": pads,
+                "out_dtype": module.dtype or x.dtype,
+                "route": "float" if small else int8_conv_route(tuple(x.shape), ks,
+                                                               module.stride, pads, cout)})
+            return self.orig[0](module, x)
+
+        def dense(module, x):
+            cout = module.weight.shape[0]
+            small = quant.is_small(x.shape[-1], cout)
+            self.calls.append({"site": "dense", "x": tuple(x.shape), "x_dtype": x.dtype,
+                               "cout": cout, "out_dtype": module.dtype or x.dtype,
+                               "route": "float" if small else "int_mm"})
+            return self.orig[1](module, x)
+
+        quant.conv_int8, quant.dense_int8 = conv, dense
+        return self
+
+    def __exit__(self, *exc):
+        self.quant.conv_int8, self.quant.dense_int8 = self.orig
+
+
+def int8_operands(xs, cout: int, ksize, seed: int, device):
+    """Seeded int8 x and weights [Cout, Cin, *K] over the whole range, the
+    scales the quantiser would give (small, positive) and a bias."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cin = xs[-1]
+
+    def q(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=device,
+                             dtype=torch.int32).to(torch.int8)
+
+    xq, wq = q(tuple(xs)), q((cout, cin, *ksize))
+    s_x = torch.rand(xs[0], generator=gen, device=device) * 1e-2 + 1e-3
+    s_w = torch.rand(cout, generator=gen, device=device) * 1e-3 + 1e-4
+    bias = 0.1 * torch.randn(cout, generator=gen, device=device)
+    return xq, wq, s_x, s_w, bias
+
+
+def int8_conv_row(route: str, xs, cout: int, ksize, stride, pads, out_dtype, device, seed: int,
+                  calls: int, per: str, variant=None) -> dict:
+    """One int8 conv problem on its kernel (S1 or S2): its int32 sums and its
+    dequantised ``out_dtype`` output held bitwise against the plain version
+    on the same inputs, then (with ``calls``) timed beside its bound (int8
+    operations at 1,979 TOPS or bytes), the plain version and K5's bf16
+    conv of the same shape (S1's problems) as the yardstick."""
+    import torch
+
+    from rho_diffusion_tpu_torch.ops.kernels import conv_int8 as k
+    from rho_diffusion_tpu_torch.ops.kernels.conv3d import conv3d_kernel
+
+    xq, wq, s_x, s_w, bias = int8_operands(xs, cout, ksize, seed, device)
+    if route == "s1":
+        w = k.s1_weights(wq)
+        name = "conv3d_s8"
+
+        def run(dt=out_dtype):
+            return k.conv3d_s8_kernel(xq, s_x, w, s_w, bias, dt)
+    else:
+        w = k.s2_weights(wq)
+        name = "conv_s8_general"
+
+        def run(dt=out_dtype):
+            return k.conv_s8_general_kernel(xq, s_x, w, s_w, bias, ksize, stride, pads, dt)
+
+    def plain():
+        return k.conv_int8_plain(xq, s_x, wq, s_w, bias, stride, pads, out_dtype)
+
+    acc = k.conv_int32_plain(xq, wq, stride, pads)
+    sums_equal = bool(torch.equal(run(torch.int32), acc))
+    got, want = run(), k.dequantize_plain(acc, s_x, s_w, bias, out_dtype)
+    check = exact_error(got.float(), want.float())
+    check["ok"] = check["ok"] and sums_equal
+    check["check"] = "bitwise equal: the int32 sums and the dequantised output"
+    row = {"kind": "forward", "x": list(xs), "cout": cout, "kernel_size": list(ksize),
+           "stride": list(stride), "pads": [list(p) for p in pads], "kernel": name,
+           "dtype": f"int8->{dtype_name(out_dtype)}", "int32_sums_equal": sums_equal,
+           "variant": variant, **check}
+    if calls:
+        vox_out = math.prod(acc.shape[:-1])
+        ops = 2.0 * vox_out * cout * math.prod(ksize) * xs[-1]
+        item = torch.empty((), dtype=out_dtype).element_size()
+        nbytes = math.prod(xs) + wq.numel() + vox_out * cout * item + 4 * (xs[0] + 2 * cout)
+        bnd, by = bound_ms(ops, nbytes, PEAK_INT8)
+        row.update(calls=calls, per=per, **kernel_times(run, name),
+                   plain_ms=cuda_time_ms(plain, iters=2, warmup=1),
+                   library="none: PyTorch has no int8 conv on CUDA", library_ms=None,
+                   bound_ms=bnd, bound_by=by)
+        row["tops"] = ops / row["ms"] / 1e9
+        if route == "s1":
+            xb = randn(xs, seed + 1, device, torch.bfloat16)
+            wb = randn((cout, xs[-1], 3, 3, 3), seed + 2, device, torch.bfloat16, 0.02)
+            with torch.no_grad():
+                k5 = kernel_times(lambda: conv3d_kernel(xb, wb, bias.bfloat16()),
+                                  "conv3d_igemm")
+            row.update(k5_bf16_ms=k5["ms"], k5_bf16_call_ms=k5["call_ms"],
+                       s8_over_k5=row["ms"] / k5["ms"])
+    return row
+
+
+def quantize_rows_row(xs, dtype, device, seed: int, calls: int, per: str, variant=None) -> list:
+    """S3 on one activation shape: q and the scales held bitwise against
+    ``quantize_rows_plain``; with ``calls`` its two launches timed apart
+    (the max pass bound by reading x once, the quantise pass by reading x
+    and writing q once), beside the plain version."""
+    import torch
+
+    from rho_diffusion_tpu_torch.ops.kernels import conv_int8 as k
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    scale = torch.rand((xs[0],) + (1,) * (len(xs) - 1), generator=gen, device=device) * 4 + 0.1
+    x = (torch.randn(xs, generator=gen, device=device) * scale).to(dtype)
+    q, s = k.quantize_rows_kernel(x)
+    qp, sp = k.quantize_rows_plain(x)
+    check = exact_error(torch.cat([q.flatten().float(), s]), torch.cat([qp.flatten().float(), sp]))
+    base = {"kind": "quantize", "x": list(xs), "dtype": f"{dtype_name(dtype)}->int8",
+            "variant": variant, **check, "check": "bitwise equal: q and the scales"}
+    rows = [{**base, "kernel": name} for name in ("quantize_int8_amax", "quantize_int8")]
+    if calls:
+        plain_ms = cuda_time_ms(lambda: k.quantize_rows_plain(x), iters=3)
+        n, item = x.numel(), x.element_size()
+        for row, nbytes in zip(rows, (n * item, n * (item + 1) + 4 * xs[0])):
+            row.update(calls=calls, per=per,
+                       **kernel_times(lambda: k.quantize_rows_kernel(x), row["kernel"]),
+                       plain_ms=plain_ms, library="none: no one PyTorch call quantizes per row",
+                       library_ms=None, bound_ms=nbytes / MEM_RATE * 1e3, bound_by="bytes")
+    return rows
+
+
+def dense_site_rows(sites: list, device, seed: int) -> list:
+    """The Dense sites' int8 products: ``torch._int_mm`` (cuBLASLt, the
+    library product JAX leaves to XLA) per distinct (M, K, N), timed beside
+    its bound and held exact against an int64 product."""
+    import torch
+
+    from rho_diffusion_tpu_torch.ops import quant
+
+    shapes: dict = {}
+    for c in sites:
+        if c["site"] == "dense" and c["route"] == "int_mm":
+            key = (math.prod(c["x"][:-1]), c["x"][-1], c["cout"])
+            shapes[key] = shapes.get(key, 0) + 1
+    rows = []
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for (m, kk, n), calls in sorted(shapes.items()):
+        a = torch.randint(-127, 128, (m, kk), generator=gen, device=device,
+                          dtype=torch.int32).to(torch.int8)
+        b = torch.randint(-127, 128, (n, kk), generator=gen, device=device,
+                          dtype=torch.int32).to(torch.int8)
+        exact = bool(torch.equal(quant.int_mm(a, b),
+                                 (a.double() @ b.double().T).to(torch.int32)))
+        bnd, by = bound_ms(2.0 * m * kk * n, m * kk + kk * n + 4 * m * n, PEAK_INT8)
+        rows.append({"m": m, "k": kk, "n": n, "calls": calls, "exact": exact,
+                     "int_mm_ms": cuda_time_ms(lambda: quant.int_mm(a, b), iters=10),
+                     "bound_ms": bnd, "bound_by": by})
+    return rows
+
+
+def int8_model_hold(cfg: dict, sd: dict, device) -> dict:
+    """A full-width int8 forward held against the int8 plain model (every
+    int8 piece and float kernel on its plain version), in three parts.
+
+    S1-S3 alone: the forward with the int8 kernels and every float layer on
+    its plain version must equal the int8 plain model bitwise, since each of
+    S1-S3 is bitwise its plain version. The float kernels alone: the forward
+    with the float kernels and the int8 plain versions must equal the
+    all-kernels forward bitwise, so the whole gap between the kernels and
+    the int8 plain model is the float kernels' (the bf16 input conv,
+    attention). That gap is held within HOLD_FACTOR of the int8 model's own
+    bf16 spread (the int8 plain model in bf16 against it in fp32) and under
+    HOLD_CAP: one bf16 rounding that moves an activation across a boundary
+    of round(x / s) moves the next layer's int8 input by a whole quantum,
+    and the network carries such flips forward, so the float kernels'
+    rounding reaches the int8 output amplified; beside it the same kernels'
+    gap in the float model, the float model's bf16 spread and the bar it
+    would give, and the int8 model's distance to the fp32 float model."""
+    import torch
+
+    from rho_diffusion_tpu_torch.ops.quant import conv_quant, set_int8_backend
+
+    fast = build_pipeline(cfg, "bfloat16", device)
+    fast.load_state_dict(sd)
+    ref = build_pipeline(cfg, "float32", device)
+    ref.load_state_dict(sd)
+    x, t, y = unet_inputs(fast.backbone, INT8_HOLD_BATCH, device, seed=21)
+    with torch.no_grad():
+        with conv_quant("int8"):
+            got = fast.apply(x, t, y)
+            with plain_backends(int8=False):
+                int8_kernels_only = fast.apply(x, t, y)
+            set_int8_backend("plain")
+            try:
+                float_kernels_only = fast.apply(x, t, y)
+            finally:
+                set_int8_backend("auto")
+            with plain_backends():
+                plain_int8 = fast.apply(x, t, y)
+                plain_int8_fp32 = ref.apply(x, t, y)
+        float_kernels = fast.apply(x, t, y)
+        with plain_backends():
+            plain_bf16 = fast.apply(x, t, y)
+            plain_fp32 = ref.apply(x, t, y)
+    k = rel_mse(got, plain_int8)
+    spread, p = rel_mse(plain_int8, plain_int8_fp32), rel_mse(plain_bf16, plain_fp32)
+    row = {"int8_kernels_only_equal_int8_plain": bool(torch.equal(int8_kernels_only,
+                                                                  plain_int8)),
+           "float_kernels_only_equal_kernels": bool(torch.equal(float_kernels_only, got)),
+           "kernels_vs_int8_plain": k, "int8_plain_bf16_vs_int8_plain_fp32": spread,
+           "bar": min(HOLD_FACTOR * spread, HOLD_CAP["forward"]),
+           "float_model_kernels_vs_plain": rel_mse(float_kernels, plain_bf16),
+           "bf16_plain_vs_fp32_plain": p, "bar_of_the_float_spread": HOLD_FACTOR * p,
+           "int8_kernels_vs_fp32_plain": rel_mse(got, plain_fp32),
+           "int8_plain_vs_fp32_plain": rel_mse(plain_int8, plain_fp32),
+           "int8_kernels_vs_bf16_plain": rel_mse(got, plain_bf16),
+           "finite": bool(torch.isfinite(got).all()), "batch": INT8_HOLD_BATCH}
+    row["ok"] = (row["finite"] and row["int8_kernels_only_equal_int8_plain"]
+                 and row["float_kernels_only_equal_kernels"] and k <= row["bar"])
+    return row
+
+
+def int8_forward_times(cfg: dict, sd: dict, batch: int, device) -> dict:
+    """The UNet forward at ``batch`` in bf16 and under int8 (CUDA events,
+    the same module), each with its device profile's busy share."""
+    import torch
+
+    from rho_diffusion_tpu_torch.ops.quant import conv_quant
+
+    pipe = build_pipeline(cfg, "bfloat16", device)
+    pipe.load_state_dict(sd)
+    unet = pipe.backbone
+    inputs = unet_inputs(unet, batch, device, seed=7)
+    out = {}
+    with torch.no_grad():
+        for name, mode in (("bf16", "off"), ("int8", "int8"), ("bf16_again", "off"),
+                           ("int8_again", "int8")):
+            with conv_quant(mode):
+                ms = cuda_time_ms(lambda: unet(*inputs), iters=5)
+                out[f"{name}_forward_ms"] = ms
+                if not name.endswith("again"):
+                    out[f"{name}_profile"] = profile_forward(unet, inputs, ms)
+    out["int8_over_bf16"] = (out["int8_forward_ms"] + out["int8_again_forward_ms"]) / (
+        out["bf16_forward_ms"] + out["bf16_again_forward_ms"])
+    return out
+
+
+def int8_serve_load(device) -> dict:
+    """``benchmarks.serve_bench`` at its defaults under bf16 and under int8
+    (SERVE_QUANT=int8), on the same seeded random weights (the ``load``
+    phase's), one after the other; each run's p50, volumes/s, occupancy,
+    load-phase launches and busy share, and its kernel launches."""
+    import torch
+
+    from rho_diffusion_tpu_torch.benchmarks import serve_bench
+    from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+    from rho_diffusion_tpu_torch.ops.quant import get_conv_quant
+
+    runs = {}
+    sd = None
+    for name, env in (("bf16", {}), ("int8", {"SERVE_QUANT": "int8"})):
+        with bench_env(env, prefix="SERVE_"):
+            s = serve_bench.settings()
+        if sd is None:
+            sd = random_state_dict(serve_bench.pipeline(s, "cpu").backbone, seed=0)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        service = serve_bench.build_service(s, device, params=sd)
+        build_s = time.perf_counter() - t0
+        try:
+            launch_counts.clear()
+            measured, busy = serve_bench.measure(service, s, device)
+            counts = dict(launch_counts)
+        finally:
+            service.close()
+        del service
+        runs[name] = {"result": measured, "build_and_warmup_s": build_s,
+                      "device_busy_share_of_load_phase": busy,
+                      "p50_latency_s": measured["single_request_latency_p50_s"],
+                      "volumes_per_s": measured["throughput_volumes_per_s"],
+                      "launches": counts, "mode_after_close": get_conv_quant()}
+    return runs
+
+
+def phase_int8(state: dict, steps: int, samples: int) -> None:
+    """int8 W8A8 inference on the flagship at full width: every int8 conv
+    problem of a batch-8 forward on S1 or S2, the Downsample and the extra
+    S2 problems, S3 at every activation shape, all bitwise against their
+    plain versions and timed; the bf16 Cout = 1 head problem on K5's igemm;
+    the Dense sites' int8 products; the path (the inference CLI with
+    ``--quant int8``, its counts); the int8 forward against the int8 plain
+    model; the forward's time at batch 8 in bf16 and int8; and the serving
+    load harness in bf16 and int8."""
+    import numpy as np
+    import torch
+
+    from rho_diffusion_tpu_torch import inference
+    from rho_diffusion_tpu_torch.ops import quant
+    from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+    from rho_diffusion_tpu_torch.ops.quant import conv_quant, get_conv_quant
+
+    device = torch.device(DEVICE)
+    cfg = flagship_config(steps)
+    unet = build_unet(cfg, "bfloat16", device)
+    sd = {k: v.cpu() for k, v in unet.state_dict().items()}
+    x, t, y = unet_inputs(unet, INT8_TIMING_BATCH, device, seed=1)
+    with Int8Sites() as rec, conv_quant("int8"), torch.no_grad():
+        unet(x, t, y)
+    torch.cuda.synchronize()
+    sites = rec.calls
+    del unet
+    per = f"one UNet forward at batch {INT8_TIMING_BATCH}"
+    # the distinct S1/S2 problems of the forward, with their calls
+    problems: dict = {}
+    acts: dict = {}
+    for c in sites:
+        if c["route"] in ("s1", "s2"):
+            key = (c["route"], c["x"], c["cout"], c["kernel"], c["stride"], c["pads"],
+                   c["out_dtype"])
+            problems[key] = problems.get(key, 0) + 1
+        if c["route"] != "float":
+            acts[(c["x"], c["x_dtype"])] = acts.get((c["x"], c["x_dtype"]), 0) + 1
+    rows = []
+    for i, ((route, xs, cout, ks, st, pads, odt), n) in enumerate(sorted(problems.items(),
+                                                                        key=str)):
+        rows.append(int8_conv_row(route, xs, cout, ks, st, pads, odt, device, 300 + 7 * i, n,
+                                  per))
+    for i, (xs, cout, ks, st, pads, what) in enumerate(INT8_S2_EXTRA):
+        rows.append(int8_conv_row("s2", xs, cout, ks, st, pads, torch.bfloat16, device,
+                                  400 + 7 * i, 1, "one call", variant=what))
+    for i, ((xs, dt), n) in enumerate(sorted(acts.items(), key=str)):
+        rows += quantize_rows_row(xs, dt, device, 500 + i, n, per)
+    rows += quantize_rows_row(INT8_WEIGHT_SHAPE, torch.float32, device, 590, 1, "one call",
+                              variant="fp32 weights [512, 27 x 1024] (once per module)")
+    head = {**hold_conv("forward", ((INT8_TIMING_BATCH, 32, 32, 32, 64), 1, torch.bfloat16),
+                        device, seed=600),
+            "variant": "bf16 Cout = 1 head on K5's igemm (off the flagship's int8 path: "
+                       "both packages cast to fp32 before the head)"}
+    dense = dense_site_rows(sites, device, seed=610)
+    record_errors(state, rows + [head])
+    state["int8"] = rows
+    summary = {
+        "sites_per_forward": {r: sum(1 for c in sites if c["route"] == r)
+                              for r in ("s1", "s2", "int_mm", "float")},
+        "float_sites": [{"site": c["site"], "x": c["x"], "cout": c["cout"],
+                         "dtype": dtype_name(c["out_dtype"])}
+                        for c in sites if c["route"] == "float"],
+    }
+    emit("int8_kernels", batch=INT8_TIMING_BATCH, **summary, rows=rows, head=head,
+         dense_sites=dense)
+    fail_bad("int8", rows + [head])
+    if not all(r["exact"] for r in dense):
+        fail(f"int8: torch._int_mm was not exact: {dense}")
+    small = [c for c in sites if c["route"] == "float"
+             and not quant.is_small(c["x"][-1], c["cout"])]
+    if small:
+        fail(f"int8: layers with >= {quant.MIN_QUANT_CHANNELS} channels stayed float: {small}")
+
+    # the path: the inference CLI with --quant int8, its launches counted
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_int8_"))
+    try:
+        cfg_path = tmp / "config.json"
+        cfg_path.write_text(json.dumps(cfg))
+        pth = tmp / "model.pth"
+        torch.save(sd, pth)
+        launch_counts.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with Int8Sites() as path_sites:
+            out = inference.main([str(cfg_path), "-p", str(pth), "-n", str(samples), "-d",
+                                  DEVICE, "-f", "--work-dir", str(tmp), "--quant", "int8"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, site_counts = dict(launch_counts), path_sites.kinds()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    state["int8_launches"] = counts
+    forwards = steps - 1
+    finite = bool(np.isfinite(out).all())
+    path = {"shape": list(out.shape), "finite": finite, "wall_s": wall, "steps": steps,
+            "forwards": forwards, "launches": counts, "site_counts": site_counts,
+            "mode_after": get_conv_quant(), "sample_mean": float(out.mean()),
+            "sample_std": float(out.std())}
+    hold = int8_model_hold(cfg, sd, device)
+    times = int8_forward_times(cfg, sd, INT8_TIMING_BATCH, device)
+    load = int8_serve_load(device)
+    emit("int8", path=path, hold=hold, forward=times, load=load)
+    problems_found = []
+    if not finite or path["mode_after"] != "off":
+        problems_found.append(f"the int8 path: {path}")
+    missing = [k for k in INT8_KERNELS if not counts.get(k)]
+    if missing:
+        problems_found.append(f"the int8 path never launched {missing}; counts {counts}")
+    # every forward of the path: the same sites as the recorded one
+    per_fwd = summary["sites_per_forward"]
+    want_sites = {"conv_int8": (per_fwd["s1"] + per_fwd["s2"]) * forwards,
+                  "dense_int8": per_fwd["int_mm"] * forwards,
+                  "conv_float": per_fwd["float"] * forwards}
+    if {k: site_counts.get(k, 0) for k in want_sites} != want_sites \
+            or site_counts.get("dense_float"):
+        problems_found.append(f"int8 sites on the path {site_counts}, expected {want_sites}")
+    if not hold["ok"]:
+        problems_found.append(f"int8 model hold: {hold}")
+    for name, run in load.items():
+        r = run["result"]
+        if not r["all_finite"] or not 0 < r["mean_batch_occupancy"] <= 1 \
+                or run["mode_after_close"] != "off":
+            problems_found.append(f"serve load {name}: {run}")
+    if not all(load["int8"]["launches"].get(k) for k in INT8_KERNELS):
+        problems_found.append(f"the int8 service never launched {INT8_KERNELS}: "
+                              f"{load['int8']['launches']}")
+    if problems_found:
+        fail("int8: " + "; ".join(problems_found))
+
+
 KERNELS = (
     # K5's implicit GEMM: the kernel in conv3d_wgmma.cuh, its launcher in conv3d.cu
     ("conv3d_igemm", "conv3d_wgmma.cuh", "rho_diffusion_tpu/ops/pallas/conv3d.py:102",
@@ -4654,6 +5152,14 @@ KERNELS = (
      "bench"),
     ("conv3d_bigdot_gemm", "conv3d_variants.cu", "benchmarks/conv3d_variants.py:104", "bench"),
     ("conv3d_dotsonly", "conv3d_variants.cu", "benchmarks/conv3d_variants.py:154", "bench"),
+    # W8A8 inference (no TPU kernel: JAX's ConvInt8 and quantize_int8 are
+    # plain jnp that XLA lowers; "replaces" names those lines): S1, the s8
+    # implicit GEMM on K5's block; S2, the general int8 conv; S3, the
+    # quantiser's two launches, all launched from conv_int8.cu
+    ("conv3d_s8", "conv3d_s8_wgmma.cuh", "rho_diffusion_tpu/ops/quant.py:143", "int8"),
+    ("conv_s8_general", "conv_int8.cu", "rho_diffusion_tpu/ops/quant.py:143", "int8"),
+    ("quantize_int8_amax", "conv_int8.cu", "rho_diffusion_tpu/ops/quant.py:94", "int8"),
+    ("quantize_int8", "conv_int8.cu", "rho_diffusion_tpu/ops/quant.py:96", "int8"),
 )
 TIME_FIELDS = ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms")
 # the fused backward's device time with its delta pre-pass (profiler; the
@@ -4687,12 +5193,13 @@ def kernels_line(state: dict) -> list:
                 "training": state["train_launches"], "serving": state["serve_launches"],
                 "bench": state["bench_launches"], "kernels": state["kernels_launches"],
                 "fp32": state["fp32_launches"], "load": state["load_launches"],
+                "int8": state["int8_launches"],
                 **state["gauss_launches"], **state["vlb_launches"], **state["data_launches"],
                 **state["utils_launches"]}
     out = []
     for name, source, replaces, path in KERNELS:
         rows = [r for r in state["timings"] + state["bench"] + state["fp32"] + state["data"]
-                + state["vlb"] if r["kernel"] == name and r.get("calls")]
+                + state["vlb"] + state["int8"] if r["kernel"] == name and r.get("calls")]
         main = [r for r in rows if not r["variant"]]
         accuracy = state["err"][name]
         out.append({
@@ -4875,6 +5382,8 @@ def main(argv=None) -> int:
         phase_load(state)
     if "utils" in phases:
         phase_utils(state)
+    if "int8" in phases:
+        phase_int8(state, args.steps, args.samples)
     if "timings" in phases:
         phase_timings(state, args.timing_batch)
     if "fp32" in phases:

@@ -18,7 +18,7 @@ LinearSchedule(1000)) over UNetv2 32^3, model_channels 64, channel_mult
 ``SERVE_BUCKETS`` (1,8). Other knobs: ``SERVE_GRID``, ``SERVE_DELAY`` (the
 coalescing window, 0.01 s), ``SERVE_GUIDANCE`` (classifier-free guidance
 scale), ``SERVE_TRANSFER_DTYPE`` (bfloat16|float16 pulls), ``SERVE_QUANT``
-(int8 raises until ROADMAP Queue 1 item 11). ``SERVE_SMOKE=1`` is a tiny
+(int8: the service's W8A8 mode). ``SERVE_SMOKE=1`` is a tiny
 CPU-sized run (8^3, width 16, 4 steps, buckets 1,2, 3 + 6 requests).
 
 It prints one JSON line with JAX's keys; ``warmup_compile_s`` is the

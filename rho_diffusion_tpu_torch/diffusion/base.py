@@ -30,6 +30,7 @@ import torch
 
 from rho_diffusion_tpu_torch.diffusion.schedule import NoiseSchedule
 from rho_diffusion_tpu_torch.metrics.losses import psnr, resolve_loss
+from rho_diffusion_tpu_torch.ops import quant
 from rho_diffusion_tpu_torch.registry import registry
 from rho_diffusion_tpu_torch.training.ema import ema_update
 from rho_diffusion_tpu_torch.training.optimizers import Optimizer, build_optimizer
@@ -223,7 +224,13 @@ class AbstractDiffusionPipeline:
 
         With ``grad_accum`` > 1 the batch is cut into that many sequential
         microbatches whose gradients are averaged before the one update, so
-        activation memory is that of one microbatch."""
+        activation memory is that of one microbatch.
+
+        Raises while int8 quantization is on (``ops.quant``): it is an
+        inference-only mode, as in JAX's ``make_train_step``."""
+        refusal = quant.training_refusal()
+        if refusal is not None:
+            raise RuntimeError(refusal)
         batch = self.batch_to_device(batch)
         model = state.model
         model.train()

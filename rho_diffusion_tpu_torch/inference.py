@@ -25,8 +25,10 @@ classifier-free guidance. ``--sampler``, ``--steps`` and ``--spacing``
 belong to the GaussianDiffusion family; each flag wins over the config's
 ``inference.sampler``, ``inference.ddim_steps`` and ``inference.spacing``,
 which win over the pipeline's defaults. The DDPM pipeline ignores the first
-two and rejects a spacing, as the service does. ``--quant int8`` raises
-until int8 inference is ported (ROADMAP Queue 1 item 11).
+two and rejects a spacing, as the service does. ``--quant int8`` samples
+with W8A8 convs and Dense sites (``ops.quant``: the int8 kernels S1-S3 on
+the card), the mode set for the sampling and restored when ``main``
+returns.
 
 It runs on CUDA unless ``-d cpu`` is given (a config's "tpu" means CUDA) and
 raises when CUDA is absent. The JAX package's orbax checkpoint directories
@@ -36,6 +38,7 @@ are not readable (OCDBT with zstd chunks); that case says so and names the
 from __future__ import annotations
 
 import argparse
+import contextlib
 import inspect
 import os
 from pathlib import Path
@@ -48,6 +51,7 @@ import torch
 import rho_diffusion_tpu_torch  # noqa: F401  (populates the registry)
 from rho_diffusion_tpu_torch.config import ExperimentConfig, apply_torch_checkpoint_schedule_fixup
 from rho_diffusion_tpu_torch.data.parameter_space import DiscreteParameterSpace
+from rho_diffusion_tpu_torch.ops.quant import conv_quant
 from rho_diffusion_tpu_torch.registry import registry
 from rho_diffusion_tpu_torch.training.checkpoint import resolve_inference_params
 from rho_diffusion_tpu_torch.training.trainer import build_pipeline_from_config
@@ -115,13 +119,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[np.ndarray]:
                         help="classifier-free guidance scale (1.0 = off; needs a model "
                              "trained with cond_dropout > 0); overrides inference.guidance_scale")
     parser.add_argument("--quant", default=None, choices=["int8"],
-                        help="int8 W8A8 convs (not ported yet: raises)")
+                        help="int8 W8A8 convs and Dense sites (inference only)")
     args = parser.parse_args(argv)
-    if args.quant is not None:
-        raise NotImplementedError(
-            f"--quant {args.quant}: int8 W8A8 inference is not ported yet "
-            "(ROADMAP Queue 1 item 11)",
-        )
 
     config = ExperimentConfig.from_json(args.json_config)
     guidance = args.guidance if args.guidance is not None else config.inference.guidance_scale
@@ -158,14 +157,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[np.ndarray]:
         )
     use_hash = bool(getattr(dataset, "use_emb_as_labels", False)) if dataset else False
     generator = torch.Generator(device=device).manual_seed(config.inference.seed)
-    samples = pipeline.generate(
-        generator,
-        batch_size=args.n_samples or config.inference.num_samples,
-        parameter_space=config.inference.parameter_space,
-        random=False,
-        as_hash_embeddings=use_hash,
-        **kwargs,
-    )
+    with conv_quant(args.quant) if args.quant else contextlib.nullcontext():
+        samples = pipeline.generate(
+            generator,
+            batch_size=args.n_samples or config.inference.num_samples,
+            parameter_space=config.inference.parameter_space,
+            random=False,
+            as_hash_embeddings=use_hash,
+            **kwargs,
+        )
     samples = samples.float().cpu().numpy()
     print(f"generated {samples.shape}, finite={np.isfinite(samples).all()}")
     if cache_file:

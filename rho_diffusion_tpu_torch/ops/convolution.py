@@ -16,6 +16,11 @@ use, so a reference ``state_dict`` loads unchanged.
   "SAME" stride-1 padding follows XLA (for odd kernels k//2 each side);
   strided convs use the reference's symmetric k//2 padding.
 * 3-D up/downsampling touches the inner two spatial dims only.
+* Under int8 (``ops.quant``'s mode) ``ConvNd`` is JAX's ``ConvInt8`` and
+  ``Conv1x1`` its ``DenseInt8``, checked before the conv3d route as JAX's
+  ``conv_nd`` checks it before its backends: quantisation is an explicit
+  request and must win over the float kernels. ``Linear`` (the time MLP and
+  the ResBlocks' emb_layers) stays float, as in JAX.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rho_diffusion_tpu_torch.ops import quant
 from rho_diffusion_tpu_torch.ops.kernels.conv3d import conv3d
 
 _CONV3D_BACKEND = "auto"
@@ -85,10 +91,14 @@ class ConvNd(nn.Module):
         return [(int(self.padding), int(self.padding))] * self.dims
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if quant.get_conv_quant() == "int8":
+            return quant.conv_int8(self, x)
         dt = compute_dtype(self.dtype, x)
-        x = x.to(dt)
-        w = self.weight.to(dt)
-        b = self.bias.to(dt)
+        return self.conv_float(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+    def conv_float(self, x: torch.Tensor, w: torch.Tensor,
+                   b: Optional[torch.Tensor]) -> torch.Tensor:
+        """The float conv of x and w (and b, when given) in their dtype."""
         if (
             self.dims == 3 and self.kernel_size == 3 and self.padding == "SAME"
             and self.stride == (1, 1, 1)
@@ -124,6 +134,8 @@ class Conv1x1(nn.Module):
         reset_parameters(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if quant.get_conv_quant() == "int8":
+            return quant.dense_int8(self, x)
         dt = compute_dtype(self.dtype, x)
         w = self.weight.reshape(self.weight.shape[0], self.weight.shape[1])
         return F.linear(x.to(dt), w.to(dt), self.bias.to(dt))

@@ -3,7 +3,7 @@
     python -m rho_diffusion_tpu_torch.serve CONFIG.json [-p WEIGHTS] [-d cuda|cpu]
         [--port 8000] [--buckets 1,2,4,8] [--cond-dim W] [--warmup]
         [--sampler ddim] [--steps 50] [--spacing GRID]
-        [--transfer-dtype bfloat16|float16] [--guidance S]
+        [--transfer-dtype bfloat16|float16] [--guidance S] [--quant int8]
         [--data-parallel N] [--context-parallel M] [--mesh-devices LIST]
 
 Port of ``scripts/serve.py`` (:25-138): the model is loaded and each
@@ -19,7 +19,8 @@ ranks and the UNet's attention runs as ring attention over them
 ranks are every CUDA card, one each, unless ``--mesh-devices`` lists them
 (one device per rank, repeats allowed: ``cuda:0,cuda:0,cuda:0,cuda:0`` puts
 four ranks on one card); with ``-d cpu`` they are M ranks on the CPU. A
-data axis > 1 and ``--quant`` raise (ROADMAP Queue 1 items 13 and 11).
+data axis > 1 raises (ROADMAP Queue 1 item 13). ``--quant int8`` serves
+with W8A8 convs and Dense sites (``SamplingService(quantize="int8")``).
 ``--sampler``, ``--steps`` and ``--spacing`` set the GaussianDiffusion
 family's sampler, respaced step count and grid (over the config's
 ``inference.sampler``, ``inference.ddim_steps`` and ``inference.spacing``);
@@ -67,7 +68,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         help="narrow the device->host sample transfer (the host widens back "
                              "to float32)")
     parser.add_argument("--quant", default=None, choices=["int8"],
-                        help="int8 W8A8 convs (not ported yet: raises)")
+                        help="int8 W8A8 convs and Dense sites (the checkpoint is unchanged)")
     parser.add_argument("--data-parallel", type=int, default=0, metavar="N",
                         help="data axis of the mesh (only 1 is ported)")
     parser.add_argument("--context-parallel", type=int, default=1, metavar="M",

@@ -33,8 +33,12 @@ Port of ``rho_diffusion_tpu/serving.py`` (``GenerationResult``, ``_Chunk``,
   shards the volume depth of every conv over the context axis (GSPMD halo
   convs, :568-586): the numbers are the same, the memory per card is not.
   Depth-sharded convs, and a data axis > 1 (one model replica per card),
-  raise until ROADMAP Queue 1 item 13; int8 serving (``quantize``) until
-  item 11.
+  raise until ROADMAP Queue 1 item 13.
+* **int8** — ``quantize="int8"`` serves with W8A8 convs and Dense sites
+  (``ops.quant``; the checkpoint is unchanged). The mode is process-global:
+  the service sets it in its constructor (which validates it) and
+  ``close()`` restores the mode it found. Activation scales are per sample,
+  so a row stays independent of its batch under int8 too.
 
 Typical use::
 
@@ -60,6 +64,7 @@ import numpy as np
 import torch
 
 from rho_diffusion_tpu_torch.diffusion.sampling_rng import keys_from_seeds
+from rho_diffusion_tpu_torch.ops.quant import get_conv_quant, set_conv_quant
 from rho_diffusion_tpu_torch.parallel.mesh import (
     CONTEXT_AXIS,
     DATA_AXIS,
@@ -168,79 +173,87 @@ class SamplingService:
         transfer_dtype: Optional[str] = None,
         quantize: Optional[str] = None,
     ) -> None:
+        # set before the warm-up runs, restored by close() so that a later
+        # service or sampler in this process does not inherit it
+        self._prev_quant = get_conv_quant()
         if quantize is not None:
-            raise NotImplementedError(
-                f"quantize={quantize!r}: int8 W8A8 serving is not ported yet "
-                "(ROADMAP Queue 1 item 11)",
-            )
-        if transfer_dtype is not None and str(transfer_dtype) not in _NARROW:
-            raise ValueError(
-                f"transfer_dtype must be 'bfloat16' or 'float16' (or None for exact "
-                f"float32 transfers), got {transfer_dtype!r}",
-            )
-        self.transfer_dtype = None if transfer_dtype is None else str(transfer_dtype)
-        if not batch_buckets or list(batch_buckets) != sorted(set(batch_buckets)):
-            raise ValueError(f"batch_buckets must be ascending and unique, got {batch_buckets!r}")
-        self.device = pipeline.device
-        if mesh is not None:
-            if mesh.shape[DATA_AXIS] > 1:
-                raise NotImplementedError(
-                    f"mesh {mesh.shape}: a data axis > 1 (one model replica per card) is not "
-                    "ported yet (ROADMAP Queue 1 item 13); serve with data=1",
+            set_conv_quant(str(quantize))  # validates: "off" | "int8"
+        self.quantize = quantize
+        try:
+            if transfer_dtype is not None and str(transfer_dtype) not in _NARROW:
+                raise ValueError(
+                    f"transfer_dtype must be 'bfloat16' or 'float16' (or None for exact "
+                    f"float32 transfers), got {transfer_dtype!r}",
                 )
-            first = mesh.devices[0][0]
-            if first != canonical_device(self.device):
-                raise ValueError(f"the pipeline runs on {self.device}, but the mesh's first "
-                                 f"device is {first}: the UNet runs on the mesh's first device")
-        self.mesh = mesh
-        if spacing is not None and not hasattr(pipeline, "coeffs"):
-            raise ValueError(
-                "spacing is a GaussianDiffusion-family respacing control; "
-                "the DDPM pipeline always samples its full schedule",
-            )
-        if guidance_scale is not None and float(guidance_scale) != 1.0 and cond_dim is None:
-            raise ValueError(
-                f"guidance_scale={guidance_scale} requires a conditional service (cond_dim is None)",
-            )
-        self.pipeline = pipeline
-        self.sampler = sampler
-        self.num_steps = num_steps
-        self.spacing = spacing
-        self.eta = eta
-        self.guidance_scale = guidance_scale
-        self.cond_dim = cond_dim
-        self.buckets = tuple(int(b) for b in batch_buckets)
-        self.max_delay_s = float(max_delay_s)
-        cuda = self.device.type == "cuda"
-        # the worker's launches, and the pulls' copies, each on a stream of its own
-        self._stream = torch.cuda.Stream(device=self.device) if cuda else None
-        self._pull_stream = torch.cuda.Stream(device=self.device) if cuda else None
-        # held while a launch is enqueued and while weights are swapped
-        self._launch_lock = threading.Lock()
-        if params is not None:
-            self.update_params(params)
-        self._compiled: dict[int, object] = {}
-        self._queue: queue.Queue[Optional[_Chunk]] = queue.Queue()
-        self._stats_lock = threading.Lock()
-        self._stats = {"requests": 0, "samples": 0, "launches": 0, "occupancy_sum": 0.0,
-                       "latencies_s": []}
-        self._closed = False
-        self._lifecycle_lock = threading.Lock()
-        self._pull_queue: queue.Queue = queue.Queue(maxsize=2)
-        if warmup:
-            # run every bucket once, so a broken sampler (shape error, OOM,
-            # missing conditioning) fails the constructor
-            for b in self.buckets:
-                conds = np.zeros((b, cond_dim), np.float32) if cond_dim else None
-                out, event = self._run(self._get_compiled(b), [0] * b, list(range(b)), conds)
-                if event is not None:
-                    event.synchronize()
-        self._worker = threading.Thread(target=self._worker_loop, name="sampling-service",
-                                        daemon=True)
-        self._worker.start()
-        self._puller = threading.Thread(target=self._pull_loop, name="sampling-service-pull",
-                                        daemon=True)
-        self._puller.start()
+            self.transfer_dtype = None if transfer_dtype is None else str(transfer_dtype)
+            if not batch_buckets or list(batch_buckets) != sorted(set(batch_buckets)):
+                raise ValueError(
+                    f"batch_buckets must be ascending and unique, got {batch_buckets!r}")
+            self.device = pipeline.device
+            if mesh is not None:
+                if mesh.shape[DATA_AXIS] > 1:
+                    raise NotImplementedError(
+                        f"mesh {mesh.shape}: a data axis > 1 (one model replica per card) is not "
+                        "ported yet (ROADMAP Queue 1 item 13); serve with data=1",
+                    )
+                first = mesh.devices[0][0]
+                if first != canonical_device(self.device):
+                    raise ValueError(f"the pipeline runs on {self.device}, but the mesh's first "
+                                     f"device is {first}: the UNet runs on the mesh's first device")
+            self.mesh = mesh
+            if spacing is not None and not hasattr(pipeline, "coeffs"):
+                raise ValueError(
+                    "spacing is a GaussianDiffusion-family respacing control; "
+                    "the DDPM pipeline always samples its full schedule",
+                )
+            if guidance_scale is not None and float(guidance_scale) != 1.0 and cond_dim is None:
+                raise ValueError(
+                    f"guidance_scale={guidance_scale} requires a conditional service "
+                    "(cond_dim is None)",
+                )
+            self.pipeline = pipeline
+            self.sampler = sampler
+            self.num_steps = num_steps
+            self.spacing = spacing
+            self.eta = eta
+            self.guidance_scale = guidance_scale
+            self.cond_dim = cond_dim
+            self.buckets = tuple(int(b) for b in batch_buckets)
+            self.max_delay_s = float(max_delay_s)
+            cuda = self.device.type == "cuda"
+            # the worker's launches, and the pulls' copies, each on a stream of its own
+            self._stream = torch.cuda.Stream(device=self.device) if cuda else None
+            self._pull_stream = torch.cuda.Stream(device=self.device) if cuda else None
+            # held while a launch is enqueued and while weights are swapped
+            self._launch_lock = threading.Lock()
+            if params is not None:
+                self.update_params(params)
+            self._compiled: dict[int, object] = {}
+            self._queue: queue.Queue[Optional[_Chunk]] = queue.Queue()
+            self._stats_lock = threading.Lock()
+            self._stats = {"requests": 0, "samples": 0, "launches": 0, "occupancy_sum": 0.0,
+                           "latencies_s": []}
+            self._closed = False
+            self._lifecycle_lock = threading.Lock()
+            self._pull_queue: queue.Queue = queue.Queue(maxsize=2)
+            if warmup:
+                # run every bucket once, so a broken sampler (shape error, OOM,
+                # missing conditioning) fails the constructor
+                for b in self.buckets:
+                    conds = np.zeros((b, cond_dim), np.float32) if cond_dim else None
+                    out, event = self._run(self._get_compiled(b), [0] * b, list(range(b)), conds)
+                    if event is not None:
+                        event.synchronize()
+            self._worker = threading.Thread(target=self._worker_loop, name="sampling-service",
+                                            daemon=True)
+            self._worker.start()
+            self._puller = threading.Thread(target=self._pull_loop, name="sampling-service-pull",
+                                            daemon=True)
+            self._puller.start()
+        except BaseException:
+            # a constructor that fails is never closed: give the mode back here
+            set_conv_quant(self._prev_quant)
+            raise
 
     # -- construction helpers -----------------------------------------
     @classmethod
@@ -398,6 +411,8 @@ class SamplingService:
             self._queue.put(None)
         self._worker.join(timeout=30)
         self._puller.join(timeout=30)
+        if self.quantize is not None:
+            set_conv_quant(self._prev_quant)
 
     def __enter__(self) -> "SamplingService":
         return self

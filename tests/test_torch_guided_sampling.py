@@ -4,8 +4,8 @@
 with x_T and every step's noise injected into both sides (the two
 frameworks draw different random streams), and the inference CLI's
 sampling flags: ``--guidance`` over the config's scale, ``--sampler`` and
-``--steps`` ignored by DDPM, ``--spacing`` refused by it, ``--quant``
-refused until int8 inference is ported.
+``--steps`` ignored by DDPM, ``--spacing`` refused by it, and ``--quant
+int8`` sampling with the int8 convs and Dense sites (and restoring the mode).
 """
 import json
 from pathlib import Path
@@ -17,8 +17,11 @@ import pytest
 import torch
 
 import rho_diffusion_tpu.diffusion.sampling_rng as jax_sampling_rng
+from chip_smoke import Int8Sites, random_state_dict
 from rho_diffusion_tpu_torch import inference
+from rho_diffusion_tpu_torch.config import ExperimentConfig
 from rho_diffusion_tpu_torch.diffusion import ddpm as ddpm_mod
+from rho_diffusion_tpu_torch.ops import quant
 from test_torch_ddpm import SPACE, pipelines
 
 torch.set_num_threads(1)
@@ -121,10 +124,32 @@ def test_inference_cli_rejects_spacing_and_quant_for_ddpm(tmp_path):
         cli(path, tmp_path, "--spacing", "trailing")
     with pytest.raises(ValueError, match="spacing"):
         cli(small_config(tmp_path, spacing="karras"), tmp_path)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        cli(path, tmp_path, "--quant", "int8")
     with pytest.raises(SystemExit):  # an unknown sampler is an argparse error
         cli(path, tmp_path, "--sampler", "euler")
+    with pytest.raises(SystemExit):  # int8 is the one quantization mode
+        cli(path, tmp_path, "--quant", "int4")
+
+
+def test_inference_cli_quant_int8_samples_on_config_smoke(tmp_path):
+    """--quant int8 on config_smoke.json (width 64): every conv but the
+    input conv and the head, and every Dense site, runs int8; the samples
+    are finite, differ from the float ones, and the mode is off again after
+    main returns."""
+    path = small_config(tmp_path)
+    pipe, _, _ = inference.build_inference_session(ExperimentConfig.from_json(path),
+                                                   work_dir=tmp_path, device="cpu")
+    weights = tmp_path / "seeded.pth"  # nonzero heads, so the int8 convs reach the sample
+    torch.save(random_state_dict(pipe.backbone, 1), weights)
+    with Int8Sites() as sites:
+        got = cli(path, tmp_path, "--quant", "int8", "-p", str(weights))
+    counts = sites.kinds()
+    assert quant.get_conv_quant() == "off"
+    assert np.isfinite(got).all() and got.shape == (2, 8, 8, 8, 1)
+    # each of the 19 forwards of a 20-step schedule: the input conv and the
+    # head float, the rest int8
+    assert counts["conv_float"] == 2 * 19 and counts["conv_int8"] > 10 * 19
+    assert counts["dense_int8"] >= 3 * 19 and not counts.get("dense_float")
+    assert np.abs(got - cli(path, tmp_path, "-p", str(weights))).max() > 1e-4
 
 
 def test_quality_config_samples_guided_under_the_port(tmp_path):

@@ -27,7 +27,11 @@ width and shapes off its 8 x 32 voxel tile; and the ring-attention kernel
 card where there are two or more.
 The conv's bottleneck-isolation kernels (K7-K9, on K5's block) at the
 level-1 widths and off their tiles (K7 ``full`` bitwise K5), and what they
-refuse. The plain versions run in fp32 with
+refuse. The int8 kernels (S1 on K5's block with s8 operands, S2, S3) bitwise
+against their plain versions: S1 at the flagship's levels, a half-filled
+channel chunk, four N tiles, ragged volumes and Cout and the largest Cin its
+int32 sums allow; S2 on the Downsample, 2-D, 1-D, Cin = 17 and an even
+kernel; S3 in bf16 and fp32, ragged rows and weights. The plain versions run in fp32 with
 TF32 off; tolerances are chip_smoke.py's.
 """
 import math
@@ -969,3 +973,70 @@ def test_flash_tf32_routes_refuse_what_they_do_not_take(cuda):
     o, lse = flash_attention_fwd_kernel(q32, q32, q32, with_lse=True)
     with pytest.raises(RuntimeError, match="plan"):
         flash_attention_bwd_kernel(q32, q32, q32, o, lse, q32, plan=TF32_BWD_PLAN)
+
+
+# ---------------------------------------------------------------------------
+# int8 W8A8: S1 (s8 wgmma conv), S2 (general int8 conv), S3 (the quantiser),
+# each bitwise against its plain version: the int32 sums and the output
+
+def _int8_operands(xs, cout, ksize, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rq = lambda shape: torch.randint(-127, 128, shape, generator=gen, device="cuda",  # noqa: E731
+                                     dtype=torch.int32).to(torch.int8)
+    return (rq(tuple(xs)), rq((cout, xs[-1], *ksize)),
+            torch.rand(xs[0], generator=gen, device="cuda") * 1e-2 + 1e-3,
+            torch.rand(cout, generator=gen, device="cuda") * 1e-3 + 1e-4,
+            torch.randn(cout, generator=gen, device="cuda"))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.int32, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout", [
+    ((2, 32, 32, 32, 64), 64), ((2, 32, 16, 16, 192), 128), ((1, 32, 4, 4, 1024), 512),
+    ((1, 5, 6, 7, 48), 40), ((3, 3, 9, 17, 16), 300), ((1, 4, 4, 4, 4896), 16)])
+def test_int8_s1_matches_plain(cuda, shape, cout, out_dtype):
+    """S1 at the flagship's levels, a half-filled channel chunk (192), Cin =
+    1024 over four N tiles, ragged volumes and Cout, and the largest Cin its
+    int32 sums allow."""
+    from rho_diffusion_tpu_torch.ops.kernels import conv_int8 as k
+
+    xq, wq, s_x, s_w, bias = _int8_operands(shape, cout, (3, 3, 3), seed=sum(shape) + cout)
+    before = launch_counts["conv3d_s8"]
+    got = k.conv3d_s8_kernel(xq, s_x, k.s1_weights(wq), s_w, bias, out_dtype)
+    want = k.conv_int8_plain(xq, s_x, wq, s_w, bias, (1, 1, 1), [(1, 1)] * 3, out_dtype)
+    assert launch_counts["conv3d_s8"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.int32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout,ksize,stride,pads", [
+    ((2, 32, 32, 32, 64), 64, (3, 3, 3), (1, 2, 2), ((1, 1),) * 3),
+    ((2, 9, 10, 24), 32, (3, 3), (2, 2), ((1, 1),) * 2),
+    ((2, 33, 20), 24, (3,), (1,), ((1, 1),)),
+    ((1, 5, 5, 5, 17), 16, (3, 3, 3), (1, 1, 1), ((1, 1),) * 3),
+    ((1, 6, 6, 6, 32), 20, (2, 2, 2), (1, 1, 1), ((0, 1),) * 3)])
+def test_int8_s2_matches_plain(cuda, shape, cout, ksize, stride, pads, out_dtype):
+    """S2 on the Downsample, 2-D, 1-D, a ragged Cin (17: byte loads) and an
+    even kernel with XLA's asymmetric SAME pads."""
+    from rho_diffusion_tpu_torch.ops.kernels import conv_int8 as k
+
+    xq, wq, s_x, s_w, bias = _int8_operands(shape, cout, ksize, seed=len(shape) + cout)
+    got = k.conv_s8_general_kernel(xq, s_x, k.s2_weights(wq), s_w, bias, ksize, stride, pads,
+                                   out_dtype)
+    want = k.conv_int8_plain(xq, s_x, wq, s_w, bias, stride, pads, out_dtype)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((8, 32, 32, 32, 64), torch.bfloat16), ((1, 32, 4, 4, 1024), torch.bfloat16),
+    ((3, 7, 5, 24), torch.float32), ((4, 17), torch.float32), ((2, 9, 9, 9, 33), torch.bfloat16),
+    ((512, 27 * 1024), torch.float32)])
+def test_int8_s3_matches_plain(cuda, shape, dtype):
+    from rho_diffusion_tpu_torch.ops.kernels import conv_int8 as k
+
+    gen = torch.Generator(device="cuda").manual_seed(len(shape))
+    x = torch.randn(shape, generator=gen, device="cuda") * torch.rand(
+        (shape[0],) + (1,) * (len(shape) - 1), generator=gen, device="cuda") * 3
+    x = x.to(dtype)
+    q, s = k.quantize_rows_kernel(x)
+    qp, sp = k.quantize_rows_plain(x)
+    assert torch.equal(q, qp) and torch.equal(s, sp)

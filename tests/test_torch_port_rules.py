@@ -10,14 +10,17 @@
   mode with an input that requires grad raises instead of cutting the graph.
   The forward-only bottleneck-isolation kernels (K7-K9) raise the same way,
   and their benchmark entries need CUDA unless given ``-d cpu``.
-* The training options that need more than one device raise, and so do
-  the serving options not ported yet (int8, a data axis > 1).
+* The training options that need more than one device raise, and so does
+  the serving option not ported yet (a data axis > 1); ``--quant int8``
+  serves on the CPU with the int8 plain versions and restores the mode.
 """
+import http.client
 import json
 import os
 import re
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -25,14 +28,26 @@ import pytest
 import torch
 
 import rho_diffusion_tpu_torch
+from chip_smoke import Int8Sites
 from rho_diffusion_tpu_torch import bench, inference
 from rho_diffusion_tpu_torch.diffusion.ddpm import DDPM
 from rho_diffusion_tpu_torch.diffusion.schedule import LinearSchedule
 from rho_diffusion_tpu_torch.config import ExperimentConfig
 from rho_diffusion_tpu_torch.data.synthetic import SphericalHarmonicDataset
-from rho_diffusion_tpu_torch.benchmarks import conv3d_ab, conv3d_variants, conv_profile
+from rho_diffusion_tpu_torch.benchmarks import (
+    conv3d_ab,
+    conv3d_variants,
+    conv_int8_probe,
+    conv_profile,
+)
 from rho_diffusion_tpu_torch.ops.kernels import _build, launch_counts
 from rho_diffusion_tpu_torch.ops.kernels.conv3d import Conv3d, conv3d, conv3d_kernel
+from rho_diffusion_tpu_torch.ops.kernels.conv_int8 import (
+    conv3d_s8_kernel,
+    conv_s8_general_kernel,
+    int8_conv_route,
+    quantize_rows_kernel,
+)
 from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
     FlashAttention,
     flash_attention,
@@ -41,6 +56,7 @@ from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
 )
 from rho_diffusion_tpu_torch.ops.kernels.conv3d_variants import bigdot, conv_variant, dots_only
 from rho_diffusion_tpu_torch.ops.kernels.ring_attention import ring_attention_fold
+from rho_diffusion_tpu_torch.ops.quant import get_conv_quant
 from rho_diffusion_tpu_torch.parallel import context_sharded_attention, make_mesh
 from rho_diffusion_tpu_torch.serve import build_server
 from rho_diffusion_tpu_torch.training.__main__ import main as train_main
@@ -120,14 +136,46 @@ def test_serve_and_mesh_raise_without_cuda():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--quant", "int8"],
     ["--data-parallel", "2"],
     ["--data-parallel", "2", "--context-parallel", "2"],
-], ids=["quant", "data2", "data2-context2"])
+], ids=["data2", "data2-context2"])
 def test_serve_options_not_ported_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_server([str(ROOT / "examples" / "config_smoke.json"), "-d", "cpu", "--port", "0",
                       *argv])
+
+
+def test_serve_quant_int8_serves_on_the_cpu_and_restores_the_mode():
+    """``serve --quant int8`` builds an int8 service that answers over HTTP
+    (its convs and Dense sites int8, the plain versions on the CPU, no
+    kernel launched); shutting it down restores the mode."""
+    assert get_conv_quant() == "off"
+    launch_counts.clear()
+    server, svc = build_server([str(ROOT / "examples" / "config_smoke.json"), "-d", "cpu",
+                                "--port", "0", "--buckets", "1", "--quant", "int8"],
+                               log=lambda m: None)
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    try:
+        assert get_conv_quant() == "int8" and svc.quantize == "int8"
+        with Int8Sites() as sites:
+            conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1],
+                                              timeout=300)
+            conn.request("POST", "/generate",
+                         body=json.dumps({"conditions": [[1, 0]], "seed": 2}),
+                         headers={"Content-Type": "application/json"})
+            reply = json.loads(conn.getresponse().read())
+            conn.close()
+        assert reply.get("shape") == [1, 8, 8, 8, 1], reply
+        assert np.isfinite(np.asarray(reply["samples"], np.float32)).all()
+        assert sites.kinds().get("conv_int8")
+        assert sum(launch_counts.values()) == 0
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.close()
+        t.join(timeout=10)
+    assert get_conv_quant() == "off"
 
 
 def test_kernel_wrappers_raise_off_the_cpu():
@@ -142,6 +190,38 @@ def test_kernel_wrappers_raise_off_the_cpu():
         ring_attention_fold([q], [q], [0], [q], [q], 1.0)
     with pytest.raises(TypeError):
         conv3d(torch.zeros(1, 4, 4, 4, 8), torch.zeros(8, 8, 3, 3, 3, dtype=torch.float64))
+
+
+def test_int8_kernel_wrappers_raise_off_the_cpu_and_off_their_range():
+    """S1-S3 take no tensor off the CPU and off CUDA, and a raw launch under
+    grad mode raises first. The route function raises, naming the shape,
+    where neither int8 conv covers a problem; on a CUDA tensor the wrapper
+    calls it before any launch."""
+    xq = torch.empty((1, 4, 4, 4, 32), dtype=torch.int8, device="meta")
+    s = torch.empty((1,), device="meta")
+    sw = torch.empty((16,), device="meta")
+    w1 = torch.empty((16, 27, 32), dtype=torch.int8, device="meta")
+    w2 = torch.empty((27, 8, 16), dtype=torch.int32, device="meta")
+    for launch in (lambda: conv3d_s8_kernel(xq, s, w1, sw, None),
+                   lambda: conv_s8_general_kernel(xq, s, w2, sw, None, (3, 3, 3), (1, 1, 1),
+                                                  [(1, 1)] * 3),
+                   lambda: quantize_rows_kernel(torch.empty((2, 8), device="meta"))):
+        with pytest.raises(RuntimeError, match="no kernel"):
+            launch()
+    x = torch.empty((2, 8), device="meta", requires_grad=True)
+    with pytest.raises(RuntimeError, match="grad mode"):
+        quantize_rows_kernel(x)
+    assert int8_conv_route((8, 32, 32, 32, 64), (3, 3, 3), (1, 1, 1), [(1, 1)] * 3, 64) == "s1"
+    assert int8_conv_route((8, 32, 32, 32, 64), (3, 3, 3), (1, 2, 2), [(1, 1)] * 3, 64) == "s2"
+    assert int8_conv_route((8, 32, 32, 32, 24), (3, 3, 3), (1, 1, 1), [(1, 1)] * 3, 64) == "s2"
+    assert int8_conv_route((8, 64, 64, 64), (3, 3), (2, 2), [(1, 1)] * 2, 64) == "s2"
+    for shape, ksize, stride, pads, cout in (
+            ((2, 4, 4, 4, 4, 32), (3,) * 4, (1,) * 4, [(1, 1)] * 4, 32),  # rank 4
+            ((1, 8, 8, 8, 8192), (3, 3, 3), (1, 1, 1), [(1, 1)] * 3, 32),  # int32 sum overflow
+            ((4096, 64, 64, 64, 64), (3, 3, 3), (1, 1, 1), [(1, 1)] * 3, 64)):  # past int32
+        with pytest.raises(ValueError, match=r"no kernel covers it") as info:
+            int8_conv_route(shape, ksize, stride, pads, cout)
+        assert str(tuple(shape)) in str(info.value)
 
 
 def test_kernel_entry_points_are_autograd_functions():
@@ -194,8 +274,10 @@ def test_variant_kernels_raise_off_the_cpu_and_under_grad_mode(launch):
         launch(x, km, p)
 
 
-@pytest.mark.parametrize("entry", [conv3d_variants, conv3d_ab, conv_profile, bench],
-                         ids=["conv3d_variants", "conv3d_ab", "conv_profile", "bench"])
+@pytest.mark.parametrize("entry", [conv3d_variants, conv3d_ab, conv_profile, bench,
+                                   conv_int8_probe],
+                         ids=["conv3d_variants", "conv3d_ab", "conv_profile", "bench",
+                              "conv_int8_probe"])
 def test_benchmark_entries_need_cuda_unless_asked_for_the_cpu(entry):
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without CUDA")

@@ -3,8 +3,8 @@
 ``SERVE_SMOKE=1 python -m rho_diffusion_tpu_torch.benchmarks.serve_bench -d cpu``
 prints the JAX script's result keys (read from its source), finite samples,
 a mean occupancy in (0, 1] and at least ceil(n_load / largest bucket)
-launches for the load phase; ``SERVE_QUANT=int8`` raises naming ROADMAP
-Queue 1 item 11, and without CUDA the entry raises unless asked for the CPU.
+launches for the load phase, with and without ``SERVE_QUANT=int8``; without
+CUDA the entry raises unless asked for the CPU.
 """
 import ast
 import json
@@ -14,7 +14,9 @@ from pathlib import Path
 import pytest
 import torch
 
+from chip_smoke import Int8Sites
 from rho_diffusion_tpu_torch.benchmarks import serve_bench
+from rho_diffusion_tpu_torch.ops import quant
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -46,11 +48,19 @@ def test_smoke_prints_jax_keys(monkeypatch, capsys):
     assert result["throughput_volumes_per_s"] > 0
 
 
-def test_int8_raises_naming_item_11(monkeypatch):
+def test_int8_smoke_serves_the_load(monkeypatch):
+    """SERVE_SMOKE=1 SERVE_QUANT=int8: the int8 service runs the latency and
+    load phases (finite samples, its workload named), and the mode is off
+    again once the service closed."""
     monkeypatch.setenv("SERVE_SMOKE", "1")
     monkeypatch.setenv("SERVE_QUANT", "int8")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        serve_bench.main(["-d", "cpu"])
+    with Int8Sites() as sites:
+        result = serve_bench.main(["-d", "cpu"])
+    assert result["workload"] == "8^3 ddim-4 (bf16, mc=16) quant=int8"
+    assert result["all_finite"] is True and 0 < result["mean_batch_occupancy"] <= 1
+    assert result["load_phase_launches"] >= math.ceil(6 / 2)
+    assert sites.kinds().get("conv_int8")
+    assert quant.get_conv_quant() == "off"
 
 
 def test_defaults_are_the_flagship_workload(monkeypatch):

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import random_state_dict
+from chip_smoke import Int8Sites, random_state_dict
 from rho_diffusion_tpu_torch.diffusion.ddpm import DDPM
 from rho_diffusion_tpu_torch.diffusion.sampling_rng import (
     keys_at_step,
@@ -31,6 +31,7 @@ from rho_diffusion_tpu_torch.diffusion.sampling_rng import (
 )
 from rho_diffusion_tpu_torch.diffusion.schedule import LinearSchedule
 from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+from rho_diffusion_tpu_torch.ops.quant import get_conv_quant, set_conv_quant
 from rho_diffusion_tpu_torch.parallel import make_mesh
 from rho_diffusion_tpu_torch.serve import build_server
 from rho_diffusion_tpu_torch.serving import SamplingService, make_http_handler
@@ -391,10 +392,44 @@ def test_service_mesh_rules():
     pipe = ddpm()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SamplingService(pipe, mesh=make_mesh(data=2, context=1, devices=["cpu"] * 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SamplingService(pipe, quantize="int8")
     with pytest.raises(ValueError, match="first device"):
         SamplingService(pipe, mesh=make_mesh(context=2, devices=["meta", "cpu"]))
+
+
+def test_quantized_service():
+    """JAX's contract (tests/test_serving.py test_quantized_service):
+    quantize='int8' serves finite samples from the unchanged weights, the
+    mode is on while the service runs and close() restores it; an unknown
+    mode is a ValueError. A row is the same alone and co-batched (per-sample
+    activation scales)."""
+    pipe = ddpm(model_channels=16)
+    try:
+        with SamplingService(pipe, batch_buckets=(1, 2), max_delay_s=0.0,
+                             quantize="int8") as service:
+            assert get_conv_quant() == "int8"
+            with Int8Sites() as sites:
+                res = service.generate(n=2, seed=0)
+            assert sites.kinds().get("conv_int8")
+            assert res.samples.shape == (2, 8, 8, 1)
+            assert np.isfinite(res.samples).all()
+            alone = service.generate(n=1, seed=0).samples
+            np.testing.assert_array_equal(alone[0], res.samples[0])
+        assert get_conv_quant() == "off"
+        with SamplingService(pipe, batch_buckets=(2,), max_delay_s=0.0) as plain:
+            assert np.abs(plain.generate(n=2, seed=0).samples - res.samples).max() > 1e-4
+        with pytest.raises(ValueError, match="conv quant mode"):
+            SamplingService(pipe, quantize="int4")
+    finally:
+        set_conv_quant("off")
+
+
+def test_quantized_service_that_fails_to_build_restores_the_mode():
+    """A constructor that raises after it set int8 (here on its buckets)
+    gives the mode back, since no close() follows."""
+    pipe = ddpm(model_channels=16)
+    with pytest.raises(ValueError, match="batch_buckets"):
+        SamplingService(pipe, batch_buckets=(2, 1), quantize="int8")
+    assert get_conv_quant() == "off"
 
 
 def test_build_server_on_cpu_with_context_ranks(tmp_path, monkeypatch):
