@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py [--phases env,build,kernels,main,main64,gauss,vlb,train,data,hold,serve,load,utils,int8,timings,fp32,bench]
+    python3 chip_smoke.py [--phases env,build,kernels,main,main64,gauss,vlb,train,data,hold,serve,load,utils,int8,vit,timings,fp32,bench]
                           [--steps 25] [--samples 4] [--timing-batch 8]
 
 Builds the port's CUDA kernels from ``rho_diffusion_tpu_torch/csrc`` (and
@@ -118,6 +118,20 @@ weights loaded from a reference-layout ``.pth``):
   bf16 and int8 (in turns) with device profiles; and the serving load
   harness at its defaults in bf16 and with SERVE_QUANT=int8, one after the
   other;
+* ``vit``: the other backbones. The bench entry with BENCH_MODEL=vit at the
+  root bench.py's full width (32^3, patch 8, embedding 256, hidden 512,
+  depth 8, 16 heads: head dim 16 over 64 tokens, so the mma.sync flash
+  forward and its dkv/dq pair; batch 32, bf16, AdamW, EMA 0.9999); the
+  training CLI on the flagship config with that ViT, FourierConditioning
+  on the raw (l, m) rows (5 steps at batch 32, one checkpoint), then the
+  inference CLI's DDPM-25 at batch 4 on it; the ViT's bf16 forward and one
+  loss's gradients held against the fp32 plain model, the two kernels held
+  at (32, 64, 16, 16) and a ragged T = 50 and timed there beside SDPA
+  (device time of whole calls from CUDA graphs too); the SimpleUNet
+  ("UNet") in 3-D at 32^3 with JAX's default widths in bf16: 3 training
+  steps at batch 8, a DDPM-25 sample at batch 2 through ``reverse_process``,
+  its forward and gradients held, and its K5 problems (concat inputs of 512
+  and 256 channels among them) held and timed, forward and dgrad;
 * ``fp32``: the flagship in fp32 (a config whose ``training.dtype`` is
   float32): every distinct conv problem of a batch-8 forward and of a
   batch-32 step's dgrad (the 3xTF32 implicit GEMM where Cin % 4 == 0 and
@@ -178,7 +192,7 @@ phase prints one JSON line; a failing phase exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``, after the
 ``kernels`` line and the card's ``nvidia-smi`` name and power limit. A run
 whose ``--phases`` leave out any of kernels, main, main64, gauss, vlb,
-train, data, serve, load, utils, int8, timings, fp32 and bench prints
+train, data, serve, load, utils, int8, vit, timings, fp32 and bench prints
 neither and exits 3.
 
 Exits non-zero without a result when CUDA is unavailable or the script runs
@@ -207,10 +221,10 @@ DEEP_GALAXY_CONFIG = ROOT / "examples" / "config_deep_galaxy.json"
 SPECTRO_CONFIG = ROOT / "examples" / "config_spectroscopy.json"
 QUALITY_CONFIG = ROOT / "examples" / "config_spherical_harmonics_quality.json"
 PHASES = ("env", "build", "kernels", "main", "main64", "gauss", "vlb", "train", "data", "hold",
-          "serve", "load", "utils", "int8", "timings", "fp32", "bench")
+          "serve", "load", "utils", "int8", "vit", "timings", "fp32", "bench")
 # the phases whose numbers the kernels line carries
 KERNELS_LINE_PHASES = ("kernels", "main", "main64", "gauss", "vlb", "train", "data", "serve",
-                       "load", "utils", "int8", "timings", "fp32", "bench")
+                       "load", "utils", "int8", "vit", "timings", "fp32", "bench")
 DEVICE = "cuda"
 # the train phase: the flagship's batch, and steps cut to five
 TRAIN_BATCH = 32
@@ -1243,8 +1257,9 @@ def phase_kernels(state: dict) -> None:
          launches=counts)
     fail_bad("kernels", conv + flash + flash_bwd + ring + plans + probe + splits + flash_tf32
              + flash_splits)
-    # the mma.sync and FMA pairs run on no main path: their path is these holds
-    missing = [name for name, _, _, path in KERNELS if path == "kernels" and not counts.get(name)]
+    # the holds launch the mma.sync and FMA pairs too (their main path is the vit phase's)
+    missing = [name for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+               if not counts.get(name)]
     if missing:
         fail(f"kernels: the holds never launched {missing}; counts {counts}")
 
@@ -3134,6 +3149,8 @@ def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None
         fused["wrapper_device_ms"] = graph_ms(
             lambda: flash_attention_bwd_kernel(q, k, v, o, lse, do), calls=10)
         pair_plan, pair_note = MMA_SYNC_BWD_PLAN, "the mma.sync pair on request (plan=mma_sync)"
+        # the pair's own main rows are the ViT's (D = 16, the vit phase)
+        variant = variant or f"the mma.sync pair on request at T={t}, D={d}, B*H={b * h}"
     elif plan.route == "tf32":
         # the 3xTF32 pair: each kernel's own products (dkv 4, dq 3) of
         # 2*T*T*D, three TF32 products each, on the wrapper's call (its
@@ -5082,6 +5099,413 @@ def phase_int8(state: dict, steps: int, samples: int) -> None:
         fail("int8: " + "; ".join(problems_found))
 
 
+# ---------------------------------------------------------------------------
+# The other backbones: the ViT at the bench entry's full width, the SimpleUNet
+# ---------------------------------------------------------------------------
+
+# the ViT of the root bench.py's BENCH_MODEL=vit (32^3, patch 8, embedding
+# 256, hidden 512, depth 8, 16 heads: head dim 16 over 64 tokens), here
+# class-conditional through FourierConditioning on the dataset's raw (l, m)
+# rows, as the training and inference CLIs build it
+VIT_MODEL = {"patch_size": 8, "input_shapes": [32, 32, 32], "num_channels": 1,
+             "embedding_dim": 256, "hidden_dim": 512, "transformer_depth": 8, "num_heads": 16,
+             "dropout": 0.0, "num_classes": 20, "cond_fn": "FourierConditioning"}
+# its attention at the bench's batch 32, and a ragged T for the holds
+VIT_ATTENTION = (32, 64, 16, 16)
+VIT_RAGGED = (2, 50, 16, 16)
+VIT_SAMPLE_STEPS = 25
+VIT_SAMPLES = 4
+VIT_HOLD_BATCH = 4
+VIT_GRAD_BATCH = 2
+VIT_CUTS = {
+    "model": "UNetv2 -> VisionTransformer at the root bench.py's full width, with "
+             "num_classes 20 and cond_fn FourierConditioning",
+    "dataset.kwargs": "use_emb_as_labels false (the raw (l, m) rows FourierConditioning "
+                      "reads); length 1000 -> TRAIN_STEPS * batch",
+    "training.max_epochs": "1000 -> 1",
+    "training.save_checkpoint_every_n_epochs": "10 -> 1",
+    "training.log_every_n_steps": "50 -> 1",
+    "training.loggers": "stdout, jsonl -> jsonl",
+    "noise_schedule.kwargs.num_steps": "1000 for training; 1000 -> 25 for the inference CLI",
+    "inference.cache_file, plot_output_file, checkpoint": "-> none (the trained checkpoint)",
+}
+# the SimpleUNet ("UNet") in 3-D at JAX's default widths: down (64, 128,
+# 256), up (256, 128, 64), time embedding 32, ReLU, residual convs, every
+# block at full resolution
+SIMPLE_MODEL = {"input_channels": 1, "block_type": "UNetBlock3d", "dtype": "bfloat16"}
+SIMPLE_GRID = 32
+SIMPLE_TRAIN_BATCH = 8
+SIMPLE_TRAIN_STEPS = 3
+SIMPLE_SAMPLE_BATCH = 2
+SIMPLE_SAMPLE_STEPS = 25
+SIMPLE_HOLD_BATCH = 2
+
+
+def vit_config(batch: int, steps: int) -> dict:
+    """The flagship config with the ViT for its model and the vit phase's cuts."""
+    cfg = json.loads(CONFIG.read_text())
+    cfg["model"] = {"name": "VisionTransformer", "kwargs": dict(VIT_MODEL)}
+    cfg["dataset"]["kwargs"].update(use_emb_as_labels=False, length=TRAIN_STEPS * batch)
+    cfg["noise_schedule"]["kwargs"]["num_steps"] = steps
+    cfg["training"].update(batch_size=batch, max_epochs=1, save_checkpoint_every_n_epochs=1,
+                           log_every_n_steps=1, loggers=["jsonl"])
+    cfg["inference"].update(cache_file=None, plot_output_file=None, checkpoint=None)
+    return cfg
+
+
+def raw_rows(n: int, device):
+    """The first ``n`` raw (l, m) rows of the flagship's parameter space."""
+    import numpy as np
+    import torch
+
+    from rho_diffusion_tpu_torch.utils import sample_from_discrete_parameter_space
+
+    space = json.loads(CONFIG.read_text())["inference"]["parameter_space"]
+    rows = sample_from_discrete_parameter_space(space, n, random=False,
+                                                rng=np.random.default_rng(0))
+    return torch.as_tensor(np.asarray(rows, np.float32), device=device)
+
+
+def model_holds(fast, ref, inputs: tuple, grad_batch: dict) -> tuple[dict, list]:
+    """The hold rule on a backbone's forward (``inputs``) and on one DDPM
+    loss's parameter gradients (``grad_batch``: data, labels, t, noise):
+    the kernels against the fp32 plain model, at most HOLD_FACTOR times as
+    far as the bf16 plain model, capped. Returns (fields, failed)."""
+    import torch
+
+    with torch.no_grad():
+        got = {"forward": fast.apply(*inputs)}
+        with plain_backends():
+            plain_bf16 = {"forward": fast.apply(*inputs)}
+            plain_fp32 = {"forward": ref.apply(*inputs)}
+    fields = hold_rows(got, plain_bf16, plain_fp32, HOLD_CAP)
+    bad = [what for what, row in fields.items() if not row["ok"]]
+    data, t, noise = grad_batch["data"], grad_batch["t"], grad_batch["noise"]
+    grads = train_gradients(fast, data, t, noise)
+    with plain_backends():
+        grads_bf16 = train_gradients(fast, data, t, noise)
+        grads_fp32 = train_gradients(ref, data, t, noise)
+    k, k_name, k_worst = grad_distance(grads, grads_fp32)
+    p, _, _ = grad_distance(grads_bf16, grads_fp32)
+    row = {"metric": "relative L2 over all parameter gradients", "kernels_vs_fp32_plain": k,
+           "bf16_plain_vs_fp32_plain": p, "worst_parameter_kernels": {"name": k_name,
+                                                                        "rel_l2": k_worst},
+           "parameters": len(grads_fp32),
+           "bar": min(HOLD_FACTOR * p, HOLD_CAP["train_gradients"])}
+    row["ok"] = (k <= row["bar"] and set(grads) == set(grads_fp32)
+                 and all(bool(torch.isfinite(g).all()) for g in grads.values()))
+    fields["train_gradients"] = row
+    if not row["ok"]:
+        bad.append("train_gradients")
+    return fields, bad
+
+
+def simple_unet_conv_rows(unet, batch: int, device) -> tuple[list, dict]:
+    """Every distinct K5 problem of one SimpleUNet forward at ``batch`` and
+    of its input gradients, held against the plain version and timed, with
+    their calls per forward or step; and the forward's problems by name."""
+    import torch
+
+    from rho_diffusion_tpu_torch.ops import convolution as conv_mod
+
+    gen = torch.Generator().manual_seed(40)
+    x = torch.randn((batch, *(SIMPLE_GRID,) * 3, 1), generator=gen).to(device)
+    t = torch.randint(0, 1000, (batch,), generator=gen).to(device)
+    with CallRecorder(conv_mod, "conv3d") as rec, torch.no_grad():
+        unet(x, t)
+    torch.cuda.synchronize()
+    rows, problems = [], {}
+    for kind, seed in (("forward", 800), ("dgrad", 850)):
+        calls: dict = {}
+        for key in conv_keys(rec.calls, kind):
+            calls[key] = calls.get(key, 0) + 1
+        per = (f"one SimpleUNet {'forward' if kind == 'forward' else 'training step'} at "
+               f"batch {batch}")
+        for i, (key, n) in enumerate(sorted(calls.items(), key=lambda kv: str(kv[0]))):
+            name = conv_problem_name(kind, key[0], key[1], dtype_name(key[2]))
+            problems[name] = n
+            row = hold_conv(kind, key, device, seed + 3 * i, n, per)
+            row["variant"] = f"SimpleUNet 32^3 {kind}: {name}, {per}"
+            rows.append(row)
+    return rows, problems
+
+
+def run_vit_clis(device) -> dict:
+    """The training CLI on the ViT config (TRAIN_STEPS steps at TRAIN_BATCH
+    from the seeded initialisation, one checkpoint), then the inference
+    CLI's DDPM-25 at batch VIT_SAMPLES on that checkpoint's EMA weights;
+    each path's counts cleared just before it and read just after."""
+    import numpy as np
+    import torch
+
+    from rho_diffusion_tpu_torch import inference
+    from rho_diffusion_tpu_torch.training.__main__ import main as train_main
+    from rho_diffusion_tpu_torch.training.checkpoint import CheckpointManager
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_vit_"))
+    try:
+        work = tmp / "run"
+        train_cfg, sample_cfg = tmp / "train.json", tmp / "sample.json"
+        train_cfg.write_text(json.dumps(vit_config(TRAIN_BATCH, 1000)))
+        sample_cfg.write_text(json.dumps(vit_config(TRAIN_BATCH, VIT_SAMPLE_STEPS)))
+        torch.cuda.empty_cache()
+        st, train_s, train_counts, train_routes = counted(lambda: train_main(
+            [str(train_cfg), "-d", DEVICE, "--work-dir", str(work), "--no-resume"]))
+        records = [json.loads(x) for x in (work / "metrics.jsonl").read_text().splitlines()]
+        steps = [r for r in records if "train_loss" in r]
+        latest = CheckpointManager(work / "checkpoints").latest_step()
+        del st
+        torch.cuda.empty_cache()
+        out, sample_s, sample_counts, sample_routes = counted(lambda: inference.main(
+            [str(sample_cfg), "-n", str(VIT_SAMPLES), "-d", DEVICE, "-f", "--work-dir",
+             str(work)]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = [r["train_loss"] for r in steps]
+    return {
+        "train": {"steps": len(steps), "losses": losses, "step_s": [r["step_s"] for r in steps],
+                  "grad_norms": [r["grad_norm"] for r in steps], "wall_s": train_s,
+                  "checkpoint_step": latest, "launches": train_counts,
+                  "flash_routes": train_routes,
+                  "ok": len(steps) == TRAIN_STEPS and bool(np.isfinite(losses).all())
+                  and latest == TRAIN_STEPS},
+        "sample": {"shape": list(out.shape), "finite": bool(np.isfinite(out).all()),
+                   "sample_std": float(out.std()), "wall_s": sample_s, "steps": VIT_SAMPLE_STEPS,
+                   "batch": VIT_SAMPLES, "launches": sample_counts, "flash_routes": sample_routes,
+                   "ok": tuple(out.shape) == (VIT_SAMPLES, 32, 32, 32, 1)
+                   and bool(np.isfinite(out).all())},
+    }
+
+
+def phase_vit(state: dict) -> None:
+    """The other backbones on the card. (a) The bench entry with
+    BENCH_MODEL=vit at full width (32^3, patch 8, 256/512, depth 8, 16
+    heads, batch 32, bf16, AdamW with EMA 0.9999, LinearSchedule(1000)): its
+    train mode's windows and its one JSON line. (b) The training CLI on the
+    ViT config (FourierConditioning on raw (l, m) rows), then the inference
+    CLI's DDPM-25 at batch 4 on its checkpoint. (c) Holds: the ViT's bf16
+    forward and one loss's gradients against the fp32 plain model; the
+    mma.sync forward and the dkv/dq pair at the ViT's attention and at a
+    ragged T against their plain versions. (d) Both timed at the ViT's
+    attention beside SDPA and their bound, with their launches per step
+    and per sample. (e) The SimpleUNet in 3-D at 32^3 with JAX's default
+    widths in bf16: SIMPLE_TRAIN_STEPS training steps at batch 8, a DDPM-25
+    sample at batch 2 through ``reverse_process``, its forward and gradients
+    held, and its K5 problems held and timed."""
+    import io
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from rho_diffusion_tpu_torch import bench
+    from rho_diffusion_tpu_torch.diffusion import DDPM, LinearSchedule
+    from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd_kernel, flash_attention_fwd_kernel, flash_bwd_plan,
+        flash_plan)
+
+    device = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    launches, problems, seconds = {}, [], {}
+
+    # (a) the bench entry, in-process
+    torch.cuda.empty_cache()
+    captured, err = io.StringIO(), io.StringIO()
+    with bench_env({"BENCH_MODEL": "vit"}), contextlib.redirect_stdout(captured), \
+            contextlib.redirect_stderr(err):
+        result, wall, counts, routes = counted(lambda: bench.main(["-d", DEVICE]))
+    lines = captured.getvalue().splitlines()
+    with bench_env({"BENCH_MODEL": "vit"}):
+        s = bench.settings()
+    ran = re.search(r" steps_run=(\d+)", err.getvalue())
+    bench_steps = int(ran.group(1)) if ran else 0
+    if not ran:
+        problems.append(f"bench: no steps_run in its stderr {err.getvalue()!r}")
+    bench_run = {"line": json.loads(lines[-1]) if lines else None, "lines": len(lines),
+                 "entry_s": wall, "stderr": err.getvalue().strip(), "steps": bench_steps,
+                 "launches": counts, "flash_routes": routes,
+                 "launches_per_step": {k: v / max(bench_steps, 1) for k, v in counts.items()}}
+    launches["vit_bench"] = counts
+    pair = ("flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    per_step = s["backbone_kwargs"]["transformer_depth"]
+    if lines != [json.dumps(result)] or any(counts.get(k) != per_step * bench_steps
+                                            for k in pair) or counts.get("flash_attention_bwd"):
+        problems.append(f"bench: lines {lines}, launches {counts} (want {per_step} of each of "
+                        f"{pair} a step over {bench_steps} steps, no fused backward)")
+    # the bench's pipeline again: the host's seconds a step over 10 steps,
+    # then one step profiled (the device's busy share against that, its
+    # launches, its time by kernel group)
+    with bench_env({"BENCH_MODEL": "vit"}):
+        pipe = bench.training_pipeline(s, device)
+    ts = pipe.create_state(777)
+    gen = torch.Generator().manual_seed(0)
+    shape = (s["batch"], *s["backbone_kwargs"]["input_shapes"], 1)
+    batch = {"data": torch.rand(shape, generator=gen).to(device), "labels": None}
+    for _ in range(3):
+        pipe.training_step(ts, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(10):
+        pipe.training_step(ts, batch)
+    torch.cuda.synchronize()
+    bench_run["profiled_step"] = profiled_step(
+        device_time_by_kernel(lambda: pipe.training_step(ts, batch)),
+        (time.perf_counter() - t1) / 10)
+    del pipe, ts, batch
+    torch.cuda.empty_cache()
+    seconds["bench"] = time.perf_counter() - t0
+
+    # (b) the training and inference CLIs
+    clis = run_vit_clis(device)
+    launches["vit_train_cli"] = clis["train"]["launches"]
+    launches["vit_sample_cli"] = clis["sample"]["launches"]
+    for what, want in (("train", pair), ("sample", ("flash_attention",))):
+        missing = [k for k in want if not clis[what]["launches"].get(k)]
+        if missing or not clis[what]["ok"]:
+            problems.append(f"{what} CLI: missing {missing}, {clis[what]}")
+    seconds["clis"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    # (c) holds: the model, then the kernels at the ViT's attention and a ragged T
+    cfg = vit_config(TRAIN_BATCH, 1000)
+    fast = build_pipeline(cfg, "bfloat16", device)
+    sd = random_state_dict(fast.backbone, seed=0)
+    fast.load_state_dict(sd)
+    ref = build_pipeline(cfg, "float32", device)
+    ref.load_state_dict(sd)
+    gen = torch.Generator().manual_seed(21)
+    x = torch.randn((VIT_HOLD_BATCH, 32, 32, 32, 1), generator=gen).clamp(-1, 1).to(device)
+    t = torch.randint(0, 1000, (VIT_HOLD_BATCH,), generator=gen).to(device)
+    y = raw_rows(VIT_HOLD_BATCH, device)
+    g = VIT_GRAD_BATCH
+    grad_batch = {"data": {"data": x[:g], "labels": y[:g]}, "t": t[:g],
+                  "noise": torch.randn((g, 32, 32, 32, 1), generator=gen).to(device)}
+    vit_hold, bad = model_holds(fast, ref, (x, t, y), grad_batch)
+    if bad:
+        problems.append(f"vit hold {bad}: {vit_hold}")
+    del fast, ref
+    torch.cuda.empty_cache()
+    b, tt, h, d = VIT_ATTENTION
+    holds = [check_flash(*VIT_ATTENTION, device, 900, torch.bfloat16),
+             check_flash(*VIT_RAGGED, device, 901, torch.bfloat16)]
+    bwd_holds = [check_flash_bwd(*VIT_ATTENTION, device, 902, torch.bfloat16),
+                 check_flash_bwd(*VIT_RAGGED, device, 903, torch.bfloat16)]
+    record_errors(state, holds + [gr for row in bwd_holds for gr in row["grads"]])
+    bad = [r for r in holds if not r["ok"]] + [r for r in bwd_holds if not r["ok"]]
+    if bad:
+        problems.append(f"flash holds at D = 16: {bad}")
+    seconds["holds"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    # (d) the two kernels timed at the ViT's attention, per training step
+    per = f"one ViT training step at batch {b} ({per_step} attention calls)"
+    rows = ([flash_fwd_row(b, tt, h, d, per_step, per, device, torch.bfloat16,
+                           variant=f"vit: T={tt}, D={d}, B*H={b * h}, {per}")]
+            + flash_bwd_rows(b, tt, h, d, per_step, per, device, torch.bfloat16))
+    routes_here = {"forward": flash_plan(b, h, tt, tt, d).route,
+                   "backward": flash_bwd_plan(b, h, tt, tt, d).route}
+    # like for like at this launch-bound size: the device time of a whole
+    # call (CUDA graphs, no host work) of the wrapper and of SDPA, on the
+    # inputs of the rows above (the backward's SDPA time is already so)
+    q, k, v = flash_inputs(b, tt, h, d, device, seed=300 + tt, dtype=torch.bfloat16)
+    qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+    rows[0]["wrapper_device_ms"] = graph_ms(lambda: flash_attention(q, k, v), calls=10)
+    rows[0]["library_device_ms"] = graph_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt), calls=10)
+    q, k, v = flash_inputs(b, tt, h, d, device, seed=500, dtype=torch.bfloat16)
+    do = randn((b, tt, h, d), 501, device, torch.bfloat16)
+    o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+    dkv = next(r for r in rows if r["kernel"] == "flash_attention_bwd_dkv")
+    dkv["wrapper_device_ms"] = graph_ms(
+        lambda: flash_attention_bwd_kernel(q, k, v, o, lse, do), calls=10)
+    del q, k, v, qt, kt, vt, do, o, lse
+    seconds["kernel_rows"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    # (e) the SimpleUNet
+    simple = {}
+    pipe = DDPM(backbone="UNet", backbone_kwargs=dict(SIMPLE_MODEL),
+                schedule=LinearSchedule(1000), optimizer="AdamW", opt_kwargs={"lr": 1e-4},
+                ema_decay=0.9999, device=device, seed=0)
+    gen = torch.Generator().manual_seed(31)
+    shape = (SIMPLE_TRAIN_BATCH, *(SIMPLE_GRID,) * 3, 1)
+    batch = {"data": torch.rand(shape, generator=gen).to(device), "labels": None}
+    ts = pipe.create_state(seed=1)
+    torch.cuda.reset_peak_memory_stats()
+    metrics, train_s, counts, _ = counted(
+        lambda: [pipe.training_step(ts, batch) for _ in range(SIMPLE_TRAIN_STEPS)])
+    losses = [float(m["train_loss"]) for m in metrics]
+    launches["simple_unet_train"] = counts
+    t1 = time.perf_counter()
+    pipe.training_step(ts, batch)
+    torch.cuda.synchronize()
+    simple["train"] = {"batch": SIMPLE_TRAIN_BATCH, "steps": SIMPLE_TRAIN_STEPS,
+                       "losses": losses, "wall_s": train_s, "one_more_step_s":
+                       time.perf_counter() - t1, "launches": counts,
+                       "peak_bytes": torch.cuda.max_memory_allocated()}
+    want = ("conv3d_igemm", "conv3d_direct", "conv3d_dgrad_igemm")
+    missing = [k for k in want if not counts.get(k)]
+    if missing or not np.isfinite(losses).all():
+        problems.append(f"SimpleUNet training: missing {missing}, losses {losses}")
+    sampler = DDPM(backbone="UNet", backbone_kwargs=dict(SIMPLE_MODEL),
+                   schedule=LinearSchedule(SIMPLE_SAMPLE_STEPS), device=device, seed=0)
+    sampler.load_state_dict({k: v.detach() for k, v in ts.model.state_dict().items()})
+    del ts, pipe
+    torch.cuda.empty_cache()
+    sample_shape = (SIMPLE_SAMPLE_BATCH, *(SIMPLE_GRID,) * 3, 1)
+    out, sample_s, counts, _ = counted(lambda: sampler.reverse_process(
+        sample_shape, None, generator=torch.Generator(device=device).manual_seed(5))["denoised"])
+    launches["simple_unet_sample"] = counts
+    finite = bool(torch.isfinite(out).all())
+    simple["sample"] = {"shape": list(out.shape), "finite": finite, "wall_s": sample_s,
+                        "steps": SIMPLE_SAMPLE_STEPS, "launches": counts}
+    missing = [k for k in ("conv3d_igemm", "conv3d_direct") if not counts.get(k)]
+    if missing or not finite or tuple(out.shape) != sample_shape:
+        problems.append(f"SimpleUNet sample: missing {missing}, {simple['sample']}")
+    gen = torch.Generator().manual_seed(32)
+    x8 = torch.randn((SIMPLE_TRAIN_BATCH, *(SIMPLE_GRID,) * 3, 1), generator=gen).to(device)
+    t8 = torch.randint(0, 1000, (SIMPLE_TRAIN_BATCH,), generator=gen).to(device)
+    with torch.no_grad():
+        simple["forward_ms"] = {"batch": SIMPLE_TRAIN_BATCH, "ms": cuda_time_ms(
+            lambda: sampler.backbone(x8, t8), iters=5)}
+    del x8, t8
+    conv_rows, conv_problems = simple_unet_conv_rows(sampler.backbone, SIMPLE_TRAIN_BATCH,
+                                                     device)
+    simple["conv_problems"] = conv_problems
+    del sampler
+    torch.cuda.empty_cache()
+    ref_kw = {**SIMPLE_MODEL, "dtype": "float32"}
+    fast = DDPM(backbone="UNet", backbone_kwargs=dict(SIMPLE_MODEL),
+                schedule=LinearSchedule(1000), device=device, seed=0)
+    ref = DDPM(backbone="UNet", backbone_kwargs=ref_kw, schedule=LinearSchedule(1000),
+               device=device, seed=0)
+    sd = random_state_dict(fast.backbone, seed=2)
+    fast.load_state_dict(sd)
+    ref.load_state_dict(sd)
+    gen = torch.Generator().manual_seed(33)
+    hb = SIMPLE_HOLD_BATCH
+    x = torch.randn((hb, *(SIMPLE_GRID,) * 3, 1), generator=gen).clamp(-1, 1).to(device)
+    t = torch.randint(0, 1000, (hb,), generator=gen).to(device)
+    grad_batch = {"data": {"data": x, "labels": None}, "t": t,
+                  "noise": torch.randn(x.shape, generator=gen).to(device)}
+    simple["hold"], bad = model_holds(fast, ref, (x, t), grad_batch)
+    if bad:
+        problems.append(f"SimpleUNet hold {bad}: {simple['hold']}")
+    del fast, ref
+    torch.cuda.empty_cache()
+    seconds["simple_unet"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    rows += conv_rows
+    record_errors(state, rows)
+    state["vit"] = rows
+    state["vit_launches"] = launches
+    emit("vit", cuts=VIT_CUTS, bench=bench_run, clis=clis, hold=vit_hold,
+         flash_holds=holds, flash_bwd_holds=bwd_holds, routes_at_vit_attention=routes_here,
+         kernel_rows=rows, simple_unet=simple, seconds=seconds,
+         launches_per_sample={k: v / VIT_SAMPLES for k, v in clis["sample"]["launches"].items()},
+         wall_s=time.perf_counter() - t0)
+    fail_bad("vit", rows)
+    if problems:
+        fail("vit: " + "; ".join(problems))
+
+
 KERNELS = (
     # K5's implicit GEMM: the kernel in conv3d_wgmma.cuh, its launcher in conv3d.cu
     ("conv3d_igemm", "conv3d_wgmma.cuh", "rho_diffusion_tpu/ops/pallas/conv3d.py:102",
@@ -5103,12 +5527,12 @@ KERNELS = (
     # its delta pre-pass, where the TPU path leaves rowsum(dO O) to XLA
     ("flash_attention_bwd_delta", "flash_attention_bwd_wgmma.cuh",
      "rho_diffusion_tpu/ops/pallas/flash_attention.py:308", "training"),
-    # the mma.sync and FMA pairs (bf16 and fp32 at D = 16, 32, 256) run on
-    # no main path: their launches are the kernels phase's holds
+    # the mma.sync pair (bf16 at D = 16, 32, 256; the FMA pair for fp32 there)
+    # is the ViT's backward at head dim 16 (the vit phase's bench entry)
     ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
-     "rho_diffusion_tpu/ops/pallas/flash_attention.py:209", "kernels"),
+     "rho_diffusion_tpu/ops/pallas/flash_attention.py:209", "vit_bench"),
     ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
-     "rho_diffusion_tpu/ops/pallas/flash_attention.py:262", "kernels"),
+     "rho_diffusion_tpu/ops/pallas/flash_attention.py:262", "vit_bench"),
     # K6: one launch per device folds every rank's K/V shard in the ring's
     # order (the ring's host side: parallel/context_rdma.py)
     ("ring_attention", "ring_attention.cu", "rho_diffusion_tpu/parallel/context_rdma.py:50",
@@ -5182,7 +5606,7 @@ def summed_times(rows: list) -> dict:
 def kernels_line(state: dict) -> list:
     """The ``kernels`` line: per kernel, its launches on the path that runs
     it (sampling for the forward kernels, training for the fused backward,
-    the kernels phase's holds for the dkv/dq pair, serving for K6, bench for
+    the vit phase's bench entry for the dkv/dq pair, serving for K6, bench for
     K7-K9; every path listed), its worst error
     against its plain version over every hold of this run and that error's
     ratio to the check's tolerance (at most 1), and its times summed over
@@ -5195,11 +5619,12 @@ def kernels_line(state: dict) -> list:
                 "fp32": state["fp32_launches"], "load": state["load_launches"],
                 "int8": state["int8_launches"],
                 **state["gauss_launches"], **state["vlb_launches"], **state["data_launches"],
-                **state["utils_launches"]}
+                **state["utils_launches"], **state["vit_launches"]}
     out = []
     for name, source, replaces, path in KERNELS:
         rows = [r for r in state["timings"] + state["bench"] + state["fp32"] + state["data"]
-                + state["vlb"] + state["int8"] if r["kernel"] == name and r.get("calls")]
+                + state["vlb"] + state["int8"] + state["vit"]
+                if r["kernel"] == name and r.get("calls")]
         main = [r for r in rows if not r["variant"]]
         accuracy = state["err"][name]
         out.append({
@@ -5384,6 +5809,8 @@ def main(argv=None) -> int:
         phase_utils(state)
     if "int8" in phases:
         phase_int8(state, args.steps, args.samples)
+    if "vit" in phases:
+        phase_vit(state)
     if "timings" in phases:
         phase_timings(state, args.timing_batch)
     if "fp32" in phases:

@@ -38,9 +38,13 @@ Other knobs: ``BENCH_BATCH``, ``BENCH_GRID``, ``BENCH_DTYPE``
 (bfloat16|float32), ``BENCH_DIMS`` (3, 2 or 1), ``BENCH_ACCUM``,
 ``BENCH_NO_EMA``, ``BENCH_NO_GRADNORM``, ``BENCH_REMAT=1`` (the UNet's
 ``use_checkpoint``: ResBlocks and AttentionBlocks recomputed in the
-backward, the 64^3 memory recipe). ``BENCH_MODEL=vit`` (ROADMAP Queue 1
-item 9) raises until its backbone is ported; ``BENCH_FLAT_OPT`` flattens
-optax's state tree, which has no torch counterpart, and raises.
+backward, the 64^3 memory recipe). ``BENCH_MODEL=vit`` trains the
+VisionTransformer at the root bench.py's widths (32^3, patch 8, embedding
+256, hidden 512, depth 8, 16 heads; the smoke: patch 4, 64, 128, depth 2, 4
+heads) in the train and realdata modes, under the metric
+``train_steps_per_sec_per_chip_3d_vit_32cubed_b32``; its sample mode exits
+with the root bench.py's message. ``BENCH_FLAT_OPT`` flattens optax's state
+tree, which has no torch counterpart, and raises.
 
 It runs on CUDA unless ``-d cpu`` is given (for the smoke sizes), and
 raises when CUDA is absent.
@@ -89,10 +93,7 @@ def settings() -> dict:
         # the dataset's sha512 labels are 256 wide and condition the model
         # directly, so its embedding (4 * model_channels) must match
         s["mc"] = 64
-    if os.environ.get("BENCH_MODEL", "unet") != "unet":
-        raise NotImplementedError(
-            f"BENCH_MODEL={os.environ['BENCH_MODEL']}: the port has the UNetv2 backbone only "
-            "(VisionTransformer is ROADMAP Queue 1 item 9)")
+    s["model"] = os.environ.get("BENCH_MODEL", "unet")
     if os.environ.get("BENCH_FLAT_OPT") == "1":
         raise NotImplementedError(
             "BENCH_FLAT_OPT=1 flattens optax's optimizer-state tree; the port's optimizers "
@@ -104,6 +105,15 @@ def settings() -> dict:
     elif s["dims"] == 1:  # 1-D density profiles
         s.update(grid=_env("BENCH_GRID", 64 if smoke else 1024),
                  batch=_env("BENCH_BATCH", 8 if smoke else 64))
+    if s["model"] == "vit":  # the root bench.py's ViT (:200-216)
+        s["backbone"] = "VisionTransformer"
+        s["backbone_kwargs"] = dict(
+            patch_size=4 if smoke else 8, input_shapes=(s["grid"],) * s["dims"],
+            num_channels=1, embedding_dim=64 if smoke else 256,
+            hidden_dim=128 if smoke else 512, transformer_depth=2 if smoke else 8,
+            num_heads=4 if smoke else 16, dropout=0.0, dtype=s["dtype"])
+        return s
+    s["backbone"] = "UNetv2"
     s["backbone_kwargs"] = dict(
         data_shape=(s["grid"],) * s["dims"], dims=s["dims"], in_channels=1, out_channels=1,
         model_channels=s["mc"], num_res_blocks=2,
@@ -163,7 +173,7 @@ def training_pipeline(s: dict, device):
     from rho_diffusion_tpu_torch.diffusion import DDPM, LinearSchedule
 
     return DDPM(
-        backbone="UNetv2", backbone_kwargs=s["backbone_kwargs"],
+        backbone=s["backbone"], backbone_kwargs=s["backbone_kwargs"],
         schedule=LinearSchedule(500 if s["dims"] == 2 else 1000), optimizer="AdamW",
         opt_kwargs={"lr": 1e-4},
         ema_decay=0.0 if os.environ.get("BENCH_NO_EMA") == "1" else 0.9999,
@@ -228,7 +238,8 @@ def bench_training(s: dict, device) -> dict:
     warmup_s = time.perf_counter() - t0
     # best of BENCH_WINDOWS windows: host jitter only ever slows one down
     elapsed = float("inf")
-    for _ in range(max(_env("BENCH_WINDOWS", 3), 1)):
+    windows = max(_env("BENCH_WINDOWS", 3), 1)
+    for _ in range(windows):
         t0 = time.perf_counter()
         for _ in range(steps):
             metrics = pipe.training_step(state, batch_dict)
@@ -236,12 +247,14 @@ def bench_training(s: dict, device) -> dict:
         elapsed = min(elapsed, time.perf_counter() - t0)
     value = steps / elapsed
     loss = float(metrics["train_loss"])
-    metric = (f"train_steps_per_sec_per_chip_{dims}d_unet_{_grid_name(grid, dims)}_b{batch}"
+    metric = (f"train_steps_per_sec_per_chip_{dims}d_{s['model']}_{_grid_name(grid, dims)}"
+              f"_b{batch}"
               if not s["smoke"] else "train_steps_per_sec_per_chip_smoke")
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
     print(f"{device_line(device)} chips=1 dtype={s['dtype']} batch={batch} grid={grid} "
           f"remat={s['remat']} warmup={warmup_s:.1f}s elapsed={elapsed:.2f}s loss={loss:.4f} "
-          f"finite={np.isfinite(loss)} peak_bytes={peak}", file=sys.stderr)
+          f"finite={np.isfinite(loss)} peak_bytes={peak} "
+          f"steps_run={max(s['warmup'], 1) + windows * steps}", file=sys.stderr)
     return {"metric": metric, "value": round(value, 4), "unit": "steps/sec/chip",
             "vs_baseline": 1.0}
 
@@ -251,6 +264,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     s = settings()
     if s["mode"] not in ("train", "sample", "realdata"):
         raise ValueError(f"BENCH_MODE={s['mode']!r}; expected train, sample or realdata")
+    if s["mode"] == "sample" and s["model"] != "unet":
+        raise SystemExit("BENCH_MODE=sample supports BENCH_MODEL=unet only")
     result = bench_sampling(s, device) if s["mode"] == "sample" else bench_training(s, device)
     print(json.dumps(result), flush=True)
     return result

@@ -23,6 +23,7 @@ there, and parameters are initialised from a seeded ``torch.Generator``.
 """
 from __future__ import annotations
 
+import inspect
 from typing import Any, Optional, Union
 
 import numpy as np
@@ -132,13 +133,45 @@ class AbstractDiffusionPipeline:
         """Load reference-layout backbone weights (strict by default)."""
         self.backbone.load_state_dict(state_dict, strict=strict)
 
+    def call_backbone(self, x, t, y=None, cond_mask=None) -> torch.Tensor:
+        """The backbone on (x, t, y), with ``cond_mask`` only when one is
+        given: only UNetv2 takes it (JAX ``apply``)."""
+        if cond_mask is not None:
+            return self.backbone(x, t, y, cond_mask=cond_mask)
+        return self.backbone(x, t, y)
+
     @torch.no_grad()
     def apply(self, x, t, y=None, cond_mask=None) -> torch.Tensor:
         """The sampling-time model call: no autograd, eval mode."""
         self.backbone.eval()
-        if cond_mask is not None:
-            return self.backbone(x, t, y, cond_mask=cond_mask)
-        return self.backbone(x, t, y)
+        return self.call_backbone(x, t, y, cond_mask)
+
+    def backbone_supports_cond_mask(self) -> bool:
+        """True when the backbone's forward takes per-sample conditioning
+        dropout (``cond_mask``), the hook classifier-free guidance and its
+        training need (JAX base.py:221-232)."""
+        try:
+            sig = inspect.signature(type(self.backbone).forward)
+        except (TypeError, ValueError):
+            return False
+        return "cond_mask" in sig.parameters
+
+    def _require_cfg_backbone(self, what: str) -> None:
+        if not self.backbone_supports_cond_mask():
+            raise ValueError(
+                f"{what} requires a backbone with per-sample conditioning dropout support "
+                f"(a `cond_mask` forward kwarg); {type(self.backbone).__name__} has none. "
+                "Use the UNetv2 backbone or add cond_mask handling to the model.",
+            )
+
+    def validate_cond_dropout(self, cond_dropout: float) -> float:
+        """``cond_dropout`` in [0, 1), and > 0 only on a backbone that takes
+        ``cond_mask`` (JAX base.py:278-283)."""
+        if not 0.0 <= cond_dropout < 1.0:
+            raise ValueError(f"cond_dropout must be in [0, 1), got {cond_dropout}")
+        if cond_dropout > 0.0:
+            self._require_cfg_backbone(f"cond_dropout={cond_dropout}")
+        return float(cond_dropout)
 
     def guided_model_fn(self, conditions, guidance_scale):
         """Classifier-free-guided ``fn(x, t)`` (JAX base.py:243-279): out =
@@ -146,7 +179,8 @@ class AbstractDiffusionPipeline:
         per-row conditioning mask (mask-0 rows are the null condition). The
         model should have been trained with ``cond_dropout`` > 0. Channels
         past the data's (learned-variance heads) come from the conditional
-        half."""
+        half. A backbone without ``cond_mask`` raises ``ValueError``."""
+        self._require_cfg_backbone(f"guidance_scale={guidance_scale}")
         s = float(guidance_scale)
 
         def guided_fn(x, t):

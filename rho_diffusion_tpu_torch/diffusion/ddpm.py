@@ -99,15 +99,12 @@ class DDPM(AbstractDiffusionPipeline):
                 "sqrt(alpha_T) = 0. Use GaussianDiffusionPipeline with "
                 "model_mean_type='v_prediction'.",
             )
-        if not 0.0 <= cond_dropout < 1.0:
-            raise ValueError(f"cond_dropout must be in [0, 1), got {cond_dropout}")
         self.loss_weighting = validate_loss_weighting(loss_weighting, ModelMeanType.EPSILON)
         self.min_snr_gamma = float(min_snr_gamma)
         # a callable loss_func is the caller's assertion that it is an MSE
         if self.loss_weighting and isinstance(loss_func, str) and \
                 loss_func not in ("MSELoss", "mse", "mse_loss"):
             raise ValueError(f"loss_weighting='min_snr' requires an MSE loss_func, got {loss_func!r}")
-        self.cond_dropout = float(cond_dropout)
         super().__init__(
             backbone=backbone,
             backbone_kwargs=backbone_kwargs,
@@ -120,6 +117,7 @@ class DDPM(AbstractDiffusionPipeline):
             opt_kwargs=opt_kwargs,
             **base_kwargs,
         )
+        self.cond_dropout = self.validate_cond_dropout(cond_dropout)
         self.t_checkpoints = t_checkpoints
         self.sampling_batch_size = sampling_batch_size
         self.sample_parameter_space = sample_parameter_space
@@ -148,7 +146,7 @@ class DDPM(AbstractDiffusionPipeline):
         if cond_mask is None and self.cond_dropout > 0.0:
             cond_mask = self.cond_dropout_mask(generator, data.shape[0], labels)
         x_t, noise, t = self.forward_process(data, generator, t, noise)
-        eps_hat = self.backbone(x_t, t, labels, cond_mask=cond_mask)
+        eps_hat = self.call_backbone(x_t, t, labels, cond_mask)
         target = noise.to(eps_hat.dtype)
         if self.loss_weighting == "min_snr":
             w = min_snr_weight(self.schedule.alpha_bar_t, t, ModelMeanType.EPSILON,

@@ -864,9 +864,7 @@ class GaussianDiffusionPipeline(AbstractDiffusionPipeline):
         self.sample_parameter_space = sample_parameter_space
         self.save_weights_every_n_epochs = save_checkpoint_every_n_epochs
         self.t_checkpoints = t_checkpoints
-        if not 0.0 <= cond_dropout < 1.0:
-            raise ValueError(f"cond_dropout must be in [0, 1), got {cond_dropout}")
-        self.cond_dropout = float(cond_dropout)
+        self.cond_dropout = self.validate_cond_dropout(cond_dropout)
         self.loss_weighting = validate_loss_weighting(loss_weighting, self.model_mean_type,
                                                       self.loss_type)
         if self.loss_weighting and self._zero_terminal_snr:
@@ -902,7 +900,7 @@ class GaussianDiffusionPipeline(AbstractDiffusionPipeline):
         """The training model call: the backbone itself (autograd on, in
         the mode the caller set), its output cast to x's dtype."""
         def fn(x, t):
-            return self.backbone(x, t, conditions, cond_mask=cond_mask).to(x.dtype)
+            return self.call_backbone(x, t, conditions, cond_mask).to(x.dtype)
 
         return fn
 

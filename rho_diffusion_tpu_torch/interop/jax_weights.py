@@ -1,6 +1,8 @@
 """Carry weights from the JAX package into the port.
 
-The port's UNet uses the reference torch UNetv2 ``state_dict`` layout, so
+The ViT and the SimpleUNet name their modules after the JAX param tree, so
+``export_named_state_dict`` carries their weights by name. The port's UNet
+uses the reference torch UNetv2 ``state_dict`` layout, so
 JAX parameters reach it through the mapping the JAX package already ships
 and tests, ``export_unet_state_dict`` (rho_diffusion_tpu/interop/
 torch_weights.py). This module is the port's own copy of that mapping (pure
@@ -194,6 +196,48 @@ def export_unet_state_dict(
     return out.sd
 
 
+_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
+
+
+def _leaves(tree: dict, prefix: tuple = ()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, prefix + (key,))
+        else:
+            yield prefix + (key,), np.asarray(value)
+
+
+def export_named_state_dict(params: dict, flipped: tuple[str, ...] = ()) -> dict[str, np.ndarray]:
+    """JAX params (nested dict) of a backbone whose port modules are named
+    after the JAX tree (the ViT, the SimpleUNet), with any
+    ``FourierConditioning``/``MultiEmbeddings`` under ``cond_fn``, as the
+    port module's ``state_dict``: the module path is the JAX path joined by
+    dots; ``kernel``/``scale``/``embedding`` become ``weight``; Dense kernels
+    [I, O] are transposed, conv kernels [*K, I, O] become [O, I, *K], and the
+    kernels of the modules named in ``flipped`` (flax ``ConvTranspose``s with
+    ``transpose_kernel=False``, which read their kernel reversed in space)
+    become ``conv_transpose``'s [I, O, *K] flipped in space; the
+    ``MultiEmbeddings`` tables ``cond_fn.embedding_<key>`` become
+    ``cond_fn.embedding_layers.<key>``. Each such backbone calls this from
+    its ``state_dict_from_jax``."""
+    out = _Out()
+    for path, value in _leaves(params):
+        *mods, leaf = path
+        if len(mods) == 2 and mods[0] == "cond_fn" and mods[1].startswith("embedding_"):
+            out[f"cond_fn.embedding_layers.{mods[1][len('embedding_'):]}.weight"] = value
+            continue
+        if leaf == "kernel" and value.ndim == 2:
+            value = _torch_linear(value)
+        elif leaf == "kernel" and ".".join(mods) in flipped:
+            spatial = tuple(range(value.ndim - 2))
+            value = np.transpose(np.flip(value, axis=spatial),
+                                 (value.ndim - 2, value.ndim - 1, *spatial))
+        elif leaf == "kernel":
+            value = _torch_conv(value)
+        out[".".join([*mods, _LEAF[leaf]])] = value
+    return out.sd
+
+
 def load_jax_npz(path: str | Path) -> dict:
     """A JAX ``save_model_weights`` .npz as the nested params dict."""
     params: dict = {}
@@ -214,10 +258,21 @@ def arch_kwargs(model_kwargs: dict[str, Any]) -> dict[str, Any]:
     return {k: v for k, v in model_kwargs.items() if k in ARCH_KEYS}
 
 
-def load_state_dict_file(path: str | Path, model_kwargs: dict[str, Any]) -> dict[str, torch.Tensor]:
-    """Backbone weights from a file, as a reference-layout state_dict of
-    fp32 tensors: a reference ``.pth``/``.pt`` as it is, or a JAX ``.npz``
-    through ``export_unet_state_dict`` with the config's architecture."""
+def jax_carrier(model_name: str):
+    """The registered model's ``state_dict_from_jax``, or None for a model
+    whose weights take the reference torch layout (UNetv2)."""
+    from rho_diffusion_tpu_torch.registry import registry
+
+    return getattr(registry.get("models", model_name), "state_dict_from_jax", None)
+
+
+def load_state_dict_file(path: str | Path, model_kwargs: dict[str, Any],
+                         model_name: str = "UNetv2") -> dict[str, torch.Tensor]:
+    """Backbone weights from a file, as a state_dict of fp32 tensors: a
+    ``.pth``/``.pt`` as it is, or a JAX ``.npz`` through the carrier of the
+    config's model: the model class's own ``state_dict_from_jax`` where it
+    has one (the ViT, the SimpleUNet), else ``export_unet_state_dict`` with
+    the config's architecture (UNetv2, the reference layout)."""
     path = Path(path)
     if path.suffix in (".pth", ".pt", ".bin"):
         sd = torch.load(path, map_location="cpu", weights_only=True)
@@ -225,11 +280,14 @@ def load_state_dict_file(path: str | Path, model_kwargs: dict[str, Any]) -> dict
             raise NotImplementedError(
                 f"{path} is a diffusers UNet2DModel checkpoint; the port reads reference "
                 "UNetv2 state_dicts only: the mapping's target, the UNet_Diffuser backbone, "
-                "is not ported yet (ROADMAP Queue 1 item 9)",
+                "is not ported yet (ROADMAP Queue 1 item 9b)",
             )
         return {k: v.float() for k, v in sd.items()}
     if path.suffix == ".npz":
-        sd = export_unet_state_dict(load_jax_npz(path), **arch_kwargs(model_kwargs))
+        params = load_jax_npz(path)
+        carrier = jax_carrier(model_name)
+        sd = (carrier(params) if carrier is not None
+              else export_unet_state_dict(params, **arch_kwargs(model_kwargs)))
         return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in sd.items()}
     raise ValueError(f"unsupported checkpoint file {path} (expected .pth, .pt or .npz)")
 

@@ -142,18 +142,20 @@ class Conv1x1(nn.Module):
 
 
 class Linear(nn.Linear):
-    """``nn.Linear`` with flax's compute-dtype rule (params stay fp32)."""
+    """``nn.Linear`` with flax's compute-dtype rule (params stay fp32);
+    ``bias=False`` is flax's ``use_bias=False``."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: Optional[torch.dtype] = None) -> None:
-        super().__init__(in_features, out_features)
+                 dtype: Optional[torch.dtype] = None, bias: bool = True) -> None:
+        super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
         self.zero_init = False
         reset_parameters(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = compute_dtype(self.compute_dtype, x)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
 
 
 @torch.no_grad()
@@ -166,7 +168,8 @@ def reset_parameters(module: nn.Module, generator: Optional[torch.Generator] = N
     else:
         fan_in = math.prod(w.shape[1:])
         w.normal_(0.0, fan_in ** -0.5, generator=generator)
-    module.bias.zero_()
+    if module.bias is not None:
+        module.bias.zero_()
 
 
 def mean_flat(x: torch.Tensor) -> torch.Tensor:

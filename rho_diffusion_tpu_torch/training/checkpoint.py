@@ -21,7 +21,8 @@ orbax directory given for sampling says so.
   in the reference layout (which the JAX package's ``load_torch_checkpoint``
   reads).
 * ``load_weights_auto`` reads backbone weights from a JAX ``.npz`` (through
-  ``export_unet_state_dict``) or a reference ``.pth`` (as it is), checked
+  the config's model's carrier in ``interop.jax_weights``) or a ``.pth``
+  (as it is), checked
   against the model's ``state_dict`` both ways with the JAX package's
   messages; ``load_model_weights`` the ``.npz`` alone.
 * ``resolve_inference_params`` picks the sampling weights in the JAX order:
@@ -125,23 +126,28 @@ def _place(template: torch.nn.Module | dict, got: dict, missing: str,
 
 
 def load_weights_auto(template: torch.nn.Module | dict, path: str | Path,
-                      model_kwargs: Optional[dict[str, Any]] = None) -> dict[str, torch.Tensor]:
+                      model_kwargs: Optional[dict[str, Any]] = None,
+                      model_name: str = "UNetv2") -> dict[str, torch.Tensor]:
     """Backbone weights from a reference ``.pth``/``.pt``/``.bin`` or a JAX
     ``.npz``, dispatched on the suffix, as a ``state_dict`` with the keys,
     shapes and dtypes of ``template`` (a model or its ``state_dict``).
 
-    ``model_kwargs`` is the model section of the JSON config. A ``.pth``
-    needs at least its ``model_channels`` and ``num_res_blocks``, as the
-    JAX package's transplant does, and is checked both ways: a weight the
-    model lacks or one it cannot place raises. A diffusers ``UNet2DModel``
-    layout raises (ROADMAP Queue 1 item 9)."""
-    from rho_diffusion_tpu_torch.interop.jax_weights import load_state_dict_file
+    ``model_kwargs`` is the model section of the JSON config and
+    ``model_name`` its model. A UNetv2 ``.pth`` needs at least its
+    ``model_channels`` and ``num_res_blocks``, as the JAX package's
+    transplant does; the ViT's and the SimpleUNet's ``.pth`` is the port's
+    own ``state_dict``. Either is checked both ways: a weight the model lacks
+    or one it cannot place raises. A diffusers ``UNet2DModel`` layout raises
+    (ROADMAP Queue 1 item 9b)."""
+    from rho_diffusion_tpu_torch.interop.jax_weights import jax_carrier, load_state_dict_file
 
     path = Path(path)
     if path.suffix not in (".pth", ".pt", ".bin"):
-        return load_model_weights(template, path, model_kwargs)
-    got = load_state_dict_file(path, dict(model_kwargs or {}))
-    if any(k not in (model_kwargs or {}) for k in _TRANSPLANT_KEYS):
+        return load_model_weights(template, path, model_kwargs, model_name)
+    got = load_state_dict_file(path, dict(model_kwargs or {}), model_name)
+    # a model that carries its own JAX tree stores its own state_dict in a .pth
+    if jax_carrier(model_name) is None and any(
+            k not in (model_kwargs or {}) for k in _TRANSPLANT_KEYS):
         raise ValueError(
             "transplanting a torch .pth checkpoint requires the model config to specify at "
             f"least model_channels and num_res_blocks (got keys {sorted(model_kwargs or {})})",
@@ -158,14 +164,15 @@ def load_weights_auto(template: torch.nn.Module | dict, path: str | Path,
 
 
 def load_model_weights(template: torch.nn.Module | dict, path: str | Path,
-                       model_kwargs: Optional[dict[str, Any]] = None) -> dict[str, torch.Tensor]:
+                       model_kwargs: Optional[dict[str, Any]] = None,
+                       model_name: str = "UNetv2") -> dict[str, torch.Tensor]:
     """The weights of a JAX ``save_model_weights`` ``.npz`` as a
     ``state_dict`` with the keys, shapes and dtypes of ``template``; the
-    config's architecture (``model_kwargs``) maps the JAX tree onto the
-    reference layout."""
+    config's model (``model_name``, ``model_kwargs``) picks the carrier
+    that maps the JAX tree onto the port's layout."""
     from rho_diffusion_tpu_torch.interop.jax_weights import load_state_dict_file
 
-    got = load_state_dict_file(Path(path), dict(model_kwargs or {}))
+    got = load_state_dict_file(Path(path), dict(model_kwargs or {}), model_name)
     return _place(template, got, f"weight '{{key}}' missing from {path}", "checkpoint")
 
 
@@ -198,7 +205,8 @@ def resolve_inference_params(pipeline, config, ckpt=None, work_dir: str | Path =
     ckpt_dir = Path(config.training.checkpoint_dir or (Path(work_dir) / "checkpoints"))
     if ckpt and os.path.isfile(ckpt):
         pipeline.load_state_dict(
-            load_weights_auto(pipeline.backbone, ckpt, dict(config.model.kwargs)))
+            load_weights_auto(pipeline.backbone, ckpt, dict(config.model.kwargs),
+                              config.model.name))
         messages.append(f"loaded weights from {ckpt}")
     elif ckpt and Path(ckpt).is_dir():
         from_directory(Path(ckpt))

@@ -77,7 +77,7 @@ def build_pipeline_from_config(
     name = pipeline_name or (config.pipeline.name if config.pipeline else "DDPM")
     if name == "DiffusersDDPMPipeline":
         raise NotImplementedError(
-            f"pipeline '{name}' is not ported yet (ROADMAP Queue 1 item 9); the port has "
+            f"pipeline '{name}' is not ported yet (ROADMAP Queue 1 item 9b); the port has "
             f"{sorted(pipelines)}",
         )
     if name not in pipelines:
@@ -225,7 +225,8 @@ class Trainer:
         latest = self.checkpoints.latest_step()
         if weights_path:
             self.pipeline.load_state_dict(load_weights_auto(
-                state.model, weights_path, dict(self.config.model.kwargs)))
+                state.model, weights_path, dict(self.config.model.kwargs),
+                self.config.model.name))
         elif resume and latest is not None:
             self.checkpoints.restore(state)
             self.log({"event": "resumed", "step": int(state.step)})

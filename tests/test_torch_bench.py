@@ -13,6 +13,7 @@ modules are among those the import rule checks.
 import json
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -80,7 +81,7 @@ def test_bench_needs_cuda_unless_asked_for_the_cpu():
 
 
 @pytest.mark.parametrize("knob,match", [
-    ({"BENCH_MODEL": "vit"}, "item 9"),
+    ({"BENCH_MODEL": "vit"}, None),
     ({"BENCH_REMAT": "1"}, None),
     ({"BENCH_MODE": "realdata", "BENCH_DEVICE_CACHE": "1"}, None),
     ({"BENCH_FLAT_OPT": "1"}, "no torch counterpart|torch.optim"),
@@ -90,7 +91,24 @@ def test_queued_knobs_raise(monkeypatch, knob, match):
     device-resident cache, ported) runs: realdata's batches are gathers from
     the uploaded table, and the run prints its one line. BENCH_REMAT=1 (the
     UNet's use_checkpoint, ported) runs the train mode with every ResBlock
-    and AttentionBlock recomputed in the backward, and prints its one line."""
+    and AttentionBlock recomputed in the backward, and prints its one line.
+    BENCH_MODEL=vit (the VisionTransformer, ported) trains at the smoke
+    widths and prints its one line; its sample mode exits with the root
+    bench.py's message."""
+    if knob == {"BENCH_MODEL": "vit"}:
+        lines, err = run_bench(**knob)
+        assert len(lines) == 1, lines
+        result = json.loads(lines[0])
+        assert result["metric"] == "train_steps_per_sec_per_chip_smoke" and result["value"] > 0
+        assert "finite=True " in err and re.search(r" steps_run=3\b", err), err  # 1 + 1 x 2
+        monkeypatch.setenv("BENCH_SMOKE", "1")
+        monkeypatch.setenv("BENCH_MODEL", "vit")
+        monkeypatch.setenv("BENCH_MODE", "sample")
+        with pytest.raises(SystemExit, match="BENCH_MODEL=unet only"):
+            bench.main(["-d", "cpu"])
+        assert 'raise SystemExit("BENCH_MODE=sample supports BENCH_MODEL=unet only")' in \
+            (ROOT / "bench.py").read_text()
+        return
     if knob == {"BENCH_REMAT": "1"}:
         lines, err = run_bench(**knob)
         assert len(lines) == 1, lines
@@ -137,3 +155,29 @@ def test_new_modules_are_under_the_import_rule():
                                                    "rho_diffusion_tpu_torch.")}
     assert {"rho_diffusion_tpu_torch.bench", "rho_diffusion_tpu_torch.diffusion.gaussian",
             "rho_diffusion_tpu_torch.diffusion.solvers"} <= names
+
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+def test_vit_settings_are_the_root_bench_py_widths(monkeypatch, smoke):
+    """BENCH_MODEL=vit builds the root bench.py's ViT (:200-216): 32^3,
+    patch 8, embedding 256, hidden 512, depth 8, 16 heads at full width;
+    patch 4, 64, 128, depth 2, 4 heads at the smoke's 8^3; batch 32 (8),
+    bf16, and the metric names its model."""
+    for k in [k for k in os.environ if k.startswith("BENCH_")]:
+        monkeypatch.delenv(k)
+    monkeypatch.setenv("BENCH_MODEL", "vit")
+    if smoke:
+        monkeypatch.setenv("BENCH_SMOKE", "1")
+    s = bench.settings()
+    grid = 8 if smoke else 32
+    assert s["backbone"] == "VisionTransformer" and s["batch"] == (8 if smoke else 32)
+    assert s["backbone_kwargs"] == dict(
+        patch_size=4 if smoke else 8, input_shapes=(grid,) * 3, num_channels=1,
+        embedding_dim=64 if smoke else 256, hidden_dim=128 if smoke else 512,
+        transformer_depth=2 if smoke else 8, num_heads=4 if smoke else 16, dropout=0.0,
+        dtype="bfloat16")
+    pipe = bench.training_pipeline(s, "cpu")
+    assert type(pipe.backbone).__name__ == "VisionTransformer"
+    assert pipe.sample_shape(2) == (2, grid, grid, grid, 1)
+    assert 'f"train_steps_per_sec_per_chip_{dims}d_{model}_{_grid_name(grid, dims)}_b{batch}"' \
+        in (ROOT / "bench.py").read_text()

@@ -6,7 +6,7 @@
   loads as it is; a config without the architecture keys, a weight the
   model lacks, one it cannot place and a wrong shape raise with the JAX
   package's messages; a diffusers ``UNet2DModel`` layout raises naming
-  ROADMAP Queue 1 item 9.
+  ROADMAP Queue 1 item 9b.
 * Orbax: the JAX package's ``CheckpointManager`` writes a TrainState into
   a directory, and the test shows why numpy and the standard library alone
   cannot read it: no array is stored raw, the chunks are zstd frames (OCDBT
@@ -121,7 +121,7 @@ def test_pth_loads_and_is_checked_both_ways(tmp_path):
 def test_diffusers_layout_raises_naming_item_9(tmp_path):
     path = tmp_path / "unet2d.pth"
     torch.save({"down_blocks.0.resnets.0.conv1.weight": torch.zeros(4, 4, 3, 3)}, path)
-    with pytest.raises(NotImplementedError, match="UNet2DModel.*item 9"):
+    with pytest.raises(NotImplementedError, match="UNet2DModel.*item 9b"):
         load_weights_auto(UNet(**KW), path, KW)
 
 
