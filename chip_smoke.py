@@ -104,15 +104,19 @@ weights loaded from a reference-layout ``.pth``):
 * ``int8``: W8A8 inference on the flagship at full width (bf16 model, int8
   convs and Dense sites): every int8 conv problem of a batch-8 forward on
   its kernel (S1, the s8 implicit GEMM on K5's block, for the stride-1
-  convs; S2, the general int8 conv, for the strided Downsample), S2 at a
-  2-D, a 1-D and a Cin = 24 problem, and S3 (the quantiser's two launches)
-  at every activation shape and at fp32 weights, each held bitwise (int32
-  sums and dequantised output) against its plain version and timed beside
-  its bound (int8 at 1,979 TOPS, or bytes), its plain version and, for S1,
-  K5's bf16 conv of the same shape; the bf16 Cout = 1 head problem on K5's
-  igemm; the Dense sites' ``torch._int_mm``; then the counted path: the
-  inference CLI with ``--quant int8`` (the schedule cut as ``main``'s), its
-  int8 sites per forward against the recorded forward's; a batch-4 int8
+  convs; ``conv3d_s8_strided``, S1's block with a strided x map, for the
+  three (1, 2, 2) Downsamples, also held bitwise against S2 and timed beside
+  it), S2 at a 2-D, a 1-D and a Cin = 24 problem, and S3 (the quantiser's
+  two launches) at every activation shape and at fp32 weights, each held
+  bitwise (int32 sums and dequantised output) against its plain version and
+  timed beside its bound (int8 at 1,979 TOPS, or bytes), its plain version
+  and, for S1, K5's bf16 conv of the same shape; the bf16 Cout = 1 head
+  problem on K5's igemm; the Dense sites' ``torch._int_mm``; then the
+  counted paths: the inference CLI with ``--quant int8`` (the schedule cut
+  as ``main``'s; the strided route three times a forward and S2 never),
+  its int8 sites per forward against the recorded forward's; S2's path,
+  the same CLI on the 2-D DeepGalaxy config at full width (128^2, width
+  32, DATA_SAMPLE_STEPS steps, every int8 conv on S2); a batch-4 int8
   forward on the kernels against the int8 plain model (the ``hold`` rule)
   and its distance to the fp32 float model; the batch-8 forward's time in
   bf16 and int8 (in turns) with device profiles; and the serving load
@@ -121,13 +125,18 @@ weights loaded from a reference-layout ``.pth``):
 * ``vit``: the other backbones. The bench entry with BENCH_MODEL=vit at the
   root bench.py's full width (32^3, patch 8, embedding 256, hidden 512,
   depth 8, 16 heads: head dim 16 over 64 tokens, so the mma.sync flash
-  forward and its dkv/dq pair; batch 32, bf16, AdamW, EMA 0.9999); the
-  training CLI on the flagship config with that ViT, FourierConditioning
-  on the raw (l, m) rows (5 steps at batch 32, one checkpoint), then the
-  inference CLI's DDPM-25 at batch 4 on it; the ViT's bf16 forward and one
-  loss's gradients held against the fp32 plain model, the two kernels held
-  at (32, 64, 16, 16) and a ragged T = 50 and timed there beside SDPA
-  (device time of whole calls from CUDA graphs too); the SimpleUNet
+  forward and the small backward, one launch a call; batch 32, bf16,
+  AdamW, EMA 0.9999); the same ViT at patch 4 (512 tokens, past the small
+  route: the dkv/dq pair after its delta pre-pass), VIT_PATCH4_STEPS
+  training steps; the training CLI on the flagship config with that ViT,
+  FourierConditioning on the raw (l, m) rows (5 steps at batch 32, one
+  checkpoint), then the inference CLI's DDPM-25 at batch 4 on it; the
+  ViT's bf16 forward and one loss's gradients held against the fp32 plain
+  model, the forward and the small backward held at (32, 64, 16, 16) and
+  a ragged T = 50 (the backward against the pair on request too), the
+  pair at T = 256, and timed at the ViT's attention beside SDPA and their
+  bound (device time of whole calls from CUDA graphs too), the pair at
+  patch 4's attention; the SimpleUNet
   ("UNet") in 3-D at 32^3 with JAX's default widths in bf16: 3 training
   steps at batch 8, a DDPM-25 sample at batch 2 through ``reverse_process``,
   its forward and gradients held, and its K5 problems (concat inputs of 512
@@ -616,6 +625,10 @@ def phase_build(state: dict) -> None:
     fb = [{"hd": int(m[1]), "bn": int(m[1]), **entry}
           for name, entry in ptxas_entries(log).items()
           for m in [re.search(r"flash_bwd_wgmma_kernelILi(\d+)E", name)] if m]
+    # the small backward's instances (head dim 16 and 32, 64 keys a warpgroup)
+    fb += [{"kernel": "flash_bwd_small", "hd": int(m[1]), "bn": 64, **entry}
+           for name, entry in ptxas_entries(log).items()
+           for m in [re.search(r"flash_bwd_small_kernelILi(\d+)E", name)] if m]
     serialized = [ln.split("'")[1] for ln in log.splitlines() if "C7512" in ln and "'" in ln]
     emit("flash_bwd_ptxas",
          kernels=fb or "not built in this run (a cached library has no ptxas log)",
@@ -638,11 +651,13 @@ def phase_build(state: dict) -> None:
                   for src in ("conv3d", "ring_attention", "flash_attention", "flash_attention_bwd")
                   for ln in _build.build_log.get(src, "").splitlines()
                   if "C7512" in ln and "'" in ln]
-    # the int8 kernels: S1's instances (N tile, output kind), S2, S3
-    log = _build.build_log.get("conv_int8", "")
+    # the int8 kernels: S1's instances (N tile, stages, output kind, products
+    # a stage, H/W stride: 2 is the strided Downsample's), S2, S3
+    log = "\n".join(_build.build_log.get(src, "") for src in ("conv_int8", "conv3d_s8_strided"))
     s8 = [{"kernel": m[1], **entry} for name, entry in ptxas_entries(log).items()
-          for m in [re.search(r"(conv3d_s8_wgmma_kernelILi\d+ELi\d+ELi\d+ELi\d+E|conv_s8_general"
-                              r"_kernel|quant_amax_kernel|quant_int8_kernel)", name)] if m]
+          for m in [re.search(r"(conv3d_s8_wgmma_kernelILi\d+ELi\d+ELi\d+ELi\d+ELi\d+E|"
+                              r"conv_s8_general_kernel|quant_amax_kernel|quant_int8_kernel)",
+                              name)] if m]
     emit("int8_ptxas", kernels=s8 or "not built in this run (a cached library has no ptxas log)",
          spill_free=all(not e.get("spill_stores") and not e.get("spill_loads") for e in s8),
          wgmma_serialized=[ln.split("'")[1] for ln in log.splitlines()
@@ -707,13 +722,15 @@ CUDA_KERNEL = {"conv3d_igemm": "conv3d_igemm", "conv3d_direct": "conv3d_direct",
                "flash_attention": "flash_fwd", "flash_attention_bwd": "flash_bwd_wgmma",
                "flash_attention_bwd_delta": "flash_bwd_delta",
                "flash_attention_bwd_dkv": "flash_bwd_dkv", "flash_attention_bwd_dq": "flash_bwd_dq",
+               "flash_attention_bwd_small": "flash_bwd_small",
                "flash_attention_tf32": "flash_fwd_tf32_kernel",
                "flash_attention_tf32_split": "flash_fwd_tf32_split",
                "flash_attention_bwd_tf32_dkv": "flash_bwd_tf32_dkv",
                "flash_attention_bwd_tf32_dq": "flash_bwd_tf32_dq",
                "flash_attention_bwd_tf32_split": "flash_bwd_tf32_split",
                "ring_attention": "ring_attention_",
-               "conv3d_s8": "conv3d_s8_wgmma_kernel", "conv_s8_general": "conv_s8_general_kernel",
+               "conv3d_s8": "conv3d_s8_wgmma_kernel", "conv3d_s8_strided": "conv3d_s8_wgmma_kernel",
+               "conv_s8_general": "conv_s8_general_kernel",
                "quantize_int8_amax": "quant_amax_kernel", "quantize_int8": "quant_int8_kernel",
                **{k: k for k in ("conv3d_variant_full", "conv3d_variant_nopatch",
                                  "conv3d_variant_nodma", "conv3d_bigdot_im2col",
@@ -924,16 +941,19 @@ def fwd_kernel_name(d: int, dtype) -> str:
             else "flash_attention")
 
 
-def bwd_kernel_names(d: int, dtype, plan=None) -> dict:
+def bwd_kernel_names(d: int, dtype, plan=None, t: int = 512) -> dict:
     """The count (and kernel) behind each gradient on the backward's route
-    (``flash_bwd_plan``'s, or ``plan``): the fused kernel for bf16 at padded
-    head dims 64 and 128, the 3xTF32 pair for fp32 there, the dkv/dq pair
-    elsewhere."""
+    at T = ``t`` (``flash_bwd_plan``'s, or ``plan``): the fused kernel for
+    bf16 at padded head dims 64 and 128, the small kernel for bf16 at 16
+    and 32 with T <= 64, the 3xTF32 pair for fp32 at 64 and 128, the
+    dkv/dq pair elsewhere."""
     from rho_diffusion_tpu_torch.ops.kernels.flash_attention import flash_bwd_plan
 
-    route = (plan or flash_bwd_plan(1, 1, 1, 1, d, dtype)).route
+    route = (plan or flash_bwd_plan(1, 1, t, t, d, dtype)).route
     if route == "wgmma":
         return dict.fromkeys(("dq", "dk", "dv"), "flash_attention_bwd")
+    if route == "small":
+        return dict.fromkeys(("dq", "dk", "dv"), "flash_attention_bwd_small")
     pair = "flash_attention_bwd_tf32" if route == "tf32" else "flash_attention_bwd"
     return {"dq": f"{pair}_dq", "dk": f"{pair}_dkv", "dv": f"{pair}_dkv"}
 
@@ -941,10 +961,12 @@ def bwd_kernel_names(d: int, dtype, plan=None) -> dict:
 def check_flash_bwd(b, t, h, d, device, seed: int, dtype) -> dict:
     """dq, dk, dv of the kernels (through the autograd Function, forward
     with LSE) against the fp32 plain backward on the same inputs; the kernels
-    run twice and must agree bitwise. On the fused route (bf16) the mma.sync
-    pair, and on the 3xTF32 pair's (fp32) the FMA pair, runs on the same
-    inputs too (``flash_attention_bwd_kernel(..., plan=...)``), held against
-    the plain backward and the new route against it."""
+    run twice and must agree bitwise. On the fused and the small route
+    (bf16) the mma.sync pair, and on the 3xTF32 pair's (fp32) the FMA pair,
+    runs on the same inputs too (``flash_attention_bwd_kernel(...,
+    plan=...)``), held against the plain backward and the new route against
+    it; in bf16 the delta pre-pass (the fused route's and the pair's) is
+    held against ``flash_delta``."""
     import torch
 
     from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
@@ -965,27 +987,30 @@ def check_flash_bwd(b, t, h, d, device, seed: int, dtype) -> dict:
                                      flash_lse_plain(qf, kf), do.float())
     name = dtype_name(dtype)
     tol = TOL_FLASH_BWD[name]
-    kernels = bwd_kernel_names(d, dtype)
+    kernels = bwd_kernel_names(d, dtype, t=t)
     grads_ = [{"grad": which, "dtype": name, "b": b, "t": t, "h": h, "d": d,
                "kernel": kernels[which], **flash_error(g, w, tol)}
               for which, g, w in zip(("dq", "dk", "dv"), got, want)]
     repeatable = all(torch.equal(x, y) for x, y in zip(got, again))
-    route = {"flash_attention_bwd": "fused",
+    route = {"flash_attention_bwd": "fused", "flash_attention_bwd_small": "small",
              "flash_attention_bwd_tf32_dq": "tf32 pair"}.get(kernels["dq"], "pair")
     row = {"b": b, "t": t, "h": h, "d": d, "dtype": name, "bitwise_repeatable": repeatable,
            "route": route}
+    if dtype == torch.bfloat16:
+        with torch.no_grad():
+            q, k, v = (z.detach() for z in qkv.split(d, dim=-1))
+            o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+            grads_.append({"grad": "delta", "dtype": name, "b": b, "t": t, "h": h, "d": d,
+                           "kernel": "flash_attention_bwd_delta",
+                           **flash_error(flash_delta_kernel(o, do), flash_delta(o, do),
+                                         TOL_DELTA)})
     if route != "pair":
-        old_plan = MMA_SYNC_BWD_PLAN if route == "fused" else FP32_BWD_PLAN
+        old_plan = MMA_SYNC_BWD_PLAN if route in ("fused", "small") else FP32_BWD_PLAN
         with torch.no_grad():
             q, k, v = (z.detach() for z in qkv.split(d, dim=-1))
             o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
             new = flash_attention_bwd_kernel(q, k, v, o, lse, do)
             old = flash_attention_bwd_kernel(q, k, v, o, lse, do, plan=old_plan)
-            if route == "fused":
-                grads_.append({"grad": "delta", "dtype": name, "b": b, "t": t, "h": h, "d": d,
-                               "kernel": "flash_attention_bwd_delta",
-                               **flash_error(flash_delta_kernel(o, do), flash_delta(o, do),
-                                             TOL_DELTA)})
         pair = bwd_kernel_names(d, dtype, old_plan)
         grads_ += [{"grad": which, "dtype": name, "b": b, "t": t, "h": h, "d": d,
                     "kernel": pair[which], "plan": f"{old_plan.route} (the pair, on request)",
@@ -3062,13 +3087,17 @@ def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None
     version on the kernel forward's output and LSE, timed beside it, its
     bound and SDPA's backward. For bf16 at D = 64 and 128: the fused kernel
     at its plan, then the mma.sync pair on the same inputs (``plan=`` the
-    pair's: the old route, launched on request only); for fp32 there: the
-    3xTF32 pair and its pre-pass, then the FMA pair on request (its rows
-    under ``old_variant``); elsewhere the pair of the dtype."""
+    pair's: the old route, launched on request only); for bf16 at D = 16
+    and 32 with T <= 64 the small kernel (the wrapper's whole device work
+    too), then the pair on request; for fp32 at 64 and 128: the 3xTF32 pair
+    and its pre-pass, then the FMA pair on request (its rows under
+    ``old_variant``); elsewhere the pair of the dtype (bf16: the wrapper's
+    whole device work, its delta pre-pass included, on the dkv row)."""
     import torch
 
     from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
-        FLASH_BWD_BM, FP32_BWD_PLAN, MMA_SYNC_BWD_PLAN, flash_attention_bwd_dkv_plain,
+        FLASH_BWD_BM, FP32_BWD_PLAN, MMA_SYNC_BWD_PLAN, SMALL_BWD_WARPGROUPS,
+        flash_attention_bwd_dkv_plain,
         flash_attention_bwd_dq_plain, flash_attention_bwd_kernel, flash_attention_bwd_plain,
         flash_attention_fwd_kernel, flash_bwd_plan, flash_bwd_split, flash_bwd_split_plain,
         flash_delta, flash_delta_kernel)
@@ -3151,6 +3180,22 @@ def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None
         pair_plan, pair_note = MMA_SYNC_BWD_PLAN, "the mma.sync pair on request (plan=mma_sync)"
         # the pair's own main rows are the ViT's (D = 16, the vit phase)
         variant = variant or f"the mma.sync pair on request at T={t}, D={d}, B*H={b * h}"
+    elif plan.route == "small":
+        # five products of 2*T*T*D; q, k, v, o, dO and lse read once (delta
+        # is computed inside), dq, dk, dv written once
+        want = flash_attention_bwd_plain(qf, kf, vf, of, lse, dof)
+        row("flash_attention_bwd_small", lambda: flash_attention_bwd_kernel(q, k, v, o, lse, do),
+            want, 5 * 2.0 * b * h * t * t * d, 5 * io + 4 * b * h * t + 3 * io,
+            plain_ms=cuda_time_ms(lambda: flash_attention_bwd_plain(qf, kf, vf, of, lse, dof),
+                                  iters=3, warmup=1),
+            plan=f"one warpgroup a batch*head, {SMALL_BWD_WARPGROUPS} a block")
+        # like for like against SDPA's backward: the wrapper's whole device
+        # work a call, from a CUDA graph
+        rows[-1]["wrapper_device_ms"] = graph_ms(
+            lambda: flash_attention_bwd_kernel(q, k, v, o, lse, do), calls=10)
+        pair_plan, pair_note = MMA_SYNC_BWD_PLAN, "the mma.sync pair on request (plan=mma_sync)"
+        # the pair's own main rows are the ViT's at patch 4 (the vit phase)
+        variant = variant or f"the mma.sync pair on request at T={t}, D={d}, B*H={b * h}"
     elif plan.route == "tf32":
         # the 3xTF32 pair: each kernel's own products (dkv 4, dq 3) of
         # 2*T*T*D, three TF32 products each, on the wrapper's call (its
@@ -3183,6 +3228,11 @@ def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None
     else:
         pair_plan, pair_note = None, None
     pair_rows("flash_attention_bwd", pair_plan, variant, pair_note)
+    if plan.route == "mma_sync":
+        # like for like against SDPA's backward: the pair's whole device work
+        # a call (its delta pre-pass too), from a CUDA graph, on its dkv row
+        rows[-2]["wrapper_device_ms"] = graph_ms(
+            lambda: flash_attention_bwd_kernel(q, k, v, o, lse, do), calls=10)
     return rows
 
 
@@ -4648,7 +4698,10 @@ INT8_S2_EXTRA = (
     ((8, 32, 16, 16, 24), 48, (3, 3, 3), (1, 1, 1), ((1, 1),) * 3, "ragged Cin = 24"),
 )
 INT8_WEIGHT_SHAPE = (512, 1024 * 27)
-INT8_KERNELS = ("conv3d_s8", "conv_s8_general", "quantize_int8_amax", "quantize_int8")
+# the flagship's int8 path: S1, the strided Downsample on S1's block, S3
+INT8_KERNELS = ("conv3d_s8", "conv3d_s8_strided", "quantize_int8_amax", "quantize_int8")
+# S2's path: the 2-D DeepGalaxy config under int8 through the inference CLI
+INT8_2D_SAMPLES = 8
 PEAK_INT8 = 1979e12
 
 
@@ -4656,7 +4709,8 @@ class Int8Sites:
     """Records the int8 mode's conv and Dense sites of the forwards run in
     its body (``ops.quant.conv_int8``/``dense_int8``): per call the input
     shape and dtype, the layer's channels, kernel, stride and pads, the
-    output dtype and the route ("s1", "s2", "int_mm" or "float"). The CPU
+    output dtype and the route ("s1", "s1_strided", "s2", "int_mm" or
+    "float"). The CPU
     tests count sites with it too."""
 
     def __init__(self):
@@ -4727,23 +4781,26 @@ def int8_operands(xs, cout: int, ksize, seed: int, device):
 
 def int8_conv_row(route: str, xs, cout: int, ksize, stride, pads, out_dtype, device, seed: int,
                   calls: int, per: str, variant=None) -> dict:
-    """One int8 conv problem on its kernel (S1 or S2): its int32 sums and its
-    dequantised ``out_dtype`` output held bitwise against the plain version
-    on the same inputs, then (with ``calls``) timed beside its bound (int8
-    operations at 1,979 TOPS or bytes), the plain version and K5's bf16
-    conv of the same shape (S1's problems) as the yardstick."""
+    """One int8 conv problem on its kernel (S1, the strided route on S1's
+    block, or S2): its int32 sums and its dequantised ``out_dtype`` output
+    held bitwise against the plain version on the same inputs (the strided
+    route's against S2's too), then (with ``calls``) timed beside its bound
+    (int8 operations at 1,979 TOPS or bytes), the plain version and K5's
+    bf16 conv of the same shape (S1's problems) as the yardstick; the
+    strided route beside S2 on the same inputs (``s2_ms``)."""
     import torch
 
     from rho_diffusion_tpu_torch.ops.kernels import conv_int8 as k
     from rho_diffusion_tpu_torch.ops.kernels.conv3d import conv3d_kernel
 
     xq, wq, s_x, s_w, bias = int8_operands(xs, cout, ksize, seed, device)
-    if route == "s1":
+    if route in ("s1", "s1_strided"):
         w = k.s1_weights(wq)
-        name = "conv3d_s8"
+        name = "conv3d_s8" if route == "s1" else "conv3d_s8_strided"
+        launch = k.conv3d_s8_kernel if route == "s1" else k.conv3d_s8_strided_kernel
 
         def run(dt=out_dtype):
-            return k.conv3d_s8_kernel(xq, s_x, w, s_w, bias, dt)
+            return launch(xq, s_x, w, s_w, bias, dt)
     else:
         w = k.s2_weights(wq)
         name = "conv_s8_general"
@@ -4760,6 +4817,16 @@ def int8_conv_row(route: str, xs, cout: int, ksize, stride, pads, out_dtype, dev
     check = exact_error(got.float(), want.float())
     check["ok"] = check["ok"] and sums_equal
     check["check"] = "bitwise equal: the int32 sums and the dequantised output"
+    if route == "s1_strided":
+        w2 = k.s2_weights(wq)
+
+        def run_s2():
+            return k.conv_s8_general_kernel(xq, s_x, w2, s_w, bias, ksize, stride, pads,
+                                            out_dtype)
+
+        check["equal_s2"] = bool(torch.equal(got, run_s2()))
+        check["ok"] = check["ok"] and check["equal_s2"]
+        check["check"] += ", and the output equal to S2's on the same inputs"
     row = {"kind": "forward", "x": list(xs), "cout": cout, "kernel_size": list(ksize),
            "stride": list(stride), "pads": [list(p) for p in pads], "kernel": name,
            "dtype": f"int8->{dtype_name(out_dtype)}", "int32_sums_equal": sums_equal,
@@ -4775,6 +4842,9 @@ def int8_conv_row(route: str, xs, cout: int, ksize, stride, pads, out_dtype, dev
                    library="none: PyTorch has no int8 conv on CUDA", library_ms=None,
                    bound_ms=bnd, bound_by=by)
         row["tops"] = ops / row["ms"] / 1e9
+        if route == "s1_strided":
+            s2 = kernel_times(run_s2, "conv_s8_general", iters=3)
+            row.update(s2_ms=s2["ms"], s2_call_ms=s2["call_ms"], s2_over_this=s2["ms"] / row["ms"])
         if route == "s1":
             xb = randn(xs, seed + 1, device, torch.bfloat16)
             wb = randn((cout, xs[-1], 3, 3, 3), seed + 2, device, torch.bfloat16, 0.02)
@@ -4968,6 +5038,61 @@ def int8_serve_load(device) -> dict:
     return runs
 
 
+def int8_2d_path(device) -> dict:
+    """S2's path: the inference CLI with ``--quant int8`` on the 2-D
+    DeepGalaxy config at full width (128^2, width 32; its schedule cut to
+    DATA_SAMPLE_STEPS, INT8_2D_SAMPLES samples) from seeded random weights,
+    the dataset standing in as its class's parameter space as in the CLI:
+    every 2-D int8 conv, the stride-2 Downsample among them, on S2. Counts
+    cleared just before, read just after."""
+    import numpy as np
+    import torch
+
+    from rho_diffusion_tpu_torch import inference, registry
+    from rho_diffusion_tpu_torch.config import ExperimentConfig
+    from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+
+    cfg = json.loads(DEEP_GALAXY_CONFIG.read_text())
+    cfg["noise_schedule"]["kwargs"]["num_steps"] = DATA_SAMPLE_STEPS
+    cfg["inference"].update(cache_file=None, plot_output_file=None, checkpoint=None)
+    config = ExperimentConfig.from_dict(json.loads(json.dumps(cfg)))
+    space = inference.declared_dataset(registry.get("datasets", config.dataset.name),
+                                       config.dataset.kwargs)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_int8_2d_"))
+    try:
+        cfg_path, pth = tmp / "config.json", tmp / "model.pth"
+        cfg_path.write_text(json.dumps(cfg))
+        torch.save(random_state_dict(data_pipeline(cfg, space, "float32", "cpu").backbone, 0),
+                   pth)
+        launch_counts.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with Int8Sites() as sites:
+            out = inference.main([str(cfg_path), "-p", str(pth), "-n", str(INT8_2D_SAMPLES),
+                                  "-d", DEVICE, "-f", "--work-dir", str(tmp), "--quant", "int8"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(launch_counts)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    routes, problems = {}, {}
+    for c in sites.calls:
+        if c["site"] == "conv":
+            key = f"{c['route']} stride {c['stride']}"
+            routes[key] = routes.get(key, 0) + 1
+        if c["route"] == "s2":
+            key = (c["x"], c["cout"], c["kernel"], c["stride"], c["pads"], c["out_dtype"])
+            problems[key] = problems.get(key, 0) + 1
+    finite = bool(np.isfinite(out).all())
+    ok = (finite and tuple(out.shape) == (INT8_2D_SAMPLES, 128, 128, 1)
+          and counts.get("conv_s8_general", 0) > 0 and not counts.get("conv3d_s8")
+          and not counts.get("conv3d_s8_strided"))
+    return {"config": DEEP_GALAXY_CONFIG.name, "steps": DATA_SAMPLE_STEPS,
+            "forwards": DATA_SAMPLE_STEPS - 1, "shape": list(out.shape), "finite": finite,
+            "wall_s": wall, "launches": counts, "conv_sites_by_route": routes, "ok": ok,
+            "s2_problems": problems}
+
+
 def phase_int8(state: dict, steps: int, samples: int) -> None:
     """int8 W8A8 inference on the flagship at full width: every int8 conv
     problem of a batch-8 forward on S1 or S2, the Downsample and the extra
@@ -5000,7 +5125,7 @@ def phase_int8(state: dict, steps: int, samples: int) -> None:
     problems: dict = {}
     acts: dict = {}
     for c in sites:
-        if c["route"] in ("s1", "s2"):
+        if c["route"] in ("s1", "s1_strided", "s2"):
             key = (c["route"], c["x"], c["cout"], c["kernel"], c["stride"], c["pads"],
                    c["out_dtype"])
             problems[key] = problems.get(key, 0) + 1
@@ -5027,7 +5152,7 @@ def phase_int8(state: dict, steps: int, samples: int) -> None:
     state["int8"] = rows
     summary = {
         "sites_per_forward": {r: sum(1 for c in sites if c["route"] == r)
-                              for r in ("s1", "s2", "int_mm", "float")},
+                              for r in ("s1", "s1_strided", "s2", "int_mm", "float")},
         "float_sites": [{"site": c["site"], "x": c["x"], "cout": c["cout"],
                          "dtype": dtype_name(c["out_dtype"])}
                         for c in sites if c["route"] == "float"],
@@ -5061,6 +5186,17 @@ def phase_int8(state: dict, steps: int, samples: int) -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     state["int8_launches"] = counts
+    # S2's path, and its problems a forward there held and timed (its main rows)
+    path_2d = int8_2d_path(device)
+    state["int8_2d_launches"] = path_2d["launches"]
+    per_2d = f"one 2-D DeepGalaxy UNet forward at batch {INT8_2D_SAMPLES}"
+    s2_rows = [int8_conv_row("s2", xs, cout, ks, st, pads, odt, device, 700 + 7 * i,
+                             n / path_2d["forwards"], per_2d)
+               for i, ((xs, cout, ks, st, pads, odt), n) in enumerate(
+                   sorted(path_2d.pop("s2_problems").items(), key=str))]
+    record_errors(state, s2_rows)
+    state["int8"] += s2_rows
+    fail_bad("int8 (S2's 2-D problems)", s2_rows)
     forwards = steps - 1
     finite = bool(np.isfinite(out).all())
     path = {"shape": list(out.shape), "finite": finite, "wall_s": wall, "steps": steps,
@@ -5070,16 +5206,25 @@ def phase_int8(state: dict, steps: int, samples: int) -> None:
     hold = int8_model_hold(cfg, sd, device)
     times = int8_forward_times(cfg, sd, INT8_TIMING_BATCH, device)
     load = int8_serve_load(device)
-    emit("int8", path=path, hold=hold, forward=times, load=load)
+    emit("int8", path=path, path_2d=path_2d, s2_rows=s2_rows, hold=hold, forward=times,
+         load=load)
     problems_found = []
     if not finite or path["mode_after"] != "off":
         problems_found.append(f"the int8 path: {path}")
     missing = [k for k in INT8_KERNELS if not counts.get(k)]
     if missing:
         problems_found.append(f"the int8 path never launched {missing}; counts {counts}")
-    # every forward of the path: the same sites as the recorded one
+    # every forward of the path: the same sites as the recorded one; the
+    # three Downsamples on the strided route, and S2 never
     per_fwd = summary["sites_per_forward"]
-    want_sites = {"conv_int8": (per_fwd["s1"] + per_fwd["s2"]) * forwards,
+    if (per_fwd["s1_strided"] != 3 or counts.get("conv3d_s8_strided") != 3 * forwards
+            or counts.get("conv_s8_general", 0) or per_fwd["s2"]):
+        problems_found.append(f"the int8 path's Downsamples: {per_fwd['s1_strided']} strided "
+                              f"sites a forward, launches {counts} over {forwards} forwards "
+                              "(want 3 conv3d_s8_strided a forward, no conv_s8_general)")
+    if not path_2d["ok"]:
+        problems_found.append(f"S2's 2-D int8 path: {path_2d}")
+    want_sites = {"conv_int8": (per_fwd["s1"] + per_fwd["s1_strided"] + per_fwd["s2"]) * forwards,
                   "dense_int8": per_fwd["int_mm"] * forwards,
                   "conv_float": per_fwd["float"] * forwards}
     if {k: site_counts.get(k, 0) for k in want_sites} != want_sites \
@@ -5113,6 +5258,10 @@ VIT_MODEL = {"patch_size": 8, "input_shapes": [32, 32, 32], "num_channels": 1,
 # its attention at the bench's batch 32, and a ragged T for the holds
 VIT_ATTENTION = (32, 64, 16, 16)
 VIT_RAGGED = (2, 50, 16, 16)
+# the pair's hold past the small route's T, and its path: the bench's ViT at
+# patch 4 (512 tokens), steps counted after one warm-up step
+VIT_PAIR_HOLD = (2, 256, 16, 16)
+VIT_PATCH4_STEPS = 2
 VIT_SAMPLE_STEPS = 25
 VIT_SAMPLES = 4
 VIT_HOLD_BATCH = 4
@@ -5283,12 +5432,16 @@ def phase_vit(state: dict) -> None:
     heads, batch 32, bf16, AdamW with EMA 0.9999, LinearSchedule(1000)): its
     train mode's windows and its one JSON line. (b) The training CLI on the
     ViT config (FourierConditioning on raw (l, m) rows), then the inference
-    CLI's DDPM-25 at batch 4 on its checkpoint. (c) Holds: the ViT's bf16
+    CLI's DDPM-25 at batch 4 on its checkpoint. (a2) The pair's path: the
+    bench's ViT at patch 4 (512 tokens of head dim 16, past the small
+    route), VIT_PATCH4_STEPS training steps. (c) Holds: the ViT's bf16
     forward and one loss's gradients against the fp32 plain model; the
-    mma.sync forward and the dkv/dq pair at the ViT's attention and at a
-    ragged T against their plain versions. (d) Both timed at the ViT's
-    attention beside SDPA and their bound, with their launches per step
-    and per sample. (e) The SimpleUNet in 3-D at 32^3 with JAX's default
+    mma.sync forward and the small backward at the ViT's attention and at
+    a ragged T against their plain versions (the backward against the pair
+    on request too), and the pair at T = 256. (d) The forward and the small
+    backward timed at the ViT's attention beside SDPA and their bound, with
+    their launches per step and per sample; the pair at patch 4's
+    attention. (e) The SimpleUNet in 3-D at 32^3 with JAX's default
     widths in bf16: SIMPLE_TRAIN_STEPS training steps at batch 8, a DDPM-25
     sample at batch 2 through ``reverse_process``, its forward and gradients
     held, and its K5 problems held and timed."""
@@ -5301,8 +5454,7 @@ def phase_vit(state: dict) -> None:
     from rho_diffusion_tpu_torch import bench
     from rho_diffusion_tpu_torch.diffusion import DDPM, LinearSchedule
     from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd_kernel, flash_attention_fwd_kernel, flash_bwd_plan,
-        flash_plan)
+        flash_attention, flash_bwd_plan, flash_plan)
 
     device = torch.device(DEVICE)
     t0 = time.perf_counter()
@@ -5326,12 +5478,14 @@ def phase_vit(state: dict) -> None:
                  "launches": counts, "flash_routes": routes,
                  "launches_per_step": {k: v / max(bench_steps, 1) for k, v in counts.items()}}
     launches["vit_bench"] = counts
-    pair = ("flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    small = ("flash_attention", "flash_attention_bwd_small")
+    others = ("flash_attention_bwd", "flash_attention_bwd_delta", "flash_attention_bwd_dkv",
+              "flash_attention_bwd_dq")
     per_step = s["backbone_kwargs"]["transformer_depth"]
     if lines != [json.dumps(result)] or any(counts.get(k) != per_step * bench_steps
-                                            for k in pair) or counts.get("flash_attention_bwd"):
+                                            for k in small) or any(counts.get(k) for k in others):
         problems.append(f"bench: lines {lines}, launches {counts} (want {per_step} of each of "
-                        f"{pair} a step over {bench_steps} steps, no fused backward)")
+                        f"{small} a step over {bench_steps} steps, none of {others})")
     # the bench's pipeline again: the host's seconds a step over 10 steps,
     # then one step profiled (the device's busy share against that, its
     # launches, its time by kernel group)
@@ -5355,11 +5509,33 @@ def phase_vit(state: dict) -> None:
     torch.cuda.empty_cache()
     seconds["bench"] = time.perf_counter() - t0
 
+    # (a2) the pair's path: the bench's ViT at patch 4 (512 tokens)
+    s4 = {**s, "backbone_kwargs": {**s["backbone_kwargs"], "patch_size": 4}}
+    pipe = bench.training_pipeline(s4, device)
+    ts = pipe.create_state(778)
+    batch = {"data": torch.rand(shape, generator=gen).to(device), "labels": None}
+    pipe.training_step(ts, batch)
+    metrics, p4_s, counts, routes4 = counted(
+        lambda: [pipe.training_step(ts, batch) for _ in range(VIT_PATCH4_STEPS)])
+    launches["vit_patch4"] = counts
+    pair = ("flash_attention", "flash_attention_bwd_delta", "flash_attention_bwd_dkv",
+            "flash_attention_bwd_dq")
+    patch4 = {"tokens": (s["grid"] // 4) ** 3, "steps": VIT_PATCH4_STEPS, "wall_s": p4_s,
+              "losses": [float(m["train_loss"]) for m in metrics], "launches": counts,
+              "flash_routes": routes4}
+    if any(counts.get(k) != per_step * VIT_PATCH4_STEPS for k in pair) \
+            or counts.get("flash_attention_bwd_small") or counts.get("flash_attention_bwd") \
+            or not np.isfinite(patch4["losses"]).all():
+        problems.append(f"patch-4 ViT: {patch4} (want {per_step} of each of {pair} a step)")
+    del pipe, ts, batch
+    torch.cuda.empty_cache()
+    seconds["patch4"] = time.perf_counter() - t0 - sum(seconds.values())
+
     # (b) the training and inference CLIs
     clis = run_vit_clis(device)
     launches["vit_train_cli"] = clis["train"]["launches"]
     launches["vit_sample_cli"] = clis["sample"]["launches"]
-    for what, want in (("train", pair), ("sample", ("flash_attention",))):
+    for what, want in (("train", small), ("sample", ("flash_attention",))):
         missing = [k for k in want if not clis[what]["launches"].get(k)]
         if missing or not clis[what]["ok"]:
             problems.append(f"{what} CLI: missing {missing}, {clis[what]}")
@@ -5388,20 +5564,26 @@ def phase_vit(state: dict) -> None:
     holds = [check_flash(*VIT_ATTENTION, device, 900, torch.bfloat16),
              check_flash(*VIT_RAGGED, device, 901, torch.bfloat16)]
     bwd_holds = [check_flash_bwd(*VIT_ATTENTION, device, 902, torch.bfloat16),
-                 check_flash_bwd(*VIT_RAGGED, device, 903, torch.bfloat16)]
+                 check_flash_bwd(*VIT_RAGGED, device, 903, torch.bfloat16),
+                 check_flash_bwd(*VIT_PAIR_HOLD, device, 904, torch.bfloat16)]
     record_errors(state, holds + [gr for row in bwd_holds for gr in row["grads"]])
     bad = [r for r in holds if not r["ok"]] + [r for r in bwd_holds if not r["ok"]]
     if bad:
         problems.append(f"flash holds at D = 16: {bad}")
     seconds["holds"] = time.perf_counter() - t0 - sum(seconds.values())
 
-    # (d) the two kernels timed at the ViT's attention, per training step
+    # (d) the forward and the small backward timed at the ViT's attention,
+    # per training step; the pair at patch 4's (its main rows)
     per = f"one ViT training step at batch {b} ({per_step} attention calls)"
+    per4 = f"one patch-4 ViT training step at batch {b} ({per_step} attention calls)"
+    t4 = patch4["tokens"]
     rows = ([flash_fwd_row(b, tt, h, d, per_step, per, device, torch.bfloat16,
                            variant=f"vit: T={tt}, D={d}, B*H={b * h}, {per}")]
-            + flash_bwd_rows(b, tt, h, d, per_step, per, device, torch.bfloat16))
+            + flash_bwd_rows(b, tt, h, d, per_step, per, device, torch.bfloat16)
+            + flash_bwd_rows(b, t4, h, d, per_step, per4, device, torch.bfloat16))
     routes_here = {"forward": flash_plan(b, h, tt, tt, d).route,
-                   "backward": flash_bwd_plan(b, h, tt, tt, d).route}
+                   "backward": flash_bwd_plan(b, h, tt, tt, d).route,
+                   "backward_at_patch4": flash_bwd_plan(b, h, t4, t4, d).route}
     # like for like at this launch-bound size: the device time of a whole
     # call (CUDA graphs, no host work) of the wrapper and of SDPA, on the
     # inputs of the rows above (the backward's SDPA time is already so)
@@ -5410,13 +5592,7 @@ def phase_vit(state: dict) -> None:
     rows[0]["wrapper_device_ms"] = graph_ms(lambda: flash_attention(q, k, v), calls=10)
     rows[0]["library_device_ms"] = graph_ms(
         lambda: F.scaled_dot_product_attention(qt, kt, vt), calls=10)
-    q, k, v = flash_inputs(b, tt, h, d, device, seed=500, dtype=torch.bfloat16)
-    do = randn((b, tt, h, d), 501, device, torch.bfloat16)
-    o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
-    dkv = next(r for r in rows if r["kernel"] == "flash_attention_bwd_dkv")
-    dkv["wrapper_device_ms"] = graph_ms(
-        lambda: flash_attention_bwd_kernel(q, k, v, o, lse, do), calls=10)
-    del q, k, v, qt, kt, vt, do, o, lse
+    del q, k, v, qt, kt, vt
     seconds["kernel_rows"] = time.perf_counter() - t0 - sum(seconds.values())
 
     # (e) the SimpleUNet
@@ -5497,7 +5673,8 @@ def phase_vit(state: dict) -> None:
     state["vit"] = rows
     state["vit_launches"] = launches
     emit("vit", cuts=VIT_CUTS, bench=bench_run, clis=clis, hold=vit_hold,
-         flash_holds=holds, flash_bwd_holds=bwd_holds, routes_at_vit_attention=routes_here,
+         patch4=patch4, flash_holds=holds, flash_bwd_holds=bwd_holds,
+         routes_at_vit_attention=routes_here,
          kernel_rows=rows, simple_unet=simple, seconds=seconds,
          launches_per_sample={k: v / VIT_SAMPLES for k, v in clis["sample"]["launches"].items()},
          wall_s=time.perf_counter() - t0)
@@ -5527,12 +5704,18 @@ KERNELS = (
     # its delta pre-pass, where the TPU path leaves rowsum(dO O) to XLA
     ("flash_attention_bwd_delta", "flash_attention_bwd_wgmma.cuh",
      "rho_diffusion_tpu/ops/pallas/flash_attention.py:308", "training"),
-    # the mma.sync pair (bf16 at D = 16, 32, 256; the FMA pair for fp32 there)
-    # is the ViT's backward at head dim 16 (the vit phase's bench entry)
-    ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+    # the small backward (bf16 at D = 16, 32 with T <= 64): one kernel for
+    # both TPU backward kernels (and delta) a call, the ViT's backward at
+    # head dim 16 over 64 patches (the vit phase's bench entry); its
+    # launcher is in flash_attention_bwd.cu
+    ("flash_attention_bwd_small", "flash_attention_bwd_small.cuh",
      "rho_diffusion_tpu/ops/pallas/flash_attention.py:209", "vit_bench"),
+    # the mma.sync pair (bf16 at D = 16, 32 past T = 64, and 256; the FMA
+    # pair for fp32 there) is the ViT's backward at patch 4 (512 tokens)
+    ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+     "rho_diffusion_tpu/ops/pallas/flash_attention.py:209", "vit_patch4"),
     ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
-     "rho_diffusion_tpu/ops/pallas/flash_attention.py:262", "vit_bench"),
+     "rho_diffusion_tpu/ops/pallas/flash_attention.py:262", "vit_patch4"),
     # K6: one launch per device folds every rank's K/V shard in the ring's
     # order (the ring's host side: parallel/context_rdma.py)
     ("ring_attention", "ring_attention.cu", "rho_diffusion_tpu/parallel/context_rdma.py:50",
@@ -5578,10 +5761,12 @@ KERNELS = (
     ("conv3d_dotsonly", "conv3d_variants.cu", "benchmarks/conv3d_variants.py:154", "bench"),
     # W8A8 inference (no TPU kernel: JAX's ConvInt8 and quantize_int8 are
     # plain jnp that XLA lowers; "replaces" names those lines): S1, the s8
-    # implicit GEMM on K5's block; S2, the general int8 conv; S3, the
-    # quantiser's two launches, all launched from conv_int8.cu
+    # implicit GEMM on K5's block, and the strided Downsample on that block;
+    # S2, the general int8 conv (the 2-D config's path); S3, the quantiser's
+    # two launches, all launched from conv_int8.cu
     ("conv3d_s8", "conv3d_s8_wgmma.cuh", "rho_diffusion_tpu/ops/quant.py:143", "int8"),
-    ("conv_s8_general", "conv_int8.cu", "rho_diffusion_tpu/ops/quant.py:143", "int8"),
+    ("conv3d_s8_strided", "conv3d_s8_wgmma.cuh", "rho_diffusion_tpu/ops/quant.py:143", "int8"),
+    ("conv_s8_general", "conv_int8.cu", "rho_diffusion_tpu/ops/quant.py:143", "int8_2d"),
     ("quantize_int8_amax", "conv_int8.cu", "rho_diffusion_tpu/ops/quant.py:94", "int8"),
     ("quantize_int8", "conv_int8.cu", "rho_diffusion_tpu/ops/quant.py:96", "int8"),
 )
@@ -5606,7 +5791,8 @@ def summed_times(rows: list) -> dict:
 def kernels_line(state: dict) -> list:
     """The ``kernels`` line: per kernel, its launches on the path that runs
     it (sampling for the forward kernels, training for the fused backward,
-    the vit phase's bench entry for the dkv/dq pair, serving for K6, bench for
+    the vit phase's bench entry for the small backward and its patch-4 run
+    for the dkv/dq pair, the 2-D int8 CLI for S2, serving for K6, bench for
     K7-K9; every path listed), its worst error
     against its plain version over every hold of this run and that error's
     ratio to the check's tolerance (at most 1), and its times summed over
@@ -5617,7 +5803,7 @@ def kernels_line(state: dict) -> list:
                 "training": state["train_launches"], "serving": state["serve_launches"],
                 "bench": state["bench_launches"], "kernels": state["kernels_launches"],
                 "fp32": state["fp32_launches"], "load": state["load_launches"],
-                "int8": state["int8_launches"],
+                "int8": state["int8_launches"], "int8_2d": state["int8_2d_launches"],
                 **state["gauss_launches"], **state["vlb_launches"], **state["data_launches"],
                 **state["utils_launches"], **state["vit_launches"]}
     out = []
@@ -5664,6 +5850,16 @@ def kernels_line(state: dict) -> list:
                 "library_ms_of": main[0]["library_ms_of"],
                 **{f: sum(r[f] * r["calls"] for r in main) for f in FUSED_BWD_FIELDS}}
                if name == "flash_attention_bwd_tf32_dkv" else {}),
+            **({"plan": main[0]["plan"],
+                "also_replaces": "rho_diffusion_tpu/ops/pallas/flash_attention.py:262",
+                "launcher": "rho_diffusion_tpu_torch/csrc/flash_attention_bwd.cu",
+                "library_ms_of": main[0]["library_ms_of"],
+                "wrapper_device_ms": sum(r["wrapper_device_ms"] * r["calls"] for r in main)}
+               if name == "flash_attention_bwd_small" else {}),
+            **({"wrapper_device_ms": sum(r["wrapper_device_ms"] * r["calls"] for r in main),
+                "wrapper_device_ms_of": "the pair's whole device work (delta pre-pass, dkv, "
+                                        "dq) from a CUDA graph"}
+               if name == "flash_attention_bwd_dkv" else {}),
         })
     return out
 

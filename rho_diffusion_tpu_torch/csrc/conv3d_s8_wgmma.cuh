@@ -1,6 +1,9 @@
 // S1 on Hopper: the int8 x int8 -> int32 3x3x3 stride-1 SAME conv of W8A8
 // inference, as K5's implicit GEMM (conv3d_wgmma.cuh) on s8 operands, with
-// the dequantisation in its epilogue.
+// the dequantisation in its epilogue; and on the same block the UNet's
+// strided Downsample, the 3x3x3 conv at stride (1, 2, 2) with pads (1, 1)
+// (`conv3d_s8_strided`, the SW = 2 instances, launched from
+// conv3d_s8_strided.cu; below).
 //
 // Replaces no TPU kernel: the JAX package's `ConvInt8`
 // (rho_diffusion_tpu/ops/quant.py:101-154, its product at :143-153) leaves
@@ -52,6 +55,23 @@
 // What it leaves for later: everything K5 leaves (a persistent schedule, B
 // multicast, one halo box across taps), and fusing the activation's
 // quantisation (S3, conv_int8.cu) into the producer's path.
+//
+// The strided Downsample (SW = 2). JAX's conv_nd turns a strided "SAME" into
+// pads of k // 2 (rho_diffusion_tpu/ops/convolution.py:116-119), so output
+// voxel (d, h, w) reads x[d + dz - 1, 2h + dy - 1, 2w + dx - 1]. It replaces
+// S2 (one thread an output, __dp4a, 65-80x its bound at the flagship's three
+// Downsamples, batch 8, H100), which had no design for this card. Bound by
+// operations as S1 (2 * 27 * Cin an output, at 1,979 TOPS). The design is
+// S1's block with the A box strided: x's map takes element strides
+// (1, 2, 2, 1, 1) over (C, W, H, D, B) and a box of 128 channels x 2 bw x 2
+// bh x bd, so TMA walks every other voxel along W and H and brings bw x bh x
+// bd = 128 voxels, the inputs of the block's 128 outputs for one tap, into
+// the same 16 KB of the ring as S1's box; the tap's origin is (2 w0 + dx -
+// 1, 2 h0 + dy - 1, d0 + dz - 1), and the hardware zero fill at -1 and past
+// the edge is the padding (int8 zero, exact). The plan (`igemm_plan`) is
+// taken on the output's shape and the epilogue writes the output's layout.
+// The stride is a template parameter, not a run-time branch around the
+// products, for the ptxas fencing the KK note above describes.
 
 #pragma once
 
@@ -188,26 +208,29 @@ struct WgmmaS8<256> {
 };
 
 // An int8 tensor [outer..., C] as the tensor map TMA reads (UINT8: TMA has no
-// signed 8-bit type, and byte 0 is int8 0, so its zero fill is exact).
+// signed 8-bit type, and byte 0 is int8 0, so its zero fill is exact),
+// walked with the given element strides (all 1 but the strided conv's W, H).
 inline CUresult encode_u8(EncodeTiled encode, CUtensorMap* map, const void* base, int rank,
                           const cuuint64_t* dims, const cuuint64_t* strides,
-                          const cuuint32_t* box, CUtensorMapL2promotion promotion) {
-  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+                          const cuuint32_t* box, const cuuint32_t* elem_strides,
+                          CUtensorMapL2promotion promotion) {
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank, const_cast<void*>(base), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, promotion,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                promotion, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 // Checks one int8 conv and its plan (K5's: a box of bw x bh x bd = 128
-// voxels, BN 64/128/192/256, a ring of 4 stages) and encodes its two maps and
-// its Problem. xq: [B, D, H, W, Cin] int8, 16-byte aligned, Cin % 16 == 0;
-// wq: [Cout, 27, Cin] int8 (tap = (dz*3+dy)*3+dx), contiguous. Returns 0 or
-// an ERR_ code.
+// output voxels, BN 64/128/192/256, a ring of 4 stages) and encodes its two
+// maps and its Problem. xq: [B, D, H, W, Cin] int8, 16-byte aligned, Cin %
+// 16 == 0; wq: [Cout, 27, Cin] int8 (tap = (dz*3+dy)*3+dx), contiguous.
+// `sw` is the stride along H and W (1: S1; 2: the Downsample), the output
+// [B, D, (H - 1) / sw + 1, (W - 1) / sw + 1, Cout] (pads 1). Returns 0 or an
+// ERR_ code.
 inline int s8_setup(const void* x, const void* w, int B, int D, int H, int W, int Cin, int Cout,
-                    int bw, int bh, int bd, int bn, int stages, CUtensorMap* x_map,
+                    int bw, int bh, int bd, int bn, int stages, int sw, CUtensorMap* x_map,
                     CUtensorMap* w_map, Problem* p) {
-  const bool box_ok = bw >= 1 && bh >= 1 && bd >= 1 && bw <= 256 && bh <= 256 && bd <= 256 &&
-                      bw * bh * bd == BM;
+  const bool box_ok = bw >= 1 && bh >= 1 && bd >= 1 && sw * bw <= 256 && sw * bh <= 256 &&
+                      bd <= 256 && bw * bh * bd == BM && (sw == 1 || sw == 2);
   const bool bn_ok = bn == 64 || bn == 128 || bn == 192 || bn == 256;
   if (!box_ok || !bn_ok || stages != 4 || Cin < 16 || Cin % 16 || Cin > 4912 || Cout < 1 ||
       B < 1 || D < 1 || H < 1 || W < 1 || (reinterpret_cast<uintptr_t>(x) & 15) ||
@@ -218,17 +241,23 @@ inline int s8_setup(const void* x, const void* w, int B, int D, int H, int W, in
   const cuuint64_t c = (cuuint64_t)Cin;  // bytes per voxel
   const cuuint64_t x_dims[5] = {c, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)D, (cuuint64_t)B};
   const cuuint64_t x_strides[4] = {c, c * W, c * W * H, c * W * H * D};
-  const cuuint32_t x_box[5] = {(cuuint32_t)S8_BK, (cuuint32_t)bw, (cuuint32_t)bh,
+  // sw x bw voxels along W walked every sw-th: bw of them land in the box
+  const cuuint32_t x_box[5] = {(cuuint32_t)S8_BK, (cuuint32_t)(sw * bw), (cuuint32_t)(sw * bh),
                                (cuuint32_t)bd, 1};
-  if (encode_u8(encode, x_map, x, 5, x_dims, x_strides, x_box,
+  const cuuint32_t x_elem[5] = {1, (cuuint32_t)sw, (cuuint32_t)sw, 1, 1};
+  if (encode_u8(encode, x_map, x, 5, x_dims, x_strides, x_box, x_elem,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B) != CUDA_SUCCESS)
     return ERR_X_MAP;
   const cuuint64_t w_dims[3] = {c, 27, (cuuint64_t)Cout};
   const cuuint64_t w_strides[2] = {c, c * 27};
   const cuuint32_t w_box[3] = {(cuuint32_t)S8_BK, 1, (cuuint32_t)bn};
-  if (encode_u8(encode, w_map, w, 3, w_dims, w_strides, w_box,
+  const cuuint32_t w_elem[3] = {1, 1, 1};
+  if (encode_u8(encode, w_map, w, 3, w_dims, w_strides, w_box, w_elem,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B) != CUDA_SUCCESS)
     return ERR_W_MAP;
+  // the output's volume: the plan's boxes tile it
+  H = (H - 1) / sw + 1;
+  W = (W - 1) / sw + 1;
   p->B = B, p->D = D, p->H = H, p->W = W, p->Cout = Cout;
   p->bw = bw, p->bh = bh, p->bd = bd;
   p->tiles_w = (W + bw - 1) / bw, p->tiles_h = (H + bh - 1) / bh, p->tiles_d = (D + bd - 1) / bd;
@@ -338,10 +367,12 @@ __device__ __forceinline__ void store_row_s8(typename S8Store<OUT>::T* orow,
   }
 }
 
-// S1: one block is the box of 128 voxels at (b, d0, h0, w0) times output
-// channels [n0, n0 + BN), K5's block (conv3d_igemm_block) on s8. Threads
-// 0-255 are the consumer warpgroups, 256-383 the producer warpgroup.
-template <int BN, int STAGES, int OUT, int KK>
+// S1: one block is the box of 128 output voxels at (b, d0, h0, w0) times
+// output channels [n0, n0 + BN), K5's block (conv3d_igemm_block) on s8, at
+// stride SW along H and W (1: S1; 2: the Downsample, its x map strided to
+// match). Threads 0-255 are the consumer warpgroups, 256-383 the producer
+// warpgroup.
+template <int BN, int STAGES, int OUT, int KK, int SW>
 __global__ void __launch_bounds__(THREADS, 1)
 conv3d_s8_wgmma_kernel(__grid_constant__ const CUtensorMap x_map,
                        __grid_constant__ const CUtensorMap w_map, const float* __restrict__ s_x,
@@ -373,8 +404,8 @@ conv3d_s8_wgmma_kernel(__grid_constant__ const CUtensorMap x_map,
       produce(ring, ksteps, A_BYTES + B_BYTES, [&](int ks, int s) {
         const int tap = ks / p.cchunks;
         const int c0 = (ks - tap * p.cchunks) * S8_BK;
-        tma_load_5d(ring.a + s * A_BYTES, &x_map, &ring.full[s], c0, w0 + tap % 3 - 1,
-                    h0 + (tap / 3) % 3 - 1, d0 + tap / 9 - 1, b);
+        tma_load_5d(ring.a + s * A_BYTES, &x_map, &ring.full[s], c0, SW * w0 + tap % 3 - 1,
+                    SW * h0 + (tap / 3) % 3 - 1, d0 + tap / 9 - 1, b);
         tma_load_3d(ring.b + s * B_BYTES, &w_map, &ring.full[s], c0, tap, n0);
       });
     }
@@ -393,6 +424,74 @@ conv3d_s8_wgmma_kernel(__grid_constant__ const CUtensorMap x_map,
       store_row_s8<BN, OUT>(out + ((((long long)b * p.D + dd) * p.H + hh) * p.W + ww) * p.Cout,
                             acc, half, n0, p.Cout, sx, s_w, bias);
     }
+  }
+}
+
+// a shape or argument the int8 entry points do not take
+constexpr int ERR_S8_ARGS = -5;
+
+// One instance's launch on `stream` (the dynamic shared-memory limit set
+// once per device).
+template <int BN, int OUT, int KK, int SW>
+int launch_s8(const CUtensorMap& x_map, const CUtensorMap& w_map, const float* s_x,
+              const float* s_w, const float* bias, void* out, const Problem& p,
+              cudaStream_t stream) {
+  constexpr int smem = smem_bytes(BN, 4);
+  static_assert(smem <= SMEM_LIMIT, "the ring does not fit in shared memory");
+  auto kernel = conv3d_s8_wgmma_kernel<BN, 4, OUT, KK, SW>;
+  static unsigned long long ready = 0;
+  cudaError_t err = smem_attribute_once(kernel, smem, &ready);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)p.blocks(), THREADS, smem, stream>>>(
+      x_map, w_map, s_x, s_w, bias, (typename S8Store<OUT>::T*)out, p);
+  return (int)cudaGetLastError();
+}
+
+// KK products a stage: 2 where Cin <= 64 (every stage half zero fill), else 4.
+template <int OUT, int SW>
+int launch_s8_bn(int bn, int cin, const CUtensorMap& x_map, const CUtensorMap& w_map,
+                 const float* s_x, const float* s_w, const float* bias, void* out,
+                 const Problem& p, cudaStream_t s) {
+  const bool half = cin <= 64;
+  switch (bn) {
+    case 64:
+      return half ? launch_s8<64, OUT, 2, SW>(x_map, w_map, s_x, s_w, bias, out, p, s)
+                  : launch_s8<64, OUT, 4, SW>(x_map, w_map, s_x, s_w, bias, out, p, s);
+    case 128:
+      return half ? launch_s8<128, OUT, 2, SW>(x_map, w_map, s_x, s_w, bias, out, p, s)
+                  : launch_s8<128, OUT, 4, SW>(x_map, w_map, s_x, s_w, bias, out, p, s);
+    case 192:
+      return half ? launch_s8<192, OUT, 2, SW>(x_map, w_map, s_x, s_w, bias, out, p, s)
+                  : launch_s8<192, OUT, 4, SW>(x_map, w_map, s_x, s_w, bias, out, p, s);
+    default:
+      return half ? launch_s8<256, OUT, 2, SW>(x_map, w_map, s_x, s_w, bias, out, p, s)
+                  : launch_s8<256, OUT, 4, SW>(x_map, w_map, s_x, s_w, bias, out, p, s);
+  }
+}
+
+// S1 (SW = 1, conv_int8.cu) or the strided Downsample (SW = 2,
+// conv3d_s8_strided.cu): the maps, then the instance of the plan's N tile
+// and the output kind; the launchers' C entry points.
+template <int SW>
+int conv3d_s8_at(const void* xq, const void* wq, const void* s_x, const void* s_w,
+                 const void* bias, void* out, int B, int D, int H, int W, int Cin, int Cout,
+                 int bw, int bh, int bd, int bn, int stages, int out_kind, void* stream) {
+  CUtensorMap x_map, w_map;
+  Problem p;
+  const int err = s8_setup(xq, wq, B, D, H, W, Cin, Cout, bw, bh, bd, bn, stages, SW, &x_map,
+                           &w_map, &p);
+  if (err != 0) return err;
+  if (out_kind != kS8Int32 && (s_x == nullptr || s_w == nullptr)) return ERR_S8_ARGS;
+  const float *sx = (const float*)s_x, *sw = (const float*)s_w, *bs = (const float*)bias;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (out_kind) {
+    case kS8Int32:
+      return launch_s8_bn<kS8Int32, SW>(bn, Cin, x_map, w_map, sx, sw, bs, out, p, s);
+    case kS8Float:
+      return launch_s8_bn<kS8Float, SW>(bn, Cin, x_map, w_map, sx, sw, bs, out, p, s);
+    case kS8Bf16:
+      return launch_s8_bn<kS8Bf16, SW>(bn, Cin, x_map, w_map, sx, sw, bs, out, p, s);
+    default: return ERR_S8_ARGS;
   }
 }
 

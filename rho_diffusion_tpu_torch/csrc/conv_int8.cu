@@ -13,10 +13,13 @@
 //   conv3d_s8          S1: the 3x3x3 stride-1 SAME conv on the s8 tensor
 //                      cores, K5's block (conv3d_s8_wgmma.cuh says what bounds
 //                      it and what its design does), Cin % 16 == 0.
+//                      (The strided Downsample on the same block has its own
+//                      source, conv3d_s8_strided.cu, so the two build in
+//                      parallel.)
 //   conv_s8_general    S2: any int8 conv of rank 1-3 (as 3-D with unit dims),
 //                      any kernel size, stride and explicit padding, Cin >= 1:
-//                      the UNet's strided (1,2,2) Downsample, 1-D and 2-D
-//                      convs, Cin % 16 != 0. One thread an output element,
+//                      1-D and 2-D convs, Cin % 16 != 0, other kernel sizes
+//                      and strides. One thread an output element,
 //                      int32 sums of __dp4a over four channels a word, the
 //                      weights repacked [taps, ceil(Cin/4), Cout] words so a
 //                      warp's weight loads are one 128-byte line and its x
@@ -47,44 +50,7 @@
 
 namespace {
 
-constexpr int ERR_SHAPE = -5;  // a shape or argument the entry point does not take
-
-template <int BN, int OUT, int KK>
-int launch_s8(const CUtensorMap& x_map, const CUtensorMap& w_map, const float* s_x,
-              const float* s_w, const float* bias, void* out, const wg::Problem& p,
-              cudaStream_t stream) {
-  constexpr int smem = wg::smem_bytes(BN, 4);
-  static_assert(smem <= wg::SMEM_LIMIT, "the ring does not fit in shared memory");
-  auto kernel = wg::conv3d_s8_wgmma_kernel<BN, 4, OUT, KK>;
-  static unsigned long long ready = 0;
-  cudaError_t err = wg::smem_attribute_once(kernel, smem, &ready);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)p.blocks(), wg::THREADS, smem, stream>>>(
-      x_map, w_map, s_x, s_w, bias, (typename wg::S8Store<OUT>::T*)out, p);
-  return (int)cudaGetLastError();
-}
-
-// KK products a stage: 2 where Cin <= 64 (every stage half zero fill), else 4.
-template <int OUT>
-int launch_s8_bn(int bn, int cin, const CUtensorMap& x_map, const CUtensorMap& w_map,
-                 const float* s_x, const float* s_w, const float* bias, void* out,
-                 const wg::Problem& p, cudaStream_t s) {
-  const bool half = cin <= 64;
-  switch (bn) {
-    case 64:
-      return half ? launch_s8<64, OUT, 2>(x_map, w_map, s_x, s_w, bias, out, p, s)
-                  : launch_s8<64, OUT, 4>(x_map, w_map, s_x, s_w, bias, out, p, s);
-    case 128:
-      return half ? launch_s8<128, OUT, 2>(x_map, w_map, s_x, s_w, bias, out, p, s)
-                  : launch_s8<128, OUT, 4>(x_map, w_map, s_x, s_w, bias, out, p, s);
-    case 192:
-      return half ? launch_s8<192, OUT, 2>(x_map, w_map, s_x, s_w, bias, out, p, s)
-                  : launch_s8<192, OUT, 4>(x_map, w_map, s_x, s_w, bias, out, p, s);
-    default:
-      return half ? launch_s8<256, OUT, 2>(x_map, w_map, s_x, s_w, bias, out, p, s)
-                  : launch_s8<256, OUT, 4>(x_map, w_map, s_x, s_w, bias, out, p, s);
-  }
-}
+constexpr int ERR_SHAPE = wg::ERR_S8_ARGS;
 
 // ---------------------------------------------------------------------------
 // S2: the general int8 conv.
@@ -304,20 +270,8 @@ extern "C" {
 int conv3d_s8(const void* xq, const void* wq, const void* s_x, const void* s_w, const void* bias,
               void* out, int B, int D, int H, int W, int Cin, int Cout, int bw, int bh, int bd,
               int bn, int stages, int out_kind, void* stream) {
-  CUtensorMap x_map, w_map;
-  wg::Problem p;
-  const int err = wg::s8_setup(xq, wq, B, D, H, W, Cin, Cout, bw, bh, bd, bn, stages, &x_map,
-                               &w_map, &p);
-  if (err != 0) return err;
-  if (out_kind != wg::kS8Int32 && (s_x == nullptr || s_w == nullptr)) return ERR_SHAPE;
-  const float *sx = (const float*)s_x, *sw = (const float*)s_w, *bs = (const float*)bias;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (out_kind) {
-    case wg::kS8Int32: return launch_s8_bn<wg::kS8Int32>(bn, Cin, x_map, w_map, sx, sw, bs, out, p, s);
-    case wg::kS8Float: return launch_s8_bn<wg::kS8Float>(bn, Cin, x_map, w_map, sx, sw, bs, out, p, s);
-    case wg::kS8Bf16: return launch_s8_bn<wg::kS8Bf16>(bn, Cin, x_map, w_map, sx, sw, bs, out, p, s);
-    default: return ERR_SHAPE;
-  }
+  return wg::conv3d_s8_at<1>(xq, wq, s_x, s_w, bias, out, B, D, H, W, Cin, Cout, bw, bh, bd, bn,
+                             stages, out_kind, stream);
 }
 
 // S2. xq [B, D, H, W, Cin] int8 contiguous; wp [KD*KH*KW, ceil(Cin/4), Cout]

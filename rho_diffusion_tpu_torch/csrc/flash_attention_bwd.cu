@@ -10,14 +10,22 @@
 //   dP  = dO V^T,  dS = P * (dP - delta),  delta = rowsum(dO * O)
 //   dK  = dS^T Q / sqrt(D)
 //   dQ  = dS K / sqrt(D)
-// The TPU path leaves delta to XLA (:308-311); here the fused route takes it
-// from a pre-pass kernel (flash_attention_bwd_delta) and the pair from a
-// PyTorch expression, both computed by the caller. lse is the forward's base-2 log-sum-exp of the
-// scaled scores (flash_attention.cu), so P = exp2(S * log2(e) - lse2).
+// The TPU path leaves delta to XLA (:308-311); here the small route computes
+// it in its one kernel, the fused route and the bf16 pair take it from a
+// pre-pass kernel (flash_attention_bwd_delta) and the fp32 pairs from a
+// PyTorch expression, all but the small route's computed by the caller. lse
+// is the forward's base-2 log-sum-exp of the scaled scores
+// (flash_attention.cu), so P = exp2(S * log2(e) - lse2).
 //
-// Four routes, chosen by the caller (ops/kernels/flash_attention.py
-// `flash_bwd_plan`) by head dim and dtype, never by a failure:
+// Five routes, chosen by the caller (ops/kernels/flash_attention.py
+// `flash_bwd_plan`) by head dim, dtype and, for the small route, T; never by
+// a failure:
 //
+//   flash_attention_bwd_small      bf16, D = 16 or 32 with Tq, Tk <= 64 (the
+//     ViT's attention: 16 heads of width 16 over 64 patches): ONE kernel a
+//     backward, one warpgroup a batch*head, delta inside, all five products
+//     on wgmma, in flash_attention_bwd_small.cuh (its header says what
+//     bounds it and what its design does about that).
 //   flash_attention_bwd_wgmma      bf16, D = 64 or 128 (the UNet's 128): ONE
 //     fused kernel for both TPU kernels, in flash_attention_bwd_wgmma.cuh
 //     (TMA ring, wgmma for all five products, dQ added across key tiles in a
@@ -26,11 +34,13 @@
 //     checked here (one instance per head dim: 64 keys at D = 64, 128 at
 //     D = 128); the tensor maps are encoded per call. The caller allocates the fp32 dQ accumulator and zeroes the
 //     counters that order its additions.
-//   flash_attention_bwd_delta      the fused route's pre-pass: delta in fp32
-//     (one warp a query row; the PyTorch expression is five kernels).
-//   flash_attention_bwd_{dkv,dq}_bf16   bf16, D = 16, 32 or 256 (at 64 and
-//     128 only when a plan asks for them: the old side of the old-against-
-//     new comparison): the mma.sync pair below.
+//   flash_attention_bwd_delta      the fused route's and the bf16 pair's
+//     pre-pass: delta in fp32 (32 lanes a query row at D >= 64, 8 or 16 at
+//     D = 16 or 32; the PyTorch expression is five kernels).
+//   flash_attention_bwd_{dkv,dq}_bf16   bf16, D = 16 or 32 past the small
+//     route's T, and D = 256 (at 64 and 128, and at 16 and 32 inside the
+//     small route's T, only when a plan asks for them: the old side of the
+//     old-against-new comparisons): the mma.sync pair below.
 //   flash_attention_bwd_tf32_{split,dkv,dq}   fp32, D = 64 or 128 (the
 //     UNet's 128): a pair of kernels whose every product is three TF32
 //     products on wgmma (3xTF32), after a pre-pass that writes the tf32
@@ -80,6 +90,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_attention_bwd_small.cuh"
 #include "flash_attention_bwd_tf32.cuh"
 #include "flash_attention_bwd_wgmma.cuh"
 #include "tma.cuh"
@@ -677,6 +688,32 @@ int launch_wgmma(const CUtensorMap (&maps)[4], const fab::BwdProblem& p, int BH,
 }
 
 // ---------------------------------------------------------------------------
+// The small route (flash_attention_bwd_small.cuh)
+
+template <int HD>
+int launch_small(const fbs::SmallProblem& p, cudaStream_t stream) {
+  static_assert(fbs::SMEM <= wg::SMEM_LIMIT, "the tiles do not fit in shared memory");
+  auto kernel = fbs::flash_bwd_small_kernel<HD>;
+  static unsigned long long ready = 0;
+  cudaError_t err = wg::smem_attribute_once(kernel, fbs::SMEM, &ready);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)((p.BH + fbs::WGS - 1) / fbs::WGS), fbs::WGS * 128, fbs::SMEM, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The delta pre-pass's instances: 32 lanes a row at D >= 64, else D / 2
+// (two channels a lane), 256 threads a block.
+template <int HD>
+int launch_delta(const void* o, const void* dout, void* delta, int H, int Tq, long long rows,
+                 const long long* st, cudaStream_t stream) {
+  const dim3 grid((unsigned)((rows + fab::DeltaShape<HD>::ROWS - 1) / fab::DeltaShape<HD>::ROWS));
+  fab::flash_bwd_delta_kernel<HD><<<grid, 256, 0, stream>>>(
+      (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, (float*)delta, H, Tq, rows, st[0],
+      st[1], st[2], st[3], st[4], st[5]);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // The tf32 route (flash_attention_bwd_tf32.cuh): 3xTF32 on wgmma for fp32
 
 template <int HD>
@@ -821,30 +858,61 @@ int flash_attention_bwd_wgmma(const void* q, const void* k, const void* v, const
   return D == 64 ? launch_wgmma<64>(maps, p, B * H, s) : launch_wgmma<128>(maps, p, B * H, s);
 }
 
-// The fused route's pre-pass: delta = rowsum(dout o), fp32 [B, H, Tq]
-// contiguous, from bf16 o and dout [B, Tq, H, D] (D = 64 or 128, D
-// contiguous, 4-byte aligned rows) with strides: 6 values, the (batch,
-// token, head) element strides of o, then dout.
+// The small route: bf16, D = 16 or 32, 1 <= Tq, Tk <= 64. q, k, v, o, dout
+// [B, T, H, D] (o the forward's output, T = Tq) with 16-byte aligned data
+// and strides that are multiples of 8 elements; dq, dk, dv written at their
+// own strides (multiples of 2 elements, 4-byte aligned). strides: 24
+// values, the (batch, token, head) element strides of q, k, v, o, dout, dq,
+// dk, dv in turn. lse (base 2): fp32 [B, H, Tq], contiguous. delta is
+// computed inside. Returns ERR_PLAN for a shape it does not take.
+int flash_attention_bwd_small(const void* q, const void* k, const void* v, const void* o,
+                              const void* dout, const void* lse, void* dq, void* dk, void* dv,
+                              int B, int H, int Tq, int Tk, int D, const long long* strides,
+                              float scale, float scale_log2, void* stream) {
+  const void* in[5] = {q, k, v, o, dout};
+  void* out[3] = {dq, dk, dv};
+  bool ok = (D == 16 || D == 32) && B >= 1 && H >= 1 && Tq >= 1 && Tk >= 1 &&
+            Tq <= fbs::T_MAX && Tk <= fbs::T_MAX && (long long)B * H <= 2147483647LL &&
+            lse != nullptr;
+  for (int i = 0; i < 5; ++i)
+    ok = ok && in[i] != nullptr && (reinterpret_cast<uintptr_t>(in[i]) & 15) == 0;
+  for (int i = 0; i < 3; ++i)
+    ok = ok && out[i] != nullptr && (reinterpret_cast<uintptr_t>(out[i]) & 3) == 0;
+  for (int i = 0; i < 15; ++i) ok = ok && strides[i] % 8 == 0;
+  for (int i = 15; i < 24; ++i) ok = ok && strides[i] % 2 == 0;
+  if (!ok) return ERR_PLAN;
+  fbs::SmallProblem p;
+  for (int i = 0; i < 5; ++i) p.in[i] = (const __nv_bfloat16*)in[i];
+  for (int i = 0; i < 3; ++i) p.out[i] = (__nv_bfloat16*)out[i];
+  for (int i = 0; i < 24; ++i) p.st[i] = strides[i];
+  p.lse = (const float*)lse;
+  p.BH = B * H, p.H = H, p.Tq = Tq, p.Tk = Tk;
+  p.scale = scale;
+  p.scale_log2 = scale_log2;
+  cudaStream_t s = (cudaStream_t)stream;
+  return D == 16 ? launch_small<16>(p, s) : launch_small<32>(p, s);
+}
+
+// The pre-pass of the fused route and the bf16 pair: delta = rowsum(dout o),
+// fp32 [B, H, Tq] contiguous, from bf16 o and dout [B, Tq, H, D] (D = 16,
+// 32, 64, 128 or 256, D contiguous, 4-byte aligned rows) with strides: 6
+// values, the (batch, token, head) element strides of o, then dout.
 int flash_attention_bwd_delta(const void* o, const void* dout, void* delta, int B, int H, int Tq,
                               int D, const long long* strides, void* stream) {
-  bool ok = (D == 64 || D == 128) && B >= 1 && H >= 1 && Tq >= 1;
+  bool ok = (D == 16 || D == 32 || D == 64 || D == 128 || D == 256) && B >= 1 && H >= 1 &&
+            Tq >= 1;
   ok = ok && ((reinterpret_cast<uintptr_t>(o) | reinterpret_cast<uintptr_t>(dout)) & 3) == 0;
   for (int i = 0; i < 6; ++i) ok = ok && strides[i] % 2 == 0;
   if (!ok) return ERR_PLAN;
   const long long rows = (long long)B * H * Tq;
-  const dim3 grid((unsigned)((rows + 7) / 8));
-  const auto* o16 = (const __nv_bfloat16*)o;
-  const auto* d16 = (const __nv_bfloat16*)dout;
   cudaStream_t s = (cudaStream_t)stream;
-  if (D == 64)
-    fab::flash_bwd_delta_kernel<64><<<grid, 256, 0, s>>>(o16, d16, (float*)delta, H, Tq, rows,
-                                                         strides[0], strides[1], strides[2],
-                                                         strides[3], strides[4], strides[5]);
-  else
-    fab::flash_bwd_delta_kernel<128><<<grid, 256, 0, s>>>(o16, d16, (float*)delta, H, Tq, rows,
-                                                          strides[0], strides[1], strides[2],
-                                                          strides[3], strides[4], strides[5]);
-  return (int)cudaGetLastError();
+  switch (D) {
+    case 16: return launch_delta<16>(o, dout, delta, H, Tq, rows, strides, s);
+    case 32: return launch_delta<32>(o, dout, delta, H, Tq, rows, strides, s);
+    case 64: return launch_delta<64>(o, dout, delta, H, Tq, rows, strides, s);
+    case 128: return launch_delta<128>(o, dout, delta, H, Tq, rows, strides, s);
+    default: return launch_delta<256>(o, dout, delta, H, Tq, rows, strides, s);
+  }
 }
 
 // The tf32 route, three launches on `stream`. flash_attention_bwd_tf32_split
@@ -897,7 +965,7 @@ int flash_attention_bwd_tf32_dq(TF32_PARAMS) { return tf32_pair<false>(TF32_ARGS
 
 const char* flash_attention_bwd_error_string(int code) {
   switch (code) {
-    case ERR_PLAN: return "the wgmma or tf32 launcher refused the plan or shape";
+    case ERR_PLAN: return "the wgmma, small, delta or tf32 launcher refused the plan or shape";
     case ERR_ENCODE_FN: return "cuTensorMapEncodeTiled could not be found in libcuda";
     case ERR_MAP: return "cuTensorMapEncodeTiled refused a tensor map of q, k, v or dout (or their split terms)";
     default: return cudaGetErrorString((cudaError_t)code);

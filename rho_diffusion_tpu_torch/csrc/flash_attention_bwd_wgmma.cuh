@@ -225,38 +225,48 @@ __device__ __forceinline__ void load_tile(int i, const CUtensorMap* q_map, const
 }
 
 // delta = rowsum(dO O) in fp32 for every query row, [B*H, Tq]: the fused
-// backward's pre-pass. It replaces no TPU kernel: `_flash_backward` leaves it
-// to XLA (rho_diffusion_tpu/ops/pallas/flash_attention.py:308-311), which
-// fuses it into one pass, where PyTorch takes five kernels and ~230 MB of
-// traffic at the flagship's shape. Bound by bytes on the H100 (dO and O read
-// once, 2 flops a 4-byte pair). One warp a row: each lane reads HD/32
-// channels of dO and O (8 or 4 bytes), the warp sums their fp32 products.
+// backward's and the bf16 mma.sync pair's pre-pass. It replaces no TPU
+// kernel: `_flash_backward` leaves it to XLA
+// (rho_diffusion_tpu/ops/pallas/flash_attention.py:308-311), which fuses it
+// into one pass, where PyTorch takes five kernels and ~230 MB of traffic at
+// the flagship's shape. Bound by bytes on the H100 (dO and O read once, 2
+// flops a 4-byte pair). LANES lanes a row (a whole warp at D >= 64, D / 2 at
+// 16 and 32), each reading PER channels of dO and O (4 to 16 bytes); the
+// row's lanes sum their fp32 products.
+template <int HD>
+struct DeltaShape {
+  static constexpr int PER = HD >= 64 ? HD / 32 : 2;  // channels a lane
+  static constexpr int LANES = HD / PER;              // lanes a row
+  static constexpr int ROWS = 256 / LANES;            // rows a block of 256 threads
+};
+
 template <int HD>
 __global__ void __launch_bounds__(256)
 flash_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
                        float* __restrict__ delta, int H, int Tq, long long rows, long long o_sb,
                        long long o_st, long long o_sh, long long d_sb, long long d_st,
                        long long d_sh) {
-  constexpr int PER = HD / 32;  // channels a lane
-  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
-  if (row >= rows) return;
-  const int lane = threadIdx.x & 31;
-  const long long bh = row / Tq;
-  const int t = (int)(row - bh * Tq);
+  using S = DeltaShape<HD>;
+  const long long row = (long long)blockIdx.x * S::ROWS + threadIdx.x / S::LANES;
+  const int lane = threadIdx.x % S::LANES;
+  // rows past the end add nothing, but their lanes stay for the shuffles
+  const bool in = row < rows;
+  const long long bh = in ? row / Tq : 0;
+  const int t = in ? (int)(row - bh * Tq) : 0;
   const int b = (int)(bh / H), h = (int)(bh - (long long)b * H);
-  const __nv_bfloat16* orow = o + b * o_sb + t * o_st + h * o_sh + lane * PER;
-  const __nv_bfloat16* drow = dout + b * d_sb + t * d_st + h * d_sh + lane * PER;
+  const __nv_bfloat16* orow = o + b * o_sb + t * o_st + h * o_sh + lane * S::PER;
+  const __nv_bfloat16* drow = dout + b * d_sb + t * d_st + h * d_sh + lane * S::PER;
   float sum = 0.f;
 #pragma unroll
-  for (int c = 0; c < PER; c += 2) {
+  for (int c = 0; c < S::PER; c += 2) {
     const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(orow + c));
     const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(drow + c));
     sum = fmaf(x.x, y.x, sum);
     sum = fmaf(x.y, y.y, sum);
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (lane == 0) delta[row] = sum;
+  for (int off = S::LANES / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (in && lane == 0) delta[row] = sum;
 }
 
 // One block: the BN = HD keys of key tile blockIdx.y of (batch, head)

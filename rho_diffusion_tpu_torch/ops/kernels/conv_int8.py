@@ -8,10 +8,15 @@ brings its own, in ``csrc/conv_int8.cu``:
 * S1 ``conv3d_s8_kernel``: the 3x3x3 stride-1 SAME conv on the s8 tensor
   cores, K5's TMA/wgmma block with s8 operands (``csrc/conv3d_s8_wgmma.cuh``)
   and ``igemm_plan``'s plan; Cin % 16 == 0 (TMA's 16-byte strides).
+* ``conv3d_s8_strided_kernel``: the UNet's Downsample, the 3x3x3 conv at
+  stride (1, 2, 2) with pads (1, 1), Cin % 16 == 0, on S1's block with x's
+  tensor map walked every other voxel along H and W (the route
+  "s1_strided"); the plan is ``igemm_plan``'s on the output's shape. Its
+  launcher is ``csrc/conv3d_s8_strided.cu``, a library of its own.
 * S2 ``conv_s8_general_kernel``: any int8 conv of rank 1-3 (as 3-D with unit
-  dims), any kernel size, stride and explicit padding: the UNet's strided
-  Downsample, 1-D and 2-D convs, and the Cin % 16 != 0 the TMA route does
-  not take.
+  dims), any kernel size, stride and explicit padding: 1-D and 2-D convs,
+  other kernels and strides, and the Cin % 16 != 0 the TMA routes do not
+  take.
 * S3 ``quantize_rows_kernel``: the symmetric int8 quantisation of each
   leading row (a sample, or an output channel of a weight), bitwise as
   ``quantize_int8``.
@@ -29,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -41,21 +47,28 @@ from rho_diffusion_tpu_torch.ops.kernels.conv3d import igemm_plan
 S1_CIN_MULTIPLE = 16  # TMA's global strides are multiples of 16 bytes
 S1_MAX_CIN = 4912  # 127^2 * 27 * Cin < 2^31
 INT32_MAX = 2**31 - 1
+# S1's block by the conv's stride: (1, 1, 1) is S1, (1, 2, 2) the Downsample
+S1_STRIDES = {(1, 1, 1): "s1", (1, 2, 2): "s1_strided"}
 OUT_KINDS = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_S1_ARGS = [_PTR] * 6 + [_INT] * 12 + [_PTR]
 _LAUNCHERS = {
-    "conv3d_s8": [_PTR] * 6 + [_INT] * 12 + [_PTR],
-    "conv_s8_general": [_PTR] * 7 + [_INT, _PTR],
-    "quantize_int8_rows": [_PTR, _INT, _LL, _LL, _INT, _INT, _INT] + [_PTR] * 4,
+    "conv_int8": {
+        "conv3d_s8": _S1_ARGS,
+        "conv_s8_general": [_PTR] * 7 + [_INT, _PTR],
+        "quantize_int8_rows": [_PTR, _INT, _LL, _LL, _INT, _INT, _INT] + [_PTR] * 4,
+    },
+    # the strided Downsample's own source (it builds beside conv_int8.cu)
+    "conv3d_s8_strided": {"conv3d_s8_strided": _S1_ARGS},
 }
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    """csrc/conv_int8.cu's library with its launchers' signatures set."""
-    lib = _build.load("conv_int8")
-    for fn, argtypes in _LAUNCHERS.items():
+def _library(name: str = "conv_int8") -> ctypes.CDLL:
+    """csrc/<name>.cu's library with its launchers' signatures set."""
+    lib = _build.load(name)
+    for fn, argtypes in _LAUNCHERS[name].items():
         launcher = getattr(lib, fn)
         launcher.restype = ctypes.c_int
         launcher.argtypes = argtypes
@@ -145,7 +158,8 @@ def quantize_rows_kernel(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def int8_conv_route(x_shape, kernel_size: Sequence[int], stride: Sequence[int],
                     pads: Sequence[tuple[int, int]], cout: int) -> str:
     """The kernel an int8 conv of x [B, *spatial, Cin] takes on the card:
-    "s1" (3-D, 3x3x3, stride 1, pads (1, 1), Cin % 16 == 0), else "s2".
+    "s1" (3-D, 3x3x3, stride 1, pads (1, 1), Cin % 16 == 0), "s1_strided"
+    (the same at stride (1, 2, 2): the UNet's Downsample), else "s2".
     Raises, naming the shape, where neither covers it: rank above 3, an
     int32 sum that could overflow, or an index past int32."""
     dims = len(kernel_size)
@@ -173,10 +187,12 @@ def int8_conv_route(x_shape, kernel_size: Sequence[int], stride: Sequence[int],
             f"stride {tuple(stride)}, pads {tuple(pads)}: no kernel covers it "
             f"({'; '.join(problems)})",
         )
-    if (dims == 3 and tuple(kernel_size) == (3, 3, 3) and tuple(stride) == (1, 1, 1)
+    if (dims == 3 and tuple(kernel_size) == (3, 3, 3)
             and tuple(tuple(p) for p in pads) == ((1, 1),) * 3
             and cin % S1_CIN_MULTIPLE == 0):
-        return "s1"
+        route = S1_STRIDES.get(tuple(stride))
+        if route:
+            return route
     return "s2"
 
 
@@ -271,34 +287,52 @@ def conv3d_s8_kernel(xq: torch.Tensor, s_x, w1: torch.Tensor, s_w, bias,
     int8 (``s1_weights``), s_x [B], s_w [Cout] and bias [Cout] fp32 (bias
     may be None; both scales may be None for the int32 output). Counted as
     ``conv3d_s8``; the tiles are ``igemm_plan``'s."""
-    check_no_autograd("conv3d_s8", xq, s_x, s_w, bias)
+    return _conv3d_s8("conv3d_s8", "conv_int8", (1, 1, 1), xq, s_x, w1, s_w, bias, out_dtype)
+
+
+def conv3d_s8_strided_kernel(xq: torch.Tensor, s_x, w1: torch.Tensor, s_w, bias,
+                             out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The Downsample on S1's block: the 3x3x3 conv at stride (1, 2, 2),
+    pads (1, 1), of xq [B, D, H, W, Cin] int8 (Cin % 16 == 0) -> [B, D,
+    ceil(H/2), ceil(W/2), Cout]; the other arguments as for S1. Counted as
+    ``conv3d_s8_strided``; the tiles are ``igemm_plan``'s on the output."""
+    return _conv3d_s8("conv3d_s8_strided", "conv3d_s8_strided", (1, 2, 2), xq, s_x, w1, s_w, bias,
+                      out_dtype)
+
+
+def _conv3d_s8(name: str, source: str, stride, xq, s_x, w1, s_w, bias,
+               out_dtype) -> torch.Tensor:
+    """S1's block at ``stride`` (pads (1, 1)): the launcher ``name`` in
+    csrc/<source>.cu, counted as ``name``."""
+    check_no_autograd(name, xq, s_x, s_w, bias)
     if xq.device.type != "cuda":
-        raise RuntimeError(f"conv3d_s8 has no kernel for device {xq.device}")
+        raise RuntimeError(f"{name} has no kernel for device {xq.device}")
     if xq.dim() != 5 or w1.dim() != 3 or tuple(w1.shape[1:]) != (27, xq.shape[-1]):
-        raise ValueError(f"conv3d_s8 takes x [B,D,H,W,Cin] and w [Cout,27,Cin]; got "
+        raise ValueError(f"{name} takes x [B,D,H,W,Cin] and w [Cout,27,Cin]; got "
                          f"{tuple(xq.shape)} and {tuple(w1.shape)}")
     b, d, h, w, cin = xq.shape
     cout = w1.shape[0]
     _check_conv(xq, s_x, s_w, bias, out_dtype, cout)
     if w1.dtype != torch.int8 or w1.device != xq.device:
-        raise TypeError(f"conv3d_s8: w must be int8 on {xq.device}")
+        raise TypeError(f"{name}: w must be int8 on {xq.device}")
     if cin % S1_CIN_MULTIPLE or cin > S1_MAX_CIN:
-        raise ValueError(f"conv3d_s8 takes Cin % 16 == 0 up to {S1_MAX_CIN}, got {cin}")
+        raise ValueError(f"{name} takes Cin % 16 == 0 up to {S1_MAX_CIN}, got {cin}")
     if not xq.is_contiguous() or xq.data_ptr() % 16:
-        raise ValueError("conv3d_s8 needs a contiguous, 16-byte aligned x")
-    if max(xq.numel(), b * d * h * w * cout, 27 * cin * cout) > INT32_MAX:
-        raise ValueError(f"conv3d_s8: shape {tuple(xq.shape)} -> {cout} is out of its range")
-    plan = tuple(igemm_plan(tuple(xq.shape), cout, sms=sm_count(xq.device.index)))
+        raise ValueError(f"{name} needs a contiguous, 16-byte aligned x")
+    out_shape = (b, *conv_out_spatial((d, h, w), (3, 3, 3), stride, ((1, 1),) * 3), cout)
+    if max(xq.numel(), math.prod(out_shape), 27 * cin * cout) > INT32_MAX:
+        raise ValueError(f"{name}: shape {tuple(xq.shape)} -> {cout} is out of its range")
+    plan = tuple(igemm_plan((*out_shape[:-1], cin), cout, sms=sm_count(xq.device.index)))
     w1 = w1.contiguous()
-    out = torch.empty((b, d, h, w, cout), dtype=out_dtype, device=xq.device)
-    lib = _library()
+    out = torch.empty(out_shape, dtype=out_dtype, device=xq.device)
+    lib = _library(source)
     with on_device(xq.device):
-        code = lib.conv3d_s8(xq.data_ptr(), w1.data_ptr(), _ptr(s_x), _ptr(s_w), _ptr(bias),
-                             out.data_ptr(), b, d, h, w, cin, cout, *plan, OUT_KINDS[out_dtype],
-                             _stream(xq.device))
-    _build.check(code, lib, "conv_int8_error_string",
-                 f"conv3d_s8({tuple(xq.shape)} -> {cout}, plan {plan})")
-    launch_counts["conv3d_s8"] += 1
+        code = getattr(lib, name)(xq.data_ptr(), w1.data_ptr(), _ptr(s_x), _ptr(s_w),
+                                  _ptr(bias), out.data_ptr(), b, d, h, w, cin, cout, *plan,
+                                  OUT_KINDS[out_dtype], _stream(xq.device))
+    _build.check(code, lib, f"{source}_error_string",
+                 f"{name}({tuple(xq.shape)} -> {cout}, plan {plan})")
+    launch_counts[name] += 1
     return out
 
 

@@ -17,10 +17,11 @@ row log-sum-exp only when the call will be differentiated (grad mode on and
 an input that requires grad), as the TPU primal path skips it. The LSE is
 kept in base 2 of the scaled scores (see flash_attention.cu), and the
 backward exponentiates in that base. ``delta = rowsum(dO * O)`` is a PyTorch
-expression (``flash_delta``), as the JAX package leaves it to XLA, except on
-the fused backward's route, which takes it from a pre-pass kernel
-(``flash_delta_kernel``, counted as ``flash_attention_bwd_delta``; the
-PyTorch expression is five kernels).
+expression (``flash_delta``) on the fp32 routes, as the JAX package leaves
+it to XLA; the bf16 fused route and the bf16 pair take it from a pre-pass
+kernel (``flash_delta_kernel``, counted as ``flash_attention_bwd_delta``;
+the PyTorch expression is five kernels), and the small route computes it in
+its one kernel.
 
 q, k, v may be strided views (the UNet's split of one qkv projection) as long
 as D is contiguous; head dims other than 16/32/64/128/256 are zero-padded up
@@ -42,7 +43,12 @@ another. ``flash_routes`` counts the forward's launches by route and key
 length.
 
 The backward's route is ``flash_bwd_plan``'s, by head dim and dtype the
-same way: bf16 at head dims 64 and 128 takes ONE fused kernel
+same way, and for small head dims by T: bf16 at padded head dims 16 and 32
+with Tq, Tk <= 64 (the ViT's attention) takes ONE kernel a backward
+(``csrc/flash_attention_bwd_small.cuh``: a warpgroup a batch*head, its
+inputs resident, delta and all five products inside, on ``wgmma``), counted
+as ``flash_attention_bwd_small``; bf16 at head dims 64 and 128 takes ONE
+fused kernel
 (``csrc/flash_attention_bwd_wgmma.cuh``: K and V of a block resident, Q and
 dO tiles by TMA through an mbarrier ring, all five products on ``wgmma``,
 dQ added across the key tiles in a fixed order, so the gradients are
@@ -50,9 +56,9 @@ bitwise repeatable), counted as ``flash_attention_bwd``; fp32 at 64 and 128
 a 3xTF32 pair on ``wgmma`` (``csrc/flash_attention_bwd_tf32.cuh``: dK/dV
 over key blocks and dQ over query blocks after a pre-pass that splits q,
 dO, k and v; counted as ``flash_attention_bwd_tf32_dkv``, ``_dq`` and
-``_split``); bf16 at 16, 32 and 256 takes the ``mma.sync`` pair and fp32
-there the CUDA-core pair (dK/dV and dQ kernels, counted as
-``flash_attention_bwd_dkv`` and ``_dq``).
+``_split``); other bf16 (16 and 32 at longer T, and 256) takes the
+``mma.sync`` pair and fp32 at 16, 32 and 256 the CUDA-core pair (dK/dV and
+dQ kernels, counted as ``flash_attention_bwd_dkv`` and ``_dq``).
 """
 from __future__ import annotations
 
@@ -124,9 +130,11 @@ FLASH_BWD_DQ_BUFS = 2
 
 
 class FlashBwdPlan(NamedTuple):
-    """The backward's route ("wgmma": the fused kernel; "tf32", "mma_sync"
-    or "fp32": a dkv/dq pair) and its keys a block (bn): the padded head dim
-    on the fused route; the pair's dkv kernel's fixed tile otherwise."""
+    """The backward's route ("wgmma": the fused kernel; "small": one kernel
+    a batch*head at small head dims; "tf32", "mma_sync" or "fp32": a dkv/dq
+    pair) and its keys a block (bn): the padded head dim on the fused route;
+    the most keys a batch*head on the small route; the pair's dkv kernel's
+    fixed tile otherwise."""
 
     route: str
     bn: int
@@ -135,7 +143,10 @@ class FlashBwdPlan(NamedTuple):
         """Shared memory of a fused block (head dim ``bn``): K and V, the Q
         and dO rings, the bf16 dS^T tile, dQ's fp32 shares, the lse and
         delta rows, the barriers and the 1024 bytes that align them to the
-        swizzle (flash_attention_bwd_wgmma.cuh's smem_bytes)."""
+        swizzle (flash_attention_bwd_wgmma.cuh's smem_bytes). On the small
+        route, ``small_bwd_smem_bytes``."""
+        if self.route == "small":
+            return small_bwd_smem_bytes()
         d, bm = self.bn, FLASH_BWD_BM
         return (2 * 2 * d * self.bn + 2 * FLASH_BWD_STAGES * 2 * d * bm + 2 * self.bn * bm
                 + FLASH_BWD_DQ_BUFS * 4 * bm * d + 2 * FLASH_BWD_STAGES * 4 * bm
@@ -143,6 +154,13 @@ class FlashBwdPlan(NamedTuple):
 
 
 MMA_SYNC_BWD_PLAN = FlashBwdPlan("mma_sync", 64)
+# The small route (csrc/flash_attention_bwd_small.cuh): bf16 at padded head
+# dims 16 and 32 where every key and query of a batch*head fits one 64-row
+# wgmma tile; one warpgroup a batch*head, SMALL_BWD_WARPGROUPS a block
+SMALL_BWD_HEAD_DIMS = (16, 32)
+SMALL_BWD_T = 64
+SMALL_BWD_WARPGROUPS = 2
+SMALL_BWD_PLAN = FlashBwdPlan("small", SMALL_BWD_T)
 FP32_BWD_PLAN = FlashBwdPlan("fp32", 16)
 # The 3xTF32 pair (csrc/flash_attention_bwd_tf32.cuh): blocks of 64 rows
 # (dkv: keys, dq: queries), two warpgroups, the other side streamed through
@@ -150,6 +168,17 @@ FP32_BWD_PLAN = FlashBwdPlan("fp32", 16)
 TF32_BWD_PLAN = FlashBwdPlan("tf32", 64)
 TF32_BWD_BN = 32
 TF32_BWD_STAGES = 2
+
+
+def small_bwd_smem_bytes() -> int:
+    """Shared memory of a small-route block, at padded head dim 16 and 32
+    alike: per warpgroup K, V, Q, dO and the bf16 dS^T tile as 128-byte
+    swizzled [64][64] tiles (channels past D unused), the lse and delta
+    rows, rounded up to 1024 bytes; then 1024 bytes that align the block to
+    the swizzle (flash_attention_bwd_small.cuh's SMEM)."""
+    tile = SMALL_BWD_T * 128
+    region = -(-(5 * tile + 2 * 4 * SMALL_BWD_T) // 1024) * 1024
+    return SMALL_BWD_WARPGROUPS * region + 1024
 
 
 def tf32_bwd_smem_bytes(d: int, dkv: bool) -> int:
@@ -204,10 +233,13 @@ def flash_bwd_plan(b: int, h: int, tq: int, tk: int, d: int,
     """The backward's plan for q [b, tq, h, d] against tk keys.
 
     The route goes by head dim and dtype as the forward's: bf16 whose padded
-    head dim is 64 or 128 takes the fused kernel, other bf16 the mma.sync
-    pair; fp32 at 64 and 128 the 3xTF32 pair (``TF32_BWD_PLAN``), other
-    fp32 the CUDA-core pair; other dtypes have none. The shape takes no
-    part: the fused kernel's tile is a function of the head dim alone
+    head dim is 64 or 128 takes the fused kernel; bf16 at padded 16 or 32
+    takes the small route where tq and tk are at most SMALL_BWD_T (one
+    wgmma tile: the ViT's 64 patches), the mma.sync pair past it; bf16 at
+    256 the pair; fp32 at 64 and 128 the 3xTF32 pair (``TF32_BWD_PLAN``),
+    other fp32 the CUDA-core pair; other dtypes have none. Beyond the small
+    route's T the shape takes no part: the fused kernel's tile is a function
+    of the head dim alone
     (``WGMMA_BWD_PLANS``), D keys a block, as its consumer warpgroups split
     dQ's 64-channel chunks; ragged or short key ranges are masked. At
     D = 128 that is one block an SM of two warpgroups (dK and dV of 64 keys
@@ -218,6 +250,8 @@ def flash_bwd_plan(b: int, h: int, tq: int, tk: int, d: int,
     if dtype != torch.bfloat16:
         raise TypeError(f"flash_attention kernel takes bfloat16 or float32, got {dtype}")
     dk = padded_head_dim(d)
+    if dk in SMALL_BWD_HEAD_DIMS and max(tq, tk) <= SMALL_BWD_T:
+        return SMALL_BWD_PLAN
     if dk not in WGMMA_HEAD_DIMS:
         return MMA_SYNC_BWD_PLAN
     return WGMMA_BWD_PLANS[dk]
@@ -248,6 +282,7 @@ _LAUNCHERS = {
         "flash_attention_bwd_wgmma": [_PTR] * 11 + [_INT] * 5 + [_PTR, _FLOAT, _FLOAT, _INT,
                                                                  _PTR],
         "flash_attention_bwd_delta": [_PTR] * 3 + [_INT] * 4 + [_PTR] * 2,
+        "flash_attention_bwd_small": [_PTR] * 9 + [_INT] * 5 + [_PTR, _FLOAT, _FLOAT, _PTR],
         "flash_attention_bwd_tf32_split": [_PTR] * 6 + [_INT] * 5 + [_PTR] * 2,
         **{f"flash_attention_bwd_tf32_{which}": _BWD[:-1] + [_PTR] * 3 for which in ("dkv", "dq")},
     },
@@ -498,10 +533,11 @@ def wgmma_pv_probe(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def flash_delta_kernel(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
-    """The fused backward's pre-pass: delta = rowsum(dO * O) in fp32,
-    [B, H, Tq] contiguous, from bf16 o and do [B, Tq, H, D] (D contiguous;
-    the launcher takes D = 64 or 128, the fused route's, and refuses other
-    head dims). Its plain version is ``flash_delta``."""
+    """The pre-pass of the fused backward and the bf16 pair: delta =
+    rowsum(dO * O) in fp32, [B, H, Tq] contiguous, from bf16 o and do [B,
+    Tq, H, D] (D contiguous; the launcher takes the padded head dims 16, 32,
+    64, 128 and 256 and refuses others). Its plain version is
+    ``flash_delta``."""
     check_no_autograd("flash_attention_bwd_delta", o, do)
     if o.device.type != "cuda":
         raise RuntimeError(f"flash_attention_bwd_delta has no kernel for device {o.device}")
@@ -530,10 +566,11 @@ def flash_attention_bwd_kernel(
     plan: Optional[FlashBwdPlan] = None,
 ) -> tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Launch the backward of ``plan``'s route (``flash_bwd_plan``'s when
-    not given: the old-against-new comparison passes the pair's) on the
+    not given: the old-against-new comparisons pass the pair's) on the
     forward's inputs, its padded output ``o`` and base-2 ``lse``. ``needs``
-    says which of dq, dk, dv to return: the fused kernel computes all three
-    in one launch, the pair launches dkv for dk or dv and dq for dq."""
+    says which of dq, dk, dv to return: the fused and the small kernel
+    compute all three in one launch, the pair launches dkv for dk or dv and
+    dq for dq."""
     check_no_autograd("flash_attention_bwd", q, k, v, o, do)
     _check(q, k, v)
     dk_, d = _kernel_layout("flash_attention_bwd", q, k, v)
@@ -548,12 +585,15 @@ def flash_attention_bwd_kernel(
         raise ValueError(f"flash_attention_bwd: the {plan.route} route does not take {q.dtype}")
     if plan.route == "tf32":
         grads = _bwd_tf32(q, k, v, o, lse.contiguous(), do, needs, d)
+    elif plan.route == "small":
+        grads = _bwd_small(q, k, v, o, lse.contiguous(), do, needs, d)
+    if plan.route in ("tf32", "small"):
         return tuple(t[..., :d] if t is not None and dk_ != d else t for t in grads)
     fused = plan.route == "wgmma"
     lse = lse.contiguous()
-    # the fused route's delta from its pre-pass kernel, the pair's from the
+    # bf16's delta from the pre-pass kernel, the fp32 pair's from the
     # PyTorch expression
-    delta = flash_delta_kernel(o, do) if fused else flash_delta(o, do)
+    delta = flash_delta_kernel(o, do) if q.dtype == torch.bfloat16 else flash_delta(o, do)
     want_kv = fused or needs[1] or needs[2]
     dq = (torch.empty_like(q, memory_format=torch.contiguous_format)
           if fused or needs[0] else None)
@@ -595,6 +635,36 @@ def flash_attention_bwd_kernel(
         launch_counts[f"flash_attention_bwd_{which}"] += 1
     grads = (dq if needs[0] else None, dk if needs[1] else None, dv if needs[2] else None)
     return tuple(t[..., :d] if t is not None and dk_ != d else t for t in grads)
+
+
+def _bwd_small(q, k, v, o, lse, do, needs, d):
+    """The small route on padded bf16 inputs (Tq, Tk <= SMALL_BWD_T): one
+    launch writes dq, dk and dv, delta computed inside."""
+    b, tq, h, dk_ = q.shape
+    tk = k.shape[1]
+    if q.dtype != torch.bfloat16 or dk_ not in SMALL_BWD_HEAD_DIMS or max(tq, tk) > SMALL_BWD_T:
+        raise ValueError(f"flash_attention_bwd_small takes bf16 at padded head dims "
+                         f"{SMALL_BWD_HEAD_DIMS} with Tq, Tk <= {SMALL_BWD_T}; got q "
+                         f"{tuple(q.shape)} {q.dtype}, Tk={tk}")
+    if o.shape != q.shape or o.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd_small: o {tuple(o.shape)} {o.dtype} does not "
+                         f"match q {tuple(q.shape)} {q.dtype}")
+    _check_strides("flash_attention_bwd_small", (o,))
+    dq = torch.empty((b, tq, h, dk_), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, tk, h, dk_), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    lib = _library("flash_attention_bwd")
+    strides = _strides(q, k, v, o, do, dq, dk, dv)
+    with on_device(q.device):
+        code = lib.flash_attention_bwd_small(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, tq, tk, dk_,
+            ctypes.addressof(strides), 1.0 / math.sqrt(d), LOG2E / math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(code, lib, "flash_attention_bwd_error_string",
+                 f"flash_attention_bwd_small({tuple(q.shape)}, Tk={tk})")
+    launch_counts["flash_attention_bwd_small"] += 1
+    return (dq if needs[0] else None, dk if needs[1] else None, dv if needs[2] else None)
 
 
 def _bwd_tf32(q, k, v, o, lse, do, needs, d):

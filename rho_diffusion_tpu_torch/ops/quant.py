@@ -145,6 +145,9 @@ def conv_int8(module, x: torch.Tensor) -> torch.Tensor:
     route = k.int8_conv_route(tuple(x.shape), ksize, module.stride, pads, cout)
     if route == "s1":
         return k.conv3d_s8_kernel(xq, s_x, weight_layout(cache, "s1"), cache["s_w"], bias, dt)
+    if route == "s1_strided":
+        return k.conv3d_s8_strided_kernel(xq, s_x, weight_layout(cache, "s1"), cache["s_w"],
+                                          bias, dt)
     return k.conv_s8_general_kernel(xq, s_x, weight_layout(cache, "s2"), cache["s_w"], bias,
                                     ksize, module.stride, pads, dt)
 

@@ -16,9 +16,14 @@ padded head dims 64 and 128, the FMA kernels elsewhere). The backward's plan
 (csrc/flash_attention_bwd_wgmma.cuh, the fused kernel) is held the same way:
 at every attention problem of both configs at batch 1, 2, 8 and 32, its
 route by head dim and dtype, every instance within shared memory with the
-byte count written out, and no route off the card.
+byte count written out, and no route off the card. The small route
+(csrc/flash_attention_bwd_small.cuh: bf16 at padded head dims 16 and 32
+with Tq, Tk <= 64, the ViT's attention) is held by head dim, dtype and T,
+its shared memory written out, and the delta pre-pass's head dims against
+the launcher's instances.
 """
 import json
+import re
 from pathlib import Path
 
 import pytest
@@ -27,7 +32,8 @@ import torch
 from rho_diffusion_tpu_torch.models.unet import UNet
 from rho_diffusion_tpu_torch.ops import attention as attn_mod
 from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
-    FLASH_BM, FLASH_BWD_BM, FP32_BWD_PLAN, FP32_PLAN, HEAD_DIMS, MMA_SYNC_BWD_PLAN, SMEM_LIMIT,
+    FLASH_BM, FLASH_BWD_BM, FP32_BWD_PLAN, FP32_PLAN, HEAD_DIMS, MMA_SYNC_BWD_PLAN,
+    SMALL_BWD_HEAD_DIMS, SMALL_BWD_PLAN, SMALL_BWD_T, SMALL_BWD_WARPGROUPS, SMEM_LIMIT,
     TF32_BWD_PLAN, TF32_PLAN, WGMMA_BWD_PLANS, WGMMA_HEAD_DIMS, WGMMA_PLANS, WGMMA_TILES,
     FlashBwdPlan, FlashPlan, busiest_sm_rows, flash_bwd_plan, flash_plan, padded_head_dim)
 
@@ -213,28 +219,84 @@ def test_bwd_plan_at_ragged_shapes(b, tq, tk, h, d, bn):
     assert plan.bn == bn
 
 
+@pytest.mark.parametrize("t", [512, 64])
 @pytest.mark.parametrize("d", list(range(1, 257, 7)) + list(HEAD_DIMS))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
-def test_bwd_route_by_head_dim_and_dtype(d, dtype):
+def test_bwd_route_by_head_dim_and_dtype(d, dtype, t):
     """As the forward's: the fused kernel for bf16 at padded head dims 64
-    and 128, the mma.sync pair for other bf16; for fp32 the 3xTF32 pair at
-    padded head dims 64 and 128 and the FMA pair elsewhere; and no route
-    at all (never one off the card) for other dtypes."""
+    and 128; for bf16 at padded 16 and 32 the small route where T fits one
+    64-row tile and the mma.sync pair past it, for bf16 at 256 the pair;
+    for fp32 the 3xTF32 pair at padded head dims 64 and 128 and the FMA
+    pair elsewhere, whatever T; and no route at all (never one off the
+    card) for other dtypes."""
     if dtype == torch.float16:
         with pytest.raises(TypeError, match="bfloat16 or float32"):
-            flash_bwd_plan(2, 4, 512, 512, d, dtype)
+            flash_bwd_plan(2, 4, t, t, d, dtype)
         return
-    plan = flash_bwd_plan(2, 4, 512, 512, d, dtype)
-    assert plan.route in ("wgmma", "mma_sync", "tf32", "fp32")
+    plan = flash_bwd_plan(2, 4, t, t, d, dtype)
+    assert plan.route in ("wgmma", "small", "mma_sync", "tf32", "fp32")
     if dtype == torch.float32:
         tf32 = padded_head_dim(d) in (64, 128)
         assert plan == (TF32_BWD_PLAN if tf32 else FP32_BWD_PLAN)
-        assert flash_plan(2, 4, 512, 512, d, dtype, sms=SMS).route == ("tf32" if tf32 else "fp32")
+        assert flash_plan(2, 4, t, t, d, dtype, sms=SMS).route == ("tf32" if tf32 else "fp32")
     elif padded_head_dim(d) in WGMMA_HEAD_DIMS:
         assert plan.route == "wgmma"
-        assert flash_plan(2, 4, 512, 512, d, dtype, sms=SMS).route == "wgmma"
+        assert flash_plan(2, 4, t, t, d, dtype, sms=SMS).route == "wgmma"
+    elif padded_head_dim(d) in (16, 32) and t <= 64:
+        assert plan == SMALL_BWD_PLAN
     else:
         assert plan == MMA_SYNC_BWD_PLAN
+
+
+@pytest.mark.parametrize("tq,tk,route", [
+    (64, 64, "small"), (50, 50, "small"), (1, 1, "small"), (64, 17, "small"), (17, 64, "small"),
+    (65, 64, "mma_sync"), (64, 65, "mma_sync"), (65, 65, "mma_sync"), (256, 256, "mma_sync"),
+])
+@pytest.mark.parametrize("d", [16, 32, 9, 20])
+def test_bwd_small_route_by_t(tq, tk, route, d):
+    """The small route takes bf16 at padded head dims 16 and 32 (9 pads to
+    16, 20 to 32) when every key and every query of a batch*head fits one
+    64-row wgmma tile, whatever B and H (the ViT's B 32 x H 16 among
+    them); one row past it on either side goes to the pair, by the shape
+    and never by a failure."""
+    assert SMALL_BWD_HEAD_DIMS == (16, 32) and SMALL_BWD_T == 64
+    for b, h in ((32, 16), (2, 16), (1, 1), (256, 3)):
+        plan = flash_bwd_plan(b, h, tq, tk, d)
+        assert plan.route == route
+        assert plan == (SMALL_BWD_PLAN if route == "small" else MMA_SYNC_BWD_PLAN)
+
+
+def test_bwd_small_instances_fit():
+    """The small kernel's block at D = 16 and 32 alike (one instance each,
+    the same tiles): two warpgroups, each with K, V, Q, dO and the dS^T tile
+    as 128-byte swizzled [64][64] bf16 tiles (5 x 8192 bytes), the lse and
+    delta rows (2 x 4 x 64), rounded up to 1024 bytes (41,984), then 1024
+    bytes of alignment: 84,992 bytes, so two blocks (four batch*heads) fit
+    an SM and the ViT's 512 batch*heads take one wave of 132 SMs."""
+    region = 5 * 64 * 128 + 2 * 4 * 64
+    assert region == 41472
+    region = -(-region // 1024) * 1024
+    assert region == 41984 and SMALL_BWD_WARPGROUPS == 2
+    written_out = 2 * 41984 + 1024
+    assert SMALL_BWD_PLAN.smem_bytes() == written_out == 84992
+    assert 2 * (written_out + 1024) <= 233472  # the SM's 228 KB, 1 KB reserved a block
+    assert 2 * 2 * SMS >= 32 * 16
+
+
+def test_delta_kernel_head_dims():
+    """The delta pre-pass has an instance at every padded head dim, so every
+    bf16 route that takes it (the fused route at 64 and 128, the mma.sync
+    pair at 16, 32 and 256, and at 64 and 128 on request) finds one: the
+    launcher's switch (csrc/flash_attention_bwd.cu) against HEAD_DIMS."""
+    src = (ROOT / "rho_diffusion_tpu_torch" / "csrc" / "flash_attention_bwd.cu").read_text()
+    launcher = src[src.index("int flash_attention_bwd_delta("):]
+    launcher = launcher[:launcher.index("\n}\n")]
+    instances = {int(x) for x in re.findall(r"launch_delta<(\d+)>", launcher)}
+    assert instances == set(HEAD_DIMS) == {16, 32, 64, 128, 256}
+    accepted = {int(x) for x in re.findall(r"D == (\d+)", launcher)}
+    assert accepted == set(HEAD_DIMS)
+    for d in HEAD_DIMS:
+        assert flash_bwd_plan(2, 4, 512, 512, d).route in ("wgmma", "mma_sync")
 
 
 @pytest.mark.parametrize("d", WGMMA_HEAD_DIMS)
@@ -266,8 +328,11 @@ def test_bwd_kernel_wrapper_has_no_cpu_route():
 
     q = torch.zeros(1, 8, 1, 64, dtype=torch.bfloat16)
     lse = torch.zeros(1, 1, 8)
-    for plan in (None, *WGMMA_BWD_PLANS.values(), MMA_SYNC_BWD_PLAN):
+    for plan in (None, *WGMMA_BWD_PLANS.values(), MMA_SYNC_BWD_PLAN, SMALL_BWD_PLAN):
         with pytest.raises(RuntimeError, match="no kernel for device cpu"):
             flash_attention_bwd_kernel(q, q, q, q, lse, q, plan=plan)
+    q16 = torch.zeros(1, 8, 1, 16, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="no kernel for device cpu"):
+        flash_attention_bwd_kernel(q16, q16, q16, q16, lse, q16)
     with pytest.raises(RuntimeError, match="no kernel for device cpu"):
         flash_delta_kernel(q, q)

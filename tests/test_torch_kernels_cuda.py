@@ -47,7 +47,8 @@ from rho_diffusion_tpu_torch.ops.kernels.conv3d import (
 from rho_diffusion_tpu_torch.ops.kernels.conv3d_variants import (
     bigdot, bigdot_plain, conv_variant, conv_variant_plain, dots_only, dots_only_plain)
 from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
-    FP32_BWD_PLAN, FP32_PLAN, MMA_SYNC_BWD_PLAN, MMA_SYNC_PLAN, TF32_BWD_PLAN, TF32_PLAN,
+    FP32_BWD_PLAN, FP32_PLAN, MMA_SYNC_BWD_PLAN, MMA_SYNC_PLAN, SMALL_BWD_PLAN, TF32_BWD_PLAN,
+    TF32_PLAN,
     WGMMA_BWD_PLANS, WGMMA_PLANS, FlashBwdPlan, FlashPlan, flash_attention,
     flash_attention_bwd_kernel, flash_attention_bwd_plain, flash_attention_fwd_kernel,
     flash_attention_plain, flash_bwd_plan, flash_bwd_split, flash_bwd_split_plain, flash_delta,
@@ -299,16 +300,21 @@ def fwd_launches(d, dtype) -> dict:
     return {"flash_attention": 1}
 
 
-def bwd_launches(d, dtype) -> dict:
+def bwd_launches(d, dtype, tq=512, tk=512) -> dict:
     """The backward's launches by route: at padded head dims 64 and 128 the
     fused kernel and its delta pre-pass for bf16, the 3xTF32 pair and its
-    pre-pass for fp32; the dkv/dq pair elsewhere."""
+    pre-pass for fp32; bf16 at padded 16 and 32 with Tq, Tk <= 64 the small
+    kernel alone (delta inside); the dkv/dq pair elsewhere, for bf16 after
+    the delta pre-pass."""
     if padded_head_dim(d) in (64, 128):
         if dtype == torch.bfloat16:
             return {"flash_attention_bwd": 1, "flash_attention_bwd_delta": 1}
         return {"flash_attention_bwd_tf32_split": 1, "flash_attention_bwd_tf32_dkv": 1,
                 "flash_attention_bwd_tf32_dq": 1}
-    return {"flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1}
+    if dtype == torch.bfloat16 and padded_head_dim(d) in (16, 32) and max(tq, tk) <= 64:
+        return {"flash_attention_bwd_small": 1}
+    pair = {"flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1}
+    return {**pair, "flash_attention_bwd_delta": 1} if dtype == torch.bfloat16 else pair
 
 
 def flash_grads(q, kv, do, d):
@@ -327,6 +333,10 @@ def flash_grads(q, kv, do, d):
         (2, 64, 64, 2, 100),     # head dim padded to 128
         (1, 200, 136, 1, 256),
         (1, 40, 90, 2, 16),
+        (32, 64, 64, 16, 16),    # the ViT's attention: the small route (bf16)
+        (2, 50, 50, 16, 16),     # ragged T on it
+        (1, 40, 64, 2, 32),      # Tq != Tk, D = 32
+        (3, 37, 37, 5, 20),      # head dim padded to 32
     ],
 )
 def test_flash_backward_kernels_match_plain(cuda, b, tq, tk, h, d, dtype):
@@ -336,7 +346,7 @@ def test_flash_backward_kernels_match_plain(cuda, b, tq, tk, h, d, dtype):
     launch_counts.clear()
     dq, dkv = flash_grads(q, kv, do, d)
     torch.cuda.synchronize()
-    assert launch_counts == {**fwd_launches(d, dtype), **bwd_launches(d, dtype)}
+    assert launch_counts == {**fwd_launches(d, dtype), **bwd_launches(d, dtype, tq, tk)}
     assert dq.dtype == dtype and dkv.dtype == dtype
     qf, kf, vf = q.detach().float(), *(z.float() for z in kv.detach().split(d, dim=-1))
     want = flash_attention_bwd_plain(qf, kf, vf, flash_attention_plain(qf, kf, vf),
@@ -433,7 +443,7 @@ def test_flash_bwd_fused_matches_the_pair(cuda, b, t, h, d):
     new = flash_attention_bwd_kernel(q, k, v, o, lse, do)
     old = flash_attention_bwd_kernel(q, k, v, o, lse, do, plan=MMA_SYNC_BWD_PLAN)
     torch.cuda.synchronize()
-    assert launch_counts == {"flash_attention_bwd": 1, "flash_attention_bwd_delta": 1,
+    assert launch_counts == {"flash_attention_bwd": 1, "flash_attention_bwd_delta": 2,
                              "flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1}
     assert_bwd_close(new, q, k, v, do)
     assert_bwd_close(old, q, k, v, do)
@@ -453,11 +463,14 @@ def test_flash_bwd_fused_is_bitwise_repeatable(cuda, b, t):
     assert all(torch.equal(a, e) for a, e in zip(first, second))
 
 
-@pytest.mark.parametrize("b,t,h,d", [(32, 512, 4, 128), (2, 300, 3, 64), (1, 70, 2, 128)])
+@pytest.mark.parametrize("b,t,h,d", [(32, 512, 4, 128), (2, 300, 3, 64), (1, 70, 2, 128),
+                                     (2, 300, 3, 16), (1, 70, 3, 32), (1, 130, 2, 256),
+                                     (32, 64, 16, 16)])
 def test_flash_delta_kernel_matches_plain(cuda, b, t, h, d):
-    """The fused route's pre-pass against flash_delta on the forward's own
-    output and a strided dO view: fp32 sums of exact bf16 products, in
-    another order."""
+    """The pre-pass of the fused route and the bf16 pair, at every padded
+    head dim (8 and 16 lanes a row at D = 16 and 32, rows of a block past
+    the end), against flash_delta on the forward's own output and a strided
+    dO view: fp32 sums of exact bf16 products, in another order."""
     q, k, v, _ = bwd_inputs(b, t, t, h, d, "qkv", 46, cuda)
     o, _ = flash_attention_fwd_kernel(q, k, v)
     do = randn((b, t, h, 2 * d), 47, cuda, torch.bfloat16)[..., :d]
@@ -468,6 +481,75 @@ def test_flash_delta_kernel_matches_plain(cuda, b, t, h, d):
     want = flash_delta(o, do)
     assert got.shape == want.shape == (b, h, t) and got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
+SMALL_SHAPES = [
+    (32, 64, 64, 16, 16),   # the ViT's attention: 512 batch*heads, 256 blocks
+    (2, 50, 50, 16, 16),    # ragged T
+    (3, 64, 64, 5, 16),     # odd B*H: the last block's second warpgroup has none
+    (1, 3, 5, 1, 16),       # a few tokens, Tq != Tk
+    (1, 40, 64, 2, 32),     # Tq != Tk, D = 32
+    (2, 64, 23, 3, 32),     # fewer keys than queries
+    (3, 37, 37, 5, 20),     # head dim padded to 32
+    (2, 64, 64, 4, 9),      # head dim padded to 16
+]
+
+
+@pytest.mark.parametrize("layout", ["qkv", "head_major"])
+@pytest.mark.parametrize("b,tq,tk,h,d", SMALL_SHAPES)
+def test_flash_bwd_small_matches_plain(cuda, b, tq, tk, h, d, layout):
+    """The small route (one launch a backward, delta inside) on strided-qkv
+    and head-major views against the fp32 plain backward on the same
+    inputs, at the pair's tolerance; its gradients at the caller's layout."""
+    q, k, v, do = bwd_inputs(b, tq, tk, h, d, layout, 50, cuda)
+    assert flash_bwd_plan(b, h, tq, tk, d) == SMALL_BWD_PLAN
+    o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+    launch_counts.clear()
+    got = flash_attention_bwd_kernel(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert launch_counts == {"flash_attention_bwd_small": 1}
+    assert all(g.shape == t.shape for g, t in zip(got, (q, k, v)))
+    assert_bwd_close(got, q, k, v, do)
+
+
+@pytest.mark.parametrize("b,t,h,d", [(32, 64, 16, 16), (2, 50, 16, 16), (4, 64, 8, 32)])
+def test_flash_bwd_small_matches_the_pair(cuda, b, t, h, d):
+    """The small kernel against the mma.sync pair on the same inputs (the
+    pair on request): the same roundings (P and dS to bf16 before their
+    products, fp32 sums), so the two agree within the backward's bound;
+    and two runs of the small kernel agree bit for bit."""
+    q, k, v, do = bwd_inputs(b, t, t, h, d, "qkv", 51, cuda)
+    o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+    launch_counts.clear()
+    new = flash_attention_bwd_kernel(q, k, v, o, lse, do)
+    again = flash_attention_bwd_kernel(q, k, v, o, lse, do)
+    old = flash_attention_bwd_kernel(q, k, v, o, lse, do, plan=MMA_SYNC_BWD_PLAN)
+    torch.cuda.synchronize()
+    assert launch_counts == {"flash_attention_bwd_small": 2, "flash_attention_bwd_delta": 1,
+                             "flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1}
+    assert all(torch.equal(a, e) for a, e in zip(new, again))
+    assert_bwd_close(old, q, k, v, do)
+    for a, e in zip(new, old):
+        assert_flash_close_bwd(a, e.float())
+
+
+def test_flash_bwd_small_refuses_what_it_does_not_take(cuda):
+    """The small route on request past its range raises and names the
+    shape: T past one 64-row tile, a padded head dim other than 16 or 32,
+    fp32; the plan never sends such a shape there."""
+    q, k, v, do = bwd_inputs(1, 65, 65, 2, 16, "qkv", 52, cuda)
+    o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+    assert flash_bwd_plan(1, 2, 65, 65, 16) == MMA_SYNC_BWD_PLAN
+    with pytest.raises(ValueError, match=r"\(1, 65, 2, 16\)"):
+        flash_attention_bwd_kernel(q, k, v, o, lse, do, plan=SMALL_BWD_PLAN)
+    q, k, v, do = bwd_inputs(1, 64, 64, 2, 64, "qkv", 53, cuda)
+    o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+    with pytest.raises(ValueError, match=r"\(1, 64, 2, 64\)"):
+        flash_attention_bwd_kernel(q, k, v, o, lse, do, plan=SMALL_BWD_PLAN)
+    q, k, v, do = (t.float() for t in bwd_inputs(1, 64, 64, 2, 16, "qkv", 54, cuda))
+    o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+    with pytest.raises(ValueError, match="route"):
+        flash_attention_bwd_kernel(q, k, v, o, lse, do, plan=SMALL_BWD_PLAN)
 
 
 def test_flash_bwd_fused_refuses_a_plan_it_does_not_take(cuda):
@@ -578,24 +660,26 @@ def test_conv3d_function_gradients_match_plain(cuda, dtype):
         torch.testing.assert_close(a.float(), e, atol=tol * float(e.abs().max()), rtol=tol)
 
 
-@pytest.mark.parametrize("num_heads,head_dim", [(2, 32), (1, 64)],
-                         ids=["d32-mma_sync-pair", "d64-fused"])
-def test_unet_training_step_reaches_every_parameter(cuda, num_heads, head_dim):
+@pytest.mark.parametrize("num_heads,head_dim,shape", [
+    (2, 32, (4, 16, 16)), (2, 32, (4, 8, 8)), (1, 64, (4, 8, 8))],
+    ids=["d32-mma_sync-pair", "d32-small", "d64-fused"])
+def test_unet_training_step_reaches_every_parameter(cuda, num_heads, head_dim, shape):
     """One bf16 loss.backward() of a small 3-D UNet on the card: every
     parameter gets a finite gradient (no kernel cuts the graph), and the
-    step went through the forward and backward kernels: the mma.sync pair
-    at head dim 32, the fused backward at 64."""
+    step went through the forward and backward kernels: at head dim 32 the
+    mma.sync pair over 256 tokens and the small backward over 64, the
+    fused backward at 64."""
     from rho_diffusion_tpu_torch.models.unet import UNet
 
     torch.manual_seed(0)
-    unet = UNet(data_shape=(4, 8, 8), in_channels=1, model_channels=32, out_channels=1,
+    unet = UNet(data_shape=shape, in_channels=1, model_channels=32, out_channels=1,
                 num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2),
                 dims=3, num_heads=num_heads, use_scale_shift_norm=True,
                 dtype="bfloat16").to(cuda)
     with torch.no_grad():
         for p in unet.parameters():  # no zero-initialised heads
             p.copy_(torch.randn_like(p) / math.sqrt(p[0].numel() if p.dim() > 1 else 50))
-    x = randn((2, 4, 8, 8, 1), 17, cuda, torch.float32)
+    x = randn((2, *shape, 1), 17, cuda, torch.float32)
     t = torch.tensor([3, 700], device=cuda)
     launch_counts.clear()
     unet.train()
@@ -606,12 +690,13 @@ def test_unet_training_step_reaches_every_parameter(cuda, num_heads, head_dim):
         assert p.grad is not None, name
         assert bool(torch.isfinite(p.grad).all()), name
         assert float(p.grad.abs().max()) > 0, name
-    bwd = bwd_launches(head_dim, torch.bfloat16)
+    tokens = shape[0] * (shape[1] // 2) * (shape[2] // 2)  # attention after one Downsample
+    bwd = bwd_launches(head_dim, torch.bfloat16, tokens, tokens)
     for kernel in ("conv3d_igemm", "conv3d_direct", "conv3d_dgrad_igemm", "conv3d_dgrad_direct",
                    "flash_attention", *bwd):
         assert launch_counts[kernel] > 0, kernel
     others = {"flash_attention_bwd", "flash_attention_bwd_delta", "flash_attention_bwd_dkv",
-              "flash_attention_bwd_dq"} - set(bwd)
+              "flash_attention_bwd_dq", "flash_attention_bwd_small"} - set(bwd)
     assert not any(launch_counts[kernel] for kernel in others)
 
 
@@ -1015,8 +1100,9 @@ def test_int8_s1_matches_plain(cuda, shape, cout, out_dtype):
     ((1, 5, 5, 5, 17), 16, (3, 3, 3), (1, 1, 1), ((1, 1),) * 3),
     ((1, 6, 6, 6, 32), 20, (2, 2, 2), (1, 1, 1), ((0, 1),) * 3)])
 def test_int8_s2_matches_plain(cuda, shape, cout, ksize, stride, pads, out_dtype):
-    """S2 on the Downsample, 2-D, 1-D, a ragged Cin (17: byte loads) and an
-    even kernel with XLA's asymmetric SAME pads."""
+    """S2 on the Downsample (kept on request: the route takes S1's block
+    there), 2-D, 1-D, a ragged Cin (17: byte loads) and an even kernel with
+    XLA's asymmetric SAME pads."""
     from rho_diffusion_tpu_torch.ops.kernels import conv_int8 as k
 
     xq, wq, s_x, s_w, bias = _int8_operands(shape, cout, ksize, seed=len(shape) + cout)
@@ -1024,6 +1110,39 @@ def test_int8_s2_matches_plain(cuda, shape, cout, ksize, stride, pads, out_dtype
                                    out_dtype)
     want = k.conv_int8_plain(xq, s_x, wq, s_w, bias, stride, pads, out_dtype)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.int32, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout", [
+    ((8, 32, 32, 32, 64), 64), ((8, 32, 16, 16, 128), 128), ((8, 32, 8, 8, 256), 256),
+    ((2, 5, 13, 11, 32), 48), ((1, 3, 7, 9, 16), 300), ((1, 4, 4, 4, 1024), 512)])
+def test_int8_strided_matches_plain_and_s2(cuda, shape, cout, out_dtype):
+    """The Downsample on S1's block (stride (1, 2, 2), pads (1, 1)): the
+    flagship's three at batch 8, ragged odd H and W, Cout over N tiles and
+    a wide Cin, bitwise against the plain version and against S2 on the
+    same inputs."""
+    from rho_diffusion_tpu_torch.ops.kernels import conv_int8 as k
+
+    xq, wq, s_x, s_w, bias = _int8_operands(shape, cout, (3, 3, 3), seed=sum(shape) + cout + 1)
+    stride, pads = (1, 2, 2), [(1, 1)] * 3
+    assert k.int8_conv_route(shape, (3, 3, 3), stride, pads, cout) == "s1_strided"
+    launch_counts.clear()
+    got = k.conv3d_s8_strided_kernel(xq, s_x, k.s1_weights(wq), s_w, bias, out_dtype)
+    assert launch_counts == {"conv3d_s8_strided": 1}
+    want = k.conv_int8_plain(xq, s_x, wq, s_w, bias, stride, pads, out_dtype)
+    s2 = k.conv_s8_general_kernel(xq, s_x, k.s2_weights(wq), s_w, bias, (3, 3, 3), stride, pads,
+                                  out_dtype)
+    assert torch.equal(got, want) and torch.equal(got, s2)
+
+
+def test_int8_strided_refuses_what_it_does_not_take(cuda):
+    """Cin off the 16-byte multiple raises and names it; S2 keeps that case."""
+    from rho_diffusion_tpu_torch.ops.kernels import conv_int8 as k
+
+    xq, wq, s_x, s_w, bias = _int8_operands((1, 4, 8, 8, 24), 32, (3, 3, 3), seed=5)
+    with pytest.raises(ValueError, match="Cin % 16 == 0"):
+        k.conv3d_s8_strided_kernel(xq, s_x, k.s1_weights(wq), s_w, bias)
+    assert k.int8_conv_route(tuple(xq.shape), (3, 3, 3), (1, 2, 2), [(1, 1)] * 3, 32) == "s2"
 
 
 @pytest.mark.parametrize("shape,dtype", [

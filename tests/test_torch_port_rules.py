@@ -44,6 +44,7 @@ from rho_diffusion_tpu_torch.ops.kernels import _build, launch_counts
 from rho_diffusion_tpu_torch.ops.kernels.conv3d import Conv3d, conv3d, conv3d_kernel
 from rho_diffusion_tpu_torch.ops.kernels.conv_int8 import (
     conv3d_s8_kernel,
+    conv3d_s8_strided_kernel,
     conv_s8_general_kernel,
     int8_conv_route,
     quantize_rows_kernel,
@@ -203,6 +204,7 @@ def test_int8_kernel_wrappers_raise_off_the_cpu_and_off_their_range():
     w1 = torch.empty((16, 27, 32), dtype=torch.int8, device="meta")
     w2 = torch.empty((27, 8, 16), dtype=torch.int32, device="meta")
     for launch in (lambda: conv3d_s8_kernel(xq, s, w1, sw, None),
+                   lambda: conv3d_s8_strided_kernel(xq, s, w1, sw, None),
                    lambda: conv_s8_general_kernel(xq, s, w2, sw, None, (3, 3, 3), (1, 1, 1),
                                                   [(1, 1)] * 3),
                    lambda: quantize_rows_kernel(torch.empty((2, 8), device="meta"))):
@@ -212,9 +214,17 @@ def test_int8_kernel_wrappers_raise_off_the_cpu_and_off_their_range():
     with pytest.raises(RuntimeError, match="grad mode"):
         quantize_rows_kernel(x)
     assert int8_conv_route((8, 32, 32, 32, 64), (3, 3, 3), (1, 1, 1), [(1, 1)] * 3, 64) == "s1"
-    assert int8_conv_route((8, 32, 32, 32, 64), (3, 3, 3), (1, 2, 2), [(1, 1)] * 3, 64) == "s2"
+    # the Downsample: S1's block with a strided x map
+    assert int8_conv_route((8, 32, 32, 32, 64), (3, 3, 3), (1, 2, 2), [(1, 1)] * 3,
+                           64) == "s1_strided"
     assert int8_conv_route((8, 32, 32, 32, 24), (3, 3, 3), (1, 1, 1), [(1, 1)] * 3, 64) == "s2"
     assert int8_conv_route((8, 64, 64, 64), (3, 3), (2, 2), [(1, 1)] * 2, 64) == "s2"
+    # S2 keeps what the TMA routes do not take: Cin % 16 != 0 (also strided),
+    # 2-D at any stride, other strides and pads
+    assert int8_conv_route((8, 32, 16, 16, 24), (3, 3, 3), (1, 2, 2), [(1, 1)] * 3, 48) == "s2"
+    assert int8_conv_route((8, 64, 64, 64), (3, 3), (1, 1), [(1, 1)] * 2, 64) == "s2"
+    assert int8_conv_route((8, 32, 32, 32, 64), (3, 3, 3), (2, 2, 2), [(1, 1)] * 3, 64) == "s2"
+    assert int8_conv_route((8, 32, 32, 32, 64), (3, 3, 3), (1, 2, 2), [(0, 1)] * 3, 64) == "s2"
     for shape, ksize, stride, pads, cout in (
             ((2, 4, 4, 4, 4, 32), (3,) * 4, (1,) * 4, [(1, 1)] * 4, 32),  # rank 4
             ((1, 8, 8, 8, 8192), (3, 3, 3), (1, 1, 1), [(1, 1)] * 3, 32),  # int32 sum overflow

@@ -10,6 +10,13 @@ phase holds S1-S3 bitwise against the same plain versions.
   ragged Cin = 24) and the int8 Dense (a [b, tokens, c] input of <= 16 rows,
   so the padding of the int8 product runs) equal JAX's bit for bit, in fp32
   and in bf16.
+* The Downsample's route on the card (``conv3d_s8_strided``, S1's block
+  with x's tensor map walked every other voxel along H and W) emulated in
+  numpy box by box: ``igemm_plan``'s boxes on the output's shape, each
+  tap's origin, TMA's element-stride gather with its zero fill, 128-channel
+  chunks; its int32 sums equal JAX's ``ConvInt8`` product and, dequantised
+  as the epilogue does, its output, bit for bit, on the flagship's three
+  Downsamples cut to batch 1 and depth 4, and a ragged H and W.
 * Layers under 16 channels stay float in ``self.dtype or x.dtype``. A
   float conv sums its products in another order than XLA's, so these are
   held at fp32's summation error (1e-5 relative to the largest output) in
@@ -65,6 +72,7 @@ from rho_diffusion_tpu_torch.ops import convolution
 from rho_diffusion_tpu_torch.ops import quant
 from rho_diffusion_tpu_torch.ops.convolution import Conv1x1, ConvNd, set_conv3d_backend
 from rho_diffusion_tpu_torch.ops.kernels import conv_int8 as k
+from rho_diffusion_tpu_torch.ops.kernels.conv3d import igemm_plan
 from rho_diffusion_tpu_torch.ops.quant import conv_quant, get_conv_quant, quantize_int8
 from test_torch_gaussian_sampling import Injected, jax_params, jit_backbone
 
@@ -184,6 +192,96 @@ def test_conv_int8_bitwise_against_jax(case, dtype):
                                                                   got.shape))
     else:
         assert np.abs(as_np(want)).max() > 0.1
+
+
+def strided_route_sums(xq: np.ndarray, wq: np.ndarray) -> np.ndarray:
+    """The int32 sums of the Downsample's route on the card, walked as the
+    kernel walks them: xq [B, D, H, W, Cin] int8, wq [Cout, Cin, 3, 3, 3]
+    int8, the conv at stride (1, 2, 2) with pads (1, 1). Each block is one
+    of ``igemm_plan``'s boxes of bw x bh x bd = 128 output voxels (W
+    fastest), taken on the output's shape. For each of the 27 taps the x
+    map's box starts at (2 w0 + dx - 1, 2 h0 + dy - 1, d0 + dz - 1) and
+    spans 2 bw x 2 bh x bd voxels with element strides (2, 2, 1), so TMA
+    brings ceil(2 bw / 2) = bw voxels along W (likewise H), zero outside x;
+    the products run over 128-channel chunks (zero past Cin). Rows of a box
+    past the output are dropped."""
+    b_, d_, h_, w_, cin = xq.shape
+    cout = wq.shape[0]
+    out_sp = k.conv_out_spatial((d_, h_, w_), (3, 3, 3), (1, 2, 2), ((1, 1),) * 3)
+    plan = igemm_plan((b_, *out_sp, cin), cout)
+    bw, bh, bd = plan.bw, plan.bh, plan.bd
+    assert bw * bh * bd == 128 and max(2 * bw, 2 * bh) <= 256  # TMA's box extents
+    assert -(-2 * bw // 2) == bw and -(-2 * bh // 2) == bh
+    w1 = k.s1_weights(torch.from_numpy(wq)).numpy().astype(np.int64)  # [Cout, 27, Cin]
+    chunks = -(-cin // 128)
+    wt = np.zeros((cout, 27, chunks * 128), np.int64)
+    wt[..., :cin] = w1
+    r = np.arange(128)
+    dd, hh, ww = r // (bw * bh), r // bw % bh, r % bw
+    out = np.zeros((b_, *out_sp, cout), np.int64)
+    for b in range(b_):
+        for d0 in range(0, out_sp[0], bd):
+            for h0 in range(0, out_sp[1], bh):
+                for w0 in range(0, out_sp[2], bw):
+                    acc = np.zeros((128, cout), np.int64)
+                    for tap in range(27):
+                        dz, dy, dx = tap // 9, tap // 3 % 3, tap % 3
+                        z = d0 + dz - 1 + dd
+                        y = 2 * h0 + dy - 1 + 2 * hh
+                        x = 2 * w0 + dx - 1 + 2 * ww
+                        inside = (z >= 0) & (z < d_) & (y >= 0) & (y < h_) & (x >= 0) & (x < w_)
+                        a = np.zeros((128, chunks * 128), np.int64)
+                        a[inside, :cin] = xq[b, z[inside], y[inside], x[inside]]
+                        for c in range(chunks):
+                            cs = slice(128 * c, 128 * (c + 1))
+                            acc += a[:, cs] @ wt[:, tap, cs].T
+                    keep = (d0 + dd < out_sp[0]) & (h0 + hh < out_sp[1]) & (w0 + ww < out_sp[2])
+                    out[b, (d0 + dd)[keep], (h0 + hh)[keep], (w0 + ww)[keep]] = acc[keep]
+    assert np.abs(out).max() < 2**31
+    return out.astype(np.int32)
+
+
+@pytest.mark.parametrize("shape,cout", [
+    ((1, 4, 32, 32, 64), 64),     # the flagship's level-0 Downsample, batch 1, depth 4
+    ((1, 4, 16, 16, 128), 128),   # level 1
+    ((1, 4, 8, 8, 256), 256),     # level 2: one box over 8 depth planes, 4 of them past D
+    ((2, 3, 13, 11, 32), 48),     # ragged H and W: odd sides, boxes past the output
+])
+def test_strided_route_box_walk_against_jax(shape, cout):
+    """The Downsample's route is "s1_strided"; its box walk's int32 sums
+    equal the integer product of JAX's ``ConvInt8`` (ops/quant.py:143-153,
+    as ``conv_nd`` builds it for a strided SAME conv: pads k // 2), and
+    dequantised as the kernel's epilogue does (``dequantize_plain``) they
+    equal ``ConvInt8``'s output bit for bit, in fp32 and in bf16."""
+    assert k.int8_conv_route(shape, (3, 3, 3), (1, 2, 2), [(1, 1)] * 3, cout) == "s1_strided"
+    rng = np.random.default_rng(sum(shape) + cout)
+    x = inputs(shape, seed=sum(shape))
+    kernel = (rng.normal(size=(3, 3, 3, shape[-1], cout)) / np.sqrt(27 * shape[-1])).astype(
+        np.float32)
+    bias = (0.1 * rng.normal(size=(cout,))).astype(np.float32)
+    with jax_conv_quant("int8"):
+        jmod = jax_conv_nd(3, cout, 3, stride=(1, 2, 2))
+    assert isinstance(jmod, ConvInt8) and tuple(map(tuple, jmod.padding)) == ((1, 1),) * 3
+    # the quantised operands, as ConvInt8 makes them
+    w_q, s_w = jax_quantize_int8(jnp.asarray(kernel), axes=(0, 1, 2, 3))
+    x_q, s_x = jax_quantize_int8(jnp.asarray(x), axes=(1, 2, 3, 4))
+    want = np.asarray(jax.lax.conv_general_dilated(
+        x_q, w_q, (1, 2, 2), jmod.padding, dimension_numbers=("NDHWC", "DHWIO", "NDHWC"),
+        preferred_element_type=jnp.int32))
+    wq = np.ascontiguousarray(np.asarray(w_q).transpose(4, 3, 0, 1, 2))  # [Cout, Cin, 3, 3, 3]
+    got = strided_route_sums(np.asarray(x_q), wq)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    for dtype in ("float32", "bfloat16"):
+        jdt = jnp.bfloat16 if dtype == "bfloat16" else None
+        with jax_conv_quant("int8"):
+            jmod = jax_conv_nd(3, cout, 3, stride=(1, 2, 2), dtype=jdt)
+        y = jmod.apply({"params": {"kernel": jnp.asarray(kernel), "bias": jnp.asarray(bias)}},
+                       jnp.asarray(x))
+        deq = k.dequantize_plain(torch.from_numpy(got), torch.from_numpy(np.array(s_x)),
+                                 torch.from_numpy(np.array(s_w)), torch.from_numpy(bias),
+                                 torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+        np.testing.assert_array_equal(as_np(deq), as_np(y))
 
 
 @pytest.mark.parametrize("out_dtype", [torch.int32, torch.float32, torch.bfloat16])

@@ -54,14 +54,17 @@ torch.set_num_threads(1)
     pytest.param(128, 200, 32, id="128"),
     pytest.param(None, 200, 32, id="None"),
     pytest.param(None, 512, 128, id="flagship-T512-D128"),
+    pytest.param(None, 64, 16, id="vit-T64-D16"),
+    pytest.param(None, 50, 16, id="vit-ragged-T50-D16"),
 ])
 def test_flash_backward_matches_jax_grad(block_k, t, d):
     """T=200 pads to 256: with block_k=128 the JAX kernels sweep two K/V
     blocks, the second ragged; None takes one whole block. The flagship's
     attention width (T = 512, D = 128, 2 heads) is the one the fused
-    backward kernel runs on the card. atol 5e-5, the JAX package's own
-    flash-gradient tolerance (tests/ops/test_flash_attention.py), fp32 on
-    both sides."""
+    backward kernel runs on the card; the ViT's (64 patches, head dim 16)
+    and a ragged T = 50 are the small route's, one wgmma tile a batch*head.
+    atol 5e-5, the JAX package's own flash-gradient tolerance
+    (tests/ops/test_flash_attention.py), fp32 on both sides."""
     rng = np.random.default_rng(0)
     q, k, v = (rng.normal(size=(1, t, 2, d)).astype(np.float32) for _ in range(3))
 
