@@ -44,7 +44,7 @@ weights loaded from a reference-layout ``.pth``):
   one epoch through ``rho_diffusion_tpu_torch.training``'s ``main`` with
   the dataset cut to 256 items (8 steps), its steps/s, peak memory and one
   profiled step's device busy share; ``rho_diffusion_tpu_torch.evaluate``
-  with ``--bpd --num-batches 2`` on the trained EMA weights (validation,
+  with ``--bpd --num-batches 1`` on the trained EMA weights (validation,
   a DDIM-50 generate at batch 8, the 1000-step VLB loop at batch 4, each
   part timed); RePaint inpainting of 8 rows (ddpm respaced to 50, 2
   rounds a step, half the volume kept, that half checked exact) and DDIM-50
@@ -72,7 +72,7 @@ weights loaded from a reference-layout ``.pth``):
   and one step profiled; ``config_spherical_harmonics_quality.json``
   trained one epoch (31 steps) under its ``training.device_cache: true``;
   the bench entry's realdata mode without and with BENCH_DEVICE_CACHE=1,
-  in turns, each mode's device time per step from two profiled runs; and K1
+  one run each, each mode's device time per step from two profiled runs; and K1
   and the fused K3/K4 held and timed at the 2-D and 1-D attention (D = 64,
   T = 256 and 512);
 * ``serve``: the sampling service through ``rho_diffusion_tpu_torch.serve``'s
@@ -114,9 +114,15 @@ weights loaded from a reference-layout ``.pth``):
   problem on K5's igemm; the Dense sites' ``torch._int_mm``; then the
   counted paths: the inference CLI with ``--quant int8`` (the schedule cut
   as ``main``'s; the strided route three times a forward and S2 never),
-  its int8 sites per forward against the recorded forward's; S2's path,
-  the same CLI on the 2-D DeepGalaxy config at full width (128^2, width
-  32, DATA_SAMPLE_STEPS steps, every int8 conv on S2); a batch-4 int8
+  its int8 sites per forward against the recorded forward's; the 2-D
+  path, the same CLI on the 2-D DeepGalaxy config at full width (128^2,
+  width 32, DATA_SAMPLE_STEPS steps, every int8 conv on S1's block over
+  the 1x3x3 taps, ``conv2d_s8`` and ``conv2d_s8_strided``, and none on
+  S2), and S2's path, the CLI on the 1-D Spectroscopy config (4096 points,
+  width 32, every int8 conv on S2), each path's problems held bitwise (the
+  2-D routes against S2 on the same inputs too) and timed (beside S2 and
+  cuDNN's bf16 conv2d), each path's own forward timed in bf16 and int8
+  with device profiles; a batch-4 int8
   forward on the kernels against the int8 plain model (the ``hold`` rule)
   and its distance to the fp32 float model; the batch-8 forward's time in
   bf16 and int8 (in turns) with device profiles; and the serving load
@@ -127,16 +133,18 @@ weights loaded from a reference-layout ``.pth``):
   depth 8, 16 heads: head dim 16 over 64 tokens, so the mma.sync flash
   forward and the small backward, one launch a call; batch 32, bf16,
   AdamW, EMA 0.9999); the same ViT at patch 4 (512 tokens, past the small
-  route: the dkv/dq pair after its delta pre-pass), VIT_PATCH4_STEPS
-  training steps; the training CLI on the flagship config with that ViT,
+  route: the long backward, one launch a call, and no dkv/dq pair launch),
+  VIT_PATCH4_STEPS training steps; the training CLI on the flagship config with that ViT,
   FourierConditioning on the raw (l, m) rows (5 steps at batch 32, one
   checkpoint), then the inference CLI's DDPM-25 at batch 4 on it; the
   ViT's bf16 forward and one loss's gradients held against the fp32 plain
   model, the forward and the small backward held at (32, 64, 16, 16) and
-  a ragged T = 50 (the backward against the pair on request too), the
-  pair at T = 256, and timed at the ViT's attention beside SDPA and their
-  bound (device time of whole calls from CUDA graphs too), the pair at
-  patch 4's attention; the SimpleUNet
+  a ragged T = 50, the long backward at T = 256 and at patch 4's (32,
+  512, 16, 16), each twice bitwise and against the pair on request too,
+  and timed at the ViT's attention beside SDPA and their bound (device
+  time of whole calls from CUDA graphs too), the long backward (its bound
+  the largest of its exponentials, products and bytes), the mma.sync
+  forward and the pair on request at patch 4's attention; the SimpleUNet
   ("UNet") in 3-D at 32^3 with JAX's default widths in bf16: 3 training
   steps at batch 8, a DDPM-25 sample at batch 2 through ``reverse_process``,
   its forward and gradients held, and its K5 problems (concat inputs of 512
@@ -187,7 +195,7 @@ a torch.profiler breakdown by kernel) and the whole reverse process. The
 route (and its mma.sync kernel), with and without the LSE, at T = 512
 (batch 4, 8, 32), 4096 (batch 8) and 300, D = 128 and 64, and the
 backward (the fused kernel for bf16 and the 3xTF32 pair for fp32 at D =
-64 and 128, the dkv/dq pair elsewhere) at the training step's attention,
+64 and 128, the FMA pair elsewhere) at the training step's attention,
 T = 4096, T = 300 and D = 64, twice (bitwise) and against the pair each
 replaced (mma.sync, FMA), K1 and the fused backward in bf16 at the data
 phase's attention (D = 64: B*H 256 at T = 256, 128 at T = 512), the fp32
@@ -202,7 +210,7 @@ non-zero. The last line is ``{"ok": true, "device": {...}}``, after the
 ``kernels`` line and the card's ``nvidia-smi`` name and power limit. A run
 whose ``--phases`` leave out any of kernels, main, main64, gauss, vlb,
 train, data, serve, load, utils, int8, vit, timings, fp32 and bench prints
-neither and exits 3.
+neither and exits 3. The ``done`` line gives each phase's seconds.
 
 Exits non-zero without a result when CUDA is unavailable or the script runs
 outside a checkout of the repository. Imports nothing of JAX.
@@ -287,7 +295,10 @@ DEVICE_TIME_GROUPS = (
     ("AdamW and EMA (multi_tensor_apply)", ("multi_tensor_apply",)),
 )
 
-# The card's published dense peaks (H100 SXM data sheet) and memory rate.
+# The card's published dense peaks (H100 SXM data sheet) and memory rate;
+# the special-function unit's ex2 throughput, 16 a clock an SM (the CUDA C
+# programming guide's throughput table for compute capability 9.0).
+SFU_EX2_PER_CLOCK_SM = 16
 PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
 PEAK_FP32 = 67e12
@@ -368,6 +379,17 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+@functools.cache
+def sm_max_clock_hz() -> float:
+    """The card's maximum SM clock as nvidia-smi reports it (``clocks.max.sm``):
+    the clock at which the exponentials' bound is counted."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return float(out[0]) * 1e6
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -629,6 +651,10 @@ def phase_build(state: dict) -> None:
     fb += [{"kernel": "flash_bwd_small", "hd": int(m[1]), "bn": 64, **entry}
            for name, entry in ptxas_entries(log).items()
            for m in [re.search(r"flash_bwd_small_kernelILi(\d+)E", name)] if m]
+    # the long backward's (head dim 16 and 32, 128 keys a block)
+    fb += [{"kernel": "flash_bwd_long", "hd": int(m[1]), "bn": 128, **entry}
+           for name, entry in ptxas_entries(log).items()
+           for m in [re.search(r"flash_bwd_long_kernelILi(\d+)E", name)] if m]
     serialized = [ln.split("'")[1] for ln in log.splitlines() if "C7512" in ln and "'" in ln]
     emit("flash_bwd_ptxas",
          kernels=fb or "not built in this run (a cached library has no ptxas log)",
@@ -652,10 +678,12 @@ def phase_build(state: dict) -> None:
                   for ln in _build.build_log.get(src, "").splitlines()
                   if "C7512" in ln and "'" in ln]
     # the int8 kernels: S1's instances (N tile, stages, output kind, products
-    # a stage, H/W stride: 2 is the strided Downsample's), S2, S3
-    log = "\n".join(_build.build_log.get(src, "") for src in ("conv_int8", "conv3d_s8_strided"))
+    # a stage, H/W stride: 2 is the strided Downsample's, taps: 9 the 2-D
+    # convs'), S2, S3
+    log = "\n".join(_build.build_log.get(src, "") for src in (
+        "conv_int8", "conv3d_s8_strided", "conv2d_s8", "conv2d_s8_strided"))
     s8 = [{"kernel": m[1], **entry} for name, entry in ptxas_entries(log).items()
-          for m in [re.search(r"(conv3d_s8_wgmma_kernelILi\d+ELi\d+ELi\d+ELi\d+ELi\d+E|"
+          for m in [re.search(r"(conv3d_s8_wgmma_kernelILi\d+ELi\d+ELi\d+ELi\d+ELi\d+ELi\d+E|"
                               r"conv_s8_general_kernel|quant_amax_kernel|quant_int8_kernel)",
                               name)] if m]
     emit("int8_ptxas", kernels=s8 or "not built in this run (a cached library has no ptxas log)",
@@ -723,6 +751,7 @@ CUDA_KERNEL = {"conv3d_igemm": "conv3d_igemm", "conv3d_direct": "conv3d_direct",
                "flash_attention_bwd_delta": "flash_bwd_delta",
                "flash_attention_bwd_dkv": "flash_bwd_dkv", "flash_attention_bwd_dq": "flash_bwd_dq",
                "flash_attention_bwd_small": "flash_bwd_small",
+               "flash_attention_bwd_long": "flash_bwd_long",
                "flash_attention_tf32": "flash_fwd_tf32_kernel",
                "flash_attention_tf32_split": "flash_fwd_tf32_split",
                "flash_attention_bwd_tf32_dkv": "flash_bwd_tf32_dkv",
@@ -730,6 +759,7 @@ CUDA_KERNEL = {"conv3d_igemm": "conv3d_igemm", "conv3d_direct": "conv3d_direct",
                "flash_attention_bwd_tf32_split": "flash_bwd_tf32_split",
                "ring_attention": "ring_attention_",
                "conv3d_s8": "conv3d_s8_wgmma_kernel", "conv3d_s8_strided": "conv3d_s8_wgmma_kernel",
+               "conv2d_s8": "conv3d_s8_wgmma_kernel", "conv2d_s8_strided": "conv3d_s8_wgmma_kernel",
                "conv_s8_general": "conv_s8_general_kernel",
                "quantize_int8_amax": "quant_amax_kernel", "quantize_int8": "quant_int8_kernel",
                **{k: k for k in ("conv3d_variant_full", "conv3d_variant_nopatch",
@@ -945,15 +975,15 @@ def bwd_kernel_names(d: int, dtype, plan=None, t: int = 512) -> dict:
     """The count (and kernel) behind each gradient on the backward's route
     at T = ``t`` (``flash_bwd_plan``'s, or ``plan``): the fused kernel for
     bf16 at padded head dims 64 and 128, the small kernel for bf16 at 16
-    and 32 with T <= 64, the 3xTF32 pair for fp32 at 64 and 128, the
-    dkv/dq pair elsewhere."""
+    and 32 with T <= 64 and the long kernel past it, the 3xTF32 pair for
+    fp32 at 64 and 128, the dkv/dq pair elsewhere."""
     from rho_diffusion_tpu_torch.ops.kernels.flash_attention import flash_bwd_plan
 
     route = (plan or flash_bwd_plan(1, 1, t, t, d, dtype)).route
     if route == "wgmma":
         return dict.fromkeys(("dq", "dk", "dv"), "flash_attention_bwd")
-    if route == "small":
-        return dict.fromkeys(("dq", "dk", "dv"), "flash_attention_bwd_small")
+    if route in ("small", "long"):
+        return dict.fromkeys(("dq", "dk", "dv"), f"flash_attention_bwd_{route}")
     pair = "flash_attention_bwd_tf32" if route == "tf32" else "flash_attention_bwd"
     return {"dq": f"{pair}_dq", "dk": f"{pair}_dkv", "dv": f"{pair}_dkv"}
 
@@ -961,7 +991,7 @@ def bwd_kernel_names(d: int, dtype, plan=None, t: int = 512) -> dict:
 def check_flash_bwd(b, t, h, d, device, seed: int, dtype) -> dict:
     """dq, dk, dv of the kernels (through the autograd Function, forward
     with LSE) against the fp32 plain backward on the same inputs; the kernels
-    run twice and must agree bitwise. On the fused and the small route
+    run twice and must agree bitwise. On the fused, small and long routes
     (bf16) the mma.sync pair, and on the 3xTF32 pair's (fp32) the FMA pair,
     runs on the same inputs too (``flash_attention_bwd_kernel(...,
     plan=...)``), held against the plain backward and the new route against
@@ -993,6 +1023,7 @@ def check_flash_bwd(b, t, h, d, device, seed: int, dtype) -> dict:
               for which, g, w in zip(("dq", "dk", "dv"), got, want)]
     repeatable = all(torch.equal(x, y) for x, y in zip(got, again))
     route = {"flash_attention_bwd": "fused", "flash_attention_bwd_small": "small",
+             "flash_attention_bwd_long": "long",
              "flash_attention_bwd_tf32_dq": "tf32 pair"}.get(kernels["dq"], "pair")
     row = {"b": b, "t": t, "h": h, "d": d, "dtype": name, "bitwise_repeatable": repeatable,
            "route": route}
@@ -1005,7 +1036,7 @@ def check_flash_bwd(b, t, h, d, device, seed: int, dtype) -> dict:
                            **flash_error(flash_delta_kernel(o, do), flash_delta(o, do),
                                          TOL_DELTA)})
     if route != "pair":
-        old_plan = MMA_SYNC_BWD_PLAN if route in ("fused", "small") else FP32_BWD_PLAN
+        old_plan = MMA_SYNC_BWD_PLAN if route in ("fused", "small", "long") else FP32_BWD_PLAN
         with torch.no_grad():
             q, k, v = (z.detach() for z in qkv.split(d, dim=-1))
             o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
@@ -1019,6 +1050,42 @@ def check_flash_bwd(b, t, h, d, device, seed: int, dtype) -> dict:
                                        for which, g, w in zip(("dq", "dk", "dv"), new, old)]
     row["grads"] = grads_
     row["ok"] = repeatable and all(g["ok"] for g in grads_ + row.get("new_against_old_pair", []))
+    return row
+
+
+def long_bwd_memory_hold(b, t, h, d, device) -> dict:
+    """One long-route backward at a large B*H*T: the device memory the call
+    allocates, against dq, dk and dv and its fp32 dQ slots and counters
+    (``long_bwd_scratch_bytes``, linear in T; a slot set for every 128 keys
+    grew as Tq * Tk), finite gradients, and a second call bitwise equal."""
+    import torch
+
+    from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd_kernel, flash_attention_fwd_kernel, launch_counts,
+        long_bwd_scratch_bytes)
+
+    q, k, v = flash_inputs(b, t, h, d, device, seed=906, dtype=torch.bfloat16)
+    do = randn((b, t, h, d), 907, device, torch.bfloat16)
+    with torch.no_grad():
+        o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = launch_counts["flash_attention_bwd_long"]
+        got = flash_attention_bwd_kernel(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        again = flash_attention_bwd_kernel(q, k, v, o, lse, do)
+        launches = launch_counts["flash_attention_bwd_long"] - n0
+    outputs, scratch = 3 * b * t * h * d * 2, long_bwd_scratch_bytes(b * h, t, t, d)
+    row = {"b": b, "t": t, "h": h, "d": d, "peak_bytes": peak, "outputs_bytes": outputs,
+           "scratch_bytes": scratch, "launches": launches,
+           "finite": all(bool(torch.isfinite(g).all()) for g in got),
+           "bitwise_repeatable": all(torch.equal(x, y) for x, y in zip(got, again))}
+    row["ok"] = (peak <= outputs + scratch + (1 << 20) and launches == 2 and row["finite"]
+                 and row["bitwise_repeatable"])
+    del q, k, v, do, o, lse, got, again
+    torch.cuda.empty_cache()
     return row
 
 
@@ -1282,7 +1349,7 @@ def phase_kernels(state: dict) -> None:
          launches=counts)
     fail_bad("kernels", conv + flash + flash_bwd + ring + plans + probe + splits + flash_tf32
              + flash_splits)
-    # the holds launch the mma.sync and FMA pairs too (their main path is the vit phase's)
+    # the holds launch the mma.sync and FMA pairs too (no main path runs them)
     missing = [name for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
                if not counts.get(name)]
     if missing:
@@ -1895,7 +1962,7 @@ def phase_gauss(state: dict) -> None:
 # VLB_ENCODE_ROWS rows; the holds at VLB_HOLD_BATCH and at the timesteps
 # VLB_HOLD_T; the attention of the config's training step (B, T, H, D)
 VLB_LENGTH = 256
-VLB_EVAL_BATCHES = 2
+VLB_EVAL_BATCHES = 1
 VLB_STEPS = 50
 VLB_RESAMPLE = 2
 VLB_INPAINT_ROWS = 8
@@ -3089,7 +3156,10 @@ def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None
     at its plan, then the mma.sync pair on the same inputs (``plan=`` the
     pair's: the old route, launched on request only); for bf16 at D = 16
     and 32 with T <= 64 the small kernel (the wrapper's whole device work
-    too), then the pair on request; for fp32 at 64 and 128: the 3xTF32 pair
+    too), then the pair on request; past T = 64 the long kernel (its bound
+    the largest of its exponentials, products and bytes; the wrapper's
+    whole device work too), then the pair it replaced on request (its rows
+    the pair's main rows, its whole device work on the dkv row); for fp32 at 64 and 128: the 3xTF32 pair
     and its pre-pass, then the FMA pair on request (its rows under
     ``old_variant``); elsewhere the pair of the dtype (bf16: the wrapper's
     whole device work, its delta pre-pass included, on the dkv row)."""
@@ -3100,7 +3170,8 @@ def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None
         flash_attention_bwd_dkv_plain,
         flash_attention_bwd_dq_plain, flash_attention_bwd_kernel, flash_attention_bwd_plain,
         flash_attention_fwd_kernel, flash_bwd_plan, flash_bwd_split, flash_bwd_split_plain,
-        flash_delta, flash_delta_kernel)
+        flash_delta, flash_delta_kernel, LONG_BWD_PLAN, long_bwd_groups,
+        long_bwd_scratch_bytes)
 
     q, k, v = flash_inputs(b, t, h, d, device, seed=500, dtype=dtype)
     do = randn((b, t, h, d), 501, device, dtype)
@@ -3196,6 +3267,54 @@ def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None
         pair_plan, pair_note = MMA_SYNC_BWD_PLAN, "the mma.sync pair on request (plan=mma_sync)"
         # the pair's own main rows are the ViT's at patch 4 (the vit phase)
         variant = variant or f"the mma.sync pair on request at T={t}, D={d}, B*H={b * h}"
+    elif plan.route == "long":
+        # three floors, the largest its bound: T^2 exponentials a batch*head
+        # on the special-function unit (16 ex2 a clock an SM at the card's
+        # maximum SM clock), five products of 2*T*T*D on the tensor cores,
+        # and q, k, v, o, dO and lse read once, dq, dk, dv written once
+        # (delta is computed inside); the design also writes and reads back
+        # the blocks' fp32 dQ slots: a slot set written by every chunk of
+        # keys but a lone block's last, read by every chunk but a block's
+        # first, and each block's read once more by the sum
+        want = flash_attention_bwd_plain(qf, kf, vf, of, lse, dof)
+        flops, nbytes = 5 * 2.0 * b * h * t * t * d, 5 * io + 4 * b * h * t + 3 * io
+        clock = sm_max_clock_hz()
+        exp_ms = b * h * t * t / (SFU_EX2_PER_CLOCK_SM * torch.cuda.get_device_properties(
+            device).multi_processor_count * clock) * 1e3
+        products_ms, bytes_ms = flops / PEAK_BF16 * 1e3, nbytes / MEM_RATE * 1e3
+        chunks, groups = -(-t // LONG_BWD_PLAN.bn), long_bwd_groups(b * h, t)
+        slot_sets = 0 if chunks == 1 else (
+            chunks - (groups == 1) + chunks - groups + (groups if groups > 1 else 0))
+        acc = slot_sets * 4 * b * h * -(-t // 64) * 64 * d
+        row("flash_attention_bwd_long", lambda: flash_attention_bwd_kernel(q, k, v, o, lse, do),
+            want, flops, nbytes,
+            plain_ms=cuda_time_ms(lambda: flash_attention_bwd_plain(qf, kf, vf, of, lse, dof),
+                                  iters=3, warmup=1),
+            plan=(f"{groups} blocks a batch*head over its {chunks} chunks of "
+                  f"{LONG_BWD_PLAN.bn} keys; scratch {long_bwd_scratch_bytes(b * h, t, t, d)} "
+                  "bytes"),
+            design_bytes=nbytes + acc, design_bytes_ms=(nbytes + acc) / MEM_RATE * 1e3)
+        long_row = rows[-1]
+        long_row.update(
+            bound_ms=max(exp_ms, products_ms, bytes_ms),
+            bound_by="bytes" if bytes_ms > max(exp_ms, products_ms) else "operations",
+            bound_of=("the largest of: T^2 exponentials a batch*head at "
+                      f"{SFU_EX2_PER_CLOCK_SM} ex2 a clock an SM, the five products at the bf16 "
+                      "peak, the bytes at 3.35 TB/s"),
+            bound_exp_ms=exp_ms, bound_products_ms=products_ms, bound_bytes_ms=bytes_ms,
+            sm_clock_mhz=clock / 1e6, exponentials=b * h * t * t)
+        # like for like against SDPA's backward: the wrapper's whole device
+        # work a call (the counters' zeroing too), from a CUDA graph
+        long_row["wrapper_device_ms"] = graph_ms(
+            lambda: flash_attention_bwd_kernel(q, k, v, o, lse, do), calls=10)
+        # the pair it replaced, on request, stays the pair's main row here;
+        # its whole device work (delta pre-pass, dkv, dq) from a CUDA graph
+        pair_rows("flash_attention_bwd", MMA_SYNC_BWD_PLAN, variant,
+                  "the mma.sync pair on request (plan=mma_sync): the route this replaced")
+        rows[-2]["wrapper_device_ms"] = graph_ms(
+            lambda: flash_attention_bwd_kernel(q, k, v, o, lse, do, plan=MMA_SYNC_BWD_PLAN),
+            calls=10)
+        return rows
     elif plan.route == "tf32":
         # the 3xTF32 pair: each kernel's own products (dkv 4, dq 3) of
         # 2*T*T*D, three TF32 products each, on the wrapper's call (its
@@ -4700,8 +4819,12 @@ INT8_S2_EXTRA = (
 INT8_WEIGHT_SHAPE = (512, 1024 * 27)
 # the flagship's int8 path: S1, the strided Downsample on S1's block, S3
 INT8_KERNELS = ("conv3d_s8", "conv3d_s8_strided", "quantize_int8_amax", "quantize_int8")
-# S2's path: the 2-D DeepGalaxy config under int8 through the inference CLI
+# the 2-D convs' path: the 2-D DeepGalaxy config under int8 through the
+# inference CLI; S2's: the 1-D Spectroscopy config the same way
 INT8_2D_SAMPLES = 8
+INT8_1D_SAMPLES = 8
+# the int8 conv routes each CLI path's quantised conv sites take
+INT8_PATH_ROUTES = {"2d": ("s1_2d", "s1_2d_strided"), "1d": ("s2",)}
 PEAK_INT8 = 1979e12
 
 
@@ -4709,9 +4832,9 @@ class Int8Sites:
     """Records the int8 mode's conv and Dense sites of the forwards run in
     its body (``ops.quant.conv_int8``/``dense_int8``): per call the input
     shape and dtype, the layer's channels, kernel, stride and pads, the
-    output dtype and the route ("s1", "s1_strided", "s2", "int_mm" or
-    "float"). The CPU
-    tests count sites with it too."""
+    output dtype and the route ("s1", "s1_strided", "s1_2d",
+    "s1_2d_strided", "s2", "int_mm" or "float"). The CPU tests count sites
+    with it too."""
 
     def __init__(self):
         self.calls: list[dict] = []
@@ -4782,22 +4905,27 @@ def int8_operands(xs, cout: int, ksize, seed: int, device):
 def int8_conv_row(route: str, xs, cout: int, ksize, stride, pads, out_dtype, device, seed: int,
                   calls: int, per: str, variant=None) -> dict:
     """One int8 conv problem on its kernel (S1, the strided route on S1's
-    block, or S2): its int32 sums and its dequantised ``out_dtype`` output
-    held bitwise against the plain version on the same inputs (the strided
-    route's against S2's too), then (with ``calls``) timed beside its bound
-    (int8 operations at 1,979 TOPS or bytes), the plain version and K5's
-    bf16 conv of the same shape (S1's problems) as the yardstick; the
-    strided route beside S2 on the same inputs (``s2_ms``)."""
+    block, the 2-D routes on it, or S2): its int32 sums and its dequantised
+    ``out_dtype`` output held bitwise against the plain version on the same
+    inputs (the strided and 2-D routes' against S2's too), then (with
+    ``calls``) timed beside its bound (int8 operations at 1,979 TOPS or
+    bytes), the plain version and K5's bf16 conv of the same shape (S1's
+    problems) or cuDNN's bf16 ``F.conv2d`` (the 2-D routes') as the
+    yardstick; the strided and 2-D routes beside S2 on the same inputs
+    (``s2_ms``)."""
     import torch
+    import torch.nn.functional as F
 
     from rho_diffusion_tpu_torch.ops.kernels import conv_int8 as k
     from rho_diffusion_tpu_torch.ops.kernels.conv3d import conv3d_kernel
 
     xq, wq, s_x, s_w, bias = int8_operands(xs, cout, ksize, seed, device)
-    if route in ("s1", "s1_strided"):
-        w = k.s1_weights(wq)
-        name = "conv3d_s8" if route == "s1" else "conv3d_s8_strided"
-        launch = k.conv3d_s8_kernel if route == "s1" else k.conv3d_s8_strided_kernel
+    if route in k.S1_ROUTES:
+        two_d = route.startswith("s1_2d")
+        w = (k.s1_2d_weights if two_d else k.s1_weights)(wq)
+        name = k.S1_ROUTES[route][0]
+        launch = {"s1": k.conv3d_s8_kernel, "s1_strided": k.conv3d_s8_strided_kernel,
+                  "s1_2d": k.conv2d_s8_kernel, "s1_2d_strided": k.conv2d_s8_strided_kernel}[route]
 
         def run(dt=out_dtype):
             return launch(xq, s_x, w, s_w, bias, dt)
@@ -4817,7 +4945,8 @@ def int8_conv_row(route: str, xs, cout: int, ksize, stride, pads, out_dtype, dev
     check = exact_error(got.float(), want.float())
     check["ok"] = check["ok"] and sums_equal
     check["check"] = "bitwise equal: the int32 sums and the dequantised output"
-    if route == "s1_strided":
+    beside_s2 = route in ("s1_strided", "s1_2d", "s1_2d_strided")
+    if beside_s2:
         w2 = k.s2_weights(wq)
 
         def run_s2():
@@ -4842,9 +4971,19 @@ def int8_conv_row(route: str, xs, cout: int, ksize, stride, pads, out_dtype, dev
                    library="none: PyTorch has no int8 conv on CUDA", library_ms=None,
                    bound_ms=bnd, bound_by=by)
         row["tops"] = ops / row["ms"] / 1e9
-        if route == "s1_strided":
+        if beside_s2:
             s2 = kernel_times(run_s2, "conv_s8_general", iters=3)
             row.update(s2_ms=s2["ms"], s2_call_ms=s2["call_ms"], s2_over_this=s2["ms"] / row["ms"])
+        if route.startswith("s1_2d"):
+            # the yardstick: cuDNN's bf16 conv of the same shape (no int8 conv on CUDA)
+            xb = randn(xs, seed + 1, device, torch.bfloat16).movedim(-1, 1)
+            wb = randn((cout, xs[-1], 3, 3), seed + 2, device, torch.bfloat16, 0.02)
+            with torch.no_grad():
+                cudnn = cuda_time_ms(lambda: F.conv2d(xb, wb, bias.bfloat16(), stride=stride,
+                                                      padding=1), iters=10)
+            row.update(cudnn_bf16_ms=cudnn, cudnn_bf16_of="F.conv2d in bf16, channels-first "
+                       "(CUDA events; a yardstick, not the same function)",
+                       s8_over_cudnn_bf16=row["ms"] / cudnn)
         if route == "s1":
             xb = randn(xs, seed + 1, device, torch.bfloat16)
             wb = randn((cout, xs[-1], 3, 3, 3), seed + 2, device, torch.bfloat16, 0.02)
@@ -5038,27 +5177,59 @@ def int8_serve_load(device) -> dict:
     return runs
 
 
-def int8_2d_path(device) -> dict:
-    """S2's path: the inference CLI with ``--quant int8`` on the 2-D
-    DeepGalaxy config at full width (128^2, width 32; its schedule cut to
-    DATA_SAMPLE_STEPS, INT8_2D_SAMPLES samples) from seeded random weights,
-    the dataset standing in as its class's parameter space as in the CLI:
-    every 2-D int8 conv, the stride-2 Downsample among them, on S2. Counts
-    cleared just before, read just after."""
+class FirstCall:
+    """Keeps the first call of ``cls.forward`` in its body: the module and
+    its arguments (so the model a CLI builds can be timed after it
+    returns)."""
+
+    def __init__(self, cls):
+        self.cls, self.orig, self.call = cls, cls.forward, None
+
+    def __enter__(self):
+        orig = self.orig
+
+        def forward(module, *args, **kwargs):
+            if self.call is None:
+                self.call = (module, args, kwargs)
+            return orig(module, *args, **kwargs)
+
+        self.cls.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.forward = self.orig
+
+
+def int8_cli_path(device, which: str) -> dict:
+    """A CLI path under int8: the inference CLI with ``--quant int8`` on
+    the 2-D DeepGalaxy config (``which`` "2d": 128^2, width 32) or the 1-D
+    Spectroscopy config ("1d": 4096 points, width 32), at full width, the
+    schedule cut to DATA_SAMPLE_STEPS, INT8_2D_SAMPLES or INT8_1D_SAMPLES
+    samples, from seeded random weights, the dataset standing in as its
+    class's parameter space as in the CLI. Counts cleared just before, read
+    just after. Every quantised conv site must take the routes of
+    INT8_PATH_ROUTES (2-D: the 3x3 convs on S1's block at stride 1 and 2;
+    1-D: S2), with S2's launches exactly its sites'. The first UNet call is
+    kept (``model_call``) for the forward's device time."""
     import numpy as np
     import torch
 
     from rho_diffusion_tpu_torch import inference, registry
     from rho_diffusion_tpu_torch.config import ExperimentConfig
+    from rho_diffusion_tpu_torch.models.unet import UNet
     from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+    from rho_diffusion_tpu_torch.ops.kernels.conv_int8 import S1_ROUTES
 
-    cfg = json.loads(DEEP_GALAXY_CONFIG.read_text())
+    cfg_file, samples = {"2d": (DEEP_GALAXY_CONFIG, INT8_2D_SAMPLES),
+                         "1d": (SPECTRO_CONFIG, INT8_1D_SAMPLES)}[which]
+    cfg = json.loads(cfg_file.read_text())
     cfg["noise_schedule"]["kwargs"]["num_steps"] = DATA_SAMPLE_STEPS
     cfg["inference"].update(cache_file=None, plot_output_file=None, checkpoint=None)
     config = ExperimentConfig.from_dict(json.loads(json.dumps(cfg)))
     space = inference.declared_dataset(registry.get("datasets", config.dataset.name),
                                        config.dataset.kwargs)
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_int8_2d_"))
+    data_shape = tuple(cfg["model"]["kwargs"]["data_shape"])
+    tmp = Path(tempfile.mkdtemp(prefix=f"chip_smoke_int8_{which}_"))
     try:
         cfg_path, pth = tmp / "config.json", tmp / "model.pth"
         cfg_path.write_text(json.dumps(cfg))
@@ -5067,8 +5238,8 @@ def int8_2d_path(device) -> dict:
         launch_counts.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with Int8Sites() as sites:
-            out = inference.main([str(cfg_path), "-p", str(pth), "-n", str(INT8_2D_SAMPLES),
+        with Int8Sites() as sites, FirstCall(UNet) as first:
+            out = inference.main([str(cfg_path), "-p", str(pth), "-n", str(samples),
                                   "-d", DEVICE, "-f", "--work-dir", str(tmp), "--quant", "int8"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -5080,17 +5251,58 @@ def int8_2d_path(device) -> dict:
         if c["site"] == "conv":
             key = f"{c['route']} stride {c['stride']}"
             routes[key] = routes.get(key, 0) + 1
-        if c["route"] == "s2":
-            key = (c["x"], c["cout"], c["kernel"], c["stride"], c["pads"], c["out_dtype"])
+        if c["route"] in ("s1_2d", "s1_2d_strided", "s2"):
+            key = (c["route"], c["x"], c["cout"], c["kernel"], c["stride"], c["pads"],
+                   c["out_dtype"])
             problems[key] = problems.get(key, 0) + 1
     finite = bool(np.isfinite(out).all())
-    ok = (finite and tuple(out.shape) == (INT8_2D_SAMPLES, 128, 128, 1)
-          and counts.get("conv_s8_general", 0) > 0 and not counts.get("conv3d_s8")
-          and not counts.get("conv3d_s8_strided"))
-    return {"config": DEEP_GALAXY_CONFIG.name, "steps": DATA_SAMPLE_STEPS,
+    want = INT8_PATH_ROUTES[which]
+    off_route = sorted({r for r in (c["route"] for c in sites.calls if c["site"] == "conv")
+                        if r not in (*want, "float")})
+    s2_sites = sum(n for key, n in problems.items() if key[0] == "s2")
+    ok = (finite and tuple(out.shape) == (samples, *data_shape, 1) and not off_route
+          and all(counts.get(S1_ROUTES[r][0] if r != "s2" else "conv_s8_general", 0) > 0
+                  for r in want)
+          and counts.get("conv_s8_general", 0) == s2_sites
+          and not counts.get("conv3d_s8") and not counts.get("conv3d_s8_strided"))
+    return {"config": cfg_file.name, "steps": DATA_SAMPLE_STEPS,
             "forwards": DATA_SAMPLE_STEPS - 1, "shape": list(out.shape), "finite": finite,
-            "wall_s": wall, "launches": counts, "conv_sites_by_route": routes, "ok": ok,
-            "s2_problems": problems}
+            "wall_s": wall, "launches": counts, "conv_sites_by_route": routes,
+            "routes_wanted": list(want), "sites_off_route": off_route,
+            "s2_sites": s2_sites, "ok": ok, "problems": problems, "model_call": first.call}
+
+
+def int8_path_forward_times(call) -> dict:
+    """One forward of a CLI path's own UNet on its first call's inputs, in
+    bf16 and under int8, in turns (CUDA events), each profiled once: its
+    device time by kernel, and the int8 convs' share of it."""
+    import torch
+
+    from rho_diffusion_tpu_torch.ops.quant import conv_quant
+
+    model, args, kwargs = call
+    out = {"inputs": [list(a.shape) for a in args if hasattr(a, "shape")]}
+    with torch.no_grad():
+        for name, mode in (("bf16", "off"), ("int8", "int8"), ("bf16_again", "off"),
+                           ("int8_again", "int8")):
+            with conv_quant(mode):
+                ms = cuda_time_ms(lambda: model(*args, **kwargs), iters=5)
+                out[f"{name}_forward_ms"] = ms
+                if name.endswith("again"):
+                    continue
+                by_name = device_time_by_kernel(lambda: model(*args, **kwargs))
+                if not by_name:
+                    out[f"{name}_profile"] = NOT_PROFILED
+                    continue
+                summary = profile_summary(by_name)
+                out[f"{name}_profile"] = {**summary, "busy_share_of_forward":
+                                          summary["busy_ms"] / ms}
+                out[f"{name}_int8_conv_device_ms"] = sum(
+                    t for kname, (t, _) in by_name.items()
+                    if "conv3d_s8_wgmma" in kname or "conv_s8_general" in kname)
+    out["int8_over_bf16"] = (out["int8_forward_ms"] + out["int8_again_forward_ms"]) / (
+        out["bf16_forward_ms"] + out["bf16_again_forward_ms"])
+    return out
 
 
 def phase_int8(state: dict, steps: int, samples: int) -> None:
@@ -5099,9 +5311,13 @@ def phase_int8(state: dict, steps: int, samples: int) -> None:
     S2 problems, S3 at every activation shape, all bitwise against their
     plain versions and timed; the bf16 Cout = 1 head problem on K5's igemm;
     the Dense sites' int8 products; the path (the inference CLI with
-    ``--quant int8``, its counts); the int8 forward against the int8 plain
-    model; the forward's time at batch 8 in bf16 and int8; and the serving
-    load harness in bf16 and int8."""
+    ``--quant int8``, its counts); the 2-D path (DeepGalaxy, its 3x3 convs
+    on S1's block at stride 1 and 2) and the 1-D path (Spectroscopy, S2),
+    each path's problems held bitwise (the 2-D routes against S2 too) and
+    timed (beside S2 and cuDNN's bf16 conv), each path's forward in bf16
+    and int8; the int8 forward against the int8 plain model; the forward's
+    time at batch 8 in bf16 and int8; and the serving load harness in bf16
+    and int8."""
     import numpy as np
     import torch
 
@@ -5186,17 +5402,36 @@ def phase_int8(state: dict, steps: int, samples: int) -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     state["int8_launches"] = counts
-    # S2's path, and its problems a forward there held and timed (its main rows)
-    path_2d = int8_2d_path(device)
-    state["int8_2d_launches"] = path_2d["launches"]
-    per_2d = f"one 2-D DeepGalaxy UNet forward at batch {INT8_2D_SAMPLES}"
-    s2_rows = [int8_conv_row("s2", xs, cout, ks, st, pads, odt, device, 700 + 7 * i,
-                             n / path_2d["forwards"], per_2d)
-               for i, ((xs, cout, ks, st, pads, odt), n) in enumerate(
-                   sorted(path_2d.pop("s2_problems").items(), key=str))]
+    # the 2-D convs' path (S1's block) and S2's (1-D), and their problems a
+    # forward there held and timed (their main rows), S2 beside the 2-D
+    # routes on the same inputs; each path's forward timed on its own model
+    paths, path_rows, path_forward = {}, {}, {}
+    for which, samples_, seed0 in (("2d", INT8_2D_SAMPLES, 700), ("1d", INT8_1D_SAMPLES, 800)):
+        path_ = int8_cli_path(device, which)
+        state[f"int8_{which}_launches"] = path_["launches"]
+        per_ = (f"one {'2-D DeepGalaxy' if which == '2d' else '1-D Spectroscopy'} UNet forward "
+                f"at batch {samples_}")
+        path_rows[which] = [
+            int8_conv_row(route, xs, cout, ks, st, pads, odt, device, seed0 + 7 * i,
+                          n / path_["forwards"], per_)
+            for i, ((route, xs, cout, ks, st, pads, odt), n) in enumerate(
+                sorted(path_.pop("problems").items(), key=str))]
+        path_forward[which] = int8_path_forward_times(path_.pop("model_call"))
+        rows_ = path_rows[which]
+        path_forward[which]["kernel_rows_ms"] = {
+            "this": sum(r["ms"] * r["calls"] for r in rows_),
+            "s2": (sum(r["s2_ms"] * r["calls"] for r in rows_) if which == "2d" else None),
+            "bound": sum(r["bound_ms"] * r["calls"] for r in rows_),
+            "cudnn_bf16": (sum(r["cudnn_bf16_ms"] * r["calls"] for r in rows_)
+                           if which == "2d" else None),
+            "of": f"the path's int8 conv problems summed over {per_}"}
+        paths[which] = path_
+        torch.cuda.empty_cache()
+    s2_rows = path_rows["2d"] + path_rows["1d"]
     record_errors(state, s2_rows)
     state["int8"] += s2_rows
-    fail_bad("int8 (S2's 2-D problems)", s2_rows)
+    fail_bad("int8 (the 2-D and 1-D paths' problems)", s2_rows)
+    path_2d = paths["2d"]
     forwards = steps - 1
     finite = bool(np.isfinite(out).all())
     path = {"shape": list(out.shape), "finite": finite, "wall_s": wall, "steps": steps,
@@ -5206,8 +5441,8 @@ def phase_int8(state: dict, steps: int, samples: int) -> None:
     hold = int8_model_hold(cfg, sd, device)
     times = int8_forward_times(cfg, sd, INT8_TIMING_BATCH, device)
     load = int8_serve_load(device)
-    emit("int8", path=path, path_2d=path_2d, s2_rows=s2_rows, hold=hold, forward=times,
-         load=load)
+    emit("int8", path=path, path_2d=path_2d, path_1d=paths["1d"], path_rows=s2_rows,
+         path_forward=path_forward, hold=hold, forward=times, load=load)
     problems_found = []
     if not finite or path["mode_after"] != "off":
         problems_found.append(f"the int8 path: {path}")
@@ -5222,8 +5457,11 @@ def phase_int8(state: dict, steps: int, samples: int) -> None:
         problems_found.append(f"the int8 path's Downsamples: {per_fwd['s1_strided']} strided "
                               f"sites a forward, launches {counts} over {forwards} forwards "
                               "(want 3 conv3d_s8_strided a forward, no conv_s8_general)")
-    if not path_2d["ok"]:
-        problems_found.append(f"S2's 2-D int8 path: {path_2d}")
+    # every quantised conv site of the 2-D path on S1's block (S2 on none of
+    # them), every one of the 1-D path's on S2
+    for which, path_ in paths.items():
+        if not path_["ok"]:
+            problems_found.append(f"the {which} int8 path: {path_}")
     want_sites = {"conv_int8": (per_fwd["s1"] + per_fwd["s1_strided"] + per_fwd["s2"]) * forwards,
                   "dense_int8": per_fwd["int_mm"] * forwards,
                   "conv_float": per_fwd["float"] * forwards}
@@ -5258,9 +5496,12 @@ VIT_MODEL = {"patch_size": 8, "input_shapes": [32, 32, 32], "num_channels": 1,
 # its attention at the bench's batch 32, and a ragged T for the holds
 VIT_ATTENTION = (32, 64, 16, 16)
 VIT_RAGGED = (2, 50, 16, 16)
-# the pair's hold past the small route's T, and its path: the bench's ViT at
-# patch 4 (512 tokens), steps counted after one warm-up step
+# the long route's holds past the small route's T (the pair on request
+# beside it), and its path: the bench's ViT at patch 4 (512 tokens; its
+# attention at the bench's batch 32), steps counted after one warm-up step
 VIT_PAIR_HOLD = (2, 256, 16, 16)
+VIT_PATCH4_ATTENTION = (32, 512, 16, 16)
+VIT_LONG_MEMORY = (64, 4096, 16, 16)  # the long backward's memory at B*H 1024, T 4096
 VIT_PATCH4_STEPS = 2
 VIT_SAMPLE_STEPS = 25
 VIT_SAMPLES = 4
@@ -5432,16 +5673,17 @@ def phase_vit(state: dict) -> None:
     heads, batch 32, bf16, AdamW with EMA 0.9999, LinearSchedule(1000)): its
     train mode's windows and its one JSON line. (b) The training CLI on the
     ViT config (FourierConditioning on raw (l, m) rows), then the inference
-    CLI's DDPM-25 at batch 4 on its checkpoint. (a2) The pair's path: the
-    bench's ViT at patch 4 (512 tokens of head dim 16, past the small
-    route), VIT_PATCH4_STEPS training steps. (c) Holds: the ViT's bf16
-    forward and one loss's gradients against the fp32 plain model; the
-    mma.sync forward and the small backward at the ViT's attention and at
-    a ragged T against their plain versions (the backward against the pair
-    on request too), and the pair at T = 256. (d) The forward and the small
-    backward timed at the ViT's attention beside SDPA and their bound, with
-    their launches per step and per sample; the pair at patch 4's
-    attention. (e) The SimpleUNet in 3-D at 32^3 with JAX's default
+    CLI's DDPM-25 at batch 4 on its checkpoint. (a2) The long backward's
+    path: the bench's ViT at patch 4 (512 tokens of head dim 16, past the
+    small route), VIT_PATCH4_STEPS training steps, no dkv/dq pair launch.
+    (c) Holds: the ViT's bf16 forward and one loss's gradients against the
+    fp32 plain model; the mma.sync forward and the small backward at the
+    ViT's attention and at a ragged T, the long backward at T = 256 and at
+    patch 4's attention, against their plain versions, twice bitwise, and
+    against the pair on request. (d) The forward and the small backward
+    timed at the ViT's attention beside SDPA and their bound, with their
+    launches per step and per sample; the long backward and the mma.sync
+    forward at patch 4's attention, the pair it replaced on request. (e) The SimpleUNet in 3-D at 32^3 with JAX's default
     widths in bf16: SIMPLE_TRAIN_STEPS training steps at batch 8, a DDPM-25
     sample at batch 2 through ``reverse_process``, its forward and gradients
     held, and its K5 problems held and timed."""
@@ -5509,7 +5751,7 @@ def phase_vit(state: dict) -> None:
     torch.cuda.empty_cache()
     seconds["bench"] = time.perf_counter() - t0
 
-    # (a2) the pair's path: the bench's ViT at patch 4 (512 tokens)
+    # (a2) the long backward's path: the bench's ViT at patch 4 (512 tokens)
     s4 = {**s, "backbone_kwargs": {**s["backbone_kwargs"], "patch_size": 4}}
     pipe = bench.training_pipeline(s4, device)
     ts = pipe.create_state(778)
@@ -5518,15 +5760,17 @@ def phase_vit(state: dict) -> None:
     metrics, p4_s, counts, routes4 = counted(
         lambda: [pipe.training_step(ts, batch) for _ in range(VIT_PATCH4_STEPS)])
     launches["vit_patch4"] = counts
-    pair = ("flash_attention", "flash_attention_bwd_delta", "flash_attention_bwd_dkv",
-            "flash_attention_bwd_dq")
+    long = ("flash_attention", "flash_attention_bwd_long")
+    none = ("flash_attention_bwd_delta", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+            "flash_attention_bwd_small", "flash_attention_bwd")
     patch4 = {"tokens": (s["grid"] // 4) ** 3, "steps": VIT_PATCH4_STEPS, "wall_s": p4_s,
               "losses": [float(m["train_loss"]) for m in metrics], "launches": counts,
+              "launches_per_step": {k: v / VIT_PATCH4_STEPS for k, v in counts.items()},
               "flash_routes": routes4}
-    if any(counts.get(k) != per_step * VIT_PATCH4_STEPS for k in pair) \
-            or counts.get("flash_attention_bwd_small") or counts.get("flash_attention_bwd") \
-            or not np.isfinite(patch4["losses"]).all():
-        problems.append(f"patch-4 ViT: {patch4} (want {per_step} of each of {pair} a step)")
+    if any(counts.get(k) != per_step * VIT_PATCH4_STEPS for k in long) \
+            or any(counts.get(k) for k in none) or not np.isfinite(patch4["losses"]).all():
+        problems.append(f"patch-4 ViT: {patch4} (want {per_step} of each of {long} a step, "
+                        f"none of {none})")
     del pipe, ts, batch
     torch.cuda.empty_cache()
     seconds["patch4"] = time.perf_counter() - t0 - sum(seconds.values())
@@ -5565,7 +5809,13 @@ def phase_vit(state: dict) -> None:
              check_flash(*VIT_RAGGED, device, 901, torch.bfloat16)]
     bwd_holds = [check_flash_bwd(*VIT_ATTENTION, device, 902, torch.bfloat16),
                  check_flash_bwd(*VIT_RAGGED, device, 903, torch.bfloat16),
-                 check_flash_bwd(*VIT_PAIR_HOLD, device, 904, torch.bfloat16)]
+                 check_flash_bwd(*VIT_PAIR_HOLD, device, 904, torch.bfloat16),
+                 check_flash_bwd(*VIT_PATCH4_ATTENTION, device, 905, torch.bfloat16)]
+    if [r["route"] for r in bwd_holds] != ["small", "small", "long", "long"]:
+        problems.append(f"flash backward routes at D = 16: {[r['route'] for r in bwd_holds]}")
+    long_memory = long_bwd_memory_hold(*VIT_LONG_MEMORY, device)
+    if not long_memory["ok"]:
+        problems.append(f"long backward memory: {long_memory}")
     record_errors(state, holds + [gr for row in bwd_holds for gr in row["grads"]])
     bad = [r for r in holds if not r["ok"]] + [r for r in bwd_holds if not r["ok"]]
     if bad:
@@ -5573,13 +5823,17 @@ def phase_vit(state: dict) -> None:
     seconds["holds"] = time.perf_counter() - t0 - sum(seconds.values())
 
     # (d) the forward and the small backward timed at the ViT's attention,
-    # per training step; the pair at patch 4's (its main rows)
+    # per training step; the long backward (its main rows, and the pair's
+    # on request) and the mma.sync forward at patch 4's
     per = f"one ViT training step at batch {b} ({per_step} attention calls)"
     per4 = f"one patch-4 ViT training step at batch {b} ({per_step} attention calls)"
     t4 = patch4["tokens"]
+    assert VIT_PATCH4_ATTENTION == (b, t4, h, d)
     rows = ([flash_fwd_row(b, tt, h, d, per_step, per, device, torch.bfloat16,
                            variant=f"vit: T={tt}, D={d}, B*H={b * h}, {per}")]
             + flash_bwd_rows(b, tt, h, d, per_step, per, device, torch.bfloat16)
+            + [flash_fwd_row(b, t4, h, d, per_step, per4, device, torch.bfloat16,
+                             variant=f"vit patch 4: T={t4}, D={d}, B*H={b * h}, {per4}")]
             + flash_bwd_rows(b, t4, h, d, per_step, per4, device, torch.bfloat16))
     routes_here = {"forward": flash_plan(b, h, tt, tt, d).route,
                    "backward": flash_bwd_plan(b, h, tt, tt, d).route,
@@ -5674,7 +5928,7 @@ def phase_vit(state: dict) -> None:
     state["vit_launches"] = launches
     emit("vit", cuts=VIT_CUTS, bench=bench_run, clis=clis, hold=vit_hold,
          patch4=patch4, flash_holds=holds, flash_bwd_holds=bwd_holds,
-         routes_at_vit_attention=routes_here,
+         long_bwd_memory=long_memory, routes_at_vit_attention=routes_here,
          kernel_rows=rows, simple_unet=simple, seconds=seconds,
          launches_per_sample={k: v / VIT_SAMPLES for k, v in clis["sample"]["launches"].items()},
          wall_s=time.perf_counter() - t0)
@@ -5710,12 +5964,20 @@ KERNELS = (
     # launcher is in flash_attention_bwd.cu
     ("flash_attention_bwd_small", "flash_attention_bwd_small.cuh",
      "rho_diffusion_tpu/ops/pallas/flash_attention.py:209", "vit_bench"),
-    # the mma.sync pair (bf16 at D = 16, 32 past T = 64, and 256; the FMA
-    # pair for fp32 there) is the ViT's backward at patch 4 (512 tokens)
-    ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+    # the long backward (bf16 at D = 16, 32 past T = 64): one kernel for
+    # both TPU backward kernels (and delta) a call, the ViT's backward at
+    # patch 4 (512 tokens, the vit phase's patch-4 run); its launcher is in
+    # flash_attention_bwd.cu
+    ("flash_attention_bwd_long", "flash_attention_bwd_long.cuh",
      "rho_diffusion_tpu/ops/pallas/flash_attention.py:209", "vit_patch4"),
+    # the mma.sync and FMA pairs (bf16 at D = 256, fp32 at D = 16, 32, 256)
+    # run on no main path: their launches are the kernels phase's holds
+    # (the pair on request beside each route that replaced it); their
+    # times the pair's on request at the ViT's patch-4 attention
+    ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+     "rho_diffusion_tpu/ops/pallas/flash_attention.py:209", "kernels"),
     ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
-     "rho_diffusion_tpu/ops/pallas/flash_attention.py:262", "vit_patch4"),
+     "rho_diffusion_tpu/ops/pallas/flash_attention.py:262", "kernels"),
     # K6: one launch per device folds every rank's K/V shard in the ring's
     # order (the ring's host side: parallel/context_rdma.py)
     ("ring_attention", "ring_attention.cu", "rho_diffusion_tpu/parallel/context_rdma.py:50",
@@ -5762,11 +6024,16 @@ KERNELS = (
     # W8A8 inference (no TPU kernel: JAX's ConvInt8 and quantize_int8 are
     # plain jnp that XLA lowers; "replaces" names those lines): S1, the s8
     # implicit GEMM on K5's block, and the strided Downsample on that block;
-    # S2, the general int8 conv (the 2-D config's path); S3, the quantiser's
-    # two launches, all launched from conv_int8.cu
+    # the 2-D 3x3 convs on that block at stride 1 and 2 (the 2-D config's
+    # path, launched from conv2d_s8.cu and conv2d_s8_strided.cu); S2, the
+    # general int8 conv (the 1-D config's path); S3, the quantiser's two
+    # launches, all launched from conv_int8.cu
     ("conv3d_s8", "conv3d_s8_wgmma.cuh", "rho_diffusion_tpu/ops/quant.py:143", "int8"),
     ("conv3d_s8_strided", "conv3d_s8_wgmma.cuh", "rho_diffusion_tpu/ops/quant.py:143", "int8"),
-    ("conv_s8_general", "conv_int8.cu", "rho_diffusion_tpu/ops/quant.py:143", "int8_2d"),
+    ("conv2d_s8", "conv3d_s8_wgmma.cuh", "rho_diffusion_tpu/ops/quant.py:143", "int8_2d"),
+    ("conv2d_s8_strided", "conv3d_s8_wgmma.cuh", "rho_diffusion_tpu/ops/quant.py:143",
+     "int8_2d"),
+    ("conv_s8_general", "conv_int8.cu", "rho_diffusion_tpu/ops/quant.py:143", "int8_1d"),
     ("quantize_int8_amax", "conv_int8.cu", "rho_diffusion_tpu/ops/quant.py:94", "int8"),
     ("quantize_int8", "conv_int8.cu", "rho_diffusion_tpu/ops/quant.py:96", "int8"),
 )
@@ -5792,8 +6059,9 @@ def kernels_line(state: dict) -> list:
     """The ``kernels`` line: per kernel, its launches on the path that runs
     it (sampling for the forward kernels, training for the fused backward,
     the vit phase's bench entry for the small backward and its patch-4 run
-    for the dkv/dq pair, the 2-D int8 CLI for S2, serving for K6, bench for
-    K7-K9; every path listed), its worst error
+    for the long one, the kernels phase's holds for the dkv/dq pairs, the
+    2-D int8 CLI for the 2-D int8 convs, the 1-D one for S2, serving for
+    K6, bench for K7-K9; every path listed), its worst error
     against its plain version over every hold of this run and that error's
     ratio to the check's tolerance (at most 1), and its times summed over
     one UNet forward (timing batch) or one training step (TRAIN_BATCH), or
@@ -5804,6 +6072,7 @@ def kernels_line(state: dict) -> list:
                 "bench": state["bench_launches"], "kernels": state["kernels_launches"],
                 "fp32": state["fp32_launches"], "load": state["load_launches"],
                 "int8": state["int8_launches"], "int8_2d": state["int8_2d_launches"],
+                "int8_1d": state["int8_1d_launches"],
                 **state["gauss_launches"], **state["vlb_launches"], **state["data_launches"],
                 **state["utils_launches"], **state["vit_launches"]}
     out = []
@@ -5855,7 +6124,11 @@ def kernels_line(state: dict) -> list:
                 "launcher": "rho_diffusion_tpu_torch/csrc/flash_attention_bwd.cu",
                 "library_ms_of": main[0]["library_ms_of"],
                 "wrapper_device_ms": sum(r["wrapper_device_ms"] * r["calls"] for r in main)}
-               if name == "flash_attention_bwd_small" else {}),
+               if name in ("flash_attention_bwd_small", "flash_attention_bwd_long") else {}),
+            **({"bound_of": main[0]["bound_of"], "sm_clock_mhz": main[0]["sm_clock_mhz"],
+                **{f: sum(r[f] * r["calls"] for r in main)
+                   for f in ("bound_exp_ms", "bound_products_ms", "bound_bytes_ms")}}
+               if name == "flash_attention_bwd_long" else {}),
             **({"wrapper_device_ms": sum(r["wrapper_device_ms"] * r["calls"] for r in main),
                 "wrapper_device_ms_of": "the pair's whole device work (delta pre-pass, dkv, "
                                         "dq) from a CUDA graph"}
@@ -5977,43 +6250,33 @@ def main(argv=None) -> int:
 
     state: dict = {}
     t0 = time.perf_counter()
-    if "env" in phases:
-        phase_env(state)
-    if "build" in phases:
-        phase_build(state)
-    if "kernels" in phases:
-        phase_kernels(state)
-    if "main" in phases:
-        phase_main(state, args.steps, args.samples)
-    if "main64" in phases:
-        phase_main64(state)
-    if "gauss" in phases:
-        phase_gauss(state)
-    if "vlb" in phases:
-        phase_vlb(state)
-    if "train" in phases:
-        phase_train(state, TRAIN_BATCH)
-    if "data" in phases:
-        phase_data(state)
-    if "hold" in phases:
-        phase_hold(state)
-    if "serve" in phases:
-        phase_serve(state, args.steps)
-    if "load" in phases:
-        phase_load(state)
-    if "utils" in phases:
-        phase_utils(state)
-    if "int8" in phases:
-        phase_int8(state, args.steps, args.samples)
-    if "vit" in phases:
-        phase_vit(state)
-    if "timings" in phases:
-        phase_timings(state, args.timing_batch)
-    if "fp32" in phases:
-        phase_fp32(state)
-    if "bench" in phases:
-        phase_bench(state)
-    emit("done", seconds=time.perf_counter() - t0)
+    phase_seconds = {}
+
+    def run(name, phase, *args_):
+        if name in phases:
+            t1 = time.perf_counter()
+            phase(state, *args_)
+            phase_seconds[name] = time.perf_counter() - t1
+
+    run("env", phase_env)
+    run("build", phase_build)
+    run("kernels", phase_kernels)
+    run("main", phase_main, args.steps, args.samples)
+    run("main64", phase_main64)
+    run("gauss", phase_gauss)
+    run("vlb", phase_vlb)
+    run("train", phase_train, TRAIN_BATCH)
+    run("data", phase_data)
+    run("hold", phase_hold)
+    run("serve", phase_serve, args.steps)
+    run("load", phase_load)
+    run("utils", phase_utils)
+    run("int8", phase_int8, args.steps, args.samples)
+    run("vit", phase_vit)
+    run("timings", phase_timings, args.timing_batch)
+    run("fp32", phase_fp32)
+    run("bench", phase_bench)
+    emit("done", seconds=time.perf_counter() - t0, phase_seconds=phase_seconds)
     if not set(KERNELS_LINE_PHASES) <= set(phases):
         print(f"chip_smoke: a run without all of {KERNELS_LINE_PHASES} prints no kernels "
               "line and no result", file=sys.stderr)

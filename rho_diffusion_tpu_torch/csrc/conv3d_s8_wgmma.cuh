@@ -3,7 +3,9 @@
 // the dequantisation in its epilogue; and on the same block the UNet's
 // strided Downsample, the 3x3x3 conv at stride (1, 2, 2) with pads (1, 1)
 // (`conv3d_s8_strided`, the SW = 2 instances, launched from
-// conv3d_s8_strided.cu; below).
+// conv3d_s8_strided.cu; below), and the 2-D UNet's 3x3 convs at stride 1
+// and 2 (`conv2d_s8`, `conv2d_s8_strided`, the TAPS = 9 instances, launched
+// from conv2d_s8.cu and conv2d_s8_strided.cu; below).
 //
 // Replaces no TPU kernel: the JAX package's `ConvInt8`
 // (rho_diffusion_tpu/ops/quant.py:101-154, its product at :143-153) leaves
@@ -72,6 +74,21 @@
 // taken on the output's shape and the epilogue writes the output's layout.
 // The stride is a template parameter, not a run-time branch around the
 // products, for the ptxas fencing the KK note above describes.
+//
+// The 2-D convs (TAPS = 9). The 2-D UNet's (the DeepGalaxy config, 128^2)
+// 3x3 convs with pads (1, 1) and Cin % 16 == 0, at stride (1, 1) and its
+// Downsample's (2, 2) (JAX pads k // 2 there too), replacing S2 on them (at
+// batch 8, 6.69-7.17 ms of a forward against a 0.120 ms byte bound, 25-80x
+// each conv's bound, H100). The input x [B, H, W, Cin] is the volume
+// [B, 1, H, W, Cin] and the taps are the 1x3x3 set: the tap set is a
+// template parameter (TAPS = 27: 3x3x3; TAPS = 9: dz fixed at the centre),
+// so a 2-D conv walks 9 taps of k-steps where a depth-1 3-D map would walk
+// 27, two thirds of them on zero fill, and no branch sits around a product.
+// The weights are [Cout, 9, Cin] (tap = dy*3+dx), their map 9 taps deep;
+// the box, the ring, the mainloop and the epilogue are S1's, so the output
+// is bitwise the plain version's. Bound by operations as S1 (2 * 9 * Cin an
+// output at 1,979 TOPS) where Cin is large; the level-0 convs (Cin 32-96,
+// 128^2) move more bytes than they compute.
 
 #pragma once
 
@@ -222,17 +239,20 @@ inline CUresult encode_u8(EncodeTiled encode, CUtensorMap* map, const void* base
 // Checks one int8 conv and its plan (K5's: a box of bw x bh x bd = 128
 // output voxels, BN 64/128/192/256, a ring of 4 stages) and encodes its two
 // maps and its Problem. xq: [B, D, H, W, Cin] int8, 16-byte aligned, Cin %
-// 16 == 0; wq: [Cout, 27, Cin] int8 (tap = (dz*3+dy)*3+dx), contiguous.
-// `sw` is the stride along H and W (1: S1; 2: the Downsample), the output
-// [B, D, (H - 1) / sw + 1, (W - 1) / sw + 1, Cout] (pads 1). Returns 0 or an
-// ERR_ code.
+// 16 == 0; wq: [Cout, taps, Cin] int8 (taps 27: tap = (dz*3+dy)*3+dx; 9, a
+// 2-D conv with D = 1: tap = dy*3+dx), contiguous. `sw` is the stride
+// along H and W (1: S1; 2: the Downsample), the output [B, D, (H - 1) / sw
+// + 1, (W - 1) / sw + 1, Cout] (pads 1). Returns 0 or an ERR_ code.
 inline int s8_setup(const void* x, const void* w, int B, int D, int H, int W, int Cin, int Cout,
-                    int bw, int bh, int bd, int bn, int stages, int sw, CUtensorMap* x_map,
-                    CUtensorMap* w_map, Problem* p) {
+                    int bw, int bh, int bd, int bn, int stages, int sw, int taps,
+                    CUtensorMap* x_map, CUtensorMap* w_map, Problem* p) {
   const bool box_ok = bw >= 1 && bh >= 1 && bd >= 1 && sw * bw <= 256 && sw * bh <= 256 &&
                       bd <= 256 && bw * bh * bd == BM && (sw == 1 || sw == 2);
   const bool bn_ok = bn == 64 || bn == 128 || bn == 192 || bn == 256;
-  if (!box_ok || !bn_ok || stages != 4 || Cin < 16 || Cin % 16 || Cin > 4912 || Cout < 1 ||
+  // |sum| <= 127^2 taps Cin stays below 2^31; a 2-D conv has depth 1
+  const bool taps_ok = taps == 27 ? Cin <= 4912
+                                  : taps == 9 && D == 1 && 127LL * 127 * 9 * Cin <= 2147483647LL;
+  if (!box_ok || !bn_ok || !taps_ok || stages != 4 || Cin < 16 || Cin % 16 || Cout < 1 ||
       B < 1 || D < 1 || H < 1 || W < 1 || (reinterpret_cast<uintptr_t>(x) & 15) ||
       (reinterpret_cast<uintptr_t>(w) & 15))
     return ERR_PLAN;
@@ -248,8 +268,8 @@ inline int s8_setup(const void* x, const void* w, int B, int D, int H, int W, in
   if (encode_u8(encode, x_map, x, 5, x_dims, x_strides, x_box, x_elem,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B) != CUDA_SUCCESS)
     return ERR_X_MAP;
-  const cuuint64_t w_dims[3] = {c, 27, (cuuint64_t)Cout};
-  const cuuint64_t w_strides[2] = {c, c * 27};
+  const cuuint64_t w_dims[3] = {c, (cuuint64_t)taps, (cuuint64_t)Cout};
+  const cuuint64_t w_strides[2] = {c, c * taps};
   const cuuint32_t w_box[3] = {(cuuint32_t)S8_BK, 1, (cuuint32_t)bn};
   const cuuint32_t w_elem[3] = {1, 1, 1};
   if (encode_u8(encode, w_map, w, 3, w_dims, w_strides, w_box, w_elem,
@@ -370,9 +390,9 @@ __device__ __forceinline__ void store_row_s8(typename S8Store<OUT>::T* orow,
 // S1: one block is the box of 128 output voxels at (b, d0, h0, w0) times
 // output channels [n0, n0 + BN), K5's block (conv3d_igemm_block) on s8, at
 // stride SW along H and W (1: S1; 2: the Downsample, its x map strided to
-// match). Threads 0-255 are the consumer warpgroups, 256-383 the producer
-// warpgroup.
-template <int BN, int STAGES, int OUT, int KK, int SW>
+// match) over TAPS taps (27: 3x3x3; 9: 1x3x3, the 2-D convs). Threads
+// 0-255 are the consumer warpgroups, 256-383 the producer warpgroup.
+template <int BN, int STAGES, int OUT, int KK, int SW, int TAPS>
 __global__ void __launch_bounds__(THREADS, 1)
 conv3d_s8_wgmma_kernel(__grid_constant__ const CUtensorMap x_map,
                        __grid_constant__ const CUtensorMap w_map, const float* __restrict__ s_x,
@@ -391,7 +411,8 @@ conv3d_s8_wgmma_kernel(__grid_constant__ const CUtensorMap x_map,
   t /= p.tiles_h;
   const int d0 = (t % p.tiles_d) * p.bd;
   const int b = t / p.tiles_d;
-  const int ksteps = 27 * p.cchunks;
+  static_assert(TAPS == 27 || TAPS == 9, "the 3x3x3 or the 1x3x3 tap set");
+  const int ksteps = TAPS * p.cchunks;
 
   ring.init();
   const int group = threadIdx.x / 128;
@@ -404,8 +425,9 @@ conv3d_s8_wgmma_kernel(__grid_constant__ const CUtensorMap x_map,
       produce(ring, ksteps, A_BYTES + B_BYTES, [&](int ks, int s) {
         const int tap = ks / p.cchunks;
         const int c0 = (ks - tap * p.cchunks) * S8_BK;
+        const int dz = TAPS == 27 ? tap / 9 : 1;  // the 1x3x3 set: the centre plane
         tma_load_5d(ring.a + s * A_BYTES, &x_map, &ring.full[s], c0, SW * w0 + tap % 3 - 1,
-                    SW * h0 + (tap / 3) % 3 - 1, d0 + tap / 9 - 1, b);
+                    SW * h0 + (tap / 3) % 3 - 1, d0 + dz - 1, b);
         tma_load_3d(ring.b + s * B_BYTES, &w_map, &ring.full[s], c0, tap, n0);
       });
     }
@@ -432,13 +454,13 @@ constexpr int ERR_S8_ARGS = -5;
 
 // One instance's launch on `stream` (the dynamic shared-memory limit set
 // once per device).
-template <int BN, int OUT, int KK, int SW>
+template <int BN, int OUT, int KK, int SW, int TAPS>
 int launch_s8(const CUtensorMap& x_map, const CUtensorMap& w_map, const float* s_x,
               const float* s_w, const float* bias, void* out, const Problem& p,
               cudaStream_t stream) {
   constexpr int smem = smem_bytes(BN, 4);
   static_assert(smem <= SMEM_LIMIT, "the ring does not fit in shared memory");
-  auto kernel = conv3d_s8_wgmma_kernel<BN, 4, OUT, KK, SW>;
+  auto kernel = conv3d_s8_wgmma_kernel<BN, 4, OUT, KK, SW, TAPS>;
   static unsigned long long ready = 0;
   cudaError_t err = smem_attribute_once(kernel, smem, &ready);
   if (err != cudaSuccess) return (int)err;
@@ -448,49 +470,51 @@ int launch_s8(const CUtensorMap& x_map, const CUtensorMap& w_map, const float* s
 }
 
 // KK products a stage: 2 where Cin <= 64 (every stage half zero fill), else 4.
-template <int OUT, int SW>
+template <int OUT, int SW, int TAPS>
 int launch_s8_bn(int bn, int cin, const CUtensorMap& x_map, const CUtensorMap& w_map,
                  const float* s_x, const float* s_w, const float* bias, void* out,
                  const Problem& p, cudaStream_t s) {
   const bool half = cin <= 64;
   switch (bn) {
     case 64:
-      return half ? launch_s8<64, OUT, 2, SW>(x_map, w_map, s_x, s_w, bias, out, p, s)
-                  : launch_s8<64, OUT, 4, SW>(x_map, w_map, s_x, s_w, bias, out, p, s);
+      return half ? launch_s8<64, OUT, 2, SW, TAPS>(x_map, w_map, s_x, s_w, bias, out, p, s)
+                  : launch_s8<64, OUT, 4, SW, TAPS>(x_map, w_map, s_x, s_w, bias, out, p, s);
     case 128:
-      return half ? launch_s8<128, OUT, 2, SW>(x_map, w_map, s_x, s_w, bias, out, p, s)
-                  : launch_s8<128, OUT, 4, SW>(x_map, w_map, s_x, s_w, bias, out, p, s);
+      return half ? launch_s8<128, OUT, 2, SW, TAPS>(x_map, w_map, s_x, s_w, bias, out, p, s)
+                  : launch_s8<128, OUT, 4, SW, TAPS>(x_map, w_map, s_x, s_w, bias, out, p, s);
     case 192:
-      return half ? launch_s8<192, OUT, 2, SW>(x_map, w_map, s_x, s_w, bias, out, p, s)
-                  : launch_s8<192, OUT, 4, SW>(x_map, w_map, s_x, s_w, bias, out, p, s);
+      return half ? launch_s8<192, OUT, 2, SW, TAPS>(x_map, w_map, s_x, s_w, bias, out, p, s)
+                  : launch_s8<192, OUT, 4, SW, TAPS>(x_map, w_map, s_x, s_w, bias, out, p, s);
     default:
-      return half ? launch_s8<256, OUT, 2, SW>(x_map, w_map, s_x, s_w, bias, out, p, s)
-                  : launch_s8<256, OUT, 4, SW>(x_map, w_map, s_x, s_w, bias, out, p, s);
+      return half ? launch_s8<256, OUT, 2, SW, TAPS>(x_map, w_map, s_x, s_w, bias, out, p, s)
+                  : launch_s8<256, OUT, 4, SW, TAPS>(x_map, w_map, s_x, s_w, bias, out, p, s);
   }
 }
 
 // S1 (SW = 1, conv_int8.cu) or the strided Downsample (SW = 2,
-// conv3d_s8_strided.cu): the maps, then the instance of the plan's N tile
-// and the output kind; the launchers' C entry points.
-template <int SW>
+// conv3d_s8_strided.cu), and the 2-D convs at either stride (TAPS = 9,
+// conv2d_s8.cu and conv2d_s8_strided.cu, with D = 1): the maps, then the
+// instance of the plan's N tile and the output kind; the launchers' C
+// entry points.
+template <int SW, int TAPS = 27>
 int conv3d_s8_at(const void* xq, const void* wq, const void* s_x, const void* s_w,
                  const void* bias, void* out, int B, int D, int H, int W, int Cin, int Cout,
                  int bw, int bh, int bd, int bn, int stages, int out_kind, void* stream) {
   CUtensorMap x_map, w_map;
   Problem p;
-  const int err = s8_setup(xq, wq, B, D, H, W, Cin, Cout, bw, bh, bd, bn, stages, SW, &x_map,
-                           &w_map, &p);
+  const int err = s8_setup(xq, wq, B, D, H, W, Cin, Cout, bw, bh, bd, bn, stages, SW, TAPS,
+                           &x_map, &w_map, &p);
   if (err != 0) return err;
   if (out_kind != kS8Int32 && (s_x == nullptr || s_w == nullptr)) return ERR_S8_ARGS;
   const float *sx = (const float*)s_x, *sw = (const float*)s_w, *bs = (const float*)bias;
   cudaStream_t s = (cudaStream_t)stream;
   switch (out_kind) {
     case kS8Int32:
-      return launch_s8_bn<kS8Int32, SW>(bn, Cin, x_map, w_map, sx, sw, bs, out, p, s);
+      return launch_s8_bn<kS8Int32, SW, TAPS>(bn, Cin, x_map, w_map, sx, sw, bs, out, p, s);
     case kS8Float:
-      return launch_s8_bn<kS8Float, SW>(bn, Cin, x_map, w_map, sx, sw, bs, out, p, s);
+      return launch_s8_bn<kS8Float, SW, TAPS>(bn, Cin, x_map, w_map, sx, sw, bs, out, p, s);
     case kS8Bf16:
-      return launch_s8_bn<kS8Bf16, SW>(bn, Cin, x_map, w_map, sx, sw, bs, out, p, s);
+      return launch_s8_bn<kS8Bf16, SW, TAPS>(bn, Cin, x_map, w_map, sx, sw, bs, out, p, s);
     default: return ERR_S8_ARGS;
   }
 }

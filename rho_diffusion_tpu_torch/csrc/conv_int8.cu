@@ -14,12 +14,13 @@
 //                      cores, K5's block (conv3d_s8_wgmma.cuh says what bounds
 //                      it and what its design does), Cin % 16 == 0.
 //                      (The strided Downsample on the same block has its own
-//                      source, conv3d_s8_strided.cu, so the two build in
-//                      parallel.)
+//                      source, conv3d_s8_strided.cu, and so do the 2-D convs
+//                      on it, conv2d_s8.cu and conv2d_s8_strided.cu, so
+//                      they build in parallel.)
 //   conv_s8_general    S2: any int8 conv of rank 1-3 (as 3-D with unit dims),
 //                      any kernel size, stride and explicit padding, Cin >= 1:
-//                      1-D and 2-D convs, Cin % 16 != 0, other kernel sizes
-//                      and strides. One thread an output element,
+//                      1-D convs, Cin % 16 != 0, other kernel sizes and
+//                      strides. One thread an output element,
 //                      int32 sums of __dp4a over four channels a word, the
 //                      weights repacked [taps, ceil(Cin/4), Cout] words so a
 //                      warp's weight loads are one 128-byte line and its x

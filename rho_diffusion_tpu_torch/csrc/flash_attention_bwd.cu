@@ -10,15 +10,16 @@
 //   dP  = dO V^T,  dS = P * (dP - delta),  delta = rowsum(dO * O)
 //   dK  = dS^T Q / sqrt(D)
 //   dQ  = dS K / sqrt(D)
-// The TPU path leaves delta to XLA (:308-311); here the small route computes
-// it in its one kernel, the fused route and the bf16 pair take it from a
+// The TPU path leaves delta to XLA (:308-311); here the small and long
+// routes compute it in their one kernel, the fused route and the bf16 pair
+// take it from a
 // pre-pass kernel (flash_attention_bwd_delta) and the fp32 pairs from a
 // PyTorch expression, all but the small route's computed by the caller. lse
 // is the forward's base-2 log-sum-exp of the scaled scores
 // (flash_attention.cu), so P = exp2(S * log2(e) - lse2).
 //
-// Five routes, chosen by the caller (ops/kernels/flash_attention.py
-// `flash_bwd_plan`) by head dim, dtype and, for the small route, T; never by
+// Six routes, chosen by the caller (ops/kernels/flash_attention.py
+// `flash_bwd_plan`) by head dim, dtype and, at D = 16 and 32, T; never by
 // a failure:
 //
 //   flash_attention_bwd_small      bf16, D = 16 or 32 with Tq, Tk <= 64 (the
@@ -26,6 +27,15 @@
 //     backward, one warpgroup a batch*head, delta inside, all five products
 //     on wgmma, in flash_attention_bwd_small.cuh (its header says what
 //     bounds it and what its design does about that).
+//   flash_attention_bwd_long       bf16, D = 16 or 32 past 64 keys or
+//     queries (the ViT at patch 4: 512 patches): ONE kernel a backward,
+//     `groups` blocks a batch*head taking its chunks of 128 keys in turn,
+//     Q, dO and O streamed, delta inside, all five products on wgmma, dQ
+//     summed across chunks in a fixed order, in flash_attention_bwd_long.cuh
+//     (its header says what bounds it and what its design does about
+//     that). The caller picks groups, allocates the blocks' fp32 slots of
+//     dQ (linear in Tq) and zeroes the counters of the blocks that have
+//     finished.
 //   flash_attention_bwd_wgmma      bf16, D = 64 or 128 (the UNet's 128): ONE
 //     fused kernel for both TPU kernels, in flash_attention_bwd_wgmma.cuh
 //     (TMA ring, wgmma for all five products, dQ added across key tiles in a
@@ -37,9 +47,8 @@
 //   flash_attention_bwd_delta      the fused route's and the bf16 pair's
 //     pre-pass: delta in fp32 (32 lanes a query row at D >= 64, 8 or 16 at
 //     D = 16 or 32; the PyTorch expression is five kernels).
-//   flash_attention_bwd_{dkv,dq}_bf16   bf16, D = 16 or 32 past the small
-//     route's T, and D = 256 (at 64 and 128, and at 16 and 32 inside the
-//     small route's T, only when a plan asks for them: the old side of the
+//   flash_attention_bwd_{dkv,dq}_bf16   bf16, D = 256 (at 16, 32, 64 and
+//     128 only when a plan asks for them: the old side of the
 //     old-against-new comparisons): the mma.sync pair below.
 //   flash_attention_bwd_tf32_{split,dkv,dq}   fp32, D = 64 or 128 (the
 //     UNet's 128): a pair of kernels whose every product is three TF32
@@ -90,6 +99,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_attention_bwd_long.cuh"
 #include "flash_attention_bwd_small.cuh"
 #include "flash_attention_bwd_tf32.cuh"
 #include "flash_attention_bwd_wgmma.cuh"
@@ -701,6 +711,21 @@ int launch_small(const fbs::SmallProblem& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The long route (flash_attention_bwd_long.cuh): the blocks of a
+// batch*head are neighbours in the grid.
+
+template <int HD>
+int launch_long(const fbl::LongProblem& p, long long BH, cudaStream_t stream) {
+  constexpr int smem = fbl::smem_bytes(HD);
+  static_assert(smem <= wg::SMEM_LIMIT, "the tiles do not fit in shared memory");
+  auto kernel = fbl::flash_bwd_long_kernel<HD>;
+  static unsigned long long ready = 0;
+  cudaError_t err = wg::smem_attribute_once(kernel, smem, &ready);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)(BH * p.groups), fbl::THREADS, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 // The delta pre-pass's instances: 32 lanes a row at D >= 64, else D / 2
 // (two channels a lane), 256 threads a block.
 template <int HD>
@@ -893,6 +918,51 @@ int flash_attention_bwd_small(const void* q, const void* k, const void* v, const
   return D == 16 ? launch_small<16>(p, s) : launch_small<32>(p, s);
 }
 
+// The long route: bf16, D = 16 or 32, any Tq, Tk >= 1; the arguments as
+// the small route's, with groups the blocks a batch*head (1 .. ceil(Tk/128),
+// each taking every groups-th chunk of 128 keys); with more than one chunk
+// dq_part, fp32 scratch of B*H * groups * ceil(Tq/64) * 64 * D elements (any
+// contents, 16-byte aligned), and with more than one group arrived, int32
+// [B*H] zeroed; each may be null otherwise. Returns ERR_PLAN for a shape it
+// does not take.
+int flash_attention_bwd_long(const void* q, const void* k, const void* v, const void* o,
+                             const void* dout, const void* lse, void* dq, void* dk, void* dv,
+                             void* dq_part, void* arrived, int groups, int B, int H, int Tq,
+                             int Tk, int D, const long long* strides, float scale,
+                             float scale_log2, void* stream) {
+  const void* in[5] = {q, k, v, o, dout};
+  void* out[3] = {dq, dk, dv};
+  const long long bh = (long long)B * H;
+  const int kv_chunks = Tk >= 1 ? (Tk + fbl::BN - 1) / fbl::BN : 0;
+  bool ok = (D == 16 || D == 32) && B >= 1 && H >= 1 && Tq >= 1 && Tk >= 1 && groups >= 1 &&
+            groups <= kv_chunks && bh * groups <= 2147483647LL && lse != nullptr &&
+            (kv_chunks == 1 || (dq_part != nullptr &&
+                                (reinterpret_cast<uintptr_t>(dq_part) & 15) == 0)) &&
+            (groups == 1 || arrived != nullptr);
+  for (int i = 0; i < 5; ++i)
+    ok = ok && in[i] != nullptr && (reinterpret_cast<uintptr_t>(in[i]) & 15) == 0;
+  for (int i = 0; i < 3; ++i)
+    ok = ok && out[i] != nullptr && (reinterpret_cast<uintptr_t>(out[i]) & 3) == 0;
+  for (int i = 0; i < 15; ++i) ok = ok && strides[i] % 8 == 0;
+  for (int i = 15; i < 24; ++i) ok = ok && strides[i] % 2 == 0;
+  if (!ok) return ERR_PLAN;
+  fbl::LongProblem p;
+  for (int i = 0; i < 5; ++i) p.in[i] = (const __nv_bfloat16*)in[i];
+  for (int i = 0; i < 3; ++i) p.out[i] = (__nv_bfloat16*)out[i];
+  for (int i = 0; i < 24; ++i) p.st[i] = strides[i];
+  p.lse = (const float*)lse;
+  p.dq_part = (float*)dq_part;
+  p.arrived = (int*)arrived;
+  p.H = H, p.Tq = Tq, p.Tk = Tk;
+  p.q_tiles = (Tq + fbl::BM - 1) / fbl::BM;
+  p.kv_chunks = kv_chunks;
+  p.groups = groups;
+  p.scale = scale;
+  p.scale_log2 = scale_log2;
+  cudaStream_t s = (cudaStream_t)stream;
+  return D == 16 ? launch_long<16>(p, bh, s) : launch_long<32>(p, bh, s);
+}
+
 // The pre-pass of the fused route and the bf16 pair: delta = rowsum(dout o),
 // fp32 [B, H, Tq] contiguous, from bf16 o and dout [B, Tq, H, D] (D = 16,
 // 32, 64, 128 or 256, D contiguous, 4-byte aligned rows) with strides: 6
@@ -965,7 +1035,7 @@ int flash_attention_bwd_tf32_dq(TF32_PARAMS) { return tf32_pair<false>(TF32_ARGS
 
 const char* flash_attention_bwd_error_string(int code) {
   switch (code) {
-    case ERR_PLAN: return "the wgmma, small, delta or tf32 launcher refused the plan or shape";
+    case ERR_PLAN: return "the wgmma, small, long, delta or tf32 launcher refused the plan or shape";
     case ERR_ENCODE_FN: return "cuTensorMapEncodeTiled could not be found in libcuda";
     case ERR_MAP: return "cuTensorMapEncodeTiled refused a tensor map of q, k, v or dout (or their split terms)";
     default: return cudaGetErrorString((cudaError_t)code);

@@ -95,6 +95,12 @@ class AbstractDiffusionPipeline:
             backbone = registry.get("models", backbone)
         if cond_module is not None:
             bk["cond_fn"] = cond_module
+        elif bk.get("num_classes") is not None and getattr(
+                backbone, "sizes_condition_from_rows", False):
+            # a backbone that sizes its condition projection from the
+            # precomputed rows it is initialised on, as flax does, takes
+            # their width: JAX's pipeline initialises it on rows this wide
+            bk.setdefault("condition_dim", self.condition_embedding_dim())
         self.backbone = backbone(**bk)
         self.cond_fn = cond_module
         self.init_params(seed)

@@ -31,8 +31,13 @@ through ``class_embed``, 2-D precomputed rows (no ``cond_fn``) straight to
 joins every block's time embedding. flax shapes ``cond_proj`` from the ``y``
 it is initialised with and makes ``class_embed`` only when integer labels
 reach it; a torch module fixes its shapes at construction, so without a
-``cond_fn`` the port builds ``class_embed`` and takes precomputed rows of
-width ``embedding_dim`` (other widths raise).
+``cond_fn`` the port reads ``condition_dim``: given, it builds no
+``class_embed`` and a ``cond_proj`` that takes rows that wide, as flax does
+when initialised on such rows (the pipeline passes its
+``condition_embedding_dim()``, the width of the rows JAX's pipeline
+initialises the model on); left None, it builds ``class_embed`` for integer
+labels and takes precomputed rows of width ``embedding_dim``. Rows of any
+other width raise.
 
 Dropout draws from torch's generator; the parity tests run at dropout 0.
 The model takes no ``cond_mask``, so classifier-free guidance on it raises
@@ -102,6 +107,10 @@ class ViTBlock(nn.Module):
 class VisionTransformer(nn.Module):
     """ViT diffusion backbone. Input [B, *input_shapes, num_channels]."""
 
+    # the pipeline passes condition_dim, the width of the precomputed rows
+    # JAX's pipeline initialises the model on (flax sizes cond_proj from them)
+    sizes_condition_from_rows = True
+
     def __init__(
         self,
         patch_size: int,
@@ -119,6 +128,7 @@ class VisionTransformer(nn.Module):
         dtype: Any = torch.float32,
         num_classes: Optional[int] = None,
         cond_fn: Optional[nn.Module] = None,
+        condition_dim: Optional[int] = None,
     ) -> None:
         super().__init__()
         self.input_shapes = tuple(input_shapes)
@@ -133,10 +143,15 @@ class VisionTransformer(nn.Module):
         cd = self.compute_dtype = as_torch_dtype(dtype)
         kernel = (patch_size,) * self.dims
         self.cond_fn = cond_fn
+        self.condition_dim = condition_dim if cond_fn is None else None
         if num_classes is not None:
-            if cond_fn is None:
+            if cond_fn is not None:
+                cond_in = cond_fn.embedding_dim
+            elif condition_dim is not None:
+                cond_in = condition_dim
+            else:
                 self.class_embed = nn.Embedding(num_classes, embedding_dim)
-            cond_in = cond_fn.embedding_dim if cond_fn is not None else embedding_dim
+                cond_in = embedding_dim
             self.cond_proj = Linear(cond_in, embedding_dim, dtype=cd)
         self.patch_embed = _PatchConv(num_channels, embedding_dim, kernel)
         self.pos_proj = Linear(pos_embedding_dim, embedding_dim, dtype=cd)
@@ -183,8 +198,13 @@ class VisionTransformer(nn.Module):
             if y.shape[1] != self.cond_proj.in_features:
                 raise ValueError(
                     f"precomputed conditions of width {y.shape[1]}; this model's cond_proj "
-                    f"takes {self.cond_proj.in_features}, the model's embedding_dim")
+                    f"takes {self.cond_proj.in_features}, its "
+                    f"{'condition_dim' if self.condition_dim else 'embedding_dim'}")
             raw = y
+        elif self.condition_dim is not None:
+            raise ValueError(
+                f"this model takes precomputed condition rows [B, {self.condition_dim}] and has "
+                "no class_embed for integer labels (as JAX's, initialised on such rows)")
         else:
             raw = self.class_embed(y.long())
         return self.cond_proj(raw.to(self.compute_dtype))

@@ -13,10 +13,14 @@ brings its own, in ``csrc/conv_int8.cu``:
   tensor map walked every other voxel along H and W (the route
   "s1_strided"); the plan is ``igemm_plan``'s on the output's shape. Its
   launcher is ``csrc/conv3d_s8_strided.cu``, a library of its own.
+* ``conv2d_s8_kernel`` and ``conv2d_s8_strided_kernel``: the 2-D UNet's 3x3
+  convs with pads (1, 1), Cin % 16 == 0, at stride (1, 1) and (2, 2) (the
+  routes "s1_2d" and "s1_2d_strided"), on S1's block with the 1x3x3 tap set
+  over x as a depth-1 volume; weights [Cout, 9, Cin] (``s1_2d_weights``).
+  Their launchers are ``csrc/conv2d_s8.cu`` and ``csrc/conv2d_s8_strided.cu``.
 * S2 ``conv_s8_general_kernel``: any int8 conv of rank 1-3 (as 3-D with unit
-  dims), any kernel size, stride and explicit padding: 1-D and 2-D convs,
-  other kernels and strides, and the Cin % 16 != 0 the TMA routes do not
-  take.
+  dims), any kernel size, stride and explicit padding: 1-D convs, other
+  kernels and strides, and the Cin % 16 != 0 the TMA routes do not take.
 * S3 ``quantize_rows_kernel``: the symmetric int8 quantisation of each
   leading row (a sample, or an output channel of a weight), bitwise as
   ``quantize_int8``.
@@ -47,8 +51,16 @@ from rho_diffusion_tpu_torch.ops.kernels.conv3d import igemm_plan
 S1_CIN_MULTIPLE = 16  # TMA's global strides are multiples of 16 bytes
 S1_MAX_CIN = 4912  # 127^2 * 27 * Cin < 2^31
 INT32_MAX = 2**31 - 1
-# S1's block by the conv's stride: (1, 1, 1) is S1, (1, 2, 2) the Downsample
+# S1's block by the conv's stride: (1, 1, 1) is S1, (1, 2, 2) the Downsample;
+# in 2-D, (1, 1) and (2, 2) on its 1x3x3 tap set
 S1_STRIDES = {(1, 1, 1): "s1", (1, 2, 2): "s1_strided"}
+S1_2D_STRIDES = {(1, 1): "s1_2d", (2, 2): "s1_2d_strided"}
+# the routes on S1's block: their launcher (count name), source, stride
+# along H and W and taps
+S1_ROUTES = {"s1": ("conv3d_s8", "conv_int8", 1, 27),
+             "s1_strided": ("conv3d_s8_strided", "conv3d_s8_strided", 2, 27),
+             "s1_2d": ("conv2d_s8", "conv2d_s8", 1, 9),
+             "s1_2d_strided": ("conv2d_s8_strided", "conv2d_s8_strided", 2, 9)}
 OUT_KINDS = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -59,8 +71,11 @@ _LAUNCHERS = {
         "conv_s8_general": [_PTR] * 7 + [_INT, _PTR],
         "quantize_int8_rows": [_PTR, _INT, _LL, _LL, _INT, _INT, _INT] + [_PTR] * 4,
     },
-    # the strided Downsample's own source (it builds beside conv_int8.cu)
+    # the strided Downsample's and the 2-D convs' own sources (each builds
+    # beside conv_int8.cu)
     "conv3d_s8_strided": {"conv3d_s8_strided": _S1_ARGS},
+    "conv2d_s8": {"conv2d_s8": _S1_ARGS},
+    "conv2d_s8_strided": {"conv2d_s8_strided": _S1_ARGS},
 }
 
 
@@ -159,7 +174,9 @@ def int8_conv_route(x_shape, kernel_size: Sequence[int], stride: Sequence[int],
                     pads: Sequence[tuple[int, int]], cout: int) -> str:
     """The kernel an int8 conv of x [B, *spatial, Cin] takes on the card:
     "s1" (3-D, 3x3x3, stride 1, pads (1, 1), Cin % 16 == 0), "s1_strided"
-    (the same at stride (1, 2, 2): the UNet's Downsample), else "s2".
+    (the same at stride (1, 2, 2): the UNet's Downsample), "s1_2d" and
+    "s1_2d_strided" (2-D, 3x3, pads (1, 1), Cin % 16 == 0, at stride (1, 1)
+    and (2, 2)), else "s2".
     Raises, naming the shape, where neither covers it: rank above 3, an
     int32 sum that could overflow, or an index past int32."""
     dims = len(kernel_size)
@@ -191,6 +208,12 @@ def int8_conv_route(x_shape, kernel_size: Sequence[int], stride: Sequence[int],
             and tuple(tuple(p) for p in pads) == ((1, 1),) * 3
             and cin % S1_CIN_MULTIPLE == 0):
         route = S1_STRIDES.get(tuple(stride))
+        if route:
+            return route
+    if (dims == 2 and tuple(kernel_size) == (3, 3)
+            and tuple(tuple(p) for p in pads) == ((1, 1),) * 2
+            and cin % S1_CIN_MULTIPLE == 0):
+        route = S1_2D_STRIDES.get(tuple(stride))
         if route:
             return route
     return "s2"
@@ -245,6 +268,13 @@ def s1_weights(wq: torch.Tensor) -> torch.Tensor:
     return wq.permute(0, 2, 3, 4, 1).reshape(cout, 27, cin).contiguous()
 
 
+def s1_2d_weights(wq: torch.Tensor) -> torch.Tensor:
+    """[Cout, Cin, 3, 3] int8 -> the 2-D routes' [Cout, 9, Cin], tap =
+    dy*3+dx: S1's layout over the 1x3x3 tap set."""
+    cout, cin = wq.shape[:2]
+    return wq.permute(0, 2, 3, 1).reshape(cout, 9, cin).contiguous()
+
+
 def s2_weights(wq: torch.Tensor) -> torch.Tensor:
     """[Cout, Cin, *K] int8 -> S2's [taps, ceil(Cin/4), Cout] int32 words,
     byte i of a word holding channel 4g + i (little endian), channels past
@@ -287,7 +317,7 @@ def conv3d_s8_kernel(xq: torch.Tensor, s_x, w1: torch.Tensor, s_w, bias,
     int8 (``s1_weights``), s_x [B], s_w [Cout] and bias [Cout] fp32 (bias
     may be None; both scales may be None for the int32 output). Counted as
     ``conv3d_s8``; the tiles are ``igemm_plan``'s."""
-    return _conv3d_s8("conv3d_s8", "conv_int8", (1, 1, 1), xq, s_x, w1, s_w, bias, out_dtype)
+    return _s1_block("s1", xq, s_x, w1, s_w, bias, out_dtype)
 
 
 def conv3d_s8_strided_kernel(xq: torch.Tensor, s_x, w1: torch.Tensor, s_w, bias,
@@ -296,31 +326,57 @@ def conv3d_s8_strided_kernel(xq: torch.Tensor, s_x, w1: torch.Tensor, s_w, bias,
     pads (1, 1), of xq [B, D, H, W, Cin] int8 (Cin % 16 == 0) -> [B, D,
     ceil(H/2), ceil(W/2), Cout]; the other arguments as for S1. Counted as
     ``conv3d_s8_strided``; the tiles are ``igemm_plan``'s on the output."""
-    return _conv3d_s8("conv3d_s8_strided", "conv3d_s8_strided", (1, 2, 2), xq, s_x, w1, s_w, bias,
-                      out_dtype)
+    return _s1_block("s1_strided", xq, s_x, w1, s_w, bias, out_dtype)
 
 
-def _conv3d_s8(name: str, source: str, stride, xq, s_x, w1, s_w, bias,
-               out_dtype) -> torch.Tensor:
-    """S1's block at ``stride`` (pads (1, 1)): the launcher ``name`` in
-    csrc/<source>.cu, counted as ``name``."""
+def conv2d_s8_kernel(xq: torch.Tensor, s_x, w9: torch.Tensor, s_w, bias,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The 2-D 3x3 stride-1 conv with pads (1, 1) on S1's block: xq [B, H,
+    W, Cin] int8 (Cin % 16 == 0), w9 [Cout, 9, Cin] int8
+    (``s1_2d_weights``); the other arguments as for S1. Counted as
+    ``conv2d_s8``; the tiles are ``igemm_plan``'s on [B, 1, H, W]."""
+    return _s1_block("s1_2d", xq, s_x, w9, s_w, bias, out_dtype)
+
+
+def conv2d_s8_strided_kernel(xq: torch.Tensor, s_x, w9: torch.Tensor, s_w, bias,
+                             out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The 2-D Downsample on S1's block: the 3x3 conv at stride (2, 2),
+    pads (1, 1), of xq [B, H, W, Cin] int8 (Cin % 16 == 0) -> [B, ceil(H/2),
+    ceil(W/2), Cout]; the other arguments as for ``conv2d_s8_kernel``.
+    Counted as ``conv2d_s8_strided``; the tiles are ``igemm_plan``'s on the
+    output."""
+    return _s1_block("s1_2d_strided", xq, s_x, w9, s_w, bias, out_dtype)
+
+
+def _s1_block(route: str, xq, s_x, w1, s_w, bias, out_dtype) -> torch.Tensor:
+    """S1's block on ``route`` (``S1_ROUTES``: its launcher and count
+    name, its source csrc/<source>.cu, the stride along H and W and the
+    taps; pads (1, 1)). A 2-D x [B, H, W, Cin] is the volume [B, 1, H, W,
+    Cin] over the 1x3x3 taps."""
+    name, source, sw, taps = S1_ROUTES[route]
     check_no_autograd(name, xq, s_x, s_w, bias)
     if xq.device.type != "cuda":
         raise RuntimeError(f"{name} has no kernel for device {xq.device}")
-    if xq.dim() != 5 or w1.dim() != 3 or tuple(w1.shape[1:]) != (27, xq.shape[-1]):
-        raise ValueError(f"{name} takes x [B,D,H,W,Cin] and w [Cout,27,Cin]; got "
-                         f"{tuple(xq.shape)} and {tuple(w1.shape)}")
-    b, d, h, w, cin = xq.shape
+    rank = 5 if taps == 27 else 4
+    if xq.dim() != rank or w1.dim() != 3 or tuple(w1.shape[1:]) != (taps, xq.shape[-1]):
+        raise ValueError(f"{name} takes x [B,{'D,' if taps == 27 else ''}H,W,Cin] and w "
+                         f"[Cout,{taps},Cin]; got {tuple(xq.shape)} and {tuple(w1.shape)}")
+    flat = xq.shape[:-1] if taps == 27 else (xq.shape[0], 1, *xq.shape[1:-1])
+    b, d, h, w = flat
+    cin = xq.shape[-1]
     cout = w1.shape[0]
     _check_conv(xq, s_x, s_w, bias, out_dtype, cout)
     if w1.dtype != torch.int8 or w1.device != xq.device:
         raise TypeError(f"{name}: w must be int8 on {xq.device}")
-    if cin % S1_CIN_MULTIPLE or cin > S1_MAX_CIN:
-        raise ValueError(f"{name} takes Cin % 16 == 0 up to {S1_MAX_CIN}, got {cin}")
+    max_cin = S1_MAX_CIN if taps == 27 else INT32_MAX // (127 * 127 * taps)
+    if cin % S1_CIN_MULTIPLE or cin > max_cin:
+        raise ValueError(f"{name} takes Cin % 16 == 0 up to {max_cin}, got {cin}")
     if not xq.is_contiguous() or xq.data_ptr() % 16:
         raise ValueError(f"{name} needs a contiguous, 16-byte aligned x")
-    out_shape = (b, *conv_out_spatial((d, h, w), (3, 3, 3), stride, ((1, 1),) * 3), cout)
-    if max(xq.numel(), math.prod(out_shape), 27 * cin * cout) > INT32_MAX:
+    spatial = conv_out_spatial((d, h, w), (1 if taps == 9 else 3, 3, 3), (1, sw, sw),
+                               ((1 if taps == 27 else 0,) * 2, (1, 1), (1, 1)))
+    out_shape = (b, *spatial, cout)
+    if max(xq.numel(), math.prod(out_shape), taps * cin * cout) > INT32_MAX:
         raise ValueError(f"{name}: shape {tuple(xq.shape)} -> {cout} is out of its range")
     plan = tuple(igemm_plan((*out_shape[:-1], cin), cout, sms=sm_count(xq.device.index)))
     w1 = w1.contiguous()
@@ -333,7 +389,7 @@ def _conv3d_s8(name: str, source: str, stride, xq, s_x, w1, s_w, bias,
     _build.check(code, lib, f"{source}_error_string",
                  f"{name}({tuple(xq.shape)} -> {cout}, plan {plan})")
     launch_counts[name] += 1
-    return out
+    return out if taps == 27 else out.reshape(b, *spatial[1:], cout)
 
 
 def conv_s8_general_kernel(xq: torch.Tensor, s_x, w2: torch.Tensor, s_w, bias,

@@ -20,8 +20,8 @@ backward exponentiates in that base. ``delta = rowsum(dO * O)`` is a PyTorch
 expression (``flash_delta``) on the fp32 routes, as the JAX package leaves
 it to XLA; the bf16 fused route and the bf16 pair take it from a pre-pass
 kernel (``flash_delta_kernel``, counted as ``flash_attention_bwd_delta``;
-the PyTorch expression is five kernels), and the small route computes it in
-its one kernel.
+the PyTorch expression is five kernels), and the small and long routes
+compute it in their one kernel.
 
 q, k, v may be strided views (the UNet's split of one qkv projection) as long
 as D is contiguous; head dims other than 16/32/64/128/256 are zero-padded up
@@ -47,8 +47,14 @@ same way, and for small head dims by T: bf16 at padded head dims 16 and 32
 with Tq, Tk <= 64 (the ViT's attention) takes ONE kernel a backward
 (``csrc/flash_attention_bwd_small.cuh``: a warpgroup a batch*head, its
 inputs resident, delta and all five products inside, on ``wgmma``), counted
-as ``flash_attention_bwd_small``; bf16 at head dims 64 and 128 takes ONE
-fused kernel
+as ``flash_attention_bwd_small``; bf16 at padded head dims 16 and 32 past
+64 keys or queries (the ViT at patch 4) takes ONE kernel a backward too
+(``csrc/flash_attention_bwd_long.cuh``: ``long_bwd_groups`` blocks a
+batch*head taking its chunks of 128 keys in turn, K and V resident, Q, dO
+and O streamed, delta and all five products inside, on ``wgmma``, dQ
+summed across chunks in a fixed order through fp32 scratch linear in T),
+counted as ``flash_attention_bwd_long``; bf16 at head dims 64 and 128 takes
+ONE fused kernel
 (``csrc/flash_attention_bwd_wgmma.cuh``: K and V of a block resident, Q and
 dO tiles by TMA through an mbarrier ring, all five products on ``wgmma``,
 dQ added across the key tiles in a fixed order, so the gradients are
@@ -56,9 +62,9 @@ bitwise repeatable), counted as ``flash_attention_bwd``; fp32 at 64 and 128
 a 3xTF32 pair on ``wgmma`` (``csrc/flash_attention_bwd_tf32.cuh``: dK/dV
 over key blocks and dQ over query blocks after a pre-pass that splits q,
 dO, k and v; counted as ``flash_attention_bwd_tf32_dkv``, ``_dq`` and
-``_split``); other bf16 (16 and 32 at longer T, and 256) takes the
-``mma.sync`` pair and fp32 at 16, 32 and 256 the CUDA-core pair (dK/dV and
-dQ kernels, counted as ``flash_attention_bwd_dkv`` and ``_dq``).
+``_split``); bf16 at 256 takes the ``mma.sync`` pair and fp32 at 16, 32
+and 256 the CUDA-core pair (dK/dV and dQ kernels, counted as
+``flash_attention_bwd_dkv`` and ``_dq``).
 """
 from __future__ import annotations
 
@@ -131,22 +137,26 @@ FLASH_BWD_DQ_BUFS = 2
 
 class FlashBwdPlan(NamedTuple):
     """The backward's route ("wgmma": the fused kernel; "small": one kernel
-    a batch*head at small head dims; "tf32", "mma_sync" or "fp32": a dkv/dq
+    a batch*head at small head dims; "long": one kernel a call at small head
+    dims past the small route's T; "tf32", "mma_sync" or "fp32": a dkv/dq
     pair) and its keys a block (bn): the padded head dim on the fused route;
-    the most keys a batch*head on the small route; the pair's dkv kernel's
-    fixed tile otherwise."""
+    the most keys a batch*head on the small route; 128 on the long route;
+    the pair's dkv kernel's fixed tile otherwise."""
 
     route: str
     bn: int
 
-    def smem_bytes(self) -> int:
+    def smem_bytes(self, d: Optional[int] = None) -> int:
         """Shared memory of a fused block (head dim ``bn``): K and V, the Q
         and dO rings, the bf16 dS^T tile, dQ's fp32 shares, the lse and
         delta rows, the barriers and the 1024 bytes that align them to the
         swizzle (flash_attention_bwd_wgmma.cuh's smem_bytes). On the small
-        route, ``small_bwd_smem_bytes``."""
+        route, ``small_bwd_smem_bytes``; on the long route
+        ``long_bwd_smem_bytes`` at padded head dim ``d``."""
         if self.route == "small":
             return small_bwd_smem_bytes()
+        if self.route == "long":
+            return long_bwd_smem_bytes(d)
         d, bm = self.bn, FLASH_BWD_BM
         return (2 * 2 * d * self.bn + 2 * FLASH_BWD_STAGES * 2 * d * bm + 2 * self.bn * bm
                 + FLASH_BWD_DQ_BUFS * 4 * bm * d + 2 * FLASH_BWD_STAGES * 4 * bm
@@ -161,6 +171,19 @@ SMALL_BWD_HEAD_DIMS = (16, 32)
 SMALL_BWD_T = 64
 SMALL_BWD_WARPGROUPS = 2
 SMALL_BWD_PLAN = FlashBwdPlan("small", SMALL_BWD_T)
+# The long route (csrc/flash_attention_bwd_long.cuh): the same head dims
+# past SMALL_BWD_T; a block of LONG_BWD_WARPGROUPS warpgroups owns 64 keys
+# each, and query tiles of LONG_BWD_BM rows stream through a ring of
+# LONG_BWD_STAGES[d] stages
+LONG_BWD_WARPGROUPS = 2
+LONG_BWD_BM = 64
+LONG_BWD_STAGES = {16: 3, 32: 2}
+LONG_BWD_PLAN = FlashBwdPlan("long", 64 * LONG_BWD_WARPGROUPS)
+# The long route's blocks in all that long_bwd_groups aims for: one wave of
+# two blocks an SM on the H100's 132 SMs (more blocks a batch*head only
+# where B*H leaves SMs idle: at the ViT's patch-4 shape one block a
+# batch*head ran faster than two or four)
+LONG_BWD_BLOCKS = 2 * 132
 FP32_BWD_PLAN = FlashBwdPlan("fp32", 16)
 # The 3xTF32 pair (csrc/flash_attention_bwd_tf32.cuh): blocks of 64 rows
 # (dkv: keys, dq: queries), two warpgroups, the other side streamed through
@@ -179,6 +202,41 @@ def small_bwd_smem_bytes() -> int:
     tile = SMALL_BWD_T * 128
     region = -(-(5 * tile + 2 * 4 * SMALL_BWD_T) // 1024) * 1024
     return SMALL_BWD_WARPGROUPS * region + 1024
+
+
+def long_bwd_groups(bh: int, tk: int) -> int:
+    """The long route's blocks a batch*head: enough for LONG_BWD_BLOCKS in
+    all (so one where B*H fills the card), at most its chunks of 128 keys,
+    each block taking every groups-th chunk in turn."""
+    chunks = -(-tk // LONG_BWD_PLAN.bn)
+    return min(chunks, -(-LONG_BWD_BLOCKS // bh))
+
+
+def long_bwd_scratch_bytes(bh: int, tq: int, tk: int, d: int) -> int:
+    """Device memory the long route allocates besides dq, dk and dv: each
+    block's fp32 slots of dQ (one [64, d] tile a query tile) where there is
+    more than one chunk of keys, and a counter a batch*head where there is
+    more than one block. Under (bh + LONG_BWD_BLOCKS) * ceil(tq/64) * 64 * d
+    * 4 + 4 * bh bytes: linear in T (dQ's own size in fp32 where bh >=
+    LONG_BWD_BLOCKS)."""
+    groups = long_bwd_groups(bh, tk)
+    slots = bh * groups * -(-tq // LONG_BWD_BM) * LONG_BWD_BM * d * 4
+    return (slots if tk > LONG_BWD_PLAN.bn else 0) + (4 * bh if groups > 1 else 0)
+
+
+def long_bwd_smem_bytes(d: int) -> int:
+    """Shared memory of a long-route block at padded head dim ``d`` (16 or
+    32): the 128-byte swizzled [64][64] tiles (K and V of 128 keys, the Q and
+    dO rings, the dS^T tile of 128 keys; channels past D unused), one fp32
+    dQ share, the O ring, the lse rows and each warpgroup's delta rows, and
+    the 1024 bytes that align them to the swizzle
+    (flash_attention_bwd_long.cuh's smem_bytes)."""
+    if d not in SMALL_BWD_HEAD_DIMS:
+        raise ValueError(f"the long route takes padded head dims {SMALL_BWD_HEAD_DIMS}, not {d}")
+    wgs, bm, stages = LONG_BWD_WARPGROUPS, LONG_BWD_BM, LONG_BWD_STAGES[d]
+    tile = 64 * 128
+    return ((3 * wgs + 2 * stages) * tile + bm * d * 4 + stages * bm * d * 2
+            + stages * bm * 4 + stages * wgs * bm * 4 + 1024)
 
 
 def tf32_bwd_smem_bytes(d: int, dkv: bool) -> int:
@@ -235,8 +293,8 @@ def flash_bwd_plan(b: int, h: int, tq: int, tk: int, d: int,
     The route goes by head dim and dtype as the forward's: bf16 whose padded
     head dim is 64 or 128 takes the fused kernel; bf16 at padded 16 or 32
     takes the small route where tq and tk are at most SMALL_BWD_T (one
-    wgmma tile: the ViT's 64 patches), the mma.sync pair past it; bf16 at
-    256 the pair; fp32 at 64 and 128 the 3xTF32 pair (``TF32_BWD_PLAN``),
+    wgmma tile: the ViT's 64 patches), the long route past it (the ViT at
+    patch 4: 512 patches); bf16 at 256 the mma.sync pair; fp32 at 64 and 128 the 3xTF32 pair (``TF32_BWD_PLAN``),
     other fp32 the CUDA-core pair; other dtypes have none. Beyond the small
     route's T the shape takes no part: the fused kernel's tile is a function
     of the head dim alone
@@ -250,8 +308,8 @@ def flash_bwd_plan(b: int, h: int, tq: int, tk: int, d: int,
     if dtype != torch.bfloat16:
         raise TypeError(f"flash_attention kernel takes bfloat16 or float32, got {dtype}")
     dk = padded_head_dim(d)
-    if dk in SMALL_BWD_HEAD_DIMS and max(tq, tk) <= SMALL_BWD_T:
-        return SMALL_BWD_PLAN
+    if dk in SMALL_BWD_HEAD_DIMS:
+        return SMALL_BWD_PLAN if max(tq, tk) <= SMALL_BWD_T else LONG_BWD_PLAN
     if dk not in WGMMA_HEAD_DIMS:
         return MMA_SYNC_BWD_PLAN
     return WGMMA_BWD_PLANS[dk]
@@ -283,6 +341,7 @@ _LAUNCHERS = {
                                                                  _PTR],
         "flash_attention_bwd_delta": [_PTR] * 3 + [_INT] * 4 + [_PTR] * 2,
         "flash_attention_bwd_small": [_PTR] * 9 + [_INT] * 5 + [_PTR, _FLOAT, _FLOAT, _PTR],
+        "flash_attention_bwd_long": [_PTR] * 11 + [_INT] * 6 + [_PTR, _FLOAT, _FLOAT, _PTR],
         "flash_attention_bwd_tf32_split": [_PTR] * 6 + [_INT] * 5 + [_PTR] * 2,
         **{f"flash_attention_bwd_tf32_{which}": _BWD[:-1] + [_PTR] * 3 for which in ("dkv", "dq")},
     },
@@ -568,7 +627,7 @@ def flash_attention_bwd_kernel(
     """Launch the backward of ``plan``'s route (``flash_bwd_plan``'s when
     not given: the old-against-new comparisons pass the pair's) on the
     forward's inputs, its padded output ``o`` and base-2 ``lse``. ``needs``
-    says which of dq, dk, dv to return: the fused and the small kernel
+    says which of dq, dk, dv to return: the fused, small and long kernels
     compute all three in one launch, the pair launches dkv for dk or dv and
     dq for dq."""
     check_no_autograd("flash_attention_bwd", q, k, v, o, do)
@@ -585,9 +644,9 @@ def flash_attention_bwd_kernel(
         raise ValueError(f"flash_attention_bwd: the {plan.route} route does not take {q.dtype}")
     if plan.route == "tf32":
         grads = _bwd_tf32(q, k, v, o, lse.contiguous(), do, needs, d)
-    elif plan.route == "small":
-        grads = _bwd_small(q, k, v, o, lse.contiguous(), do, needs, d)
-    if plan.route in ("tf32", "small"):
+    elif plan.route in ("small", "long"):
+        grads = _bwd_one_launch(plan.route, q, k, v, o, lse.contiguous(), do, needs, d)
+    if plan.route in ("tf32", "small", "long"):
         return tuple(t[..., :d] if t is not None and dk_ != d else t for t in grads)
     fused = plan.route == "wgmma"
     lse = lse.contiguous()
@@ -637,33 +696,53 @@ def flash_attention_bwd_kernel(
     return tuple(t[..., :d] if t is not None and dk_ != d else t for t in grads)
 
 
-def _bwd_small(q, k, v, o, lse, do, needs, d):
-    """The small route on padded bf16 inputs (Tq, Tk <= SMALL_BWD_T): one
-    launch writes dq, dk and dv, delta computed inside."""
+def _bwd_one_launch(route, q, k, v, o, lse, do, needs, d):
+    """The small route (Tq, Tk <= SMALL_BWD_T) or the long route (past it)
+    on padded bf16 inputs at head dims 16 and 32: one launch writes dq, dk
+    and dv, delta computed inside. The long route's dQ crosses chunks of
+    keys through each block's fp32 slots, summed in block order by the
+    block that finishes last (a zeroed counter a batch*head)."""
     b, tq, h, dk_ = q.shape
     tk = k.shape[1]
-    if q.dtype != torch.bfloat16 or dk_ not in SMALL_BWD_HEAD_DIMS or max(tq, tk) > SMALL_BWD_T:
-        raise ValueError(f"flash_attention_bwd_small takes bf16 at padded head dims "
-                         f"{SMALL_BWD_HEAD_DIMS} with Tq, Tk <= {SMALL_BWD_T}; got q "
+    name = f"flash_attention_bwd_{route}"
+    small = max(tq, tk) <= SMALL_BWD_T
+    if q.dtype != torch.bfloat16 or dk_ not in SMALL_BWD_HEAD_DIMS or small != (route == "small"):
+        raise ValueError(f"{name} takes bf16 at padded head dims {SMALL_BWD_HEAD_DIMS} with Tq, "
+                         f"Tk {'<=' if route == 'small' else 'not both <='} {SMALL_BWD_T}; got q "
                          f"{tuple(q.shape)} {q.dtype}, Tk={tk}")
     if o.shape != q.shape or o.dtype != q.dtype:
-        raise ValueError(f"flash_attention_bwd_small: o {tuple(o.shape)} {o.dtype} does not "
-                         f"match q {tuple(q.shape)} {q.dtype}")
-    _check_strides("flash_attention_bwd_small", (o,))
+        raise ValueError(f"{name}: o {tuple(o.shape)} {o.dtype} does not match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    _check_strides(name, (o,))
     dq = torch.empty((b, tq, h, dk_), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, tk, h, dk_), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     lib = _library("flash_attention_bwd")
     strides = _strides(q, k, v, o, do, dq, dk, dv)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    shape = (b, h, tq, tk, dk_, ctypes.addressof(strides), 1.0 / math.sqrt(d),
+             LOG2E / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
     with on_device(q.device):
-        code = lib.flash_attention_bwd_small(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, tq, tk, dk_,
-            ctypes.addressof(strides), 1.0 / math.sqrt(d), LOG2E / math.sqrt(d),
-            torch.cuda.current_stream(q.device).cuda_stream)
+        if route == "small":
+            code = lib.flash_attention_bwd_small(*ins, *shape)
+        else:
+            # the blocks' fp32 slots of dQ (each written whole by a block's
+            # first chunk before it is read, so no zeroing) and the counters
+            # of the blocks that have finished
+            part = arrived = None
+            groups = long_bwd_groups(b * h, tk)
+            if tk > LONG_BWD_PLAN.bn:
+                part = torch.empty(b * h * groups * -(-tq // LONG_BWD_BM) * LONG_BWD_BM * dk_,
+                                   dtype=torch.float32, device=q.device)
+            if groups > 1:
+                arrived = torch.zeros(b * h, dtype=torch.int32, device=q.device)
+            code = lib.flash_attention_bwd_long(
+                *ins, part.data_ptr() if part is not None else None,
+                arrived.data_ptr() if arrived is not None else None, groups, *shape)
     _build.check(code, lib, "flash_attention_bwd_error_string",
-                 f"flash_attention_bwd_small({tuple(q.shape)}, Tk={tk})")
-    launch_counts["flash_attention_bwd_small"] += 1
+                 f"{name}({tuple(q.shape)}, Tk={tk})")
+    launch_counts[name] += 1
     return (dq if needs[0] else None, dk if needs[1] else None, dv if needs[2] else None)
 
 

@@ -18,9 +18,11 @@ at every attention problem of both configs at batch 1, 2, 8 and 32, its
 route by head dim and dtype, every instance within shared memory with the
 byte count written out, and no route off the card. The small route
 (csrc/flash_attention_bwd_small.cuh: bf16 at padded head dims 16 and 32
-with Tq, Tk <= 64, the ViT's attention) is held by head dim, dtype and T,
-its shared memory written out, and the delta pre-pass's head dims against
-the launcher's instances.
+with Tq, Tk <= 64, the ViT's attention) and the long route past it
+(csrc/flash_attention_bwd_long.cuh: the ViT at patch 4, 512 patches) are
+held by head dim, dtype and T, their shared memory written out, the long
+route's blocks a batch*head and its scratch (linear in T), and the delta
+pre-pass's head dims against the launcher's instances.
 """
 import json
 import re
@@ -29,13 +31,19 @@ from pathlib import Path
 import pytest
 import torch
 
+from rho_diffusion_tpu_torch.benchmarks.flash_bwd_long_ablation import SOURCE as ABLATED
+from rho_diffusion_tpu_torch.benchmarks.flash_bwd_long_ablation import VARIANTS, patched
+from rho_diffusion_tpu_torch.ops.kernels._build import CSRC
+
 from rho_diffusion_tpu_torch.models.unet import UNet
 from rho_diffusion_tpu_torch.ops import attention as attn_mod
 from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
-    FLASH_BM, FLASH_BWD_BM, FP32_BWD_PLAN, FP32_PLAN, HEAD_DIMS, MMA_SYNC_BWD_PLAN,
+    FLASH_BM, FLASH_BWD_BM, FP32_BWD_PLAN, FP32_PLAN, HEAD_DIMS, LONG_BWD_BM, LONG_BWD_PLAN,
+    LONG_BWD_BLOCKS, LONG_BWD_STAGES, LONG_BWD_WARPGROUPS, MMA_SYNC_BWD_PLAN,
     SMALL_BWD_HEAD_DIMS, SMALL_BWD_PLAN, SMALL_BWD_T, SMALL_BWD_WARPGROUPS, SMEM_LIMIT,
     TF32_BWD_PLAN, TF32_PLAN, WGMMA_BWD_PLANS, WGMMA_HEAD_DIMS, WGMMA_PLANS, WGMMA_TILES,
-    FlashBwdPlan, FlashPlan, busiest_sm_rows, flash_bwd_plan, flash_plan, padded_head_dim)
+    FlashBwdPlan, FlashPlan, busiest_sm_rows, flash_bwd_plan, flash_plan, long_bwd_groups,
+    long_bwd_scratch_bytes, padded_head_dim)
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -225,7 +233,8 @@ def test_bwd_plan_at_ragged_shapes(b, tq, tk, h, d, bn):
 def test_bwd_route_by_head_dim_and_dtype(d, dtype, t):
     """As the forward's: the fused kernel for bf16 at padded head dims 64
     and 128; for bf16 at padded 16 and 32 the small route where T fits one
-    64-row tile and the mma.sync pair past it, for bf16 at 256 the pair;
+    64-row tile and the long route past it, for bf16 at 256 the mma.sync
+    pair;
     for fp32 the 3xTF32 pair at padded head dims 64 and 128 and the FMA
     pair elsewhere, whatever T; and no route at all (never one off the
     card) for other dtypes."""
@@ -234,7 +243,7 @@ def test_bwd_route_by_head_dim_and_dtype(d, dtype, t):
             flash_bwd_plan(2, 4, t, t, d, dtype)
         return
     plan = flash_bwd_plan(2, 4, t, t, d, dtype)
-    assert plan.route in ("wgmma", "small", "mma_sync", "tf32", "fp32")
+    assert plan.route in ("wgmma", "small", "long", "mma_sync", "tf32", "fp32")
     if dtype == torch.float32:
         tf32 = padded_head_dim(d) in (64, 128)
         assert plan == (TF32_BWD_PLAN if tf32 else FP32_BWD_PLAN)
@@ -242,28 +251,31 @@ def test_bwd_route_by_head_dim_and_dtype(d, dtype, t):
     elif padded_head_dim(d) in WGMMA_HEAD_DIMS:
         assert plan.route == "wgmma"
         assert flash_plan(2, 4, t, t, d, dtype, sms=SMS).route == "wgmma"
-    elif padded_head_dim(d) in (16, 32) and t <= 64:
-        assert plan == SMALL_BWD_PLAN
+    elif padded_head_dim(d) in (16, 32):
+        assert plan == (SMALL_BWD_PLAN if t <= 64 else LONG_BWD_PLAN)
     else:
         assert plan == MMA_SYNC_BWD_PLAN
 
 
 @pytest.mark.parametrize("tq,tk,route", [
     (64, 64, "small"), (50, 50, "small"), (1, 1, "small"), (64, 17, "small"), (17, 64, "small"),
-    (65, 64, "mma_sync"), (64, 65, "mma_sync"), (65, 65, "mma_sync"), (256, 256, "mma_sync"),
+    (65, 64, "long"), (64, 65, "long"), (65, 65, "long"), (256, 256, "long"),
+    (512, 512, "long"), (4096, 4096, "long"), (512, 65, "long"), (1, 4096, "long"),
 ])
 @pytest.mark.parametrize("d", [16, 32, 9, 20])
 def test_bwd_small_route_by_t(tq, tk, route, d):
     """The small route takes bf16 at padded head dims 16 and 32 (9 pads to
     16, 20 to 32) when every key and every query of a batch*head fits one
     64-row wgmma tile, whatever B and H (the ViT's B 32 x H 16 among
-    them); one row past it on either side goes to the pair, by the shape
-    and never by a failure."""
+    them); one row past it on either side goes to the long route (T = 65,
+    the ViT's 512 at patch 4, 4096), by the shape and never by a failure;
+    the mma.sync pair takes neither."""
     assert SMALL_BWD_HEAD_DIMS == (16, 32) and SMALL_BWD_T == 64
     for b, h in ((32, 16), (2, 16), (1, 1), (256, 3)):
         plan = flash_bwd_plan(b, h, tq, tk, d)
         assert plan.route == route
-        assert plan == (SMALL_BWD_PLAN if route == "small" else MMA_SYNC_BWD_PLAN)
+        assert plan == (SMALL_BWD_PLAN if route == "small" else LONG_BWD_PLAN)
+        assert plan != MMA_SYNC_BWD_PLAN
 
 
 def test_bwd_small_instances_fit():
@@ -283,11 +295,77 @@ def test_bwd_small_instances_fit():
     assert 2 * 2 * SMS >= 32 * 16
 
 
+@pytest.mark.parametrize("d", SMALL_BWD_HEAD_DIMS)
+def test_bwd_long_instances_fit(d):
+    """The long kernel's block at D = 16 and 32 (one instance each): two
+    warpgroups of 64 keys, so 128 keys a block; six 128-byte swizzled
+    [64][64] bf16 tiles of 8192 bytes for K, V and the dS^T tile of 128
+    keys, and per ring stage (s: 3 at D = 16, 2 at 32) two for Q and dO,
+    the O tile (2 x 64 d), the lse row (4 x 64) and each warpgroup's delta
+    row (2 x 4 x 64); one fp32 dQ share (4 x 64 d) and 1024 bytes of
+    alignment: 111,872 bytes at D = 16 and 100,864 at D = 32, so two blocks
+    fit an SM at both (a third stage would not at D = 32), and the ViT's
+    patch-4 backward (B*H 512, T 512: 4 chunks of 128 keys a batch*head)
+    is 512 blocks, one a batch*head, about two waves of two blocks on 132
+    SMs."""
+    assert LONG_BWD_PLAN.bn == 128 and LONG_BWD_WARPGROUPS == 2
+    assert LONG_BWD_BM == 64 and LONG_BWD_STAGES == {16: 3, 32: 2}
+    s = LONG_BWD_STAGES[d]
+    written_out = ((6 + 2 * s) * 8192 + 4 * 64 * d + s * (2 * 64 * d + 4 * 64 + 2 * 4 * 64)
+                   + 1024)
+    assert LONG_BWD_PLAN.smem_bytes(d) == written_out == {16: 111872, 32: 100864}[d]
+    deeper = written_out + 2 * 8192 + 2 * 64 * d + 3 * 4 * 64
+    assert d == 16 or 2 * (deeper + 1024) > 233472
+    assert 2 * (written_out + 1024) <= 233472  # the SM's 228 KB, 1 KB reserved a block
+    assert written_out <= SMEM_LIMIT == 232448
+    assert -(-512 // LONG_BWD_PLAN.bn) == 4
+    assert 32 * 16 * long_bwd_groups(32 * 16, 512) == 512
+    with pytest.raises(ValueError, match="head dims"):
+        LONG_BWD_PLAN.smem_bytes(64)
+
+
+@pytest.mark.parametrize("bh,tq,tk,groups", [
+    (512, 512, 512, 1),       # the ViT at patch 4: one block of four chunks a batch*head
+    (512, 65, 65, 1),         # one chunk: dQ written directly, no slots, no counter
+    (1024, 4096, 4096, 1),    # B*H fills the card: one block of 32 chunks, no counter
+    (1024, 16384, 16384, 1),  # the ViT on DeepGalaxy's 2-D config at patch 1
+    (64, 2048, 2048, 5),      # 16 chunks over 5 blocks: 4 or 3 chunks each
+    (16, 16384, 16384, 17),   # 128 chunks over 17 blocks
+    (1, 4096, 4096, 32),      # one batch*head: a block a chunk
+    (3, 100, 300, 3),         # Tq != Tk, 3 chunks
+])
+def test_bwd_long_groups_keep_scratch_linear(bh, tq, tk, groups):
+    """The long route's blocks a batch*head: enough for LONG_BWD_BLOCKS (a
+    wave of two blocks an SM on 132 SMs) in all, at most the chunks of 128
+    keys; and so its fp32 dQ slots (one [64, D] tile a query tile a block,
+    only where there is more than one chunk) and counters (only where
+    there is more than one block) grow with T and not T^2: under (B*H +
+    LONG_BWD_BLOCKS) * Tq' * D * 4 bytes, written out, with Tq' rounded up
+    to 64 rows; dQ's own size in fp32 where B*H fills the card."""
+    assert LONG_BWD_BLOCKS == 2 * SMS
+    chunks = -(-tk // 128)
+    assert long_bwd_groups(bh, tk) == groups == min(chunks, -(-264 // bh))
+    tq_pad = -(-tq // 64) * 64
+    for d in SMALL_BWD_HEAD_DIMS:
+        got = long_bwd_scratch_bytes(bh, tq, tk, d)
+        slots = bh * groups * tq_pad * d * 4 if chunks > 1 else 0
+        assert got == slots + (4 * bh if groups > 1 else 0)
+        assert got <= (bh + LONG_BWD_BLOCKS) * tq_pad * d * 4 + 4 * bh
+        if bh >= LONG_BWD_BLOCKS and chunks > 1:
+            assert got == bh * tq_pad * d * 4
+    # the ViT at patch 4 at D = 16: 16.8 MB, where a slot set for every
+    # 128 keys took 67.1 MB; and at T = 16384 with B*H 1024, 1.07 GB where
+    # that took 137 GB
+    assert long_bwd_scratch_bytes(512, 512, 512, 16) == 16_777_216
+    assert long_bwd_scratch_bytes(1024, 16384, 16384, 16) == 1_073_741_824
+
+
 def test_delta_kernel_head_dims():
     """The delta pre-pass has an instance at every padded head dim, so every
     bf16 route that takes it (the fused route at 64 and 128, the mma.sync
-    pair at 16, 32 and 256, and at 64 and 128 on request) finds one: the
-    launcher's switch (csrc/flash_attention_bwd.cu) against HEAD_DIMS."""
+    pair at 256, and at 16, 32, 64 and 128 on request) finds one: the
+    launcher's switch (csrc/flash_attention_bwd.cu) against HEAD_DIMS. The
+    long route at 16 and 32 computes delta inside."""
     src = (ROOT / "rho_diffusion_tpu_torch" / "csrc" / "flash_attention_bwd.cu").read_text()
     launcher = src[src.index("int flash_attention_bwd_delta("):]
     launcher = launcher[:launcher.index("\n}\n")]
@@ -296,7 +374,9 @@ def test_delta_kernel_head_dims():
     accepted = {int(x) for x in re.findall(r"D == (\d+)", launcher)}
     assert accepted == set(HEAD_DIMS)
     for d in HEAD_DIMS:
-        assert flash_bwd_plan(2, 4, 512, 512, d).route in ("wgmma", "mma_sync")
+        route = flash_bwd_plan(2, 4, 512, 512, d).route
+        assert route == ("long" if d in SMALL_BWD_HEAD_DIMS else
+                         "mma_sync" if d == 256 else "wgmma")
 
 
 @pytest.mark.parametrize("d", WGMMA_HEAD_DIMS)
@@ -328,11 +408,28 @@ def test_bwd_kernel_wrapper_has_no_cpu_route():
 
     q = torch.zeros(1, 8, 1, 64, dtype=torch.bfloat16)
     lse = torch.zeros(1, 1, 8)
-    for plan in (None, *WGMMA_BWD_PLANS.values(), MMA_SYNC_BWD_PLAN, SMALL_BWD_PLAN):
+    for plan in (None, *WGMMA_BWD_PLANS.values(), MMA_SYNC_BWD_PLAN, SMALL_BWD_PLAN,
+                 LONG_BWD_PLAN):
         with pytest.raises(RuntimeError, match="no kernel for device cpu"):
             flash_attention_bwd_kernel(q, q, q, q, lse, q, plan=plan)
     q16 = torch.zeros(1, 8, 1, 16, dtype=torch.bfloat16)
     with pytest.raises(RuntimeError, match="no kernel for device cpu"):
         flash_attention_bwd_kernel(q16, q16, q16, q16, lse, q16)
+    q16 = torch.zeros(1, 512, 1, 16, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="no kernel for device cpu"):
+        flash_attention_bwd_kernel(q16, q16, q16, q16, torch.zeros(1, 1, 512), q16)
     with pytest.raises(RuntimeError, match="no kernel for device cpu"):
         flash_delta_kernel(q, q)
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_bwd_long_ablation_edits_apply(variant):
+    """Each variant of the long backward's ablation
+    (benchmarks/flash_bwd_long_ablation.py) finds every text it edits in
+    the kernel's source exactly as often as it says, so the ablation
+    measures the kernel as it is; the base variant is the source itself."""
+    text = (CSRC / ABLATED).read_text()
+    out = patched(text, VARIANTS[variant])
+    assert (out == text) == (variant == "base")
+    with pytest.raises(ValueError, match="occurs 0 times"):
+        patched(text, [("no such text", "", 1)])

@@ -20,7 +20,10 @@ dim and dtype takes; the fp32 forward's and backward's 3xTF32 routes
 pre-passes bitwise, the backward twice bitwise and beside the FMA pair; the
 fused backward at every plan (T = 512, 4096, 300
 and Tq != Tk, D = 64 and 128, strided qkv and head-major views), against
-the mma.sync pair, bitwise repeatable, and the plans it refuses; the direct conv's three flagship convs at full
+the mma.sync pair, bitwise repeatable, and the plans it refuses; the small
+and long backward at D = 16 and 32 (T up to 64, and past it to 4096) against
+the plain version and the pair, bitwise repeatable, and the long route's
+device memory at T = 4096 and 16384 (linear in T); the direct conv's three flagship convs at full
 width and shapes off its 8 x 32 voxel tile; and the ring-attention kernel
 (K6, one launch per card) in its ring of 2 and 4 ranks on one card at T/n =
 128 and 1024, ragged shards and a padded head dim, and with one rank per
@@ -30,7 +33,8 @@ level-1 widths and off their tiles (K7 ``full`` bitwise K5), and what they
 refuse. The int8 kernels (S1 on K5's block with s8 operands, S2, S3) bitwise
 against their plain versions: S1 at the flagship's levels, a half-filled
 channel chunk, four N tiles, ragged volumes and Cout and the largest Cin its
-int32 sums allow; S2 on the Downsample, 2-D, 1-D, Cin = 17 and an even
+int32 sums allow; the 2-D convs on S1's block at stride 1 and 2 (DeepGalaxy's
+levels at batch 8, ragged planes) against the plain version and S2; S2 on the Downsample, 2-D, 1-D, Cin = 17 and an even
 kernel; S3 in bf16 and fp32, ragged rows and weights. The plain versions run in fp32 with
 TF32 off; tolerances are chip_smoke.py's.
 """
@@ -47,13 +51,13 @@ from rho_diffusion_tpu_torch.ops.kernels.conv3d import (
 from rho_diffusion_tpu_torch.ops.kernels.conv3d_variants import (
     bigdot, bigdot_plain, conv_variant, conv_variant_plain, dots_only, dots_only_plain)
 from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
-    FP32_BWD_PLAN, FP32_PLAN, MMA_SYNC_BWD_PLAN, MMA_SYNC_PLAN, SMALL_BWD_PLAN, TF32_BWD_PLAN,
-    TF32_PLAN,
+    FP32_BWD_PLAN, FP32_PLAN, LONG_BWD_BLOCKS, LONG_BWD_PLAN, MMA_SYNC_BWD_PLAN, MMA_SYNC_PLAN,
+    SMALL_BWD_PLAN, TF32_BWD_PLAN, TF32_PLAN,
     WGMMA_BWD_PLANS, WGMMA_PLANS, FlashBwdPlan, FlashPlan, flash_attention,
     flash_attention_bwd_kernel, flash_attention_bwd_plain, flash_attention_fwd_kernel,
     flash_attention_plain, flash_bwd_plan, flash_bwd_split, flash_bwd_split_plain, flash_delta,
     flash_delta_kernel, flash_fwd_split, flash_lse_plain, flash_plan, flash_routes,
-    flash_split_plain, padded_head_dim, wgmma_pv_probe)
+    flash_split_plain, long_bwd_scratch_bytes, padded_head_dim, wgmma_pv_probe)
 from rho_diffusion_tpu_torch.ops.kernels.ring_attention import (
     ring_attention_fold, ring_attention_fold_plain, ring_split, ring_split_plain, tf32_probe)
 from rho_diffusion_tpu_torch.ops.kernels.tf32 import tf32_matmul, tf32_round, tf32_split
@@ -303,16 +307,16 @@ def fwd_launches(d, dtype) -> dict:
 def bwd_launches(d, dtype, tq=512, tk=512) -> dict:
     """The backward's launches by route: at padded head dims 64 and 128 the
     fused kernel and its delta pre-pass for bf16, the 3xTF32 pair and its
-    pre-pass for fp32; bf16 at padded 16 and 32 with Tq, Tk <= 64 the small
-    kernel alone (delta inside); the dkv/dq pair elsewhere, for bf16 after
-    the delta pre-pass."""
+    pre-pass for fp32; bf16 at padded 16 and 32 the small kernel alone with
+    Tq, Tk <= 64 and the long kernel alone past it (delta inside both); the
+    dkv/dq pair elsewhere, for bf16 after the delta pre-pass."""
     if padded_head_dim(d) in (64, 128):
         if dtype == torch.bfloat16:
             return {"flash_attention_bwd": 1, "flash_attention_bwd_delta": 1}
         return {"flash_attention_bwd_tf32_split": 1, "flash_attention_bwd_tf32_dkv": 1,
                 "flash_attention_bwd_tf32_dq": 1}
-    if dtype == torch.bfloat16 and padded_head_dim(d) in (16, 32) and max(tq, tk) <= 64:
-        return {"flash_attention_bwd_small": 1}
+    if dtype == torch.bfloat16 and padded_head_dim(d) in (16, 32):
+        return {f"flash_attention_bwd_{'small' if max(tq, tk) <= 64 else 'long'}": 1}
     pair = {"flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1}
     return {**pair, "flash_attention_bwd_delta": 1} if dtype == torch.bfloat16 else pair
 
@@ -539,7 +543,7 @@ def test_flash_bwd_small_refuses_what_it_does_not_take(cuda):
     fp32; the plan never sends such a shape there."""
     q, k, v, do = bwd_inputs(1, 65, 65, 2, 16, "qkv", 52, cuda)
     o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
-    assert flash_bwd_plan(1, 2, 65, 65, 16) == MMA_SYNC_BWD_PLAN
+    assert flash_bwd_plan(1, 2, 65, 65, 16) == LONG_BWD_PLAN
     with pytest.raises(ValueError, match=r"\(1, 65, 2, 16\)"):
         flash_attention_bwd_kernel(q, k, v, o, lse, do, plan=SMALL_BWD_PLAN)
     q, k, v, do = bwd_inputs(1, 64, 64, 2, 64, "qkv", 53, cuda)
@@ -550,6 +554,105 @@ def test_flash_bwd_small_refuses_what_it_does_not_take(cuda):
     o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
     with pytest.raises(ValueError, match="route"):
         flash_attention_bwd_kernel(q, k, v, o, lse, do, plan=SMALL_BWD_PLAN)
+
+
+LONG_SHAPES = [
+    (32, 512, 512, 16, 16),   # the ViT at patch 4: 512 batch*heads, 4 key blocks, 8 query tiles
+    (2, 65, 65, 16, 16),      # one row past the small route: 2 query tiles, one key block
+    (1, 4096, 4096, 2, 16),   # 32 key blocks add to each dQ tile
+    (2, 300, 300, 3, 32),     # ragged Tq and Tk, D = 32
+    (1, 70, 130, 3, 16),      # Tq != Tk: a second key block of 2 keys
+    (1, 200, 40, 2, 32),      # fewer keys than a block: its second warpgroup has none
+    (3, 100, 100, 5, 20),     # head dim padded to 32
+    (2, 129, 257, 2, 9),      # head dim padded to 16, 3 key blocks
+    (4, 2048, 2048, 16, 16),  # B*H 64: 16 chunks of 128 keys over 5 blocks, 4 or 3 each
+    (17, 300, 300, 16, 16),   # B*H 272 fills the card: one block of 3 chunks, no counter
+]
+
+
+@pytest.mark.parametrize("layout", ["qkv", "head_major"])
+@pytest.mark.parametrize("b,tq,tk,h,d", LONG_SHAPES)
+def test_flash_bwd_long_matches_plain(cuda, b, tq, tk, h, d, layout):
+    """The long route (one launch a backward, delta inside, dQ added across
+    key blocks in a fixed order) on strided-qkv and head-major views against
+    the fp32 plain backward on the same inputs, at the backward's
+    tolerance; its gradients at the caller's layout."""
+    q, k, v, do = bwd_inputs(b, tq, tk, h, d, layout, 55, cuda)
+    assert flash_bwd_plan(b, h, tq, tk, d) == LONG_BWD_PLAN
+    o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+    launch_counts.clear()
+    got = flash_attention_bwd_kernel(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert launch_counts == {"flash_attention_bwd_long": 1}
+    assert all(g.shape == t.shape for g, t in zip(got, (q, k, v)))
+    assert_bwd_close(got, q, k, v, do)
+
+
+@pytest.mark.parametrize("b,t,h,d", [(32, 512, 16, 16), (2, 300, 16, 16), (4, 256, 8, 32),
+                                     (17, 300, 16, 16)])
+def test_flash_bwd_long_matches_the_pair(cuda, b, t, h, d):
+    """The long kernel against the mma.sync pair it replaces, on the same
+    inputs (the pair on request): the same roundings, so the two agree
+    within the backward's bound; and two runs of the long kernel agree bit
+    for bit (dQ's shares added in the key blocks' order)."""
+    q, k, v, do = bwd_inputs(b, t, t, h, d, "qkv", 56, cuda)
+    o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+    launch_counts.clear()
+    new = flash_attention_bwd_kernel(q, k, v, o, lse, do)
+    again = flash_attention_bwd_kernel(q, k, v, o, lse, do)
+    old = flash_attention_bwd_kernel(q, k, v, o, lse, do, plan=MMA_SYNC_BWD_PLAN)
+    torch.cuda.synchronize()
+    assert launch_counts == {"flash_attention_bwd_long": 2, "flash_attention_bwd_delta": 1,
+                             "flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1}
+    assert all(torch.equal(a, e) for a, e in zip(new, again))
+    assert_bwd_close(old, q, k, v, do)
+    for a, e in zip(new, old):
+        assert_flash_close_bwd(a, e.float())
+
+
+@pytest.mark.parametrize("b,t,h", [(64, 4096, 16), (1, 16384, 16)])
+def test_flash_bwd_long_memory_is_linear_in_t(cuda, b, t, h):
+    """The long route's device memory at a large B*H*T: the call allocates
+    dq, dk and dv and its fp32 dQ slots and counters (long_bwd_scratch_bytes,
+    linear in T), and nothing that grows as Tq * Tk (a slot set for every
+    128 keys took 8.6 GB at B*H 1024, T 4096 and 2.1 GB at B*H 16, T
+    16384); and two calls agree bit for bit."""
+    d = 16
+    q, k, v, do = bwd_inputs(b, t, t, h, d, "head_major", 60, cuda)
+    o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts.clear()
+    got = flash_attention_bwd_kernel(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    scratch = long_bwd_scratch_bytes(b * h, t, t, d)
+    assert launch_counts == {"flash_attention_bwd_long": 1}
+    assert peak <= 3 * b * t * h * d * 2 + scratch + (1 << 20)
+    assert scratch < (b * h + LONG_BWD_BLOCKS) * t * d * 4 + 4 * b * h
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    again = flash_attention_bwd_kernel(q, k, v, o, lse, do)
+    assert all(torch.equal(a, e) for a, e in zip(got, again))
+
+
+def test_flash_bwd_long_refuses_what_it_does_not_take(cuda):
+    """The long route on request outside its range raises and names the
+    shape: T within one 64-row tile (the small route's), a padded head dim
+    other than 16 or 32, fp32; the plan never sends such a shape there."""
+    q, k, v, do = bwd_inputs(1, 64, 64, 2, 16, "qkv", 57, cuda)
+    o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+    assert flash_bwd_plan(1, 2, 64, 64, 16) == SMALL_BWD_PLAN
+    with pytest.raises(ValueError, match=r"\(1, 64, 2, 16\)"):
+        flash_attention_bwd_kernel(q, k, v, o, lse, do, plan=LONG_BWD_PLAN)
+    q, k, v, do = bwd_inputs(1, 128, 128, 2, 64, "qkv", 58, cuda)
+    o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+    with pytest.raises(ValueError, match=r"\(1, 128, 2, 64\)"):
+        flash_attention_bwd_kernel(q, k, v, o, lse, do, plan=LONG_BWD_PLAN)
+    q, k, v, do = (t.float() for t in bwd_inputs(1, 128, 128, 2, 16, "qkv", 59, cuda))
+    o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+    with pytest.raises(ValueError, match="route"):
+        flash_attention_bwd_kernel(q, k, v, o, lse, do, plan=LONG_BWD_PLAN)
 
 
 def test_flash_bwd_fused_refuses_a_plan_it_does_not_take(cuda):
@@ -696,7 +799,8 @@ def test_unet_training_step_reaches_every_parameter(cuda, num_heads, head_dim, s
                    "flash_attention", *bwd):
         assert launch_counts[kernel] > 0, kernel
     others = {"flash_attention_bwd", "flash_attention_bwd_delta", "flash_attention_bwd_dkv",
-              "flash_attention_bwd_dq", "flash_attention_bwd_small"} - set(bwd)
+              "flash_attention_bwd_dq", "flash_attention_bwd_small",
+              "flash_attention_bwd_long"} - set(bwd)
     assert not any(launch_counts[kernel] for kernel in others)
 
 
@@ -1143,6 +1247,50 @@ def test_int8_strided_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="Cin % 16 == 0"):
         k.conv3d_s8_strided_kernel(xq, s_x, k.s1_weights(wq), s_w, bias)
     assert k.int8_conv_route(tuple(xq.shape), (3, 3, 3), (1, 2, 2), [(1, 1)] * 3, 32) == "s2"
+
+
+@pytest.mark.parametrize("out_dtype", [torch.int32, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("shape,cout", [
+    ((8, 128, 128, 32), 32), ((8, 64, 64, 96), 64), ((8, 32, 32, 384), 128),
+    ((8, 16, 16, 512), 256), ((2, 13, 11, 48), 40), ((1, 8, 8, 16), 300), ((1, 9, 7, 1024), 16)])
+def test_int8_2d_matches_plain_and_s2(cuda, shape, cout, stride, out_dtype):
+    """The 2-D 3x3 convs on S1's block (the 1x3x3 taps over x as a depth-1
+    volume) at stride 1 and the Downsample's 2: DeepGalaxy's levels at batch
+    8, ragged odd H and W, an 8 x 8 plane (half of each box past the
+    volume), Cout over N tiles and a wide Cin, bitwise against the plain
+    version and against S2 on the same inputs."""
+    from rho_diffusion_tpu_torch.ops.kernels import conv_int8 as k
+
+    xq, wq, s_x, s_w, bias = _int8_operands(shape, cout, (3, 3), seed=sum(shape) + cout + stride)
+    strides, pads = (stride,) * 2, [(1, 1)] * 2
+    route = k.int8_conv_route(shape, (3, 3), strides, pads, cout)
+    assert route == ("s1_2d" if stride == 1 else "s1_2d_strided")
+    name = "conv2d_s8" if stride == 1 else "conv2d_s8_strided"
+    launch = k.conv2d_s8_kernel if stride == 1 else k.conv2d_s8_strided_kernel
+    launch_counts.clear()
+    got = launch(xq, s_x, k.s1_2d_weights(wq), s_w, bias, out_dtype)
+    assert launch_counts == {name: 1}
+    want = k.conv_int8_plain(xq, s_x, wq, s_w, bias, strides, pads, out_dtype)
+    s2 = k.conv_s8_general_kernel(xq, s_x, k.s2_weights(wq), s_w, bias, (3, 3), strides, pads,
+                                  out_dtype)
+    assert got.shape == want.shape
+    assert torch.equal(got, want) and torch.equal(got, s2)
+
+
+def test_int8_2d_refuses_what_it_does_not_take(cuda):
+    """Cin off the 16-byte multiple and 3-D operands raise and name them;
+    S2 keeps the first."""
+    from rho_diffusion_tpu_torch.ops.kernels import conv_int8 as k
+
+    xq, wq, s_x, s_w, bias = _int8_operands((1, 8, 8, 24), 32, (3, 3), seed=6)
+    for launch in (k.conv2d_s8_kernel, k.conv2d_s8_strided_kernel):
+        with pytest.raises(ValueError, match="Cin % 16 == 0"):
+            launch(xq, s_x, k.s1_2d_weights(wq), s_w, bias)
+    assert k.int8_conv_route(tuple(xq.shape), (3, 3), (1, 1), [(1, 1)] * 2, 32) == "s2"
+    x3, w3, s_x, s_w, bias = _int8_operands((1, 4, 8, 8, 32), 32, (3, 3, 3), seed=7)
+    with pytest.raises(ValueError, match=r"w \[Cout,9,Cin\]"):
+        k.conv2d_s8_kernel(x3, s_x, k.s1_weights(w3), s_w, bias)
 
 
 @pytest.mark.parametrize("shape,dtype", [

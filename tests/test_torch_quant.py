@@ -16,7 +16,14 @@ phase holds S1-S3 bitwise against the same plain versions.
   tap's origin, TMA's element-stride gather with its zero fill, 128-channel
   chunks; its int32 sums equal JAX's ``ConvInt8`` product and, dequantised
   as the epilogue does, its output, bit for bit, on the flagship's three
-  Downsamples cut to batch 1 and depth 4, and a ragged H and W.
+  Downsamples cut to batch 1 and depth 4, and a ragged H and W. The 2-D
+  routes (``conv2d_s8`` and ``conv2d_s8_strided``: S1's block over x as a
+  depth-1 volume with the 1x3x3 tap set, weights ``s1_2d_weights``) are
+  walked the same way against JAX's 2-D ``ConvInt8`` at DeepGalaxy's 2-D
+  shapes cut to batch 1, and every int8 conv of the 2-D DeepGalaxy UNet
+  (128^2, width 32) is on its route: every 3x3 conv with Cin % 16 == 0 on
+  a 2-D route, S2 on none (its Cin = 1 input conv stays float, and S2 is
+  its route were it quantised).
 * Layers under 16 channels stay float in ``self.dtype or x.dtype``. A
   float conv sums its products in another order than XLA's, so these are
   held at fp32's summation error (1e-5 relative to the largest output) in
@@ -194,7 +201,7 @@ def test_conv_int8_bitwise_against_jax(case, dtype):
         assert np.abs(as_np(want)).max() > 0.1
 
 
-def strided_route_sums(xq: np.ndarray, wq: np.ndarray) -> np.ndarray:
+def strided_route_sums(xq: np.ndarray, wq: np.ndarray, sw: int = 2) -> np.ndarray:
     """The int32 sums of the Downsample's route on the card, walked as the
     kernel walks them: xq [B, D, H, W, Cin] int8, wq [Cout, Cin, 3, 3, 3]
     int8, the conv at stride (1, 2, 2) with pads (1, 1). Each block is one
@@ -204,17 +211,28 @@ def strided_route_sums(xq: np.ndarray, wq: np.ndarray) -> np.ndarray:
     spans 2 bw x 2 bh x bd voxels with element strides (2, 2, 1), so TMA
     brings ceil(2 bw / 2) = bw voxels along W (likewise H), zero outside x;
     the products run over 128-channel chunks (zero past Cin). Rows of a box
-    past the output are dropped."""
+    past the output are dropped. The 2-D routes' walk: xq [B, H, W, Cin]
+    and wq [Cout, Cin, 3, 3], at stride (sw, sw), as the depth-1 volume
+    [B, 1, H, W, Cin] over the 9 taps of the 1x3x3 set (dz the centre
+    plane) with the [Cout, 9, Cin] weights of ``s1_2d_weights``."""
+    two_d = xq.ndim == 4
+    if two_d:
+        xq = xq[:, None]
+    taps = 9 if two_d else 27
     b_, d_, h_, w_, cin = xq.shape
     cout = wq.shape[0]
-    out_sp = k.conv_out_spatial((d_, h_, w_), (3, 3, 3), (1, 2, 2), ((1, 1),) * 3)
+    kd = 1 if two_d else 3
+    out_sp = k.conv_out_spatial((d_, h_, w_), (kd, 3, 3), (1, sw, sw),
+                                ((kd // 2, kd // 2), (1, 1), (1, 1)))
     plan = igemm_plan((b_, *out_sp, cin), cout)
     bw, bh, bd = plan.bw, plan.bh, plan.bd
-    assert bw * bh * bd == 128 and max(2 * bw, 2 * bh) <= 256  # TMA's box extents
-    assert -(-2 * bw // 2) == bw and -(-2 * bh // 2) == bh
-    w1 = k.s1_weights(torch.from_numpy(wq)).numpy().astype(np.int64)  # [Cout, 27, Cin]
+    assert bw * bh * bd == 128 and max(sw * bw, sw * bh) <= 256  # TMA's box extents
+    assert -(-sw * bw // sw) == bw and -(-sw * bh // sw) == bh
+    layout = k.s1_2d_weights if two_d else k.s1_weights
+    w1 = layout(torch.from_numpy(wq)).numpy().astype(np.int64)  # [Cout, taps, Cin]
+    assert w1.shape == (cout, taps, cin)
     chunks = -(-cin // 128)
-    wt = np.zeros((cout, 27, chunks * 128), np.int64)
+    wt = np.zeros((cout, taps, chunks * 128), np.int64)
     wt[..., :cin] = w1
     r = np.arange(128)
     dd, hh, ww = r // (bw * bh), r // bw % bh, r % bw
@@ -224,11 +242,11 @@ def strided_route_sums(xq: np.ndarray, wq: np.ndarray) -> np.ndarray:
             for h0 in range(0, out_sp[1], bh):
                 for w0 in range(0, out_sp[2], bw):
                     acc = np.zeros((128, cout), np.int64)
-                    for tap in range(27):
-                        dz, dy, dx = tap // 9, tap // 3 % 3, tap % 3
+                    for tap in range(taps):
+                        dz, dy, dx = (1 if two_d else tap // 9), tap // 3 % 3, tap % 3
                         z = d0 + dz - 1 + dd
-                        y = 2 * h0 + dy - 1 + 2 * hh
-                        x = 2 * w0 + dx - 1 + 2 * ww
+                        y = sw * h0 + dy - 1 + sw * hh
+                        x = sw * w0 + dx - 1 + sw * ww
                         inside = (z >= 0) & (z < d_) & (y >= 0) & (y < h_) & (x >= 0) & (x < w_)
                         a = np.zeros((128, chunks * 128), np.int64)
                         a[inside, :cin] = xq[b, z[inside], y[inside], x[inside]]
@@ -238,7 +256,7 @@ def strided_route_sums(xq: np.ndarray, wq: np.ndarray) -> np.ndarray:
                     keep = (d0 + dd < out_sp[0]) & (h0 + hh < out_sp[1]) & (w0 + ww < out_sp[2])
                     out[b, (d0 + dd)[keep], (h0 + hh)[keep], (w0 + ww)[keep]] = acc[keep]
     assert np.abs(out).max() < 2**31
-    return out.astype(np.int32)
+    return out[:, 0].astype(np.int32) if two_d else out.astype(np.int32)
 
 
 @pytest.mark.parametrize("shape,cout", [
@@ -282,6 +300,119 @@ def test_strided_route_box_walk_against_jax(shape, cout):
                                  torch.from_numpy(np.array(s_w)), torch.from_numpy(bias),
                                  torch.bfloat16 if dtype == "bfloat16" else torch.float32)
         np.testing.assert_array_equal(as_np(deq), as_np(y))
+
+
+@pytest.mark.parametrize("shape,cout,stride", [
+    ((1, 128, 128, 32), 32, 1),    # DeepGalaxy's level 0 (128^2, width 32), batch 1
+    ((1, 128, 128, 32), 32, 2),    # its level-0 Downsample
+    ((1, 64, 64, 96), 64, 1),      # a decoder concat at level 1
+    ((1, 32, 32, 192), 128, 1),
+    ((1, 16, 16, 512), 256, 1),    # level 3: 512 channels, four 128-channel chunks
+    ((2, 13, 11, 48), 40, 2),      # ragged H and W at stride 2: boxes past the output
+    ((2, 9, 10, 32), 48, 1),       # ragged, Cout off the N tiles
+])
+def test_2d_routes_box_walk_against_jax(shape, cout, stride):
+    """The 2-D 3x3 convs' routes are "s1_2d" (stride 1) and "s1_2d_strided"
+    (stride 2, the 2-D Downsample; JAX pads k // 2); their box walk over
+    the 1x3x3 taps with ``s1_2d_weights``' layout sums to the integer
+    product of JAX's 2-D ``ConvInt8`` (ops/quant.py:143-153), and
+    dequantised as the epilogue does it equals ``ConvInt8``'s output bit
+    for bit, in fp32 and in bf16."""
+    route = {1: "s1_2d", 2: "s1_2d_strided"}[stride]
+    assert k.int8_conv_route(shape, (3, 3), (stride,) * 2, [(1, 1)] * 2, cout) == route
+    rng = np.random.default_rng(sum(shape) + cout + stride)
+    x = inputs(shape, seed=sum(shape) + stride)
+    kernel = (rng.normal(size=(3, 3, shape[-1], cout)) / np.sqrt(9 * shape[-1])).astype(
+        np.float32)
+    bias = (0.1 * rng.normal(size=(cout,))).astype(np.float32)
+    with jax_conv_quant("int8"):
+        jmod = jax_conv_nd(2, cout, 3, stride=stride)
+    # JAX's stride-1 3x3 "SAME" is pads (1, 1); its strided one pads k // 2
+    assert isinstance(jmod, ConvInt8)
+    assert (jmod.padding == "SAME" if stride == 1
+            else tuple(map(tuple, jmod.padding)) == ((1, 1),) * 2)
+    w_q, s_w = jax_quantize_int8(jnp.asarray(kernel), axes=(0, 1, 2))
+    x_q, s_x = jax_quantize_int8(jnp.asarray(x), axes=(1, 2, 3))
+    want = np.asarray(jax.lax.conv_general_dilated(
+        x_q, w_q, (stride,) * 2, jmod.padding, dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        preferred_element_type=jnp.int32))
+    wq = np.ascontiguousarray(np.asarray(w_q).transpose(3, 2, 0, 1))  # [Cout, Cin, 3, 3]
+    w9 = k.s1_2d_weights(torch.from_numpy(wq))
+    assert tuple(w9.shape) == (cout, 9, shape[-1])
+    assert torch.equal(w9[:, 3 * 2 + 1], torch.from_numpy(wq[:, :, 2, 1]))  # tap dy*3+dx
+    got = strided_route_sums(np.asarray(x_q), wq, sw=stride)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    for dtype in ("float32", "bfloat16"):
+        jdt = jnp.bfloat16 if dtype == "bfloat16" else None
+        with jax_conv_quant("int8"):
+            jmod = jax_conv_nd(2, cout, 3, stride=stride, dtype=jdt)
+        y = jmod.apply({"params": {"kernel": jnp.asarray(kernel), "bias": jnp.asarray(bias)}},
+                       jnp.asarray(x))
+        deq = k.dequantize_plain(torch.from_numpy(got), torch.from_numpy(np.array(s_x)),
+                                 torch.from_numpy(np.array(s_w)), torch.from_numpy(bias),
+                                 torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+        np.testing.assert_array_equal(as_np(deq), as_np(y))
+
+
+# The 23 distinct int8 conv problems of a 2-D DeepGalaxy UNet forward at
+# batch 8 (x, Cout, stride; 3x3, pads (1, 1)) with their calls a forward:
+# S2's whole 2-D path before the 2-D routes, as the card's int8 phase
+# listed it
+DEEP_GALAXY_2D_SITES = {
+    ((8, 128, 128, 32), 32, 1): 7, ((8, 128, 128, 32), 32, 2): 1,
+    ((8, 128, 128, 64), 32, 1): 2, ((8, 128, 128, 64), 64, 1): 1,
+    ((8, 128, 128, 96), 32, 1): 1, ((8, 16, 16, 128), 256, 1): 1,
+    ((8, 16, 16, 256), 256, 1): 10, ((8, 16, 16, 384), 256, 1): 1,
+    ((8, 16, 16, 512), 256, 1): 2, ((8, 32, 32, 128), 128, 1): 6,
+    ((8, 32, 32, 128), 128, 2): 1, ((8, 32, 32, 192), 128, 1): 1,
+    ((8, 32, 32, 256), 128, 1): 1, ((8, 32, 32, 256), 256, 1): 1,
+    ((8, 32, 32, 384), 128, 1): 1, ((8, 32, 32, 64), 128, 1): 1,
+    ((8, 64, 64, 128), 128, 1): 1, ((8, 64, 64, 128), 64, 1): 1,
+    ((8, 64, 64, 192), 64, 1): 1, ((8, 64, 64, 32), 64, 1): 1,
+    ((8, 64, 64, 64), 64, 1): 6, ((8, 64, 64, 64), 64, 2): 1,
+    ((8, 64, 64, 96), 64, 1): 1,
+}
+
+
+def test_deep_galaxy_2d_sites_take_the_2d_routes():
+    """Every int8 conv site of the 2-D DeepGalaxy UNet (examples/
+    config_deep_galaxy.json at full width, 128^2, batch 1 on the CPU) and
+    the route it takes on the card: the 23 problems S2 ran before, each 3x3
+    with pads (1, 1) and Cin % 16 == 0, now on "s1_2d" (stride 1) or
+    "s1_2d_strided" (the three Downsamples), none on S2. The Cin = 1 input
+    conv and the Cout = 1 output conv stay float (the small-layer rule);
+    quantised, the input conv would be S2's (Cin % 16 != 0), as 1-D convs
+    and Cin 24 are."""
+    import json
+    from pathlib import Path
+
+    from rho_diffusion_tpu_torch.models.unet import UNet
+
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "examples" /
+                      "config_deep_galaxy.json").read_text())
+    kw = {k_: v for k_, v in cfg["model"]["kwargs"].items() if k_ not in ("num_classes", "cond_fn")}
+    unet = UNet(**kw).eval()
+    x = torch.from_numpy(inputs((1, 128, 128, 1), seed=8))
+    with Int8Sites() as sites, conv_quant("int8"), torch.no_grad():
+        out = unet(x, torch.tensor([5]))
+    assert tuple(out.shape) == (1, 128, 128, 1) and bool(torch.isfinite(out).all())
+    convs = [c for c in sites.calls if c["site"] == "conv"]
+    found: dict = {}
+    for c in convs:
+        if c["route"] == "float":
+            continue
+        assert c["kernel"] == (3, 3) and c["pads"] == ((1, 1), (1, 1)), c
+        key = ((8, *c["x"][1:]), c["cout"], c["stride"][0])
+        found[key] = found.get(key, 0) + 1
+        assert c["route"] == ("s1_2d" if c["stride"] == (1, 1) else "s1_2d_strided"), c
+    assert found == DEEP_GALAXY_2D_SITES
+    assert sum(found.values()) == 50  # 50 S2 launches a forward before
+    floats = sorted((c["x"][-1], c["cout"]) for c in convs if c["route"] == "float")
+    assert floats == [(1, 32), (32, 1)]
+    assert k.int8_conv_route((8, 128, 128, 1), (3, 3), (1, 1), [(1, 1)] * 2, 32) == "s2"
+    assert k.int8_conv_route((8, 128, 128, 24), (3, 3), (1, 1), [(1, 1)] * 2, 32) == "s2"
+    assert k.int8_conv_route((8, 4096, 32), (3,), (1,), [(1, 1)], 32) == "s2"
 
 
 @pytest.mark.parametrize("out_dtype", [torch.int32, torch.float32, torch.bfloat16])

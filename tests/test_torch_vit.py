@@ -79,7 +79,6 @@ def both(shapes, y=None, cond_kw=None, seed=0, **kw):
         "class_embed.weight"]
     assert loaded.missing_keys == unused
     return jm, params, pm, x, t
-    return jm, params, pm, x, t
 
 
 def forwards(jm, params, pm, x, t, y=None):
@@ -135,9 +134,62 @@ def test_conditional_forward_matches_jax(shapes, seam):
 
 
 def test_precomputed_rows_of_another_width_raise():
-    _, _, pm, x, t = both((16,), y=precomputed_rows(), num_classes=20)
-    with pytest.raises(ValueError, match="width 24; .* takes 32, the model's embedding_dim"):
+    """A conditional ViT with no cond_fn, initialised through each package's
+    pipeline at embedding_dim 32: JAX's initialises it on rows of
+    ``condition_embedding_dim()`` = 256 (4 x the default model_channels), so
+    flax sizes ``cond_proj`` from them and makes no ``class_embed``; the
+    port's pipeline passes that width as ``condition_dim``. The JAX tree
+    loads through the weight carrier with no key missing or left over, and
+    the forward and one loss's gradients on 256-wide rows equal JAX's. Rows
+    of a width neither side takes (24) and integer labels still raise."""
+    from rho_diffusion_tpu.diffusion import DDPM as JaxDDPM
+    from rho_diffusion_tpu.diffusion import LinearSchedule as JaxSchedule
+    from rho_diffusion_tpu_torch.diffusion import DDPM, LinearSchedule
+
+    kw = dict(SMALL, input_shapes=(8, 8), num_classes=20)
+    jpipe = JaxDDPM(backbone="VisionTransformer", backbone_kwargs=kw, schedule=JaxSchedule(21))
+    params = jax.tree_util.tree_map(np.asarray, jpipe.init_params(jax.random.PRNGKey(4)))
+    assert "class_embed" not in params and params["cond_proj"]["kernel"].shape == (256, 32)
+    pipe = DDPM(backbone="VisionTransformer", backbone_kwargs=kw, schedule=LinearSchedule(21),
+                device="cpu")
+    pm = pipe.backbone
+    assert jpipe.condition_embedding_dim() == pipe.condition_embedding_dim() == 256
+    assert pm.condition_dim == 256 and not hasattr(pm, "class_embed")
+    loaded = pm.load_state_dict(tensors(VisionTransformer.state_dict_from_jax(params)))
+    assert not loaded.missing_keys and not loaded.unexpected_keys
+
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, 8, 8, 1)).astype(np.float32)
+    t = np.array([1, 17])
+    y = precomputed_rows(width=256)
+    target = rng.normal(size=x.shape).astype(np.float32)
+    got, want = forwards(jpipe.backbone, params, pm, x, t, y)
+    assert rel_mse(got, want) < 1e-9
+
+    def loss(p):
+        out = jpipe.backbone.apply({"params": p}, jnp.asarray(x), jnp.asarray(t), jnp.asarray(y))
+        return jnp.mean((out - jnp.asarray(target)) ** 2)
+
+    want_g = VisionTransformer.state_dict_from_jax(
+        jax.tree_util.tree_map(np.asarray, jax.grad(loss)(params)))
+    out = pm(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(y))
+    torch.mean((out - torch.from_numpy(target)) ** 2).backward()
+    got_g = {k: p.grad.numpy() for k, p in pm.named_parameters()}
+    assert set(got_g) == set(want_g)
+    num = sum(float(np.sum((got_g[k].astype(np.float64) - want_g[k]) ** 2)) for k in want_g)
+    den = sum(float(np.sum(want_g[k].astype(np.float64) ** 2)) for k in want_g)
+    assert num / den < 1e-9 and np.abs(want_g["cond_proj.weight"]).max() > 0
+
+    with pytest.raises(ValueError, match="width 24; .* takes 256, its condition_dim"):
         pm(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(precomputed_rows(width=24)))
+    with pytest.raises(ValueError, match="no class_embed for integer labels"):
+        pm(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(class_rows()))
+    # the plain constructor keeps its meaning: class_embed, rows embedding_dim wide
+    _, _, plain, x1, t1 = both((16,), y=precomputed_rows(), num_classes=20)
+    assert hasattr(plain, "class_embed") and plain.condition_dim is None
+    with pytest.raises(ValueError, match="width 24; .* takes 32, its embedding_dim"):
+        plain(torch.from_numpy(x1), torch.from_numpy(t1),
+              torch.from_numpy(precomputed_rows(width=24)))
 
 
 @pytest.mark.parametrize("shapes", [(16,), (8, 8, 8)], ids=["1d", "3d"])
@@ -267,7 +319,9 @@ def test_int8_leaves_the_vit_float():
 def test_cfg_and_cond_dropout_raise(pipeline):
     """The ViT takes no cond_mask: cond_dropout > 0 raises at construction
     and classifier-free guidance raises when sampling, with JAX's message
-    (tests/pipeline/test_cfg.py), though the model is class-conditional."""
+    (tests/pipeline/test_cfg.py), though the model is class-conditional.
+    The pipeline builds it for precomputed rows ``condition_embedding_dim()``
+    wide, as JAX's pipeline initialises it, so it samples on such rows."""
     from rho_diffusion_tpu_torch.diffusion import DDPM, GaussianDiffusionPipeline, LinearSchedule
 
     cls = {"DDPM": DDPM, "GaussianDiffusionPipeline": GaussianDiffusionPipeline}[pipeline]
@@ -278,11 +332,11 @@ def test_cfg_and_cond_dropout_raise(pipeline):
         cls(**kw, cond_dropout=0.2)
     pipe = cls(**kw)
     assert not pipe.backbone_supports_cond_mask()
+    rows = torch.from_numpy(precomputed_rows(width=pipe.condition_embedding_dim()))
     with pytest.raises(ValueError, match="guidance_scale=3.0 requires a backbone"):
-        pipe.reverse_process((2, 8, 8, 8, 1), torch.tensor([1, 2]), guidance_scale=3.0,
+        pipe.reverse_process((2, 8, 8, 8, 1), rows, guidance_scale=3.0,
                              generator=torch.Generator().manual_seed(0))
     # unguided, the class-conditional ViT samples
-    out = pipe.reverse_process((2, 8, 8, 8, 1), torch.tensor([1, 2]),
-                               generator=torch.Generator().manual_seed(0))
+    out = pipe.reverse_process((2, 8, 8, 8, 1), rows, generator=torch.Generator().manual_seed(0))
     out = out["denoised"] if isinstance(out, dict) else out
     assert torch.isfinite(out).all()
