@@ -106,7 +106,8 @@ weights loaded from a reference-layout ``.pth``):
   its kernel (S1, the s8 implicit GEMM on K5's block, for the stride-1
   convs; ``conv3d_s8_strided``, S1's block with a strided x map, for the
   three (1, 2, 2) Downsamples, also held bitwise against S2 and timed beside
-  it), S2 at a 2-D, a 1-D and a Cin = 24 problem, and S3 (the quantiser's
+  it), S2 at a 2-D, a 1-D and a Cin = 24 problem (its launches there are its
+  count's, ``int8_s2``: no path runs S2), and S3 (the quantiser's
   two launches) at every activation shape and at fp32 weights, each held
   bitwise (int32 sums and dequantised output) against its plain version and
   timed beside its bound (int8 at 1,979 TOPS, or bytes), its plain version
@@ -118,11 +119,12 @@ weights loaded from a reference-layout ``.pth``):
   path, the same CLI on the 2-D DeepGalaxy config at full width (128^2,
   width 32, DATA_SAMPLE_STEPS steps, every int8 conv on S1's block over
   the 1x3x3 taps, ``conv2d_s8`` and ``conv2d_s8_strided``, and none on
-  S2), and S2's path, the CLI on the 1-D Spectroscopy config (4096 points,
-  width 32, every int8 conv on S2), each path's problems held bitwise (the
-  2-D routes against S2 on the same inputs too) and timed (beside S2 and
-  cuDNN's bf16 conv2d), each path's own forward timed in bf16 and int8
-  with device profiles; a batch-4 int8
+  S2), and the 1-D path, the CLI on the 1-D Spectroscopy config (4096
+  points, width 32, every int8 conv on S1's block over the 1x1x3 taps,
+  ``conv1d_s8`` and ``conv1d_s8_strided``, and none on S2), each path's
+  problems held bitwise (against S2 on the same inputs too) and timed
+  (beside S2 and cuDNN's bf16 conv2d or conv1d), each path's own forward
+  timed in bf16 and int8 with device profiles; a batch-4 int8
   forward on the kernels against the int8 plain model (the ``hold`` rule)
   and its distance to the fp32 float model; the batch-8 forward's time in
   bf16 and int8 (in turns) with device profiles; and the serving load
@@ -130,10 +132,11 @@ weights loaded from a reference-layout ``.pth``):
   other;
 * ``vit``: the other backbones. The bench entry with BENCH_MODEL=vit at the
   root bench.py's full width (32^3, patch 8, embedding 256, hidden 512,
-  depth 8, 16 heads: head dim 16 over 64 tokens, so the mma.sync flash
-  forward and the small backward, one launch a call; batch 32, bf16,
-  AdamW, EMA 0.9999); the same ViT at patch 4 (512 tokens, past the small
-  route: the long backward, one launch a call, and no dkv/dq pair launch),
+  depth 8, 16 heads: head dim 16 over 64 tokens, so the narrow flash
+  forward and the small backward, one launch a call, and no mma.sync
+  forward; batch 32, bf16, AdamW, EMA 0.9999); the same ViT at patch 4 (512
+  tokens, past the small route: the narrow forward and the long backward,
+  one launch a call each, and no dkv/dq pair launch),
   VIT_PATCH4_STEPS training steps; the training CLI on the flagship config with that ViT,
   FourierConditioning on the raw (l, m) rows (5 steps at batch 32, one
   checkpoint), then the inference CLI's DDPM-25 at batch 4 on it; the
@@ -141,10 +144,13 @@ weights loaded from a reference-layout ``.pth``):
   model, the forward and the small backward held at (32, 64, 16, 16) and
   a ragged T = 50, the long backward at T = 256 and at patch 4's (32,
   512, 16, 16), each twice bitwise and against the pair on request too,
+  the narrow forward with and without the LSE at T = 64, 512, a ragged 65
+  and D = 32, twice bitwise and beside the mma.sync kernel on request,
   and timed at the ViT's attention beside SDPA and their bound (device
-  time of whole calls from CUDA graphs too), the long backward (its bound
-  the largest of its exponentials, products and bytes), the mma.sync
-  forward and the pair on request at patch 4's attention; the SimpleUNet
+  time of whole calls from CUDA graphs too; the forward's bound the
+  largest of its exponentials, products and bytes), the long backward
+  (its bound likewise), the narrow forward, the mma.sync forward and the
+  pair on request at patch 4's attention; the SimpleUNet
   ("UNet") in 3-D at 32^3 with JAX's default widths in bf16: 3 training
   steps at batch 8, a DDPM-25 sample at batch 2 through ``reverse_process``,
   its forward and gradients held, and its K5 problems (concat inputs of 512
@@ -193,7 +199,9 @@ version, a PyTorch library call and its bound; then one UNet forward (with
 a torch.profiler breakdown by kernel) and the whole reverse process. The
 ``kernels`` phase also holds the flash forward at every plan of its wgmma
 route (and its mma.sync kernel), with and without the LSE, at T = 512
-(batch 4, 8, 32), 4096 (batch 8) and 300, D = 128 and 64, and the
+(batch 4, 8, 32), 4096 (batch 8) and 300, D = 128 and 64, its narrow
+route beside the mma.sync kernel at the ViT's (32, 64, 16, 16) and (32,
+512, 16, 16) and a ragged (2, 300, 4, 32), and the
 backward (the fused kernel for bf16 and the 3xTF32 pair for fp32 at D =
 64 and 128, the FMA pair elsewhere) at the training step's attention,
 T = 4096, T = 300 and D = 64, twice (bitwise) and against the pair each
@@ -258,6 +266,9 @@ MAIN64_HOLD_BATCH = 1
 # the flash forward's holds at every plan: (batch, tokens, heads, head dim)
 # of K1 at sampling batch 4, timing batch 8 and the training step's 32, of
 # K2 at the 64^3 config's 4096 tokens, a ragged T and D = 64
+# the narrow route's holds beside the mma.sync kernel: the ViT's attention
+# at patch 8 and patch 4, and a ragged T at D = 32
+NARROW_PLAN_SHAPES = ((32, 64, 16, 16), (32, 512, 16, 16), (2, 300, 4, 32))
 FLASH_PLAN_SHAPES = ((4, 512, 4, 128), (8, 512, 4, 128), (32, 512, 4, 128), (8, 4096, 4, 128),
                      (2, 300, 4, 128), (2, 300, 2, 64))
 # the kernels phase's holds at the data phase's attention (batch, tokens):
@@ -639,6 +650,11 @@ def phase_build(state: dict) -> None:
     fa = [{"hd": int(m[1]), "bm": 64 * int(m[2]), "bn": int(m[3]), **entry}
           for name, entry in ptxas_entries(log).items()
           for m in [re.search(r"flash_fwd_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)E", name)] if m]
+    # the narrow forward's instances (head dim 16 and 32; 64 query rows a
+    # warpgroup, 64 keys a tile)
+    fa += [{"kernel": "flash_fwd_narrow", "hd": int(m[1]), "bm": 64, "bn": 64, **entry}
+           for name, entry in ptxas_entries(log).items()
+           for m in [re.search(r"flash_fwd_narrow_kernelILi(\d+)E", name)] if m]
     serialized = [ln.split("'")[1] for ln in log.splitlines() if "C7512" in ln and "'" in ln]
     emit("flash_ptxas", kernels=fa or "not built in this run (a cached library has no ptxas log)",
          wgmma_serialized=serialized)
@@ -679,9 +695,10 @@ def phase_build(state: dict) -> None:
                   if "C7512" in ln and "'" in ln]
     # the int8 kernels: S1's instances (N tile, stages, output kind, products
     # a stage, H/W stride: 2 is the strided Downsample's, taps: 9 the 2-D
-    # convs'), S2, S3
+    # convs', 3 the 1-D convs'), S2, S3
     log = "\n".join(_build.build_log.get(src, "") for src in (
-        "conv_int8", "conv3d_s8_strided", "conv2d_s8", "conv2d_s8_strided"))
+        "conv_int8", "conv3d_s8_strided", "conv2d_s8", "conv2d_s8_strided", "conv1d_s8",
+        "conv1d_s8_strided"))
     s8 = [{"kernel": m[1], **entry} for name, entry in ptxas_entries(log).items()
           for m in [re.search(r"(conv3d_s8_wgmma_kernelILi\d+ELi\d+ELi\d+ELi\d+ELi\d+ELi\d+E|"
                               r"conv_s8_general_kernel|quant_amax_kernel|quant_int8_kernel)",
@@ -748,6 +765,7 @@ CUDA_KERNEL = {"conv3d_igemm": "conv3d_igemm", "conv3d_direct": "conv3d_direct",
                "ring_attention_tf32": "ring_attention_tf32_kernel",
                "ring_attention_tf32_split": "kv_split_kernel",
                "flash_attention": "flash_fwd", "flash_attention_bwd": "flash_bwd_wgmma",
+               "flash_attention_fwd_narrow": "flash_fwd_narrow",
                "flash_attention_bwd_delta": "flash_bwd_delta",
                "flash_attention_bwd_dkv": "flash_bwd_dkv", "flash_attention_bwd_dq": "flash_bwd_dq",
                "flash_attention_bwd_small": "flash_bwd_small",
@@ -760,6 +778,7 @@ CUDA_KERNEL = {"conv3d_igemm": "conv3d_igemm", "conv3d_direct": "conv3d_direct",
                "ring_attention": "ring_attention_",
                "conv3d_s8": "conv3d_s8_wgmma_kernel", "conv3d_s8_strided": "conv3d_s8_wgmma_kernel",
                "conv2d_s8": "conv3d_s8_wgmma_kernel", "conv2d_s8_strided": "conv3d_s8_wgmma_kernel",
+               "conv1d_s8": "conv3d_s8_wgmma_kernel", "conv1d_s8_strided": "conv3d_s8_wgmma_kernel",
                "conv_s8_general": "conv_s8_general_kernel",
                "quantize_int8_amax": "quant_amax_kernel", "quantize_int8": "quant_int8_kernel",
                **{k: k for k in ("conv3d_variant_full", "conv3d_variant_nopatch",
@@ -962,13 +981,60 @@ def check_flash(b, t, h, d, device, seed: int, dtype) -> dict:
             "dtype": dtype_name(dtype), **flash_error(got, want, TOL_FLASH[dtype_name(dtype)])}
 
 
-def fwd_kernel_name(d: int, dtype) -> str:
-    """The count behind the forward's route: the 3xTF32 fold for fp32 at
-    padded head dims 64 and 128, else the flash forward kernels'."""
+def check_flash_narrow(b, t, h, d, device, seed: int) -> list:
+    """The narrow forward (bf16, padded D 16/32) on strided views of one qkv,
+    with and without the LSE, against the plain version on fp32 copies
+    (``TOL_FLASH``; the LSE within TOL_LSE of ``flash_lse_plain``), run
+    twice and bitwise equal; and the mma.sync kernel on request
+    (``MMA_SYNC_PLAN``) on the same inputs, held the same way and against
+    the narrow output. One row per kernel and LSE setting."""
+    import torch
+
+    from rho_diffusion_tpu_torch.ops.attention import xla_attention
+    from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
+        MMA_SYNC_PLAN, NARROW_PLAN, flash_attention_fwd_kernel, flash_lse_plain, flash_plan)
+
+    q, k, v = flash_inputs(b, t, h, d, device, seed, torch.bfloat16)
+    want = xla_attention(q.float(), k.float(), v.float())
+    want_lse = flash_lse_plain(q, k)
+    rows, narrow = [], {}
+    for plan in (NARROW_PLAN, MMA_SYNC_PLAN):
+        for with_lse in (False, True):
+            out, lse = flash_attention_fwd_kernel(q, k, v, with_lse=with_lse, plan=plan)
+            again, lse2 = flash_attention_fwd_kernel(q, k, v, with_lse=with_lse, plan=plan)
+            out, again = out[..., :d], again[..., :d]
+            row = {"kernel": fwd_kernel_name(d, torch.bfloat16, plan), "plan": plan_name(plan),
+                   "b": b, "t": t, "h": h, "d": d, "dtype": "bfloat16", "with_lse": with_lse,
+                   "route_chosen": flash_plan(b, h, t, t, d).route,
+                   **flash_error(out, want, TOL_FLASH["bfloat16"]),
+                   "bitwise_repeatable": bool(torch.equal(out, again)) and (
+                       lse is None or bool(torch.equal(lse, lse2)))}
+            row["ok"] = row["ok"] and row["bitwise_repeatable"]
+            if with_lse:
+                lse_err = float((lse - want_lse).abs().max())
+                row.update(lse_max_abs_err=lse_err, lse_tol=TOL_LSE)
+                row["ok"] = row["ok"] and lse_err <= TOL_LSE
+            if plan == NARROW_PLAN:
+                narrow[with_lse] = out
+            else:
+                row["narrow_against_this"] = flash_error(narrow[with_lse], out.float(),
+                                                         TOL_FLASH["bfloat16"])
+                row["ok"] = row["ok"] and row["narrow_against_this"]["ok"]
+            rows.append(row)
+    del q, k, v, want, want_lse
+    return rows
+
+
+def fwd_kernel_name(d: int, dtype, plan=None) -> str:
+    """The count behind the forward's route (``flash_plan``'s, or
+    ``plan``'s): the 3xTF32 fold for fp32 at padded head dims 64 and 128,
+    the narrow kernel for bf16 at 16 and 32, else the flash forward
+    kernels' (wgmma, mma.sync, FMA)."""
     from rho_diffusion_tpu_torch.ops.kernels.flash_attention import flash_plan
 
-    return ("flash_attention_tf32" if flash_plan(1, 1, 1, 1, d, dtype).route == "tf32"
-            else "flash_attention")
+    route = (plan or flash_plan(1, 1, 1, 1, d, dtype)).route
+    return {"tf32": "flash_attention_tf32", "narrow": "flash_attention_fwd_narrow"}.get(
+        route, "flash_attention")
 
 
 def bwd_kernel_names(d: int, dtype, plan=None, t: int = 512) -> dict:
@@ -1104,26 +1170,31 @@ TOL_LSE = 1e-4
 
 def check_flash_plans(device) -> tuple[list, list]:
     """The flash forward at every plan of its wgmma route and at its
-    mma.sync kernel, with and without the LSE, on strided views of one qkv
-    at FLASH_PLAN_SHAPES, each against the plain version on fp32 copies.
-    Returns (every hold, one summary row per shape: the worst ratio of
-    error to tolerance per plan)."""
+    mma.sync kernel at FLASH_PLAN_SHAPES, and at its narrow route and the
+    mma.sync kernel at NARROW_PLAN_SHAPES, with and without the LSE, on
+    strided views of one qkv, each against the plain version on fp32
+    copies. Returns (every hold, one summary row per shape: the worst ratio
+    of error to tolerance per plan)."""
     import torch
 
     from rho_diffusion_tpu_torch.ops.attention import xla_attention
     from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
-        MMA_SYNC_PLAN, WGMMA_PLANS, flash_attention_fwd_kernel, flash_lse_plain)
+        MMA_SYNC_PLAN, NARROW_PLAN, WGMMA_PLANS, flash_attention_fwd_kernel, flash_lse_plain)
 
     rows, summary = [], []
-    for i, (b, t, h, d) in enumerate(FLASH_PLAN_SHAPES):
+    cases = ([(shape, [MMA_SYNC_PLAN, *WGMMA_PLANS]) for shape in FLASH_PLAN_SHAPES]
+             + [(shape, [MMA_SYNC_PLAN, NARROW_PLAN]) for shape in NARROW_PLAN_SHAPES])
+    for i, ((b, t, h, d), plans) in enumerate(cases):
         q, k, v = flash_inputs(b, t, h, d, device, seed=130 + i, dtype=torch.bfloat16)
         want = xla_attention(q.float(), k.float(), v.float())
         want_lse = flash_lse_plain(q, k)
         worst = {}
-        for plan in [MMA_SYNC_PLAN, *WGMMA_PLANS]:
+        for plan in plans:
             for with_lse in (False, True):
                 out, lse = flash_attention_fwd_kernel(q, k, v, with_lse=with_lse, plan=plan)
-                row = {"kernel": "flash_attention", "plan": plan_name(plan), "b": b, "t": t,
+                out = out[..., :d]
+                row = {"kernel": fwd_kernel_name(d, torch.bfloat16, plan),
+                       "plan": plan_name(plan), "b": b, "t": t,
                        "h": h, "d": d, "dtype": "bfloat16", "with_lse": with_lse,
                        **flash_error(out, want, TOL_FLASH["bfloat16"])}
                 if with_lse:
@@ -2931,8 +3002,11 @@ def flash_fwd_row(b, t, h, d, calls: int, per: str, device, dtype, variant=None,
     """The forward kernel on [b, t, h, d] views of one qkv (through the
     autograd Function, or at ``plan`` through the launcher: the route a new
     one replaced): held against the plain version, timed beside it, SDPA and
-    its bound. On the fp32 3xTF32 route the kernel is the fold, whose K/V
-    pre-pass has a row of its own (``flash_fwd_split_row``)."""
+    its bound: the largest of its T^2 exponentials a batch*head on the
+    special-function unit (16 ex2 a clock an SM at the card's maximum SM
+    clock), its two products and its bytes. On the fp32 3xTF32 route the
+    kernel is the fold, whose K/V pre-pass has a row of its own
+    (``flash_fwd_split_row``)."""
     import torch.nn.functional as F
 
     import torch
@@ -2949,7 +3023,7 @@ def flash_fwd_row(b, t, h, d, calls: int, per: str, device, dtype, variant=None,
     else:
         def run():
             return flash_attention_fwd_kernel(q, k, v, plan=plan)[0][..., :d]
-    name = "flash_attention_tf32" if plan.route == "tf32" else "flash_attention"
+    name = fwd_kernel_name(d, dtype, plan)
     qf, kf, vf = q.float(), k.float(), v.float()
     qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
     flops = 4.0 * b * h * t * t * d
@@ -2965,6 +3039,18 @@ def flash_fwd_row(b, t, h, d, calls: int, per: str, device, dtype, variant=None,
                                       iters=10),
            "library_kernels": kernel_names(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
            **dtype_bound(flops, item * 4.0 * b * t * h * d, item)}
+    clock = sm_max_clock_hz()
+    exp_ms = b * h * t * t / (SFU_EX2_PER_CLOCK_SM * torch.cuda.get_device_properties(
+        device).multi_processor_count * clock) * 1e3
+    if exp_ms > row["bound_ms"]:
+        row.update(bound_ms=exp_ms, bound_by="operations")
+    row.update(bound_exp_ms=exp_ms, bound_products_ms=bound_ms(flops, 0, PEAK_BF16)[0]
+               if item == 2 else bound_ms(3 * flops, 0, PEAK_TF32)[0],
+               bound_bytes_ms=item * 4.0 * b * t * h * d / MEM_RATE * 1e3,
+               sm_clock_mhz=clock / 1e6, exponentials=b * h * t * t,
+               bound_of=("the largest of: T^2 exponentials a batch*head at "
+                         f"{SFU_EX2_PER_CLOCK_SM} ex2 a clock an SM, the two products at the "
+                         "dtype's peak, the bytes at 3.35 TB/s"))
     row["tflops"] = flops / row["ms"] / 1e9
     return row
 
@@ -4807,8 +4893,9 @@ def phase_utils(state: dict) -> None:
 # int8 (W8A8) inference
 
 # the int8 phase: the timing and hold batches, the extra S2 problems (a 2-D,
-# a 1-D and a ragged Cin = 24 conv: (x, Cout, kernel, stride, pads)), the
-# fp32 weight shape S3 is held at, and the int8 kernels a path must launch
+# a 1-D and a ragged Cin = 24 conv: (x, Cout, kernel, stride, pads); the
+# last, a case only S2 takes, is its main row), the fp32 weight shape S3 is
+# held at, and the int8 kernels a path must launch
 INT8_TIMING_BATCH = 8
 INT8_HOLD_BATCH = 4
 INT8_S2_EXTRA = (
@@ -4820,11 +4907,11 @@ INT8_WEIGHT_SHAPE = (512, 1024 * 27)
 # the flagship's int8 path: S1, the strided Downsample on S1's block, S3
 INT8_KERNELS = ("conv3d_s8", "conv3d_s8_strided", "quantize_int8_amax", "quantize_int8")
 # the 2-D convs' path: the 2-D DeepGalaxy config under int8 through the
-# inference CLI; S2's: the 1-D Spectroscopy config the same way
+# inference CLI; the 1-D convs': the 1-D Spectroscopy config the same way
 INT8_2D_SAMPLES = 8
 INT8_1D_SAMPLES = 8
 # the int8 conv routes each CLI path's quantised conv sites take
-INT8_PATH_ROUTES = {"2d": ("s1_2d", "s1_2d_strided"), "1d": ("s2",)}
+INT8_PATH_ROUTES = {"2d": ("s1_2d", "s1_2d_strided"), "1d": ("s1_1d", "s1_1d_strided")}
 PEAK_INT8 = 1979e12
 
 
@@ -4833,8 +4920,8 @@ class Int8Sites:
     its body (``ops.quant.conv_int8``/``dense_int8``): per call the input
     shape and dtype, the layer's channels, kernel, stride and pads, the
     output dtype and the route ("s1", "s1_strided", "s1_2d",
-    "s1_2d_strided", "s2", "int_mm" or "float"). The CPU tests count sites
-    with it too."""
+    "s1_2d_strided", "s1_1d", "s1_1d_strided", "s2", "int_mm" or "float").
+    The CPU tests count sites with it too."""
 
     def __init__(self):
         self.calls: list[dict] = []
@@ -4905,14 +4992,14 @@ def int8_operands(xs, cout: int, ksize, seed: int, device):
 def int8_conv_row(route: str, xs, cout: int, ksize, stride, pads, out_dtype, device, seed: int,
                   calls: int, per: str, variant=None) -> dict:
     """One int8 conv problem on its kernel (S1, the strided route on S1's
-    block, the 2-D routes on it, or S2): its int32 sums and its dequantised
-    ``out_dtype`` output held bitwise against the plain version on the same
-    inputs (the strided and 2-D routes' against S2's too), then (with
-    ``calls``) timed beside its bound (int8 operations at 1,979 TOPS or
-    bytes), the plain version and K5's bf16 conv of the same shape (S1's
-    problems) or cuDNN's bf16 ``F.conv2d`` (the 2-D routes') as the
-    yardstick; the strided and 2-D routes beside S2 on the same inputs
-    (``s2_ms``)."""
+    block, the 2-D and 1-D routes on it, or S2): its int32 sums and its
+    dequantised ``out_dtype`` output held bitwise against the plain version
+    on the same inputs (the strided, 2-D and 1-D routes' against S2's too),
+    then (with ``calls``) timed beside its bound (int8 operations at 1,979
+    TOPS or bytes), the plain version and K5's bf16 conv of the same shape
+    (S1's problems) or cuDNN's bf16 ``F.conv2d`` (the 2-D routes') or
+    ``F.conv1d`` (the 1-D routes') as the yardstick; the strided, 2-D and
+    1-D routes beside S2 on the same inputs (``s2_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -4921,11 +5008,14 @@ def int8_conv_row(route: str, xs, cout: int, ksize, stride, pads, out_dtype, dev
 
     xq, wq, s_x, s_w, bias = int8_operands(xs, cout, ksize, seed, device)
     if route in k.S1_ROUTES:
-        two_d = route.startswith("s1_2d")
-        w = (k.s1_2d_weights if two_d else k.s1_weights)(wq)
+        layout = (k.s1_2d_weights if route.startswith("s1_2d") else
+                  k.s1_1d_weights if route.startswith("s1_1d") else k.s1_weights)
+        w = layout(wq)
         name = k.S1_ROUTES[route][0]
         launch = {"s1": k.conv3d_s8_kernel, "s1_strided": k.conv3d_s8_strided_kernel,
-                  "s1_2d": k.conv2d_s8_kernel, "s1_2d_strided": k.conv2d_s8_strided_kernel}[route]
+                  "s1_2d": k.conv2d_s8_kernel, "s1_2d_strided": k.conv2d_s8_strided_kernel,
+                  "s1_1d": k.conv1d_s8_kernel,
+                  "s1_1d_strided": k.conv1d_s8_strided_kernel}[route]
 
         def run(dt=out_dtype):
             return launch(xq, s_x, w, s_w, bias, dt)
@@ -4945,7 +5035,7 @@ def int8_conv_row(route: str, xs, cout: int, ksize, stride, pads, out_dtype, dev
     check = exact_error(got.float(), want.float())
     check["ok"] = check["ok"] and sums_equal
     check["check"] = "bitwise equal: the int32 sums and the dequantised output"
-    beside_s2 = route in ("s1_strided", "s1_2d", "s1_2d_strided")
+    beside_s2 = route in ("s1_strided", "s1_2d", "s1_2d_strided", "s1_1d", "s1_1d_strided")
     if beside_s2:
         w2 = k.s2_weights(wq)
 
@@ -4974,15 +5064,16 @@ def int8_conv_row(route: str, xs, cout: int, ksize, stride, pads, out_dtype, dev
         if beside_s2:
             s2 = kernel_times(run_s2, "conv_s8_general", iters=3)
             row.update(s2_ms=s2["ms"], s2_call_ms=s2["call_ms"], s2_over_this=s2["ms"] / row["ms"])
-        if route.startswith("s1_2d"):
+        if route.startswith(("s1_2d", "s1_1d")):
             # the yardstick: cuDNN's bf16 conv of the same shape (no int8 conv on CUDA)
+            conv = F.conv2d if route.startswith("s1_2d") else F.conv1d
             xb = randn(xs, seed + 1, device, torch.bfloat16).movedim(-1, 1)
-            wb = randn((cout, xs[-1], 3, 3), seed + 2, device, torch.bfloat16, 0.02)
+            wb = randn((cout, xs[-1], *ksize), seed + 2, device, torch.bfloat16, 0.02)
             with torch.no_grad():
-                cudnn = cuda_time_ms(lambda: F.conv2d(xb, wb, bias.bfloat16(), stride=stride,
-                                                      padding=1), iters=10)
-            row.update(cudnn_bf16_ms=cudnn, cudnn_bf16_of="F.conv2d in bf16, channels-first "
-                       "(CUDA events; a yardstick, not the same function)",
+                cudnn = cuda_time_ms(lambda: conv(xb, wb, bias.bfloat16(), stride=stride,
+                                                  padding=1), iters=10)
+            row.update(cudnn_bf16_ms=cudnn, cudnn_bf16_of=f"F.{conv.__name__} in bf16, "
+                       "channels-first (CUDA events; a yardstick, not the same function)",
                        s8_over_cudnn_bf16=row["ms"] / cudnn)
         if route == "s1":
             xb = randn(xs, seed + 1, device, torch.bfloat16)
@@ -5209,8 +5300,9 @@ def int8_cli_path(device, which: str) -> dict:
     class's parameter space as in the CLI. Counts cleared just before, read
     just after. Every quantised conv site must take the routes of
     INT8_PATH_ROUTES (2-D: the 3x3 convs on S1's block at stride 1 and 2;
-    1-D: S2), with S2's launches exactly its sites'. The first UNet call is
-    kept (``model_call``) for the forward's device time."""
+    1-D: the 3-tap convs on it at stride 1 and 2), with S2's launches
+    exactly its sites' (none). The first UNet call is kept (``model_call``)
+    for the forward's device time."""
     import numpy as np
     import torch
 
@@ -5251,7 +5343,7 @@ def int8_cli_path(device, which: str) -> dict:
         if c["site"] == "conv":
             key = f"{c['route']} stride {c['stride']}"
             routes[key] = routes.get(key, 0) + 1
-        if c["route"] in ("s1_2d", "s1_2d_strided", "s2"):
+        if c["route"] in ("s1_2d", "s1_2d_strided", "s1_1d", "s1_1d_strided", "s2"):
             key = (c["route"], c["x"], c["cout"], c["kernel"], c["stride"], c["pads"],
                    c["out_dtype"])
             problems[key] = problems.get(key, 0) + 1
@@ -5312,10 +5404,10 @@ def phase_int8(state: dict, steps: int, samples: int) -> None:
     plain versions and timed; the bf16 Cout = 1 head problem on K5's igemm;
     the Dense sites' int8 products; the path (the inference CLI with
     ``--quant int8``, its counts); the 2-D path (DeepGalaxy, its 3x3 convs
-    on S1's block at stride 1 and 2) and the 1-D path (Spectroscopy, S2),
-    each path's problems held bitwise (the 2-D routes against S2 too) and
-    timed (beside S2 and cuDNN's bf16 conv), each path's forward in bf16
-    and int8; the int8 forward against the int8 plain model; the forward's
+    on S1's block at stride 1 and 2) and the 1-D path (Spectroscopy, its
+    3-tap convs on S1's block at stride 1 and 2), each path's problems held
+    bitwise (against S2 too) and timed (beside S2 and cuDNN's bf16 conv),
+    each path's forward in bf16 and int8; the int8 forward against the int8 plain model; the forward's
     time at batch 8 in bf16 and int8; and the serving load harness in bf16
     and int8."""
     import numpy as np
@@ -5352,9 +5444,13 @@ def phase_int8(state: dict, steps: int, samples: int) -> None:
                                                                         key=str)):
         rows.append(int8_conv_row(route, xs, cout, ks, st, pads, odt, device, 300 + 7 * i, n,
                                   per))
+    # S2 runs on no path: its launches are these holds' (its count's path)
+    launch_counts.clear()
     for i, (xs, cout, ks, st, pads, what) in enumerate(INT8_S2_EXTRA):
         rows.append(int8_conv_row("s2", xs, cout, ks, st, pads, torch.bfloat16, device,
-                                  400 + 7 * i, 1, "one call", variant=what))
+                                  400 + 7 * i, 1, f"one call ({what})",
+                                  variant=None if i == len(INT8_S2_EXTRA) - 1 else what))
+    state["int8_s2_launches"] = dict(launch_counts)
     for i, ((xs, dt), n) in enumerate(sorted(acts.items(), key=str)):
         rows += quantize_rows_row(xs, dt, device, 500 + i, n, per)
     rows += quantize_rows_row(INT8_WEIGHT_SHAPE, torch.float32, device, 590, 1, "one call",
@@ -5402,9 +5498,9 @@ def phase_int8(state: dict, steps: int, samples: int) -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     state["int8_launches"] = counts
-    # the 2-D convs' path (S1's block) and S2's (1-D), and their problems a
-    # forward there held and timed (their main rows), S2 beside the 2-D
-    # routes on the same inputs; each path's forward timed on its own model
+    # the 2-D and the 1-D convs' paths (S1's block), and their problems a
+    # forward there held and timed (their main rows), S2 beside them on the
+    # same inputs; each path's forward timed on its own model
     paths, path_rows, path_forward = {}, {}, {}
     for which, samples_, seed0 in (("2d", INT8_2D_SAMPLES, 700), ("1d", INT8_1D_SAMPLES, 800)):
         path_ = int8_cli_path(device, which)
@@ -5420,17 +5516,16 @@ def phase_int8(state: dict, steps: int, samples: int) -> None:
         rows_ = path_rows[which]
         path_forward[which]["kernel_rows_ms"] = {
             "this": sum(r["ms"] * r["calls"] for r in rows_),
-            "s2": (sum(r["s2_ms"] * r["calls"] for r in rows_) if which == "2d" else None),
+            "s2": sum(r["s2_ms"] * r["calls"] for r in rows_),
             "bound": sum(r["bound_ms"] * r["calls"] for r in rows_),
-            "cudnn_bf16": (sum(r["cudnn_bf16_ms"] * r["calls"] for r in rows_)
-                           if which == "2d" else None),
+            "cudnn_bf16": sum(r["cudnn_bf16_ms"] * r["calls"] for r in rows_),
             "of": f"the path's int8 conv problems summed over {per_}"}
         paths[which] = path_
         torch.cuda.empty_cache()
-    s2_rows = path_rows["2d"] + path_rows["1d"]
-    record_errors(state, s2_rows)
-    state["int8"] += s2_rows
-    fail_bad("int8 (the 2-D and 1-D paths' problems)", s2_rows)
+    path_kernel_rows = path_rows["2d"] + path_rows["1d"]
+    record_errors(state, path_kernel_rows)
+    state["int8"] += path_kernel_rows
+    fail_bad("int8 (the 2-D and 1-D paths' problems)", path_kernel_rows)
     path_2d = paths["2d"]
     forwards = steps - 1
     finite = bool(np.isfinite(out).all())
@@ -5441,7 +5536,7 @@ def phase_int8(state: dict, steps: int, samples: int) -> None:
     hold = int8_model_hold(cfg, sd, device)
     times = int8_forward_times(cfg, sd, INT8_TIMING_BATCH, device)
     load = int8_serve_load(device)
-    emit("int8", path=path, path_2d=path_2d, path_1d=paths["1d"], path_rows=s2_rows,
+    emit("int8", path=path, path_2d=path_2d, path_1d=paths["1d"], path_rows=path_kernel_rows,
          path_forward=path_forward, hold=hold, forward=times, load=load)
     problems_found = []
     if not finite or path["mode_after"] != "off":
@@ -5457,8 +5552,8 @@ def phase_int8(state: dict, steps: int, samples: int) -> None:
         problems_found.append(f"the int8 path's Downsamples: {per_fwd['s1_strided']} strided "
                               f"sites a forward, launches {counts} over {forwards} forwards "
                               "(want 3 conv3d_s8_strided a forward, no conv_s8_general)")
-    # every quantised conv site of the 2-D path on S1's block (S2 on none of
-    # them), every one of the 1-D path's on S2
+    # every quantised conv site of the 2-D and 1-D paths on S1's block (S2
+    # on none of them)
     for which, path_ in paths.items():
         if not path_["ok"]:
             problems_found.append(f"the {which} int8 path: {path_}")
@@ -5501,6 +5596,10 @@ VIT_RAGGED = (2, 50, 16, 16)
 # attention at the bench's batch 32), steps counted after one warm-up step
 VIT_PAIR_HOLD = (2, 256, 16, 16)
 VIT_PATCH4_ATTENTION = (32, 512, 16, 16)
+# the narrow forward's holds (twice bitwise, with and without the LSE, the
+# mma.sync kernel beside): the ViT's attention at patch 8 and 4, a ragged
+# T and D = 32
+VIT_NARROW_HOLDS = (VIT_ATTENTION, VIT_PATCH4_ATTENTION, (2, 65, 16, 16), (4, 512, 8, 32))
 VIT_LONG_MEMORY = (64, 4096, 16, 16)  # the long backward's memory at B*H 1024, T 4096
 VIT_PATCH4_STEPS = 2
 VIT_SAMPLE_STEPS = 25
@@ -5673,17 +5772,21 @@ def phase_vit(state: dict) -> None:
     heads, batch 32, bf16, AdamW with EMA 0.9999, LinearSchedule(1000)): its
     train mode's windows and its one JSON line. (b) The training CLI on the
     ViT config (FourierConditioning on raw (l, m) rows), then the inference
-    CLI's DDPM-25 at batch 4 on its checkpoint. (a2) The long backward's
-    path: the bench's ViT at patch 4 (512 tokens of head dim 16, past the
-    small route), VIT_PATCH4_STEPS training steps, no dkv/dq pair launch.
-    (c) Holds: the ViT's bf16 forward and one loss's gradients against the
-    fp32 plain model; the mma.sync forward and the small backward at the
-    ViT's attention and at a ragged T, the long backward at T = 256 and at
-    patch 4's attention, against their plain versions, twice bitwise, and
-    against the pair on request. (d) The forward and the small backward
-    timed at the ViT's attention beside SDPA and their bound, with their
-    launches per step and per sample; the long backward and the mma.sync
-    forward at patch 4's attention, the pair it replaced on request. (e) The SimpleUNet in 3-D at 32^3 with JAX's default
+    CLI's DDPM-25 at batch 4 on its checkpoint. Every ViT path runs the
+    narrow forward and no mma.sync forward (the ``flash_attention`` count).
+    (a2) The long backward's path: the bench's ViT at patch 4 (512 tokens
+    of head dim 16, past the small route), VIT_PATCH4_STEPS training steps,
+    no dkv/dq pair launch. (c) Holds: the ViT's bf16 forward and one loss's
+    gradients against the fp32 plain model; the forward and the small
+    backward at the ViT's attention and at a ragged T, the long backward at
+    T = 256 and at patch 4's attention, against their plain versions, twice
+    bitwise, and against the pair on request; the narrow forward at
+    VIT_NARROW_HOLDS, twice bitwise, beside the mma.sync kernel on request.
+    (d) The narrow forward and the small backward timed at the ViT's
+    attention beside SDPA (device time from CUDA graphs too) and their
+    bound, with their launches per step and per sample; the narrow forward
+    and the long backward at patch 4's attention; the mma.sync forward and
+    the pair it replaced on request at both. (e) The SimpleUNet in 3-D at 32^3 with JAX's default
     widths in bf16: SIMPLE_TRAIN_STEPS training steps at batch 8, a DDPM-25
     sample at batch 2 through ``reverse_process``, its forward and gradients
     held, and its K5 problems held and timed."""
@@ -5696,7 +5799,7 @@ def phase_vit(state: dict) -> None:
     from rho_diffusion_tpu_torch import bench
     from rho_diffusion_tpu_torch.diffusion import DDPM, LinearSchedule
     from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention, flash_bwd_plan, flash_plan)
+        MMA_SYNC_PLAN, flash_attention, flash_bwd_plan, flash_plan)
 
     device = torch.device(DEVICE)
     t0 = time.perf_counter()
@@ -5720,9 +5823,10 @@ def phase_vit(state: dict) -> None:
                  "launches": counts, "flash_routes": routes,
                  "launches_per_step": {k: v / max(bench_steps, 1) for k, v in counts.items()}}
     launches["vit_bench"] = counts
-    small = ("flash_attention", "flash_attention_bwd_small")
-    others = ("flash_attention_bwd", "flash_attention_bwd_delta", "flash_attention_bwd_dkv",
-              "flash_attention_bwd_dq")
+    small = ("flash_attention_fwd_narrow", "flash_attention_bwd_small")
+    # no mma.sync (nor wgmma) forward: ``flash_attention`` counts those
+    others = ("flash_attention", "flash_attention_bwd", "flash_attention_bwd_delta",
+              "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
     per_step = s["backbone_kwargs"]["transformer_depth"]
     if lines != [json.dumps(result)] or any(counts.get(k) != per_step * bench_steps
                                             for k in small) or any(counts.get(k) for k in others):
@@ -5760,9 +5864,9 @@ def phase_vit(state: dict) -> None:
     metrics, p4_s, counts, routes4 = counted(
         lambda: [pipe.training_step(ts, batch) for _ in range(VIT_PATCH4_STEPS)])
     launches["vit_patch4"] = counts
-    long = ("flash_attention", "flash_attention_bwd_long")
-    none = ("flash_attention_bwd_delta", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
-            "flash_attention_bwd_small", "flash_attention_bwd")
+    long = ("flash_attention_fwd_narrow", "flash_attention_bwd_long")
+    none = ("flash_attention", "flash_attention_bwd_delta", "flash_attention_bwd_dkv",
+            "flash_attention_bwd_dq", "flash_attention_bwd_small", "flash_attention_bwd")
     patch4 = {"tokens": (s["grid"] // 4) ** 3, "steps": VIT_PATCH4_STEPS, "wall_s": p4_s,
               "losses": [float(m["train_loss"]) for m in metrics], "launches": counts,
               "launches_per_step": {k: v / VIT_PATCH4_STEPS for k, v in counts.items()},
@@ -5779,10 +5883,11 @@ def phase_vit(state: dict) -> None:
     clis = run_vit_clis(device)
     launches["vit_train_cli"] = clis["train"]["launches"]
     launches["vit_sample_cli"] = clis["sample"]["launches"]
-    for what, want in (("train", small), ("sample", ("flash_attention",))):
+    for what, want in (("train", small), ("sample", ("flash_attention_fwd_narrow",))):
         missing = [k for k in want if not clis[what]["launches"].get(k)]
-        if missing or not clis[what]["ok"]:
-            problems.append(f"{what} CLI: missing {missing}, {clis[what]}")
+        if missing or not clis[what]["ok"] or clis[what]["launches"].get("flash_attention"):
+            problems.append(f"{what} CLI: missing {missing} (or an mma.sync forward), "
+                            f"{clis[what]}")
     seconds["clis"] = time.perf_counter() - t0 - sum(seconds.values())
 
     # (c) holds: the model, then the kernels at the ViT's attention and a ragged T
@@ -5816,37 +5921,55 @@ def phase_vit(state: dict) -> None:
     long_memory = long_bwd_memory_hold(*VIT_LONG_MEMORY, device)
     if not long_memory["ok"]:
         problems.append(f"long backward memory: {long_memory}")
-    record_errors(state, holds + [gr for row in bwd_holds for gr in row["grads"]])
-    bad = [r for r in holds if not r["ok"]] + [r for r in bwd_holds if not r["ok"]]
+    narrow_holds = [row for i, shape in enumerate(VIT_NARROW_HOLDS)
+                    for row in check_flash_narrow(*shape, device, 910 + i)]
+    if [r["route_chosen"] for r in narrow_holds] != ["narrow"] * len(narrow_holds):
+        problems.append(f"flash forward routes at D = 16/32: "
+                        f"{[r['route_chosen'] for r in narrow_holds]}")
+    record_errors(state, holds + narrow_holds + [gr for row in bwd_holds for gr in row["grads"]])
+    bad = ([r for r in holds + narrow_holds if not r["ok"]]
+           + [r for r in bwd_holds if not r["ok"]])
     if bad:
         problems.append(f"flash holds at D = 16: {bad}")
     seconds["holds"] = time.perf_counter() - t0 - sum(seconds.values())
 
-    # (d) the forward and the small backward timed at the ViT's attention,
+    # (d) the narrow forward (its main row at the ViT's attention, patch
+    # 4's a variant) and the small backward timed at the ViT's attention,
     # per training step; the long backward (its main rows, and the pair's
-    # on request) and the mma.sync forward at patch 4's
+    # on request) at patch 4's; the mma.sync forward on request at both
     per = f"one ViT training step at batch {b} ({per_step} attention calls)"
     per4 = f"one patch-4 ViT training step at batch {b} ({per_step} attention calls)"
     t4 = patch4["tokens"]
     assert VIT_PATCH4_ATTENTION == (b, t4, h, d)
-    rows = ([flash_fwd_row(b, tt, h, d, per_step, per, device, torch.bfloat16,
-                           variant=f"vit: T={tt}, D={d}, B*H={b * h}, {per}")]
+
+    def mma_sync_row(t_, per_):
+        return flash_fwd_row(b, t_, h, d, per_step, per_, device, torch.bfloat16,
+                             variant=f"the mma.sync kernel on request at T={t_}, D={d}, "
+                                     f"B*H={b * h}, {per_}", plan=MMA_SYNC_PLAN)
+
+    fwd64 = flash_fwd_row(b, tt, h, d, per_step, per, device, torch.bfloat16)
+    fwd512 = flash_fwd_row(b, t4, h, d, per_step, per4, device, torch.bfloat16,
+                           variant=f"vit patch 4: T={t4}, D={d}, B*H={b * h}, {per4}")
+    rows = ([fwd64, mma_sync_row(tt, per)]
             + flash_bwd_rows(b, tt, h, d, per_step, per, device, torch.bfloat16)
-            + [flash_fwd_row(b, t4, h, d, per_step, per4, device, torch.bfloat16,
-                             variant=f"vit patch 4: T={t4}, D={d}, B*H={b * h}, {per4}")]
+            + [fwd512, mma_sync_row(t4, per4)]
             + flash_bwd_rows(b, t4, h, d, per_step, per4, device, torch.bfloat16))
     routes_here = {"forward": flash_plan(b, h, tt, tt, d).route,
+                   "forward_at_patch4": flash_plan(b, h, t4, t4, d).route,
                    "backward": flash_bwd_plan(b, h, tt, tt, d).route,
                    "backward_at_patch4": flash_bwd_plan(b, h, t4, t4, d).route}
-    # like for like at this launch-bound size: the device time of a whole
-    # call (CUDA graphs, no host work) of the wrapper and of SDPA, on the
-    # inputs of the rows above (the backward's SDPA time is already so)
-    q, k, v = flash_inputs(b, tt, h, d, device, seed=300 + tt, dtype=torch.bfloat16)
-    qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
-    rows[0]["wrapper_device_ms"] = graph_ms(lambda: flash_attention(q, k, v), calls=10)
-    rows[0]["library_device_ms"] = graph_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt), calls=10)
-    del q, k, v, qt, kt, vt
+    if (routes_here["forward"], routes_here["forward_at_patch4"]) != ("narrow", "narrow"):
+        problems.append(f"the ViT's forward routes: {routes_here}")
+    # like for like: the device time of a whole call (CUDA graphs, no host
+    # work) of the wrapper and of SDPA, on the inputs of the rows above
+    # (the backward's SDPA time is already so)
+    for row, t_ in ((fwd64, tt), (fwd512, t4)):
+        q, k, v = flash_inputs(b, t_, h, d, device, seed=300 + t_, dtype=torch.bfloat16)
+        qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+        row["wrapper_device_ms"] = graph_ms(lambda: flash_attention(q, k, v), calls=10)
+        row["library_device_ms"] = graph_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt), calls=10)
+        del q, k, v, qt, kt, vt
     seconds["kernel_rows"] = time.perf_counter() - t0 - sum(seconds.values())
 
     # (e) the SimpleUNet
@@ -5927,7 +6050,8 @@ def phase_vit(state: dict) -> None:
     state["vit"] = rows
     state["vit_launches"] = launches
     emit("vit", cuts=VIT_CUTS, bench=bench_run, clis=clis, hold=vit_hold,
-         patch4=patch4, flash_holds=holds, flash_bwd_holds=bwd_holds,
+         patch4=patch4, flash_holds=holds, flash_narrow_holds=narrow_holds,
+         flash_bwd_holds=bwd_holds,
          long_bwd_memory=long_memory, routes_at_vit_attention=routes_here,
          kernel_rows=rows, simple_unet=simple, seconds=seconds,
          launches_per_sample={k: v / VIT_SAMPLES for k, v in clis["sample"]["launches"].items()},
@@ -5947,6 +6071,12 @@ KERNELS = (
     # (128-key tiles); the launcher is in flash_attention.cu
     ("flash_attention", "flash_attention_wgmma.cuh",
      "rho_diffusion_tpu/ops/pallas/flash_attention.py:115", "sampling"),
+    # the narrow forward (bf16 at D = 16, 32): one kernel for both TPU
+    # forward kernels a call at every T, the ViT's forward (the vit phase's
+    # bench entry at 64 tokens; its patch-4 run at 512 runs it too); its
+    # launcher is in flash_attention.cu
+    ("flash_attention_fwd_narrow", "flash_attention_fwd_narrow.cuh",
+     "rho_diffusion_tpu/ops/pallas/flash_attention.py:115", "vit_bench"),
     ("conv3d_dgrad_igemm", "conv3d_wgmma.cuh", "rho_diffusion_tpu/ops/pallas/conv3d.py:247",
      "training"),
     ("conv3d_dgrad_direct", "conv3d.cu", "rho_diffusion_tpu/ops/pallas/conv3d.py:247", "training"),
@@ -6025,15 +6155,20 @@ KERNELS = (
     # plain jnp that XLA lowers; "replaces" names those lines): S1, the s8
     # implicit GEMM on K5's block, and the strided Downsample on that block;
     # the 2-D 3x3 convs on that block at stride 1 and 2 (the 2-D config's
-    # path, launched from conv2d_s8.cu and conv2d_s8_strided.cu); S2, the
-    # general int8 conv (the 1-D config's path); S3, the quantiser's two
-    # launches, all launched from conv_int8.cu
+    # path, launched from conv2d_s8.cu and conv2d_s8_strided.cu); the 1-D
+    # 3-tap convs on it at stride 1 and 2 (the 1-D config's path, launched
+    # from conv1d_s8.cu and conv1d_s8_strided.cu); S2, the general int8 conv
+    # (on no path: its launches are the int8 phase's S2 holds); S3, the
+    # quantiser's two launches, all launched from conv_int8.cu
     ("conv3d_s8", "conv3d_s8_wgmma.cuh", "rho_diffusion_tpu/ops/quant.py:143", "int8"),
     ("conv3d_s8_strided", "conv3d_s8_wgmma.cuh", "rho_diffusion_tpu/ops/quant.py:143", "int8"),
     ("conv2d_s8", "conv3d_s8_wgmma.cuh", "rho_diffusion_tpu/ops/quant.py:143", "int8_2d"),
     ("conv2d_s8_strided", "conv3d_s8_wgmma.cuh", "rho_diffusion_tpu/ops/quant.py:143",
      "int8_2d"),
-    ("conv_s8_general", "conv_int8.cu", "rho_diffusion_tpu/ops/quant.py:143", "int8_1d"),
+    ("conv1d_s8", "conv3d_s8_wgmma.cuh", "rho_diffusion_tpu/ops/quant.py:143", "int8_1d"),
+    ("conv1d_s8_strided", "conv3d_s8_wgmma.cuh", "rho_diffusion_tpu/ops/quant.py:143",
+     "int8_1d"),
+    ("conv_s8_general", "conv_int8.cu", "rho_diffusion_tpu/ops/quant.py:143", "int8_s2"),
     ("quantize_int8_amax", "conv_int8.cu", "rho_diffusion_tpu/ops/quant.py:94", "int8"),
     ("quantize_int8", "conv_int8.cu", "rho_diffusion_tpu/ops/quant.py:96", "int8"),
 )
@@ -6042,6 +6177,8 @@ TIME_FIELDS = ("ms", "call_ms", "plain_ms", "bound_ms", "library_ms")
 # 3xTF32 pair's: both kernels and its split pre-pass) and the wrapper's
 # whole device work (CUDA graph): what SDPA's library_ms does
 FUSED_BWD_FIELDS = ("ms_with_pre_pass", "wrapper_device_ms")
+# a forward row's device time of SDPA (CUDA graph) and its bound's parts
+FWD_FIELDS = ("library_device_ms", "bound_exp_ms", "bound_products_ms", "bound_bytes_ms")
 
 
 def summed_times(rows: list) -> dict:
@@ -6060,7 +6197,8 @@ def kernels_line(state: dict) -> list:
     it (sampling for the forward kernels, training for the fused backward,
     the vit phase's bench entry for the small backward and its patch-4 run
     for the long one, the kernels phase's holds for the dkv/dq pairs, the
-    2-D int8 CLI for the 2-D int8 convs, the 1-D one for S2, serving for
+    2-D int8 CLI for the 2-D int8 convs, the 1-D one for the 1-D int8 convs,
+    the int8 phase's S2 holds for S2, serving for
     K6, bench for K7-K9; every path listed), its worst error
     against its plain version over every hold of this run and that error's
     ratio to the check's tolerance (at most 1), and its times summed over
@@ -6072,7 +6210,7 @@ def kernels_line(state: dict) -> list:
                 "bench": state["bench_launches"], "kernels": state["kernels_launches"],
                 "fp32": state["fp32_launches"], "load": state["load_launches"],
                 "int8": state["int8_launches"], "int8_2d": state["int8_2d_launches"],
-                "int8_1d": state["int8_1d_launches"],
+                "int8_1d": state["int8_1d_launches"], "int8_s2": state["int8_s2_launches"],
                 **state["gauss_launches"], **state["vlb_launches"], **state["data_launches"],
                 **state["utils_launches"], **state["vit_launches"]}
     out = []
@@ -6091,7 +6229,8 @@ def kernels_line(state: dict) -> list:
             "accuracy_by_dtype": accuracy, **summed_times(main), "library": main[0]["library"],
             "per": f"{main[0]['per']}, {sum(r['calls'] for r in main)} calls",
             "variants": [{"variant": r["variant"], **summed_times([r]),
-                          **{f: r[f] * r["calls"] for f in FUSED_BWD_FIELDS if f in r},
+                          **{f: r[f] * r["calls"] for f in FUSED_BWD_FIELDS + FWD_FIELDS
+                             if f in r},
                           **({"flash_route": r["flash_route"], "plan": r["plan"]}
                              if "flash_route" in r else {})}
                          for r in rows if r["variant"]],
@@ -6115,6 +6254,15 @@ def kernels_line(state: dict) -> list:
                 "also_replaces": "rho_diffusion_tpu/ops/pallas/flash_attention.py:59",
                 "launcher": "rho_diffusion_tpu_torch/csrc/flash_attention.cu"}
                if name == "flash_attention_tf32" else {}),
+            **({"flash_route": main[0]["flash_route"], "plan": main[0]["plan"],
+                "also_replaces": "rho_diffusion_tpu/ops/pallas/flash_attention.py:59",
+                "launcher": "rho_diffusion_tpu_torch/csrc/flash_attention.cu",
+                "bound_of": main[0]["bound_of"], "sm_clock_mhz": main[0]["sm_clock_mhz"],
+                **{f: sum(r[f] * r["calls"] for r in main)
+                   for f in ("bound_exp_ms", "bound_products_ms", "bound_bytes_ms",
+                             "wrapper_device_ms", "library_device_ms")},
+                "library_device_ms_of": "SDPA's device time from a CUDA graph"}
+               if name == "flash_attention_fwd_narrow" else {}),
             **({"launcher": "rho_diffusion_tpu_torch/csrc/flash_attention_bwd.cu",
                 "library_ms_of": main[0]["library_ms_of"],
                 **{f: sum(r[f] * r["calls"] for r in main) for f in FUSED_BWD_FIELDS}}

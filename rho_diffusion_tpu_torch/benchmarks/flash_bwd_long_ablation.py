@@ -33,15 +33,13 @@ Usage: python -m rho_diffusion_tpu_torch.benchmarks.flash_bwd_long_ablation [--s
 """
 from __future__ import annotations
 
-import ctypes
 import json
-import shutil
-import subprocess
 import sys
 
 import torch
 import torch.nn.functional as F
 
+from rho_diffusion_tpu_torch.benchmarks._ablation import build_variants
 from rho_diffusion_tpu_torch.benchmarks._timing import device_line, parse_device
 from rho_diffusion_tpu_torch.ops.kernels import _build
 from rho_diffusion_tpu_torch.ops.kernels import flash_attention as fa
@@ -90,44 +88,6 @@ VARIANTS = {
 }
 
 
-def patched(text: str, edits) -> str:
-    """The source with each edit made, each found exactly as often as it
-    says (so a kernel that has moved on fails loudly here)."""
-    for old, new, count in edits:
-        found = text.count(old)
-        if found != count:
-            raise ValueError(f"{old!r} occurs {found} times in {SOURCE}, not {count}")
-        text = text.replace(old, new)
-    return text
-
-
-def build_variants(out_dir) -> dict:
-    """{variant: loaded library}: csrc/ copied for each variant with its
-    edits, flash_attention_bwd.cu compiled in each, all at once."""
-    text = (_build.CSRC / SOURCE).read_text()
-    procs = {}
-    for name, edits in VARIANTS.items():
-        src = out_dir / name
-        shutil.rmtree(src, ignore_errors=True)
-        shutil.copytree(_build.CSRC, src)
-        (src / SOURCE).write_text(patched(text, edits))
-        lib = src / "libflash_attention_bwd.so"
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
-               str(src / "flash_attention_bwd.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), lib)
-    libs = {}
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"variant {name}: nvcc exit {proc.returncode}\n{log}")
-        libs[name] = ctypes.CDLL(str(lib))
-        for fn, argtypes in fa._LAUNCHERS["flash_attention_bwd"].items():
-            getattr(libs[name], fn).restype = ctypes.c_int
-            getattr(libs[name], fn).argtypes = argtypes
-    return libs
-
-
 def time_call(fn) -> float:
     """Milliseconds a call of ``fn`` over ITERS calls between CUDA events."""
     torch.cuda.synchronize()
@@ -147,7 +107,9 @@ def main(argv=None) -> dict:
         raise RuntimeError("the ablation builds and times CUDA kernels: it runs on the card only")
     print(device_line(args.device), flush=True)
     b, t, h, d = args.shape
-    libs = build_variants(_build.build_dir().parent / "ablation")
+    libs, _ = build_variants(VARIANTS, SOURCE, "flash_attention_bwd",
+                             fa._LAUNCHERS["flash_attention_bwd"],
+                             _build.build_dir().parent / "ablation")
     gen = torch.Generator(device=args.device).manual_seed(0)
     q, k, v = torch.randn((b, t, h, 3 * d), generator=gen, device=args.device).to(
         torch.bfloat16).split(d, dim=-1)

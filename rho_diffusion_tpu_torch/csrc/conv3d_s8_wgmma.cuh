@@ -3,9 +3,12 @@
 // the dequantisation in its epilogue; and on the same block the UNet's
 // strided Downsample, the 3x3x3 conv at stride (1, 2, 2) with pads (1, 1)
 // (`conv3d_s8_strided`, the SW = 2 instances, launched from
-// conv3d_s8_strided.cu; below), and the 2-D UNet's 3x3 convs at stride 1
-// and 2 (`conv2d_s8`, `conv2d_s8_strided`, the TAPS = 9 instances, launched
-// from conv2d_s8.cu and conv2d_s8_strided.cu; below).
+// conv3d_s8_strided.cu; below), the 2-D UNet's 3x3 convs at stride 1 and 2
+// (`conv2d_s8`, `conv2d_s8_strided`, the TAPS = 9 instances, launched from
+// conv2d_s8.cu and conv2d_s8_strided.cu; below), and the 1-D UNet's
+// 3-tap convs at stride 1 and 2 (`conv1d_s8`, `conv1d_s8_strided`, the
+// TAPS = 3 instances, launched from conv1d_s8.cu and conv1d_s8_strided.cu;
+// below).
 //
 // Replaces no TPU kernel: the JAX package's `ConvInt8`
 // (rho_diffusion_tpu/ops/quant.py:101-154, its product at :143-153) leaves
@@ -89,6 +92,23 @@
 // is bitwise the plain version's. Bound by operations as S1 (2 * 9 * Cin an
 // output at 1,979 TOPS) where Cin is large; the level-0 convs (Cin 32-96,
 // 128^2) move more bytes than they compute.
+//
+// The 1-D convs (TAPS = 3). The 1-D UNet's (the Spectroscopy config, 4096
+// points) 3-tap convs with pads (1, 1) and Cin % 16 == 0, at stride 1 and
+// its Downsample's 2, replacing S2 on them (at batch 8, 2.24-2.31 ms of a
+// forward against a 0.054 ms byte bound, 41x, H100). x [B, W, Cin] is the
+// volume [B, 1, 1, W, Cin] and the taps the 1x1x3 set (dz and dy fixed at
+// the centre), weights [Cout, 3, Cin] (tap = dx), so a 1-D conv walks 3
+// taps of k-steps, not the 9 of a 2-D map with H = 1 (exact through the
+// zero fill, but three times the products and the ring's stages). The
+// stride walks W alone: x's map takes element strides (1, SW, 1, 1, 1) and
+// a box of 128 channels x SW bw x bh x bd, so no strided walk runs along
+// an H of one. The plan (`igemm_plan` on [B, 1, 1, W_out, Cin]) takes boxes
+// of 128 points along W; where a level gives fewer boxes than the card has
+// SMs (batch 8, 512 points at Cout 256: 32 boxes) its N tiles split Cout.
+// Bound by bytes at most of that config's convs: 6 Cin Cout operations a
+// point against about Cin + 2 Cout bytes (512 a byte at 256 -> 256, under
+// the card's 590 int8 operations a byte).
 
 #pragma once
 
@@ -240,18 +260,24 @@ inline CUresult encode_u8(EncodeTiled encode, CUtensorMap* map, const void* base
 // output voxels, BN 64/128/192/256, a ring of 4 stages) and encodes its two
 // maps and its Problem. xq: [B, D, H, W, Cin] int8, 16-byte aligned, Cin %
 // 16 == 0; wq: [Cout, taps, Cin] int8 (taps 27: tap = (dz*3+dy)*3+dx; 9, a
-// 2-D conv with D = 1: tap = dy*3+dx), contiguous. `sw` is the stride
-// along H and W (1: S1; 2: the Downsample), the output [B, D, (H - 1) / sw
-// + 1, (W - 1) / sw + 1, Cout] (pads 1). Returns 0 or an ERR_ code.
+// 2-D conv with D = 1: tap = dy*3+dx; 3, a 1-D conv with D = H = 1: tap =
+// dx), contiguous. `sw` is the stride along H and W (along W alone at 3
+// taps; 1: S1; 2: the Downsample), the output [B, D, (H - 1) / sh + 1,
+// (W - 1) / sw + 1, Cout] (pads 1; sh = sw, or 1 at 3 taps). Returns 0 or
+// an ERR_ code.
 inline int s8_setup(const void* x, const void* w, int B, int D, int H, int W, int Cin, int Cout,
                     int bw, int bh, int bd, int bn, int stages, int sw, int taps,
                     CUtensorMap* x_map, CUtensorMap* w_map, Problem* p) {
-  const bool box_ok = bw >= 1 && bh >= 1 && bd >= 1 && sw * bw <= 256 && sw * bh <= 256 &&
+  const int sh = taps == 3 ? 1 : sw;  // the stride along H: none in 1-D
+  const bool box_ok = bw >= 1 && bh >= 1 && bd >= 1 && sw * bw <= 256 && sh * bh <= 256 &&
                       bd <= 256 && bw * bh * bd == BM && (sw == 1 || sw == 2);
   const bool bn_ok = bn == 64 || bn == 128 || bn == 192 || bn == 256;
-  // |sum| <= 127^2 taps Cin stays below 2^31; a 2-D conv has depth 1
-  const bool taps_ok = taps == 27 ? Cin <= 4912
-                                  : taps == 9 && D == 1 && 127LL * 127 * 9 * Cin <= 2147483647LL;
+  // |sum| <= 127^2 taps Cin stays below 2^31; a 2-D conv has depth 1, a
+  // 1-D conv depth and height 1
+  const bool taps_ok =
+      taps == 27 ? Cin <= 4912
+      : taps == 9 ? D == 1 && 127LL * 127 * 9 * Cin <= 2147483647LL
+                  : taps == 3 && D == 1 && H == 1 && 127LL * 127 * 3 * Cin <= 2147483647LL;
   if (!box_ok || !bn_ok || !taps_ok || stages != 4 || Cin < 16 || Cin % 16 || Cout < 1 ||
       B < 1 || D < 1 || H < 1 || W < 1 || (reinterpret_cast<uintptr_t>(x) & 15) ||
       (reinterpret_cast<uintptr_t>(w) & 15))
@@ -262,9 +288,10 @@ inline int s8_setup(const void* x, const void* w, int B, int D, int H, int W, in
   const cuuint64_t x_dims[5] = {c, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)D, (cuuint64_t)B};
   const cuuint64_t x_strides[4] = {c, c * W, c * W * H, c * W * H * D};
   // sw x bw voxels along W walked every sw-th: bw of them land in the box
-  const cuuint32_t x_box[5] = {(cuuint32_t)S8_BK, (cuuint32_t)(sw * bw), (cuuint32_t)(sw * bh),
+  // (likewise sh x bh along H)
+  const cuuint32_t x_box[5] = {(cuuint32_t)S8_BK, (cuuint32_t)(sw * bw), (cuuint32_t)(sh * bh),
                                (cuuint32_t)bd, 1};
-  const cuuint32_t x_elem[5] = {1, (cuuint32_t)sw, (cuuint32_t)sw, 1, 1};
+  const cuuint32_t x_elem[5] = {1, (cuuint32_t)sw, (cuuint32_t)sh, 1, 1};
   if (encode_u8(encode, x_map, x, 5, x_dims, x_strides, x_box, x_elem,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B) != CUDA_SUCCESS)
     return ERR_X_MAP;
@@ -276,7 +303,7 @@ inline int s8_setup(const void* x, const void* w, int B, int D, int H, int W, in
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B) != CUDA_SUCCESS)
     return ERR_W_MAP;
   // the output's volume: the plan's boxes tile it
-  H = (H - 1) / sw + 1;
+  H = (H - 1) / sh + 1;
   W = (W - 1) / sw + 1;
   p->B = B, p->D = D, p->H = H, p->W = W, p->Cout = Cout;
   p->bw = bw, p->bh = bh, p->bd = bd;
@@ -389,9 +416,10 @@ __device__ __forceinline__ void store_row_s8(typename S8Store<OUT>::T* orow,
 
 // S1: one block is the box of 128 output voxels at (b, d0, h0, w0) times
 // output channels [n0, n0 + BN), K5's block (conv3d_igemm_block) on s8, at
-// stride SW along H and W (1: S1; 2: the Downsample, its x map strided to
-// match) over TAPS taps (27: 3x3x3; 9: 1x3x3, the 2-D convs). Threads
-// 0-255 are the consumer warpgroups, 256-383 the producer warpgroup.
+// stride SW along H and W (along W alone at TAPS = 3; 1: S1; 2: the
+// Downsample, its x map strided to match) over TAPS taps (27: 3x3x3; 9:
+// 1x3x3, the 2-D convs; 3: 1x1x3, the 1-D convs). Threads 0-255 are the
+// consumer warpgroups, 256-383 the producer warpgroup.
 template <int BN, int STAGES, int OUT, int KK, int SW, int TAPS>
 __global__ void __launch_bounds__(THREADS, 1)
 conv3d_s8_wgmma_kernel(__grid_constant__ const CUtensorMap x_map,
@@ -411,7 +439,8 @@ conv3d_s8_wgmma_kernel(__grid_constant__ const CUtensorMap x_map,
   t /= p.tiles_h;
   const int d0 = (t % p.tiles_d) * p.bd;
   const int b = t / p.tiles_d;
-  static_assert(TAPS == 27 || TAPS == 9, "the 3x3x3 or the 1x3x3 tap set");
+  static_assert(TAPS == 27 || TAPS == 9 || TAPS == 3, "the 3x3x3, 1x3x3 or 1x1x3 tap set");
+  constexpr int SH = TAPS == 3 ? 1 : SW;  // the stride along H: none in 1-D
   const int ksteps = TAPS * p.cchunks;
 
   ring.init();
@@ -425,9 +454,10 @@ conv3d_s8_wgmma_kernel(__grid_constant__ const CUtensorMap x_map,
       produce(ring, ksteps, A_BYTES + B_BYTES, [&](int ks, int s) {
         const int tap = ks / p.cchunks;
         const int c0 = (ks - tap * p.cchunks) * S8_BK;
-        const int dz = TAPS == 27 ? tap / 9 : 1;  // the 1x3x3 set: the centre plane
+        // the 1x3x3 set: the centre plane; the 1x1x3 set: the centre row too
+        const int dz = TAPS == 27 ? tap / 9 : 1, dy = TAPS == 3 ? 1 : (tap / 3) % 3;
         tma_load_5d(ring.a + s * A_BYTES, &x_map, &ring.full[s], c0, SW * w0 + tap % 3 - 1,
-                    SW * h0 + (tap / 3) % 3 - 1, d0 + dz - 1, b);
+                    SH * h0 + dy - 1, d0 + dz - 1, b);
         tma_load_3d(ring.b + s * B_BYTES, &w_map, &ring.full[s], c0, tap, n0);
       });
     }
@@ -492,10 +522,11 @@ int launch_s8_bn(int bn, int cin, const CUtensorMap& x_map, const CUtensorMap& w
 }
 
 // S1 (SW = 1, conv_int8.cu) or the strided Downsample (SW = 2,
-// conv3d_s8_strided.cu), and the 2-D convs at either stride (TAPS = 9,
-// conv2d_s8.cu and conv2d_s8_strided.cu, with D = 1): the maps, then the
-// instance of the plan's N tile and the output kind; the launchers' C
-// entry points.
+// conv3d_s8_strided.cu), the 2-D convs at either stride (TAPS = 9,
+// conv2d_s8.cu and conv2d_s8_strided.cu, with D = 1) and the 1-D convs at
+// either stride (TAPS = 3, conv1d_s8.cu and conv1d_s8_strided.cu, with D =
+// H = 1): the maps, then the instance of the plan's N tile and the output
+// kind; the launchers' C entry points.
 template <int SW, int TAPS = 27>
 int conv3d_s8_at(const void* xq, const void* wq, const void* s_x, const void* s_w,
                  const void* bias, void* out, int B, int D, int H, int W, int Cin, int Cout,

@@ -19,9 +19,15 @@
 // the same base. The sampling path passes a null `lse` and writes nothing,
 // as the TPU's primal path skips it (with_lse=False, :374-380).
 //
-// Four routes, chosen by the caller (ops/kernels/flash_attention.py
+// Five routes, chosen by the caller (ops/kernels/flash_attention.py
 // `flash_plan`) by head dim and dtype, never by a failure:
 //
+//   flash_attention_fwd_narrow  bf16, D = 16 or 32 (the ViT's 16): the
+//     Hopper kernel in flash_attention_fwd_narrow.cuh (one warpgroup a
+//     (batch, head) and 64 query rows, two a block, cp.async into a K/V
+//     ring of its own, Q K^T and P V on wgmma; its header says what bounds
+//     it and what its design does about that). One launch a call at every
+//     Tq and Tk: a sequence that fits one K/V tile runs its loop once.
 //   flash_attention_fwd_wgmma  bf16, D = 64 or 128 (the UNet's 128): the
 //     Hopper kernel in flash_attention_wgmma.cuh (TMA ring, wgmma for
 //     Q K^T and P V, warp-specialised; its header says what bounds it and
@@ -29,9 +35,9 @@
 //     a K/V tile) comes from the caller and is checked here; the tensor
 //     maps are encoded per call. One kernel covers both TPU kernels: a sequence
 //     that fits one K/V tile runs its loop once.
-//   flash_attention_fwd_bf16   bf16, D = 16, 32 or 256: the mma.sync kernel
-//     below (at 64 and 128 only when a plan asks for it: the old side of
-//     the old-against-new comparison). What bounds it on the H100: at the UNet's shapes attention does
+//   flash_attention_fwd_bf16   bf16, D = 256: the mma.sync kernel below
+//     (at 16, 32, 64 and 128 only when a plan asks for it: the old side of
+//     the old-against-new comparisons). What bounds it on the H100: at the UNet's shapes attention does
 //     4*T*D flops per query row against 4*D bytes of Q and O, so it is bound
 //     by operations on the tensor cores once the T x T scores stay out of
 //     device memory. One block of four warps owns 64 query rows (16 per
@@ -70,6 +76,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_attention_fwd_narrow.cuh"
 #include "flash_attention_wgmma.cuh"
 #include "ring_attention_tf32.cuh"
 
@@ -480,6 +487,22 @@ int launch_pv_probe(const CUtensorMap& v_map, const void* p, void* out, cudaStre
 }
 
 // ---------------------------------------------------------------------------
+// The narrow route (flash_attention_fwd_narrow.cuh): WGS items of 64 query
+// rows a block, items in (batch*head, query tile) order
+
+template <int HD>
+int launch_narrow(const fan::NarrowProblem& p, cudaStream_t stream) {
+  constexpr int smem = fan::smem_bytes(HD);
+  static_assert(smem <= wg::SMEM_LIMIT, "the tiles do not fit in shared memory");
+  auto kernel = fan::flash_fwd_narrow_kernel<HD>;
+  static unsigned long long ready = 0;
+  cudaError_t err = wg::smem_attribute_once(kernel, smem, &ready);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)((p.items + fan::WGS - 1) / fan::WGS), fan::WGS * 128, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // The tf32 route: K6's 3xTF32 fold (ring_attention_tf32.cuh) over one shard
 
 template <int HD>
@@ -541,6 +564,37 @@ int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* 
     case 256: return launch<256>(q, k, v, o, lse, B, H, Tq, Tk, strides, scale_log2, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The narrow route: q, k, v, o bf16 [B, T, H, D] with D = 16 or 32, D
+// contiguous; q, k, v 16-byte aligned with B/T/H element strides that are
+// multiples of 8, o 4-byte aligned with even strides; lse as above. One
+// launch at any Tq, Tk >= 1. Returns ERR_PLAN for a shape it does not take.
+int flash_attention_fwd_narrow(const void* q, const void* k, const void* v, void* o, void* lse,
+                               int B, int H, int Tq, int Tk, int D, const long long* strides,
+                               float scale_log2, void* stream) {
+  const long long q_tiles = Tq >= 1 ? (Tq + fan::BM - 1) / fan::BM : 0;
+  const long long items = (long long)B * H * q_tiles;
+  bool ok = (D == 16 || D == 32) && B >= 1 && H >= 1 && Tq >= 1 && Tk >= 1 &&
+            (items + fan::WGS - 1) / fan::WGS <= 2147483647LL &&
+            ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+              reinterpret_cast<uintptr_t>(v)) & 15) == 0 &&
+            (reinterpret_cast<uintptr_t>(o) & 3) == 0;
+  for (int i = 0; i < 9; ++i) ok = ok && strides[i] % 8 == 0;
+  for (int i = 9; i < 12; ++i) ok = ok && strides[i] % 2 == 0;
+  if (!ok) return ERR_PLAN;
+  fan::NarrowProblem p;
+  p.q = (const __nv_bfloat16*)q, p.k = (const __nv_bfloat16*)k, p.v = (const __nv_bfloat16*)v;
+  p.o = (__nv_bfloat16*)o;
+  p.lse = (float*)lse;
+  for (int i = 0; i < 12; ++i) p.st[i] = strides[i];
+  p.items = items;
+  p.H = H, p.Tq = Tq, p.Tk = Tk;
+  p.q_tiles = (int)q_tiles;
+  p.kv_tiles = (Tk + fan::BN - 1) / fan::BN;
+  p.scale_log2 = scale_log2;
+  cudaStream_t s = (cudaStream_t)stream;
+  return D == 16 ? launch_narrow<16>(p, s) : launch_narrow<32>(p, s);
 }
 
 // The wgmma route: q, k, v, o bf16 [B, T, H, D] with D = 64 or 128, D
@@ -657,7 +711,7 @@ int flash_attention_tf32(const void* q, void* o, void* lse, const void* ks, cons
 
 const char* flash_attention_error_string(int code) {
   switch (code) {
-    case ERR_PLAN: return "the wgmma or tf32 launcher refused the plan or shape";
+    case ERR_PLAN: return "the narrow, wgmma or tf32 launcher refused the plan or shape";
     case ERR_ENCODE_FN: return "cuTensorMapEncodeTiled could not be found in libcuda";
     case ERR_MAP: return "cuTensorMapEncodeTiled refused a tensor map of q, k or v (or their split terms)";
     default: return cudaGetErrorString((cudaError_t)code);

@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 KERNELS = ("conv3d", "conv3d_variants", "conv3d_s8_strided", "conv2d_s8", "conv2d_s8_strided",
-           "conv_int8", "flash_attention", "flash_attention_bwd", "ring_attention")
+           "conv1d_s8", "conv1d_s8_strided", "conv_int8", "flash_attention",
+           "flash_attention_bwd", "ring_attention")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -18,9 +18,15 @@ brings its own, in ``csrc/conv_int8.cu``:
   routes "s1_2d" and "s1_2d_strided"), on S1's block with the 1x3x3 tap set
   over x as a depth-1 volume; weights [Cout, 9, Cin] (``s1_2d_weights``).
   Their launchers are ``csrc/conv2d_s8.cu`` and ``csrc/conv2d_s8_strided.cu``.
+* ``conv1d_s8_kernel`` and ``conv1d_s8_strided_kernel``: the 1-D UNet's
+  3-tap convs with pads (1, 1), Cin % 16 == 0, at stride 1 and 2 (the
+  routes "s1_1d" and "s1_1d_strided"), on S1's block with the 1x1x3 tap set
+  over x as the volume [B, 1, 1, W, Cin], strided along W alone; weights
+  [Cout, 3, Cin] (``s1_1d_weights``). Their launchers are
+  ``csrc/conv1d_s8.cu`` and ``csrc/conv1d_s8_strided.cu``.
 * S2 ``conv_s8_general_kernel``: any int8 conv of rank 1-3 (as 3-D with unit
-  dims), any kernel size, stride and explicit padding: 1-D convs, other
-  kernels and strides, and the Cin % 16 != 0 the TMA routes do not take.
+  dims), any kernel size, stride and explicit padding: other kernels and
+  strides, and the Cin % 16 != 0 the TMA routes do not take.
 * S3 ``quantize_rows_kernel``: the symmetric int8 quantisation of each
   leading row (a sample, or an output channel of a weight), bitwise as
   ``quantize_int8``.
@@ -52,15 +58,19 @@ S1_CIN_MULTIPLE = 16  # TMA's global strides are multiples of 16 bytes
 S1_MAX_CIN = 4912  # 127^2 * 27 * Cin < 2^31
 INT32_MAX = 2**31 - 1
 # S1's block by the conv's stride: (1, 1, 1) is S1, (1, 2, 2) the Downsample;
-# in 2-D, (1, 1) and (2, 2) on its 1x3x3 tap set
+# in 2-D, (1, 1) and (2, 2) on its 1x3x3 tap set; in 1-D, 1 and 2 on its
+# 1x1x3 tap set
 S1_STRIDES = {(1, 1, 1): "s1", (1, 2, 2): "s1_strided"}
 S1_2D_STRIDES = {(1, 1): "s1_2d", (2, 2): "s1_2d_strided"}
+S1_1D_STRIDES = {(1,): "s1_1d", (2,): "s1_1d_strided"}
 # the routes on S1's block: their launcher (count name), source, stride
-# along H and W and taps
+# along H and W (along W alone at 3 taps) and taps
 S1_ROUTES = {"s1": ("conv3d_s8", "conv_int8", 1, 27),
              "s1_strided": ("conv3d_s8_strided", "conv3d_s8_strided", 2, 27),
              "s1_2d": ("conv2d_s8", "conv2d_s8", 1, 9),
-             "s1_2d_strided": ("conv2d_s8_strided", "conv2d_s8_strided", 2, 9)}
+             "s1_2d_strided": ("conv2d_s8_strided", "conv2d_s8_strided", 2, 9),
+             "s1_1d": ("conv1d_s8", "conv1d_s8", 1, 3),
+             "s1_1d_strided": ("conv1d_s8_strided", "conv1d_s8_strided", 2, 3)}
 OUT_KINDS = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -71,11 +81,13 @@ _LAUNCHERS = {
         "conv_s8_general": [_PTR] * 7 + [_INT, _PTR],
         "quantize_int8_rows": [_PTR, _INT, _LL, _LL, _INT, _INT, _INT] + [_PTR] * 4,
     },
-    # the strided Downsample's and the 2-D convs' own sources (each builds
-    # beside conv_int8.cu)
+    # the strided Downsample's, the 2-D and the 1-D convs' own sources (each
+    # builds beside conv_int8.cu)
     "conv3d_s8_strided": {"conv3d_s8_strided": _S1_ARGS},
     "conv2d_s8": {"conv2d_s8": _S1_ARGS},
     "conv2d_s8_strided": {"conv2d_s8_strided": _S1_ARGS},
+    "conv1d_s8": {"conv1d_s8": _S1_ARGS},
+    "conv1d_s8_strided": {"conv1d_s8_strided": _S1_ARGS},
 }
 
 
@@ -176,7 +188,8 @@ def int8_conv_route(x_shape, kernel_size: Sequence[int], stride: Sequence[int],
     "s1" (3-D, 3x3x3, stride 1, pads (1, 1), Cin % 16 == 0), "s1_strided"
     (the same at stride (1, 2, 2): the UNet's Downsample), "s1_2d" and
     "s1_2d_strided" (2-D, 3x3, pads (1, 1), Cin % 16 == 0, at stride (1, 1)
-    and (2, 2)), else "s2".
+    and (2, 2)), "s1_1d" and "s1_1d_strided" (1-D, 3 taps, pads (1, 1), Cin
+    % 16 == 0, at stride 1 and 2), else "s2".
     Raises, naming the shape, where neither covers it: rank above 3, an
     int32 sum that could overflow, or an index past int32."""
     dims = len(kernel_size)
@@ -214,6 +227,11 @@ def int8_conv_route(x_shape, kernel_size: Sequence[int], stride: Sequence[int],
             and tuple(tuple(p) for p in pads) == ((1, 1),) * 2
             and cin % S1_CIN_MULTIPLE == 0):
         route = S1_2D_STRIDES.get(tuple(stride))
+        if route:
+            return route
+    if (dims == 1 and tuple(kernel_size) == (3,) and tuple(tuple(p) for p in pads) == ((1, 1),)
+            and cin % S1_CIN_MULTIPLE == 0):
+        route = S1_1D_STRIDES.get(tuple(stride))
         if route:
             return route
     return "s2"
@@ -273,6 +291,12 @@ def s1_2d_weights(wq: torch.Tensor) -> torch.Tensor:
     dy*3+dx: S1's layout over the 1x3x3 tap set."""
     cout, cin = wq.shape[:2]
     return wq.permute(0, 2, 3, 1).reshape(cout, 9, cin).contiguous()
+
+
+def s1_1d_weights(wq: torch.Tensor) -> torch.Tensor:
+    """[Cout, Cin, 3] int8 -> the 1-D routes' [Cout, 3, Cin], tap = dx:
+    S1's layout over the 1x1x3 tap set."""
+    return wq.permute(0, 2, 1).contiguous()
 
 
 def s2_weights(wq: torch.Tensor) -> torch.Tensor:
@@ -348,21 +372,40 @@ def conv2d_s8_strided_kernel(xq: torch.Tensor, s_x, w9: torch.Tensor, s_w, bias,
     return _s1_block("s1_2d_strided", xq, s_x, w9, s_w, bias, out_dtype)
 
 
+def conv1d_s8_kernel(xq: torch.Tensor, s_x, w3: torch.Tensor, s_w, bias,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The 1-D 3-tap stride-1 conv with pads (1, 1) on S1's block: xq [B,
+    W, Cin] int8 (Cin % 16 == 0), w3 [Cout, 3, Cin] int8
+    (``s1_1d_weights``); the other arguments as for S1. Counted as
+    ``conv1d_s8``; the tiles are ``igemm_plan``'s on [B, 1, 1, W]."""
+    return _s1_block("s1_1d", xq, s_x, w3, s_w, bias, out_dtype)
+
+
+def conv1d_s8_strided_kernel(xq: torch.Tensor, s_x, w3: torch.Tensor, s_w, bias,
+                             out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The 1-D Downsample on S1's block: the 3-tap conv at stride 2, pads
+    (1, 1), of xq [B, W, Cin] int8 (Cin % 16 == 0) -> [B, ceil(W/2), Cout];
+    the other arguments as for ``conv1d_s8_kernel``. Counted as
+    ``conv1d_s8_strided``; the tiles are ``igemm_plan``'s on the output."""
+    return _s1_block("s1_1d_strided", xq, s_x, w3, s_w, bias, out_dtype)
+
+
 def _s1_block(route: str, xq, s_x, w1, s_w, bias, out_dtype) -> torch.Tensor:
     """S1's block on ``route`` (``S1_ROUTES``: its launcher and count
-    name, its source csrc/<source>.cu, the stride along H and W and the
-    taps; pads (1, 1)). A 2-D x [B, H, W, Cin] is the volume [B, 1, H, W,
-    Cin] over the 1x3x3 taps."""
+    name, its source csrc/<source>.cu, the stride along H and W (W alone
+    in 1-D) and the taps; pads (1, 1)). A 2-D x [B, H, W, Cin] is the
+    volume [B, 1, H, W, Cin] over the 1x3x3 taps, a 1-D x [B, W, Cin] the
+    volume [B, 1, 1, W, Cin] over the 1x1x3 taps."""
     name, source, sw, taps = S1_ROUTES[route]
     check_no_autograd(name, xq, s_x, s_w, bias)
     if xq.device.type != "cuda":
         raise RuntimeError(f"{name} has no kernel for device {xq.device}")
-    rank = 5 if taps == 27 else 4
+    rank = {27: 5, 9: 4, 3: 3}[taps]
     if xq.dim() != rank or w1.dim() != 3 or tuple(w1.shape[1:]) != (taps, xq.shape[-1]):
-        raise ValueError(f"{name} takes x [B,{'D,' if taps == 27 else ''}H,W,Cin] and w "
-                         f"[Cout,{taps},Cin]; got {tuple(xq.shape)} and {tuple(w1.shape)}")
-    flat = xq.shape[:-1] if taps == 27 else (xq.shape[0], 1, *xq.shape[1:-1])
-    b, d, h, w = flat
+        raise ValueError(f"{name} takes x [B,{'D,H,' if taps == 27 else 'H,' if taps == 9 else ''}"
+                         f"W,Cin] and w [Cout,{taps},Cin]; got {tuple(xq.shape)} and "
+                         f"{tuple(w1.shape)}")
+    b, d, h, w = (xq.shape[0], *(1,) * (5 - rank), *xq.shape[1:-1])
     cin = xq.shape[-1]
     cout = w1.shape[0]
     _check_conv(xq, s_x, s_w, bias, out_dtype, cout)
@@ -373,8 +416,10 @@ def _s1_block(route: str, xq, s_x, w1, s_w, bias, out_dtype) -> torch.Tensor:
         raise ValueError(f"{name} takes Cin % 16 == 0 up to {max_cin}, got {cin}")
     if not xq.is_contiguous() or xq.data_ptr() % 16:
         raise ValueError(f"{name} needs a contiguous, 16-byte aligned x")
-    spatial = conv_out_spatial((d, h, w), (1 if taps == 9 else 3, 3, 3), (1, sw, sw),
-                               ((1 if taps == 27 else 0,) * 2, (1, 1), (1, 1)))
+    # the tap set's extent along D, H (1 where it stays on the centre) and W
+    kd, kh = (3, 3) if taps == 27 else (1, 3) if taps == 9 else (1, 1)
+    spatial = conv_out_spatial((d, h, w), (kd, kh, 3), (1, sw if kh == 3 else 1, sw),
+                               ((kd // 2,) * 2, (kh // 2,) * 2, (1, 1)))
     out_shape = (b, *spatial, cout)
     if max(xq.numel(), math.prod(out_shape), taps * cin * cout) > INT32_MAX:
         raise ValueError(f"{name}: shape {tuple(xq.shape)} -> {cout} is out of its range")
@@ -389,7 +434,7 @@ def _s1_block(route: str, xq, s_x, w1, s_w, bias, out_dtype) -> torch.Tensor:
     _build.check(code, lib, f"{source}_error_string",
                  f"{name}({tuple(xq.shape)} -> {cout}, plan {plan})")
     launch_counts[name] += 1
-    return out if taps == 27 else out.reshape(b, *spatial[1:], cout)
+    return out.reshape(b, *spatial[5 - rank:], cout)
 
 
 def conv_s8_general_kernel(xq: torch.Tensor, s_x, w2: torch.Tensor, s_w, bias,

@@ -32,8 +32,13 @@ The forward's route is ``flash_plan``'s, by head dim and dtype only: bf16 at
 head dims 64 and 128 (the UNet's) takes the Hopper kernel
 (``csrc/flash_attention_wgmma.cuh``: Q and K/V tiles by TMA through an
 mbarrier ring, Q K^T and P V on ``wgmma``, warp-specialised), with the
-plan's query rows a block and keys a tile; bf16 at 16,
-32 and 256 takes the ``mma.sync`` kernel. fp32 at head dims 64 and 128
+plan's query rows a block and keys a tile; bf16 at padded head dims 16 and
+32 (the ViT's 16) takes ONE Hopper kernel a call at every T
+(``csrc/flash_attention_fwd_narrow.cuh``: a warpgroup a batch*head and 64
+query rows, two a block, K/V through a cp.async ring of its own, both
+products on ``wgmma``), counted as ``flash_attention_fwd_narrow``; bf16 at
+256 takes the ``mma.sync`` kernel (at 16 and 32 on request,
+``MMA_SYNC_PLAN``: the old side of the comparison). fp32 at head dims 64 and 128
 takes K6's 3xTF32 fold with one shard (``csrc/ring_attention_tf32.cuh``:
 every product three TF32 products on ``wgmma``, after a pre-pass that
 splits K and V^T into their tf32 terms; counted as ``flash_attention_tf32``
@@ -101,10 +106,10 @@ flash_routes: Counter = Counter()
 
 
 class FlashPlan(NamedTuple):
-    """The forward's route ("wgmma", "mma_sync", "tf32" or "fp32") and its
-    tiles: query rows a block (bm) and keys a K/V tile (bn). The wgmma route
-    takes the tiles of WGMMA_TILES; the other three have fixed tiles, which
-    the plan records."""
+    """The forward's route ("wgmma", "narrow", "mma_sync", "tf32" or "fp32")
+    and its tiles: query rows a block (bm; on the narrow route a warpgroup)
+    and keys a K/V tile (bn). The wgmma route takes the tiles of
+    WGMMA_TILES; the others have fixed tiles, which the plan records."""
 
     route: str
     bm: int
@@ -119,6 +124,14 @@ class FlashPlan(NamedTuple):
 
 
 MMA_SYNC_PLAN = FlashPlan("mma_sync", 64, 64)
+# The narrow route (csrc/flash_attention_fwd_narrow.cuh): bf16 at padded head
+# dims 16 and 32; a warpgroup owns 64 query rows of one batch*head (an item),
+# NARROW_WARPGROUPS items a block, each with its own ring of NARROW_STAGES
+# stages of 64 keys
+NARROW_HEAD_DIMS = (16, 32)
+NARROW_WARPGROUPS = 2
+NARROW_STAGES = 3
+NARROW_PLAN = FlashPlan("narrow", 64, 64)
 FP32_PLAN = FlashPlan("fp32", 16, 64)
 # K6's 3xTF32 fold (csrc/ring_attention_tf32.cuh): 128 query rows a block,
 # a ring of 32-key stages; its shared memory is ring_attention.tf32_smem_bytes
@@ -193,6 +206,19 @@ TF32_BWD_BN = 32
 TF32_BWD_STAGES = 2
 
 
+def narrow_fwd_smem_bytes(d: int) -> int:
+    """Shared memory of a narrow-route block at padded head dim ``d`` (16 or
+    32): per warpgroup Q and the K stages, then the V stages, each a [64][d]
+    slot of 2 d bytes a row in 128-byte swizzled [64][64] regions (4 slots a
+    region at d = 16, 2 at 32), then 1024 bytes that align the block to the
+    swizzle (flash_attention_fwd_narrow.cuh's smem_bytes)."""
+    if d not in NARROW_HEAD_DIMS:
+        raise ValueError(f"the narrow route takes padded head dims {NARROW_HEAD_DIMS}, not {d}")
+    per_region = 128 // (2 * d)
+    regions = -(-(1 + NARROW_STAGES) // per_region) + -(-NARROW_STAGES // per_region)
+    return NARROW_WARPGROUPS * regions * 64 * 128 + 1024
+
+
 def small_bwd_smem_bytes() -> int:
     """Shared memory of a small-route block, at padded head dim 16 and 32
     alike: per warpgroup K, V, Q, dO and the bf16 dS^T tile as 128-byte
@@ -264,9 +290,10 @@ def flash_plan(b: int, h: int, tq: int, tk: int, d: int, dtype=torch.bfloat16,
     ``sms`` multiprocessors (132: the H100 SXM).
 
     The route goes by head dim and dtype: bf16 whose padded head dim is 64
-    or 128 takes the wgmma kernel, other bf16 the mma.sync kernel; fp32 at
-    64 and 128 the 3xTF32 fold (``TF32_PLAN``), other fp32 the CUDA-core
-    kernel (``FP32_PLAN``); other dtypes have none. For the wgmma route, each SM runs two
+    or 128 takes the wgmma kernel, 16 or 32 the narrow kernel
+    (``NARROW_PLAN``, at every T), 256 the mma.sync kernel; fp32 at 64 and
+    128 the 3xTF32 fold (``TF32_PLAN``), other fp32 the CUDA-core kernel
+    (``FP32_PLAN``); other dtypes have none. For the wgmma route, each SM runs two
     consumer warpgroups: one block of 128 query rows, or two blocks of 64
     rows (with 64-key tiles a block holds 80 KB of shared memory, so two
     fit). The busiest SM then works through ceil(blocks / sms) blocks of bm
@@ -280,6 +307,8 @@ def flash_plan(b: int, h: int, tq: int, tk: int, d: int, dtype=torch.bfloat16,
         return TF32_PLAN if padded_head_dim(d) in TF32_HEAD_DIMS else FP32_PLAN
     if dtype != torch.bfloat16:
         raise TypeError(f"flash_attention kernel takes bfloat16 or float32, got {dtype}")
+    if padded_head_dim(d) in NARROW_HEAD_DIMS:
+        return NARROW_PLAN
     if padded_head_dim(d) not in WGMMA_HEAD_DIMS:
         return MMA_SYNC_PLAN
     bm = min(FLASH_BM, key=lambda m: (busiest_sm_rows(m, b, h, tq, sms), -m))
@@ -328,6 +357,7 @@ _BWD = [_PTR] * 9 + [_INT] * 5 + [_PTR, _FLOAT, _FLOAT, _PTR]
 _LAUNCHERS = {
     "flash_attention": {
         "flash_attention_fwd_bf16": _FWD + [_PTR],
+        "flash_attention_fwd_narrow": _FWD + [_PTR],
         "flash_attention_fwd_f32": _FWD + [_PTR],
         "flash_attention_fwd_wgmma": _FWD + [_INT] * 2 + [_PTR],
         "flash_wgmma_pv_probe": [_PTR] * 3 + [_INT] * 2 + [_PTR],
@@ -475,9 +505,12 @@ def flash_attention_fwd_kernel(
     plan: Optional[FlashPlan] = None,
 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch the forward kernel of ``plan``'s route (``flash_plan``'s when
-    not given: tile studies pass their own). Returns the output padded to
-    the kernel's head dim, [B, Tq, H, Dk], and the base-2 LSE [B, H, Tq]
-    (fp32) when ``with_lse``, else None."""
+    not given: tile studies and the old-against-new comparisons pass their
+    own). Returns the output padded to the kernel's head dim, [B, Tq, H,
+    Dk], and the base-2 LSE [B, H, Tq] (fp32) when ``with_lse``, else None.
+    The narrow route's launches count as ``flash_attention_fwd_narrow``,
+    the tf32 fold's as ``flash_attention_tf32``, the others' as
+    ``flash_attention``."""
     check_no_autograd("flash_attention", q, k, v)
     _check(q, k, v)
     dk, d = _kernel_layout("flash_attention", q, k, v)
@@ -510,15 +543,21 @@ def flash_attention_fwd_kernel(
         strides = _strides(q, k, v, out)
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr,
                 b, h, tq, tk, dk, ctypes.addressof(strides), scale_log2)
+        if plan.route == "narrow" and (q.dtype != torch.bfloat16 or dk not in NARROW_HEAD_DIMS):
+            raise ValueError(f"flash_attention: the narrow route takes bf16 at padded head dims "
+                             f"{NARROW_HEAD_DIMS}, got {q.dtype} at {dk}")
         with on_device(device):
             if plan.route == "wgmma":
                 code = lib.flash_attention_fwd_wgmma(*args, plan.bm, plan.bn, stream)
+            elif plan.route == "narrow":
+                code = lib.flash_attention_fwd_narrow(*args, stream)
             elif plan.route == "mma_sync":
                 code = lib.flash_attention_fwd_bf16(*args, stream)
             else:
                 code = lib.flash_attention_fwd_f32(*args, stream)
         _build.check(code, lib, "flash_attention_error_string", what)
-        launch_counts["flash_attention"] += 1
+        launch_counts["flash_attention_fwd_narrow" if plan.route == "narrow"
+                      else "flash_attention"] += 1
     flash_routes[f"{plan.route} Tk={tk}"] += 1
     return out, lse
 

@@ -18,8 +18,8 @@ and the Cout = 1 head in fp32 (both packages cast to fp32 before the head).
 
 Where it runs (``ops/kernels/conv_int8.py``): the activation quantisation
 is S3 on the card, the convs S1's block (3x3x3 SAME at stride 1 and the
-(1, 2, 2) Downsample, and 2-D 3x3 at stride 1 and 2, Cin % 16 == 0) or S2
-(the rest: 1-D convs, Cin % 16 != 0, other kernels), the Dense sites
+(1, 2, 2) Downsample, 2-D 3x3 and 1-D 3-tap at stride 1 and 2, pads (1, 1),
+Cin % 16 == 0) or S2 (the rest: Cin % 16 != 0, other kernels), the Dense sites
 (``Conv1x1``: the ResBlock's channel-changing skip, attention qkv and
 proj_out) ``torch._int_mm`` on S3's output, as JAX leaves its ``DenseInt8``
 product to XLA. On the CPU every piece is its plain version.
@@ -118,11 +118,12 @@ def quantized_weight(module) -> dict:
 @torch.no_grad()
 def weight_layout(cache: dict, name: str) -> torch.Tensor:
     """A kernel's layout of the cached int8 weights: "s1" [Cout, 27, Cin],
-    "s1_2d" [Cout, 9, Cin], "s2" packed words, "dense" [Cout, Cin] (its
-    transpose is _int_mm's column-major B)."""
+    "s1_2d" [Cout, 9, Cin], "s1_1d" [Cout, 3, Cin], "s2" packed words,
+    "dense" [Cout, Cin] (its transpose is _int_mm's column-major B)."""
     if name not in cache:
         wq = cache["wq"]
-        cache[name] = {"s1": k.s1_weights, "s1_2d": k.s1_2d_weights, "s2": k.s2_weights,
+        cache[name] = {"s1": k.s1_weights, "s1_2d": k.s1_2d_weights,
+                       "s1_1d": k.s1_1d_weights, "s2": k.s2_weights,
                        "dense": lambda t: t.reshape(t.shape[0], t.shape[1]).contiguous()}[name](wq)
     return cache[name]
 
@@ -152,6 +153,9 @@ def conv_int8(module, x: torch.Tensor) -> torch.Tensor:
     if route in ("s1_2d", "s1_2d_strided"):
         launch = k.conv2d_s8_kernel if route == "s1_2d" else k.conv2d_s8_strided_kernel
         return launch(xq, s_x, weight_layout(cache, "s1_2d"), cache["s_w"], bias, dt)
+    if route in ("s1_1d", "s1_1d_strided"):
+        launch = k.conv1d_s8_kernel if route == "s1_1d" else k.conv1d_s8_strided_kernel
+        return launch(xq, s_x, weight_layout(cache, "s1_1d"), cache["s_w"], bias, dt)
     return k.conv_s8_general_kernel(xq, s_x, weight_layout(cache, "s2"), cache["s_w"], bias,
                                     ksize, module.stride, pads, dt)
 

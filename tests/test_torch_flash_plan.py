@@ -31,19 +31,22 @@ from pathlib import Path
 import pytest
 import torch
 
+from rho_diffusion_tpu_torch.benchmarks import flash_fwd_narrow_ablation as fwd_ablation
+from rho_diffusion_tpu_torch.benchmarks._ablation import patched
 from rho_diffusion_tpu_torch.benchmarks.flash_bwd_long_ablation import SOURCE as ABLATED
-from rho_diffusion_tpu_torch.benchmarks.flash_bwd_long_ablation import VARIANTS, patched
+from rho_diffusion_tpu_torch.benchmarks.flash_bwd_long_ablation import VARIANTS
 from rho_diffusion_tpu_torch.ops.kernels._build import CSRC
 
 from rho_diffusion_tpu_torch.models.unet import UNet
 from rho_diffusion_tpu_torch.ops import attention as attn_mod
 from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
     FLASH_BM, FLASH_BWD_BM, FP32_BWD_PLAN, FP32_PLAN, HEAD_DIMS, LONG_BWD_BM, LONG_BWD_PLAN,
-    LONG_BWD_BLOCKS, LONG_BWD_STAGES, LONG_BWD_WARPGROUPS, MMA_SYNC_BWD_PLAN,
-    SMALL_BWD_HEAD_DIMS, SMALL_BWD_PLAN, SMALL_BWD_T, SMALL_BWD_WARPGROUPS, SMEM_LIMIT,
+    LONG_BWD_BLOCKS, LONG_BWD_STAGES, LONG_BWD_WARPGROUPS, MMA_SYNC_BWD_PLAN, MMA_SYNC_PLAN,
+    NARROW_HEAD_DIMS, NARROW_PLAN, NARROW_STAGES, NARROW_WARPGROUPS, SMALL_BWD_HEAD_DIMS, SMALL_BWD_PLAN, SMALL_BWD_T, SMALL_BWD_WARPGROUPS, SMEM_LIMIT,
     TF32_BWD_PLAN, TF32_PLAN, WGMMA_BWD_PLANS, WGMMA_HEAD_DIMS, WGMMA_PLANS, WGMMA_TILES,
     FlashBwdPlan, FlashPlan, busiest_sm_rows, flash_bwd_plan, flash_plan, long_bwd_groups,
-    long_bwd_scratch_bytes, padded_head_dim)
+    long_bwd_scratch_bytes, narrow_fwd_smem_bytes, padded_head_dim)
+from rho_diffusion_tpu_torch.ops.kernels.flash_attention import _LAUNCHERS as FLASH_LAUNCHERS
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -159,8 +162,57 @@ def test_route_by_head_dim_and_dtype(d, dtype):
         assert plan == (TF32_PLAN if padded_head_dim(d) in (64, 128) else FP32_PLAN)
     elif padded_head_dim(d) in WGMMA_HEAD_DIMS:
         assert plan.route == "wgmma"
+    elif padded_head_dim(d) in NARROW_HEAD_DIMS:
+        assert plan == NARROW_PLAN
     else:
-        assert plan.route == "mma_sync"
+        assert plan == MMA_SYNC_PLAN
+
+
+@pytest.mark.parametrize("t", [1, 64, 65, 300, 512, 4096])
+@pytest.mark.parametrize("d", [16, 32, 8, 20, 256])
+def test_narrow_route_at_every_t(d, t):
+    """bf16 at padded head dims 16 and 32 (the ViT's 16) takes the narrow
+    kernel at every T, one tile or many, ragged or not, Tq = Tk or not; bf16
+    at 256 keeps the mma.sync kernel; fp32 keeps its CUDA-core kernel."""
+    for b, h, tk in ((32, 16, t), (2, 4, t), (1, 3, max(1, t // 3))):
+        plan = flash_plan(b, h, t, tk, d, sms=SMS)
+        assert plan == (MMA_SYNC_PLAN if d == 256 else NARROW_PLAN)
+        assert flash_plan(b, h, t, tk, d, torch.float32, sms=SMS) == FP32_PLAN
+
+
+@pytest.mark.parametrize("d", NARROW_HEAD_DIMS)
+def test_narrow_instances_fit(d):
+    """The narrow kernel's block at D = 16 and 32 (one instance each): two
+    warpgroups, each with Q and three K stages as K-major [64][d] slots and
+    three V stages as MN-major ones, 2 d bytes of each 128-byte row of a
+    swizzled [64][64] region (8192 bytes; 4 slots a region at D = 16, 2 at
+    32), then 1024 bytes of alignment: 33,792 bytes at D = 16 (a region of
+    Q and K, one of V, a warpgroup) and 66,560 at D = 32 (two and two). So
+    six blocks fit an SM at D = 16 and three at 32: the registers, held to
+    three and two blocks an SM, set how many run. The header's constants
+    are these, and the launcher's ctypes signature is the mma.sync
+    kernel's (12 values of strides behind one pointer)."""
+    slots = 128 // (2 * d)
+    regions = -(-(1 + NARROW_STAGES) // slots) + -(-NARROW_STAGES // slots)
+    written_out = NARROW_WARPGROUPS * regions * 64 * 128 + 1024
+    assert narrow_fwd_smem_bytes(d) == written_out == {16: 33792, 32: 66560}[d] <= SMEM_LIMIT
+    fit = {16: 6, 32: 3}[d]  # blocks an SM: the SM's 228 KB, 1 KB reserved a block
+    assert fit * (written_out + 1024) <= 233472 < (fit + 1) * (written_out + 1024)
+    assert (NARROW_PLAN.bm, NARROW_PLAN.bn) == (64, 64)
+    header = (CSRC / "flash_attention_fwd_narrow.cuh").read_text()
+    constants = dict(re.findall(r"constexpr int (\w+) = (\d+);", header))
+    assert (int(constants["BM"]), int(constants["BN"])) == (NARROW_PLAN.bm, NARROW_PLAN.bn)
+    assert int(constants["WGS"]) == NARROW_WARPGROUPS and int(constants["STAGES"]) == NARROW_STAGES
+    assert (int(constants["MIN_BLOCKS_16"]), int(constants["MIN_BLOCKS_32"])) == (3, 2)
+    assert fit >= int(constants[f"MIN_BLOCKS_{d}"])
+    launchers = FLASH_LAUNCHERS["flash_attention"]
+    assert launchers["flash_attention_fwd_narrow"] == launchers["flash_attention_fwd_bf16"]
+    source = (CSRC / "flash_attention.cu").read_text()
+    entry = source[source.index("int flash_attention_fwd_narrow("):]
+    entry = entry[:entry.index(")")]
+    assert entry.count(",") + 1 == len(launchers["flash_attention_fwd_narrow"]) == 13
+    with pytest.raises(ValueError, match="narrow route"):
+        narrow_fwd_smem_bytes(64)
 
 
 @pytest.mark.parametrize("d", WGMMA_HEAD_DIMS)
@@ -422,6 +474,19 @@ def test_bwd_kernel_wrapper_has_no_cpu_route():
         flash_delta_kernel(q, q)
 
 
+@pytest.mark.parametrize("variant", sorted(fwd_ablation.VARIANTS))
+def test_fwd_narrow_ablation_edits_apply(variant):
+    """Each variant of the narrow forward's ablation
+    (benchmarks/flash_fwd_narrow_ablation.py) finds every text it edits in
+    the kernel's source exactly as often as it says; no_exp leaves no ex2
+    call in the kernel's body; the base variant is the source itself."""
+    text = (CSRC / fwd_ablation.SOURCE).read_text()
+    out = patched(text, fwd_ablation.VARIANTS[variant], fwd_ablation.SOURCE)
+    assert (out == text) == (variant == "base")
+    body = out[out.index("flash_fwd_narrow_kernel("):]
+    assert ("ex2(" in body) == (variant != "no_exp")
+
+
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_bwd_long_ablation_edits_apply(variant):
     """Each variant of the long backward's ablation
@@ -429,7 +494,7 @@ def test_bwd_long_ablation_edits_apply(variant):
     the kernel's source exactly as often as it says, so the ablation
     measures the kernel as it is; the base variant is the source itself."""
     text = (CSRC / ABLATED).read_text()
-    out = patched(text, VARIANTS[variant])
+    out = patched(text, VARIANTS[variant], ABLATED)
     assert (out == text) == (variant == "base")
     with pytest.raises(ValueError, match="occurs 0 times"):
-        patched(text, [("no such text", "", 1)])
+        patched(text, [("no such text", "", 1)], ABLATED)

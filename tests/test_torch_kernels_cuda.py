@@ -15,7 +15,9 @@ and Cout=1, fp32, strided q/k/v, padded head dims and Tq != Tk, for both
 dtypes of the flash kernel; the flash forward's wgmma route at every plan
 (T = 512, 4096 and a ragged 300, D = 64 and 128, with and without the LSE),
 its P V product alone, against the mma.sync kernel, and the route each head
-dim and dtype takes; the fp32 forward's and backward's 3xTF32 routes
+dim and dtype takes; the narrow forward at D = 16 and 32 (T = 1 to 4096,
+ragged, Tq != Tk, a padded head dim) with and without the LSE, bitwise
+repeatable and beside the mma.sync kernel; the fp32 forward's and backward's 3xTF32 routes
 (T = 512 at batch 8 and 32, 4096, a ragged 300, D = 64, Tq != Tk), their
 pre-passes bitwise, the backward twice bitwise and beside the FMA pair; the
 fused backward at every plan (T = 512, 4096, 300
@@ -34,7 +36,8 @@ refuse. The int8 kernels (S1 on K5's block with s8 operands, S2, S3) bitwise
 against their plain versions: S1 at the flagship's levels, a half-filled
 channel chunk, four N tiles, ragged volumes and Cout and the largest Cin its
 int32 sums allow; the 2-D convs on S1's block at stride 1 and 2 (DeepGalaxy's
-levels at batch 8, ragged planes) against the plain version and S2; S2 on the Downsample, 2-D, 1-D, Cin = 17 and an even
+levels at batch 8, ragged planes) and the 1-D convs on it (Spectroscopy's
+levels at batch 8, ragged lengths) against the plain version and S2; S2 on the Downsample, 2-D, 1-D, Cin = 17 and an even
 kernel; S3 in bf16 and fp32, ragged rows and weights. The plain versions run in fp32 with
 TF32 off; tolerances are chip_smoke.py's.
 """
@@ -52,7 +55,7 @@ from rho_diffusion_tpu_torch.ops.kernels.conv3d_variants import (
     bigdot, bigdot_plain, conv_variant, conv_variant_plain, dots_only, dots_only_plain)
 from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
     FP32_BWD_PLAN, FP32_PLAN, LONG_BWD_BLOCKS, LONG_BWD_PLAN, MMA_SYNC_BWD_PLAN, MMA_SYNC_PLAN,
-    SMALL_BWD_PLAN, TF32_BWD_PLAN, TF32_PLAN,
+    NARROW_PLAN, SMALL_BWD_PLAN, TF32_BWD_PLAN, TF32_PLAN,
     WGMMA_BWD_PLANS, WGMMA_PLANS, FlashBwdPlan, FlashPlan, flash_attention,
     flash_attention_bwd_kernel, flash_attention_bwd_plain, flash_attention_fwd_kernel,
     flash_attention_plain, flash_bwd_plan, flash_bwd_split, flash_bwd_split_plain, flash_delta,
@@ -250,7 +253,7 @@ def test_flash_wgmma_matches_the_mma_sync_kernel(cuda, b, t):
 
 @pytest.mark.parametrize("d,dtype,route", [
     (128, torch.bfloat16, "wgmma"), (64, torch.bfloat16, "wgmma"), (100, torch.bfloat16, "wgmma"),
-    (32, torch.bfloat16, "mma_sync"), (16, torch.bfloat16, "mma_sync"),
+    (32, torch.bfloat16, "narrow"), (16, torch.bfloat16, "narrow"),
     (256, torch.bfloat16, "mma_sync"), (128, torch.float32, "tf32"), (64, torch.float32, "tf32"),
     (32, torch.float32, "fp32"),
 ])
@@ -290,6 +293,56 @@ def test_flash_wgmma_refuses_a_plan_it_does_not_take(cuda):
         flash_attention_fwd_kernel(q.float(), k.float(), v.float(), plan=MMA_SYNC_PLAN)
 
 
+@pytest.mark.parametrize("b,tq,tk,h,d", [
+    (32, 64, 64, 16, 16),     # the ViT at patch 8: one K/V tile, 128 blocks of four items
+    (32, 512, 512, 16, 16),   # the ViT at patch 4: eight K/V tiles through the ring
+    (2, 65, 65, 16, 16),      # a ragged second tile of one key
+    (4, 512, 512, 8, 32),     # D = 32: two k-steps a score product
+    (2, 300, 300, 4, 32),     # ragged T at D = 32
+    (1, 1, 1, 2, 16),         # one query, one key
+    (2, 200, 150, 3, 16),     # Tq != Tk, the ring's stages refilled
+    (1, 4096, 4096, 2, 16),   # 64 K/V tiles
+    (1, 70, 9, 2, 20),        # head dim padded to 32, fewer keys than a tile
+])
+def test_flash_narrow_matches_plain(cuda, b, tq, tk, h, d):
+    """The narrow forward (bf16 at padded head dims 16 and 32) on strided
+    views, with and without the LSE: one launch a call, within the flash
+    tolerance of the plain version, bitwise the same on a second call and
+    without the LSE, its LSE within 1e-4 of the plain one's, and beside the
+    mma.sync kernel (the plan it replaced, on request)."""
+    q = randn((b, tq, h, d), 62, cuda, torch.bfloat16)
+    k, v = randn((b, tk, h, 2 * d), 63, cuda, torch.bfloat16).split(d, dim=-1)
+    assert flash_plan(b, h, tq, tk, d) == NARROW_PLAN
+    launch_counts.clear()
+    flash_routes.clear()
+    out, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+    again, lse2 = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+    bare, none = flash_attention_fwd_kernel(q, k, v)
+    old, old_lse = flash_attention_fwd_kernel(q, k, v, with_lse=True, plan=MMA_SYNC_PLAN)
+    torch.cuda.synchronize()
+    assert launch_counts == {"flash_attention_fwd_narrow": 3, "flash_attention": 1}
+    assert flash_routes == {f"narrow Tk={tk}": 3, f"mma_sync Tk={tk}": 1}
+    assert none is None and torch.equal(out, again) and torch.equal(lse, lse2)
+    assert torch.equal(out, bare)
+    want = xla_attention(q.float(), k.float(), v.float())
+    assert_flash_close(out[..., :d], want, torch.bfloat16)
+    assert_flash_close(old[..., :d], want, torch.bfloat16)
+    assert_flash_close(out[..., :d], old[..., :d].float(), torch.bfloat16)
+    torch.testing.assert_close(lse, flash_lse_plain(q, k), rtol=0, atol=1e-4)
+    torch.testing.assert_close(lse, old_lse, rtol=0, atol=1e-4)
+
+
+def test_flash_narrow_refuses_what_it_does_not_take(cuda):
+    """The narrow route at a head dim it has no instance of, or in fp32,
+    raises and names it."""
+    q64 = randn((1, 64, 2, 64), 64, cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="narrow"):
+        flash_attention_fwd_kernel(q64, q64, q64, plan=NARROW_PLAN)
+    q16 = randn((1, 64, 2, 16), 65, cuda, torch.float32)
+    with pytest.raises(ValueError, match="route"):
+        flash_attention_fwd_kernel(q16, q16, q16, plan=NARROW_PLAN)
+
+
 def test_flash_kernel_rejects_float16(cuda):
     q = randn((1, 8, 1, 32), 0, cuda, torch.float16)
     with pytest.raises(TypeError, match="bfloat16 or float32"):
@@ -298,9 +351,12 @@ def test_flash_kernel_rejects_float16(cuda):
 
 def fwd_launches(d, dtype) -> dict:
     """The forward's launches by route: fp32 at padded head dims 64 and 128
-    the 3xTF32 fold and its K/V pre-pass, one kernel elsewhere."""
+    the 3xTF32 fold and its K/V pre-pass, bf16 at padded 16 and 32 the
+    narrow kernel, one kernel of the ``flash_attention`` count elsewhere."""
     if dtype == torch.float32 and padded_head_dim(d) in (64, 128):
         return {"flash_attention_tf32": 1, "flash_attention_tf32_split": 1}
+    if dtype == torch.bfloat16 and padded_head_dim(d) in (16, 32):
+        return {"flash_attention_fwd_narrow": 1}
     return {"flash_attention": 1}
 
 
@@ -770,8 +826,8 @@ def test_unet_training_step_reaches_every_parameter(cuda, num_heads, head_dim, s
     """One bf16 loss.backward() of a small 3-D UNet on the card: every
     parameter gets a finite gradient (no kernel cuts the graph), and the
     step went through the forward and backward kernels: at head dim 32 the
-    mma.sync pair over 256 tokens and the small backward over 64, the
-    fused backward at 64."""
+    narrow forward, and the long backward over 256 tokens and the small
+    backward over 64; at 64 the wgmma forward and the fused backward."""
     from rho_diffusion_tpu_torch.models.unet import UNet
 
     torch.manual_seed(0)
@@ -795,9 +851,11 @@ def test_unet_training_step_reaches_every_parameter(cuda, num_heads, head_dim, s
         assert float(p.grad.abs().max()) > 0, name
     tokens = shape[0] * (shape[1] // 2) * (shape[2] // 2)  # attention after one Downsample
     bwd = bwd_launches(head_dim, torch.bfloat16, tokens, tokens)
+    fwd = fwd_launches(head_dim, torch.bfloat16)
     for kernel in ("conv3d_igemm", "conv3d_direct", "conv3d_dgrad_igemm", "conv3d_dgrad_direct",
-                   "flash_attention", *bwd):
+                   *fwd, *bwd):
         assert launch_counts[kernel] > 0, kernel
+    assert not launch_counts[({"flash_attention", "flash_attention_fwd_narrow"} - set(fwd)).pop()]
     others = {"flash_attention_bwd", "flash_attention_bwd_delta", "flash_attention_bwd_dkv",
               "flash_attention_bwd_dq", "flash_attention_bwd_small",
               "flash_attention_bwd_long"} - set(bwd)
@@ -1291,6 +1349,51 @@ def test_int8_2d_refuses_what_it_does_not_take(cuda):
     x3, w3, s_x, s_w, bias = _int8_operands((1, 4, 8, 8, 32), 32, (3, 3, 3), seed=7)
     with pytest.raises(ValueError, match=r"w \[Cout,9,Cin\]"):
         k.conv2d_s8_kernel(x3, s_x, k.s1_weights(w3), s_w, bias)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.int32, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("shape,cout", [
+    ((8, 4096, 32), 32), ((8, 2048, 64), 64), ((8, 1024, 192), 128), ((8, 512, 512), 256),
+    ((2, 37, 48), 40), ((1, 100, 16), 300), ((1, 33, 1024), 16)])
+def test_int8_1d_matches_plain_and_s2(cuda, shape, cout, stride, out_dtype):
+    """The 1-D 3-tap convs on S1's block (the 1x1x3 taps over x as the
+    volume [B, 1, 1, W, Cin], strided along W alone) at stride 1 and the
+    Downsample's 2: Spectroscopy's levels at batch 8 (level 3: 32 boxes,
+    Cout split into N tiles), ragged lengths, Cout over N tiles and a wide
+    Cin, bitwise against the plain version and against S2 on the same
+    inputs."""
+    from rho_diffusion_tpu_torch.ops.kernels import conv_int8 as k
+
+    xq, wq, s_x, s_w, bias = _int8_operands(shape, cout, (3,), seed=sum(shape) + cout + stride)
+    strides, pads = (stride,), [(1, 1)]
+    route = k.int8_conv_route(shape, (3,), strides, pads, cout)
+    assert route == ("s1_1d" if stride == 1 else "s1_1d_strided")
+    name = "conv1d_s8" if stride == 1 else "conv1d_s8_strided"
+    launch = k.conv1d_s8_kernel if stride == 1 else k.conv1d_s8_strided_kernel
+    launch_counts.clear()
+    got = launch(xq, s_x, k.s1_1d_weights(wq), s_w, bias, out_dtype)
+    assert launch_counts == {name: 1}
+    want = k.conv_int8_plain(xq, s_x, wq, s_w, bias, strides, pads, out_dtype)
+    s2 = k.conv_s8_general_kernel(xq, s_x, k.s2_weights(wq), s_w, bias, (3,), strides, pads,
+                                  out_dtype)
+    assert got.shape == want.shape
+    assert torch.equal(got, want) and torch.equal(got, s2)
+
+
+def test_int8_1d_refuses_what_it_does_not_take(cuda):
+    """Cin off the 16-byte multiple and 2-D operands raise and name them;
+    S2 keeps the first."""
+    from rho_diffusion_tpu_torch.ops.kernels import conv_int8 as k
+
+    xq, wq, s_x, s_w, bias = _int8_operands((1, 64, 24), 32, (3,), seed=8)
+    for launch in (k.conv1d_s8_kernel, k.conv1d_s8_strided_kernel):
+        with pytest.raises(ValueError, match="Cin % 16 == 0"):
+            launch(xq, s_x, k.s1_1d_weights(wq), s_w, bias)
+    assert k.int8_conv_route(tuple(xq.shape), (3,), (1,), [(1, 1)], 32) == "s2"
+    x2, w2, s_x, s_w, bias = _int8_operands((1, 8, 8, 32), 32, (3, 3), seed=9)
+    with pytest.raises(ValueError, match=r"w \[Cout,3,Cin\]"):
+        k.conv1d_s8_kernel(x2, s_x, k.s1_2d_weights(w2), s_w, bias)
 
 
 @pytest.mark.parametrize("shape,dtype", [

@@ -19,13 +19,15 @@ from rho_diffusion_tpu.ops.convolution import conv_nd as jax_conv_nd
 from rho_diffusion_tpu.ops.embeddings import sinusoidal_position_embedding as jax_sinusoidal
 from rho_diffusion_tpu.ops.norm import GroupNorm32 as JaxGroupNorm32
 from rho_diffusion_tpu.ops.pallas.conv3d import conv3d_pallas
+from rho_diffusion_tpu.ops.pallas.flash_attention import _flash_fwd_padded
 from rho_diffusion_tpu.ops.pallas.flash_attention import flash_attention as jax_flash_attention
 from rho_diffusion_tpu_torch.ops import activations as torch_act
 from rho_diffusion_tpu_torch.ops.attention import attention, xla_attention
 from rho_diffusion_tpu_torch.ops.convolution import Downsample, Upsample, conv_nd
 from rho_diffusion_tpu_torch.ops.embeddings import sinusoidal_position_embedding
 from rho_diffusion_tpu_torch.ops.kernels.conv3d import conv3d, conv3d_plain
-from rho_diffusion_tpu_torch.ops.kernels.flash_attention import flash_attention
+from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
+    LOG2E, flash_attention, flash_lse_plain, flash_plan)
 from rho_diffusion_tpu_torch.ops.norm import GroupNorm32
 
 torch.set_num_threads(1)
@@ -199,6 +201,39 @@ def test_flash_plain_matches_pallas_kernel(shape, blocks):
     for backend in ("auto", "xla", "flash"):
         np.testing.assert_allclose(attention(t(q), t(k), t(v), backend=backend).numpy(), want,
                                    atol=5e-5)
+
+
+@pytest.mark.parametrize(
+    "shape,block_q,block_k",
+    [
+        ((1, 512, 16, 16), 128, 512),  # the ViT at patch 4: K1, one K/V block of 512
+        ((2, 64, 4, 32), 128, 128),    # D = 32 at T = 64: K1 over a padded block
+    ],
+    ids=["vit-patch4-d16", "d32-t64"],
+)
+def test_flash_plain_matches_pallas_kernel_at_narrow_head_dims(shape, block_q, block_k):
+    """At the narrow route's head dims (bf16 there on the card) the flash
+    kernel's plain version, and its base-2 LSE (``flash_lse_plain``, what
+    the narrow kernel writes for the backward), against the TPU kernel K1
+    in interpret mode with its natural-log LSE, atol 5e-5. The ViT's
+    patch-4 attention (T 512, 16 heads of 16) is the shape where JAX's
+    dispatcher sends the ViT to this kernel."""
+    b, tq, h, d = shape
+    assert flash_plan(b, h, tq, tq, d).route == "narrow"
+    q, k, v = qkv(shape, 8)
+
+    def fold(x):
+        return jnp.asarray(x).transpose(0, 2, 1, 3).reshape(b * h, tq, d)
+
+    o, residuals = _flash_fwd_padded(fold(q), fold(k), fold(v), block_q, block_k,
+                                     interpret=True)
+    lse = np.asarray(residuals[4])[:, :tq, 0].reshape(b, h, tq)  # natural log, replicated lanes
+    want = np.asarray(o).reshape(b, h, tq, d).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(flash_attention(t(q), t(k), t(v)).numpy(), want, atol=5e-5)
+    np.testing.assert_allclose(flash_lse_plain(t(q), t(k)).numpy(), lse * LOG2E, atol=5e-5)
+    np.testing.assert_allclose(
+        np.asarray(jax_flash_attention(*(jnp.asarray(a) for a in (q, k, v)), interpret=True)),
+        want, atol=5e-5)
 
 
 def test_attention_unknown_backend_raises():

@@ -43,6 +43,8 @@ from rho_diffusion_tpu_torch.benchmarks import (
 from rho_diffusion_tpu_torch.ops.kernels import _build, launch_counts
 from rho_diffusion_tpu_torch.ops.kernels.conv3d import Conv3d, conv3d, conv3d_kernel
 from rho_diffusion_tpu_torch.ops.kernels.conv_int8 import (
+    conv1d_s8_kernel,
+    conv1d_s8_strided_kernel,
     conv2d_s8_kernel,
     conv2d_s8_strided_kernel,
     conv3d_s8_kernel,
@@ -207,10 +209,14 @@ def test_int8_kernel_wrappers_raise_off_the_cpu_and_off_their_range():
     w2 = torch.empty((27, 8, 16), dtype=torch.int32, device="meta")
     x2 = torch.empty((1, 4, 4, 32), dtype=torch.int8, device="meta")
     w9 = torch.empty((16, 9, 32), dtype=torch.int8, device="meta")
+    x1 = torch.empty((1, 64, 32), dtype=torch.int8, device="meta")
+    w3 = torch.empty((16, 3, 32), dtype=torch.int8, device="meta")
     for launch in (lambda: conv3d_s8_kernel(xq, s, w1, sw, None),
                    lambda: conv3d_s8_strided_kernel(xq, s, w1, sw, None),
                    lambda: conv2d_s8_kernel(x2, s, w9, sw, None),
                    lambda: conv2d_s8_strided_kernel(x2, s, w9, sw, None),
+                   lambda: conv1d_s8_kernel(x1, s, w3, sw, None),
+                   lambda: conv1d_s8_strided_kernel(x1, s, w3, sw, None),
                    lambda: conv_s8_general_kernel(xq, s, w2, sw, None, (3, 3, 3), (1, 1, 1),
                                                   [(1, 1)] * 3),
                    lambda: quantize_rows_kernel(torch.empty((2, 8), device="meta"))):
@@ -227,13 +233,17 @@ def test_int8_kernel_wrappers_raise_off_the_cpu_and_off_their_range():
     # the 2-D 3x3 convs: S1's block over the 1x3x3 taps, at stride 1 and 2
     assert int8_conv_route((8, 64, 64, 64), (3, 3), (2, 2), [(1, 1)] * 2, 64) == "s1_2d_strided"
     assert int8_conv_route((8, 64, 64, 64), (3, 3), (1, 1), [(1, 1)] * 2, 64) == "s1_2d"
+    # the 1-D 3-tap convs: S1's block over the 1x1x3 taps, at stride 1 and 2
+    assert int8_conv_route((8, 512, 64), (3,), (2,), [(1, 1)], 64) == "s1_1d_strided"
     # S2 keeps what the TMA routes do not take: Cin % 16 != 0 (also strided,
-    # and in 2-D), 1-D, other strides and pads
+    # and in 2-D and 1-D), other kernels, strides and pads
     assert int8_conv_route((8, 32, 16, 16, 24), (3, 3, 3), (1, 2, 2), [(1, 1)] * 3, 48) == "s2"
     assert int8_conv_route((8, 64, 64, 24), (3, 3), (1, 1), [(1, 1)] * 2, 64) == "s2"
     assert int8_conv_route((8, 64, 64, 64), (3, 3), (1, 2), [(1, 1)] * 2, 64) == "s2"
     assert int8_conv_route((8, 64, 64, 64), (3, 3), (1, 1), [(0, 2)] * 2, 64) == "s2"
-    assert int8_conv_route((8, 512, 64), (3,), (1,), [(1, 1)], 64) == "s2"
+    assert int8_conv_route((8, 512, 64), (3,), (1,), [(1, 1)], 64) == "s1_1d"
+    assert int8_conv_route((8, 512, 24), (3,), (1,), [(1, 1)], 64) == "s2"
+    assert int8_conv_route((8, 512, 64), (3,), (3,), [(1, 1)], 64) == "s2"
     assert int8_conv_route((8, 32, 32, 32, 64), (3, 3, 3), (2, 2, 2), [(1, 1)] * 3, 64) == "s2"
     assert int8_conv_route((8, 32, 32, 32, 64), (3, 3, 3), (1, 2, 2), [(0, 1)] * 3, 64) == "s2"
     for shape, ksize, stride, pads, cout in (

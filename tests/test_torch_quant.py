@@ -214,21 +214,25 @@ def strided_route_sums(xq: np.ndarray, wq: np.ndarray, sw: int = 2) -> np.ndarra
     past the output are dropped. The 2-D routes' walk: xq [B, H, W, Cin]
     and wq [Cout, Cin, 3, 3], at stride (sw, sw), as the depth-1 volume
     [B, 1, H, W, Cin] over the 9 taps of the 1x3x3 set (dz the centre
-    plane) with the [Cout, 9, Cin] weights of ``s1_2d_weights``."""
-    two_d = xq.ndim == 4
-    if two_d:
-        xq = xq[:, None]
-    taps = 9 if two_d else 27
+    plane) with the [Cout, 9, Cin] weights of ``s1_2d_weights``. The 1-D
+    routes' walk: xq [B, W, Cin] and wq [Cout, Cin, 3], at stride sw along
+    W alone (x's map strides W, not H), as the volume [B, 1, 1, W, Cin]
+    over the 3 taps of the 1x1x3 set (dz and dy the centre) with the [Cout,
+    3, Cin] weights of ``s1_1d_weights``."""
+    rank = xq.ndim
+    xq = xq.reshape(xq.shape[0], *(1,) * (5 - rank), *xq.shape[1:])
+    taps = {5: 27, 4: 9, 3: 3}[rank]
     b_, d_, h_, w_, cin = xq.shape
     cout = wq.shape[0]
-    kd = 1 if two_d else 3
-    out_sp = k.conv_out_spatial((d_, h_, w_), (kd, 3, 3), (1, sw, sw),
-                                ((kd // 2, kd // 2), (1, 1), (1, 1)))
+    kd, kh = (3, 3) if taps == 27 else (1, 3) if taps == 9 else (1, 1)
+    sh = sw if kh == 3 else 1  # the stride along H: none in 1-D
+    out_sp = k.conv_out_spatial((d_, h_, w_), (kd, kh, 3), (1, sh, sw),
+                                ((kd // 2, kd // 2), (kh // 2, kh // 2), (1, 1)))
     plan = igemm_plan((b_, *out_sp, cin), cout)
     bw, bh, bd = plan.bw, plan.bh, plan.bd
-    assert bw * bh * bd == 128 and max(sw * bw, sw * bh) <= 256  # TMA's box extents
-    assert -(-sw * bw // sw) == bw and -(-sw * bh // sw) == bh
-    layout = k.s1_2d_weights if two_d else k.s1_weights
+    assert bw * bh * bd == 128 and max(sw * bw, sh * bh) <= 256  # TMA's box extents
+    assert -(-sw * bw // sw) == bw and -(-sh * bh // sh) == bh
+    layout = {27: k.s1_weights, 9: k.s1_2d_weights, 3: k.s1_1d_weights}[taps]
     w1 = layout(torch.from_numpy(wq)).numpy().astype(np.int64)  # [Cout, taps, Cin]
     assert w1.shape == (cout, taps, cin)
     chunks = -(-cin // 128)
@@ -243,9 +247,11 @@ def strided_route_sums(xq: np.ndarray, wq: np.ndarray, sw: int = 2) -> np.ndarra
                 for w0 in range(0, out_sp[2], bw):
                     acc = np.zeros((128, cout), np.int64)
                     for tap in range(taps):
-                        dz, dy, dx = (1 if two_d else tap // 9), tap // 3 % 3, tap % 3
+                        dz = tap // 9 if taps == 27 else 1
+                        dy = tap // 3 % 3 if taps != 3 else 1
+                        dx = tap % 3
                         z = d0 + dz - 1 + dd
-                        y = sw * h0 + dy - 1 + sw * hh
+                        y = sh * h0 + dy - 1 + sh * hh
                         x = sw * w0 + dx - 1 + sw * ww
                         inside = (z >= 0) & (z < d_) & (y >= 0) & (y < h_) & (x >= 0) & (x < w_)
                         a = np.zeros((128, chunks * 128), np.int64)
@@ -256,7 +262,7 @@ def strided_route_sums(xq: np.ndarray, wq: np.ndarray, sw: int = 2) -> np.ndarra
                     keep = (d0 + dd < out_sp[0]) & (h0 + hh < out_sp[1]) & (w0 + ww < out_sp[2])
                     out[b, (d0 + dd)[keep], (h0 + hh)[keep], (w0 + ww)[keep]] = acc[keep]
     assert np.abs(out).max() < 2**31
-    return out[:, 0].astype(np.int32) if two_d else out.astype(np.int32)
+    return out.reshape(b_, *out_sp[5 - rank:], cout).astype(np.int32)
 
 
 @pytest.mark.parametrize("shape,cout", [
@@ -355,6 +361,59 @@ def test_2d_routes_box_walk_against_jax(shape, cout, stride):
         np.testing.assert_array_equal(as_np(deq), as_np(y))
 
 
+@pytest.mark.parametrize("shape,cout,stride", [
+    ((1, 4096, 32), 32, 1),    # Spectroscopy's level 0 (4096 points, width 32), batch 1
+    ((1, 4096, 32), 32, 2),    # its level-0 Downsample
+    ((1, 2048, 96), 64, 1),    # a decoder concat at level 1
+    ((1, 512, 512), 256, 1),   # level 3: 512 channels, four 128-channel chunks
+    ((2, 37, 48), 40, 2),      # ragged length at stride 2: a box past the output
+    ((2, 100, 16), 300, 1),    # a box past the volume along W, Cout off the N tiles
+])
+def test_1d_routes_box_walk_against_jax(shape, cout, stride):
+    """The 1-D 3-tap convs' routes are "s1_1d" (stride 1) and
+    "s1_1d_strided" (stride 2, the 1-D Downsample; JAX pads k // 2); the
+    tap-major [Cout, 3, Cin] layout of ``s1_1d_weights``, summed tap by tap
+    as the kernel's box walk sums it over the 1x1x3 taps, equals the integer
+    product of JAX's 1-D ``ConvInt8`` (ops/quant.py:143-153) and
+    ``conv_int8_plain``'s int32 sums, and dequantised as the epilogue does
+    it equals ``ConvInt8``'s output bit for bit, in fp32 and in bf16."""
+    route = {1: "s1_1d", 2: "s1_1d_strided"}[stride]
+    assert k.int8_conv_route(shape, (3,), (stride,), [(1, 1)], cout) == route
+    rng = np.random.default_rng(sum(shape) + cout + stride)
+    x = inputs(shape, seed=sum(shape) + stride)
+    kernel = (rng.normal(size=(3, shape[-1], cout)) / np.sqrt(3 * shape[-1])).astype(np.float32)
+    bias = (0.1 * rng.normal(size=(cout,))).astype(np.float32)
+    with jax_conv_quant("int8"):
+        jmod = jax_conv_nd(1, cout, 3, stride=stride)
+    assert isinstance(jmod, ConvInt8)
+    assert (jmod.padding == "SAME" if stride == 1 else tuple(map(tuple, jmod.padding)) == ((1, 1),))
+    w_q, s_w = jax_quantize_int8(jnp.asarray(kernel), axes=(0, 1))
+    x_q, s_x = jax_quantize_int8(jnp.asarray(x), axes=(1, 2))
+    want = np.asarray(jax.lax.conv_general_dilated(
+        x_q, w_q, (stride,), jmod.padding, dimension_numbers=("NWC", "WIO", "NWC"),
+        preferred_element_type=jnp.int32))
+    wq = np.ascontiguousarray(np.asarray(w_q).transpose(2, 1, 0))  # [Cout, Cin, 3]
+    w3 = k.s1_1d_weights(torch.from_numpy(wq))
+    assert tuple(w3.shape) == (cout, 3, shape[-1])
+    assert torch.equal(w3[:, 2], torch.from_numpy(wq[:, :, 2]))  # tap dx
+    got = strided_route_sums(np.asarray(x_q), wq, sw=stride)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    plain = k.conv_int32_plain(torch.from_numpy(np.array(x_q)), torch.from_numpy(wq),
+                               (stride,), [(1, 1)])
+    np.testing.assert_array_equal(got, plain.numpy())
+    for dtype in ("float32", "bfloat16"):
+        jdt = jnp.bfloat16 if dtype == "bfloat16" else None
+        with jax_conv_quant("int8"):
+            jmod = jax_conv_nd(1, cout, 3, stride=stride, dtype=jdt)
+        y = jmod.apply({"params": {"kernel": jnp.asarray(kernel), "bias": jnp.asarray(bias)}},
+                       jnp.asarray(x))
+        deq = k.dequantize_plain(torch.from_numpy(got), torch.from_numpy(np.array(s_x)),
+                                 torch.from_numpy(np.array(s_w)), torch.from_numpy(bias),
+                                 torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+        np.testing.assert_array_equal(as_np(deq), as_np(y))
+
+
 # The 23 distinct int8 conv problems of a 2-D DeepGalaxy UNet forward at
 # batch 8 (x, Cout, stride; 3x3, pads (1, 1)) with their calls a forward:
 # S2's whole 2-D path before the 2-D routes, as the card's int8 phase
@@ -382,8 +441,8 @@ def test_deep_galaxy_2d_sites_take_the_2d_routes():
     with pads (1, 1) and Cin % 16 == 0, now on "s1_2d" (stride 1) or
     "s1_2d_strided" (the three Downsamples), none on S2. The Cin = 1 input
     conv and the Cout = 1 output conv stay float (the small-layer rule);
-    quantised, the input conv would be S2's (Cin % 16 != 0), as 1-D convs
-    and Cin 24 are."""
+    quantised, the input conv would be S2's (Cin % 16 != 0), as Cin 24
+    is; a 1-D 3-tap conv with Cin % 16 == 0 takes the 1-D routes."""
     import json
     from pathlib import Path
 
@@ -412,7 +471,63 @@ def test_deep_galaxy_2d_sites_take_the_2d_routes():
     assert floats == [(1, 32), (32, 1)]
     assert k.int8_conv_route((8, 128, 128, 1), (3, 3), (1, 1), [(1, 1)] * 2, 32) == "s2"
     assert k.int8_conv_route((8, 128, 128, 24), (3, 3), (1, 1), [(1, 1)] * 2, 32) == "s2"
-    assert k.int8_conv_route((8, 4096, 32), (3,), (1,), [(1, 1)], 32) == "s2"
+    assert k.int8_conv_route((8, 4096, 32), (3,), (1,), [(1, 1)], 32) == "s1_1d"
+
+
+# The 23 distinct int8 conv problems of a 1-D Spectroscopy UNet forward at
+# batch 8 (x, Cout, stride; 3 taps, pads (1, 1)) with their calls a forward:
+# S2's whole 1-D path before the 1-D routes, as the card's int8 phase
+# listed it
+SPECTROSCOPY_1D_SITES = {
+    ((8, 4096, 32), 32, 1): 7, ((8, 4096, 32), 32, 2): 1, ((8, 4096, 64), 32, 1): 2,
+    ((8, 4096, 64), 64, 1): 1, ((8, 4096, 96), 32, 1): 1, ((8, 2048, 32), 64, 1): 1,
+    ((8, 2048, 64), 64, 1): 6, ((8, 2048, 64), 64, 2): 1, ((8, 2048, 96), 64, 1): 1,
+    ((8, 2048, 128), 64, 1): 1, ((8, 2048, 128), 128, 1): 1, ((8, 2048, 192), 64, 1): 1,
+    ((8, 1024, 64), 128, 1): 1, ((8, 1024, 128), 128, 1): 6, ((8, 1024, 128), 128, 2): 1,
+    ((8, 1024, 192), 128, 1): 1, ((8, 1024, 256), 128, 1): 1, ((8, 1024, 256), 256, 1): 1,
+    ((8, 1024, 384), 128, 1): 1, ((8, 512, 128), 256, 1): 1, ((8, 512, 256), 256, 1): 10,
+    ((8, 512, 384), 256, 1): 1, ((8, 512, 512), 256, 1): 2,
+}
+
+
+def test_spectroscopy_1d_sites_take_the_1d_routes():
+    """Every int8 conv site of the 1-D Spectroscopy UNet (examples/
+    config_spectroscopy.json at full width, 4096 points, batch 1 on the
+    CPU) and the route it takes on the card: the 23 problems S2 ran before,
+    each 3 taps with pads (1, 1) and Cin % 16 == 0, now on "s1_1d" (stride
+    1: 47 sites) or "s1_1d_strided" (the three Downsamples), none on S2.
+    The Cin = 1 input conv and the Cout = 1 output conv stay float (the
+    small-layer rule); a 1-D conv with Cin 24 would be S2's."""
+    import json
+    from pathlib import Path
+
+    from rho_diffusion_tpu_torch.models.unet import UNet
+
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "examples" /
+                      "config_spectroscopy.json").read_text())
+    kw = {k_: v for k_, v in cfg["model"]["kwargs"].items() if k_ not in ("num_classes", "cond_fn")}
+    unet = UNet(**kw).eval()
+    x = torch.from_numpy(inputs((1, 4096, 1), seed=9))
+    with Int8Sites() as sites, conv_quant("int8"), torch.no_grad():
+        out = unet(x, torch.tensor([5]))
+    assert tuple(out.shape) == (1, 4096, 1) and bool(torch.isfinite(out).all())
+    convs = [c for c in sites.calls if c["site"] == "conv"]
+    found: dict = {}
+    routes: dict = {}
+    for c in convs:
+        if c["route"] == "float":
+            continue
+        assert c["kernel"] == (3,) and c["pads"] == ((1, 1),), c
+        key = ((8, *c["x"][1:]), c["cout"], c["stride"][0])
+        found[key] = found.get(key, 0) + 1
+        assert c["route"] == ("s1_1d" if c["stride"] == (1,) else "s1_1d_strided"), c
+        routes[c["route"]] = routes.get(c["route"], 0) + 1
+    assert found == SPECTROSCOPY_1D_SITES
+    assert routes == {"s1_1d": 47, "s1_1d_strided": 3}  # 50 S2 launches a forward before
+    floats = sorted((c["x"][-1], c["cout"]) for c in convs if c["route"] == "float")
+    assert floats == [(1, 32), (32, 1)]
+    assert k.int8_conv_route((8, 4096, 24), (3,), (1,), [(1, 1)], 32) == "s2"
+    assert k.int8_conv_route((8, 4096, 32), (5,), (1,), [(2, 2)], 32) == "s2"
 
 
 @pytest.mark.parametrize("out_dtype", [torch.int32, torch.float32, torch.bfloat16])
@@ -618,20 +733,27 @@ SCHEDULE = dict(num_steps=20, beta_1=1e-4, beta_T=5e-3)
 TYPES = dict(model_mean_type="epsilon", model_var_type="learned_range")
 SHAPE = (2, 8, 8, 8, 1)
 STEPS = 6
+# the same UNet in 1-D (32 points): every int8 conv on the 1-D routes
+KW_1D = {**KW, "dims": 1, "data_shape": [32]}
+SHAPE_1D = (2, 32, 1)
+
+
+def make_int8_pair(kw):
+    """(port pipeline, JAX pipeline, JAX params), the JAX UNet call jitted
+    under int8 (JAX reads the mode when it traces)."""
+    tpipe = tg.GaussianDiffusionPipeline("UNetv2", kw, schedule.LinearSchedule(**SCHEDULE),
+                                         device="cpu", **TYPES)
+    sd = random_state_dict(tpipe.backbone, 0)
+    tpipe.load_state_dict(sd)
+    jpipe = jg.GaussianDiffusionPipeline("UNetv2", kw, jax_schedule.LinearSchedule(**SCHEDULE),
+                                         **TYPES)
+    jit_backbone(jpipe)
+    return tpipe, jpipe, jax_params(sd, kw)
 
 
 @pytest.fixture(scope="module")
 def int8_pair():
-    """(port pipeline, JAX pipeline, JAX params), the JAX UNet call jitted
-    under int8 (JAX reads the mode when it traces)."""
-    tpipe = tg.GaussianDiffusionPipeline("UNetv2", KW, schedule.LinearSchedule(**SCHEDULE),
-                                         device="cpu", **TYPES)
-    sd = random_state_dict(tpipe.backbone, 0)
-    tpipe.load_state_dict(sd)
-    jpipe = jg.GaussianDiffusionPipeline("UNetv2", KW, jax_schedule.LinearSchedule(**SCHEDULE),
-                                         **TYPES)
-    jit_backbone(jpipe)
-    return tpipe, jpipe, jax_params(sd, KW)
+    return make_int8_pair(KW)
 
 
 def conditions(n: int = 2, width: int = 64) -> np.ndarray:
@@ -729,15 +851,32 @@ def quantizer_flips(port_calls: list, jax_calls: list) -> list:
 
 
 def test_tiny_unet_int8_forward_against_jax(int8_pair, monkeypatch):
-    tpipe, jpipe, params = int8_pair
+    int8_forward_against_jax(int8_pair, monkeypatch, SHAPE)
+
+
+def test_tiny_unet_1d_int8_forward_against_jax(monkeypatch):
+    """The same rule at rank 1: a 1-D UNet under int8 against JAX's
+    ``ops/quant.py``, every quantised conv site of it on the 1-D routes
+    ("s1_1d", and "s1_1d_strided" for its Downsample) and none on S2."""
+    sites = int8_forward_against_jax(make_int8_pair(KW_1D), monkeypatch, SHAPE_1D)
+    routes = {c["route"] for c in sites.calls if c["site"] == "conv" and c["route"] != "float"}
+    assert routes == {"s1_1d", "s1_1d_strided"}
+
+
+def int8_forward_against_jax(pair, monkeypatch, shape):
+    """A tiny UNet's int8 forward against JAX's over FORWARD_DRAWS draws,
+    row by row: both sides' activation quantizers recorded, every flip one
+    quantum at a near tie, and the port rerun on JAX's int8 values at rel
+    MSE < REL_MSE_MODEL on every row. Returns the first forward's sites."""
+    tpipe, jpipe, params = pair
     backbone = tpipe.backbone
     rng = np.random.default_rng(14)
     y = torch.from_numpy(conditions())
     jax_run, port = JaxQuantizers(jpipe, monkeypatch), None
     free_errs, forced_errs, float_dist, flipped_rows = [], [], [], 0
     for draw in range(FORWARD_DRAWS):
-        x = rng.normal(size=SHAPE).astype(np.float32)
-        t = rng.integers(0, SCHEDULE["num_steps"], SHAPE[0]).astype(np.int32)
+        x = rng.normal(size=shape).astype(np.float32)
+        t = rng.integers(0, SCHEDULE["num_steps"], shape[0]).astype(np.int32)
         if port is None:  # the first forward caches every module's int8 weights
             with Int8Sites() as sites, conv_quant("int8"), torch.no_grad():
                 backbone(torch.from_numpy(x), torch.from_numpy(t).long(), y)
@@ -756,7 +895,7 @@ def test_tiny_unet_int8_forward_against_jax(int8_pair, monkeypatch):
         with torch.no_grad():
             float_out = backbone(torch.from_numpy(x), torch.from_numpy(t).long(), y).numpy()
         assert got.shape == want.shape and np.isfinite(got).all()
-        for i in range(SHAPE[0]):
+        for i in range(shape[0]):
             row_flipped = any((c[1][i] != j[1].reshape(c[1].shape)[i]).any()
                               for c, j in zip(free_calls, jax_calls))
             flipped_rows += row_flipped
@@ -773,6 +912,7 @@ def test_tiny_unet_int8_forward_against_jax(int8_pair, monkeypatch):
           f"activations {min(forced_errs):.2e}..{max(forced_errs):.2e}; free-running "
           f"{min(free_errs):.2e}..{max(free_errs):.2e} ({flipped_rows} rows with a flip); "
           f"int8 vs float {min(float_dist):.2e}..{max(float_dist):.2e}")
+    return sites
 
 
 @pytest.mark.parametrize("eta", [0.0, 0.5], ids=["eta0-shared-xT", "eta0.5-injected"])
