@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py [--phases env,build,kernels,main,main64,gauss,vlb,train,data,hold,serve,load,utils,int8,vit,timings,fp32,bench]
+    python3 chip_smoke.py [--phases env,build,kernels,main,main64,gauss,vlb,train,data,hold,serve,load,utils,int8,vit,diffusers,timings,fp32,bench]
                           [--steps 25] [--samples 4] [--timing-batch 8]
 
 Builds the port's CUDA kernels from ``rho_diffusion_tpu_torch/csrc`` (and
@@ -155,6 +155,28 @@ weights loaded from a reference-layout ``.pth``):
   steps at batch 8, a DDPM-25 sample at batch 2 through ``reverse_process``,
   its forward and gradients held, and its K5 problems (concat inputs of 512
   and 256 channels among them) held and timed, forward and dgrad;
+* ``diffusers``: the diffusers-compatible backbone and pipeline, and
+  progressive distillation. ``config_deep_galaxy.json`` (128^2, batch 64,
+  bf16) with UNet_Diffuser for its model (UNet2DModel's (32, 64, 64)
+  architecture, heads of 8 channels) and DiffusersDDPMPipeline for its
+  pipeline (v prediction, fixed_small): DIFF_TRAIN_STEPS training steps
+  through Trainer on the data phase's route (HDF5 or in memory) from seeded
+  random weights, one more step timed and profiled (its attention's share
+  of the device time), the inference CLI's DDIM-10 at batch 8 from the
+  trained weights, the forward, one loss's gradients and a DDIM-10 sample
+  held against the fp32 plain model; its attention (8 heads of 8, padded to
+  16, over 64^2 and 32^2 tokens) runs the narrow forward and the long
+  backward only, 11 of each a step, and each is held (its first rows
+  against the plain version, twice bitwise) and timed at B*H 512 and T 4096
+  and 1024 beside the plain version, SDPA and its exponentials' bound, with
+  the long backward's memory at T 4096; then the distill CLI
+  (``python -m rho_diffusion_tpu_torch.distill``) on
+  ``config_learned_variance.json`` (8 -> 2, 3 updates a stage, from a
+  seeded random teacher ``.pth``), each update three forwards and one
+  backward on K5, K1 and the fused K3/K4 (counted against a training
+  step's), the inference CLI on the student at DDIM-2 trailing, one
+  update's loss and student gradients held, an update's time beside a
+  training step's;
 * ``fp32``: the flagship in fp32 (a config whose ``training.dtype`` is
   float32): every distinct conv problem of a batch-8 forward and of a
   batch-32 step's dgrad (the 3xTF32 implicit GEMM where Cin % 4 == 0 and
@@ -217,7 +239,7 @@ phase prints one JSON line; a failing phase exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``, after the
 ``kernels`` line and the card's ``nvidia-smi`` name and power limit. A run
 whose ``--phases`` leave out any of kernels, main, main64, gauss, vlb,
-train, data, serve, load, utils, int8, vit, timings, fp32 and bench prints
+train, data, serve, load, utils, int8, vit, diffusers, timings, fp32 and bench prints
 neither and exits 3. The ``done`` line gives each phase's seconds.
 
 Exits non-zero without a result when CUDA is unavailable or the script runs
@@ -227,6 +249,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import functools
 import json
 import math
@@ -246,10 +269,10 @@ DEEP_GALAXY_CONFIG = ROOT / "examples" / "config_deep_galaxy.json"
 SPECTRO_CONFIG = ROOT / "examples" / "config_spectroscopy.json"
 QUALITY_CONFIG = ROOT / "examples" / "config_spherical_harmonics_quality.json"
 PHASES = ("env", "build", "kernels", "main", "main64", "gauss", "vlb", "train", "data", "hold",
-          "serve", "load", "utils", "int8", "vit", "timings", "fp32", "bench")
+          "serve", "load", "utils", "int8", "vit", "diffusers", "timings", "fp32", "bench")
 # the phases whose numbers the kernels line carries
 KERNELS_LINE_PHASES = ("kernels", "main", "main64", "gauss", "vlb", "train", "data", "serve",
-                       "load", "utils", "int8", "vit", "timings", "fp32", "bench")
+                       "load", "utils", "int8", "vit", "diffusers", "timings", "fp32", "bench")
 DEVICE = "cuda"
 # the train phase: the flagship's batch, and steps cut to five
 TRAIN_BATCH = 32
@@ -392,6 +415,35 @@ def nvidia_smi_line() -> str:
     return out[0].strip()
 
 
+def card_state() -> dict:
+    """The card's SM and memory clocks, power draw, temperature and active
+    clock-event reasons as nvidia-smi reports them now, the caching
+    allocator's reserved bytes and allocation retries, and the host's side:
+    this process's Python threads, its live child processes and the load
+    average: what a time taken late in a run is compared by. nvidia-smi's
+    refusal is recorded, not raised."""
+    import multiprocessing
+    import os
+    import threading
+
+    import torch
+
+    fields = ("clocks.sm", "clocks.mem", "power.draw", "temperature.gpu",
+              "clocks_throttle_reasons.active")
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={','.join(fields)}",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    stats = torch.cuda.memory_stats()
+    state = {"memory_reserved": torch.cuda.memory_reserved(),
+             "alloc_retries": stats.get("num_alloc_retries", 0),
+             "python_threads": threading.active_count(),
+             "child_processes": len(multiprocessing.active_children()),
+             "load_average_1m": os.getloadavg()[0]}
+    if out.returncode:
+        return {**state, "nvidia_smi": out.stderr.strip() or out.stdout.strip()}
+    values = [v.strip() for v in out.stdout.strip().splitlines()[0].split(",")]
+    return {**state, **dict(zip(fields, values))}
+
+
 @functools.cache
 def sm_max_clock_hz() -> float:
     """The card's maximum SM clock as nvidia-smi reports it (``clocks.max.sm``):
@@ -401,6 +453,16 @@ def sm_max_clock_hz() -> float:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return float(out[0]) * 1e6
+
+
+def exp_bound_ms(b: int, h: int, t: int, device) -> float:
+    """The least time of an attention call's T^2 exponentials a batch*head
+    on the special-function unit: SFU_EX2_PER_CLOCK_SM ex2 a clock an SM at
+    the card's maximum SM clock."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return b * h * t * t / (SFU_EX2_PER_CLOCK_SM * sms * sm_max_clock_hz()) * 1e3
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -755,6 +817,29 @@ def flash_error(got, want, tol: float) -> dict:
     return {"max_abs_err": mx, "max_abs_ref": ref, "rel_rms_err": rms, "tol": tol,
             "check": "max|err| <= tol * max|want| and rms(err) <= tol * rms(want)",
             "err_over_tol": ratio, "ok": bool(torch.isfinite(got).all()) and ratio <= 1}
+
+
+def batch_chunks(b: int, rows) -> list:
+    """Slices of a batch of ``b``: the whole batch when ``rows`` is None,
+    else ``rows`` rows at a time."""
+    return [slice(None)] if rows is None else [slice(i, i + rows) for i in range(0, b, rows)]
+
+
+def chunked_errors(got, plain, chunks, tol: float) -> list:
+    """The flash check of each tensor of ``got`` against the matching one of
+    ``plain(s)`` on every batch chunk ``s``: per tensor, the worst chunk's."""
+    errs = [[flash_error(g[s], want, tol) for g, want in zip(got, plain(s))] for s in chunks]
+    return [max(per, key=lambda e: (not e["ok"], e["err_over_tol"])) for per in zip(*errs)]
+
+
+def bitwise_repeatable(run) -> bool:
+    """Two calls of ``run`` give bitwise-equal outputs."""
+    import torch
+
+    first, again = run(), run()
+    if torch.is_tensor(first):
+        first, again = (first,), (again,)
+    return all(x is None or torch.equal(x, y) for x, y in zip(first, again))
 
 
 # the CUDA kernel (a substring of its name in the profiler) behind each count
@@ -1128,10 +1213,11 @@ def long_bwd_memory_hold(b, t, h, d, device) -> dict:
 
     from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
         flash_attention_bwd_kernel, flash_attention_fwd_kernel, launch_counts,
-        long_bwd_scratch_bytes)
+        long_bwd_scratch_bytes, padded_head_dim)
 
     q, k, v = flash_inputs(b, t, h, d, device, seed=906, dtype=torch.bfloat16)
     do = randn((b, t, h, d), 907, device, torch.bfloat16)
+    dk = padded_head_dim(d)
     with torch.no_grad():
         o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
         torch.cuda.synchronize()
@@ -1143,12 +1229,15 @@ def long_bwd_memory_hold(b, t, h, d, device) -> dict:
         peak = torch.cuda.max_memory_allocated() - before
         again = flash_attention_bwd_kernel(q, k, v, o, lse, do)
         launches = launch_counts["flash_attention_bwd_long"] - n0
-    outputs, scratch = 3 * b * t * h * d * 2, long_bwd_scratch_bytes(b * h, t, t, d)
+    # dq, dk, dv at the padded head dim, and below 16 the wrapper's padded
+    # copies of q, k, v and dO (the forward's o is padded already)
+    outputs, scratch = 3 * b * t * h * dk * 2, long_bwd_scratch_bytes(b * h, t, t, dk)
+    pads = 4 * b * t * h * dk * 2 if dk != d else 0
     row = {"b": b, "t": t, "h": h, "d": d, "peak_bytes": peak, "outputs_bytes": outputs,
-           "scratch_bytes": scratch, "launches": launches,
+           "padded_inputs_bytes": pads, "scratch_bytes": scratch, "launches": launches,
            "finite": all(bool(torch.isfinite(g).all()) for g in got),
            "bitwise_repeatable": all(torch.equal(x, y) for x, y in zip(got, again))}
-    row["ok"] = (peak <= outputs + scratch + (1 << 20) and launches == 2 and row["finite"]
+    row["ok"] = (peak <= outputs + pads + scratch + (1 << 20) and launches == 2 and row["finite"]
                  and row["bitwise_repeatable"])
     del q, k, v, do, o, lse, got, again
     torch.cuda.empty_cache()
@@ -2998,15 +3087,19 @@ def phase_timings(state: dict, batch: int) -> None:
 
 
 def flash_fwd_row(b, t, h, d, calls: int, per: str, device, dtype, variant=None,
-                  plan=None) -> dict:
+                  plan=None, plain_rows=None, full_check=False) -> dict:
     """The forward kernel on [b, t, h, d] views of one qkv (through the
     autograd Function, or at ``plan`` through the launcher: the route a new
     one replaced): held against the plain version, timed beside it, SDPA and
     its bound: the largest of its T^2 exponentials a batch*head on the
-    special-function unit (16 ex2 a clock an SM at the card's maximum SM
-    clock), its two products and its bytes. On the fp32 3xTF32 route the
-    kernel is the fold, whose K/V pre-pass has a row of its own
-    (``flash_fwd_split_row``)."""
+    special-function unit (``exp_bound_ms``), its two products and its
+    bytes. On the fp32 3xTF32 route the kernel is the fold, whose K/V
+    pre-pass has a row of its own (``flash_fwd_split_row``). With
+    ``plain_rows`` the plain version is held and timed that many batch rows
+    at a time, over the whole batch (where its fp32 scores do not fit at
+    once); with ``full_check`` the kernel is also run twice and held bitwise
+    to itself, and the wrapper's and SDPA's device work are timed from CUDA
+    graphs."""
     import torch.nn.functional as F
 
     import torch
@@ -3026,28 +3119,39 @@ def flash_fwd_row(b, t, h, d, calls: int, per: str, device, dtype, variant=None,
     name = fwd_kernel_name(d, dtype, plan)
     qf, kf, vf = q.float(), k.float(), v.float()
     qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+    chunks = batch_chunks(b, plain_rows)
+
+    def plain(s):
+        return (xla_attention(qf[s], kf[s], vf[s]),)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt)
+
     flops = 4.0 * b * h * t * t * d
     item = q.element_size()
     row = {"kernel": name, "variant": variant, "b": b, "t": t, "h": h, "d": d,
            "dtype": dtype_name(dtype), "calls": calls, "per": per, "flash_route": plan.route,
            "plan": plan_name(plan),
-           **flash_error(run(), xla_attention(qf, kf, vf), TOL_FLASH[dtype_name(dtype)]),
+           **chunked_errors((run(),), plain, chunks, TOL_FLASH[dtype_name(dtype)])[0],
            **kernel_times(run, name), "host_ms": host_ms(run),
-           "plain_ms": cuda_time_ms(lambda: xla_attention(qf, kf, vf), iters=3, warmup=1),
-           "library": "scaled_dot_product_attention",
-           "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                                      iters=10),
-           "library_kernels": kernel_names(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+           "plain_ms": cuda_time_ms(lambda: [plain(s) for s in chunks], iters=3, warmup=1),
+           "library": "scaled_dot_product_attention", "library_ms": cuda_time_ms(sdpa, iters=10),
+           "library_kernels": kernel_names(sdpa),
            **dtype_bound(flops, item * 4.0 * b * t * h * d, item)}
-    clock = sm_max_clock_hz()
-    exp_ms = b * h * t * t / (SFU_EX2_PER_CLOCK_SM * torch.cuda.get_device_properties(
-        device).multi_processor_count * clock) * 1e3
+    if plain_rows is not None:
+        row["plain_ms_of"] = f"the plain version over the batch, {plain_rows} rows at a time"
+    if full_check:
+        row.update(bitwise_repeatable=bitwise_repeatable(run),
+                   wrapper_device_ms=graph_ms(run, calls=10),
+                   library_device_ms=graph_ms(sdpa, calls=10))
+        row["ok"] = row["ok"] and row["bitwise_repeatable"]
+    exp_ms = exp_bound_ms(b, h, t, device)
     if exp_ms > row["bound_ms"]:
         row.update(bound_ms=exp_ms, bound_by="operations")
     row.update(bound_exp_ms=exp_ms, bound_products_ms=bound_ms(flops, 0, PEAK_BF16)[0]
                if item == 2 else bound_ms(3 * flops, 0, PEAK_TF32)[0],
                bound_bytes_ms=item * 4.0 * b * t * h * d / MEM_RATE * 1e3,
-               sm_clock_mhz=clock / 1e6, exponentials=b * h * t * t,
+               sm_clock_mhz=sm_max_clock_hz() / 1e6, exponentials=b * h * t * t,
                bound_of=("the largest of: T^2 exponentials a batch*head at "
                          f"{SFU_EX2_PER_CLOCK_SM} ex2 a clock an SM, the two products at the "
                          "dtype's peak, the bytes at 3.35 TB/s"))
@@ -3234,7 +3338,7 @@ def sdpa_backward_ms(q, k, v, do) -> dict:
 
 
 def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None,
-                   old_variant=None) -> list:
+                   old_variant=None, plain_rows=None, full_check=False) -> list:
     """The backward on [b, t, h, d] views of one qkv (the wrapper computes
     delta on each call, as in training), each kernel held against its plain
     version on the kernel forward's output and LSE, timed beside it, its
@@ -3248,7 +3352,8 @@ def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None
     the pair's main rows, its whole device work on the dkv row); for fp32 at 64 and 128: the 3xTF32 pair
     and its pre-pass, then the FMA pair on request (its rows under
     ``old_variant``); elsewhere the pair of the dtype (bf16: the wrapper's
-    whole device work, its delta pre-pass included, on the dkv row)."""
+    whole device work, its delta pre-pass included, on the dkv row).
+    ``plain_rows`` and ``full_check`` as in ``flash_fwd_row``."""
     import torch
 
     from rho_diffusion_tpu_torch.ops.kernels.flash_attention import (
@@ -3257,12 +3362,18 @@ def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None
         flash_attention_bwd_dq_plain, flash_attention_bwd_kernel, flash_attention_bwd_plain,
         flash_attention_fwd_kernel, flash_bwd_plan, flash_bwd_split, flash_bwd_split_plain,
         flash_delta, flash_delta_kernel, LONG_BWD_PLAN, long_bwd_groups,
-        long_bwd_scratch_bytes)
+        long_bwd_scratch_bytes, padded_head_dim)
 
     q, k, v = flash_inputs(b, t, h, d, device, seed=500, dtype=dtype)
     do = randn((b, t, h, d), 501, device, dtype)
-    o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
-    qf, kf, vf, of, dof = (z.float() for z in (q, k, v, o, do))
+    o, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)  # o at the padded head dim
+    qf, kf, vf, of, dof = (z.float() for z in (q, k, v, o[..., :d], do))
+    chunks = batch_chunks(b, plain_rows)
+
+    def args(s):
+        """The plain versions' inputs on batch rows ``s``."""
+        return qf[s], kf[s], vf[s], of[s], lse[s], dof[s]
+
     library = sdpa_backward_ms(q, k, v, do)
     item = q.element_size()
     io = item * b * t * h * d  # one [B, T, H, D] tensor
@@ -3271,16 +3382,26 @@ def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None
     plan = flash_bwd_plan(b, h, t, t, d, dtype)
     rows = []
 
-    def row(name, run, want, flops, nbytes, row_tol=tol, row_library=None, row_variant=variant,
-            **extra):
+    def row(name, run, plain, flops, nbytes, row_tol=tol, row_library=None, row_variant=variant,
+            plain_ms=None, **extra):
+        """A kernel's row: ``run``'s outputs held against ``plain(s)``'s on
+        every batch chunk ``s``, the plain version timed over them all
+        (unless ``plain_ms`` is given)."""
         got = [g for g in run() if g is not None]
-        errs = [flash_error(g, w, row_tol) for g, w in zip(got, want)]
+        errs = chunked_errors(got, plain, chunks, row_tol)
+        if plain_ms is None:
+            plain_ms = cuda_time_ms(lambda: [plain(s) for s in chunks], iters=3, warmup=1)
         r = {"kernel": name, "variant": row_variant, "b": b, "t": t, "h": h, "d": d,
              "dtype": dtype_name(dtype), "calls": calls, "per": per,
              **max(errs, key=lambda e: (not e["ok"], e["err_over_tol"])),
-             **kernel_times(run, name), "host_ms": host_ms(run, calls=20),
+             **kernel_times(run, name), "host_ms": host_ms(run, calls=20), "plain_ms": plain_ms,
              "library": "scaled_dot_product_attention backward (dq, dk, dv together)",
              **(row_library or library), **dtype_bound(flops, nbytes, item), **extra}
+        if plain_rows is not None:
+            r["plain_ms_of"] = f"the plain version over the batch, {plain_rows} rows at a time"
+        if full_check:
+            r["bitwise_repeatable"] = bitwise_repeatable(run)
+            r["ok"] = r["ok"] and r["bitwise_repeatable"]
         if not r["profiled_launches"]:
             r.update(ms=graph_ms(run, calls=10), ms_of="device time (a CUDA graph of the wrapper "
                      "replayed; the profiler recorded no launch)")
@@ -3293,17 +3414,15 @@ def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None
         for which, needs, products, plain, n_out in (
                 ("dkv", (False, True, True), 4, flash_attention_bwd_dkv_plain, 2),
                 ("dq", (True, False, False), 3, flash_attention_bwd_dq_plain, 1)):
-            want = plain(qf, kf, vf, of, lse, dof)
             # the kernel's own products of 2*T*T*D each; q, k, v, dO, lse,
             # delta read once, its gradients written once
             row(f"{prefix}_{which}",
                 lambda needs=needs: flash_attention_bwd_kernel(q, k, v, o, lse, do, needs,
                                                                plan=pair_plan),
-                want if n_out == 2 else (want,), products * 2.0 * b * h * t * t * d,
-                4 * io + stats + n_out * io, row_variant=row_variant,
-                plain_ms=cuda_time_ms(lambda plain=plain: plain(qf, kf, vf, of, lse, dof),
-                                      iters=3, warmup=1),
-                **({"route_note": note} if note else {}))
+                lambda s, plain=plain, n_out=n_out: (plain(*args(s)) if n_out == 2
+                                                     else (plain(*args(s)),)),
+                products * 2.0 * b * h * t * t * d, 4 * io + stats + n_out * io,
+                row_variant=row_variant, **({"route_note": note} if note else {}))
 
     if plan.route == "wgmma":
         # five products of 2*T*T*D; q, k, v, dO, lse, delta read once, dq,
@@ -3312,17 +3431,15 @@ def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None
         key_tiles = -(-t // plan.bn)
         acc = ((key_tiles if key_tiles > 1 else 0) * 4 * b * h * -(-t // FLASH_BWD_BM)
                * FLASH_BWD_BM * d)
-        want = flash_attention_bwd_plain(qf, kf, vf, of, lse, dof)
-        row("flash_attention_bwd", lambda: flash_attention_bwd_kernel(q, k, v, o, lse, do), want,
-            5 * 2.0 * b * h * t * t * d, 4 * io + stats + 3 * io,
-            plain_ms=cuda_time_ms(lambda: flash_attention_bwd_plain(qf, kf, vf, of, lse, dof),
-                                  iters=3, warmup=1),
-            plan=f"bn{plan.bn}", design_bytes=4 * io + stats + 3 * io + acc,
+        row("flash_attention_bwd", lambda: flash_attention_bwd_kernel(q, k, v, o, lse, do),
+            lambda s: flash_attention_bwd_plain(*args(s)),
+            5 * 2.0 * b * h * t * t * d, 4 * io + stats + 3 * io, plan=f"bn{plan.bn}",
+            design_bytes=4 * io + stats + 3 * io + acc,
             design_bytes_ms=(4 * io + stats + 3 * io + acc) / MEM_RATE * 1e3)
         # its delta pre-pass: dO and O read once, delta written once; no one
         # PyTorch call computes it (flash_delta is five kernels)
         row("flash_attention_bwd_delta", lambda: (flash_delta_kernel(o, do),),
-            (flash_delta(of, dof),), 2.0 * b * h * t * d, 2 * io + 4 * b * h * t,
+            lambda s: (flash_delta(of[s], dof[s]),), 2.0 * b * h * t * d, 2 * io + 4 * b * h * t,
             row_tol=TOL_DELTA,
             row_library={"library": "none: flash_delta (the plain version) is five kernels",
                          "library_ms": None},
@@ -3340,11 +3457,9 @@ def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None
     elif plan.route == "small":
         # five products of 2*T*T*D; q, k, v, o, dO and lse read once (delta
         # is computed inside), dq, dk, dv written once
-        want = flash_attention_bwd_plain(qf, kf, vf, of, lse, dof)
         row("flash_attention_bwd_small", lambda: flash_attention_bwd_kernel(q, k, v, o, lse, do),
-            want, 5 * 2.0 * b * h * t * t * d, 5 * io + 4 * b * h * t + 3 * io,
-            plain_ms=cuda_time_ms(lambda: flash_attention_bwd_plain(qf, kf, vf, of, lse, dof),
-                                  iters=3, warmup=1),
+            lambda s: flash_attention_bwd_plain(*args(s)),
+            5 * 2.0 * b * h * t * t * d, 5 * io + 4 * b * h * t + 3 * io,
             plan=f"one warpgroup a batch*head, {SMALL_BWD_WARPGROUPS} a block")
         # like for like against SDPA's backward: the wrapper's whole device
         # work a call, from a CUDA graph
@@ -3355,30 +3470,26 @@ def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None
         variant = variant or f"the mma.sync pair on request at T={t}, D={d}, B*H={b * h}"
     elif plan.route == "long":
         # three floors, the largest its bound: T^2 exponentials a batch*head
-        # on the special-function unit (16 ex2 a clock an SM at the card's
-        # maximum SM clock), five products of 2*T*T*D on the tensor cores,
-        # and q, k, v, o, dO and lse read once, dq, dk, dv written once
-        # (delta is computed inside); the design also writes and reads back
-        # the blocks' fp32 dQ slots: a slot set written by every chunk of
-        # keys but a lone block's last, read by every chunk but a block's
-        # first, and each block's read once more by the sum
-        want = flash_attention_bwd_plain(qf, kf, vf, of, lse, dof)
+        # on the special-function unit (exp_bound_ms), five products of
+        # 2*T*T*D on the tensor cores, and q, k, v, o, dO and lse read once,
+        # dq, dk, dv written once (delta is computed inside); the design
+        # also writes and reads back the blocks' fp32 dQ slots, at the
+        # padded head dim: a slot set written by every chunk of keys but a
+        # lone block's last, read by every chunk but a block's first, and
+        # each block's read once more by the sum
         flops, nbytes = 5 * 2.0 * b * h * t * t * d, 5 * io + 4 * b * h * t + 3 * io
-        clock = sm_max_clock_hz()
-        exp_ms = b * h * t * t / (SFU_EX2_PER_CLOCK_SM * torch.cuda.get_device_properties(
-            device).multi_processor_count * clock) * 1e3
+        exp_ms = exp_bound_ms(b, h, t, device)
         products_ms, bytes_ms = flops / PEAK_BF16 * 1e3, nbytes / MEM_RATE * 1e3
-        chunks, groups = -(-t // LONG_BWD_PLAN.bn), long_bwd_groups(b * h, t)
-        slot_sets = 0 if chunks == 1 else (
-            chunks - (groups == 1) + chunks - groups + (groups if groups > 1 else 0))
-        acc = slot_sets * 4 * b * h * -(-t // 64) * 64 * d
+        key_chunks, groups = -(-t // LONG_BWD_PLAN.bn), long_bwd_groups(b * h, t)
+        slot_sets = 0 if key_chunks == 1 else (
+            key_chunks - (groups == 1) + key_chunks - groups + (groups if groups > 1 else 0))
+        dpad = padded_head_dim(d)
+        acc = slot_sets * 4 * b * h * -(-t // 64) * 64 * dpad
         row("flash_attention_bwd_long", lambda: flash_attention_bwd_kernel(q, k, v, o, lse, do),
-            want, flops, nbytes,
-            plain_ms=cuda_time_ms(lambda: flash_attention_bwd_plain(qf, kf, vf, of, lse, dof),
-                                  iters=3, warmup=1),
-            plan=(f"{groups} blocks a batch*head over its {chunks} chunks of "
-                  f"{LONG_BWD_PLAN.bn} keys; scratch {long_bwd_scratch_bytes(b * h, t, t, d)} "
-                  "bytes"),
+            lambda s: flash_attention_bwd_plain(*args(s)), flops, nbytes,
+            plan=(f"{groups} blocks a batch*head over its {key_chunks} chunks of "
+                  f"{LONG_BWD_PLAN.bn} keys; scratch {long_bwd_scratch_bytes(b * h, t, t, dpad)} "
+                  f"bytes at the padded head dim {dpad}"),
             design_bytes=nbytes + acc, design_bytes_ms=(nbytes + acc) / MEM_RATE * 1e3)
         long_row = rows[-1]
         long_row.update(
@@ -3388,7 +3499,7 @@ def flash_bwd_rows(b, t, h, d, calls: int, per: str, device, dtype, variant=None
                       f"{SFU_EX2_PER_CLOCK_SM} ex2 a clock an SM, the five products at the bf16 "
                       "peak, the bytes at 3.35 TB/s"),
             bound_exp_ms=exp_ms, bound_products_ms=products_ms, bound_bytes_ms=bytes_ms,
-            sm_clock_mhz=clock / 1e6, exponentials=b * h * t * t)
+            sm_clock_mhz=sm_max_clock_hz() / 1e6, exponentials=b * h * t * t)
         # like for like against SDPA's backward: the wrapper's whole device
         # work a call (the counters' zeroing too), from a CUDA graph
         long_row["wrapper_device_ms"] = graph_ms(
@@ -6061,6 +6172,422 @@ def phase_vit(state: dict) -> None:
         fail("vit: " + "; ".join(problems))
 
 
+# the diffusers phase: DeepGalaxy's config (2-D 128^2, MultiEmbeddings over
+# (s, m, t, c), batch 64, bf16) with UNet_Diffuser for its model and
+# DiffusersDDPMPipeline (v prediction, fixed_small) for its pipeline: steps
+# of training, a DDIM sample through the inference CLI, the holds' batch
+DIFF_PIPELINE = {"prediction_type": "v_prediction", "variance_type": "fixed_small"}
+DIFF_TRAIN_STEPS = 3
+DIFF_SAMPLES = 8
+DIFF_SAMPLE_STEPS = 10
+DIFF_HOLD_BATCH = 2
+# UNet_Diffuser's attention at batch 64: 8 heads of 8 channels over 64^2
+# tokens (ds 2, 5 calls a forward) and over 32^2 (ds 4, 6 calls)
+DIFF_ATTENTION = (((64, 4096, 8, 8), 5), ((64, 1024, 8, 8), 6))
+DIFF_MEMORY = (64, 4096, 8, 8)  # the long backward's memory at B*H 512, T 4096
+# the plain versions hold and time the full-batch calls this many rows at a
+# time, over the whole batch: its fp32 scores at T 4096 (34 GB) do not fit
+# twice
+DIFF_PLAIN_ROWS = 4
+# progressive distillation on the learned-variance config: the cascade
+# 8 -> 4 -> 2, 3 updates a stage, its dataset cut; the student's sample
+DISTILL_FROM, DISTILL_TO, DISTILL_UPDATES = 8, 2, 3
+DISTILL_LENGTH = 256
+DISTILL_SAMPLES = 8
+# an update's time: distill_stage at 1 and 1 + DISTILL_TIMED updates, the
+# difference over DISTILL_TIMED (the stage's copies and optimizer left out)
+DISTILL_TIMED = 5
+DIFF_CUTS = {
+    "model.name": "UNetv2 -> UNet_Diffuser (its kwargs as configured; the pinned "
+                  "architecture ignores channel_mult, attention_resolutions, num_heads, "
+                  "use_scale_shift_norm, model_channels)",
+    "pipeline": "DDPM -> DiffusersDDPMPipeline (prediction_type v_prediction, "
+                "variance_type fixed_small; the config's LinearSchedule(500) as its schedule)",
+    "training.max_epochs": f"-> whole epochs to {DIFF_TRAIN_STEPS} steps",
+    "training.log_every_n_steps, benchmark_mode, loggers": "-> 1, true, jsonl",
+    "inference": f"DDIM-{DIFF_SAMPLE_STEPS} at batch {DIFF_SAMPLES} (the first rows of its "
+                 "parameter_space) through --sampler/--steps; cache and plot files -> none",
+    "distillation (config_learned_variance.json)": (
+        f"dataset length 2048 -> {DISTILL_LENGTH}; --from {DISTILL_FROM} --to {DISTILL_TO} "
+        f"--updates {DISTILL_UPDATES} at the config's batch 32; random seeded teacher; the "
+        f"student sampled at DDIM-{DISTILL_TO} trailing, batch {DISTILL_SAMPLES}, over the "
+        "flagship's parameter_space"),
+}
+
+
+def diffusers_config() -> dict:
+    """DeepGalaxy's config with UNet_Diffuser and DiffusersDDPMPipeline."""
+    cfg = json.loads(DEEP_GALAXY_CONFIG.read_text())
+    cfg["model"]["name"] = "UNet_Diffuser"
+    cfg["pipeline"] = {"name": "DiffusersDDPMPipeline", "kwargs": dict(DIFF_PIPELINE)}
+    cfg["training"].update(log_every_n_steps=1, benchmark_mode=True, loggers=["jsonl"])
+    cfg["inference"].update(cache_file=None, plot_output_file=None, checkpoint=None)
+    return cfg
+
+
+def run_diffusers_backbone(work: Path, route: str, device) -> dict:
+    """UNet_Diffuser under DiffusersDDPMPipeline at full width: a training
+    run through Trainer (as the training CLI builds it) from seeded random
+    weights, one more step timed and profiled; the inference CLI's DDIM
+    sample from the trained weights; the forward, one loss's gradients and
+    a DDIM sample held against the fp32 plain model. Each path's counts are
+    cleared just before it and read just after."""
+    import numpy as np
+    import torch
+
+    from rho_diffusion_tpu_torch import inference
+    from rho_diffusion_tpu_torch.config import ExperimentConfig
+    from rho_diffusion_tpu_torch.data.loader import to_device
+    from rho_diffusion_tpu_torch.training.trainer import Trainer
+
+    t0 = time.perf_counter()
+    cfg = diffusers_config()
+    dataset = data_dataset("deep_galaxy", cfg, route, work)
+    dataset_s = time.perf_counter() - t0
+    config = ExperimentConfig.from_dict(json.loads(json.dumps(cfg)))
+    sd = random_state_dict(data_pipeline(cfg, dataset, "float32", "cpu").backbone, seed=0)
+    pth = work / "random.pth"
+    work.mkdir(parents=True, exist_ok=True)
+    torch.save(sd, pth)
+    run_dir = work / "run"
+    trainer = Trainer(config, dataset=dataset, work_dir=run_dir, device=DEVICE)
+    steps_per_epoch = len(trainer.loader)
+    epochs = -(-DIFF_TRAIN_STEPS // steps_per_epoch)
+    state0 = trainer.init_state(resume=False, weights_path=str(pth))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    st, train_wall, train_counts, train_routes = counted(
+        lambda: trainer.fit(state0, max_epochs=epochs))
+    train_peak = torch.cuda.max_memory_allocated()
+    logged = trained_records(run_dir)
+    pipe = trainer.pipeline
+    batch = to_device(next(iter(trainer.loader.iter_batches())), device)
+    pipe.training_step(st, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pipe.training_step(st, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    by_name = device_time_by_kernel(lambda: pipe.training_step(st, batch))
+    profiled = profiled_step(by_name, step_s)
+    attention_ms = sum(ms for name, (ms, _) in by_name.items()
+                       if "flash_fwd_narrow" in name or "flash_bwd_long" in name)
+    if "busy_ms" in profiled:
+        profiled.update(attention_ms=attention_ms,
+                        attention_share_of_busy=attention_ms / profiled["busy_ms"])
+    del trainer, pipe, st, state0, batch
+    torch.cuda.empty_cache()
+
+    # the inference CLI's DDIM sample from the trained weights
+    s_path = work / "sample_config.json"
+    s_path.write_text(json.dumps(cfg))
+    trained = run_dir / "model.pth"
+    out, sample_wall, sample_counts, sample_routes = counted(lambda: inference.main(
+        [str(s_path), "-p", str(trained), "-n", str(DIFF_SAMPLES), "-d", DEVICE, "-f",
+         "--sampler", "ddim", "--steps", str(DIFF_SAMPLE_STEPS), "--work-dir", str(work)]))
+
+    # the forward, one loss's gradients and a DDIM sample on the kernels
+    # against the fp32 plain model, beside the bf16 plain model
+    fast = data_pipeline(cfg, dataset, "bfloat16", device)
+    fast.load_state_dict(sd)
+    ref = data_pipeline(cfg, dataset, "float32", device)
+    ref.load_state_dict(sd)
+    gen = torch.Generator().manual_seed(7)
+    hb = DIFF_HOLD_BATCH
+    shape = fast.sample_shape(hb)
+    x = torch.randn(shape, generator=gen).clamp(-1, 1).to(device)
+    t = torch.randint(0, len(fast.schedule), (hb,), generator=gen).to(device)
+    space = cfg["inference"]["parameter_space"]
+    y = fast.conditions_from_parameter_space(space, hb, random=False).float()
+    grad_batch = {"data": {"data": x, "labels": y}, "t": t,
+                  "noise": torch.randn(shape, generator=gen).to(device)}
+    hold, bad = model_holds(fast, ref, (x, t, y), grad_batch)
+    x_T = torch.randn(shape, generator=gen).to(device)
+
+    def sample(p):
+        return p.reverse_process(shape, y, sampler="ddim", num_steps=DIFF_SAMPLE_STEPS, x_T=x_T)
+
+    got = {"sample": sample(fast)}
+    with plain_backends():
+        plain_bf16, plain_fp32 = {"sample": sample(fast)}, {"sample": sample(ref)}
+    hold.update(hold_rows(got, plain_bf16, plain_fp32, HOLD_CAP))
+    bad += [] if hold["sample"]["ok"] else ["sample"]
+    del fast, ref, got, plain_bf16, plain_fp32
+    torch.cuda.empty_cache()
+
+    narrow, long = "flash_attention_fwd_narrow", "flash_attention_bwd_long"
+    others = ("flash_attention", "flash_attention_bwd", "flash_attention_bwd_delta",
+              "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "flash_attention_bwd_small")
+    per_step = sum(calls for _, calls in DIFF_ATTENTION)
+    problems = []
+    finite = bool(np.isfinite(out).all())
+    if logged["steps"] != DIFF_TRAIN_STEPS or not np.isfinite(
+            logged["losses"] + logged["grad_norms"]).all():
+        problems.append(f"training logged {logged}")
+    if (train_counts.get(narrow) != per_step * logged["steps"]
+            or train_counts.get(long) != per_step * logged["steps"]
+            or any(train_counts.get(k) for k in others)):
+        problems.append(f"training launches {train_counts} (want {per_step} of {narrow} and "
+                        f"{long} a step, none of {others})")
+    if (sample_counts.get(narrow) != per_step * DIFF_SAMPLE_STEPS
+            or any(sample_counts.get(k) for k in others + (long,))):
+        problems.append(f"sampling launches {sample_counts} (want {per_step} of {narrow} a "
+                        f"step over {DIFF_SAMPLE_STEPS}, nothing else of flash attention)")
+    if tuple(out.shape) != (DIFF_SAMPLES, *cfg["model"]["kwargs"]["data_shape"], 1) or not finite:
+        problems.append(f"the sample is {out.shape}, finite={finite}")
+    if bad:
+        problems.append(f"holds {bad}: {hold}")
+    return {
+        "config": f"{DEEP_GALAXY_CONFIG.name} with UNet_Diffuser and DiffusersDDPMPipeline",
+        "route": route, "items": len(dataset), "dataset_s": dataset_s,
+        "batch": cfg["training"]["batch_size"], "steps_per_epoch": steps_per_epoch,
+        "epochs": epochs, "attention_calls_per_forward": per_step,
+        "train": {**logged, "wall_s": train_wall, "max_memory_allocated": train_peak,
+                  "launches": train_counts, "flash_routes": train_routes,
+                  "launches_per_step": {k: c / max(logged["steps"], 1)
+                                        for k, c in train_counts.items()},
+                  "one_more_step_s": step_s, "profiled_step": profiled},
+        "sample": {"n": DIFF_SAMPLES, "steps": DIFF_SAMPLE_STEPS, "cli_wall_s": sample_wall,
+                   "launches": sample_counts, "flash_routes": sample_routes,
+                   "shape": list(out.shape), "finite": finite, "std": float(out.std())},
+        "hold": hold, "problems": problems,
+    }
+
+
+def distill_config(work: Path) -> Path:
+    """The learned-variance config with its dataset cut, the flagship's
+    parameter space for sampling and no cache or plot files."""
+    cfg = json.loads(GAUSS_CONFIG.read_text())
+    cfg["dataset"]["kwargs"]["length"] = DISTILL_LENGTH
+    cfg["inference"].update(cache_file=None, plot_output_file=None, checkpoint=None,
+                            parameter_space=json.loads(CONFIG.read_text())["inference"][
+                                "parameter_space"])
+    path = work / "learned_variance.json"
+    work.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def run_distillation(work: Path, device) -> dict:
+    """The distill CLI's cascade on the learned-variance config from a
+    seeded random teacher (.pth), then the inference CLI's trailing DDIM on
+    the student; each path's counts against a training step's forward
+    (three forwards and one backward an update); one update's loss and
+    student gradients held against the fp32 plain model; an update's time
+    beside a training step's at the same batch."""
+    import numpy as np
+    import torch
+
+    from rho_diffusion_tpu_torch import inference
+    from rho_diffusion_tpu_torch.config import ExperimentConfig
+    from rho_diffusion_tpu_torch.data.loader import DataLoader, to_device
+    from rho_diffusion_tpu_torch.diffusion.distill import ProgressiveDistiller
+    from rho_diffusion_tpu_torch.distill import main as distill_main
+    from rho_diffusion_tpu_torch.registry import registry
+
+    path = distill_config(work)
+    cfg = json.loads(path.read_text())
+    config = ExperimentConfig.from_json(path)
+    dataset = registry.get("datasets", config.dataset.name)(**config.dataset.kwargs)
+    sd = random_state_dict(data_pipeline(cfg, dataset, "float32", "cpu").backbone, seed=1)
+    teacher = work / "teacher.pth"
+    torch.save(sd, teacher)
+    student_file = work / "student.pth"
+    updates = DISTILL_UPDATES * int(math.log2(DISTILL_FROM // DISTILL_TO))
+    torch.cuda.empty_cache()
+    (student, info), cli_wall, cli_counts, _ = counted(lambda: distill_main(
+        [str(path), "-p", str(teacher), "--from", str(DISTILL_FROM), "--to", str(DISTILL_TO),
+         "--updates", str(DISTILL_UPDATES), "-o", str(student_file), "-d", DEVICE,
+         "--work-dir", str(work)]))
+    del student
+    torch.cuda.empty_cache()
+    out, sample_wall, sample_counts, _ = counted(lambda: inference.main(
+        [str(path), "-p", str(student_file), "-n", str(DISTILL_SAMPLES), "-d", DEVICE, "-f",
+         "--sampler", "ddim", "--steps", str(DISTILL_TO), "--spacing", "trailing",
+         "--work-dir", str(work)]))
+
+    # a training step's launches (one forward, one backward) at the CLI's batch
+    fast = data_pipeline(cfg, dataset, "bfloat16", device)
+    fast.load_state_dict(sd)
+    batch = to_device(next(iter(DataLoader(dataset, batch_size=cfg["training"]["batch_size"],
+                                           num_workers=0))), device)
+    ts = fast.create_state(0)
+    fast.training_step(ts, batch)
+    step_metrics, _, step_counts, _ = counted(lambda: fast.training_step(ts, batch))
+    del ts
+    fast.load_state_dict(sd)  # the steps trained the pipeline's own backbone
+    # the fp32 head (Cout 2) takes the 3xTF32 conv and its weight pre-pass
+    forward = ("flash_attention", "conv3d_igemm", "conv3d_direct", "conv3d_tf32",
+               "conv3d_weight_split")
+    backward = ("flash_attention_bwd", "flash_attention_bwd_delta", "conv3d_dgrad_igemm",
+                "conv3d_dgrad_direct")
+    want = {**{k: 3 * step_counts.get(k, 0) * updates for k in forward},
+            **{k: step_counts.get(k, 0) * updates for k in backward}}
+    problems = []
+    if any(cli_counts.get(k, 0) != n for k, n in want.items()) or not all(
+            step_counts.get(k) for k in ("flash_attention", "flash_attention_bwd",
+                                         "conv3d_igemm", "conv3d_dgrad_igemm")):
+        problems.append(f"distill launches {cli_counts}, want {want} (a training step's "
+                        f"{step_counts}: three forwards and one backward an update)")
+    losses = [x for v in info.values() for x in v]
+    if list(info) != [f"{DISTILL_FROM}->{DISTILL_FROM // 2}", f"{DISTILL_FROM // 2}->{DISTILL_TO}"] \
+            or not np.isfinite(losses).all():
+        problems.append(f"stages {info}")
+    finite = bool(np.isfinite(out).all())
+    if not sample_counts.get("flash_attention") or not finite or tuple(out.shape) != (
+            DISTILL_SAMPLES, *cfg["model"]["kwargs"]["data_shape"], 1):
+        problems.append(f"student sample {out.shape}, finite={finite}, launches {sample_counts}")
+
+    # one update's loss and student gradients on the kernels against the
+    # fp32 plain model, beside the bf16 plain model. The student has weights
+    # of its own: at the teacher's (a stage's start) the loss is the
+    # rounding-sized gap between one student step and two teacher steps,
+    # and its gradients differ by O(1) between any two roundings
+    ref = data_pipeline(cfg, dataset, "float32", device)
+    ref.load_state_dict(sd)
+    student_sd = random_state_dict(ref.backbone, seed=2)
+    hb = DIFF_HOLD_BATCH
+    hold_batch = {"data": batch["data"][:hb], "labels": batch["labels"][:hb]}
+    gen = torch.Generator().manual_seed(8)
+    j = torch.randint(0, DISTILL_FROM // 2, (hb,), generator=gen).to(device)
+    noise = torch.randn(hold_batch["data"].shape, generator=gen).to(device)
+
+    def update_grads(pipe):
+        student = copy.deepcopy(pipe.backbone)
+        student.load_state_dict(student_sd)
+        loss = ProgressiveDistiller(pipe).stage_loss(student, pipe.backbone, hold_batch,
+                                                     DISTILL_FROM, j=j, noise=noise)
+        loss.backward()
+        return loss.detach().float(), {n: p.grad.float() for n, p in student.named_parameters()}
+
+    got_loss, got_grads = update_grads(fast)
+    with plain_backends():
+        bf16_loss, bf16_grads = update_grads(fast)
+        fp32_loss, fp32_grads = update_grads(ref)
+    hold = hold_rows({"forward": got_loss}, {"forward": bf16_loss}, {"forward": fp32_loss},
+                     HOLD_CAP)
+    hold = {"update_loss": {**hold["forward"], "cap_of": "HOLD_CAP['forward']"}}
+    k_dist, k_name, k_worst = grad_distance(got_grads, fp32_grads)
+    p_dist, _, _ = grad_distance(bf16_grads, fp32_grads)
+    row = {"metric": "relative L2 over all student gradients", "kernels_vs_fp32_plain": k_dist,
+           "bf16_plain_vs_fp32_plain": p_dist,
+           "worst_parameter_kernels": {"name": k_name, "rel_l2": k_worst},
+           "bar": min(HOLD_FACTOR * p_dist, HOLD_CAP["train_gradients"])}
+    row["ok"] = k_dist <= row["bar"] and all(bool(torch.isfinite(g).all())
+                                             for g in got_grads.values())
+    hold["update_gradients"] = row
+    bad = [k for k, v in hold.items() if not v["ok"]]
+    if bad:
+        problems.append(f"distill holds {bad}: {hold}")
+    del ref, got_grads, bf16_grads, fp32_grads
+    torch.cuda.empty_cache()
+
+    # an update of the CLI's own loop (ProgressiveDistiller.distill_stage:
+    # two teacher forwards, the student's forward and backward, AdamW at the
+    # stage's learning rate) against a training step, at the CLI's batch, in
+    # turns; the card's clocks and the allocator after each turn
+    d = ProgressiveDistiller(fast)
+    gen = torch.Generator(device=device).manual_seed(9)
+
+    def stage(updates):
+        return lambda: d.distill_stage(fast.backbone, [batch], DISTILL_FROM, updates,
+                                       generator=gen)
+
+    ts = fast.create_state(1)
+    times = {"stage_ms": [], f"stage_{1 + DISTILL_TIMED}_ms": [], "update_ms": [],
+             "train_step_ms": [], "train_step_busy_ms": [], "card": []}
+    for _ in range(2):
+        one = cuda_time_ms(stage(1), iters=2, warmup=1)
+        more = cuda_time_ms(stage(1 + DISTILL_TIMED), iters=1, warmup=0)
+        times["stage_ms"].append(one)
+        times[f"stage_{1 + DISTILL_TIMED}_ms"].append(more)
+        times["update_ms"].append((more - one) / DISTILL_TIMED)
+        times["train_step_ms"].append(cuda_time_ms(lambda: fast.training_step(ts, batch),
+                                                   iters=5, warmup=1))
+        times["card"].append(card_state())
+        by_name = device_time_by_kernel(lambda: fast.training_step(ts, batch))
+        times["train_step_busy_ms"].append(profile_summary(by_name)["busy_ms"] if by_name
+                                           else None)
+    del fast, ts, batch
+    torch.cuda.empty_cache()
+    return {
+        "config": GAUSS_CONFIG.name, "batch": cfg["training"]["batch_size"],
+        "cascade": f"{DISTILL_FROM} -> {DISTILL_TO}, {DISTILL_UPDATES} updates a stage",
+        "stage_losses": info, "cli_wall_s": cli_wall, "launches": cli_counts,
+        "launches_per_update": {k: c / updates for k, c in cli_counts.items()},
+        "training_step_launches": step_counts,
+        "training_step_loss": float(step_metrics["train_loss"]),
+        "sample": {"n": DISTILL_SAMPLES, "steps": DISTILL_TO, "spacing": "trailing",
+                   "cli_wall_s": sample_wall, "launches": sample_counts, "finite": finite,
+                   "shape": list(out.shape)},
+        "hold": hold, **times,
+        "update_ms_of": (f"distill_stage at {1 + DISTILL_TIMED} updates less at 1, over "
+                         f"{DISTILL_TIMED}"),
+        "update_over_train_step": min(times["update_ms"]) / min(times["train_step_ms"]),
+        "problems": problems,
+    }
+
+
+def phase_diffusers(state: dict) -> None:
+    """The diffusers-compatible backbone and pipeline and progressive
+    distillation on the card. (a) UNet_Diffuser under DiffusersDDPMPipeline
+    on DeepGalaxy's config at full width (128^2, batch 64, bf16): training
+    steps, the inference CLI's DDIM sample, holds against the fp32 plain
+    model (``run_diffusers_backbone``); its attention (8 heads of 8 at T 4096
+    and 1024) on the narrow forward and the long backward only, 11 of each a
+    step, held on the whole batch, twice bitwise, and timed at the full batch
+    (``flash_fwd_row``, ``flash_bwd_rows``: the mma.sync pair the long kernel
+    replaced beside it) and the long backward's memory at T 4096. (b) The distill CLI on the
+    learned-variance config and the inference CLI on its student
+    (``run_distillation``): K5, K1 and the fused K3/K4 on its path."""
+    import importlib.util
+
+    import torch
+
+    device = torch.device(DEVICE)
+    route = "hdf5" if importlib.util.find_spec("h5py") is not None else "memory"
+    t0 = time.perf_counter()
+    seconds, launches, problems = {}, {}, []
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_diffusers_"))
+    try:
+        backbone = run_diffusers_backbone(tmp / "backbone", route, device)
+        seconds["backbone"] = time.perf_counter() - t0
+        launches["diffusers_train"] = backbone["train"]["launches"]
+        launches["diffusers_sample"] = backbone["sample"]["launches"]
+        problems += [f"backbone: {p}" for p in backbone["problems"]]
+        emit("diffusers_backbone", **backbone, cuts=DIFF_CUTS, seconds=seconds["backbone"])
+        distill = run_distillation(tmp / "distill", device)
+        seconds["distill"] = time.perf_counter() - t0 - sum(seconds.values())
+        launches["distill_cli"] = distill["launches"]
+        launches["distill_sample"] = distill["sample"]["launches"]
+        problems += [f"distill: {p}" for p in distill["problems"]]
+        emit("diffusers_distill", **distill, seconds=seconds["distill"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows = []
+    for (b, t, h, d), calls in DIFF_ATTENTION:
+        per = f"one UNet_Diffuser training step at batch {b} ({calls} calls at T={t})"
+        variant = (f"UNet_Diffuser at DeepGalaxy's 128^2: T={t}, D={d} (padded to 16), "
+                   f"B*H={b * h}, {per}")
+        rows.append(flash_fwd_row(b, t, h, d, calls, per, device, torch.bfloat16,
+                                  variant=variant, plain_rows=DIFF_PLAIN_ROWS, full_check=True))
+        rows += flash_bwd_rows(b, t, h, d, calls, per, device, torch.bfloat16, variant=variant,
+                               plain_rows=DIFF_PLAIN_ROWS, full_check=True)
+        torch.cuda.empty_cache()
+    memory = long_bwd_memory_hold(*DIFF_MEMORY, device)
+    if not memory["ok"]:
+        problems.append(f"long backward memory at D 8: {memory}")
+    seconds["kernel_rows"] = time.perf_counter() - t0 - sum(seconds.values())
+    record_errors(state, rows)
+    state["diffusers"] = rows
+    state["diffusers_launches"] = launches
+    emit("diffusers", kernel_rows=rows, long_bwd_memory=memory, seconds=seconds,
+         wall_s=time.perf_counter() - t0)
+    fail_bad("diffusers", rows)
+    if problems:
+        fail("diffusers: " + "; ".join(problems))
+
+
 KERNELS = (
     # K5's implicit GEMM: the kernel in conv3d_wgmma.cuh, its launcher in conv3d.cu
     ("conv3d_igemm", "conv3d_wgmma.cuh", "rho_diffusion_tpu/ops/pallas/conv3d.py:102",
@@ -6212,11 +6739,12 @@ def kernels_line(state: dict) -> list:
                 "int8": state["int8_launches"], "int8_2d": state["int8_2d_launches"],
                 "int8_1d": state["int8_1d_launches"], "int8_s2": state["int8_s2_launches"],
                 **state["gauss_launches"], **state["vlb_launches"], **state["data_launches"],
-                **state["utils_launches"], **state["vit_launches"]}
+                **state["utils_launches"], **state["vit_launches"],
+                **state["diffusers_launches"]}
     out = []
     for name, source, replaces, path in KERNELS:
         rows = [r for r in state["timings"] + state["bench"] + state["fp32"] + state["data"]
-                + state["vlb"] + state["int8"] + state["vit"]
+                + state["vlb"] + state["int8"] + state["vit"] + state["diffusers"]
                 if r["kernel"] == name and r.get("calls")]
         main = [r for r in rows if not r["variant"]]
         accuracy = state["err"][name]
@@ -6421,6 +6949,7 @@ def main(argv=None) -> int:
     run("utils", phase_utils)
     run("int8", phase_int8, args.steps, args.samples)
     run("vit", phase_vit)
+    run("diffusers", phase_diffusers)
     run("timings", phase_timings, args.timing_batch)
     run("fp32", phase_fp32)
     run("bench", phase_bench)

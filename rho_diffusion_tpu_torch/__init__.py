@@ -18,6 +18,7 @@ from rho_diffusion_tpu_torch.diffusion import schedule as _schedule  # noqa: F40
 from rho_diffusion_tpu_torch.models import conditioning as _conditioning  # noqa: F401
 from rho_diffusion_tpu_torch.models import unet as _unet  # noqa: F401
 from rho_diffusion_tpu_torch.models import unet_simple as _unet_simple  # noqa: F401
+from rho_diffusion_tpu_torch.models import unet_diffusers_compat as _unet_dc  # noqa: F401
 from rho_diffusion_tpu_torch.models import vit as _vit  # noqa: F401
 from rho_diffusion_tpu_torch.data import synthetic as _synthetic  # noqa: F401
 from rho_diffusion_tpu_torch.metrics import losses as _losses  # noqa: F401

@@ -271,24 +271,34 @@ def load_state_dict_file(path: str | Path, model_kwargs: dict[str, Any],
     """Backbone weights from a file, as a state_dict of fp32 tensors: a
     ``.pth``/``.pt`` as it is, or a JAX ``.npz`` through the carrier of the
     config's model: the model class's own ``state_dict_from_jax`` where it
-    has one (the ViT, the SimpleUNet), else ``export_unet_state_dict`` with
-    the config's architecture (UNetv2, the reference layout)."""
+    has one (the ViT, the SimpleUNet, UNet_Diffuser), else
+    ``export_unet_state_dict`` with the config's architecture (UNetv2, the
+    reference layout). A diffusers ``UNet2DModel`` ``.pth`` (``down_blocks.``
+    keys) goes through ``transplant_hf_unet2d_state_dict`` with the model's
+    ``attention_head_dim`` (default 8) into UNet_Diffuser, and raises under
+    any other model."""
     path = Path(path)
     if path.suffix in (".pth", ".pt", ".bin"):
         sd = torch.load(path, map_location="cpu", weights_only=True)
         if any("down_blocks." in k for k in sd):
-            raise NotImplementedError(
-                f"{path} is a diffusers UNet2DModel checkpoint; the port reads reference "
-                "UNetv2 state_dicts only: the mapping's target, the UNet_Diffuser backbone, "
-                "is not ported yet (ROADMAP Queue 1 item 9b)",
+            if model_name != "UNet_Diffuser":
+                raise ValueError(
+                    f"{path} is a diffusers UNet2DModel checkpoint, which loads into the "
+                    f"UNet_Diffuser backbone only; the config's model is {model_name!r}",
+                )
+            from rho_diffusion_tpu_torch.interop.hf_unet_weights import (
+                transplant_hf_unet2d_state_dict,
             )
+
+            params = transplant_hf_unet2d_state_dict(
+                sd, attention_head_dim=model_kwargs.get("attention_head_dim", 8))
+            return _tensors(jax_carrier(model_name)(params))
         return {k: v.float() for k, v in sd.items()}
     if path.suffix == ".npz":
         params = load_jax_npz(path)
         carrier = jax_carrier(model_name)
-        sd = (carrier(params) if carrier is not None
-              else export_unet_state_dict(params, **arch_kwargs(model_kwargs)))
-        return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in sd.items()}
+        return _tensors(carrier(params) if carrier is not None
+                        else export_unet_state_dict(params, **arch_kwargs(model_kwargs)))
     raise ValueError(f"unsupported checkpoint file {path} (expected .pth, .pt or .npz)")
 
 

@@ -2,7 +2,8 @@
 
     python -m rho_diffusion_tpu_torch.training CONFIG.json [-d cuda|cpu]
         [-p weights.npz|weights.pth] [-e EPOCHS] [--work-dir DIR] [--no-resume]
-        [--pipeline DDPM|GaussianDiffusionPipeline] [--profile DIR]
+        [--pipeline DDPM|GaussianDiffusionPipeline|DiffusersDDPMPipeline]
+        [--profile DIR]
 
 Mirrors ``scripts/training.py``: builds the ``Trainer`` from the config,
 initialises the state (backbone weights from ``-p``, else the latest
@@ -11,10 +12,11 @@ weights) and trains. Full-state checkpoints land in
 ``training.checkpoint_dir`` or ``<work-dir>/checkpoints``, the backbone
 weights in ``<work-dir>/model.pth``, the metrics in
 ``<work-dir>/metrics.jsonl``. ``--pipeline`` names the pipeline over the
-config's (DDPM or GaussianDiffusionPipeline, with the config's pipeline
-kwargs); a config that names GaussianDiffusionPipeline (e.g.
-``examples/config_learned_variance.json``) trains it as it trains DDPM,
-validation included.
+config's (DDPM, GaussianDiffusionPipeline or DiffusersDDPMPipeline, with the
+config's pipeline kwargs); a config that names GaussianDiffusionPipeline
+(e.g. ``examples/config_learned_variance.json``) or DiffusersDDPMPipeline
+(DDPMScheduler's names: ``prediction_type``, ``variance_type``,
+``beta_schedule``, ...) trains it as it trains DDPM, validation included.
 
 ``--profile DIR`` traces the whole run with ``torch.profiler`` (CPU and,
 on the card, CUDA activity) and writes the chrome trace into DIR when it
@@ -49,7 +51,8 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
                         help="backbone weights to start from: a .pth state_dict or a JAX .npz")
     parser.add_argument("-e", "--epochs", type=int, default=None)
     parser.add_argument("--pipeline", default=None,
-                        help="DDPM | GaussianDiffusionPipeline (over the config's pipeline)")
+                        help="DDPM | GaussianDiffusionPipeline | DiffusersDDPMPipeline (over "
+                             "the config's pipeline)")
     parser.add_argument("--work-dir", type=Path, default=Path("."))
     parser.add_argument("--profile", default=None,
                         help="write a torch.profiler trace of the run into this directory")

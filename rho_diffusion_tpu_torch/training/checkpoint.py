@@ -136,9 +136,11 @@ def load_weights_auto(template: torch.nn.Module | dict, path: str | Path,
     ``model_name`` its model. A UNetv2 ``.pth`` needs at least its
     ``model_channels`` and ``num_res_blocks``, as the JAX package's
     transplant does; the ViT's and the SimpleUNet's ``.pth`` is the port's
-    own ``state_dict``. Either is checked both ways: a weight the model lacks
-    or one it cannot place raises. A diffusers ``UNet2DModel`` layout raises
-    (ROADMAP Queue 1 item 9b)."""
+    own ``state_dict``. A diffusers ``UNet2DModel`` ``.pth`` (``down_blocks.``
+    keys) loads into a ``UNet_Diffuser`` model, with ``attention_head_dim``
+    from ``model_kwargs`` (default 8), as the JAX package's does, and raises
+    under any other model. Each is checked both ways: a weight the model
+    lacks or one it cannot place raises."""
     from rho_diffusion_tpu_torch.interop.jax_weights import jax_carrier, load_state_dict_file
 
     path = Path(path)

@@ -476,6 +476,19 @@ def _polynomial(init: float, end: float, power: float, steps: int) -> Schedule:
     return schedule
 
 
+def warmup_cosine_decay(init: float, peak: float, warmup_steps: int, decay_steps: int,
+                        end: float) -> Schedule:
+    """optax.warmup_cosine_decay_schedule: linear from ``init`` to ``peak``
+    over ``warmup_steps``, then cosine decay to ``end`` by ``decay_steps``."""
+    warmup = _polynomial(init, peak, 1.0, warmup_steps)
+    decay = _cosine(peak, decay_steps - warmup_steps, end / peak if peak else 0.0)
+
+    def schedule(count: int) -> float:
+        return warmup(count) if count < warmup_steps else decay(count - warmup_steps)
+
+    return schedule
+
+
 def _staircase(init: float, steps: int, rate: float) -> Schedule:
     """optax.exponential_decay(staircase=True)."""
     def schedule(count: int) -> float:

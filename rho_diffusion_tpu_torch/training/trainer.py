@@ -71,15 +71,12 @@ def build_pipeline_from_config(
     per update (``steps_per_epoch`` converts its epochs), and parameters
     seeded with ``seed`` (default ``inference.seed``)."""
     from rho_diffusion_tpu_torch.diffusion.ddpm import DDPM
+    from rho_diffusion_tpu_torch.diffusion.diffusers_compat import DiffusersDDPMPipeline
     from rho_diffusion_tpu_torch.diffusion.gaussian import GaussianDiffusionPipeline
 
-    pipelines = {"DDPM": DDPM, "GaussianDiffusionPipeline": GaussianDiffusionPipeline}
+    pipelines = {"DDPM": DDPM, "GaussianDiffusionPipeline": GaussianDiffusionPipeline,
+                 "DiffusersDDPMPipeline": DiffusersDDPMPipeline}
     name = pipeline_name or (config.pipeline.name if config.pipeline else "DDPM")
-    if name == "DiffusersDDPMPipeline":
-        raise NotImplementedError(
-            f"pipeline '{name}' is not ported yet (ROADMAP Queue 1 item 9b); the port has "
-            f"{sorted(pipelines)}",
-        )
     if name not in pipelines:
         raise KeyError(f"unknown pipeline '{name}'; available: {sorted(pipelines)}")
     pipeline_kwargs = dict(config.pipeline.kwargs) if config.pipeline else {}

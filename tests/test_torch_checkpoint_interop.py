@@ -5,8 +5,8 @@
   package's own ``export_unet_state_dict``), bitwise; a reference ``.pth``
   loads as it is; a config without the architecture keys, a weight the
   model lacks, one it cannot place and a wrong shape raise with the JAX
-  package's messages; a diffusers ``UNet2DModel`` layout raises naming
-  ROADMAP Queue 1 item 9b.
+  package's messages; a diffusers ``UNet2DModel`` layout loads into a
+  ``UNet_Diffuser`` model and raises under UNetv2, naming UNet_Diffuser.
 * Orbax: the JAX package's ``CheckpointManager`` writes a TrainState into
   a directory, and the test shows why numpy and the standard library alone
   cannot read it: no array is stored raw, the chunks are zstd frames (OCDBT
@@ -46,8 +46,10 @@ from rho_diffusion_tpu_torch import inference
 from rho_diffusion_tpu_torch.config import ExperimentConfig
 from rho_diffusion_tpu_torch.interop.jax_weights import arch_kwargs
 from rho_diffusion_tpu_torch.models.unet import UNet
+from rho_diffusion_tpu_torch.models.unet_diffusers_compat import UNetDiffuser
 from rho_diffusion_tpu_torch.training.checkpoint import load_model_weights, load_weights_auto
 from rho_diffusion_tpu_torch.training.loggers import build_loggers
+from test_torch_hf_unet_weights import hf_mirror
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -119,9 +121,20 @@ def test_pth_loads_and_is_checked_both_ways(tmp_path):
 
 
 def test_diffusers_layout_raises_naming_item_9(tmp_path):
+    """A UNet2DModel-layout .pth (ROADMAP Queue 1 item 9b's mapping) raises
+    under UNetv2, naming UNet_Diffuser, and loads under UNet_Diffuser."""
     path = tmp_path / "unet2d.pth"
     torch.save({"down_blocks.0.resnets.0.conv1.weight": torch.zeros(4, 4, 3, 3)}, path)
-    with pytest.raises(NotImplementedError, match="UNet2DModel.*item 9b"):
+    with pytest.raises(ValueError, match="UNet2DModel.*UNet_Diffuser"):
+        load_weights_auto(UNet(**KW), path, KW)
+    mirror = hf_mirror(seed=3)
+    torch.save(mirror.state_dict(), path)
+    kw = {"data_shape": [16, 16], "in_channels": 1, "num_res_blocks": 2}
+    model = UNetDiffuser(**kw)
+    sd = load_weights_auto(model, path, kw, "UNet_Diffuser")
+    model.load_state_dict(sd)
+    assert set(sd) == set(model.state_dict())
+    with pytest.raises(ValueError, match="UNet_Diffuser"):
         load_weights_auto(UNet(**KW), path, KW)
 
 

@@ -41,6 +41,7 @@ from rho_diffusion_tpu_torch.models import (
     FourierConditioning,
     SimpleUNet,
     UNetBlock,
+    UNetDiffuser,
     VisionTransformer,
     classifier_grad_fn,
 )
@@ -253,13 +254,14 @@ def test_classifier_guided_sample_matches_jax(pair, monkeypatch, sampler):  # no
 
 
 def test_registry_has_every_jax_name_but_the_diffusers_backbone():
-    """JAX's registry, filled by its packages, against the port's: only
-    UNet_Diffuser (ROADMAP Queue 1 item 9b) is missing; the new names
-    resolve to the new modules."""
+    """JAX's registry, filled by its packages, against the port's: no name
+    is missing now that UNet_Diffuser (ROADMAP Queue 1 item 9b) is ported;
+    the names resolve to the port's modules."""
     assert rho_diffusion_tpu and rho_diffusion_tpu_torch
     missing = {(cat, name) for cat, table in jax_registry.mapping.items() for name in table
                if (cat, name) not in registry}
-    assert missing == {("models", "UNet_Diffuser")}
+    assert missing == set()
+    assert registry.get("models", "UNet_Diffuser") is UNetDiffuser
     assert registry.get("models", "VisionTransformer") is VisionTransformer
     assert registry.get("models", "UNet") is SimpleUNet
     assert registry.get("models", "UNetv2") is rho_diffusion_tpu_torch.UNet

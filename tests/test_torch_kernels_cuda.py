@@ -25,7 +25,9 @@ and Tq != Tk, D = 64 and 128, strided qkv and head-major views), against
 the mma.sync pair, bitwise repeatable, and the plans it refuses; the small
 and long backward at D = 16 and 32 (T up to 64, and past it to 4096) against
 the plain version and the pair, bitwise repeatable, and the long route's
-device memory at T = 4096 and 16384 (linear in T); the direct conv's three flagship convs at full
+device memory at T = 4096 and 16384 (linear in T); the narrow forward and
+the long backward at head dim 8 (UNet_Diffuser's, padded to 16) at T = 1024
+and 4096; the direct conv's three flagship convs at full
 width and shapes off its 8 x 32 voxel tile; and the ring-attention kernel
 (K6, one launch per card) in its ring of 2 and 4 ranks on one card at T/n =
 128 and 1024, ragged shards and a padded head dim, and with one rank per
@@ -690,6 +692,45 @@ def test_flash_bwd_long_memory_is_linear_in_t(cuda, b, t, h):
     assert all(bool(torch.isfinite(g).all()) for g in got)
     again = flash_attention_bwd_kernel(q, k, v, o, lse, do)
     assert all(torch.equal(a, e) for a, e in zip(got, again))
+
+
+# UNet_Diffuser's attention at DeepGalaxy's 128^2: 8 heads of 8 channels over
+# 32^2 and 64^2 tokens (batch cut from 64; chip_smoke's diffusers phase holds
+# and times the full batch)
+D8_SHAPES = [(4, 1024, 8, 8), (2, 4096, 8, 8)]
+
+
+@pytest.mark.parametrize("b,t,h,d", D8_SHAPES)
+def test_flash_head_dim_8_matches_plain(cuda, b, t, h, d):
+    """Head dim 8, padded to 16 (scores at 1/sqrt(8)): the narrow forward
+    and the long backward, one launch each, on strided views of one qkv,
+    within the flash tolerances of the plain versions, the LSE within 1e-4,
+    both bitwise the same on a second call; and the autograd Function takes
+    exactly these two kernels."""
+    q, k, v, do = bwd_inputs(b, t, t, h, d, "qkv", 70, cuda)
+    assert padded_head_dim(d) == 16
+    assert flash_plan(b, h, t, t, d) == NARROW_PLAN
+    assert flash_bwd_plan(b, h, t, t, d) == LONG_BWD_PLAN
+    launch_counts.clear()
+    out, lse = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+    again, lse2 = flash_attention_fwd_kernel(q, k, v, with_lse=True)
+    got = flash_attention_bwd_kernel(q, k, v, out, lse, do)
+    got2 = flash_attention_bwd_kernel(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    assert launch_counts == {"flash_attention_fwd_narrow": 2, "flash_attention_bwd_long": 2}
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, e) for a, e in zip(got, got2))
+    assert_flash_close(out[..., :d], xla_attention(q.float(), k.float(), v.float()),
+                       torch.bfloat16)
+    torch.testing.assert_close(lse, flash_lse_plain(q, k), rtol=0, atol=1e-4)
+    assert all(g.shape == x.shape for g, x in zip(got, (q, k, v)))
+    assert_bwd_close(got, q, k, v, do)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    launch_counts.clear()
+    grads = torch.autograd.grad(flash_attention(*leaves), leaves, do)
+    torch.cuda.synchronize()
+    assert launch_counts == {"flash_attention_fwd_narrow": 1, "flash_attention_bwd_long": 1}
+    assert all(torch.equal(a, e) for a, e in zip(grads, got))
 
 
 def test_flash_bwd_long_refuses_what_it_does_not_take(cuda):

@@ -34,6 +34,7 @@ from rho_diffusion_tpu_torch.diffusion.ddpm import DDPM
 from rho_diffusion_tpu_torch.diffusion.schedule import LinearSchedule
 from rho_diffusion_tpu_torch.config import ExperimentConfig
 from rho_diffusion_tpu_torch.data.synthetic import SphericalHarmonicDataset
+from rho_diffusion_tpu_torch.distill import main as distill_main
 from rho_diffusion_tpu_torch.benchmarks import (
     conv3d_ab,
     conv3d_variants,
@@ -65,6 +66,7 @@ from rho_diffusion_tpu_torch.ops.quant import get_conv_quant
 from rho_diffusion_tpu_torch.parallel import context_sharded_attention, make_mesh
 from rho_diffusion_tpu_torch.serve import build_server
 from rho_diffusion_tpu_torch.training.__main__ import main as train_main
+from rho_diffusion_tpu_torch.training import trainer as trainer_mod
 from rho_diffusion_tpu_torch.training.trainer import Trainer
 from rho_diffusion_tpu_torch.utils import resolve_device
 
@@ -125,6 +127,8 @@ def test_entry_points_raise_without_cuda():
     for argv in ([], ["-d", "cuda"]):
         with pytest.raises(RuntimeError, match="CUDA"):
             train_main([str(ROOT / "examples" / "config_smoke.json"), *argv])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            distill_main([str(ROOT / "examples" / "config_learned_variance.json"), *argv])
 
 
 def test_serve_and_mesh_raise_without_cuda():
@@ -347,9 +351,10 @@ def test_device_cache_over_a_data_mesh_raises(tmp_path):
         Trainer(ExperimentConfig.from_dict(cfg), work_dir=tmp_path, device="cpu")
 
 
-def test_training_profile_and_other_pipelines_raise(tmp_path):
+def test_training_profile_and_other_pipelines_raise(tmp_path, monkeypatch):
     """``--profile DIR`` (ported) traces the run into DIR: a chrome trace
-    holding the training step's ops. The diffusers pipeline raises."""
+    holding the training step's ops. The diffusers pipeline trains one step
+    from ``--pipeline``; a pipeline name the port does not know raises."""
     path = ROOT / "examples" / "config_smoke.json"
     state = train_main([str(path), "-d", "cpu", "--work-dir", str(tmp_path / "run"),
                         "--profile", str(tmp_path / "trace")])
@@ -359,11 +364,23 @@ def test_training_profile_and_other_pipelines_raise(tmp_path):
     names = {e.get("name") for e in json.loads(traces[0].read_text())["traceEvents"]}
     # the optimizer's step and the port's conv and attention Functions
     assert {"Optimizer.step#AdamW.step", "Conv3d", "FlashAttention"} <= names
-    # GaussianDiffusionPipeline trains (tests/test_torch_evaluate.py); the
-    # diffusers pipeline is not ported
-    with pytest.raises(NotImplementedError, match="pipeline"):
+    # GaussianDiffusionPipeline trains (tests/test_torch_evaluate.py), and so
+    # does the diffusers pipeline: one CPU step on the smoke config's 16 items
+    cfg = json.loads(path.read_text())
+    cfg["training"].update(batch_size=16, log_every_n_steps=1)
+    cut = tmp_path / "diffusers.json"
+    cut.write_text(json.dumps(cfg))
+    built = []
+    build = trainer_mod.build_pipeline_from_config
+    monkeypatch.setattr(trainer_mod, "build_pipeline_from_config",
+                        lambda *a, **k: built.append(build(*a, **k)) or built[-1])
+    state = train_main([str(cut), "-d", "cpu", "--work-dir", str(tmp_path / "diffusers"),
+                        "--pipeline", "DiffusersDDPMPipeline", "-e", "1"])
+    assert state.step == 1
+    assert [type(p).__name__ for p in built] == ["DiffusersDDPMPipeline"]
+    with pytest.raises(KeyError, match="unknown pipeline"):
         train_main([str(path), "-d", "cpu", "--work-dir", str(tmp_path), "--pipeline",
-                    "DiffusersDDPMPipeline"])
+                    "NoSuchPipeline"])
 
 
 def test_kernel_build_raises_without_nvcc(tmp_path, monkeypatch):
