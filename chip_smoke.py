@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py [--phases env,build,kernels,main,main64,gauss,vlb,train,data,hold,serve,load,utils,int8,vit,diffusers,timings,fp32,bench]
+    python3 chip_smoke.py [--phases env,build,kernels,main,main64,gauss,vlb,train,data,hold,serve,load,utils,int8,vit,diffusers,quality,timings,fp32,bench]
                           [--steps 25] [--samples 4] [--timing-batch 8]
 
 Builds the port's CUDA kernels from ``rho_diffusion_tpu_torch/csrc`` (and
@@ -177,6 +177,25 @@ weights loaded from a reference-layout ``.pth``):
   step's), the inference CLI on the student at DDIM-2 trailing, one
   update's loss and student gradients held, an update's time beside a
   training step's;
+* ``quality``: the eight 3-D Y_lm quality harnesses
+  (``python -m rho_diffusion_tpu_torch.benchmarks.<name>``, run through
+  their ``main``) at full width on the card with their budgets cut
+  (``QUALITY_RUNS``: tens of training steps, a distillation cascade of two
+  stages, a wall budget of seconds for the ViT/UNet A/B, two 64^3 steps at
+  batch 8 without recomputation, every sampler capped at
+  ``QUALITY_MAX_STEPS`` steps); each report must carry the JAX script's
+  keys and finite samples, and each harness's launches must include its
+  kernels: K5 and the direct convs, K1 at T 256 (D 64) and the fused
+  K3/K4 on the 16^3 model, K2 at T 4096 and K3/K4 on demo64's, the narrow
+  forward at T 64 (D 32) and the small backward in the ViT's run, S1, its
+  strided Downsample and S3 in sampler_quality's int8 rows, where S2 is
+  counted and must stay at 0 (the 16^3 model's Cin 1 input and Cout 1 head
+  stay float); then the 16^3 UNet's training step at batch 8 and 16 timed
+  (CUDA events) beside its profiled device-busy time, and the kernels held
+  at the harnesses' own shapes: K1 and the fused K3/K4 at B*H 32 (T 256, D
+  64), the narrow forward and small backward at the ViT's D 32, T 64, the
+  16^3 UNet's conv problems at batch 8 (forward and dgrad) and its int8
+  convs and quantiser shapes (bitwise);
 * ``fp32``: the flagship in fp32 (a config whose ``training.dtype`` is
   float32): every distinct conv problem of a batch-8 forward and of a
   batch-32 step's dgrad (the 3xTF32 implicit GEMM where Cin % 4 == 0 and
@@ -239,7 +258,7 @@ phase prints one JSON line; a failing phase exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``, after the
 ``kernels`` line and the card's ``nvidia-smi`` name and power limit. A run
 whose ``--phases`` leave out any of kernels, main, main64, gauss, vlb,
-train, data, serve, load, utils, int8, vit, diffusers, timings, fp32 and bench prints
+train, data, serve, load, utils, int8, vit, diffusers, quality, timings, fp32 and bench prints
 neither and exits 3. The ``done`` line gives each phase's seconds.
 
 Exits non-zero without a result when CUDA is unavailable or the script runs
@@ -269,10 +288,12 @@ DEEP_GALAXY_CONFIG = ROOT / "examples" / "config_deep_galaxy.json"
 SPECTRO_CONFIG = ROOT / "examples" / "config_spectroscopy.json"
 QUALITY_CONFIG = ROOT / "examples" / "config_spherical_harmonics_quality.json"
 PHASES = ("env", "build", "kernels", "main", "main64", "gauss", "vlb", "train", "data", "hold",
-          "serve", "load", "utils", "int8", "vit", "diffusers", "timings", "fp32", "bench")
+          "serve", "load", "utils", "int8", "vit", "diffusers", "quality", "timings", "fp32",
+          "bench")
 # the phases whose numbers the kernels line carries
 KERNELS_LINE_PHASES = ("kernels", "main", "main64", "gauss", "vlb", "train", "data", "serve",
-                       "load", "utils", "int8", "vit", "diffusers", "timings", "fp32", "bench")
+                       "load", "utils", "int8", "vit", "diffusers", "quality", "timings", "fp32",
+                       "bench")
 DEVICE = "cuda"
 # the train phase: the flagship's batch, and steps cut to five
 TRAIN_BATCH = 32
@@ -1728,9 +1749,10 @@ GAUSS_CUTS = {
 
 
 @contextlib.contextmanager
-def bench_env(env: dict, prefix: str = "BENCH_"):
-    """An entry's ``prefix`` variables (the bench entry's BENCH_*) set to
-    ``env`` (the others cleared) for the body, then put back."""
+def bench_env(env: dict, prefix: str | tuple = "BENCH_"):
+    """An entry's ``prefix`` variables (the bench entry's BENCH_*; a tuple
+    for several prefixes) set to ``env`` (the others cleared) for the body,
+    then put back."""
     import os
 
     saved = {k: v for k, v in os.environ.items() if k.startswith(prefix)}
@@ -5100,6 +5122,21 @@ def int8_operands(xs, cout: int, ksize, seed: int, device):
     return xq, wq, s_x, s_w, bias
 
 
+def int8_problems(sites: list) -> tuple[dict, dict]:
+    """The distinct S1/S2 problems of a forward's int8 sites (``Int8Sites``),
+    and its quantised activations' (shape, dtype), each with its calls."""
+    problems: dict = {}
+    acts: dict = {}
+    for c in sites:
+        if c["route"] in ("s1", "s1_strided", "s2"):
+            key = (c["route"], c["x"], c["cout"], c["kernel"], c["stride"], c["pads"],
+                   c["out_dtype"])
+            problems[key] = problems.get(key, 0) + 1
+        if c["route"] != "float":
+            acts[(c["x"], c["x_dtype"])] = acts.get((c["x"], c["x_dtype"]), 0) + 1
+    return problems, acts
+
+
 def int8_conv_row(route: str, xs, cout: int, ksize, stride, pads, out_dtype, device, seed: int,
                   calls: int, per: str, variant=None) -> dict:
     """One int8 conv problem on its kernel (S1, the strided route on S1's
@@ -5540,16 +5577,7 @@ def phase_int8(state: dict, steps: int, samples: int) -> None:
     sites = rec.calls
     del unet
     per = f"one UNet forward at batch {INT8_TIMING_BATCH}"
-    # the distinct S1/S2 problems of the forward, with their calls
-    problems: dict = {}
-    acts: dict = {}
-    for c in sites:
-        if c["route"] in ("s1", "s1_strided", "s2"):
-            key = (c["route"], c["x"], c["cout"], c["kernel"], c["stride"], c["pads"],
-                   c["out_dtype"])
-            problems[key] = problems.get(key, 0) + 1
-        if c["route"] != "float":
-            acts[(c["x"], c["x_dtype"])] = acts.get((c["x"], c["x_dtype"]), 0) + 1
+    problems, acts = int8_problems(sites)
     rows = []
     for i, ((route, xs, cout, ks, st, pads, odt), n) in enumerate(sorted(problems.items(),
                                                                         key=str)):
@@ -6588,6 +6616,201 @@ def phase_diffusers(state: dict) -> None:
         fail("diffusers: " + "; ".join(problems))
 
 
+# the quality phase: each 3-D Y_lm harness with its budget cut (its knobs
+# over the JAX script's defaults), and every sampler capped at
+# QUALITY_MAX_STEPS steps (YLM_MAX_STEPS)
+QUALITY_MAX_STEPS = 10
+QUALITY_RUNS = (
+    ("sampler_quality", {"QUAL_STEPS": "20"}),
+    ("ema_ablation", {"EMA_STEPS": "20"}),
+    ("demo_min_snr", {"DEMO_STEPS": "20"}),
+    ("demo_cfg", {"DEMO_STEPS": "20"}),
+    ("sh_holdout", {"SH_STEPS": "20"}),
+    ("demo_distill", {"DEMO_STEPS": "20", "DEMO_FROM": "8", "DEMO_UPDATES": "3"}),
+    ("vit_ab", {"VIT_AB_WALL": "3"}),
+    ("demo64", {"DEMO_STEPS": "2"}),
+)
+QUALITY_KNOBS = ("QUAL_", "SQ_", "EMA_", "DEMO_", "SH_", "VIT_AB_", "YLM_")
+# the batches the harnesses train the 16^3 UNet at, whose step is timed
+QUALITY_STEP_BATCHES = (8, 16)
+# attention shapes of the harnesses that no other phase holds: (b, t, h, d),
+# calls a forward, and the run they are the shapes of
+QUALITY_ATTENTION = (((8, 256, 4, 64), 6, "the 16^3 harness UNet at batch 8"),
+                     ((8, 64, 8, 32), 8, "vit_ab's ViT at patch 4, batch 8"))
+# the kernels each harness's run must launch (every one trains the 16^3
+# UNet but vit_ab's ViT half and demo64, whose flagship runs K2 at 4096
+# tokens); the flash forward's routes by key length
+UNET_KERNELS = ("conv3d_igemm", "conv3d_dgrad_igemm", "conv3d_direct", "conv3d_dgrad_direct",
+                "flash_attention", "flash_attention_bwd", "flash_attention_bwd_delta")
+QUALITY_KERNELS = {
+    "sampler_quality": UNET_KERNELS + ("conv3d_s8", "conv3d_s8_strided", "quantize_int8_amax",
+                                       "quantize_int8"),
+    "vit_ab": UNET_KERNELS + ("flash_attention_fwd_narrow", "flash_attention_bwd_small"),
+}
+QUALITY_ROUTES = {"demo64": ("wgmma Tk=4096",), "vit_ab": ("wgmma Tk=256", "narrow Tk=64")}
+QUALITY_CUTS = {
+    "budgets": {name: env for name, env in QUALITY_RUNS},
+    "YLM_MAX_STEPS": f"{QUALITY_MAX_STEPS}: every sampler's steps (DDPM-1000, DDIM-50, "
+                     "DDIM-100 and dpm++-15 among them) capped",
+    "widths": "as published: the 16^3 UNet (width 64, mult 1/2/4, 4 heads at ds 4), the ViT "
+              "(patch 4, 256 wide, 8 heads, depth 8), the 64^3 flagship at batch 8",
+}
+
+
+def harness_kernel_rows(device) -> list:
+    """The kernels at the harnesses' shapes no other phase gives them: K1
+    and the fused K3/K4 at the 16^3 UNet's batch 8 (B*H 32) and the narrow
+    forward and small backward at vit_ab's ViT (D 32, T 64), each held and
+    timed (``flash_fwd_row``, ``flash_bwd_rows``); every conv problem of the
+    16^3 UNet's forward and dgrad at batch 8 held (K5, the direct kernel);
+    and under int8 its S1, strided S1 and S2 problems and its quantiser's
+    shapes held bitwise and timed (``int8_conv_row``, ``quantize_rows_row``).
+    Every row is a variant: the kernels line's main rows stay the timings
+    phase's."""
+    import torch
+
+    from rho_diffusion_tpu_torch.benchmarks import _ylm
+    from rho_diffusion_tpu_torch.ops.quant import conv_quant
+    from rho_diffusion_tpu_torch.registry import registry
+
+    rows = []
+    for (b, t, h, d), calls, what in QUALITY_ATTENTION:
+        per = f"one forward of {what} ({calls} attention calls)"
+        variant = f"{what}: T={t}, D={d}, B*H={b * h}"
+        rows.append(flash_fwd_row(b, t, h, d, calls, per, device, torch.bfloat16,
+                                  variant=variant))
+        rows += flash_bwd_rows(b, t, h, d, calls, per, device, torch.bfloat16, variant=variant)
+    batch = QUALITY_STEP_BATCHES[0]
+    variant = f"the 16^3 harness UNet at batch {batch}"
+    unet = registry.get("models", "UNetv2")(**_ylm.backbone_kwargs(16))
+    unet.load_state_dict(random_state_dict(unet, 7))
+    unet.to(device).eval()
+    holds = (hold_convs(unet, batch, "forward", device, seed=700, timed=False)
+             + hold_convs(unet, batch, "dgrad", device, seed=800, timed=False))
+    x, t, y = unet_inputs(unet, batch, device, seed=2)
+    with Int8Sites() as rec, conv_quant("int8"), torch.no_grad():
+        unet(x, t, y)
+    torch.cuda.synchronize()
+    del unet
+    problems, acts = int8_problems(rec.calls)
+    per = f"one int8 forward of {variant}"
+    for i, ((route, xs, cout, ks, st, pads, odt), n) in enumerate(sorted(problems.items(),
+                                                                        key=str)):
+        rows.append(int8_conv_row(route, xs, cout, ks, st, pads, odt, device, 900 + 7 * i, n,
+                                  per, variant=variant))
+    for i, ((xs, dt), n) in enumerate(sorted(acts.items(), key=str)):
+        rows += quantize_rows_row(xs, dt, device, 990 + i, n, per, variant=variant)
+    torch.cuda.empty_cache()
+    return [{**r, "variant": r.get("variant") or variant} for r in holds] + rows
+
+
+def harness_step_times(device) -> dict:
+    """The 16^3 harness UNet's DDPM training step (``_ylm``'s model, AdamW,
+    EMA) at each of QUALITY_STEP_BATCHES: its time from CUDA events over 10
+    steps after 2, the device's busy time of one profiled step, and the
+    card's state after."""
+    import torch
+
+    from rho_diffusion_tpu_torch.benchmarks import _ylm
+    from rho_diffusion_tpu_torch.data.loader import DataLoader, to_device
+    from rho_diffusion_tpu_torch.diffusion import DDPM
+
+    pipe = DDPM("UNetv2", _ylm.backbone_kwargs(16), _ylm.schedule(), optimizer="AdamW",
+                opt_kwargs={"lr": 1e-4}, ema_decay=0.9999, device=device, seed=_ylm.INIT_SEED)
+    state = pipe.create_state(_ylm.INIT_SEED)
+    dset = _ylm.dataset(16, 64)
+    out = {}
+    for b in QUALITY_STEP_BATCHES:
+        batch = to_device(next(iter(DataLoader(dset, batch_size=b, num_workers=0))), device)
+        ms = cuda_time_ms(lambda: pipe.training_step(state, batch), iters=10, warmup=2)
+        by_name = device_time_by_kernel(lambda: pipe.training_step(state, batch))
+        summary = profile_summary(by_name) if by_name else NOT_PROFILED
+        out[f"batch_{b}"] = {"step_ms": ms, "busy_ms": summary.get("busy_ms"),
+                             "launches": summary.get("launches"),
+                             "busy_share": summary["busy_ms"] / ms if by_name else None,
+                             "card": card_state()}
+    del pipe, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def finite_flags(report) -> list:
+    """Every ``finite`` value anywhere in a harness report."""
+    if isinstance(report, dict):
+        return [v for k, v in report.items() if k == "finite"] + [
+            f for v in report.values() for f in finite_flags(v)]
+    if isinstance(report, list):
+        return [f for v in report for f in finite_flags(v)]
+    return []
+
+
+def phase_quality(state: dict) -> None:
+    """The eight 3-D Y_lm harnesses on the card through their entry points,
+    budgets cut (QUALITY_RUNS, QUALITY_MAX_STEPS): each report's keys, its
+    samples finite, its launches (QUALITY_KERNELS, QUALITY_ROUTES) and, for
+    demo64 at batch 8 without recomputation, the allocator's peak; then the
+    16^3 UNet's training step timed and profiled at batch 8 and 16, and the
+    kernels held (and the flash and int8 ones timed) at the harnesses'
+    shapes no other phase gives them (``harness_kernel_rows``)."""
+    import importlib
+
+    import torch
+
+    from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+
+    t0 = time.perf_counter()
+    total, runs, problems = {}, {}, []
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_quality_"))
+    try:
+        for name, env in QUALITY_RUNS:
+            module = importlib.import_module(f"rho_diffusion_tpu_torch.benchmarks.{name}")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with bench_env({**env, "YLM_MAX_STEPS": str(QUALITY_MAX_STEPS)},
+                           prefix=QUALITY_KNOBS):
+                report, wall, counts, routes = counted(lambda: module.main(
+                    ["-d", DEVICE, "--work-dir", str(tmp / name)]))
+            launch_counts.clear()
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
+            missing_keys = sorted(set(module.REPORT_KEYS) - set(report))
+            flags = finite_flags(report)
+            unlaunched = [k for k in QUALITY_KERNELS.get(name, UNET_KERNELS) if not counts.get(k)]
+            unrouted = [r for r in QUALITY_ROUTES.get(name, ("wgmma Tk=256",)) if not routes.get(r)]
+            runs[name] = {"wall_s": wall, "launches": counts, "flash_routes": routes,
+                          "peak_bytes": torch.cuda.max_memory_allocated(),
+                          "train_steps_per_s": report.get("train_steps_per_s"),
+                          "finite_flags": len(flags), "s2_launches": counts.get(
+                              "conv_s8_general", 0)}
+            if name == "demo64":
+                runs[name].update({k: report[k] for k in ("train_peak_bytes", "peak_bytes",
+                                                          "use_checkpoint", "batch",
+                                                          "sinkhorn_generated_vs_real")})
+            if name == "sampler_quality":
+                runs[name]["rows"] = report["rows"]
+            if missing_keys or not flags or not all(flags) or unlaunched or unrouted:
+                problems.append(f"{name}: missing keys {missing_keys}, finite {flags}, "
+                                f"unlaunched {unlaunched}, unrouted {unrouted}")
+            if counts.get("conv_s8_general"):
+                problems.append(f"{name}: S2 launched {counts['conv_s8_general']} times")
+            emit("quality_run", harness=name, env=env, **runs[name])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    state["quality_launches"] = total
+    device = torch.device(DEVICE)
+    steps = harness_step_times(device)
+    rows = harness_kernel_rows(device)
+    record_errors(state, rows)
+    state["quality"] = [r for r in rows if r.get("calls")]
+    emit("quality", runs={k: {f: v[f] for f in ("wall_s", "peak_bytes", "train_steps_per_s")}
+                          for k, v in runs.items()},
+         launches=total, step_16cubed=steps, kernel_rows=rows, cuts=QUALITY_CUTS,
+         wall_s=time.perf_counter() - t0)
+    fail_bad("quality", rows)
+    if problems:
+        fail("quality: " + "; ".join(problems))
+
+
 KERNELS = (
     # K5's implicit GEMM: the kernel in conv3d_wgmma.cuh, its launcher in conv3d.cu
     ("conv3d_igemm", "conv3d_wgmma.cuh", "rho_diffusion_tpu/ops/pallas/conv3d.py:102",
@@ -6740,11 +6963,12 @@ def kernels_line(state: dict) -> list:
                 "int8_1d": state["int8_1d_launches"], "int8_s2": state["int8_s2_launches"],
                 **state["gauss_launches"], **state["vlb_launches"], **state["data_launches"],
                 **state["utils_launches"], **state["vit_launches"],
-                **state["diffusers_launches"]}
+                **state["diffusers_launches"], "quality": state["quality_launches"]}
     out = []
     for name, source, replaces, path in KERNELS:
         rows = [r for r in state["timings"] + state["bench"] + state["fp32"] + state["data"]
                 + state["vlb"] + state["int8"] + state["vit"] + state["diffusers"]
+                + state["quality"]
                 if r["kernel"] == name and r.get("calls")]
         main = [r for r in rows if not r["variant"]]
         accuracy = state["err"][name]
@@ -6950,6 +7174,7 @@ def main(argv=None) -> int:
     run("int8", phase_int8, args.steps, args.samples)
     run("vit", phase_vit)
     run("diffusers", phase_diffusers)
+    run("quality", phase_quality)
     run("timings", phase_timings, args.timing_batch)
     run("fp32", phase_fp32)
     run("bench", phase_bench)

@@ -43,8 +43,11 @@ VisionTransformer at the root bench.py's widths (32^3, patch 8, embedding
 256, hidden 512, depth 8, 16 heads; the smoke: patch 4, 64, 128, depth 2, 4
 heads) in the train and realdata modes, under the metric
 ``train_steps_per_sec_per_chip_3d_vit_32cubed_b32``; its sample mode exits
-with the root bench.py's message. ``BENCH_FLAT_OPT`` flattens optax's state
-tree, which has no torch counterpart, and raises.
+with the root bench.py's message. ``BENCH_FLAT_OPT=1`` makes the AdamW
+update one fused multi-tensor step over every parameter (``fused=True``
+through ``training/optimizers.py``'s ``Optimizer``), the port's counterpart
+of the root bench.py's ``optax.flatten``: the same per-element arithmetic
+over all parameters at once (stderr prints ``flat_opt=``).
 
 It runs on CUDA unless ``-d cpu`` is given (for the smoke sizes), and
 raises when CUDA is absent.
@@ -78,7 +81,7 @@ def _sync(device: torch.device) -> None:
 
 def settings() -> dict:
     """The workload the ``BENCH_*`` variables select, as the root
-    ``bench.py`` reads them; raises for the knobs the port lacks."""
+    ``bench.py`` reads them."""
     smoke = os.environ.get("BENCH_SMOKE") == "1"
     s = {
         "smoke": smoke, "mode": os.environ.get("BENCH_MODE", "train"),
@@ -94,10 +97,7 @@ def settings() -> dict:
         # directly, so its embedding (4 * model_channels) must match
         s["mc"] = 64
     s["model"] = os.environ.get("BENCH_MODEL", "unet")
-    if os.environ.get("BENCH_FLAT_OPT") == "1":
-        raise NotImplementedError(
-            "BENCH_FLAT_OPT=1 flattens optax's optimizer-state tree; the port's optimizers "
-            "are torch.optim's, whose state has no tree to flatten")
+    s["flat_opt"] = os.environ.get("BENCH_FLAT_OPT") == "1"
     if s["dims"] == 2:  # examples/config_deep_galaxy.json: 128^2, mc 32, T 500, batch 64
         s.update(grid=_env("BENCH_GRID", 16 if smoke else 128),
                  batch=_env("BENCH_BATCH", 8 if smoke else 64), mc=16 if smoke else 32,
@@ -172,13 +172,15 @@ def bench_sampling(s: dict, device) -> dict:
 def training_pipeline(s: dict, device):
     from rho_diffusion_tpu_torch.diffusion import DDPM, LinearSchedule
 
-    return DDPM(
+    pipe = DDPM(
         backbone=s["backbone"], backbone_kwargs=s["backbone_kwargs"],
         schedule=LinearSchedule(500 if s["dims"] == 2 else 1000), optimizer="AdamW",
         opt_kwargs={"lr": 1e-4},
         ema_decay=0.0 if os.environ.get("BENCH_NO_EMA") == "1" else 0.9999,
         log_grad_norm=os.environ.get("BENCH_NO_GRADNORM") != "1",
         grad_accum=_env("BENCH_ACCUM", 1), device=device, seed=0)
+    pipe.optimizer.fused = s["flat_opt"]
+    return pipe
 
 
 def bench_realdata(s: dict, pipe, state, device) -> dict:
@@ -252,7 +254,7 @@ def bench_training(s: dict, device) -> dict:
               if not s["smoke"] else "train_steps_per_sec_per_chip_smoke")
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
     print(f"{device_line(device)} chips=1 dtype={s['dtype']} batch={batch} grid={grid} "
-          f"remat={s['remat']} warmup={warmup_s:.1f}s elapsed={elapsed:.2f}s loss={loss:.4f} "
+          f"remat={s['remat']} flat_opt={s['flat_opt']} warmup={warmup_s:.1f}s elapsed={elapsed:.2f}s loss={loss:.4f} "
           f"finite={np.isfinite(loss)} peak_bytes={peak} "
           f"steps_run={max(s['warmup'], 1) + windows * steps}", file=sys.stderr)
     return {"metric": metric, "value": round(value, 4), "unit": "steps/sec/chip",

@@ -58,13 +58,20 @@ def _lr(kwargs: dict, default: float = 1e-3):
 
 class Optimizer:
     """A torch optimizer class, its kwargs and the learning rate (a constant
-    or a schedule of the update count)."""
+    or a schedule of the update count).
+
+    ``fused`` (set before ``make``) makes the update one fused multi-tensor
+    step over every parameter (``torch.optim``'s ``fused=True``): the port's
+    counterpart of ``optax.flatten``, which runs the same per-element
+    arithmetic over one flat vector. Only the torch classes that have a
+    fused implementation (AdamW, Adam, SGD) take it."""
 
     def __init__(self, cls: type, learning_rate: Union[float, Schedule], **kwargs: Any) -> None:
         self.cls = cls
         self.learning_rate = learning_rate
         self.kwargs = kwargs
         self.clip_grad_norm: Optional[float] = None
+        self.fused = False
 
     def lr(self, count: int) -> Optional[float]:
         """The learning rate of update ``count``; None for Adafactor
@@ -75,7 +82,12 @@ class Optimizer:
         return float(lr(count) if callable(lr) else lr)
 
     def make(self, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
-        return self.cls(params, lr=self.lr(0), **self.kwargs)
+        if not self.fused:
+            return self.cls(params, lr=self.lr(0), **self.kwargs)
+        if self.cls not in (torch.optim.AdamW, torch.optim.Adam, torch.optim.SGD):
+            raise ValueError(f"{self.cls.__name__} has no fused update; fused takes AdamW, "
+                             "Adam or SGD")
+        return self.cls(params, lr=self.lr(0), fused=True, **self.kwargs)
 
     def set_lr(self, opt: torch.optim.Optimizer, count: int) -> float:
         lr = self.lr(count)

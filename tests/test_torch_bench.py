@@ -5,10 +5,11 @@ At the smoke sizes (``BENCH_SMOKE=1 ... -d cpu``) it prints exactly one
 JSON line under the root ``bench.py``'s metric names, in the train and the
 sample mode, with ``vs_baseline`` 1.0, and never opens or globs the TPU's
 ``BENCH_r*.json`` records (an audit hook watches every open and glob of the
-run). Without ``-d cpu`` it needs CUDA; the knobs whose machinery is queued
-raise ``NotImplementedError``; realdata runs with and without the device
-cache, and the train mode with recomputation (``BENCH_REMAT=1``); the new
-modules are among those the import rule checks.
+run). Without ``-d cpu`` it needs CUDA; the knobs whose machinery was
+queued run: realdata with and without the device cache, the train mode with
+recomputation (``BENCH_REMAT=1``), the ViT and AdamW's fused step
+(``BENCH_FLAT_OPT=1``); the new modules are among those the import rule
+checks.
 """
 import json
 import os
@@ -84,17 +85,32 @@ def test_bench_needs_cuda_unless_asked_for_the_cpu():
     ({"BENCH_MODEL": "vit"}, None),
     ({"BENCH_REMAT": "1"}, None),
     ({"BENCH_MODE": "realdata", "BENCH_DEVICE_CACHE": "1"}, None),
-    ({"BENCH_FLAT_OPT": "1"}, "no torch counterpart|torch.optim"),
+    ({"BENCH_FLAT_OPT": "1"}, None),
 ], ids=["vit", "remat", "device-cache", "flat-opt"])
 def test_queued_knobs_raise(monkeypatch, knob, match):
-    """The knobs whose machinery is queued raise. BENCH_DEVICE_CACHE=1 (the
-    device-resident cache, ported) runs: realdata's batches are gathers from
-    the uploaded table, and the run prints its one line. BENCH_REMAT=1 (the
-    UNet's use_checkpoint, ported) runs the train mode with every ResBlock
-    and AttentionBlock recomputed in the backward, and prints its one line.
-    BENCH_MODEL=vit (the VisionTransformer, ported) trains at the smoke
-    widths and prints its one line; its sample mode exits with the root
-    bench.py's message."""
+    """The knobs whose machinery was queued now run. BENCH_DEVICE_CACHE=1
+    (the device-resident cache, ported) runs: realdata's batches are gathers
+    from the uploaded table, and the run prints its one line. BENCH_REMAT=1
+    (the UNet's use_checkpoint, ported) runs the train mode with every
+    ResBlock and AttentionBlock recomputed in the backward, and prints its
+    one line. BENCH_MODEL=vit (the VisionTransformer, ported) trains at the
+    smoke widths and prints its one line; its sample mode exits with the
+    root bench.py's message. BENCH_FLAT_OPT=1 (optax.flatten's counterpart,
+    AdamW's fused step) trains the smoke and prints its one line; its
+    arithmetic is held against optax in tests/test_torch_utils_helpers.py."""
+    if knob == {"BENCH_FLAT_OPT": "1"}:
+        lines, err = run_bench(**knob)
+        assert len(lines) == 1, lines
+        result = json.loads(lines[0])
+        assert result["metric"] == "train_steps_per_sec_per_chip_smoke" and result["value"] > 0
+        assert "flat_opt=True " in err and "finite=True " in err, err
+        monkeypatch.setenv("BENCH_SMOKE", "1")
+        monkeypatch.setenv("BENCH_FLAT_OPT", "1")
+        s = bench.settings()
+        pipe = bench.training_pipeline(s, torch.device("cpu"))
+        optim = pipe.create_state(0).optimizer
+        assert isinstance(optim, torch.optim.AdamW) and optim.param_groups[0]["fused"]
+        return
     if knob == {"BENCH_MODEL": "vit"}:
         lines, err = run_bench(**knob)
         assert len(lines) == 1, lines
@@ -116,18 +132,11 @@ def test_queued_knobs_raise(monkeypatch, knob, match):
         assert result["metric"] == "train_steps_per_sec_per_chip_smoke" and result["value"] > 0
         assert "remat=True " in err and "finite=True " in err, err
         return
-    if match is None:
-        lines, err = run_bench(**knob)
-        assert len(lines) == 1, lines
-        assert json.loads(lines[0])["metric"] == "train_steps_per_sec_per_chip_3d_unet_realdata"
-        # the smoke's 256 fields of 8^3 and their 256-wide labels, fp32
-        assert "device_cache_bytes=786432 " in err, err
-        return
-    monkeypatch.setenv("BENCH_SMOKE", "1")
-    for k, v in knob.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=match):
-        bench.main(["-d", "cpu"])
+    lines, err = run_bench(**knob)
+    assert len(lines) == 1, lines
+    assert json.loads(lines[0])["metric"] == "train_steps_per_sec_per_chip_3d_unet_realdata"
+    # the smoke's 256 fields of 8^3 and their 256-wide labels, fp32
+    assert "device_cache_bytes=786432 " in err, err
 
 
 def test_realdata_smoke_streams_from_the_host():

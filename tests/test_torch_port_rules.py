@@ -40,6 +40,14 @@ from rho_diffusion_tpu_torch.benchmarks import (
     conv3d_variants,
     conv_int8_probe,
     conv_profile,
+    demo64,
+    demo_cfg,
+    demo_distill,
+    demo_min_snr,
+    ema_ablation,
+    sampler_quality,
+    sh_holdout,
+    vit_ab,
 )
 from rho_diffusion_tpu_torch.ops.kernels import _build, launch_counts
 from rho_diffusion_tpu_torch.ops.kernels.conv3d import Conv3d, conv3d, conv3d_kernel
@@ -74,6 +82,8 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 PKG = Path(rho_diffusion_tpu_torch.__file__).parent
 
+QUALITY_HARNESSES = (sampler_quality, ema_ablation, demo_min_snr, demo_cfg, sh_holdout,
+                     demo_distill, vit_ab, demo64)
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "rho_diffusion_tpu")
 # absent where the port runs, or imported only by the functions that need them
 ABSENT = BLOCKED + ("pydantic", "h5py", "matplotlib")
@@ -129,6 +139,10 @@ def test_entry_points_raise_without_cuda():
             train_main([str(ROOT / "examples" / "config_smoke.json"), *argv])
         with pytest.raises(RuntimeError, match="CUDA"):
             distill_main([str(ROOT / "examples" / "config_learned_variance.json"), *argv])
+        # the 3-D Y_lm quality harnesses
+        for harness in QUALITY_HARNESSES:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                harness.main(argv)
 
 
 def test_serve_and_mesh_raise_without_cuda():
