@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py [--phases env,build,kernels,main,main64,gauss,vlb,train,data,hold,serve,load,utils,int8,vit,diffusers,quality,timings,fp32,bench]
+    python3 chip_smoke.py [--phases env,build,kernels,main,main64,gauss,vlb,train,data,hold,serve,load,utils,int8,vit,diffusers,quality,quality_2d1d,timings,fp32,bench]
                           [--steps 25] [--samples 4] [--timing-batch 8]
 
 Builds the port's CUDA kernels from ``rho_diffusion_tpu_torch/csrc`` (and
@@ -64,7 +64,8 @@ weights loaded from a reference-layout ``.pth``):
   from seeded random weights, on the port's DeepGalaxyDataset and
   SpectroscopyDataset over files its writers (galaxy_synth, spectro_synth)
   write where the host has h5py, else on the same items built in memory
-  (``GalaxyFrames``, ``RotorSpectra``; the ``data_route`` line says which,
+  (``benchmarks._corpus``'s ``GalaxyFrames``, ``RotorSpectra``; the
+  ``data_route`` line says which,
   and whether the native Ylm library built); each then sampled through the
   inference CLI from the trained weights (DDPM, the schedule cut to 21
   steps; DeepGalaxy's 63 rows of its ``inference.parameter_space``), its
@@ -196,7 +197,22 @@ weights loaded from a reference-layout ``.pth``):
   64), the narrow forward and small backward at the ViT's D 32, T 64, the
   16^3 UNet's conv problems at batch 8 (forward and dgrad) and its int8
   convs and quantiser shapes (bitwise);
-* ``fp32``: the flagship in fp32 (a config whose ``training.dtype`` is
+* ``quality_2d1d``: the six 2-D/1-D quality harnesses through their
+  ``main`` at full width (the DeepGalaxy UNet at 128^2, width 32, batch 25
+  and 30; the Spectroscopy UNet at grid 1024, width 32, batch 16) on their
+  in-memory corpora (each rendered once), budgets cut (``CORPUS_RUNS``:
+  one or two epochs, every sampler capped at ``CORPUS_RUN_STEPS`` steps;
+  demo_galaxy2d in both recipes, galaxy_dc_probe on the reference run's
+  weights, spectro_rescore on demo_spectro1d's checkpoint, both
+  conditioners of demo_spectro_cond, demo_generalization's default one);
+  each report
+  must carry the JAX script's keys, finite samples and the memory route,
+  and each run's launches: K1 six a forward (wgmma, T 256 in 2-D, 128 in
+  1-D), the fused K3/K4 and its delta pre-pass once for each K1 launch of a
+  training forward, no dkv/dq pair; then each training harness's step
+  timed (CUDA events) beside its profiled device-busy time, and K1 and the
+  fused K3/K4 held and timed at their shapes (D 64: B*H 100 and 120 at T
+  256, 64 at T 128); the flagship in fp32 (a config whose ``training.dtype`` is
   float32): every distinct conv problem of a batch-8 forward and of a
   batch-32 step's dgrad (the 3xTF32 implicit GEMM where Cin % 4 == 0 and
   Cout > 1, its weight pre-pass, the direct kernel elsewhere), the flash
@@ -227,7 +243,12 @@ weights loaded from a reference-layout ``.pth``):
   and T = 4096 (``bench_flash_bwd_plans``); then the
   entry's two companions, K5 against cuDNN per shape
   (``conv3d_ab``) and per UNet level beside the equal-FLOP matmul
-  (``conv_profile``).
+  (``conv_profile``); the two phrasing studies at level 1 (``conv_zfold``:
+  K5, cuDNN, the z-fold, the 2-D decomposition, forward and with the input
+  gradient; ``conv_dimnum_sweep``: cuDNN's phrasings beside K5); and one
+  flagship forward in a child process under ``RHO_CONV3D_VIA_2D=1``, which
+  must launch neither conv kernel and hold each of its 3x3x3 convs against
+  K5 (or, strided, cuDNN) at the bf16 conv tolerance.
 
 Each path's launch counts are cleared just before it and read just after,
 and it fails if a kernel of the path never launched. ``hold`` holds one
@@ -258,7 +279,8 @@ phase prints one JSON line; a failing phase exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``, after the
 ``kernels`` line and the card's ``nvidia-smi`` name and power limit. A run
 whose ``--phases`` leave out any of kernels, main, main64, gauss, vlb,
-train, data, serve, load, utils, int8, vit, diffusers, quality, timings, fp32 and bench prints
+train, data, serve, load, utils, int8, vit, diffusers, quality, quality_2d1d, timings, fp32
+and bench prints
 neither and exits 3. The ``done`` line gives each phase's seconds.
 
 Exits non-zero without a result when CUDA is unavailable or the script runs
@@ -288,12 +310,12 @@ DEEP_GALAXY_CONFIG = ROOT / "examples" / "config_deep_galaxy.json"
 SPECTRO_CONFIG = ROOT / "examples" / "config_spectroscopy.json"
 QUALITY_CONFIG = ROOT / "examples" / "config_spherical_harmonics_quality.json"
 PHASES = ("env", "build", "kernels", "main", "main64", "gauss", "vlb", "train", "data", "hold",
-          "serve", "load", "utils", "int8", "vit", "diffusers", "quality", "timings", "fp32",
-          "bench")
+          "serve", "load", "utils", "int8", "vit", "diffusers", "quality", "quality_2d1d",
+          "timings", "fp32", "bench")
 # the phases whose numbers the kernels line carries
 KERNELS_LINE_PHASES = ("kernels", "main", "main64", "gauss", "vlb", "train", "data", "serve",
-                       "load", "utils", "int8", "vit", "diffusers", "quality", "timings", "fp32",
-                       "bench")
+                       "load", "utils", "int8", "vit", "diffusers", "quality", "quality_2d1d",
+                       "timings", "fp32", "bench")
 DEVICE = "cuda"
 # the train phase: the flagship's batch, and steps cut to five
 TRAIN_BATCH = 32
@@ -4091,13 +4113,120 @@ def phase_fp32(state: dict) -> None:
     fail_bad("fp32", rows)
 
 
+# the bench phase's forward under the study backend RHO_CONV3D_VIA_2D=1 (a
+# child process: the variable is read at import): the flagship UNet at
+# batch VIA_2D_BATCH, every 3x3x3 conv recorded and held against K5 (the
+# strided Downsample against cuDNN, the port's path for it); TF32 off, as
+# in this script
+VIA_2D_BATCH = 2
+VIA_2D_SEEDS = (11, 12)  # weights, inputs
+VIA_2D_CHILD = r"""
+import json, sys
+import torch
+import torch.nn.functional as F
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from rho_diffusion_tpu_torch.ops import convolution
+from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+from rho_diffusion_tpu_torch.ops.kernels.conv3d import conv3d
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+calls = []
+via = convolution.conv3d_via_2d
+def record(x, w, b, stride=(1, 1, 1)):
+    out = via(x, w, b, stride)
+    calls.append((x, w, b, tuple(stride), out))
+    return out
+convolution.conv3d_via_2d = record
+device = torch.device(sys.argv[6])
+unet = cs.build_unet(cs.flagship_config(25), torch.bfloat16, device, seed=int(sys.argv[3]))
+inputs = cs.unet_inputs(unet, int(sys.argv[4]), device, seed=int(sys.argv[5]))
+launch_counts.clear()
+with torch.no_grad():
+    out = unet(*inputs).float().cpu()
+counts = dict(launch_counts)
+holds = []
+with torch.no_grad():
+    for x, w, b, stride, got in calls:
+        if stride == (1, 1, 1):
+            want = conv3d(x, w, b)
+        else:
+            want = F.conv3d(x.movedim(-1, 1), w, b, stride=stride, padding=1).movedim(1, -1)
+        tol = cs.TOL_CONV_BF16 if x.dtype == torch.bfloat16 else cs.TOL_CONV_FP32
+        # the decomposition rounds each depth tap's partial sum to the dtype
+        # before adding them, so a result that cancels between taps carries
+        # the partials' rounding: its error is bounded by tol against the
+        # sum of |x| |w| over the taps, not against the result
+        mag = via(x.float().abs(), w.float().abs(), None if b is None else b.float().abs(),
+                  stride)
+        err = (got.float() - want.float()).abs()
+        holds.append({"x": list(x.shape), "cout": int(w.shape[0]), "stride": list(stride),
+                      "dtype": str(x.dtype).replace("torch.", ""),
+                      **cs.conv_error(got.float(), want.float(), tol),
+                      "err_over_tol_of_abs_sum": float((err / (tol * (1 + mag))).max())})
+torch.save(out, sys.argv[2])
+print(json.dumps({"flag": convolution.CONV3D_VIA_2D, "counts": counts, "holds": holds}))
+"""
+
+
+def via_2d_forward(device) -> dict:
+    """One flagship forward in a child process under RHO_CONV3D_VIA_2D=1:
+    its launches (no conv3d_igemm or conv3d_direct may run), each of its
+    3x3x3 convs held at the bf16 (fp32 for the head) conv tolerance against
+    its taps' sum of |x| |w| (the rounded partials; how many also meet it
+    against |want| is counted), and the whole forward against the K5 forward
+    of this process on the same weights and inputs: its relative MSE at most
+    HOLD_CAP["forward"] (the model hold's cap: bf16 differences of 47 convs
+    add up past the one-conv tolerance, which is reported beside it)."""
+    import os
+
+    import torch
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_via_2d_") as tmp:
+        out_path = Path(tmp) / "out.pt"
+        env = dict(os.environ, RHO_CONV3D_VIA_2D="1")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", VIA_2D_CHILD, str(ROOT), str(out_path),
+                            str(VIA_2D_SEEDS[0]), str(VIA_2D_BATCH), str(VIA_2D_SEEDS[1]),
+                            str(device)],
+                           env=env, capture_output=True, text=True, timeout=600, cwd=ROOT)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"the RHO_CONV3D_VIA_2D=1 forward failed: {r.stderr[-3000:]}")
+        child = json.loads(r.stdout.strip().splitlines()[-1])
+        via_out = torch.load(out_path)
+    unet = build_unet(flagship_config(25), torch.bfloat16, device, seed=VIA_2D_SEEDS[0])
+    with torch.no_grad():
+        k5_out = unet(*unet_inputs(unet, VIA_2D_BATCH, device, seed=VIA_2D_SEEDS[1]))
+    k5_out = k5_out.float().cpu()
+    del unet
+    torch.cuda.empty_cache()
+    forward = conv_error(via_out, k5_out, TOL_CONV_BF16)
+    out = {"child_wall_s": wall, "flag": child["flag"], "launches": child["counts"],
+           "convs": len(child["holds"]), "strided_convs": sum(h["stride"] != [1, 1, 1]
+                                                             for h in child["holds"]),
+           "worst_conv": max(child["holds"], key=lambda h: h["err_over_tol_of_abs_sum"]),
+           "convs_within_k5_conv_tol": sum(h["ok"] for h in child["holds"]),
+           "forward_vs_k5": forward, "forward_rel_mse_vs_k5": rel_mse(via_out, k5_out),
+           "forward_cap": HOLD_CAP["forward"]}
+    out["ok"] = bool(child["flag"] and not child["counts"].get("conv3d_igemm")
+                     and not child["counts"].get("conv3d_direct")
+                     and child["counts"].get("flash_attention")
+                     and all(h["err_over_tol_of_abs_sum"] <= 1 for h in child["holds"])
+                     and out["strided_convs"] > 0
+                     and out["forward_rel_mse_vs_k5"] <= HOLD_CAP["forward"])
+    return out
+
+
 def phase_bench(state: dict) -> None:
     """The bottleneck-isolation path: the variant entry's ``main`` with
     every variant (the counted run), then ``bench_rows``, then the
-    conv3d_ab and conv_profile entries."""
+    conv3d_ab and conv_profile entries, the phrasing studies at level 1 and
+    the forward under RHO_CONV3D_VIA_2D=1 (``via_2d_forward``)."""
     import torch
 
-    from rho_diffusion_tpu_torch.benchmarks import conv3d_ab, conv_profile
+    from rho_diffusion_tpu_torch.benchmarks import (
+        conv3d_ab, conv_dimnum_sweep, conv_profile, conv_zfold)
     from rho_diffusion_tpu_torch.benchmarks import conv3d_variants as cv
     from rho_diffusion_tpu_torch.ops.kernels import launch_counts
 
@@ -4121,11 +4250,20 @@ def phase_bench(state: dict) -> None:
     emit("bench_conv3d_ab", rows=conv3d_ab.main(["-d", DEVICE]))
     t2 = time.perf_counter()
     emit("bench_conv_profile", **conv_profile.main(["-d", DEVICE]))
+    t3 = time.perf_counter()
+    emit("bench_conv_zfold", rows=conv_zfold.main(["-d", DEVICE, "1"]))
+    emit("bench_conv_dimnum_sweep", rows=conv_dimnum_sweep.main(["-d", DEVICE, "1"]))
     torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+    via = via_2d_forward(device)
+    emit("bench_via_2d", **via)
     record_errors(state, rows)
     state["bench"] = rows
     emit("bench", seconds=time.perf_counter() - t0, variants_and_holds_s=t1 - t0,
-         conv3d_ab_s=t2 - t1, conv_profile_s=time.perf_counter() - t2)
+         conv3d_ab_s=t2 - t1, conv_profile_s=t3 - t2, phrasing_studies_s=t4 - t3,
+         via_2d_s=time.perf_counter() - t4)
+    if not via["ok"]:
+        fail(f"the RHO_CONV3D_VIA_2D=1 forward: {via}")
     missing = [name for name, _, _, path in KERNELS if path == "bench" and not counts.get(name)]
     if missing:
         fail(f"bench path never launched {missing}; counts {counts}")
@@ -4172,133 +4310,11 @@ DATA_CORPUS_NOTE = {
 }
 
 
-class GalaxyFrames:
-    """DeepGalaxyDataset's items, built in memory for a host without h5py:
-    the frames ``write_deep_galaxy_h5(path, **corpus)`` would write (each
-    (s, m, camera) stack from ``render_merger``, scaled to uint16 as the file
-    stores it), divided by the stack's max as the dataset loads them,
-    selected by the dataset kwargs' pattern, cameras (a list) and t_lim,
-    then ``default_transform``; labels the raw (s, m, t, c) rows. A CPU test
-    holds its items bitwise against DeepGalaxyDataset's on the written
-    file. Raw label rows only (the config's use_emb_as_labels false)."""
-
-    def __init__(self, kwargs: dict, s_values, m_values, cameras, size: int) -> None:
-        from concurrent.futures import ThreadPoolExecutor
-
-        import numpy as np
-
-        from rho_diffusion_tpu_torch.data.deep_galaxy import DeepGalaxyDataset, default_transform
-        from rho_diffusion_tpu_torch.data.galaxy_synth import T_MAX, T_MIN, render_merger
-
-        if kwargs.get("use_emb_as_labels", True):
-            raise ValueError("GalaxyFrames gives raw label rows: use_emb_as_labels false")
-        self.parameter_space = DeepGalaxyDataset.parameter_space
-        self.use_emb_as_labels = False
-        self.transform = default_transform
-        t_values = np.arange(T_MIN, T_MAX + 1, 5.0)
-        pattern = re.compile(kwargs.get("dset_name_pattern", "s_*"))
-        wanted = kwargs.get("camera_pos", (0,))
-        wanted = [wanted] if isinstance(wanted, int) else list(wanted)
-        t_lim = kwargs.get("t_lim")
-        keep = np.ones(t_values.shape, bool)
-        if t_lim is not None:
-            keep = (t_values >= np.min(t_lim)) & (t_values <= np.max(t_lim))
-        groups = sorted((f"s_{s:g}_m_{m:g}", s, m) for s in s_values for m in m_values)
-        images, labels = [], []
-        with ThreadPoolExecutor(max_workers=8) as pool:
-            for name, s, m in groups:
-                if not pattern.match(name):
-                    continue
-                for c in wanted:
-                    if c not in cameras:
-                        raise KeyError(f"camera {c} is not in the corpus {cameras}")
-                    stack = np.stack(list(pool.map(
-                        lambda t, s=s, m=m, c=c: render_merger(s, m, t, c, size=size),
-                        t_values)))
-                    stack = stack / stack.max() * 65535.0
-                    stack = stack.astype(np.uint16)
-                    stack = stack / np.max(stack)
-                    t_kept = t_values[keep]
-                    images.append(stack[keep])
-                    labels.append(np.stack([np.full(t_kept.shape, float(name.split("_")[1])),
-                                            np.full(t_kept.shape, float(name.split("_")[3])),
-                                            t_kept, np.full(t_kept.shape, c, dtype=np.int32)],
-                                           axis=1))
-        self.data = np.concatenate(images, axis=0)
-        self.labels = np.concatenate(labels, axis=0).astype(np.float32)
-
-    def __len__(self) -> int:
-        return self.data.shape[0]
-
-    def __getitem__(self, idx: int):
-        return self.transform(self.data[idx]), self.labels[idx]
-
-
-class RotorSpectra:
-    """SpectroscopyDataset's items, built in memory for a host without
-    h5py: the rotors ``write_rotor_spectra_h5(path, **corpus)`` would write
-    (their transitions as the dataset reads them, in float32), each item's
-    profile simulated with the dataset's own line shape and linewidth draw
-    (``SpectroscopyDataset.sample_linewidth``, a locked generator seeded
-    with the kwargs' seed). A CPU test holds its items bitwise against
-    SpectroscopyDataset's on the written file. The config is unconditional,
-    so it declares no parameter space."""
-
-    parameter_space = None
-
-    def __init__(self, kwargs: dict, n_molecules: int, seed: int) -> None:
-        import threading
-
-        import numpy as np
-
-        from rho_diffusion_tpu_torch.data.spectro_synth import rotor_transitions
-
-        self.frequency_grid = np.linspace(kwargs.get("min_freq") or 1000.0,
-                                          kwargs.get("max_freq") or 32000.0,
-                                          kwargs.get("grid_size", 50_000), dtype=np.float32)
-        rng = np.random.default_rng(seed)
-        self.transitions, self.params = [], []
-        for _ in range(n_molecules):
-            B = float(rng.uniform(250.0, 1500.0))
-            T = float(rng.uniform(2e5, 4e6))
-            D = float(rng.uniform(0.0, 1e-3) * B)
-            centers, log_int = rotor_transitions(B, T, D)
-            self.transitions.append(np.stack([centers, log_int]).astype(np.float32))
-            self.params.append(np.asarray([B, T, D, float(len(centers))], np.float32))
-        self._linewidth = kwargs.get("linewidth")
-        self._rng = np.random.default_rng(kwargs.get("seed", 0))
-        self._rng_lock = threading.Lock()
-
-    def __len__(self) -> int:
-        return len(self.transitions)
-
-    def sample_linewidth(self) -> float:
-        from rho_diffusion_tpu_torch.data.spectroscopy import SpectroscopyDataset
-
-        return SpectroscopyDataset.sample_linewidth(self)
-
-    def __getitem__(self, index: int) -> dict:
-        import numpy as np
-
-        from rho_diffusion_tpu_torch.data.spectroscopy import SpectroscopyDataset
-
-        centers, intensities = self.transitions[index]
-        intensities = np.clip(intensities, -10.0, -2.0)
-        profile = SpectroscopyDataset.simulate_lineprofile(
-            self.frequency_grid, centers, 10.0**intensities, self.sample_linewidth())
-        item = {"params": self.params[index],
-                "max_int": np.asarray([10.0 ** intensities.max()], np.float32)}
-        peak = profile.max()
-        if peak > 0:
-            profile = profile / peak
-        item["spectrum"] = profile.astype(np.float32)[:, None]
-        return item
-
-
 def data_dataset(key: str, cfg: dict, route: str, work: Path):
     """The config's dataset on this host's route: the class the config
     names on a file the port's writer wrote (``hdf5``, its path put into
     ``cfg``), or the in-memory items (``memory``)."""
+    from rho_diffusion_tpu_torch.benchmarks._corpus import GalaxyFrames, RotorSpectra
     from rho_diffusion_tpu_torch.data.galaxy_synth import write_deep_galaxy_h5
     from rho_diffusion_tpu_torch.data.spectro_synth import write_rotor_spectra_h5
     from rho_diffusion_tpu_torch.registry import registry
@@ -6811,6 +6827,194 @@ def phase_quality(state: dict) -> None:
         fail("quality: " + "; ".join(problems))
 
 
+# the quality_2d1d phase: the six 2-D/1-D harnesses with their budgets cut
+# (their knobs over the JAX scripts' defaults), every sampler capped at
+# CORPUS_RUN_STEPS steps (CORPUS_MAX_STEPS); the probe and the rescore read
+# the reference runs' directories
+CORPUS_RUN_STEPS = 10
+CORPUS_RUNS = (
+    ("demo_galaxy2d", {"DEMO_RECIPE": "reference", "DEMO_EPOCHS": "2"}),
+    ("demo_galaxy2d", {"DEMO_RECIPE": "zero_snr", "DEMO_EPOCHS": "2"}),
+    ("galaxy_dc_probe", {}),
+    ("demo_spectro1d", {"DEMO_EPOCHS": "2"}),
+    ("spectro_rescore", {}),
+    ("demo_generalization", {"GEN_COND": "fourier", "GEN_EPOCHS": "1"}),
+    ("demo_spectro_cond", {"SPECTRO_COND": "fourier", "SPECTRO_EPOCHS": "2"}),
+    ("demo_spectro_cond", {"SPECTRO_COND": "embed", "SPECTRO_EPOCHS": "2"}),
+)
+CORPUS_KNOBS = ("DEMO_", "GALAXY_", "RESCORE_", "GEN_", "SPECTRO_", "CORPUS_")
+# the flash forward's route and key length in each family's UNet (attention
+# at ds 8: 16^2 tokens of the 128^2 frames, 128 of the 1024-point spectra)
+CORPUS_ROUTES = {"galaxy": "wgmma Tk=256", "spectro": "wgmma Tk=128"}
+CORPUS_FWD_CALLS = 6  # attention blocks a forward: 2 encoder, the middle, 3 decoder
+CORPUS_ATTENTION = (((25, 256, 4, 64), "the DeepGalaxy UNet at batch 25"),
+                    ((30, 256, 4, 64), "the DeepGalaxy UNet at batch 30"),
+                    ((16, 128, 4, 64), "the Spectroscopy UNet at grid 1024, batch 16"))
+# the training harnesses whose step is timed: (module, its knobs)
+CORPUS_STEP_RUNS = (("demo_galaxy2d", {}), ("demo_spectro1d", {}),
+                    ("demo_generalization", {}), ("demo_spectro_cond", {}))
+CORPUS_CUTS = {
+    "budgets": [{"harness": name, **env} for name, env in CORPUS_RUNS],
+    "CORPUS_MAX_STEPS": f"{CORPUS_RUN_STEPS}: every sampler's steps (DDPM-500 and -1000, "
+                        "DDIM-100 and -50 among them) capped",
+    "widths": "as published: config_deep_galaxy.json (128^2, width 32, 4 heads of 64 at "
+              "ds 8) at batch 25 and 30, config_spectroscopy.json at grid 1024 (width 32) "
+              "at batch 16",
+    "demo_generalization": "its default conditioner (fourier) alone: embed is the config's "
+                           "MultiEmbeddings, which demo_galaxy2d's runs train; both are held "
+                           "on the CPU (tests/test_torch_corpus_slice.py)",
+}
+
+
+def corpus_kernel_rows(device) -> list:
+    """K1 and the fused K3/K4 at the 2-D/1-D harnesses' attention shapes
+    (CORPUS_ATTENTION), held against their plain versions and timed beside
+    SDPA (``flash_fwd_row``, ``flash_bwd_rows``); every row a variant."""
+    import torch
+
+    rows = []
+    for (b, t, h, d), what in CORPUS_ATTENTION:
+        per = f"one forward of {what} ({CORPUS_FWD_CALLS} attention calls)"
+        variant = f"{what}: T={t}, D={d}, B*H={b * h}"
+        rows.append(flash_fwd_row(b, t, h, d, CORPUS_FWD_CALLS, per, device, torch.bfloat16,
+                                  variant=variant))
+        rows += flash_bwd_rows(b, t, h, d, CORPUS_FWD_CALLS, per, device, torch.bfloat16,
+                               variant=variant)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def corpus_step_times(device) -> dict:
+    """Each training harness's step at its published width and batch, on
+    its in-memory corpus: CUDA-event time over 10 steps after 2, the
+    device's busy time of one profiled step, the card's state after."""
+    import importlib
+
+    import torch
+
+    from rho_diffusion_tpu_torch.benchmarks import _corpus
+    from rho_diffusion_tpu_torch.data.loader import DataLoader, to_device
+    from rho_diffusion_tpu_torch.training.trainer import build_pipeline_from_config
+
+    out = {}
+    for name, env in CORPUS_STEP_RUNS:
+        module = importlib.import_module(f"rho_diffusion_tpu_torch.benchmarks.{name}")
+        with bench_env(env, prefix=CORPUS_KNOBS):
+            s = module.settings()
+            cfg = module.config(s)
+        kwargs = cfg.dataset.kwargs
+        if name in ("demo_galaxy2d", "demo_generalization"):
+            dset = _corpus.GalaxyFrames(kwargs, **module.corpus(False))
+        else:
+            dset = _corpus.RotorSpectra(kwargs, n_molecules=s["molecules"], seed=0)
+        pipe = build_pipeline_from_config(cfg, dataset=dset, device=device)
+        state = pipe.create_state(cfg.training.seed)
+        b = cfg.training.batch_size
+        batch = to_device(next(iter(DataLoader(dset, batch_size=b, num_workers=0))), device)
+        ms = cuda_time_ms(lambda: pipe.training_step(state, batch), iters=10, warmup=2)
+        by_name = device_time_by_kernel(lambda: pipe.training_step(state, batch))
+        summary = profile_summary(by_name) if by_name else NOT_PROFILED
+        out[name] = {"batch": b, "pipeline": type(pipe).__name__, "step_ms": ms,
+                     "busy_ms": summary.get("busy_ms"), "launches": summary.get("launches"),
+                     "busy_share": summary["busy_ms"] / ms if by_name else None,
+                     "card": card_state()}
+        del pipe, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def corpus_launch_problems(name: str, counts: dict, routes: dict, trains: bool) -> list:
+    """What is wrong with one harness run's launches: K1 six a forward on its
+    family's route only, the fused backward and its pre-pass once for each
+    K1 launch of a training forward (none without training), no pair."""
+    fwd, bwd = counts.get("flash_attention", 0), counts.get("flash_attention_bwd", 0)
+    family = "galaxy" if "galaxy" in name or "generalization" in name else "spectro"
+    problems = []
+    if not fwd or fwd % CORPUS_FWD_CALLS:
+        problems.append(f"K1 launched {fwd} times, not a positive multiple of "
+                        f"{CORPUS_FWD_CALLS}")
+    if set(routes) != {CORPUS_ROUTES[family]}:
+        problems.append(f"flash routes {routes}, expected {CORPUS_ROUTES[family]} alone")
+    if bwd != counts.get("flash_attention_bwd_delta", 0) or bwd % CORPUS_FWD_CALLS \
+            or bwd >= fwd or (trains and not bwd) or (not trains and bwd):
+        problems.append(f"fused backward {bwd} and pre-pass "
+                        f"{counts.get('flash_attention_bwd_delta', 0)} against K1 {fwd}")
+    for pair in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        if counts.get(pair):
+            problems.append(f"{pair} launched {counts[pair]} times")
+    return problems
+
+
+def phase_quality_2d1d(state: dict) -> None:
+    """The six 2-D/1-D quality harnesses on the card through their entry
+    points, budgets cut (CORPUS_RUNS, CORPUS_RUN_STEPS): each report's keys,
+    its samples finite, its corpus built in memory (the card's host has no
+    h5py), its launches (``corpus_launch_problems``); then each training
+    harness's step timed and profiled, and K1 and the fused K3/K4 held and
+    timed at the harnesses' attention shapes."""
+    import importlib
+
+    import torch
+
+    from rho_diffusion_tpu_torch.benchmarks import _corpus
+    from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+
+    t0 = time.perf_counter()
+    total, runs, problems, seconds = {}, [], [], {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_quality_2d1d_"))
+    dirs = {"GALAXY_WORKDIR": str(tmp / "demo_galaxy2d" / "reference"),
+            "RESCORE_WORKDIR": str(tmp / "demo_spectro1d" / "reference")}
+    try:
+        for name, env in CORPUS_RUNS:
+            module = importlib.import_module(f"rho_diffusion_tpu_torch.benchmarks.{name}")
+            torch.cuda.empty_cache()
+            with bench_env({**env, **dirs, "CORPUS_MAX_STEPS": str(CORPUS_RUN_STEPS)},
+                           prefix=CORPUS_KNOBS):
+                report, wall, counts, routes = counted(lambda: module.main(
+                    ["-d", DEVICE, "--work-dir", str(tmp / name)]))
+            launch_counts.clear()
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
+            trains = report["train_steps_per_s"] is not None
+            flags = finite_flags(report)
+            missing = sorted(set(module.REPORT_KEYS) - set(report))
+            bad = corpus_launch_problems(name, counts, routes, trains)
+            if missing or not flags or not all(flags) or report["corpus_route"] != "memory":
+                bad.append(f"missing keys {missing}, finite {flags}, route "
+                           f"{report['corpus_route']}")
+            run = {"harness": name, "env": env, "wall_s": wall, "launches": counts,
+                   "flash_routes": routes, "train_steps_per_s": report["train_steps_per_s"],
+                   "corpus_route": report["corpus_route"],
+                   "quality": {k: report[k] for k in report if k not in (
+                       "device", "train_steps_per_s", "corpus_route", "finite", "plots",
+                       "trainer_dir", "weights")}}
+            runs.append(run)
+            seconds[f"{name} {' '.join(env.values())}".strip()] = wall
+            if bad:
+                problems.append(f"{name} {env}: " + "; ".join(bad))
+            emit("quality_2d1d_run", **run)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    state["quality_2d1d_launches"] = total
+    device = torch.device(DEVICE)
+    t1 = time.perf_counter()
+    try:
+        steps = corpus_step_times(device)  # on the corpora the runs rendered
+    finally:
+        _corpus.clear_cache()
+    seconds["step_times"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rows = corpus_kernel_rows(device)
+    seconds["kernel_rows"] = time.perf_counter() - t1
+    record_errors(state, rows)
+    state["quality_2d1d"] = [r for r in rows if r.get("calls")]
+    emit("quality_2d1d", launches=total, steps=steps, kernel_rows=rows, cuts=CORPUS_CUTS,
+         seconds=seconds, wall_s=time.perf_counter() - t0)
+    fail_bad("quality_2d1d", rows)
+    if problems:
+        fail("quality_2d1d: " + "; ".join(problems))
+
+
 KERNELS = (
     # K5's implicit GEMM: the kernel in conv3d_wgmma.cuh, its launcher in conv3d.cu
     ("conv3d_igemm", "conv3d_wgmma.cuh", "rho_diffusion_tpu/ops/pallas/conv3d.py:102",
@@ -6963,12 +7167,13 @@ def kernels_line(state: dict) -> list:
                 "int8_1d": state["int8_1d_launches"], "int8_s2": state["int8_s2_launches"],
                 **state["gauss_launches"], **state["vlb_launches"], **state["data_launches"],
                 **state["utils_launches"], **state["vit_launches"],
-                **state["diffusers_launches"], "quality": state["quality_launches"]}
+                **state["diffusers_launches"], "quality": state["quality_launches"],
+                "quality_2d1d": state["quality_2d1d_launches"]}
     out = []
     for name, source, replaces, path in KERNELS:
         rows = [r for r in state["timings"] + state["bench"] + state["fp32"] + state["data"]
                 + state["vlb"] + state["int8"] + state["vit"] + state["diffusers"]
-                + state["quality"]
+                + state["quality"] + state["quality_2d1d"]
                 if r["kernel"] == name and r.get("calls")]
         main = [r for r in rows if not r["variant"]]
         accuracy = state["err"][name]
@@ -7175,6 +7380,7 @@ def main(argv=None) -> int:
     run("vit", phase_vit)
     run("diffusers", phase_diffusers)
     run("quality", phase_quality)
+    run("quality_2d1d", phase_quality_2d1d)
     run("timings", phase_timings, args.timing_batch)
     run("fp32", phase_fp32)
     run("bench", phase_bench)

@@ -274,11 +274,13 @@ def timed(fn, device) -> tuple:
     return out, time.perf_counter() - t0
 
 
-def parse(name: str, doc: str, argv=None):
+def parse(name: str, doc: str, argv=None, **extra):
     """The harnesses' ``-d cuda|cpu`` and ``--work-dir`` (default
-    ``build/<name>``); prints and returns the device line too."""
+    ``build/<name>``), and ``extra`` arguments as ``parse_device`` takes
+    them; prints and returns the device line too."""
     args = parse_device(doc, argv, **{"--work-dir": {"type": Path,
-                                                     "default": REPO / "build" / name}})
+                                                     "default": REPO / "build" / name}},
+                        **extra)
     args.device_line = device_line(args.device)
     print(args.device_line, flush=True)
     return args

@@ -133,7 +133,11 @@ def export_unet_state_dict(
     out["time_embed.2.bias"] = params["time_dense_1"]["bias"]
 
     for name, sub in params.get("cond_fn", {}).items():
-        out[f"cond_fn.embedding_layers.{name[len('embedding_'):]}.weight"] = sub["embedding"]
+        if name.startswith("embedding_"):  # MultiEmbeddings' tables
+            out[f"cond_fn.embedding_layers.{name[len('embedding_'):]}.weight"] = sub["embedding"]
+        else:  # FourierConditioning's Dense layers
+            out[f"cond_fn.{name}.weight"] = _torch_linear(sub["kernel"])
+            out[f"cond_fn.{name}.bias"] = sub["bias"]
 
     out["input_blocks.0.0.weight"] = _torch_conv(params["conv_in"]["kernel"])
     out["input_blocks.0.0.bias"] = params["conv_in"]["bias"]

@@ -21,10 +21,16 @@ use, so a reference ``state_dict`` loads unchanged.
   ``conv_nd`` checks it before its backends: quantisation is an explicit
   request and must win over the float kernels. ``Linear`` (the time MLP and
   the ResBlocks' emb_layers) stays float, as in JAX.
+* ``RHO_CONV3D_VIA_2D=1`` (read at import, as JAX reads it) sends every
+  3x3x3 SAME float conv with z-stride 1, the (1, 2, 2) Downsample among
+  them, through ``conv3d_via_2d`` (JAX's ``Conv3dVia2d``: three batched
+  ``F.conv2d`` calls summed), in place of the conv3d route: a study backend
+  the caller asks for. int8 still wins over it, as in JAX.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -35,6 +41,8 @@ from rho_diffusion_tpu_torch.ops import quant
 from rho_diffusion_tpu_torch.ops.kernels.conv3d import conv3d
 
 _CONV3D_BACKEND = "auto"
+# JAX's ops/convolution.py:27-28: the batched 2-D decomposition, a study backend
+CONV3D_VIA_2D = os.environ.get("RHO_CONV3D_VIA_2D") == "1"
 
 
 def set_conv3d_backend(mode: str) -> None:
@@ -99,6 +107,9 @@ class ConvNd(nn.Module):
     def conv_float(self, x: torch.Tensor, w: torch.Tensor,
                    b: Optional[torch.Tensor]) -> torch.Tensor:
         """The float conv of x and w (and b, when given) in their dtype."""
+        if (CONV3D_VIA_2D and self.dims == 3 and self.kernel_size == 3
+                and self.padding == "SAME" and self.stride[0] == 1):
+            return conv3d_via_2d(x, w, b, self.stride)
         if (
             self.dims == 3 and self.kernel_size == 3 and self.padding == "SAME"
             and self.stride == (1, 1, 1)
@@ -116,6 +127,28 @@ class ConvNd(nn.Module):
 
 
 conv_nd = ConvNd  # the JAX package's name for the factory
+
+
+def conv3d_via_2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                  stride: Sequence[int] = (1, 1, 1)) -> torch.Tensor:
+    """A 3x3x3 conv of [B, D, H, W, Cin] as three batched 2-D convs summed
+    (JAX's ``Conv3dVia2d``, ops/convolution.py:262-300): with (B, D) folded
+    into the batch, out[:, d] = sum over dz of conv2d(x[:, d + dz - 1],
+    w[:, :, dz]), padding 1 each side in every spatial dim (torch's k // 2,
+    also for the strided (1, 2, 2) Downsample), then the bias. ``w`` keeps
+    the [Cout, Cin, 3, 3, 3] layout, so checkpoints are interchangeable. The
+    z-stride must be 1."""
+    if int(stride[0]) != 1:
+        raise ValueError(f"z-stride must be 1 for the 2d decomposition, got {tuple(stride)}")
+    bsz, d, h, wd, cin = x.shape
+    xp = F.pad(x, (0, 0, 0, 0, 0, 0, 1, 1))
+    out = None
+    for dz in range(3):
+        xs = xp[:, dz:dz + d].reshape(bsz * d, h, wd, cin).movedim(-1, 1)
+        o = F.conv2d(xs, w[:, :, dz], None, stride=tuple(stride[1:]), padding=1)
+        out = o if out is None else out + o
+    out = out.movedim(1, -1).reshape(bsz, d, out.shape[2], out.shape[3], w.shape[0])
+    return out if b is None else out + b
 
 
 class Conv1x1(nn.Module):

@@ -12,8 +12,9 @@ Mirrors tests/data/test_datasets.py and tests/data/test_wrappers_parsing.py:
   MNIST idx and CIFAR-10 pickle fixtures, ``Density``'s ``normalize``,
   ``marginalize`` and ``sample`` (with a seeded generator), the DeepGalaxy
   transform pieces and the registry names, each bitwise against JAX;
-* chip_smoke.py's in-memory items (its route on a host without h5py)
-  bitwise against the port's dataset classes on the written files.
+* the in-memory items of ``benchmarks._corpus`` (chip_smoke.py's and the
+  2-D/1-D harnesses' route on a host without h5py) bitwise against the
+  port's dataset classes on the written files.
 """
 import gzip
 import json
@@ -24,7 +25,6 @@ import h5py
 import numpy as np
 import pytest
 
-import chip_smoke
 from rho_diffusion_tpu.data import base as jax_base
 from rho_diffusion_tpu.data import deep_galaxy as jax_deep_galaxy
 from rho_diffusion_tpu.data import galaxy_synth as jax_galaxy_synth
@@ -44,6 +44,7 @@ from rho_diffusion_tpu_torch.data import (
     SphericalHarmonicDataset,
     UnivariateDataset,
 )
+from rho_diffusion_tpu_torch.benchmarks import _corpus
 from rho_diffusion_tpu_torch.data import deep_galaxy, galaxy_synth, spectro_synth
 from rho_diffusion_tpu_torch.registry import registry
 
@@ -274,15 +275,16 @@ def test_transform_pieces_match_jax():
 
 
 def test_chip_smoke_galaxy_frames_are_the_datasets_items(tmp_path):
-    """chip_smoke's items on a host without h5py (``GalaxyFrames``: the
-    frames rendered and quantised in memory) against DeepGalaxyDataset on
+    """The items of a host without h5py (``benchmarks._corpus.GalaxyFrames``,
+    which chip_smoke's data phase uses: the frames rendered and quantised in
+    memory) against DeepGalaxyDataset on
     the file the port's writer writes from the same corpus, with the
     config's dataset kwargs."""
     corpus = dict(s_values=(0.25, 1.0), m_values=(1.0,), cameras=(0,), size=64)
     kwargs = json.loads((ROOT / "examples" / "config_deep_galaxy.json").read_text())["dataset"][
         "kwargs"]
     path = galaxy_synth.write_deep_galaxy_h5(str(tmp_path / "g.h5"), **corpus)
-    frames = chip_smoke.GalaxyFrames(kwargs, **corpus)
+    frames = _corpus.GalaxyFrames(kwargs, **corpus)
     dataset = DeepGalaxyDataset(**{**kwargs, "path": path})
     assert len(frames) == 2 * 25
     assert_items_equal(frames, dataset)
@@ -290,13 +292,14 @@ def test_chip_smoke_galaxy_frames_are_the_datasets_items(tmp_path):
 
 
 def test_chip_smoke_rotor_spectra_are_the_datasets_items(tmp_path):
-    """chip_smoke's ``RotorSpectra`` against SpectroscopyDataset on the
+    """``benchmarks._corpus.RotorSpectra`` (chip_smoke's data phase's)
+    against SpectroscopyDataset on the
     file the port's writer writes from the same corpus (the config's
     4096-point grid; items read in order, as the widths are drawn in
     order)."""
     kwargs = json.loads((ROOT / "examples" / "config_spectroscopy.json").read_text())["dataset"][
         "kwargs"]
     path = spectro_synth.write_rotor_spectra_h5(str(tmp_path / "s.h5"), n_molecules=5, seed=2)
-    spectra = chip_smoke.RotorSpectra(kwargs, n_molecules=5, seed=2)
+    spectra = _corpus.RotorSpectra(kwargs, n_molecules=5, seed=2)
     assert_items_equal(spectra, SpectroscopyDataset(**{**kwargs, "h5_path": path}))
     assert spectra[0]["spectrum"].shape == (4096, 1)
