@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py [--phases env,build,kernels,main,main64,gauss,vlb,train,data,hold,serve,load,utils,int8,vit,diffusers,quality,quality_2d1d,timings,fp32,bench]
+    python3 chip_smoke.py [--phases env,build,kernels,main,main64,gauss,vlb,train,data,hold,
+                                    serve,multichip,load,utils,int8,vit,diffusers,quality,
+                                    quality_2d1d,timings,fp32,bench]
                           [--steps 25] [--samples 4] [--timing-batch 8]
 
 Builds the port's CUDA kernels from ``rho_diffusion_tpu_torch/csrc`` (and
@@ -25,14 +27,14 @@ weights loaded from a reference-layout ``.pth``):
   batch 8, and its train mode at batch 32; its JSON lines inside the
   phase's), the inference CLI on ``examples/config_learned_variance.json``
   (16^3, learned_range variance, attention over 256 tokens at head dim 64,
-  its 'ddpm' sampler respaced to 50 steps, 16 samples) and the service
-  (``serve.build_server`` on that config, ``--sampler ddim --steps 50``,
+  its 'ddpm' sampler respaced to 25 steps, 16 samples) and the service
+  (``serve.build_server`` on that config, ``--sampler ddim --steps 25``,
   buckets 1 and 8, a request of each over HTTP, a row alone against
   co-batched); held against the fp32 plain model: a flagship DDIM-50
   sample at batch 2 from one x_T, the learned-variance UNet's kernels at
   the CLI's batch-16 shapes (every conv, the Cout=2 fp32 head among them,
   and K1 at 256 tokens, D = 64), its forward per output channel (mean and
-  variance) and its 'ddpm' sample with per-row keys, and a served DDIM-50
+  variance) and its 'ddpm' sample with per-row keys, and a served DDIM-25
   sample; and per path the wall time, the UNet
   forward's share of a step, the sampler arithmetic's own device time per
   step (dynamic thresholding's torch.quantile included) and the device's
@@ -78,13 +80,32 @@ weights loaded from a reference-layout ``.pth``):
   T = 256 and 512);
 * ``serve``: the sampling service through ``rho_diffusion_tpu_torch.serve``'s
   ``build_server`` under a ("data", "context") mesh of 4 context ranks on
-  the card, with ``RHO_RING_ATTN_IMPL=rdma``, so every attention call runs
-  the ring with the kernel K6; buckets 1, 2, 4, 8 warmed up, three requests
-  over HTTP (n = 1, 3 and 11, the last split across launches), a request
-  alone against the same request co-batched, a sample held against the
-  fp32 plain model with the plain ring, and a single-rank service (the
-  flash kernel's route) against the ring service, bucket-1 latencies of
-  both, and a profiled bucket-8 request (its device busy share);
+  the card, each sampling a depth slab of the volume (every 3x3x3 conv on
+  8 + 2 planes), with ``RHO_RING_ATTN_IMPL=rdma``, so every attention call
+  runs the ring over the slabs' tokens with the kernel K6; DDPM cut to 21
+  steps (the fewest its betas allow), buckets 1, 4, 8, three requests over
+  HTTP (n = 1, 3 and 11, the last split across launches), a request alone
+  against the same request co-batched, a sample held against the fp32
+  plain model with the plain ring, a single-rank service (the flash
+  kernel's route) against the ring service, bucket-1 latencies of both
+  (the ring's cold and warm, the single rank's warm), a profiled bucket-8
+  request (its device busy share), and a data 2 x context
+  2 service (two replicas, each a ring of two slabs) against the ring
+  service;
+* ``multichip``: ``examples/config_multichip.json`` at full width through
+  the ``Trainer`` on a data 4 x context 2 mesh of 8 ranks on the card
+  (``zero1`` and ``spatial_sharding`` as configured, lr x sqrt(8), batch
+  cut 64 -> 32, 3 steps, the checkpoint read back by a resuming
+  ``Trainer``): every 3x3x3 conv on an 18-plane slab, each (shape, route)
+  the fit gave K5 and the direct conv held against its plain version, each
+  rank's ZeRO-1 moments a quarter of every leaf that splits; the sharded
+  step held against the one-rank step (batch 8, the same weights and
+  draws; loss, grad norm, update and EMA: bf16 by 3x its bf16 spread, fp32
+  by JAX's 2e-5 on the loss and 1e-3 on the update and EMA, every fp32
+  leaf by 3x its own bf16 spread); Ulysses at the
+  flagship's attention shape over 2 and 4 ranks against full attention,
+  one K1 and one fused K3/K4 launch a rank, no SDPA kernel; the step time,
+  busy share and peak memory of the 8 ranks together;
 * ``load``: the serving load harness
   (``rho_diffusion_tpu_torch.benchmarks.serve_bench``) at its defaults: its
   service (32^3 UNetv2 at full width, bf16, DDIM-50, buckets 1 and 8) over
@@ -279,8 +300,8 @@ phase prints one JSON line; a failing phase exits
 non-zero. The last line is ``{"ok": true, "device": {...}}``, after the
 ``kernels`` line and the card's ``nvidia-smi`` name and power limit. A run
 whose ``--phases`` leave out any of kernels, main, main64, gauss, vlb,
-train, data, serve, load, utils, int8, vit, diffusers, quality, quality_2d1d, timings, fp32
-and bench prints
+train, data, serve, multichip, load, utils, int8, vit, diffusers, quality,
+quality_2d1d, timings, fp32 and bench prints
 neither and exits 3. The ``done`` line gives each phase's seconds.
 
 Exits non-zero without a result when CUDA is unavailable or the script runs
@@ -310,19 +331,25 @@ DEEP_GALAXY_CONFIG = ROOT / "examples" / "config_deep_galaxy.json"
 SPECTRO_CONFIG = ROOT / "examples" / "config_spectroscopy.json"
 QUALITY_CONFIG = ROOT / "examples" / "config_spherical_harmonics_quality.json"
 PHASES = ("env", "build", "kernels", "main", "main64", "gauss", "vlb", "train", "data", "hold",
-          "serve", "load", "utils", "int8", "vit", "diffusers", "quality", "quality_2d1d",
-          "timings", "fp32", "bench")
+          "serve", "multichip", "load", "utils", "int8", "vit", "diffusers", "quality",
+          "quality_2d1d", "timings", "fp32", "bench")
 # the phases whose numbers the kernels line carries
 KERNELS_LINE_PHASES = ("kernels", "main", "main64", "gauss", "vlb", "train", "data", "serve",
-                       "load", "utils", "int8", "vit", "diffusers", "quality", "quality_2d1d",
-                       "timings", "fp32", "bench")
+                       "multichip", "load", "utils", "int8", "vit", "diffusers", "quality",
+                       "quality_2d1d", "timings", "fp32", "bench")
 DEVICE = "cuda"
 # the train phase: the flagship's batch, and steps cut to five
 TRAIN_BATCH = 32
 TRAIN_STEPS = 5
 # the serve phase: context ranks of the ring, all on one card, and buckets
+# (bucket 2 left out since the ring service samples depth slabs, which
+# multiplies its launches by the ranks: each bucket's warm-up is a sample)
 SERVE_CONTEXT = 4
-SERVE_BUCKETS = (1, 2, 4, 8)
+SERVE_BUCKETS = (1, 4, 8)
+# the serve phase's DDPM: the fewest steps its betas allow (the 1000-step
+# linear betas scaled by 1000/T stay below 1 from 21): the depth-sharded
+# ring service costs its ranks' launches a step
+SERVE_STEPS = 21
 # the 64^3 config's level-0 conv input at batch 1 (64 -> 64 channels)
 LEVEL0_64 = (1, 64, 64, 64, 64)
 # the main64 phase: the fewest steps at which the 64^3 config's linear betas
@@ -350,6 +377,10 @@ GAUSS_BENCH_RUNS = (
     ("train", {"BENCH_MODE": "train"}),
 )
 GAUSS_STEPS = 50
+# the CLI's and the service's respaced steps, cut 50 -> 25 to keep the
+# script inside its time limit beside the multichip and depth-sharded serve
+# phases
+GAUSS_CLI_STEPS = 25
 GAUSS_BUCKETS = (1, 8)
 GAUSS_HOLD_BATCH = 2
 # the steps of a sampler loop whose device time is read as the arithmetic's
@@ -2006,7 +2037,7 @@ def phase_gauss(state: dict) -> None:
 
         # (b) the inference CLI
         out, cli_s, counts, fr = counted(lambda: inference.main(
-            [str(cfg_path), "-p", str(pth), "-d", DEVICE, "-f", "--steps", str(GAUSS_STEPS),
+            [str(cfg_path), "-p", str(pth), "-d", DEVICE, "-f", "--steps", str(GAUSS_CLI_STEPS),
              "--work-dir", str(tmp)]))
         launches["gauss_cli"], routes["gauss_cli"] = counts, fr
         mk = cfg["model"]["kwargs"]
@@ -2015,7 +2046,7 @@ def phase_gauss(state: dict) -> None:
         sampler = cfg["inference"]["sampler"]
         cli = {"config": GAUSS_CONFIG.name, "cuts": GAUSS_CUTS, "shape": list(out.shape),
                "finite": bool(np.isfinite(out).all()), "sampler": sampler,
-               "steps": GAUSS_STEPS, "wall_s": cli_s, "launches": counts, "flash_routes": fr,
+               "steps": GAUSS_CLI_STEPS, "wall_s": cli_s, "launches": counts, "flash_routes": fr,
                "sample_mean": float(out.mean()), "sample_std": float(out.std())}
         missing = [k for k in ("flash_attention", "conv3d_igemm", "conv3d_direct")
                    if not counts.get(k)]
@@ -2049,7 +2080,7 @@ def phase_gauss(state: dict) -> None:
             return {"forward_mean_channel": f[..., 0], "forward_variance_channel": f[..., 1],
                     "sample": p.reverse_process(
                         p.sample_shape(GAUSS_HOLD_BATCH), conds_h, sampler=sampler,
-                        num_steps=GAUSS_STEPS, row_keys=per_sample_keys(7, GAUSS_HOLD_BATCH))}
+                        num_steps=GAUSS_CLI_STEPS, row_keys=per_sample_keys(7, GAUSS_HOLD_BATCH))}
 
         got = lv_outputs(lv)
         with plain_backends():
@@ -2057,21 +2088,21 @@ def phase_gauss(state: dict) -> None:
         caps = {"forward_mean_channel": HOLD_CAP["forward"],
                 "forward_variance_channel": HOLD_CAP["forward"], "sample": HOLD_CAP["sample"]}
         cli["hold"] = {**hold_rows(got, plain_bf16, plain_fp32, caps),
-                       "batch": GAUSS_HOLD_BATCH, "sampler": sampler, "steps": GAUSS_STEPS}
+                       "batch": GAUSS_HOLD_BATCH, "sampler": sampler, "steps": GAUSS_CLI_STEPS}
         bad = [k for k in caps if not cli["hold"][k]["ok"]]
         if bad:
             problems.append(f"CLI hold {bad}: {cli['hold']}")
         del got, plain_bf16, plain_fp32
         conds_cli = torch.from_numpy(serve_conditions(space_cfg, n_cli, 0)).to(device)
         cli["breakdown"] = sampling_breakdown(lv, lv.sample_shape(n_cli), conds_cli, sampler,
-                                              GAUSS_STEPS)
+                                              GAUSS_CLI_STEPS)
         seconds["cli"] = time.perf_counter() - t0 - sum(seconds.values())
         t_svc = time.perf_counter()
 
         # (c) the service over HTTP
         argv = [str(cfg_path), "-p", str(pth), "-d", DEVICE, "--port", "0", "--buckets",
                 ",".join(map(str, GAUSS_BUCKETS)), "--sampler", "ddim", "--steps",
-                str(GAUSS_STEPS), "--warmup", "--work-dir", str(tmp)]
+                str(GAUSS_CLI_STEPS), "--warmup", "--work-dir", str(tmp)]
         (server, service), build_s, warm_counts, _ = counted(
             lambda: serve.build_server(argv, log=messages.append))
         thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -2111,7 +2142,7 @@ def phase_gauss(state: dict) -> None:
             conds8 = serve_conditions(space_cfg, 8, 50)
             bucket8 = sampling_breakdown(
                 lv, lv.sample_shape(8), torch.from_numpy(conds8).to(device), "ddim",
-                GAUSS_STEPS, sample=lambda: service.generate(conds8, seed=9))
+                GAUSS_CLI_STEPS, sample=lambda: service.generate(conds8, seed=9))
         finally:
             server.shutdown()
             server.server_close()
@@ -2120,7 +2151,7 @@ def phase_gauss(state: dict) -> None:
         with plain_backends():
             plain_bf16, plain_fp32 = ({"sample": pl.reverse_process(
                 pl.sample_shape(2), torch.from_numpy(conds2).to(device), sampler="ddim",
-                num_steps=GAUSS_STEPS, row_keys=per_sample_keys(8, 2)).float().cpu()}
+                num_steps=GAUSS_CLI_STEPS, row_keys=per_sample_keys(8, 2)).float().cpu()}
                 for pl in (lv, lv32))
         sample_hold = {**hold_rows({"sample": torch.from_numpy(served)}, plain_bf16, plain_fp32,
                                    HOLD_CAP)["sample"], "batch": 2}
@@ -2129,7 +2160,7 @@ def phase_gauss(state: dict) -> None:
                 "max_abs_diff": float(np.abs(alone.samples - co.samples).max()),
                 "rel_mse": rel_mse(co.samples, alone.samples), "bar": bar,
                 "check": "relative MSE of the co-batched row against the alone one"}
-        svc = {"buckets": GAUSS_BUCKETS, "sampler": "ddim", "steps": GAUSS_STEPS,
+        svc = {"buckets": GAUSS_BUCKETS, "sampler": "ddim", "steps": GAUSS_CLI_STEPS,
                "build_and_warmup_s": build_s, "warmup_launches": warm_counts,
                "requests": reqs, "launches": counts, "flash_routes": fr,
                "latency_s": latency, "alone_vs_cobatched": same, "sample_hold": sample_hold,
@@ -2167,7 +2198,7 @@ def phase_gauss(state: dict) -> None:
 # VLB_HOLD_T; the attention of the config's training step (B, T, H, D)
 VLB_LENGTH = 256
 VLB_EVAL_BATCHES = 1
-VLB_STEPS = 50
+VLB_STEPS = 25  # cut from 50 for the script's time limit
 VLB_RESAMPLE = 2
 VLB_INPAINT_ROWS = 8
 VLB_ENCODE_ROWS = 4
@@ -2846,8 +2877,8 @@ def phase_hold(state: dict) -> None:
 
 
 SERVE_CUTS = {
-    "noise_schedule.kwargs.num_steps": "1000 -> 25 (random weights; the sampler's loop is "
-                                       "the same at any length)",
+    "noise_schedule.kwargs.num_steps": f"1000 -> {SERVE_STEPS} (random weights; the "
+                                       "sampler's loop is the same at any length)",
     "inference.cache_file, plot_output_file, checkpoint": "-> none (weights through -p)",
 }
 
@@ -2886,22 +2917,26 @@ def http_call(port: int, method: str, path: str, body=None) -> dict:
     return reply
 
 
-def serve_argv(cfg_path: Path, pth: Path, work: Path, buckets, ring: bool) -> list:
+def serve_argv(cfg_path: Path, pth: Path, work: Path, buckets, ring: bool,
+               data: int = 1, context: int = SERVE_CONTEXT) -> list:
     argv = [str(cfg_path), "-p", str(pth), "-d", DEVICE, "--port", "0", "--cond-dim", "256",
             "--buckets", ",".join(map(str, buckets)), "--work-dir", str(work)]
     if ring:
-        argv += ["--warmup", "--context-parallel", str(SERVE_CONTEXT),
-                 "--mesh-devices", ",".join([f"{DEVICE}:0"] * SERVE_CONTEXT)]
+        argv += ["--data-parallel", str(data), "--context-parallel", str(context),
+                 "--mesh-devices", ",".join([f"{DEVICE}:0"] * (data * context))]
     return argv
 
 
 def phase_serve(state: dict, steps: int) -> None:
     """The sampling service through ``serve.build_server`` on the full-width
-    flagship under a context mesh of SERVE_CONTEXT ranks on the card, K6's
-    ring in every attention call: warm-up, three HTTP requests, /stats, a
-    request alone against co-batched, a sample hold against the fp32 plain
-    model with the plain ring, and a single-rank service against the ring
-    service."""
+    flagship under a context mesh of SERVE_CONTEXT ranks on the card: the
+    volume's depth split over them (every 3x3x3 conv on a slab of 32 /
+    SERVE_CONTEXT + 2 planes), K6's ring over the slabs' tokens in every
+    attention call (no warm-up: the first request runs cold): three HTTP
+    requests, /stats, a request alone
+    against co-batched, a sample hold against the fp32 plain model with the
+    plain ring, a single-rank service against the ring service, and a data
+    2 x context 2 service (two replicas, each a ring of 2) against it."""
     import os
     import threading
 
@@ -2910,6 +2945,7 @@ def phase_serve(state: dict, steps: int) -> None:
 
     from rho_diffusion_tpu_torch import serve
     from rho_diffusion_tpu_torch.diffusion.sampling_rng import per_sample_keys
+    from rho_diffusion_tpu_torch.ops.convolution import record_conv_inputs
     from rho_diffusion_tpu_torch.ops.kernels import launch_counts
     from rho_diffusion_tpu_torch.parallel import active_mesh
 
@@ -2941,10 +2977,17 @@ def phase_serve(state: dict, steps: int) -> None:
             requests = []
             for n, seed in ((1, 1), (3, 2), (11, 3)):
                 t2 = time.perf_counter()
-                reply = http_call(port, "POST", "/generate",
-                                  {"conditions": serve_conditions(cfg, n, seed).tolist(),
-                                   "seed": seed})
+                before = dict(launch_counts)
+                with record_conv_inputs() as shapes:
+                    reply = http_call(port, "POST", "/generate",
+                                      {"conditions": serve_conditions(cfg, n, seed).tolist(),
+                                       "seed": seed})
                 arr = np.asarray(reply["samples"], np.float32)
+                if n == 1:  # the first request: one row, alone, bucket 1
+                    alone, alone_bucket = arr, reply["bucket"]
+                    depths = sorted({x[1] for x in shapes})
+                    per_request = {k: v - before.get(k, 0) for k, v in launch_counts.items()
+                                   if v > before.get(k, 0)}
                 requests.append({
                     "n": n, "seed": seed, "shape": reply["shape"], "bucket": reply["bucket"],
                     "latency_s": reply["latency_s"], "http_s": time.perf_counter() - t2,
@@ -2956,24 +2999,19 @@ def phase_serve(state: dict, steps: int) -> None:
             counts = dict(launch_counts)
             peak = torch.cuda.max_memory_allocated()
 
-            # one request alone, then the same request co-batched with
-            # another behind a full launch that keeps the worker busy
+            # the first request's row alone, then the same row co-batched with
+            # others behind a full launch that keeps the worker busy
             conds4 = serve_conditions(cfg, 4, 20)
-            before = dict(launch_counts)
-            alone = service.generate(conds4[:1], seed=5)
-            per_request = {k: v - before.get(k, 0) for k, v in launch_counts.items()
-                           if v > before.get(k, 0)}
-            ring_b1 = [alone.latency_s] + [service.generate(conds4[:1], seed=5).latency_s
-                                           for _ in range(2)]
+            ring_cold = requests[0]["latency_s"]  # the service's first request, cold
             busy = service.submit(serve_conditions(cfg, 8, 30), seed=6)
-            mine = service.submit(conds4[:1], seed=5)
+            mine = service.submit(serve_conditions(cfg, 1, 1), seed=1)
             other = service.submit(conds4[1:], seed=7)
             busy.result()
             other.result()
             co = mine.result()
-            same = {"alone_bucket": alone.bucket, "cobatched_bucket": co.bucket,
-                    "max_abs_diff": float(np.abs(alone.samples - co.samples).max()),
-                    "rel_mse": rel_mse(co.samples, alone.samples),
+            same = {"alone_bucket": alone_bucket, "cobatched_bucket": co.bucket,
+                    "max_abs_diff": float(np.abs(alone - co.samples).max()),
+                    "rel_mse": rel_mse(co.samples, alone),
                     "check": "relative MSE of the co-batched rows against the alone ones"}
 
             # a 25-step batch-2 sample of the ring service against the plain
@@ -2996,12 +3034,13 @@ def phase_serve(state: dict, steps: int) -> None:
                     "batch": 2}
             same["bar"] = bar
 
-            # one bucket-8 request: its host-clock time, then profiled
+            # one bucket-8 request, profiled: its host-clock time (the
+            # profiler's own cost in it, so the busy share reads low; no
+            # unprofiled twin, for the script's time limit)
             conds8 = serve_conditions(cfg, 8, 50)
             t3 = time.perf_counter()
-            service.generate(conds8, seed=9)
-            bucket8_s = time.perf_counter() - t3
             by_name = device_time_by_kernel(lambda: service.generate(conds8, seed=9))
+            bucket8_s = time.perf_counter() - t3
             bucket8 = {"request_s": bucket8_s, **NOT_PROFILED}
             if by_name:
                 bucket8 = {"request_s": bucket8_s, **profile_summary(by_name)}
@@ -3009,6 +3048,8 @@ def phase_serve(state: dict, steps: int) -> None:
                     device_busy_share=bucket8["busy_ms"] / 1e3 / bucket8_s,
                     ring_attention_ms=sum(ms for name, (ms, _) in by_name.items()
                                           if CUDA_KERNEL["ring_attention"] in name))
+            # a warm bucket-1 request: the row the single-rank service times below
+            ring_warm = service.generate(conds4[:1], seed=5).latency_s
         finally:
             server.shutdown()
             server.server_close()
@@ -3031,10 +3072,31 @@ def phase_serve(state: dict, steps: int) -> None:
         single_vs_ring = {"rel_mse": rel_mse(got, flat),
                           "max_abs_diff": float(np.abs(got - flat).max()),
                           "bar": bar, "launches": single_launches}
-        bucket1 = {"ring_latency_s": ring_b1, "single_rank_latency_s": single_b1,
-                   "ring_over_single_rank": min(ring_b1) / min(single_b1),
-                   "of": "one 25-step request of one row, enqueue to fulfilment; the "
-                         "single-rank service's first call is its warm-up and is left out"}
+
+        # data 2 x context 2: each launch's rows over two replicas, each a ring of 2
+        before = dict(launch_counts)
+        server2, dp = serve.build_server(serve_argv(cfg_path, pth, tmp, (2,), True, 2, 2),
+                                         log=messages.append)
+        server2.server_close()
+        try:
+            with record_conv_inputs() as shapes2:
+                dp_rows = dp.generate(conds2, seed=8).samples
+            dp_mesh = dp.stats()["mesh"]
+        finally:
+            dp.close()
+        dp_launches = {k: v - before.get(k, 0) for k, v in launch_counts.items()
+                       if v > before.get(k, 0)}
+        data2 = {"mesh": dp_mesh, "rel_mse_vs_data1": rel_mse(dp_rows, got),
+                 "max_abs_diff": float(np.abs(dp_rows - got).max()), "bar": bar,
+                 "conv3x3x3_input_depths": sorted({x[1] for x in shapes2}),
+                 "launches": dp_launches}
+        bucket1 = {"ring_cold_latency_s": ring_cold, "ring_warm_latency_s": ring_warm,
+                   "single_rank_latency_s": single_b1,
+                   "ring_over_single_rank": ring_warm / min(single_b1),
+                   "of": f"one {steps}-step request of one row, enqueue to fulfilment; the "
+                         "ring's cold one is the service's first launch, its warm one "
+                         "follows the bucket-8 request; the ratio is warm over warm (the "
+                         "single-rank service's first call is its warm-up, left out)"}
     finally:
         if impl_before is None:
             os.environ.pop("RHO_RING_ATTN_IMPL", None)
@@ -3051,6 +3113,7 @@ def phase_serve(state: dict, steps: int) -> None:
          bucket8_request=bucket8,
          bucket8_device_busy_share=bucket8.get("device_busy_share", NOT_PROFILED["status"]),
          bucket1_request=bucket1, single_rank_vs_ring=single_vs_ring, messages=messages,
+         conv3x3x3_input_depths=depths, data2_context2_vs_data1=data2,
          ring_service_s=ring_s,
          seconds=time.perf_counter() - t0)
     problems = []
@@ -3069,8 +3132,370 @@ def phase_serve(state: dict, steps: int) -> None:
     if not single_launches.get("flash_attention") or single_launches.get("ring_attention") or \
             not single_vs_ring["rel_mse"] <= bar:
         problems.append(f"single-rank service: {single_vs_ring}")
+    depth = cfg["model"]["kwargs"]["data_shape"][0]
+    if depths != [depth // SERVE_CONTEXT + 2]:
+        problems.append(f"the ring service's 3x3x3 convs saw depths {depths}")
+    if (data2["mesh"] != {"data": 2, "context": 2} or not data2["rel_mse_vs_data1"] <= bar
+            or data2["conv3x3x3_input_depths"] != [depth // 2 + 2]
+            or not dp_launches.get("ring_attention") or dp_launches.get("flash_attention")):
+        problems.append(f"data 2 x context 2 service: {data2}")
     if problems:
         fail("serve: " + "; ".join(problems))
+
+
+MULTICHIP_CONFIG = ROOT / "examples" / "config_multichip.json"
+# the multichip phase: config_multichip.json's mesh (data 4 x context 2) as
+# 8 ranks on the one card, its batch cut from 64 to 32 (all eight ranks'
+# activations share one card; 64 rows of 32^3 at width 64 are the voxels of
+# the 64^3 config at batch 8, which peaked at 71.6 GB), a few steps; the
+# sharded step held against the one-rank step at a batch of 8; Ulysses at
+# the flagship's attention shape over 2 and 4 ranks
+MULTICHIP_MESH = (4, 2)
+MULTICHIP_BATCH = 32
+MULTICHIP_STEPS = 3
+MULTICHIP_HOLD_BATCH = 8
+MULTICHIP_ULYSSES = (8, 512, 4, 128)  # a data rank's rows at batch 32, T, heads, head dim
+MULTICHIP_CAP = {"train_loss": 1e-2, "grad_norm": 0.1, "update": 0.5, "ema": 0.5}
+# fp32: the loss at JAX's bar (tests/parallel/test_parallel.py:211), the rest
+# at the fp32 kernels' (3xTF32) gradient bar and ten times it
+MULTICHIP_FP32 = {"train_loss": 2e-5, "grad_norm": 1e-4, "update": 1e-3, "ema": 1e-3}
+MULTICHIP_CUTS = {
+    "training.batch_size": f"64 -> {MULTICHIP_BATCH} (8 ranks' activations share one card)",
+    "dataset.kwargs.length": f"default -> {MULTICHIP_STEPS} * batch",
+    "training.max_epochs": "1000 -> 1",
+    "training.save_checkpoint_every_n_epochs": "10 -> 1",
+    "training.log_every_n_steps": "50 -> 1",
+    "training.loggers": "stdout, jsonl -> jsonl",
+    "inference.cache_file, plot_output_file, checkpoint": "-> none",
+}
+SDPA_KERNELS = ("pytorch_flash", "fmha", "efficient_attention", "flash_fwd_kernel<Flash",
+                "cudnn_generated_fort_native_sdpa")
+
+
+def multichip_config(batch: int, dtype: str = "bfloat16") -> dict:
+    cfg = json.loads(MULTICHIP_CONFIG.read_text())
+    cfg["dataset"]["kwargs"]["length"] = MULTICHIP_STEPS * batch
+    cfg["training"].update(batch_size=batch, max_epochs=1, save_checkpoint_every_n_epochs=1,
+                           log_every_n_steps=1, loggers=["jsonl"], dtype=dtype)
+    cfg["inference"].update(cache_file=None, plot_output_file=None, checkpoint=None)
+    return cfg
+
+
+def multichip_pipeline(cfg: dict, dtype: str, device, world_size: int):
+    from rho_diffusion_tpu_torch.config import ExperimentConfig
+    from rho_diffusion_tpu_torch.data.synthetic import SphericalHarmonicDataset
+    from rho_diffusion_tpu_torch.training.trainer import build_pipeline_from_config
+
+    config = ExperimentConfig.from_dict(json.loads(json.dumps(cfg)))
+    config.model.kwargs["dtype"] = dtype
+    dataset = SphericalHarmonicDataset(**config.dataset.kwargs)
+    return build_pipeline_from_config(config, dataset=dataset, device=device,
+                                      world_size=world_size, seed=0)
+
+
+def multichip_step_hold(cfg: dict, sd: dict, batch: dict, draws: dict, mesh, device) -> dict:
+    """One step of the one-rank pipeline (bf16 and fp32) and of the
+    sharded one (the mesh, spatial_sharding and zero1; bf16 and fp32) from
+    the weights ``sd`` and the same draws: loss, grad norm, the parameters'
+    update and the EMA's move (ZeRO-1's ``ShardedEMA`` gathered), whole and
+    leaf by leaf."""
+    import torch
+
+    from rho_diffusion_tpu_torch.data.loader import to_device
+    from rho_diffusion_tpu_torch.parallel.mesh import (
+        active_mesh, batch_sharding, replicate_state, shard_batch, shard_opt_state_zero1)
+
+    out = {}
+    for name, dtype, sharded in (("one_bf16", "bfloat16", False), ("one_fp32", "float32", False),
+                                 ("mesh_bf16", "bfloat16", True), ("mesh_fp32", "float32", True)):
+        pipe = multichip_pipeline(cfg, dtype, device, world_size=8)
+        pipe.load_state_dict(sd)
+        st = pipe.create_state(seed=0)
+        if sharded:
+            shard_opt_state_zero1(replicate_state(st, mesh), mesh)
+            placed = shard_batch(batch, mesh, {"data": batch_sharding(mesh, spatial=True)})
+            with active_mesh(mesh):
+                m = pipe.training_step(st, placed, **draws)
+        else:
+            m = pipe.training_step(st, to_device(batch, device), **draws)
+        leaves = {k: p.detach().float().cpu() - sd[k] for k, p in st.model.state_dict().items()}
+        ema = {k: st.ema[k].detach().float().cpu() - sd[k] for k in st.ema}
+        out[name] = {"train_loss": float(m["train_loss"]), "grad_norm": float(m["grad_norm"]),
+                     "update": torch.cat([v.ravel() for v in leaves.values()]),
+                     "ema": torch.cat([ema[k].ravel() for k in leaves]),
+                     "leaves": leaves, "ema_leaves": ema}
+        del pipe, st
+        torch.cuda.empty_cache()
+    return out
+
+
+def same_optimizer_state(a: dict, b: dict) -> bool:
+    """Two optimizer ``state_dict``s hold bitwise the same state."""
+    import torch
+
+    return a["state"].keys() == b["state"].keys() and all(
+        torch.equal(x, b["state"][i][k]) if hasattr(x, "shape") else x == b["state"][i][k]
+        for i, st in a["state"].items() for k, x in st.items())
+
+
+def rel(a, b) -> float:
+    """|a - b| / |b| of numbers, or the relative L2 of tensors."""
+    if hasattr(a, "norm"):
+        return float((a - b).norm() / b.norm())
+    return abs(a - b) / abs(b)
+
+
+def leaf_hold(mesh: dict, one: dict, one_bf16: dict) -> dict:
+    """The chip_smoke hold rule leaf by leaf: each leaf's fp32 sharded update
+    (or EMA move) against the fp32 one-rank one, within HOLD_FACTOR times
+    that leaf's own bf16 spread (the bf16 one-rank step's against the fp32
+    one) or the fp32 update's bar, whichever is larger. A leaf that never
+    updates, or takes another rank's slice, is off by about 1, so it fails
+    wherever its spread is under 1 / HOLD_FACTOR (``leaves_covered`` counts
+    those); a leaf whose gradient is rounding noise (AdamW scales it up to
+    the learning rate) has a spread near 1 or more and passes. Returns the
+    leaf with the largest ratio of its distance to its bar."""
+    floor = MULTICHIP_FP32["update"]
+    worst = {"ratio": 0.0}
+    covered = 0
+    for k, w in one.items():
+        if not w.any():  # it moves in no step: it must not move here
+            ratio = math.inf if mesh[k].any() else 0.0
+            got = spread = 0.0
+        else:
+            got, spread = rel(mesh[k], w), rel(one_bf16[k], w)
+            covered += HOLD_FACTOR * spread < 1
+            ratio = got / max(HOLD_FACTOR * spread, floor)
+        if not ratio <= worst["ratio"]:  # NaN counts as the worst
+            worst = {"ratio": ratio, "leaf": k, "rel_l2": got, "bf16_spread": spread}
+    return {**worst, "leaves": len(one), "leaves_covered": covered, "ok": worst["ratio"] <= 1}
+
+
+def slab_conv_rows(calls, device) -> list:
+    """K5 (forward and dgrad) and the direct conv at every distinct problem
+    the multichip fit launched them at (its 18-plane slabs), from the
+    launches ``direct_conv_calls`` recorded: each held against its fp32
+    plain version on the same seeded inputs, with its launches in the fit."""
+    problems: dict = {}
+    for call in calls:
+        (xs, dt), (ws, _) = call[0], call[1]
+        kind = "dgrad" if len(call) > 3 and call[3] == "conv3d_dgrad" else "forward"
+        key = (kind, (xs, ws[0], dt))
+        problems[key] = problems.get(key, 0) + 1
+    rows = []
+    for i, ((kind, key), n) in enumerate(sorted(problems.items(), key=lambda kv: str(kv[0]))):
+        row = hold_conv(kind, key, device, 900 + 3 * i)
+        rows.append({**row, "variant": f"the multichip fit's {kind} on a slab of {key[0][1]} "
+                                       "planes", "launches_in_fit": n})
+    return rows
+
+
+def ulysses_hold(context: int, device) -> dict:
+    """Ulysses over ``context`` ranks on the card at the flagship's
+    attention shape (bf16), forward and backward: against fp32 full
+    attention, its launches (one K1 and one fused K3/K4 a rank) and the
+    profiled kernels (no SDPA)."""
+    import torch
+
+    from rho_diffusion_tpu_torch.ops.attention import xla_attention
+    from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+    from rho_diffusion_tpu_torch.parallel.mesh import make_mesh
+    from rho_diffusion_tpu_torch.parallel.ulysses import ulysses_sharded_attention
+
+    b, t, h, d = MULTICHIP_ULYSSES
+    q, k, v, do = (randn((b, t, h, d), 40 + i, device, torch.bfloat16) for i in range(4))
+    mesh = make_mesh(1, context, devices=[DEVICE] * context)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+
+    def run():
+        o = ulysses_sharded_attention(*leaves, mesh)
+        return o, torch.autograd.grad(o, leaves, do)
+
+    before = dict(launch_counts)
+    out, grads = run()
+    torch.cuda.synchronize()
+    counts = {n: c - before.get(n, 0) for n, c in launch_counts.items() if c > before.get(n, 0)}
+    ref = [x.float().requires_grad_() for x in (q, k, v)]
+    want = xla_attention(*ref)
+    want_grads = torch.autograd.grad(want, ref, do.float())
+    fwd = flash_error(out, want, TOL_FLASH["bfloat16"])
+    bwd = [flash_error(g, w, TOL_FLASH_BWD["bfloat16"]) for g, w in zip(grads, want_grads)]
+    names = list(device_time_by_kernel(run))
+    return {"context": context, "shape": [b, t, h, d], "launches": counts, "forward": fwd,
+            "gradients": dict(zip(("dq", "dk", "dv"), bwd)),
+            "sdpa_kernels": [n[:90] for n in names if any(s in n for s in SDPA_KERNELS)],
+            "profiled_kernels": len(names),
+            "ok": (fwd["ok"] and all(e["ok"] for e in bwd)
+                   and counts.get("flash_attention") == context
+                   and counts.get("flash_attention_bwd") == context)}
+
+
+def phase_multichip(state: dict) -> None:
+    """``examples/config_multichip.json`` end to end at full width: the
+    port's ``Trainer`` with ``mesh=make_mesh(4, 2, devices=["cuda"] * 8)``
+    (8 ranks on the one card), ``zero1`` and ``spatial_sharding`` as
+    configured, lr x sqrt(8), MULTICHIP_STEPS steps at MULTICHIP_BATCH, the
+    checkpoint read back by a resuming Trainer; every 3x3x3 conv's input
+    recorded (a slab of 16 + 2 planes, never 32); each rank's ZeRO-1
+    moments 1/4 of every leaf that splits; the sharded step against the
+    one-rank step; Ulysses at context 2 and 4."""
+    import numpy as np
+    import torch
+
+    from rho_diffusion_tpu_torch.config import ExperimentConfig
+    from rho_diffusion_tpu_torch.data.loader import DataLoader
+    from rho_diffusion_tpu_torch.data.synthetic import SphericalHarmonicDataset
+    from rho_diffusion_tpu_torch.ops.convolution import record_conv_inputs
+    from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+    from rho_diffusion_tpu_torch.parallel.mesh import active_mesh, make_mesh, shard_batch
+    from rho_diffusion_tpu_torch.training.trainer import Trainer
+
+    device = torch.device(DEVICE)
+    data, context = MULTICHIP_MESH
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_multichip_"))
+    t0 = time.perf_counter()
+    try:
+        cfg = multichip_config(MULTICHIP_BATCH)
+        config = ExperimentConfig.from_dict(cfg)
+        mesh = make_mesh(data, context, devices=[DEVICE] * (data * context))
+        work = tmp / "run"
+        trainer = Trainer(config, work_dir=work, device=DEVICE, mesh=mesh)
+        lr = trainer.pipeline.optimizer.lr(0)
+        st = trainer.init_state()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launch_counts.clear()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with record_conv_inputs() as shapes, direct_conv_calls() as conv_calls:
+            st = trainer.fit(st)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t1
+        counts = dict(launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        records = [json.loads(x) for x in (work / "metrics.jsonl").read_text().splitlines()]
+        steps = [r for r in records if "train_loss" in r]
+        losses = [r["train_loss"] for r in steps]
+        step_s = [r["step_s"] for r in steps if "step_s" in r]
+        depths = sorted({s[1] for s in shapes})
+        zero = st.optimizer
+        quarter = [
+            all(zero.shard_state(d)[zero.names[p]][key].numel() * data == p.numel()
+                and zero.shard_state(d)[zero.names[p]][key].device == mesh.devices[d][0]
+                for p, _ in zero.sharded for key in ("exp_avg", "exp_avg_sq"))
+            for d in range(data)]
+        split_leaves, whole_leaves = len(zero.sharded), len(zero.whole)
+
+        # the checkpoint read back: a resuming Trainer over the same mesh
+        again = Trainer(config, work_dir=work, device=DEVICE, mesh=mesh)
+        back = again.init_state()
+        read_back = {
+            "step": int(back.step),
+            "params_bitwise": all(torch.equal(p, back.model.state_dict()[k])
+                                  for k, p in st.model.state_dict().items()),
+            "ema_bitwise": all(torch.equal(st.ema[k], back.ema[k]) for k in st.ema),
+            "moments_bitwise": same_optimizer_state(st.optimizer.state_dict(),
+                                                    back.optimizer.state_dict()),
+            "zero1": type(back.optimizer).__name__}
+        del again, back
+
+        # one more step, profiled: its device time over the fit's median step
+        # time is the device's busy share
+        loader = DataLoader(trainer.dataset, MULTICHIP_BATCH, seed=1)
+        placed = shard_batch(next(iter(loader)), mesh, trainer.data_sharding)
+        with active_mesh(mesh):
+            by_name = device_time_by_kernel(lambda: trainer.pipeline.training_step(st, placed))
+        del st, trainer
+        torch.cuda.empty_cache()
+
+        # the fit's conv kernels at the slab shapes it gave them, against plain
+        conv_rows = slab_conv_rows(conv_calls.calls, device)
+        torch.cuda.empty_cache()
+
+        # the sharded step against the one-rank step, same weights and draws
+        hold_cfg = multichip_config(MULTICHIP_HOLD_BATCH)
+        sd = random_state_dict(multichip_pipeline(hold_cfg, "float32", "cpu", 8).backbone, 0)
+        hold_data = SphericalHarmonicDataset(**hold_cfg["dataset"]["kwargs"])
+        hold_batch = next(iter(DataLoader(hold_data, MULTICHIP_HOLD_BATCH, seed=2)))
+        gen = torch.Generator().manual_seed(3)
+        shape = hold_batch["data"].shape
+        draws = {"t": torch.randint(0, 1000, (shape[0],), generator=gen).to(device),
+                 "noise": torch.randn(shape, generator=gen).to(device)}
+        steps_held = multichip_step_hold(hold_cfg, sd, hold_batch, draws, mesh, device)
+        ulysses = [ulysses_hold(n, device) for n in (2, 4)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    record_errors(state, conv_rows)
+    hold = {}
+    for key in ("train_loss", "grad_norm", "update", "ema"):
+        spread = rel(steps_held["one_bf16"][key], steps_held["one_fp32"][key])
+        bar = min(HOLD_FACTOR * spread, MULTICHIP_CAP[key])
+        got = rel(steps_held["mesh_bf16"][key], steps_held["one_bf16"][key])
+        hold[key] = {"mesh_vs_one_rank_bf16": got, "bf16_vs_fp32_one_rank": spread, "bar": bar,
+                     "ok": got <= bar}
+    fp32 = {key: {"mesh_vs_one_rank_fp32": rel(steps_held["mesh_fp32"][key],
+                                                steps_held["one_fp32"][key]),
+                  "bar": bar} for key, bar in MULTICHIP_FP32.items()}
+    for row in fp32.values():
+        row["ok"] = row["mesh_vs_one_rank_fp32"] <= row["bar"]
+    for key, leaves in (("update_worst_leaf", "leaves"), ("ema_worst_leaf", "ema_leaves")):
+        fp32[key] = leaf_hold(steps_held["mesh_fp32"][leaves], steps_held["one_fp32"][leaves],
+                              steps_held["one_bf16"][leaves])
+    after_first = step_s[1:]
+    median = float(np.median(after_first)) if after_first else None
+    profiled = profiled_step(by_name, median)
+    state["multichip_launches"] = counts
+    emit("multichip", mesh={"data": data, "context": context},
+         ranks_on_one_card=data * context, batch=MULTICHIP_BATCH, steps=len(steps),
+         cuts=MULTICHIP_CUTS, lr=lr, lr_expected=1e-4 * math.sqrt(data * context),
+         losses=losses, step_s=step_s, median_step_s_after_first=median,
+         samples_per_s=MULTICHIP_BATCH / median if median else None, fit_s=fit_s,
+         profiled_step=profiled,
+         device_busy_share=profiled.get("device_busy_share", NOT_PROFILED["status"]),
+         max_memory_allocated=peak, launches=counts,
+         conv3x3x3_input_depths=depths, conv3x3x3_calls=len(shapes),
+         zero1_quarter_per_rank=quarter, zero1_split_leaves=split_leaves,
+         zero1_whole_leaves=whole_leaves, checkpoint_read_back=read_back,
+         sharded_vs_one_rank_bf16=hold, sharded_vs_one_rank_fp32=fp32,
+         hold_batch=MULTICHIP_HOLD_BATCH, ulysses=ulysses, slab_conv_rows=conv_rows,
+         note="all 8 ranks share one card: times and memory are the 8 ranks' together",
+         nvidia_smi=state.get("smi") or nvidia_smi_line(), seconds=time.perf_counter() - t0)
+    problems = []
+    if len(steps) != MULTICHIP_STEPS or not all(np.isfinite(losses)):
+        problems.append(f"{len(steps)} logged steps, losses {losses}")
+    slab = cfg["model"]["kwargs"]["data_shape"][0] // context + 2
+    if depths != [slab]:
+        problems.append(f"3x3x3 convs saw depths {depths}, not only {slab}")
+    if not all(quarter) or not split_leaves:
+        problems.append(f"ZeRO-1 moments per rank: {quarter} over {split_leaves} split leaves")
+    if abs(lr - 1e-4 * math.sqrt(data * context)) > 1e-12:
+        problems.append(f"lr {lr} is not 1e-4 * sqrt(8)")
+    missing = [k for k in ("conv3d_igemm", "conv3d_dgrad_igemm", "conv3d_direct",
+                           "conv3d_dgrad_direct") if not counts.get(k)]
+    if missing:
+        problems.append(f"the sharded step never launched {missing}; counts {counts}")
+    if not (read_back["step"] == MULTICHIP_STEPS and read_back["params_bitwise"]
+            and read_back["ema_bitwise"] and read_back["moments_bitwise"]
+            and read_back["zero1"] == "Zero1Optimizer"):
+        problems.append(f"checkpoint read back: {read_back}")
+    if not all(h["ok"] for h in hold.values()) or not all(r["ok"] for r in fp32.values()):
+        problems.append(f"sharded vs one-rank step: bf16 {hold}, fp32 {fp32}")
+    for u in ulysses:
+        if not u["ok"] or u["sdpa_kernels"]:
+            problems.append(f"Ulysses: {u}")
+    unheld = {"conv3d_igemm", "conv3d_dgrad_igemm", "conv3d_direct",
+              "conv3d_dgrad_direct"} - {r["kernel"] for r in conv_rows}
+    if unheld:
+        problems.append(f"no slab hold of {sorted(unheld)}")
+    if any(r["x"][1] != slab for r in conv_rows):
+        problems.append(f"slab holds off the 18-plane slabs: {[r['x'] for r in conv_rows]}")
+    bad = [r for r in conv_rows if not r["ok"]]
+    if bad:
+        problems.append(f"{len(bad)} slab conv hold(s) outside tolerance: {bad[:3]}")
+    if problems:
+        fail("multichip: " + "; ".join(problems))
 
 
 def conv_cost(key) -> tuple[float, float, int]:
@@ -3931,8 +4356,8 @@ def split_total(rows: list, variant, per: str) -> dict:
 def fp32_ring_request() -> tuple[dict, dict]:
     """One request to the service on the fp32 flagship (``training.dtype``
     float32) under a context mesh of SERVE_CONTEXT ranks on the card, with
-    ``RHO_RING_ATTN_IMPL=rdma``: its result and the launches of the build
-    (bucket 1 warmed up) and the request."""
+    ``RHO_RING_ATTN_IMPL=rdma`` (each rank sampling its depth slab): its
+    result and the launches of the build and the request."""
     import os
     import threading
 
@@ -4286,11 +4711,11 @@ DATA_TRAIN_STEPS = 6
 DATA_SAMPLE_STEPS = 21
 DATA_HOLD_BATCH = 2
 QUALITY_EPOCHS = 1
-# the bench entry's realdata mode without and with the device cache, in turns
+# the bench entry's realdata mode without and with the device cache, one run each
 REALDATA_RUNS = (("host", {"BENCH_MODE": "realdata"}),
                  ("device_cache", {"BENCH_MODE": "realdata", "BENCH_DEVICE_CACHE": "1"}))
 # the timed steps of the two profiled runs of each realdata mode
-REALDATA_PROFILE_STEPS = (5, 15)
+REALDATA_PROFILE_STEPS = (3, 9)  # cut from (5, 15) for the script's time limit
 DATA_CUTS = {
     "training.max_epochs": f"-> whole epochs to at least {DATA_TRAIN_STEPS} steps "
                            "(Trainer.fit(max_epochs=N))",
@@ -4591,8 +5016,8 @@ def run_quality_cache(work: Path, device) -> dict:
 
 def realdata_bench(device) -> dict:
     """The bench entry in realdata mode without and with
-    BENCH_DEVICE_CACHE=1, in turns (host, cache, cache, host), each run's
-    steps/s and launches; then each mode profiled at REALDATA_PROFILE_STEPS
+    BENCH_DEVICE_CACHE=1 (host, then cache, once each for the script's time
+    limit), each run's steps/s and launches; then each mode profiled at REALDATA_PROFILE_STEPS
     timed steps: the difference of two runs' device time over the
     difference of their steps is the device time of a steady step (the
     warm-up, the pipeline's build and the dataset's materialisation cancel),
@@ -4620,7 +5045,7 @@ def realdata_bench(device) -> dict:
                 "stderr": err.getvalue().strip()}
 
     runs = {name: [] for name, _ in REALDATA_RUNS}
-    for name, env in REALDATA_RUNS + REALDATA_RUNS[::-1]:
+    for name, env in REALDATA_RUNS:
         runs[name].append(run_bench(env, False))
     out = {}
     for name, env in REALDATA_RUNS:
@@ -4820,7 +5245,7 @@ REMAT_HOLD_BATCH = 2
 REMAT_HOLD_GRID = 64
 OPTIMIZER_LR = {"Adamax": 1e-3, "NAdam": 1e-3, "RAdam": 1e-3, "RMSprop": 1e-3, "Adagrad": 1e-2,
                 "Adadelta": 1.0, "Adafactor": 1e-2, "Lion": 1e-3, "LAMB": 1e-3, "LARS": 1.0}
-OPTIMIZER_STEPS = 3
+OPTIMIZER_STEPS = 2  # cut from 3 for the script's time limit
 OPTIMIZER_BAR = 1e-3
 PROFILE_STEPS = 2
 
@@ -5396,7 +5821,7 @@ def int8_forward_times(cfg: dict, sd: dict, batch: int, device) -> dict:
 
 
 def int8_serve_load(device) -> dict:
-    """``benchmarks.serve_bench`` at its defaults under bf16 and under int8
+    """``benchmarks.serve_bench`` at half its defaults' depth under bf16 and under int8
     (SERVE_QUANT=int8), on the same seeded random weights (the ``load``
     phase's), one after the other; each run's p50, volumes/s, occupancy,
     load-phase launches and busy share, and its kernel launches."""
@@ -5408,7 +5833,11 @@ def int8_serve_load(device) -> dict:
 
     runs = {}
     sd = None
-    for name, env in (("bf16", {}), ("int8", {"SERVE_QUANT": "int8"})):
+    # half the load phase's depth (DDIM-25, 4 latency and 16 concurrent
+    # requests, for the script's time limit): the two runs compare with
+    # each other
+    cut = {"SERVE_STEPS": "25", "SERVE_NLAT": "4", "SERVE_NLOAD": "16"}
+    for name, env in (("bf16", cut), ("int8", {**cut, "SERVE_QUANT": "int8"})):
         with bench_env(env, prefix="SERVE_"):
             s = serve_bench.settings()
         if sd is None:
@@ -6635,7 +7064,7 @@ def phase_diffusers(state: dict) -> None:
 # the quality phase: each 3-D Y_lm harness with its budget cut (its knobs
 # over the JAX script's defaults), and every sampler capped at
 # QUALITY_MAX_STEPS steps (YLM_MAX_STEPS)
-QUALITY_MAX_STEPS = 10
+QUALITY_MAX_STEPS = 3  # cut from 10 for the script's time limit
 QUALITY_RUNS = (
     ("sampler_quality", {"QUAL_STEPS": "20"}),
     ("ema_ablation", {"EMA_STEPS": "20"}),
@@ -6831,14 +7260,14 @@ def phase_quality(state: dict) -> None:
 # (their knobs over the JAX scripts' defaults), every sampler capped at
 # CORPUS_RUN_STEPS steps (CORPUS_MAX_STEPS); the probe and the rescore read
 # the reference runs' directories
-CORPUS_RUN_STEPS = 10
+CORPUS_RUN_STEPS = 3  # cut from 10 for the script's time limit
 CORPUS_RUNS = (
     ("demo_galaxy2d", {"DEMO_RECIPE": "reference", "DEMO_EPOCHS": "2"}),
     ("demo_galaxy2d", {"DEMO_RECIPE": "zero_snr", "DEMO_EPOCHS": "2"}),
     ("galaxy_dc_probe", {}),
     ("demo_spectro1d", {"DEMO_EPOCHS": "2"}),
     ("spectro_rescore", {}),
-    ("demo_generalization", {"GEN_COND": "fourier", "GEN_EPOCHS": "1"}),
+    ("demo_generalization", {"GEN_COND": "fourier", "GEN_EPOCHS": "1", "GEN_BATCH": "90"}),
     ("demo_spectro_cond", {"SPECTRO_COND": "fourier", "SPECTRO_EPOCHS": "2"}),
     ("demo_spectro_cond", {"SPECTRO_COND": "embed", "SPECTRO_EPOCHS": "2"}),
 )
@@ -6849,6 +7278,8 @@ CORPUS_ROUTES = {"galaxy": "wgmma Tk=256", "spectro": "wgmma Tk=128"}
 CORPUS_FWD_CALLS = 6  # attention blocks a forward: 2 encoder, the middle, 3 decoder
 CORPUS_ATTENTION = (((25, 256, 4, 64), "the DeepGalaxy UNet at batch 25"),
                     ((30, 256, 4, 64), "the DeepGalaxy UNet at batch 30"),
+                    ((90, 256, 4, 64), "the DeepGalaxy UNet at batch 90 (demo_generalization's "
+                                       "run under GEN_BATCH 90)"),
                     ((16, 128, 4, 64), "the Spectroscopy UNet at grid 1024, batch 16"))
 # the training harnesses whose step is timed: (module, its knobs)
 CORPUS_STEP_RUNS = (("demo_galaxy2d", {}), ("demo_spectro1d", {}),
@@ -6858,11 +7289,16 @@ CORPUS_CUTS = {
     "CORPUS_MAX_STEPS": f"{CORPUS_RUN_STEPS}: every sampler's steps (DDPM-500 and -1000, "
                         "DDIM-100 and -50 among them) capped",
     "widths": "as published: config_deep_galaxy.json (128^2, width 32, 4 heads of 64 at "
-              "ds 8) at batch 25 and 30, config_spectroscopy.json at grid 1024 (width 32) "
+              "ds 8) at batch 25, 30 and 90, config_spectroscopy.json at grid 1024 (width 32) "
               "at batch 16",
     "demo_generalization": "its default conditioner (fourier) alone: embed is the config's "
                            "MultiEmbeddings, which demo_galaxy2d's runs train; both are held "
-                           "on the CPU (tests/test_torch_corpus_slice.py)",
+                           "on the CPU (tests/test_torch_corpus_slice.py); GEN_BATCH 30 -> 90 "
+                           "for the script's time limit: its training batch tripled (540 "
+                           "frames in 6 steps, not 18) and its 900 evaluation rows in 10 "
+                           "launches, not 30; its step is timed at the default 30 "
+                           "(CORPUS_STEP_RUNS), and K1 and the fused K3/K4 are held at both "
+                           "(CORPUS_ATTENTION)",
 }
 
 
@@ -7161,6 +7597,7 @@ def kernels_line(state: dict) -> list:
     and td as ``variants``."""
     launches = {"sampling": state["launches"], "sampling64": state["main64_launches"],
                 "training": state["train_launches"], "serving": state["serve_launches"],
+                "multichip": state["multichip_launches"],
                 "bench": state["bench_launches"], "kernels": state["kernels_launches"],
                 "fp32": state["fp32_launches"], "load": state["load_launches"],
                 "int8": state["int8_launches"], "int8_2d": state["int8_2d_launches"],
@@ -7373,7 +7810,8 @@ def main(argv=None) -> int:
     run("train", phase_train, TRAIN_BATCH)
     run("data", phase_data)
     run("hold", phase_hold)
-    run("serve", phase_serve, args.steps)
+    run("serve", phase_serve, SERVE_STEPS)
+    run("multichip", phase_multichip)
     run("load", phase_load)
     run("utils", phase_utils)
     run("int8", phase_int8, args.steps, args.samples)

@@ -15,6 +15,20 @@ synchronisation. Random draws (timesteps, noise, conditioning-dropout
 masks) come from the ``torch.Generator`` in the state, in the JAX order; a
 caller may inject them instead (the tests hand the port what JAX drew).
 
+Over a mesh (a state readied by ``parallel.mesh.replicate_state``, as the
+Trainer does for a mesh of more than one rank, or for ZeRO-1 or spatial
+sharding) the step is JAX's step under GSPMD, run rank by rank
+(``parallel.spmd``): the timesteps, noise and masks are drawn for the
+global batch as on one device, each data rank's rows (and, under spatial
+sharding, each context rank's depth slab of them) run forward on its
+device, the loss is the mean of the ranks' equal shares, one backward over
+it gives the gradients, summed over the data ranks (on one card the ranks
+share the one set of parameters and their gradients add up in place; a
+replica on another card adds its gradients in after the backward), and the
+global grad norm, clipping, the optimizer step (ZeRO-1's split one, or the
+replicated one) and the EMA follow. A sharded step equals the one-device
+step at the same draws up to summation order.
+
 Sampling goes through ``apply``, which is ``torch.no_grad`` and puts the
 backbone in ``eval()``; the train step puts it in ``train()``.
 
@@ -23,6 +37,7 @@ there, and parameters are initialised from a seeded ``torch.Generator``.
 """
 from __future__ import annotations
 
+import copy
 import inspect
 from typing import Any, Optional, Union
 
@@ -30,12 +45,15 @@ import numpy as np
 import torch
 
 from rho_diffusion_tpu_torch.diffusion.schedule import NoiseSchedule
-from rho_diffusion_tpu_torch.metrics.losses import psnr, resolve_loss
+from rho_diffusion_tpu_torch.metrics.losses import psnr, psnr_from_parts, psnr_parts, resolve_loss
 from rho_diffusion_tpu_torch.ops import quant
+from rho_diffusion_tpu_torch.parallel import spmd
+from rho_diffusion_tpu_torch.parallel.mesh import DATA_AXIS, Placed, batch_sharding, shard_batch
 from rho_diffusion_tpu_torch.registry import registry
 from rho_diffusion_tpu_torch.training.ema import ema_update
 from rho_diffusion_tpu_torch.training.optimizers import Optimizer, build_optimizer
 from rho_diffusion_tpu_torch.training.state import TrainState
+from rho_diffusion_tpu_torch.training.zero1 import ShardedEMA
 from rho_diffusion_tpu_torch.utils import (
     parameter_space_to_embeddings,
     resolve_device,
@@ -134,6 +152,16 @@ class AbstractDiffusionPipeline:
         gen = torch.Generator().manual_seed(int(seed))
         self.backbone.to("cpu").reset_parameters(gen)
         self.backbone.to(self.device).eval()
+
+    def for_device(self, device: torch.device, backbone: torch.nn.Module):
+        """This pipeline as a rank on ``device`` runs it: a shallow copy whose
+        backbone is ``backbone`` (the replica there) and whose tables live
+        there."""
+        view = copy.copy(self)
+        view.device = device
+        view.backbone = backbone
+        view.schedule = self.schedule.to(device)
+        return view
 
     def load_state_dict(self, state_dict: dict, strict: bool = True) -> None:
         """Load reference-layout backbone weights (strict by default)."""
@@ -234,8 +262,19 @@ class AbstractDiffusionPipeline:
                              device=self.device)
 
     def training_metrics(self, data, noised, loss) -> dict[str, torch.Tensor]:
-        """train_loss and PSNR(clean, noised), the reference's logged pair."""
+        """train_loss and PSNR(clean, noised), the reference's logged pair;
+        inside a rank of a mesh step, PSNR's parts, which the step combines
+        over the ranks."""
+        if spmd.current_rank() is not None:
+            return {"train_loss": loss, "psnr": psnr_parts(noised, data)}
         return {"train_loss": loss, "psnr": psnr(noised, data)}
+
+    def training_draws(self, generator, shape, dtype, labels) -> dict:
+        """The timesteps, noise and conditioning mask of one step over a
+        batch of ``shape``, drawn from ``generator`` in the order
+        ``loss_and_metrics`` draws them (the mesh step draws them for the
+        global batch)."""
+        raise NotImplementedError(f"{type(self).__name__} does not train over a mesh")
 
     def loss_and_metrics(self, batch: dict, generator=None, t=None, noise=None,
                          cond_mask=None):
@@ -271,6 +310,8 @@ class AbstractDiffusionPipeline:
         refusal = quant.training_refusal()
         if refusal is not None:
             raise RuntimeError(refusal)
+        if state.mesh is not None:
+            return self._mesh_training_step(state, batch, t, noise, cond_mask)
         batch = self.batch_to_device(batch)
         model = state.model
         model.train()
@@ -296,6 +337,12 @@ class AbstractDiffusionPipeline:
             for k, v in metrics.items():
                 totals[k] = totals.get(k, 0.0) + v.detach()
         metrics = {k: v / accum for k, v in totals.items()} if accum > 1 else totals
+        return self._update(state, params, metrics)
+
+    def _update(self, state: TrainState, params: list, metrics: dict) -> dict:
+        """The step after the backward: missing gradients as zeros, the
+        global grad norm and clipping, the optimizer step, the EMA."""
+        model = state.model
         for p in params:
             # a parameter the loss does not reach (the cond_fn under precomputed
             # hash-embedding labels) has a zero gradient in JAX, and AdamW still
@@ -314,9 +361,93 @@ class AbstractDiffusionPipeline:
         self.optimizer.set_lr(state.optimizer, state.step)
         state.optimizer.step()
         if state.ema is not None:
-            ema_update(state.ema, dict(model.named_parameters()), state.step, self.ema_decay)
+            if isinstance(state.ema, ShardedEMA):  # ZeRO-1's, rank by rank
+                state.ema.update(state.step, self.ema_decay)
+            else:
+                ema_update(state.ema, dict(model.named_parameters()), state.step, self.ema_decay)
         state.step += 1
         return metrics
+
+    def _mesh_training_step(self, state: TrainState, batch, t=None, noise=None,
+                            cond_mask=None) -> dict[str, torch.Tensor]:
+        """``training_step`` over ``state.mesh`` (module docstring). ``batch``
+        is placed (``parallel.mesh.shard_batch``; the sharding of "data" says
+        whether its depth is split), or a host batch, placed over "data"."""
+        mesh = state.mesh
+        if not (isinstance(batch, dict) and isinstance(batch.get("data"), Placed)):
+            host = {k: v if v is None or isinstance(v, torch.Tensor)
+                    else torch.as_tensor(np.asarray(v)) for k, v in normalize_batch(batch).items()}
+            batch = shard_batch(host, mesh)
+        data, labels = batch["data"], batch.get("labels")
+        spatial = data.sharding.spatial
+        model = state.model
+        if spatial:
+            if not getattr(model, "supports_spatial_sharding", False):
+                raise NotImplementedError(f"spatial sharding of {type(model).__name__}: only the "
+                                          "UNetv2 backbone splits its volume over context ranks")
+            if getattr(model, "use_checkpoint", False):
+                raise NotImplementedError(
+                    "use_checkpoint under spatial sharding: the recomputation inside the "
+                    "backward would exchange halos with ranks that are no longer running")
+        n_data, accum = mesh.shape[DATA_AXIS], self.grad_accum
+        if data.shape[0] % (n_data * accum):
+            raise ValueError(f"batch size {data.shape[0]} does not split over the {n_data} data "
+                             f"ranks and grad_accum={accum}")
+        if t is None or noise is None or (cond_mask is None and getattr(self, "cond_dropout", 0.0)
+                                          > 0.0 and labels is not None):
+            drawn = self.training_draws(state.generator, data.shape, data.dtype, labels)
+            t = drawn["t"] if t is None else t
+            noise = drawn["noise"] if noise is None else noise
+            cond_mask = drawn["cond_mask"] if cond_mask is None else cond_mask
+        rows_sharding = batch_sharding(mesh)
+        t = rows_sharding.place(t)
+        noise = data.sharding.place(noise)
+        cond_mask = None if cond_mask is None else rows_sharding.place(cond_mask)
+
+        first = mesh.devices[0][0]
+        params = [p for p in model.parameters() if p.requires_grad]
+        with torch.no_grad():
+            for replica in state.replicas.values():
+                for r, p in zip(replica.parameters(), model.parameters()):
+                    r.copy_(p)
+                    r.grad = None
+        for m in (model, *state.replicas.values()):
+            m.train()
+        for p in params:
+            p.grad = None
+        views = {dev: self.for_device(dev, replica) for dev, replica in state.replicas.items()}
+        size = data.shape[0] // n_data // accum
+        totals: dict = {}
+        for i in range(accum):
+            rows = slice(i * size, (i + 1) * size)
+
+            def rank_step(rank, rows=rows):
+                def cut(placed):
+                    return None if placed is None else placed.piece(rank.data, rank.context)[rows]
+
+                return views.get(rank.device, self).loss_and_metrics(
+                    {"data": cut(data), "labels": cut(labels)},
+                    t=cut(t), noise=cut(noise), cond_mask=cut(cond_mask))
+
+            ranks = [r for row in spmd.run_ranks(mesh, rank_step, spatial) for r in row]
+            loss = sum(r[0].to(first) for r in ranks) / len(ranks)
+            (loss / accum if accum > 1 else loss).backward()
+            metrics = {"train_loss": loss.detach()}
+            for key in ranks[0][1]:
+                values = [r[1][key].detach().to(first) for r in ranks]
+                if key == "psnr":
+                    metrics[key] = psnr_from_parts(values)
+                elif key != "train_loss":
+                    metrics[key] = sum(values) / len(values)
+            for k, v in metrics.items():
+                totals[k] = totals.get(k, 0.0) + v
+        with torch.no_grad():
+            for replica in state.replicas.values():  # the gradient sum over the cards
+                for p, r in zip(model.parameters(), replica.parameters()):
+                    if r.grad is not None:
+                        p.grad = r.grad.to(first) if p.grad is None else p.grad + r.grad.to(first)
+        metrics = {k: v / accum for k, v in totals.items()} if accum > 1 else totals
+        return self._update(state, params, metrics)
 
     @torch.no_grad()
     def validation_step(self, state: TrainState, batch, generator=None) -> dict:

@@ -137,6 +137,16 @@ class DDPM(AbstractDiffusionPipeline):
                                 dtype=data.dtype)
         return q_sample(self.schedule, data, t, noise), noise, t
 
+    def training_draws(self, generator, shape, dtype, labels) -> dict:
+        """The keep-mask (with ``cond_dropout`` and labels), then t, then the
+        noise, as ``loss_and_metrics`` draws them."""
+        mask = None
+        if self.cond_dropout > 0.0 and labels is not None:
+            mask = self.cond_dropout_mask(generator, shape[0], labels)
+        t = self.random_timesteps(generator, shape[0])
+        noise = torch.randn(shape, generator=generator, device=self.device, dtype=dtype)
+        return {"t": t, "noise": noise, "cond_mask": mask}
+
     def loss_and_metrics(self, batch, generator=None, t=None, noise=None, cond_mask=None):
         """MSE between the predicted and the true noise at random timesteps
         (or the min-SNR-weighted per-sample MSE). With ``cond_dropout`` the

@@ -59,6 +59,7 @@ from rho_diffusion_tpu_torch.diffusion.schedule import NoiseSchedule, named_beta
 from rho_diffusion_tpu_torch.diffusion.solvers import build_solver, is_solver, solver_names
 from rho_diffusion_tpu_torch.metrics.losses import discretized_gaussian_log_likelihood, normal_kl
 from rho_diffusion_tpu_torch.ops.convolution import mean_flat
+from rho_diffusion_tpu_torch.parallel import spmd
 
 _LN2 = math.log(2.0)
 
@@ -346,9 +347,19 @@ def predict_eps_from_xstart(c: GaussianCoefficients, x_t, t, pred_xstart):
 
 def dynamic_threshold(x: torch.Tensor, percentile: float = 0.9) -> torch.Tensor:
     """Clamp each sample to +/- its ``percentile`` abs-quantile s (linear
-    interpolation, s >= 1) and divide by s."""
+    interpolation, s >= 1) and divide by s. On a depth slab
+    (``parallel.spmd``) the quantile is taken over the sample's values on
+    every slab: the same multiset, so the same s."""
     flat = torch.abs(x.reshape(x.shape[0], -1))
-    s = torch.quantile(flat, percentile, dim=-1, interpolation="linear")
+    if spmd.spatial_rank() is not None:
+        def whole(parts):
+            s = torch.quantile(torch.cat([p.to(parts[0].device) for p in parts], dim=1),
+                               percentile, dim=-1, interpolation="linear")
+            return [s.to(p.device) for p in parts]
+
+        s = spmd.exchange(flat, whole)
+    else:
+        s = torch.quantile(flat, percentile, dim=-1, interpolation="linear")
     s = torch.clamp(s, min=1.0).reshape(s.shape[0], *((1,) * (x.ndim - 1)))
     return torch.maximum(torch.minimum(x, s), -s) / s
 
@@ -913,6 +924,20 @@ class GaussianDiffusionPipeline(AbstractDiffusionPipeline):
             noise = torch.randn(data.shape, generator=generator, device=self.device,
                                 dtype=data.dtype)
         return q_sample(self.coeffs, data, t, noise), noise, t
+
+    def for_device(self, device, backbone):
+        view = super().for_device(device, backbone)
+        view.coeffs = self.coeffs.to(device)
+        view._respaced = {}
+        return view
+
+    def training_draws(self, generator, shape, dtype, labels) -> dict:
+        """t, then the noise, then (with ``cond_dropout``) the keep-mask, as
+        ``loss_and_metrics`` draws them."""
+        t = self.random_timesteps(generator, shape[0])
+        noise = torch.randn(shape, generator=generator, device=self.device, dtype=dtype)
+        return {"t": t, "noise": noise,
+                "cond_mask": self.cond_dropout_mask(generator, shape[0], labels)}
 
     def loss_and_metrics(self, batch, generator=None, t=None, noise=None, cond_mask=None):
         """The mean of ``training_losses`` over the batch, and the metrics

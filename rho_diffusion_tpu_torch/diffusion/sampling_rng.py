@@ -19,6 +19,8 @@ from typing import Sequence
 
 import torch
 
+from rho_diffusion_tpu_torch.parallel import spmd
+
 _MASK = (1 << 64) - 1
 
 
@@ -58,7 +60,18 @@ def keys_at_step(keys: Sequence[int], t: int) -> list[int]:
 
 def normal_like(keys: Sequence[int], shape, device, dtype=torch.float32) -> torch.Tensor:
     """Gaussian noise of ``shape`` with row i drawn from a generator seeded
-    with ``keys[i]`` (len(keys) == shape[0])."""
+    with ``keys[i]`` (len(keys) == shape[0]). Inside a rank that holds a
+    depth slab of the volume (``parallel.spmd``), ``shape`` is the slab's,
+    and the noise is that slab of each row's whole volume of noise."""
+    rank = spmd.spatial_rank()
+    if rank is not None and len(shape) > 2:
+        n, depth = rank.group.n, shape[1]
+        whole = _normal_like(keys, (shape[0], depth * n, *shape[2:]), device, dtype)
+        return whole[:, rank.context * depth:(rank.context + 1) * depth].contiguous()
+    return _normal_like(keys, shape, device, dtype)
+
+
+def _normal_like(keys: Sequence[int], shape, device, dtype=torch.float32) -> torch.Tensor:
     if len(keys) != shape[0]:
         raise ValueError(f"{len(keys)} row keys for a batch of {shape[0]}")
     out = torch.empty(shape, device=device, dtype=dtype)

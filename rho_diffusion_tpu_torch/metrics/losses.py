@@ -104,6 +104,22 @@ def psnr(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return 10.0 * torch.log10(torch.square(data_range) / torch.clamp(mse, min=1e-20))
 
 
+def psnr_parts(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """A shard's part of ``psnr``: [max target, min target, sum of squared
+    errors, element count], in fp32."""
+    err = torch.sum(torch.square(pred - target)).float()
+    return torch.stack([torch.amax(target).float(), torch.amin(target).float(), err,
+                        torch.tensor(float(target.numel()), device=target.device)])
+
+
+def psnr_from_parts(parts) -> torch.Tensor:
+    """``psnr`` of the whole from every shard's ``psnr_parts``."""
+    stacked = torch.stack(list(parts))
+    data_range = stacked[:, 0].amax() - stacked[:, 1].amin()
+    mse = stacked[:, 2].sum() / stacked[:, 3].sum()
+    return 10.0 * torch.log10(torch.square(data_range) / torch.clamp(mse, min=1e-20))
+
+
 def normal_kl(mean1, logvar1, mean2, logvar2) -> torch.Tensor:
     """KL(N(mean1, exp(logvar1)) || N(mean2, exp(logvar2))), elementwise,
     in nats. Any argument may be a Python float."""

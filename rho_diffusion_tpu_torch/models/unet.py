@@ -201,7 +201,12 @@ class TimestepEmbedSequential(nn.Sequential):
 class UNet(nn.Module):
     """n-dimensional UNet with attention, timestep embedding and
     parameter-space conditioning; config kwargs match the "UNetv2" JSON
-    surface."""
+    surface. A 3-D UNet runs on depth slabs under spatial sharding
+    (``parallel.spatial``): its resampling leaves the depth alone."""
+
+    @property
+    def supports_spatial_sharding(self) -> bool:
+        return self.dims == 3
 
     def __init__(
         self,

@@ -26,9 +26,20 @@ use, so a reference ``state_dict`` loads unchanged.
   them, through ``conv3d_via_2d`` (JAX's ``Conv3dVia2d``: three batched
   ``F.conv2d`` calls summed), in place of the conv3d route: a study backend
   the caller asks for. int8 still wins over it, as in JAX.
+* Inside a rank that holds a depth slab of the volume (``parallel.spmd``
+  under spatial sharding), every 3-D conv with a depth kernel of 3 and
+  depth stride 1 runs on the slab with its two halo planes and drops its
+  first and last output plane (``parallel.spatial.sharded_conv3d_local``):
+  JAX's GSPMD halo conv. Each backend above runs it as it runs a whole
+  volume. int8 is not ported under spatial sharding (its per-sample
+  activation scales read the whole volume) and raises.
+* ``record_conv_inputs()`` lists the input shape of every 3-D conv with a
+  depth kernel of 3 (the haloed slab under spatial sharding) while it is
+  entered, for the checks that no such conv sees a whole-depth volume.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 from typing import Optional, Sequence
@@ -39,8 +50,11 @@ from torch import nn
 
 from rho_diffusion_tpu_torch.ops import quant
 from rho_diffusion_tpu_torch.ops.kernels.conv3d import conv3d
+from rho_diffusion_tpu_torch.parallel import spmd
+from rho_diffusion_tpu_torch.parallel.spatial import sharded_conv3d_local
 
 _CONV3D_BACKEND = "auto"
+_RECORDS: list = []  # the lists record_conv_inputs() has open
 # JAX's ops/convolution.py:27-28: the batched 2-D decomposition, a study backend
 CONV3D_VIA_2D = os.environ.get("RHO_CONV3D_VIA_2D") == "1"
 
@@ -53,6 +67,26 @@ def set_conv3d_backend(mode: str) -> None:
     if mode not in ("auto", "plain"):
         raise ValueError(f"conv3d backend must be 'auto' or 'plain', got {mode!r}")
     _CONV3D_BACKEND = mode
+
+
+@contextlib.contextmanager
+def record_conv_inputs():
+    """Yield a list that gets the input shape of every 3-D conv with a depth
+    kernel of 3 run while the context is entered."""
+    shapes: list = []
+    _RECORDS.append(shapes)
+    try:
+        yield shapes
+    finally:
+        _RECORDS.remove(shapes)
+
+
+def _refuse_int8_on_a_slab() -> None:
+    if spmd.spatial_rank() is not None:
+        raise NotImplementedError(
+            "int8 convs under spatial sharding: the activation scales are per sample and "
+            "read the whole volume, which a depth slab does not hold",
+        )
 
 
 def _tuple(v, dims: int) -> tuple[int, ...]:
@@ -100,13 +134,26 @@ class ConvNd(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if quant.get_conv_quant() == "int8":
+            _refuse_int8_on_a_slab()
             return quant.conv_int8(self, x)
         dt = compute_dtype(self.dtype, x)
         return self.conv_float(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
     def conv_float(self, x: torch.Tensor, w: torch.Tensor,
                    b: Optional[torch.Tensor]) -> torch.Tensor:
-        """The float conv of x and w (and b, when given) in their dtype."""
+        """The float conv of x and w (and b, when given) in their dtype; on
+        a depth slab, of the haloed slab, cropped (module docstring)."""
+        if self.dims == 3 and self.kernel_size == 3 and spmd.spatial_rank() is not None:
+            if self.stride[0] != 1:
+                raise NotImplementedError(f"a depth stride of {self.stride[0]} under spatial "
+                                          "sharding: the slabs would not stay aligned")
+            return sharded_conv3d_local(x, lambda xh: self._conv(xh, w, b))
+        return self._conv(x, w, b)
+
+    def _conv(self, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
+        if self.dims == 3 and self.kernel_size == 3:
+            for shapes in _RECORDS:
+                shapes.append(tuple(x.shape))
         if (CONV3D_VIA_2D and self.dims == 3 and self.kernel_size == 3
                 and self.padding == "SAME" and self.stride[0] == 1):
             return conv3d_via_2d(x, w, b, self.stride)
@@ -168,6 +215,7 @@ class Conv1x1(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if quant.get_conv_quant() == "int8":
+            _refuse_int8_on_a_slab()
             return quant.dense_int8(self, x)
         dt = compute_dtype(self.dtype, x)
         w = self.weight.reshape(self.weight.shape[0], self.weight.shape[1])

@@ -7,6 +7,11 @@ count falls back to the largest divisor of the channel count that is at most
 32, which ``nn.GroupNorm(32, C)`` does not do. Parameters are named
 ``weight``/``bias`` as in the reference torch UNet's ``state_dict``.
 
+Inside a rank that holds a depth slab (``parallel.spmd`` under spatial
+sharding) ``GroupNorm32`` sums each slab's fp32 sum, sum of squares and
+count per (row, group) over the context ranks before the fast variance:
+GSPMD's psum in JAX.
+
 ``RMSNorm`` is JAX's; ``LayerNorm`` and ``FlaxGroupNorm`` give flax's numbers
 for the ViT and the SimpleUNet (eps 1e-6, the fast variance), which
 ``torch.nn``'s layers do not.
@@ -15,6 +20,9 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from rho_diffusion_tpu_torch.parallel import spmd
+from rho_diffusion_tpu_torch.parallel.spmd import sum_to_each
 
 
 def num_groups_for(channels: int, num_groups: int = 32) -> int:
@@ -38,8 +46,16 @@ class GroupNorm32(nn.Module):
         b, c = x.shape[0], x.shape[-1]
         g = self.num_groups
         xg = x.reshape(b, -1, g, c // g).float()
-        mean = xg.mean(dim=(1, 3), keepdim=True)
-        mean2 = xg.square().mean(dim=(1, 3), keepdim=True)
+        if spmd.spatial_rank() is not None:
+            n = float(xg.shape[1] * xg.shape[3])
+            sums = torch.stack([xg.sum(dim=(1, 3)), xg.square().sum(dim=(1, 3)),
+                                torch.full((b, g), n, device=x.device)])
+            total = spmd.exchange(sums, sum_to_each)
+            mean = (total[0] / total[2])[:, None, :, None]
+            mean2 = (total[1] / total[2])[:, None, :, None]
+        else:
+            mean = xg.mean(dim=(1, 3), keepdim=True)
+            mean2 = xg.square().mean(dim=(1, 3), keepdim=True)
         var = torch.clamp(mean2 - mean.square(), min=0.0)
         out = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
         return (out * self.weight.float() + self.bias.float()).to(x.dtype)

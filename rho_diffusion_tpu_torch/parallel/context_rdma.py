@@ -39,7 +39,7 @@ the plain version (the reference that chip_smoke holds the kernel against).
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -66,6 +66,20 @@ def _wait(device: torch.device, event) -> None:
         torch.cuda.current_stream(device).wait_event(event)
 
 
+def _kernel_ring(devices: Sequence[torch.device], plain: bool) -> bool:
+    """Whether a ring over ``devices`` runs K6 (else its plain version):
+    raises for a ring that mixes the CPU and cards, or whose cards cannot
+    read each other's memory, before anything moves."""
+    on_card = {dev.type == "cuda" for dev in devices}
+    if len(on_card) != 1:
+        raise ValueError(f"ring attention: a ring's ranks are all on CUDA or all on the CPU, "
+                         f"got {devices}")
+    kernel = on_card == {True} and not plain
+    if kernel:
+        check_peer_access(devices)
+    return kernel
+
+
 def ring_attention_rdma(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, devices: Sequence[torch.device],
     plain: bool = False,
@@ -81,19 +95,10 @@ def ring_attention_rdma(
     b, t, h, d = q.shape
     if t % n:
         raise ValueError(f"ring attention: {t} tokens do not split over {n} ranks")
-    on_card = {dev.type == "cuda" for dev in devices}
-    if len(on_card) != 1:
-        raise ValueError(f"ring attention: a ring's ranks are all on CUDA or all on the CPU, "
-                         f"got {devices}")
-    kernel = on_card == {True} and not plain
-    fold = ring_attention_fold if kernel else ring_attention_fold_plain
-    dk = kernel_head_dim(d) if kernel else d
-    if kernel:
-        check_peer_access(devices)
+    dk = kernel_head_dim(d) if _kernel_ring(devices, plain) else d
     if dk != d:
         q, k, v = (F.pad(x, (0, dk - d)) for x in (q, k, v))
     tl = t // n
-    scale_log2 = LOG2E / math.sqrt(d)
     src = q.device
     out = torch.empty((b, t, h, dk), dtype=q.dtype, device=src)
 
@@ -101,35 +106,68 @@ def ring_attention_rdma(
         return x[:, r * tl:(r + 1) * tl]
 
     if all(dev == src for dev in devices):
-        ranks = range(n)
-        fold([rows(q, r) for r in ranks], [rows(out, r) for r in ranks], list(ranks),
-             [rows(k, r) for r in ranks], [rows(v, r) for r in ranks], scale_log2)
+        ring_attention_rdma_shards(*([rows(x, r) for r in range(n)] for x in (q, k, v)),
+                                   plain=plain, outs=[rows(out, r) for r in range(n)],
+                                   head_dim=d)
     else:
-        def fill(x, r, dev):  # contiguous, so that every rank's shard has one stride set
-            return rows(x, r).to(dev).contiguous()
+        # contiguous on each rank's device, so that every shard has one stride set
+        outs = ring_attention_rdma_shards(
+            *([rows(x, r).to(dev).contiguous() for r, dev in enumerate(devices)]
+              for x in (q, k, v)), plain=plain, head_dim=d)
+        for r, o in enumerate(outs):
+            rows(out, r).copy_(o)
+    return out[..., :d] if dk != d else out
 
-        by_device: dict = {}
-        for r, dev in enumerate(devices):
-            by_device.setdefault(dev, []).append(r)
-        ks = [fill(k, r, dev) for r, dev in enumerate(devices)]
-        vs = [fill(v, r, dev) for r, dev in enumerate(devices)]
-        qs = {dev: [fill(q, r, dev) for r in ranks] for dev, ranks in by_device.items()}
-        filled = {dev: _event(dev) for dev in by_device}
-        for dev, event in filled.items():
+
+def ring_attention_rdma_shards(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
+                               vs: Sequence[torch.Tensor], plain: bool = False,
+                               outs: Optional[Sequence[torch.Tensor]] = None,
+                               head_dim: Optional[int] = None) -> list:
+    """The ring over shards that already lie on their ranks' devices (a
+    depth-sharded volume's tokens): rank r's [B, T/n, H, D] in ``qs[r]``,
+    ``ks[r]``, ``vs[r]``. One fold launch per device covers its ranks and
+    reads every shard where it lies (on one card, the strided views of each
+    rank's fused qkv, no copy). Returns each rank's output on its device, in
+    q's dtype, or writes it into ``outs``; ``head_dim`` is the true head dim
+    of shards already zero-padded to the kernel's. Forward only; ``plain``
+    folds with the plain version."""
+    check_no_autograd("ring_attention", *qs, *ks, *vs)
+    devices = [canonical_device(q.device) for q in qs]
+    b, tl, h, d = qs[0].shape
+    kernel = _kernel_ring(devices, plain)
+    fold = ring_attention_fold if kernel else ring_attention_fold_plain
+    dk = kernel_head_dim(d) if kernel else d
+    if dk != d:
+        qs, ks, vs = ([F.pad(x, (0, dk - d)) for x in xs] for xs in (qs, ks, vs))
+    scale_log2 = LOG2E / math.sqrt(head_dim or d)
+    by_device: dict = {}
+    for r, dev in enumerate(devices):
+        by_device.setdefault(dev, []).append(r)
+    given = outs is not None
+    if not given:
+        outs = [torch.empty((b, tl, h, dk), dtype=qs[0].dtype, device=dev) for dev in devices]
+    if len(by_device) > 1 and kernel:
+        # a card's launch reads every other card's shards: it waits for their
+        # producers (PyTorch orders a copy between cards after both cards'
+        # current streams; peer access is checked by the fold)
+        ready = {dev: _event(dev) for dev in by_device}
+        for dev, event in ready.items():
             _record(event, dev)
-        outs, done = {}, []
+        done = []
         for dev, ranks in by_device.items():
-            for other, event in filled.items():
+            for other, event in ready.items():
                 if other != dev:
                     _wait(dev, event)
-            outs[dev] = [torch.empty_like(x) for x in qs[dev]]
-            fold(qs[dev], outs[dev], ranks, ks, vs, scale_log2)
+            fold([qs[r] for r in ranks], [outs[r] for r in ranks], ranks, ks, vs, scale_log2)
             done.append(_event(dev))
             _record(done[-1], dev)
-        for dev in {src, *by_device}:
+        # no card frees or overwrites a shard before every launch has read it
+        for dev in by_device:
             for event in done:
                 _wait(dev, event)
+    else:
         for dev, ranks in by_device.items():
-            for r, o in zip(ranks, outs[dev]):
-                rows(out, r).copy_(o)
-    return out[..., :d] if dk != d else out
+            fold([qs[r] for r in ranks], [outs[r] for r in ranks], ranks, ks, vs, scale_log2)
+    if given:
+        return list(outs)
+    return [o[..., :d] for o in outs] if dk != d else outs

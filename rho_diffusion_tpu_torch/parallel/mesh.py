@@ -14,12 +14,22 @@ The active mesh is kept per thread, not per process as in JAX: the port
 runs its model eagerly, and a sampling service's worker thread entering a
 context mesh must not send another thread's model calls into a ring.
 
-``batch_sharding``, ``replicated``, ``shard_batch``, ZeRO-1 and FSDP are not
-ported (ROADMAP Queue 1 item 13).
+Placement (JAX :93-168). A ``Sharding`` is JAX's ``NamedSharding``: the mesh
+axis (or None) of each dim. ``Sharding.place`` cuts a global tensor into
+the pieces each rank holds, each copied to its rank's device (a
+``Placed``); ``Placed.full`` gathers it back. ``batch_sharding`` puts the
+batch rows over "data" and, with ``spatial``, the depth of a [B, D, H, W,
+C] volume over "context"; ``replicated`` puts the whole tensor on every
+rank. ``replicate_state`` readies a training state for a mesh: one model
+replica per distinct device of the mesh (the state's own model on the
+first). ``shard_opt_state_zero1`` splits the optimizer state and the EMA
+1/N over "data" (``training/zero1.py``). FSDP is not ported (ROADMAP
+Queue 1 item 13b).
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import threading
 from typing import Optional, Sequence
 
@@ -100,3 +110,167 @@ def make_mesh(data: int = -1, context: int = 1, devices: Optional[Sequence] = No
     if data * context != n:
         raise ValueError(f"mesh {data}x{context} != {n} available devices")
     return Mesh([devices[i * context:(i + 1) * context] for i in range(data)])
+
+
+class Sharding:
+    """JAX's ``NamedSharding``: ``spec[i]`` is the mesh axis dim i is split
+    over ("data", "context" or None); dims past the spec are whole."""
+
+    def __init__(self, mesh: Mesh, spec: Sequence[Optional[str]] = ()) -> None:
+        self.mesh = mesh
+        self.spec = tuple(spec)
+
+    @property
+    def spatial(self) -> bool:
+        """True when dim 1 (a volume's depth) is split over "context"."""
+        return len(self.spec) > 1 and self.spec[1] == CONTEXT_AXIS
+
+    def _index(self, shape, d: int, c: int) -> tuple:
+        index = []
+        for dim, size in enumerate(shape):
+            axis = self.spec[dim] if dim < len(self.spec) else None
+            if axis is None:
+                index.append(slice(None))
+                continue
+            n, i = self.mesh.shape[axis], (d if axis == DATA_AXIS else c)
+            if size % n:
+                raise ValueError(f"dim {dim} of {tuple(shape)} does not split over the "
+                                 f"{n} ranks of the {axis!r} axis")
+            index.append(slice(i * (size // n), (i + 1) * (size // n)))
+        return tuple(index)
+
+    def place_rows(self, blocks: list) -> "Placed":
+        """The placement of a tensor whose rows are already split: data rank
+        d's rows ``blocks[d]`` (on its device) cut into its context ranks'
+        pieces. The sharding must split dim 0 over "data"."""
+        if not self.spec or self.spec[0] != DATA_AXIS:
+            raise ValueError(f"place_rows needs rows over 'data', got the spec {self.spec}")
+        inner = Sharding(self.mesh, (None, *self.spec[1:]))
+        pieces = [[x[inner._index(x.shape, d, c)].to(dev) for c, dev in enumerate(row)]
+                  for d, (row, x) in enumerate(zip(self.mesh.devices, blocks))]
+        shape = (sum(x.shape[0] for x in blocks), *blocks[0].shape[1:])
+        return Placed(pieces, self, shape)
+
+    def place(self, x) -> "Placed":
+        """Each rank's piece of ``x`` (a tensor or an array), on its device."""
+        x = torch.as_tensor(x)
+        pieces = [[x[self._index(x.shape, d, c)].to(dev) for c, dev in enumerate(row)]
+                  for d, row in enumerate(self.mesh.devices)]
+        return Placed(pieces, self, tuple(x.shape))
+
+
+class Placed:
+    """A global tensor held as per-rank pieces: ``pieces[d][c]`` lies on
+    ``mesh.devices[d][c]``."""
+
+    def __init__(self, pieces: list, sharding: Sharding, shape: tuple) -> None:
+        self.pieces = pieces
+        self.sharding = sharding
+        self.shape = tuple(shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.pieces[0][0].dtype
+
+    def piece(self, d: int, c: int = 0) -> torch.Tensor:
+        return self.pieces[d][c]
+
+    def full(self, device=None) -> torch.Tensor:
+        """The global tensor gathered on ``device`` (the mesh's first)."""
+        device = canonical_device(device) if device is not None else self.sharding.mesh.devices[0][0]
+        spec = self.sharding.spec
+        rows = []
+        for row in self.pieces:
+            if CONTEXT_AXIS in spec:
+                rows.append(torch.cat([p.to(device) for p in row], dim=spec.index(CONTEXT_AXIS)))
+            else:
+                rows.append(row[0].to(device))
+        if DATA_AXIS in spec:
+            return torch.cat(rows, dim=spec.index(DATA_AXIS))
+        return rows[0]
+
+
+def batch_sharding(mesh: Mesh, spatial: bool = False) -> Sharding:
+    """The batch rows over "data"; with ``spatial`` (and a context axis > 1)
+    also dim 1, the depth of [B, D, H, W, C] volumes, over "context" (JAX
+    :93-104)."""
+    if spatial and mesh.shape[CONTEXT_AXIS] > 1:
+        return Sharding(mesh, (DATA_AXIS, CONTEXT_AXIS))
+    return Sharding(mesh, (DATA_AXIS,))
+
+
+def replicated(mesh: Mesh) -> Sharding:
+    return Sharding(mesh, ())
+
+
+def shard_batch(batch: dict, mesh: Mesh, per_key: Optional[dict] = None) -> dict:
+    """Place a batch on the mesh: rows over "data" (``per_key`` overrides the
+    sharding of a key, e.g. the spatial one for "data"). None stays None,
+    and a ``valid`` mask stays on the host, where it is read."""
+    out = {}
+    for k, v in batch.items():
+        if v is None or k == "valid" or isinstance(v, Placed):
+            out[k] = v
+        else:
+            out[k] = (per_key or {}).get(k, batch_sharding(mesh)).place(v)
+    return out
+
+
+def replicate_state(state, mesh: Mesh):
+    """Ready ``state`` (a ``TrainState``) for steps over ``mesh``: the
+    model stays where it is, on the mesh's first device, and every other
+    distinct device of the mesh gets a replica (refreshed from it at each
+    step; on one card there is none). Returns the state."""
+    first = mesh.devices[0][0]
+    model_device = canonical_device(next(state.model.parameters()).device)
+    if model_device != first:
+        raise ValueError(f"the model lies on {model_device}, but the mesh's first device is "
+                         f"{first}: the model's own parameters are the first rank's replica")
+    others = {dev for row in mesh.devices for dev in row} - {first}
+    state.replicas = {dev: copy.deepcopy(state.model).to(dev) for dev in sorted(others, key=str)}
+    state.mesh = mesh
+    return state
+
+
+def _shard_dim(shape, axis_size: int, blocked=()) -> Optional[int]:
+    """The dim to shard over an ``axis_size``-way axis: the LARGEST
+    divisible dim (ties -> trailing), skipping ``blocked`` dims; None if
+    nothing fits (JAX :120-131)."""
+    divisible = [i for i in range(len(shape))
+                 if i not in blocked and shape[i] % axis_size == 0 and shape[i] >= axis_size]
+    if not divisible:
+        return None
+    return max(divisible, key=lambda i: (shape[i], i))
+
+
+def _data_axis_placer(mesh: Mesh):
+    """Leaf placer over the data axis (JAX :134-141): ``place(leaf, axes)``
+    is the torch dim of ``leaf`` that ZeRO-1 splits 1/N, or None for a leaf
+    too small to split (it stays replicated). ``axes[j]`` is the torch dim
+    holding dim j of the JAX package's layout of the same weight (a conv's
+    [k, k, k, Cin, Cout] is [Cout, Cin, k, k, k] here), so the rule picks the
+    dim JAX picks and each rank holds the elements JAX's rank holds."""
+    n = mesh.shape[DATA_AXIS]
+
+    def place(leaf: torch.Tensor, axes: Optional[Sequence[int]] = None) -> Optional[int]:
+        axes = tuple(range(leaf.ndim)) if axes is None else tuple(axes)
+        dim = _shard_dim(tuple(leaf.shape[a] for a in axes), n)
+        return None if dim is None else axes[dim]
+
+    return place
+
+
+def shard_opt_state_zero1(state, mesh: Mesh, include_ema: bool = True):
+    """ZeRO-1 (JAX :144-168): each data rank keeps the optimizer state (and,
+    with ``include_ema``, the EMA) of its 1/N slice of every leaf that
+    splits, on its device, updates that slice, and the updated slices are
+    gathered into every replica; parameters stay replicated. The state's
+    optimizer state and EMA carry over. Returns the state."""
+    from rho_diffusion_tpu_torch.training.zero1 import ShardedEMA, Zero1Optimizer
+
+    if getattr(state, "mesh", None) is not mesh:
+        replicate_state(state, mesh)
+    state.optimizer = Zero1Optimizer.from_optimizer(state.optimizer, state.model, mesh)
+    if include_ema and state.ema is not None:
+        state.ema = ShardedEMA(state.ema, state.optimizer)
+    return state

@@ -13,13 +13,14 @@ onto the card (``rho_diffusion_tpu_torch.serving``). Endpoints: GET
 4, "seed": 7}``, POST /reload.
 
 It runs on CUDA unless ``-d cpu`` is given, and raises without CUDA.
-``--context-parallel M`` builds a ("data", "context") mesh of M context
-ranks and the UNet's attention runs as ring attention over them
-(``RHO_RING_ATTN_IMPL=rdma`` selects the kernel K6, default "xla"). The
-ranks are every CUDA card, one each, unless ``--mesh-devices`` lists them
-(one device per rank, repeats allowed: ``cuda:0,cuda:0,cuda:0,cuda:0`` puts
-four ranks on one card); with ``-d cpu`` they are M ranks on the CPU. A
-data axis > 1 raises (ROADMAP Queue 1 item 13). ``--quant int8`` serves
+``--data-parallel N --context-parallel M`` builds a ("data", "context")
+mesh: each launch's rows split over N data ranks, and with M > 1 the
+volume's depth over M context ranks, whose attention rings over their
+slabs (``RHO_RING_ATTN_IMPL=rdma`` selects the kernel K6, default "xla";
+``serving.py``). The ranks are every CUDA card, one each, unless
+``--mesh-devices`` lists them (one device per rank, repeats allowed:
+``cuda:0,cuda:0,cuda:0,cuda:0`` puts four ranks on one card); with ``-d
+cpu`` they are N x M ranks on the CPU. Every bucket must divide by N. ``--quant int8`` serves
 with W8A8 convs and Dense sites (``SamplingService(quantize="int8")``).
 ``--sampler``, ``--steps`` and ``--spacing`` set the GaussianDiffusion
 family's sampler, respaced step count and grid (over the config's
@@ -70,7 +71,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--quant", default=None, choices=["int8"],
                         help="int8 W8A8 convs and Dense sites (the checkpoint is unchanged)")
     parser.add_argument("--data-parallel", type=int, default=0, metavar="N",
-                        help="data axis of the mesh (only 1 is ported)")
+                        help="data axis of the mesh: each launch's rows split over N replicas")
     parser.add_argument("--context-parallel", type=int, default=1, metavar="M",
                         help="context ranks: the UNet's attention runs as ring attention "
                              "over M ranks")

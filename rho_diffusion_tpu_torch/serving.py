@@ -25,15 +25,18 @@ Port of ``rho_diffusion_tpu/serving.py`` (``GenerationResult``, ``_Chunk``,
   alone and batched; on the card the UNet's cuBLAS
   matmuls may pick another algorithm at another batch size, so a row may
   differ by rounding (chip_smoke.py reports the difference).
-* **A context mesh** — under a ``("data", "context")`` mesh with
-  context > 1 every launch runs under ``active_mesh``, so the UNet's
-  attention runs as ring attention over the context ranks (with
-  ``RHO_RING_ATTN_IMPL=rdma``, the kernel K6). The UNet itself runs on the
-  mesh's first device: only attention is sharded. The JAX package also
-  shards the volume depth of every conv over the context axis (GSPMD halo
-  convs, :568-586): the numbers are the same, the memory per card is not.
-  Depth-sharded convs, and a data axis > 1 (one model replica per card),
-  raise until ROADMAP Queue 1 item 13.
+* **A mesh** (JAX :207-218, :553-580) — under a ``("data", "context")``
+  mesh each launch's bucket rows split over the data ranks (every bucket
+  must divide by the data axis), one model replica per device, and each
+  data rank runs the whole sampler on its rows (``parallel.spmd``). With
+  context > 1 the volume's depth is also split over the context ranks:
+  each context rank samples its depth slab, its convs read their halo
+  planes from its neighbours (``parallel.spatial``), GroupNorm sums over the
+  slabs, attention rings over the slabs' tokens where they lie (with
+  ``RHO_RING_ATTN_IMPL=rdma``, the kernel K6), and each row's noise is the
+  slab of that row's stream, so a row is the same sample as on one device.
+  The ranks' slabs and rows are gathered onto the first device at the end
+  of a launch.
 * **int8** — ``quantize="int8"`` serves with W8A8 convs and Dense sites
   (``ops.quant``; the checkpoint is unchanged). The mode is process-global:
   the service sets it in its constructor (which validates it) and
@@ -51,6 +54,7 @@ or over HTTP via ``python -m rho_diffusion_tpu_torch.serve``.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import queue
 import threading
@@ -65,10 +69,10 @@ import torch
 
 from rho_diffusion_tpu_torch.diffusion.sampling_rng import keys_from_seeds
 from rho_diffusion_tpu_torch.ops.quant import get_conv_quant, set_conv_quant
+from rho_diffusion_tpu_torch.parallel import spmd
 from rho_diffusion_tpu_torch.parallel.mesh import (
     CONTEXT_AXIS,
     DATA_AXIS,
-    active_mesh,
     canonical_device,
 )
 
@@ -151,8 +155,7 @@ class SamplingService:
     schedule, as in JAX: it ignores ``sampler``, ``num_steps`` and ``eta``,
     and rejects ``spacing``. ``cond_dim`` is the width of the condition
     rows, None for an unconditional service. ``mesh`` is a
-    ``parallel.mesh.Mesh`` whose first device is the pipeline's (see the
-    module docstring). The other arguments are the JAX package's.
+    ``parallel.mesh.Mesh`` (see the module docstring). The other arguments are the JAX package's.
     """
 
     def __init__(
@@ -190,16 +193,18 @@ class SamplingService:
                 raise ValueError(
                     f"batch_buckets must be ascending and unique, got {batch_buckets!r}")
             self.device = pipeline.device
+            self._views: dict = {}
             if mesh is not None:
-                if mesh.shape[DATA_AXIS] > 1:
-                    raise NotImplementedError(
-                        f"mesh {mesh.shape}: a data axis > 1 (one model replica per card) is not "
-                        "ported yet (ROADMAP Queue 1 item 13); serve with data=1",
-                    )
-                first = mesh.devices[0][0]
-                if first != canonical_device(self.device):
-                    raise ValueError(f"the pipeline runs on {self.device}, but the mesh's first "
-                                     f"device is {first}: the UNet runs on the mesh's first device")
+                n_data = mesh.shape[DATA_AXIS]
+                bad = [b for b in batch_buckets if b % n_data]
+                if bad:
+                    raise ValueError(
+                        f"batch_buckets {bad} not divisible by the mesh data axis ({n_data}) — "
+                        "each launch shards its batch evenly over the data axis")
+                home = canonical_device(self.device)
+                for dev in {d for row in mesh.devices for d in row}:
+                    self._views[dev] = pipeline if dev == home else pipeline.for_device(
+                        dev, copy.deepcopy(pipeline.backbone).to(dev))
             self.mesh = mesh
             if spacing is not None and not hasattr(pipeline, "coeffs"):
                 raise ValueError(
@@ -360,7 +365,8 @@ class SamplingService:
         launches already enqueued finish on the old weights, the next one
         reads the new ones."""
         with self._launch_lock, self._on_stream(self._stream):
-            self.pipeline.backbone.load_state_dict(params)
+            for pipe in {id(p): p for p in (self.pipeline, *self._views.values())}.values():
+                pipe.backbone.load_state_dict(params)
 
     def reload_from_checkpoint(self, checkpoint=None) -> list[str]:
         """Re-resolve the weights (a ``.pth``/``.npz`` file or a checkpoint
@@ -434,36 +440,53 @@ class SamplingService:
         pipeline, mesh, guidance = self.pipeline, self.mesh, self.guidance_scale
         shape = pipeline.sample_shape(bucket)
         narrow = _NARROW.get(self.transfer_dtype)
-        if mesh is not None and mesh.shape[CONTEXT_AXIS] <= 1:
-            mesh = None
 
         # On the CPU each row of a launch samples on its own: oneDNN and the
         # CPU BLAS pick their algorithm by batch size, so a row's last bits
         # would otherwise depend on its neighbours. Row by row, a request is
         # bitwise the same alone and co-batched, as JAX's contract holds.
-        rows = [1] * bucket if self.device.type == "cpu" else [bucket]
+        cpu = self.device.type == "cpu"
 
         if hasattr(pipeline, "coeffs"):  # the GaussianDiffusion family
             opts = dict(sampler=self.sampler, eta=self.eta, num_steps=self.num_steps,
                         spacing=self.spacing, t_checkpoints=())
 
-            def sample(shape, conds, keys):
-                return pipeline.reverse_process(shape, conds, row_keys=keys,
-                                                guidance_scale=guidance, **opts)
+            def sample(pipe, shape, conds, keys):
+                return pipe.reverse_process(shape, conds, row_keys=keys,
+                                            guidance_scale=guidance, **opts)
         else:  # DDPM: ancestral over the full schedule
-            def sample(shape, conds, keys):
-                return pipeline.reverse_process(shape, conds, row_keys=keys,
-                                                guidance_scale=guidance)["denoised"]
+            def sample(pipe, shape, conds, keys):
+                return pipe.reverse_process(shape, conds, row_keys=keys,
+                                            guidance_scale=guidance)["denoised"]
+
+        def rows(pipe, shape, conds, keys):
+            n = shape[0]
+            outs = []
+            for at in range(0, n, 1 if cpu else n):
+                m = 1 if cpu else n
+                outs.append(sample(pipe, (m, *shape[1:]), None if conds is None
+                                   else conds[at:at + m].to(pipe.device), keys[at:at + m]))
+            return torch.cat(outs) if len(outs) > 1 else outs[0]
 
         def fn(seeds, idxs, conds):
             keys = keys_from_seeds(seeds, idxs)
-            outs, at = [], 0
-            with active_mesh(mesh):
-                for m in rows:
-                    outs.append(sample((m, *shape[1:]), None if conds is None
-                                       else conds[at:at + m], keys[at:at + m]))
-                    at += m
-            out = torch.cat(outs) if len(outs) > 1 else outs[0]
+            if mesh is None:
+                out = rows(pipeline, shape, conds, keys)
+            else:
+                n_data, n_ctx = mesh.shape[DATA_AXIS], mesh.shape[CONTEXT_AXIS]
+                r, depth = bucket // n_data, shape[1] // n_ctx
+                if shape[1] % n_ctx:
+                    raise ValueError(f"depth {shape[1]} does not split over {n_ctx} context ranks")
+
+                def rank_rows(rank):
+                    lo = rank.data * r
+                    local = (r, depth if n_ctx > 1 else shape[1], *shape[2:])
+                    return rows(self._views[rank.device], local,
+                                None if conds is None else conds[lo:lo + r], keys[lo:lo + r])
+
+                first = mesh.devices[0][0]
+                out = torch.cat([torch.cat([o.to(first) for o in row], dim=1)
+                                 for row in spmd.run_ranks(mesh, rank_rows, n_ctx > 1)])
             return out.to(narrow) if narrow is not None else out
 
         self._compiled[bucket] = fn

@@ -124,10 +124,11 @@ def _bias_correction(decay: float, count: int) -> float:
     return float(1 - _f32(decay) ** count)
 
 
-def _trust_ratio(u: torch.Tensor, p: torch.Tensor, coefficient: float = 1.0) -> torch.Tensor:
+def _trust_ratio(u: torch.Tensor, u_norm: torch.Tensor, p_norm: torch.Tensor,
+                 coefficient: float = 1.0) -> torch.Tensor:
     """optax.scale_by_trust_ratio (min_norm 0, eps 0): u scaled by
-    coefficient * |p| / |u|, or left as it is where either norm is 0."""
-    p_norm, u_norm = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+    coefficient * |p| / |u|, or left as it is where either norm is 0. The
+    norms are the whole leaf's (under ZeRO-1, over all of its shards)."""
     ratio = coefficient * p_norm / u_norm
     return u * torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(ratio), ratio)
 
@@ -138,10 +139,27 @@ class OptaxRule(torch.optim.Optimizer):
     ``update`` returns what optax's update adds to it (the sign included),
     given the update count (1 for the first step) and the group's
     hyper-parameters. The state holds the count under "count", as optax's
-    does."""
+    does.
+
+    A rule with ``trust_ratio`` scales its update by norms of the whole
+    leaf: ``direction`` gives the update before the scaling and ``finish``
+    applies it from the leaf's norms, which ZeRO-1 sums over the leaf's
+    shards (``training/zero1.py``)."""
+
+    trust_ratio = False
 
     def __init__(self, params, lr: Optional[float], **defaults: Any) -> None:
         super().__init__(params, {"lr": lr, **defaults})
+
+    def begin(self, p: torch.Tensor, group: dict) -> tuple[dict, int]:
+        """``p``'s state, initialised on its first step, and this update's
+        count (1 for the first)."""
+        state = self.state[p]
+        if not state:
+            state["count"] = 0
+            self.init(p, state, group)
+        state["count"] += 1
+        return state, state["count"]
 
     def init(self, p: torch.Tensor, state: dict, group: dict) -> None:
         raise NotImplementedError
@@ -160,13 +178,27 @@ class OptaxRule(torch.optim.Optimizer):
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                state = self.state[p]
-                if not state:
-                    state["count"] = 0
-                    self.init(p, state, group)
-                state["count"] += 1
-                p.add_(self.update(p.grad, p, state, group, state["count"]))
+                state, count = self.begin(p, group)
+                p.add_(self.update(p.grad, p, state, group, count))
         return loss
+
+
+class TrustRatioRule(OptaxRule):
+    """A rule whose update is ``finish`` of ``direction`` with the leaf's
+    norms |direction| and |p|."""
+
+    trust_ratio = True
+
+    def direction(self, g, p, state, group, count) -> torch.Tensor:
+        raise NotImplementedError
+
+    def finish(self, u, p, state, group, u_norm, p_norm) -> torch.Tensor:
+        raise NotImplementedError
+
+    def update(self, g, p, state, group, count):
+        u = self.direction(g, p, state, group, count)
+        return self.finish(u, p, state, group, torch.linalg.vector_norm(u),
+                           torch.linalg.vector_norm(p))
 
 
 def _zeros(p: torch.Tensor, state: dict, *names: str) -> None:
@@ -250,17 +282,19 @@ class OptaxRAdam(OptaxAdam):
         return -group["lr"] * (r * mu_hat / (nu_hat.sqrt() + group["eps"]))
 
 
-class OptaxLAMB(OptaxAdam):
+class OptaxLAMB(TrustRatioRule, OptaxAdam):
     """optax.lamb: the Adam ratio plus weight decay, scaled by the trust
     ratio |p| / |update|."""
 
     def __init__(self, params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0) -> None:
-        super().__init__(params, lr, betas, eps, weight_decay=weight_decay)
+        OptaxAdam.__init__(self, params, lr, betas, eps, weight_decay=weight_decay)
 
-    def update(self, g, p, state, group, count):
+    def direction(self, g, p, state, group, count):
         mu_hat, nu_hat = self.moments(g, state, group, count)
-        u = mu_hat / (nu_hat.sqrt() + group["eps"]) + group["weight_decay"] * p
-        return -group["lr"] * _trust_ratio(u, p)
+        return mu_hat / (nu_hat.sqrt() + group["eps"]) + group["weight_decay"] * p
+
+    def finish(self, u, p, state, group, u_norm, p_norm):
+        return -group["lr"] * _trust_ratio(u, u_norm, p_norm)
 
 
 class OptaxRMSprop(OptaxRule):
@@ -333,7 +367,7 @@ class OptaxLion(OptaxRule):
         return -group["lr"] * (u + group["weight_decay"] * p)
 
 
-class OptaxLARS(OptaxRule):
+class OptaxLARS(TrustRatioRule):
     """optax.lars: (g + weight decay) scaled by trust_coefficient |p| / |u|,
     the lr step fed to a momentum trace."""
 
@@ -345,9 +379,11 @@ class OptaxLARS(OptaxRule):
     def init(self, p, state, group):
         _zeros(p, state, "trace")
 
-    def update(self, g, p, state, group, count):
-        u = _trust_ratio(g + group["weight_decay"] * p, p, group["trust_coefficient"])
-        u = -group["lr"] * u
+    def direction(self, g, p, state, group, count):
+        return g + group["weight_decay"] * p
+
+    def finish(self, u, p, state, group, u_norm, p_norm):
+        u = -group["lr"] * _trust_ratio(u, u_norm, p_norm, group["trust_coefficient"])
         trace = state["trace"].mul_(group["momentum"]).add_(u)
         return u + group["momentum"] * trace if group["nesterov"] else trace.clone()
 

@@ -11,7 +11,13 @@ here it holds the live objects the step updates in place:
 * ``ema``: the EMA shadow of every parameter, by ``state_dict`` name, or
   None when EMA is off;
 * ``generator``: the ``torch.Generator`` the step draws timesteps, noise and
-  conditioning-dropout masks from (on the model's device).
+  conditioning-dropout masks from (on the model's device);
+* ``mesh`` and ``replicas``: set by ``parallel.mesh.replicate_state`` for
+  steps over a ("data", "context") mesh: the model's replica on each other
+  device of the mesh. Under ZeRO-1 (``parallel.mesh.shard_opt_state_zero1``)
+  ``optimizer`` is a ``training.zero1.Zero1Optimizer`` and ``ema`` a
+  ``ShardedEMA``, whose checkpoint payloads are gathered, so a checkpoint
+  is the same with and without them.
 
 ``state_dict()`` is the checkpoint payload: the backbone weights in the
 reference layout (``params``), the optimizer state, the EMA weights, the
@@ -19,8 +25,8 @@ step and the generator state, so a resumed run continues exactly.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Any, Optional
 
 import torch
 from torch import nn
@@ -33,6 +39,8 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     ema: Optional[dict[str, torch.Tensor]]
     generator: torch.Generator
+    mesh: Optional[Any] = None
+    replicas: dict = field(default_factory=dict)
 
     def state_dict(self) -> dict:
         return {
@@ -51,9 +59,12 @@ class TrainState:
         if self.ema is not None:
             if payload.get("ema_params") is None:
                 raise ValueError("the checkpoint has no EMA weights but this run keeps an EMA")
-            with torch.no_grad():
-                for k, v in self.ema.items():
-                    v.copy_(payload["ema_params"][k])
+            if not isinstance(self.ema, dict):  # ZeRO-1's EMA splits what it reads
+                self.ema.load(payload["ema_params"])
+            else:
+                with torch.no_grad():
+                    for k, v in self.ema.items():
+                        v.copy_(payload["ema_params"][k])
         self.generator.set_state(payload["rng"])
 
     def load_adam_moments(self, exp_avg: dict, exp_avg_sq: dict, count: int) -> None:

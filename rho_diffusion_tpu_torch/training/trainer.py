@@ -1,4 +1,4 @@
-"""The training orchestrator, on one device.
+"""The training orchestrator, on one device or over a mesh.
 
 Port of ``rho_diffusion_tpu/training/trainer.py``: ``build_pipeline_from_config``
 (:49-126) and ``Trainer`` (:168-581), kept:
@@ -21,10 +21,32 @@ Port of ``rho_diffusion_tpu/training/trainer.py``: ``build_pipeline_from_config`
   (``training.profiling.trace``) and writes the chrome trace there when it
   ends, as the JAX trainer traces it with ``jax.profiler``.
 
-The JAX package's mesh options have no single-device meaning and raise
-``NotImplementedError`` instead of being ignored: a ``mesh`` over more than
-one device (so also ``device_cache_shard``'s table over a data mesh),
-``tensor_parallel``, ``fsdp``, ``zero1`` and ``spatial_sharding``.
+The mesh (JAX :190-210, :272-276, :425-431): ``Trainer(mesh=...)`` takes a
+``parallel.mesh.Mesh``; without one it builds ``training.mesh`` ("data",
+"context"; data -1 takes the rest) over every CUDA card, or over the one
+CPU with ``device="cpu"``, a sub-mesh when it asks for fewer ranks, and
+raises ``ValueError`` when it asks for more; a config without
+``training.mesh`` trains on the one device it names. Tests and chip_smoke pass an
+explicit ``make_mesh(4, 2, devices=[...] * 8)``, whose ranks may share a
+device. Over a mesh of more than one rank, or with ``zero1`` or
+``spatial_sharding``:
+
+* the batch must divide by the data axis (``ValueError``), the learning
+  rate is scaled by sqrt(the mesh's rank count), as JAX's trainer passes
+  ``mesh.devices.size`` on;
+* each batch is placed on the mesh: rows over "data", and with
+  ``spatial_sharding`` the 5-D ``data`` key's depth over "context" (labels
+  keep plain batch sharding); ``device_cache`` with ``device_cache_shard``
+  splits the table's rows over the data ranks;
+* the state is replicated (``replicate_state``), ``zero1`` splits the
+  optimizer state and the EMA (``shard_opt_state_zero1``), and every step
+  runs under ``active_mesh``;
+* checkpoints gather ZeRO-1's slices and split them on restore, so the
+  exact mid-epoch resume holds.
+
+``fsdp`` and ``zero1`` together raise ``ValueError`` as in JAX;
+``tensor_parallel`` and ``fsdp`` are not ported and raise
+``NotImplementedError`` (ROADMAP Queue 1 item 13b).
 """
 from __future__ import annotations
 
@@ -41,6 +63,17 @@ import torch
 from rho_diffusion_tpu_torch.config import ExperimentConfig
 from rho_diffusion_tpu_torch.data.device_cache import DeviceDatasetCache
 from rho_diffusion_tpu_torch.data.loader import DataLoader, Subset, prefetch, prefetch_to_device
+from rho_diffusion_tpu_torch.parallel.mesh import (
+    CONTEXT_AXIS,
+    DATA_AXIS,
+    Mesh,
+    active_mesh,
+    batch_sharding,
+    make_mesh,
+    replicate_state,
+    shard_batch,
+    shard_opt_state_zero1,
+)
 from rho_diffusion_tpu_torch.registry import registry
 from rho_diffusion_tpu_torch.training.checkpoint import (
     CheckpointManager,
@@ -53,7 +86,7 @@ from rho_diffusion_tpu_torch.training.profiling import trace
 from rho_diffusion_tpu_torch.training.state import TrainState
 from rho_diffusion_tpu_torch.utils import resolve_device
 
-_UNSUPPORTED = ("tensor_parallel", "fsdp", "zero1", "spatial_sharding")
+_NOT_PORTED = ("tensor_parallel", "fsdp")
 
 
 def build_pipeline_from_config(
@@ -123,18 +156,36 @@ def build_pipeline_from_config(
     )
 
 
-def check_single_device(config: ExperimentConfig) -> None:
-    """Raise for the training options that need more than one device."""
+def check_mesh_options(config: ExperimentConfig) -> None:
+    """JAX's rules for the mesh options: fsdp and zero1 exclude each other
+    (``ValueError``); tensor_parallel and fsdp are not ported."""
     cfg = config.training
-    mesh = cfg.mesh or {}
-    if int(mesh.get("data", -1)) not in (-1, 1) or int(mesh.get("context", 1)) != 1:
-        raise NotImplementedError(
-            f"training.mesh {mesh} spans more than one device; the port trains on one "
-            "(ROADMAP Queue 1, context-parallel training across GPUs)",
-        )
-    on = [name for name in _UNSUPPORTED if getattr(cfg, name)]
+    if cfg.fsdp and cfg.zero1:
+        raise ValueError("training.fsdp and training.zero1 are mutually exclusive: "
+                         "fsdp (ZeRO-3) already shards the optimizer state")
+    on = [name for name in _NOT_PORTED if getattr(cfg, name)]
     if on:
-        raise NotImplementedError(f"training options {on} are not ported (one device only)")
+        raise NotImplementedError(
+            f"training options {on} shard the parameters, which is not ported yet "
+            "(ROADMAP Queue 1 item 13b); zero1 shards the optimizer state")
+
+
+def mesh_from_config(config: ExperimentConfig, device: torch.device) -> Mesh:
+    """``training.mesh`` over every CUDA card (the one CPU when ``device`` is
+    the CPU): data -1 takes the rest, a mesh of fewer ranks than devices
+    takes the first ones (JAX :190-198), and one of more raises. Without
+    ``training.mesh``, the one ``device``."""
+    spec = config.training.mesh
+    if spec is None:
+        return make_mesh(1, 1, [device])
+    data, context = int(spec.get("data", -1)), int(spec.get("context", 1))
+    if device.type == "cpu":
+        devices = [device]
+    else:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    if data != -1 and data * context < len(devices):
+        devices = devices[:data * context]
+    return make_mesh(data, context, devices)
 
 
 @contextlib.contextmanager
@@ -166,18 +217,36 @@ class Trainer:
         device=None,
         loggers=None,
         profile_dir: Optional[str] = None,
+        mesh: Optional[Mesh] = None,
     ) -> None:
-        check_single_device(config)
+        check_mesh_options(config)
         self.profile_dir = profile_dir
         self.config = config
-        self.device = resolve_device(device or config.training.device)
+        cfg = config.training
+        if mesh is None:
+            device = resolve_device(device or cfg.device)
+            mesh = mesh_from_config(config, device)
+            if cfg.mesh is not None:
+                device = mesh.devices[0][0]
+        else:
+            device = mesh.devices[0][0]
+        self.mesh = mesh
+        self.device = device
+        self.world_size = mesh.shape[DATA_AXIS] * mesh.shape[CONTEXT_AXIS]
+        # the mesh step: several ranks, or an option that shards one rank's state
+        self.on_mesh = self.world_size > 1 or cfg.zero1 or cfg.spatial_sharding
+        data_size = mesh.shape[DATA_AXIS]
+        if cfg.batch_size % data_size:
+            raise ValueError(
+                f"batch_size {cfg.batch_size} is not divisible by the {data_size}-rank data "
+                f"axis. Set training.batch_size to a multiple of {data_size}, or pick a smaller "
+                f'mesh via training.mesh = {{"data": N, "context": M}}.')
         self.work_dir = Path(work_dir)
         self.work_dir.mkdir(parents=True, exist_ok=True)
         if dataset is None:
             dataset = registry.get("datasets", config.dataset.name)(**config.dataset.kwargs)
         self.dataset = dataset
 
-        cfg = config.training
         train_ds, self.val_ds = dataset, None
         if cfg.val_fraction > 0:
             n = len(dataset)
@@ -193,7 +262,7 @@ class Trainer:
         )
         if pipeline is None:
             pipeline = build_pipeline_from_config(
-                config, dataset=dataset, device=self.device,
+                config, dataset=dataset, device=self.device, world_size=self.world_size,
                 steps_per_epoch=max(len(self.loader), 1), seed=cfg.seed)
         self.pipeline = pipeline
         self.checkpoints = CheckpointManager(cfg.checkpoint_dir or self.work_dir / "checkpoints")
@@ -205,12 +274,25 @@ class Trainer:
         for lg in self.loggers:
             lg.log(record)
 
+    @property
+    def data_sharding(self) -> dict:
+        """The per-key placement of a batch over the mesh: the volume's depth
+        over "context" with ``spatial_sharding``, rows over "data" else."""
+        return {"data": batch_sharding(self.mesh, self.config.training.spatial_sharding)}
+
     @functools.cached_property
     def device_cache(self) -> DeviceDatasetCache:
-        """The training split on the device, built on first use
-        (``training.device_cache``)."""
-        return DeviceDatasetCache(self.loader.dataset, collate_fn=self.loader.collate_fn,
-                                  device=self.device)
+        """The training split on the device (over a mesh: its rows 1/N on
+        each data rank's device with ``device_cache_shard``), built on first
+        use (``training.device_cache``)."""
+        cfg = self.config.training
+        if not self.on_mesh:
+            return DeviceDatasetCache(self.loader.dataset, collate_fn=self.loader.collate_fn,
+                                      device=self.device)
+        return DeviceDatasetCache(
+            self.loader.dataset, collate_fn=self.loader.collate_fn, device=self.device,
+            mesh=self.mesh, per_key=self.data_sharding,
+            shard_over_data=cfg.device_cache_shard and self.mesh.shape[DATA_AXIS] > 1)
 
     # -- state ----------------------------------------------------------
     def init_state(self, resume: bool = True, weights_path: Optional[str] = None) -> TrainState:
@@ -231,6 +313,10 @@ class Trainer:
             self.log({"event": "stale_checkpoints", "latest_step": int(latest),
                       "warning": "starting fresh over existing checkpoints; "
                                  "consider a clean checkpoint_dir"})
+        if self.on_mesh:
+            replicate_state(state, self.mesh)
+            if self.config.training.zero1:
+                shard_opt_state_zero1(state, self.mesh)
         return state
 
     # -- epoch-end hooks ------------------------------------------------
@@ -323,6 +409,9 @@ class Trainer:
                 skip = skip_batches if epoch == start_epoch else 0
                 if cfg.device_cache:
                     batches = self.device_cache.batches(self.loader, skip)
+                elif self.on_mesh:
+                    batches = prefetch(shard_batch(b, self.mesh, self.data_sharding)
+                                       for b in self.loader.iter_batches(skip))
                 else:
                     batches = prefetch_to_device(prefetch(self.loader.iter_batches(skip)),
                                                  self.device)
@@ -331,7 +420,8 @@ class Trainer:
                 for batch in batches:
                     if preempted:
                         break
-                    metrics = self.pipeline.training_step(state, batch)
+                    with active_mesh(self.mesh if self.on_mesh else None):
+                        metrics = self.pipeline.training_step(state, batch)
                     n_steps += 1
                     step = int(state.step)
                     if step % log_every == 0 or n_steps == 1:

@@ -224,11 +224,13 @@ def test_auto_dispatch_picks_ring_under_a_context_mesh(monkeypatch):
 
 
 def test_ring_backend_without_a_mesh_is_full_attention():
+    """Without a mesh the ring and Ulysses (ported) are full attention, as in
+    JAX :97-100, :108-112."""
     q, k, v = (torch.from_numpy(x) for x in qkv((1, 12, 2, 8), seed=3))
     np.testing.assert_array_equal(attention(q, k, v, backend="ring").numpy(),
                                   xla_attention(q, k, v).numpy())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention(q, k, v, backend="ulysses")
+    np.testing.assert_array_equal(attention(q, k, v, backend="ulysses").numpy(),
+                                  xla_attention(q, k, v).numpy())
 
 
 def test_impl_flag_validation(monkeypatch):

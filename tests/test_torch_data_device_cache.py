@@ -22,6 +22,7 @@ from rho_diffusion_tpu_torch.config import ExperimentConfig
 from rho_diffusion_tpu_torch.data.device_cache import DeviceDatasetCache
 from rho_diffusion_tpu_torch.data.loader import DataLoader
 from rho_diffusion_tpu_torch.data.synthetic import SphericalHarmonicDataset
+from rho_diffusion_tpu_torch.parallel.mesh import make_mesh
 from rho_diffusion_tpu_torch.training.trainer import Trainer
 from test_torch_training import SignalAtStep
 
@@ -116,8 +117,16 @@ def test_budget_enforced():
 
 
 def test_shard_over_data_raises():
-    with pytest.raises(NotImplementedError, match="item 13"):
+    """JAX's rule: shard_over_data without a data axis of at least 2 raises
+    ``ValueError``; over a data mesh of 2 it splits the rows (ported)."""
+    with pytest.raises(ValueError, match="data"):
         DeviceDatasetCache(ArangeDataset(n=8), device="cpu", shard_over_data=True)
+    with pytest.raises(ValueError, match="data"):
+        DeviceDatasetCache(ArangeDataset(n=8), shard_over_data=True,
+                           mesh=make_mesh(1, 2, devices=["cpu"] * 2))
+    cache = DeviceDatasetCache(ArangeDataset(n=8), shard_over_data=True, num_workers=0,
+                               mesh=make_mesh(2, 1, devices=["cpu"] * 2))
+    assert cache.rows_per_rank == 4 and cache.device.type == "cpu"
 
 
 def test_cache_needs_cuda_unless_asked_for_the_cpu():

@@ -31,7 +31,9 @@ and 4096; the direct conv's three flagship convs at full
 width and shapes off its 8 x 32 voxel tile; and the ring-attention kernel
 (K6, one launch per card) in its ring of 2 and 4 ranks on one card at T/n =
 128 and 1024, ragged shards and a padded head dim, and with one rank per
-card where there are two or more.
+card where there are two or more. The spatial-sharding route: K5 and its
+dgrad on haloed depth slabs (2 and 4 ranks on one card); Ulysses at the
+flagship's attention shape, one K1 and one fused K3/K4 launch a rank.
 The conv's bottleneck-isolation kernels (K7-K9, on K5's block) at the
 level-1 widths and off their tiles (K7 ``full`` bitwise K5), and what they
 refuse. The int8 kernels (S1 on K5's block with s8 operands, S2, S3) bitwise
@@ -1451,3 +1453,59 @@ def test_int8_s3_matches_plain(cuda, shape, dtype):
     q, s = k.quantize_rows_kernel(x)
     qp, sp = k.quantize_rows_plain(x)
     assert torch.equal(q, qp) and torch.equal(s, sp)
+
+
+@pytest.mark.parametrize("context", [2, 4])
+def test_conv3d_kernel_on_haloed_slabs(cuda, context):
+    """K5 on each rank's depth slab with its two halo planes, cropped (the
+    UNet's route under spatial sharding: ``ConvNd`` through
+    ``parallel.spatial.sharded_conv3d_local``), at the flagship's level-1
+    width with 32 planes over ``context`` ranks on one card: one K5 launch a
+    rank, and the result and its dgrad (K5's dgrad on the haloed slab)
+    against the plain conv of the whole volume."""
+    from rho_diffusion_tpu_torch.parallel.spatial import spatial_sharded_conv3d
+
+    x = randn((2, 32, 16, 16, 64), 21, cuda, torch.bfloat16)
+    w = randn((64, 64, 3, 3, 3), 22, cuda, torch.bfloat16, 1 / math.sqrt(27 * 64))
+    g = randn((2, 32, 16, 16, 64), 23, cuda, torch.bfloat16)
+    mesh = make_mesh(1, context, devices=["cuda"] * context)
+    launch_counts.clear()
+    xs = x.clone().requires_grad_()
+    got = spatial_sharded_conv3d(xs, w, mesh)
+    got.backward(g)
+    assert launch_counts["conv3d_igemm"] == context
+    assert launch_counts["conv3d_dgrad_igemm"] == context
+    xr = x.float().requires_grad_()
+    want = conv3d(xr, w.float(), None, plain=True)
+    want.backward(g.float())
+    torch.testing.assert_close(got.float(), want, atol=TOL_BF16 * float(want.abs().max()),
+                               rtol=TOL_BF16)
+    tol = TOL_BF16 * 4
+    torch.testing.assert_close(xs.grad.float(), xr.grad, atol=tol * float(xr.grad.abs().max()),
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("context", [2, 4])
+def test_ulysses_launches_the_flash_kernels_per_rank(cuda, context):
+    """Ulysses at the flagship's attention shape (8 rows, T 512, 4 heads of
+    128) over ``context`` ranks on one card: each rank's full-T attention
+    over 4/context heads is one K1 launch forward and one fused K3/K4
+    launch backward, and the output and gradients hold against full
+    attention in fp32."""
+    from rho_diffusion_tpu_torch.parallel.ulysses import ulysses_sharded_attention
+
+    q, k, v = (randn((8, 512, 4, 128), 31 + i, cuda, torch.bfloat16) for i in range(3))
+    do = randn((8, 512, 4, 128), 34, cuda, torch.bfloat16)
+    mesh = make_mesh(1, context, devices=["cuda"] * context)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    launch_counts.clear()
+    out = ulysses_sharded_attention(*leaves, mesh)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert launch_counts["flash_attention"] == context
+    assert launch_counts["flash_attention_bwd"] == context
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    want = xla_attention(*ref)
+    want_grads = torch.autograd.grad(want, ref, do.float())
+    assert_flash_close(out, want, torch.bfloat16)
+    for a, e in zip(grads, want_grads):
+        assert_flash_close_bwd(a, e)

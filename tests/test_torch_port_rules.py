@@ -10,9 +10,12 @@
   mode with an input that requires grad raises instead of cutting the graph.
   The forward-only bottleneck-isolation kernels (K7-K9) raise the same way,
   and their benchmark entries need CUDA unless given ``-d cpu``.
-* The training options that need more than one device raise, and so does
-  the serving option not ported yet (a data axis > 1); ``--quant int8``
-  serves on the CPU with the int8 plain versions and restores the mode.
+* The mesh options keep JAX's rules: ZeRO-1, spatial sharding and a data
+  or context mesh train given a mesh of CPU ranks, a config mesh of more
+  ranks than the host has raises, and the options that shard the
+  parameters (fsdp, tensor_parallel) raise; the serve CLI's data axis
+  serves when the buckets divide by it; ``--quant int8`` serves on the CPU
+  with the int8 plain versions and restores the mode.
 """
 import http.client
 import json
@@ -163,9 +166,22 @@ def test_serve_and_mesh_raise_without_cuda():
     ["--data-parallel", "2", "--context-parallel", "2"],
 ], ids=["data2", "data2-context2"])
 def test_serve_options_not_ported_raise(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_server([str(ROOT / "examples" / "config_smoke.json"), "-d", "cpu", "--port", "0",
-                      *argv])
+    """A data axis of 2 (ported): the default buckets (1 among them) do not
+    divide by it and raise, as in JAX; buckets of 2 and 4 serve, the rows
+    split over the data ranks (and the depth over the context ranks)."""
+    base = [str(ROOT / "examples" / "config_smoke.json"), "-d", "cpu", "--port", "0", *argv]
+    with pytest.raises(ValueError, match="not divisible by the mesh data axis"):
+        build_server(base)
+    server, svc = build_server(base + ["--buckets", "2,4"], log=lambda m: None)
+    try:
+        assert svc.stats()["mesh"] == {"data": 2, "context": int(argv[-1]) if len(argv) > 2
+                                       else 1}
+        res = svc.generate(conditions=[[1, 0], [2, 1], [3, 2]], seed=2)
+        assert res.samples.shape == (3, 8, 8, 8, 1) and res.bucket == 4
+        assert np.isfinite(res.samples).all()
+    finally:
+        server.server_close()
+        svc.close()
 
 
 def test_serve_quant_int8_serves_on_the_cpu_and_restores_the_mode():
@@ -340,29 +356,60 @@ def test_benchmark_entries_need_cuda_unless_asked_for_the_cpu(entry):
     {"device_cache": True}, {"mesh": {"data": 2, "context": 1}}, {"mesh": {"context": 2}},
 ], ids=lambda o: next(iter(o)))
 def test_unsupported_trainer_options_raise(tmp_path, option):
-    """The options that need more than one device raise. ``device_cache``
-    (ported, the table on the one device) builds a Trainer, whose cache
-    comes up at its first use on the device asked for."""
+    """The options that shard the parameters (fsdp, tensor_parallel) raise,
+    naming ROADMAP item 13b. ``device_cache`` builds a Trainer, whose cache
+    comes up at its first use on the device asked for. ZeRO-1, spatial
+    sharding and a data or context mesh build and step given a mesh of CPU
+    ranks (a 2 x 2 one); without one, a config mesh of more ranks than the
+    CPU's one raises ``ValueError`` as JAX's ``make_mesh`` does."""
     cfg = json.loads((ROOT / "examples" / "config_smoke.json").read_text())
     cfg["training"].update(option)
+    config = ExperimentConfig.from_dict(cfg)
+    if "fsdp" in option or "tensor_parallel" in option:
+        with pytest.raises(NotImplementedError, match="item 13"):
+            Trainer(config, work_dir=tmp_path, device="cpu")
+        return
     if option == {"device_cache": True}:
-        trainer = Trainer(ExperimentConfig.from_dict(cfg), work_dir=tmp_path, device="cpu")
+        trainer = Trainer(config, work_dir=tmp_path, device="cpu")
         assert trainer.config.training.device_cache
         cache = trainer.device_cache
         assert cache.device.type == "cpu" and cache.nbytes == 16 * (8 ** 3 + 256) * 4
         return
-    with pytest.raises(NotImplementedError):
-        Trainer(ExperimentConfig.from_dict(cfg), work_dir=tmp_path, device="cpu")
+    if "mesh" in option:
+        with pytest.raises(ValueError, match="devices"):
+            Trainer(config, work_dir=tmp_path, device="cpu")
+    mesh = make_mesh(2, 2, devices=["cpu"] * 4)
+    trainer = Trainer(config, work_dir=tmp_path, device="cpu", mesh=mesh)
+    state = trainer.init_state()
+    assert state.mesh is mesh and trainer.world_size == 4
+    # JAX's lr rule: the configured lr times sqrt(the mesh's rank count)
+    assert trainer.pipeline.optimizer.lr(0) == pytest.approx(
+        cfg["optimizer"]["kwargs"]["lr"] * 2.0)
+    metrics = trainer.pipeline.training_step(state, next(iter(trainer.loader)))
+    assert np.isfinite(float(metrics["train_loss"])) and state.step == 1
 
 
 def test_device_cache_over_a_data_mesh_raises(tmp_path):
-    """``device_cache_shard`` splits the table over a data mesh of several
-    cards: the mesh itself raises."""
+    """``device_cache_shard`` splits the table over a data mesh (ported):
+    the Trainer's cache holds half the rows on each of two data ranks, and
+    a placed batch gathers to those rows of the table in the loader's
+    order; a config data mesh wider than the host raises."""
     cfg = json.loads((ROOT / "examples" / "config_smoke.json").read_text())
     cfg["training"].update(device_cache=True, device_cache_shard=True,
                            mesh={"data": 2, "context": 1})
-    with pytest.raises(NotImplementedError, match="more than one device"):
-        Trainer(ExperimentConfig.from_dict(cfg), work_dir=tmp_path, device="cpu")
+    config = ExperimentConfig.from_dict(cfg)
+    with pytest.raises(ValueError, match="available devices"):
+        Trainer(config, work_dir=tmp_path, device="cpu")
+    trainer = Trainer(config, work_dir=tmp_path, device="cpu",
+                      mesh=make_mesh(2, 1, devices=["cpu"] * 2))
+    cache = trainer.device_cache
+    assert cache.shard_over_data and cache.rows_per_rank == 8
+    trainer.loader.set_epoch(0)
+    rec = next(iter(trainer.loader.iter_index_batches(0)))
+    got = cache.batch(rec["idx"])
+    for k in ("data", "labels"):
+        table = torch.cat([shard[k] for shard in cache._shards])
+        np.testing.assert_array_equal(got[k].full().numpy(), table[rec["idx"]].numpy())
 
 
 def test_training_profile_and_other_pipelines_raise(tmp_path, monkeypatch):

@@ -364,18 +364,19 @@ def test_from_config_derives_cond_dim_and_warns(tmp_path, cond_fn, want):
 # ---------------------------------------------------------------------------
 
 def test_context_parallel_service_matches_single_rank(monkeypatch):
-    """A context=2 mesh of CPU ranks with impl="rdma": every attention call
-    runs K6's ring (its plain step), and the samples match a single-rank
-    service's (test_serving.py:427-460's bar)."""
+    """A context=2 mesh of CPU ranks with impl="rdma": each rank samples its
+    depth slab, every attention call runs K6's ring over the slabs' tokens
+    (its plain step), and the samples match a single-rank service's
+    (test_serving.py:427-460's bar)."""
     monkeypatch.setenv("RHO_RING_ATTN_IMPL", "rdma")
     pipe = ddpm(data_shape=(4, 8, 8), dims=3, model_channels=16, attention_resolutions=[2],
                 num_heads=2)
     from rho_diffusion_tpu_torch.ops import attention as attn_mod
 
     rings = []
-    real = attn_mod.context_sharded_attention
-    monkeypatch.setattr(attn_mod, "context_sharded_attention",
-                        lambda q, *a, **kw: rings.append(q.shape) or real(q, *a, **kw))
+    real = attn_mod.ring_attention_rdma_shards
+    monkeypatch.setattr(attn_mod, "ring_attention_rdma_shards",
+                        lambda qs, *a, **kw: rings.append(qs[0].shape) or real(qs, *a, **kw))
     mesh = make_mesh(data=1, context=2, devices=["cpu", "cpu"])
     with SamplingService(pipe, batch_buckets=(2,), max_delay_s=0.0, mesh=mesh) as cp, \
             SamplingService(pipe, batch_buckets=(2,), max_delay_s=0.0) as single:
@@ -389,11 +390,18 @@ def test_context_parallel_service_matches_single_rank(monkeypatch):
 
 
 def test_service_mesh_rules():
+    """JAX's rule (serving.py:207-216): every bucket divides by the data
+    axis, else ``ValueError``; a data axis of 2 (ported) serves the data-1
+    service's rows, one model replica per data rank."""
     pipe = ddpm()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SamplingService(pipe, mesh=make_mesh(data=2, context=1, devices=["cpu"] * 2))
-    with pytest.raises(ValueError, match="first device"):
-        SamplingService(pipe, mesh=make_mesh(context=2, devices=["meta", "cpu"]))
+    with pytest.raises(ValueError, match="not divisible by the mesh data axis"):
+        SamplingService(pipe, batch_buckets=(1, 2), mesh=make_mesh(2, 1, devices=["cpu"] * 2))
+    with SamplingService(pipe, batch_buckets=(2,), max_delay_s=0.0,
+                         mesh=make_mesh(2, 1, devices=["cpu"] * 2)) as dp, \
+            SamplingService(pipe, batch_buckets=(2,), max_delay_s=0.0) as one:
+        np.testing.assert_array_equal(dp.generate(n=2, seed=4).samples,
+                                      one.generate(n=2, seed=4).samples)
+        assert dp.stats()["mesh"] == {"data": 2, "context": 1}
 
 
 def test_quantized_service():
