@@ -105,7 +105,17 @@ weights loaded from a reference-layout ``.pth``):
   leaf by 3x its own bf16 spread); Ulysses at the
   flagship's attention shape over 2 and 4 ranks against full attention,
   one K1 and one fused K3/K4 launch a rank, no SDPA kernel; the step time,
-  busy share and peak memory of the 8 ranks together;
+  busy share and peak memory of the 8 ranks together. Then the same fit
+  with ``fsdp`` in place of ``zero1`` and with ``tensor_parallel``
+  (``tp_min_dim`` 64, ``zero1`` kept, no spatial sharding): their steps
+  held against the one-rank step as above, each fit's step time, busy
+  share, peak and each rank's bytes at rest; every K5/direct problem any
+  of the fits launched held against its plain version (TP's Cout 32 blocks
+  at level 0 among them); and ``python -m
+  rho_diffusion_tpu_torch.training_ddp`` in two processes on the card
+  (torchrun's environment, gloo, data 2 x context 1: K1 and the fused
+  K3/K4 on the path), each a ``chip_smoke.py --ddp-child`` that records its
+  steps; both must report the same losses;
 * ``load``: the serving load harness
   (``rho_diffusion_tpu_torch.benchmarks.serve_bench``) at its defaults: its
   service (32^3 UNetv2 at full width, bf16, DDIM-50, buckets 1 and 8) over
@@ -370,11 +380,13 @@ DATA_ATTENTION = ((64, 256), (32, 512))
 # the gauss phase: the bench entry's runs (environment over its defaults),
 # the respaced steps of the CLI and the service, the service's buckets, and
 # the batch of the sample holds (the flagship's DDIM-50, the CLI's ddpm)
+# (train: one window, cut from the entry's 3, then 2, beside the multichip
+# phase's FSDP, TP and two-process runs)
 GAUSS_BENCH_RUNS = (
     ("sample", {"BENCH_MODE": "sample"}),
     ("sample_dpmpp10", {"BENCH_MODE": "sample", "BENCH_SAMPLER": "dpm++",
                         "BENCH_DDIM_STEPS": "10"}),
-    ("train", {"BENCH_MODE": "train"}),
+    ("train", {"BENCH_MODE": "train", "BENCH_WINDOWS": "1"}),
 )
 GAUSS_STEPS = 50
 # the CLI's and the service's respaced steps, cut 50 -> 25 to keep the
@@ -659,6 +671,22 @@ def build_pipeline(cfg: dict, dtype, device):
     config.model.kwargs["dtype"] = dtype
     dataset = SphericalHarmonicDataset(**config.dataset.kwargs)
     return build_pipeline_from_config(config, dataset=dataset, device=device)
+
+
+_RANDOM_WEIGHTS: dict = {}
+
+
+def random_weights(cfg: dict, seed: int = 0) -> dict:
+    """``random_state_dict(seed)`` of the backbone ``cfg``'s model builds,
+    made once a (model, seed) and shared by the phases that read it (the
+    flagship's train, serve and fp32 phases, the learned-variance gauss and
+    vlb phases): building the full-width UNet and its weights on the host
+    takes seconds each time."""
+    key = (json.dumps(cfg["model"], sort_keys=True), seed)
+    if key not in _RANDOM_WEIGHTS:
+        _RANDOM_WEIGHTS[key] = random_state_dict(build_pipeline(cfg, "float32", "cpu").backbone,
+                                                 seed)
+    return _RANDOM_WEIGHTS[key]
 
 
 def build_unet(cfg: dict, dtype, device, seed: int = 0):
@@ -2031,7 +2059,7 @@ def phase_gauss(state: dict) -> None:
     try:
         cfg_path = tmp / "config.json"
         cfg_path.write_text(json.dumps(cfg))
-        sd = random_state_dict(build_pipeline(cfg, "float32", "cpu").backbone, seed=0)
+        sd = random_weights(cfg)
         pth = tmp / "model.pth"
         torch.save(sd, pth)
 
@@ -2422,7 +2450,7 @@ def phase_vlb(state: dict) -> None:
     try:
         cfg_path = tmp / "config.json"
         cfg_path.write_text(json.dumps(cfg))
-        sd0 = random_state_dict(build_pipeline(cfg, "float32", "cpu").backbone, seed=0)
+        sd0 = random_weights(cfg)
         pth = tmp / "random.pth"
         torch.save(sd0, pth)
         work = tmp / "run"
@@ -2646,8 +2674,7 @@ def phase_train(state: dict, batch: int) -> None:
     device = torch.device(DEVICE)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
     try:
-        sd0 = random_state_dict(build_pipeline(flagship_config(25), "float32", "cpu").backbone,
-                                seed=0)
+        sd0 = random_weights(flagship_config(25))
         pth = tmp / "model.pth"
         torch.save(sd0, pth)
         cfg = train_config(batch)
@@ -2959,7 +2986,7 @@ def phase_serve(state: dict, steps: int) -> None:
     try:
         cfg_path = tmp / "config.json"
         cfg_path.write_text(json.dumps(cfg))
-        sd = random_state_dict(build_pipeline(cfg, "float32", "cpu").backbone, seed=0)
+        sd = random_weights(cfg)
         pth = tmp / "model.pth"
         torch.save(sd, pth)
         torch.cuda.empty_cache()
@@ -3168,6 +3195,22 @@ MULTICHIP_CUTS = {
     "training.loggers": "stdout, jsonl -> jsonl",
     "inference.cache_file, plot_output_file, checkpoint": "-> none",
 }
+# the same fit with FSDP in place of ZeRO-1 (spatial sharding kept), and with
+# tensor parallelism (its tp_min_dim 64: every conv but the head and every
+# Dense split by output channel over context 2; ZeRO-1 kept, spatial
+# sharding off: TP and slabs both use the context axis, ROADMAP item 13c)
+# (their checkpoint only at the fit's end: the ZeRO-1 fit's epoch-end one is
+# the one read back)
+MULTICHIP_VARIANTS = {
+    "fsdp": {"fsdp": True, "zero1": False, "save_checkpoint_every_n_epochs": 0},
+    "tp": {"tensor_parallel": True, "tp_min_dim": 64, "spatial_sharding": False,
+           "save_checkpoint_every_n_epochs": 0},
+}
+# the two-process run: training_ddp in two processes on the one card (gloo:
+# NCCL takes no two ranks of one card), data 2 x context 1, one rank each
+MULTICHIP_DDP = {"mesh": {"data": 2, "context": 1}, "zero1": False, "spatial_sharding": False,
+                 "save_checkpoint_every_n_epochs": 0}
+MULTICHIP_DDP_TIMEOUT_S = 300
 SDPA_KERNELS = ("pytorch_flash", "fmha", "efficient_attention", "flash_fwd_kernel<Flash",
                 "cudnn_generated_fort_native_sdpa")
 
@@ -3194,39 +3237,83 @@ def multichip_pipeline(cfg: dict, dtype: str, device, world_size: int):
 
 
 def multichip_step_hold(cfg: dict, sd: dict, batch: dict, draws: dict, mesh, device) -> dict:
-    """One step of the one-rank pipeline (bf16 and fp32) and of the
-    sharded one (the mesh, spatial_sharding and zero1; bf16 and fp32) from
-    the weights ``sd`` and the same draws: loss, grad norm, the parameters'
-    update and the EMA's move (ZeRO-1's ``ShardedEMA`` gathered), whole and
-    leaf by leaf."""
+    """One step of the one-rank pipeline (bf16 and fp32) and of each sharded
+    one (bf16 and fp32): the config's mesh, spatial_sharding and zero1
+    ("mesh"), FSDP in place of ZeRO-1 ("fsdp") and TP with ZeRO-1 ("tp"),
+    from the weights ``sd`` and the same draws: loss, grad norm, the
+    parameters' update and the EMA's move (the sharded states' gathered),
+    whole and leaf by leaf."""
     import torch
 
     from rho_diffusion_tpu_torch.data.loader import to_device
     from rho_diffusion_tpu_torch.parallel.mesh import (
-        active_mesh, batch_sharding, replicate_state, shard_batch, shard_opt_state_zero1)
+        active_mesh, batch_sharding, replicate_state, shard_batch, shard_opt_state_zero1,
+        shard_state_fsdp)
+    from rho_diffusion_tpu_torch.parallel.tensor import shard_params_for_tp
 
+    setups = {
+        "mesh": (True, lambda st: shard_opt_state_zero1(replicate_state(st, mesh), mesh)),
+        "fsdp": (True, lambda st: shard_state_fsdp(st, mesh)),
+        "tp": (False, lambda st: shard_opt_state_zero1(shard_params_for_tp(st, mesh), mesh)),
+    }
     out = {}
-    for name, dtype, sharded in (("one_bf16", "bfloat16", False), ("one_fp32", "float32", False),
-                                 ("mesh_bf16", "bfloat16", True), ("mesh_fp32", "float32", True)):
-        pipe = multichip_pipeline(cfg, dtype, device, world_size=8)
+    runs = [("one_bf16", "bfloat16", None), ("one_fp32", "float32", None)] + [
+        (f"{name}_{short}", dtype, name) for name in setups
+        for short, dtype in (("bf16", "bfloat16"), ("fp32", "float32"))]
+    # one pipeline a dtype, copied for each run (building one costs seconds)
+    built = {dtype: multichip_pipeline(cfg, dtype, device, world_size=8)
+             for dtype in ("bfloat16", "float32")}
+    sd_dev = {k: v.to(device) for k, v in sd.items()}
+    for name, dtype, setup in runs:
+        pipe = copy.deepcopy(built[dtype])
         pipe.load_state_dict(sd)
         st = pipe.create_state(seed=0)
-        if sharded:
-            shard_opt_state_zero1(replicate_state(st, mesh), mesh)
-            placed = shard_batch(batch, mesh, {"data": batch_sharding(mesh, spatial=True)})
+        if setup is not None:
+            spatial, shard = setups[setup]
+            shard(st)
+            placed = shard_batch(batch, mesh, {"data": batch_sharding(mesh, spatial=spatial)})
             with active_mesh(mesh):
                 m = pipe.training_step(st, placed, **draws)
         else:
             m = pipe.training_step(st, to_device(batch, device), **draws)
-        leaves = {k: p.detach().float().cpu() - sd[k] for k, p in st.model.state_dict().items()}
-        ema = {k: st.ema[k].detach().float().cpu() - sd[k] for k in st.ema}
+        # the moves from sd, on the card: one flat vector each, its leaves views of it
+        with st.full_weights() as model:
+            params = {k: v.detach() for k, v in model.state_dict().items()}
+            update = torch.cat([(params[k].float() - sd_dev[k]).ravel() for k in params])
+        ema = torch.cat([(st.ema[k].detach().to(device).float() - sd_dev[k]).ravel()
+                         for k in params])
+        shapes = [params[k].shape for k in params]
+        sizes = [math.prod(x) for x in shapes]
+        up, em = update.split(sizes), ema.split(sizes)
         out[name] = {"train_loss": float(m["train_loss"]), "grad_norm": float(m["grad_norm"]),
-                     "update": torch.cat([v.ravel() for v in leaves.values()]),
-                     "ema": torch.cat([ema[k].ravel() for k in leaves]),
-                     "leaves": leaves, "ema_leaves": ema}
+                     "update": update, "ema": ema,
+                     "leaves": {k: v.view(x) for k, v, x in zip(params, up, shapes)},
+                     "ema_leaves": {k: v.view(x) for k, v, x in zip(params, em, shapes)}}
         del pipe, st
         torch.cuda.empty_cache()
     return out
+
+
+def step_holds(steps_held: dict, name: str) -> tuple[dict, dict]:
+    """The sharded step ``name`` against the one-rank step: bf16 within
+    HOLD_FACTOR times the bf16 one-rank step's spread (capped), fp32 at
+    MULTICHIP_FP32's bars, and every fp32 leaf's update and EMA move."""
+    hold = {}
+    for key in ("train_loss", "grad_norm", "update", "ema"):
+        spread = rel(steps_held["one_bf16"][key], steps_held["one_fp32"][key])
+        bar = min(HOLD_FACTOR * spread, MULTICHIP_CAP[key])
+        got = rel(steps_held[f"{name}_bf16"][key], steps_held["one_bf16"][key])
+        hold[key] = {"sharded_vs_one_rank_bf16": got, "bf16_vs_fp32_one_rank": spread,
+                     "bar": bar, "ok": got <= bar}
+    fp32 = {key: {"sharded_vs_one_rank_fp32": rel(steps_held[f"{name}_fp32"][key],
+                                                   steps_held["one_fp32"][key]),
+                  "bar": bar} for key, bar in MULTICHIP_FP32.items()}
+    for row in fp32.values():
+        row["ok"] = row["sharded_vs_one_rank_fp32"] <= row["bar"]
+    for key, leaves in (("update_worst_leaf", "leaves"), ("ema_worst_leaf", "ema_leaves")):
+        fp32[key] = leaf_hold(steps_held[f"{name}_fp32"][leaves], steps_held["one_fp32"][leaves],
+                              steps_held["one_bf16"][leaves])
+    return hold, fp32
 
 
 def same_optimizer_state(a: dict, b: dict) -> bool:
@@ -3271,23 +3358,195 @@ def leaf_hold(mesh: dict, one: dict, one_bf16: dict) -> dict:
     return {**worst, "leaves": len(one), "leaves_covered": covered, "ok": worst["ratio"] <= 1}
 
 
-def slab_conv_rows(calls, device) -> list:
-    """K5 (forward and dgrad) and the direct conv at every distinct problem
-    the multichip fit launched them at (its 18-plane slabs), from the
-    launches ``direct_conv_calls`` recorded: each held against its fp32
-    plain version on the same seeded inputs, with its launches in the fit."""
+def conv_problems(calls) -> dict:
+    """{(kind, (x shape, Cout, dtype)): launches} of recorded conv3d_kernel
+    calls."""
     problems: dict = {}
     for call in calls:
         (xs, dt), (ws, _) = call[0], call[1]
         kind = "dgrad" if len(call) > 3 and call[3] == "conv3d_dgrad" else "forward"
         key = (kind, (xs, ws[0], dt))
         problems[key] = problems.get(key, 0) + 1
+    return problems
+
+
+def fit_conv_rows(fits: dict, device, seed: int) -> list:
+    """K5 (forward and dgrad) and the direct conv at every distinct problem
+    the fits launched them at (``fits``: {fit: conv_problems}), each held
+    once against its fp32 plain version on the same seeded inputs, with its
+    launches in each fit."""
+    problems: dict = {}
+    for fit, counts in fits.items():
+        for key, n in counts.items():
+            problems.setdefault(key, {})[fit] = n
     rows = []
-    for i, ((kind, key), n) in enumerate(sorted(problems.items(), key=lambda kv: str(kv[0]))):
-        row = hold_conv(kind, key, device, 900 + 3 * i)
-        rows.append({**row, "variant": f"the multichip fit's {kind} on a slab of {key[0][1]} "
-                                       "planes", "launches_in_fit": n})
+    for i, ((kind, key), by_fit) in enumerate(sorted(problems.items(), key=lambda kv: str(kv[0]))):
+        row = hold_conv(kind, key, device, seed + 3 * i)
+        rows.append({**row, "variant": f"{kind} of the {' / '.join(sorted(by_fit))} fit(s)",
+                     "launches_in_fit": by_fit})
     return rows
+
+
+def multichip_variant(name: str, mesh, dataset, tmp) -> dict:
+    """``examples/config_multichip.json`` at full width, as the multichip
+    phase runs it (on its ``dataset``), with MULTICHIP_VARIANTS[name]:
+    MULTICHIP_STEPS steps, their losses and times, the bytes on the card
+    after the sharded init, each rank's bytes at rest after the fit, the
+    fit's peak, its launches and conv problems, and one more step profiled
+    (its busy share)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from rho_diffusion_tpu_torch.config import ExperimentConfig
+    from rho_diffusion_tpu_torch.data.loader import DataLoader
+    from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+    from rho_diffusion_tpu_torch.parallel.mesh import active_mesh, shard_batch
+    from rho_diffusion_tpu_torch.parallel.tensor import tp_sharding_summary
+    from rho_diffusion_tpu_torch.training.trainer import Trainer
+
+    t0 = time.perf_counter()
+    cfg = multichip_config(MULTICHIP_BATCH)
+    cfg["training"].update(MULTICHIP_VARIANTS[name])
+    work = tmp / name
+    trainer = Trainer(ExperimentConfig.from_dict(cfg), dataset=dataset, work_dir=work,
+                      device=DEVICE, mesh=mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    st = trainer.init_state()
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated() - base
+    at_rest = torch.cuda.memory_allocated() - base
+    opt = st.optimizer
+    layout = {**tp_sharding_summary(st),
+              "split_over_data": sum(leaf.pdim is not None or leaf.zero1 for leaf in opt.leaves),
+              "split_over_context": sum(leaf.cdim is not None for leaf in opt.leaves)}
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts.clear()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with direct_conv_calls() as conv_calls:
+        st = trainer.fit(st)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    counts = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated() - base
+    per_rank = {f"{d},{c}": n for (d, c), n in opt.bytes_at_rest().items()}
+    records = [json.loads(x) for x in (work / "metrics.jsonl").read_text().splitlines()]
+    steps = [r for r in records if "train_loss" in r]
+    step_s = [r["step_s"] for r in steps if "step_s" in r]
+    median = float(np.median(step_s[1:])) if len(step_s) > 1 else None
+    loader = DataLoader(trainer.dataset, MULTICHIP_BATCH, seed=1)
+    placed = shard_batch(next(iter(loader)), mesh, trainer.data_sharding)
+    with active_mesh(mesh):
+        by_name = device_time_by_kernel(lambda: trainer.pipeline.training_step(st, placed))
+    profiled = profiled_step(by_name, median) if median else dict(NOT_PROFILED)
+    whole = sum(4 * math.prod(leaf.shape) for leaf in opt.leaves)
+    del st, trainer
+    torch.cuda.empty_cache()
+    return {"options": MULTICHIP_VARIANTS[name], "losses": [r["train_loss"] for r in steps],
+            "step_s": step_s, "median_step_s_after_first": median,
+            "samples_per_s": MULTICHIP_BATCH / median if median else None, "fit_s": fit_s,
+            "profiled_step": profiled,
+            "device_busy_share": profiled.get("device_busy_share", NOT_PROFILED["status"]),
+            "bytes_after_init": at_rest, "init_peak_bytes": init_peak,
+            "bytes_at_rest_by_rank": per_rank, "fp32_parameter_bytes_whole": whole,
+            "max_memory_allocated": peak, "layout": layout, "launches": counts,
+            "conv_problems": conv_problems(conv_calls.calls), "seconds": time.perf_counter() - t0}
+
+
+def ddp_child(argv: list) -> int:
+    """One process of the multichip phase's two-process run: the training_ddp
+    CLI's ``main`` on ``argv`` as a user runs it (the launcher's environment
+    set by the parent), each step's loss and time recorded around the
+    pipeline's step. Prints one JSON line: the losses, step times, the
+    runtime summary, the card's peak bytes, the launches and conv problems."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from rho_diffusion_tpu_torch import training_ddp
+    from rho_diffusion_tpu_torch.diffusion.base import AbstractDiffusionPipeline
+    from rho_diffusion_tpu_torch.ops.kernels import launch_counts
+    from rho_diffusion_tpu_torch.parallel import runtime
+
+    record: dict = {"losses": [], "step_s": []}
+    step = AbstractDiffusionPipeline.training_step
+
+    def recorded(self, state, batch, *args, **kwargs):
+        record.setdefault("summary", runtime.runtime_summary())
+        t0 = time.perf_counter()
+        metrics = step(self, state, batch, *args, **kwargs)
+        record["losses"].append(float(metrics["train_loss"]))
+        record["step_s"].append(time.perf_counter() - t0)
+        return metrics
+
+    AbstractDiffusionPipeline.training_step = recorded
+    launch_counts.clear()
+    with direct_conv_calls() as conv_calls:
+        training_ddp.main(argv)
+    torch.cuda.synchronize()
+    record.update(launches=dict(launch_counts), peak_bytes=torch.cuda.max_memory_allocated(),
+                  conv_problems=[[kind, list(xs), cout, dtype_name(dt), n] for (kind, (xs, cout, dt)), n
+                                 in conv_problems(conv_calls.calls).items()])
+    print(json.dumps(record), flush=True)
+    return 0
+
+
+def multichip_ddp(tmp) -> dict:
+    """``python -m rho_diffusion_tpu_torch.training_ddp`` in two processes on
+    the card (torchrun's environment: WORLD_SIZE, RANK, LOCAL_RANK,
+    LOCAL_WORLD_SIZE, MASTER_ADDR/PORT), the config's full width with
+    MULTICHIP_DDP (data 2 x context 1: K1 and the fused K3/K4 on the path),
+    MULTICHIP_STEPS steps at MULTICHIP_BATCH; each child is ``chip_smoke.py
+    --ddp-child``. Both children are stopped at the time limit."""
+    import os
+    import socket
+
+    import numpy as np
+    import torch
+
+    cfg = multichip_config(MULTICHIP_BATCH)
+    cfg["training"].update(MULTICHIP_DDP)
+    path = tmp / "ddp.json"
+    path.write_text(json.dumps(cfg))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        env = {**os.environ, "WORLD_SIZE": "2", "RANK": str(rank), "LOCAL_RANK": str(rank),
+               "LOCAL_WORLD_SIZE": "2", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--ddp-child", str(path),
+             "--work-dir", str(tmp / "ddp")],
+            cwd=str(ROOT), env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MULTICHIP_DDP_TIMEOUT_S))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        return {"ok": False, "error": f"the children did not finish in {MULTICHIP_DDP_TIMEOUT_S} s"}
+    wall = time.perf_counter() - t0
+    children = []
+    for p, (out, err) in zip(procs, outs):
+        lines = [x for x in out.splitlines() if x.startswith("{")]
+        if p.returncode or not lines:
+            return {"ok": False, "error": f"a child exited {p.returncode}: {err[-3000:]}"}
+        children.append(json.loads(lines[-1]))
+    records = [json.loads(x) for x in (tmp / "ddp" / "metrics.jsonl").read_text().splitlines()]
+    step_s = [r["step_s"] for r in records if "step_s" in r]
+    median = float(np.median(step_s[1:])) if len(step_s) > 1 else None
+    torch.cuda.synchronize()
+    return {"ok": True, "wall_s": wall, "children": children, "step_s": step_s,
+            "median_step_s_after_first": median,
+            "samples_per_s": MULTICHIP_BATCH / median if median else None}
 
 
 def ulysses_hold(context: int, device) -> dict:
@@ -3379,15 +3638,18 @@ def phase_multichip(state: dict) -> None:
         step_s = [r["step_s"] for r in steps if "step_s" in r]
         depths = sorted({s[1] for s in shapes})
         zero = st.optimizer
+        split = [leaf for leaf in zero.leaves if leaf.zero1]
         quarter = [
-            all(zero.shard_state(d)[zero.names[p]][key].numel() * data == p.numel()
-                and zero.shard_state(d)[zero.names[p]][key].device == mesh.devices[d][0]
-                for p, _ in zero.sharded for key in ("exp_avg", "exp_avg_sq"))
+            all(zero.opts[(d, 0)].state[leaf.shards[(d, 0)]][key].numel() * data
+                == math.prod(leaf.shape)
+                and zero.opts[(d, 0)].state[leaf.shards[(d, 0)]][key].device
+                == mesh.devices[d][0]
+                for leaf in split for key in ("exp_avg", "exp_avg_sq"))
             for d in range(data)]
-        split_leaves, whole_leaves = len(zero.sharded), len(zero.whole)
+        split_leaves, whole_leaves = len(split), len(zero.leaves) - len(split)
 
         # the checkpoint read back: a resuming Trainer over the same mesh
-        again = Trainer(config, work_dir=work, device=DEVICE, mesh=mesh)
+        again = Trainer(config, dataset=trainer.dataset, work_dir=work, device=DEVICE, mesh=mesh)
         back = again.init_state()
         read_back = {
             "step": int(back.step),
@@ -3396,7 +3658,7 @@ def phase_multichip(state: dict) -> None:
             "ema_bitwise": all(torch.equal(st.ema[k], back.ema[k]) for k in st.ema),
             "moments_bitwise": same_optimizer_state(st.optimizer.state_dict(),
                                                     back.optimizer.state_dict()),
-            "zero1": type(back.optimizer).__name__}
+            "zero1": bool(getattr(back.optimizer, "zero1", False))}
         del again, back
 
         # one more step, profiled: its device time over the fit's median step
@@ -3405,12 +3667,35 @@ def phase_multichip(state: dict) -> None:
         placed = shard_batch(next(iter(loader)), mesh, trainer.data_sharding)
         with active_mesh(mesh):
             by_name = device_time_by_kernel(lambda: trainer.pipeline.training_step(st, placed))
+        dataset = trainer.dataset
         del st, trainer
         torch.cuda.empty_cache()
 
-        # the fit's conv kernels at the slab shapes it gave them, against plain
-        conv_rows = slab_conv_rows(conv_calls.calls, device)
+        # the same fit under FSDP and under TP + ZeRO-1, and two processes
+        variants = {name: multichip_variant(name, mesh, dataset, tmp)
+                    for name in MULTICHIP_VARIANTS}
+        ddp = multichip_ddp(tmp)
+        t_rows = time.perf_counter()
+
+        # every fit's conv kernels at the shapes it gave them, against plain
+        fits = {"zero1": conv_problems(conv_calls.calls),
+                **{name: v.pop("conv_problems") for name, v in variants.items()}}
+        for i, child in enumerate(ddp.get("children", [])):
+            fits[f"ddp{i}"] = {(kind, (tuple(xs), cout, getattr(torch, dt))): n
+                               for kind, xs, cout, dt, n in child.pop("conv_problems")}
+        conv_rows = fit_conv_rows(fits, device, 900)
+        # K5 at TP's level-0 blocks (64 -> 32 channels, and the dgrad back to
+        # 64), timed beside the bound, the plain version and cuDNN
+        tp_timed = [hold_conv(kind, key, device, 990 + i, calls=n,
+                              per=f"the TP fit's {MULTICHIP_STEPS} steps")
+                    for i, ((kind, key), n) in enumerate(sorted(fits["tp"].items(), key=str))
+                    if key[0][1] == cfg["model"]["kwargs"]["data_shape"][0]
+                    and (kind, key[0][-1], key[1]) in (("forward", 64, 32), ("dgrad", 32, 64))]
+        for row in tp_timed:
+            row["variant"] = "the TP fit's level-0 block"
+        variants["tp"]["timed_level0_rows"] = tp_timed
         torch.cuda.empty_cache()
+        conv_rows_s = time.perf_counter() - t_rows
 
         # the sharded step against the one-rank step, same weights and draws
         hold_cfg = multichip_config(MULTICHIP_HOLD_BATCH)
@@ -3421,32 +3706,27 @@ def phase_multichip(state: dict) -> None:
         shape = hold_batch["data"].shape
         draws = {"t": torch.randint(0, 1000, (shape[0],), generator=gen).to(device),
                  "noise": torch.randn(shape, generator=gen).to(device)}
+        t_hold = time.perf_counter()
         steps_held = multichip_step_hold(hold_cfg, sd, hold_batch, draws, mesh, device)
+        step_hold_s = time.perf_counter() - t_hold
         ulysses = [ulysses_hold(n, device) for n in (2, 4)]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
 
-    record_errors(state, conv_rows)
-    hold = {}
-    for key in ("train_loss", "grad_norm", "update", "ema"):
-        spread = rel(steps_held["one_bf16"][key], steps_held["one_fp32"][key])
-        bar = min(HOLD_FACTOR * spread, MULTICHIP_CAP[key])
-        got = rel(steps_held["mesh_bf16"][key], steps_held["one_bf16"][key])
-        hold[key] = {"mesh_vs_one_rank_bf16": got, "bf16_vs_fp32_one_rank": spread, "bar": bar,
-                     "ok": got <= bar}
-    fp32 = {key: {"mesh_vs_one_rank_fp32": rel(steps_held["mesh_fp32"][key],
-                                                steps_held["one_fp32"][key]),
-                  "bar": bar} for key, bar in MULTICHIP_FP32.items()}
-    for row in fp32.values():
-        row["ok"] = row["mesh_vs_one_rank_fp32"] <= row["bar"]
-    for key, leaves in (("update_worst_leaf", "leaves"), ("ema_worst_leaf", "ema_leaves")):
-        fp32[key] = leaf_hold(steps_held["mesh_fp32"][leaves], steps_held["one_fp32"][leaves],
-                              steps_held["one_bf16"][leaves])
+    record_errors(state, conv_rows + tp_timed)
+    hold, fp32 = step_holds(steps_held, "mesh")
     after_first = step_s[1:]
     median = float(np.median(after_first)) if after_first else None
     profiled = profiled_step(by_name, median)
     state["multichip_launches"] = counts
+    for name, v in variants.items():
+        state[f"multichip_{name}_launches"] = v["launches"]
+    state["multichip_ddp_launches"] = {}
+    for child in ddp.get("children", []):
+        for k, n in child["launches"].items():
+            state["multichip_ddp_launches"][k] = state["multichip_ddp_launches"].get(k, 0) + n
+    smi = state.get("smi") or nvidia_smi_line()
     emit("multichip", mesh={"data": data, "context": context},
          ranks_on_one_card=data * context, batch=MULTICHIP_BATCH, steps=len(steps),
          cuts=MULTICHIP_CUTS, lr=lr, lr_expected=1e-4 * math.sqrt(data * context),
@@ -3460,8 +3740,20 @@ def phase_multichip(state: dict) -> None:
          zero1_whole_leaves=whole_leaves, checkpoint_read_back=read_back,
          sharded_vs_one_rank_bf16=hold, sharded_vs_one_rank_fp32=fp32,
          hold_batch=MULTICHIP_HOLD_BATCH, ulysses=ulysses, slab_conv_rows=conv_rows,
+         conv_rows_s=conv_rows_s, step_hold_s=step_hold_s,
          note="all 8 ranks share one card: times and memory are the 8 ranks' together",
-         nvidia_smi=state.get("smi") or nvidia_smi_line(), seconds=time.perf_counter() - t0)
+         nvidia_smi=smi, seconds=time.perf_counter() - t0)
+    variant_holds = {name: step_holds(steps_held, name) for name in MULTICHIP_VARIANTS}
+    for name, v in variants.items():
+        bf16, f32 = variant_holds[name]
+        emit(f"multichip_{name}", mesh={"data": data, "context": context}, **v,
+             sharded_vs_one_rank_bf16=bf16, sharded_vs_one_rank_fp32=f32,
+             note="all 8 ranks share one card: times and memory are the 8 ranks' together; "
+                  "bytes_at_rest_by_rank counts what each rank holds between steps (a leaf "
+                  "not split over an axis at index 0 of it)", nvidia_smi=smi)
+    emit("multichip_ddp", processes=2, options=MULTICHIP_DDP, **ddp,
+         note="two processes share one card (gloo); step_s is process 0's logged step time",
+         nvidia_smi=smi)
     problems = []
     if len(steps) != MULTICHIP_STEPS or not all(np.isfinite(losses)):
         problems.append(f"{len(steps)} logged steps, losses {losses}")
@@ -3478,19 +3770,52 @@ def phase_multichip(state: dict) -> None:
         problems.append(f"the sharded step never launched {missing}; counts {counts}")
     if not (read_back["step"] == MULTICHIP_STEPS and read_back["params_bitwise"]
             and read_back["ema_bitwise"] and read_back["moments_bitwise"]
-            and read_back["zero1"] == "Zero1Optimizer"):
+            and read_back["zero1"] is True):
         problems.append(f"checkpoint read back: {read_back}")
     if not all(h["ok"] for h in hold.values()) or not all(r["ok"] for r in fp32.values()):
         problems.append(f"sharded vs one-rank step: bf16 {hold}, fp32 {fp32}")
     for u in ulysses:
         if not u["ok"] or u["sdpa_kernels"]:
             problems.append(f"Ulysses: {u}")
-    unheld = {"conv3d_igemm", "conv3d_dgrad_igemm", "conv3d_direct",
-              "conv3d_dgrad_direct"} - {r["kernel"] for r in conv_rows}
-    if unheld:
-        problems.append(f"no slab hold of {sorted(unheld)}")
-    if any(r["x"][1] != slab for r in conv_rows):
-        problems.append(f"slab holds off the 18-plane slabs: {[r['x'] for r in conv_rows]}")
+    # every fit's four routes held at the problems that fit gave them (the
+    # slab fits' on their slabs, checked below), fit by fit
+    for name in fits:
+        unheld = {"conv3d_igemm", "conv3d_dgrad_igemm", "conv3d_direct",
+                  "conv3d_dgrad_direct"} - {r["kernel"] for r in conv_rows
+                                             if name in r["launches_in_fit"]}
+        if unheld:
+            problems.append(f"no hold of {sorted(unheld)} at the {name} fit's problems")
+    spatial = [r for r in conv_rows if set(r["launches_in_fit"]) <= {"zero1", "fsdp"}]
+    if any(r["x"][1] != slab for r in spatial):
+        problems.append(f"slab holds off the 18-plane slabs: {[r['x'] for r in spatial]}")
+    for name, v in variants.items():
+        bf16, f32 = variant_holds[name]
+        if len(v["losses"]) != MULTICHIP_STEPS or not all(np.isfinite(v["losses"])):
+            problems.append(f"{name}: {len(v['losses'])} logged steps, losses {v['losses']}")
+        if not all(h["ok"] for h in bf16.values()) or not all(r["ok"] for r in f32.values()):
+            problems.append(f"{name} vs one-rank step: bf16 {bf16}, fp32 {f32}")
+        missing = [k for k in ("conv3d_igemm", "conv3d_dgrad_igemm", "conv3d_direct")
+                   if not v["launches"].get(k)]
+        if missing:
+            problems.append(f"the {name} fit never launched {missing}: {v['launches']}")
+    if not variants["tp"]["layout"]["split_over_context"] or not any(
+            r["cout"] == 32 for r in conv_rows if "tp" in r["launches_in_fit"]):
+        problems.append(f"TP split nothing to Cout 32: {variants['tp']['layout']}")
+    if len(tp_timed) != 2 or not all(r["ok"] for r in tp_timed):
+        problems.append(f"TP level-0 timed rows: {tp_timed}")
+    if not ddp["ok"]:
+        problems.append(f"two-process run: {ddp.get('error')}")
+    else:
+        losses = [c["losses"] for c in ddp["children"]]
+        if len(losses[0]) != MULTICHIP_STEPS or losses[0] != losses[1] \
+                or not all(np.isfinite(losses[0])):
+            problems.append(f"two-process losses {losses}")
+        for c in ddp["children"]:
+            missing = [k for k in ("flash_attention", "flash_attention_bwd", "conv3d_igemm",
+                                   "conv3d_dgrad_igemm", "conv3d_direct")
+                       if not c["launches"].get(k)]
+            if missing or c["summary"]["backend"] != "gloo" or c["summary"]["process_count"] != 2:
+                problems.append(f"two-process child: missing {missing}, {c['summary']}")
     bad = [r for r in conv_rows if not r["ok"]]
     if bad:
         problems.append(f"{len(bad)} slab conv hold(s) outside tolerance: {bad[:3]}")
@@ -4376,7 +4701,7 @@ def fp32_ring_request() -> tuple[dict, dict]:
         cfg_path = tmp / "config.json"
         cfg_path.write_text(json.dumps(cfg))
         pth = tmp / "model.pth"
-        torch.save(random_state_dict(build_pipeline(cfg, "float32", "cpu").backbone, seed=0), pth)
+        torch.save(random_weights(cfg), pth)
         launch_counts.clear()
         server, service = serve.build_server(serve_argv(cfg_path, pth, tmp, (1,), True),
                                              log=lambda *_: None)
@@ -4712,10 +5037,12 @@ DATA_SAMPLE_STEPS = 21
 DATA_HOLD_BATCH = 2
 QUALITY_EPOCHS = 1
 # the bench entry's realdata mode without and with the device cache, one run each
-REALDATA_RUNS = (("host", {"BENCH_MODE": "realdata"}),
-                 ("device_cache", {"BENCH_MODE": "realdata", "BENCH_DEVICE_CACHE": "1"}))
+# (one window, cut from 3, then 2, for the script's time limit)
+REALDATA_RUNS = (("host", {"BENCH_MODE": "realdata", "BENCH_WINDOWS": "1"}),
+                 ("device_cache", {"BENCH_MODE": "realdata", "BENCH_DEVICE_CACHE": "1",
+                                   "BENCH_WINDOWS": "1"}))
 # the timed steps of the two profiled runs of each realdata mode
-REALDATA_PROFILE_STEPS = (3, 9)  # cut from (5, 15) for the script's time limit
+REALDATA_PROFILE_STEPS = (2, 6)  # cut from (5, 15), then (3, 9), for the script's time limit
 DATA_CUTS = {
     "training.max_epochs": f"-> whole epochs to at least {DATA_TRAIN_STEPS} steps "
                            "(Trainer.fit(max_epochs=N))",
@@ -5240,7 +5567,8 @@ TRAIN64_RUNS = (
     ("remat_b4", {"BENCH_GRID": "64", "BENCH_BATCH": "4", "BENCH_REMAT": "1"}),
     ("plain_b4", {"BENCH_GRID": "64", "BENCH_BATCH": "4"}),
 )
-TRAIN64_TIMING = {"BENCH_STEPS": "5", "BENCH_WINDOWS": "2", "BENCH_WARMUP": "2"}
+# one window (cut from 2 for the script's time limit)
+TRAIN64_TIMING = {"BENCH_STEPS": "5", "BENCH_WINDOWS": "1", "BENCH_WARMUP": "2"}
 REMAT_HOLD_BATCH = 2
 REMAT_HOLD_GRID = 64
 OPTIMIZER_LR = {"Adamax": 1e-3, "NAdam": 1e-3, "RAdam": 1e-3, "RMSprop": 1e-3, "Adagrad": 1e-2,
@@ -7598,6 +7926,9 @@ def kernels_line(state: dict) -> list:
     launches = {"sampling": state["launches"], "sampling64": state["main64_launches"],
                 "training": state["train_launches"], "serving": state["serve_launches"],
                 "multichip": state["multichip_launches"],
+                "multichip_fsdp": state["multichip_fsdp_launches"],
+                "multichip_tp": state["multichip_tp_launches"],
+                "multichip_ddp": state["multichip_ddp_launches"],
                 "bench": state["bench_launches"], "kernels": state["kernels_launches"],
                 "fp32": state["fp32_launches"], "load": state["load_launches"],
                 "int8": state["int8_launches"], "int8_2d": state["int8_2d_launches"],
@@ -7759,6 +8090,9 @@ def time_sampling(pipe, cfg: dict, samples: int) -> dict:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--ddp-child"]:
+        return ddp_child(argv[1:])
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--phases", default=",".join(PHASES))

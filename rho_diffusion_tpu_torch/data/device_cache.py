@@ -72,6 +72,12 @@ class DeviceDatasetCache:
         mesh=None,
         per_key: Optional[dict] = None,
     ) -> None:
+        from rho_diffusion_tpu_torch.parallel import runtime
+
+        if runtime.process_count() > 1:  # JAX data/device_cache.py:83-87
+            raise ValueError(
+                "DeviceDatasetCache is single-process only: over several processes each "
+                "builds its own rows of every batch (data/loader.py's process split)")
         n_data = 1
         if shard_over_data:
             if mesh is None or mesh.shape[DATA_AXIS] < 2:

@@ -1,13 +1,17 @@
 """Host-side data loading: batching, shuffling, threaded prefetch, and the
 copy to the device.
 
-Port of ``rho_diffusion_tpu/data/loader.py`` (:23-256) for one process:
+Port of ``rho_diffusion_tpu/data/loader.py`` (:23-256):
 
 * ``DataLoader`` draws each epoch's permutation from
   ``SeedSequence([seed, epoch])``, so a resumed run replays the same batches
   (``iter_batches(start)`` skips the first ``start`` without building them);
   with ``drop_last=False`` the short last batch is wrap-padded and carries a
   ``valid`` mask;
+* ``batch_size`` is the global batch: over several processes (JAX :84-104,
+  :140-154) each builds only its rows of every batch, ``np.array_split``'s
+  part ``process_index`` of ``num_processes`` (both from
+  ``torch.distributed`` unless given);
 * a thread pool builds the samples of a batch (scipy's field work releases
   the GIL);
 * ``prefetch_to_device`` copies each numpy batch through pinned host memory
@@ -20,7 +24,7 @@ import collections
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterator
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -75,9 +79,19 @@ class DataLoader:
         drop_last: bool = True,
         num_workers: int = 8,
         collate_fn: Callable = default_collate,
+        process_index: Optional[int] = None,
+        num_processes: Optional[int] = None,
     ) -> None:
+        from rho_diffusion_tpu_torch.parallel import runtime
+
         self.dataset = dataset
         self.batch_size = batch_size
+        self.process_index = runtime.process_index() if process_index is None else process_index
+        self.num_processes = runtime.process_count() if num_processes is None else num_processes
+        if batch_size % self.num_processes:
+            raise ValueError(f"global batch size {batch_size} must divide across "
+                             f"{self.num_processes} processes")
+        self.local_batch_size = batch_size // self.num_processes
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
@@ -112,11 +126,13 @@ class DataLoader:
         return self.iter_batches(0)
 
     def iter_batches(self, start: int = 0) -> Iterator[dict]:
-        """This epoch's batches from batch index ``start`` on."""
+        """This epoch's batches (this process's rows of each) from batch index
+        ``start`` on."""
+        local = np.array_split(np.arange(self.batch_size), self.num_processes)[self.process_index]
         for rec in self.iter_index_batches(start):
-            batch = self._build_batch(rec["idx"])
+            batch = self._build_batch(rec["idx"][local])
             if "valid" in rec:
-                batch["valid"] = rec["valid"]
+                batch["valid"] = rec["valid"][local]
             yield batch
 
     def iter_index_batches(self, start: int = 0) -> Iterator[dict]:

@@ -26,8 +26,15 @@ it gives the gradients, summed over the data ranks (on one card the ranks
 share the one set of parameters and their gradients add up in place; a
 replica on another card adds its gradients in after the backward), and the
 global grad norm, clipping, the optimizer step (ZeRO-1's split one, or the
-replicated one) and the EMA follow. A sharded step equals the one-device
-step at the same draws up to summation order.
+replicated one) and the EMA follow. Under FSDP or tensor parallelism
+(``training.sharded``) the split weights are gathered for the forward and
+backward of each microbatch, autograd hands each piece its gradient, and
+each rank's optimizer updates its pieces. Over several processes (one
+process group, ``parallel.runtime``) each process drives its own data
+ranks: the draws are still the global batch's, each process keeps its
+rows, and after its backward the gradients and metrics are averaged over
+the processes, so every process takes the same update. A sharded step
+equals the one-device step at the same draws up to summation order.
 
 Sampling goes through ``apply``, which is ``torch.no_grad`` and puts the
 backbone in ``eval()``; the train step puts it in ``train()``.
@@ -37,6 +44,7 @@ there, and parameters are initialised from a seeded ``torch.Generator``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import inspect
 from typing import Any, Optional, Union
@@ -47,13 +55,13 @@ import torch
 from rho_diffusion_tpu_torch.diffusion.schedule import NoiseSchedule
 from rho_diffusion_tpu_torch.metrics.losses import psnr, psnr_from_parts, psnr_parts, resolve_loss
 from rho_diffusion_tpu_torch.ops import quant
-from rho_diffusion_tpu_torch.parallel import spmd
+from rho_diffusion_tpu_torch.parallel import runtime, spmd
 from rho_diffusion_tpu_torch.parallel.mesh import DATA_AXIS, Placed, batch_sharding, shard_batch
 from rho_diffusion_tpu_torch.registry import registry
 from rho_diffusion_tpu_torch.training.ema import ema_update
 from rho_diffusion_tpu_torch.training.optimizers import Optimizer, build_optimizer
+from rho_diffusion_tpu_torch.training.sharded import GridEMA, ShardedOptimizer
 from rho_diffusion_tpu_torch.training.state import TrainState
-from rho_diffusion_tpu_torch.training.zero1 import ShardedEMA
 from rho_diffusion_tpu_torch.utils import (
     parameter_space_to_embeddings,
     resolve_device,
@@ -89,8 +97,13 @@ class AbstractDiffusionPipeline:
         grad_accum: int = 1,
         device: Optional[Union[str, torch.device]] = None,
         seed: int = 0,
+        backbone_device: Optional[Union[str, torch.device]] = None,
     ) -> None:
         self.device = resolve_device(device)
+        # where init_params leaves the backbone: the host for a state that is
+        # cut into shards there (FSDP's sharded init), else the device
+        self.backbone_device = self.device if backbone_device is None \
+            else resolve_device(backbone_device)
         self.backbone_kwargs = dict(backbone_kwargs)
         bk = dict(backbone_kwargs)
         # configs name the cond_fn inside the model kwargs; it is built only
@@ -148,10 +161,10 @@ class AbstractDiffusionPipeline:
     def init_params(self, seed: int = 0) -> None:
         """(Re-)initialise the backbone from a CPU generator seeded with
         ``seed`` (the same values on every device), then move it to the
-        pipeline's device in eval mode."""
+        pipeline's device (``backbone_device``) in eval mode."""
         gen = torch.Generator().manual_seed(int(seed))
         self.backbone.to("cpu").reset_parameters(gen)
-        self.backbone.to(self.device).eval()
+        self.backbone.to(self.backbone_device).eval()
 
     def for_device(self, device: torch.device, backbone: torch.nn.Module):
         """This pipeline as a rank on ``device`` runs it: a shallow copy whose
@@ -361,7 +374,7 @@ class AbstractDiffusionPipeline:
         self.optimizer.set_lr(state.optimizer, state.step)
         state.optimizer.step()
         if state.ema is not None:
-            if isinstance(state.ema, ShardedEMA):  # ZeRO-1's, rank by rank
+            if isinstance(state.ema, GridEMA):  # sharded: rank by rank
                 state.ema.update(state.step, self.ema_decay)
             else:
                 ema_update(state.ema, dict(model.named_parameters()), state.step, self.ema_decay)
@@ -389,23 +402,37 @@ class AbstractDiffusionPipeline:
                 raise NotImplementedError(
                     "use_checkpoint under spatial sharding: the recomputation inside the "
                     "backward would exchange halos with ranks that are no longer running")
+        sharded = isinstance(state.optimizer, ShardedOptimizer)
+        if spatial and sharded and state.optimizer.tensor_parallel:
+            raise NotImplementedError(
+                "tensor parallelism under spatial sharding: both split over the context axis "
+                "(ROADMAP Queue 1 item 13c)")
         n_data, accum = mesh.shape[DATA_AXIS], self.grad_accum
         if data.shape[0] % (n_data * accum):
             raise ValueError(f"batch size {data.shape[0]} does not split over the {n_data} data "
                              f"ranks and grad_accum={accum}")
+        # the draws are the global batch's; over several processes this one
+        # holds the rows runtime.process_rows gives it
+        rows_here = runtime.process_rows(data.shape[0])
+        n_global = data.shape[0] * runtime.process_count()
         if t is None or noise is None or (cond_mask is None and getattr(self, "cond_dropout", 0.0)
                                           > 0.0 and labels is not None):
-            drawn = self.training_draws(state.generator, data.shape, data.dtype, labels)
+            drawn = self.training_draws(state.generator, (n_global, *data.shape[1:]), data.dtype,
+                                        labels)
             t = drawn["t"] if t is None else t
             noise = drawn["noise"] if noise is None else noise
             cond_mask = drawn["cond_mask"] if cond_mask is None else cond_mask
+        if runtime.process_count() > 1:
+            t, noise = t[rows_here], noise[rows_here]
+            cond_mask = None if cond_mask is None else cond_mask[rows_here]
         rows_sharding = batch_sharding(mesh)
         t = rows_sharding.place(t)
         noise = data.sharding.place(noise)
         cond_mask = None if cond_mask is None else rows_sharding.place(cond_mask)
 
         first = mesh.devices[0][0]
-        params = [p for p in model.parameters() if p.requires_grad]
+        params = (state.optimizer.trained_params() if sharded
+                  else [p for p in model.parameters() if p.requires_grad])
         with torch.no_grad():
             for replica in state.replicas.values():
                 for r, p in zip(replica.parameters(), model.parameters()):
@@ -418,6 +445,7 @@ class AbstractDiffusionPipeline:
         views = {dev: self.for_device(dev, replica) for dev, replica in state.replicas.items()}
         size = data.shape[0] // n_data // accum
         totals: dict = {}
+        psnr_parts: list = []
         for i in range(accum):
             rows = slice(i * size, (i + 1) * size)
 
@@ -429,13 +457,15 @@ class AbstractDiffusionPipeline:
                     {"data": cut(data), "labels": cut(labels)},
                     t=cut(t), noise=cut(noise), cond_mask=cut(cond_mask))
 
-            ranks = [r for row in spmd.run_ranks(mesh, rank_step, spatial) for r in row]
-            loss = sum(r[0].to(first) for r in ranks) / len(ranks)
-            (loss / accum if accum > 1 else loss).backward()
+            with state.optimizer.gathered(state) if sharded else contextlib.nullcontext():
+                ranks = [r for row in spmd.run_ranks(mesh, rank_step, spatial) for r in row]
+                loss = sum(r[0].to(first) for r in ranks) / len(ranks)
+                (loss / accum if accum > 1 else loss).backward()
             metrics = {"train_loss": loss.detach()}
             for key in ranks[0][1]:
                 values = [r[1][key].detach().to(first) for r in ranks]
                 if key == "psnr":
+                    psnr_parts.append(torch.stack(values))
                     metrics[key] = psnr_from_parts(values)
                 elif key != "train_loss":
                     metrics[key] = sum(values) / len(values)
@@ -447,7 +477,29 @@ class AbstractDiffusionPipeline:
                     if r.grad is not None:
                         p.grad = r.grad.to(first) if p.grad is None else p.grad + r.grad.to(first)
         metrics = {k: v / accum for k, v in totals.items()} if accum > 1 else totals
+        if runtime.process_count() > 1:
+            self._sync_processes(params, metrics, psnr_parts)
         return self._update(state, params, metrics)
+
+    @staticmethod
+    @torch.no_grad()
+    def _sync_processes(params: list, metrics: dict, psnr_parts: list) -> None:
+        """Over several processes: the gradients averaged (each process's are
+        those of its ranks' mean loss, and every process holds as many
+        ranks), the metrics averaged, PSNR from every process's parts; every
+        process then takes the same update."""
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        runtime.all_reduce_([p.grad for p in params], average=True)
+        keys = [k for k in metrics if k != "psnr"]
+        values = [metrics[k].reshape(1).float() for k in keys]
+        runtime.all_reduce_(values, average=True)
+        for k, v in zip(keys, values):
+            metrics[k] = v.reshape(()).to(metrics[k].dtype)
+        if "psnr" in metrics:
+            parts = runtime.all_gather_cat(torch.cat(psnr_parts))
+            metrics["psnr"] = psnr_from_parts(list(parts.to(metrics["psnr"].device)))
 
     @torch.no_grad()
     def validation_step(self, state: TrainState, batch, generator=None) -> dict:

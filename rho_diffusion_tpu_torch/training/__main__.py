@@ -23,11 +23,15 @@ on the card, CUDA activity) and writes the chrome trace into DIR when it
 ends.
 
 It runs on CUDA unless ``-d cpu`` is given (a config's "tpu" means CUDA) and
-raises when CUDA is absent.
+raises when CUDA is absent. ``RHO_MULTIHOST=1`` joins the process group the
+launcher's environment describes first (``parallel.mesh.initialize_distributed``),
+as ``scripts/training.py`` does; ``training_ddp`` and ``training_multihost``
+are the multi-process entry points.
 """
 from __future__ import annotations
 
 import argparse
+import os
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -59,6 +63,10 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
     parser.add_argument("--no-resume", action="store_true")
     args = parser.parse_args(argv)
 
+    if int(os.environ.get("RHO_MULTIHOST", "0")):
+        from rho_diffusion_tpu_torch.parallel.mesh import initialize_distributed
+
+        initialize_distributed()
     config = ExperimentConfig.from_json(args.json_config)
     device = resolve_device(args.device or config.training.device)
     if args.pipeline:

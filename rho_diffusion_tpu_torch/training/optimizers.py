@@ -144,7 +144,7 @@ class OptaxRule(torch.optim.Optimizer):
     A rule with ``trust_ratio`` scales its update by norms of the whole
     leaf: ``direction`` gives the update before the scaling and ``finish``
     applies it from the leaf's norms, which ZeRO-1 sums over the leaf's
-    shards (``training/zero1.py``)."""
+    shards (``training/sharded.py``)."""
 
     trust_ratio = False
 

@@ -14,10 +14,12 @@ here it holds the live objects the step updates in place:
   conditioning-dropout masks from (on the model's device);
 * ``mesh`` and ``replicas``: set by ``parallel.mesh.replicate_state`` for
   steps over a ("data", "context") mesh: the model's replica on each other
-  device of the mesh. Under ZeRO-1 (``parallel.mesh.shard_opt_state_zero1``)
-  ``optimizer`` is a ``training.zero1.Zero1Optimizer`` and ``ema`` a
-  ``ShardedEMA``, whose checkpoint payloads are gathered, so a checkpoint
-  is the same with and without them.
+  device of the mesh. Under ZeRO-1, FSDP or tensor parallelism
+  (``training.sharded``) ``optimizer`` is a ``ShardedOptimizer``, which
+  also holds the split parameters' pieces (the model then holds
+  placeholders: ``full_weights`` puts the whole ones in for a while), and
+  ``ema`` a ``GridEMA``. Their checkpoint payloads are gathered, so a
+  checkpoint is the same with and without them.
 
 ``state_dict()`` is the checkpoint payload: the backbone weights in the
 reference layout (``params``), the optimizer state, the EMA weights, the
@@ -25,6 +27,7 @@ step and the generator state, so a resumed run continues exactly.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
@@ -42,10 +45,20 @@ class TrainState:
     mesh: Optional[Any] = None
     replicas: dict = field(default_factory=dict)
 
+    def full_weights(self):
+        """A context inside which ``model`` holds its whole parameters (a
+        sharded state gathers them from its pieces)."""
+        materialized = getattr(self.optimizer, "materialized", None)
+        return materialized(self.model) if materialized else contextlib.nullcontext(self.model)
+
     def state_dict(self) -> dict:
+        params = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+        full_params = getattr(self.optimizer, "full_params", None)
+        if full_params:
+            params.update(full_params())
         return {
             "step": int(self.step),
-            "params": {k: v.detach().clone() for k, v in self.model.state_dict().items()},
+            "params": params,
             "opt_state": self.optimizer.state_dict(),
             "ema_params": (None if self.ema is None
                            else {k: v.detach().clone() for k, v in self.ema.items()}),
@@ -54,7 +67,11 @@ class TrainState:
 
     def load_state_dict(self, payload: dict) -> None:
         self.step = int(payload["step"])
-        self.model.load_state_dict(payload["params"], strict=True)
+        load_params = getattr(self.optimizer, "load_params", None)
+        if load_params:
+            load_params(payload["params"])
+        else:
+            self.model.load_state_dict(payload["params"], strict=True)
         self.optimizer.load_state_dict(payload["opt_state"])
         if self.ema is not None:
             if payload.get("ema_params") is None:

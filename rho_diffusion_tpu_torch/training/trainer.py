@@ -23,12 +23,13 @@ Port of ``rho_diffusion_tpu/training/trainer.py``: ``build_pipeline_from_config`
 
 The mesh (JAX :190-210, :272-276, :425-431): ``Trainer(mesh=...)`` takes a
 ``parallel.mesh.Mesh``; without one it builds ``training.mesh`` ("data",
-"context"; data -1 takes the rest) over every CUDA card, or over the one
-CPU with ``device="cpu"``, a sub-mesh when it asks for fewer ranks, and
-raises ``ValueError`` when it asks for more; a config without
-``training.mesh`` trains on the one device it names. Tests and chip_smoke pass an
-explicit ``make_mesh(4, 2, devices=[...] * 8)``, whose ranks may share a
-device. Over a mesh of more than one rank, or with ``zero1`` or
+"context"; data -1 takes the rest, the default when the config names no
+mesh, so a run spans every card as JAX's spans every device) over every
+CUDA card this process drives, or over the one CPU with ``device="cpu"``,
+a sub-mesh when it asks for fewer ranks, and raises ``ValueError`` when it
+asks for more. Tests and chip_smoke pass an explicit ``make_mesh(4, 2,
+devices=[...] * 8)``, whose ranks may share a device. Over a mesh of more
+than one rank, or with ``zero1``, ``fsdp``, ``tensor_parallel`` or
 ``spatial_sharding``:
 
 * the batch must divide by the data axis (``ValueError``), the learning
@@ -38,15 +39,31 @@ device. Over a mesh of more than one rank, or with ``zero1`` or
   ``spatial_sharding`` the 5-D ``data`` key's depth over "context" (labels
   keep plain batch sharding); ``device_cache`` with ``device_cache_shard``
   splits the table's rows over the data ranks;
-* the state is replicated (``replicate_state``), ``zero1`` splits the
-  optimizer state and the EMA (``shard_opt_state_zero1``), and every step
-  runs under ``active_mesh``;
-* checkpoints gather ZeRO-1's slices and split them on restore, so the
-  exact mid-epoch resume holds.
+* the state is replicated (``replicate_state``), or split as JAX's
+  ``init_state`` splits it (JAX :272-341): ``tensor_parallel`` cuts the
+  large weights by output channel over "context" (``parallel.tensor``,
+  ``tp_min_dim``), ``fsdp`` the parameters, moments and EMA 1/N over
+  "data", ``zero1`` the moments and EMA; a fresh FSDP run without TP or
+  ``weights_path`` starts straight in its shards (``create_state_fsdp``:
+  the pipeline's backbone is built on the host for FSDP and TP runs, and
+  only slices reach the cards), and every step runs under ``active_mesh``;
+* checkpoints gather the slices and split them on restore, so the exact
+  mid-epoch resume holds and a checkpoint moves between sharded and plain
+  runs.
 
-``fsdp`` and ``zero1`` together raise ``ValueError`` as in JAX;
-``tensor_parallel`` and ``fsdp`` are not ported and raise
-``NotImplementedError`` (ROADMAP Queue 1 item 13b).
+Several processes (``parallel.mesh.initialize_distributed``, the
+``training_ddp`` and ``training_multihost`` CLIs): the global mesh's data
+ranks are split evenly over the processes in process order, each process
+drives its own (its context groups stay inside it), the loader builds its
+rows of each batch, and the step averages gradients and metrics over the
+processes. Only process 0 logs and writes checkpoints; every process waits
+at a barrier before one is read.
+
+``fsdp`` and ``zero1`` together raise ``ValueError`` as in JAX. Not ported
+yet (``NotImplementedError``, ROADMAP Queue 1 item 13c): ``tensor_parallel``
+with ``spatial_sharding``, and ``zero1`` or ``fsdp`` over a data axis that
+spans processes. ``device_cache`` over several processes raises
+``ValueError`` as JAX's does.
 """
 from __future__ import annotations
 
@@ -63,17 +80,22 @@ import torch
 from rho_diffusion_tpu_torch.config import ExperimentConfig
 from rho_diffusion_tpu_torch.data.device_cache import DeviceDatasetCache
 from rho_diffusion_tpu_torch.data.loader import DataLoader, Subset, prefetch, prefetch_to_device
+from rho_diffusion_tpu_torch.parallel import runtime
 from rho_diffusion_tpu_torch.parallel.mesh import (
     CONTEXT_AXIS,
     DATA_AXIS,
     Mesh,
     active_mesh,
     batch_sharding,
+    create_state_fsdp,
+    fsdp_abstract_state,
     make_mesh,
     replicate_state,
     shard_batch,
     shard_opt_state_zero1,
+    shard_state_fsdp,
 )
+from rho_diffusion_tpu_torch.parallel.tensor import shard_params_for_tp
 from rho_diffusion_tpu_torch.registry import registry
 from rho_diffusion_tpu_torch.training.checkpoint import (
     CheckpointManager,
@@ -86,9 +108,6 @@ from rho_diffusion_tpu_torch.training.profiling import trace
 from rho_diffusion_tpu_torch.training.state import TrainState
 from rho_diffusion_tpu_torch.utils import resolve_device
 
-_NOT_PORTED = ("tensor_parallel", "fsdp")
-
-
 def build_pipeline_from_config(
     config: ExperimentConfig,
     dataset=None,
@@ -97,12 +116,14 @@ def build_pipeline_from_config(
     world_size: int = 1,
     steps_per_epoch: int = 1,
     seed: Optional[int] = None,
+    backbone_device=None,
 ):
     """The pipeline a config names: the schedule, the backbone by name,
     MultiEmbeddings over the dataset's parameter space, the compute dtype
     from ``training.dtype``, the optimizer with the LR schedule evaluated
     per update (``steps_per_epoch`` converts its epochs), and parameters
-    seeded with ``seed`` (default ``inference.seed``)."""
+    seeded with ``seed`` (default ``inference.seed``), left on
+    ``backbone_device`` (default ``device``)."""
     from rho_diffusion_tpu_torch.diffusion.ddpm import DDPM
     from rho_diffusion_tpu_torch.diffusion.diffusers_compat import DiffusersDDPMPipeline
     from rho_diffusion_tpu_torch.diffusion.gaussian import GaussianDiffusionPipeline
@@ -152,40 +173,52 @@ def build_pipeline_from_config(
         save_checkpoint_every_n_epochs=config.training.save_checkpoint_every_n_epochs,
         device=device,
         seed=config.inference.seed if seed is None else seed,
+        backbone_device=backbone_device,
         **pipeline_kwargs,
     )
 
 
 def check_mesh_options(config: ExperimentConfig) -> None:
-    """JAX's rules for the mesh options: fsdp and zero1 exclude each other
-    (``ValueError``); tensor_parallel and fsdp are not ported."""
+    """JAX's rules for the mesh options, and the port's refusals: fsdp and
+    zero1 exclude each other (``ValueError``); tensor parallelism under
+    spatial sharding, and zero1 or fsdp over several processes, are not
+    ported (``NotImplementedError``, ROADMAP Queue 1 item 13c)."""
     cfg = config.training
     if cfg.fsdp and cfg.zero1:
         raise ValueError("training.fsdp and training.zero1 are mutually exclusive: "
                          "fsdp (ZeRO-3) already shards the optimizer state")
-    on = [name for name in _NOT_PORTED if getattr(cfg, name)]
-    if on:
+    if cfg.tensor_parallel and cfg.spatial_sharding:
         raise NotImplementedError(
-            f"training options {on} shard the parameters, which is not ported yet "
-            "(ROADMAP Queue 1 item 13b); zero1 shards the optimizer state")
+            "training.tensor_parallel with spatial_sharding: both split over the context axis, "
+            "which is not ported yet (ROADMAP Queue 1 item 13c)")
+    if runtime.process_count() > 1 and (cfg.zero1 or cfg.fsdp):
+        raise NotImplementedError(
+            "training.zero1 or fsdp over a data axis that spans processes is not ported yet "
+            "(ROADMAP Queue 1 item 13c): its slices would be exchanged between processes")
 
 
 def mesh_from_config(config: ExperimentConfig, device: torch.device) -> Mesh:
-    """``training.mesh`` over every CUDA card (the one CPU when ``device`` is
-    the CPU): data -1 takes the rest, a mesh of fewer ranks than devices
-    takes the first ones (JAX :190-198), and one of more raises. Without
-    ``training.mesh``, the one ``device``."""
-    spec = config.training.mesh
-    if spec is None:
-        return make_mesh(1, 1, [device])
+    """``training.mesh`` (by default data -1, context 1: every rank) over the
+    CUDA cards this process drives (the one CPU when ``device`` is the CPU):
+    data -1 takes the rest, a mesh of fewer ranks than devices takes the
+    first ones (JAX :190-198), and one of more raises. Over several
+    processes the mesh is global: its data ranks are split evenly over the
+    processes in process order, and this process's part of the mesh, over
+    its own devices, is returned."""
+    spec = config.training.mesh or {}
     data, context = int(spec.get("data", -1)), int(spec.get("context", 1))
-    if device.type == "cpu":
-        devices = [device]
-    else:
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    if data != -1 and data * context < len(devices):
-        devices = devices[:data * context]
-    return make_mesh(data, context, devices)
+    devices = [device] if device.type == "cpu" else runtime.local_devices()
+    procs = runtime.process_count()
+    if data == -1:
+        if context < 1 or (len(devices) * procs) % context:
+            raise ValueError(f"{len(devices) * procs} devices not divisible by context={context}")
+        data = len(devices) * procs // context
+    if data % procs:
+        raise ValueError(f"the mesh's {data} data ranks do not split over {procs} processes")
+    ranks = data // procs * context
+    if ranks < len(devices):
+        devices = devices[:ranks]
+    return make_mesh(data // procs, context, devices)
 
 
 @contextlib.contextmanager
@@ -224,18 +257,16 @@ class Trainer:
         self.config = config
         cfg = config.training
         if mesh is None:
-            device = resolve_device(device or cfg.device)
-            mesh = mesh_from_config(config, device)
-            if cfg.mesh is not None:
-                device = mesh.devices[0][0]
-        else:
-            device = mesh.devices[0][0]
+            mesh = mesh_from_config(config, resolve_device(device or cfg.device))
         self.mesh = mesh
-        self.device = device
-        self.world_size = mesh.shape[DATA_AXIS] * mesh.shape[CONTEXT_AXIS]
+        self.device = device = mesh.devices[0][0]
+        self.processes = runtime.process_count()
+        # the global mesh's ranks: this process's, as many in every process
+        self.world_size = mesh.shape[DATA_AXIS] * mesh.shape[CONTEXT_AXIS] * self.processes
         # the mesh step: several ranks, or an option that shards one rank's state
-        self.on_mesh = self.world_size > 1 or cfg.zero1 or cfg.spatial_sharding
-        data_size = mesh.shape[DATA_AXIS]
+        self.on_mesh = (self.world_size > 1 or cfg.zero1 or cfg.fsdp or cfg.tensor_parallel
+                        or cfg.spatial_sharding)
+        data_size = mesh.shape[DATA_AXIS] * self.processes
         if cfg.batch_size % data_size:
             raise ValueError(
                 f"batch_size {cfg.batch_size} is not divisible by the {data_size}-rank data "
@@ -263,7 +294,8 @@ class Trainer:
         if pipeline is None:
             pipeline = build_pipeline_from_config(
                 config, dataset=dataset, device=self.device, world_size=self.world_size,
-                steps_per_epoch=max(len(self.loader), 1), seed=cfg.seed)
+                steps_per_epoch=max(len(self.loader), 1), seed=cfg.seed,
+                backbone_device="cpu" if cfg.fsdp or cfg.tensor_parallel else None)
         self.pipeline = pipeline
         self.checkpoints = CheckpointManager(cfg.checkpoint_dir or self.work_dir / "checkpoints")
         self.loggers = build_loggers(loggers if loggers is not None else cfg.loggers,
@@ -271,6 +303,8 @@ class Trainer:
         self.step_times: list[float] = []
 
     def log(self, record: dict) -> None:
+        if runtime.process_index() != 0:
+            return
         for lg in self.loggers:
             lg.log(record)
 
@@ -299,25 +333,48 @@ class Trainer:
         """A fresh state seeded with ``training.seed``; then the backbone
         weights of ``weights_path`` (a ``.pth`` or JAX ``.npz``; the EMA
         keeps the seeded weights, as in the JAX package), or the latest
-        checkpoint when resuming."""
-        state = self.pipeline.create_state(seed=self.config.training.seed)
+        checkpoint when resuming; then split over the mesh as JAX's
+        ``init_state`` splits it (module docstring)."""
+        cfg = self.config.training
+        runtime.barrier()  # a checkpoint another process writes is complete
         latest = self.checkpoints.latest_step()
+        resuming = resume and latest is not None
+        sharded_init = cfg.fsdp and not cfg.tensor_parallel and not weights_path
+        if sharded_init:
+            make = fsdp_abstract_state if resuming else create_state_fsdp
+            state = make(self.pipeline.create_state, cfg.seed, self.mesh)
+        else:
+            state = self.pipeline.create_state(seed=cfg.seed)
         if weights_path:
             self.pipeline.load_state_dict(load_weights_auto(
                 state.model, weights_path, dict(self.config.model.kwargs),
                 self.config.model.name))
-        elif resume and latest is not None:
+        elif resuming:
             self.checkpoints.restore(state)
             self.log({"event": "resumed", "step": int(state.step)})
         elif latest is not None:
             self.log({"event": "stale_checkpoints", "latest_step": int(latest),
                       "warning": "starting fresh over existing checkpoints; "
                                  "consider a clean checkpoint_dir"})
-        if self.on_mesh:
+        if not self.on_mesh:
+            return state
+        if cfg.tensor_parallel:
+            shard_params_for_tp(state, self.mesh, min_dim=cfg.tp_min_dim)
+        elif not cfg.fsdp:
             replicate_state(state, self.mesh)
-            if self.config.training.zero1:
-                shard_opt_state_zero1(state, self.mesh)
+        if cfg.fsdp and not sharded_init:
+            shard_state_fsdp(state, self.mesh)
+        elif cfg.zero1:
+            shard_opt_state_zero1(state, self.mesh)
         return state
+
+    def save_checkpoint(self, state: TrainState) -> None:
+        """The full state's checkpoint and ``model.pth``, from process 0."""
+        if runtime.process_index() != 0:
+            return
+        self.checkpoints.save(state)
+        with state.full_weights() as model:
+            save_model_weights(model, self.work_dir / "model.pth")
 
     # -- epoch-end hooks ------------------------------------------------
     def maybe_sample(self, state: TrainState, epoch: int) -> None:
@@ -328,16 +385,18 @@ class Trainer:
 
         use_ema = state.ema is not None and self.config.training.sample_params != "raw"
         space = getattr(self.dataset, "parameter_space", None)
-        with swapped_weights(state.model, state.ema) if use_ema else contextlib.nullcontext():
+        with state.full_weights(), (swapped_weights(state.model, state.ema) if use_ema
+                                    else contextlib.nullcontext()):
             samples = self.pipeline.generate(
                 torch.Generator(device=self.device).manual_seed(epoch),
                 batch_size=min(self.config.training.batch_size, 16),
                 parameter_space=space.parameters if space is not None else None,
                 as_hash_embeddings=bool(getattr(self.dataset, "use_emb_as_labels", False)),
             )
-        out = self.work_dir / f"output_{epoch}.png"
-        plot_tensor_images(samples.float().cpu().numpy(), filename=str(out))
-        self.log({"event": "sampled", "epoch": epoch, "file": str(out)})
+        if runtime.process_index() == 0:
+            out = self.work_dir / f"output_{epoch}.png"
+            plot_tensor_images(samples.float().cpu().numpy(), filename=str(out))
+            self.log({"event": "sampled", "epoch": epoch, "file": str(out)})
 
     def maybe_validate(self, state: TrainState, epoch: int) -> None:
         every = self.config.training.validate_every_n_epochs
@@ -352,7 +411,8 @@ class Trainer:
                 if n == 0:
                     continue
                 batch = {k: v[:n] if isinstance(v, np.ndarray) else v for k, v in batch.items()}
-            m = self.pipeline.validation_step(state, batch)
+            with state.full_weights():
+                m = self.pipeline.validation_step(state, batch)
             losses.append(float(m["train_loss"]))
             psnrs.append(float(m["psnr"]))
             weights.append(len(batch["data"]))
@@ -365,8 +425,7 @@ class Trainer:
         every = self.config.training.save_checkpoint_every_n_epochs
         if not every or (epoch + 1) % every:
             return
-        self.checkpoints.save(state)
-        save_model_weights(state.model, self.work_dir / "model.pth")
+        self.save_checkpoint(state)
 
     # -- main loop ------------------------------------------------------
     def fit(self, state: Optional[TrainState] = None,
@@ -444,7 +503,8 @@ class Trainer:
                             self.step_times.append(dt)
                         self.log(rec)
                 if preempted:
-                    self.checkpoints.save(state)
+                    if runtime.process_index() == 0:
+                        self.checkpoints.save(state)
                     self.log({"event": "preempted", "signal": int(preempted[0]),
                               "step": int(state.step)})
                     break
@@ -461,8 +521,7 @@ class Trainer:
             profiling.close()
             for sig, handler in prev_handlers.items():
                 signal.signal(sig, handler)
-        self.checkpoints.save(state)
-        save_model_weights(state.model, self.work_dir / "model.pth")
+        self.save_checkpoint(state)
         for lg in self.loggers:
             lg.close()
         return state

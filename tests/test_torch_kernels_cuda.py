@@ -28,7 +28,9 @@ the plain version and the pair, bitwise repeatable, and the long route's
 device memory at T = 4096 and 16384 (linear in T); the narrow forward and
 the long backward at head dim 8 (UNet_Diffuser's, padded to 16) at T = 1024
 and 4096; the direct conv's three flagship convs at full
-width and shapes off its 8 x 32 voxel tile; and the ring-attention kernel
+width and shapes off its 8 x 32 voxel tile; K5 and the direct conv, forward
+and dgrad, at the output-channel blocks tensor parallelism gives a context
+rank of the flagship (Cout 32 at level 0); and the ring-attention kernel
 (K6, one launch per card) in its ring of 2 and 4 ranks on one card at T/n =
 128 and 1024, ragged shards and a padded head dim, and with one rank per
 card where there are two or more. The spatial-sharding route: K5 and its
@@ -807,6 +809,37 @@ def test_conv3d_dgrad_kernel_matches_plain(cuda, gshape, cin, dtype, kernel):
     tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_FP32
     torch.testing.assert_close(got.float(), conv3d_dgrad_plain(g.float(), w.float()),
                                atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize(
+    "shape,cout,kernels",
+    [
+        # tensor parallelism over context 2 on the flagship (32^3, width 64):
+        # each rank's block of output channels, and its dgrad (Cin' = Cout/2)
+        ((2, 32, 32, 32, 1), 32, ("conv3d_direct", None)),  # input conv: no dgrad on the path
+        ((2, 32, 32, 32, 64), 32, ("conv3d_igemm", "conv3d_dgrad_igemm")),  # level 0
+        ((2, 16, 16, 16, 64), 64, ("conv3d_igemm", "conv3d_dgrad_igemm")),  # level 1 in_layers
+        ((2, 16, 16, 16, 192), 64, ("conv3d_igemm", "conv3d_dgrad_igemm")),  # a decoder skip
+        ((2, 4, 4, 4, 512), 256, ("conv3d_igemm", "conv3d_dgrad_igemm")),  # level 3
+    ],
+)
+def test_conv3d_tp_slices_match_plain(cuda, shape, cout, kernels):
+    """K5 (or the direct conv) forward and dgrad at the output-channel blocks
+    tensor parallelism gives a context rank, bf16, against the plain version."""
+    cin = shape[-1]
+    x = randn(shape, 21, cuda, torch.bfloat16)
+    w = randn((cout, cin, 3, 3, 3), 22, cuda, torch.bfloat16, 1 / math.sqrt(27 * cin))
+    g = randn((*shape[:-1], cout), 23, cuda, torch.bfloat16)
+    launch_counts.clear()
+    y = conv3d(x, w)
+    dx = None if kernels[1] is None else conv3d_dgrad(g, w)
+    torch.cuda.synchronize()
+    assert launch_counts == {k: 1 for k in kernels if k is not None}
+    torch.testing.assert_close(y.float(), conv3d_plain(x.float(), w.float()),
+                               atol=TOL_BF16, rtol=TOL_BF16)
+    if dx is not None:
+        torch.testing.assert_close(dx.float(), conv3d_dgrad_plain(g.float(), w.float()),
+                                   atol=TOL_BF16, rtol=TOL_BF16)
 
 
 def test_conv3d_dgrad_1024_runs_four_n_tiles(cuda):

@@ -175,9 +175,12 @@ def test_spatial_zero1_steps_match_jax():
     shard_opt_state_zero1(replicate_state(ts, mesh), mesh)
     # each data rank keeps 1/4 of every leaf that splits
     zero = ts.optimizer
-    for (p, dim), sh in zip(zero.sharded, zero.shards[0]):
-        assert sh.numel() * 4 == p.numel()
-        assert zero.shard_state(0)[zero.names[p]]["exp_avg"].numel() * 4 == p.numel()
+    split = [leaf for leaf in zero.leaves if leaf.zero1]
+    assert split
+    for leaf in split:
+        sh = leaf.shards[(0, 0)]
+        assert sh.numel() * 4 == math.prod(leaf.shape)
+        assert zero.opts[(0, 0)].state[sh]["exp_avg"].numel() * 4 == math.prod(leaf.shape)
     per_key = {"data": batch_sharding(mesh, spatial=True)}
     for i in (1, 2):
         b = batch(i)
@@ -254,11 +257,13 @@ def test_zero1_lamb_matches_the_unsharded_port():
     assert set(sd["state"]) == set(a.optimizer.state_dict()["state"])
     b.optimizer.load_state_dict(a.optimizer.state_dict())
     a_params = dict(a.model.named_parameters())
-    for (p, dim), sh in zip(b.optimizer.sharded, b.optimizer.shards[1]):
-        want = a.optimizer.state[a_params[b.optimizer.names[p]]]["mu"]
-        size = want.shape[dim] // 4
-        assert torch.equal(b.optimizer.rank_opts[1].state[sh]["mu"],
-                           want.narrow(dim, size, size))
+    for leaf in b.optimizer.leaves:
+        if not leaf.zero1:
+            continue
+        want = a.optimizer.state[a_params[leaf.name]]["mu"]
+        size = want.shape[leaf.sdim] // 4
+        assert torch.equal(b.optimizer.opts[(1, 0)].state[leaf.shards[(1, 0)]]["mu"],
+                           want.narrow(leaf.sdim, size, size))
 
 
 class Volumes:
@@ -313,7 +318,7 @@ def test_trainer_on_multichip_config_resumes_exactly(tmp_path):
     again = Trainer(multichip_config(), dataset=Volumes(), work_dir=tmp_path / "b", device="cpu",
                     mesh=cpu_mesh())
     state = again.init_state()
-    assert state.step == 3 and type(state.optimizer).__name__ == "Zero1Optimizer"
+    assert state.step == 3 and state.optimizer.zero1 and not state.optimizer.fsdp
     got = again.fit(state)
     assert got.step == 4
     for name, p in want.model.state_dict().items():
@@ -327,19 +332,25 @@ def test_trainer_on_multichip_config_resumes_exactly(tmp_path):
 
 def test_trainer_mesh_rules(tmp_path):
     """JAX's rules: a batch that does not divide by the data axis raises
-    ValueError; fsdp with zero1 raises ValueError; fsdp and tensor_parallel
-    raise NotImplementedError naming item 13; the config's 4 x 2 mesh
-    without a mesh on a host of one device raises as JAX's make_mesh does."""
+    ValueError; fsdp with zero1 raises ValueError; fsdp, and tensor_parallel
+    without spatial sharding, build a Trainer; tensor_parallel with spatial
+    sharding raises NotImplementedError naming item 13c; the config's 4 x 2
+    mesh without a mesh on a host of one device raises as JAX's make_mesh
+    does."""
     with pytest.raises(ValueError, match="not divisible by the 4-rank data axis"):
         Trainer(multichip_config(batch_size=6), dataset=Volumes(), work_dir=tmp_path,
                 device="cpu", mesh=cpu_mesh())
     with pytest.raises(ValueError, match="mutually exclusive"):
         Trainer(multichip_config(fsdp=True), dataset=Volumes(), work_dir=tmp_path, device="cpu",
                 mesh=cpu_mesh())
-    for option in ({"fsdp": True, "zero1": False}, {"tensor_parallel": True}):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            Trainer(multichip_config(**option), dataset=Volumes(), work_dir=tmp_path,
-                    device="cpu", mesh=cpu_mesh())
+    for option in ({"fsdp": True, "zero1": False},
+                   {"tensor_parallel": True, "spatial_sharding": False}):
+        trainer = Trainer(multichip_config(**option), dataset=Volumes(), work_dir=tmp_path,
+                          device="cpu", mesh=cpu_mesh())
+        assert trainer.on_mesh and trainer.world_size == 8
+    with pytest.raises(NotImplementedError, match="item 13c"):
+        Trainer(multichip_config(tensor_parallel=True), dataset=Volumes(), work_dir=tmp_path,
+                device="cpu", mesh=cpu_mesh())
     with pytest.raises(ValueError, match="mesh 4x2 != 1 available devices"):
         Trainer(multichip_config(), dataset=Volumes(), work_dir=tmp_path, device="cpu")
 

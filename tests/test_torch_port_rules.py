@@ -356,19 +356,15 @@ def test_benchmark_entries_need_cuda_unless_asked_for_the_cpu(entry):
     {"device_cache": True}, {"mesh": {"data": 2, "context": 1}}, {"mesh": {"context": 2}},
 ], ids=lambda o: next(iter(o)))
 def test_unsupported_trainer_options_raise(tmp_path, option):
-    """The options that shard the parameters (fsdp, tensor_parallel) raise,
-    naming ROADMAP item 13b. ``device_cache`` builds a Trainer, whose cache
-    comes up at its first use on the device asked for. ZeRO-1, spatial
-    sharding and a data or context mesh build and step given a mesh of CPU
-    ranks (a 2 x 2 one); without one, a config mesh of more ranks than the
-    CPU's one raises ``ValueError`` as JAX's ``make_mesh`` does."""
+    """No trainer option is refused any more on one process. ``device_cache``
+    builds a Trainer, whose cache comes up at its first use on the device
+    asked for. FSDP, ZeRO-1, tensor parallelism, spatial sharding and a data
+    or context mesh build and step given a mesh of CPU ranks (a 2 x 2 one);
+    without one, a config mesh of more ranks than the CPU's one raises
+    ``ValueError`` as JAX's ``make_mesh`` does."""
     cfg = json.loads((ROOT / "examples" / "config_smoke.json").read_text())
     cfg["training"].update(option)
     config = ExperimentConfig.from_dict(cfg)
-    if "fsdp" in option or "tensor_parallel" in option:
-        with pytest.raises(NotImplementedError, match="item 13"):
-            Trainer(config, work_dir=tmp_path, device="cpu")
-        return
     if option == {"device_cache": True}:
         trainer = Trainer(config, work_dir=tmp_path, device="cpu")
         assert trainer.config.training.device_cache
